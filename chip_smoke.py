@@ -9,18 +9,32 @@ Phases, each printed as it completes; any failure exits non-zero before the
 result line is printed:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
-2. build    — every CUDA kernel of the main path, built from ``src/`` with
-              ``nvcc`` (one process per source, started together);
-3. compare  — kernel B1 (``spmm_sell``) against its plain PyTorch version
-              on the card, over C x k x dtype on two operands;
-4. main     — the port's main path as a user drives it: a ``KernelRegistry``
-              on the card registers cage10 and a 2,097,152-row operand, a
+2. build    — every CUDA kernel of the main paths (``spmm_sell.cu``,
+              ``graph_step.cu``), built from ``src/`` with ``nvcc`` (one
+              process per source, started together);
+3. compare  — each kernel against its plain PyTorch version on the card:
+              B1 (``spmm_sell``) over C x k x dtype on two operands; the
+              graph kernels B3 (``bfs_step_sell``, ``pagerank_step_sell``),
+              B4 (``bfs_step``) and B5 (``pagerank_step``) over RMAT and
+              uniform graphs at 2^12 and a prime node count, C x k;
+4. main     — the SpMV path as a user drives it: a ``KernelRegistry`` on the
+              card registers cage10 and a 2,097,152-row operand, a
               ``KernelService(n_slots=32)`` serves 64 SpMV requests, every
-              result is checked; kernel launch counts are read around it;
-5. timing   — B1 at the main path's shapes, CUDA events, beside its
-              bytes bound (the function's least traffic: stored entries,
-              row ids, X and Y once each), the same figure over the padded
-              slabs, the plain version and ``torch.sparse.mm``.
+              result is checked; B1's launch count is read around it;
+5. graphs   — the graph path as a user drives it: the registry registers
+              rmat15 (2^15 nodes) and uniform21 (2^21 nodes), the service
+              serves 32 BFS and 32 PageRank requests per graph (groups of
+              k = 32), every result is checked against the plain drive on
+              the card and some against the host references; then
+              ``ops.bfs`` / ``ops.pagerank`` on the ELLPACK layout; each
+              graph kernel's launch count is read around its drive;
+6. timing   — every kernel at the main paths' shapes, CUDA events with the
+              L2 flushed, beside its bytes bound (the function's least
+              traffic), the same figure over the padded layout, the plain
+              version and, where one PyTorch call computes the same
+              function, that call (``torch.sparse.mm``); then one graph
+              drive per (graph, op) under ``torch.profiler``: the graph
+              kernels' device time against the drive's wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with a record per kernel.
@@ -36,13 +50,25 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-#: H100 SXM data sheet: HBM3 bandwidth and fp64 (non-tensor) peak
+#: H100 SXM data sheet: HBM3 bandwidth, fp64 and fp32 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
+FP32_OPS = 67e12
 BIG = dict(n_rows=2_097_152, n_cols=2_097_152, avg_nnz_row=16.0, seed=0,
            skew=1.0)
 N_SLOTS = 32
 REQUESTS_PER_OPERAND = 32
+#: the graph path's operands: generator name and arguments
+GRAPHS = {
+    "rmat15": ("rmat_graph", dict(n_nodes=1 << 15, avg_degree=16, seed=0)),
+    "uniform21": ("random_graph", dict(n_nodes=1 << 21, avg_degree=16,
+                                       seed=0)),
+}
+DAMPINGS = (0.85, 0.9, 0.8, 0.95)
+ITERS = 20
+PR_RTOL = 1e-10
+#: where every tensor of the run lives: the card
+DEVICE = "cuda"
 
 
 def phase(name: str, msg: str) -> None:
@@ -75,14 +101,14 @@ def compare_kernel(torch, np, sell_core, F) -> float:
             csr = make(dt)
             for c in (8, 32, 128, 256):
                 slabs = F.csr_to_sell_slabs(csr, c=c)
-                cols, vals, rows = slabs.to_device("cuda")
+                cols, vals, rows = slabs.to_device(DEVICE)
                 # k_block 32: k_tile = pow2_ceil(k); the extra k=32 cases
                 # reach every k_tile instantiation (1 .. 32)
                 cases = [(1, 32), (8, 32), (32, 32), (32, 2), (32, 4),
                          (32, 16)]
                 for k, kb in cases:
                     x = torch.from_numpy(
-                        rng.standard_normal((csr.n_cols, k)).astype(dt)).cuda()
+                        rng.standard_normal((csr.n_cols, k)).astype(dt)).to(DEVICE)
                     got = sell_core.spmm_sell(cols, vals, rows, x,
                                               n_rows=csr.n_rows, k_block=kb)
                     torch.cuda.synchronize()
@@ -138,47 +164,114 @@ def bucket_ms(torch, sell_core, cols, vals, rows, x, n_rows, k_block, flush,
     return out
 
 
-def main() -> int:
-    import torch
+def graph_compare_cases(G):
+    """The compare phase's graphs: RMAT and uniform, at 2^12 nodes and at
+    the prime 4093 (no slice or block divides it)."""
+    return {
+        "rmat4096": G.rmat_graph(4096, 16, seed=1),
+        "uniform4096": G.random_graph(4096, 8, seed=2),
+        "rmat4093": G.rmat_graph(4093, 8, seed=3),
+        "uniform4093": G.random_graph(4093, 16, seed=4),
+    }
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this run "
-              "needs an NVIDIA GPU", file=sys.stderr)
-        return 2
-    import numpy as np
 
-    from repro_torch.kernels import cuda_lib, sell_core
-    from repro_torch.service import KernelRegistry, KernelService
-    from repro_torch.sparse import formats as F
+def rel_err(got, want) -> float:
+    """max |got - want| / |want| over entries with want != 0 (0 if none)."""
+    nz = want != 0
+    if not bool(nz.any()):
+        return 0.0
+    return float(((got - want).abs()[nz] / want.abs()[nz]).max())
 
-    # -- 1. device -----------------------------------------------------------
-    smi = smi_line()
-    kind = torch.cuda.get_device_name(0)
-    phase("device", f"{smi} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
-    # -- 2. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    built = cuda_lib.build_all()
-    for b in built:
-        regs = [ln.strip() for ln in b.log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        phase("build", f"{b.name}: {b.path.name} in {b.seconds:.1f} s")
-        for ln in regs:
-            phase("build", f"  {ln}")
-    phase("build", f"all kernels built in {time.perf_counter() - t0:.1f} s")
+def check_pr(name: str, got, want) -> float:
+    """PageRank agreement at rtol PR_RTOL (only the summation order
+    differs); returns the max abs error."""
+    bad = (got - want).abs() > PR_RTOL * want.abs()
+    if bool(bad.any()) or got.shape != want.shape:
+        raise AssertionError(f"{name}: rel err {rel_err(got, want):.3e} > "
+                             f"{PR_RTOL}")
+    return max_err(got, want)
 
-    # -- 3. kernel vs plain ------------------------------------------------
-    compare_kernel(torch, np, sell_core, F)
 
-    # -- 4. main path --------------------------------------------------------
+def compare_graph_kernels(torch, np, G, bfs_k, pr_k) -> dict:
+    """Phase 3 (graphs): B3 (BFS and PageRank combines), B4 and B5 against
+    their plain versions on the card; BFS exactly, PageRank at rtol 1e-10.
+    Returns the worst PageRank relative error per kernel."""
+    rng = np.random.default_rng(2)
+    INF = G.INF
+    worst = {"pagerank_step_sell": 0.0, "pagerank_step": 0.0}
+    n_cases = 0
+    for name, g in graph_compare_cases(G).items():
+        n = g.n_nodes
+        rg = g.transpose()
+        # ELLPACK: B4 over the levels from one source, B5 on random input
+        radj = rg.to_device(DEVICE)
+        dist = torch.full((n,), INF, dtype=torch.int32, device=DEVICE)
+        dist[int(rng.integers(n))] = 0
+        for level in range(1, 64):
+            got = bfs_k.bfs_step(radj, dist, level)
+            want = bfs_k.bfs_step_ref(radj, dist, level)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"B4 vs plain: {name} level {level}")
+            n_cases += 1
+            if torch.equal(got, dist):
+                break
+            dist = got
+        contrib = torch.from_numpy(rng.random(n)).to(DEVICE)
+        consts = torch.from_numpy(rng.random(3)).to(DEVICE)
+        got = pr_k.pagerank_step(radj, contrib, consts)
+        want = pr_k.pagerank_step_ref(radj, contrib, consts)
+        check_pr(f"B5 vs plain: {name}", got, want)
+        worst["pagerank_step"] = max(worst["pagerank_step"], rel_err(got, want))
+        n_cases += 1
+        # SELL: B3 with both combines, scalar state and k columns
+        for c in (8, 32, 128, 256):
+            adj, nodes = G.graph_to_sell_slabs(rg, c=c).to_device(DEVICE)
+            for k in (None, 1, 6, 8, 12, 32, 48):
+                cols = 1 if k is None else k
+                src = torch.from_numpy(rng.choice(n, cols, replace=False))
+                shape = (n + 1,) if k is None else (n + 1, k)
+                dist = torch.full(shape, INF, dtype=torch.int32, device=DEVICE)
+                if k is None:
+                    dist[int(src[0])] = 0
+                else:
+                    dist[src.to(DEVICE), torch.arange(k, device=DEVICE)] = 0
+                for level in range(1, 5):
+                    got = bfs_k.bfs_step_sell(adj, nodes, dist, level)
+                    want = bfs_k.bfs_step_sell_ref(adj, nodes, dist, level)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"B3-BFS vs plain: {name} C={c} k={k} level {level}")
+                    n_cases += 1
+                    dist = got
+                contrib = torch.from_numpy(rng.random(shape)).to(DEVICE)
+                contrib[-1] = 0.0
+                consts = torch.from_numpy(
+                    rng.random((3,) if k is None else (3, k))).to(DEVICE)
+                got = pr_k.pagerank_step_sell(adj, nodes, contrib, consts)
+                want = pr_k.pagerank_step_sell_ref(adj, nodes, contrib, consts)
+                check_pr(f"B3-PR vs plain: {name} C={c} k={k}", got, want)
+                worst["pagerank_step_sell"] = max(
+                    worst["pagerank_step_sell"], rel_err(got, want))
+                n_cases += 1
+        phase("compare", f"{name}: B4/B5 and B3 (BFS, PageRank) at C in (8, "
+              "32, 128, 256) x k in (scalar, 1, 6, 8, 12, 32, 48) agree")
+    phase("compare", f"{n_cases} graph cases ok; BFS exactly equal, PageRank "
+          f"max rel err {max(worst.values()):.3e} (rtol {PR_RTOL})")
+    return worst
+
+
+def spmv_main_path(torch, np, F, sell_core, KernelRegistry, KernelService):
+    """Phase 4: the SpMV path through the registry and the service."""
     t0 = time.perf_counter()
     cage = F.cage10_like(seed=0)
     big = F.random_csr(**BIG)
     phase("main", f"operands generated in {time.perf_counter() - t0:.1f} s: "
           f"cage10 {cage.n_rows}x{cage.n_cols} nnz {cage.nnz}; big "
           f"{big.n_rows}x{big.n_cols} nnz {big.nnz}")
-    reg = KernelRegistry(device="cuda")
+    reg = KernelRegistry(device=DEVICE)
     operands = {"cage10": cage, "big": big}
     for name, csr in operands.items():
         op = reg.register_matrix(name, csr)
@@ -224,7 +317,7 @@ def main() -> int:
         if tuple(got.shape) != (csr.n_rows, len(rids[name])) \
                 or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{name}: bad result shape/values")
-        x_stack = torch.from_numpy(np.stack(xs[name], axis=1)).cuda()
+        x_stack = torch.from_numpy(np.stack(xs[name], axis=1)).to(DEVICE)
         want = sell_core.spmm_sell_ref(arrs["cols"], arrs["vals"],
                                        arrs["rows"], x_stack, n_rows=csr.n_rows)
         err_ref = max_err(got, want)
@@ -237,9 +330,394 @@ def main() -> int:
               f"{err_host:.3e} (tol 1e-10)")
         if not (err_ref <= 1e-10 and err_host <= 1e-10):
             raise AssertionError(f"{name}: results disagree with references")
+    return reg, big, launches
 
-    # -- 5. timing at the main path's shapes --------------------------------
-    op = reg.get("big")
+
+def max_level(np, dist) -> int:
+    """The largest finite distance of a BFS result (levels run = this + 1)."""
+    finite = dist[dist != np.iinfo(np.int32).max]
+    return int(finite.max()) if finite.numel() else 0
+
+
+def graph_main_path(torch, np, G, bfs_k, pr_k, ops, ExecSpec, KernelRegistry,
+                    KernelService) -> dict:
+    """Phase 5: the graph path through the registry, the service and ops."""
+    graphs = {}
+    for name, (make, kw) in GRAPHS.items():
+        t0 = time.perf_counter()
+        graphs[name] = getattr(G, make)(**kw)
+        g = graphs[name]
+        phase("graphs", f"{name}: {make}({kw}) in {time.perf_counter() - t0:.1f}"
+              f" s: {g.n_nodes} nodes, {g.n_edges} edges, out-width {g.width}")
+    reg = KernelRegistry(device=DEVICE)
+    for name, g in graphs.items():
+        op = reg.register_graph(name, g)
+        t = op.tuned
+        phase("graphs", f"registered {name}: C={t.c} sigma={t.sigma} pad="
+              f"{op.pad_factor:.4f} buckets={list(op.slabs.widths)} slices="
+              f"{[a.shape[0] for a in op.slabs.bucket_adj]} in "
+              f"{op.register_us / 1e6:.1f} s")
+    svc = KernelService(reg, n_slots=N_SLOTS)
+    rng = np.random.default_rng(0)
+    sources = {name: [int(s) for s in rng.integers(0, g.n_nodes,
+                                                   REQUESTS_PER_OPERAND)]
+               for name, g in graphs.items()}
+    dampings = [DAMPINGS[i % len(DAMPINGS)]
+                for i in range(REQUESTS_PER_OPERAND)]
+    torch.cuda.synchronize()
+    for key in bfs_k.KERNEL_LAUNCHES:
+        bfs_k.KERNEL_LAUNCHES[key] = 0
+    for key in pr_k.KERNEL_LAUNCHES:
+        pr_k.KERNEL_LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    # bursts of 32 per (graph, op): the slot loop admits each as one group
+    rids = {}
+    for name in graphs:
+        rids[name, "bfs"] = [svc.submit("bfs", name, None, source=s)
+                             for s in sources[name]]
+        rids[name, "pagerank"] = [
+            svc.submit("pagerank", name, None, damping=d, iters=ITERS)
+            for d in dampings]
+    svc.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {"bfs_step_sell": bfs_k.KERNEL_LAUNCHES["bfs_step_sell"],
+                "pagerank_step_sell": pr_k.KERNEL_LAUNCHES["pagerank_step_sell"]}
+    stats = dict(svc.stats)
+    n_req = sum(len(v) for v in rids.values())
+    phase("graphs", f"stats {json.dumps(stats)}")
+    walls = {op: svc.metrics.get(f"launch_wall_us_{op}")
+             for op in ("bfs", "pagerank")}
+    phase("graphs", f"KERNEL_LAUNCHES={launched}; {n_req} requests in "
+          f"{wall:.4f} s = {n_req / wall:.1f} requests/s; batched drives "
+          "(kernels + host loop + sync): " + ", ".join(
+              f"{op} {h.total / 1e3:.3f} ms over {h.count} groups"
+              for op, h in walls.items()))
+    if stats["served"] != n_req or stats["failed"]:
+        raise AssertionError(f"not every request was served: {stats}")
+    if stats["groups"] != 2 * len(graphs) or \
+            stats["max_group"] != REQUESTS_PER_OPERAND:
+        raise AssertionError(f"requests did not coalesce into groups of "
+                             f"{REQUESTS_PER_OPERAND}: {stats}")
+    expected = {"bfs_step_sell": 0, "pagerank_step_sell": 0}
+    results = {}
+    for name, g in graphs.items():
+        op = reg.get(name)
+        arrs = op.device_arrays
+        n = g.n_nodes
+        nb = sum(1 for a in op.slabs.bucket_adj if a.shape[0])
+        dist = torch.stack([svc.poll(r) for r in rids[name, "bfs"]], dim=1)
+        rank = torch.stack([svc.poll(r) for r in rids[name, "pagerank"]],
+                           dim=1)
+        if tuple(dist.shape) != (n, REQUESTS_PER_OPERAND) or \
+                dist.dtype != torch.int32 or tuple(rank.shape) != tuple(
+                    dist.shape) or not bool(torch.isfinite(rank).all()):
+            raise AssertionError(f"{name}: bad result shapes or values")
+        expected["bfs_step_sell"] += nb * (max_level(np, dist) + 1)
+        expected["pagerank_step_sell"] += nb * ITERS
+        t0 = time.perf_counter()
+        want = bfs_k.bfs_sell_ref(arrs["adj"], arrs["nodes"], n, sources[name])
+        if not torch.equal(dist, want):
+            raise AssertionError(f"{name}: BFS results != plain drive")
+        want = pr_k.pagerank_sell_ref(arrs["adj"], arrs["nodes"],
+                                      arrs["out_degree"], n, damping=dampings,
+                                      iters=ITERS)
+        err_plain = check_pr(f"{name}: PageRank vs plain drive", rank, want)
+        t_plain = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host_bfs = {}
+        for i in range(4):
+            host_bfs[i] = G.bfs_reference(g, sources[name][i])
+            if not np.array_equal(dist[:, i].cpu().numpy(), host_bfs[i]):
+                raise AssertionError(f"{name}: BFS column {i} != bfs_reference")
+        host_pr = {}
+        err_host = 0.0
+        for i in range(2):
+            host_pr[i] = torch.from_numpy(
+                G.pagerank_reference(g, dampings[i], ITERS))
+            err_host = max(err_host, check_pr(
+                f"{name}: PageRank column {i} vs pagerank_reference",
+                rank[:, i].cpu(), host_pr[i]))
+        phase("graphs", f"{name}: 32 BFS results == plain drive on card, 4 == "
+              f"bfs_reference; 32 PageRank results vs plain max abs err "
+              f"{err_plain:.3e}, 2 vs pagerank_reference {err_host:.3e} (rtol "
+              f"{PR_RTOL}); max level {max_level(np, dist)}; plain drives "
+              f"{t_plain:.1f} s, host references {time.perf_counter() - t0:.1f}"
+              " s")
+        results[name] = dict(sources=sources[name], host_bfs=host_bfs,
+                             host_pr=host_pr)
+    if launched != expected or min(launched.values()) <= 0:
+        raise AssertionError(f"graph launches {launched} != buckets x steps "
+                             f"{expected}")
+
+    # ops on the ELLPACK layout (the default): kernels B4 and B5
+    g = graphs["uniform21"]
+    src = results["uniform21"]["sources"][0]
+    spec = ExecSpec(layout="ell", device=DEVICE)
+    torch.cuda.synchronize()
+    bfs_k.KERNEL_LAUNCHES["bfs_step"] = 0
+    pr_k.KERNEL_LAUNCHES["pagerank_step"] = 0
+    t0 = time.perf_counter()
+    d_ell = ops.bfs(g, src, spec=spec)
+    r_ell = ops.pagerank(g, damping=DAMPINGS[0], iters=ITERS, spec=spec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched.update(bfs_step=bfs_k.KERNEL_LAUNCHES["bfs_step"],
+                    pagerank_step=pr_k.KERNEL_LAUNCHES["pagerank_step"])
+    want = {"bfs_step": max_level(np, d_ell) + 1, "pagerank_step": ITERS}
+    if any(launched[k] != v for k, v in want.items()):
+        raise AssertionError(f"ELLPACK launches {launched} != steps {want}")
+    rg = g.transpose()
+    radj = rg.to_device(DEVICE)
+    deg = torch.from_numpy(g.out_degree.astype(np.float64)).to(DEVICE)
+    if not torch.equal(d_ell, bfs_k.bfs_ref(radj, src)) or not np.array_equal(
+            d_ell.cpu().numpy(), results["uniform21"]["host_bfs"][0]):
+        raise AssertionError("ops.bfs (ell) != plain drive / bfs_reference")
+    err_plain = check_pr("ops.pagerank (ell) vs plain", r_ell, pr_k.pagerank_ref(
+        radj, deg, damping=DAMPINGS[0], iters=ITERS))
+    err_host = check_pr("ops.pagerank (ell) vs pagerank_reference",
+                        r_ell.cpu(), results["uniform21"]["host_pr"][0])
+    phase("graphs", f"ops ell on uniform21 (ops wall {wall:.1f} s incl. "
+          f"transpose + upload): KERNEL_LAUNCHES bfs_step="
+          f"{launched['bfs_step']} pagerank_step={launched['pagerank_step']}; "
+          f"BFS == plain drive and bfs_reference; PageRank vs plain "
+          f"{err_plain:.3e}, vs pagerank_reference {err_host:.3e}")
+    return dict(graphs=graphs, reg=reg, launches=launched, results=results,
+                reverse_u21=rg, radj_ell=radj, deg=deg)
+
+
+def profile_drives(torch, bfs_k, pr_k, gm: dict) -> None:
+    """Where a graph drive's wall time goes: one drive per (graph, op) at
+    the main path's width under ``torch.profiler``; the graph kernels'
+    device time (events named ``*_step_kernel``) against the drive's host
+    wall clock.  The rest is the host loop: per-level ``torch.equal`` syncs,
+    the launches and the plain torch ops between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dampings = [DAMPINGS[i % len(DAMPINGS)]
+                for i in range(REQUESTS_PER_OPERAND)]
+    # the first profiler run in a process pays the tracer's set-up
+    # (seconds); pay it here, outside the measured drives
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
+    for name in GRAPHS:
+        arrs = gm["reg"].get(name).device_arrays
+        n = gm["graphs"][name].n_nodes
+        src = gm["results"][name]["sources"]
+        for op, drive in (
+                ("bfs", lambda: bfs_k.bfs_sell(arrs["adj"], arrs["nodes"], n,
+                                               src)),
+                ("pagerank", lambda: pr_k.pagerank_sell(
+                    arrs["adj"], arrs["nodes"], arrs["out_degree"], n,
+                    damping=dampings, iters=ITERS))):
+            drive()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                drive()
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            kernel_ms = sum(e.device_time_total for e in prof.key_averages()
+                            if "step_kernel" in e.key) / 1e3
+            share = (f"{kernel_ms:.3f} ms ({100 * kernel_ms / wall_ms:.1f}%)"
+                     if kernel_ms > 0 else "not measured (no device events)")
+            phase("profile", f"{name} {op} drive, k={REQUESTS_PER_OPERAND}: "
+                  f"wall {wall_ms:.3f} ms under the profiler; graph kernels "
+                  f"{share}")
+
+
+def sparse_reverse(torch, np, rg):
+    """The reverse graph as a CSR matrix of ones on the card (the library
+    yardstick's operand): row v holds v's in-neighbours."""
+    mask = rg.adj != -1
+    indptr = np.zeros(rg.n_nodes + 1, np.int64)
+    np.cumsum(mask.sum(axis=1), out=indptr[1:])
+    indices = rg.adj[mask].astype(np.int64)
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(indptr), torch.from_numpy(indices),
+        torch.ones(len(indices), dtype=torch.float64),
+        size=(rg.n_nodes, rg.n_nodes)).to(DEVICE)
+
+
+def node_bucket_ms(torch, launch, adj, nodes, flush) -> list[float]:
+    """Median ms of each bucket's launch alone (the per-bucket breakdown of
+    one graph step)."""
+    return [time_ms(torch, lambda a=a.transpose(1, 2).contiguous(), m=m:
+                    launch(a, m), flush, runs=5, warmup=1)
+            for a, m in zip(adj, nodes)]
+
+
+def time_graphs(torch, np, G, sell_core, bfs_k, pr_k, gm: dict,
+                flush) -> dict:
+    """Phase 6 (graphs): the graph kernels at the main path's shapes."""
+    INF = G.INF
+    records = {}
+    lib_a = sparse_reverse(torch, np, gm["reverse_u21"])
+    for name in ("uniform21", "rmat15"):
+        main = name == "uniform21"
+        g = gm["graphs"][name]
+        op = gm["reg"].get(name)
+        adj, nodes = op.device_arrays["adj"], op.device_arrays["nodes"]
+        n, e = g.n_nodes, g.n_edges
+        lanes = sum(a.shape[0] * a.shape[1] for a in op.slabs.bucket_adj)
+        padded = op.slabs.padded_entries
+        src = gm["results"][name]["sources"]
+        deg = op.device_arrays["out_degree"]
+        for k in (REQUESTS_PER_OPERAND, 1):
+            # BFS: level 1 from the main path's sources (every node but the
+            # sources searches its whole in-list, as the bound assumes)
+            if k == 1:
+                dist = torch.full((n + 1,), INF, dtype=torch.int32,
+                                  device=DEVICE)
+                dist[src[0]] = 0
+            else:
+                dist = torch.full((n + 1, k), INF, dtype=torch.int32,
+                                  device=DEVICE)
+                dist[torch.tensor(src[:k], device=DEVICE),
+                     torch.arange(k, device=DEVICE)] = 0
+            # PageRank: the first power step's contributions and constants
+            cols = 1 if k == 1 else k
+            rank0 = 1.0 / n
+            c1 = torch.where(deg > 0, rank0 / torch.clamp(deg, min=1), 0.0)
+            dang = float(torch.where(deg == 0, rank0, 0.0).sum()) / n
+            d = torch.tensor([DAMPINGS[i % len(DAMPINGS)] for i in range(cols)],
+                             dtype=torch.float64, device=DEVICE)
+            consts = torch.stack([(1.0 - d) / n, d, torch.full_like(d, dang)])
+            contrib = torch.cat([c1, c1.new_zeros(1)])
+            if k == 1:
+                consts = consts[:, 0].contiguous()
+            else:
+                contrib = contrib[:, None].expand(n + 1, k).contiguous()
+            kt = sell_core.node_k_tile(cols)
+            for kernel, fn, plain, bytes_least in (
+                    ("bfs_step_sell",
+                     lambda: bfs_k.bfs_step_sell(adj, nodes, dist, 1),
+                     lambda: bfs_k.bfs_step_sell_ref(adj, nodes, dist, 1),
+                     4 * e + 4 * n + 8 * n * cols),
+                    ("pagerank_step_sell",
+                     lambda: pr_k.pagerank_step_sell(adj, nodes, contrib,
+                                                     consts),
+                     lambda: pr_k.pagerank_step_sell_ref(adj, nodes, contrib,
+                                                         consts),
+                     4 * e + 4 * n + 16 * n * cols)):
+                got, want = fn(), plain()
+                torch.cuda.synchronize()
+                if kernel == "bfs_step_sell":
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{name} k={k}: B3-BFS != plain")
+                    err = max_err(got.double(), want.double())
+                    out = dist.clone()
+                    launch = (lambda a, m: bfs_k._launch_sell_bucket(
+                        a, m, dist, out, 1, kt))
+                    ops_ms = e * cols / FP32_OPS * 1e3
+                    lib_ms = None
+                else:
+                    err = check_pr(f"{name} k={k}: B3-PR vs plain", got, want)
+                    out = torch.zeros_like(contrib)
+                    launch = (lambda a, m: pr_k._launch_sell_bucket(
+                        a, m, contrib, consts, out, kt))
+                    ops_ms = e * cols / FP64_FLOPS * 1e3
+                    lib_ms = None
+                    if main:
+                        xk = contrib[:n].reshape(n, cols)
+
+                        def library():
+                            return torch.sparse.mm(lib_a, xk)
+
+                        pulled = library()
+                        cm = consts.reshape(3, cols)
+                        check_pr(f"{name} k={k}: B3-PR vs torch.sparse.mm",
+                                 got[:n].reshape(n, cols),
+                                 cm[0] + cm[1] * (pulled + cm[2]))
+                        lib_ms = time_ms(torch, library, flush)
+                per_bucket = node_bucket_ms(torch, launch, adj, nodes, flush)
+                phase("timing", f"{name} k={k} {kernel} per bucket (W: slices, "
+                      "ms): " + ", ".join(
+                          f"{a.shape[2]}: {a.shape[0]}, {t:.4f}"
+                          for a, t in zip(adj, per_bucket)))
+                if not main:
+                    continue
+                ms = time_ms(torch, fn, flush)
+                plain_ms = time_ms(torch, plain, flush)
+                state = 8 if kernel == "bfs_step_sell" else 16
+                bytes_ms = bytes_least / HBM_BYTES_PER_S * 1e3
+                padded_ms = (4 * padded + 4 * lanes + state * n * cols) \
+                    / HBM_BYTES_PER_S * 1e3
+                rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=max(bytes_ms, ops_ms),
+                           bound_by="bytes" if bytes_ms >= ops_ms
+                           else "operations",
+                           padded_slab_bound_ms=padded_ms, max_abs_err=err,
+                           bucket_ms=per_bucket)
+                records.setdefault(kernel, {})[k] = rec
+                phase("timing", f"{name} k={k}: {kernel} {ms:.4f} ms | bound "
+                      f"{bytes_ms:.4f} ms (bytes; ops {ops_ms:.4f}) | padded-"
+                      f"slab bytes bound {padded_ms:.4f} ms | plain "
+                      f"{plain_ms:.4f} ms | library " + (
+                          f"torch.sparse.mm {lib_ms:.4f} ms" if lib_ms
+                          is not None else "none (no single PyTorch call "
+                          "computes a BFS level)") +
+                      f" | max abs err vs plain {err:.3e}")
+    # ELLPACK kernels B4 / B5 on uniform21, one state column
+    g = gm["graphs"]["uniform21"]
+    n, e = g.n_nodes, g.n_edges
+    radj, deg = gm["radj_ell"], gm["deg"]
+    width = radj.shape[1]
+    src = gm["results"]["uniform21"]["sources"][0]
+    dist = torch.full((n,), INF, dtype=torch.int32, device=DEVICE)
+    dist[src] = 0
+    rank0 = 1.0 / n
+    contrib = torch.where(deg > 0, rank0 / torch.clamp(deg, min=1), 0.0)
+    dang = float(torch.where(deg == 0, rank0, 0.0).sum()) / n
+    consts = torch.tensor([(1.0 - DAMPINGS[0]) / n, DAMPINGS[0], dang],
+                          dtype=torch.float64, device=DEVICE)
+    for kernel, fn, plain, bytes_least, state in (
+            ("bfs_step", lambda: bfs_k.bfs_step(radj, dist, 1),
+             lambda: bfs_k.bfs_step_ref(radj, dist, 1), 4 * e + 8 * n, 8),
+            ("pagerank_step", lambda: pr_k.pagerank_step(radj, contrib, consts),
+             lambda: pr_k.pagerank_step_ref(radj, contrib, consts),
+             4 * e + 16 * n, 16)):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        lib_ms = None
+        if kernel == "bfs_step":
+            if not torch.equal(got, want):
+                raise AssertionError("B4 != plain at the main shape")
+            err = max_err(got.double(), want.double())
+            ops_ms = e / FP32_OPS * 1e3
+        else:
+            err = check_pr("B5 vs plain at the main shape", got, want)
+            ops_ms = e / FP64_FLOPS * 1e3
+
+            def library():
+                return torch.sparse.mm(lib_a, contrib[:, None])
+
+            check_pr("B5 vs torch.sparse.mm", got,
+                     consts[0] + consts[1] * (library()[:, 0] + consts[2]))
+            lib_ms = time_ms(torch, library, flush)
+        ms = time_ms(torch, fn, flush)
+        plain_ms = time_ms(torch, plain, flush)
+        bytes_ms = bytes_least / HBM_BYTES_PER_S * 1e3
+        padded_ms = (4 * n * width + state * n) / HBM_BYTES_PER_S * 1e3
+        records[kernel] = {1: dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            padded_slab_bound_ms=padded_ms, max_abs_err=err)}
+        phase("timing", f"uniform21 k=1: {kernel} {ms:.4f} ms | bound "
+              f"{bytes_ms:.4f} ms (bytes; ops {ops_ms:.4f}) | padded-ELLPACK "
+              f"(width {width}) bytes bound {padded_ms:.4f} ms | plain "
+              f"{plain_ms:.4f} ms | library " + (
+                  f"torch.sparse.mm {lib_ms:.4f} ms" if lib_ms is not None
+                  else "none (no single PyTorch call computes a BFS level)")
+              + f" | max abs err vs plain {err:.3e}")
+    return records
+
+
+def time_spmv(torch, np, sell_core, op, big, launches, flush) -> dict:
+    """Phase 6 (SpMV): B1 at the main path's shapes."""
     cols, vals, rows = (op.device_arrays[k] for k in ("cols", "vals", "rows"))
     # bytes the padded SELL slabs hold (the layout's cost, printed beside
     # the bound); the bound itself counts only what Y = A @ X must move
@@ -248,12 +726,11 @@ def main() -> int:
     elem = vals[0].element_size()
     a_lib = torch.sparse_csr_tensor(
         torch.from_numpy(big.indptr), torch.from_numpy(big.indices.astype(np.int64)),
-        torch.from_numpy(big.data), size=(big.n_rows, big.n_cols)).cuda()
-    flush = torch.empty(2 * 50 * 1000 * 1000 // 4, dtype=torch.float32,
-                        device="cuda")
+        torch.from_numpy(big.data), size=(big.n_rows, big.n_cols)).to(DEVICE)
+    rng = np.random.default_rng(1)
     records = {}
     for k in (1, REQUESTS_PER_OPERAND):
-        x = torch.from_numpy(rng.standard_normal((big.n_cols, k))).cuda()
+        x = torch.from_numpy(rng.standard_normal((big.n_cols, k))).to(DEVICE)
         kb = op.tuned.k_block
 
         def kernel():
@@ -299,26 +776,109 @@ def main() -> int:
               f"torch.sparse.mm {lib_ms:.4f} ms | max abs err vs plain "
               f"{err:.3e}, vs sparse.mm {err_lib:.3e} | slab bytes "
               f"{slab_bytes}")
-
     main_k = REQUESTS_PER_OPERAND
-    rec = records[main_k]
-    kernels = {"kernels": [{
-        "name": "spmm_sell",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/spmm_sell.cu",
-        "replaces": "src/repro/kernels/sell_core.py:93",
-        "launches": launches,
-        "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"],
-        "bound_ms": rec["bound_ms"],
-        "bound_by": rec["bound_by"],
-        "library_ms": rec["library_ms"],
-        "shape": f"{big.n_rows}x{big.n_cols} nnz {big.nnz} fp64, k={main_k}",
-        "k1": records[1],
-    }]}
+    return {"name": "spmm_sell", "route": "cuda",
+            "source": "src/repro_torch/csrc/spmm_sell.cu",
+            "replaces": "src/repro/kernels/sell_core.py:93",
+            "launches": launches, **records[main_k],
+            "shape": f"{big.n_rows}x{big.n_cols} nnz {big.nnz} fp64, k={main_k}",
+            "k1": records[1]}
+
+
+def graph_records(gm: dict, records: dict) -> list[dict]:
+    """The graph kernels' entries of the kernels line (B3 at k = 32 with
+    its k = 1 record beside it; B4 and B5 at k = 1)."""
+    g = gm["graphs"]["uniform21"]
+    shape = f"uniform21 {g.n_nodes} nodes {g.n_edges} edges"
+    out = []
+    for name, replaces, main_k in (
+            ("bfs_step_sell", "src/repro/kernels/bfs.py:87",
+             REQUESTS_PER_OPERAND),
+            ("pagerank_step_sell", "src/repro/kernels/pagerank.py:81",
+             REQUESTS_PER_OPERAND),
+            ("bfs_step", "src/repro/kernels/bfs.py:37", 1),
+            ("pagerank_step", "src/repro/kernels/pagerank.py:33", 1)):
+        rec = dict(records[name][main_k])
+        rec.pop("bucket_ms", None)
+        entry = {"name": name, "route": "cuda",
+                 "source": "src/repro_torch/csrc/graph_step.cu",
+                 "replaces": replaces, "launches": gm["launches"][name],
+                 **rec, "shape": f"{shape}, k={main_k}"
+                 + (", level 1" if "bfs" in name else ", power step 1")}
+        if main_k != 1:
+            k1 = dict(records[name][1])
+            k1.pop("bucket_ms", None)
+            entry["k1"] = k1
+        out.append(entry)
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from repro_torch.graphs import gen as G
+    from repro_torch.kernels import bfs as bfs_k
+    from repro_torch.kernels import cuda_lib, ops, sell_core
+    from repro_torch.kernels import pagerank as pr_k
+    from repro_torch.kernels.execspec import ExecSpec
+    from repro_torch.service import KernelRegistry, KernelService
+    from repro_torch.sparse import formats as F
+
+    t_start = time.perf_counter()
+    # -- 1. device -----------------------------------------------------------
+    smi = smi_line()
+    kind = torch.cuda.get_device_name(0)
+    phase("device", f"{smi} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
+
+    # -- 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    built = cuda_lib.build_all()
+    for b in built:
+        regs = [ln.strip() for ln in b.log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        phase("build", f"{b.name}: {b.path.name} in {b.seconds:.1f} s")
+        for ln in regs:
+            phase("build", f"  {ln}")
+    phase("build", f"all kernels built in {time.perf_counter() - t0:.1f} s")
+
+    # -- 3. kernels vs plain ---------------------------------------------------
+    t0 = time.perf_counter()
+    compare_kernel(torch, np, sell_core, F)
+    compare_graph_kernels(torch, np, G, bfs_k, pr_k)
+    phase("compare", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 4. SpMV main path -----------------------------------------------------
+    t0 = time.perf_counter()
+    reg, big, spmv_launches = spmv_main_path(
+        torch, np, F, sell_core, KernelRegistry, KernelService)
+    phase("main", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 5. graph main path ----------------------------------------------------
+    t0 = time.perf_counter()
+    gm = graph_main_path(torch, np, G, bfs_k, pr_k, ops, ExecSpec,
+                         KernelRegistry, KernelService)
+    phase("graphs", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 6. timing at the main paths' shapes -----------------------------------
+    t0 = time.perf_counter()
+    flush = torch.empty(2 * 50 * 1000 * 1000 // 4, dtype=torch.float32,
+                        device=DEVICE)
+    kernels = [time_spmv(torch, np, sell_core, reg.get("big"), big,
+                         spmv_launches, flush)]
+    kernels += graph_records(gm, time_graphs(torch, np, G, sell_core, bfs_k,
+                                             pr_k, gm, flush))
+    profile_drives(torch, bfs_k, pr_k, gm)
+    phase("timing", f"done in {time.perf_counter() - t0:.1f} s; whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)
-    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,14 @@
 """Static launch preflight for the port's CUDA kernels."""
 from repro_torch.analysis.launchplan import BlockPlan, LaunchPlan, LaunchPlanError
-from repro_torch.analysis.preflight import SlabMeta, plan_spmm_sell
+from repro_torch.analysis.preflight import (
+    SlabMeta,
+    plan_bfs_ell,
+    plan_bfs_sell,
+    plan_pagerank_ell,
+    plan_pagerank_sell,
+    plan_spmm_sell,
+)
 
 __all__ = ["BlockPlan", "LaunchPlan", "LaunchPlanError", "SlabMeta",
-           "plan_spmm_sell"]
+           "plan_bfs_ell", "plan_bfs_sell", "plan_pagerank_ell",
+           "plan_pagerank_sell", "plan_spmm_sell"]

@@ -1,21 +1,36 @@
-"""Hopper launch-plan builder for the SELL SpMM kernel.
+"""Hopper launch-plan builders for the port's CUDA kernels.
 
-:func:`plan_spmm_sell` mirrors the launch arithmetic of
-:func:`repro_torch.kernels.sell_core.spmm_sell` without importing or
-running it: per width bucket one launch of ``SPMM_BLOCK_THREADS``-thread
+Each builder mirrors the launch arithmetic of its wrapper without importing
+or running it, from operand metadata alone (:class:`SlabMeta`).
+
+:func:`plan_spmm_sell` (kernel B1, :func:`repro_torch.kernels.sell_core
+.spmm_sell`): per width bucket one launch of ``SPMM_BLOCK_THREADS``-thread
 blocks, one thread per (slice, lane) row, ``grid = (ceil(S_b * C /
-threads), k_pad / k_tile)``.  Checked contracts:
+threads), k_pad / k_tile)``.
 
-* grid and block dims inside CUDA's limits (the kernel claims no shared
-  memory: its sums live in registers);
+:func:`plan_bfs_sell` / :func:`plan_pagerank_sell` (kernel B3 with the BFS
+or PageRank combine) and :func:`plan_bfs_ell` / :func:`plan_pagerank_ell`
+(kernels B4 and B5): one thread per node, ``NODE_STEP_BLOCK_THREADS``
+per block, ``grid = (ceil(S_b * C / threads), k / k_tile)`` per bucket
+(ELLPACK: one launch over n nodes, one state column).  Unlike the
+reference's ``_plan_node_step`` there is no fast-memory footprint to
+price: the state stays in device memory and is gathered through L2.
+
+Checked contracts:
+
+* grid and block dims inside CUDA's limits (no kernel claims shared
+  memory: their sums and masks live in registers);
 * pow2 padding invariants: ``k_block`` and every packed bucket width are
   powers of two;
-* the RHS tile fits the kernel: ``k_tile <= MAX_K_TILE`` accumulators
+* the column tile fits a thread: ``k_tile <= MAX_K_TILE`` state columns
   within the per-thread register budget;
-* column indices in ``[PAD, n_cols)`` (``SlabMeta.from_slabs(check_bounds=
-  True)`` scans once) — the kernel gathers ``X[col]`` unchecked;
-* dtype flow: int32 indices, slab values and X of one dtype, float32 or
-  float64 only (the kernel's instantiations).
+* index bounds, when scanned (``SlabMeta.from_slabs(check_bounds=True)``):
+  column or neighbour ids in ``[PAD, n_cols)`` and row or node maps in
+  ``[0, n_rows]`` — the kernels gather and scatter unchecked, and CUDA
+  does not clamp an out-of-range index the way JAX does;
+* dtype flow: int32 indices; SpMM values and X of one dtype, float32 or
+  float64; BFS state int32; PageRank state float64 (the kernels'
+  instantiations).
 """
 from __future__ import annotations
 
@@ -29,11 +44,19 @@ from repro_torch.core.autotune import (
     ACC_BYTES_PER_THREAD,
     KERNEL_DTYPES,
     MAX_K_TILE,
+    NODE_STEP_BLOCK_THREADS,
     SPMM_BLOCK_THREADS,
 )
 from repro_torch.sparse.formats import PAD, pow2_ceil
 
-__all__ = ["SlabMeta", "plan_spmm_sell"]
+__all__ = [
+    "SlabMeta",
+    "plan_bfs_ell",
+    "plan_bfs_sell",
+    "plan_pagerank_ell",
+    "plan_pagerank_sell",
+    "plan_spmm_sell",
+]
 
 #: CUDA launch limits (compute capability 9.0)
 MAX_GRID_X = 2**31 - 1
@@ -43,45 +66,113 @@ MAX_BLOCK_THREADS = 1024
 
 @dataclasses.dataclass(frozen=True)
 class SlabMeta:
-    """The launch-relevant metadata of a packed SELL matrix operand.
+    """The launch-relevant metadata of a packed operand.
 
-    Cheap to extract (O(n_buckets) shape reads); the optional index-bounds
-    scan is one vectorized min/max over the stored indices.
+    Cheap to extract (O(n_buckets) shape reads); the optional bounds scan
+    is one vectorized min/max over the stored indices and the lane maps.
+    Three kinds: ``"matrix"`` (:class:`~repro_torch.sparse.formats.SellSlabs`,
+    buckets (S, W, C)), ``"graph"`` (:class:`~repro_torch.graphs
+    .SellGraphSlabs`, buckets (S, C, W)) and ``"ell"`` (an ELLPACK
+    adjacency, :meth:`from_ell`: one slice of height n, no lane map).
     """
 
+    kind: str                       # "matrix" | "graph" | "ell"
     c: int
     widths: tuple[int, ...]         # padded W per bucket
     n_slices: tuple[int, ...]       # slices per bucket
-    n_rows: int
-    n_cols: int
-    val_dtype: str
+    n_rows: int                     # rows / nodes
+    n_cols: int                     # X length / n_nodes
+    val_dtype: str | None           # None for graphs (index-only slabs)
     idx_dtype: str
     idx_min: int | None = None      # None = bounds not scanned
     idx_max: int | None = None
+    map_min: int | None = None      # row / node map bounds (when scanned)
+    map_max: int | None = None
 
     @classmethod
     def from_slabs(cls, slabs, check_bounds: bool = False) -> "SlabMeta":
-        """Extract metadata from host :class:`~repro_torch.sparse.formats.SellSlabs`."""
-        if not hasattr(slabs, "bucket_cols"):
-            raise TypeError(f"expected SellSlabs, got {type(slabs).__name__}")
-        cols = slabs.bucket_cols
-        idx_min = idx_max = None
+        """Extract metadata from host ``SellSlabs`` or ``SellGraphSlabs``
+        (duck-typed)."""
+        if hasattr(slabs, "bucket_cols"):       # matrix slabs: (S, W, C)
+            idx, maps = slabs.bucket_cols, slabs.bucket_rows
+            widths = tuple(int(a.shape[1]) for a in idx)
+            c = int(idx[0].shape[2]) if idx else 0
+            kind, n_rows, n_cols = "matrix", slabs.n_rows, slabs.n_cols
+            val_dtype = str(slabs.bucket_vals[0].dtype) if idx else None
+        elif hasattr(slabs, "bucket_adj"):      # graph slabs: (S, C, W)
+            idx, maps = slabs.bucket_adj, slabs.bucket_nodes
+            widths = tuple(int(a.shape[2]) for a in idx)
+            c = int(idx[0].shape[1]) if idx else 0
+            kind, n_rows, n_cols = "graph", slabs.n_nodes, slabs.n_nodes
+            val_dtype = None
+        else:
+            raise TypeError(
+                f"expected SellSlabs or SellGraphSlabs, got "
+                f"{type(slabs).__name__}")
+        bounds = {}
         if check_bounds:
-            idx_min = min(int(np.min(a)) for a in cols if a.size)
-            idx_max = max(int(np.max(a)) for a in cols if a.size)
+            bounds = dict(
+                idx_min=min((int(np.min(a)) for a in idx if a.size),
+                            default=None),
+                idx_max=max((int(np.max(a)) for a in idx if a.size),
+                            default=None),
+                map_min=min((int(np.min(a)) for a in maps if a.size),
+                            default=None),
+                map_max=max((int(np.max(a)) for a in maps if a.size),
+                            default=None))
         return cls(
-            c=int(cols[0].shape[2]),
-            widths=tuple(int(a.shape[1]) for a in cols),
-            n_slices=tuple(int(a.shape[0]) for a in cols),
-            n_rows=int(slabs.n_rows), n_cols=int(slabs.n_cols),
-            val_dtype=str(slabs.bucket_vals[0].dtype),
-            idx_dtype=str(cols[0].dtype),
-            idx_min=idx_min, idx_max=idx_max,
+            kind=kind, c=c, widths=widths,
+            n_slices=tuple(int(a.shape[0]) for a in idx),
+            n_rows=int(n_rows), n_cols=int(n_cols), val_dtype=val_dtype,
+            idx_dtype=str(idx[0].dtype) if idx else "int32", **bounds,
         )
 
+    @classmethod
+    def from_ell(cls, adj: np.ndarray, n_nodes: int,
+                 check_bounds: bool = False) -> "SlabMeta":
+        """Metadata of an ELLPACK adjacency (n, width): one slice of height
+        n whose lanes are the nodes themselves."""
+        bounds = {}
+        if check_bounds and adj.size:
+            bounds = dict(idx_min=int(adj.min()), idx_max=int(adj.max()))
+        return cls(kind="ell", c=int(adj.shape[0]),
+                   widths=(int(adj.shape[1]),), n_slices=(1,),
+                   n_rows=int(n_nodes), n_cols=int(n_nodes), val_dtype=None,
+                   idx_dtype=str(adj.dtype), **bounds)
+
     def describe(self) -> str:
-        return (f"matrix {self.n_rows}x{self.n_cols} "
+        return (f"{self.kind} {self.n_rows}x{self.n_cols} "
                 f"C={self.c} buckets={list(self.widths)}")
+
+
+def _index_contracts(meta: SlabMeta, violations: list[str], what: str,
+                     state: str) -> None:
+    """Contracts every launch over packed indices shares: pow2 bucket
+    widths (packed slabs only), int32 indices, and — when scanned — index
+    and lane-map bounds."""
+    if meta.kind != "ell":
+        for i, w in enumerate(meta.widths):
+            if not is_pow2(w):
+                violations.append(
+                    f"bucket {i} width {w} is not a power of two (packer "
+                    "invariant broken)")
+    if meta.idx_dtype != "int32":
+        violations.append(
+            f"index dtype {meta.idx_dtype} != int32 (kernel gather contract)")
+    if meta.idx_max is not None and meta.idx_max >= meta.n_cols:
+        violations.append(
+            f"stored {what} {meta.idx_max} out of bounds for "
+            f"{'n_nodes' if meta.kind != 'matrix' else 'n_cols'}="
+            f"{meta.n_cols} (the kernel would read outside {state})")
+    if meta.idx_min is not None and meta.idx_min < PAD:
+        violations.append(
+            f"stored {what} {meta.idx_min} below the PAD sentinel ({PAD})")
+    if meta.map_max is not None and meta.map_max > meta.n_rows:
+        violations.append(
+            f"lane map entry {meta.map_max} beyond the dump slot "
+            f"{meta.n_rows} (the kernel would write outside its output)")
+    if meta.map_min is not None and meta.map_min < 0:
+        violations.append(f"lane map entry {meta.map_min} is negative")
 
 
 def plan_spmm_sell(
@@ -97,21 +188,9 @@ def plan_spmm_sell(
         violations.append(f"k_block {k_block} is not a power of two")
     if k < 1:
         violations.append(f"RHS stack must have k >= 1 columns, got {k}")
-    for i, w in enumerate(meta.widths):
-        if not is_pow2(w):
-            violations.append(
-                f"bucket {i} width {w} is not a power of two (packer "
-                "invariant broken)")
-    if meta.idx_dtype != "int32":
-        violations.append(
-            f"index dtype {meta.idx_dtype} != int32 (kernel gather contract)")
-    if meta.idx_max is not None and meta.idx_max >= meta.n_cols:
-        violations.append(
-            f"stored index {meta.idx_max} out of bounds for n_cols="
-            f"{meta.n_cols} (the kernel would read outside X)")
-    if meta.idx_min is not None and meta.idx_min < PAD:
-        violations.append(
-            f"stored index {meta.idx_min} below the PAD sentinel ({PAD})")
+    if meta.kind != "matrix":
+        violations.append(f"spmm_sell needs matrix slabs, got {meta.kind}")
+    _index_contracts(meta, violations, "index", "X")
     if meta.val_dtype not in KERNEL_DTYPES:
         violations.append(
             f"slab value dtype {meta.val_dtype} is not float32 or float64")
@@ -159,3 +238,94 @@ def plan_spmm_sell(
         blocks=tuple(blocks),
         violations=tuple(violations),
     )
+
+
+# ---------------------------------------------------------------------------
+# Graph node steps (kernels B3, B4, B5)
+# ---------------------------------------------------------------------------
+
+#: state dtype each graph kernel is instantiated for
+_STATE_DTYPES = {"bfs": "int32", "pagerank": "float64"}
+
+
+def _plan_node_step(kernel: str, combine: str, meta: SlabMeta, k: int,
+                    state_dtype: str) -> LaunchPlan:
+    """Shared plan of the graph node steps: per bucket (ELLPACK: once) one
+    launch, one thread per node walking its W in-neighbour slots with
+    ``k_tile`` state columns in registers."""
+    violations: list[str] = []
+    ell = meta.kind == "ell"
+    if meta.kind not in ("graph", "ell"):
+        violations.append(f"{kernel} needs graph adjacency, got {meta.kind}")
+    if k < 1:
+        violations.append(f"state stack must have k >= 1 columns, got {k}")
+    if ell and k != 1:
+        violations.append(f"{kernel} advances one state column, got k={k}")
+    _index_contracts(meta, violations, "neighbour id", "the state")
+    want = _STATE_DTYPES[combine]
+    if state_dtype != want:
+        violations.append(
+            f"{combine} state dtype {state_dtype} != {want} (the kernel's "
+            "only instantiation)")
+    sb = int(np.dtype(state_dtype).itemsize) if state_dtype in (
+        "int32", "float32", "float64") else 8
+    k_tile = min(max(k, 1) & -max(k, 1), MAX_K_TILE)
+    if k_tile * sb > ACC_BYTES_PER_THREAD:
+        violations.append(
+            f"k_tile {k_tile} x {sb} B state columns exceed the per-thread "
+            f"register budget ({ACC_BYTES_PER_THREAD} B)")
+    grid_y = max(k, 1) // k_tile
+    if grid_y > MAX_GRID_Y:
+        violations.append(
+            f"{grid_y} column tiles exceed grid.y limit {MAX_GRID_Y} (k={k})")
+    threads = NODE_STEP_BLOCK_THREADS
+    if threads > MAX_BLOCK_THREADS:
+        violations.append(f"block of {threads} threads > {MAX_BLOCK_THREADS}")
+    rows = meta.n_rows if ell else meta.n_rows + 1
+    state = (rows,) if k == 1 and ell else (rows, max(k, 1))
+    blocks = []
+    for i, (s, w) in enumerate(zip(meta.n_slices, meta.widths)):
+        grid_x = math.ceil(s * meta.c / threads)
+        if grid_x > MAX_GRID_X:
+            violations.append(f"bucket {i} (W={w}): grid.x {grid_x} > "
+                              f"{MAX_GRID_X}")
+        operands = [("adj", (w, meta.c) if ell else (s, w, meta.c),
+                     meta.idx_dtype)]
+        if not ell:
+            operands.append(("nodes", (s, meta.c), meta.idx_dtype))
+        operands += [("state", state, state_dtype), ("out", state, state_dtype)]
+        if combine == "pagerank":
+            operands.append(("consts", (3, max(k, 1)), state_dtype))
+        blocks.append(BlockPlan(
+            label=f"bucket{i}[W={w}]", grid=(grid_x, grid_y),
+            block=(threads,), operands=tuple(operands)))
+    return LaunchPlan(kernel=kernel, operand=meta.describe(),
+                      dtype=state_dtype, blocks=tuple(blocks),
+                      violations=tuple(violations))
+
+
+def plan_bfs_sell(meta: SlabMeta, k: int = 1) -> LaunchPlan:
+    """Plan one ``bfs_step_sell`` level for k stacked sources: int32
+    distance columns (n + 1, k), one B3 launch per bucket."""
+    return _plan_node_step("bfs_sell", "bfs", meta, k, "int32")
+
+
+def plan_pagerank_sell(meta: SlabMeta, k: int = 1,
+                       dtype: str = "float64") -> LaunchPlan:
+    """Plan one ``pagerank_step_sell`` power step for k stacked
+    configurations: (n + 1, k) contribution columns and (3, k) constants
+    in the rank dtype, one B3 launch per bucket.  The kernel runs float64
+    only (the reference's x64 path)."""
+    return _plan_node_step("pagerank_sell", "pagerank", meta, k, dtype)
+
+
+def plan_bfs_ell(meta: SlabMeta) -> LaunchPlan:
+    """Plan one ``bfs_step`` level (kernel B4) over an ELLPACK
+    in-adjacency (:meth:`SlabMeta.from_ell`)."""
+    return _plan_node_step("bfs_step", "bfs", meta, 1, "int32")
+
+
+def plan_pagerank_ell(meta: SlabMeta, dtype: str = "float64") -> LaunchPlan:
+    """Plan one ``pagerank_step`` power step (kernel B5) over an ELLPACK
+    reverse adjacency (:meth:`SlabMeta.from_ell`)."""
+    return _plan_node_step("pagerank_step", "pagerank", meta, 1, dtype)

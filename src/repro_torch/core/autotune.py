@@ -32,6 +32,9 @@ from repro_torch.sparse.formats import next_pow2, sigma_sort_order, slice_widths
 WARP = 32
 #: Threads per block of the SELL SpMM kernel (8 warps).
 SPMM_BLOCK_THREADS = 256
+#: Threads per block of the graph node-step kernels (B3, B4, B5): one
+#: thread per node, 8 warps.
+NODE_STEP_BLOCK_THREADS = 256
 #: Largest RHS tile the SpMM kernel is instantiated for (its k_tile
 #: template values are the powers of two 1 .. 32).
 MAX_K_TILE = 32

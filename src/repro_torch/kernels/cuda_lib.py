@@ -43,6 +43,23 @@ KERNELS = {
             _I),
         "repro_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
+    "graph_step": ("graph_step.cu", {
+        # adj, nodes, dist, out, level, n_slices, width, c, ld, k_tile,
+        # n_nodes, threads, stream
+        "repro_bfs_sell_bucket": (
+            [_P, _P, _P, _P, _I, _I64, _I64, _I64, _I64, _I, _I64, _I, _P],
+            _I),
+        # adj, nodes, contrib, consts, out, n_slices, width, c, ld, k_tile,
+        # n_nodes, threads, stream
+        "repro_pagerank_sell_bucket": (
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I64, _I, _P],
+            _I),
+        # adj, dist, out, level, n_nodes, width, threads, stream
+        "repro_bfs_ell_step": ([_P, _P, _P, _I, _I64, _I64, _I, _P], _I),
+        # adj, contrib, consts, out, n_nodes, width, threads, stream
+        "repro_pagerank_ell_step": ([_P, _P, _P, _P, _I64, _I64, _I, _P], _I),
+        "repro_graph_cuda_error_string": ([_I], ctypes.c_char_p),
+    }),
 }
 
 

@@ -37,14 +37,15 @@ def resolve_device(device=None) -> torch.device:
 class ExecSpec:
     """Launch configuration for the SELL kernel family.
 
-    layout:    graph operand layout, ``"ell"`` or ``"sell"`` (graph kernels
-               are not ported yet; kept for the reference's field set).
+    layout:    graph operand layout for ``ops.bfs`` / ``ops.pagerank``:
+               ``"ell"`` (kernels B4 / B5) or ``"sell"`` (kernel B3).
     mode:      SpMM schedule, ``"auto"`` | ``"resident"`` | ``"stream"``.
                ``auto`` and ``resident`` run kernel B1; ``stream`` (kernel
-               B2) is not ported yet and raises.
+               B2, ROADMAP A4) is not ported yet and raises.
     dispatch:  MoE expert-dispatch path (not ported yet).
     placement: ``None`` or ``1``; multi-GPU placement is ROADMAP A10.
-    vl:        SELL slice height C, the effective vector length.
+    vl:        SELL slice height C, the effective vector length (the
+               ELLPACK graph kernels ignore it: blocks are 256 nodes).
     sigma:     sorting-window height (``None`` -> the packer default 8*C).
     w_block:   width tile of the reference's grid; kept for the shape of
                ``coalesce_key`` and read by nothing in the port (B1 walks a

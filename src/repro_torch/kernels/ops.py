@@ -1,17 +1,26 @@
-"""Public SpMV/SpMM entry points of the port (the main-path part of
-``repro.kernels.ops``).
+"""Public entry points of the port (the ``repro.kernels.ops`` front door):
+SpMV/SpMM, BFS and PageRank.
 
 They take the host-side substrate objects (:class:`CSRMatrix`,
-:class:`SellCSigmaMatrix`, :class:`SellSlabs`), normalize them to
-width-bucketed SELL slabs, preflight the Hopper launch plan, upload the
-slabs and X, and run :func:`repro_torch.kernels.sell_core.spmm_sell` — one
-kernel launch per width bucket.  Calls run on the card unless the spec
-asks for the CPU (``ExecSpec(device="cpu")``), where the plain PyTorch
-reference runs instead.
+:class:`SellCSigmaMatrix`, :class:`SellSlabs`, :class:`EllpackGraph`),
+normalize and pack them, preflight the Hopper launch plan, upload them to
+the card and run the kernels:
+
+* ``spmm`` / ``spmv`` — :func:`repro_torch.kernels.sell_core.spmm_sell`,
+  one launch of kernel B1 per width bucket;
+* ``bfs`` / ``pagerank`` — over the reverse graph, with ``spec.layout``
+  ``"ell"`` (the default: ELLPACK kernels B4 / B5, one launch per level or
+  power step) or ``"sell"`` (kernel B3 with the BFS or PageRank combine,
+  one launch per width bucket per step, k sources or configurations
+  batched as state columns).
+
+Calls run on the card unless the spec asks for the CPU
+(``ExecSpec(device="cpu")``), where the plain PyTorch versions run instead.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-substituted: the streaming schedule (``mode="stream"``, kernel B2), ELLPACK
-operands (kernel B6) and multi-GPU placement (ROADMAP A10).  On Hopper
+substituted: the streaming schedule (``mode="stream"``, kernel B2, ROADMAP
+A4) and ELLPACK matrix operands (kernel B6, ROADMAP A7) — the next slice
+of the port — and multi-GPU placement (ROADMAP A10).  On Hopper
 ``mode="auto"`` always resolves to the resident kernel: X is never staged
 whole in fast memory, so there is no residency limit to fall back from.
 """
@@ -22,9 +31,19 @@ import weakref
 import numpy as np
 import torch
 
-from repro_torch.analysis.preflight import SlabMeta, plan_spmm_sell
+from repro_torch.analysis.preflight import (
+    SlabMeta,
+    plan_bfs_ell,
+    plan_bfs_sell,
+    plan_pagerank_ell,
+    plan_pagerank_sell,
+    plan_spmm_sell,
+)
 from repro_torch.core.autotune import SellTuneResult, tune_sell_layout
 from repro_torch.core.sdv import h100_machine
+from repro_torch.graphs.gen import EllpackGraph, graph_to_sell_slabs
+from repro_torch.kernels import bfs as bfs_k
+from repro_torch.kernels import pagerank as pr_k
 from repro_torch.kernels import sell_core
 from repro_torch.kernels.execspec import ExecSpec, resolve_device
 from repro_torch.obs import Stopwatch
@@ -99,7 +118,8 @@ def _normalize_matrix(matrix, spec: ExecSpec) -> SellSlabs:
     if type(matrix).__name__ == "EllpackMatrix":
         raise NotImplementedError(
             "ELLPACK operands run kernel B6 (spmv_ell), which is not ported "
-            "yet (ROADMAP A7); pack the matrix as CSR or SELL")
+            "yet (ROADMAP A7, the next slice of the port); pack the matrix "
+            "as CSR or SELL")
     if not isinstance(matrix, (CSRMatrix, SellCSigmaMatrix, SellSlabs)):
         raise TypeError(f"unsupported sparse format: {type(matrix).__name__}")
     if not isinstance(matrix, CSRMatrix) and matrix.c != spec.vl:
@@ -167,7 +187,8 @@ def _spmm_slabs(slabs: SellSlabs, x: torch.Tensor, *, k_block: int,
     if mode == "stream":
         raise NotImplementedError(
             "mode='stream' runs kernel B2 (the out-of-fast-memory schedule), "
-            "which is not ported yet (ROADMAP A4); use mode='auto'")
+            "which is not ported yet (ROADMAP A4, the next slice of the "
+            "port); use mode='auto'")
     k = int(x.shape[1])
     assert sell_core.padded_k(sell_core.pow2_ceil(max(k, 1)), k_block) \
         == sell_core.pow2_ceil(max(k, 1)), "k-padding policy drifted"
@@ -223,6 +244,129 @@ def spmv(matrix: CSRMatrix | SellCSigmaMatrix | SellSlabs, x, *,
         return spmm(matrix, x, spec=spec)
     return _spmm_slabs(_normalize_matrix(matrix, spec), x[:, None],
                        k_block=1, mode=spec.mode)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# BFS / PageRank
+# ---------------------------------------------------------------------------
+
+#: id(graph) -> {"ids": forward SlabMeta (bounds-scanned), "reverse": the
+#: transposed graph, (layout, vl, sigma, device): (meta, tensors, degree)}.
+#: Graphs are treated as immutable, so one graph's id scan, transpose,
+#: packing and upload are paid once however often it is served; an entry
+#: dies with its object.
+_PREPARED_GRAPHS: dict[int, dict] = {}
+
+
+def _prepared_graph(graph: EllpackGraph, spec: ExecSpec, device, plan_ids):
+    """The reverse graph of ``graph`` in ``spec.layout``, bounds-scanned and
+    uploaded to ``device``: ``(meta, tensors, out_degree)``.
+
+    The forward neighbour ids are planned first (``plan_ids``, the
+    ELLPACK plan of the calling op), so a corrupt id is refused with a
+    :class:`LaunchPlanError` before the transpose indexes with it.
+    """
+    if not isinstance(graph, EllpackGraph):
+        raise TypeError(f"expected an EllpackGraph, got {type(graph).__name__}")
+    entry = _PREPARED_GRAPHS.get(id(graph))
+    if entry is None:
+        entry = {"ids": SlabMeta.from_ell(graph.adj, graph.n_nodes,
+                                          check_bounds=True)}
+        _PREPARED_GRAPHS[id(graph)] = entry
+        weakref.finalize(graph, _PREPARED_GRAPHS.pop, id(graph), None)
+    plan_ids(entry["ids"]).raise_if_invalid()
+    if "reverse" not in entry:
+        entry["reverse"] = graph.transpose()
+    rgraph = entry["reverse"]
+    key = (spec.layout, spec.vl, spec.sigma, device)
+    if key not in entry:
+        if spec.layout == "sell":
+            slabs = graph_to_sell_slabs(rgraph, c=spec.vl, sigma=spec.sigma)
+            meta = SlabMeta.from_slabs(slabs, check_bounds=True)
+            tensors = slabs.to_device(device)
+        else:
+            meta = SlabMeta.from_ell(rgraph.adj, graph.n_nodes,
+                                     check_bounds=True)
+            tensors = rgraph.to_device(device)
+        deg = torch.from_numpy(graph.out_degree.astype(np.float64)).to(device)
+        entry[key] = (meta, tensors, deg)
+    return entry[key]
+
+
+def _graph_spec(spec: ExecSpec | None) -> tuple[ExecSpec, torch.device]:
+    spec = spec if spec is not None else ExecSpec()
+    if spec.layout not in ("ell", "sell"):
+        raise ValueError(
+            f"unknown layout {spec.layout!r}: expected 'ell' or 'sell'")
+    return spec, resolve_device(spec.device)
+
+
+def bfs(graph: EllpackGraph, source=0, *,
+        spec: ExecSpec | None = None) -> torch.Tensor:
+    """BFS distances from ``source`` (INF = unreachable), int32.
+
+    Bottom-up expansion needs *in*-neighbours, so the kernels run over the
+    reverse graph.  ``spec.layout = "sell"`` runs kernel B3 over
+    in-degree-sorted, width-bucketed slabs (skewed graphs stop paying the
+    global max in-degree per node); the default ``"ell"`` runs kernel B4
+    over the degree-padded ELLPACK reverse adjacency.
+
+    ``source`` may be one node id or a sequence of k ids.  A sequence
+    returns stacked (n_nodes, k) distances, one column per source; on the
+    SELL layout the whole stack advances through one launch set per level,
+    on ELLPACK the sources run one by one.  Returns a tensor on
+    ``spec.device``.
+    """
+    spec, device = _graph_spec(spec)
+    meta, tensors, _ = _prepared_graph(graph, spec, device, plan_bfs_ell)
+    n = graph.n_nodes
+    if spec.layout == "sell":
+        plan = plan_bfs_sell(meta, k=int(np.size(source))).raise_if_invalid()
+        adj, nodes = tensors
+        return _run_profiled("bfs", plan, lambda: bfs_k.bfs_sell(
+            adj, nodes, n, source), device)
+    plan = plan_bfs_ell(meta).raise_if_invalid()
+    if np.ndim(source) == 0:
+        return _run_profiled("bfs", plan, lambda: bfs_k.bfs(
+            tensors, int(source), vl=spec.vl), device)
+    return torch.stack([bfs_k.bfs(tensors, int(s), vl=spec.vl)
+                        for s in np.asarray(source)], dim=1)
+
+
+def pagerank(graph: EllpackGraph, *, damping=0.85, iters=20,
+             spec: ExecSpec | None = None) -> torch.Tensor:
+    """PageRank scores via the pull-style kernels on the reverse graph,
+    float64.
+
+    ``spec.layout = "sell"`` runs kernel B3 over in-degree-sorted,
+    width-bucketed reverse adjacency; the default ``"ell"`` runs kernel B5.
+    ``damping`` / ``iters`` may be scalars or sequences (broadcast against
+    each other): sequences return stacked (n_nodes, k) ranks, one column
+    per configuration; on the SELL layout every power step is one launch
+    set for all k columns, on ELLPACK the configurations run one by one.
+    Returns a tensor on ``spec.device``.
+    """
+    spec, device = _graph_spec(spec)
+    meta, tensors, deg = _prepared_graph(graph, spec, device,
+                                         plan_pagerank_ell)
+    n = graph.n_nodes
+    if spec.layout == "sell":
+        plan = plan_pagerank_sell(
+            meta, k=max(int(np.size(damping)), int(np.size(iters))),
+        ).raise_if_invalid()
+        radj, nodes = tensors
+        return _run_profiled("pagerank", plan, lambda: pr_k.pagerank_sell(
+            radj, nodes, deg, n, damping=damping, iters=iters), device)
+    plan = plan_pagerank_ell(meta).raise_if_invalid()
+    if np.ndim(damping) == 0 and np.ndim(iters) == 0:
+        return _run_profiled("pagerank", plan, lambda: pr_k.pagerank(
+            tensors, deg, damping=float(damping), iters=int(iters),
+            vl=spec.vl), device)
+    dampings, iters_arr = pr_k.broadcast_configs(damping, iters)
+    return torch.stack([
+        pr_k.pagerank(tensors, deg, damping=float(d), iters=int(it),
+                      vl=spec.vl)
+        for d, it in zip(dampings, iters_arr)], dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The batched SELL execution core on Hopper: multi-RHS SpMM + row scatter.
+"""The batched SELL execution core on Hopper: multi-RHS SpMM + row scatter,
+and the bucket loop of the graph kernels.
 
 Port of the resident schedule of ``repro.kernels.sell_core`` (and of
 ``repro.kernels.sell.spmv_sell``, its k = 1 column).  k right-hand sides
@@ -14,6 +15,13 @@ per width bucket.
 * :func:`spmm_sell_ref` — the plain PyTorch version of the same function,
   for the CPU tests and for holding the kernel against on the card.
 
+* :func:`bucketed_node_step` — the graph kernels' bucket loop (the
+  counterpart of the reference's ``bucketed_node_step``): one launch of
+  kernel B3 per non-empty width bucket, the combine (BFS or PageRank)
+  chosen by the caller's launch function, the scatter to node order fused
+  into the kernel.  :func:`neighbour_chunks` is the gather the plain
+  versions of those kernels share.
+
 Both keep the reference's contract: every real row appears in exactly one
 bucket, padding lanes scatter into a dump row (index ``n_rows``) of an
 ``(n_rows + 1, k_pad)`` buffer that is trimmed to ``(n_rows, k)``, and the
@@ -25,13 +33,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.autotune import KERNEL_DTYPES, SPMM_BLOCK_THREADS
+from repro_torch.core.autotune import KERNEL_DTYPES, MAX_K_TILE, SPMM_BLOCK_THREADS
 from repro_torch.sparse.formats import PAD, pow2_ceil
 
 __all__ = [
     "KERNEL_LAUNCHES",
     "PAD",
+    "bucketed_node_step",
+    "graph_storage",
     "k_tile_for",
+    "neighbour_chunks",
+    "node_k_tile",
     "padded_k",
     "pow2_ceil",
     "spmm_sell",
@@ -197,3 +209,95 @@ def spmv_sell(bucket_cols, bucket_vals, bucket_rows, x: torch.Tensor, *,
     :func:`spmm_sell`.  Returns y of shape (n_rows,)."""
     return spmm_sell(bucket_cols, bucket_vals, bucket_rows, x[:, None],
                      n_rows=n_rows, k_block=1)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Shared bucket-launch loop for the graph kernels (kernel B3)
+# ---------------------------------------------------------------------------
+
+#: Elements of one gathered (rows, w-chunk[, k]) block in the plain graph
+#: steps: a whole (S, C, W, k) gather at k = 32 on a 2M-node graph would
+#: take ~13 GB, so the plain versions walk the neighbour axis in chunks.
+PLAIN_GATHER_ELEMS = 1 << 25
+
+
+def node_k_tile(k: int) -> int:
+    """State columns one thread of a graph kernel carries: the largest
+    power of two dividing ``k``, capped at ``MAX_K_TILE``.  ``k`` is then
+    always a whole number of tiles, so the state is never padded."""
+    k = max(int(k), 1)
+    return min(k & -k, MAX_K_TILE)
+
+
+def graph_storage(adj: torch.Tensor) -> torch.Tensor:
+    """``adj`` with its last two axes swapped in memory, as a view of the
+    same shape: the storage the graph kernels read ((S, W, C) for a
+    (S, C, W) SELL bucket, (width, n) for an (n, width) ELLPACK
+    adjacency).  Free for the uploads of
+    :meth:`repro_torch.graphs.SellGraphSlabs.to_device` and
+    :meth:`repro_torch.graphs.EllpackGraph.to_device`; a copy otherwise."""
+    return adj.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def check_graph_args(bucket_adj, bucket_nodes, state: torch.Tensor) -> None:
+    """Device, dtype, shape and contiguity of one graph step over SELL
+    buckets.  Neighbour-id and node-map bounds are the preflight's job
+    (:func:`repro_torch.analysis.preflight.plan_bfs_sell`)."""
+    if len(bucket_adj) != len(bucket_nodes):
+        raise ValueError("need one adjacency and one node map per bucket")
+    if state.ndim not in (1, 2):
+        raise ValueError(
+            f"state must be (n + 1,) or (n + 1, k), got {tuple(state.shape)}")
+    for b, (adj, nodes) in enumerate(zip(bucket_adj, bucket_nodes)):
+        for name, t in (("adj", adj), ("nodes", nodes)):
+            if t.device != state.device:
+                raise ValueError(
+                    f"bucket {b} {name} on {t.device}, state on {state.device}")
+            if t.dtype != torch.int32:
+                raise TypeError(f"bucket {b} {name} must be int32, got {t.dtype}")
+        if adj.ndim != 3 or tuple(nodes.shape) != tuple(adj.shape[:2]):
+            raise ValueError(
+                f"bucket {b}: adj {tuple(adj.shape)} / nodes "
+                f"{tuple(nodes.shape)} are not one (S, C, W) slab and its "
+                "(S, C) node map")
+        if not nodes.is_contiguous():
+            raise ValueError(f"bucket {b} nodes is not contiguous")
+
+
+def neighbour_chunks(adj: torch.Tensor, state: torch.Tensor):
+    """Yield ``(mask, gathered)`` over chunks of the last (neighbour) axis
+    of ``adj`` ((S, C, W) or (n, W)): ``gathered[..., j] = state[adj[...,
+    j]]`` with a trailing state-column axis when ``state`` is 2-D, and
+    ``mask`` marks the real neighbours (PAD slots gather row 0 and must be
+    masked by the caller).  The gather the plain graph steps share."""
+    width = adj.shape[-1]
+    rows = adj.numel() // max(width, 1)
+    k = state.shape[1] if state.ndim == 2 else 1
+    step = max(1, PLAIN_GATHER_ELEMS // max(1, rows * k))
+    for w0 in range(0, width, step):
+        a = adj[..., w0:w0 + step]
+        mask = a != PAD
+        gathered = state[torch.where(mask, a, 0).long()]
+        yield (mask[..., None] if state.ndim == 2 else mask), gathered
+
+
+def bucketed_node_step(launch, bucket_adj, bucket_nodes,
+                       state: torch.Tensor) -> None:
+    """Launch one graph kernel per non-empty width bucket on the card.
+
+    ``launch(adj, nodes, k_tile)`` makes one launch of the caller's combine
+    (BFS or PageRank, kernel B3) over one bucket: ``adj`` is the bucket's
+    (S, W, C) storage, ``nodes`` its (S, C) node map, ``k_tile`` the state
+    columns one thread carries (:func:`node_k_tile`).  The kernel reads
+    ``state`` and scatters each node's new value into the caller's output
+    through ``nodes``; padding lanes (node id n) write nothing.  An empty
+    bucket is skipped: the kernel's C entry refuses zero slices.  Launches
+    are made with ``state``'s device current, on its current stream.
+    """
+    check_graph_args(bucket_adj, bucket_nodes, state)
+    k_tile = node_k_tile(state.shape[1] if state.ndim == 2 else 1)
+    with torch.cuda.device(state.device):
+        for adj, nodes in zip(bucket_adj, bucket_nodes):
+            if adj.shape[0] == 0:
+                continue
+            launch(adj.transpose(1, 2).contiguous(), nodes, k_tile)

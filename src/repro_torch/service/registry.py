@@ -1,6 +1,7 @@
 """Operand registry: register once, pack once, tune once, serve forever.
 
-The port's ``repro.service.registry`` for matrix operands.  The expensive
+The port's ``repro.service.registry`` for matrix and graph operands.  The
+expensive
 per-operand work — signature fingerprinting, (C, sigma, k_block) tuning,
 SELL packing, the launch preflight and the upload of the slabs to the
 card — happens at *registration*, so request execution touches only
@@ -16,13 +17,21 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
-from repro_torch.analysis.preflight import SlabMeta, plan_spmm_sell
+from repro_torch.analysis.preflight import (
+    SlabMeta,
+    plan_bfs_ell,
+    plan_bfs_sell,
+    plan_pagerank_sell,
+    plan_spmm_sell,
+)
 from repro_torch.core.autotune import SellTuneResult
 from repro_torch.core.sdv import MachineParams, h100_machine
+from repro_torch.graphs.gen import PAD, EllpackGraph, graph_to_sell_slabs
 from repro_torch.kernels.execspec import resolve_device
-from repro_torch.kernels.ops import pack_tuned
+from repro_torch.kernels.ops import device_tag, pack_tuned, tune_and_pack
 from repro_torch.obs import MetricsRegistry, Stopwatch
 from repro_torch.service.tunecache import (
     OperandSignature,
@@ -41,12 +50,12 @@ class RegisteredOperand:
     """
 
     name: str
-    kind: str                               # matrix
+    kind: str                               # matrix | graph
     signature: OperandSignature | None
     tuned: SellTuneResult | None = None
-    slabs: Any = None                       # host SellSlabs
+    slabs: Any = None                       # host SellSlabs | SellGraphSlabs
     device_arrays: dict = dataclasses.field(default_factory=dict)
-    n: int = 0                              # n_rows
+    n: int = 0                              # n_rows / n_nodes
     n_cols: int = 0                         # RHS length
     register_us: float = 0.0                # wall time spent registering
     tune_was_cached: bool = False
@@ -158,3 +167,63 @@ class KernelRegistry:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # upload inside register_us
         return self._admit(op, sw)
+
+    def register_graph(self, name: str, graph: EllpackGraph) -> RegisteredOperand:
+        """Pack + tune a graph for BFS/PageRank serving and upload it.
+
+        Both pull-style kernels consume the *reverse* adjacency, so the
+        registry packs ``graph.transpose()`` into SELL slabs, tuned on the
+        in-degree distribution (the row-length law of the pull traffic).
+        Graph kernels serve float64 ranks (the reference's x64 path), so
+        the cache key's dtype is fixed to it, and its device is the card's
+        name.  The neighbour ids and node maps are bounds-scanned and the
+        B3 launches planned before anything is uploaded.
+        """
+        dtype = "float64"
+        sw = Stopwatch().start()
+        sig = operand_signature(graph)
+        key = self.cache.sell_key("graph", sig, device=device_tag(self.device),
+                                  dtype=dtype, machine=self.machine)
+        before = self.cache.hits
+        # the forward ids first: a corrupt id must be refused by the
+        # preflight, not by an index error inside the transpose
+        plan_bfs_ell(SlabMeta.from_ell(graph.adj, graph.n_nodes,
+                                       check_bounds=True)).raise_if_invalid()
+        rgraph = graph.transpose()
+        in_deg = (rgraph.adj != PAD).sum(axis=1).astype(np.int64)
+        # both pull-style kernels share the layout; a pagerank (or bfs)
+        # campaign hint narrows the sweep for either
+        hinted = (self.cache.candidate_vls_for("pagerank", self.machine.name)
+                  or self.cache.candidate_vls_for("bfs", self.machine.name))
+        slabs, tuned = tune_and_pack(
+            in_deg,
+            lambda t: graph_to_sell_slabs(rgraph, c=t.c, sigma=t.sigma),
+            candidates_c=hinted, cache=self.cache, base_key=key,
+        )
+        op = RegisteredOperand(
+            name=name, kind="graph", signature=sig, tuned=tuned,
+            slabs=slabs, n=graph.n_nodes,
+            tune_was_cached=self.cache.hits > before,
+        )
+        op.slab_meta = SlabMeta.from_slabs(slabs, check_bounds=True)
+        op.plans = {
+            "bfs": plan_bfs_sell(op.slab_meta).raise_if_invalid(),
+            "pagerank": plan_pagerank_sell(op.slab_meta).raise_if_invalid(),
+        }
+        op.device_arrays = _graph_device_arrays(slabs, graph, self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # upload inside register_us
+        return self._admit(op, sw)
+
+
+def _graph_device_arrays(slabs, graph: EllpackGraph, device) -> dict:
+    """The reverse-graph buckets (adjacency stored (S, W, C) for coalesced
+    kernel loads, see :meth:`SellGraphSlabs.to_device`), the node maps and
+    the float64 out-degree vector in original node order, on ``device``."""
+    adj, nodes = slabs.to_device(device)
+    return {
+        "adj": adj,
+        "nodes": nodes,
+        "out_degree": torch.from_numpy(
+            graph.out_degree.astype(np.float64)).to(device),
+    }

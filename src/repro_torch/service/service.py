@@ -1,7 +1,7 @@
 """Request-driven execution engine for the port's sparse kernels.
 
-The port of ``repro.service.service`` for SpMV traffic
-(``OPS = ("spmv",)``; BFS, PageRank, FFT and MoE dispatch follow with
+The port of ``repro.service.service`` for SpMV, BFS and PageRank traffic
+(``OPS = ("spmv", "bfs", "pagerank")``; FFT and MoE dispatch follow with
 their kernels).  :class:`KernelService` has the reference's async
 submit/poll shape: ``submit`` preflights and enqueues and returns a request
 id, ``poll`` reports a result when one exists, and ``step``/``run``/
@@ -9,10 +9,16 @@ id, ``poll`` reports a result when one exists, and ``step``/``run``/
 :class:`repro_torch.serve.slots.SlotLoop`.
 
 Coalescing: all active requests against the same registered operand (and
-the same spec) form one group per scheduling round, and the group's x
-vectors become the RHS columns of ONE
-:func:`repro_torch.kernels.sell_core.spmm_sell` call — one launch of the
-CUDA kernel per width bucket.  Results stay on the registry's device.
+the same spec) form one group per scheduling round, and the group runs as
+ONE batched drive.  SpMV x vectors become the RHS columns of one
+:func:`repro_torch.kernels.sell_core.spmm_sell` call (one launch of kernel
+B1 per width bucket); BFS sources and PageRank (damping, iters)
+configurations become the state columns of one
+:func:`repro_torch.kernels.bfs.bfs_sell` or
+:func:`repro_torch.kernels.pagerank.pagerank_sell` drive (one launch of
+kernel B3 per width bucket per level or power step).  A singleton group
+keeps the 1-D state; larger groups are pow2-padded.  Results stay on the
+registry's device.
 
 ``max_queue`` bounds the admission queue (:class:`QueueFull`).  ``stats``
 is the frozen-key view over the service's metrics registry, and an
@@ -28,7 +34,13 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.launchplan import LaunchPlan, LaunchPlanError
-from repro_torch.analysis.preflight import plan_spmm_sell
+from repro_torch.analysis.preflight import (
+    plan_bfs_sell,
+    plan_pagerank_sell,
+    plan_spmm_sell,
+)
+from repro_torch.kernels import bfs as bfs_k
+from repro_torch.kernels import pagerank as pr_k
 from repro_torch.kernels import sell_core
 from repro_torch.kernels.execspec import ExecSpec
 from repro_torch.obs import (
@@ -44,7 +56,7 @@ from repro_torch.serve.slots import SlotLoop
 from repro_torch.service.registry import KernelRegistry, RegisteredOperand
 from repro_torch.sparse.formats import pow2_ceil
 
-OPS = ("spmv",)
+OPS = ("spmv", "bfs", "pagerank")
 
 #: request class of each op for the per-class latency histograms
 OP_CLASS = {op: "kernel" for op in OPS}
@@ -108,8 +120,8 @@ class SubmitRequest:
 
     op: str                     # one of OPS
     operand: str                # registry name
-    payload: Any = None         # x vector (numpy or torch)
-    params: dict = dataclasses.field(default_factory=dict)
+    payload: Any = None         # x vector (numpy or torch); None for graphs
+    params: dict = dataclasses.field(default_factory=dict)  # source / damping, iters
     spec: ExecSpec | None = None
 
 
@@ -326,6 +338,11 @@ class KernelService(SlotLoop[KernelRequest]):
             plans["spmv"] = plan_spmm_sell(
                 record.slab_meta, k=max(1, tuned.k_block),
                 x_dtype=record.slab_meta.val_dtype, k_block=tuned.k_block)
+        elif record.kind == "graph" and record.slab_meta is not None:
+            # worst case: a full coalesced group, pow2-padded
+            k = pow2_ceil(max(1, self.n_slots))
+            plans["bfs"] = plan_bfs_sell(record.slab_meta, k=k)
+            plans["pagerank"] = plan_pagerank_sell(record.slab_meta, k=k)
         return plans
 
     def _preflight(self, op: str, record: RegisteredOperand) -> None:
@@ -502,3 +519,71 @@ class KernelService(SlotLoop[KernelRequest]):
         self._count_launch(operand, op="spmv", wall_us=sw.elapsed_us)
         for i, req in enumerate(good):
             req.result = y[:, i]
+
+    def _run_bfs(self, operand, reqs):
+        """The whole group is one batched drive: sources become frontier
+        columns, every level is a single launch set."""
+        if operand.kind != "graph":
+            raise TypeError(f"operand {operand.name!r} is not a graph")
+        arrs = operand.device_arrays
+
+        def check(req):
+            source = int(req.params.get("source", 0))
+            if not 0 <= source < operand.n:
+                raise ValueError(f"source {source} out of range [0, {operand.n})")
+            return source
+
+        good, sources = self._validated(reqs, check)
+        if not good:
+            return
+        # a singleton group keeps the 1-D fast path (no state-column axis);
+        # larger groups batch sources as columns, padded to a power of two
+        # (repeat the last source) so group sizes share log2 state shapes
+        batch = sources[0] if len(good) == 1 else _pow2_pad(sources)
+        device = self.registry.device
+        sw = Stopwatch().start()
+        dist = bfs_k.bfs_sell(arrs["adj"], arrs["nodes"], operand.n, batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)   # the wall time covers the kernels
+        sw.stop()
+        self._count_launch(operand, op="bfs", wall_us=sw.elapsed_us)
+        if len(good) == 1:
+            good[0].result = dist
+        else:
+            for i, req in enumerate(good):
+                req.result = dist[:, i]
+
+    def _run_pagerank(self, operand, reqs):
+        """The whole group is one batched drive: (damping, iters) configs
+        become iterate columns, every power step is a single launch set."""
+        if operand.kind != "graph":
+            raise TypeError(f"operand {operand.name!r} is not a graph")
+        arrs = operand.device_arrays
+
+        def check(req):
+            return (float(req.params.get("damping", 0.85)),
+                    int(req.params.get("iters", 20)))
+
+        good, configs = self._validated(reqs, check)
+        if not good:
+            return
+        if len(good) == 1:                     # 1-D fast path (see _run_bfs)
+            damping, iters = configs[0]
+        else:                                  # pow2-padded columns, ditto
+            configs = _pow2_pad(configs)
+            damping = [d for d, _ in configs]
+            iters = [i for _, i in configs]
+        device = self.registry.device
+        sw = Stopwatch().start()
+        rank = pr_k.pagerank_sell(arrs["adj"], arrs["nodes"],
+                                  arrs["out_degree"], operand.n,
+                                  damping=damping, iters=iters)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)   # the wall time covers the kernels
+        sw.stop()
+        self._count_launch(operand, op="pagerank", wall_us=sw.elapsed_us)
+        if len(good) == 1:
+            good[0].result = rank
+        else:
+            for i, req in enumerate(good):
+                req.result = rank[:, i]

@@ -3,10 +3,10 @@
 A copy of ``repro.service.tunecache`` with the **same JSON schema**, so a
 cache file written by the JAX reference loads here unchanged and the
 reference's recorded layout for an operand can be reused as is (same key,
-same content signature).  Covered: matrix signatures, tune entries, the
-packed-slab memo, the repack ledger, hints and the cross-process lock +
-merge-on-save protocol.  Graph signatures and ``warm_from_sweeps`` wait
-for later slices of the port.
+same content signature).  Covered: matrix and graph signatures, tune
+entries, the packed-slab memo, the repack ledger, hints and the
+cross-process lock + merge-on-save protocol.  ``warm_from_sweeps`` waits
+for a port of the campaign store (ROADMAP A9).
 
 Keys are ``(kernel, device, dtype, machine tag, operand signature)``:
 the signature fingerprints the operand's shape, nnz and content digest,
@@ -65,7 +65,7 @@ class OperandSignature:
     the shape/nnz fields keep the key human-readable in the JSON store.
     """
 
-    kind: str               # csr | sell-slabs | sell
+    kind: str               # csr | sell-slabs | sell | graph | graph-slabs
     n_rows: int
     n_cols: int
     nnz: int
@@ -101,8 +101,10 @@ def machine_tag(machine) -> str:
 
 
 def operand_signature(obj: Any) -> OperandSignature:
-    """Fingerprint a sparse matrix operand (graph signatures wait for the
-    graph kernels' slice of the port).  Same hash as the reference's."""
+    """Fingerprint a sparse matrix or graph operand.  Same kinds and hash
+    as the reference's, so a tune key written by either package reads the
+    same in the other."""
+    from repro_torch.graphs.gen import EllpackGraph, SellGraphSlabs
     from repro_torch.sparse.formats import CSRMatrix, SellCSigmaMatrix, SellSlabs
 
     if isinstance(obj, CSRMatrix):
@@ -117,6 +119,14 @@ def operand_signature(obj: Any) -> OperandSignature:
         return OperandSignature(
             "sell", obj.n_rows, obj.n_cols, obj.nnz,
             _digest((*obj.slice_cols, *obj.slice_vals, obj.perm)))
+    if isinstance(obj, EllpackGraph):
+        return OperandSignature(
+            "graph", obj.n_nodes, obj.n_nodes, obj.n_edges,
+            _digest((obj.adj,)))
+    if isinstance(obj, SellGraphSlabs):
+        return OperandSignature(
+            "graph-slabs", obj.n_nodes, obj.n_nodes, obj.n_edges,
+            _digest((*obj.bucket_adj, *obj.bucket_nodes)))
     raise TypeError(f"unsupported operand type: {type(obj).__name__}")
 
 

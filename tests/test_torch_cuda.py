@@ -1,12 +1,13 @@
-"""Kernel B1 (``csrc/spmm_sell.cu``) against its plain PyTorch version on
-the card.  Every test here carries the ``cuda`` marker and skips without a
+"""Kernel B1 (``csrc/spmm_sell.cu``) and the graph kernels B3, B4, B5
+(``csrc/graph_step.cu``) against their plain PyTorch versions on the card.  Every test here carries the ``cuda`` marker and skips without a
 GPU (decided inside the fixture, never at import).  This file imports
 neither ``jax`` nor ``repro``, so it runs on a machine that has only the
 port's dependencies:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: 1e-10 at fp64, 1e-4 x max|y| at fp32 (summation order differs).
+Tolerance: 1e-10 at fp64, 1e-4 x max|y| at fp32 (summation order differs);
+BFS distances exactly equal, PageRank ranks at rtol 1e-10.
 """
 import numpy as np
 import pytest
@@ -53,3 +54,81 @@ def test_ops_spmv_on_the_card_matches_host_csr(cuda_device):
     assert y.device.type == "cuda"
     np.testing.assert_allclose(y.cpu().numpy(), csr.matvec(x),
                                rtol=1e-10, atol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# Graph kernels B3 (BFS and PageRank combines), B4 and B5
+# ---------------------------------------------------------------------------
+
+
+def _graph_case(G, n=2053):
+    g = G.rmat_graph(n, 8, seed=7)
+    return g, g.transpose()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 32, 256])
+def test_graph_sell_kernels_match_plain_versions(cuda_device, c):
+    """B3 with both combines against its plain version: BFS exactly,
+    PageRank at rtol 1e-10 (only the summation order differs)."""
+    from repro_torch.graphs import gen as G
+    from repro_torch.kernels import bfs, pagerank
+
+    g, rg = _graph_case(G)
+    n = g.n_nodes
+    adj, nodes = G.graph_to_sell_slabs(rg, c=c).to_device(cuda_device)
+    rng = np.random.default_rng(c)
+    for k in (None, 1, 6, 32):
+        cols = 1 if k is None else k
+        shape = (n + 1,) if k is None else (n + 1, k)
+        dist = torch.full(shape, G.INF, dtype=torch.int32, device=cuda_device)
+        src = torch.from_numpy(rng.choice(n, cols, replace=False))
+        if k is None:
+            dist[int(src[0])] = 0
+        else:
+            dist[src.to(cuda_device), torch.arange(k, device=cuda_device)] = 0
+        for level in (1, 2, 3):
+            before = bfs.KERNEL_LAUNCHES["bfs_step_sell"]
+            got = bfs.bfs_step_sell(adj, nodes, dist, level)
+            torch.cuda.synchronize()
+            assert bfs.KERNEL_LAUNCHES["bfs_step_sell"] == before + len(adj)
+            assert torch.equal(got, bfs.bfs_step_sell_ref(adj, nodes, dist,
+                                                          level))
+            dist = got
+        contrib = torch.from_numpy(rng.random(shape)).to(cuda_device)
+        contrib[-1] = 0.0
+        consts = torch.from_numpy(
+            rng.random((3,) if k is None else (3, k))).to(cuda_device)
+        got = pagerank.pagerank_step_sell(adj, nodes, contrib, consts)
+        want = pagerank.pagerank_step_sell_ref(adj, nodes, contrib, consts)
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=0)
+
+
+@pytest.mark.cuda
+def test_graph_ell_kernels_and_ops_match_host_references(cuda_device):
+    """B4 / B5 against their plain versions, and ``ops.bfs`` /
+    ``ops.pagerank`` on both layouts against the host references."""
+    from repro_torch.graphs import gen as G
+    from repro_torch.kernels import bfs, pagerank
+
+    g, rg = _graph_case(G, n=4093)
+    radj = rg.to_device(cuda_device)
+    deg = torch.from_numpy(g.out_degree.astype(np.float64)).to(cuda_device)
+    before = bfs.KERNEL_LAUNCHES["bfs_step"]
+    dist = bfs.bfs(radj, 11)
+    assert bfs.KERNEL_LAUNCHES["bfs_step"] > before
+    assert torch.equal(dist, bfs.bfs_ref(radj, 11))
+    np.testing.assert_array_equal(dist.cpu().numpy(), G.bfs_reference(g, 11))
+    rank = pagerank.pagerank(radj, deg, damping=0.9, iters=7)
+    torch.testing.assert_close(rank, pagerank.pagerank_ref(
+        radj, deg, damping=0.9, iters=7), rtol=1e-10, atol=0)
+    for layout in ("ell", "sell"):
+        spec = ExecSpec(layout=layout, vl=32)
+        d = ops.bfs(g, [11, 400], spec=spec)
+        assert d.device.type == "cuda"
+        np.testing.assert_array_equal(d[:, 1].cpu().numpy(),
+                                      G.bfs_reference(g, 400))
+        r = ops.pagerank(g, damping=[0.85, 0.9], iters=[20, 7], spec=spec)
+        np.testing.assert_allclose(r[:, 1].cpu().numpy(),
+                                   G.pagerank_reference(g, 0.9, 7),
+                                   rtol=1e-10, atol=0)

@@ -20,10 +20,15 @@ from repro.service import KernelRegistry as RefRegistry
 from repro.service import KernelService as RefService
 from repro.service import QueueFull as RefQueueFull
 from repro.service import service as ref_service_mod
+from repro.graphs import gen as RG
 from repro.service.tunecache import TuneCache as RefTuneCache
+from repro.service.tunecache import operand_signature as ref_signature
 from repro.sparse import formats as RF
 from repro_torch.analysis import LaunchPlanError
 from repro_torch.core.sdv import tpu_v5e_machine
+from repro_torch.graphs import gen as G
+from repro_torch.kernels import bfs as bfs_k
+from repro_torch.kernels import pagerank as pr_k
 from repro_torch.kernels import sell_core
 from repro_torch.kernels.ops import device_tag
 from repro_torch.obs import Tracer
@@ -33,6 +38,7 @@ from repro_torch.service import (
     KernelService,
     QueueFull,
     TuneCache,
+    operand_signature,
 )
 from repro_torch.service import service as service_mod
 from repro_torch.sparse import formats as F
@@ -91,7 +97,8 @@ def test_stats_keys_and_pow2_pad_match_reference():
     for n in range(1, 40):
         items = list(range(n))
         assert service_mod._pow2_pad(items) == ref_service_mod._pow2_pad(items)
-    assert service_mod.OPS == ("spmv",)
+    assert service_mod.OPS == ("spmv", "bfs", "pagerank")
+    assert set(service_mod.OPS) <= set(ref_service_mod.OPS)
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +201,7 @@ def test_preflight_rejects_a_drifted_tune_at_admission(world):
 def test_submit_errors_travel_to_the_caller(world):
     _, svc = _services(world)
     with pytest.raises(ValueError, match="unknown op"):
-        svc.submit("bfs", "mat", None)
+        svc.submit("fft", "mat", None)
     with pytest.raises(KeyError, match="not registered"):
         svc.submit("spmv", "nope", None)
     with pytest.raises(TypeError, match="ExecSpec"):
@@ -306,6 +313,162 @@ def test_default_registry_needs_a_gpu():
 
 
 # ---------------------------------------------------------------------------
+# Graph operands: BFS and PageRank traffic
+# ---------------------------------------------------------------------------
+
+N_NODES = 263                   # prime: no slice or block divides it
+
+
+@pytest.fixture
+def graphs():
+    ref = RG.rmat_graph(N_NODES, 8, seed=21)
+    return ref, G.EllpackGraph(adj=ref.adj, n_nodes=ref.n_nodes)
+
+
+def _graph_services(graphs, n_slots=4, **kw):
+    ref, port = graphs
+    ref_reg = RefRegistry()
+    ref_reg.register_graph("g", ref)
+    reg = KernelRegistry(device="cpu", machine=tpu_v5e_machine())
+    reg.register_graph("g", port)
+    return RefService(ref_reg, n_slots=n_slots, **kw), \
+        KernelService(reg, n_slots=n_slots, **kw)
+
+
+def _graph_replay(graphs, reqs, n_slots=4):
+    """Submit the same (op, params) requests to both services, drain."""
+    ref_svc, svc = _graph_services(graphs, n_slots=n_slots)
+    rids = [(ref_svc.submit(op, "g", None, **params),
+             svc.submit(op, "g", None, **params)) for op, params in reqs]
+    ref_svc.drain()
+    svc.drain()
+    return ref_svc, svc, rids
+
+
+def test_register_graph_tune_key_and_layout_match_reference(graphs, tmp_path,
+                                                           monkeypatch):
+    """The graph tune key reads the same in both packages, so a cache file
+    the JAX registry wrote answers the port's registration with zero
+    measurements and the identical reverse-graph slabs."""
+    ref, port = graphs
+    assert operand_signature(port).key == ref_signature(ref).key
+    rslabs = RG.graph_to_sell_slabs(ref.transpose(), c=8)
+    pslabs = G.graph_to_sell_slabs(port.transpose(), c=8)
+    assert operand_signature(pslabs).key == ref_signature(rslabs).key
+    machine = tpu_v5e_machine()
+    assert TuneCache.sell_key("graph", port, device="cpu", machine=machine) \
+        == RefTuneCache.sell_key("graph", ref, device="cpu", machine=machine)
+
+    path = str(tmp_path / "tunes.json")
+    ref_cache = RefTuneCache(path)
+    ref_op = RefRegistry(cache=ref_cache).register_graph("g", ref)
+    ref_cache.save()
+    calls = {"n": 0}
+    real = autotune.measured_pad_factor
+
+    def counting(*args, **kwargs):
+        calls["n"] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(autotune, "measured_pad_factor", counting)
+    reg = KernelRegistry(cache=TuneCache(path), machine=machine, device="cpu")
+    op = reg.register_graph("g", port)
+    assert calls["n"] == 0 and op.tune_was_cached
+    assert (op.tuned.c, op.tuned.sigma) == (ref_op.tuned.c, ref_op.tuned.sigma)
+    for a, b in zip(op.slabs.bucket_adj + op.slabs.bucket_nodes,
+                    ref_op.slabs.bucket_adj + ref_op.slabs.bucket_nodes):
+        assert a.tobytes() == b.tobytes()
+    assert op.kind == "graph" and op.n == N_NODES
+    assert op.plans["bfs"].ok and op.plans["pagerank"].ok
+    assert op.slab_meta.idx_max < N_NODES
+    arrs = op.device_arrays
+    assert all(a.transpose(1, 2).is_contiguous() for a in arrs["adj"])
+    assert arrs["out_degree"].dtype == torch.float64
+
+
+@pytest.mark.parametrize("n_req,n_slots", [(1, 4), (5, 8), (7, 2)])
+def test_graph_results_stats_and_launches_match_reference(graphs, n_req,
+                                                          n_slots):
+    ref, port = graphs
+    rng = np.random.default_rng(n_req)
+    reqs = [("bfs", {"source": int(s)})
+            for s in rng.integers(0, N_NODES, n_req)]
+    reqs += [("pagerank", {"damping": d, "iters": it}) for d, it in
+             zip([0.85, 0.9, 0.8, 0.95] * 2, [5, 3, 4, 6, 2, 5, 1])][:n_req]
+    ref_svc, svc, rids = _graph_replay(graphs, reqs, n_slots=n_slots)
+    for (op, params), (r_ref, r_port) in zip(reqs, rids):
+        got, want = _result(svc, r_port), _result(ref_svc, r_ref)
+        assert got.shape == (N_NODES,)
+        if op == "bfs":
+            assert got.dtype == np.int32 and np.array_equal(got, want)
+            assert np.array_equal(got, G.bfs_reference(port, params["source"]))
+        else:
+            np.testing.assert_allclose(got, want, rtol=TOL, atol=0)
+            np.testing.assert_allclose(
+                got, G.pagerank_reference(port, params["damping"],
+                                          params["iters"]), rtol=TOL)
+    assert dict(svc.stats) == dict(ref_svc.stats)
+    assert svc.registry.get("g").launches == ref_svc.registry.get("g").launches
+
+
+def test_graph_groups_are_one_drive_each(graphs, monkeypatch):
+    calls = {"bfs": 0, "pagerank": 0}
+    real_b, real_p = bfs_k.bfs_sell, pr_k.pagerank_sell
+
+    def bfs_counting(*args, **kwargs):
+        calls["bfs"] += 1
+        return real_b(*args, **kwargs)
+
+    def pr_counting(*args, **kwargs):
+        calls["pagerank"] += 1
+        return real_p(*args, **kwargs)
+
+    monkeypatch.setattr(bfs_k, "bfs_sell", bfs_counting)
+    monkeypatch.setattr(pr_k, "pagerank_sell", pr_counting)
+    reqs = [("bfs", {"source": s}) for s in (0, 9, 77, 100, 262)]
+    reqs += [("pagerank", {"damping": 0.85, "iters": it}) for it in (4, 2, 3)]
+    ref_svc, svc, _ = _graph_replay(graphs, reqs, n_slots=8)
+    assert calls == {"bfs": 1, "pagerank": 1}
+    assert svc.stats["launches"] == ref_svc.stats["launches"] == 2
+    assert svc.stats["max_group"] == 5 and svc.stats["coalesced"] == 8
+    plans = svc.plans()["g"]
+    assert plans["bfs"]["kernel"] == "bfs_sell" and plans["bfs"]["ok"]
+    assert plans["pagerank"]["kernel"] == "pagerank_sell"
+
+
+@pytest.mark.parametrize("bad", [N_NODES, -1, "x"], ids=["n", "neg", "nan"])
+def test_bad_source_fails_alone(graphs, bad):
+    _, port = graphs
+    reqs = [("bfs", {"source": bad}), ("bfs", {"source": 3}),
+            ("bfs", {"source": 50})]
+    ref_svc, svc, rids = _graph_replay(graphs, reqs)
+    for service, rid in ((ref_svc, rids[0][0]), (svc, rids[0][1])):
+        with pytest.raises(RuntimeError, match="failed"):
+            service.poll(rid)
+    for (_, params), (_, rid) in zip(reqs[1:], rids[1:]):
+        assert np.array_equal(_result(svc, rid),
+                              G.bfs_reference(port, params["source"]))
+    assert dict(svc.stats) == dict(ref_svc.stats)
+    assert svc.stats["failed"] == 1 and svc.stats["served"] == 2
+    with pytest.raises(RuntimeError, match="not a graph"):
+        ref_svc2, svc2 = _services((RF.random_csr(20, 20, 3.0, seed=0),
+                                    F.random_csr(20, 20, 3.0, seed=0)))
+        rid = svc2.submit("bfs", "mat", None, source=0)
+        svc2.drain()
+        svc2.poll(rid)
+
+
+def test_registry_refuses_a_graph_with_out_of_range_ids(graphs):
+    _, port = graphs
+    adj = port.adj.copy()
+    adj[7, 0] = N_NODES + 3
+    reg = KernelRegistry(device="cpu")
+    with pytest.raises(LaunchPlanError, match="out of bounds"):
+        reg.register_graph("bad", G.EllpackGraph(adj=adj, n_nodes=N_NODES))
+    assert "bad" not in reg
+
+
+# ---------------------------------------------------------------------------
 # Package boundary
 # ---------------------------------------------------------------------------
 
@@ -316,14 +479,38 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "for m in ('repro_torch.graphs.gen', 'repro_torch.kernels.bfs',\n"
+        "          'repro_torch.kernels.pagerank'):\n"
+        "    assert m in sys.modules, m\n"
         "print('ok', len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )
-    src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
-    env = {**os.environ, "PYTHONPATH": src}
+    root = os.path.dirname(os.path.dirname(__file__))
+    src = os.path.join(root, "src")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([src, root])}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_chip_smoke_names_neither_jax_nor_the_reference():
+    """``chip_smoke.py`` imports its kernels inside ``main``; every import
+    statement in it, at any depth, stays clear of jax and ``repro``."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "chip_smoke.py")
+    tree = ast.parse(open(path).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "repro_torch.kernels" in names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
