@@ -10,13 +10,16 @@ result line is printed:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — every CUDA kernel of the main paths (``spmm_sell.cu``,
-              ``graph_step.cu``), built from ``src/`` with ``nvcc`` (one
-              process per source, started together);
+              ``graph_step.cu``, ``spmv_ell.cu``, ``fft_stockham.cu``),
+              built from ``src/`` with ``nvcc`` (one process per source,
+              started together);
 3. compare  — each kernel against its plain PyTorch version on the card:
               B1 (``spmm_sell``) over C x k x dtype on two operands; the
               graph kernels B3 (``bfs_step_sell``, ``pagerank_step_sell``),
               B4 (``bfs_step``) and B5 (``pagerank_step``) over RMAT and
-              uniform graphs at 2^12 and a prime node count, C x k;
+              uniform graphs at 2^12 and a prime node count, C x k; B6
+              (``spmv_ell``) over C x dtype on two operands; B7
+              (``fft_stockham``, both forms) over n x batch x dtype;
 4. main     — the SpMV path as a user drives it: a ``KernelRegistry`` on the
               card registers cage10 and a 2,097,152-row operand, a
               ``KernelService(n_slots=32)`` serves 64 SpMV requests, every
@@ -28,11 +31,24 @@ result line is printed:
               the card and some against the host references; then
               ``ops.bfs`` / ``ops.pagerank`` on the ELLPACK layout; each
               graph kernel's launch count is read around its drive;
-6. timing   — every kernel at the main paths' shapes, CUDA events with the
-              L2 flushed, beside its bytes bound (the function's least
-              traffic), the same figure over the padded layout, the plain
-              version and, where one PyTorch call computes the same
-              function, that call (``torch.sparse.mm``); then one graph
+6. fft      — the FFT path as a user drives it: the registry registers the
+              plans fft2048 and fft131072 and cage10, one service drain
+              serves 32 FFT requests per plan ((256, 2048) and (8, 2^17)
+              float64 signals) mixed with 16 SpMV requests; every result
+              is checked against the plain version on the card, four per
+              plan against ``np.fft.fft``; B7's launch counts (both forms)
+              are read around the drain;
+7. ellpack  — ``ops.spmv`` on cage10 and ``ops.spmm`` (k = 32) on a
+              2,097,152-row uniform operand, both as ELLPACK at C = vl =
+              256 (kernel B6, no repack), checked against the plain version
+              on the card and the host ``EllpackMatrix.matvec``; B6's
+              launch count is read around them;
+8. timing   — every kernel at the main paths' shapes, CUDA events with the
+              L2 flushed, beside its bound (the larger of the function's
+              least bytes and its operations over the card's peak rates),
+              the same bytes over the padded layout, the plain version
+              and, where one PyTorch call computes the same function, that
+              call (``torch.sparse.mm``, ``torch.fft.fft``); then one graph
               drive per (graph, op) under ``torch.profiler``: the graph
               kernels' device time against the drive's wall time.
 
@@ -64,6 +80,17 @@ GRAPHS = {
     "uniform21": ("random_graph", dict(n_nodes=1 << 21, avg_degree=16,
                                        seed=0)),
 }
+#: the FFT path's plans: registered length and signal rows per request
+FFT_PLANS = {"fft2048": (2048, 256), "fft131072": (1 << 17, 8)}
+FFT_REQUESTS_PER_PLAN = 32
+FFT_SPMV_REQUESTS = 16
+#: B7 compare cases: both forms, both sides of the shared-memory limit
+FFT_COMPARE_NS = (2, 8, 64, 512, 2048, 4096, 8192, 1 << 17)
+FFT_COMPARE_BATCHES = (1, 3, 8, 13)
+#: the ELLPACK ops path's operand: uniform (Poisson) row lengths
+ELL_BIG = dict(n_rows=2_097_152, n_cols=2_097_152, avg_nnz_row=16.0, seed=0)
+ELL_C = 256
+ELL_K = 32
 DAMPINGS = (0.85, 0.9, 0.8, 0.95)
 ITERS = 20
 PR_RTOL = 1e-10
@@ -813,6 +840,370 @@ def graph_records(gm: dict, records: dict) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# FFT (B7) and ELLPACK SpMV (B6)
+# ---------------------------------------------------------------------------
+
+
+def fft_tol(np, dtype, n) -> tuple[float, float]:
+    """(rtol, atol) of B7: the reference's own against numpy, fp64 1e-9 /
+    1e-9 n, fp32 1e-3 / 1e-3 n (FMA contraction changes ulps per stage)."""
+    t = 1e-9 if dtype == np.float64 else 1e-3
+    return t, t * n
+
+
+def check_fft(torch, np, name, got, want, n, dtype) -> float:
+    """Both planes of a spectrum within the FFT tolerance; returns the max
+    abs error."""
+    rtol, atol = fft_tol(np, dtype, n)
+    err = 0.0
+    for g, w in zip(got, want):
+        w = torch.as_tensor(w, device=g.device, dtype=g.dtype)
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: bad spectrum shape/values")
+        if not bool(((g - w).abs() <= atol + rtol * w.abs()).all()):
+            raise AssertionError(f"{name}: max abs err {max_err(g, w)} over "
+                                 f"rtol {rtol} / atol {atol}")
+        err = max(err, max_err(g, w))
+    return err
+
+
+def fft_inputs(torch, np, fft_k, batch, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    re, im = (torch.from_numpy(rng.standard_normal((batch, n)).astype(dtype))
+              .to(DEVICE) for _ in range(2))
+    wre, wim = (torch.from_numpy(w).to(DEVICE)
+                for w in fft_k.fft_twiddles(n, dtype))
+    return re, im, wre, wim
+
+
+def compare_fft(torch, np, fft_k) -> dict:
+    """Phase 3 (FFT): B7 against fft_stockham_ref on the card, both forms
+    on both sides of the shared-memory limit; returns the worst error per
+    dtype."""
+    worst = {}
+    n_cases = 0
+    for dtype in (np.float64, np.float32):
+        for n in FFT_COMPARE_NS:
+            forms = set()
+            for batch in FFT_COMPARE_BATCHES:
+                args = fft_inputs(torch, np, fft_k, batch, n, dtype,
+                                  seed=n + batch)
+                before = dict(fft_k.KERNEL_LAUNCHES)
+                got = fft_k.fft_stockham(*args, b_block=8)
+                torch.cuda.synchronize()
+                forms |= {k for k, v in fft_k.KERNEL_LAUNCHES.items()
+                          if v != before[k]}
+                want = fft_k.fft_stockham_ref(*args)
+                err = check_fft(torch, np, f"B7 vs plain: n={n} batch={batch}"
+                                f" {np.dtype(dtype).name}", got, want, n,
+                                dtype)
+                key = np.dtype(dtype).name
+                worst[key] = max(worst.get(key, 0.0), err)
+                n_cases += 1
+            phase("compare", f"B7 n={n} {np.dtype(dtype).name} batches "
+                  f"{FFT_COMPARE_BATCHES}: {sorted(forms)} within tolerance")
+    phase("compare", f"{n_cases} B7 cases ok; max abs err {worst} (rtol / "
+          "atol: fp64 1e-9 / 1e-9 n, fp32 1e-3 / 1e-3 n)")
+    return worst
+
+
+def compare_spmv_ell(torch, np, F, spmv_k) -> float:
+    """Phase 3 (ELLPACK): B6 against spmv_ell_ref on the card; returns the
+    fp64 max error."""
+    operands = {
+        "cage10": lambda dt: F.cage10_like(seed=0, dtype=dt),
+        "rand4093": lambda dt: F.random_csr(4093, 4093, 8.0, seed=3,
+                                            skew=1.2, dtype=dt),
+    }
+    rng = np.random.default_rng(5)
+    worst64 = 0.0
+    n_cases = 0
+    for dt in (np.float64, np.float32):
+        for name, make in operands.items():
+            csr = make(dt)
+            x = torch.from_numpy(
+                rng.standard_normal(csr.n_cols).astype(dt)).to(DEVICE)
+            for c in (8, 32, 128, 256):
+                cols, vals = F.csr_to_ellpack(csr, c=c).to_device(DEVICE)
+                got = spmv_k.spmv_ell(cols, vals, x)
+                torch.cuda.synchronize()
+                want = spmv_k.spmv_ell_ref(cols, vals, x)
+                err = max_err(got, want)
+                if dt == np.float64:
+                    tol = 1e-10
+                    worst64 = max(worst64, err)
+                else:
+                    tol = 1e-4 * float(want.abs().max())
+                if not err <= tol:
+                    raise AssertionError(f"B6 vs plain: {name} "
+                                         f"{np.dtype(dt).name} C={c}: max abs "
+                                         f"err {err} > {tol}")
+                n_cases += 1
+            phase("compare", f"B6 {name} {np.dtype(dt).name}: C in (8, 32, "
+                  "128, 256) within tolerance")
+    phase("compare", f"{n_cases} B6 cases ok; fp64 max abs err "
+          f"{worst64:.3e} (tol 1e-10), fp32 tol 1e-4 * max|y|")
+    return worst64
+
+
+def fft_main_path(torch, np, F, fft_k, sell_core, KernelRegistry,
+                  KernelService) -> dict:
+    """Phase 6: the FFT path through the registry and the service, FFT
+    requests of two plans mixed with SpMV requests in one drain."""
+    reg = KernelRegistry(device=DEVICE)
+    for name, (n, _) in FFT_PLANS.items():
+        op = reg.register_fft(name, n)
+        phase("fft", f"registered {name}: n={n}, plan "
+              f"{op.plans['fft'].blocks[0].label} x "
+              f"{op.plans['fft'].n_launches} in {op.register_us / 1e3:.1f} ms")
+    cage = F.cage10_like(seed=0)
+    reg.register_matrix("cage10", cage)
+    svc = KernelService(reg, n_slots=N_SLOTS)
+    rng = np.random.default_rng(7)
+    t0 = time.perf_counter()
+    sigs = {name: [rng.standard_normal((rows, n))
+                   for _ in range(FFT_REQUESTS_PER_PLAN)]
+            for name, (n, rows) in FFT_PLANS.items()}
+    xs = [rng.standard_normal(cage.n_cols) for _ in range(FFT_SPMV_REQUESTS)]
+    phase("fft", f"payloads generated in {time.perf_counter() - t0:.1f} s")
+    # mixed as examples/serve_kernels.py mixes its traffic: a repeating
+    # pattern of the two plans and SpMV (2 + 2 + 1 per round of five)
+    order = []
+    for i in range(FFT_SPMV_REQUESTS):
+        order += [("fft2048", 2 * i), ("fft131072", 2 * i), ("spmv", i),
+                  ("fft2048", 2 * i + 1), ("fft131072", 2 * i + 1)]
+    torch.cuda.synchronize()
+    for key in fft_k.KERNEL_LAUNCHES:
+        fft_k.KERNEL_LAUNCHES[key] = 0
+    sell_core.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    rids = {}
+    for what, i in order:
+        if what == "spmv":
+            rids[what, i] = svc.submit("spmv", "cage10", xs[i])
+        else:
+            rids[what, i] = svc.submit("fft", what, sigs[what][i])
+    svc.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(fft_k.KERNEL_LAUNCHES)
+    b1 = sell_core.KERNEL_LAUNCHES
+    stats = dict(svc.stats)
+    n_req = len(order)
+    phase("fft", f"stats {json.dumps(stats)}")
+    walls = svc.metrics.get("launch_wall_us_fft")
+    phase("fft", f"fft.KERNEL_LAUNCHES={launched}, sell_core.KERNEL_LAUNCHES="
+          f"{b1}; {n_req} requests in {wall:.4f} s = {n_req / wall:.1f} "
+          f"requests/s over {stats['groups']} groups; fft calls (kernels + "
+          f"sync) {walls.total / 1e3:.3f} ms over {walls.count} groups")
+    if stats["served"] != n_req or stats["failed"]:
+        raise AssertionError(f"not every request was served: {stats}")
+    groups = {name: reg.get(name).launches for name in FFT_PLANS}
+    want = {"fft_stockham_block": groups["fft2048"],
+            "fft_stockham_stage": groups["fft131072"]
+            * int(np.log2(FFT_PLANS["fft131072"][0]))}
+    if launched != want or min(launched.values()) <= 0:
+        raise AssertionError(f"fft launches {launched} != groups x launches "
+                             f"per call {want}")
+    cage_op = reg.get("cage10")
+    if b1 != cage_op.launches * cage_op.slabs.n_buckets or b1 <= 0:
+        raise AssertionError(f"B1 launches {b1} != buckets x groups")
+    for name, (n, rows) in FFT_PLANS.items():
+        arrs = reg.get(name).device_arrays
+        got = [torch.cat([svc.poll(rids[name, i])[p]
+                          for i in range(FFT_REQUESTS_PER_PLAN)])
+               for p in (0, 1)]
+        batch = torch.from_numpy(np.concatenate(sigs[name])).to(DEVICE)
+        plain = fft_k.fft_stockham_ref(batch, torch.zeros_like(batch),
+                                       arrs["wre"], arrs["wim"])
+        err_plain = check_fft(torch, np, f"{name} vs plain", got, plain, n,
+                              np.float64)
+        err_host = 0.0
+        for i in range(4):
+            spec = np.fft.fft(sigs[name][i], axis=-1)
+            err_host = max(err_host, check_fft(
+                torch, np, f"{name} request {i} vs np.fft.fft",
+                [g.cpu() for g in svc.poll(rids[name, i])],
+                (spec.real, spec.imag), n, np.float64))
+        phase("fft", f"{name}: {FFT_REQUESTS_PER_PLAN} results "
+              f"({FFT_REQUESTS_PER_PLAN * rows} signals of {n}) vs plain on "
+              f"card max abs err {err_plain:.3e}, 4 vs np.fft.fft "
+              f"{err_host:.3e} (rtol 1e-9, atol 1e-9 n)")
+    got = torch.stack([svc.poll(rids["spmv", i])
+                       for i in range(FFT_SPMV_REQUESTS)], dim=1)
+    arrs = cage_op.device_arrays
+    x_stack = torch.from_numpy(np.stack(xs, axis=1)).to(DEVICE)
+    err_ref = max_err(got, sell_core.spmm_sell_ref(
+        arrs["cols"], arrs["vals"], arrs["rows"], x_stack,
+        n_rows=cage.n_rows))
+    err_host = max(max_err(got[:, i].cpu(), torch.from_numpy(
+        cage.matvec(xs[i]))) for i in range(4))
+    phase("fft", f"cage10: {FFT_SPMV_REQUESTS} SpMV results vs plain on card "
+          f"{err_ref:.3e}, 4 vs host CSR matvec {err_host:.3e} (tol 1e-10)")
+    if not (err_ref <= 1e-10 and err_host <= 1e-10):
+        raise AssertionError("SpMV results of the mixed drain disagree")
+    return dict(reg=reg, launches=launched, sigs=sigs)
+
+
+def ellpack_ops_path(torch, np, F, spmv_k, ops, ExecSpec) -> dict:
+    """Phase 7: ``ops.spmv`` / ``ops.spmm`` on ELLPACK operands at the
+    default vl = C = 256, so both reach B6 and not a repack."""
+    t0 = time.perf_counter()
+    cage = F.csr_to_ellpack(F.cage10_like(seed=0), c=ELL_C)
+    csr = F.random_csr(**ELL_BIG)
+    big = F.csr_to_ellpack(csr, c=ELL_C)
+    phase("ellpack", f"operands packed in {time.perf_counter() - t0:.1f} s: "
+          f"cage10 width {cage.width} pad {cage.pad_factor:.4f}; uniform2m "
+          f"{big.n_rows} rows nnz {big.nnz} width {big.width} pad "
+          f"{big.pad_factor:.4f}, {big.cols.nbytes + big.vals.nbytes} B of "
+          "slabs")
+    spec = ExecSpec(device=DEVICE)
+    if spec.vl != ELL_C:
+        raise AssertionError(f"default vl {spec.vl} != C {ELL_C}")
+    rng = np.random.default_rng(8)
+    x1 = rng.standard_normal(cage.n_cols)
+    xk = rng.standard_normal((big.n_cols, ELL_K))
+    torch.cuda.synchronize()
+    spmv_k.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    y1 = ops.spmv(cage, x1, spec=spec)
+    yk = ops.spmm(big, xk, spec=spec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = spmv_k.KERNEL_LAUNCHES
+    phase("ellpack", f"spmv.KERNEL_LAUNCHES grew by {launches} (1 + "
+          f"{ELL_K} expected); ops wall {wall:.2f} s incl. bounds scan and "
+          "upload")
+    if launches != 1 + ELL_K:
+        raise AssertionError(f"B6 launches {launches} != {1 + ELL_K}")
+    if tuple(y1.shape) != (cage.n_rows,) or \
+            tuple(yk.shape) != (big.n_rows, ELL_K) or \
+            not bool(torch.isfinite(yk).all()):
+        raise AssertionError("ELLPACK ops: bad result shapes or values")
+    errs = {}
+    for name, ell, y, x in (("cage10", cage, y1[:, None], x1[:, None]),
+                            ("uniform2m", big, yk, xk)):
+        cols, vals = ops._prepared(ell, torch.device(DEVICE))[1]
+        xd = torch.from_numpy(x).to(DEVICE)
+        plain = torch.stack([spmv_k.spmv_ell_ref(cols, vals, xd[:, i]
+                                                 .contiguous())[:ell.n_rows]
+                             for i in range(x.shape[1])], dim=1)
+        err_ref = max_err(y, plain)
+        err_host = max(max_err(y[:, i].cpu(), torch.from_numpy(
+            ell.matvec(x[:, i]))) for i in range(min(4, x.shape[1])))
+        phase("ellpack", f"{name}: {x.shape[1]} column(s) vs plain on card "
+              f"max abs err {err_ref:.3e}, {min(4, x.shape[1])} vs host "
+              f"EllpackMatrix.matvec {err_host:.3e} (tol 1e-10)")
+        if not (err_ref <= 1e-10 and err_host <= 1e-10):
+            raise AssertionError(f"{name}: ELLPACK results disagree")
+        errs[name] = err_ref
+    return dict(big=big, csr=csr, launches=launches, errs=errs)
+
+
+def time_fft(torch, np, fft_k, fm: dict, flush) -> list[dict]:
+    """Phase 8 (FFT): B7 in both forms at the service shapes, fp64."""
+    out = []
+    for name, kernel in (("fft2048", "fft_stockham_block"),
+                         ("fft131072", "fft_stockham_stage")):
+        n, rows = FFT_PLANS[name]
+        batch = rows * FFT_REQUESTS_PER_PLAN
+        arrs = fm["reg"].get(name).device_arrays
+        re = torch.from_numpy(np.concatenate(fm["sigs"][name])).to(DEVICE)
+        im = torch.zeros_like(re)
+        z = torch.complex(re, im)
+
+        def run():
+            return fft_k.fft_stockham(re, im, arrs["wre"], arrs["wim"],
+                                      b_block=8)
+
+        def plain():
+            return fft_k.fft_stockham_ref(re, im, arrs["wre"], arrs["wim"])
+
+        def library():
+            return torch.fft.fft(z)
+
+        got, want, lib = run(), plain(), library()
+        torch.cuda.synchronize()
+        err = check_fft(torch, np, f"{name} B7 vs plain", got, want, n,
+                        np.float64)
+        check_fft(torch, np, f"{name} B7 vs torch.fft.fft", got,
+                  (lib.real, lib.imag), n, np.float64)
+        ms = time_ms(torch, run, flush)
+        plain_ms = time_ms(torch, plain, flush)
+        lib_ms = time_ms(torch, library, flush)
+        stages = int(np.log2(n))
+        bytes_ms = (32 * batch * n + 8 * stages * n) / HBM_BYTES_PER_S * 1e3
+        ops_ms = 5 * n * stages * batch / FP64_FLOPS * 1e3
+        rec = {"name": kernel, "route": "cuda",
+               "source": "src/repro_torch/csrc/fft_stockham.cu",
+               "replaces": "src/repro/kernels/fft.py:24",
+               "launches": fm["launches"][kernel], "max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "library_ms": lib_ms,
+               "shape": f"{name}: ({batch}, {n}) fp64, b_block 8"}
+        out.append(rec)
+        phase("timing", f"{name} ({batch}, {n}) fp64: {kernel} {ms:.4f} ms |"
+              f" bound {bytes_ms:.4f} ms (bytes; ops {ops_ms:.4f}) | plain "
+              f"{plain_ms:.4f} ms | torch.fft.fft {lib_ms:.4f} ms | max abs "
+              f"err vs plain {err:.3e}")
+    return out
+
+
+def time_spmv_ell(torch, np, spmv_k, ops, em: dict, flush) -> dict:
+    """Phase 8 (ELLPACK): B6 on the 2M-row operand, one column, fp64."""
+    big, csr = em["big"], em["csr"]
+    cols, vals = ops._prepared(big, torch.device(DEVICE))[1]
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        big.n_cols)).to(DEVICE)
+    a_lib = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr),
+        torch.from_numpy(csr.indices.astype(np.int64)),
+        torch.from_numpy(csr.data), size=(csr.n_rows, csr.n_cols)).to(DEVICE)
+    xc = x[:, None]
+
+    def run():
+        return spmv_k.spmv_ell(cols, vals, x)
+
+    def plain():
+        return spmv_k.spmv_ell_ref(cols, vals, x)
+
+    def library():
+        return torch.sparse.mm(a_lib, xc)
+
+    got, want, lib = run(), plain(), library()
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    err_lib = max_err(got[:big.n_rows], lib[:, 0])
+    if not (err <= 1e-10 and err_lib <= 1e-10):
+        raise AssertionError(f"B6 vs plain {err}, vs sparse.mm {err_lib}")
+    ms = time_ms(torch, run, flush)
+    plain_ms = time_ms(torch, plain, flush)
+    lib_ms = time_ms(torch, library, flush)
+    lanes = big.n_slices * big.c
+    bytes_ms = (12 * big.nnz + 8 * big.n_cols + 8 * big.n_rows) \
+        / HBM_BYTES_PER_S * 1e3
+    padded_ms = (12 * big.padded_nnz + 8 * big.n_cols + 8 * lanes) \
+        / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * big.nnz / FP64_FLOPS * 1e3
+    phase("timing", f"uniform2m ELLPACK k=1: spmv_ell {ms:.4f} ms | bound "
+          f"{bytes_ms:.4f} ms (bytes; ops {ops_ms:.4f}) | padded-ELLPACK "
+          f"(width {big.width}) bytes bound {padded_ms:.4f} ms | plain "
+          f"{plain_ms:.4f} ms | torch.sparse.mm {lib_ms:.4f} ms | max abs "
+          f"err vs plain {err:.3e}, vs sparse.mm {err_lib:.3e}")
+    return {"name": "spmv_ell", "route": "cuda",
+            "source": "src/repro_torch/csrc/spmv_ell.cu",
+            "replaces": "src/repro/kernels/spmv.py:28",
+            "launches": em["launches"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms, "padded_slab_bound_ms": padded_ms,
+            "shape": f"uniform2m ELLPACK {big.n_rows} rows nnz {big.nnz} "
+                     f"width {big.width} C={big.c} fp64, k=1"}
+
+
 def main() -> int:
     import torch
 
@@ -825,7 +1216,9 @@ def main() -> int:
     from repro_torch.graphs import gen as G
     from repro_torch.kernels import bfs as bfs_k
     from repro_torch.kernels import cuda_lib, ops, sell_core
+    from repro_torch.kernels import fft as fft_k
     from repro_torch.kernels import pagerank as pr_k
+    from repro_torch.kernels import spmv as spmv_k
     from repro_torch.kernels.execspec import ExecSpec
     from repro_torch.service import KernelRegistry, KernelService
     from repro_torch.sparse import formats as F
@@ -852,6 +1245,8 @@ def main() -> int:
     t0 = time.perf_counter()
     compare_kernel(torch, np, sell_core, F)
     compare_graph_kernels(torch, np, G, bfs_k, pr_k)
+    compare_spmv_ell(torch, np, F, spmv_k)
+    compare_fft(torch, np, fft_k)
     phase("compare", f"done in {time.perf_counter() - t0:.1f} s")
 
     # -- 4. SpMV main path -----------------------------------------------------
@@ -866,7 +1261,18 @@ def main() -> int:
                          KernelRegistry, KernelService)
     phase("graphs", f"done in {time.perf_counter() - t0:.1f} s")
 
-    # -- 6. timing at the main paths' shapes -----------------------------------
+    # -- 6. FFT main path --------------------------------------------------------
+    t0 = time.perf_counter()
+    fm = fft_main_path(torch, np, F, fft_k, sell_core, KernelRegistry,
+                       KernelService)
+    phase("fft", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 7. ELLPACK through ops --------------------------------------------------
+    t0 = time.perf_counter()
+    em = ellpack_ops_path(torch, np, F, spmv_k, ops, ExecSpec)
+    phase("ellpack", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 8. timing at the main paths' shapes -----------------------------------
     t0 = time.perf_counter()
     flush = torch.empty(2 * 50 * 1000 * 1000 // 4, dtype=torch.float32,
                         device=DEVICE)
@@ -874,6 +1280,8 @@ def main() -> int:
                          spmv_launches, flush)]
     kernels += graph_records(gm, time_graphs(torch, np, G, sell_core, bfs_k,
                                              pr_k, gm, flush))
+    kernels.append(time_spmv_ell(torch, np, spmv_k, ops, em, flush))
+    kernels += time_fft(torch, np, fft_k, fm, flush)
     profile_drives(torch, bfs_k, pr_k, gm)
     phase("timing", f"done in {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")

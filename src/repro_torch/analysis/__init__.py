@@ -4,11 +4,14 @@ from repro_torch.analysis.preflight import (
     SlabMeta,
     plan_bfs_ell,
     plan_bfs_sell,
+    plan_fft_stockham,
     plan_pagerank_ell,
     plan_pagerank_sell,
     plan_spmm_sell,
+    plan_spmv_ell,
 )
 
 __all__ = ["BlockPlan", "LaunchPlan", "LaunchPlanError", "SlabMeta",
-           "plan_bfs_ell", "plan_bfs_sell", "plan_pagerank_ell",
-           "plan_pagerank_sell", "plan_spmm_sell"]
+           "plan_bfs_ell", "plan_bfs_sell", "plan_fft_stockham",
+           "plan_pagerank_ell", "plan_pagerank_sell", "plan_spmm_sell",
+           "plan_spmv_ell"]

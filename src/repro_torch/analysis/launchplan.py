@@ -51,13 +51,15 @@ class LaunchPlanError(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class BlockPlan:
-    """One kernel launch of the launch set (one SELL bucket): its grid and
-    block dims and the shape and dtype of every operand it touches."""
+    """One kernel launch of the launch set (one SELL bucket, one FFT
+    stage): its grid and block dims, the shape and dtype of every operand
+    it touches, and the dynamic shared memory a block claims."""
 
     label: str                                  # e.g. "bucket0[W=8]"
     grid: tuple[int, ...]
     block: tuple[int, ...]
     operands: tuple[tuple[str, tuple[int, ...], str], ...]  # (name, shape, dtype)
+    smem_bytes: int = 0
 
     @property
     def grid_cells(self) -> int:

@@ -16,10 +16,21 @@ per block, ``grid = (ceil(S_b * C / threads), k / k_tile)`` per bucket
 reference's ``_plan_node_step`` there is no fast-memory footprint to
 price: the state stays in device memory and is gathered through L2.
 
+:func:`plan_spmv_ell` (kernel B6, :func:`repro_torch.kernels.spmv
+.spmv_ell`): one launch, one thread per ELLPACK row, ``grid = ceil(S * C /
+threads)``.
+
+:func:`plan_fft_stockham` (kernel B7, :func:`repro_torch.kernels.fft
+.fft_stockham`): the in-block form (one launch, ``b_block`` signals a
+block, capped to the shared memory a block may claim) where one signal's
+ping-pong buffers fit a block, else the per-stage form (one launch per
+stage over the whole batch, no shared memory).
+
 Checked contracts:
 
-* grid and block dims inside CUDA's limits (no kernel claims shared
-  memory: their sums and masks live in registers);
+* grid and block dims inside CUDA's limits; shared memory per block
+  within :data:`SMEM_PER_BLOCK` (only the in-block FFT claims any: the
+  other kernels keep their sums and masks in registers);
 * pow2 padding invariants: ``k_block`` and every packed bucket width are
   powers of two;
 * the column tile fits a thread: ``k_tile <= MAX_K_TILE`` state columns
@@ -28,9 +39,9 @@ Checked contracts:
   column or neighbour ids in ``[PAD, n_cols)`` and row or node maps in
   ``[0, n_rows]`` — the kernels gather and scatter unchecked, and CUDA
   does not clamp an out-of-range index the way JAX does;
-* dtype flow: int32 indices; SpMM values and X of one dtype, float32 or
-  float64; BFS state int32; PageRank state float64 (the kernels'
-  instantiations).
+* dtype flow: int32 indices; SpMM / SpMV values and X of one dtype,
+  float32 or float64; BFS state int32; PageRank state float64; FFT planes
+  float32 or float64 (the kernels' instantiations).
 """
 from __future__ import annotations
 
@@ -42,10 +53,14 @@ import numpy as np
 from repro_torch.analysis.launchplan import BlockPlan, LaunchPlan, is_pow2
 from repro_torch.core.autotune import (
     ACC_BYTES_PER_THREAD,
+    FFT_STAGE_THREADS,
     KERNEL_DTYPES,
     MAX_K_TILE,
     NODE_STEP_BLOCK_THREADS,
+    SMEM_PER_BLOCK,
     SPMM_BLOCK_THREADS,
+    fft_block_signals,
+    fft_block_threads,
 )
 from repro_torch.sparse.formats import PAD, pow2_ceil
 
@@ -53,9 +68,11 @@ __all__ = [
     "SlabMeta",
     "plan_bfs_ell",
     "plan_bfs_sell",
+    "plan_fft_stockham",
     "plan_pagerank_ell",
     "plan_pagerank_sell",
     "plan_spmm_sell",
+    "plan_spmv_ell",
 ]
 
 #: CUDA launch limits (compute capability 9.0)
@@ -70,13 +87,15 @@ class SlabMeta:
 
     Cheap to extract (O(n_buckets) shape reads); the optional bounds scan
     is one vectorized min/max over the stored indices and the lane maps.
-    Three kinds: ``"matrix"`` (:class:`~repro_torch.sparse.formats.SellSlabs`,
+    Four kinds: ``"matrix"`` (:class:`~repro_torch.sparse.formats.SellSlabs`,
     buckets (S, W, C)), ``"graph"`` (:class:`~repro_torch.graphs
-    .SellGraphSlabs`, buckets (S, C, W)) and ``"ell"`` (an ELLPACK
-    adjacency, :meth:`from_ell`: one slice of height n, no lane map).
+    .SellGraphSlabs`, buckets (S, C, W)), ``"ell"`` (an ELLPACK
+    adjacency, :meth:`from_ell`: one slice of height n, no lane map) and
+    ``"ellpack"`` (an :class:`~repro_torch.sparse.formats.EllpackMatrix`,
+    :meth:`from_ellpack`: one (S, W, C) slab, no row map).
     """
 
-    kind: str                       # "matrix" | "graph" | "ell"
+    kind: str                       # "matrix" | "graph" | "ell" | "ellpack"
     c: int
     widths: tuple[int, ...]         # padded W per bucket
     n_slices: tuple[int, ...]       # slices per bucket
@@ -140,6 +159,20 @@ class SlabMeta:
                    n_rows=int(n_nodes), n_cols=int(n_nodes), val_dtype=None,
                    idx_dtype=str(adj.dtype), **bounds)
 
+    @classmethod
+    def from_ellpack(cls, ell, check_bounds: bool = False) -> "SlabMeta":
+        """Metadata of an :class:`~repro_torch.sparse.formats.EllpackMatrix`:
+        one bucket of width W over its S slices of height C; rows past
+        ``n_rows`` in the last slice hold only PAD."""
+        bounds = {}
+        if check_bounds and ell.cols.size:
+            bounds = dict(idx_min=int(ell.cols.min()),
+                          idx_max=int(ell.cols.max()))
+        return cls(kind="ellpack", c=int(ell.c), widths=(int(ell.width),),
+                   n_slices=(int(ell.n_slices),), n_rows=int(ell.n_rows),
+                   n_cols=int(ell.n_cols), val_dtype=str(ell.vals.dtype),
+                   idx_dtype=str(ell.cols.dtype), **bounds)
+
     def describe(self) -> str:
         return (f"{self.kind} {self.n_rows}x{self.n_cols} "
                 f"C={self.c} buckets={list(self.widths)}")
@@ -148,9 +181,9 @@ class SlabMeta:
 def _index_contracts(meta: SlabMeta, violations: list[str], what: str,
                      state: str) -> None:
     """Contracts every launch over packed indices shares: pow2 bucket
-    widths (packed slabs only), int32 indices, and — when scanned — index
+    widths (SELL slabs only), int32 indices, and — when scanned — index
     and lane-map bounds."""
-    if meta.kind != "ell":
+    if meta.kind in ("matrix", "graph"):
         for i, w in enumerate(meta.widths):
             if not is_pow2(w):
                 violations.append(
@@ -162,7 +195,7 @@ def _index_contracts(meta: SlabMeta, violations: list[str], what: str,
     if meta.idx_max is not None and meta.idx_max >= meta.n_cols:
         violations.append(
             f"stored {what} {meta.idx_max} out of bounds for "
-            f"{'n_nodes' if meta.kind != 'matrix' else 'n_cols'}="
+            f"{'n_cols' if meta.kind in ('matrix', 'ellpack') else 'n_nodes'}="
             f"{meta.n_cols} (the kernel would read outside {state})")
     if meta.idx_min is not None and meta.idx_min < PAD:
         violations.append(
@@ -329,3 +362,103 @@ def plan_pagerank_ell(meta: SlabMeta, dtype: str = "float64") -> LaunchPlan:
     """Plan one ``pagerank_step`` power step (kernel B5) over an ELLPACK
     reverse adjacency (:meth:`SlabMeta.from_ell`)."""
     return _plan_node_step("pagerank_step", "pagerank", meta, 1, dtype)
+
+
+# ---------------------------------------------------------------------------
+# ELLPACK SpMV (kernel B6)
+# ---------------------------------------------------------------------------
+
+
+def plan_spmv_ell(meta: SlabMeta, *, dtype: str | None = None) -> LaunchPlan:
+    """Plan one ``spmv_ell`` launch for an x of ``dtype`` against this
+    ELLPACK matrix (:meth:`SlabMeta.from_ellpack`).  With a bounds-scanned
+    meta every stored column must be PAD or lie in ``[0, n_cols)``: the
+    kernel gathers ``x[col]`` unchecked."""
+    violations: list[str] = []
+    if meta.kind != "ellpack":
+        violations.append(f"spmv_ell needs an ELLPACK matrix, got {meta.kind}")
+    _index_contracts(meta, violations, "column index", "x")
+    if meta.val_dtype not in KERNEL_DTYPES:
+        violations.append(
+            f"ELLPACK value dtype {meta.val_dtype} is not float32 or float64")
+    if dtype is not None and dtype != meta.val_dtype:
+        violations.append(
+            f"x dtype {dtype} != ELLPACK value dtype {meta.val_dtype}")
+    threads = SPMM_BLOCK_THREADS
+    (s,), (w,) = meta.n_slices, meta.widths
+    grid_x = math.ceil(s * meta.c / threads)
+    if grid_x > MAX_GRID_X:
+        violations.append(f"grid.x {grid_x} > {MAX_GRID_X}")
+    block = BlockPlan(
+        label=f"ell[W={w}]", grid=(grid_x,), block=(threads,),
+        operands=(
+            ("cols", (s, w, meta.c), meta.idx_dtype),
+            ("vals", (s, w, meta.c), meta.val_dtype),
+            ("x", (meta.n_cols,), dtype or meta.val_dtype),
+            ("y", (s * meta.c,), meta.val_dtype),
+        ))
+    return LaunchPlan(kernel="spmv_ell", operand=meta.describe(),
+                      dtype=meta.val_dtype, blocks=(block,),
+                      violations=tuple(violations))
+
+
+# ---------------------------------------------------------------------------
+# FFT (kernel B7)
+# ---------------------------------------------------------------------------
+
+
+def plan_fft_stockham(n: int, batch: int = 1, *, b_block: int = 8,
+                      dtype: str = "float64") -> LaunchPlan:
+    """Plan ``fft_stockham`` for a (batch, n) split-plane signal block.
+
+    Where one signal's ping-pong buffers (``4 * n * itemsize`` B) fit the
+    shared memory of a block, the in-block form runs: one launch, ``grid =
+    ceil(batch / signals)`` with ``signals = b_block`` capped to what fits.
+    Longer signals run the per-stage form: ``log2 n`` launches of
+    ``FFT_STAGE_THREADS``-thread blocks, one thread per butterfly of the
+    whole batch, ping-ponging through device buffers.  Every power of two
+    n >= 2 is accepted (the TPU's VMEM limit does not apply).
+    """
+    violations: list[str] = []
+    pow2 = n >= 2 and is_pow2(n)
+    if not pow2:
+        violations.append(f"fft length {n} is not a power of two >= 2")
+    if b_block < 1:
+        violations.append(f"b_block must be >= 1, got {b_block}")
+    if batch < 1:
+        violations.append(f"batch must be >= 1, got {batch}")
+    if dtype not in KERNEL_DTYPES:
+        violations.append(f"fft dtype {dtype} is not float32 or float64")
+    b = int(np.dtype(dtype).itemsize) if dtype in KERNEL_DTYPES else 8
+    stages = int(math.log2(n)) if pow2 else 0
+    half = n // 2 if pow2 else 0
+    rows = max(int(batch), 1)
+    twiddles = (("wre", (stages, half), dtype), ("wim", (stages, half), dtype))
+    blocks = []
+    signals = fft_block_signals(n, b_block, b) if pow2 else 0
+    if signals >= 1:
+        smem = 4 * signals * n * b
+        if smem > SMEM_PER_BLOCK:
+            violations.append(f"{smem} B of shared memory a block > "
+                              f"{SMEM_PER_BLOCK}")
+        planes = (("re", (rows, n), dtype), ("im", (rows, n), dtype))
+        blocks.append(BlockPlan(
+            label=f"in_block[signals={signals}]",
+            grid=(math.ceil(rows / signals),),
+            block=(fft_block_threads(n, signals),),
+            operands=planes + twiddles + (("out_re", (rows, n), dtype),
+                                          ("out_im", (rows, n), dtype)),
+            smem_bytes=smem))
+    elif pow2:
+        grid_x = math.ceil(rows * half / FFT_STAGE_THREADS)
+        if grid_x > MAX_GRID_X:
+            violations.append(f"grid.x {grid_x} > {MAX_GRID_X}")
+        planes = tuple((name, (rows, n), dtype)
+                       for name in ("x_re", "x_im", "y_re", "y_im"))
+        blocks = [BlockPlan(label=f"stage{s}", grid=(grid_x,),
+                            block=(FFT_STAGE_THREADS,),
+                            operands=planes + twiddles)
+                  for s in range(stages)]
+    return LaunchPlan(kernel="fft_stockham", operand=f"fft n={n} batch={batch}",
+                      dtype=dtype, blocks=tuple(blocks),
+                      violations=tuple(violations))

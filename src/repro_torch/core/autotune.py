@@ -47,10 +47,34 @@ ACC_BYTES_PER_THREAD = 256
 KERNEL_DTYPES = ("float32", "float64")
 #: Smallest SELL slice height the packer is asked for.
 MIN_C = 8
+#: Dynamic shared memory one block may claim on an H100: 227 KB of the
+#: SM's 256 KB (above 48 KB only after ``cudaFuncSetAttribute``).
+SMEM_PER_BLOCK = 232_448
+#: Threads per block of the per-stage FFT kernel (one butterfly each).
+FFT_STAGE_THREADS = 256
+#: Most threads of one block of the in-block FFT kernel.
+FFT_BLOCK_MAX_THREADS = 1024
 #: Width tile kept in the tune schema for the reference's cache format;
 #: the Hopper kernel walks a slice's whole bucket width in one thread, so
 #: w_block does not shape its launch.
 W_BLOCK = 8
+
+
+def fft_block_signals(n: int, b_block: int, itemsize: int) -> int:
+    """Signals one block of the in-block FFT form holds: ``b_block``,
+    capped to what fits the block's ping-pong buffers (two planes, two
+    buffers: ``4 * n * itemsize`` bytes a signal) into
+    :data:`SMEM_PER_BLOCK`.  0 when one signal does not fit: the
+    per-stage form runs instead.  Only the grouping depends on
+    ``b_block``, never the arithmetic."""
+    return min(max(int(b_block), 1), SMEM_PER_BLOCK // (4 * n * itemsize))
+
+
+def fft_block_threads(n: int, signals: int) -> int:
+    """Threads of one in-block FFT block: one per butterfly of its
+    ``signals * n / 2``, rounded up to a warp, at most
+    :data:`FFT_BLOCK_MAX_THREADS` (threads then loop)."""
+    return min(FFT_BLOCK_MAX_THREADS, WARP * -(-signals * (n // 2) // WARP))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,2 +1,4 @@
-"""Kernels of the port: the SELL SpMM core (CUDA kernel B1 + its plain
-PyTorch version) and the ``ops`` entry points."""
+"""Kernels of the port: each hand-written CUDA kernel's wrapper beside its
+plain PyTorch version (``sell_core``: B1 and the B3 bucket loop; ``bfs`` /
+``pagerank``: B3, B4, B5; ``spmv``: B6; ``fft``: B7), their build
+(``cuda_lib``) and the ``ops`` entry points."""

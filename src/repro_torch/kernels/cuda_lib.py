@@ -60,6 +60,22 @@ KERNELS = {
         "repro_pagerank_ell_step": ([_P, _P, _P, _P, _I64, _I64, _I, _P], _I),
         "repro_graph_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
+    "spmv_ell": ("spmv_ell.cu", {
+        # cols, vals, x, y, n_slices, width, c, threads, is_double, stream
+        "repro_spmv_ell": ([_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P], _I),
+        "repro_spmv_ell_cuda_error_string": ([_I], ctypes.c_char_p),
+    }),
+    "fft_stockham": ("fft_stockham.cu", {
+        # re, im, wre, wim, out_re, out_im, batch, n, log2n, signals,
+        # threads, is_double, stream
+        "repro_fft_stockham_block": (
+            [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P], _I),
+        # xr, xi, wre, wim, yr, yi, batch, n, log2n, stage, threads,
+        # is_double, stream
+        "repro_fft_stockham_stage": (
+            [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P], _I),
+        "repro_fft_cuda_error_string": ([_I], ctypes.c_char_p),
+    }),
 }
 
 

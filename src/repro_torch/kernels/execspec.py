@@ -35,7 +35,7 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class ExecSpec:
-    """Launch configuration for the SELL kernel family.
+    """Launch configuration for the port's kernel entry points.
 
     layout:    graph operand layout for ``ops.bfs`` / ``ops.pagerank``:
                ``"ell"`` (kernels B4 / B5) or ``"sell"`` (kernel B3).
@@ -48,12 +48,15 @@ class ExecSpec:
                ELLPACK graph kernels ignore it: blocks are 256 nodes).
     sigma:     sorting-window height (``None`` -> the packer default 8*C).
     w_block:   width tile of the reference's grid; kept for the shape of
-               ``coalesce_key`` and read by nothing in the port (B1 walks a
-               bucket's whole width in one thread).
+               ``coalesce_key``.  B1 and B6 walk a row's whole width in
+               one thread, so it never changes a result (``ops`` hands it
+               to ``spmv_ell`` as the reference does).
     k_block:   RHS column tile for SpMM (``None`` -> pow2 heuristic).
     col_tile:  streamed-SpMM column window (kernel B2, not ported).
     row_tile:  streamed-SpMM slice-row block (kernel B2, not ported).
-    b_block:   FFT butterfly-block tile (kernel B7, not ported).
+    b_block:   FFT signals a block of kernel B7 holds at most (``ops.fft``
+               caps it to the batch, the kernel to the shared memory a
+               block may claim; it does not change the result).
     device:    where the call runs (``None`` -> ``"cuda"``).
     cache:     a ``TuneCache`` (``None`` -> the process-default cache).
     """

@@ -1,31 +1,39 @@
 """Public entry points of the port (the ``repro.kernels.ops`` front door):
-SpMV/SpMM, BFS and PageRank.
+SpMV/SpMM, BFS, PageRank and FFT.
 
 They take the host-side substrate objects (:class:`CSRMatrix`,
-:class:`SellCSigmaMatrix`, :class:`SellSlabs`, :class:`EllpackGraph`),
-normalize and pack them, preflight the Hopper launch plan, upload them to
-the card and run the kernels:
+:class:`EllpackMatrix`, :class:`SellCSigmaMatrix`, :class:`SellSlabs`,
+:class:`EllpackGraph`, split-plane signals), normalize and pack them,
+preflight the Hopper launch plan, upload them to the card and run the
+kernels:
 
 * ``spmm`` / ``spmv`` — :func:`repro_torch.kernels.sell_core.spmm_sell`,
-  one launch of kernel B1 per width bucket;
+  one launch of kernel B1 per width bucket; an :class:`EllpackMatrix`
+  whose slice height equals ``spec.vl`` runs the uniform-width kernel B6
+  instead (:func:`repro_torch.kernels.spmv.spmv_ell`, one launch per RHS
+  column), one of another height is repacked to SELL slabs and runs B1;
 * ``bfs`` / ``pagerank`` — over the reverse graph, with ``spec.layout``
   ``"ell"`` (the default: ELLPACK kernels B4 / B5, one launch per level or
   power step) or ``"sell"`` (kernel B3 with the BFS or PageRank combine,
   one launch per width bucket per step, k sources or configurations
-  batched as state columns).
+  batched as state columns);
+* ``fft`` — :func:`repro_torch.kernels.fft.fft_stockham`, kernel B7 (one
+  launch in its in-block form, log2 n in its per-stage form).
 
 Calls run on the card unless the spec asks for the CPU
 (``ExecSpec(device="cpu")``), where the plain PyTorch versions run instead.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 substituted: the streaming schedule (``mode="stream"``, kernel B2, ROADMAP
-A4) and ELLPACK matrix operands (kernel B6, ROADMAP A7) — the next slice
-of the port — and multi-GPU placement (ROADMAP A10).  On Hopper
-``mode="auto"`` always resolves to the resident kernel: X is never staged
-whole in fast memory, so there is no residency limit to fall back from.
+A4, the next slice of the port) and multi-GPU placement (ROADMAP A10).  As
+in the reference, ``mode="stream"`` with an ELLPACK operand run by B6 is a
+``ValueError``.  On Hopper ``mode="auto"`` always resolves to the resident
+kernel: X is never staged whole in fast memory, so there is no residency
+limit to fall back from.
 """
 from __future__ import annotations
 
+import functools
 import weakref
 
 import numpy as np
@@ -35,21 +43,26 @@ from repro_torch.analysis.preflight import (
     SlabMeta,
     plan_bfs_ell,
     plan_bfs_sell,
+    plan_fft_stockham,
     plan_pagerank_ell,
     plan_pagerank_sell,
     plan_spmm_sell,
+    plan_spmv_ell,
 )
 from repro_torch.core.autotune import SellTuneResult, tune_sell_layout
 from repro_torch.core.sdv import h100_machine
 from repro_torch.graphs.gen import EllpackGraph, graph_to_sell_slabs
 from repro_torch.kernels import bfs as bfs_k
+from repro_torch.kernels import fft as fft_k
 from repro_torch.kernels import pagerank as pr_k
 from repro_torch.kernels import sell_core
+from repro_torch.kernels import spmv as spmv_k
 from repro_torch.kernels.execspec import ExecSpec, resolve_device
 from repro_torch.obs import Stopwatch
 from repro_torch.obs import profile as obs_profile
 from repro_torch.sparse.formats import (
     CSRMatrix,
+    EllpackMatrix,
     SellCSigmaMatrix,
     SellSlabs,
     csr_to_sell_slabs,
@@ -112,15 +125,13 @@ def _repack_cached(matrix, vl: int, sigma: int | None, cache) -> SellSlabs:
     return slabs
 
 
-def _normalize_matrix(matrix, spec: ExecSpec) -> SellSlabs:
-    """Normalize any supported matrix format to SELL slabs at the spec's
-    (vl, sigma) — repack-on-mismatch memoized through the cache."""
-    if type(matrix).__name__ == "EllpackMatrix":
-        raise NotImplementedError(
-            "ELLPACK operands run kernel B6 (spmv_ell), which is not ported "
-            "yet (ROADMAP A7, the next slice of the port); pack the matrix "
-            "as CSR or SELL")
-    if not isinstance(matrix, (CSRMatrix, SellCSigmaMatrix, SellSlabs)):
+def _normalize_matrix(matrix, spec: ExecSpec) -> SellSlabs | EllpackMatrix:
+    """Normalize any supported matrix format toward SELL slabs at the
+    spec's (vl, sigma) — repack-on-mismatch memoized through the cache.
+    An :class:`EllpackMatrix` whose C equals ``spec.vl`` stays ELLPACK
+    (kernel B6), as in the reference."""
+    if not isinstance(matrix, (CSRMatrix, EllpackMatrix, SellCSigmaMatrix,
+                               SellSlabs)):
         raise TypeError(f"unsupported sparse format: {type(matrix).__name__}")
     if not isinstance(matrix, CSRMatrix) and matrix.c != spec.vl:
         matrix = _repack_cached(matrix, spec.vl, spec.sigma, spec.cache)
@@ -152,23 +163,27 @@ def _run_profiled(op: str, plan, thunk, device: torch.device):
     return y
 
 
-#: id(slabs) -> (bounds-scanned SlabMeta, {device: uploaded tensors}).
-#: Packed slabs are immutable, so one operand's index scan and upload are
-#: paid once however often it is called; an entry dies with its object.
+#: id(operand) -> (bounds-scanned SlabMeta, {device: uploaded tensors}),
+#: for SELL slabs and ELLPACK matrices.  Packed operands are immutable, so
+#: one operand's index scan and upload are paid once however often it is
+#: called; an entry dies with its object.
 _PREPARED: dict[int, tuple[SlabMeta, dict]] = {}
 
 
-def _prepared(slabs: SellSlabs, device: torch.device):
-    """The bounds-scanned metadata of ``slabs`` and its tensors on
+def _prepared(operand: SellSlabs | EllpackMatrix, device: torch.device):
+    """The bounds-scanned metadata of ``operand`` and its tensors on
     ``device``, computed at the first call on this object."""
-    entry = _PREPARED.get(id(slabs))
+    entry = _PREPARED.get(id(operand))
     if entry is None:
-        entry = (SlabMeta.from_slabs(slabs, check_bounds=True), {})
-        _PREPARED[id(slabs)] = entry
-        weakref.finalize(slabs, _PREPARED.pop, id(slabs), None)
+        meta = (SlabMeta.from_ellpack(operand, check_bounds=True)
+                if isinstance(operand, EllpackMatrix)
+                else SlabMeta.from_slabs(operand, check_bounds=True))
+        entry = (meta, {})
+        _PREPARED[id(operand)] = entry
+        weakref.finalize(operand, _PREPARED.pop, id(operand), None)
     meta, tensors = entry
     if device not in tensors:
-        tensors[device] = slabs.to_device(device)
+        tensors[device] = operand.to_device(device)
     return meta, tensors[device]
 
 
@@ -182,8 +197,6 @@ def _spmm_slabs(slabs: SellSlabs, x: torch.Tensor, *, k_block: int,
     unchecked, so an out-of-range index must stop here.  The index scan and
     the upload happen once per slabs object (:func:`_prepared`).
     """
-    if mode not in _SPMM_MODES:
-        raise ValueError(f"unknown mode {mode!r}: expected one of {_SPMM_MODES}")
     if mode == "stream":
         raise NotImplementedError(
             "mode='stream' runs kernel B2 (the out-of-fast-memory schedule), "
@@ -206,44 +219,81 @@ def _as_rhs(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
-def spmm(matrix: CSRMatrix | SellCSigmaMatrix | SellSlabs, x, *,
-         spec: ExecSpec | None = None) -> torch.Tensor:
+def _check_mode(mode: str) -> None:
+    if mode not in _SPMM_MODES:
+        raise ValueError(f"unknown mode {mode!r}: expected one of {_SPMM_MODES}")
+
+
+def _spmv_ellpack(ell: EllpackMatrix, x: torch.Tensor,
+                  spec: ExecSpec) -> torch.Tensor:
+    """One ELLPACK SpMV through kernel B6 on x's device, trimmed to
+    n_rows.  The column bounds scan and the upload happen once per matrix
+    object (:func:`_prepared`); the plan refuses a stored column outside
+    ``[PAD, n_cols)`` before the kernel gathers it."""
+    if spec.mode == "stream":
+        raise ValueError(
+            "mode='stream' requires a SELL slab layout; ELLPACK operands "
+            "only run the resident uniform-width kernel")
+    meta, (cols, vals) = _prepared(ell, x.device)
+    plan = plan_spmv_ell(
+        meta, dtype=str(x.dtype).removeprefix("torch.")).raise_if_invalid()
+    w_block = max(min(spec.w_block, ell.width), 1)
+    return _run_profiled("spmv", plan, lambda: spmv_k.spmv_ell(
+        cols, vals, x, w_block=w_block)[:ell.n_rows], x.device)
+
+
+def spmm(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
+         x, *, spec: ExecSpec | None = None) -> torch.Tensor:
     """Y = A @ X for stacked right-hand sides X of shape (n_cols, k).
 
     Every supported format is normalized to width-bucketed SELL slabs and
     the whole RHS stack runs as one launch set.  ``spec.k_block`` defaults
     to the power of two covering k, capped at 8 — pass the co-tuned
-    :attr:`SellTuneResult.k_block` for the register-fitted value.  Returns
-    Y of shape (n_rows, k) as a tensor on ``spec.device``.
+    :attr:`SellTuneResult.k_block` for the register-fitted value.  An
+    :class:`EllpackMatrix` at ``C == spec.vl`` runs the stack column by
+    column through kernel B6 (the paper's baseline; the SELL path is the
+    batched one).  Returns Y of shape (n_rows, k) as a tensor on
+    ``spec.device``.
     """
     spec = spec if spec is not None else ExecSpec()
     device = resolve_device(spec.device)
     x = _as_rhs(x, device)
     if x.ndim != 2:
         raise ValueError(f"spmm expects X of shape (n_cols, k), got {tuple(x.shape)}")
+    _check_mode(spec.mode)
     kb = spec.k_block if spec.k_block is not None \
         else min(8, sell_core.pow2_ceil(x.shape[1]))
-    return _spmm_slabs(_normalize_matrix(matrix, spec), x, k_block=kb,
-                       mode=spec.mode)
+    matrix = _normalize_matrix(matrix, spec)
+    if isinstance(matrix, SellSlabs):
+        return _spmm_slabs(matrix, x, k_block=kb, mode=spec.mode)
+    return torch.stack([_spmv_ellpack(matrix, x[:, i].contiguous(), spec)
+                        for i in range(x.shape[1])], dim=1)
 
 
-def spmv(matrix: CSRMatrix | SellCSigmaMatrix | SellSlabs, x, *,
-         spec: ExecSpec | None = None) -> torch.Tensor:
+def spmv(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
+         x, *, spec: ExecSpec | None = None) -> torch.Tensor:
     """y = A @ x.  ``x`` may be a single (n_cols,) vector or a stacked
     (n_cols, k) RHS matrix; the latter dispatches to :func:`spmm` and
     returns (n_rows, k).
 
-    A pre-packed matrix whose C disagrees with ``spec.vl`` is repacked
-    once and the layout is memoized in the TuneCache (``spec.cache``,
-    defaulting to the process-wide :func:`default_tune_cache`).
+    CSR, SELL and slabs run the bucketed kernel B1; an
+    :class:`EllpackMatrix` at ``C == spec.vl`` runs the uniform-width
+    kernel B6.  A pre-packed matrix whose C disagrees with ``spec.vl`` is
+    repacked once to SELL slabs and the layout is memoized in the
+    TuneCache (``spec.cache``, defaulting to the process-wide
+    :func:`default_tune_cache`).
     """
     spec = spec if spec is not None else ExecSpec()
     device = resolve_device(spec.device)
     x = _as_rhs(x, device)
     if x.ndim == 2:
         return spmm(matrix, x, spec=spec)
-    return _spmm_slabs(_normalize_matrix(matrix, spec), x[:, None],
-                       k_block=1, mode=spec.mode)[:, 0]
+    _check_mode(spec.mode)
+    matrix = _normalize_matrix(matrix, spec)
+    if isinstance(matrix, SellSlabs):
+        return _spmm_slabs(matrix, x[:, None], k_block=1,
+                           mode=spec.mode)[:, 0]
+    return _spmv_ellpack(matrix, x, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -367,6 +417,52 @@ def pagerank(graph: EllpackGraph, *, damping=0.85, iters=20,
         pr_k.pagerank(tensors, deg, damping=float(d), iters=int(it),
                       vl=spec.vl)
         for d, it in zip(dampings, iters_arr)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# FFT
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def _twiddles_on(n: int, dtype: torch.dtype, device: torch.device):
+    """The stage tables of length-``n`` FFTs in ``dtype`` on ``device``,
+    built (in float64, then cast) and uploaded once per process."""
+    wre, wim = fft_k.fft_twiddles(n, np.float64)
+    return tuple(torch.from_numpy(w).to(device=device, dtype=dtype)
+                 for w in (wre, wim))
+
+
+def _as_signal(a, device: torch.device) -> torch.Tensor:
+    return torch.atleast_2d(_as_rhs(a, device))
+
+
+def fft(signal_re, signal_im=None, *,
+        spec: ExecSpec | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched FFT of (batch, n) split-plane signals (n a power of two).
+
+    A 1-D signal is one row; ``signal_im=None`` is a zero imaginary plane.
+    ``spec.b_block`` caps the signals one block of kernel B7 holds (capped
+    again to the shared memory a block may claim; the result does not
+    depend on it).  Returns ``(re, im)`` tensors of shape (batch, n) on
+    ``spec.device``.
+    """
+    spec = spec if spec is not None else ExecSpec()
+    device = resolve_device(spec.device)
+    re = _as_signal(signal_re, device)
+    im = torch.zeros_like(re) if signal_im is None \
+        else _as_signal(signal_im, device)
+    n = re.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"n must be a power of two, got {n}")
+    bb = min(spec.b_block, re.shape[0])
+    plan = plan_fft_stockham(
+        int(n), batch=int(re.shape[0]), b_block=int(bb),
+        dtype=str(re.dtype).removeprefix("torch."),
+    ).raise_if_invalid()
+    wre, wim = _twiddles_on(int(n), re.dtype, device)
+    return _run_profiled("fft", plan, lambda: fft_k.fft_stockham(
+        re, im, wre, wim, b_block=bb), device)
 
 
 # ---------------------------------------------------------------------------

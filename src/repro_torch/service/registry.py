@@ -1,7 +1,7 @@
 """Operand registry: register once, pack once, tune once, serve forever.
 
-The port's ``repro.service.registry`` for matrix and graph operands.  The
-expensive
+The port's ``repro.service.registry`` for matrix, graph and FFT operands.
+The expensive
 per-operand work — signature fingerprinting, (C, sigma, k_block) tuning,
 SELL packing, the launch preflight and the upload of the slabs to the
 card — happens at *registration*, so request execution touches only
@@ -24,6 +24,7 @@ from repro_torch.analysis.preflight import (
     SlabMeta,
     plan_bfs_ell,
     plan_bfs_sell,
+    plan_fft_stockham,
     plan_pagerank_sell,
     plan_spmm_sell,
 )
@@ -31,6 +32,7 @@ from repro_torch.core.autotune import SellTuneResult
 from repro_torch.core.sdv import MachineParams, h100_machine
 from repro_torch.graphs.gen import PAD, EllpackGraph, graph_to_sell_slabs
 from repro_torch.kernels.execspec import resolve_device
+from repro_torch.kernels.fft import fft_twiddles
 from repro_torch.kernels.ops import device_tag, pack_tuned, tune_and_pack
 from repro_torch.obs import MetricsRegistry, Stopwatch
 from repro_torch.service.tunecache import (
@@ -50,12 +52,12 @@ class RegisteredOperand:
     """
 
     name: str
-    kind: str                               # matrix | graph
+    kind: str                               # matrix | graph | fft
     signature: OperandSignature | None
     tuned: SellTuneResult | None = None
     slabs: Any = None                       # host SellSlabs | SellGraphSlabs
     device_arrays: dict = dataclasses.field(default_factory=dict)
-    n: int = 0                              # n_rows / n_nodes
+    n: int = 0                              # n_rows / n_nodes / fft length
     n_cols: int = 0                         # RHS length
     register_us: float = 0.0                # wall time spent registering
     tune_was_cached: bool = False
@@ -211,6 +213,23 @@ class KernelRegistry:
             "pagerank": plan_pagerank_sell(op.slab_meta).raise_if_invalid(),
         }
         op.device_arrays = _graph_device_arrays(slabs, graph, self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # upload inside register_us
+        return self._admit(op, sw)
+
+    def register_fft(self, name: str, n: int) -> RegisteredOperand:
+        """Precompute the twiddle plan for length-``n`` batched FFTs: the
+        float64 stage tables, uploaded to the registry's device, and the
+        kernel B7 launch plan of a batch of 8."""
+        sw = Stopwatch().start()
+        if n & (n - 1) or n < 2:
+            raise ValueError(f"fft length must be a power of two >= 2, got {n}")
+        wre, wim = fft_twiddles(n, np.float64)
+        op = RegisteredOperand(name=name, kind="fft", signature=None, n=n)
+        op.plans = {
+            "fft": plan_fft_stockham(n, batch=8).raise_if_invalid()}
+        op.device_arrays = {"wre": torch.from_numpy(wre).to(self.device),
+                            "wim": torch.from_numpy(wim).to(self.device)}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # upload inside register_us
         return self._admit(op, sw)

@@ -1,12 +1,12 @@
-"""Request-driven execution engine for the port's sparse kernels.
+"""Request-driven execution engine for the port's kernels.
 
-The port of ``repro.service.service`` for SpMV, BFS and PageRank traffic
-(``OPS = ("spmv", "bfs", "pagerank")``; FFT and MoE dispatch follow with
-their kernels).  :class:`KernelService` has the reference's async
-submit/poll shape: ``submit`` preflights and enqueues and returns a request
-id, ``poll`` reports a result when one exists, and ``step``/``run``/
-``drain`` advance the scheduler — the slot-based admission loop of
-:class:`repro_torch.serve.slots.SlotLoop`.
+The port of ``repro.service.service`` for SpMV, BFS, PageRank and FFT
+traffic (``OPS = ("spmv", "bfs", "pagerank", "fft")``; MoE dispatch
+follows with the LM stack).  :class:`KernelService` has the reference's
+async submit/poll shape: ``submit`` preflights and enqueues and returns a
+request id, ``poll`` reports a result when one exists, and
+``step``/``run``/``drain`` advance the scheduler — the slot-based
+admission loop of :class:`repro_torch.serve.slots.SlotLoop`.
 
 Coalescing: all active requests against the same registered operand (and
 the same spec) form one group per scheduling round, and the group runs as
@@ -16,9 +16,10 @@ B1 per width bucket); BFS sources and PageRank (damping, iters)
 configurations become the state columns of one
 :func:`repro_torch.kernels.bfs.bfs_sell` or
 :func:`repro_torch.kernels.pagerank.pagerank_sell` drive (one launch of
-kernel B3 per width bucket per level or power step).  A singleton group
-keeps the 1-D state; larger groups are pow2-padded.  Results stay on the
-registry's device.
+kernel B3 per width bucket per level or power step); FFT requests' signal
+rows are stacked into one :func:`repro_torch.kernels.fft.fft_stockham`
+batch (kernel B7).  A singleton graph group keeps the 1-D state; larger
+groups are pow2-padded.  Results stay on the registry's device.
 
 ``max_queue`` bounds the admission queue (:class:`QueueFull`).  ``stats``
 is the frozen-key view over the service's metrics registry, and an
@@ -36,10 +37,12 @@ import torch
 from repro_torch.analysis.launchplan import LaunchPlan, LaunchPlanError
 from repro_torch.analysis.preflight import (
     plan_bfs_sell,
+    plan_fft_stockham,
     plan_pagerank_sell,
     plan_spmm_sell,
 )
 from repro_torch.kernels import bfs as bfs_k
+from repro_torch.kernels import fft as fft_k
 from repro_torch.kernels import pagerank as pr_k
 from repro_torch.kernels import sell_core
 from repro_torch.kernels.execspec import ExecSpec
@@ -56,7 +59,7 @@ from repro_torch.serve.slots import SlotLoop
 from repro_torch.service.registry import KernelRegistry, RegisteredOperand
 from repro_torch.sparse.formats import pow2_ceil
 
-OPS = ("spmv", "bfs", "pagerank")
+OPS = ("spmv", "bfs", "pagerank", "fft")
 
 #: request class of each op for the per-class latency histograms
 OP_CLASS = {op: "kernel" for op in OPS}
@@ -120,7 +123,7 @@ class SubmitRequest:
 
     op: str                     # one of OPS
     operand: str                # registry name
-    payload: Any = None         # x vector (numpy or torch); None for graphs
+    payload: Any = None         # x vector / signal rows; None for graphs
     params: dict = dataclasses.field(default_factory=dict)  # source / damping, iters
     spec: ExecSpec | None = None
 
@@ -130,7 +133,7 @@ class KernelRequest:
     rid: int
     op: str                     # one of OPS
     operand: str                # registry name
-    payload: Any = None         # x vector (numpy or torch)
+    payload: Any = None         # x vector / signal rows (numpy or torch)
     params: dict = dataclasses.field(default_factory=dict)
     spec: ExecSpec | None = None
     result: Any = None
@@ -343,6 +346,8 @@ class KernelService(SlotLoop[KernelRequest]):
             k = pow2_ceil(max(1, self.n_slots))
             plans["bfs"] = plan_bfs_sell(record.slab_meta, k=k)
             plans["pagerank"] = plan_pagerank_sell(record.slab_meta, k=k)
+        elif record.kind == "fft":
+            plans["fft"] = plan_fft_stockham(record.n, batch=8)
         return plans
 
     def _preflight(self, op: str, record: RegisteredOperand) -> None:
@@ -587,3 +592,52 @@ class KernelService(SlotLoop[KernelRequest]):
         else:
             for i, req in enumerate(good):
                 req.result = rank[:, i]
+
+    def _run_fft(self, operand, reqs):
+        """True micro-batch: stack every request's signal rows into one
+        batched Stockham call (kernel B7) against the operand's
+        precomputed float64 twiddles."""
+        if operand.kind != "fft":
+            raise TypeError(f"operand {operand.name!r} is not an fft plan")
+        n = operand.n
+        device = self.registry.device
+
+        def check(req):
+            p = req.payload
+            if p.is_complex() if isinstance(p, torch.Tensor) \
+                    else np.iscomplexobj(p):
+                # float64 casting would silently drop the imaginary plane
+                raise TypeError("complex signals are not supported; "
+                                "pass split re/im planes")
+            if not isinstance(p, torch.Tensor):
+                p = torch.from_numpy(np.asarray(p, np.float64))
+            sig = torch.atleast_2d(p.to(dtype=torch.float64))
+            if sig.ndim != 2:
+                raise ValueError(f"signal must be 1-D or 2-D (batch, n), "
+                                 f"got shape {tuple(sig.shape)}")
+            if sig.shape[0] == 0:
+                raise ValueError("empty signal batch (0 rows)")
+            if sig.shape[-1] != n:
+                raise ValueError(f"signal length {sig.shape[-1]} != "
+                                 f"registered fft length {n}")
+            return sig.to(device)
+
+        good, sigs = self._validated(reqs, check)
+        if not good:
+            return
+        spans, lo = [], 0
+        for sig in sigs:
+            spans.append((lo, lo + sig.shape[0]))
+            lo += sig.shape[0]
+        batch = torch.cat(sigs)
+        arrs = operand.device_arrays
+        sw = Stopwatch().start()
+        re, im = fft_k.fft_stockham(
+            batch, torch.zeros_like(batch), arrs["wre"], arrs["wim"],
+            b_block=min(8, batch.shape[0]))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)   # the wall time covers the kernels
+        sw.stop()
+        self._count_launch(operand, op="fft", wall_us=sw.elapsed_us)
+        for req, (lo, hi) in zip(good, spans):
+            req.result = (re[lo:hi], im[lo:hi])

@@ -105,12 +105,21 @@ def operand_signature(obj: Any) -> OperandSignature:
     as the reference's, so a tune key written by either package reads the
     same in the other."""
     from repro_torch.graphs.gen import EllpackGraph, SellGraphSlabs
-    from repro_torch.sparse.formats import CSRMatrix, SellCSigmaMatrix, SellSlabs
+    from repro_torch.sparse.formats import (
+        CSRMatrix,
+        EllpackMatrix,
+        SellCSigmaMatrix,
+        SellSlabs,
+    )
 
     if isinstance(obj, CSRMatrix):
         return OperandSignature(
             "csr", obj.n_rows, obj.n_cols, obj.nnz,
             _digest((obj.indptr, obj.indices, obj.data)))
+    if isinstance(obj, EllpackMatrix):
+        return OperandSignature(
+            "ellpack", obj.n_rows, obj.n_cols, obj.nnz,
+            _digest((obj.cols, obj.vals)))
     if isinstance(obj, SellSlabs):
         return OperandSignature(
             "sell-slabs", obj.n_rows, obj.n_cols, obj.nnz,

@@ -1,13 +1,17 @@
-"""Sparse-matrix substrate of the port: CSR / SELL-C-sigma containers, the
-device slab layout :class:`SellSlabs`, packers and generators."""
+"""Sparse-matrix substrate of the port: CSR / ELLPACK / SELL-C-sigma
+containers, the device slab layout :class:`SellSlabs`, packers and
+generators."""
 from repro_torch.sparse.formats import (
     PAD,
     CSRMatrix,
+    EllpackMatrix,
     SellCSigmaMatrix,
     SellSlabs,
     cage10_like,
+    csr_to_ellpack,
     csr_to_sell,
     csr_to_sell_slabs,
+    ellpack_to_csr,
     random_csr,
     sell_slabs_to_csr,
     sell_to_slabs,
@@ -18,11 +22,14 @@ from repro_torch.sparse.formats import (
 __all__ = [
     "PAD",
     "CSRMatrix",
+    "EllpackMatrix",
     "SellCSigmaMatrix",
     "SellSlabs",
     "cage10_like",
+    "csr_to_ellpack",
     "csr_to_sell",
     "csr_to_sell_slabs",
+    "ellpack_to_csr",
     "random_csr",
     "sell_slabs_to_csr",
     "sell_to_slabs",

@@ -1,15 +1,16 @@
 """Sparse formats for long-vector SpMV (paper §3.1, Gómez et al. [2]).
 
 The port's copy of what its main path needs from ``repro.sparse.formats``:
-CSR, the ragged :class:`SellCSigmaMatrix`, the device layout
-:class:`SellSlabs`, the vectorized packers and the operand generators.
+CSR, uniform-width :class:`EllpackMatrix` (the paper's baseline format),
+the ragged :class:`SellCSigmaMatrix`, the device layout :class:`SellSlabs`,
+the vectorized packers and the operand generators.
 Every array this module builds is byte-identical to the reference's for
 the same inputs (tests hold the two packers against each other), so a
 layout packed by either package serves in both.
 
 Packing stays on the host, in numpy, as in the reference.  What is new
-here is the boundary to the card: :meth:`SellSlabs.to_device` uploads the
-bucket slabs as torch tensors, and :func:`slabs_from_arrays` adopts slabs
+here is the boundary to the card: :meth:`SellSlabs.to_device` and
+:meth:`EllpackMatrix.to_device` upload the slabs as torch tensors, and :func:`slabs_from_arrays` adopts slabs
 packed by the JAX reference.
 
 :class:`SellSlabs` slices are grouped into power-of-two width buckets,
@@ -54,6 +55,56 @@ class CSRMatrix:
         np.add.at(y, np.repeat(np.arange(self.n_rows), self.row_lengths),
                   self.data * x[self.indices])
         return y
+
+
+@dataclasses.dataclass(frozen=True)
+class EllpackMatrix:
+    """Uniform-width ELLPACK in slice-transposed (kernel) layout.
+
+    ``cols``/``vals`` have shape (n_slices, width, C): element (s, w, c) is
+    the w-th nonzero of row ``s*C + c``; padding has ``cols == PAD`` and
+    ``vals == 0``.  One CUDA thread of kernel B6 walks one row; the lanes c
+    of a slice sit on consecutive addresses for every w.
+    """
+
+    cols: np.ndarray      # (n_slices, width, C) int32
+    vals: np.ndarray      # (n_slices, width, C) float
+    n_rows: int
+    n_cols: int
+    nnz: int
+
+    @property
+    def c(self) -> int:
+        return self.cols.shape[2]
+
+    @property
+    def width(self) -> int:
+        return self.cols.shape[1]
+
+    @property
+    def n_slices(self) -> int:
+        return self.cols.shape[0]
+
+    @property
+    def padded_nnz(self) -> int:
+        return self.cols.size
+
+    @property
+    def pad_factor(self) -> float:
+        return self.padded_nnz / max(self.nnz, 1)
+
+    def matvec(self, x: np.ndarray) -> np.ndarray:
+        """Reference host SpMV over the padded layout."""
+        xg = np.concatenate([x, np.zeros(1, x.dtype)])  # PAD -> 0 via index -1
+        safe = np.where(self.cols == PAD, len(x), self.cols)
+        y = np.einsum("swc,swc->sc", self.vals, xg[safe])
+        return y.reshape(-1)[: self.n_rows]
+
+    def to_device(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(cols, vals)`` as tensors on ``device``, in the same (S, W, C)
+        layout: int32 cols, vals in their own dtype.  The one upload."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in (self.cols, self.vals))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +226,25 @@ def sigma_sort_order(lengths: np.ndarray, sigma: int) -> np.ndarray:
     n = len(lengths)
     win = np.arange(n, dtype=np.int64) // max(int(sigma), 1)
     return np.lexsort((np.arange(n), -np.asarray(lengths), win))
+
+
+def csr_to_ellpack(m: CSRMatrix, c: int, width: int | None = None) -> EllpackMatrix:
+    """Pad CSR to uniform-width slice-transposed ELLPACK with slice size c.
+
+    As in the reference, an explicit ``width`` below the longest row drops
+    the entries past it (``nnz`` still counts them)."""
+    lengths = m.row_lengths
+    w = int(width if width is not None else (lengths.max() if m.n_rows else 0))
+    w = max(w, 1)
+    n_slices = -(-m.n_rows // c)
+    cols = np.full((n_slices, w, c), PAD, np.int32)
+    vals = np.zeros((n_slices, w, c), m.data.dtype)
+    rows, offs = _nnz_coords(m)
+    keep = offs < w
+    r, k = rows[keep], offs[keep]
+    cols[r // c, k, r % c] = m.indices[keep]
+    vals[r // c, k, r % c] = m.data[keep]
+    return EllpackMatrix(cols=cols, vals=vals, n_rows=m.n_rows, n_cols=m.n_cols, nnz=m.nnz)
 
 
 def _sell_flat_pack(
@@ -342,6 +412,14 @@ def _coo_to_csr(
                      data=vals, n_cols=n_cols)
 
 
+def ellpack_to_csr(ell: EllpackMatrix) -> CSRMatrix:
+    """Invert :func:`csr_to_ellpack` (drops nothing: pads are masked out)."""
+    s, w, cc = np.nonzero(ell.cols != PAD)
+    rows = s * ell.c + cc
+    return _coo_to_csr(rows, w, ell.cols[s, w, cc], ell.vals[s, w, cc],
+                       ell.n_rows, ell.n_cols)
+
+
 def sell_slabs_to_csr(slabs: SellSlabs) -> CSRMatrix:
     """Invert :func:`csr_to_sell_slabs`: un-sort and re-pack as CSR."""
     all_rows, all_offs, all_cols, all_vals = [], [], [], []
@@ -366,6 +444,8 @@ def to_csr(matrix) -> CSRMatrix:
     """Normalize any supported format back to CSR (for repacking)."""
     if isinstance(matrix, CSRMatrix):
         return matrix
+    if isinstance(matrix, EllpackMatrix):
+        return ellpack_to_csr(matrix)
     if isinstance(matrix, SellSlabs):
         return sell_slabs_to_csr(matrix)
     if isinstance(matrix, SellCSigmaMatrix):

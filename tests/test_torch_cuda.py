@@ -1,13 +1,16 @@
-"""Kernel B1 (``csrc/spmm_sell.cu``) and the graph kernels B3, B4, B5
-(``csrc/graph_step.cu``) against their plain PyTorch versions on the card.  Every test here carries the ``cuda`` marker and skips without a
-GPU (decided inside the fixture, never at import).  This file imports
+"""Kernel B1 (``csrc/spmm_sell.cu``), the graph kernels B3, B4, B5
+(``csrc/graph_step.cu``), the ELLPACK SpMV B6 (``csrc/spmv_ell.cu``) and
+the FFT B7 (``csrc/fft_stockham.cu``) against their plain PyTorch versions
+on the card.  Every test here carries the ``cuda`` marker and skips without
+a GPU (decided inside the fixture, never at import).  This file imports
 neither ``jax`` nor ``repro``, so it runs on a machine that has only the
 port's dependencies:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: 1e-10 at fp64, 1e-4 x max|y| at fp32 (summation order differs);
-BFS distances exactly equal, PageRank ranks at rtol 1e-10.
+BFS distances exactly equal, PageRank ranks at rtol 1e-10; FFT rtol 1e-9 /
+atol 1e-9 x n at fp64 and 1e-3 / 1e-3 x n at fp32 (FMA contraction).
 """
 import numpy as np
 import pytest
@@ -132,3 +135,98 @@ def test_graph_ell_kernels_and_ops_match_host_references(cuda_device):
         np.testing.assert_allclose(r[:, 1].cpu().numpy(),
                                    G.pagerank_reference(g, 0.9, 7),
                                    rtol=1e-10, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# ELLPACK SpMV B6 and FFT B7
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-10), (np.float32, 1e-4)])
+def test_spmv_ell_kernel_matches_plain_version(cuda_device, dtype, tol):
+    from repro_torch.kernels import spmv
+
+    csr = F.random_csr(4093, 3000, 9.0, seed=6, skew=1.2, dtype=dtype)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(3000)
+                         .astype(dtype)).to(cuda_device)
+    for c in (8, 32, 256):
+        cols, vals = F.csr_to_ellpack(csr, c=c).to_device(cuda_device)
+        before = spmv.KERNEL_LAUNCHES
+        got = spmv.spmv_ell(cols, vals, x)
+        torch.cuda.synchronize()
+        assert spmv.KERNEL_LAUNCHES == before + 1
+        want = spmv.spmv_ell_ref(cols, vals, x)
+        scale = 1.0 if dtype == np.float64 else float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol * scale
+    ell = F.csr_to_ellpack(csr, c=256)
+    y = ops.spmv(ell, x.cpu().numpy(), spec=ExecSpec())   # default vl 256: B6
+    assert y.device.type == "cuda"
+    want = ell.matvec(x.cpu().numpy())
+    np.testing.assert_allclose(y.cpu().numpy(), want, rtol=0,
+                               atol=tol * (1.0 if dtype == np.float64
+                                           else float(np.abs(want).max())))
+
+
+def _fft_case(n, batch, dtype, device, seed=0):
+    from repro_torch.kernels import fft
+
+    rng = np.random.default_rng(seed)
+    re, im = (torch.from_numpy(rng.standard_normal((batch, n)).astype(dtype))
+              .to(device) for _ in range(2))
+    wre, wim = (torch.from_numpy(w).to(device)
+                for w in fft.fft_twiddles(n, dtype))
+    return re, im, wre, wim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,form", [(2048, "block"), (8192, "stage")])
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-9), (np.float32, 1e-3)])
+def test_fft_kernel_matches_plain_version(cuda_device, n, form, dtype, tol):
+    """B7 in its in-block form (n = 2048) and, in fp64, its per-stage form
+    (n = 8192: one fp64 signal's buffers exceed a block's shared memory;
+    fp32 still fits)."""
+    from repro_torch.kernels import fft
+
+    args = _fft_case(n, 13, dtype, cuda_device)
+    key = "fft_stockham_stage" if form == "stage" and dtype == np.float64 \
+        else "fft_stockham_block"
+    before = dict(fft.KERNEL_LAUNCHES)
+    got = fft.fft_stockham(*args, b_block=8)
+    torch.cuda.synchronize()
+    grew = {k: fft.KERNEL_LAUNCHES[k] - before[k] for k in before}
+    assert grew[key] == (13 if key == "fft_stockham_stage" else 1)
+    assert sum(grew.values()) == grew[key]
+    want = fft.fft_stockham_ref(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol * n)
+    spec = np.fft.fft(args[0].double().cpu().numpy()
+                      + 1j * args[1].double().cpu().numpy())
+    np.testing.assert_allclose(got[0].double().cpu().numpy(), spec.real,
+                               rtol=tol, atol=tol * n)
+    # b_block groups signals; it never changes the result
+    again = fft.fft_stockham(*args, b_block=1)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_refused_fft_launch_raises_and_leaves_no_error_behind(cuda_device):
+    """A block asking for more dynamic shared memory than the card grants
+    is refused: the wrapper raises instead of returning garbage, counts no
+    launch, and the next launch runs clean."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels import fft
+
+    n = 2048
+    re, im, wre, wim = _fft_case(n, 16, np.float64, cuda_device)
+    signals = autotune.SMEM_PER_BLOCK // (32 * n) + 1      # one too many
+    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    before = dict(fft.KERNEL_LAUNCHES)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        fft._launch_block(re, im, wre, wim, out_re, out_im, signals)
+    assert fft.KERNEL_LAUNCHES == before
+    got = ops.fft(re, im)                                  # default: the card
+    torch.cuda.synchronize()
+    for g, w in zip(got, fft.fft_stockham_ref(re, im, wre, wim)):
+        torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-9 * n)

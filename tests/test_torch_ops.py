@@ -215,7 +215,12 @@ def test_unported_paths_raise_not_implemented():
         ops.spmv(port, x, spec=dataclasses.replace(CPU, mode="stream"))
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         ExecSpec(placement=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    # ELLPACK operands run now (kernel B6); the reference's container is
+    # not the port's, and stays an unsupported format
+    np.testing.assert_allclose(
+        _np(ops.spmv(F.csr_to_ellpack(port, c=8), x, spec=CPU)),
+        port.matvec(x), rtol=TOL, atol=TOL)
+    with pytest.raises(TypeError, match="unsupported sparse format"):
         ops.spmv(RF.csr_to_ellpack(ref, c=8), x, spec=CPU)
     with pytest.raises(ValueError, match="unknown mode"):
         ops.spmv(port, x, spec=dataclasses.replace(CPU, mode="fast"))

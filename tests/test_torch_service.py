@@ -97,7 +97,9 @@ def test_stats_keys_and_pow2_pad_match_reference():
     for n in range(1, 40):
         items = list(range(n))
         assert service_mod._pow2_pad(items) == ref_service_mod._pow2_pad(items)
-    assert service_mod.OPS == ("spmv", "bfs", "pagerank")
+    assert service_mod.OPS == ("spmv", "bfs", "pagerank", "fft")
+    assert service_mod.OPS == tuple(op for op in ref_service_mod.OPS
+                                    if op != "moe_dispatch")
     assert set(service_mod.OPS) <= set(ref_service_mod.OPS)
 
 
@@ -201,7 +203,7 @@ def test_preflight_rejects_a_drifted_tune_at_admission(world):
 def test_submit_errors_travel_to_the_caller(world):
     _, svc = _services(world)
     with pytest.raises(ValueError, match="unknown op"):
-        svc.submit("fft", "mat", None)
+        svc.submit("moe_dispatch", "mat", None)
     with pytest.raises(KeyError, match="not registered"):
         svc.submit("spmv", "nope", None)
     with pytest.raises(TypeError, match="ExecSpec"):
@@ -484,7 +486,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "for m in ('repro_torch.graphs.gen', 'repro_torch.kernels.bfs',\n"
-        "          'repro_torch.kernels.pagerank'):\n"
+        "          'repro_torch.kernels.pagerank', 'repro_torch.kernels.fft',\n"
+        "          'repro_torch.kernels.spmv'):\n"
         "    assert m in sys.modules, m\n"
         "print('ok', len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )
@@ -514,3 +517,162 @@ def test_chip_smoke_names_neither_jax_nor_the_reference():
     assert "repro_torch.kernels" in names
     bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# FFT plans: the fft op (kernel B7)
+# ---------------------------------------------------------------------------
+
+FFT_N = 128
+
+
+def _fft_services(n_slots=8):
+    """Both packages' services with one FFT plan of length FFT_N, the
+    SpMV operand of ``world`` and the graph of ``graphs`` registered."""
+    ref_reg = RefRegistry()
+    reg = KernelRegistry(device="cpu", machine=tpu_v5e_machine())
+    ref_csr = RF.random_csr(N, N, 6.0, seed=0, skew=1.0)
+    ref_g = RG.rmat_graph(N_NODES, 8, seed=21)
+    for r, csr, g in ((ref_reg, ref_csr, ref_g),
+                      (reg, F.CSRMatrix(indptr=ref_csr.indptr,
+                                        indices=ref_csr.indices,
+                                        data=ref_csr.data, n_cols=N),
+                       G.EllpackGraph(adj=ref_g.adj, n_nodes=N_NODES))):
+        r.register_fft("fft", FFT_N)
+        r.register_matrix("mat", csr)
+        r.register_graph("g", g)
+    return RefService(ref_reg, n_slots=n_slots), \
+        KernelService(reg, n_slots=n_slots)
+
+
+def _spectrum(svc, rid):
+    return [p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
+            for p in svc.poll(rid)]
+
+
+def test_register_fft_mirrors_the_reference():
+    ref_reg, reg = RefRegistry(), KernelRegistry(device="cpu")
+    ref_op, op = ref_reg.register_fft("f", 256), reg.register_fft("f", 256)
+    assert op.kind == ref_op.kind == "fft" and op.n == 256
+    for name in ("wre", "wim"):
+        got = op.device_arrays[name]
+        assert got.dtype == torch.float64 and got.device.type == "cpu"
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(ref_op.device_arrays[name]))
+    assert op.plans["fft"].ok and op.plans["fft"].kernel == "fft_stockham"
+    for bad in (1000, 1, 0):
+        with pytest.raises(ValueError, match="power of two"):
+            reg.register_fft("bad", bad)
+        with pytest.raises(ValueError, match="power of two"):
+            ref_reg.register_fft("bad", bad)
+    assert "bad" not in reg
+
+
+def test_mixed_drain_with_fft_matches_reference():
+    """SpMV, BFS, PageRank and FFT requests in one drain, as
+    ``examples/serve_kernels.py`` mixes them: every result agrees with the
+    reference service's and with numpy / the host references."""
+    ref_svc, svc = _fft_services(n_slots=4)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(N)
+    sig = rng.standard_normal((2, FFT_N))
+    reqs = [("spmv", x, {}), ("fft", sig, {}), ("bfs", None, {"source": 3}),
+            ("pagerank", None, {"iters": 4}), ("fft", sig[0], {})]
+    rids = []
+    for op, payload, params in reqs:
+        operand = {"spmv": "mat", "fft": "fft"}.get(op, "g")
+        rids.append((ref_svc.submit(op, operand, payload, **params),
+                     svc.submit(op, operand, payload, **params)))
+    assert svc.poll(rids[0][1]) is None            # async: nothing ran yet
+    ref_svc.drain()
+    svc.drain()
+    for (op, payload, _), (r_ref, r_port) in zip(reqs, rids):
+        if op == "fft":
+            got, want = _spectrum(svc, r_port), _spectrum(ref_svc, r_ref)
+            spec = np.fft.fft(np.atleast_2d(payload), axis=-1)
+            for g, w, s in zip(got, want, (spec.real, spec.imag)):
+                assert g.shape == np.atleast_2d(payload).shape
+                np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-9 * FFT_N)
+                np.testing.assert_allclose(g, s, rtol=1e-9, atol=1e-9 * FFT_N)
+        else:
+            np.testing.assert_allclose(_result(svc, r_port),
+                                       _result(ref_svc, r_ref),
+                                       rtol=TOL, atol=TOL)
+    assert dict(svc.stats) == dict(ref_svc.stats)
+    assert svc.stats["served"] == 5 and svc.stats["failed"] == 0
+    assert svc.registry.get("fft").launches == \
+        ref_svc.registry.get("fft").launches
+    plans = svc.plans()["fft"]
+    assert plans["fft"]["kernel"] == "fft_stockham" and plans["fft"]["ok"]
+
+
+def test_five_fft_requests_are_one_fft_stockham_call(monkeypatch):
+    from repro_torch.kernels import fft as fft_k
+
+    calls = {"n": 0, "rows": 0}
+    real = fft_k.fft_stockham
+
+    def counting(re, *args, **kwargs):
+        calls["n"] += 1
+        calls["rows"] += re.shape[0]
+        return real(re, *args, **kwargs)
+
+    monkeypatch.setattr(fft_k, "fft_stockham", counting)
+    ref_svc, svc = _fft_services(n_slots=8)
+    rng = np.random.default_rng(5)
+    sigs = [rng.standard_normal((i % 3 + 1, FFT_N)) for i in range(5)]
+    rids = [(ref_svc.submit("fft", "fft", s), svc.submit("fft", "fft", s))
+            for s in sigs]
+    ref_svc.drain()
+    svc.drain()
+    assert calls == {"n": 1, "rows": sum(s.shape[0] for s in sigs)}
+    assert svc.stats["launches"] == ref_svc.stats["launches"] == 1
+    assert svc.stats["max_group"] == 5 and svc.stats["coalesced"] == 5
+    for s, (r_ref, r_port) in zip(sigs, rids):
+        got = _spectrum(svc, r_port)
+        for g, w in zip(got, _spectrum(ref_svc, r_ref)):
+            np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-9 * FFT_N)
+        np.testing.assert_allclose(got[0], np.fft.fft(s, axis=-1).real,
+                                   rtol=1e-9, atol=1e-9 * FFT_N)
+
+
+@pytest.mark.parametrize("bad", ["complex", "length", "empty", "3d"])
+def test_bad_fft_payload_fails_alone(bad):
+    rng = np.random.default_rng(9)
+    good = rng.standard_normal((2, FFT_N))
+    payload = {
+        "complex": good + 1j * good,
+        "length": np.ones((2, FFT_N - 1)),
+        "empty": np.ones((0, FFT_N)),
+        "3d": np.ones((1, 2, FFT_N)),
+    }[bad]
+    ref_svc, svc = _fft_services()
+    rids = [(ref_svc.submit("fft", "fft", p), svc.submit("fft", "fft", p))
+            for p in (payload, good)]
+    ref_svc.drain()
+    svc.drain()
+    match = {"complex": "complex signals", "length": "signal length",
+             "empty": "empty signal batch", "3d": "1-D or 2-D"}[bad]
+    for service, rid in ((ref_svc, rids[0][0]), (svc, rids[0][1])):
+        with pytest.raises(RuntimeError, match=match):
+            service.poll(rid)
+    got = _spectrum(svc, rids[1][1])
+    np.testing.assert_allclose(got[0], np.fft.fft(good, axis=-1).real,
+                               rtol=1e-9, atol=1e-9 * FFT_N)
+    assert dict(svc.stats) == dict(ref_svc.stats)
+    assert svc.stats["failed"] == 1 and svc.stats["served"] == 1
+    # a torch payload is checked the same way
+    _, svc2 = _fft_services()
+    rid = svc2.submit("fft", "fft", torch.from_numpy(good + 1j * good))
+    svc2.drain()
+    with pytest.raises(RuntimeError, match="complex signals"):
+        svc2.poll(rid)
+
+
+def test_fft_op_on_a_matrix_operand_fails_like_the_reference():
+    ref_svc, svc = _fft_services()
+    for service in (ref_svc, svc):
+        rid = service.submit("fft", "mat", np.ones((1, FFT_N)))
+        service.drain()
+        with pytest.raises(RuntimeError, match="not an fft plan"):
+            service.poll(rid)
