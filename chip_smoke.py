@@ -10,12 +10,15 @@ result line is printed:
 
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — every CUDA kernel of the main paths (``spmm_sell.cu``,
-              ``graph_step.cu``, ``spmv_ell.cu``, ``fft_stockham.cu``),
+              ``spmm_sell_stream.cu``, ``graph_step.cu``, ``spmv_ell.cu``,
+              ``fft_stockham.cu``),
               built from ``src/`` with ``nvcc`` (one process per source,
               started together);
 3. compare  — each kernel against its plain PyTorch version on the card:
-              B1 (``spmm_sell``) over C x k x dtype on two operands; the
-              graph kernels B3 (``bfs_step_sell``, ``pagerank_step_sell``),
+              B1 (``spmm_sell``) over C x k x dtype on two operands; B2
+              (``spmm_sell_stream``) over C x k x dtype x tiles on two
+              operands, bit-equal to B1, also on rows out of column order
+              and with PAD before a row's entries; the graph kernels B3 (``bfs_step_sell``, ``pagerank_step_sell``),
               B4 (``bfs_step``) and B5 (``pagerank_step``) over RMAT and
               uniform graphs at 2^12 and a prime node count, C x k; B6
               (``spmv_ell``) over C x dtype on two operands; B7
@@ -43,20 +46,40 @@ result line is printed:
               256 (kernel B6, no repack), checked against the plain version
               on the card and the host ``EllpackMatrix.matvec``; B6's
               launch count is read around them;
-8. timing   — every kernel at the main paths' shapes, CUDA events with the
+8. stream   — the streaming schedule as a user drives it: ``ops.spmm`` with
+              ``mode="stream"`` on cage10 (k = 32) and on a 8,192 x
+              4,300,000 operand (k = 8), ``ops.spmv`` with it on the latter
+              (k = 1), all through kernel B2, each result bit-equal to B1
+              on the card and four columns against ``CSRMatrix.matvec``;
+              B2's launch count is read around them;
+9. moe      — MoE decode traffic at the published widths of mixtral-8x7b
+              and deepseek-moe-16b: the registry registers one dispatch
+              envelope per model, the service serves 32 routing requests
+              per envelope (64-sequence decode steps), each envelope's
+              group one block-diagonal launch set of kernel B1; every
+              result is checked against the plain version on the card and
+              the dense dispatch, four per envelope against ``R @ X`` in
+              numpy; B1's launch count is read around each envelope's
+              drain;
+10. timing  — every kernel at the main paths' shapes, CUDA events with the
               L2 flushed, beside its bound (the larger of the function's
-              least bytes and its operations over the card's peak rates),
+              least bytes and its operations over the card's peak rates;
+              the bytes count the rows of X that stored entries name),
               the same bytes over the padded layout, the plain version
               and, where one PyTorch call computes the same function, that
-              call (``torch.sparse.mm``, ``torch.fft.fft``); then one graph
-              drive per (graph, op) under ``torch.profiler``: the graph
-              kernels' device time against the drive's wall time.
+              call (``torch.sparse.mm``, ``torch.fft.fft``); B2 beside B1
+              at six shapes with the X bytes its schedule moves, and the
+              rule ``mode="auto"`` follows; the MoE launch sets beside the
+              dense ``torch.matmul``; then one graph drive per (graph, op)
+              under ``torch.profiler``: the graph kernels' device time
+              against the drive's wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with a record per kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -91,6 +114,23 @@ FFT_COMPARE_BATCHES = (1, 3, 8, 13)
 ELL_BIG = dict(n_rows=2_097_152, n_cols=2_097_152, avg_nnz_row=16.0, seed=0)
 ELL_C = 256
 ELL_K = 32
+#: the streaming phase's rectangular operand (the reference's
+#: tests/test_stream.py giant: X is 34 MB a column)
+GIANT = dict(n_rows=8192, n_cols=4_300_000, avg_nnz_row=2.0, seed=3)
+GIANT_K = 8
+#: MoE decode traffic: one dispatch envelope per model at its published
+#: width (src/repro/configs/mixtral_8x7b.py, deepseek_moe_16b.py); each
+#: request is one decode step of a batch of MOE_TOKENS sequences routed as
+#: one group, capacity int(tokens * top_k / experts * 1.25) + 1 a expert
+#: (src/repro/models/moe.py)
+MOE_MODELS = {
+    "mixtral-8x7b": dict(d_model=4096, n_experts=8, top_k=2),
+    "deepseek-moe-16b": dict(d_model=2048, n_experts=64, top_k=6),
+}
+MOE_TOKENS = 64
+MOE_CAPACITY_FACTOR = 1.25
+MOE_REQUESTS = 32
+MOE_C = 32
 DAMPINGS = (0.85, 0.9, 0.8, 0.95)
 ITERS = 20
 PR_RTOL = 1e-10
@@ -157,6 +197,14 @@ def compare_kernel(torch, np, sell_core, F) -> float:
     phase("compare", f"{n_cases} cases ok; fp64 max abs err {worst64:.3e} "
           "(tol 1e-10), fp32 tol 1e-4 * max|y|")
     return worst64
+
+
+def touched_columns(np, cols, n_cols: int) -> int:
+    """Distinct columns among the stored entries (PAD excluded): the rows
+    of X that Y = A @ X must read, which is what its bytes bound counts."""
+    seen = np.zeros(n_cols + 1, bool)          # PAD (-1) lands in the extra slot
+    seen[np.asarray(cols).reshape(-1)] = True
+    return int(seen[:n_cols].sum())
 
 
 def time_ms(torch, fn, flush, runs: int = 10, warmup: int = 2) -> float:
@@ -751,6 +799,7 @@ def time_spmv(torch, np, sell_core, op, big, launches, flush) -> dict:
     slab_bytes = sum(t.numel() * t.element_size()
                      for t in (*cols, *vals, *rows))
     elem = vals[0].element_size()
+    x_rows = touched_columns(np, big.indices, big.n_cols)
     a_lib = torch.sparse_csr_tensor(
         torch.from_numpy(big.indptr), torch.from_numpy(big.indices.astype(np.int64)),
         torch.from_numpy(big.data), size=(big.n_rows, big.n_cols)).to(DEVICE)
@@ -781,9 +830,10 @@ def time_spmv(torch, np, sell_core, op, big, launches, flush) -> dict:
         ms = time_ms(torch, kernel, flush)
         plain_ms = time_ms(torch, plain, flush)
         lib_ms = time_ms(torch, library, flush)
-        xy_bytes = elem * k * (big.n_cols + big.n_rows)
+        xy_bytes = elem * k * (x_rows + big.n_rows)
         # each stored entry (int32 column + value) once, each row's id
-        # once, X read once, Y written once
+        # once, the rows of X a stored column names read once, Y written
+        # once
         bytes_ms = (big.nnz * (4 + elem) + 4 * big.n_rows + xy_bytes) \
             / HBM_BYTES_PER_S * 1e3
         padded_ms = (slab_bytes + xy_bytes) / HBM_BYTES_PER_S * 1e3
@@ -1183,7 +1233,8 @@ def time_spmv_ell(torch, np, spmv_k, ops, em: dict, flush) -> dict:
     plain_ms = time_ms(torch, plain, flush)
     lib_ms = time_ms(torch, library, flush)
     lanes = big.n_slices * big.c
-    bytes_ms = (12 * big.nnz + 8 * big.n_cols + 8 * big.n_rows) \
+    x_rows = touched_columns(np, big.cols, big.n_cols)
+    bytes_ms = (12 * big.nnz + 8 * x_rows + 8 * big.n_rows) \
         / HBM_BYTES_PER_S * 1e3
     padded_ms = (12 * big.padded_nnz + 8 * big.n_cols + 8 * lanes) \
         / HBM_BYTES_PER_S * 1e3
@@ -1202,6 +1253,514 @@ def time_spmv_ell(torch, np, spmv_k, ops, em: dict, flush) -> dict:
             "library_ms": lib_ms, "padded_slab_bound_ms": padded_ms,
             "shape": f"uniform2m ELLPACK {big.n_rows} rows nnz {big.nnz} "
                      f"width {big.width} C={big.c} fp64, k=1"}
+
+
+# ---------------------------------------------------------------------------
+# Streaming SpMM (B2) and MoE dispatch (B1)
+# ---------------------------------------------------------------------------
+
+
+def shuffled_rows(np, F, csr, seed: int):
+    """The same matrix with each row's entries in a random order."""
+    rng = np.random.default_rng(seed)
+    indices, data = csr.indices.copy(), csr.data.copy()
+    for lo, hi in zip(csr.indptr[:-1], csr.indptr[1:]):
+        p = lo + rng.permutation(hi - lo)
+        indices[lo:hi], data[lo:hi] = indices[p], data[p]
+    return F.CSRMatrix(indptr=csr.indptr, indices=indices, data=data,
+                       n_cols=csr.n_cols)
+
+
+def compare_stream(torch, np, sell_core, F) -> float:
+    """Phase 3 (streaming): B2 against spmm_sell_stream_ref on the card and
+    bit-equal to B1, at the picked tiles and at a col_tile that splits X
+    into many tiles with a non-pow2 row_tile; then rows out of column
+    order.  Returns the fp64 max error against the plain version."""
+    operands = {
+        "cage10": lambda dt: F.cage10_like(seed=0, dtype=dt),
+        "rand4093": lambda dt: F.random_csr(4093, 4093, 8.0, seed=3,
+                                            skew=1.2, dtype=dt),
+    }
+    rng = np.random.default_rng(4)
+    worst64 = 0.0
+    n_cases = 0
+    tiles = ((None, None), (64, 3))
+    for dt in (np.float64, np.float32):
+        for name, make in operands.items():
+            csr = make(dt)
+            for c in (8, 32, 128, 256):
+                cols, vals, rows = F.csr_to_sell_slabs(csr, c=c).to_device(
+                    DEVICE)
+                for k in (1, 3, 8, 32):
+                    x = torch.from_numpy(rng.standard_normal(
+                        (csr.n_cols, k)).astype(dt)).to(DEVICE)
+                    b1 = sell_core.spmm_sell(cols, vals, rows, x,
+                                             n_rows=csr.n_rows, k_block=32)
+                    for ct, rt in tiles:
+                        got = sell_core.spmm_sell_stream(
+                            cols, vals, rows, x, n_rows=csr.n_rows,
+                            k_block=32, col_tile=ct, row_tile=rt)
+                        torch.cuda.synchronize()
+                        want = sell_core.spmm_sell_stream_ref(
+                            cols, vals, rows, x, n_rows=csr.n_rows,
+                            col_tile=ct or 256)
+                        err = max_err(got, want)
+                        if dt == np.float64:
+                            tol = 1e-10
+                            worst64 = max(worst64, err)
+                        else:
+                            tol = 1e-4 * float(want.abs().max())
+                        if not err <= tol:
+                            raise AssertionError(
+                                f"B2 vs plain: {name} {np.dtype(dt).name} "
+                                f"C={c} k={k} tiles={ct, rt}: max abs err "
+                                f"{err} > {tol}")
+                        if not torch.equal(got, b1):
+                            raise AssertionError(
+                                f"B2 != B1: {name} {np.dtype(dt).name} C={c} "
+                                f"k={k} tiles={ct, rt}")
+                        n_cases += 1
+            phase("compare", f"B2 {name} {np.dtype(dt).name}: C in (8, 32, "
+                  f"128, 256) x k in (1, 3, 8, 32) x (col_tile, row_tile) in "
+                  f"{tiles} within tolerance of plain and bit-equal to B1")
+    # rows out of column order, then the same rows with PAD first: B2 reads
+    # the slabs B1 reads and stays bit-equal to it
+    slabs = F.csr_to_sell_slabs(
+        shuffled_rows(np, F, F.cage10_like(seed=0), seed=5), c=32)
+    pad_first = dataclasses.replace(
+        slabs,
+        bucket_cols=tuple(np.roll(c, 1, axis=1) for c in slabs.bucket_cols),
+        bucket_vals=tuple(np.roll(v, 1, axis=1) for v in slabs.bucket_vals))
+    x = torch.from_numpy(rng.standard_normal((slabs.n_cols, 8))).to(DEVICE)
+    err_unsorted = 0.0
+    for operand in (slabs, pad_first):
+        cols, vals, rows = operand.to_device(DEVICE)
+        b1 = sell_core.spmm_sell(cols, vals, rows, x, n_rows=slabs.n_rows,
+                                 k_block=8)
+        got = sell_core.spmm_sell_stream(cols, vals, rows, x,
+                                         n_rows=slabs.n_rows, k_block=8)
+        torch.cuda.synchronize()
+        if not torch.equal(got, b1):
+            raise AssertionError("B2 != B1 on rows out of column order")
+        want = sell_core.spmm_sell_stream_ref(cols, vals, rows, x,
+                                              n_rows=slabs.n_rows,
+                                              col_tile=256)
+        err_unsorted = max(err_unsorted, max_err(got, want))
+        if not err_unsorted <= 1e-10:
+            raise AssertionError(
+                f"B2 vs plain on rows out of column order: {err_unsorted}")
+        n_cases += 1
+    phase("compare", f"{n_cases} B2 cases ok; fp64 max abs err vs plain "
+          f"{worst64:.3e} (tol 1e-10), fp32 tol 1e-4 * max|y|; every case "
+          f"bit-equal to B1, cage10 with shuffled rows and with PAD first "
+          f"too (vs plain {err_unsorted:.3e}, tol 1e-10)")
+    return worst64
+
+
+def stream_path(torch, np, F, sell_core, ops, ExecSpec) -> dict:
+    """Phase 8: the streaming schedule through ``ops`` (kernel B2)."""
+    t0 = time.perf_counter()
+    cage = F.cage10_like(seed=0)
+    giant = F.random_csr(**GIANT)
+    rng = np.random.default_rng(10)
+    xc = rng.standard_normal((cage.n_cols, REQUESTS_PER_OPERAND))
+    xg = rng.standard_normal((giant.n_cols, GIANT_K))
+    xv = rng.standard_normal(giant.n_cols)
+    phase("stream", f"operands generated in {time.perf_counter() - t0:.1f} s:"
+          f" giant {giant.n_rows}x{giant.n_cols} nnz {giant.nnz}, X "
+          f"{xg.nbytes} B at k={GIANT_K}")
+    spec = ExecSpec(device=DEVICE, mode="stream")
+    # pack once, so the B1 check below reuses the same slabs and uploads
+    slabs = {"cage10": F.csr_to_sell_slabs(cage, c=spec.vl),
+             "giant": F.csr_to_sell_slabs(giant, c=spec.vl)}
+    torch.cuda.synchronize()
+    sell_core.STREAM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    ys = {"cage10": ops.spmm(slabs["cage10"], xc, spec=spec),
+          "giant": ops.spmm(slabs["giant"], xg, spec=spec),
+          "giant_spmv": ops.spmv(slabs["giant"], xv, spec=spec)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sell_core.STREAM_LAUNCHES
+    expected = 2 * slabs["giant"].n_buckets + slabs["cage10"].n_buckets
+    phase("stream", f"STREAM_LAUNCHES={launches} (one per bucket per call: "
+          f"{expected}); ops wall {wall:.3f} s incl. bounds scan and "
+          "upload")
+    if launches != expected or launches <= 0:
+        raise AssertionError(f"B2 launches {launches} != {expected}")
+    resident = dataclasses.replace(spec, mode="resident")
+    for name, csr, y, x in (
+            ("cage10", cage, ys["cage10"], xc),
+            ("giant", giant, ys["giant"], xg),
+            ("giant_spmv", giant, ys["giant_spmv"][:, None], xv[:, None])):
+        if tuple(y.shape) != (csr.n_rows, x.shape[1]) or \
+                not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{name}: bad result shape/values")
+        b1 = ops.spmm(slabs[name.removesuffix("_spmv")], x, spec=resident)
+        if not torch.equal(y, b1):
+            raise AssertionError(f"{name}: B2 through ops != B1 "
+                                 f"(max abs err {max_err(y, b1)})")
+        err_host = max(max_err(y[:, i].cpu(), torch.from_numpy(
+            csr.matvec(x[:, i]))) for i in range(min(4, x.shape[1])))
+        phase("stream", f"{name} k={x.shape[1]}: bit-equal to B1 on the "
+              f"card; {min(4, x.shape[1])} column(s) vs host CSR matvec "
+              f"{err_host:.3e} (tol 1e-10)")
+        if not err_host <= 1e-10:
+            raise AssertionError(f"{name}: B2 disagrees with CSR matvec")
+    return dict(launches=launches, cage=cage, giant=giant, slabs=slabs)
+
+
+def moe_routing(np, rng, n_tok: int, n_experts: int, top_k: int, cap: int):
+    """One decode step's combine CSR (tokens x expert capacity slots),
+    drawn as ``src/repro/models/moe.py`` builds it: softmax router
+    probabilities, top-k experts, renormalized weights, each assignment's
+    rank within its expert in (token, k) order, assignments past the
+    capacity dropped; a row lists its kept entries in k order."""
+    logits = rng.standard_normal((n_tok, n_experts))
+    probs = np.exp(logits - logits.max(axis=1, keepdims=True))
+    probs /= probs.sum(axis=1, keepdims=True)
+    top_i = np.argsort(-probs, axis=1, kind="stable")[:, :top_k]
+    top_w = np.take_along_axis(probs, top_i, axis=1)
+    top_w /= np.maximum(top_w.sum(axis=1, keepdims=True), 1e-9)
+    flat = top_i.reshape(-1)
+    onehot = np.eye(n_experts, dtype=np.int64)[flat]
+    pos = (np.cumsum(onehot, axis=0) - onehot)[np.arange(flat.size), flat]
+    keep = pos < cap
+    tok = np.repeat(np.arange(n_tok), top_k)[keep]
+    indptr = np.zeros(n_tok + 1, np.int64)
+    np.cumsum(np.bincount(tok, minlength=n_tok), out=indptr[1:])
+    return indptr, (flat * cap + pos)[keep].astype(np.int32), \
+        top_w.reshape(-1)[keep]
+
+
+def block_diagonal(np, F, payloads):
+    """The service's coalesced operand: request i's routing as the i-th
+    block of one CSR, its X stack the matching rows of one RHS."""
+    indptrs, indices, data = [np.zeros(1, np.int64)], [], []
+    row = col = nnz = 0
+    for p in payloads:
+        indptrs.append(p["indptr"][1:] + nnz)
+        indices.append(p["indices"] + col)
+        data.append(p["data"])
+        row += len(p["indptr"]) - 1
+        col += p["x"].shape[0]
+        nnz += int(p["indptr"][-1])
+    return F.CSRMatrix(indptr=np.concatenate(indptrs),
+                       indices=np.concatenate(indices).astype(np.int32),
+                       data=np.concatenate(data), n_cols=col)
+
+
+def moe_path(torch, np, F, sell_core, ops, ExecSpec, KernelRegistry,
+             KernelService) -> dict:
+    """Phase 9: MoE dispatch traffic through the registry and the service
+    (kernel B1 on block-diagonal launch sets)."""
+    reg = KernelRegistry(device=DEVICE)
+    rng = np.random.default_rng(11)
+    envelopes = {}
+    t0 = time.perf_counter()
+    for name, m in MOE_MODELS.items():
+        cap = int(MOE_TOKENS * m["top_k"] / m["n_experts"]
+                  * MOE_CAPACITY_FACTOR) + 1
+        n_slots = m["n_experts"] * cap
+        op = reg.register_moe(name, n_tokens=MOE_TOKENS, n_slots=n_slots,
+                              d_model=m["d_model"], top_k=m["top_k"],
+                              c=MOE_C)
+        payloads = []
+        for _ in range(MOE_REQUESTS):
+            indptr, indices, data = moe_routing(
+                np, rng, MOE_TOKENS, m["n_experts"], m["top_k"], cap)
+            payloads.append(dict(indptr=indptr, indices=indices, data=data,
+                                 x=rng.standard_normal((n_slots,
+                                                        m["d_model"]))))
+        envelopes[name] = dict(cap=cap, n_slots=n_slots, payloads=payloads,
+                               d=m["d_model"], top_k=m["top_k"])
+        plan = op.plans["moe_dispatch"]
+        phase("moe", f"registered {name}: d_model {m['d_model']}, "
+              f"{m['n_experts']} experts top-{m['top_k']}, capacity {cap} "
+              f"a expert, {n_slots} slots, plan {plan.n_launches} launch(es)")
+    phase("moe", f"payloads generated in {time.perf_counter() - t0:.1f} s")
+    svc = KernelService(reg, n_slots=N_SLOTS)
+    # one drain an envelope, its B1 launches counted around it
+    rids, wall = {}, 0.0
+    for name, e in envelopes.items():
+        torch.cuda.synchronize()
+        sell_core.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        rids[name] = [svc.submit("moe_dispatch", name, p)
+                      for p in e["payloads"]]
+        svc.drain()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        e["launches"] = sell_core.KERNEL_LAUNCHES
+    b1 = sum(e["launches"] for e in envelopes.values())
+    stats = dict(svc.stats)
+    n_req = sum(len(v) for v in rids.values())
+    walls = svc.metrics.get("launch_wall_us_moe_dispatch")
+    phase("moe", f"stats {json.dumps(stats)}")
+    phase("moe", f"moe_dispatch_launches={stats['moe_dispatch_launches']}, "
+          f"sell_core.KERNEL_LAUNCHES=" + ", ".join(
+              f"{n} {e['launches']}" for n, e in envelopes.items()) +
+          f"; {n_req} requests in {wall:.4f} s "
+          f"= {n_req / wall:.1f} requests/s; dispatch calls (pack + upload + "
+          f"kernels + sync) {walls.total / 1e3:.3f} ms over {walls.count} "
+          "groups")
+    if stats["served"] != n_req or stats["failed"]:
+        raise AssertionError(f"not every request was served: {stats}")
+    if stats["moe_dispatch_launches"] != len(envelopes):
+        raise AssertionError("each envelope's 32 requests did not coalesce "
+                             f"into one launch set: {stats}")
+    for name, e in envelopes.items():
+        csr = block_diagonal(np, F, e["payloads"])
+        slabs = F.csr_to_sell_slabs(csr, c=MOE_C)
+        if e["launches"] != slabs.n_buckets or e["launches"] <= 0:
+            raise AssertionError(
+                f"{name}: B1 launches {e['launches']} != buckets of its "
+                f"launch set {slabs.n_buckets}")
+        cols, vals, rows = slabs.to_device(DEVICE)
+        x = torch.from_numpy(np.concatenate(
+            [p["x"] for p in e["payloads"]])).to(DEVICE)
+        got = torch.cat([svc.poll(r) for r in rids[name]])
+        if tuple(got.shape) != (csr.n_rows, e["d"]) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: bad result shape/values")
+        err_plain = max_err(got, sell_core.spmm_sell_ref(
+            cols, vals, rows, x, n_rows=csr.n_rows))
+        dense = ExecSpec(dispatch="dense", device=DEVICE)
+        err_dense = max(max_err(svc.poll(r), ops.moe_dispatch(
+            F.CSRMatrix(indptr=p["indptr"], indices=p["indices"],
+                        data=p["data"], n_cols=e["n_slots"]),
+            p["x"], spec=dense, top_k=e["top_k"]))
+            for r, p in zip(rids[name], e["payloads"]))
+        err_host = 0.0
+        for r, p in list(zip(rids[name], e["payloads"]))[:4]:
+            r_dense = np.zeros((MOE_TOKENS, e["n_slots"]))
+            rows_of = np.repeat(np.arange(MOE_TOKENS), np.diff(p["indptr"]))
+            r_dense[rows_of, p["indices"]] = p["data"]
+            err_host = max(err_host, max_err(
+                svc.poll(r).cpu(), torch.from_numpy(r_dense @ p["x"])))
+        phase("moe", f"{name}: {len(rids[name])} results ({csr.n_rows} "
+              f"tokens x {csr.n_cols} slots, nnz {csr.nnz}, k={e['d']}) vs "
+              f"plain on card {err_plain:.3e}, vs dense dispatch "
+              f"{err_dense:.3e}, 4 vs numpy R @ X {err_host:.3e} (tol 1e-10)")
+        if not max(err_plain, err_dense, err_host) <= 1e-10:
+            raise AssertionError(f"{name}: dispatch results disagree")
+        e.update(csr=csr, slabs=(cols, vals, rows), x=x)
+    return dict(envelopes=envelopes, launches=b1,
+                requests_per_s=n_req / wall)
+
+
+def stream_traffic(np, bucket_cols, n_cols: int, k: int, k_tile: int,
+                   itemsize: int, col_tile: int, row_tile: int):
+    """What B2's schedule loads of X, counted on the host from the slabs:
+    (touched (block, tile) pairs, X bytes), each block loading every tile
+    its rows touch once per k tile (tiles fetched ahead and not used are
+    not counted)."""
+    from repro_torch.analysis.preflight import stream_block_rows
+    from repro_torch.sparse.formats import PAD
+
+    n_tiles = -(-n_cols // col_tile)
+    pairs = rows_loaded = 0
+    for cols in bucket_cols:
+        s, _, c = cols.shape
+        rb = stream_block_rows(min(row_tile, s), c)
+        lane = np.arange(s)[:, None, None] * c + np.arange(c)[None, None, :]
+        block = np.broadcast_to(lane // rb, cols.shape)
+        real = cols != PAD
+        tiles = np.unique(block[real].astype(np.int64) * n_tiles
+                          + cols[real].astype(np.int64) // col_tile) % n_tiles
+        pairs += tiles.size
+        rows_loaded += int(np.minimum(col_tile, n_cols - tiles * col_tile).sum())
+    grid_y = -(-k // k_tile)
+    return pairs * grid_y, rows_loaded * k_tile * itemsize * grid_y
+
+
+def sparse_csr(torch, np, csr):
+    """``csr`` as a torch sparse CSR tensor on the card (the library
+    yardstick's operand)."""
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr),
+        torch.from_numpy(csr.indices.astype(np.int64)),
+        torch.from_numpy(csr.data), size=(csr.n_rows, csr.n_cols)).to(DEVICE)
+
+
+def time_stream(torch, np, sell_core, ops, sm: dict, big_op, big,
+                flush) -> dict:
+    """Phase 10 (streaming): B2 beside B1 at six shapes (cage10 k = 1, 32;
+    the giant operand k = 1, 8, 32; BIG k = 1), with its bound (B1's
+    bytes), the X bytes its schedule loads and the tile count; then the
+    rule ``mode="auto"`` follows."""
+    from repro_torch.analysis.preflight import stream_col_tile
+    from repro_torch.core.autotune import pick_stream_tiles
+
+    dev = torch.device(DEVICE)
+    layouts = {
+        "cage10": (sm["cage"], sm["slabs"]["cage10"],
+                   ops._prepared(sm["slabs"]["cage10"], dev)[1]),
+        "giant": (sm["giant"], sm["slabs"]["giant"],
+                  ops._prepared(sm["slabs"]["giant"], dev)[1]),
+        "big": (big, big_op.slabs, tuple(big_op.device_arrays[n]
+                                         for n in ("cols", "vals", "rows"))),
+    }
+    shapes = [("cage10", 1), ("cage10", REQUESTS_PER_OPERAND), ("giant", 1),
+              ("giant", GIANT_K), ("giant", REQUESTS_PER_OPERAND), ("big", 1)]
+    rng = np.random.default_rng(12)
+    records = {}
+    for name, k in shapes:
+        csr, slabs, (cols, vals, rows) = layouts[name]
+        x = torch.from_numpy(rng.standard_normal((csr.n_cols, k))).to(DEVICE)
+        a_lib = sparse_csr(torch, np, csr)
+        kt = sell_core.k_tile_for(k, 32)
+        ct, rt = pick_stream_tiles(slabs.c, kt, 8)
+        ct = stream_col_tile(ct, csr.n_cols)
+
+        def b2():
+            return sell_core.spmm_sell_stream(cols, vals, rows, x,
+                                              n_rows=csr.n_rows, k_block=32)
+
+        def b1():
+            return sell_core.spmm_sell(cols, vals, rows, x,
+                                       n_rows=csr.n_rows, k_block=32)
+
+        def plain():
+            return sell_core.spmm_sell_stream_ref(cols, vals, rows, x,
+                                                  n_rows=csr.n_rows,
+                                                  col_tile=ct)
+
+        def library():
+            return torch.sparse.mm(a_lib, x)
+
+        y2, y1, yp, yl = b2(), b1(), plain(), library()
+        torch.cuda.synchronize()
+        err, err_lib = max_err(y2, yp), max_err(y2, yl)
+        if not (torch.equal(y2, y1) and err <= 1e-10 and err_lib <= 1e-10):
+            raise AssertionError(f"{name} k={k}: B2 vs B1 equal "
+                                 f"{torch.equal(y2, y1)}, vs plain {err}, vs "
+                                 f"sparse.mm {err_lib}")
+        # B1 and B2 in turns (B1, B2, B2, B1) inside this one run
+        b1_ms = [time_ms(torch, b1, flush)]
+        ms = [time_ms(torch, b2, flush), time_ms(torch, b2, flush)]
+        b1_ms.append(time_ms(torch, b1, flush))
+        plain_ms = time_ms(torch, plain, flush)
+        lib_ms = time_ms(torch, library, flush)
+        pairs, x_bytes = stream_traffic(np, slabs.bucket_cols, csr.n_cols, k,
+                                        kt, 8, ct, rt)
+        x_rows = touched_columns(np, csr.indices, csr.n_cols)
+        least = csr.nnz * 12 + 4 * csr.n_rows + 8 * k * (x_rows + csr.n_rows)
+        bytes_ms = least / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * csr.nnz * k / FP64_FLOPS * 1e3
+        sched_ms = (least - 8 * k * x_rows + x_bytes) \
+            / HBM_BYTES_PER_S * 1e3
+        n_tiles = -(-csr.n_cols // ct)
+        rec = dict(ms=statistics.mean(ms), ms_runs=ms,
+                   b1_ms=statistics.mean(b1_ms), b1_ms_runs=b1_ms,
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   schedule_bound_ms=sched_ms, schedule_x_bytes=x_bytes,
+                   touched_tiles=pairs, col_tile=ct, n_tiles=n_tiles,
+                   x_rows_needed=x_rows,
+                   max_abs_err=err)
+        records[name, k] = rec
+        phase("timing", f"{name} k={k}: B2 {rec['ms']:.4f} ms (runs "
+              f"{ms[0]:.4f}, {ms[1]:.4f}) | B1 {rec['b1_ms']:.4f} ms (runs "
+              f"{b1_ms[0]:.4f}, {b1_ms[1]:.4f}) | bound {bytes_ms:.4f} ms "
+              f"(bytes; ops {ops_ms:.4f}) | schedule bytes bound "
+              f"{sched_ms:.4f} ms ({x_bytes} B of X over {pairs} touched "
+              f"(block, tile) pairs; col_tile {ct}, {n_tiles} tiles) | plain "
+              f"{plain_ms:.4f} ms | torch.sparse.mm {lib_ms:.4f} ms | max abs "
+              f"err vs plain {err:.3e}, B2 == B1")
+    # BIG at k = 32: every block of 256 rows touches nearly every 256-column
+    # tile, so the schedule moves nearly all of X through every block
+    n_blocks = -(-big.n_rows // 256)
+    est = n_blocks * big.n_cols * 32 * 8
+    phase("timing", f"big k=32: B2 not timed; its schedule moves ~{n_blocks} "
+          f"blocks x {big.n_cols * 32 * 8} B of X = {est:.3e} B, >= "
+          f"{est / HBM_BYTES_PER_S:.2f} s at the memory rate")
+    faster = [f"{n} k={k} ({r['b1_ms'] / r['ms']:.2f}x)"
+              for (n, k), r in records.items() if r["ms"] < 0.9 * r["b1_ms"]]
+    phase("timing", "auto rule: B2 beats B1 by more than 10% on " + (
+        ", ".join(faster) if faster else "no measured shape") +
+        f"; ops resolves mode='auto' to the resident B1")
+    return records
+
+
+def time_moe(torch, np, sell_core, mm: dict, flush) -> list[dict]:
+    """Phase 10 (MoE): each envelope's coalesced launch set on B1 beside
+    the dense ``torch.matmul`` of R (the reference's counterfactual) and
+    ``torch.sparse.mm``."""
+    out = []
+    for name, e in mm["envelopes"].items():
+        csr, (cols, vals, rows), x = e["csr"], e["slabs"], e["x"]
+        r_dense = torch.zeros((csr.n_rows, csr.n_cols), dtype=x.dtype,
+                              device=DEVICE)
+        rows_of = np.repeat(np.arange(csr.n_rows), np.diff(csr.indptr))
+        r_dense[torch.from_numpy(rows_of).to(DEVICE),
+                torch.from_numpy(csr.indices.astype(np.int64)).to(DEVICE)] = \
+            torch.from_numpy(csr.data).to(DEVICE)
+        a_lib = sparse_csr(torch, np, csr)
+        kb = 32
+
+        def run():
+            return sell_core.spmm_sell(cols, vals, rows, x, n_rows=csr.n_rows,
+                                       k_block=kb)
+
+        def plain():
+            return sell_core.spmm_sell_ref(cols, vals, rows, x,
+                                           n_rows=csr.n_rows)
+
+        def dense():
+            return torch.matmul(r_dense, x)
+
+        def library():
+            return torch.sparse.mm(a_lib, x)
+
+        y, yp, yd, yl = run(), plain(), dense(), library()
+        torch.cuda.synchronize()
+        err = max_err(y, yp)
+        if not max(err, max_err(y, yd), max_err(y, yl)) <= 1e-10:
+            raise AssertionError(f"{name}: B1 vs plain {err}, vs dense "
+                                 f"{max_err(y, yd)}, vs sparse.mm "
+                                 f"{max_err(y, yl)}")
+        ms = time_ms(torch, run, flush)
+        plain_ms = time_ms(torch, plain, flush)
+        dense_ms = time_ms(torch, dense, flush)
+        lib_ms = time_ms(torch, library, flush)
+        k = e["d"]
+        x_rows = touched_columns(np, csr.indices, csr.n_cols)
+        bytes_ms = (12 * csr.nnz + 4 * csr.n_rows + 8 * k * (x_rows
+                                                            + csr.n_rows)) \
+            / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * csr.nnz * k / FP64_FLOPS * 1e3
+        out.append({
+            "name": f"spmm_sell[moe_dispatch {name}]", "route": "cuda",
+            "source": "src/repro_torch/csrc/spmm_sell.cu",
+            "replaces": "src/repro/kernels/sell_core.py:93",
+            "launches": e["launches"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms, "dense_matmul_ms": dense_ms,
+            "shape": f"{csr.n_rows} tokens x {csr.n_cols} slots block-"
+                     f"diagonal, nnz {csr.nnz} over {x_rows} slots, k={k} "
+                     "fp64"})
+        phase("timing", f"moe {name} ({csr.n_rows} x {csr.n_cols}, nnz "
+              f"{csr.nnz} over {x_rows} slots, k={k}): B1 {ms:.4f} ms | bound {bytes_ms:.4f} ms "
+              f"(bytes; ops {ops_ms:.4f}) | plain {plain_ms:.4f} ms | dense "
+              f"torch.matmul {dense_ms:.4f} ms | torch.sparse.mm "
+              f"{lib_ms:.4f} ms | max abs err vs plain {err:.3e}")
+    return out
+
+
+def stream_record(sm: dict, records: dict) -> dict:
+    """B2's entry of the kernels line: the streaming phase's giant operand
+    at k = GIANT_K, with every timed shape beside it."""
+    main = records["giant", GIANT_K]
+    g = sm["giant"]
+    return {"name": "spmm_sell_stream", "route": "cuda",
+            "source": "src/repro_torch/csrc/spmm_sell_stream.cu",
+            "replaces": "src/repro/kernels/sell_core.py:230",
+            "launches": sm["launches"], **main,
+            "shape": f"{g.n_rows}x{g.n_cols} nnz {g.nnz} fp64, k={GIANT_K}",
+            "shapes": {f"{n} k={k}": r for (n, k), r in records.items()}}
 
 
 def main() -> int:
@@ -1247,6 +1806,7 @@ def main() -> int:
     compare_graph_kernels(torch, np, G, bfs_k, pr_k)
     compare_spmv_ell(torch, np, F, spmv_k)
     compare_fft(torch, np, fft_k)
+    compare_stream(torch, np, sell_core, F)
     phase("compare", f"done in {time.perf_counter() - t0:.1f} s")
 
     # -- 4. SpMV main path -----------------------------------------------------
@@ -1272,7 +1832,18 @@ def main() -> int:
     em = ellpack_ops_path(torch, np, F, spmv_k, ops, ExecSpec)
     phase("ellpack", f"done in {time.perf_counter() - t0:.1f} s")
 
-    # -- 8. timing at the main paths' shapes -----------------------------------
+    # -- 8. streaming schedule through ops -------------------------------------
+    t0 = time.perf_counter()
+    sm = stream_path(torch, np, F, sell_core, ops, ExecSpec)
+    phase("stream", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 9. MoE dispatch through the service -----------------------------------
+    t0 = time.perf_counter()
+    mm = moe_path(torch, np, F, sell_core, ops, ExecSpec, KernelRegistry,
+                  KernelService)
+    phase("moe", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 10. timing at the main paths' shapes ----------------------------------
     t0 = time.perf_counter()
     flush = torch.empty(2 * 50 * 1000 * 1000 // 4, dtype=torch.float32,
                         device=DEVICE)
@@ -1282,6 +1853,9 @@ def main() -> int:
                                              pr_k, gm, flush))
     kernels.append(time_spmv_ell(torch, np, spmv_k, ops, em, flush))
     kernels += time_fft(torch, np, fft_k, fm, flush)
+    kernels.append(stream_record(sm, time_stream(
+        torch, np, sell_core, ops, sm, reg.get("big"), big, flush)))
+    kernels += time_moe(torch, np, sell_core, mm, flush)
     profile_drives(torch, bfs_k, pr_k, gm)
     phase("timing", f"done in {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -5,13 +5,15 @@ from repro_torch.analysis.preflight import (
     plan_bfs_ell,
     plan_bfs_sell,
     plan_fft_stockham,
+    plan_moe_dispatch,
     plan_pagerank_ell,
     plan_pagerank_sell,
     plan_spmm_sell,
+    plan_spmm_sell_stream,
     plan_spmv_ell,
 )
 
 __all__ = ["BlockPlan", "LaunchPlan", "LaunchPlanError", "SlabMeta",
            "plan_bfs_ell", "plan_bfs_sell", "plan_fft_stockham",
-           "plan_pagerank_ell", "plan_pagerank_sell", "plan_spmm_sell",
-           "plan_spmv_ell"]
+           "plan_moe_dispatch", "plan_pagerank_ell", "plan_pagerank_sell",
+           "plan_spmm_sell", "plan_spmm_sell_stream", "plan_spmv_ell"]

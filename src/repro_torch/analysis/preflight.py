@@ -8,6 +8,14 @@ or running it, from operand metadata alone (:class:`SlabMeta`).
 blocks, one thread per (slice, lane) row, ``grid = (ceil(S_b * C /
 threads), k_pad / k_tile)``.
 
+:func:`plan_spmm_sell_stream` (kernel B2, :func:`repro_torch.kernels
+.sell_core.spmm_sell_stream`): B1's function and contracts; per width
+bucket one launch of blocks of ``min(row_tile * C, SPMM_BLOCK_THREADS)``
+rows (one thread each, rounded up to whole warps), ``grid = (ceil(S_b * C
+/ rows), k_pad / k_tile)``, each block claiming two (col_tile, k_tile) X
+tiles of shared memory.  :func:`plan_moe_dispatch` adds the routing
+contract to B1's plan.
+
 :func:`plan_bfs_sell` / :func:`plan_pagerank_sell` (kernel B3 with the BFS
 or PageRank combine) and :func:`plan_bfs_ell` / :func:`plan_pagerank_ell`
 (kernels B4 and B5): one thread per node, ``NODE_STEP_BLOCK_THREADS``
@@ -29,8 +37,9 @@ stage over the whole batch, no shared memory).
 Checked contracts:
 
 * grid and block dims inside CUDA's limits; shared memory per block
-  within :data:`SMEM_PER_BLOCK` (only the in-block FFT claims any: the
-  other kernels keep their sums and masks in registers);
+  within :data:`SMEM_PER_BLOCK` (only the in-block FFT and the streamed
+  SpMM claim any: the other kernels keep their sums and masks in
+  registers);
 * pow2 padding invariants: ``k_block`` and every packed bucket width are
   powers of two;
 * the column tile fits a thread: ``k_tile <= MAX_K_TILE`` state columns
@@ -59,8 +68,10 @@ from repro_torch.core.autotune import (
     NODE_STEP_BLOCK_THREADS,
     SMEM_PER_BLOCK,
     SPMM_BLOCK_THREADS,
+    WARP,
     fft_block_signals,
     fft_block_threads,
+    stream_smem_bytes,
 )
 from repro_torch.sparse.formats import PAD, pow2_ceil
 
@@ -69,9 +80,11 @@ __all__ = [
     "plan_bfs_ell",
     "plan_bfs_sell",
     "plan_fft_stockham",
+    "plan_moe_dispatch",
     "plan_pagerank_ell",
     "plan_pagerank_sell",
     "plan_spmm_sell",
+    "plan_spmm_sell_stream",
     "plan_spmv_ell",
 ]
 
@@ -271,6 +284,121 @@ def plan_spmm_sell(
         blocks=tuple(blocks),
         violations=tuple(violations),
     )
+
+
+def stream_col_tile(col_tile: int, n_cols: int) -> int:
+    """The column tile kernel B2 runs: ``col_tile`` coerced to a power of
+    two and clamped at ``pow2_ceil(n_cols)``, as the reference's wrapper
+    does."""
+    return min(pow2_ceil(max(int(col_tile), 1)), pow2_ceil(max(int(n_cols), 1)))
+
+
+def stream_block_rows(row_tile: int, c: int) -> int:
+    """Rows (threads with a row) of one block of kernel B2: ``row_tile``
+    slices of height ``c``, at most :data:`SPMM_BLOCK_THREADS`."""
+    return min(max(int(row_tile), 1) * int(c), SPMM_BLOCK_THREADS)
+
+
+def plan_spmm_sell_stream(
+    meta: SlabMeta,
+    k: int = 1,
+    x_dtype: str | None = None,
+    *,
+    k_block: int = 8,
+    col_tile: int,
+    row_tile: int,
+    base=None,
+) -> LaunchPlan:
+    """Plan ``spmm_sell_stream`` (kernel B2) for a (n_cols, k) RHS stack.
+
+    Every contract of ``base`` (default :func:`plan_spmm_sell`: the same
+    function over the same slabs; :func:`plan_moe_dispatch` adds the
+    routing contract), plus the schedule's own: ``col_tile`` and ``row_tile`` at
+    least 1; ``col_tile`` coerced to a power of two and clamped at
+    ``pow2_ceil(n_cols)`` and ``row_tile`` clamped per bucket at its slice
+    count, as the wrapper does; the two X tiles a block stages within
+    :data:`SMEM_PER_BLOCK`.  The footprint is independent of ``n_cols`` and
+    ``n_rows``, so any operand B1 serves has a valid streaming plan at the
+    tiles :func:`repro_torch.core.autotune.pick_stream_tiles` picks.
+    """
+    base = (base or plan_spmm_sell)(meta, k=k, x_dtype=x_dtype,
+                                    k_block=k_block)
+    violations = list(base.violations)
+    if col_tile < 1:
+        violations.append(f"col_tile must be >= 1, got {col_tile}")
+    if row_tile < 1:
+        violations.append(f"row_tile must be >= 1, got {row_tile}")
+    vb = int(np.dtype(meta.val_dtype).itemsize) \
+        if meta.val_dtype in KERNEL_DTYPES else 8
+    k_tile = min(max(int(k_block), 1), pow2_ceil(max(k, 1)))
+    k_pad = k_tile * math.ceil(max(k, 1) / k_tile)
+    ct = stream_col_tile(col_tile, meta.n_cols)
+    smem = stream_smem_bytes(ct, k_tile, vb)
+    if smem > SMEM_PER_BLOCK:
+        violations.append(
+            f"two ({ct}, {k_tile}) X tiles take {smem} B of shared memory a "
+            f"block > {SMEM_PER_BLOCK} (col_tile={col_tile}, "
+            f"k_block={k_block})")
+    dtype = x_dtype or meta.val_dtype
+    blocks = []
+    for i, (s, w) in enumerate(zip(meta.n_slices, meta.widths)):
+        rows = stream_block_rows(min(max(int(row_tile), 1), max(s, 1)),
+                                 meta.c)
+        grid_x = math.ceil(s * meta.c / rows)
+        if grid_x > MAX_GRID_X:
+            violations.append(
+                f"bucket {i} (W={w}): grid.x {grid_x} > {MAX_GRID_X}")
+        blocks.append(BlockPlan(
+            label=f"bucket{i}[W={w}]",
+            grid=(grid_x, k_pad // k_tile),
+            block=(WARP * math.ceil(rows / WARP),),
+            operands=(
+                ("cols", (s, w, meta.c), meta.idx_dtype),
+                ("vals", (s, w, meta.c), meta.val_dtype),
+                ("rows", (s, meta.c), meta.idx_dtype),
+                ("x", (meta.n_cols, k_pad), dtype),
+                ("y", (meta.n_rows + 1, k_pad), meta.val_dtype),
+                ("x_tiles", (2, ct, k_tile), dtype),
+            ),
+            smem_bytes=smem,
+        ))
+    return LaunchPlan(
+        kernel="spmm_sell_stream", operand=meta.describe(),
+        dtype=meta.val_dtype, blocks=tuple(blocks),
+        violations=tuple(violations),
+    )
+
+
+def plan_moe_dispatch(meta: SlabMeta, k: int = 1, x_dtype: str | None = None,
+                      *, top_k: int, k_block: int = 8) -> LaunchPlan:
+    """Plan the MoE expert-dispatch SpMM (:func:`repro_torch.kernels.ops
+    .moe_dispatch`): the routing matrix R (one row per token, at most
+    ``top_k`` stored router weights, columns = expert capacity slots)
+    against the ``(n_slots, d_model)`` expert-output stack.
+
+    The launch arithmetic is :func:`plan_spmm_sell` verbatim: this is the
+    plan ``ops`` runs B1 on (the streaming schedule adds its own contracts
+    to it, :func:`plan_spmm_sell_stream` with ``base``).  On top of its
+    contracts the routing shape is enforced: no packed bucket wider than
+    ``pow2_ceil(top_k)`` (a wider row claims more assignments than the
+    router's top-k can produce), and a matrix, not a graph, operand.
+    """
+    base = plan_spmm_sell(meta, k=k, x_dtype=x_dtype, k_block=k_block)
+    violations = list(base.violations)
+    if meta.kind != "matrix":
+        violations.append(
+            f"routing operand kind {meta.kind!r} != 'matrix' (the dispatch "
+            "SpMM needs value-carrying slabs, not an adjacency pack)")
+    if top_k < 1:
+        violations.append(f"top_k must be >= 1, got {top_k}")
+    w_max = pow2_ceil(max(int(top_k), 1))
+    for i, w in enumerate(meta.widths):
+        if w > w_max:
+            violations.append(
+                f"bucket {i} width {w} exceeds pow2_ceil(top_k={top_k})="
+                f"{w_max}: a routing row carries at most top_k entries")
+    return dataclasses.replace(
+        base, kernel="moe_dispatch", violations=tuple(violations))
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,35 @@ FFT_BLOCK_MAX_THREADS = 1024
 #: the Hopper kernel walks a slice's whole bucket width in one thread, so
 #: w_block does not shape its launch.
 W_BLOCK = 8
+#: Static shared memory of one block of the streaming SpMM kernel (B2):
+#: the per-warp minima of its tile walk, one int for each of its 8 warps.
+STREAM_STATIC_SMEM = 32
+
+
+def stream_smem_bytes(col_tile: int, k_tile: int, itemsize: int) -> int:
+    """Shared memory one block of kernel B2 claims: two (col_tile, k_tile)
+    X tiles (the tile in use and the one being fetched) and the static
+    per-warp minima."""
+    return 2 * int(col_tile) * int(k_tile) * int(itemsize) + STREAM_STATIC_SMEM
+
+
+def pick_stream_tiles(c: int, k_tile: int = 8,
+                      itemsize: int = 8) -> tuple[int, int]:
+    """(col_tile, row_tile) of the streaming SpMM schedule (kernel B2).
+
+    The TPU version fills 64 MiB of VMEM with an X tile and a
+    (row_tile, C, k_tile) accumulator.  A Hopper block keeps its sums in
+    registers (one thread a row, as kernel B1), so only the double-buffered
+    X tile lives in shared memory: ``col_tile`` is the largest power of two
+    whose two tiles fit :data:`SMEM_PER_BLOCK` (fp64: 8,192 columns at
+    k_tile 1, 256 at k_tile 32).  ``row_tile`` is what the block's
+    :data:`SPMM_BLOCK_THREADS` threads hold: ``threads // C`` slices, at
+    least one (a taller slice is split across blocks).
+    """
+    ct = 1
+    while stream_smem_bytes(2 * ct, max(k_tile, 1), itemsize) <= SMEM_PER_BLOCK:
+        ct *= 2
+    return ct, max(1, SPMM_BLOCK_THREADS // max(int(c), 1))
 
 
 def fft_block_signals(n: int, b_block: int, itemsize: int) -> int:
@@ -92,10 +121,14 @@ class SellTuneResult:
     table: tuple[tuple[int, int, float, float], ...]
     #: RHS tile of the batched SpMM core (RHS columns one thread carries)
     k_block: int = 8
-    #: streaming-schedule tiles of the reference (kernel B2, not ported);
-    #: carried so cache entries round-trip unchanged
-    col_tile: int = 1 << 16
-    row_tile: int = 8
+    #: streaming-schedule tiles (kernel B2) for this layout, from
+    #: :func:`pick_stream_tiles` at ``k_block`` and fp64: what a caller that
+    #: streams the tuned layout passes as ``ExecSpec.col_tile`` /
+    #: ``row_tile``.  Nothing in the port reads them (``auto`` never
+    #: streams, and ``ops`` picks tiles at the k tile that runs); they keep
+    #: the tune cache's entries in the reference's schema
+    col_tile: int = 256
+    row_tile: int = 1
 
 
 def candidate_vls(max_vl: int = 1024, min_vl: int = MIN_C) -> list[int]:
@@ -194,6 +227,8 @@ def tune_sell_layout(
             pf = measured_pad_factor(lengths, c, sigma)
             rows.append((c, sigma, pf, pf))
     best = min(rows, key=lambda r: r[3])
+    k_block = pick_k_block()
+    col_tile, row_tile = pick_stream_tiles(best[0], k_block)
     result = SellTuneResult(
         c=best[0],
         sigma=best[1],
@@ -201,7 +236,9 @@ def tune_sell_layout(
         cycles=best[3],
         pad_factor=best[2],
         table=tuple(rows),
-        k_block=pick_k_block(),
+        k_block=k_block,
+        col_tile=col_tile,
+        row_tile=row_tile,
     )
     if cache is not None and cache_key is not None:
         cache.put_sell(cache_key, result)

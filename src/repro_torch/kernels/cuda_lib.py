@@ -43,6 +43,14 @@ KERNELS = {
             _I),
         "repro_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
+    "spmm_sell_stream": ("spmm_sell_stream.cu", {
+        # cols, vals, rows, x, y, n_slices, width, c, ld, n_cols, k_tile,
+        # col_tile, block_rows, is_double, stream
+        "repro_spmm_sell_stream_bucket": (
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I,
+             _P], _I),
+        "repro_stream_cuda_error_string": ([_I], ctypes.c_char_p),
+    }),
     "graph_step": ("graph_step.cu", {
         # adj, nodes, dist, out, level, n_slices, width, c, ld, k_tile,
         # n_nodes, threads, stream

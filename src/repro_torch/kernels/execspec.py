@@ -40,9 +40,13 @@ class ExecSpec:
     layout:    graph operand layout for ``ops.bfs`` / ``ops.pagerank``:
                ``"ell"`` (kernels B4 / B5) or ``"sell"`` (kernel B3).
     mode:      SpMM schedule, ``"auto"`` | ``"resident"`` | ``"stream"``.
-               ``auto`` and ``resident`` run kernel B1; ``stream`` (kernel
-               B2, ROADMAP A4) is not ported yet and raises.
-    dispatch:  MoE expert-dispatch path (not ported yet).
+               ``auto`` and ``resident`` run kernel B1 (X gathered through
+               L2); ``stream`` runs kernel B2 (X staged through shared
+               memory in column tiles).  Both compute the same function.
+    dispatch:  MoE expert-dispatch path of ``ops.moe_dispatch``:
+               ``"auto"`` | ``"sell"`` (the routing matrix packed to SELL
+               slabs, run as ``mode`` says) | ``"dense"`` (materialized,
+               one ``torch.matmul``).
     placement: ``None`` or ``1``; multi-GPU placement is ROADMAP A10.
     vl:        SELL slice height C, the effective vector length (the
                ELLPACK graph kernels ignore it: blocks are 256 nodes).
@@ -52,8 +56,13 @@ class ExecSpec:
                one thread, so it never changes a result (``ops`` hands it
                to ``spmv_ell`` as the reference does).
     k_block:   RHS column tile for SpMM (``None`` -> pow2 heuristic).
-    col_tile:  streamed-SpMM column window (kernel B2, not ported).
-    row_tile:  streamed-SpMM slice-row block (kernel B2, not ported).
+    col_tile:  X rows one staged tile of kernel B2 holds (``None`` ->
+               the largest power of two whose two tiles fit a block's
+               shared memory, ``pick_stream_tiles``); coerced to a power of
+               two and clamped at ``pow2_ceil(n_cols)``.
+    row_tile:  slices one block of kernel B2 holds (``None`` -> as many
+               as 256 threads hold); clamped per bucket at its slice
+               count.  Neither tile changes a result.
     b_block:   FFT signals a block of kernel B7 holds at most (``ops.fft``
                caps it to the batch, the kernel to the shared memory a
                block may claim; it does not change the result).

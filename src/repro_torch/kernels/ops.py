@@ -1,5 +1,5 @@
 """Public entry points of the port (the ``repro.kernels.ops`` front door):
-SpMV/SpMM, BFS, PageRank and FFT.
+SpMV/SpMM, MoE dispatch, BFS, PageRank and FFT.
 
 They take the host-side substrate objects (:class:`CSRMatrix`,
 :class:`EllpackMatrix`, :class:`SellCSigmaMatrix`, :class:`SellSlabs`,
@@ -7,11 +7,20 @@ They take the host-side substrate objects (:class:`CSRMatrix`,
 preflight the Hopper launch plan, upload them to the card and run the
 kernels:
 
-* ``spmm`` / ``spmv`` — :func:`repro_torch.kernels.sell_core.spmm_sell`,
-  one launch of kernel B1 per width bucket; an :class:`EllpackMatrix`
-  whose slice height equals ``spec.vl`` runs the uniform-width kernel B6
-  instead (:func:`repro_torch.kernels.spmv.spmv_ell`, one launch per RHS
-  column), one of another height is repacked to SELL slabs and runs B1;
+* ``spmm`` / ``spmv`` — on the resident schedule (``spec.mode`` ``"auto"``
+  or ``"resident"``) :func:`repro_torch.kernels.sell_core.spmm_sell`, one
+  launch of kernel B1 per width bucket; on the streaming schedule
+  (``"stream"``) :func:`repro_torch.kernels.sell_core.spmm_sell_stream`,
+  one launch of kernel B2 per bucket, X staged through shared memory in
+  column tiles (``spec.col_tile`` / ``spec.row_tile`` override the picked
+  tiles).  An :class:`EllpackMatrix` whose slice height equals ``spec.vl``
+  runs the uniform-width kernel B6 instead
+  (:func:`repro_torch.kernels.spmv.spmv_ell`, one launch per RHS column),
+  one of another height is repacked to SELL slabs;
+* ``moe_dispatch`` — Y = R @ X for an MoE routing matrix: packed to SELL
+  slabs at ``spec.vl`` and run through the same dispatch as ``spmm``
+  (``spec.dispatch`` ``"sell"`` / ``"auto"``), or materialized and
+  multiplied densely (``"dense"``, the reference's counterfactual);
 * ``bfs`` / ``pagerank`` — over the reverse graph, with ``spec.layout``
   ``"ell"`` (the default: ELLPACK kernels B4 / B5, one launch per level or
   power step) or ``"sell"`` (kernel B3 with the BFS or PageRank combine,
@@ -23,13 +32,14 @@ kernels:
 Calls run on the card unless the spec asks for the CPU
 (``ExecSpec(device="cpu")``), where the plain PyTorch versions run instead.
 
+``mode="auto"`` resolves to the resident kernel B1.  The reference streams
+when X outgrows VMEM; B1 keeps nothing resident on Hopper (X is gathered
+through L2), so there is no capacity limit to fall back from, and on an
+H100 B2 was slower than B1 on every shape measured, banded and random, X
+in L2 and far above it (``PERF.md``, ``chip_smoke.py``'s timing phase).
 Not ported yet, and refused with ``NotImplementedError`` rather than
-substituted: the streaming schedule (``mode="stream"``, kernel B2, ROADMAP
-A4, the next slice of the port) and multi-GPU placement (ROADMAP A10).  As
-in the reference, ``mode="stream"`` with an ELLPACK operand run by B6 is a
-``ValueError``.  On Hopper ``mode="auto"`` always resolves to the resident
-kernel: X is never staged whole in fast memory, so there is no residency
-limit to fall back from.
+substituted: multi-GPU placement (ROADMAP A10).  As in the reference,
+``mode="stream"`` with an ELLPACK operand run by B6 is a ``ValueError``.
 """
 from __future__ import annotations
 
@@ -44,12 +54,18 @@ from repro_torch.analysis.preflight import (
     plan_bfs_ell,
     plan_bfs_sell,
     plan_fft_stockham,
+    plan_moe_dispatch,
     plan_pagerank_ell,
     plan_pagerank_sell,
     plan_spmm_sell,
+    plan_spmm_sell_stream,
     plan_spmv_ell,
 )
-from repro_torch.core.autotune import SellTuneResult, tune_sell_layout
+from repro_torch.core.autotune import (
+    SellTuneResult,
+    pick_stream_tiles,
+    tune_sell_layout,
+)
 from repro_torch.core.sdv import h100_machine
 from repro_torch.graphs.gen import EllpackGraph, graph_to_sell_slabs
 from repro_torch.kernels import bfs as bfs_k
@@ -72,6 +88,8 @@ from repro_torch.sparse.formats import (
 
 #: ops-level execution modes for the SELL SpMM core
 _SPMM_MODES = ("auto", "resident", "stream")
+#: ops-level MoE dispatch paths (ExecSpec.dispatch)
+_MOE_DISPATCH_MODES = ("auto", "sell", "dense")
 
 
 def device_tag(device) -> str:
@@ -163,11 +181,12 @@ def _run_profiled(op: str, plan, thunk, device: torch.device):
     return y
 
 
-#: id(operand) -> (bounds-scanned SlabMeta, {device: uploaded tensors}),
-#: for SELL slabs and ELLPACK matrices.  Packed operands are immutable, so
-#: one operand's index scan and upload are paid once however often it is
-#: called; an entry dies with its object.
-_PREPARED: dict[int, tuple[SlabMeta, dict]] = {}
+#: id(operand) -> {"meta": bounds-scanned SlabMeta, device: uploaded
+#: tensors}, for SELL slabs and ELLPACK matrices.  Packed operands are
+#: immutable, so one operand's index scan and uploads are paid once however
+#: often it is called, whichever schedule runs it; an entry dies with its
+#: object.
+_PREPARED: dict[int, dict] = {}
 
 
 def _prepared(operand: SellSlabs | EllpackMatrix, device: torch.device):
@@ -178,39 +197,57 @@ def _prepared(operand: SellSlabs | EllpackMatrix, device: torch.device):
         meta = (SlabMeta.from_ellpack(operand, check_bounds=True)
                 if isinstance(operand, EllpackMatrix)
                 else SlabMeta.from_slabs(operand, check_bounds=True))
-        entry = (meta, {})
+        entry = {"meta": meta}
         _PREPARED[id(operand)] = entry
         weakref.finalize(operand, _PREPARED.pop, id(operand), None)
-    meta, tensors = entry
-    if device not in tensors:
-        tensors[device] = operand.to_device(device)
-    return meta, tensors[device]
+    if device not in entry:
+        entry[device] = operand.to_device(device)
+    return entry["meta"], entry[device]
 
 
 def _spmm_slabs(slabs: SellSlabs, x: torch.Tensor, *, k_block: int,
-                mode: str = "auto") -> torch.Tensor:
-    """Preflight, upload and run one slab SpMM on X's device.
+                mode: str = "auto", col_tile: int | None = None,
+                row_tile: int | None = None,
+                plan=plan_spmm_sell) -> torch.Tensor:
+    """Preflight, upload and run one slab SpMM on X's device, on the
+    resident schedule (kernel B1; ``mode`` ``"auto"`` or ``"resident"``) or
+    the streaming one (kernel B2, ``"stream"``, at ``col_tile`` /
+    ``row_tile`` or the tiles :func:`pick_stream_tiles` gives the k tile
+    that runs).  Both schedules read the same uploaded tensors.
+
+    ``plan`` is the resident schedule's plan, with
+    :func:`plan_spmm_sell`'s signature (``moe_dispatch`` passes
+    :func:`plan_moe_dispatch`, which adds the routing contract); the
+    streaming plan adds its own contracts to it.  Each call plans once.
 
     Single k-padding policy (asserted here, at the ops boundary): only the
     core pads the k axis, and a power-of-two k is its fixpoint.  The plan
-    checks the stored column indices: the CUDA kernel gathers ``X[col]``
+    checks the stored column indices: the CUDA kernels gather ``X[col]``
     unchecked, so an out-of-range index must stop here.  The index scan and
-    the upload happen once per slabs object (:func:`_prepared`).
+    the uploads happen once per slabs object (:func:`_prepared`).
     """
-    if mode == "stream":
-        raise NotImplementedError(
-            "mode='stream' runs kernel B2 (the out-of-fast-memory schedule), "
-            "which is not ported yet (ROADMAP A4, the next slice of the "
-            "port); use mode='auto'")
+    _check_mode(mode)
     k = int(x.shape[1])
     assert sell_core.padded_k(sell_core.pow2_ceil(max(k, 1)), k_block) \
         == sell_core.pow2_ceil(max(k, 1)), "k-padding policy drifted"
+    dtype = str(x.dtype).removeprefix("torch.")
     meta, (cols, vals, rows) = _prepared(slabs, x.device)
-    plan = plan_spmm_sell(
-        meta, k=k, x_dtype=str(x.dtype).removeprefix("torch."),
-        k_block=k_block).raise_if_invalid()
-    return _run_profiled("spmm", plan, lambda: sell_core.spmm_sell(
-        cols, vals, rows, x, n_rows=slabs.n_rows, k_block=k_block), x.device)
+    if mode != "stream":
+        resident = plan(meta, k=k, x_dtype=dtype,
+                        k_block=k_block).raise_if_invalid()
+        return _run_profiled("spmm", resident, lambda: sell_core.spmm_sell(
+            cols, vals, rows, x, n_rows=slabs.n_rows, k_block=k_block),
+            x.device)
+    ct, rt = pick_stream_tiles(meta.c, sell_core.k_tile_for(k, k_block),
+                               x.element_size())
+    ct = ct if col_tile is None else col_tile
+    rt = rt if row_tile is None else row_tile
+    streamed = plan_spmm_sell_stream(
+        meta, k=k, x_dtype=dtype, k_block=k_block, col_tile=ct,
+        row_tile=rt, base=plan).raise_if_invalid()
+    return _run_profiled("spmm", streamed, lambda: sell_core.spmm_sell_stream(
+        cols, vals, rows, x, n_rows=slabs.n_rows, k_block=k_block,
+        col_tile=ct, row_tile=rt), x.device)
 
 
 def _as_rhs(x, device: torch.device) -> torch.Tensor:
@@ -265,7 +302,8 @@ def spmm(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
         else min(8, sell_core.pow2_ceil(x.shape[1]))
     matrix = _normalize_matrix(matrix, spec)
     if isinstance(matrix, SellSlabs):
-        return _spmm_slabs(matrix, x, k_block=kb, mode=spec.mode)
+        return _spmm_slabs(matrix, x, k_block=kb, mode=spec.mode,
+                           col_tile=spec.col_tile, row_tile=spec.row_tile)
     return torch.stack([_spmv_ellpack(matrix, x[:, i].contiguous(), spec)
                         for i in range(x.shape[1])], dim=1)
 
@@ -291,9 +329,76 @@ def spmv(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
     _check_mode(spec.mode)
     matrix = _normalize_matrix(matrix, spec)
     if isinstance(matrix, SellSlabs):
-        return _spmm_slabs(matrix, x[:, None], k_block=1,
-                           mode=spec.mode)[:, 0]
+        return _spmm_slabs(matrix, x[:, None], k_block=1, mode=spec.mode,
+                           col_tile=spec.col_tile,
+                           row_tile=spec.row_tile)[:, 0]
     return _spmv_ellpack(matrix, x, spec)
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch
+# ---------------------------------------------------------------------------
+
+
+def _routing_dense(routing: CSRMatrix) -> np.ndarray:
+    """Materialize the routing matrix densely — the counterfactual the
+    ``dispatch="dense"`` path executes (one matrix product over the same
+    operand, exactly what the masked one-hot einsum reduces to)."""
+    dense = np.zeros((routing.n_rows, routing.n_cols), routing.data.dtype)
+    rows = np.repeat(np.arange(routing.n_rows), np.diff(routing.indptr))
+    dense[rows, routing.indices] = routing.data
+    return dense
+
+
+def moe_dispatch(routing: CSRMatrix | SellSlabs, x, *,
+                 spec: ExecSpec | None = None, top_k: int) -> torch.Tensor:
+    """Y = R @ X for the MoE token<->slot routing matrix R.
+
+    ``routing`` is one step's combine matrix (one row per token, at most
+    ``top_k`` stored entries — the renormalized router weights — whose
+    columns are expert capacity slots) and ``x`` the ``(n_slots,
+    d_model)`` expert-output stack.  Returns the ``(n_tokens, d_model)``
+    combined activations on ``spec.device``.
+
+    ``spec.dispatch`` selects the path: ``"sell"`` / ``"auto"`` pack R into
+    width-bucketed SELL slabs at ``spec.vl`` and run the SpMM dispatch of
+    :func:`spmm` (kernel B1; B2 under ``mode="stream"``), the whole
+    activation stack in one launch set; ``"dense"`` materializes R and runs
+    one ``torch.matmul``, the counterfactual the reference measures the
+    SELL path against.  ``spec.k_block`` defaults to ``min(8,
+    pow2_ceil(d_model))``.  Every SELL launch is first preflighted with
+    :func:`plan_moe_dispatch` (the SpMM contracts plus the routing shape:
+    no bucket wider than ``pow2_ceil(top_k)``).
+    """
+    spec = spec if spec is not None else ExecSpec()
+    if spec.dispatch not in _MOE_DISPATCH_MODES:
+        raise ValueError(
+            f"unknown dispatch {spec.dispatch!r}: expected one of "
+            f"{_MOE_DISPATCH_MODES}")
+    device = resolve_device(spec.device)
+    x = _as_rhs(x, device)
+    if x.ndim != 2:
+        raise ValueError(
+            f"moe_dispatch expects X of shape (n_slots, d), got "
+            f"{tuple(x.shape)}")
+    if spec.dispatch == "dense":
+        if not isinstance(routing, CSRMatrix):
+            raise TypeError(
+                "dispatch='dense' materializes the routing matrix and needs "
+                f"CSR input, got {type(routing).__name__}")
+        return torch.matmul(
+            torch.from_numpy(_routing_dense(routing)).to(device), x)
+    if isinstance(routing, CSRMatrix):
+        routing = csr_to_sell_slabs(routing, c=spec.vl, sigma=spec.sigma)
+    if not isinstance(routing, SellSlabs):
+        raise TypeError(
+            f"routing must be a CSRMatrix or SellSlabs, got "
+            f"{type(routing).__name__}")
+    kb = spec.k_block if spec.k_block is not None \
+        else min(8, sell_core.pow2_ceil(x.shape[1]))
+    return _spmm_slabs(routing, x, k_block=kb, mode=spec.mode,
+                       col_tile=spec.col_tile, row_tile=spec.row_tile,
+                       plan=functools.partial(plan_moe_dispatch, top_k=top_k))
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,16 @@ per width bucket.
 * :func:`spmm_sell_ref` — the plain PyTorch version of the same function,
   for the CPU tests and for holding the kernel against on the card.
 
+* :func:`spmm_sell_stream` — the same function on the streaming schedule
+  (the reference's out-of-VMEM ``spmm_sell_stream``): on CUDA tensors one
+  launch of ``csrc/spmm_sell_stream.cu`` (kernel B2) per bucket, which
+  stages X through shared memory in column tiles; on CPU tensors
+  :func:`spmm_sell_stream_ref`, the TPU kernel's column-tile schedule in
+  plain PyTorch.  B2 is bit-equal to B1 on every operand (the same
+  multiply-adds in the same order), and the plain B2 to the plain B1 where
+  each row's columns ascend; elsewhere the TPU schedule's order of
+  additions differs, and the two agree to rounding.
+
 * :func:`bucketed_node_step` — the graph kernels' bucket loop (the
   counterpart of the reference's ``bucketed_node_step``): one launch of
   kernel B3 per non-empty width bucket, the combine (BFS or PageRank)
@@ -33,12 +43,19 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.autotune import KERNEL_DTYPES, MAX_K_TILE, SPMM_BLOCK_THREADS
+from repro_torch.analysis.preflight import stream_block_rows, stream_col_tile
+from repro_torch.core.autotune import (
+    KERNEL_DTYPES,
+    MAX_K_TILE,
+    SPMM_BLOCK_THREADS,
+    pick_stream_tiles,
+)
 from repro_torch.sparse.formats import PAD, pow2_ceil
 
 __all__ = [
     "KERNEL_LAUNCHES",
     "PAD",
+    "STREAM_LAUNCHES",
     "bucketed_node_step",
     "graph_storage",
     "k_tile_for",
@@ -48,6 +65,8 @@ __all__ = [
     "pow2_ceil",
     "spmm_sell",
     "spmm_sell_ref",
+    "spmm_sell_stream",
+    "spmm_sell_stream_ref",
     "spmv_sell",
 ]
 
@@ -55,6 +74,8 @@ __all__ = [
 #: bucket of every call on CUDA tensors, counted where the kernel is
 #: launched and nowhere else (a run shows its main path went through it).
 KERNEL_LAUNCHES = 0
+#: Launches of kernel B2 by :func:`spmm_sell_stream`, counted the same way.
+STREAM_LAUNCHES = 0
 
 _KERNEL_DTYPES = tuple(getattr(torch, d) for d in KERNEL_DTYPES)
 
@@ -209,6 +230,108 @@ def spmv_sell(bucket_cols, bucket_vals, bucket_rows, x: torch.Tensor, *,
     :func:`spmm_sell`.  Returns y of shape (n_rows,)."""
     return spmm_sell(bucket_cols, bucket_vals, bucket_rows, x[:, None],
                      n_rows=n_rows, k_block=1)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Streaming schedule (kernel B2)
+# ---------------------------------------------------------------------------
+
+
+def spmm_sell_stream_ref(bucket_cols, bucket_vals, bucket_rows,
+                         x: torch.Tensor, *, n_rows: int,
+                         col_tile: int) -> torch.Tensor:
+    """Y = A @ X over width-bucketed SELL slabs on the streaming schedule,
+    in plain PyTorch.
+
+    The TPU kernel's order of additions: for each column tile in turn, each
+    (slice, lane) row adds ``vals * X[col]`` for its entries whose column
+    lies in the tile, w ascending (entries outside the tile add an exact
+    zero there, which changes no sum).  Computed by visiting each row's
+    entries grouped by tile — a stable sort of the w axis by tile index,
+    PAD last — and running :func:`spmm_sell_ref` over that order.  On rows
+    whose columns ascend, the order is w's own, so the result is bit-equal
+    to :func:`spmm_sell_ref`.  Runs on whatever device its tensors are on.
+    """
+    _check_args(bucket_cols, bucket_vals, bucket_rows, x, n_rows)
+    ct = stream_col_tile(col_tile, x.shape[0])
+    last = x.shape[0] // ct + 1                 # past every tile: PAD's key
+    order = [torch.sort(torch.where(cols == PAD, last, cols.long() // ct),
+                        dim=1, stable=True).indices
+             for cols in bucket_cols]
+    return spmm_sell_ref(
+        tuple(torch.gather(c, 1, o) for c, o in zip(bucket_cols, order)),
+        tuple(torch.gather(v, 1, o) for v, o in zip(bucket_vals, order)),
+        bucket_rows, x, n_rows=n_rows)
+
+
+def _launch_stream_bucket(cols, vals, rows, x, y, k_tile: int, col_tile: int,
+                          block_rows: int) -> None:
+    """One launch of kernel B2 on PyTorch's current stream of X's device,
+    made with that device current."""
+    global STREAM_LAUNCHES
+    from repro_torch.kernels import cuda_lib
+
+    lib = cuda_lib.library("spmm_sell_stream")
+    n_slices, width, c = cols.shape
+    with torch.cuda.device(x.device):
+        err = lib.repro_spmm_sell_stream_bucket(
+            cols.data_ptr(), vals.data_ptr(), rows.data_ptr(), x.data_ptr(),
+            y.data_ptr(), n_slices, width, c, x.shape[1], x.shape[0], k_tile,
+            col_tile, block_rows, int(x.dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.repro_stream_cuda_error_string(err).decode()
+        raise RuntimeError(
+            f"spmm_sell_stream kernel launch failed (cudaError {err}: {msg}) "
+            f"for a ({n_slices}, {width}, {c}) bucket, k_tile={k_tile}, "
+            f"col_tile={col_tile}, block_rows={block_rows}")
+    STREAM_LAUNCHES += 1
+
+
+def spmm_sell_stream(bucket_cols, bucket_vals, bucket_rows, x: torch.Tensor,
+                     *, n_rows: int, k_block: int = 8,
+                     col_tile: int | None = None,
+                     row_tile: int | None = None) -> torch.Tensor:
+    """Y = A @ X over width-bucketed SELL slabs on the streaming schedule;
+    the contract and the result of :func:`spmm_sell`.
+
+    ``col_tile`` (X rows a staged tile holds) and ``row_tile`` (slices a
+    block holds) default to :func:`repro_torch.core.autotune
+    .pick_stream_tiles` at the k tile that runs.  The k axis is padded once,
+    as in :func:`spmm_sell`; ``col_tile`` is coerced to a power of two and
+    clamped at ``pow2_ceil(n_cols)`` (:func:`stream_col_tile`) and
+    ``row_tile`` at each bucket's slice count.  n_cols is not padded: the
+    kernel cuts its last tile at n_cols.  On a CUDA device every bucket is
+    one launch of kernel B2, bit-equal to :func:`spmm_sell` on the same
+    tensors; on the CPU the plain :func:`spmm_sell_stream_ref` runs
+    instead.
+    """
+    _check_args(bucket_cols, bucket_vals, bucket_rows, x, n_rows)
+    k = x.shape[1]
+    kt = k_tile_for(k, k_block)
+    c = bucket_cols[0].shape[2] if bucket_cols else 1
+    picked = pick_stream_tiles(c, kt, x.element_size())
+    ct = stream_col_tile(picked[0] if col_tile is None else col_tile,
+                         x.shape[0])
+    rt = picked[1] if row_tile is None else max(int(row_tile), 1)
+    if x.device.type == "cpu":
+        return spmm_sell_stream_ref(bucket_cols, bucket_vals, bucket_rows, x,
+                                    n_rows=n_rows, col_tile=ct)
+    if x.device.type != "cuda":
+        raise RuntimeError(
+            f"spmm_sell_stream has a CUDA kernel and a CPU reference; got "
+            f"{x.device}")
+    if k % kt:
+        x = torch.nn.functional.pad(x, (0, kt - k % kt))
+    x = x.contiguous()
+    if x.data_ptr() % 16:                       # the kernel's 16 B tile loads
+        x = x.clone()
+    y = torch.zeros((n_rows + 1, x.shape[1]), dtype=x.dtype, device=x.device)
+    for cols, vals, rows in zip(bucket_cols, bucket_vals, bucket_rows):
+        _launch_stream_bucket(
+            cols, vals, rows, x, y, kt, ct,
+            stream_block_rows(min(rt, cols.shape[0]), cols.shape[2]))
+    return y[:n_rows, :k]
 
 
 # ---------------------------------------------------------------------------

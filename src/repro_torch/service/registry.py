@@ -1,6 +1,7 @@
 """Operand registry: register once, pack once, tune once, serve forever.
 
-The port's ``repro.service.registry`` for matrix, graph and FFT operands.
+The port's ``repro.service.registry`` for matrix, graph and FFT operands
+and MoE dispatch envelopes.
 The expensive
 per-operand work — signature fingerprinting, (C, sigma, k_block) tuning,
 SELL packing, the launch preflight and the upload of the slabs to the
@@ -25,10 +26,11 @@ from repro_torch.analysis.preflight import (
     plan_bfs_ell,
     plan_bfs_sell,
     plan_fft_stockham,
+    plan_moe_dispatch,
     plan_pagerank_sell,
     plan_spmm_sell,
 )
-from repro_torch.core.autotune import SellTuneResult
+from repro_torch.core.autotune import SellTuneResult, pick_k_block
 from repro_torch.core.sdv import MachineParams, h100_machine
 from repro_torch.graphs.gen import PAD, EllpackGraph, graph_to_sell_slabs
 from repro_torch.kernels.execspec import resolve_device
@@ -40,7 +42,17 @@ from repro_torch.service.tunecache import (
     TuneCache,
     operand_signature,
 )
-from repro_torch.sparse.formats import CSRMatrix, to_csr
+from repro_torch.sparse.formats import CSRMatrix, pow2_ceil, to_csr
+
+
+def moe_k_block(d_model: int, dtype: str = "float64") -> int:
+    """RHS tile of the MoE combine SpMM: the combine's RHS is the whole
+    d_model-wide activation stack, so the tile is the widest a thread
+    carries (:func:`pick_k_block` at the envelope's itemsize: 32 at fp64),
+    capped at ``pow2_ceil(d_model)``.  The reference caps at 64 lanes; B1
+    is instantiated up to 32, which changes tiles, not results."""
+    return min(pick_k_block(np.dtype(dtype).itemsize),
+               pow2_ceil(max(1, int(d_model))))
 
 
 @dataclasses.dataclass
@@ -52,7 +64,7 @@ class RegisteredOperand:
     """
 
     name: str
-    kind: str                               # matrix | graph | fft
+    kind: str                               # matrix | graph | fft | moe
     signature: OperandSignature | None
     tuned: SellTuneResult | None = None
     slabs: Any = None                       # host SellSlabs | SellGraphSlabs
@@ -64,6 +76,9 @@ class RegisteredOperand:
     launches: int = 0                       # batched core calls served
     slab_meta: Any = None                   # SlabMeta (bounds-scanned)
     plans: dict = dataclasses.field(default_factory=dict)  # op -> LaunchPlan
+    #: MoE dispatch envelope (kind == "moe"): slice height ``c``, ``top_k``,
+    #: ``d_model`` and value ``dtype`` of the per-step routing operands
+    moe: dict | None = None
 
     @property
     def pad_factor(self) -> float:
@@ -232,6 +247,39 @@ class KernelRegistry:
                             "wim": torch.from_numpy(wim).to(self.device)}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # upload inside register_us
+        return self._admit(op, sw)
+
+    def register_moe(self, name: str, *, n_tokens: int, n_slots: int,
+                     d_model: int, top_k: int, c: int = 32,
+                     dtype: str = "float64") -> RegisteredOperand:
+        """Admit an LM engine's MoE dispatch traffic class.
+
+        The operand itself is transient — the token->slot routing matrix
+        changes every decode step — so what registers is the *envelope*: up
+        to ``n_tokens`` routing rows of at most ``top_k`` stored entries
+        against an ``(n_slots, d_model)`` expert-output stack, packed at
+        slice height ``c``.  Its worst-case :class:`SlabMeta` is planned
+        with :func:`plan_moe_dispatch` here (and again at every submit), so
+        an engine whose dispatch shape cannot launch is refused before any
+        token is decoded.
+        """
+        sw = Stopwatch().start()
+        if top_k < 1:
+            raise ValueError(f"top_k must be >= 1, got {top_k}")
+        meta = SlabMeta(
+            kind="matrix", c=int(c), widths=(pow2_ceil(int(top_k)),),
+            n_slices=(-(-int(n_tokens) // int(c)),),
+            n_rows=int(n_tokens), n_cols=int(n_slots),
+            val_dtype=dtype, idx_dtype="int32",
+        )
+        op = RegisteredOperand(name=name, kind="moe", signature=None,
+                               n=int(n_tokens), n_cols=int(n_slots))
+        op.slab_meta = meta
+        op.moe = {"c": int(c), "top_k": int(top_k),
+                  "d_model": int(d_model), "dtype": dtype}
+        op.plans = {"moe_dispatch": plan_moe_dispatch(
+            meta, k=int(d_model), x_dtype=dtype, top_k=int(top_k),
+            k_block=moe_k_block(d_model, dtype)).raise_if_invalid()}
         return self._admit(op, sw)
 
 

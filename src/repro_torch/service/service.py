@@ -1,12 +1,11 @@
 """Request-driven execution engine for the port's kernels.
 
-The port of ``repro.service.service`` for SpMV, BFS, PageRank and FFT
-traffic (``OPS = ("spmv", "bfs", "pagerank", "fft")``; MoE dispatch
-follows with the LM stack).  :class:`KernelService` has the reference's
-async submit/poll shape: ``submit`` preflights and enqueues and returns a
-request id, ``poll`` reports a result when one exists, and
-``step``/``run``/``drain`` advance the scheduler — the slot-based
-admission loop of :class:`repro_torch.serve.slots.SlotLoop`.
+The port of ``repro.service.service`` for SpMV, BFS, PageRank, FFT and MoE
+dispatch traffic (``OPS``, the reference's tuple).  :class:`KernelService`
+has the reference's async submit/poll shape: ``submit`` preflights and
+enqueues and returns a request id, ``poll`` reports a result when one
+exists, and ``step``/``run``/``drain`` advance the scheduler — the
+slot-based admission loop of :class:`repro_torch.serve.slots.SlotLoop`.
 
 Coalescing: all active requests against the same registered operand (and
 the same spec) form one group per scheduling round, and the group runs as
@@ -18,7 +17,10 @@ configurations become the state columns of one
 :func:`repro_torch.kernels.pagerank.pagerank_sell` drive (one launch of
 kernel B3 per width bucket per level or power step); FFT requests' signal
 rows are stacked into one :func:`repro_torch.kernels.fft.fft_stockham`
-batch (kernel B7).  A singleton graph group keeps the 1-D state; larger
+batch (kernel B7); MoE dispatch requests' routing matrices become the
+blocks of one block-diagonal operand whose expert-output stacks
+concatenate into one RHS, one :func:`repro_torch.kernels.ops.moe_dispatch`
+call (kernel B1).  A singleton graph group keeps the 1-D state; larger
 groups are pow2-padded.  Results stay on the registry's device.
 
 ``max_queue`` bounds the admission queue (:class:`QueueFull`).  ``stats``
@@ -38,11 +40,13 @@ from repro_torch.analysis.launchplan import LaunchPlan, LaunchPlanError
 from repro_torch.analysis.preflight import (
     plan_bfs_sell,
     plan_fft_stockham,
+    plan_moe_dispatch,
     plan_pagerank_sell,
     plan_spmm_sell,
 )
 from repro_torch.kernels import bfs as bfs_k
 from repro_torch.kernels import fft as fft_k
+from repro_torch.kernels import ops
 from repro_torch.kernels import pagerank as pr_k
 from repro_torch.kernels import sell_core
 from repro_torch.kernels.execspec import ExecSpec
@@ -56,17 +60,23 @@ from repro_torch.obs import (
     timer,
 )
 from repro_torch.serve.slots import SlotLoop
-from repro_torch.service.registry import KernelRegistry, RegisteredOperand
-from repro_torch.sparse.formats import pow2_ceil
+from repro_torch.service.registry import (
+    KernelRegistry,
+    RegisteredOperand,
+    moe_k_block,
+)
+from repro_torch.sparse.formats import CSRMatrix, pow2_ceil
 
-OPS = ("spmv", "bfs", "pagerank", "fft")
+OPS = ("spmv", "bfs", "pagerank", "fft", "moe_dispatch")
 
-#: request class of each op for the per-class latency histograms
-OP_CLASS = {op: "kernel" for op in OPS}
+#: request class of each op for the per-class latency histograms:
+#: ``moe_dispatch`` is LM dispatch traffic, everything else kernel traffic
+OP_CLASS = {op: ("moe_dispatch" if op == "moe_dispatch" else "kernel")
+            for op in OPS}
 
 #: FROZEN contract: the exact key set of ``KernelService.stats`` — the
-#: reference's, key for key (counters of paths the port does not run yet
-#: stay 0).  These
+#: reference's, key for key (``sharded_launches`` stays 0 until multi-GPU
+#: placement is ported).  These
 #: names are observability API — dashboards and the bench gate
 #: (``scripts/bench_compare.py`` zero-base counters) key on them, so
 #: renaming or removing one is a breaking change; additions append here.
@@ -348,6 +358,12 @@ class KernelService(SlotLoop[KernelRequest]):
             plans["pagerank"] = plan_pagerank_sell(record.slab_meta, k=k)
         elif record.kind == "fft":
             plans["fft"] = plan_fft_stockham(record.n, batch=8)
+        elif record.kind == "moe" and record.slab_meta is not None:
+            m = record.moe
+            plans["moe_dispatch"] = plan_moe_dispatch(
+                record.slab_meta, k=m["d_model"], x_dtype=m["dtype"],
+                top_k=m["top_k"], k_block=moe_k_block(m["d_model"],
+                                                      m["dtype"]))
         return plans
 
     def _preflight(self, op: str, record: RegisteredOperand) -> None:
@@ -641,3 +657,84 @@ class KernelService(SlotLoop[KernelRequest]):
         self._count_launch(operand, op="fft", wall_us=sw.elapsed_us)
         for req, (lo, hi) in zip(good, spans):
             req.result = (re[lo:hi], im[lo:hi])
+
+    def _run_moe_dispatch(self, operand, reqs):
+        """The whole group is ONE batched combine SpMM: each request's
+        routing matrix becomes a block of a block-diagonal operand, the
+        expert-output stacks concatenate as its RHS rows, and one SELL
+        launch set (kernel B1) produces every request's combined
+        activations, split back by each request's row span.  A malformed
+        payload fails its own request alone."""
+        if operand.kind != "moe":
+            raise TypeError(f"operand {operand.name!r} is not a moe envelope")
+        m = operand.moe
+        d, top_k = m["d_model"], m["top_k"]
+        np_dtype = np.dtype(m["dtype"])
+        dtype = getattr(torch, m["dtype"])
+        device = self.registry.device
+
+        def check(req):
+            p = req.payload
+            if not isinstance(p, dict):
+                raise TypeError("moe_dispatch payload must be a dict with "
+                                "indptr/indices/data/x")
+            indptr = np.asarray(p["indptr"], np.int64)
+            indices = np.asarray(p["indices"], np.int32)
+            data = np.asarray(p["data"], np_dtype)
+            x = p["x"]
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.asarray(x, np_dtype))
+            if x.ndim != 2 or x.shape[1] != d:
+                raise ValueError(
+                    f"x must have shape (n_slots, {d}), got {tuple(x.shape)}")
+            n_tok = indptr.shape[0] - 1
+            if n_tok < 1 or n_tok > operand.n:
+                raise ValueError(
+                    f"routing rows {n_tok} outside the registered envelope "
+                    f"(0, {operand.n}]")
+            widths = np.diff(indptr)
+            if indptr[0] != 0 or widths.min(initial=0) < 0 \
+                    or len(indices) != indptr[-1] or len(data) != indptr[-1]:
+                raise ValueError("malformed routing CSR")
+            if widths.max(initial=0) > top_k:
+                raise ValueError(
+                    f"routing row carries {int(widths.max())} entries, "
+                    f"envelope top_k is {top_k}")
+            if indices.size and (indices.min() < 0
+                                 or indices.max() >= x.shape[0]):
+                raise ValueError("routing column index out of range")
+            return indptr, indices, data, x.to(device=device, dtype=dtype)
+
+        good, payloads = self._validated(reqs, check)
+        if not good:
+            return
+        # block-diagonal stack: request i's tokens occupy rows
+        # [row_off_i, row_off_i + n_tok_i), its slots the matching column
+        # band — one operand, one launch set, per-request row spans
+        indptrs, indices_all, data_all, xs, spans = \
+            [np.zeros(1, np.int64)], [], [], [], []
+        row_off = col_off = nnz_off = 0
+        for indptr, indices, data, x in payloads:
+            n_tok = indptr.shape[0] - 1
+            spans.append((row_off, row_off + n_tok))
+            indptrs.append(indptr[1:] + nnz_off)
+            indices_all.append(indices + col_off)
+            data_all.append(data)
+            xs.append(x)
+            row_off += n_tok
+            col_off += x.shape[0]
+            nnz_off += int(indptr[-1])
+        csr = CSRMatrix(indptr=np.concatenate(indptrs),
+                        indices=np.concatenate(indices_all).astype(np.int32),
+                        data=np.concatenate(data_all), n_cols=col_off)
+        spec = ExecSpec(dispatch="sell", vl=m["c"],
+                        k_block=moe_k_block(d, m["dtype"]), device=device)
+        sw = Stopwatch().start()
+        y = ops.moe_dispatch(csr, torch.cat(xs), spec=spec, top_k=top_k)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)   # the wall time covers the kernels
+        sw.stop()
+        self.stats["moe_dispatch_launches"] += 1
+        self._count_launch(operand, op="moe_dispatch", wall_us=sw.elapsed_us)
+        for req, (lo, hi) in zip(good, spans):
+            req.result = y[lo:hi]

@@ -1,4 +1,5 @@
-"""Kernel B1 (``csrc/spmm_sell.cu``), the graph kernels B3, B4, B5
+"""Kernel B1 (``csrc/spmm_sell.cu``), the streaming SpMM B2
+(``csrc/spmm_sell_stream.cu``), the graph kernels B3, B4, B5
 (``csrc/graph_step.cu``), the ELLPACK SpMV B6 (``csrc/spmv_ell.cu``) and
 the FFT B7 (``csrc/fft_stockham.cu``) against their plain PyTorch versions
 on the card.  Every test here carries the ``cuda`` marker and skips without
@@ -9,6 +10,8 @@ port's dependencies:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: 1e-10 at fp64, 1e-4 x max|y| at fp32 (summation order differs);
+B2 bit-equal to B1 on every operand (the same multiply-adds in the same
+order);
 BFS distances exactly equal, PageRank ranks at rtol 1e-10; FFT rtol 1e-9 /
 atol 1e-9 x n at fp64 and 1e-3 / 1e-3 x n at fp32 (FMA contraction).
 """
@@ -57,6 +60,108 @@ def test_ops_spmv_on_the_card_matches_host_csr(cuda_device):
     assert y.device.type == "cuda"
     np.testing.assert_allclose(y.cpu().numpy(), csr.matvec(x),
                                rtol=1e-10, atol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# Streaming SpMM B2
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-10), (np.float32, 1e-4)])
+def test_stream_kernel_matches_plain_version_and_b1(cuda_device, dtype, tol):
+    """B2 against its plain version (tolerance: fma vs separate multiply
+    and add) and bit-equal to B1, over tiles that split X into many column
+    tiles, a non-pow2 row_tile and k tiles 1 .. 32."""
+    csr = F.random_csr(3000, 2500, 9.0, seed=5, skew=1.2, dtype=dtype)
+    rng = np.random.default_rng(0)
+    for c in (8, 32, 256):
+        cols, vals, rows = F.csr_to_sell_slabs(csr, c=c).to_device(cuda_device)
+        for k, kb, col_tile, row_tile in ((1, 8, 64, 3), (5, 4, None, None),
+                                          (32, 32, 32, 5), (3, 2, 1 << 12, 1)):
+            x = torch.from_numpy(
+                rng.standard_normal((2500, k)).astype(dtype)).to(cuda_device)
+            before = sell_core.STREAM_LAUNCHES
+            got = sell_core.spmm_sell_stream(cols, vals, rows, x, n_rows=3000,
+                                             k_block=kb, col_tile=col_tile,
+                                             row_tile=row_tile)
+            torch.cuda.synchronize()
+            assert sell_core.STREAM_LAUNCHES == before + len(cols)
+            b1 = sell_core.spmm_sell(cols, vals, rows, x, n_rows=3000,
+                                     k_block=kb)
+            assert torch.equal(got, b1)
+            want = sell_core.spmm_sell_stream_ref(
+                cols, vals, rows, x, n_rows=3000, col_tile=col_tile or 256)
+            scale = 1.0 if dtype == np.float64 else float(want.abs().max())
+            assert float((got - want).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_stream_kernel_is_bit_equal_to_b1_on_unsorted_rows_and_inner_pad(
+        cuda_device):
+    """Rows in random column order, then the same rows with PAD before
+    their entries: B2 reads the slabs B1 reads and stays bit-equal to it;
+    the plain B2 (the TPU's tile-by-tile order) agrees at 1e-10."""
+    import dataclasses
+
+    csr = F.random_csr(3000, 2500, 9.0, seed=5, skew=1.2)
+    rng = np.random.default_rng(4)
+    indices, data = csr.indices.copy(), csr.data.copy()
+    for lo, hi in zip(csr.indptr[:-1], csr.indptr[1:]):
+        p = lo + rng.permutation(hi - lo)
+        indices[lo:hi], data[lo:hi] = indices[p], data[p]
+    shuffled = F.CSRMatrix(indptr=csr.indptr, indices=indices, data=data,
+                           n_cols=csr.n_cols)
+    slabs = F.csr_to_sell_slabs(shuffled, c=32)
+    pad_first = dataclasses.replace(
+        slabs,
+        bucket_cols=tuple(np.roll(c, 1, axis=1) for c in slabs.bucket_cols),
+        bucket_vals=tuple(np.roll(v, 1, axis=1) for v in slabs.bucket_vals))
+    x = torch.from_numpy(rng.standard_normal((2500, 8))).to(cuda_device)
+    for operand in (slabs, pad_first):
+        cols, vals, rows = operand.to_device(cuda_device)
+        got = sell_core.spmm_sell_stream(cols, vals, rows, x, n_rows=3000,
+                                         k_block=8, col_tile=64, row_tile=3)
+        assert torch.equal(got, sell_core.spmm_sell(cols, vals, rows, x,
+                                                    n_rows=3000, k_block=8))
+        want = sell_core.spmm_sell_stream_ref(cols, vals, rows, x,
+                                              n_rows=3000, col_tile=64)
+        assert float((got - want).abs().max()) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_ops_stream_on_the_card_matches_host_csr(cuda_device):
+    csr = F.cage10_like(seed=0)
+    x = np.random.default_rng(2).standard_normal((csr.n_cols, 4))
+    y = ops.spmm(csr, x, spec=ExecSpec(vl=32, mode="stream"))
+    assert y.device.type == "cuda"
+    want = np.stack([csr.matvec(x[:, j]) for j in range(4)], axis=1)
+    np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_refused_stream_launch_raises_and_leaves_no_error_behind(cuda_device):
+    """Two X tiles a block cannot get: the wrapper raises instead of
+    returning garbage, counts no launch, and the next launch runs clean."""
+    from repro_torch.core import autotune
+
+    csr = F.random_csr(500, 40_000, 4.0, seed=3)
+    cols, vals, rows = F.csr_to_sell_slabs(csr, c=32).to_device(cuda_device)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (40_000, 1))).to(cuda_device)
+    y = torch.zeros((501, 1), dtype=x.dtype, device=cuda_device)
+    ct, _ = autotune.pick_stream_tiles(32, 1, 8)
+    before = sell_core.STREAM_LAUNCHES
+    with pytest.raises(RuntimeError, match="cudaError"):
+        sell_core._launch_stream_bucket(cols[0], vals[0], rows[0], x, y, 1,
+                                        2 * ct, 256)
+    assert sell_core.STREAM_LAUNCHES == before
+    got = sell_core.spmm_sell_stream(cols, vals, rows, x, n_rows=500,
+                                     k_block=1)
+    torch.cuda.synchronize()
+    assert sell_core.STREAM_LAUNCHES == before + len(cols)
+    assert torch.equal(got, sell_core.spmm_sell(cols, vals, rows, x,
+                                                n_rows=500, k_block=1))
 
 
 # ---------------------------------------------------------------------------

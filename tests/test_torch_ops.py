@@ -211,8 +211,12 @@ def test_device_tag_names_the_device():
 def test_unported_paths_raise_not_implemented():
     ref, port = _pair()
     x = np.ones(80)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        ops.spmv(port, x, spec=dataclasses.replace(CPU, mode="stream"))
+    # the streaming schedule runs now (kernel B2's plain version here) and
+    # agrees with the reference's
+    want = np.asarray(ref_ops.spmv(ref, x, spec=RefExecSpec(
+        vl=256, mode="stream", interpret=True)))
+    got = ops.spmv(port, x, spec=dataclasses.replace(CPU, mode="stream"))
+    np.testing.assert_allclose(_np(got), want, rtol=TOL, atol=TOL)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         ExecSpec(placement=2)
     # ELLPACK operands run now (kernel B6); the reference's container is

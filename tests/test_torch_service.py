@@ -97,10 +97,8 @@ def test_stats_keys_and_pow2_pad_match_reference():
     for n in range(1, 40):
         items = list(range(n))
         assert service_mod._pow2_pad(items) == ref_service_mod._pow2_pad(items)
-    assert service_mod.OPS == ("spmv", "bfs", "pagerank", "fft")
-    assert service_mod.OPS == tuple(op for op in ref_service_mod.OPS
-                                    if op != "moe_dispatch")
-    assert set(service_mod.OPS) <= set(ref_service_mod.OPS)
+    assert service_mod.OPS == ref_service_mod.OPS
+    assert service_mod.OP_CLASS == ref_service_mod.OP_CLASS
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +201,7 @@ def test_preflight_rejects_a_drifted_tune_at_admission(world):
 def test_submit_errors_travel_to_the_caller(world):
     _, svc = _services(world)
     with pytest.raises(ValueError, match="unknown op"):
-        svc.submit("moe_dispatch", "mat", None)
+        svc.submit("spmm_dense", "mat", None)
     with pytest.raises(KeyError, match="not registered"):
         svc.submit("spmv", "nope", None)
     with pytest.raises(TypeError, match="ExecSpec"):
