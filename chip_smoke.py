@@ -11,7 +11,7 @@ result line is printed:
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — every CUDA kernel of the main paths (``spmm_sell.cu``,
               ``spmm_sell_stream.cu``, ``graph_step.cu``, ``spmv_ell.cu``,
-              ``fft_stockham.cu``),
+              ``fft_stockham.cu``, ``ssd_fused.cu``, ``embedding_gather.cu``),
               built from ``src/`` with ``nvcc`` (one process per source,
               started together);
 3. compare  — each kernel against its plain PyTorch version on the card:
@@ -22,7 +22,12 @@ result line is printed:
               B4 (``bfs_step``) and B5 (``pagerank_step``) over RMAT and
               uniform graphs at 2^12 and a prime node count, C x k; B6
               (``spmv_ell``) over C x dtype on two operands; B7
-              (``fft_stockham``, both forms) over n x batch x dtype;
+              (``fft_stockham``, both forms) over n x batch x dtype; B8
+              (``ssd_fused``) at mamba2-2.7b's prefill shapes (b 1 and 4)
+              and at small shapes in fp32 and fp64, from a zero and a
+              random state; B9 (``embedding_gather``) from mamba2's
+              (50,280, 2560) table at T in (1, 4, 512, 2048), fp32 and
+              fp64, exactly;
 4. main     — the SpMV path as a user drives it: a ``KernelRegistry`` on the
               card registers cage10 and a 2,097,152-row operand, a
               ``KernelService(n_slots=32)`` serves 64 SpMV requests, every
@@ -61,18 +66,34 @@ result line is printed:
               the dense dispatch, four per envelope against ``R @ X`` in
               numpy; B1's launch count is read around each envelope's
               drain;
-10. timing  — every kernel at the main paths' shapes, CUDA events with the
+10. lm      — the LM serving path as a user drives it: mamba2-2.7b at its
+              published widths and depth (64 layers, 2.7 B parameters,
+              random init from a seed) on the card; a ``Batcher(n_slots=4)``
+              serves 8 requests of 512-token prompts, 16 new tokens each
+              (every prefill a chunk multiple: B8 in each layer, B9 for its
+              tokens and for every decode step), then one
+              ``ServeEngine.generate`` on a (4, 512) batch; B8's and B9's
+              launch counts are read around each drive; tokens/s, prefill
+              ms a request and decode ms a step are printed; then a
+              2-layer model at full width from the same weights runs on
+              the card and on the CPU (plain versions): logits within
+              ``LM_LOGIT_RTOL`` x max|logit|, greedy tokens equal wherever
+              the CPU's top-2 margin exceeds that;
+11. timing  — every kernel at the main paths' shapes, CUDA events with the
               L2 flushed, beside its bound (the larger of the function's
               least bytes and its operations over the card's peak rates;
               the bytes count the rows of X that stored entries name),
               the same bytes over the padded layout, the plain version
               and, where one PyTorch call computes the same function, that
-              call (``torch.sparse.mm``, ``torch.fft.fft``); B2 beside B1
+              call (``torch.sparse.mm``, ``torch.fft.fft``,
+              ``torch.nn.functional.embedding``); B2 beside B1
               at six shapes with the X bytes its schedule moves, and the
               rule ``mode="auto"`` follows; the MoE launch sets beside the
               dense ``torch.matmul``; then one graph drive per (graph, op)
               under ``torch.profiler``: the graph kernels' device time
-              against the drive's wall time.
+              against the drive's wall time; and one mamba2 prefill (b = 1)
+              and decode step (b = 4) under it: the device's busy time
+              against the wall time, and the kernels that take most.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with a record per kernel.
@@ -134,6 +155,27 @@ MOE_C = 32
 DAMPINGS = (0.85, 0.9, 0.8, 0.95)
 ITERS = 20
 PR_RTOL = 1e-10
+#: the LM phase (kernels B8, B9): mamba2-2.7b at its published widths and
+#: depth (src/repro_torch/configs/mamba2_2_7b.py), random init from LM_SEED
+LM_ARCH = "mamba2-2.7b"
+LM_SEED = 0
+LM_SLOTS = 4
+LM_REQUESTS = 8
+#: two of mamba2's 256-row chunks: every prefill runs B8
+LM_PROMPT = 512
+LM_NEW_TOKENS = 16
+#: depth of the card-against-CPU check (full width, the first layers)
+LM_CHECK_LAYERS = 2
+#: card logits against the CPU's plain versions, relative to max|logit|:
+#: fp32 rounding in other summation orders (cuBLAS, B8) over two layers
+LM_LOGIT_RTOL = 1e-4
+#: B8 compare tolerances (the reference's, tests/test_kernels.py:273); the
+#: fp32 absolute part is taken relative to max(1, max|y|), since at
+#: mamba2's widths y sums 256 x 128 products and reaches |y| ~ 1e2
+SSD_TOL = {"float32": 2e-4, "float64": 1e-10}
+#: B9 compare: ids per call (a decode step of one and of four sequences, a
+#: prefill, four prefills)
+GATHER_TS = (1, 4, 512, 2048)
 #: where every tensor of the run lives: the card
 DEVICE = "cuda"
 
@@ -601,6 +643,47 @@ def profile_drives(torch, bfs_k, pr_k, gm: dict) -> None:
             phase("profile", f"{name} {op} drive, k={REQUESTS_PER_OPERAND}: "
                   f"wall {wall_ms:.3f} ms under the profiler; graph kernels "
                   f"{share}")
+
+
+def profile_lm(torch, M, lm: dict) -> None:
+    """Where the LM path's time goes: one b = 1 prefill (a batcher
+    admission) and one decode step of LM_SLOTS sequences under
+    ``torch.profiler``; the device's busy time (the device-side events'
+    time, summed: one stream, so they do not overlap) against the host wall
+    clock, and the kernels that take the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, params = lm["cfg"], lm["params"]
+    cases = (("prefill b=1", lm["prompts"][:1], M.prefill),
+             (f"decode b={LM_SLOTS}", lm["prompts"][:LM_SLOTS, :1], M.decode_step))
+    for what, toks, fn in cases:
+        caches = M.init_caches(cfg, toks.shape[0], LM_PROMPT + LM_NEW_TOKENS,
+                               dtype=torch.float32, device=DEVICE)
+        batch = {"tokens": toks} if fn is M.prefill else toks
+
+        def run():
+            return fn(params, cfg, batch, caches)
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only (kernels, copies): a CPU op's device time
+        # repeats its kernels'
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in dev) / 1e3
+        top = sorted(dev, key=lambda e: e.device_time_total, reverse=True)[:5]
+        share = (f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%)"
+                 if busy > 0 else "device time not measured (no device events)")
+        phase("profile", f"{cfg.name} {what}: wall {wall_ms:.3f} ms under the "
+              f"profiler; {share}; most device time: " + "; ".join(
+                  f"{e.key[:48]} {e.device_time_total / 1e3:.3f} ms x{e.count}"
+                  for e in top))
 
 
 def sparse_reverse(torch, np, rg):
@@ -1763,6 +1846,360 @@ def stream_record(sm: dict, records: dict) -> dict:
             "shapes": {f"{n} k={k}": r for (n, k), r in records.items()}}
 
 
+# ---------------------------------------------------------------------------
+# The LM path: fused SSD scan (B8) and embedding gather (B9)
+# ---------------------------------------------------------------------------
+
+
+def lm_config(configs):
+    """The LM phase's model: mamba2-2.7b's published config."""
+    return configs.get_config(LM_ARCH)
+
+
+def ssd_cases(cfg) -> list[tuple]:
+    """B8 compare cases (b, l, h, p, g, n, chunk, dtype): the LM phase's
+    prefill shapes (b 1 and LM_SLOTS), then small shapes with two groups and
+    with l == chunk, in fp32 and fp64."""
+    s = cfg.ssm
+    big = [(b, LM_PROMPT, cfg.n_ssm_heads, s.head_dim, s.n_groups, s.d_state,
+            s.chunk, "float32") for b in (1, LM_SLOTS)]
+    small = [(2, 64, 4, 8, 2, 16, 16, dt) for dt in ("float32", "float64")]
+    small += [(1, 64, 4, 32, 2, 16, 64, dt) for dt in ("float32", "float64")]
+    return big + small
+
+
+def ssd_inputs(torch, np, b, l, h, p, g, n, dtype, seed, init=False):
+    """Numpy-seeded scan inputs on the card: x ~ N(0, 1), ad = -|N(0, 1)|
+    * 0.3 (the reference's test distribution), B, C ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((b, l, h, p)),
+            -np.abs(rng.standard_normal((b, l, h))) * 0.3,
+            rng.standard_normal((b, l, g, n)), rng.standard_normal((b, l, g, n))]
+    if init:
+        arrs.append(rng.standard_normal((b, h, p, n)))
+    out = [torch.from_numpy(a.astype(dtype)).to(DEVICE) for a in arrs]
+    return out[:4], (out[4] if init else None)
+
+
+def ssd_violation(torch, got, want, dtype: str) -> float:
+    """Max abs error of B8 against its plain version; raises where an
+    element leaves ``atol + rtol * |want|`` (fp32: atol relative to
+    max(1, max|want|))."""
+    tol = SSD_TOL[dtype]
+    atol = tol * max(1.0, float(want.abs().max())) if dtype == "float32" else tol
+    diff = (got - want).abs()
+    if bool((diff > atol + tol * want.abs()).any()):
+        raise AssertionError(f"B8 vs plain ({dtype}): max abs err "
+                             f"{float(diff.max())} beyond atol {atol} + rtol {tol}")
+    return float(diff.max())
+
+
+def compare_ssd(torch, np, ssd_k, cfg) -> float:
+    """Phase 3 (B8): every case from a zero and a random initial state;
+    returns the max abs error of y at the batcher's prefill shape (b 1)."""
+    main_err = 0.0
+    for i, (b, l, h, p, g, n, q, dt) in enumerate(ssd_cases(cfg)):
+        errs = []
+        for init in (False, True):
+            (xd, ad, B, C), s0 = ssd_inputs(torch, np, b, l, h, p, g, n, dt,
+                                            seed=i, init=init)
+            y, f = ssd_k.ssd_fused(xd, ad, B, C, chunk=q, init_state=s0)
+            torch.cuda.synchronize()
+            y0, f0 = ssd_k.ssd_fused_ref(xd, ad, B, C, chunk=q, init_state=s0)
+            errs += [ssd_violation(torch, y, y0, dt),
+                     ssd_violation(torch, f, f0, dt)]
+        if i == 0:
+            main_err = errs[0]
+        phase("compare", f"B8 (b, l, h, p, g, n) = {(b, l, h, p, g, n)} chunk "
+              f"{q} {dt}: max abs err y / state {max(errs[0::2]):.3e} / "
+              f"{max(errs[1::2]):.3e} (zero and random initial state)")
+    return main_err
+
+
+def compare_gather(torch, np, gather_k, cfg) -> None:
+    """Phase 3 (B9): rows of the LM's table shape, exactly equal."""
+    rng = np.random.default_rng(7)
+    v, d = cfg.vocab_size, cfg.d_model
+    for dt in (torch.float32, torch.float64):
+        table = torch.randn((v, d), dtype=dt, device=DEVICE)
+        for t in GATHER_TS:
+            ids = rng.integers(0, v, t)
+            got = gather_k.embedding_gather(table, ids)
+            torch.cuda.synchronize()
+            if not torch.equal(got, gather_k.embedding_gather_ref(table, ids)):
+                raise AssertionError(f"B9 vs table[ids]: T={t} {dt} differ")
+        dev_ids = torch.from_numpy(rng.integers(0, v, 64)).to(DEVICE)
+        if not torch.equal(gather_k.embedding_gather(table, dev_ids),
+                           table[dev_ids]):
+            raise AssertionError(f"B9 vs table[ids]: ids on the card, {dt}")
+        del table
+    phase("compare", f"B9 ({v}, {d}) table, T in {GATHER_TS} and 64 ids on "
+          "the card, fp32 and fp64: torch.equal to table[ids]")
+
+
+def lm_path(torch, np, configs, M, serve, ssd_k, gather_k) -> dict:
+    """Phase 10: mamba2-2.7b served through the batcher and the engine."""
+    cfg = lm_config(configs)
+    t0 = time.perf_counter()
+    params = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params.parameters())
+    phase("lm", f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_ssm_heads} heads of {cfg.ssm.head_dim}, d_state "
+          f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}, vocab {cfg.vocab_size}: "
+          f"{n_params:,} parameters ({4 * n_params / 1e9:.2f} GB fp32), "
+          f"random init (seed {LM_SEED}) in {time.perf_counter() - t0:.1f} s")
+
+    class TimedBatcher(serve.Batcher):
+        """The batcher with each admission (a b = 1 prefill) and each
+        decode step timed, the card synchronized around it."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.prefill_s, self.decode_s = [], []
+
+        def admit(self, slot, req):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            super().admit(slot, req)
+            torch.cuda.synchronize()
+            self.prefill_s.append(time.perf_counter() - t)
+
+        def execute(self, active):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            super().execute(active)
+            torch.cuda.synchronize()
+            self.decode_s.append(time.perf_counter() - t)
+
+    rng = np.random.default_rng(LM_SEED)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (LM_REQUESTS, LM_PROMPT)).astype(np.int32)
+    gcfg = serve.GenerationConfig(max_new_tokens=LM_NEW_TOKENS,
+                                  cache_len=LM_PROMPT + LM_NEW_TOKENS)
+    batcher = TimedBatcher(cfg, params, n_slots=LM_SLOTS, gcfg=gcfg)
+    for rid in range(LM_REQUESTS):
+        batcher.submit(serve.Request(rid=rid, prompt=prompts[rid],
+                                     max_new_tokens=LM_NEW_TOKENS))
+    torch.cuda.synchronize()
+    ssd_k.KERNEL_LAUNCHES = 0
+    gather_k.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    done = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b8, b9 = ssd_k.KERNEL_LAUNCHES, gather_k.KERNEL_LAUNCHES
+    n_tok = sum(len(r.generated) for r in done)
+    if len(done) != LM_REQUESTS or any(
+            len(r.generated) != LM_NEW_TOKENS
+            or not all(0 <= t < cfg.vocab_size for t in r.generated)
+            for r in done):
+        raise AssertionError("batcher: a request is missing, short or out of "
+                             "the vocabulary")
+    steps = len(batcher.decode_s)
+    if b8 != LM_REQUESTS * cfg.n_layers or b9 != LM_REQUESTS + steps:
+        raise AssertionError(
+            f"batcher launches B8 {b8} (want {LM_REQUESTS} prefills x "
+            f"{cfg.n_layers} layers), B9 {b9} (want {LM_REQUESTS} + {steps})")
+    prefill_ms = 1e3 * statistics.mean(batcher.prefill_s)
+    decode_ms = 1e3 * statistics.mean(batcher.decode_s)
+    phase("lm", f"Batcher(n_slots={LM_SLOTS}): {LM_REQUESTS} requests x "
+          f"{LM_PROMPT}-token prompts, {n_tok} tokens in {wall:.3f} s = "
+          f"{n_tok / wall:.2f} tokens/s; prefill {prefill_ms:.2f} ms a request "
+          f"(b = 1), decode {decode_ms:.2f} ms a step ({steps} steps of "
+          f"{LM_SLOTS} slots); ssd.KERNEL_LAUNCHES={b8}, "
+          f"gather.KERNEL_LAUNCHES={b9}")
+    for r in done[:2]:
+        phase("lm", f"  request {r.rid}: {r.generated[:8]}...")
+
+    engine = serve.ServeEngine(cfg, params, gcfg)
+    torch.cuda.synchronize()
+    ssd_k.KERNEL_LAUNCHES = 0
+    gather_k.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = engine.generate(prompts[:LM_SLOTS])
+    torch.cuda.synchronize()
+    eng_wall = time.perf_counter() - t0
+    e8, e9 = ssd_k.KERNEL_LAUNCHES, gather_k.KERNEL_LAUNCHES
+    if out.shape != (LM_SLOTS, LM_NEW_TOKENS) or out.min() < 0 \
+            or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"engine: tokens of shape {out.shape} in "
+                             f"[{out.min()}, {out.max()}]")
+    if e8 != cfg.n_layers or e9 != LM_NEW_TOKENS:
+        raise AssertionError(f"engine launches B8 {e8} (want {cfg.n_layers}), "
+                             f"B9 {e9} (want {LM_NEW_TOKENS})")
+    by_rid = {r.rid: r.generated for r in done}
+    same = sum(out[i].tolist() == by_rid[i] for i in range(LM_SLOTS))
+    phase("lm", f"ServeEngine.generate ({LM_SLOTS}, {LM_PROMPT}): "
+          f"{out.size} tokens in {eng_wall:.3f} s = {out.size / eng_wall:.2f} "
+          f"tokens/s; ssd.KERNEL_LAUNCHES={e8}, gather.KERNEL_LAUNCHES={e9}; "
+          f"greedy tokens equal to the batcher's for {same} of {LM_SLOTS} "
+          "prompts (b = 4 against b = 1 prefills: other cuBLAS shapes)")
+    return {"cfg": cfg, "params": params, "prompts": prompts,
+            "launches": {"ssd_fused": b8 + e8, "embedding_gather": b9 + e9},
+            "tokens_per_s": n_tok / wall, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "engine_tokens_per_s": out.size / eng_wall}
+
+
+def lm_check(torch, np, M, lm: dict) -> None:
+    """Phase 10: the first LM_CHECK_LAYERS layers at full width from the
+    same weights on the card (B8, B9) and on the CPU (plain versions)."""
+    import copy
+
+    from torch import nn
+
+    cfg, params = lm["cfg"], lm["params"]
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    card = M.LM(params.tok_embed, params.final_norm, params.lm_head,
+                nn.ModuleList(list(params.blocks)[:LM_CHECK_LAYERS]))
+    host = copy.deepcopy(card).to("cpu")
+    prompt = lm["prompts"][:1]
+    runs = {}
+    t0 = time.perf_counter()
+    for name, p, dev in (("card", card, DEVICE), ("cpu", host, "cpu")):
+        caches = M.init_caches(cfg2, 1, LM_PROMPT + LM_NEW_TOKENS,
+                               dtype=torch.float32, device=dev)
+        logits, caches = M.prefill(p, cfg2, {"tokens": prompt}, caches)
+        steps, toks = [logits[:, -1].cpu()], []
+        for _ in range(LM_NEW_TOKENS - 1):
+            tok = torch.argmax(steps[-1], dim=-1)
+            toks.append(int(tok[0]))
+            last, caches = M.decode_step(p, cfg2, tok[:, None].numpy(), caches)
+            steps.append(last.cpu())
+        toks.append(int(torch.argmax(steps[-1], dim=-1)[0]))
+        runs[name] = (logits.cpu(), steps, toks)
+    (lc, sc, tc), (lh, sh, th) = runs["card"], runs["cpu"]
+    scale = float(lh.abs().max())
+    tol = LM_LOGIT_RTOL * scale
+    err = float((lc - lh).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"lm check: prefill logits differ by {err} > "
+                             f"{LM_LOGIT_RTOL} x max|logit| = {tol}")
+    checked, close = 0, []
+    for i, (a, b) in enumerate(zip(sc, sh)):
+        top2 = torch.topk(b[0], 2).values
+        margin = float(top2[0] - top2[1])
+        if margin <= tol:
+            close.append((i, margin))
+            if tc[i] != th[i]:
+                break                 # the continuations differ from here on
+            continue
+        if tc[i] != th[i]:
+            raise AssertionError(f"lm check: token {i} {tc[i]} on the card, "
+                                 f"{th[i]} on the CPU (margin {margin} > {tol})")
+        step_err = float((a - b).abs().max())
+        if not step_err <= tol:
+            raise AssertionError(f"lm check: step {i} logits differ by "
+                                 f"{step_err} > {tol}")
+        err = max(err, step_err)
+        checked += 1
+    phase("lm", f"check: {LM_CHECK_LAYERS} layers at full width, card vs CPU "
+          f"(plain versions) on a ({1}, {LM_PROMPT}) prompt: max abs logit err "
+          f"{err:.3e} <= {LM_LOGIT_RTOL} x max|logit| {scale:.3f}; greedy "
+          f"tokens equal at {checked} of {LM_NEW_TOKENS} positions with a "
+          f"top-2 margin above the tolerance; closer margins {close} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def time_lm(torch, np, ssd_k, gather_k, lm: dict, comp_err: float,
+            flush) -> list[dict]:
+    """Phase 11 (LM): B8 at the batcher's (b 1) and the engine's (b 4)
+    prefill shapes; B9 on the model's table at a prefill's ids, a decode
+    step's and the engine's (4, 512) prefill."""
+    cfg = lm["cfg"]
+    s = cfg.ssm
+    l, h, p, g, n, q = LM_PROMPT, cfg.n_ssm_heads, s.head_dim, s.n_groups, \
+        s.d_state, s.chunk
+    b8 = []
+    for b in (1, LM_SLOTS):
+        (xd, ad, B, C), _ = ssd_inputs(torch, np, b, l, h, p, g, n, "float32",
+                                       seed=11)
+
+        def run():
+            return ssd_k.ssd_fused(xd, ad, B, C, chunk=q)
+
+        def plain():
+            return ssd_k.ssd_fused_ref(xd, ad, B, C, chunk=q)
+
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = ssd_violation(torch, got[0], want[0], "float32")
+        ms = time_ms(torch, run, flush)
+        plain_ms = time_ms(torch, plain, flush)
+        nbytes = 4 * (2 * b * l * h * p + b * l * h + 2 * b * l * g * n
+                      + b * h * p * n)
+        flops = b * h * (l // q) * (q * (q + 1) * (n + p) + 4 * q * n * p)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / FP32_OPS * 1e3
+        b8.append({"b": b, "ms": ms, "plain_ms": plain_ms, "err": err,
+                   "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+                   "ops_ms": ops_ms, "gflop": flops / 1e9})
+        phase("timing", f"B8 ssd_fused (b, l, h, p, g, n) = {(b, l, h, p, g, n)} "
+              f"chunk {q} fp32: {ms:.4f} ms | bound {max(bytes_ms, ops_ms):.4f} "
+              f"ms (ops {ops_ms:.4f}: {flops / 1e9:.3f} GFLOP; bytes "
+              f"{bytes_ms:.4f}) | plain {plain_ms:.4f} ms | no single PyTorch "
+              f"call | max abs err y vs plain {err:.3e} | "
+              f"{flops / ms / 1e6:.1f} GFLOP/s")
+    main = b8[0]
+    ssd_rec = {"name": "ssd_fused", "route": "cuda",
+               "source": "src/repro_torch/csrc/ssd_fused.cu",
+               "replaces": "src/repro/kernels/ssd.py:26",
+               "launches": lm["launches"]["ssd_fused"],
+               "max_abs_err": max(comp_err, main["err"]), "ms": main["ms"],
+               "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+               "bound_by": ("bytes" if main["bytes_ms"] >= main["ops_ms"]
+                            else "operations"),
+               "library_ms": None,
+               "shape": f"(b, l, h, p, g, n) = {(1, l, h, p, g, n)} chunk {q} "
+                        "fp32 (a batcher prefill, one layer)",
+               "b4": {k: b8[1][k] for k in ("ms", "plain_ms", "bound_ms")}}
+
+    table = lm["params"].tok_embed
+    v, d = table.shape
+    rows = []
+    for t in (LM_PROMPT, LM_SLOTS, LM_SLOTS * LM_PROMPT):
+        ids = torch.from_numpy(np.random.default_rng(t).integers(0, v, t)
+                               .astype(np.int32)).to(DEVICE)
+
+        def run():
+            return gather_k.embedding_gather(table, ids)
+
+        def plain():
+            return gather_k.embedding_gather_ref(table, ids)
+
+        def library():
+            return torch.nn.functional.embedding(ids, table)
+
+        got = run()
+        torch.cuda.synchronize()
+        if not (torch.equal(got, plain()) and torch.equal(got, library())):
+            raise AssertionError(f"B9 at T={t}: not equal to table[ids]")
+        ms = time_ms(torch, run, flush)
+        plain_ms = time_ms(torch, plain, flush)
+        lib_ms = time_ms(torch, library, flush)
+        bytes_ms = (2 * t * d * table.element_size() + 4 * t) \
+            / HBM_BYTES_PER_S * 1e3
+        rows.append({"t": t, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bytes_ms})
+        phase("timing", f"B9 embedding_gather T={t} from ({v}, {d}) fp32: "
+              f"{ms:.4f} ms | bound {bytes_ms:.5f} ms (bytes) | plain "
+              f"{plain_ms:.4f} ms | F.embedding {lib_ms:.4f} ms | equal")
+    main = rows[0]
+    gather_rec = {"name": "embedding_gather", "route": "cuda",
+                  "source": "src/repro_torch/csrc/embedding_gather.cu",
+                  "replaces": "src/repro/kernels/gather.py:24",
+                  "launches": lm["launches"]["embedding_gather"],
+                  "max_abs_err": 0.0, "ms": main["ms"],
+                  "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                  "bound_by": "bytes", "library_ms": main["library_ms"],
+                  "shape": f"T={LM_PROMPT} ids from ({v}, {d}) fp32 (a "
+                           "batcher prefill)",
+                  "other_t": {str(r["t"]): {k: r[k] for k in (
+                      "ms", "plain_ms", "library_ms", "bound_ms")}
+                      for r in rows[1:]}}
+    return [ssd_rec, gather_rec]
+
+
 def main() -> int:
     import torch
 
@@ -1772,13 +2209,21 @@ def main() -> int:
         return 2
     import numpy as np
 
+    # fp32 products in full fp32, as the CPU computes them (the LM check)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch import configs, serve
     from repro_torch.graphs import gen as G
     from repro_torch.kernels import bfs as bfs_k
     from repro_torch.kernels import cuda_lib, ops, sell_core
     from repro_torch.kernels import fft as fft_k
+    from repro_torch.kernels import gather as gather_k
     from repro_torch.kernels import pagerank as pr_k
     from repro_torch.kernels import spmv as spmv_k
+    from repro_torch.kernels import ssd as ssd_k
     from repro_torch.kernels.execspec import ExecSpec
+    from repro_torch.models import model as M
     from repro_torch.service import KernelRegistry, KernelService
     from repro_torch.sparse import formats as F
 
@@ -1807,6 +2252,8 @@ def main() -> int:
     compare_spmv_ell(torch, np, F, spmv_k)
     compare_fft(torch, np, fft_k)
     compare_stream(torch, np, sell_core, F)
+    ssd_err = compare_ssd(torch, np, ssd_k, lm_config(configs))
+    compare_gather(torch, np, gather_k, lm_config(configs))
     phase("compare", f"done in {time.perf_counter() - t0:.1f} s")
 
     # -- 4. SpMV main path -----------------------------------------------------
@@ -1843,7 +2290,13 @@ def main() -> int:
                   KernelService)
     phase("moe", f"done in {time.perf_counter() - t0:.1f} s")
 
-    # -- 10. timing at the main paths' shapes ----------------------------------
+    # -- 10. the LM serving path (B8, B9) ---------------------------------------
+    t0 = time.perf_counter()
+    lm = lm_path(torch, np, configs, M, serve, ssd_k, gather_k)
+    lm_check(torch, np, M, lm)
+    phase("lm", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 11. timing at the main paths' shapes ----------------------------------
     t0 = time.perf_counter()
     flush = torch.empty(2 * 50 * 1000 * 1000 // 4, dtype=torch.float32,
                         device=DEVICE)
@@ -1856,7 +2309,9 @@ def main() -> int:
     kernels.append(stream_record(sm, time_stream(
         torch, np, sell_core, ops, sm, reg.get("big"), big, flush)))
     kernels += time_moe(torch, np, sell_core, mm, flush)
+    kernels += time_lm(torch, np, ssd_k, gather_k, lm, ssd_err, flush)
     profile_drives(torch, bfs_k, pr_k, gm)
+    profile_lm(torch, M, lm)
     phase("timing", f"done in {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)

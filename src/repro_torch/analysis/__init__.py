@@ -4,6 +4,7 @@ from repro_torch.analysis.preflight import (
     SlabMeta,
     plan_bfs_ell,
     plan_bfs_sell,
+    plan_embedding_gather,
     plan_fft_stockham,
     plan_moe_dispatch,
     plan_pagerank_ell,
@@ -11,9 +12,12 @@ from repro_torch.analysis.preflight import (
     plan_spmm_sell,
     plan_spmm_sell_stream,
     plan_spmv_ell,
+    plan_ssd_fused,
 )
 
 __all__ = ["BlockPlan", "LaunchPlan", "LaunchPlanError", "SlabMeta",
-           "plan_bfs_ell", "plan_bfs_sell", "plan_fft_stockham",
+           "plan_bfs_ell", "plan_bfs_sell", "plan_embedding_gather",
+           "plan_fft_stockham",
            "plan_moe_dispatch", "plan_pagerank_ell", "plan_pagerank_sell",
-           "plan_spmm_sell", "plan_spmm_sell_stream", "plan_spmv_ell"]
+           "plan_spmm_sell", "plan_spmm_sell_stream", "plan_spmv_ell",
+           "plan_ssd_fused"]

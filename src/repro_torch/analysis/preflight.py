@@ -34,6 +34,12 @@ block, capped to the shared memory a block may claim) where one signal's
 ping-pong buffers fit a block, else the per-stage form (one launch per
 stage over the whole batch, no shared memory).
 
+:func:`plan_embedding_gather` (kernel B9, :func:`repro_torch.kernels
+.gather.embedding_gather`): one launch, one warp a gathered row; the ids
+that lie on the host are scanned for range.  :func:`plan_ssd_fused`
+(kernel B8, :func:`repro_torch.kernels.ssd.ssd_fused`): one launch, one
+block per (b, h) plane and slice of head columns, its shared memory priced.
+
 Checked contracts:
 
 * grid and block dims inside CUDA's limits; shared memory per block
@@ -63,14 +69,18 @@ from repro_torch.analysis.launchplan import BlockPlan, LaunchPlan, is_pow2
 from repro_torch.core.autotune import (
     ACC_BYTES_PER_THREAD,
     FFT_STAGE_THREADS,
+    GATHER_BLOCK_THREADS,
     KERNEL_DTYPES,
     MAX_K_TILE,
     NODE_STEP_BLOCK_THREADS,
     SMEM_PER_BLOCK,
     SPMM_BLOCK_THREADS,
+    SSD_BLOCK_THREADS,
     WARP,
     fft_block_signals,
     fft_block_threads,
+    ssd_p_block,
+    ssd_smem_bytes,
     stream_smem_bytes,
 )
 from repro_torch.sparse.formats import PAD, pow2_ceil
@@ -79,6 +89,7 @@ __all__ = [
     "SlabMeta",
     "plan_bfs_ell",
     "plan_bfs_sell",
+    "plan_embedding_gather",
     "plan_fft_stockham",
     "plan_moe_dispatch",
     "plan_pagerank_ell",
@@ -86,6 +97,7 @@ __all__ = [
     "plan_spmm_sell",
     "plan_spmm_sell_stream",
     "plan_spmv_ell",
+    "plan_ssd_fused",
 ]
 
 #: CUDA launch limits (compute capability 9.0)
@@ -589,4 +601,108 @@ def plan_fft_stockham(n: int, batch: int = 1, *, b_block: int = 8,
                   for s in range(stages)]
     return LaunchPlan(kernel="fft_stockham", operand=f"fft n={n} batch={batch}",
                       dtype=dtype, blocks=tuple(blocks),
+                      violations=tuple(violations))
+
+
+# ---------------------------------------------------------------------------
+# Embedding gather (kernel B9) and the fused SSD scan (kernel B8)
+# ---------------------------------------------------------------------------
+
+
+def plan_embedding_gather(vocab: int, d: int, ids, *, dtype: str = "float32",
+                          vl: int = 256) -> LaunchPlan:
+    """Plan ``embedding_gather`` of ``ids`` from a (vocab, d) table.
+
+    One launch of ``GATHER_BLOCK_THREADS``-thread blocks, one warp a row:
+    ``grid = ceil(T / (threads / 32))``.  ``ids`` is anything with a
+    ``shape`` and a ``dtype`` (a numpy array or a torch tensor): it must be
+    one axis of integers.  Where it lies on the host (numpy, or a CPU
+    tensor) its values are scanned too, and an id outside ``[0, vocab)`` is
+    a violation: the kernel gathers unchecked, and CUDA does not clamp the
+    way JAX does.  Ids already on the card (a decode step's argmax) are in
+    range by construction and are not read back.  ``vl`` is the reference's
+    rows a grid step; the CUDA grid does not depend on it.
+    """
+    violations: list[str] = []
+    shape = tuple(int(s) for s in ids.shape)
+    id_dtype = str(ids.dtype).removeprefix("torch.")
+    if len(shape) != 1:
+        violations.append(f"ids must be one axis (T,), got shape {shape}")
+    if not np.issubdtype(np.dtype(id_dtype), np.integer):
+        violations.append(f"ids dtype {id_dtype} is not an integer type")
+    if dtype not in KERNEL_DTYPES:
+        violations.append(f"table dtype {dtype} is not float32 or float64")
+    if vocab < 1 or d < 1:
+        violations.append(f"table ({vocab}, {d}) is empty")
+    if vl < 1:
+        violations.append(f"vl must be >= 1, got {vl}")
+    dev = getattr(ids, "device", "cpu")      # numpy 2 arrays say "cpu"
+    if not violations and str(getattr(dev, "type", dev)) == "cpu":
+        arr = np.asarray(ids)
+        if arr.size and (int(arr.min()) < 0 or int(arr.max()) >= vocab):
+            violations.append(
+                f"ids out of bounds: range [{int(arr.min())}, {int(arr.max())}]"
+                f" outside [0, {vocab})")
+    t = shape[0] if len(shape) == 1 else 0
+    rows_per_block = GATHER_BLOCK_THREADS // WARP
+    grid_x = max(1, math.ceil(t / rows_per_block))
+    if grid_x > MAX_GRID_X:
+        violations.append(f"grid.x {grid_x} > {MAX_GRID_X}")
+    block = BlockPlan(
+        label=f"rows[{rows_per_block} a block]", grid=(grid_x,),
+        block=(GATHER_BLOCK_THREADS,),
+        operands=(("ids", (t,), "int32"), ("table", (vocab, d), dtype),
+                  ("out", (t, d), dtype)))
+    return LaunchPlan(kernel="embedding_gather",
+                      operand=f"gather T={t} from ({vocab}, {d})", dtype=dtype,
+                      blocks=(block,), violations=tuple(violations))
+
+
+def plan_ssd_fused(b: int, l: int, h: int, p: int, g: int, n: int, *,
+                   chunk: int, dtype: str = "float32") -> LaunchPlan:
+    """Plan ``ssd_fused`` for xd (b, l, h, p), ad (b, l, h) and B, C
+    (b, l, g, n).
+
+    One launch, one block per (b, h) plane and slice of ``p_block`` head
+    columns (:func:`~repro_torch.core.autotune.ssd_p_block`): ``grid = (b *
+    h, p / p_block)``, ``SSD_BLOCK_THREADS`` threads, the chunk loop inside
+    the block.  Refused: a sequence that is not a whole number of chunks
+    (``ssd.py:69``), heads that groups do not divide, and a block whose
+    shared memory (:func:`~repro_torch.core.autotune.ssd_smem_bytes`:
+    carried state, one tile each of C, B, x, the decay product and y)
+    exceeds :data:`SMEM_PER_BLOCK`.
+    """
+    violations: list[str] = []
+    if min(b, l, h, p, g, n) < 1:
+        violations.append(f"empty extent in (b, l, h, p, g, n) = "
+                          f"{(b, l, h, p, g, n)}")
+    if chunk < 1:
+        violations.append(f"chunk must be >= 1, got {chunk}")
+    elif l % chunk or l < chunk:
+        violations.append(f"sequence length {l} is not a positive multiple of "
+                          f"the chunk {chunk}")
+    if g >= 1 and h % g:
+        violations.append(f"{h} heads are not a multiple of {g} groups")
+    if dtype not in KERNEL_DTYPES:
+        violations.append(f"ssd dtype {dtype} is not float32 or float64")
+    itemsize = int(np.dtype(dtype).itemsize) if dtype in KERNEL_DTYPES else 8
+    pb = ssd_p_block(b, h, p) if min(b, h, p) >= 1 else max(p, 1)
+    smem = ssd_smem_bytes(max(chunk, 1), pb, max(n, 1), itemsize)
+    if smem > SMEM_PER_BLOCK:
+        violations.append(f"{smem} B of shared memory a block > "
+                          f"{SMEM_PER_BLOCK} (chunk {chunk}, {pb} head "
+                          f"columns, d_state {n})")
+    grid = (max(b * h, 1), max(p // pb, 1))
+    if grid[0] > MAX_GRID_X:
+        violations.append(f"grid.x {grid[0]} > {MAX_GRID_X}")
+    block = BlockPlan(
+        label=f"planes[p_block={pb}]", grid=grid, block=(SSD_BLOCK_THREADS,),
+        operands=(("xd", (b, l, h, p), dtype), ("ad", (b, l, h), dtype),
+                  ("B", (b, l, g, n), dtype), ("C", (b, l, g, n), dtype),
+                  ("y", (b, l, h, p), dtype), ("state", (b, h, p, n), dtype)),
+        smem_bytes=smem)
+    return LaunchPlan(kernel="ssd_fused",
+                      operand=f"ssd b={b} l={l} h={h} p={p} g={g} n={n} "
+                              f"chunk={chunk}",
+                      dtype=dtype, blocks=(block,),
                       violations=tuple(violations))

@@ -99,6 +99,42 @@ def fft_block_signals(n: int, b_block: int, itemsize: int) -> int:
     return min(max(int(b_block), 1), SMEM_PER_BLOCK // (4 * n * itemsize))
 
 
+#: Streaming multiprocessors of an H100 SXM: the grid size below which a
+#: one-wave kernel leaves SMs idle.
+SM_COUNT = 132
+#: Threads per block of the embedding gather (B9): one warp a row.
+GATHER_BLOCK_THREADS = 256
+#: Threads per block of the fused SSD scan (B8).
+SSD_BLOCK_THREADS = 256
+#: Query and key rows of one (i, j) tile of the SSD chunk's decay product:
+#: the (q, q) matrix of a 256-row chunk (256 KB at fp32) never fits a
+#: block, a (32, 32) tile does.
+SSD_TILE = 32
+
+
+def ssd_p_block(b: int, h: int, p: int) -> int:
+    """Head columns one B8 block carries: all ``p`` when the (b, h) planes
+    fill the card, else halved (the decay tile recomputed per half) until
+    the grid reaches :data:`SM_COUNT` blocks or a half would drop below a
+    warp.  Columns never change the arithmetic of an output element."""
+    pb = p
+    while b * h * (p // pb) < SM_COUNT and pb % 2 == 0 and pb // 2 >= WARP:
+        pb //= 2
+    return pb
+
+
+def ssd_smem_bytes(chunk: int, p_block: int, n: int, itemsize: int) -> int:
+    """Dynamic shared memory of one B8 block: the chunk's cumulative decay
+    (q), the carried state (p_block, n + 1), one query tile of C and one
+    key tile of B ((SSD_TILE, n + 1) each, rows padded a bank), one key
+    tile of x (SSD_TILE, p_block), the decay-weighted tile of C Bᵀ
+    (SSD_TILE, SSD_TILE + 1) and the output tile (SSD_TILE, p_block)."""
+    t = SSD_TILE
+    elems = (chunk + p_block * (n + 1) + 2 * t * (n + 1) + t * p_block
+             + t * (t + 1) + t * p_block)
+    return elems * itemsize
+
+
 def fft_block_threads(n: int, signals: int) -> int:
     """Threads of one in-block FFT block: one per butterfly of its
     ``signals * n / 2``, rounded up to a warp, at most

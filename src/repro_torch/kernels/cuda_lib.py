@@ -84,6 +84,19 @@ KERNELS = {
             [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P], _I),
         "repro_fft_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
+    "ssd_fused": ("ssd_fused.cu", {
+        # xd, ad, B, C, init (nullable), y, fstate, b, l, h, p, g, n, chunk,
+        # p_block, threads, is_double, stream
+        "repro_ssd_fused": (
+            [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _I,
+             _I, _I, _P], _I),
+        "repro_ssd_cuda_error_string": ([_I], ctypes.c_char_p),
+    }),
+    "embedding_gather": ("embedding_gather.cu", {
+        # table, ids, out, n_ids, row_bytes, threads, stream
+        "repro_embedding_gather": ([_P, _P, _P, _I64, _I64, _I, _P], _I),
+        "repro_gather_cuda_error_string": ([_I], ctypes.c_char_p),
+    }),
 }
 
 

@@ -1,0 +1,69 @@
+"""Batched serving CLI: continuous batcher over the generation engine —
+port of ``repro.launch.serve``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --full \\
+      --prompt-len 512 --new-tokens 16
+
+runs on the card (random init at the published widths, 11.3 GB of fp32
+weights for mamba2-2.7b); ``--device cpu`` without ``--full`` runs the
+reduced config on the CPU through the kernels' plain versions.  The port
+serves family ``"ssm"`` (mamba2); other archs raise ``NotImplementedError``
+(ROADMAP A12), and any ``--mesh`` other than ``none`` raises (A10).
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.kernels.execspec import resolve_device
+from repro_torch.models import model as M
+from repro_torch.obs import Stopwatch
+from repro_torch.serve import Batcher, GenerationConfig, Request
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=configs.ARCHS, default="mamba2-2.7b")
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", choices=["none", "single", "multi"], default="none",
+                    help="production mesh to shard over (ROADMAP A10: only "
+                         "'none' is ported)")
+    ap.add_argument("--device", default="cuda",
+                    help="where to serve: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.mesh != "none":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: multi-device serving is ROADMAP A10")
+    dev = resolve_device(args.device)
+
+    cfg = configs.get_config(args.arch) if args.full else configs.reduced_config(args.arch)
+    params = M.init_params(M.make_generator(args.seed, dev), cfg)
+    gcfg = GenerationConfig(cache_len=args.cache_len)
+    batcher = Batcher(cfg, params, n_slots=args.slots, gcfg=gcfg)
+    rng = np.random.default_rng(args.seed)
+    for rid in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab_size, (args.prompt_len,)).astype(np.int32)
+        batcher.submit(Request(rid=rid, prompt=prompt, max_new_tokens=args.new_tokens))
+    with Stopwatch() as sw:
+        done = batcher.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    dt = sw.elapsed_s
+    total_tokens = sum(len(r.generated) for r in done)
+    print(f"[serve] {cfg.name} on {dev}: {len(done)} requests, {total_tokens} "
+          f"tokens in {dt:.2f}s ({total_tokens / dt:.1f} tok/s incl. first-use kernel builds)")
+    for r in done[:3]:
+        print(f"  req {r.rid}: {r.generated[:8]}...")
+
+
+if __name__ == "__main__":
+    main()

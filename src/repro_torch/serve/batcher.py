@@ -1,0 +1,96 @@
+"""Continuous batcher: fixed decode slots, fill-on-finish request scheduling
+— port of ``repro.serve.batcher``.
+
+The engine decodes a fixed-width batch; the batcher multiplexes a request
+queue onto those slots.  When a sequence finishes its slot is refilled by
+prefilling the next queued prompt alone (a b = 1 prefill: kernel B9 for
+its tokens, kernel B8 for a chunk-multiple prompt) and writing that
+prefill's caches into the slot's batch row.  The admission/eviction loop
+is :class:`repro_torch.serve.slots.SlotLoop`, the core the kernel service
+batches on.
+
+The reference's ``_splice_caches`` (``batcher.py:109``) guesses the batch
+axis of each cache leaf from its shape, which is ambiguous when
+``n_layers`` or ``n_slots`` is 1; the port writes the batch row of each
+cache field by name (:func:`_write_slot`), in place: the shared caches
+belong to the batcher alone.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+from repro_torch.serve.engine import GenerationConfig
+from repro_torch.serve.slots import SlotLoop
+
+__all__ = ["Batcher", "Request"]
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (S,) int32
+    max_new_tokens: int = 16
+    generated: list[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def done(self) -> bool:
+        return len(self.generated) >= self.max_new_tokens
+
+
+def _write_slot(shared: M.Caches, single: M.Caches, slot: int) -> None:
+    """Write the b = 1 caches into batch row ``slot`` of the shared ones.
+    The SSM leaves are (layers, batch, ...): the batch axis is axis 1."""
+    dst, src = shared["layers"].ssm, single["layers"].ssm
+    dst.state[:, slot] = src.state[:, 0]
+    dst.conv[:, slot] = src.conv[:, 0]
+
+
+class Batcher(SlotLoop[Request]):
+    """Slot-multiplexed decode over a fixed batch width."""
+
+    def __init__(self, cfg: ModelConfig, params: M.LM, n_slots: int = 4,
+                 gcfg: GenerationConfig | None = None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("mesh: multi-device serving is ROADMAP A10")
+        super().__init__(n_slots)
+        self.cfg = cfg
+        self.params = params
+        self.gcfg = gcfg or GenerationConfig()
+        self.caches = M.init_caches(cfg, n_slots, max_len=self.gcfg.cache_len,
+                                    dtype=self.gcfg.dtype, device=params.device)
+        self._next_tok = np.zeros((n_slots,), np.int32)
+
+    # -- SlotLoop hooks ----------------------------------------------------
+    def done(self, req: Request) -> bool:
+        return req.done
+
+    def admit(self, slot: int, req: Request) -> None:
+        """Prefill the admitted prompt alone and write its caches into the
+        slot's row."""
+        one = M.init_caches(self.cfg, 1, max_len=self.gcfg.cache_len,
+                            dtype=self.gcfg.dtype, device=self.params.device)
+        logits, one = M.prefill(self.params, self.cfg,
+                                {"tokens": np.asarray(req.prompt)[None]}, one,
+                                dtype=self.gcfg.dtype)
+        _write_slot(self.caches, one, slot)
+        tok = int(torch.argmax(logits[0, -1]))
+        req.generated.append(tok)
+        self._next_tok[slot] = tok
+
+    def execute(self, active: Sequence[tuple[int, Request]]) -> None:
+        """One decode step across all slots (idle ones included, as in the
+        reference)."""
+        logits, self.caches = M.decode_step(
+            self.params, self.cfg, self._next_tok[:, None], self.caches,
+            dtype=self.gcfg.dtype)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        for i, req in active:
+            if not req.done:
+                req.generated.append(int(nxt[i]))
+                self._next_tok[i] = nxt[i]

@@ -1,10 +1,10 @@
 """Slot-based admission/coalescing loop — the one batching core.
 
-A copy of ``repro.serve.slots``; in the port only the kernel service
-subclasses it so far (the LM batcher is ROADMAP A12).
+A copy of ``repro.serve.slots``; in the port the kernel service and the
+LM batcher (:class:`repro_torch.serve.batcher.Batcher`) subclass it.
 
 Both serving engines in this repo multiplex a request queue onto a fixed
-number of slots: the LM batcher (``repro.serve.batcher.Batcher``) fills
+number of slots: the LM batcher (:class:`~repro_torch.serve.batcher.Batcher`) fills
 decode slots with prompts, the sparse-kernel service
 (:class:`repro_torch.service.service.KernelService`) fills them with kernel calls
 against registered operands.  The admission loop — evict finished requests,

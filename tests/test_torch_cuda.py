@@ -1,8 +1,10 @@
 """Kernel B1 (``csrc/spmm_sell.cu``), the streaming SpMM B2
 (``csrc/spmm_sell_stream.cu``), the graph kernels B3, B4, B5
 (``csrc/graph_step.cu``), the ELLPACK SpMV B6 (``csrc/spmv_ell.cu``) and
-the FFT B7 (``csrc/fft_stockham.cu``) against their plain PyTorch versions
-on the card.  Every test here carries the ``cuda`` marker and skips without
+the FFT B7 (``csrc/fft_stockham.cu``), the fused SSD scan B8
+(``csrc/ssd_fused.cu``) and the embedding gather B9
+(``csrc/embedding_gather.cu``) against their plain PyTorch versions on the
+card, and the reduced mamba2 LM path on the card against the CPU.  Every test here carries the ``cuda`` marker and skips without
 a GPU (decided inside the fixture, never at import).  This file imports
 neither ``jax`` nor ``repro``, so it runs on a machine that has only the
 port's dependencies:
@@ -13,8 +15,12 @@ Tolerance: 1e-10 at fp64, 1e-4 x max|y| at fp32 (summation order differs);
 B2 bit-equal to B1 on every operand (the same multiply-adds in the same
 order);
 BFS distances exactly equal, PageRank ranks at rtol 1e-10; FFT rtol 1e-9 /
-atol 1e-9 x n at fp64 and 1e-3 / 1e-3 x n at fp32 (FMA contraction).
+atol 1e-9 x n at fp64 and 1e-3 / 1e-3 x n at fp32 (FMA contraction); B8
+2e-4 at fp32 and 1e-10 at fp64 (the reference's, ``tests/test_kernels.py``);
+B9 exactly equal (a copy).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -335,3 +341,132 @@ def test_refused_fft_launch_raises_and_leaves_no_error_behind(cuda_device):
     torch.cuda.synchronize()
     for g, w in zip(got, fft.fft_stockham_ref(re, im, wre, wim)):
         torch.testing.assert_close(g, w, rtol=1e-9, atol=1e-9 * n)
+
+
+# ---------------------------------------------------------------------------
+# LM kernels: the embedding gather B9 and the fused SSD scan B8
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("d", [2560, 66, 3])
+def test_gather_kernel_equals_plain_version(cuda_device, dtype, d):
+    """B9 against ``table[ids]``, exactly (a gather is a copy): 16-byte
+    vector copies (d = 2560), 8-byte (66 fp32) and 4-byte (3 fp32), also
+    from a table that starts one row in (an unaligned base)."""
+    from repro_torch.kernels import gather
+
+    rng = np.random.default_rng(d)
+    table = torch.from_numpy(rng.standard_normal((1000, d)).astype(dtype)) \
+        .to(cuda_device)
+    for tab in (table, table[1:]):
+        for t in (1, 7, 512):
+            ids = rng.integers(0, tab.shape[0], t)
+            before = gather.KERNEL_LAUNCHES
+            got = gather.embedding_gather(tab, ids)
+            torch.cuda.synchronize()
+            assert gather.KERNEL_LAUNCHES == before + 1
+            assert torch.equal(got, gather.embedding_gather_ref(tab, ids))
+    dev_ids = torch.tensor([999, 0, 5], device=cuda_device)   # on the card: unscanned
+    assert torch.equal(gather.embedding_gather(table, dev_ids), table[dev_ids])
+
+
+def _ssd_case(b, l, h, p, g, n, dtype, device, seed, init=False):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((b, l, h, p)),
+            -np.abs(rng.standard_normal((b, l, h))) * 0.3,
+            rng.standard_normal((b, l, g, n)), rng.standard_normal((b, l, g, n))]
+    if init:
+        arrs.append(rng.standard_normal((b, h, p, n)))
+    out = [torch.from_numpy(a.astype(dtype)).to(device) for a in arrs]
+    return out[:4], (out[4] if init else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-4), (np.float64, 1e-10)])
+@pytest.mark.parametrize("shape,chunk", [
+    ((2, 64, 4, 8, 2, 16), 16),          # the reference's test shape, g = 2
+    ((1, 64, 4, 32, 1, 16), 64),         # l == chunk, p split in two blocks
+    ((1, 512, 80, 64, 1, 128), 256),     # mamba2-2.7b's prefill
+])
+def test_ssd_kernel_matches_plain_version(cuda_device, dtype, tol, shape, chunk):
+    """B8 against its plain version on the card, from zero and from a random
+    initial state, at the reference's tolerances (``tests/test_kernels.py``:
+    2e-4 fp32, 1e-10 fp64), fp32's absolute part taken relative to
+    max(1, max|y|): at mamba2's widths y sums 256 x 128 products and
+    reaches |y| ~ 1e2, where fp32 rounding in another summation order alone
+    exceeds 2e-4."""
+    from repro_torch.kernels import ssd
+
+    for init in (False, True):
+        (xd, ad, B, C), s0 = _ssd_case(*shape, dtype, cuda_device, chunk, init)
+        before = ssd.KERNEL_LAUNCHES
+        y, f = ssd.ssd_fused(xd, ad, B, C, chunk=chunk, init_state=s0)
+        torch.cuda.synchronize()
+        assert ssd.KERNEL_LAUNCHES == before + 1
+        y0, f0 = ssd.ssd_fused_ref(xd, ad, B, C, chunk=chunk, init_state=s0)
+        for got, want in ((y, y0), (f, f0)):
+            scale = max(1.0, float(want.abs().max())) if dtype == np.float32 \
+                else 1.0
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.cuda
+def test_refused_ssd_launch_raises_and_leaves_no_error_behind(cuda_device):
+    """A B8 block asking for more dynamic shared memory than the card grants
+    (fp64, d_state 512, chunk 256: 420 KB) is refused: the wrapper's plan
+    raises before launching, a forced launch raises instead of returning
+    garbage and counts nothing, and the next launch runs clean."""
+    from repro_torch.analysis import LaunchPlanError
+    from repro_torch.kernels import ssd
+
+    (xd, ad, B, C), _ = _ssd_case(1, 256, 2, 64, 1, 512, np.float64,
+                                  cuda_device, 0)
+    with pytest.raises(LaunchPlanError, match="shared memory"):
+        ssd.ssd_fused(xd, ad, B, C, chunk=256)
+    y = torch.empty_like(xd)
+    f = torch.empty((1, 2, 64, 512), dtype=xd.dtype, device=cuda_device)
+    before = ssd.KERNEL_LAUNCHES
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ssd._launch(xd, ad, B, C, None, y, f, 256, 64)
+    assert ssd.KERNEL_LAUNCHES == before
+    (xd, ad, B, C), _ = _ssd_case(1, 256, 2, 64, 1, 128, np.float64,
+                                  cuda_device, 1)
+    got, fs = ssd.ssd_fused(xd, ad, B, C, chunk=256)
+    torch.cuda.synchronize()
+    assert ssd.KERNEL_LAUNCHES == before + 1
+    want, fw = ssd.ssd_fused_ref(xd, ad, B, C, chunk=256)
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(fs, fw, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_reduced_mamba2_serves_on_the_card_as_on_the_cpu(cuda_device):
+    """The LM path with the same weights on the card (B8, B9) and on the
+    CPU (plain versions): prefill and decode logits at 1e-5 x max|logit|,
+    and the engine's greedy tokens equal."""
+    from repro_torch import configs
+    from repro_torch.kernels import gather, ssd
+    from repro_torch.models import model as M
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    cfg = configs.reduced_config("mamba2-2.7b")
+    cpu = M.init_params(M.make_generator(0, "cpu"), cfg)
+    card = copy.deepcopy(cpu).to(cuda_device)       # Module.to moves in place
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16))
+    b8, b9 = ssd.KERNEL_LAUNCHES, gather.KERNEL_LAUNCHES
+    outs = []
+    for p, dev in ((cpu, "cpu"), (card, cuda_device)):
+        caches = M.init_caches(cfg, 2, 64, dtype=torch.float32, device=dev)
+        logits, caches = M.prefill(p, cfg, {"tokens": prompts}, caches)
+        step, _ = M.decode_step(p, cfg, prompts[:, :1], caches)
+        outs.append((logits.cpu(), step.cpu()))
+    assert ssd.KERNEL_LAUNCHES - b8 == cfg.n_layers
+    assert gather.KERNEL_LAUNCHES - b9 == 2
+    for want, got in zip(*outs):
+        tol = 1e-5 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    gcfg = GenerationConfig(max_new_tokens=6, cache_len=64)
+    np.testing.assert_array_equal(ServeEngine(cfg, card, gcfg).generate(prompts),
+                                  ServeEngine(cfg, cpu, gcfg).generate(prompts))

@@ -1,0 +1,245 @@
+"""Parity of the port's LM kernels — the embedding gather (kernel B9,
+``repro_torch.kernels.gather``) and the fused SSD scan (kernel B8,
+``repro_torch.kernels.ssd``) — and their preflight with the JAX reference.
+
+The same numpy-seeded inputs go through both packages.  The reference's
+Pallas kernels run in interpret mode with x64 on, as
+``tests/test_kernels.py`` runs them; the port runs on the CPU, where each
+wrapper takes its plain PyTorch path because its tensors lie there.
+Tolerances, the reference's own (``tests/test_kernels.py``): the gather
+exactly (a copy); the scan 2e-4 at fp32 and 1e-10 at fp64, and 3e-4 in the
+Hypothesis property.  Against the reference's ``ssd_chunked``, whose
+inter-chunk carry is float32 whatever the inputs (``ssm.py:118-119, 142``),
+the fp64 scan agrees only to fp32 rounding (2e-4).  The kernels themselves
+are held against the plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import numpy as np
+import pytest
+import torch
+from _hypothesis_fallback import given, settings, st
+
+import jax.numpy as jnp
+
+from repro.kernels.gather import embedding_gather as ref_gather
+from repro.kernels.ssd import ssd_fused as ref_ssd_fused
+from repro.models.ssm import ssd_chunked as ref_ssd_chunked
+from repro.models.ssm import ssd_reference as ref_ssd_reference
+from repro_torch.analysis import LaunchPlanError, plan_embedding_gather, plan_ssd_fused
+from repro_torch.core import autotune
+from repro_torch.kernels import gather, ssd
+
+RNG = np.random.default_rng(21)
+TOLS = {np.float32: 2e-4, np.float64: 1e-10}
+
+
+# ---------------------------------------------------------------------------
+# Embedding gather (B9)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("vl", [8, 64, 256])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_embedding_gather_equals_reference(vl, dtype):
+    table = RNG.standard_normal((500, 32)).astype(dtype)
+    ids = RNG.integers(0, 500, (300,)).astype(np.int32)
+    want = np.asarray(ref_gather(jnp.asarray(table), jnp.asarray(ids), vl=vl))
+    got = gather.embedding_gather(torch.from_numpy(table), ids, vl=vl)
+    assert got.dtype == torch.from_numpy(table).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    # int64 tokens (the model's) and a CPU tensor give the same rows
+    again = gather.embedding_gather(torch.from_numpy(table),
+                                    torch.from_numpy(ids.astype(np.int64)))
+    assert torch.equal(again, got)
+
+
+@given(
+    t=st.integers(min_value=1, max_value=200),
+    v=st.integers(min_value=2, max_value=300),
+    vl=st.sampled_from([8, 32]),
+    seed=st.integers(0, 2**16),
+)
+@settings(max_examples=10, deadline=None)
+def test_embedding_gather_property(t, v, vl, seed):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((v, 16))
+    ids = rng.integers(0, v, (t,)).astype(np.int32)
+    got = gather.embedding_gather(torch.from_numpy(table), ids, vl=vl)
+    np.testing.assert_array_equal(got.numpy(), table[ids])
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(ref_gather(jnp.asarray(table), jnp.asarray(ids),
+                                           vl=vl)))
+
+
+@pytest.mark.parametrize("ids,match", [
+    (np.array([0, 7, 10]), "out of bounds"),                 # id == V
+    (np.array([3, -1]), "out of bounds"),                    # would wrap in torch
+    (np.array([1.0, 2.0]), "not an integer"),
+    (np.array([[1, 2]]), "one axis"),
+])
+def test_gather_preflight_refuses_before_any_launch(ids, match):
+    """JAX clamps an out-of-range gather; a CUDA kernel would read out of
+    bounds.  The plan scans host ids and raises before upload or launch,
+    on the CPU as on the card."""
+    table = torch.zeros((10, 4))
+    before = gather.KERNEL_LAUNCHES
+    with pytest.raises(LaunchPlanError, match=match):
+        gather.embedding_gather(table, ids)
+    with pytest.raises(LaunchPlanError, match=match):
+        gather.embedding_gather(table, torch.from_numpy(ids))
+    assert gather.KERNEL_LAUNCHES == before
+
+
+def test_gather_plan_shape_and_wrapper_contract():
+    plan = plan_embedding_gather(50_280, 2560, np.arange(513), vl=256)
+    assert plan.ok and plan.n_launches == 1
+    (blk,) = plan.blocks
+    warps = autotune.GATHER_BLOCK_THREADS // autotune.WARP
+    assert blk.grid == (-(-513 // warps),)
+    assert blk.block == (autotune.GATHER_BLOCK_THREADS,)
+    assert ("out", (513, 2560), "float32") in blk.operands
+    # vl only names the reference's grid step: the CUDA grid ignores it
+    assert plan_embedding_gather(50_280, 2560, np.arange(513), vl=8).blocks == plan.blocks
+    assert "table dtype" in plan_embedding_gather(
+        10, 4, np.arange(3), dtype="float16").violations[0]
+    with pytest.raises(TypeError, match="float32 or float64"):
+        gather.embedding_gather(torch.zeros((10, 4), dtype=torch.float16),
+                                np.arange(3))
+    with pytest.raises(ValueError, match=r"\(V, d\)"):
+        gather.embedding_gather(torch.zeros(10), np.arange(3))
+    empty = gather.embedding_gather(torch.zeros((10, 4)), np.zeros(0, np.int32))
+    assert empty.shape == (0, 4)
+
+
+# ---------------------------------------------------------------------------
+# Fused SSD scan (B8)
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(rng, b, l, h, p, g, n, dtype, scale=0.3):
+    return (rng.standard_normal((b, l, h, p)).astype(dtype),
+            (-np.abs(rng.standard_normal((b, l, h))) * scale).astype(dtype),
+            rng.standard_normal((b, l, g, n)).astype(dtype),
+            rng.standard_normal((b, l, g, n)).astype(dtype))
+
+
+def _port(arrs, **kw):
+    return ssd.ssd_fused(*(torch.from_numpy(a) for a in arrs), **kw)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("chunk", [8, 16, 64])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_ssd_fused_matches_reference(chunk, g, dtype):
+    rng = np.random.default_rng(chunk + g)
+    arrs = _ssd_inputs(rng, 2, 64, 4, 8, g, 16, dtype)
+    y0, f0 = ref_ssd_fused(*(jnp.asarray(a) for a in arrs), chunk=chunk)
+    y1, f1 = _port(arrs, chunk=chunk)
+    assert y1.dtype == torch.from_numpy(arrs[0]).dtype and f1.dtype == y1.dtype
+    tol = TOLS[dtype]
+    np.testing.assert_allclose(y1.numpy(), np.asarray(y0), atol=tol, rtol=tol)
+    np.testing.assert_allclose(f1.numpy(), np.asarray(f0), atol=tol, rtol=tol)
+
+
+@given(
+    logl=st.integers(min_value=3, max_value=6),
+    chunk=st.sampled_from([4, 8]),
+    seed=st.integers(0, 2**16),
+)
+@settings(max_examples=8, deadline=None)
+def test_ssd_fused_property(logl, chunk, seed):
+    rng = np.random.default_rng(seed)
+    arrs = _ssd_inputs(rng, 1, 1 << logl, 2, 4, 1, 8, np.float32, scale=0.5)
+    y0, f0 = ref_ssd_reference(*(jnp.asarray(a) for a in arrs))
+    y1, f1 = _port(arrs, chunk=chunk)
+    np.testing.assert_allclose(y1.numpy(), np.asarray(y0), atol=3e-4)
+    np.testing.assert_allclose(f1.numpy(), np.asarray(f0), atol=3e-4)
+    y2, f2 = ref_ssd_fused(*(jnp.asarray(a) for a in arrs), chunk=chunk)
+    np.testing.assert_allclose(y1.numpy(), np.asarray(y2), atol=3e-4)
+    np.testing.assert_allclose(f1.numpy(), np.asarray(f2), atol=3e-4)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_ssd_with_init_state_matches_chunked_and_recurrence(dtype):
+    """With an initial state the scan meets ``ssd_chunked``'s contract (the
+    one the model calls) and the per-token recurrence's."""
+    rng = np.random.default_rng(5)
+    arrs = _ssd_inputs(rng, 2, 48, 4, 8, 2, 16, dtype)
+    init = rng.standard_normal((2, 4, 8, 16)).astype(dtype)
+    y1, f1 = _port(arrs, chunk=16, init_state=torch.from_numpy(init))
+    tol = TOLS[dtype]
+    y0, f0 = ref_ssd_reference(*(jnp.asarray(a) for a in arrs), jnp.asarray(init))
+    np.testing.assert_allclose(y1.numpy(), np.asarray(y0), atol=tol, rtol=tol)
+    np.testing.assert_allclose(f1.numpy(), np.asarray(f0), atol=tol, rtol=tol)
+    # the reference's chunked scan carries its state in float32; with f64
+    # ``ad`` it does not trace under x64 at all, so it is fed ad in float32
+    # (the model's dtype; these values are f32-exact after the cast)
+    xd, ad, B, C = arrs
+    ad32 = ad.astype(np.float32)
+    y2, f2 = ref_ssd_chunked(jnp.asarray(xd), jnp.asarray(ad32), jnp.asarray(B),
+                             jnp.asarray(C), 16, jnp.asarray(init))
+    y3, f3 = _port((xd, ad32.astype(dtype), B, C), chunk=16,
+                   init_state=torch.from_numpy(init))
+    np.testing.assert_allclose(y3.numpy(), np.asarray(y2), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(f3.numpy(), np.asarray(f2), atol=2e-4, rtol=2e-4)
+    # init_state=None is the zero state, ssd_fused's own contract
+    y4, f4 = _port(arrs, chunk=16)
+    y5, f5 = _port(arrs, chunk=16, init_state=torch.zeros((2, 4, 8, 16),
+                                                          dtype=y4.dtype))
+    assert torch.equal(y4, y5) and torch.equal(f4, f5)
+
+
+@pytest.mark.parametrize("shape,chunk,dtype,match", [
+    ((1, 60, 4, 8, 1, 16), 16, "float32", "multiple of the chunk"),
+    ((1, 8, 4, 8, 1, 16), 16, "float32", "multiple of the chunk"),
+    ((1, 64, 4, 8, 3, 16), 16, "float32", "not a multiple of 3 groups"),
+    ((1, 256, 2, 64, 1, 512), 256, "float64", "shared memory"),
+])
+def test_ssd_plan_refusals_raise_before_any_launch(shape, chunk, dtype, match):
+    b, l, h, p, g, n = shape
+    plan = plan_ssd_fused(b, l, h, p, g, n, chunk=chunk, dtype=dtype)
+    assert any(match in v for v in plan.violations), plan.violations
+    arrs = _ssd_inputs(np.random.default_rng(0), *shape, np.dtype(dtype).type)
+    before = ssd.KERNEL_LAUNCHES
+    with pytest.raises(LaunchPlanError, match=match):
+        _port(arrs, chunk=chunk)
+    assert ssd.KERNEL_LAUNCHES == before
+
+
+def test_ssd_wrapper_refuses_mixed_dtypes_and_shapes():
+    arrs = _ssd_inputs(np.random.default_rng(0), 1, 16, 2, 4, 1, 8, np.float32)
+    xd, ad, B, C = (torch.from_numpy(a) for a in arrs)
+    with pytest.raises(TypeError, match="ad dtype"):
+        ssd.ssd_fused(xd, ad.double(), B, C, chunk=8)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ssd.ssd_fused(xd.half(), ad.half(), B.half(), C.half(), chunk=8)
+    with pytest.raises(ValueError, match="init_state"):
+        ssd.ssd_fused(xd, ad, B, C, chunk=8, init_state=torch.zeros(1, 2, 4, 9))
+    with pytest.raises(ValueError, match=r"\(b, l, g, n\)"):
+        ssd.ssd_fused(xd, ad, B[:, :8], C, chunk=8)
+
+
+def test_ssd_plan_at_mamba2_widths():
+    """mamba2-2.7b's prefill: h 80, p 64, n 128, chunk 256.  At b = 1 the
+    80 planes do not fill 132 SMs, so each plane's columns go in two
+    blocks; at b = 4 one block a plane.  Both dtypes fit a block."""
+    one = plan_ssd_fused(1, 512, 80, 64, 1, 128, chunk=256)
+    four = plan_ssd_fused(4, 512, 80, 64, 1, 128, chunk=256, dtype="float64")
+    assert one.ok and four.ok
+    assert one.blocks[0].grid == (80, 2) and four.blocks[0].grid == (320, 1)
+    assert autotune.ssd_p_block(1, 80, 64) == 32
+    assert one.blocks[0].smem_bytes == autotune.ssd_smem_bytes(256, 32, 128, 4)
+    assert four.blocks[0].smem_bytes <= autotune.SMEM_PER_BLOCK
+    assert autotune.ssd_p_block(2, 4, 8) == 8         # never below a warp
+
+
+def test_segsum_matches_reference():
+    """The decay matrix of B8's plain version: the reference's ``_segsum``
+    (``-inf`` above the diagonal, so its exp is exactly 0 there)."""
+    from repro.models.ssm import _segsum as ref_segsum
+
+    a = (-np.abs(np.random.default_rng(9).standard_normal((2, 3, 16)))).astype(np.float64)
+    got = ssd.segsum(torch.from_numpy(a)).numpy()
+    want = np.asarray(ref_segsum(jnp.asarray(a)))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    assert np.all(np.exp(got)[..., ~np.tri(16, dtype=bool)] == 0.0)
