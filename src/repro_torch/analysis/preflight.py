@@ -6,7 +6,10 @@ or running it, from operand metadata alone (:class:`SlabMeta`).
 :func:`plan_spmm_sell` (kernel B1, :func:`repro_torch.kernels.sell_core
 .spmm_sell`): per width bucket one launch of ``SPMM_BLOCK_THREADS``-thread
 blocks, one thread per (slice, lane) row, ``grid = (ceil(S_b * C /
-threads), k_pad / k_tile)``.
+threads), k_pad / k_tile)``; a bucket that :func:`repro_torch.core.autotune
+.spmm_split` splits runs blocks of ``lanes`` rows x ``parts`` threads,
+``grid = (ceil(S_b * C / lanes), k_pad / k_tile)``, each claiming the
+shared memory of its partial sums.
 
 :func:`plan_spmm_sell_stream` (kernel B2, :func:`repro_torch.kernels
 .sell_core.spmm_sell_stream`): B1's function and contracts; per width
@@ -31,8 +34,8 @@ threads)``.
 :func:`plan_fft_stockham` (kernel B7, :func:`repro_torch.kernels.fft
 .fft_stockham`): the in-block form (one launch, ``b_block`` signals a
 block, capped to the shared memory a block may claim) where one signal's
-ping-pong buffers fit a block, else the per-stage form (one launch per
-stage over the whole batch, no shared memory).
+ping-pong buffers fit a block, else the two-pass form (two launches, each
+block a tile of sub-signals in shared memory).
 
 :func:`plan_embedding_gather` (kernel B9, :func:`repro_torch.kernels
 .gather.embedding_gather`): one launch, one warp a gathered row; the ids
@@ -43,9 +46,9 @@ block per (b, h) plane and slice of head columns, its shared memory priced.
 Checked contracts:
 
 * grid and block dims inside CUDA's limits; shared memory per block
-  within :data:`SMEM_PER_BLOCK` (only the in-block FFT and the streamed
-  SpMM claim any: the other kernels keep their sums and masks in
-  registers);
+  within :data:`SMEM_PER_BLOCK` (the FFT, the streamed SpMM, B1's split
+  buckets and the SSD scan claim some: the other kernels keep their sums
+  and masks in registers);
 * pow2 padding invariants: ``k_block`` and every packed bucket width are
   powers of two;
 * the column tile fits a thread: ``k_tile <= MAX_K_TILE`` state columns
@@ -68,7 +71,6 @@ import numpy as np
 from repro_torch.analysis.launchplan import BlockPlan, LaunchPlan, is_pow2
 from repro_torch.core.autotune import (
     ACC_BYTES_PER_THREAD,
-    FFT_STAGE_THREADS,
     GATHER_BLOCK_THREADS,
     KERNEL_DTYPES,
     MAX_K_TILE,
@@ -77,8 +79,13 @@ from repro_torch.core.autotune import (
     SPMM_BLOCK_THREADS,
     SSD_BLOCK_THREADS,
     WARP,
+    fft_block_limit,
     fft_block_signals,
     fft_block_threads,
+    fft_pass_smem_bytes,
+    fft_pass_threads,
+    fft_two_pass,
+    spmm_split,
     ssd_p_block,
     ssd_smem_bytes,
     stream_smem_bytes,
@@ -264,9 +271,6 @@ def plan_spmm_sell(
             f"k_tile {k_tile} x {vb} B accumulators exceed the per-thread "
             f"register budget ({ACC_BYTES_PER_THREAD} B, k_tile <= "
             f"{MAX_K_TILE})")
-    threads = SPMM_BLOCK_THREADS
-    if threads > MAX_BLOCK_THREADS:
-        violations.append(f"block of {threads} threads > {MAX_BLOCK_THREADS}")
     grid_y = k_pad // k_tile
     if grid_y > MAX_GRID_Y:
         violations.append(
@@ -275,14 +279,25 @@ def plan_spmm_sell(
     dtype = x_dtype or meta.val_dtype
     blocks = []
     for i, (s, w) in enumerate(zip(meta.n_slices, meta.widths)):
-        grid_x = math.ceil(s * meta.c / threads)
+        split = spmm_split(w, meta.c, s, k_tile, vb)
+        threads = split.threads
+        rows = split.lanes if split.parts > 1 else threads
+        if threads > MAX_BLOCK_THREADS:
+            violations.append(f"bucket {i} (W={w}): block of {threads} "
+                              f"threads > {MAX_BLOCK_THREADS}")
+        if split.smem_bytes > SMEM_PER_BLOCK:
+            violations.append(f"bucket {i} (W={w}): {split.smem_bytes} B of "
+                              f"shared memory a block > {SMEM_PER_BLOCK}")
+        grid_x = math.ceil(s * meta.c / rows)
         if grid_x > MAX_GRID_X:
             violations.append(
                 f"bucket {i} (W={w}): grid.x {grid_x} > {MAX_GRID_X}")
         blocks.append(BlockPlan(
-            label=f"bucket{i}[W={w}]",
+            label=(f"bucket{i}[W={w}, split={split.parts}x{split.lanes}]"
+                   if split.parts > 1 else f"bucket{i}[W={w}]"),
             grid=(grid_x, grid_y),
             block=(threads,),
+            smem_bytes=split.smem_bytes,
             operands=(
                 ("cols", (s, w, meta.c), meta.idx_dtype),
                 ("vals", (s, w, meta.c), meta.val_dtype),
@@ -554,10 +569,13 @@ def plan_fft_stockham(n: int, batch: int = 1, *, b_block: int = 8,
     Where one signal's ping-pong buffers (``4 * n * itemsize`` B) fit the
     shared memory of a block, the in-block form runs: one launch, ``grid =
     ceil(batch / signals)`` with ``signals = b_block`` capped to what fits.
-    Longer signals run the per-stage form: ``log2 n`` launches of
-    ``FFT_STAGE_THREADS``-thread blocks, one thread per butterfly of the
-    whole batch, ping-ponging through device buffers.  Every power of two
-    n >= 2 is accepted (the TPU's VMEM limit does not apply).
+    Longer signals run the two-pass form (:func:`repro_torch.core.autotune
+    .fft_two_pass`): pass A, ``batch * n2 / tile_a`` blocks of ``tile_a``
+    length-n1 columns, then pass B, ``batch * n1 / tile_b`` blocks of
+    ``tile_b`` length-n2 rows, each block's ping-pong buffers priced in
+    ``smem_bytes``; both sub-lengths at most what a block holds, so n up to
+    2^24 in fp64 and 2^26 in fp32 (the reference refuses far shorter
+    lengths: its VMEM).  Longer signals are a violation.
     """
     violations: list[str] = []
     pow2 = n >= 2 and is_pow2(n)
@@ -574,14 +592,15 @@ def plan_fft_stockham(n: int, batch: int = 1, *, b_block: int = 8,
     half = n // 2 if pow2 else 0
     rows = max(int(batch), 1)
     twiddles = (("wre", (stages, half), dtype), ("wim", (stages, half), dtype))
+    planes = (("re", (rows, n), dtype), ("im", (rows, n), dtype))
     blocks = []
     signals = fft_block_signals(n, b_block, b) if pow2 else 0
+    two_pass = fft_two_pass(n, b) if pow2 and signals < 1 else None
     if signals >= 1:
         smem = 4 * signals * n * b
         if smem > SMEM_PER_BLOCK:
             violations.append(f"{smem} B of shared memory a block > "
                               f"{SMEM_PER_BLOCK}")
-        planes = (("re", (rows, n), dtype), ("im", (rows, n), dtype))
         blocks.append(BlockPlan(
             label=f"in_block[signals={signals}]",
             grid=(math.ceil(rows / signals),),
@@ -589,16 +608,30 @@ def plan_fft_stockham(n: int, batch: int = 1, *, b_block: int = 8,
             operands=planes + twiddles + (("out_re", (rows, n), dtype),
                                           ("out_im", (rows, n), dtype)),
             smem_bytes=smem))
+    elif two_pass is not None:
+        n1, n2, tile_a, tile_b = two_pass
+        scratch = (("scratch_re", (rows, n), dtype),
+                   ("scratch_im", (rows, n), dtype))
+        out = (("out_re", (rows, n), dtype), ("out_im", (rows, n), dtype))
+        for label, m, count, tile, pad, ins, outs in (
+                ("pass_a", n1, n2, tile_a, 0, planes, scratch),
+                ("pass_b", n2, n1, tile_b, tile_b, scratch, out)):
+            smem = fft_pass_smem_bytes(m, tile, b, pad)
+            if smem > SMEM_PER_BLOCK:
+                violations.append(f"{label}: {smem} B of shared memory a "
+                                  f"block > {SMEM_PER_BLOCK}")
+            grid_x = rows * (count // tile)
+            if grid_x > MAX_GRID_X:
+                violations.append(f"{label}: grid.x {grid_x} > {MAX_GRID_X}")
+            blocks.append(BlockPlan(
+                label=f"{label}[n1={n1}, n2={n2}, tile={tile}]",
+                grid=(grid_x,), block=(fft_pass_threads(m, tile),),
+                operands=ins + twiddles + outs, smem_bytes=smem))
     elif pow2:
-        grid_x = math.ceil(rows * half / FFT_STAGE_THREADS)
-        if grid_x > MAX_GRID_X:
-            violations.append(f"grid.x {grid_x} > {MAX_GRID_X}")
-        planes = tuple((name, (rows, n), dtype)
-                       for name in ("x_re", "x_im", "y_re", "y_im"))
-        blocks = [BlockPlan(label=f"stage{s}", grid=(grid_x,),
-                            block=(FFT_STAGE_THREADS,),
-                            operands=planes + twiddles)
-                  for s in range(stages)]
+        limit = fft_block_limit(b)
+        violations.append(
+            f"fft length {n} exceeds the two-pass form's reach: n1 and n2 "
+            f"each at most {limit} in {dtype}, so n <= {limit * limit}")
     return LaunchPlan(kernel="fft_stockham", operand=f"fft n={n} batch={batch}",
                       dtype=dtype, blocks=tuple(blocks),
                       violations=tuple(violations))

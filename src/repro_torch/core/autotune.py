@@ -26,7 +26,12 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch.sparse.formats import next_pow2, sigma_sort_order, slice_widths
+from repro_torch.sparse.formats import (
+    next_pow2,
+    pow2_ceil,
+    sigma_sort_order,
+    slice_widths,
+)
 
 #: Threads per warp: the SIMT group one SELL slice column is walked by.
 WARP = 32
@@ -50,13 +55,33 @@ MIN_C = 8
 #: Dynamic shared memory one block may claim on an H100: 227 KB of the
 #: SM's 256 KB (above 48 KB only after ``cudaFuncSetAttribute``).
 SMEM_PER_BLOCK = 232_448
-#: Threads per block of the per-stage FFT kernel (one butterfly each).
-FFT_STAGE_THREADS = 256
 #: Most threads of one block of the in-block FFT kernel.
 FFT_BLOCK_MAX_THREADS = 1024
+#: Bucket width from which kernel B1 splits each row's walk over several
+#: threads (narrower buckets keep one thread a row).
+SPMM_SPLIT_WIDTH = 128
+#: Longest walk (slab entries) one thread of a split bucket makes, while
+#: :data:`SPMM_SPLIT_MAX_PARTS` allows it.
+SPMM_SPLIT_MAX_CHAIN = 64
+#: Shortest walk a split is allowed to leave one thread.
+SPMM_SPLIT_MIN_CHAIN = 8
+#: Most threads that share one row: a block then holds 8 rows at most
+#: 1,024 threads (fewer at wide RHS tiles, :func:`spmm_split_max_threads`).
+SPMM_SPLIT_MAX_PARTS = 128
+#: Fewest rows a split block holds: 8 lanes of a slab row are one 32 B
+#: sector of column indices.
+SPMM_SPLIT_MIN_LANES = 8
+#: Threads an H100 keeps resident (132 SMs x 2048): a bucket with fewer
+#: row-walks than this leaves the card latency-bound, so it is split
+#: further (down to :data:`SPMM_SPLIT_MIN_CHAIN`).
+SPMM_FILL_THREADS = 132 * 2048
+#: RHS columns of the tile whose partial sums a split block reduces per
+#: round through shared memory: 1,024 threads x 4 x 8 B = 32 KB at most,
+#: below the 48 KB a launch gets without raising its limit.
+SPMM_SPLIT_K_CHUNK = 4
 #: Width tile kept in the tune schema for the reference's cache format;
-#: the Hopper kernel walks a slice's whole bucket width in one thread, so
-#: w_block does not shape its launch.
+#: the Hopper kernel walks a bucket's width in one thread a row, or in
+#: :func:`spmm_split` threads a row, so w_block does not shape its launch.
 W_BLOCK = 8
 #: Static shared memory of one block of the streaming SpMM kernel (B2):
 #: the per-warp minima of its tile walk, one int for each of its 8 warps.
@@ -89,12 +114,82 @@ def pick_stream_tiles(c: int, k_tile: int = 8,
     return ct, max(1, SPMM_BLOCK_THREADS // max(int(c), 1))
 
 
+@dataclasses.dataclass(frozen=True)
+class SpmmSplit:
+    """How kernel B1 walks one width bucket.  ``parts`` threads share each
+    (slice, lane) row (1: one thread a row, the narrow body); a split block
+    holds ``lanes`` consecutive rows x ``parts`` threads, and reduces their
+    partial sums through shared memory ``k_chunk`` RHS columns a round
+    (``smem_bytes``; the kernel's own constant, min(k_tile, 4))."""
+
+    parts: int
+    lanes: int
+    k_chunk: int
+    itemsize: int = 8
+
+    @property
+    def threads(self) -> int:
+        return self.lanes * self.parts if self.parts > 1 else SPMM_BLOCK_THREADS
+
+    @property
+    def smem_bytes(self) -> int:
+        return (self.parts * self.lanes * self.k_chunk * self.itemsize
+                if self.parts > 1 else 0)
+
+
+def spmm_split_max_threads(k_tile: int) -> int:
+    """Most threads of one split B1 block at this RHS tile, the kernel's
+    launch bound: a thread keeps ``k_tile`` sums and one gathered X tile in
+    registers, and a block's threads share 65,536 of them (1,024 threads
+    up to k_tile 4, 512 at 8, 256 from 16)."""
+    k_tile = int(k_tile)
+    return 256 if k_tile >= 16 else 512 if k_tile >= 8 else 1024
+
+
+def spmm_split(width: int, c: int, n_slices: int, k_tile: int = 1,
+               itemsize: int = 8) -> SpmmSplit:
+    """The walk of one B1 bucket of ``n_slices`` (``width``, ``c``) slices.
+
+    One thread a row walks all ``width`` entries of it: on big's W = 2048
+    bucket that is 64 threads each making 2,048 dependent steps, and the
+    bucket's time is that chain's latency, not its bytes.  From
+    :data:`SPMM_SPLIT_WIDTH` on, ``parts`` threads share a row (thread p
+    walks w = p, p + parts, ...): the smallest power of two that gives the
+    card :data:`SPMM_FILL_THREADS` row-walks, held between
+    ``width / SPMM_SPLIT_MAX_CHAIN`` (so no walk is longer than that) and
+    ``width / SPMM_SPLIT_MIN_CHAIN`` (so no walk is shorter), and at most
+    :data:`SPMM_SPLIT_MAX_PARTS` and what a block of
+    :func:`spmm_split_max_threads` holds at :data:`SPMM_SPLIT_MIN_LANES`
+    rows.  A block is ``lanes`` rows x ``parts``: 32 rows (one warp reads
+    32 lanes of one slab row, coalesced) or fewer when the thread budget
+    asks, never fewer than :data:`SPMM_SPLIT_MIN_LANES`.  ``k_chunk`` is
+    the slice of the ``k_tile`` partial sums reduced per round through
+    shared memory (:data:`SPMM_SPLIT_K_CHUNK` at most).
+    """
+    width, c, n_slices = int(width), int(c), int(n_slices)
+    if width < SPMM_SPLIT_WIDTH:
+        return SpmmSplit(parts=1, lanes=1, k_chunk=1, itemsize=itemsize)
+    rows = max(n_slices * c, 1)
+    budget = spmm_split_max_threads(k_tile)
+    lo = max(width // SPMM_SPLIT_MAX_CHAIN, 1)
+    hi = max(min(width // SPMM_SPLIT_MIN_CHAIN, SPMM_SPLIT_MAX_PARTS,
+                 budget // SPMM_SPLIT_MIN_LANES), 1)
+    fill = pow2_ceil(-(-SPMM_FILL_THREADS // rows))
+    parts = min(max(fill, lo), hi)
+    if parts < 2:
+        return SpmmSplit(parts=1, lanes=1, k_chunk=1, itemsize=itemsize)
+    lanes = min(WARP, budget // parts)
+    k_chunk = max(1, min(int(k_tile), SPMM_SPLIT_K_CHUNK))
+    return SpmmSplit(parts=parts, lanes=lanes, k_chunk=k_chunk,
+                     itemsize=itemsize)
+
+
 def fft_block_signals(n: int, b_block: int, itemsize: int) -> int:
     """Signals one block of the in-block FFT form holds: ``b_block``,
     capped to what fits the block's ping-pong buffers (two planes, two
     buffers: ``4 * n * itemsize`` bytes a signal) into
     :data:`SMEM_PER_BLOCK`.  0 when one signal does not fit: the
-    per-stage form runs instead.  Only the grouping depends on
+    two-pass form runs instead.  Only the grouping depends on
     ``b_block``, never the arithmetic."""
     return min(max(int(b_block), 1), SMEM_PER_BLOCK // (4 * n * itemsize))
 
@@ -133,6 +228,73 @@ def ssd_smem_bytes(chunk: int, p_block: int, n: int, itemsize: int) -> int:
     elems = (chunk + p_block * (n + 1) + 2 * t * (n + 1) + t * p_block
              + t * (t + 1) + t * p_block)
     return elems * itemsize
+
+
+#: Most columns one pass-A block of the two-pass FFT holds (the tile T):
+#: its T adjacent columns make each row segment it reads and writes T
+#: elements long (T >= 4 in fp64: a 32 B sector).
+FFT_PASS_TILE_A = 8
+#: Most rows one pass-B block holds: the T adjacent k1 of one k2 it writes
+#: are one segment (32 B at T = 4 in fp64).
+FFT_PASS_TILE_B = 4
+#: Most threads of one block of either two-pass launch.
+FFT_PASS_THREADS = 1024
+
+
+def fft_block_limit(itemsize: int) -> int:
+    """Longest signal whose ping-pong buffers (``4 * n * itemsize`` B) fit
+    one block: 4096 in fp64, 8192 in fp32."""
+    n = 2
+    while 4 * (2 * n) * itemsize <= SMEM_PER_BLOCK:
+        n *= 2
+    return n
+
+
+def fft_pass_smem_bytes(m: int, tile: int, itemsize: int, pad: int) -> int:
+    """Shared memory of one two-pass block: two planes, ping-pong, ``tile``
+    sub-signals of length ``m``, each padded by ``pad`` elements (pass B
+    pads its rows by its tile, so its column reads hit distinct banks),
+    and the sub-FFT's twiddles w_m^q for q < m / 2 (m elements)."""
+    return (4 * tile * (m + pad) + m) * itemsize
+
+
+def fft_pass_tile(m: int, count: int, itemsize: int, padded: bool,
+                  most: int) -> int:
+    """Sub-signals of length ``m`` one two-pass block transforms: the
+    largest power of two up to ``most`` and ``count`` (the sub-signals
+    there are) whose buffers fit a block."""
+    t = 1
+    while (2 * t <= min(most, count)
+           and fft_pass_smem_bytes(m, 2 * t, itemsize,
+                                   2 * t if padded else 0) <= SMEM_PER_BLOCK):
+        t *= 2
+    return t
+
+
+def fft_two_pass(n: int, itemsize: int) -> tuple[int, int, int, int] | None:
+    """(n1, n2, pass A's tile, pass B's tile) of the two-pass FFT form at
+    length ``n``.  n = n1 * n2 with n1 = 2^floor(log2 n / 2) (2^17 = 256 x
+    512): pass A's columns are the shorter sub-signals, so its tiles of
+    columns are the wider.  None where n2 exceeds :func:`fft_block_limit`,
+    i.e. n beyond 2^24 in fp64 and 2^26 in fp32.  Pass A holds ``tile`` of
+    the n2 columns of length n1 (at most :data:`FFT_PASS_TILE_A`), pass B
+    ``tile`` of the n1 rows of length n2 (at most :data:`FFT_PASS_TILE_B`,
+    rows padded by the tile)."""
+    n1 = 1 << ((int(n).bit_length() - 1) // 2)
+    n2 = int(n) // n1
+    if n2 > fft_block_limit(itemsize):
+        return None
+    return (n1, n2,
+            fft_pass_tile(n1, n2, itemsize, False, FFT_PASS_TILE_A),
+            fft_pass_tile(n2, n1, itemsize, True, FFT_PASS_TILE_B))
+
+
+def fft_pass_threads(m: int, tile: int) -> int:
+    """Threads of one two-pass block: one per radix-4 butterfly of its
+    ``tile * m / 4`` (radix 2 when m = 2), rounded up to a warp, at most
+    :data:`FFT_PASS_THREADS`."""
+    work = tile * max(m // 4, 1)
+    return min(FFT_PASS_THREADS, WARP * -(-work // WARP))
 
 
 def fft_block_threads(n: int, signals: int) -> int:

@@ -38,9 +38,11 @@
 //     tiles, the next tile in column order is fetched as the current one is
 //     consumed (the Hopper form of the TPU's double-buffered DMA; TMA is
 //     later work);
-//   * each thread performs B1's multiply-adds (fma) in B1's order (w
-//     ascending, PAD skipped), on the same X values, so the result is
-//     bit-equal to B1's whatever the order of a row's columns: a thread
+//   * each thread performs B1's multiply-adds (fma) in the order of B1's
+//     one-thread-a-row body (w ascending, PAD skipped), on the same X
+//     values, so on every bucket B1 does not split across threads the
+//     result is bit-equal to B1's whatever the order of a row's columns (on
+//     a split bucket the two agree to rounding): a thread
 //     whose next column lies in an earlier tile waits until the block-wide
 //     minimum steps back to it.  Ascending columns only keep a block from
 //     loading a tile twice;

@@ -37,9 +37,9 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 KERNELS = {
     "spmm_sell": ("spmm_sell.cu", {
         # cols, vals, rows, x, y, n_slices, width, c, ld, k_tile, threads,
-        # is_double, stream
+        # parts, is_double, stream
         "repro_spmm_sell_bucket": (
-            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _I, _P],
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _P],
             _I),
         "repro_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
@@ -78,10 +78,11 @@ KERNELS = {
         # threads, is_double, stream
         "repro_fft_stockham_block": (
             [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P], _I),
-        # xr, xi, wre, wim, yr, yi, batch, n, log2n, stage, threads,
-        # is_double, stream
-        "repro_fft_stockham_stage": (
-            [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P], _I),
+        # cols, xr, xi, wre, wim, yr, yi, batch, n, log2n, log2n1, log2tile,
+        # threads, is_double, stream
+        "repro_fft_pass": (
+            [_I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _P],
+            _I),
         "repro_fft_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
     "ssd_fused": ("ssd_fused.cu", {

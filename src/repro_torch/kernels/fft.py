@@ -12,9 +12,12 @@ Stockham's ping-pong between two buffers needs no bit reversal.
   of the kernel: where one signal's ping-pong buffers fit the shared memory
   of a block (n <= 4096 in fp64, n <= 8192 in fp32) one launch transforms
   ``b_block`` signals per block entirely in shared memory (the count capped
-  to what fits); longer signals run one launch per stage over the whole
-  batch through device buffers.  ``b_block`` only groups signals: it never
-  changes the result.
+  to what fits); longer signals run the two-pass (four-step) form: n = n1 *
+  n2 (:func:`repro_torch.core.autotune.fft_two_pass`), one launch of length-n1
+  FFTs down the columns of each signal's (n1, n2) view with the cross
+  twiddles applied, one launch of length-n2 FFTs along the rows, both in
+  shared memory, through one device scratch pair.  ``b_block`` only groups
+  signals: it never changes the result.
 * :func:`fft_stockham_ref` — the plain PyTorch version of the same
   function, for the CPU tests and for holding the kernel against.
 """
@@ -26,9 +29,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.autotune import (
-    FFT_STAGE_THREADS,
     fft_block_signals,
     fft_block_threads,
+    fft_pass_threads,
+    fft_two_pass,
 )
 
 __all__ = [
@@ -40,8 +44,8 @@ __all__ = [
 
 #: Launches of kernel B7 in this process, counted where each is launched
 #: and nowhere else: ``fft_stockham_block`` (the in-block form, one per
-#: call) and ``fft_stockham_stage`` (the per-stage form, log2 n per call).
-KERNEL_LAUNCHES = {"fft_stockham_block": 0, "fft_stockham_stage": 0}
+#: call) and ``fft_stockham_two_pass`` (the two-pass form, two per call).
+KERNEL_LAUNCHES = {"fft_stockham_block": 0, "fft_stockham_two_pass": 0}
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
 
@@ -155,19 +159,25 @@ def _launch_block(re, im, wre, wim, out_re, out_im, signals: int) -> None:
     KERNEL_LAUNCHES["fft_stockham_block"] += 1
 
 
-def _launch_stage(xr, xi, wre, wim, yr, yi, stage: int) -> None:
-    """One launch of the per-stage form: stage ``stage`` of the whole
-    batch, from (xr, xi) into (yr, yi)."""
+def _launch_pass(cols: bool, xr, xi, wre, wim, yr, yi, n1: int,
+                 tile: int) -> None:
+    """One launch of the two-pass form: pass A (``cols``: length-n1 FFTs
+    down ``tile`` columns a block, cross twiddles applied, planes (xr, xi)
+    into scratch (yr, yi)) or pass B (length-n2 FFTs along ``tile`` rows a
+    block, scratch into the output planes)."""
     lib = _lib()
     batch, n = xr.shape
+    m = n1 if cols else n // n1
     with torch.cuda.device(xr.device):
-        err = lib.repro_fft_stockham_stage(
-            xr.data_ptr(), xi.data_ptr(), wre.data_ptr(), wim.data_ptr(),
-            yr.data_ptr(), yi.data_ptr(), batch, n, int(math.log2(n)), stage,
-            FFT_STAGE_THREADS, int(xr.dtype == torch.float64),
+        err = lib.repro_fft_pass(
+            int(cols), xr.data_ptr(), xi.data_ptr(), wre.data_ptr(),
+            wim.data_ptr(), yr.data_ptr(), yi.data_ptr(), batch, n,
+            int(math.log2(n)), int(math.log2(n1)), int(math.log2(tile)),
+            fft_pass_threads(m, tile), int(xr.dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, lib, f"fft_stockham stage {stage} ({batch}, {n})")
-    KERNEL_LAUNCHES["fft_stockham_stage"] += 1
+    _raise_on(err, lib, f"fft_stockham two-pass {'A' if cols else 'B'} "
+                        f"({batch}, {n}), n1={n1}, tile={tile}")
+    KERNEL_LAUNCHES["fft_stockham_two_pass"] += 1
 
 
 def fft_stockham(re: torch.Tensor, im: torch.Tensor, wre: torch.Tensor,
@@ -179,8 +189,10 @@ def fft_stockham(re: torch.Tensor, im: torch.Tensor, wre: torch.Tensor,
     signals' device).  Returns the (batch, n) spectrum planes as new
     tensors on the signals' device.  On a CUDA device the in-block form of
     kernel B7 runs where a signal fits a block's shared memory (one launch,
-    ``b_block`` signals a block at most), the per-stage form otherwise
-    (log2 n launches); on the CPU the plain :func:`fft_stockham_ref` runs.
+    ``b_block`` signals a block at most), the two-pass form otherwise (two
+    launches, :func:`repro_torch.core.autotune.fft_two_pass`; lengths past
+    its reach raise); on the CPU the plain
+    :func:`fft_stockham_ref` runs.
     """
     batch, n = _check_args(re, im, wre, wim)
     if b_block < 1:
@@ -198,10 +210,13 @@ def fft_stockham(re: torch.Tensor, im: torch.Tensor, wre: torch.Tensor,
         out_re, out_im = torch.empty_like(re), torch.empty_like(im)
         _launch_block(re, im, wre, wim, out_re, out_im, signals)
         return out_re, out_im
-    bufs = [(torch.empty_like(re), torch.empty_like(im)) for _ in range(2)]
-    src = (re, im)
-    for s in range(int(math.log2(n))):
-        dst = bufs[s % 2]
-        _launch_stage(*src, wre, wim, *dst, s)
-        src = dst
-    return src
+    split = fft_two_pass(n, re.element_size())
+    if split is None:
+        raise ValueError(f"fft length {n} exceeds the two-pass form's reach "
+                         "(n1 and n2 must each fit one block)")
+    n1, _, tile_a, tile_b = split
+    scratch = (torch.empty_like(re), torch.empty_like(im))
+    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    _launch_pass(True, re, im, wre, wim, *scratch, n1, tile_a)
+    _launch_pass(False, *scratch, wre, wim, out_re, out_im, n1, tile_b)
+    return out_re, out_im

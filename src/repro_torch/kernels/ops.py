@@ -27,7 +27,12 @@ kernels:
   one launch per width bucket per step, k sources or configurations
   batched as state columns);
 * ``fft`` — :func:`repro_torch.kernels.fft.fft_stockham`, kernel B7 (one
-  launch in its in-block form, log2 n in its per-stage form).
+  launch in its in-block form, two in its two-pass form).
+
+``spmv``, ``spmm`` and ``moe_dispatch`` refuse an X with fewer rows than
+the operand has columns before anything is uploaded, planned or launched:
+the kernels gather ``X[col]`` unchecked (the reference clamps the gather
+instead).  A longer X is accepted, as in the reference.
 
 Calls run on the card unless the spec asks for the CPU
 (``ExecSpec(device="cpu")``), where the plain PyTorch versions run instead.
@@ -250,6 +255,18 @@ def _spmm_slabs(slabs: SellSlabs, x: torch.Tensor, *, k_block: int,
         col_tile=ct, row_tile=rt), x.device)
 
 
+def _check_x_rows(x, n_cols: int, what: str) -> None:
+    """Refuse an X shorter than the operand's ``n_cols``: B1, B2 and B6
+    would gather ``X[col]`` past its end.  Checked on the caller's array,
+    before it is uploaded; the service refuses such payloads the same
+    way."""
+    shape = tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+    if shape and shape[0] < n_cols:
+        raise ValueError(
+            f"{what}: X has {shape[0]} rows, fewer than the operand's "
+            f"n_cols={n_cols} (the kernels would gather past its end)")
+
+
 def _as_rhs(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
@@ -294,6 +311,7 @@ def spmm(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
     """
     spec = spec if spec is not None else ExecSpec()
     device = resolve_device(spec.device)
+    _check_x_rows(x, getattr(matrix, "n_cols", 0), "spmm")
     x = _as_rhs(x, device)
     if x.ndim != 2:
         raise ValueError(f"spmm expects X of shape (n_cols, k), got {tuple(x.shape)}")
@@ -323,6 +341,7 @@ def spmv(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
     """
     spec = spec if spec is not None else ExecSpec()
     device = resolve_device(spec.device)
+    _check_x_rows(x, getattr(matrix, "n_cols", 0), "spmv")
     x = _as_rhs(x, device)
     if x.ndim == 2:
         return spmm(matrix, x, spec=spec)
@@ -376,6 +395,7 @@ def moe_dispatch(routing: CSRMatrix | SellSlabs, x, *,
             f"unknown dispatch {spec.dispatch!r}: expected one of "
             f"{_MOE_DISPATCH_MODES}")
     device = resolve_device(spec.device)
+    _check_x_rows(x, getattr(routing, "n_cols", 0), "moe_dispatch")
     x = _as_rhs(x, device)
     if x.ndim != 2:
         raise ValueError(

@@ -20,10 +20,11 @@ per width bucket.
   launch of ``csrc/spmm_sell_stream.cu`` (kernel B2) per bucket, which
   stages X through shared memory in column tiles; on CPU tensors
   :func:`spmm_sell_stream_ref`, the TPU kernel's column-tile schedule in
-  plain PyTorch.  B2 is bit-equal to B1 on every operand (the same
-  multiply-adds in the same order), and the plain B2 to the plain B1 where
-  each row's columns ascend; elsewhere the TPU schedule's order of
-  additions differs, and the two agree to rounding.
+  plain PyTorch.  B2 is bit-equal to B1 on every bucket B1 walks with one
+  thread a row (the same multiply-adds in the same order; on a bucket B1
+  splits across threads the two agree to rounding), and the plain B2 to
+  the plain B1 where each row's columns ascend; elsewhere the TPU
+  schedule's order of additions differs, and the two agree to rounding.
 
 * :func:`bucketed_node_step` — the graph kernels' bucket loop (the
   counterpart of the reference's ``bucketed_node_step``): one launch of
@@ -47,8 +48,8 @@ from repro_torch.analysis.preflight import stream_block_rows, stream_col_tile
 from repro_torch.core.autotune import (
     KERNEL_DTYPES,
     MAX_K_TILE,
-    SPMM_BLOCK_THREADS,
     pick_stream_tiles,
+    spmm_split,
 )
 from repro_torch.sparse.formats import PAD, pow2_ceil
 
@@ -68,6 +69,7 @@ __all__ = [
     "spmm_sell_stream",
     "spmm_sell_stream_ref",
     "spmv_sell",
+    "splits",
 ]
 
 #: Launches of kernel B1 by :func:`spmm_sell` in this process: one per
@@ -174,25 +176,36 @@ def spmm_sell_ref(bucket_cols, bucket_vals, bucket_rows, x: torch.Tensor, *,
     return y[:n_rows]
 
 
+def splits(bucket_cols) -> bool:
+    """Whether kernel B1 splits any of these (S, W, C) buckets across
+    threads (:func:`repro_torch.core.autotune.spmm_split`; whether it
+    splits depends on the bucket's shape only, not on the RHS tile)."""
+    return any(spmm_split(c.shape[1], c.shape[2], c.shape[0]).parts > 1
+               for c in bucket_cols)
+
+
 def _launch_bucket(cols, vals, rows, x, y, k_tile: int) -> None:
     """One launch of kernel B1 on PyTorch's current stream of X's device,
-    made with that device current."""
+    made with that device current, walking the bucket as
+    :func:`repro_torch.core.autotune.spmm_split` chooses."""
     global KERNEL_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
     lib = cuda_lib.library("spmm_sell")
     n_slices, width, c = cols.shape
+    split = spmm_split(width, c, n_slices, k_tile, x.element_size())
     with torch.cuda.device(x.device):
         err = lib.repro_spmm_sell_bucket(
             cols.data_ptr(), vals.data_ptr(), rows.data_ptr(), x.data_ptr(),
             y.data_ptr(), n_slices, width, c, x.shape[1], k_tile,
-            SPMM_BLOCK_THREADS, int(x.dtype == torch.float64),
+            split.threads, split.parts, int(x.dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(
             f"spmm_sell kernel launch failed (cudaError {err}: {msg}) for a "
-            f"({n_slices}, {width}, {c}) bucket, k_tile={k_tile}")
+            f"({n_slices}, {width}, {c}) bucket, k_tile={k_tile}, "
+            f"{split.parts} threads a row")
     KERNEL_LAUNCHES += 1
 
 
@@ -204,7 +217,11 @@ def spmm_sell(bucket_cols, bucket_vals, bucket_rows, x: torch.Tensor, *,
     the tile one thread carries (:func:`k_tile_for`) at most once.  On a
     CUDA device every bucket is one launch of kernel B1; on the CPU the
     plain :func:`spmm_sell_ref` runs instead.  Unlike the reference there
-    is no ``w_block``: one thread walks a slice's whole bucket width.
+    is no ``w_block``: one thread walks a row's whole bucket width, or, in
+    the buckets :func:`repro_torch.core.autotune.spmm_split` splits,
+    ``parts`` threads share it and their sums are added in a fixed order
+    (deterministic; within the tolerance of the plain version, not
+    bit-equal to it or to B2 there).
     """
     _check_args(bucket_cols, bucket_vals, bucket_rows, x, n_rows)
     if x.device.type == "cpu":
@@ -218,6 +235,8 @@ def spmm_sell(bucket_cols, bucket_vals, bucket_rows, x: torch.Tensor, *,
     if k % kt:
         x = torch.nn.functional.pad(x, (0, kt - k % kt))
     x = x.contiguous()
+    if x.data_ptr() % 16:                       # the kernel's 16 B X loads
+        x = x.clone()
     y = torch.zeros((n_rows + 1, x.shape[1]), dtype=x.dtype, device=x.device)
     for cols, vals, rows in zip(bucket_cols, bucket_vals, bucket_rows):
         _launch_bucket(cols, vals, rows, x, y, kt)
@@ -303,7 +322,7 @@ def spmm_sell_stream(bucket_cols, bucket_vals, bucket_rows, x: torch.Tensor,
     ``row_tile`` at each bucket's slice count.  n_cols is not padded: the
     kernel cuts its last tile at n_cols.  On a CUDA device every bucket is
     one launch of kernel B2, bit-equal to :func:`spmm_sell` on the same
-    tensors; on the CPU the plain :func:`spmm_sell_stream_ref` runs
+    tensors wherever B1 walks a bucket with one thread a row; on the CPU the plain :func:`spmm_sell_stream_ref` runs
     instead.
     """
     _check_args(bucket_cols, bucket_vals, bucket_rows, x, n_rows)

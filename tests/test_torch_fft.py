@@ -20,6 +20,7 @@ import torch
 import jax.numpy as jnp
 
 from repro.analysis.preflight import plan_fft_stockham as ref_plan
+from repro.kernels import fft as ref_fft
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.kernels.execspec import ExecSpec as RefExecSpec
@@ -127,8 +128,8 @@ def test_fft_stockham_ref_matches_reference_plain_version():
 @pytest.mark.parametrize("b_block", [1, 8])
 def test_plan_accepts_whatever_the_reference_accepts(b_block, dtype):
     """Every (n, batch, dtype) the reference's VMEM-budgeted plan accepts,
-    the Hopper plan accepts too (its only limit is a block's shared
-    memory, which the per-stage form does not claim)."""
+    the Hopper plan accepts too (the two-pass form reaches n = 2^24 in
+    fp64, far past the reference's VMEM)."""
     accepted = 0
     for logn in range(1, 20):
         n = 1 << logn
@@ -152,17 +153,170 @@ def test_plan_chooses_the_form_by_shared_memory():
     assert blk.smem_bytes == 3 * 32 * 2048 <= autotune.SMEM_PER_BLOCK
     assert blk.grid == (math.ceil(8192 / 3),) and blk.block == (1024,)
     assert plan_fft_stockham(4096, 5, dtype="float64").n_launches == 1
+    # past it, the two-pass form: 8192 = 64 x 128, 8 columns / 4 rows a
+    # block; each block also stages its sub-FFT's half-circle table
     big = plan_fft_stockham(8192, 5, dtype="float64")
-    assert big.n_launches == 13 and all(b.smem_bytes == 0 for b in big.blocks)
-    assert big.blocks[0].grid == (math.ceil(5 * 4096 / 256),)
-    # fp32 fits twice the length
+    assert big.ok and big.n_launches == 2
+    a, b = big.blocks
+    assert a.label == "pass_a[n1=64, n2=128, tile=8]"
+    assert b.label == "pass_b[n1=64, n2=128, tile=4]"
+    assert a.smem_bytes == (4 * 8 * 64 + 64) * 8           # 8 columns
+    assert b.smem_bytes == (4 * 4 * (128 + 4) + 128) * 8   # rows padded
+    assert a.grid == (5 * 128 // 8,) and b.grid == (5 * 64 // 4,)
+    # one thread per radix-4 butterfly of a stage
+    assert a.block == (8 * 64 // 4,) and b.block == (4 * 128 // 4,)
+    # fp32 fits twice the length in one block
     assert plan_fft_stockham(8192, 5, dtype="float32").n_launches == 1
-    assert plan_fft_stockham(1 << 17, 256, dtype="float64").n_launches == 17
+    # the FFT drain's long plan: 2^17 = 256 x 512
+    long = plan_fft_stockham(1 << 17, 256, dtype="float64")
+    assert long.ok and long.n_launches == 2
+    assert [blk.label for blk in long.blocks] == [
+        "pass_a[n1=256, n2=512, tile=8]", "pass_b[n1=256, n2=512, tile=4]"]
+    assert long.blocks[0].smem_bytes == (4 * 8 * 256 + 256) * 8 \
+        <= autotune.SMEM_PER_BLOCK
+    assert long.blocks[0].grid == (256 * 512 // 8,)
+    assert long.blocks[1].grid == (256 * 256 // 4,)
+    assert long.blocks[0].block == (512,) and long.blocks[1].block == (512,)
     # small signals: b_block signals a block, threads rounded up to a warp
     small = plan_fft_stockham(8, 13, b_block=8, dtype="float64").blocks[0]
     assert small.grid == (2,) and small.block == (32,)
     assert autotune.fft_block_signals(2048, 8, 8) == 3
     assert autotune.fft_block_signals(8192, 8, 8) == 0
+
+
+@pytest.mark.parametrize("dtype,side", [("float64", 4096), ("float32", 8192)])
+def test_plan_refuses_lengths_beyond_the_two_pass_reach(dtype, side):
+    """n1 and n2 each fit one block: 4096 x 4096 in fp64, 8192 x 8192 in
+    fp32 (twice that would put n2 past a block).  The longest length is
+    planned with tiles of one sub-signal; twice it is a violation naming
+    the limit."""
+    itemsize = np.dtype(dtype).itemsize
+    assert autotune.fft_block_limit(itemsize) == side
+    limit = side * side
+    edge = plan_fft_stockham(limit, 1, dtype=dtype)
+    assert edge.ok and edge.n_launches == 2
+    assert all(b.smem_bytes <= autotune.SMEM_PER_BLOCK for b in edge.blocks)
+    assert autotune.fft_two_pass(limit, itemsize)[2:] == (1, 1)
+    past = plan_fft_stockham(2 * limit, 1, dtype=dtype)
+    assert not past.ok and not past.blocks
+    assert "two-pass form's reach" in past.violations[0]
+    assert f"n <= {limit}" in past.violations[0]
+    assert autotune.fft_two_pass(2 * limit, itemsize) is None
+
+
+# ---------------------------------------------------------------------------
+# The two-pass form's index and twiddle arithmetic (kernel B7, n past a block)
+# ---------------------------------------------------------------------------
+
+
+def _stockham_rows(x, tw):
+    """Stockham FFTs along the last axis of complex ``x`` (length m) as the
+    kernel's ``sub_fft`` runs them: one radix-2 stage first when log2 m is
+    odd, then radix-4 stages (each the pair of radix-2 stages it replaces);
+    ``tw[q] = w_m^q`` for q < m / 2, and w_m^(q + m/2) = -w_m^q."""
+    m = x.shape[-1]
+    log2m = int(math.log2(m))
+
+    def w(e):
+        return torch.where(e < m // 2, tw[e % (m // 2)], -tw[e % (m // 2)])
+
+    log2s = 0
+    if log2m % 2:
+        j = torch.arange(m // 2)
+        a, b = x[..., :m // 2], x[..., m // 2:]
+        y = torch.empty_like(x)
+        y[..., 2 * j] = a + b
+        y[..., 2 * j + 1] = (a - b) * w(j)
+        x, log2s = y, 1
+    while log2s < log2m:
+        stride = 1 << log2s
+        jj = torch.arange(m // 4)
+        q, p = jj >> log2s, jj & (stride - 1)
+        a0, a1, a2, a3 = (x[..., i * (m // 4):(i + 1) * (m // 4)]
+                          for i in range(4))
+        big_a, big_b, big_c, big_d = a0 + a2, a1 + a3, a0 - a2, a1 - a3
+        o = 4 * q * stride + p
+        y = torch.empty_like(x)
+        y[..., o] = big_a + big_b
+        y[..., o + stride] = (big_c - 1j * big_d) * w(q * stride)
+        y[..., o + 2 * stride] = (big_a - big_b) * w(2 * q * stride)
+        y[..., o + 3 * stride] = (big_c + 1j * big_d) * w(3 * q * stride)
+        x, log2s = y, log2s + 2
+    return x
+
+
+def _two_pass_model(re, im, wre, wim):
+    """Kernel B7's two-pass form in plain torch: the tuner's split and
+    tiles, block by block, reading only row 0 of ``fft_twiddles`` (each
+    pass's sub-FFT table is gathered from it, as the kernel stages it in
+    shared memory).  Pass A:
+    ``tile_a`` adjacent columns j2 of each (n1, n2) signal view, length-n1
+    FFTs down them, entry (k1, j2) times w_n^(j2 k1), into scratch A[k1,
+    j2]; pass B: ``tile_b`` adjacent rows k1 of A, length-n2 FFTs along
+    them, written to X[k1 + n1 k2]."""
+    batch, n = re.shape
+    n1, n2, tile_a, tile_b = autotune.fft_two_pass(n, re.element_size())
+    row0 = torch.complex(wre[0], wim[0])            # w_n^e for e < n / 2
+    wn = torch.cat([row0, -row0])                   # w_n^(e + n/2) = -w_n^e
+    x = torch.complex(re, im).reshape(batch, n1, n2)
+    scratch = torch.empty_like(x)
+    k1 = torch.arange(n1)
+    tw_a = row0[torch.arange(n1 // 2) * n2]         # w_n1^q = w_n^(q n2)
+    tw_b = row0[torch.arange(n2 // 2) * n1]         # w_n2^q = w_n^(q n1)
+    for j2_0 in range(0, n2, tile_a):
+        j2 = torch.arange(j2_0, j2_0 + tile_a)
+        cols = x[:, :, j2_0:j2_0 + tile_a].transpose(1, 2)   # (batch, t, n1)
+        f = _stockham_rows(cols, tw_a)
+        f = f * wn[j2[:, None] * k1[None, :]]
+        scratch[:, :, j2_0:j2_0 + tile_a] = f.transpose(1, 2)
+    out = torch.empty((batch, n2, n1), dtype=x.dtype)
+    for k1_0 in range(0, n1, tile_b):
+        g = _stockham_rows(scratch[:, k1_0:k1_0 + tile_b, :], tw_b)
+        out[:, :, k1_0:k1_0 + tile_b] = g.transpose(1, 2)
+    out = out.reshape(batch, n)
+    return out.real.contiguous(), out.imag.contiguous()
+
+
+@pytest.mark.parametrize("m", [2, 4, 8, 32, 128, 512, 1024])
+def test_sub_fft_stages_match_torch_fft(m):
+    """The radix-2-then-radix-4 stage sequence of one sub-FFT, from its
+    half-circle twiddle table, is the DFT (odd and even log2 m)."""
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(rng.standard_normal((3, m))
+                         + 1j * rng.standard_normal((3, m)))
+    tw = torch.exp(-2j * math.pi * torch.arange(m // 2, dtype=torch.float64)
+                   / m)
+    torch.testing.assert_close(_stockham_rows(x, tw), torch.fft.fft(x),
+                               rtol=1e-12, atol=1e-12 * m)
+
+
+@pytest.mark.parametrize("dtype,n", [(np.float64, 1 << e) for e in range(13, 19)]
+                         + [(np.float32, 1 << e) for e in range(14, 19)])
+def test_two_pass_model_matches_reference_and_numpy(dtype, n):
+    """The index and twiddle arithmetic of the two-pass form (split, tiles,
+    cross twiddles from row 0, the k1 + n1 k2 store) against the
+    reference's Pallas FFT (interpret mode) and ``numpy.fft.fft``, at the
+    FFT tolerance (fp64 rtol 1e-9 / atol 1e-9 n; fp32 rtol 1e-3 / atol
+    1e-5 x max|spectrum|, since its error grows with the spectrum)."""
+    re, im = _signal(2, n, seed=n % 977, dtype=dtype)
+    wre, wim = fft.fft_twiddles(n, dtype)
+    itemsize = np.dtype(dtype).itemsize
+    assert autotune.fft_block_signals(n, 8, itemsize) == 0   # past a block
+    n1, n2, tile_a, tile_b = autotune.fft_two_pass(n, itemsize)
+    assert n1 * n2 == n and n1 <= n2 <= 2 * n1
+    if dtype == np.float64:
+        assert tile_a >= 4                          # a 32 B sector a segment
+    got = _two_pass_model(*(torch.from_numpy(a) for a in (re, im, wre, wim)))
+    want = ref_fft.fft_stockham(*(jnp.asarray(a) for a in (re, im, wre, wim)),
+                                b_block=2, interpret=True)
+    tol = TOLS[dtype]
+    want = [np.asarray(w) for w in want]
+    spec = np.fft.fft(re.astype(np.float64) + 1j * im.astype(np.float64))
+    for w in (want, (spec.real, spec.imag)):
+        atol = (tol * n if dtype == np.float64
+                else 1e-5 * max(float(np.abs(p).max()) for p in w))
+        for g, p in zip(got, w):
+            np.testing.assert_allclose(g.numpy(), p, rtol=tol, atol=atol)
 
 
 def test_fft_refusals_in_both_packages():

@@ -91,6 +91,82 @@ def test_spmm_rejects_1d():
 
 
 # ---------------------------------------------------------------------------
+# X's rows against the operand's columns (ROADMAP C: the reference clamps
+# the gather, the port refuses a short X before anything runs)
+# ---------------------------------------------------------------------------
+
+
+def _short_x_cases():
+    """(name, call) for every branch that gathers X: the SELL branch of
+    spmv and spmm, the ELLPACK branch (kernel B6) of both, moe_dispatch
+    (SELL and dense); each call takes X."""
+    _, port = _pair()
+    ell = F.csr_to_ellpack(port, c=8)
+    ell_spec = dataclasses.replace(CPU, vl=8)
+    return {
+        "spmv_sell": lambda x: ops.spmv(port, x[:, 0], spec=CPU),
+        "spmm_sell": lambda x: ops.spmm(port, x, spec=CPU),
+        "spmv_slabs": lambda x: ops.spmv(
+            F.csr_to_sell_slabs(port, c=32), x[:, 0], spec=CPU),
+        "spmv_ellpack": lambda x: ops.spmv(ell, x[:, 0], spec=ell_spec),
+        "spmm_ellpack": lambda x: ops.spmm(ell, x, spec=ell_spec),
+        "moe_sell": lambda x: ops.moe_dispatch(
+            port, x, spec=dataclasses.replace(CPU, dispatch="sell"), top_k=64),
+        "moe_dense": lambda x: ops.moe_dispatch(
+            port, x, spec=dataclasses.replace(CPU, dispatch="dense"),
+            top_k=64),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_short_x_cases()))
+def test_short_x_is_refused_before_anything_runs(case, monkeypatch):
+    """An X with fewer rows than n_cols (80) is a ValueError naming both
+    numbers, raised before the operand is scanned or uploaded, planned or
+    launched (the kernels would gather past X's end on the card)."""
+    from repro_torch.kernels import fft, sell_core, spmv
+
+    def untouched(*args, **kwargs):
+        raise AssertionError("reached past the X check")
+
+    for name in ("_prepared", "_normalize_matrix", "_routing_dense",
+                 "csr_to_sell_slabs"):
+        monkeypatch.setattr(ops, name, untouched)
+    call = _short_x_cases()[case]
+    before = (sell_core.KERNEL_LAUNCHES, sell_core.STREAM_LAUNCHES,
+              spmv.KERNEL_LAUNCHES, dict(fft.KERNEL_LAUNCHES))
+    x = np.random.default_rng(3).standard_normal((79, 2))
+    for short in (x, torch.from_numpy(x)):
+        with pytest.raises(ValueError, match=r"X has 79 rows.*n_cols=80"):
+            call(short)
+    assert (sell_core.KERNEL_LAUNCHES, sell_core.STREAM_LAUNCHES,
+            spmv.KERNEL_LAUNCHES, dict(fft.KERNEL_LAUNCHES)) == before
+
+
+def test_longer_x_is_accepted_and_matches_the_reference():
+    """A longer X is accepted, as in the reference: only its first n_cols
+    rows are read, so the result equals the one on those rows.  (The dense
+    MoE counterfactual is one matrix product, which needs X's rows to be
+    the routing's columns, in both packages.)"""
+    ref, port = _pair()
+    x = np.random.default_rng(4).standard_normal((95, 3))
+    cases = _short_x_cases()
+    for name, call in cases.items():
+        if name == "moe_dense":
+            continue
+        got = call(x)
+        exact = call(x[:80])
+        torch.testing.assert_close(got, exact, rtol=0, atol=0)
+    want = np.asarray(ref_ops.spmm(ref, x, spec=RefExecSpec(
+        vl=32, interpret=True)))
+    np.testing.assert_allclose(_np(cases["spmm_sell"](x)), want, rtol=TOL,
+                               atol=TOL)
+    want = np.asarray(ref_ops.spmv(ref, x[:, 0], spec=RefExecSpec(
+        vl=32, interpret=True)))
+    np.testing.assert_allclose(_np(cases["spmv_sell"](x)), want, rtol=TOL,
+                               atol=TOL)
+
+
+# ---------------------------------------------------------------------------
 # Repack-on-mismatch memo (ops.py:94-113, 297-306 of the reference)
 # ---------------------------------------------------------------------------
 
@@ -272,9 +348,14 @@ def test_plan_mirrors_the_kernel_launch():
     assert plan.ok and plan.kernel == "spmm_sell"
     assert plan.n_launches == slabs.n_buckets
     for b, cols in zip(plan.blocks, slabs.bucket_cols):
-        s, _, c = cols.shape
-        assert b.grid == (-(-s * c // autotune.SPMM_BLOCK_THREADS), 2)
-        assert b.block == (autotune.SPMM_BLOCK_THREADS,)
+        s, w, c = cols.shape
+        # a wide bucket runs split across threads: rows x parts a block
+        split = autotune.spmm_split(w, c, s, 4, 8)
+        rows = split.lanes if split.parts > 1 else autotune.SPMM_BLOCK_THREADS
+        assert b.grid == (-(-s * c // rows), 2)
+        assert b.block == (split.threads,)
+        assert b.smem_bytes == split.smem_bytes
+    assert any(b.smem_bytes for b in plan.blocks)       # W = 128: split
     summary = plan.summary()
     assert summary["ok"] and summary["n_launches"] == slabs.n_buckets
 

@@ -307,3 +307,153 @@ def test_missing_nvcc_is_a_clear_error(monkeypatch):
     monkeypatch.setattr(cuda_lib.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_lib._nvcc()
+
+
+# ---------------------------------------------------------------------------
+# Kernel B1's split of wide buckets across threads (the tuner and the plan)
+# ---------------------------------------------------------------------------
+
+#: big (random_csr(2_097_152, 2_097_152, 16.0, seed=0, skew=1.0)) packed at
+#: C = 32: (W, slices) of every bucket at sigma 256 (csr_to_sell_slabs'
+#: default) and at the tuned sigma 1024 (the registry's layout)
+BIG_BUCKETS = {
+    256: ((2, 195), (4, 9195), (8, 15538), (16, 16428), (32, 13984),
+          (64, 2006), (128, 2315), (256, 4863), (512, 935), (1024, 75),
+          (2048, 2)),
+    1024: ((1, 1028), (2, 3574), (4, 8892), (8, 14813), (16, 16712),
+           (32, 12144), (64, 5674), (128, 663), (256, 1192), (512, 769),
+           (1024, 73), (2048, 2)),
+}
+
+
+def test_big_bucket_shapes_are_the_packers():
+    """The table above is what the packer's own helpers give for big's row
+    lengths (the lognormal law of ``random_csr``, drawn without building
+    the 33.6M entries)."""
+    n = 2_097_152
+    rng = np.random.default_rng(0)
+    lengths = np.clip(np.round(rng.lognormal(np.log(16.0) - 0.5, 1.0, n))
+                      .astype(np.int64), 1, n)
+    assert int(lengths.sum()) == 33_576_516 and int(lengths.max()) == 1438
+    for sigma, buckets in BIG_BUCKETS.items():
+        order = F.sigma_sort_order(lengths, sigma)
+        widths = F.next_pow2(F.slice_widths(lengths, order, 32))
+        got = tuple((int(w), int(s)) for w, s in
+                    zip(*np.unique(widths, return_counts=True)))
+        assert got == buckets
+
+
+@pytest.mark.parametrize("sigma", sorted(BIG_BUCKETS))
+@pytest.mark.parametrize("k_tile,itemsize", [(1, 8), (32, 8), (4, 4)])
+def test_split_keeps_every_walk_under_its_bound(sigma, k_tile, itemsize):
+    """At big's bucket shapes: a bucket from SPMM_SPLIT_WIDTH on is split,
+    no thread walks more than SPMM_SPLIT_MAX_CHAIN entries nor fewer than
+    SPMM_SPLIT_MIN_CHAIN, a block is at most 1,024 threads (rows x parts)
+    and its partial sums fit 48 KB; narrower buckets keep one thread a
+    row.  The W = 2048 bucket's walk falls from 2,048 steps to 16."""
+    from repro_torch.core import autotune as A
+
+    for w, s in BIG_BUCKETS[sigma]:
+        split = A.spmm_split(w, 32, s, k_tile, itemsize)
+        if w < A.SPMM_SPLIT_WIDTH:
+            assert split.parts == 1 and split.smem_bytes == 0
+            assert split.threads == A.SPMM_BLOCK_THREADS
+            continue
+        assert split.parts > 1
+        chain = -(-w // split.parts)                   # entries a thread walks
+        assert A.SPMM_SPLIT_MIN_CHAIN <= chain <= A.SPMM_SPLIT_MAX_CHAIN
+        assert split.threads == split.lanes * split.parts \
+            <= A.spmm_split_max_threads(k_tile) <= 1024
+        assert split.lanes >= 8 and split.lanes & (split.lanes - 1) == 0
+        assert split.k_chunk == min(k_tile, A.SPMM_SPLIT_K_CHUNK)
+        assert split.smem_bytes == split.threads * split.k_chunk * itemsize
+        assert split.smem_bytes <= 48 * 1024
+    widest = A.spmm_split(2048, 32, 2, k_tile, itemsize)
+    assert 2048 // widest.parts == (16 if k_tile <= 4 else 64)
+    assert widest.threads == A.spmm_split_max_threads(k_tile)
+
+
+def test_split_follows_the_slice_count_and_spares_narrow_buckets():
+    """A wide bucket with rows enough to fill the card is split only as far
+    as its walk bound asks; one with few rows is split further, to the
+    shortest walk.  Narrow buckets (the MoE envelopes' routing widths 2 and
+    8, every W below SPMM_SPLIT_WIDTH) are never split, whatever their
+    slice count."""
+    from repro_torch.core import autotune as A
+
+    assert A.spmm_split(256, 32, 1 << 20).parts == 256 // A.SPMM_SPLIT_MAX_CHAIN
+    assert A.spmm_split(256, 32, 1).parts == 256 // A.SPMM_SPLIT_MIN_CHAIN
+    assert A.spmm_split(512, 32, 935).parts == 16      # 29,920 rows x 16
+    for w in (1, 2, 8, 64, A.SPMM_SPLIT_WIDTH // 2):
+        for s in (1, 64, 1 << 16):
+            for kt in (1, 32):
+                assert A.spmm_split(w, 32, s, kt).parts == 1
+    # very wide: parts stop at SPMM_SPLIT_MAX_PARTS, 8 rows a block; at a
+    # wide RHS tile the register budget stops them earlier
+    huge = A.spmm_split(1 << 14, 32, 1)
+    assert huge.parts == A.SPMM_SPLIT_MAX_PARTS and huge.lanes == 8
+    wide_k = A.spmm_split(1 << 14, 32, 1, k_tile=32)
+    assert wide_k.parts == 32 and wide_k.lanes == 8 and wide_k.threads == 256
+
+
+def test_splits_names_the_layouts_b1_splits_at_every_rhs_tile():
+    """``sell_core.splits`` is true exactly when a bucket reaches
+    SPMM_SPLIT_WIDTH, and agrees with ``spmm_split`` at every RHS tile and
+    element size (whether B1 splits depends on the bucket's shape only)."""
+    from repro_torch.core import autotune as A
+
+    short = F.random_csr(300, 250, 6.0, seed=1)
+    assert not sell_core.splits(F.csr_to_sell_slabs(short, c=32).bucket_cols)
+    lengths = np.full(64, 3)
+    lengths[5] = A.SPMM_SPLIT_WIDTH
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    rng = np.random.default_rng(2)
+    wide = F.CSRMatrix(
+        indptr=indptr,
+        indices=np.concatenate([np.sort(rng.choice(200, n, replace=False))
+                                for n in lengths]).astype(np.int32),
+        data=rng.standard_normal(indptr[-1]), n_cols=200)
+    cols = F.csr_to_sell_slabs(wide, c=8).bucket_cols
+    assert sell_core.splits(cols)
+    assert not sell_core.splits(cols[:-1])
+    for sigma in BIG_BUCKETS:
+        for w, s in BIG_BUCKETS[sigma]:
+            shape = torch.empty((s, w, 32), dtype=torch.int32, device="meta")
+            for kt, itemsize in ((1, 8), (4, 4), (8, 8), (32, 8)):
+                assert sell_core.splits([shape]) == (
+                    A.spmm_split(w, 32, s, kt, itemsize).parts > 1
+                ) == (w >= A.SPMM_SPLIT_WIDTH)
+
+
+def test_plan_prices_the_split_blocks():
+    """plan_spmm_sell at big's sigma-256 shapes: a split bucket's launch is
+    rows x parts threads, grid ceil(S * C / rows), with the partial sums'
+    shared memory priced; a narrow one keeps SPMM_BLOCK_THREADS threads
+    and claims none."""
+    import dataclasses
+    import math
+
+    from repro_torch.analysis import SlabMeta, plan_spmm_sell
+    from repro_torch.core import autotune as A
+
+    slabs = F.csr_to_sell_slabs(F.random_csr(300, 250, 6.0, seed=1), c=32)
+    widths, slices = zip(*BIG_BUCKETS[256])
+    meta = dataclasses.replace(
+        SlabMeta.from_slabs(slabs), widths=widths, n_slices=slices,
+        n_rows=2_097_152, n_cols=2_097_152)
+    for k, k_block in ((1, 1), (32, 32)):
+        plan = plan_spmm_sell(meta, k=k, x_dtype="float64", k_block=k_block)
+        assert plan.ok and plan.n_launches == len(widths)
+        for blk, w, s in zip(plan.blocks, widths, slices):
+            split = A.spmm_split(w, 32, s, k, 8)
+            if split.parts == 1:
+                assert blk.label == f"bucket{widths.index(w)}[W={w}]"
+                assert blk.block == (A.SPMM_BLOCK_THREADS,)
+                assert blk.grid == (math.ceil(s * 32 / 256), 1)
+                assert blk.smem_bytes == 0
+            else:
+                assert f"split={split.parts}x{split.lanes}" in blk.label
+                assert blk.block == (split.lanes * split.parts,)
+                assert blk.grid == (math.ceil(s * 32 / split.lanes), 1)
+                assert blk.smem_bytes == split.smem_bytes > 0
+    assert sum(b.smem_bytes > 0 for b in plan.blocks) == 5    # W >= 128
