@@ -25,12 +25,14 @@ result line is printed:
               uniform graphs at 2^12 and a prime node count, C x k; B6
               (``spmv_ell``) over C x dtype on two operands; B7
               (``fft_stockham``, the in-block and the two-pass form) over
-              n x batch x dtype, and the two-pass form's tiles; B8
+              n x batch x dtype, and the two-pass form's tiles, each form
+              reading row 0 of the twiddle tables only; B8
               (``ssd_fused``) at mamba2-2.7b's prefill shapes (b 1 and 4)
               and at small shapes in fp32 and fp64, from a zero and a
               random state; B9 (``embedding_gather``) from mamba2's
               (50,280, 2560) table at T in (1, 4, 512, 2048), fp32 and
-              fp64, exactly;
+              fp64, int32 and int64 ids on the host and on the card,
+              exactly, one launch a call;
 4. main     — the SpMV path as a user drives it: a ``KernelRegistry`` on the
               card registers cage10 and a 2,097,152-row operand, a
               ``KernelService(n_slots=32)`` serves 64 SpMV requests, every
@@ -91,7 +93,10 @@ result line is printed:
               the same bytes over the padded layout, the plain version
               and, where one PyTorch call computes the same function, that
               call (``torch.sparse.mm``, ``torch.fft.fft``,
-              ``torch.nn.functional.embedding``); B2 beside B1
+              ``torch.nn.functional.embedding``; B9 also as a launch
+              alone, its device time under ``torch.profiler`` and the
+              host time a call, beside ``F.embedding`` read the same
+              way); B2 beside B1
               at six shapes with the X bytes its schedule moves, and the
               rule ``mode="auto"`` follows; the MoE launch sets beside the
               dense ``torch.matmul``; then one graph drive per (graph, op)
@@ -182,6 +187,12 @@ SSD_TOL = {"float32": 2e-4, "float64": 1e-10}
 #: B9 compare: ids per call (a decode step of one and of four sequences, a
 #: prefill, four prefills)
 GATHER_TS = (1, 4, 512, 2048)
+#: B9 timing: id sets a reading rotates over, drawn across the whole table
+#: (16 x 512 rows x 10 KB = 84 MB, past the 50 MB L2), raw launches between
+#: one event pair, and wrapper calls timed on the host clock
+GATHER_ID_SETS = 16
+GATHER_LAUNCH_REPS = 64
+GATHER_HOST_CALLS = 256
 #: where every tensor of the run lives: the card
 DEVICE = "cuda"
 
@@ -1069,6 +1080,16 @@ def compare_fft(torch, np, fft_k) -> dict:
                 err = check_fft(torch, np, f"B7 vs plain: n={n} batch={batch}"
                                 f" {np.dtype(dtype).name}", got, want, n,
                                 dtype)
+                re, im, wre, wim = args
+                if batch == FFT_COMPARE_BATCHES[1] and n > 2 and re.is_cuda:
+                    # the kernel reads row 0 of the twiddle tables only:
+                    # NaN in every other row changes no bit
+                    wre, wim = wre.clone(), wim.clone()
+                    wre[1:], wim[1:] = float("nan"), float("nan")
+                    again = fft_k.fft_stockham(re, im, wre, wim, b_block=8)
+                    if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                        raise AssertionError(f"B7 n={n}: reads a twiddle row "
+                                             "past row 0")
                 key = np.dtype(dtype).name
                 worst[key] = max(worst.get(key, 0.0), err)
                 n_cases += 1
@@ -1099,7 +1120,9 @@ def compare_fft(torch, np, fft_k) -> dict:
         phase("compare", f"B7 two-pass n={n} {np.dtype(dtype).name} (n1 "
               f"{n1}): tiles {sorted(outs)} bit-equal, within tolerance")
     phase("compare", f"{n_cases} B7 cases ok; max abs err {worst} (rtol / "
-          "atol: fp64 1e-9 / 1e-9 n, fp32 1e-3 / 1e-5 max|spectrum|)")
+          "atol: fp64 1e-9 / 1e-9 n, fp32 1e-3 / 1e-5 max|spectrum|); both "
+          "forms read row 0 of the twiddle tables only (NaN rows 1.. change "
+          "no bit)")
     return worst
 
 
@@ -1995,24 +2018,35 @@ def compare_ssd(torch, np, ssd_k, cfg) -> float:
 
 
 def compare_gather(torch, np, gather_k, cfg) -> None:
-    """Phase 3 (B9): rows of the LM's table shape, exactly equal."""
+    """Phase 3 (B9): rows of the LM's table shape, exactly equal, for ids
+    of int32 and int64 on the host and on the card; one launch a call."""
     rng = np.random.default_rng(7)
     v, d = cfg.vocab_size, cfg.d_model
+    n_cases = 0
     for dt in (torch.float32, torch.float64):
         table = torch.randn((v, d), dtype=dt, device=DEVICE)
         for t in GATHER_TS:
-            ids = rng.integers(0, v, t)
-            got = gather_k.embedding_gather(table, ids)
-            torch.cuda.synchronize()
-            if not torch.equal(got, gather_k.embedding_gather_ref(table, ids)):
-                raise AssertionError(f"B9 vs table[ids]: T={t} {dt} differ")
-        dev_ids = torch.from_numpy(rng.integers(0, v, 64)).to(DEVICE)
-        if not torch.equal(gather_k.embedding_gather(table, dev_ids),
-                           table[dev_ids]):
-            raise AssertionError(f"B9 vs table[ids]: ids on the card, {dt}")
+            for id_dtype in (np.int32, np.int64):
+                host = rng.integers(0, v, t).astype(id_dtype)
+                want = gather_k.embedding_gather_ref(table, host)
+                for ids in (host, torch.from_numpy(host).to(DEVICE)):
+                    before = gather_k.KERNEL_LAUNCHES
+                    got = gather_k.embedding_gather(table, ids)
+                    torch.cuda.synchronize()
+                    if gather_k.KERNEL_LAUNCHES != before + 1:
+                        raise AssertionError(
+                            f"B9 T={t}: {gather_k.KERNEL_LAUNCHES - before} "
+                            "launches for one call")
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"B9 vs table[ids]: T={t} {dt} ids "
+                            f"{np.dtype(id_dtype).name} on "
+                            f"{getattr(ids, 'device', 'the host')} differ")
+                    n_cases += 1
         del table
-    phase("compare", f"B9 ({v}, {d}) table, T in {GATHER_TS} and 64 ids on "
-          "the card, fp32 and fp64: torch.equal to table[ids]")
+    phase("compare", f"B9 ({v}, {d}) table, T in {GATHER_TS}, fp32 and fp64, "
+          f"int32 and int64 ids on the host and on the card: {n_cases} cases "
+          "torch.equal to table[ids], one launch each")
 
 
 def lm_path(torch, np, configs, M, serve, ssd_k, gather_k) -> dict:
@@ -2182,8 +2216,7 @@ def lm_check(torch, np, M, lm: dict) -> None:
 def time_lm(torch, np, ssd_k, gather_k, lm: dict, comp_err: float,
             flush) -> list[dict]:
     """Phase 11 (LM): B8 at the batcher's (b 1) and the engine's (b 4)
-    prefill shapes; B9 on the model's table at a prefill's ids, a decode
-    step's and the engine's (4, 512) prefill."""
+    prefill shapes; B9 (:func:`time_gather`)."""
     cfg = lm["cfg"]
     s = cfg.ssm
     l, h, p, g, n, q = LM_PROMPT, cfg.n_ssm_heads, s.head_dim, s.n_groups, \
@@ -2233,49 +2266,149 @@ def time_lm(torch, np, ssd_k, gather_k, lm: dict, comp_err: float,
                "b4": {k: b8[1][k] for k in ("ms", "plain_ms", "bound_ms")}}
 
     table = lm["params"].tok_embed
-    v, d = table.shape
-    rows = []
-    for t in (LM_PROMPT, LM_SLOTS, LM_SLOTS * LM_PROMPT):
-        ids = torch.from_numpy(np.random.default_rng(t).integers(0, v, t)
-                               .astype(np.int32)).to(DEVICE)
-
-        def run():
-            return gather_k.embedding_gather(table, ids)
-
-        def plain():
-            return gather_k.embedding_gather_ref(table, ids)
-
-        def library():
-            return torch.nn.functional.embedding(ids, table)
-
-        got = run()
-        torch.cuda.synchronize()
-        if not (torch.equal(got, plain()) and torch.equal(got, library())):
-            raise AssertionError(f"B9 at T={t}: not equal to table[ids]")
-        ms = time_ms(torch, run, flush)
-        plain_ms = time_ms(torch, plain, flush)
-        lib_ms = time_ms(torch, library, flush)
-        bytes_ms = (2 * t * d * table.element_size() + 4 * t) \
-            / HBM_BYTES_PER_S * 1e3
-        rows.append({"t": t, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bytes_ms})
-        phase("timing", f"B9 embedding_gather T={t} from ({v}, {d}) fp32: "
-              f"{ms:.4f} ms | bound {bytes_ms:.5f} ms (bytes) | plain "
-              f"{plain_ms:.4f} ms | F.embedding {lib_ms:.4f} ms | equal")
-    main = rows[0]
-    gather_rec = {"name": "embedding_gather", "route": "cuda",
-                  "source": "src/repro_torch/csrc/embedding_gather.cu",
-                  "replaces": "src/repro/kernels/gather.py:24",
-                  "launches": lm["launches"]["embedding_gather"],
-                  "max_abs_err": 0.0, "ms": main["ms"],
-                  "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-                  "bound_by": "bytes", "library_ms": main["library_ms"],
-                  "shape": f"T={LM_PROMPT} ids from ({v}, {d}) fp32 (a "
-                           "batcher prefill)",
-                  "other_t": {str(r["t"]): {k: r[k] for k in (
-                      "ms", "plain_ms", "library_ms", "bound_ms")}
-                      for r in rows[1:]}}
+    gather_rec = time_gather(torch, np, gather_k, table,
+                             lm["launches"]["embedding_gather"], flush)
     return [ssd_rec, gather_rec]
+
+
+def gather_readings(torch, fn, launch, n_sets: int) -> dict:
+    """Readings of one way to compute ``table[ids]`` over ``n_sets`` id
+    sets: ``host_us``, GATHER_HOST_CALLS calls of ``fn(i)`` on the host
+    clock, one synchronize at the end, over the count; where ``launch`` is
+    given, ``launch_ms``, one CUDA-event pair around GATHER_LAUNCH_REPS
+    back-to-back calls of ``launch(i)``, over the count, and ``kernel_us``,
+    the device time a call of the same loop under ``torch.profiler`` (its
+    device-side events; None where it shows none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(n_sets):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(GATHER_HOST_CALLS):
+        fn(i % n_sets)
+    torch.cuda.synchronize()
+    out = {"host_us": (time.perf_counter() - t0) / GATHER_HOST_CALLS * 1e6}
+    if launch is None:
+        return out
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(GATHER_LAUNCH_REPS):
+        launch(i % n_sets)
+    end.record()
+    torch.cuda.synchronize()
+    out["launch_ms"] = start.elapsed_time(end) / GATHER_LAUNCH_REPS
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(GATHER_LAUNCH_REPS):
+            launch(i % n_sets)
+        torch.cuda.synchronize()
+    dev_us = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    out["kernel_us"] = dev_us / GATHER_LAUNCH_REPS if dev_us > 0 else None
+    return out
+
+
+def time_gather(torch, np, gather_k, table, launches: int, flush) -> dict:
+    """Phase 11 (B9): on the model's table at a decode step's (4), a
+    prefill's (512) and the engine's (4 x 512) ids, GATHER_ID_SETS id sets
+    each: the wrapper's time (``time_ms``: the host work of a call and its
+    kernel, L2 flushed), a launch alone and the host time a call
+    (:func:`gather_readings`), for int64 ids on the card (the engine's
+    argmax) and int32 ids on the host (the batcher's), beside
+    ``F.embedding`` on the same ids (uploaded first where they are on the
+    host)."""
+    from repro_torch.core.autotune import gather_grid
+
+    from torch.profiler import ProfilerActivity, profile
+
+    embed = torch.nn.functional.embedding
+    v, d = table.shape
+    # the first profiler run in a process pays the tracer's set-up and may
+    # record no device event: pay it here
+    with profile(activities=[ProfilerActivity.CUDA]):
+        embed(torch.zeros(1, dtype=torch.int64, device=DEVICE), table)
+        torch.cuda.synchronize()
+    rows = {}
+    for t in (LM_PROMPT, LM_SLOTS, LM_SLOTS * LM_PROMPT):
+        rng = np.random.default_rng(t)
+        host = [rng.integers(0, v, t).astype(np.int32)
+                for _ in range(GATHER_ID_SETS)]
+        dev = [torch.from_numpy(h.astype(np.int64)).to(DEVICE) for h in host]
+        outs = [torch.empty((t, d), dtype=table.dtype, device=DEVICE)
+                for _ in host]
+        chunks, threads = gather_grid(t, d * table.element_size())
+        for h, ids in zip(host, dev):
+            got = gather_k.embedding_gather(table, ids)
+            if not (torch.equal(got, gather_k.embedding_gather_ref(table, ids))
+                    and torch.equal(got, embed(ids, table))
+                    and torch.equal(got, gather_k.embedding_gather(table, h))):
+                raise AssertionError(f"B9 at T={t}: not equal to table[ids]")
+        ours = gather_readings(
+            torch, lambda i: gather_k.embedding_gather(table, dev[i]),
+            lambda i: gather_k._launch(table, dev[i], outs[i], chunks, threads),
+            GATHER_ID_SETS)
+        lib = gather_readings(torch, lambda i: embed(dev[i], table),
+                              lambda i: embed(dev[i], table), GATHER_ID_SETS)
+        ours_host = gather_readings(
+            torch, lambda i: gather_k.embedding_gather(table, host[i]), None,
+            GATHER_ID_SETS)["host_us"]
+        lib_host = gather_readings(
+            torch, lambda i: embed(torch.from_numpy(host[i]).to(DEVICE), table),
+            None, GATHER_ID_SETS)["host_us"]
+        rec = {
+            "ms": time_ms(torch, lambda: gather_k.embedding_gather(table, dev[0]), flush),
+            "plain_ms": time_ms(torch, lambda: gather_k.embedding_gather_ref(table, dev[0]), flush),
+            "library_ms": time_ms(torch, lambda: embed(dev[0], table), flush),
+            "launch_ms": ours["launch_ms"], "kernel_us": ours["kernel_us"],
+            "host_us": ours["host_us"],
+            "library_launch_ms": lib["launch_ms"],
+            "library_kernel_us": lib["kernel_us"],
+            "library_host_us": lib["host_us"],
+            "host_ids_ms": time_ms(torch, lambda: gather_k.embedding_gather(table, host[0]), flush),
+            "host_ids_host_us": ours_host,
+            "library_host_ids_ms": time_ms(
+                torch, lambda: embed(torch.from_numpy(host[0]).to(DEVICE), table), flush),
+            "library_host_ids_host_us": lib_host,
+            # each gathered row read and written once, each int64 id read once
+            "bound_ms": (2 * t * d * table.element_size() + 8 * t)
+            / HBM_BYTES_PER_S * 1e3,
+            "grid": [t, chunks], "threads": threads}
+        rows[t] = rec
+
+        def us(x):
+            return "not measured" if x is None else f"{x:.2f} us"
+        phase("timing", f"B9 embedding_gather T={t} from ({v}, {d}) fp32, "
+              f"grid ({t}, {chunks}) x {threads}: int64 ids on the card: "
+              f"wrapper {rec['ms']:.4f} ms | launch alone "
+              f"{rec['launch_ms']:.4f} ms (kernel {us(rec['kernel_us'])}) | "
+              f"host {rec['host_us']:.2f} us a call | bound "
+              f"{rec['bound_ms']:.5f} ms (bytes) | plain {rec['plain_ms']:.4f}"
+              f" ms || F.embedding: {rec['library_ms']:.4f} ms | launch alone "
+              f"{rec['library_launch_ms']:.4f} ms (kernel "
+              f"{us(rec['library_kernel_us'])}) | host "
+              f"{rec['library_host_us']:.2f} us a call || int32 ids on the "
+              f"host: wrapper {rec['host_ids_ms']:.4f} ms, host "
+              f"{ours_host:.2f} us a call | upload + F.embedding "
+              f"{rec['library_host_ids_ms']:.4f} ms, {lib_host:.2f} us a call")
+    main = rows[LM_PROMPT]
+    return {"name": "embedding_gather", "route": "cuda",
+            "source": "src/repro_torch/csrc/embedding_gather.cu",
+            "replaces": "src/repro/kernels/gather.py:24",
+            "launches": launches, "max_abs_err": 0.0,
+            "bound_by": "bytes",
+            **{k: main[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "launch_ms",
+                "host_us", "library_launch_ms", "library_host_us",
+                "kernel_us", "library_kernel_us", "host_ids_ms",
+                "host_ids_host_us")},
+            "shape": f"T={LM_PROMPT} int64 ids on the card from ({v}, {d}) "
+                     "fp32 (a prefill's tokens)",
+            "other_t": {str(t): {k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "launch_ms",
+                "host_us", "library_launch_ms", "library_host_us")}
+                for t, r in rows.items() if t != LM_PROMPT}}
 
 
 def main() -> int:

@@ -32,15 +32,15 @@ price: the state stays in device memory and is gathered through L2.
 threads)``.
 
 :func:`plan_fft_stockham` (kernel B7, :func:`repro_torch.kernels.fft
-.fft_stockham`): the in-block form (one launch, ``b_block`` signals a
-block, capped to the shared memory a block may claim) where one signal's
-ping-pong buffers fit a block, else the two-pass form (two launches, each
-block a tile of sub-signals in shared memory).
+.fft_stockham`): the in-block form (one launch, whole signals a block, at
+most ``b_block``, radix-16 register passes exchanging through shared
+memory) up to 4096 in fp64 and 8192 in fp32, else the two-pass form (two
+launches, each block a tile of sub-signals in shared memory).
 
 :func:`plan_embedding_gather` (kernel B9, :func:`repro_torch.kernels
-.gather.embedding_gather`): one launch, one warp a gathered row; the ids
-that lie on the host are scanned for range.  :func:`plan_ssd_fused`
-(kernel B8, :func:`repro_torch.kernels.ssd.ssd_fused`): one launch, one
+.gather.embedding_gather`): one launch, a block per (row, chunk of the
+row); the ids that lie on the host are scanned for range.
+:func:`plan_ssd_fused` (kernel B8, :func:`repro_torch.kernels.ssd.ssd_fused`): one launch, one
 block per (b, h) plane and slice of head columns, its shared memory priced.
 
 Checked contracts:
@@ -71,7 +71,6 @@ import numpy as np
 from repro_torch.analysis.launchplan import BlockPlan, LaunchPlan, is_pow2
 from repro_torch.core.autotune import (
     ACC_BYTES_PER_THREAD,
-    GATHER_BLOCK_THREADS,
     KERNEL_DTYPES,
     MAX_K_TILE,
     NODE_STEP_BLOCK_THREADS,
@@ -80,11 +79,14 @@ from repro_torch.core.autotune import (
     SSD_BLOCK_THREADS,
     WARP,
     fft_block_limit,
+    fft_block_radix,
     fft_block_signals,
+    fft_block_smem_bytes,
     fft_block_threads,
     fft_pass_smem_bytes,
     fft_pass_threads,
     fft_two_pass,
+    gather_grid,
     spmm_split,
     ssd_p_block,
     ssd_smem_bytes,
@@ -94,6 +96,8 @@ from repro_torch.sparse.formats import PAD, pow2_ceil
 
 __all__ = [
     "SlabMeta",
+    "gather_ids_violation",
+    "ids_on_host",
     "plan_bfs_ell",
     "plan_bfs_sell",
     "plan_embedding_gather",
@@ -566,9 +570,12 @@ def plan_fft_stockham(n: int, batch: int = 1, *, b_block: int = 8,
                       dtype: str = "float64") -> LaunchPlan:
     """Plan ``fft_stockham`` for a (batch, n) split-plane signal block.
 
-    Where one signal's ping-pong buffers (``4 * n * itemsize`` B) fit the
-    shared memory of a block, the in-block form runs: one launch, ``grid =
-    ceil(batch / signals)`` with ``signals = b_block`` capped to what fits.
+    Up to :func:`~repro_torch.core.autotune.fft_block_limit` (4096 in fp64,
+    8192 in fp32) the in-block form runs: one launch, ``grid = ceil(batch /
+    signals)`` (:func:`~repro_torch.core.autotune.fft_block_signals`, at
+    most ``b_block``), ``signals * n / radix`` threads, each block's padded
+    exchange planes and twiddle bases priced in ``smem_bytes``
+    (:func:`~repro_torch.core.autotune.fft_block_smem_bytes`).
     Longer signals run the two-pass form (:func:`repro_torch.core.autotune
     .fft_two_pass`): pass A, ``batch * n2 / tile_a`` blocks of ``tile_a``
     length-n1 columns, then pass B, ``batch * n1 / tile_b`` blocks of
@@ -597,12 +604,12 @@ def plan_fft_stockham(n: int, batch: int = 1, *, b_block: int = 8,
     signals = fft_block_signals(n, b_block, b) if pow2 else 0
     two_pass = fft_two_pass(n, b) if pow2 and signals < 1 else None
     if signals >= 1:
-        smem = 4 * signals * n * b
+        smem = fft_block_smem_bytes(n, signals, b)
         if smem > SMEM_PER_BLOCK:
             violations.append(f"{smem} B of shared memory a block > "
                               f"{SMEM_PER_BLOCK}")
         blocks.append(BlockPlan(
-            label=f"in_block[signals={signals}]",
+            label=f"in_block[signals={signals}, radix={fft_block_radix(n)}]",
             grid=(math.ceil(rows / signals),),
             block=(fft_block_threads(n, signals),),
             operands=planes + twiddles + (("out_re", (rows, n), dtype),
@@ -642,19 +649,41 @@ def plan_fft_stockham(n: int, batch: int = 1, *, b_block: int = 8,
 # ---------------------------------------------------------------------------
 
 
+def ids_on_host(ids) -> bool:
+    """True for ids whose values the host can read without a copy from the
+    card: a numpy array or a CPU tensor (numpy 2 arrays say "cpu")."""
+    dev = getattr(ids, "device", "cpu")
+    return str(getattr(dev, "type", dev)) == "cpu"
+
+
+def gather_ids_violation(ids, vocab: int) -> str | None:
+    """The range scan of host ids: a violation naming their range when one
+    leaves ``[0, vocab)``, else None."""
+    arr = np.asarray(ids)
+    if arr.size:
+        lo, hi = int(arr.min()), int(arr.max())
+        if lo < 0 or hi >= vocab:
+            return f"ids out of bounds: range [{lo}, {hi}] outside [0, {vocab})"
+    return None
+
+
 def plan_embedding_gather(vocab: int, d: int, ids, *, dtype: str = "float32",
                           vl: int = 256) -> LaunchPlan:
     """Plan ``embedding_gather`` of ``ids`` from a (vocab, d) table.
 
-    One launch of ``GATHER_BLOCK_THREADS``-thread blocks, one warp a row:
-    ``grid = ceil(T / (threads / 32))``.  ``ids`` is anything with a
-    ``shape`` and a ``dtype`` (a numpy array or a torch tensor): it must be
-    one axis of integers.  Where it lies on the host (numpy, or a CPU
-    tensor) its values are scanned too, and an id outside ``[0, vocab)`` is
-    a violation: the kernel gathers unchecked, and CUDA does not clamp the
-    way JAX does.  Ids already on the card (a decode step's argmax) are in
-    range by construction and are not read back.  ``vl`` is the reference's
-    rows a grid step; the CUDA grid does not depend on it.
+    One launch, ``grid = (T, chunks)`` blocks of ``threads``, each block
+    copying one chunk of one gathered row
+    (:func:`~repro_torch.core.autotune.gather_grid`).  ``ids`` is anything
+    with a ``shape`` and a ``dtype`` (a numpy array or a torch tensor): it
+    must be one axis of integers; the kernel reads int32 and int64 ids as
+    they are (other integer types are widened to int64 first).  Where the
+    ids lie on the host (numpy, or a CPU tensor) their values are scanned
+    too, and an id outside ``[0, vocab)`` is a violation: the kernel
+    gathers unchecked, and CUDA does not clamp the way JAX does.  Ids
+    already on the card (a decode step's argmax) are in range by
+    construction and are not read back, so their plan depends on the shapes
+    and dtypes alone.  ``vl`` is the reference's rows a grid step; the CUDA
+    grid does not depend on it.
     """
     violations: list[str] = []
     shape = tuple(int(s) for s in ids.shape)
@@ -669,22 +698,22 @@ def plan_embedding_gather(vocab: int, d: int, ids, *, dtype: str = "float32",
         violations.append(f"table ({vocab}, {d}) is empty")
     if vl < 1:
         violations.append(f"vl must be >= 1, got {vl}")
-    dev = getattr(ids, "device", "cpu")      # numpy 2 arrays say "cpu"
-    if not violations and str(getattr(dev, "type", dev)) == "cpu":
-        arr = np.asarray(ids)
-        if arr.size and (int(arr.min()) < 0 or int(arr.max()) >= vocab):
-            violations.append(
-                f"ids out of bounds: range [{int(arr.min())}, {int(arr.max())}]"
-                f" outside [0, {vocab})")
+    if not violations and ids_on_host(ids):
+        bad = gather_ids_violation(ids, vocab)
+        if bad:
+            violations.append(bad)
     t = shape[0] if len(shape) == 1 else 0
-    rows_per_block = GATHER_BLOCK_THREADS // WARP
-    grid_x = max(1, math.ceil(t / rows_per_block))
-    if grid_x > MAX_GRID_X:
-        violations.append(f"grid.x {grid_x} > {MAX_GRID_X}")
+    itemsize = np.dtype(dtype).itemsize if dtype in KERNEL_DTYPES else 4
+    chunks, threads = gather_grid(t, d * itemsize)
+    if t > MAX_GRID_X:
+        violations.append(f"grid.x {t} > {MAX_GRID_X}")
+    if chunks > MAX_GRID_Y:
+        violations.append(f"grid.y {chunks} > {MAX_GRID_Y}")
+    kernel_ids = id_dtype if id_dtype in ("int32", "int64") else "int64"
     block = BlockPlan(
-        label=f"rows[{rows_per_block} a block]", grid=(grid_x,),
-        block=(GATHER_BLOCK_THREADS,),
-        operands=(("ids", (t,), "int32"), ("table", (vocab, d), dtype),
+        label=f"rows[{chunks} chunk(s) of {threads} threads a row]",
+        grid=(max(t, 1), chunks), block=(threads,),
+        operands=(("ids", (t,), kernel_ids), ("table", (vocab, d), dtype),
                   ("out", (t, d), dtype)))
     return LaunchPlan(kernel="embedding_gather",
                       operand=f"gather T={t} from ({vocab}, {d})", dtype=dtype,

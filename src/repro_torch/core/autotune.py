@@ -55,8 +55,19 @@ MIN_C = 8
 #: Dynamic shared memory one block may claim on an H100: 227 KB of the
 #: SM's 256 KB (above 48 KB only after ``cudaFuncSetAttribute``).
 SMEM_PER_BLOCK = 232_448
-#: Most threads of one block of the in-block FFT kernel.
-FFT_BLOCK_MAX_THREADS = 1024
+#: Most threads of one block of the in-block FFT kernel (its launch bound:
+#: a thread keeps :data:`FFT_BLOCK_RADIX` complex values in registers).
+FFT_BLOCK_MAX_THREADS = 512
+#: Complex values one thread of the in-block FFT holds in registers, and
+#: the radix of its register passes (2048 = 16 x 16 x 8: three passes).
+FFT_BLOCK_RADIX = 16
+#: Fewest threads the in-block FFT puts in a block while ``b_block``
+#: allows: short signals share a block until it has four warps.
+FFT_BLOCK_MIN_THREADS = 128
+#: One element of padding after every 128 bytes of an in-block FFT plane
+#: in shared memory, so that the exchanges between register passes hit
+#: distinct banks (``csrc/fft_stockham.cu``).
+FFT_BLOCK_PAD_BYTES = 128
 #: Bucket width from which kernel B1 splits each row's walk over several
 #: threads (narrower buckets keep one thread a row).
 SPMM_SPLIT_WIDTH = 128
@@ -184,27 +195,68 @@ def spmm_split(width: int, c: int, n_slices: int, k_tile: int = 1,
                      itemsize=itemsize)
 
 
+def fft_block_radix(n: int) -> int:
+    """Complex values a thread of the in-block FFT holds: one radix pass's
+    butterfly, :data:`FFT_BLOCK_RADIX` or the whole signal when shorter."""
+    return min(FFT_BLOCK_RADIX, int(n))
+
+
+def fft_block_smem_bytes(n: int, signals: int, itemsize: int) -> int:
+    """Dynamic shared memory of one in-block FFT block: for each signal one
+    re and one im plane of ``n`` elements, each padded by one element per
+    :data:`FFT_BLOCK_PAD_BYTES` (the exchange buffer, written in place),
+    then the twiddle bases w_n^e for e < n / radix (re and im): the first
+    ``n / radix`` entries of row 0 of the registered tables, the only ones
+    a register pass reads."""
+    plane = n + n // (FFT_BLOCK_PAD_BYTES // itemsize)
+    return (2 * int(signals) * plane + 2 * (n // fft_block_radix(n))) * int(itemsize)
+
+
 def fft_block_signals(n: int, b_block: int, itemsize: int) -> int:
-    """Signals one block of the in-block FFT form holds: ``b_block``,
-    capped to what fits the block's ping-pong buffers (two planes, two
-    buffers: ``4 * n * itemsize`` bytes a signal) into
-    :data:`SMEM_PER_BLOCK`.  0 when one signal does not fit: the
-    two-pass form runs instead.  Only the grouping depends on
-    ``b_block``, never the arithmetic."""
-    return min(max(int(b_block), 1), SMEM_PER_BLOCK // (4 * n * itemsize))
+    """Signals one block of the in-block FFT form holds: enough that the
+    block has :data:`FFT_BLOCK_MIN_THREADS` threads (one a signal from
+    n = 2048 on), never more than ``b_block``.  Such a block's shared
+    memory (:func:`fft_block_smem_bytes`) is at most 72 KB, within
+    :data:`SMEM_PER_BLOCK`.  0 past :func:`fft_block_limit`: the two-pass
+    form runs instead.  Only the grouping depends on ``b_block``, never
+    the arithmetic."""
+    if n > fft_block_limit(itemsize):
+        return 0
+    per = n // fft_block_radix(n)
+    return min(max(int(b_block), 1), max(1, FFT_BLOCK_MIN_THREADS // per))
 
 
 #: Streaming multiprocessors of an H100 SXM: the grid size below which a
 #: one-wave kernel leaves SMs idle.
 SM_COUNT = 132
-#: Threads per block of the embedding gather (B9): one warp a row.
-GATHER_BLOCK_THREADS = 256
+#: Most threads of one block of the embedding gather (B9).
+GATHER_MAX_THREADS = 256
+#: Bytes one B9 thread copies: four 16 B loads in flight before it stores
+#: (eight 8 B or sixteen 4 B loads where the rows allow no wider vector).
+GATHER_THREAD_BYTES = 64
 #: Threads per block of the fused SSD scan (B8).
 SSD_BLOCK_THREADS = 256
 #: Query and key rows of one (i, j) tile of the SSD chunk's decay product:
 #: the (q, q) matrix of a 256-row chunk (256 KB at fp32) never fits a
 #: block, a (32, 32) tile does.
 SSD_TILE = 32
+
+
+def gather_grid(t: int, row_bytes: int) -> tuple[int, int]:
+    """(chunks a row, threads a block) of kernel B9: its grid is (T,
+    chunks), block (row, c) copying bytes [c * threads * 64, (c + 1) *
+    threads * 64) of row ``ids[row]`` (the last chunk masked at the row's
+    end).  A row is cut into as few chunks as :data:`GATHER_MAX_THREADS`
+    allow, then, while T rows give fewer than two blocks an SM, into more
+    (down to one warp a chunk); the threads are the fewest whole warps
+    that cover a chunk.  d = 2560 fp32: one 160-thread chunk a row, so
+    T = 512 is 512 blocks; T = 4 is 4 x 5 blocks of one warp."""
+    per_warp = WARP * GATHER_THREAD_BYTES
+    warps_row = max(1, -(-int(row_bytes) // per_warp))
+    chunks = -(-warps_row // (GATHER_MAX_THREADS // WARP))
+    chunks = max(chunks, min(warps_row, -(-2 * SM_COUNT // max(int(t), 1))))
+    warps = -(-warps_row // chunks)
+    return -(-warps_row // warps), warps * WARP
 
 
 def ssd_p_block(b: int, h: int, p: int) -> int:
@@ -242,8 +294,10 @@ FFT_PASS_THREADS = 1024
 
 
 def fft_block_limit(itemsize: int) -> int:
-    """Longest signal whose ping-pong buffers (``4 * n * itemsize`` B) fit
-    one block: 4096 in fp64, 8192 in fp32."""
+    """Longest signal the in-block form takes: 4096 in fp64, 8192 in fp32,
+    the lengths whose two planes fit a block's shared memory twice over.
+    The two-pass form takes longer signals, and its sub-lengths are capped
+    here too."""
     n = 2
     while 4 * (2 * n) * itemsize <= SMEM_PER_BLOCK:
         n *= 2
@@ -298,10 +352,9 @@ def fft_pass_threads(m: int, tile: int) -> int:
 
 
 def fft_block_threads(n: int, signals: int) -> int:
-    """Threads of one in-block FFT block: one per butterfly of its
-    ``signals * n / 2``, rounded up to a warp, at most
-    :data:`FFT_BLOCK_MAX_THREADS` (threads then loop)."""
-    return min(FFT_BLOCK_MAX_THREADS, WARP * -(-signals * (n // 2) // WARP))
+    """Threads of one in-block FFT block: ``n / radix`` a signal
+    (:func:`fft_block_radix`), 128 at n = 2048."""
+    return int(signals) * (int(n) // fft_block_radix(n))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,18 +1,31 @@
 // Embedding gather for Hopper (sm_90a): out[i] = table[ids[i]].
 //
 // Replaces the TPU kernel repro/kernels/gather.py::_gather_kernel (launched
-// by embedding_gather): ids (T,) int32, table (V, d), out (T, d).  The
-// TPU kernel gathers vl rows a grid step from a VMEM-resident table; here
-// the table stays in device memory and each row is one contiguous copy.
+// by embedding_gather): ids (T,) int32 or int64, table (V, d), out (T, d).
+// The TPU kernel gathers vl rows a grid step from a VMEM-resident table;
+// here the table stays in device memory and each row is one contiguous copy.
 //
 // What bounds it on the card: device-memory bytes, 2 * T * d * itemsize +
-// 4 * T (each gathered row read once and written once, each id read once).
-// It does no arithmetic.
+// T * sizeof(id) (each gathered row read once and written once, each id
+// read once).  It does no arithmetic.
 //
-// Design: one warp a row, threads / 32 rows a block; a warp copies its row
-// with 16-byte vector loads and stores where the row length and both
-// pointers allow (d = 2560 fp32: 640 uint4 a row, 20 a lane), else 8 or 4
-// bytes.  The copy is of bytes, so one kernel serves float32 and float64.
+// Design:
+//   * grid (T, chunks): block (row, c) copies bytes [c * 64 * threads,
+//     (c + 1) * 64 * threads) of row ids[row], masked at the row's end.  The
+//     host (repro_torch/core/autotune.py::gather_grid) cuts a row into as
+//     few chunks as 256 threads allow and, while T rows give fewer than two
+//     blocks an SM, into more, down to a warp a chunk: d = 2560 fp32 is one
+//     160-thread block a row (T = 512: 512 blocks on 132 SMs), and T = 4 is
+//     twenty one-warp blocks;
+//   * loads in flight: each thread copies 64 bytes, four 16 B vectors (or
+//     eight 8 B, sixteen 4 B where a row or a pointer allows no wider
+//     vector), all loaded before any is stored; lane t of a warp takes
+//     vector t + 32 k, so every load and store of a warp is 512 contiguous
+//     bytes (16 B vectors).  The copy is of bytes, so one kernel serves
+//     float32 and float64;
+//   * ids are read as they come, int32 or int64 (a template on the id type),
+//     so the engine's int64 argmax ids need no conversion kernel: one
+//     launch a call.
 // Ids are not range-checked here: CUDA does not clamp an out-of-range
 // gather the way JAX does, so the host preflight
 // (repro_torch/analysis/preflight.py::plan_embedding_gather) refuses ids
@@ -20,42 +33,61 @@
 // (a decode step's argmax over V) are in range by construction.
 //
 // The host wrapper is repro_torch/kernels/gather.py::embedding_gather; it
-// converts the ids to int32, allocates the output and raises on a non-zero
-// return code.
+// plans the launch (once per shape for ids already on the card), allocates
+// the output and raises on a non-zero return code.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-template <typename V>
-__global__ void gather_rows_kernel(const int* __restrict__ ids,
-                                   const V* __restrict__ table,
-                                   V* __restrict__ out, int64_t n_ids,
-                                   int64_t row_vecs) {
-  const int lane = threadIdx.x & 31;
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) +
-                    (threadIdx.x >> 5);
-  if (r >= n_ids) return;
+// Bytes one thread copies (autotune.py GATHER_THREAD_BYTES).
+constexpr int kThreadBytes = 64;
+// Most threads a block (autotune.py GATHER_MAX_THREADS).
+constexpr int kMaxThreads = 256;
+
+template <typename V, typename Id>
+__global__ void __launch_bounds__(kMaxThreads)
+gather_rows_kernel(const Id* __restrict__ ids, const V* __restrict__ table,
+                   V* __restrict__ out, int64_t row_vecs) {
+  constexpr int LOADS = kThreadBytes / sizeof(V);
+  const int64_t r = blockIdx.x;
+  const int64_t begin = static_cast<int64_t>(blockIdx.y) * LOADS * blockDim.x;
   const V* src = table + static_cast<int64_t>(__ldg(ids + r)) * row_vecs;
   V* dst = out + r * row_vecs;
-  for (int64_t i = lane; i < row_vecs; i += 32) dst[i] = __ldg(src + i);
+  V buf[LOADS];
+#pragma unroll
+  for (int k = 0; k < LOADS; ++k) {
+    const int64_t i = begin + threadIdx.x + k * blockDim.x;
+    if (i < row_vecs) buf[k] = __ldg(src + i);
+  }
+#pragma unroll
+  for (int k = 0; k < LOADS; ++k) {
+    const int64_t i = begin + threadIdx.x + k * blockDim.x;
+    if (i < row_vecs) dst[i] = buf[k];
+  }
 }
 
-template <typename V>
+template <typename V, typename Id>
 cudaError_t launch(const void* table, const void* ids, void* out, int64_t n_ids,
-                   int64_t row_bytes, int threads, cudaStream_t stream) {
-  const int64_t rows_per_block = threads / 32;
-  const dim3 grid(static_cast<unsigned>((n_ids + rows_per_block - 1) / rows_per_block));
-  gather_rows_kernel<V><<<grid, threads, 0, stream>>>(
-      static_cast<const int*>(ids), static_cast<const V*>(table),
-      static_cast<V*>(out), n_ids, row_bytes / static_cast<int64_t>(sizeof(V)));
+                   int64_t row_bytes, int chunks, int threads, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(n_ids), static_cast<unsigned>(chunks));
+  gather_rows_kernel<V, Id><<<grid, threads, 0, stream>>>(
+      static_cast<const Id*>(ids), static_cast<const V*>(table),
+      static_cast<V*>(out), row_bytes / static_cast<int64_t>(sizeof(V)));
   return cudaGetLastError();
 }
 
-bool aligned(int64_t row_bytes, const void* a, const void* b, int64_t v) {
-  return row_bytes % v == 0 && reinterpret_cast<uintptr_t>(a) % v == 0 &&
-         reinterpret_cast<uintptr_t>(b) % v == 0;
+template <typename Id>
+cudaError_t launch_id(const void* table, const void* ids, void* out, int64_t n_ids,
+                      int64_t row_bytes, int chunks, int threads, cudaStream_t st) {
+  auto aligned = [&](uintptr_t v) {
+    return row_bytes % v == 0 && reinterpret_cast<uintptr_t>(table) % v == 0 &&
+           reinterpret_cast<uintptr_t>(out) % v == 0;
+  };
+  if (aligned(16)) return launch<uint4, Id>(table, ids, out, n_ids, row_bytes, chunks, threads, st);
+  if (aligned(8)) return launch<uint2, Id>(table, ids, out, n_ids, row_bytes, chunks, threads, st);
+  return launch<unsigned, Id>(table, ids, out, n_ids, row_bytes, chunks, threads, st);
 }
 
 }  // namespace
@@ -63,26 +95,26 @@ bool aligned(int64_t row_bytes, const void* a, const void* b, int64_t v) {
 extern "C" {
 
 // table (V, d) and out (n_ids, d) of one element type, row_bytes = d times
-// its size (a multiple of 4); ids (n_ids,) int32 in [0, V).  threads a
-// multiple of 32.  The caller makes the stream's device current.  Returns
-// the launch's cudaError_t.
+// its size (a multiple of 4); ids (n_ids,) of id_bytes (4: int32, 8: int64)
+// in [0, V).  Grid (n_ids, chunks) of `threads` (a multiple of 32, at most
+// 256), each block copying 64 * threads bytes of its row: the chunks must
+// cover the row and none may start past its end.  The caller makes the
+// stream's device current.  Returns the launch's cudaError_t.
 int repro_embedding_gather(const void* table, const void* ids, void* out,
-                           int64_t n_ids, int64_t row_bytes, int threads,
-                           void* stream) {
-  if (n_ids <= 0 || row_bytes <= 0 || row_bytes % 4 != 0 || threads < 32 ||
-      threads > 1024 || threads % 32 != 0 ||
-      (n_ids + threads / 32 - 1) / (threads / 32) > 2147483647) {
+                           int64_t n_ids, int64_t row_bytes, int id_bytes,
+                           int chunks, int threads, void* stream) {
+  const int64_t chunk_bytes = static_cast<int64_t>(kThreadBytes) * threads;
+  if (n_ids <= 0 || n_ids > 2147483647 || row_bytes <= 0 || row_bytes % 4 != 0 ||
+      (id_bytes != 4 && id_bytes != 8) || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || chunks < 1 || chunks > 65535 ||
+      chunks * chunk_bytes < row_bytes || (chunks - 1) * chunk_bytes >= row_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (aligned(row_bytes, table, out, 16)) {
-    err = launch<uint4>(table, ids, out, n_ids, row_bytes, threads, st);
-  } else if (aligned(row_bytes, table, out, 8)) {
-    err = launch<uint2>(table, ids, out, n_ids, row_bytes, threads, st);
-  } else {
-    err = launch<unsigned>(table, ids, out, n_ids, row_bytes, threads, st);
-  }
+  const cudaError_t err =
+      id_bytes == 8
+          ? launch_id<long long>(table, ids, out, n_ids, row_bytes, chunks, threads, st)
+          : launch_id<int>(table, ids, out, n_ids, row_bytes, chunks, threads, st);
   return static_cast<int>(err);
 }
 

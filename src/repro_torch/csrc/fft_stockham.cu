@@ -12,22 +12,57 @@
 // w_n = exp(-2 pi i / n): row 0 holds w_n^e for every e < n / 2.
 //
 // What bounds it on the card: device-memory bytes.  The function reads the
-// two input planes and the twiddle tables once and writes the two output
-// planes once: 4 * sizeof(T) * batch * n + 2 * sizeof(T) * log2(n) * n / 2
-// bytes.  Its arithmetic, 10 flops per butterfly (5 n log2 n a signal), is
+// two input planes once, the twiddles of row 0 once, and writes the two
+// output planes once: 4 * sizeof(T) * batch * n + sizeof(T) * n bytes.
+// Its arithmetic, 10 flops per radix-2 butterfly (5 n log2 n a signal), is
 // far below the card's fp64 rate at every n the service registers.
 //
 // Two forms:
-//   * in-block (repro_fft_stockham_block): one block holds `signals` whole
-//     signals in dynamic shared memory, two planes in two ping-pong buffers
-//     (4 * signals * n * sizeof(T) bytes; the host caps `signals` so this
-//     fits the 227 KB a block may claim, which serves n <= 4096 in fp64 and
-//     n <= 8192 in fp32).  One thread per butterfly, looped when a block
-//     holds more butterflies than threads, __syncthreads() between stages;
-//     the input is read once and the output written once, coalesced.  The
-//     last block of a batch that `signals` does not divide holds fewer
-//     signals (masked, no padding).  Twiddles come from the device tables,
-//     which stay in L2 (176 KB at n = 2048 in fp64).
+//   * in-block (repro_fft_stockham_block), n <= 4096 in fp64 and n <= 8192
+//     in fp32: `signals` whole signals a block (one from n = 2048 on), each
+//     transformed by n / R threads that hold R = 16 complex values apiece
+//     in registers (R = n below 16).  The FFT runs as radix-R Stockham
+//     passes in registers (2048 = 16 * 16 * 8: three passes, two exchanges,
+//     in place of 11 stages through shared memory):
+//       - pass (L, S), L = n / S the current sub-length, radix r: the
+//         butterfly u = q S + p (q < L / r, p < S) reads a_k = x[u + k n/r]
+//         (k < r), takes their r-point DFT A_j in registers (radix-2
+//         decimation in frequency, constant twiddles w_16^k, outputs in
+//         bit-reversed register order, renamed at compile time) and writes
+//         y[r (u - p) + p + j S] = A_j w_n^(j (u - p)); then S *= r;
+//       - the first pass reads its inputs straight from device memory and
+//         the last (where u = p: no twiddles) writes its outputs straight to
+//         device memory: lane t of a warp takes element t + k n/r, so each
+//         load and store of a warp covers 32 adjacent elements (256 B in
+//         fp64, whole sectors), with 2R loads in flight a thread.  16 B
+//         vectors would need the signal staged through shared memory first,
+//         an exchange more, so the form does without them;
+//       - between passes the values go through one shared buffer a signal,
+//         written in place: __syncthreads() before the writes (every read of
+//         the last exchange done) and after them.  log2 n = a log2 R + b:
+//         a radix-R passes, then one radix-2^b pass (b > 0) in which a
+//         thread runs R / 2^b butterflies;
+//       - twiddles: w_n^(j (u - p)) = (w_n^(u - p))^j, powered up in registers
+//         from one base read of a shared-memory copy of w_n^e for e < n / R
+//         (u - p < n / R), the first entries of row 0 of the registered
+//         tables: 2 KB at n = 2048 in fp64, loaded once a block;
+//       - bank conflicts: a plane is padded by one element after every
+//         128 B (element i at i + i / 16 in fp64, i + i / 32 in fp32).  The
+//         first pass writes with stride R (16 u + j becomes 17 u + j in
+//         fp64: 16 lanes on 16 distinct 8 B banks), later passes read and
+//         write runs of adjacent elements; each half-warp of 8 B accesses
+//         (a warp of 4 B) then hits distinct banks, but for the fp32 writes
+//         of the middle passes (two runs of 16 a warp, 8 banks shared);
+//       - registers: each pass loads its values into arrays of its own, so
+//         no array lives across the (not unrolled) pass loop, and every
+//         register index is a compile-time constant (dif_stage, below);
+//         ptxas keeps them all in registers, none in local memory;
+//       - shared memory: 2 * signals * (n + n/16 or n/32) + 2 n / R elements,
+//         36 KB at n = 2048 in fp64, so up to six blocks fit an SM (its
+//         registers allow four) and one block's loads and
+//         stores overlap the others' passes.  A ragged last block (batch
+//         not a multiple of `signals`) runs its empty signals on the
+//         batch's last signal and stores nothing for them.
 //   * two-pass (repro_fft_pass with cols = 1, then cols = 0), for longer
 //     signals: the four-step FFT.  n = n1 * n2 (n1 = 2^floor(log2 n / 2), each
 //     at most the in-block limit, so n <= 2^24 in fp64 and 2^26 in fp32);
@@ -59,8 +94,6 @@
 //   * Above 48 KB of dynamic shared memory a launch first raises the
 //     kernel's limit with cudaFuncSetAttribute.  A refused request or
 //     launch is returned as its cudaError_t (and cleared), never silent.
-// Left for later: bank-conflict-free stage writes, and radix-4 stages in the
-// in-block form too.
 //
 // The host wrapper is repro_torch/kernels/fft.py::fft_stockham; it chooses
 // the form, `signals`, (n1, n2) and the tiles
@@ -72,69 +105,6 @@
 #include <cstdint>
 
 namespace {
-
-// One butterfly of stage s: reads x[off + j], x[off + j + half], writes the
-// sum and the twiddled difference to their Stockham places in y.
-template <typename T>
-__device__ __forceinline__ void butterfly(const T* xr, const T* xi, T* yr, T* yi,
-                                          int64_t off, int64_t j, int64_t half,
-                                          int s, T wr, T wi) {
-  const T ar = xr[off + j], ai = xi[off + j];
-  const T br = xr[off + j + half], bi = xi[off + j + half];
-  const T dr = ar - br, di = ai - bi;
-  const int64_t m = int64_t(1) << s;
-  const int64_t o = off + ((j >> s) << (s + 1)) + (j & (m - 1));
-  yr[o] = ar + br;
-  yi[o] = ai + bi;
-  yr[o + m] = dr * wr - di * wi;
-  yi[o + m] = dr * wi + di * wr;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(1024)
-fft_block_kernel(const T* __restrict__ re, const T* __restrict__ im,
-                 const T* __restrict__ wre, const T* __restrict__ wim,
-                 T* __restrict__ out_re, T* __restrict__ out_im,
-                 int64_t batch, int64_t n, int log2n, int signals) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int64_t per = static_cast<int64_t>(signals) * n;
-  T* ar = smem;
-  T* ai = smem + per;
-  T* br = smem + 2 * per;
-  T* bi = smem + 3 * per;
-
-  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * signals;
-  const int64_t left = batch - b0;   // the last block may hold fewer
-  const int64_t rows = left < signals ? left : signals;
-  const int64_t count = rows * n;
-  const int64_t base = b0 * n;
-  for (int64_t i = threadIdx.x; i < count; i += blockDim.x) {
-    ar[i] = __ldg(re + base + i);
-    ai[i] = __ldg(im + base + i);
-  }
-  __syncthreads();
-
-  const int64_t half = n >> 1;
-  const int64_t work = rows * half;
-  for (int s = 0; s < log2n; ++s) {
-    const T* wr = wre + s * half;
-    const T* wi = wim + s * half;
-    for (int64_t t = threadIdx.x; t < work; t += blockDim.x) {
-      const int64_t sig = t >> (log2n - 1);   // t / half
-      const int64_t j = t & (half - 1);
-      butterfly(ar, ai, br, bi, sig * n, j, half, s, __ldg(wr + j), __ldg(wi + j));
-    }
-    __syncthreads();
-    T* tr = ar; ar = br; br = tr;
-    T* ti = ai; ai = bi; bi = ti;
-  }
-
-  for (int64_t i = threadIdx.x; i < count; i += blockDim.x) {
-    out_re[base + i] = ar[i];
-    out_im[base + i] = ai[i];
-  }
-}
 
 // w_n^e for 0 <= e < n from row 0 of the twiddle tables (w_n^e, e < n / 2).
 template <typename T>
@@ -168,6 +138,232 @@ __device__ __forceinline__ void cmul(T xr, T xi, T wr, T wi, T& yr, T& yi) {
   yr = xr * wr - xi * wi;
   yi = xr * wi + xi * wr;
 }
+
+// ---- in-block form -------------------------------------------------------
+
+// Most threads of an in-block block (repro_torch/core/autotune.py
+// FFT_BLOCK_MAX_THREADS): a thread holds up to 16 complex values, so the
+// bound leaves it up to 128 registers.
+constexpr int kBlockMaxThreads = 512;
+
+// log2 of a power of two, in constant expressions only.
+__host__ __device__ constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x >> 1); }
+
+// cos(2 pi k / 16) and sin(2 pi k / 16) for any integer k: w_16^k = c - i s.
+__host__ __device__ constexpr double cos16(int k) {
+  const int m = k & 15;
+  const int a = m <= 8 ? m : 16 - m;          // cos is even: a in [0, 8]
+  const int b = a <= 4 ? a : 8 - a;           // |cos| of the first quadrant
+  const double v = b == 0 ? 1.0
+                 : b == 1 ? 0.92387953251128675613
+                 : b == 2 ? 0.70710678118654752440
+                 : b == 3 ? 0.38268343236508977173 : 0.0;
+  return a <= 4 ? v : -v;
+}
+__host__ __device__ constexpr double sin16(int k) { return cos16(k - 4); }
+
+// j with its low `bits` bits reversed, in constant expressions.
+__host__ __device__ constexpr int bitrev(int j, int bits) {
+  int r = 0;
+  for (int b = 0; b < bits; ++b) r |= ((j >> b) & 1) << (bits - 1 - b);
+  return r;
+}
+
+// Element i of an in-block plane lives at i + i / (128 B / sizeof(T)).
+template <typename T>
+__device__ __forceinline__ int padded(int i) {
+  return i + (i >> (sizeof(T) == 8 ? 4 : 5));
+}
+
+// One radix-2 stage (half-span H) of dft: every loop bound is a
+// template constant, so each loop unrolls completely and every register
+// index is static (a bound set by an enclosing loop's variable leaves the
+// arrays in local memory).
+template <int R, int H, typename T>
+__device__ __forceinline__ void dif_stage(T* vr, T* vi) {
+#pragma unroll
+  for (int b = 0; b < R; b += 2 * H) {
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const T ar = vr[b + i], ai = vi[b + i];
+      const T cr = vr[b + i + H], ci = vi[b + i + H];
+      vr[b + i] = ar + cr;
+      vi[b + i] = ai + ci;
+      const T dr = ar - cr, di = ai - ci;
+      const int k = i * (8 / H);              // w_2H^i = w_16^k
+      if (k == 0) {
+        vr[b + i + H] = dr;
+        vi[b + i + H] = di;
+      } else if (k == 4) {                    // times -i
+        vr[b + i + H] = di;
+        vi[b + i + H] = -dr;
+      } else {
+        const T c = T(cos16(k)), sn = T(sin16(k));
+        vr[b + i + H] = dr * c + di * sn;
+        vi[b + i + H] = di * c - dr * sn;
+      }
+    }
+  }
+  if constexpr (H > 1) dif_stage<R, H / 2>(vr, vi);
+}
+
+// Moves output bitrev(m) of dif_stage from register m to register
+// bitrev(m), one compile-time swap at a time.
+template <int R, int J, typename T>
+__device__ __forceinline__ void to_natural_order(T* vr, T* vi) {
+  if constexpr (J < R) {
+    constexpr int m = bitrev(J, ilog2(R));
+    if constexpr (m > J) {
+      T x = vr[J];
+      vr[J] = vr[m];
+      vr[m] = x;
+      x = vi[J];
+      vi[J] = vi[m];
+      vi[m] = x;
+    }
+    to_natural_order<R, J + 1>(vr, vi);
+  }
+}
+
+// The R-point DFT of (vr, vi)[0, R) in registers, in natural order: radix-2
+// decimation in frequency (w_2h^i = w_16^(8 i / h), folded to constants),
+// then the bit-reversal permutation, a renaming of registers.
+template <int R, typename T>
+__device__ __forceinline__ void dft(T* vr, T* vi) {
+  if constexpr (R > 1) {
+    dif_stage<R, R / 2>(vr, vi);
+    to_natural_order<R, 0>(vr, vi);
+  }
+}
+
+// The last pass when log2 n is not a multiple of log2 E: radix R = 2^rest,
+// E / R butterflies a thread, u = t + i ts, inputs x[u + k n/R] from the
+// shared buffer, outputs y[u + j n/R] to device memory (u = p: no twiddle).
+template <int E, int R, typename T>
+__device__ __forceinline__ void last_small_pass(const T* br, const T* bi, int t,
+                                                int ts, int n, T* out_re,
+                                                T* out_im, int64_t g, bool live) {
+  constexpr int C = E / R;
+  const int m = n / R;
+  T vr[E], vi[E];
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int x = padded<T>(t + i * ts + k * m);
+      vr[i * R + k] = br[x];
+      vi[i * R + k] = bi[x];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < C; ++i) dft<R>(vr + i * R, vi + i * R);
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int64_t o = g + t + i * ts + j * m;
+      out_re[o] = vr[i * R + j];
+      out_im[o] = vi[i * R + j];
+    }
+  }
+}
+
+// In-block FFT: block b holds signals [b * signals, b * signals + signals)
+// (fewer in the last block), n / E threads a signal, thread t of a signal
+// holding E complex values.  Shared memory: the signals' padded re and im
+// planes, then the bases w_n^e, e < n / E (re, then im).
+template <typename T, int E>
+__global__ void __launch_bounds__(kBlockMaxThreads)
+fft_block_kernel(const T* __restrict__ re, const T* __restrict__ im,
+                 const T* __restrict__ w0r, const T* __restrict__ w0i,
+                 T* __restrict__ out_re, T* __restrict__ out_im,
+                 int64_t batch, int log2n, int signals) {
+  constexpr int LOG2E = ilog2(E);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int n = 1 << log2n;
+  const int log2ts = log2n - LOG2E;
+  const int ts = 1 << log2ts;                 // threads a signal
+  const int plane = n + (n >> (sizeof(T) == 8 ? 4 : 5));
+  const int sl = threadIdx.x >> log2ts;       // the thread's signal in the block
+  const int t = threadIdx.x & (ts - 1);
+  const int64_t sig = static_cast<int64_t>(blockIdx.x) * signals + sl;
+  const bool live = sig < batch;
+  T* br = smem + 2 * sl * plane;
+  T* bi = br + plane;
+  T* twr = smem + 2 * signals * plane;
+  T* twi = twr + ts;
+  for (int e = threadIdx.x; e < ts; e += blockDim.x) {
+    twr[e] = __ldg(w0r + e);
+    twi[e] = __ldg(w0i + e);
+  }
+
+  // an empty signal of the last block computes on the batch's last signal
+  // and stores nothing
+  const int64_t g = sig * n;
+  const int64_t src = (live ? sig : batch - 1) * n;
+  __syncthreads();                            // the twiddle bases are staged
+
+  const int full = log2n / LOG2E;             // radix-E passes (>= 1: E <= n)
+  const int rest = log2n - full * LOG2E;      // log2 radix of a last pass
+  int log2s = 0;
+  for (int pass = 0; pass < full; ++pass) {
+    // registers live within a pass: the exchange carries the values over
+    T vr[E], vi[E];
+    if (pass == 0) {
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        vr[k] = __ldg(re + src + t + k * ts);
+        vi[k] = __ldg(im + src + t + k * ts);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const int x = padded<T>(t + k * ts);
+        vr[k] = br[x];
+        vi[k] = bi[x];
+      }
+    }
+    dft<E>(vr, vi);
+    if (pass == full - 1 && rest == 0) {      // the last pass: S = n / E, u = t
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          out_re[g + t + j * ts] = vr[j];
+          out_im[g + t + j * ts] = vi[j];
+        }
+      }
+      return;
+    }
+    const int s = 1 << log2s;
+    const int p = t & (s - 1);
+    const int base = t - p;                   // u - p < n / E
+    const T w1r = twr[base], w1i = twi[base];
+    T pr = w1r, pi = w1i;                     // w^j, j = 1 .. E - 1
+#pragma unroll
+    for (int j = 1; j < E; ++j) {
+      cmul(vr[j], vi[j], pr, pi, vr[j], vi[j]);
+      cmul(pr, pi, w1r, w1i, pr, pi);
+    }
+    if (pass > 0) __syncthreads();            // every read of this exchange done
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      const int x = padded<T>(E * base + p + j * s);
+      br[x] = vr[j];
+      bi[x] = vi[j];
+    }
+    __syncthreads();
+    log2s += LOG2E;
+  }
+  if constexpr (E == 16) {                    // E < 16 only where n = E: rest 0
+    if (rest == 1) last_small_pass<E, 2>(br, bi, t, ts, n, out_re, out_im, g, live);
+    if (rest == 2) last_small_pass<E, 4>(br, bi, t, ts, n, out_re, out_im, g, live);
+    if (rest == 3) last_small_pass<E, 8>(br, bi, t, ts, n, out_re, out_im, g, live);
+  }
+}
+
+// ---- two-pass form --------------------------------------------------------
 
 // Stockham FFTs of `count` sub-signals of length m = 2^log2m held in shared
 // memory: element i of sub-signal c lives at c * cs + i * is.  COLS numbers
@@ -346,24 +542,41 @@ fft_pass_rows_kernel(const T* __restrict__ ar_in, const T* __restrict__ ai_in,
   }
 }
 
+// Complex values a thread of the in-block form holds: 16, or n below 16
+// (autotune.py::fft_block_radix).
+int block_radix(int64_t n) { return n < 16 ? static_cast<int>(n) : 16; }
+
+// Shared memory of one in-block block: `signals` padded (re, im) planes and
+// the n / radix twiddle bases (autotune.py::fft_block_smem_bytes).
+template <typename T>
+size_t block_smem(int64_t n, int signals) {
+  const int64_t plane = n + (n >> (sizeof(T) == 8 ? 4 : 5));
+  return sizeof(T) *
+         static_cast<size_t>(2 * signals * plane + 2 * (n / block_radix(n)));
+}
+
 template <typename T>
 cudaError_t launch_block(const void* re, const void* im, const void* wre,
                          const void* wim, void* out_re, void* out_im, int64_t batch,
-                         int64_t n, int log2n, int signals, int threads,
-                         cudaStream_t stream) {
-  const size_t smem = 4 * static_cast<size_t>(signals) * n * sizeof(T);
+                         int64_t n, int log2n, int signals, cudaStream_t stream) {
+  const int radix = block_radix(n);
+  const size_t smem = block_smem<T>(n, signals);
+  const auto kernel = radix == 16 ? fft_block_kernel<T, 16>
+                    : radix == 8  ? fft_block_kernel<T, 8>
+                    : radix == 4  ? fft_block_kernel<T, 4>
+                                  : fft_block_kernel<T, 2>;
   cudaError_t err = cudaFuncSetAttribute(
-      fft_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) {
     cudaGetLastError();   // clear it: a later launch must not report it
     return err;
   }
   const dim3 grid(static_cast<unsigned>((batch + signals - 1) / signals));
-  fft_block_kernel<T><<<grid, threads, smem, stream>>>(
+  const int threads = signals * static_cast<int>(n / radix);
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(re), static_cast<const T*>(im),
       static_cast<const T*>(wre), static_cast<const T*>(wim),
-      static_cast<T*>(out_re), static_cast<T*>(out_im), batch, n, log2n, signals);
+      static_cast<T*>(out_re), static_cast<T*>(out_im), batch, log2n, signals);
   return cudaGetLastError();
 }
 
@@ -402,23 +615,27 @@ bool bad_shape(int64_t batch, int64_t n, int log2n) {
 
 extern "C" {
 
-// In-block form: re, im, out_re, out_im (batch, n); wre, wim (log2n, n / 2);
-// `signals` whole signals a block, `threads` threads a block.  is_double
+// In-block form: re, im, out_re, out_im (batch, n); wre, wim (log2n, n / 2),
+// of which the kernel reads the first n / radix entries of row 0;
+// `signals` whole signals a block, radix = min(16, n) complex values a
+// thread, so signals * n / radix threads a block (at most 512).  is_double
 // selects float64 (1) or float32 (0).  The caller makes the stream's device
 // current.  Returns the cudaError_t of the attribute call or the launch.
 int repro_fft_stockham_block(const void* re, const void* im, const void* wre,
                              const void* wim, void* out_re, void* out_im,
                              int64_t batch, int64_t n, int log2n, int signals,
-                             int threads, int is_double, void* stream) {
-  if (bad_shape(batch, n, log2n) || signals <= 0 || threads <= 0 || threads > 1024) {
+                             int is_double, void* stream) {
+  if (bad_shape(batch, n, log2n) || log2n > 13 || signals <= 0 ||
+      signals * (n / block_radix(n)) > kBlockMaxThreads ||
+      (batch + signals - 1) / signals > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_double ? launch_block<double>(re, im, wre, wim, out_re, out_im, batch, n,
-                                       log2n, signals, threads, st)
+                                       log2n, signals, st)
                 : launch_block<float>(re, im, wre, wim, out_re, out_im, batch, n,
-                                      log2n, signals, threads, st);
+                                      log2n, signals, st);
   return static_cast<int>(err);
 }
 

@@ -75,9 +75,9 @@ KERNELS = {
     }),
     "fft_stockham": ("fft_stockham.cu", {
         # re, im, wre, wim, out_re, out_im, batch, n, log2n, signals,
-        # threads, is_double, stream
+        # is_double, stream
         "repro_fft_stockham_block": (
-            [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P], _I),
+            [_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P], _I),
         # cols, xr, xi, wre, wim, yr, yi, batch, n, log2n, log2n1, log2tile,
         # threads, is_double, stream
         "repro_fft_pass": (
@@ -94,8 +94,10 @@ KERNELS = {
         "repro_ssd_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
     "embedding_gather": ("embedding_gather.cu", {
-        # table, ids, out, n_ids, row_bytes, threads, stream
-        "repro_embedding_gather": ([_P, _P, _P, _I64, _I64, _I, _P], _I),
+        # table, ids, out, n_ids, row_bytes, id_bytes, chunks, threads,
+        # stream
+        "repro_embedding_gather": ([_P, _P, _P, _I64, _I64, _I, _I, _I, _P],
+                                   _I),
         "repro_gather_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
 }

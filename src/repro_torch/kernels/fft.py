@@ -9,10 +9,10 @@ Stockham's ping-pong between two buffers needs no bit reversal.
 * :func:`fft_stockham` — the wrapper.  On CUDA tensors it launches the
   hand-written kernel ``csrc/fft_stockham.cu`` (kernel B7) or raises; on
   CPU tensors, and only there, it runs :func:`fft_stockham_ref`.  Two forms
-  of the kernel: where one signal's ping-pong buffers fit the shared memory
-  of a block (n <= 4096 in fp64, n <= 8192 in fp32) one launch transforms
-  ``b_block`` signals per block entirely in shared memory (the count capped
-  to what fits); longer signals run the two-pass (four-step) form: n = n1 *
+  of the kernel: up to n = 4096 in fp64 and 8192 in fp32 one launch
+  transforms whole signals a block (at most ``b_block``), each by n / 16
+  threads that run radix-16 passes in registers and exchange through one
+  shared buffer; longer signals run the two-pass (four-step) form: n = n1 *
   n2 (:func:`repro_torch.core.autotune.fft_two_pass`), one launch of length-n1
   FFTs down the columns of each signal's (n1, n2) view with the cross
   twiddles applied, one launch of length-n2 FFTs along the rows, both in
@@ -30,7 +30,6 @@ import torch
 
 from repro_torch.core.autotune import (
     fft_block_signals,
-    fft_block_threads,
     fft_pass_threads,
     fft_two_pass,
 )
@@ -144,15 +143,17 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 def _launch_block(re, im, wre, wim, out_re, out_im, signals: int) -> None:
     """One launch of the in-block form: ``signals`` whole signals a block,
-    in ``4 * signals * n * itemsize`` bytes of dynamic shared memory."""
+    :func:`~repro_torch.core.autotune.fft_block_radix` complex values a
+    thread (the C entry works it out from n the same way), ``signals * n /
+    radix`` threads and :func:`~repro_torch.core.autotune
+    .fft_block_smem_bytes` of dynamic shared memory a block."""
     lib = _lib()
     batch, n = re.shape
     with torch.cuda.device(re.device):
         err = lib.repro_fft_stockham_block(
             re.data_ptr(), im.data_ptr(), wre.data_ptr(), wim.data_ptr(),
             out_re.data_ptr(), out_im.data_ptr(), batch, n,
-            int(math.log2(n)), signals, fft_block_threads(n, signals),
-            int(re.dtype == torch.float64),
+            int(math.log2(n)), signals, int(re.dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, lib, f"fft_stockham in-block ({batch}, {n}), {signals} "
                         "signals a block")

@@ -5,20 +5,29 @@ table and (T,) ids, the same traffic class as the paper's SpMV x-gather.
 
 * :func:`embedding_gather` — the wrapper.  It plans the launch first
   (:func:`repro_torch.analysis.preflight.plan_embedding_gather`): ids that
-  lie on the host are range-checked there, before upload, because the
-  kernel gathers unchecked and CUDA does not clamp the way JAX does.  On a
-  CUDA table it launches ``csrc/embedding_gather.cu`` (one warp a row) or
-  raises; on a CPU table, and only there, it runs
+  lie on the host are range-checked there on every call, before upload,
+  because the kernel gathers unchecked and CUDA does not clamp the way JAX
+  does; the rest of the plan reads no value, so it is built once per
+  shape and dtype and reused (ids already on the card are never read
+  back).  On a CUDA table it launches ``csrc/embedding_gather.cu`` (a
+  block per row and chunk of the row, int32 or int64 ids read as they are)
+  or raises; on a CPU table, and only there, it runs
   :func:`embedding_gather_ref`.
 * :func:`embedding_gather_ref` — the plain PyTorch version, ``table[ids]``.
 """
 from __future__ import annotations
 
+import functools
+import types
+
 import numpy as np
 import torch
 
-from repro_torch.analysis.preflight import plan_embedding_gather
-from repro_torch.core.autotune import GATHER_BLOCK_THREADS
+from repro_torch.analysis.preflight import (
+    gather_ids_violation,
+    ids_on_host,
+    plan_embedding_gather,
+)
 
 __all__ = ["KERNEL_LAUNCHES", "embedding_gather", "embedding_gather_ref"]
 
@@ -27,7 +36,8 @@ __all__ = ["KERNEL_LAUNCHES", "embedding_gather", "embedding_gather_ref"]
 #: nowhere else.
 KERNEL_LAUNCHES = 0
 
-_KERNEL_DTYPES = (torch.float32, torch.float64)
+_DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64"}
+_ID_BYTES = {torch.int32: 4, torch.int64: 8}
 
 
 def embedding_gather_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -35,44 +45,79 @@ def embedding_gather_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor
     return table[torch.as_tensor(ids, device=table.device).long()]
 
 
-def _launch(table, ids, out) -> None:
-    """One launch of kernel B9 on PyTorch's current stream of the table's
-    device, made with that device current."""
-    global KERNEL_LAUNCHES
+@functools.lru_cache(maxsize=256)
+def _shape_plan(vocab: int, d: int, shape: tuple, id_dtype: str, dtype: str,
+                vl: int):
+    """The plan of ids whose values it does not read: what it checks and
+    the grid it sets depend on (V, d, T, id dtype, table dtype) alone, so
+    one plan serves every call of those."""
+    unread = types.SimpleNamespace(shape=shape, dtype=id_dtype, device="meta")
+    return plan_embedding_gather(vocab, d, unread, dtype=dtype, vl=vl)
+
+
+def _plan(vocab: int, d: int, ids, dtype: str, vl: int):
+    """The launch plan of one call.  Ids on a device: the cached plan of
+    their shape and dtype (their values are never read back).  Ids on the
+    host: the same cached plan once their values pass the range scan, which
+    runs on every call; else the full plan, naming the violation."""
+    plan = _shape_plan(vocab, d, tuple(ids.shape), str(ids.dtype), dtype, vl)
+    if plan.ok and ids_on_host(ids) and gather_ids_violation(ids, vocab):
+        return plan_embedding_gather(vocab, d, ids, dtype=dtype, vl=vl)
+    return plan
+
+
+@functools.cache
+def _kernel():
+    """The bound C entry point and its error-string function, resolved once."""
     from repro_torch.kernels import cuda_lib
 
     lib = cuda_lib.library("embedding_gather")
-    with torch.cuda.device(table.device):
-        err = lib.repro_embedding_gather(
-            table.data_ptr(), ids.data_ptr(), out.data_ptr(), ids.shape[0],
-            table.shape[1] * table.element_size(), GATHER_BLOCK_THREADS,
-            torch.cuda.current_stream().cuda_stream)
+    return lib.repro_embedding_gather, lib.repro_gather_cuda_error_string
+
+
+def _launch(table, ids, out, chunks: int, threads: int) -> None:
+    """One launch of kernel B9, grid (T, ``chunks``) of ``threads``, on
+    PyTorch's current stream of the table's device, with that device
+    current.  ``ids`` are int32 or int64 on the table's device."""
+    global KERNEL_LAUNCHES
+    fn, error_string = _kernel()
+    index = table.device.index
+    args = (table.data_ptr(), ids.data_ptr(), out.data_ptr(), ids.shape[0],
+            table.shape[1] * table.element_size(), _ID_BYTES[ids.dtype],
+            chunks, threads, torch.cuda.current_stream(index).cuda_stream)
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
     if err != 0:
-        msg = lib.repro_gather_cuda_error_string(err).decode()
         raise RuntimeError(
-            f"embedding_gather kernel launch failed (cudaError {err}: {msg}) "
-            f"for {ids.shape[0]} ids from a {tuple(table.shape)} table")
+            f"embedding_gather kernel launch failed (cudaError {err}: "
+            f"{error_string(err).decode()}) for {ids.shape[0]} ids from a "
+            f"{tuple(table.shape)} table")
     KERNEL_LAUNCHES += 1
 
 
 def embedding_gather(table: torch.Tensor, ids, *, vl: int = 256) -> torch.Tensor:
     """out[i] = table[ids[i]].  ``table``: (V, d) float32 or float64;
     ``ids``: (T,) integers, a numpy array or a tensor on the host or on the
-    table's device (int64 tokens are converted to the kernel's int32).
+    table's device.  The kernel reads int32 and int64 ids as they are
+    (other integer types are widened to int64 first).
 
     Returns (T, d) in the table's dtype on its device.  Raises
     :class:`~repro_torch.analysis.launchplan.LaunchPlanError` (a
     ``ValueError``) before any launch or upload when host ids leave
     ``[0, V)``, or ids are not integers.  ``vl`` is the reference's rows a
-    grid step; the CUDA grid (one warp a row) does not depend on it.
+    grid step; the CUDA grid does not depend on it.
     """
     if table.ndim != 2:
         raise ValueError(f"table must be (V, d), got shape {tuple(table.shape)}")
-    if table.dtype not in _KERNEL_DTYPES:
+    dtype = _DTYPE_NAMES.get(table.dtype)
+    if dtype is None:
         raise TypeError(f"table dtype {table.dtype} is not float32 or float64")
     v, d = table.shape
-    plan_embedding_gather(v, d, ids, dtype=str(table.dtype).removeprefix("torch."),
-                          vl=vl).raise_if_invalid()
+    plan = _plan(v, d, ids, dtype, vl)
+    plan.raise_if_invalid()
     if isinstance(ids, np.ndarray):
         ids = torch.from_numpy(ids)
     if table.device.type == "cpu":
@@ -83,9 +128,12 @@ def embedding_gather(table: torch.Tensor, ids, *, vl: int = 256) -> torch.Tensor
             f"{table.device}")
     if ids.device.type == "cuda" and ids.device != table.device:
         raise ValueError(f"ids on {ids.device}, table on {table.device}")
-    ids = ids.to(device=table.device, dtype=torch.int32).contiguous()
+    if ids.dtype not in _ID_BYTES:
+        ids = ids.to(torch.int64)
+    ids = ids.to(table.device).contiguous()
     table = table.contiguous()
     out = torch.empty((ids.shape[0], d), dtype=table.dtype, device=table.device)
     if ids.shape[0]:
-        _launch(table, ids, out)
+        (blk,) = plan.blocks
+        _launch(table, ids, out, blk.grid[1], blk.block[0])
     return out

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from repro_torch.kernels.execspec import resolve_device
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
@@ -95,8 +96,10 @@ def run_blocks(stack: nn.ModuleList, cfg: ModelConfig, kind: str, x: torch.Tenso
 def init_layer_caches(cfg: ModelConfig, n_layers: int, kind: str, batch: int,
                       max_len: int, dtype=torch.bfloat16,
                       device=None) -> LayerCaches:
-    """Stacked decode caches for one homogeneous group.  ``max_len`` sizes
-    a KV cache; an SSM state is O(1) in length."""
+    """Stacked decode caches for one homogeneous group on ``device``
+    (``None``: the card).  ``max_len`` sizes a KV cache; an SSM state is
+    O(1) in length."""
+    device = resolve_device(device)
     if kind != "ssm":
         raise _unported(kind)
     one = ssm_mod.init_ssm_state(cfg, batch, dtype, device=device)

@@ -27,6 +27,7 @@ from torch import nn
 from torch.nn import functional as Fn
 
 from repro_torch.kernels import ssd as ssd_k
+from repro_torch.kernels.execspec import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import he_init, rms_norm
 
@@ -188,6 +189,8 @@ def ssm_forward(p: SSMMixer, cfg: ModelConfig, x: torch.Tensor,
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
                    device=None) -> SSMState:
+    """Zero SSM state and conv ring on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     s = cfg.ssm
     d_xbc = cfg.d_inner + 2 * s.n_groups * s.d_state
     return SSMState(

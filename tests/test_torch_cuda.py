@@ -466,8 +466,36 @@ def test_fft_two_pass_tiles_do_not_change_the_result(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n", [2, 8, 64, 512, 2048, 4096, 8192])
+def test_fft_in_block_form_matches_plain_version(cuda_device, n, dtype):
+    """The in-block form at every length of the compare phase up to its
+    limit (4096 fp64, 8192 fp32), with ragged last blocks (batches 1, 3,
+    13 against the tuner's signals a block)."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels import fft
+
+    itemsize = np.dtype(dtype).itemsize
+    if n > autotune.fft_block_limit(itemsize):
+        pytest.skip(f"n = {n} runs the two-pass form in {np.dtype(dtype).name}")
+    tol = 1e-9 if dtype == np.float64 else 1e-3
+    for batch in (1, 3, 13):
+        args = _fft_case(n, batch, dtype, cuda_device, seed=n + batch)
+        want = fft.fft_stockham_ref(*args)
+        atol = _fft_atol(dtype, n, [w.cpu() for w in want])
+        before = dict(fft.KERNEL_LAUNCHES)
+        got = fft.fft_stockham(*args, b_block=8)
+        torch.cuda.synchronize()
+        assert fft.KERNEL_LAUNCHES["fft_stockham_block"] == \
+            before["fft_stockham_block"] + 1
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=tol, atol=atol)
+
+
+@pytest.mark.cuda
 def test_refused_fft_launch_raises_and_leaves_no_error_behind(cuda_device):
-    """A block asking for more dynamic shared memory than the card grants
+    """A block the card cannot take (too many signals: more threads than
+    the kernel's launch bound, more shared memory than a block may claim)
     is refused: the wrapper raises instead of returning garbage, counts no
     launch, and the next launch runs clean."""
     from repro_torch.core import autotune
@@ -475,7 +503,9 @@ def test_refused_fft_launch_raises_and_leaves_no_error_behind(cuda_device):
 
     n = 2048
     re, im, wre, wim = _fft_case(n, 16, np.float64, cuda_device)
-    signals = autotune.SMEM_PER_BLOCK // (32 * n) + 1      # one too many
+    signals = 1
+    while autotune.fft_block_smem_bytes(n, signals, 8) <= autotune.SMEM_PER_BLOCK:
+        signals += 1                                       # one too many
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
     before = dict(fft.KERNEL_LAUNCHES)
     with pytest.raises(RuntimeError, match="cudaError"):
@@ -514,6 +544,37 @@ def test_gather_kernel_equals_plain_version(cuda_device, dtype, d):
             assert torch.equal(got, gather.embedding_gather_ref(tab, ids))
     dev_ids = torch.tensor([999, 0, 5], device=cuda_device)   # on the card: unscanned
     assert torch.equal(gather.embedding_gather(table, dev_ids), table[dev_ids])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2560, 3])
+@pytest.mark.parametrize("id_dtype", [torch.int64, torch.int32])
+def test_gather_device_ids_launch_once_without_a_conversion(cuda_device,
+                                                           id_dtype, d,
+                                                           monkeypatch):
+    """Ids already on the card, int64 (the engine's argmax) or int32, at
+    T = 1 and 512 and at an odd fp32 width (d = 3: the 4 B path): one launch
+    a call, handed the caller's own id tensor (no conversion kernel, no
+    copy), and the rows of ``table[ids]`` exactly."""
+    from repro_torch.kernels import gather
+
+    seen = []
+    launch = gather._launch
+
+    def spy(table, ids, out, chunks, threads):
+        seen.append((ids.data_ptr(), ids.dtype))
+        launch(table, ids, out, chunks, threads)
+
+    monkeypatch.setattr(gather, "_launch", spy)
+    table = torch.randn((5000, d), dtype=torch.float32, device=cuda_device)
+    for t in (1, 512):
+        ids = torch.randint(0, 5000, (t,), dtype=id_dtype, device=cuda_device)
+        before = gather.KERNEL_LAUNCHES
+        got = gather.embedding_gather(table, ids)
+        torch.cuda.synchronize()
+        assert gather.KERNEL_LAUNCHES == before + 1
+        assert seen[-1] == (ids.data_ptr(), id_dtype)
+        assert torch.equal(got, table[ids])
 
 
 def _ssd_case(b, l, h, p, g, n, dtype, device, seed, init=False):

@@ -146,12 +146,14 @@ def test_plan_accepts_whatever_the_reference_accepts(b_block, dtype):
 
 
 def test_plan_chooses_the_form_by_shared_memory():
-    # fp64: one signal needs 32 n bytes of ping-pong buffers
+    # fp64 n = 2048: one signal a block (128 threads of 16 values), its two
+    # padded planes and the 128 twiddle bases in shared memory
     p = plan_fft_stockham(2048, 8192, b_block=8, dtype="float64")
     (blk,) = p.blocks
-    assert p.n_launches == 1 and blk.label == "in_block[signals=3]"
-    assert blk.smem_bytes == 3 * 32 * 2048 <= autotune.SMEM_PER_BLOCK
-    assert blk.grid == (math.ceil(8192 / 3),) and blk.block == (1024,)
+    assert p.n_launches == 1 and blk.label == "in_block[signals=1, radix=16]"
+    assert blk.smem_bytes == (2 * (2048 + 128) + 2 * 128) * 8 \
+        <= autotune.SMEM_PER_BLOCK
+    assert blk.grid == (8192,) and blk.block == (128,)
     assert plan_fft_stockham(4096, 5, dtype="float64").n_launches == 1
     # past it, the two-pass form: 8192 = 64 x 128, 8 columns / 4 rows a
     # block; each block also stages its sub-FFT's half-circle table
@@ -177,10 +179,11 @@ def test_plan_chooses_the_form_by_shared_memory():
     assert long.blocks[0].grid == (256 * 512 // 8,)
     assert long.blocks[1].grid == (256 * 256 // 4,)
     assert long.blocks[0].block == (512,) and long.blocks[1].block == (512,)
-    # small signals: b_block signals a block, threads rounded up to a warp
+    # small signals: b_block signals a block, n / radix threads each
     small = plan_fft_stockham(8, 13, b_block=8, dtype="float64").blocks[0]
-    assert small.grid == (2,) and small.block == (32,)
-    assert autotune.fft_block_signals(2048, 8, 8) == 3
+    assert small.grid == (2,) and small.block == (8,)
+    assert autotune.fft_block_signals(512, 8, 8) == 4      # 4 x 32 threads
+    assert autotune.fft_block_signals(2048, 8, 8) == 1
     assert autotune.fft_block_signals(8192, 8, 8) == 0
 
 
@@ -317,6 +320,207 @@ def test_two_pass_model_matches_reference_and_numpy(dtype, n):
                 else 1e-5 * max(float(np.abs(p).max()) for p in w))
         for g, p in zip(got, w):
             np.testing.assert_allclose(g.numpy(), p, rtol=tol, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# The in-block form's register passes (kernel B7, n up to a block)
+# ---------------------------------------------------------------------------
+
+#: |cos(2 pi b / 16)| for b = 0 .. 4, the constants of ``cos16`` in the .cu
+_C16 = (1.0, 0.92387953251128675613, 0.70710678118654752440,
+        0.38268343236508977173, 0.0)
+
+
+def _cos16(k):
+    m = k & 15
+    a = m if m <= 8 else 16 - m
+    b = a if a <= 4 else 8 - a
+    return _C16[b] if a <= 4 else -_C16[b]
+
+
+def _bitrev(j, bits):
+    return sum(((j >> b) & 1) << (bits - 1 - b) for b in range(bits))
+
+
+def _dft_dif(v):
+    """``dft_dif`` of the .cu over the last axis (length r): radix-2
+    decimation in frequency, w_2h^i = w_16^(8 i / h) as the same constants,
+    outputs in bit-reversed positions."""
+    v = v.clone()
+    r = v.shape[-1]
+    for lh in range(r.bit_length() - 2, -1, -1):
+        h = 1 << lh
+        for b in range(0, r, 2 * h):
+            for i in range(h):
+                a, c = v[..., b + i].clone(), v[..., b + i + h].clone()
+                v[..., b + i] = a + c
+                d = a - c
+                k = i * (8 // h)
+                if k == 0:
+                    v[..., b + i + h] = d
+                elif k == 4:                                  # times -i
+                    v[..., b + i + h] = torch.complex(d.imag, -d.real)
+                else:
+                    cs, sn = _cos16(k), _cos16(k - 4)
+                    v[..., b + i + h] = torch.complex(d.real * cs + d.imag * sn,
+                                                      d.imag * cs - d.real * sn)
+    return v
+
+
+def _padded(i, itemsize):
+    """Element i of a plane in shared memory: one pad after every 128 B."""
+    return i + (i >> (4 if itemsize == 8 else 5))
+
+
+def _block_model(re, im, wre, wim):
+    """Kernel B7's in-block form in plain torch, thread by thread as the
+    .cu runs it: n / E threads a signal (E the tuner's radix) each holding
+    E values; radix-E passes (DFT in registers,
+    twiddle (w_n^(u - p))^j powered up from one base read of the staged
+    row-0 prefix, write to r (u - p) + p + j S of the padded exchange
+    buffer), then a radix-2^rest pass writing to the output; the first
+    pass reads device memory, the last writes it."""
+    batch, n = re.shape
+    itemsize = re.element_size()
+    e = autotune.fft_block_radix(n)
+    log2e, log2n = e.bit_length() - 1, n.bit_length() - 1
+    ts = n // e
+    full, rest = divmod(log2n, log2e)
+    tw = torch.complex(wre[0, :ts], wim[0, :ts])    # the staged bases, e < n/E
+    x = torch.complex(re, im)
+    out = torch.empty_like(x)
+    buf = torch.zeros((batch, _padded(n, itemsize)), dtype=x.dtype)
+    t, jj = torch.arange(ts), torch.arange(e)
+    brev = [_bitrev(j, log2e) for j in range(e)]
+    v = x[:, t[:, None] + ts * jj[None, :]]          # (batch, ts, E)
+    log2s = 0
+    for p in range(full):
+        a = _dft_dif(v)[..., brev]                    # A_j
+        if p == full - 1 and rest == 0:
+            out[:, t[:, None] + ts * jj[None, :]] = a
+            return out.real.contiguous(), out.imag.contiguous()
+        s = 1 << log2s
+        pp = t & (s - 1)
+        base = t - pp
+        w1 = tw[base]
+        pw = w1.clone()
+        for j in range(1, e):
+            a[..., j] = a[..., j] * pw
+            pw = pw * w1
+        idx = e * base[:, None] + pp[:, None] + jj[None, :] * s
+        buf[:, _padded(idx, itemsize)] = a
+        log2s += log2e
+        if p + 1 < full:
+            v = buf[:, _padded(t[:, None] + ts * jj[None, :], itemsize)]
+    r = 1 << rest
+    m = n // r
+    u = t[:, None] + ts * torch.arange(e // r)[None, :]         # (ts, E / r)
+    kk = torch.arange(r)
+    v = buf[:, _padded(u[..., None] + m * kk, itemsize)]        # (b, ts, E/r, r)
+    a = _dft_dif(v)[..., [_bitrev(j, rest) for j in range(r)]]
+    out[:, u[..., None] + m * kk] = a
+    return out.real.contiguous(), out.imag.contiguous()
+
+
+@pytest.mark.parametrize("dtype,n",
+                         [(np.float64, 1 << e) for e in range(1, 14)]
+                         + [(np.float32, 1 << e) for e in range(1, 14)])
+def test_in_block_model_matches_reference_and_numpy(dtype, n):
+    """The register passes of the in-block form (radix-16 passes, then a
+    radix-2 / 4 / 8 pass where log2 n is not a multiple of 4; twiddles from
+    the first n / 16 entries of row 0; the padded exchange buffer) against
+    the reference's Pallas FFT (interpret mode) and ``numpy.fft.fft`` for
+    every n = 2 .. 8192, at the FFT tolerance (fp64 rtol 1e-9 / atol
+    1e-9 n; fp32 rtol 1e-3 / atol 1e-5 x max|spectrum|)."""
+    re, im = _signal(3, n, seed=n + 7, dtype=dtype)
+    wre, wim = fft.fft_twiddles(n, dtype)
+    got = _block_model(*(torch.from_numpy(a) for a in (re, im, wre, wim)))
+    want = ref_fft.fft_stockham(*(jnp.asarray(a) for a in (re, im, wre, wim)),
+                                b_block=2, interpret=True)
+    tol = TOLS[dtype]
+    spec = np.fft.fft(re.astype(np.float64) + 1j * im.astype(np.float64))
+    for w in ([np.asarray(a) for a in want], (spec.real, spec.imag)):
+        atol = (tol * n if dtype == np.float64
+                else 1e-5 * max(float(np.abs(p).max()) for p in w))
+        for g, p in zip(got, w):
+            np.testing.assert_allclose(g.numpy(), p, rtol=tol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_in_block_tuner_fits_the_card(dtype):
+    """Signals a block, threads and shared memory of the in-block form for
+    every n up to the limit: within ``b_block``, at most 512 threads (the
+    kernel's launch bound), shared memory within a block's 227 KB, and at
+    n = 2048 in fp64 at least four blocks resident on an SM's 228 KB
+    (1 KB of it reserved a block); the plan prices what the launch claims
+    (the .cu's ``block_smem``)."""
+    itemsize = np.dtype(dtype).itemsize
+    limit = autotune.fft_block_limit(itemsize)
+    for log2n in range(1, limit.bit_length()):
+        n = 1 << log2n
+        radix = autotune.fft_block_radix(n)
+        for b_block in (1, 3, 8):
+            signals = autotune.fft_block_signals(n, b_block, itemsize)
+            assert 1 <= signals <= b_block
+            threads = autotune.fft_block_threads(n, signals)
+            assert threads == signals * n // radix
+            assert threads <= autotune.FFT_BLOCK_MAX_THREADS
+            smem = autotune.fft_block_smem_bytes(n, signals, itemsize)
+            plane = n + (n >> (4 if itemsize == 8 else 5))
+            assert smem == itemsize * (2 * signals * plane + 2 * (n // radix))
+            assert smem <= autotune.SMEM_PER_BLOCK
+            (blk,) = plan_fft_stockham(n, 13, b_block=b_block, dtype=dtype).blocks
+            assert blk.smem_bytes == smem and blk.block == (threads,)
+            assert blk.grid == (-(-13 // signals),)
+    assert autotune.fft_block_signals(2 * limit, 8, itemsize) == 0
+    if dtype == "float64":
+        smem = autotune.fft_block_smem_bytes(2048, 1, 8)
+        assert 233_472 // (smem + 1024) >= 4
+
+
+def _bank_ways(addrs, itemsize):
+    """Most distinct addresses one bank serves in one access: 32 banks of
+    4 B; a warp's 8 B accesses go as two half-warps of 16 lanes."""
+    lanes = 16 if itemsize == 8 else 32
+    worst = 1
+    for g in range(0, len(addrs), lanes):
+        group = set(addrs[g:g + lanes])
+        per_bank = {}
+        for a in group:
+            per_bank.setdefault((a * itemsize // 4) % 32, set()).add(a)
+        worst = max(worst, max(len(v) for v in per_bank.values()))
+    return worst
+
+
+@pytest.mark.parametrize("dtype,n", [("float64", 2048), ("float64", 4096),
+                                     ("float32", 2048), ("float32", 8192)])
+def test_in_block_exchanges_hit_distinct_banks(dtype, n):
+    """The padded index (one element after every 128 B) keeps a plane
+    injective and the exchanges between register passes conflict-free: the
+    first pass's stride-16 writes, the later passes' reads and writes, in
+    fp64 (half-warps of 8 B) everywhere; in fp32 the writes of the middle
+    passes (two runs of 16 a warp) share 8 banks two ways."""
+    itemsize = np.dtype(dtype).itemsize
+    e = autotune.fft_block_radix(n)
+    ts = n // e
+    phys = [_padded(i, itemsize) for i in range(n)]
+    assert len(set(phys)) == n and max(phys) < _padded(n, itemsize)
+    full, rest = divmod(n.bit_length() - 1, e.bit_length() - 1)
+    log2s = 0
+    for p in range(full - (rest == 0)):                # passes that exchange
+        s = 1 << log2s
+        for j in range(e):
+            writes = [_padded(e * (t - (t & (s - 1))) + (t & (s - 1)) + j * s,
+                              itemsize) for t in range(ts)]
+            ways = _bank_ways(writes, itemsize)
+            assert ways == 1 or (dtype == "float32" and p > 0 and ways == 2)
+        log2s += e.bit_length() - 1
+        r = e if p + 1 < full else 1 << rest
+        for i in range(e // r):
+            for k in range(r):
+                reads = [_padded(t + i * ts + k * (n // r), itemsize)
+                         for t in range(ts)]
+                assert _bank_ways(reads, itemsize) == 1
 
 
 def test_fft_refusals_in_both_packages():

@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from repro import configs as ref_configs
+from repro.models import blocks as ref_blocks
 from repro.models import model as RM
 from repro.models import ssm as ref_ssm
 from repro.serve import Batcher as RefBatcher
@@ -33,6 +34,7 @@ from repro.serve import Request as RefRequest
 from repro.serve import ServeEngine as RefEngine
 from repro_torch import configs
 from repro_torch.launch import serve as cli
+from repro_torch.models import blocks
 from repro_torch.models import model as M
 from repro_torch.models import ssm
 from repro_torch.models.convert import params_from_reference
@@ -319,6 +321,38 @@ def test_device_none_is_the_card_and_raises_without_one(lm, monkeypatch):
         M.make_generator(0)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         params_from_reference(lm[4], tcfg)
+
+
+def test_cache_inits_without_a_device_are_the_card_and_raise_without_one(
+        lm, monkeypatch):
+    """``init_ssm_state`` and ``init_layer_caches`` resolve ``device=None``
+    to the card, as every entry point of the port does: with no GPU they
+    raise instead of placing their zeros on the CPU."""
+    _, _, tcfg, _, _ = lm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ssm.init_ssm_state(tcfg, 2)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        blocks.init_layer_caches(tcfg, tcfg.n_layers, "ssm", 2, 8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cache_inits_on_the_cpu_match_reference_zeros_and_shapes(lm, dtype):
+    cfg, _, tcfg, _, _ = lm
+    one = ssm.init_ssm_state(tcfg, 3, getattr(torch, dtype), device="cpu")
+    want = ref_ssm.init_ssm_state(cfg, 3, getattr(jnp, dtype))
+    caches = blocks.init_layer_caches(tcfg, tcfg.n_layers, "ssm", 3, 8,
+                                      getattr(torch, dtype), device="cpu")
+    ref = ref_blocks.init_layer_caches(cfg, cfg.n_layers, "ssm", 3, 8,
+                                       getattr(jnp, dtype))
+    assert caches.kv is None and ref.kv is None
+    for got, exp in ((one.state, want.state), (one.conv, want.conv),
+                     (caches.ssm.state, ref.ssm.state),
+                     (caches.ssm.conv, ref.ssm.conv)):
+        assert got.device.type == "cpu"
+        assert tuple(got.shape) == tuple(exp.shape)
+        assert str(got.dtype).removeprefix("torch.") == str(exp.dtype)
+        assert not got.any()
 
 
 def test_prompt_ids_out_of_range_are_refused_before_upload(lm):

@@ -94,9 +94,9 @@ def test_gather_plan_shape_and_wrapper_contract():
     plan = plan_embedding_gather(50_280, 2560, np.arange(513), vl=256)
     assert plan.ok and plan.n_launches == 1
     (blk,) = plan.blocks
-    warps = autotune.GATHER_BLOCK_THREADS // autotune.WARP
-    assert blk.grid == (-(-513 // warps),)
-    assert blk.block == (autotune.GATHER_BLOCK_THREADS,)
+    # one 160-thread block a row: 5 warps x 64 B a thread = 10,240 B
+    assert blk.grid == (513, 1) and blk.block == (160,)
+    assert ("ids", (513,), "int64") in blk.operands
     assert ("out", (513, 2560), "float32") in blk.operands
     # vl only names the reference's grid step: the CUDA grid ignores it
     assert plan_embedding_gather(50_280, 2560, np.arange(513), vl=8).blocks == plan.blocks
@@ -109,6 +109,103 @@ def test_gather_plan_shape_and_wrapper_contract():
         gather.embedding_gather(torch.zeros(10), np.arange(3))
     empty = gather.embedding_gather(torch.zeros((10, 4)), np.zeros(0, np.int32))
     assert empty.shape == (0, 4)
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+@pytest.mark.parametrize("id_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("vl", [8, 64, 256])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_embedding_gather_id_types_equal_reference(dtype, vl, id_dtype,
+                                                   as_tensor):
+    """int32 and int64 ids, as numpy arrays or CPU tensors: the same rows
+    as the reference's gather, exactly."""
+    rng = np.random.default_rng(vl)
+    table = rng.standard_normal((700, 24)).astype(dtype)
+    ids = rng.integers(0, 700, (257,)).astype(id_dtype)
+    want = np.asarray(ref_gather(jnp.asarray(table), jnp.asarray(ids), vl=vl))
+    got = gather.embedding_gather(torch.from_numpy(table),
+                                  torch.from_numpy(ids) if as_tensor else ids,
+                                  vl=vl)
+    assert torch.equal(got, torch.from_numpy(np.array(want)))
+
+
+@pytest.mark.parametrize("t", [1, 4, 512, 2048])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_gather_cached_device_ids_plan_equals_a_fresh_one(t, id_dtype):
+    """Ids on a device (a meta tensor stands in for the card here) are
+    never read back, so their plan is built once per (V, d, T, id dtype,
+    table dtype) and reused: the cached plan is the plan built afresh, and
+    the plan of in-range host ids of the same shape, which reuse it."""
+    on_device = torch.empty((t,), dtype=id_dtype, device="meta")
+    cached = gather._plan(50_280, 2560, on_device, "float32", 256)
+    assert gather._plan(50_280, 2560, on_device, "float32", 256) is cached
+    fresh = plan_embedding_gather(50_280, 2560, on_device, dtype="float32")
+    assert cached == fresh and cached.ok
+    host = torch.arange(t, dtype=id_dtype)
+    assert plan_embedding_gather(50_280, 2560, host, dtype="float32") == cached
+    assert gather._plan(50_280, 2560, host, "float32", 256) is cached
+
+
+def test_gather_host_ids_are_scanned_on_every_call():
+    """A cached plan of the same shape never lets host ids through
+    unscanned: out-of-range host ids are refused before any upload on every
+    call, before and after in-range ones and a cached device-ids plan."""
+    table = torch.zeros((10, 4))
+    gather._plan(10, 4, torch.empty((3,), dtype=torch.int64, device="meta"),
+                 "float32", 256)
+    bad = np.array([0, 7, 10])
+    before = gather.KERNEL_LAUNCHES
+    for ids in (bad, np.array([0, 7, 9]), bad, torch.from_numpy(bad)):
+        if int(ids.max()) < 10:
+            assert gather.embedding_gather(table, ids).shape == (3, 4)
+            continue
+        with pytest.raises(LaunchPlanError, match="out of bounds"):
+            gather.embedding_gather(table, ids)
+    assert gather.KERNEL_LAUNCHES == before
+
+
+def _grid_cover(t, row_bytes, vec_bytes):
+    """Python mirror of the kernel's grid: every (row, vector) that block
+    (row, c), thread x, load k copies, for vectors of ``vec_bytes``."""
+    chunks, threads = autotune.gather_grid(t, row_bytes)
+    loads = autotune.GATHER_THREAD_BYTES // vec_bytes
+    row_vecs = row_bytes // vec_bytes
+    seen = []
+    for c in range(chunks):
+        begin = c * loads * threads
+        for x in range(threads):
+            for k in range(loads):
+                i = begin + x + k * threads
+                if i < row_vecs:
+                    seen.append(i)
+    return chunks, threads, seen
+
+
+@pytest.mark.parametrize("t,d,itemsize", [(512, 2560, 4), (4, 2560, 4),
+                                          (1, 2560, 8), (2048, 2560, 4),
+                                          (7, 66, 4), (3, 3, 4), (1000, 1, 8),
+                                          (1, 4100, 8)])
+def test_gather_grid_covers_every_vector_once(t, d, itemsize):
+    """Each vector of a row (16, 8 or 4 B, as the pointers allow) is copied
+    by exactly one (block, thread, load): the chunks cover the row and no
+    chunk starts past its end; whole warps, at most 256 threads; and at T =
+    512, d = 2560 fp32 the grid has at least two blocks for each of 132
+    SMs."""
+    row_bytes = d * itemsize
+    for vec in (16, 8, 4):
+        if row_bytes % vec:
+            continue
+        chunks, threads, seen = _grid_cover(t, row_bytes, vec)
+        assert sorted(seen) == list(range(row_bytes // vec))
+        chunk_bytes = autotune.GATHER_THREAD_BYTES * threads
+        assert (chunks - 1) * chunk_bytes < row_bytes <= chunks * chunk_bytes
+        assert threads % autotune.WARP == 0
+        assert threads <= autotune.GATHER_MAX_THREADS
+    plan = plan_embedding_gather(50_000, d, np.zeros(t, np.int32),
+                                 dtype="float32" if itemsize == 4 else "float64")
+    assert plan.blocks[0].grid == (t, chunks)
+    if (t, d, itemsize) == (512, 2560, 4):
+        assert t * chunks >= 2 * autotune.SM_COUNT
 
 
 # ---------------------------------------------------------------------------
