@@ -17,12 +17,15 @@ result line is printed:
 3. compare  — each kernel against its plain PyTorch version on the card:
               B1 (``spmm_sell``) over C x k x dtype on two operands; B2
               (``spmm_sell_stream``) over C x k x dtype x tiles on two
-              operands, bit-equal to B1 where B1 splits no bucket across
-              threads (else within 1e-10 fp64 / 1e-4 x max|y| fp32), also
-              on rows out of column order
-              and with PAD before a row's entries; the graph kernels B3 (``bfs_step_sell``, ``pagerank_step_sell``),
-              B4 (``bfs_step``) and B5 (``pagerank_step``) over RMAT and
-              uniform graphs at 2^12 and a prime node count, C x k; B6
+              operands (the (64, 3) tiles give blocks whose column lists
+              take several chunks), bit-equal to B1 where B1 splits no
+              bucket across threads (else within 1e-10 fp64 / 1e-4 x
+              max|y| fp32), also on rows out of column order and with PAD
+              before a row's entries; the graph kernels B3
+              (``bfs_step_sell``, ``pagerank_step_sell``; its split
+              buckets at k 1, 3, 8 and 32 among them), B4 (``bfs_step``)
+              and B5 (``pagerank_step``) over RMAT and uniform graphs at
+              2^12 and a prime node count, C x k; B6
               (``spmv_ell``) over C x dtype on two operands; B7
               (``fft_stockham``, the in-block and the two-pass form) over
               n x batch x dtype, and the two-pass form's tiles, each form
@@ -60,8 +63,10 @@ result line is printed:
 8. stream   — the streaming schedule as a user drives it: ``ops.spmm`` with
               ``mode="stream"`` on cage10 (k = 32) and on a 8,192 x
               4,300,000 operand (k = 8), ``ops.spmv`` with it on the latter
-              (k = 1), all through kernel B2, each result bit-equal to B1
-              (no bucket of these operands is split)
+              (k = 1), all through kernel B2 (its block column lists
+              built by ``ops`` once per operand; a copy is built first to
+              print the build time), each result bit-equal to B1 (no
+              bucket of these operands is split)
               on the card and four columns against ``CSRMatrix.matvec``;
               B2's launch count is read around them;
 9. moe      — MoE decode traffic at the published widths of mixtral-8x7b
@@ -97,8 +102,10 @@ result line is printed:
               alone, its device time under ``torch.profiler`` and the
               host time a call, beside ``F.embedding`` read the same
               way); B2 beside B1
-              at six shapes with the X bytes its schedule moves, and the
-              rule ``mode="auto"`` follows; the MoE launch sets beside the
+              at seven shapes with the bytes its schedule moves (staged X
+              rows and column map) and the map's build time, and the
+              rule ``mode="auto"`` follows; B3 per bucket with its lanes a
+              node and parts, and the bytes of its state gather; the MoE launch sets beside the
               dense ``torch.matmul``; then one graph drive per (graph, op)
               under ``torch.profiler``: the graph kernels' device time
               against the drive's wall time; and one mamba2 prefill (b = 1)
@@ -351,10 +358,14 @@ def compare_graph_kernels(torch, np, G, bfs_k, pr_k) -> dict:
     """Phase 3 (graphs): B3 (BFS and PageRank combines), B4 and B5 against
     their plain versions on the card; BFS exactly, PageRank at rtol 1e-10.
     Returns the worst PageRank relative error per kernel."""
+    from repro_torch.core.autotune import node_split
+    from repro_torch.kernels import sell_core
+
     rng = np.random.default_rng(2)
     INF = G.INF
     worst = {"pagerank_step_sell": 0.0, "pagerank_step": 0.0}
     n_cases = 0
+    split_ks = set()
     for name, g in graph_compare_cases(G).items():
         n = g.n_nodes
         rg = g.transpose()
@@ -382,7 +393,11 @@ def compare_graph_kernels(torch, np, G, bfs_k, pr_k) -> dict:
         # SELL: B3 with both combines, scalar state and k columns
         for c in (8, 32, 128, 256):
             adj, nodes = G.graph_to_sell_slabs(rg, c=c).to_device(DEVICE)
-            for k in (None, 1, 6, 8, 12, 32, 48):
+            for k in (None, 1, 3, 6, 8, 12, 32, 48):
+                kt = sell_core.node_k_tile(1 if k is None else k)
+                if any(node_split(a.shape[2], c, a.shape[0], kt, 8).parts > 1
+                       for a in adj):
+                    split_ks.add(1 if k is None else k)
                 cols = 1 if k is None else k
                 src = torch.from_numpy(rng.choice(n, cols, replace=False))
                 shape = (n + 1,) if k is None else (n + 1, k)
@@ -411,8 +426,12 @@ def compare_graph_kernels(torch, np, G, bfs_k, pr_k) -> dict:
                     worst["pagerank_step_sell"], rel_err(got, want))
                 n_cases += 1
         phase("compare", f"{name}: B4/B5 and B3 (BFS, PageRank) at C in (8, "
-              "32, 128, 256) x k in (scalar, 1, 6, 8, 12, 32, 48) agree")
-    phase("compare", f"{n_cases} graph cases ok; BFS exactly equal, PageRank "
+              "32, 128, 256) x k in (scalar, 1, 3, 6, 8, 12, 32, 48) agree")
+    if not {1, 3, 8, 32} <= split_ks:
+        raise AssertionError(f"B3 split buckets compared only at k in "
+                             f"{sorted(split_ks)}")
+    phase("compare", f"{n_cases} graph cases ok, split buckets among them at "
+          f"k in {sorted(split_ks)}; BFS exactly equal, PageRank "
           f"max rel err {max(worst.values()):.3e} (rtol {PR_RTOL})")
     return worst
 
@@ -747,6 +766,8 @@ def node_bucket_ms(torch, launch, adj, nodes, flush) -> list[float]:
 def time_graphs(torch, np, G, sell_core, bfs_k, pr_k, gm: dict,
                 flush) -> dict:
     """Phase 6 (graphs): the graph kernels at the main path's shapes."""
+    from repro_torch.core.autotune import node_split
+
     INF = G.INF
     records = {}
     lib_a = sparse_reverse(torch, np, gm["reverse_u21"])
@@ -828,10 +849,14 @@ def time_graphs(torch, np, G, sell_core, bfs_k, pr_k, gm: dict,
                                  cm[0] + cm[1] * (pulled + cm[2]))
                         lib_ms = time_ms(torch, library, flush)
                 per_bucket = node_bucket_ms(torch, launch, adj, nodes, flush)
+                itemsize = 4 if kernel == "bfs_step_sell" else 8
+                splits = [node_split(a.shape[2], a.shape[1], a.shape[0], kt,
+                                     itemsize) for a in adj]
                 phase("timing", f"{name} k={k} {kernel} per bucket (W: slices, "
-                      "ms): " + ", ".join(
-                          f"{a.shape[2]}: {a.shape[0]}, {t:.4f}"
-                          for a, t in zip(adj, per_bucket)))
+                      "lanes a node x parts, ms): " + ", ".join(
+                          f"{a.shape[2]}: {a.shape[0]}, {sp.group}x"
+                          f"{sp.parts}, {t:.4f}"
+                          for a, sp, t in zip(adj, splits, per_bucket)))
                 if not main:
                     continue
                 ms = time_ms(torch, fn, flush)
@@ -840,15 +865,23 @@ def time_graphs(torch, np, G, sell_core, bfs_k, pr_k, gm: dict,
                 bytes_ms = bytes_least / HBM_BYTES_PER_S * 1e3
                 padded_ms = (4 * padded + 4 * lanes + state * n * cols) \
                     / HBM_BYTES_PER_S * 1e3
+                # the schedule's own gather: each stored edge reads its
+                # neighbour's state row (k columns) once
+                gather_ms = e * cols * itemsize / HBM_BYTES_PER_S * 1e3
                 rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=max(bytes_ms, ops_ms),
                            bound_by="bytes" if bytes_ms >= ops_ms
                            else "operations",
-                           max_abs_err=err, bucket_ms=per_bucket)
+                           max_abs_err=err, bucket_ms=per_bucket,
+                           buckets=[dict(width=a.shape[2], slices=a.shape[0],
+                                         group=sp.group, parts=sp.parts,
+                                         ms=t) for a, sp, t in
+                                    zip(adj, splits, per_bucket)])
                 records.setdefault(kernel, {})[k] = rec
                 phase("timing", f"{name} k={k}: {kernel} {ms:.4f} ms | bound "
-                      f"{bytes_ms:.4f} ms (bytes; ops {ops_ms:.4f}) | padded-"
-                      f"slab bytes bound {padded_ms:.4f} ms | plain "
+                      f"{bytes_ms:.4f} ms (bytes; ops {ops_ms:.4f}) | gather "
+                      f"bytes {e * cols * itemsize} B = {gather_ms:.4f} ms | "
+                      f"padded-slab bytes bound {padded_ms:.4f} ms | plain "
                       f"{plain_ms:.4f} ms | library " + (
                           f"torch.sparse.mm {lib_ms:.4f} ms" if lib_ms
                           is not None else "none (no single PyTorch call "
@@ -1460,16 +1493,23 @@ def compare_stream(torch, np, sell_core, F) -> float:
     rng = np.random.default_rng(4)
     worst64 = 0.0
     n_cases = 0
+    multi_chunk = 0
     tiles = ((None, None), (64, 3))
     for dt in (np.float64, np.float32):
         for name, make in operands.items():
             csr = make(dt)
             split_layouts = []
             for c in (8, 32, 128, 256):
-                cols, vals, rows = F.csr_to_sell_slabs(csr, c=c).to_device(
-                    DEVICE)
+                slabs = F.csr_to_sell_slabs(csr, c=c)
+                cols, vals, rows = slabs.to_device(DEVICE)
                 if sell_core.splits(cols):
                     split_layouts.append(c)
+                # the (64, 3) tiles: blocks whose column lists take more
+                # than one chunk of 64 staged X rows
+                smap = F.stream_column_map(slabs.bucket_cols,
+                                           sell_core.stream_bucket_rows(
+                                               3, [a.shape for a in cols]))
+                chunks = max(-(-n // 64) for n in smap.longest)
                 for k in (1, 3, 8, 32):
                     x = torch.from_numpy(rng.standard_normal(
                         (csr.n_cols, k)).astype(dt)).to(DEVICE)
@@ -1500,6 +1540,7 @@ def compare_stream(torch, np, sell_core, F) -> float:
                                 f"B2 != B1: {name} {np.dtype(dt).name} C={c} "
                                 f"k={k} tiles={ct, rt} ({how})")
                         n_cases += 1
+                        multi_chunk += ct == 64 and chunks > 1
             phase("compare", f"B2 {name} {np.dtype(dt).name}: C in (8, 32, "
                   f"128, 256) x k in (1, 3, 8, 32) x (col_tile, row_tile) in "
                   f"{tiles} within tolerance of plain and bit-equal to B1 "
@@ -1534,7 +1575,11 @@ def compare_stream(torch, np, sell_core, F) -> float:
             raise AssertionError(
                 f"B2 vs plain on rows out of column order: {err_unsorted}")
         n_cases += 1
-    phase("compare", f"{n_cases} B2 cases ok; fp64 max abs err vs plain "
+    if multi_chunk == 0:
+        raise AssertionError("no B2 compare case walked more than one chunk "
+                             "a block")
+    phase("compare", f"{n_cases} B2 cases ok ({multi_chunk} with blocks of "
+          f"more than one 64-row chunk); fp64 max abs err vs plain "
           f"{worst64:.3e} (tol 1e-10), fp32 tol 1e-4 * max|y|; every case "
           f"bit-equal to B1 where B1 splits no bucket (within its tolerance "
           f"on the split layouts listed above), cage10 with shuffled rows "
@@ -1542,8 +1587,29 @@ def compare_stream(torch, np, sell_core, F) -> float:
     return worst64
 
 
+#: seconds ops took to build, scan and upload each B2 column map, by
+#: (id(slabs), block rows): one build a map, read by every phase after
+MAP_BUILD_S: dict = {}
+
+
+def ops_stream_map(torch, ops, slabs, block_rows):
+    """B2's column map of ``slabs`` at ``block_rows`` as ``ops`` caches it
+    (built, scanned and uploaded at the first call, then found there):
+    (host map, map on the card, seconds of that one build)."""
+    dev = torch.device(DEVICE)
+    key = (id(slabs), tuple(block_rows))
+    t0 = time.perf_counter()
+    ops._prepared(slabs, dev)
+    _, dmap = ops._stream_map(slabs, tuple(block_rows), dev)
+    MAP_BUILD_S.setdefault(key, time.perf_counter() - t0)
+    host = ops._PREPARED[id(slabs)][("stream", tuple(block_rows))][0]
+    return host, dmap, MAP_BUILD_S[key]
+
+
 def stream_path(torch, np, F, sell_core, ops, ExecSpec) -> dict:
     """Phase 8: the streaming schedule through ``ops`` (kernel B2)."""
+    from repro_torch.core.autotune import pick_stream_tiles
+
     t0 = time.perf_counter()
     cage = F.cage10_like(seed=0)
     giant = F.random_csr(**GIANT)
@@ -1556,8 +1622,26 @@ def stream_path(torch, np, F, sell_core, ops, ExecSpec) -> dict:
           f"{xg.nbytes} B at k={GIANT_K}")
     spec = ExecSpec(device=DEVICE, mode="stream")
     # pack once, so the B1 check below reuses the same slabs and uploads
+    t0 = time.perf_counter()
     slabs = {"cage10": F.csr_to_sell_slabs(cage, c=spec.vl),
              "giant": F.csr_to_sell_slabs(giant, c=spec.vl)}
+    packed = time.perf_counter() - t0
+    # what ops builds once per operand for B2: the block column lists,
+    # built here through ops' own cache (at the block rows ops picks for
+    # these calls) to time the build, then found there by the calls below
+    built = []
+    for name, k in (("cage10", REQUESTS_PER_OPERAND), ("giant", GIANT_K)):
+        sl = slabs[name]
+        rt = pick_stream_tiles(sl.c, sell_core.k_tile_for(k, min(
+            8, sell_core.pow2_ceil(k))))[1]
+        rows = sell_core.stream_bucket_rows(rt, [a.shape for a in
+                                                 sl.bucket_cols])
+        smap, _, secs = ops_stream_map(torch, ops, sl, rows)
+        built.append(f"{name} {secs:.3f} s ({smap.x_rows} (block, column) "
+                     f"pairs, block rows {rows})")
+    phase("stream", f"packed in {packed:.3f} s; B2 column maps built, scanned "
+          "and uploaded by ops in "
+          + "; ".join(built))
     torch.cuda.synchronize()
     sell_core.STREAM_LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1736,29 +1820,21 @@ def moe_path(torch, np, F, sell_core, ops, ExecSpec, KernelRegistry,
                 requests_per_s=n_req / wall)
 
 
-def stream_traffic(np, bucket_cols, n_cols: int, k: int, k_tile: int,
-                   itemsize: int, col_tile: int, row_tile: int):
-    """What B2's schedule loads of X, counted on the host from the slabs:
-    (touched (block, tile) pairs, X bytes), each block loading every tile
-    its rows touch once per k tile (tiles fetched ahead and not used are
-    not counted)."""
-    from repro_torch.analysis.preflight import stream_block_rows
-    from repro_torch.sparse.formats import PAD
+def stream_traffic(smap, k: int, k_tile: int, itemsize: int, col_tile: int):
+    """What B2's schedule moves besides the function's bytes, counted on the
+    host from its block column lists: ((block, column) pairs, chunks, X
+    bytes, map bytes).  Each block stages each column its rows name once
+    per k tile (where its rows ascend); the map adds 4 B a listed column,
+    8 B a block and 4 B a lane (lane_end), read once per k tile."""
+    from repro_torch.analysis.preflight import stream_chunk_rows
 
-    n_tiles = -(-n_cols // col_tile)
-    pairs = rows_loaded = 0
-    for cols in bucket_cols:
-        s, _, c = cols.shape
-        rb = stream_block_rows(min(row_tile, s), c)
-        lane = np.arange(s)[:, None, None] * c + np.arange(c)[None, None, :]
-        block = np.broadcast_to(lane // rb, cols.shape)
-        real = cols != PAD
-        tiles = np.unique(block[real].astype(np.int64) * n_tiles
-                          + cols[real].astype(np.int64) // col_tile) % n_tiles
-        pairs += tiles.size
-        rows_loaded += int(np.minimum(col_tile, n_cols - tiles * col_tile).sum())
     grid_y = -(-k // k_tile)
-    return pairs * grid_y, rows_loaded * k_tile * itemsize * grid_y
+    chunks = sum(int(-(-(p[1:] - p[:-1]) // stream_chunk_rows(col_tile, n))
+                     .sum()) for p, n in zip(smap.block_ptr, smap.longest))
+    map_bytes = sum(4 * len(lst) + 8 * len(p) + 4 * e.size for lst, p, e in
+                    zip(smap.block_cols, smap.block_ptr, smap.lane_end))
+    return (smap.x_rows, chunks * grid_y,
+            smap.x_rows * k_tile * itemsize * grid_y, map_bytes * grid_y)
 
 
 def sparse_csr(torch, np, csr):
@@ -1772,11 +1848,12 @@ def sparse_csr(torch, np, csr):
 
 def time_stream(torch, np, sell_core, ops, sm: dict, big_op, big,
                 flush) -> dict:
-    """Phase 10 (streaming): B2 beside B1 at six shapes (cage10 k = 1, 32;
-    the giant operand k = 1, 8, 32; BIG k = 1), with its bound (B1's
-    bytes), the X bytes its schedule loads and the tile count; then the
-    rule ``mode="auto"`` follows."""
-    from repro_torch.analysis.preflight import stream_col_tile
+    """Phase 10 (streaming): B2 beside B1 at seven shapes (cage10 k = 1,
+    32; the giant operand k = 1, 8, 32; BIG k = 1, 32), with its bound (B1's
+    bytes), the bytes its schedule moves (the staged X rows and its column
+    map) and the map's build time; then the rule ``mode="auto"`` follows."""
+    from repro_torch.analysis.preflight import (stream_chunk_rows,
+                                                stream_col_tile)
     from repro_torch.core.autotune import pick_stream_tiles
 
     dev = torch.device(DEVICE)
@@ -1785,11 +1862,13 @@ def time_stream(torch, np, sell_core, ops, sm: dict, big_op, big,
                    ops._prepared(sm["slabs"]["cage10"], dev)[1]),
         "giant": (sm["giant"], sm["slabs"]["giant"],
                   ops._prepared(sm["slabs"]["giant"], dev)[1]),
-        "big": (big, big_op.slabs, tuple(big_op.device_arrays[n]
-                                         for n in ("cols", "vals", "rows"))),
+        "big": (big, big_op.slabs, ops._prepared(big_op.slabs, dev)[1]),
     }
+    # the column maps come from ops' cache with the uploads above: cage10's
+    # and giant's as the stream phase built them, big's built there once
     shapes = [("cage10", 1), ("cage10", REQUESTS_PER_OPERAND), ("giant", 1),
-              ("giant", GIANT_K), ("giant", REQUESTS_PER_OPERAND), ("big", 1)]
+              ("giant", GIANT_K), ("giant", REQUESTS_PER_OPERAND), ("big", 1),
+              ("big", REQUESTS_PER_OPERAND)]
     rng = np.random.default_rng(12)
     records = {}
     for name, k in shapes:
@@ -1799,10 +1878,14 @@ def time_stream(torch, np, sell_core, ops, sm: dict, big_op, big,
         kt = sell_core.k_tile_for(k, 32)
         ct, rt = pick_stream_tiles(slabs.c, kt, 8)
         ct = stream_col_tile(ct, csr.n_cols)
+        block_rows = sell_core.stream_bucket_rows(
+            rt, [a.shape for a in slabs.bucket_cols])
+        smap, dmap, built_s = ops_stream_map(torch, ops, slabs, block_rows)
 
         def b2():
             return sell_core.spmm_sell_stream(cols, vals, rows, x,
-                                              n_rows=csr.n_rows, k_block=32)
+                                              n_rows=csr.n_rows, k_block=32,
+                                              column_map=dmap)
 
         def b1():
             return sell_core.spmm_sell(cols, vals, rows, x,
@@ -1829,37 +1912,46 @@ def time_stream(torch, np, sell_core, ops, sm: dict, big_op, big,
         b1_ms.append(time_ms(torch, b1, flush))
         plain_ms = time_ms(torch, plain, flush)
         lib_ms = time_ms(torch, library, flush)
-        pairs, x_bytes = stream_traffic(np, slabs.bucket_cols, csr.n_cols, k,
-                                        kt, 8, ct, rt)
+        pairs, chunks, x_bytes, map_bytes = stream_traffic(smap, k, kt, 8, ct)
         x_rows = touched_columns(np, csr.indices, csr.n_cols)
         least = csr.nnz * 12 + 4 * csr.n_rows + 8 * k * (x_rows + csr.n_rows)
         bytes_ms = least / HBM_BYTES_PER_S * 1e3
         ops_ms = 2 * csr.nnz * k / FP64_FLOPS * 1e3
-        sched_ms = (least - 8 * k * x_rows + x_bytes) \
+        sched_ms = (least - 8 * k * x_rows + x_bytes + map_bytes) \
             / HBM_BYTES_PER_S * 1e3
-        n_tiles = -(-csr.n_cols // ct)
+        if name == "big":
+            # per bucket: which widths hold the schedule back
+            xk = x.contiguous()
+            y = torch.empty((csr.n_rows + 1, k), dtype=x.dtype, device=DEVICE)
+            stream = torch.cuda.current_stream().cuda_stream
+            per = [time_ms(torch, lambda b=b: sell_core._launch_stream_bucket(
+                dmap.lcols[b], vals[b], rows[b], dmap.lane_end[b],
+                dmap.block_ptr[b], dmap.block_cols[b], xk, y, kt,
+                stream_chunk_rows(ct, smap.longest[b]), block_rows[b],
+                stream), flush,
+                runs=5, warmup=1) for b in range(len(cols))]
+            phase("timing", f"big k={k} B2 per bucket (W: slices, block "
+                  "rows, longest list, ms): " + ", ".join(
+                      f"{a.shape[1]}: {a.shape[0]}, {r}, {n}, {t:.4f}"
+                      for a, r, n, t in zip(cols, block_rows, smap.longest,
+                                            per)))
         rec = dict(ms=statistics.mean(ms), ms_runs=ms,
                    b1_ms=statistics.mean(b1_ms), b1_ms_runs=b1_ms,
                    plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   max_abs_err=err)
+                   map_build_s=built_s, max_abs_err=err)
         records[name, k] = rec
         phase("timing", f"{name} k={k}: B2 {rec['ms']:.4f} ms (runs "
               f"{ms[0]:.4f}, {ms[1]:.4f}) | B1 {rec['b1_ms']:.4f} ms (runs "
               f"{b1_ms[0]:.4f}, {b1_ms[1]:.4f}) | bound {bytes_ms:.4f} ms "
               f"(bytes; ops {ops_ms:.4f}) | schedule bytes bound "
-              f"{sched_ms:.4f} ms ({x_bytes} B of X over {pairs} touched "
-              f"(block, tile) pairs; col_tile {ct}, {n_tiles} tiles) | plain "
-              f"{plain_ms:.4f} ms | torch.sparse.mm {lib_ms:.4f} ms | max abs "
-              f"err vs plain {err:.3e}, B2 vs B1 {how}")
-    # BIG at k = 32: every block of 256 rows touches nearly every 256-column
-    # tile, so the schedule moves nearly all of X through every block
-    n_blocks = -(-big.n_rows // 256)
-    est = n_blocks * big.n_cols * 32 * 8
-    phase("timing", f"big k=32: B2 not timed; its schedule moves ~{n_blocks} "
-          f"blocks x {big.n_cols * 32 * 8} B of X = {est:.3e} B, >= "
-          f"{est / HBM_BYTES_PER_S:.2f} s at the memory rate")
+              f"{sched_ms:.4f} ms ({x_bytes} B of X over {pairs} (block, "
+              f"column) pairs in {chunks} chunks, {map_bytes} B of column "
+              f"map; col_tile {ct}, block rows {sorted(set(block_rows))}, "
+              f"map built, scanned and uploaded by ops in {built_s:.3f} s) | plain {plain_ms:.4f} ms | "
+              f"torch.sparse.mm {lib_ms:.4f} ms | max abs err vs plain "
+              f"{err:.3e}, B2 vs B1 {how}")
     faster = [f"{n} k={k} ({r['b1_ms'] / r['ms']:.2f}x)"
               for (n, k), r in records.items() if r["ms"] < 0.9 * r["b1_ms"]]
     phase("timing", "auto rule: B2 beats B1 by more than 10% on " + (

@@ -13,17 +13,19 @@ shared memory of its partial sums.
 
 :func:`plan_spmm_sell_stream` (kernel B2, :func:`repro_torch.kernels
 .sell_core.spmm_sell_stream`): B1's function and contracts; per width
-bucket one launch of blocks of ``min(row_tile * C, SPMM_BLOCK_THREADS)``
-rows (one thread each, rounded up to whole warps), ``grid = (ceil(S_b * C
-/ rows), k_pad / k_tile)``, each block claiming two (col_tile, k_tile) X
-tiles of shared memory.  :func:`plan_moe_dispatch` adds the routing
+bucket one launch of blocks of :func:`stream_block_rows` rows (one thread
+each, rounded up to whole warps), ``grid = (ceil(S_b * C / rows), k_pad /
+k_tile)``, each block claiming two X chunks of shared memory (the rows of
+X its column list names, :func:`stream_chunk_rows` at a time).  :func:`plan_moe_dispatch` adds the routing
 contract to B1's plan.
 
 :func:`plan_bfs_sell` / :func:`plan_pagerank_sell` (kernel B3 with the BFS
 or PageRank combine) and :func:`plan_bfs_ell` / :func:`plan_pagerank_ell`
-(kernels B4 and B5): one thread per node, ``NODE_STEP_BLOCK_THREADS``
-per block, ``grid = (ceil(S_b * C / threads), k / k_tile)`` per bucket
-(ELLPACK: one launch over n nodes, one state column).  Unlike the
+(kernels B4 and B5): per bucket one launch of the lane groups and parts
+:func:`repro_torch.core.autotune.node_split` chooses, ``grid =
+(ceil(S_b * C / nodes), k / k_tile)``, ``nodes`` a block (ELLPACK: one
+thread per node, ``NODE_STEP_BLOCK_THREADS`` a block, one launch over n
+nodes, one state column).  Unlike the
 reference's ``_plan_node_step`` there is no fast-memory footprint to
 price: the state stays in device memory and is gathered through L2.
 
@@ -64,6 +66,7 @@ Checked contracts:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -77,6 +80,7 @@ from repro_torch.core.autotune import (
     SMEM_PER_BLOCK,
     SPMM_BLOCK_THREADS,
     SSD_BLOCK_THREADS,
+    STREAM_FILL_BLOCKS,
     WARP,
     fft_block_limit,
     fft_block_radix,
@@ -87,6 +91,7 @@ from repro_torch.core.autotune import (
     fft_pass_threads,
     fft_two_pass,
     gather_grid,
+    node_split,
     spmm_split,
     ssd_p_block,
     ssd_smem_bytes,
@@ -96,6 +101,7 @@ from repro_torch.sparse.formats import PAD, pow2_ceil
 
 __all__ = [
     "SlabMeta",
+    "StreamMapMeta",
     "gather_ids_violation",
     "ids_on_host",
     "plan_bfs_ell",
@@ -324,10 +330,78 @@ def stream_col_tile(col_tile: int, n_cols: int) -> int:
     return min(pow2_ceil(max(int(col_tile), 1)), pow2_ceil(max(int(n_cols), 1)))
 
 
-def stream_block_rows(row_tile: int, c: int) -> int:
-    """Rows (threads with a row) of one block of kernel B2: ``row_tile``
-    slices of height ``c``, at most :data:`SPMM_BLOCK_THREADS`."""
-    return min(max(int(row_tile), 1) * int(c), SPMM_BLOCK_THREADS)
+def stream_block_rows(row_tile: int, c: int, n_lanes: int) -> int:
+    """Rows (threads with a row) of one block of kernel B2 over a bucket of
+    ``n_lanes`` rows: ``row_tile`` slices of height ``c``, at most
+    :data:`SPMM_BLOCK_THREADS`; halved in whole warps, down to one warp,
+    while the bucket would give the card fewer than
+    :data:`STREAM_FILL_BLOCKS` blocks."""
+    rows = min(max(int(row_tile), 1) * int(c), SPMM_BLOCK_THREADS)
+    while rows > WARP and -(-int(n_lanes) // rows) < STREAM_FILL_BLOCKS:
+        rows = max(WARP, rows // 2 // WARP * WARP)
+    return rows
+
+
+def stream_bucket_rows(row_tile: int, shapes) -> tuple[int, ...]:
+    """:func:`stream_block_rows` of each (S, W, C) bucket shape, with
+    ``row_tile`` clamped at the bucket's slice count."""
+    return _bucket_rows(int(row_tile), tuple(tuple(s) for s in shapes))
+
+
+@functools.lru_cache(maxsize=1024)
+def _bucket_rows(row_tile: int, shapes: tuple) -> tuple[int, ...]:
+    return tuple(stream_block_rows(min(max(row_tile, 1), max(s, 1)), c,
+                                   s * c) for s, _, c in shapes)
+
+
+def stream_chunk_rows(col_tile: int, longest: int) -> int:
+    """X rows one staged chunk of kernel B2 holds in a bucket whose longest
+    block column list is ``longest``: ``col_tile``, or that list when
+    shorter (a block then claims only the shared memory it fills)."""
+    return max(1, min(int(col_tile), int(longest)))
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamMapMeta:
+    """What the preflight needs of a :class:`~repro_torch.sparse.formats
+    .StreamColumnMap`: its block sizes and the bounds of its indices,
+    scanned on the host (:meth:`from_map`).  ``local_excess`` is the largest
+    ``lcols - count`` over the real entries, ``count`` the entry's own
+    block's list length: below 0 when every local index lies in its list."""
+
+    block_rows: tuple[int, ...]
+    n_blocks: tuple[int, ...]
+    longest: tuple[int, ...]
+    listed: tuple[int, ...]
+    col_min: int
+    col_max: int
+    local_min: int
+    local_excess: int
+
+    @classmethod
+    def from_map(cls, smap) -> "StreamMapMeta":
+        col_min, col_max, local_min, excess = 0, -1, PAD, -1
+        for ptr, lst, lcols, rb in zip(smap.block_ptr, smap.block_cols,
+                                       smap.lcols, smap.block_rows):
+            ptr, lst, lcols = (np.asarray(a) for a in (ptr, lst, lcols))
+            s, _, c = lcols.shape
+            if lst.size:
+                col_min = min(col_min, int(lst.min()))
+                col_max = max(col_max, int(lst.max()))
+            if lcols.size:
+                local_min = min(local_min, int(lcols.min()))
+                count = np.diff(ptr)[np.arange(s * c) // int(rb)].reshape(
+                    s, 1, c)
+                real = lcols != PAD
+                if real.any():
+                    excess = max(excess, int(
+                        (lcols - count)[real].max()))
+        return cls(block_rows=tuple(smap.block_rows),
+                   n_blocks=tuple(len(p) - 1 for p in smap.block_ptr),
+                   longest=tuple(smap.longest),
+                   listed=tuple(int(p[-1]) for p in smap.block_ptr),
+                   col_min=col_min, col_max=col_max, local_min=local_min,
+                   local_excess=excess)
 
 
 def plan_spmm_sell_stream(
@@ -339,18 +413,25 @@ def plan_spmm_sell_stream(
     col_tile: int,
     row_tile: int,
     base=None,
+    column_map: StreamMapMeta | None = None,
 ) -> LaunchPlan:
     """Plan ``spmm_sell_stream`` (kernel B2) for a (n_cols, k) RHS stack.
 
     Every contract of ``base`` (default :func:`plan_spmm_sell`: the same
     function over the same slabs; :func:`plan_moe_dispatch` adds the
-    routing contract), plus the schedule's own: ``col_tile`` and ``row_tile`` at
-    least 1; ``col_tile`` coerced to a power of two and clamped at
-    ``pow2_ceil(n_cols)`` and ``row_tile`` clamped per bucket at its slice
-    count, as the wrapper does; the two X tiles a block stages within
-    :data:`SMEM_PER_BLOCK`.  The footprint is independent of ``n_cols`` and
-    ``n_rows``, so any operand B1 serves has a valid streaming plan at the
-    tiles :func:`repro_torch.core.autotune.pick_stream_tiles` picks.
+    routing contract), plus the schedule's own: ``col_tile`` and
+    ``row_tile`` at least 1; ``col_tile`` coerced to a power of two and
+    clamped at ``pow2_ceil(n_cols)``; each bucket's block rows from
+    :func:`stream_block_rows`, as the wrapper takes them; the two X chunks
+    a block stages within :data:`SMEM_PER_BLOCK`.  With ``column_map``
+    (the block column lists the launch reads) the plan also holds its
+    operands to the slabs: the same block rows and block counts, every
+    listed column in ``[0, n_cols)``, every local index ``PAD`` or below
+    its block's count; a chunk then holds :func:`stream_chunk_rows` rows.
+    Without it the chunk is priced at ``col_tile`` rows, the most a launch
+    claims.  The footprint is independent of ``n_cols`` and ``n_rows``, so
+    any operand B1 serves has a valid streaming plan at the tiles
+    :func:`repro_torch.core.autotune.pick_stream_tiles` picks.
     """
     base = (base or plan_spmm_sell)(meta, k=k, x_dtype=x_dtype,
                                     k_block=k_block)
@@ -364,33 +445,59 @@ def plan_spmm_sell_stream(
     k_tile = min(max(int(k_block), 1), pow2_ceil(max(k, 1)))
     k_pad = k_tile * math.ceil(max(k, 1) / k_tile)
     ct = stream_col_tile(col_tile, meta.n_cols)
-    smem = stream_smem_bytes(ct, k_tile, vb)
-    if smem > SMEM_PER_BLOCK:
-        violations.append(
-            f"two ({ct}, {k_tile}) X tiles take {smem} B of shared memory a "
-            f"block > {SMEM_PER_BLOCK} (col_tile={col_tile}, "
-            f"k_block={k_block})")
     dtype = x_dtype or meta.val_dtype
+    shapes = tuple((s, w, meta.c) for s, w in zip(meta.n_slices, meta.widths))
+    block_rows = stream_bucket_rows(row_tile, shapes)
+    if column_map is not None:
+        if column_map.block_rows != block_rows:
+            violations.append(
+                f"column map built for block rows {column_map.block_rows}, "
+                f"the launch takes {block_rows}")
+        if column_map.col_min < 0 or column_map.col_max >= meta.n_cols:
+            violations.append(
+                f"column map lists columns in [{column_map.col_min}, "
+                f"{column_map.col_max}], out of bounds for n_cols="
+                f"{meta.n_cols}")
+        if column_map.local_min < PAD or column_map.local_excess >= 0:
+            violations.append(
+                "column map local index out of its block's list (min "
+                f"{column_map.local_min}, largest index - count "
+                f"{column_map.local_excess})")
     blocks = []
-    for i, (s, w) in enumerate(zip(meta.n_slices, meta.widths)):
-        rows = stream_block_rows(min(max(int(row_tile), 1), max(s, 1)),
-                                 meta.c)
-        grid_x = math.ceil(s * meta.c / rows)
+    for i, ((s, w, c), rows) in enumerate(zip(shapes, block_rows)):
+        grid_x = math.ceil(s * c / rows)
         if grid_x > MAX_GRID_X:
             violations.append(
                 f"bucket {i} (W={w}): grid.x {grid_x} > {MAX_GRID_X}")
+        operands = [
+            ("lcols", (s, w, c), meta.idx_dtype),
+            ("vals", (s, w, c), meta.val_dtype),
+            ("rows", (s, c), meta.idx_dtype),
+            ("lane_end", (s, c), "int32"),
+            ("block_ptr", (grid_x + 1,), "int64"),
+        ]
+        chunk = ct
+        if column_map is not None and i < len(column_map.n_blocks):
+            if column_map.n_blocks[i] != grid_x:
+                violations.append(
+                    f"bucket {i} (W={w}): column map has "
+                    f"{column_map.n_blocks[i]} blocks, the launch {grid_x}")
+            chunk = stream_chunk_rows(ct, column_map.longest[i])
+            operands.append(("block_cols", (column_map.listed[i],), "int32"))
+        smem = stream_smem_bytes(chunk, k_tile, vb)
+        if smem > SMEM_PER_BLOCK:
+            violations.append(
+                f"two ({chunk}, {k_tile}) X chunks take {smem} B of shared "
+                f"memory a block > {SMEM_PER_BLOCK} (col_tile={col_tile}, "
+                f"k_block={k_block})")
+        operands += [("x", (meta.n_cols, k_pad), dtype),
+                     ("y", (meta.n_rows + 1, k_pad), meta.val_dtype),
+                     ("x_chunks", (2, chunk, k_tile), dtype)]
         blocks.append(BlockPlan(
-            label=f"bucket{i}[W={w}]",
+            label=f"bucket{i}[W={w}, rows={rows}]",
             grid=(grid_x, k_pad // k_tile),
             block=(WARP * math.ceil(rows / WARP),),
-            operands=(
-                ("cols", (s, w, meta.c), meta.idx_dtype),
-                ("vals", (s, w, meta.c), meta.val_dtype),
-                ("rows", (s, meta.c), meta.idx_dtype),
-                ("x", (meta.n_cols, k_pad), dtype),
-                ("y", (meta.n_rows + 1, k_pad), meta.val_dtype),
-                ("x_tiles", (2, ct, k_tile), dtype),
-            ),
+            operands=tuple(operands),
             smem_bytes=smem,
         ))
     return LaunchPlan(
@@ -443,8 +550,10 @@ _STATE_DTYPES = {"bfs": "int32", "pagerank": "float64"}
 def _plan_node_step(kernel: str, combine: str, meta: SlabMeta, k: int,
                     state_dtype: str) -> LaunchPlan:
     """Shared plan of the graph node steps: per bucket (ELLPACK: once) one
-    launch, one thread per node walking its W in-neighbour slots with
-    ``k_tile`` state columns in registers."""
+    launch.  ELLPACK (B4 / B5): one thread per node walking its W
+    in-neighbour slots.  SELL (B3): the lane groups, parts, threads and
+    shared memory :func:`repro_torch.core.autotune.node_split` gives the
+    bucket at this ``k_tile``."""
     violations: list[str] = []
     ell = meta.kind == "ell"
     if meta.kind not in ("graph", "ell"):
@@ -470,14 +579,19 @@ def _plan_node_step(kernel: str, combine: str, meta: SlabMeta, k: int,
     if grid_y > MAX_GRID_Y:
         violations.append(
             f"{grid_y} column tiles exceed grid.y limit {MAX_GRID_Y} (k={k})")
-    threads = NODE_STEP_BLOCK_THREADS
-    if threads > MAX_BLOCK_THREADS:
-        violations.append(f"block of {threads} threads > {MAX_BLOCK_THREADS}")
     rows = meta.n_rows if ell else meta.n_rows + 1
     state = (rows,) if k == 1 and ell else (rows, max(k, 1))
     blocks = []
     for i, (s, w) in enumerate(zip(meta.n_slices, meta.widths)):
-        grid_x = math.ceil(s * meta.c / threads)
+        # ELLPACK (B4 / B5): one thread a node; SELL (B3): node_split's
+        # lane groups and parts
+        split = None if ell else node_split(w, meta.c, s, k_tile, sb)
+        threads = NODE_STEP_BLOCK_THREADS if ell else split.threads
+        per_block = NODE_STEP_BLOCK_THREADS if ell else split.nodes
+        if threads > MAX_BLOCK_THREADS:
+            violations.append(f"bucket {i} (W={w}): block of {threads} "
+                              f"threads > {MAX_BLOCK_THREADS}")
+        grid_x = math.ceil(s * meta.c / per_block)
         if grid_x > MAX_GRID_X:
             violations.append(f"bucket {i} (W={w}): grid.x {grid_x} > "
                               f"{MAX_GRID_X}")
@@ -488,9 +602,12 @@ def _plan_node_step(kernel: str, combine: str, meta: SlabMeta, k: int,
         operands += [("state", state, state_dtype), ("out", state, state_dtype)]
         if combine == "pagerank":
             operands.append(("consts", (3, max(k, 1)), state_dtype))
+        label = f"bucket{i}[W={w}]" if ell else (
+            f"bucket{i}[W={w}, group={split.group}, parts={split.parts}]")
         blocks.append(BlockPlan(
-            label=f"bucket{i}[W={w}]", grid=(grid_x, grid_y),
-            block=(threads,), operands=tuple(operands)))
+            label=label, grid=(grid_x, grid_y), block=(threads,),
+            operands=tuple(operands),
+            smem_bytes=0 if ell else split.smem_bytes))
     return LaunchPlan(kernel=kernel, operand=meta.describe(),
                       dtype=state_dtype, blocks=tuple(blocks),
                       violations=tuple(violations))

@@ -22,6 +22,7 @@ request groups keep their full RHS width on million-column operands.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -95,29 +96,34 @@ SPMM_SPLIT_K_CHUNK = 4
 #: :func:`spmm_split` threads a row, so w_block does not shape its launch.
 W_BLOCK = 8
 #: Static shared memory of one block of the streaming SpMM kernel (B2):
-#: the per-warp minima of its tile walk, one int for each of its 8 warps.
+#: the per-warp minima of its chunk walk, one int for each of its 8 warps.
 STREAM_STATIC_SMEM = 32
 
 
 def stream_smem_bytes(col_tile: int, k_tile: int, itemsize: int) -> int:
-    """Shared memory one block of kernel B2 claims: two (col_tile, k_tile)
-    X tiles (the tile in use and the one being fetched) and the static
-    per-warp minima."""
+    """Shared memory one block of kernel B2 claims: two chunks of
+    ``col_tile`` staged X rows of ``k_tile`` columns (the chunk in use and
+    the one being fetched) and the static per-warp minima."""
     return 2 * int(col_tile) * int(k_tile) * int(itemsize) + STREAM_STATIC_SMEM
 
 
+@functools.lru_cache(maxsize=256)
 def pick_stream_tiles(c: int, k_tile: int = 8,
                       itemsize: int = 8) -> tuple[int, int]:
     """(col_tile, row_tile) of the streaming SpMM schedule (kernel B2).
 
     The TPU version fills 64 MiB of VMEM with an X tile and a
     (row_tile, C, k_tile) accumulator.  A Hopper block keeps its sums in
-    registers (one thread a row, as kernel B1), so only the double-buffered
-    X tile lives in shared memory: ``col_tile`` is the largest power of two
-    whose two tiles fit :data:`SMEM_PER_BLOCK` (fp64: 8,192 columns at
-    k_tile 1, 256 at k_tile 32).  ``row_tile`` is what the block's
-    :data:`SPMM_BLOCK_THREADS` threads hold: ``threads // C`` slices, at
-    least one (a taller slice is split across blocks).
+    registers (one thread a row, as kernel B1) and stages through shared
+    memory only the rows of X its own rows name (the block's column list,
+    :class:`repro_torch.sparse.formats.StreamColumnMap`), a chunk of the
+    list at a time, double-buffered: ``col_tile`` is the most X rows a
+    chunk holds, the largest power of two whose two chunks fit
+    :data:`SMEM_PER_BLOCK` (fp64: 8,192 rows at k_tile 1, 256 at k_tile
+    32).  ``row_tile`` is what the block's :data:`SPMM_BLOCK_THREADS`
+    threads hold: ``threads // C`` slices, at least one (a taller slice is
+    split across blocks); a bucket too short to fill the card gets smaller
+    blocks (:func:`repro_torch.analysis.preflight.stream_block_rows`).
     """
     ct = 1
     while stream_smem_bytes(2 * ct, max(k_tile, 1), itemsize) <= SMEM_PER_BLOCK:
@@ -195,6 +201,82 @@ def spmm_split(width: int, c: int, n_slices: int, k_tile: int = 1,
                      itemsize=itemsize)
 
 
+#: Bytes one lane of a B3 node group reads of a neighbour's state row: a
+#: 16 B vector (two fp64 or four int32 columns).
+NODE_LANE_BYTES = 16
+#: Bucket width from which kernel B3 splits a node's walk over several
+#: lane groups (narrower buckets keep one group a node).
+NODE_SPLIT_WIDTH = 128
+#: Longest walk (neighbour slots) one group of a split bucket makes, while
+#: the block allows it.
+NODE_SPLIT_MAX_CHAIN = 64
+#: Shortest walk a split is allowed to leave one group.
+NODE_SPLIT_MIN_CHAIN = 8
+#: Most threads of one block of B3's group form (its launch bound).
+NODE_SPLIT_MAX_THREADS = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeSplit:
+    """How kernel B3 walks one width bucket.  ``group`` lanes of a warp
+    serve one node, each holding ``k_tile / group`` state columns;
+    ``parts`` groups share one node's walk (1: unsplit); a block holds
+    ``nodes`` nodes; at one lane and one part the kernel runs its
+    one-thread-a-node body.  ``smem_bytes`` is what a split block claims to
+    combine its parts: the PageRank partial sums (``nodes x parts x
+    k_tile`` fp64) or one BFS hit mask a node."""
+
+    group: int
+    parts: int
+    nodes: int
+    smem_bytes: int
+
+    @property
+    def threads(self) -> int:
+        return self.nodes * self.parts * self.group
+
+
+def node_group(k_tile: int, itemsize: int) -> int:
+    """Lanes of kernel B3 that serve one node: enough that each reads
+    :data:`NODE_LANE_BYTES` of a neighbour's ``k_tile``-column state row
+    (PageRank fp64 at k_tile 32: 16; BFS int32: 8), one when the row is
+    no wider than that."""
+    return max(1, int(k_tile) * int(itemsize) // NODE_LANE_BYTES)
+
+
+def node_split(width: int, c: int, n_slices: int, k_tile: int = 1,
+               itemsize: int = 8) -> NodeSplit:
+    """The walk of one B3 bucket of ``n_slices`` (``width``, ``c``) slices
+    at this state tile (``itemsize`` 4: BFS int32, 8: PageRank fp64).
+
+    Built as :func:`spmm_split` is: from :data:`NODE_SPLIT_WIDTH` on,
+    ``parts`` groups share a node (part p walks w = p, p + parts, ...):
+    the smallest power of two that gives the card
+    :data:`SPMM_FILL_THREADS` threads, held between ``width /
+    NODE_SPLIT_MAX_CHAIN`` (no walk longer) and ``width /
+    NODE_SPLIT_MIN_CHAIN`` (no walk shorter), and at most what a block of
+    :data:`NODE_SPLIT_MAX_THREADS` holds for one node.  rmat15's one W =
+    8192 slice at k = 32 fp64: 64 parts of 16 lanes, walks of 128 slots,
+    where one thread walked 8,192.  A block holds
+    :data:`NODE_STEP_BLOCK_THREADS` threads' worth of nodes, or one node
+    when its parts take more."""
+    width, c, n_slices = int(width), int(c), int(n_slices)
+    group = node_group(k_tile, itemsize)
+    parts = 1
+    if width >= NODE_SPLIT_WIDTH:
+        rows = max(n_slices * c, 1)
+        lo = max(width // NODE_SPLIT_MAX_CHAIN, 1)
+        hi = max(min(width // NODE_SPLIT_MIN_CHAIN,
+                     NODE_SPLIT_MAX_THREADS // group), 1)
+        fill = pow2_ceil(-(-SPMM_FILL_THREADS // (rows * group)))
+        parts = min(max(fill, lo), hi)
+    nodes = max(1, NODE_STEP_BLOCK_THREADS // (parts * group))
+    smem = 0
+    if parts > 1:
+        smem = nodes * parts * int(k_tile) * 8 if itemsize == 8 else 4 * nodes
+    return NodeSplit(group=group, parts=parts, nodes=nodes, smem_bytes=smem)
+
+
 def fft_block_radix(n: int) -> int:
     """Complex values a thread of the in-block FFT holds: one radix pass's
     butterfly, :data:`FFT_BLOCK_RADIX` or the whole signal when shorter."""
@@ -229,6 +311,10 @@ def fft_block_signals(n: int, b_block: int, itemsize: int) -> int:
 #: Streaming multiprocessors of an H100 SXM: the grid size below which a
 #: one-wave kernel leaves SMs idle.
 SM_COUNT = 132
+#: Fewest blocks a B2 launch should give the card (two an SM): a bucket
+#: with fewer rows gets smaller blocks, down to one warp
+#: (:func:`repro_torch.analysis.preflight.stream_block_rows`).
+STREAM_FILL_BLOCKS = 2 * SM_COUNT
 #: Most threads of one block of the embedding gather (B9).
 GATHER_MAX_THREADS = 256
 #: Bytes one B9 thread copies: four 16 B loads in flight before it stores

@@ -47,9 +47,36 @@
 //   * PageRank keeps K_TILE fp64 partial sums, added in ascending w, and
 //     writes base + d * (pulled + dangling_term) per column, the constants
 //     read from a (3, ld) array (ld = 1 broadcasts one configuration).
-//   * the widest buckets (RMAT in-degree reaches thousands) are one serial
-//     chain of dependent loads per thread, as in B1; that is left for a
-//     later PR, and the per-bucket times show it.
+//   * B4 / B5, and B3 where a state row is 16 B or less and its bucket is
+//     not split (k_tile 1 / 2 fp64, 1 .. 4 int32), run the body above: one
+//     thread a node.  On those B3 buckets the group form below, at one
+//     lane a node, was slower (uniform21 at k = 1, chip_smoke.py timings on
+//     an NVIDIA H100 80GB HBM3 at 700 W: BFS 0.69-0.72 ms against
+//     0.47-0.52, PageRank 0.46-0.48 against 0.38-0.42); it loads row 0 for
+//     each PAD slot and votes each step, where this body skips PAD slots.
+//
+// B3's group form (bfs_group_step_kernel / pagerank_group_step_kernel) for the rest:
+//   * lanes across the state columns: a node is served by a group of G
+//     lanes of one warp, G = K_TILE * sizeof(state) / 16 (PageRank fp64 at
+//     k_tile 32: 16; BFS int32: 8), so one neighbour's K_TILE state row is
+//     read as one coalesced access, 16 B a lane, where one thread made
+//     K_TILE scalar loads from one row and a warp load touched 32 rows;
+//   * the group's lanes load G neighbour ids at once, one each, and pass
+//     them round with __shfl_sync, so the G state rows behind them are
+//     gathered with independent loads: a round trip per G neighbours;
+//   * BFS keeps each lane's columns' need / hit bits and stops when a
+//     __any_sync over the group's mask finds every lane done; PageRank
+//     sums each lane's columns in ascending w, bit-equal to the body above;
+//   * a split bucket whose state row is 16 B or less has groups of one
+//     lane;
+//   * a wide bucket is split: `parts` groups share one node, part p walking
+//     w = p, p + parts, ... (core/autotune.py::node_split fills the card,
+//     bounds each walk and fits the block), so rmat's W = 8192 slice is no
+//     longer one chain of 8,192 dependent steps a thread.  The parts combine
+//     through shared memory: BFS by an OR of the hit masks (exact);
+//     PageRank by adding the partial sums in a fixed pairwise order
+//     (deterministic, within rtol 1e-10 of the plain version, not bit-equal
+//     to the unsplit walk).
 //
 // The host wrappers are repro_torch/kernels/bfs.py and pagerank.py (through
 // sell_core.bucketed_node_step for SELL); they allocate the output, validate
@@ -149,6 +176,225 @@ __global__ void pagerank_step_kernel(const int32_t* __restrict__ adj,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B3's group form
+// ---------------------------------------------------------------------------
+
+constexpr int kLaneBytes = 16;
+constexpr int kMaxGroupThreads = 1024;
+
+// Lanes that serve one node, and the state columns each of them holds.
+template <typename T, int K_TILE>
+struct Lanes {
+  static constexpr int kRowBytes = K_TILE * static_cast<int>(sizeof(T));
+  static constexpr int G = kRowBytes > kLaneBytes ? kRowBytes / kLaneBytes : 1;
+  static constexpr int kCols = K_TILE / G;
+};
+
+// N consecutive state columns as one load (16, 8 or 4 bytes).
+template <int N>
+__device__ __forceinline__ void load_cols(const int32_t* p, int32_t (&o)[N]) {
+  if constexpr (N == 4) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  } else if constexpr (N == 2) {
+    const int2 v = __ldg(reinterpret_cast<const int2*>(p));
+    o[0] = v.x; o[1] = v.y;
+  } else {
+    o[0] = __ldg(p);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_cols(const double* p, double (&o)[N]) {
+  if constexpr (N == 2) {
+    const double2 v = __ldg(reinterpret_cast<const double2*>(p));
+    o[0] = v.x; o[1] = v.y;
+  } else {
+    o[0] = __ldg(p);
+  }
+}
+
+// Where a thread of a group-form block sits: node `node` of the block,
+// part `part` of that node's walk, lane `g` of the part's group; `gmask`
+// names the group's lanes in the warp.
+struct Place {
+  int node, part, g;
+  unsigned gmask;
+};
+
+template <int G>
+__device__ __forceinline__ Place place_of(int parts) {
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31;
+  const unsigned gmask = G >= 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
+  return Place{tid / (parts * G), (tid / G) % parts, tid & (G - 1), gmask};
+}
+
+// The id of walk slot wb + g * parts, then the G slots' ids in turn: each
+// lane of the group loads one id and __shfl_sync passes it round.
+template <int G>
+__device__ __forceinline__ int32_t group_id(int32_t mine, int j, unsigned gmask) {
+  if constexpr (G == 1) {
+    return mine;
+  } else {
+    return __shfl_sync(gmask, mine, j, G);
+  }
+}
+
+template <int K_TILE>
+__global__ void __launch_bounds__(kMaxGroupThreads)
+    bfs_group_step_kernel(const int32_t* __restrict__ adj, const int32_t* __restrict__ nodes,
+                     const int32_t* __restrict__ dist, int32_t* __restrict__ out,
+                     int32_t level, int64_t n_lanes, int64_t width, int64_t c, int64_t ld,
+                     int64_t n_nodes, int parts) {
+  using L = Lanes<int32_t, K_TILE>;
+  constexpr int G = L::G;
+  constexpr int kCols = L::kCols;
+  extern __shared__ __align__(16) unsigned char group_smem[];
+  uint32_t* s_hit = reinterpret_cast<uint32_t*>(group_smem);  // a mask a node, when split
+  const Place at = place_of<G>(parts);
+  const int per_block = static_cast<int>(blockDim.x) / (parts * G);
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * per_block + at.node;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.y) * K_TILE + at.g * kCols;
+  if (parts > 1) {
+    for (int i = threadIdx.x; i < per_block; i += blockDim.x) s_hit[i] = 0;
+    __syncthreads();
+  }
+  int64_t v = n_nodes;
+  if (t < n_lanes) v = __ldg(nodes + t);
+  const bool active = v < n_nodes;  // one value for the whole group
+  int32_t mine[kCols];
+  uint32_t need = 0, hit = 0;
+  if (active) {
+    load_cols<kCols>(dist + v * ld + col0, mine);
+#pragma unroll
+    for (int i = 0; i < kCols; ++i)
+      if (mine[i] == kInf) need |= 1u << i;
+    const int32_t prev = level - 1;
+    const int64_t s = t / c;
+    const int64_t base = s * width * c + (t - s * c);
+    const int64_t step = static_cast<int64_t>(parts) * G;
+    for (int64_t wb = at.part; wb < width; wb += step) {
+      if (!__any_sync(at.gmask, hit != need)) break;
+      const int64_t w = wb + static_cast<int64_t>(at.g) * parts;
+      const int32_t id = w < width ? __ldg(adj + base + w * c) : kPad;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int32_t u = group_id<G>(id, j, at.gmask);
+        int32_t du[kCols];
+        load_cols<kCols>(dist + static_cast<int64_t>(u == kPad ? 0 : u) * ld + col0, du);
+#pragma unroll
+        for (int i = 0; i < kCols; ++i)
+          if (u != kPad && ((need >> i) & 1u) && du[i] == prev) hit |= 1u << i;
+      }
+    }
+  }
+  if (parts > 1) {
+    // OR the parts' hit masks: over the lanes of a warp that serve one node,
+    // then one shared-memory atomic a warp (or a node's lanes)
+    const int seg = parts * G < 32 ? parts * G : 32;
+    const int lane = static_cast<int>(threadIdx.x) & 31;
+    const unsigned smask = seg >= 32 ? 0xffffffffu : ((1u << seg) - 1u) << (lane & ~(seg - 1));
+    const uint32_t mask = __reduce_or_sync(smask, hit << (at.g * kCols));
+    if ((lane & (seg - 1)) == 0 && mask != 0) atomicOr(&s_hit[at.node], mask);
+    __syncthreads();
+    if (at.part != 0) return;
+    hit = (s_hit[at.node] >> (at.g * kCols)) & ((kCols >= 32 ? 0u : (1u << kCols)) - 1u);
+  }
+  if (!active) return;  // padding lane: the dump slot stays as it is
+  int32_t* o = out + v * ld + col0;
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) o[i] = ((hit >> i) & 1u) ? level : mine[i];
+}
+
+template <int K_TILE>
+__global__ void __launch_bounds__(kMaxGroupThreads)
+    pagerank_group_step_kernel(const int32_t* __restrict__ adj, const int32_t* __restrict__ nodes,
+                          const double* __restrict__ contrib,
+                          const double* __restrict__ consts, double* __restrict__ out,
+                          int64_t n_lanes, int64_t width, int64_t c, int64_t ld,
+                          int64_t n_nodes, int parts) {
+  using L = Lanes<double, K_TILE>;
+  constexpr int G = L::G;
+  constexpr int kCols = L::kCols;
+  extern __shared__ __align__(16) unsigned char group_smem[];
+  double* s_part = reinterpret_cast<double*>(group_smem);  // (nodes, parts, K_TILE) when split
+  const Place at = place_of<G>(parts);
+  const int per_block = static_cast<int>(blockDim.x) / (parts * G);
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * per_block + at.node;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.y) * K_TILE;
+  const int64_t col0 = k0 + at.g * kCols;
+  int64_t v = n_nodes;
+  if (t < n_lanes) v = __ldg(nodes + t);
+  const bool active = v < n_nodes;
+  double acc[kCols];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) acc[i] = 0.0;
+  if (active) {
+    const int64_t s = t / c;
+    const int64_t base = s * width * c + (t - s * c);
+    const int64_t step = static_cast<int64_t>(parts) * G;
+    for (int64_t wb = at.part; wb < width; wb += step) {
+      const int64_t w = wb + static_cast<int64_t>(at.g) * parts;
+      const int32_t id = w < width ? __ldg(adj + base + w * c) : kPad;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int32_t u = group_id<G>(id, j, at.gmask);
+        double cu[kCols];
+        load_cols<kCols>(contrib + static_cast<int64_t>(u == kPad ? 0 : u) * ld + col0, cu);
+        if (u != kPad) {
+#pragma unroll
+          for (int i = 0; i < kCols; ++i) acc[i] += cu[i];
+        }
+      }
+    }
+  }
+  if (parts > 1) {
+    // the parts' partial sums, added in a fixed pairwise order
+    double* mine = s_part + (static_cast<int64_t>(at.node) * parts + at.part) * K_TILE
+                   + at.g * kCols;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) mine[i] = acc[i];
+    for (int stride = parts >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      const int items = per_block * stride * K_TILE;
+      for (int i = threadIdx.x; i < items; i += blockDim.x) {
+        const int col = i % K_TILE;
+        const int rest = i / K_TILE;
+        const int p = rest % stride;
+        const int nd = rest / stride;
+        s_part[(nd * parts + p) * K_TILE + col] += s_part[(nd * parts + p + stride) * K_TILE + col];
+      }
+    }
+    __syncthreads();
+    if (at.part != 0) return;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) acc[i] = mine[i];
+  }
+  if (!active) return;  // padding lane: the dump slot stays 0
+  double* o = out + v * ld + col0;
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+    const double base_term = __ldg(consts + col0 + i);
+    const double damping = __ldg(consts + ld + col0 + i);
+    const double dangling = __ldg(consts + 2 * ld + col0 + i);
+    o[i] = base_term + damping * (acc[i] + dangling);
+  }
+}
+
+// Lanes a group of the form serving a k_tile of this state type.
+template <typename T>
+int group_of(int k_tile) {
+  const int bytes = k_tile * static_cast<int>(sizeof(T));
+  return bytes > kLaneBytes ? bytes / kLaneBytes : 1;
+}
+
+bool bad_split(int threads, int parts, int group) {
+  return parts <= 0 || (parts & (parts - 1)) != 0 || threads > kMaxGroupThreads ||
+         threads % (parts * group) != 0;
+}
+
 bool bad_shape(int64_t n_lanes, int64_t width, int64_t ld, int k_tile, int threads) {
   return n_lanes <= 0 || width < 0 || ld <= 0 || k_tile <= 0 || ld % k_tile != 0 ||
          ld / k_tile > kMaxGridY || threads <= 0 || threads > kMaxThreads;
@@ -164,35 +410,59 @@ dim3 grid_of(int64_t n_lanes, int64_t ld, int k_tile, int threads) {
 extern "C" {
 
 // One SELL bucket of a BFS level: adj stored (n_slices, width, c), nodes
-// (n_slices, c), dist and out (n_nodes + 1, ld) int32, ld a multiple of
-// k_tile.  Returns the cudaError_t of the launch (0 on success).
+// (n_slices, c), dist and out (n_nodes + 1, ld) int32 16-byte aligned, ld a
+// multiple of k_tile.  `parts` groups share a node's walk (a power of two)
+// in blocks of `threads` threads; with one part and a state row of 16 B
+// or less (k_tile <= 4) a thread serves a node, else a group of
+// max(1, k_tile / 4) lanes does.  Returns the cudaError_t of the launch (0 on success).
 int repro_bfs_sell_bucket(const void* adj, const void* nodes, const void* dist, void* out,
                           int level, int64_t n_slices, int64_t width, int64_t c, int64_t ld,
-                          int k_tile, int64_t n_nodes, int threads, void* stream) {
+                          int k_tile, int64_t n_nodes, int threads, int parts, void* stream) {
   const int64_t n_lanes = n_slices * c;
-  if (n_slices <= 0 || c <= 0 || bad_shape(n_lanes, width, ld, k_tile, threads)) {
+  const int group = group_of<int32_t>(k_tile);
+  if (n_slices <= 0 || c <= 0 || bad_shape(n_lanes, width, ld, k_tile, threads) ||
+      bad_split(threads, parts, group) || reinterpret_cast<uintptr_t>(dist) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid = grid_of(n_lanes, ld, k_tile, threads);
-  const dim3 block(threads);
   auto st = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const int32_t*>(adj);
   const auto* m = static_cast<const int32_t*>(nodes);
   const auto* d = static_cast<const int32_t*>(dist);
   auto* o = static_cast<int32_t*>(out);
-  switch (k_tile) {
+  const dim3 block(threads);
+  if (group == 1 && parts == 1) {
+    const dim3 grid = grid_of(n_lanes, ld, k_tile, threads);
+    switch (k_tile) {
 #define REPRO_BFS_CASE(K)                                                          \
   case K:                                                                          \
     bfs_step_kernel<true, K><<<grid, block, 0, st>>>(a, m, d, o, level, n_lanes,  \
                                                      width, c, ld, n_nodes);      \
     break;
-    REPRO_BFS_CASE(1)
-    REPRO_BFS_CASE(2)
-    REPRO_BFS_CASE(4)
-    REPRO_BFS_CASE(8)
-    REPRO_BFS_CASE(16)
-    REPRO_BFS_CASE(32)
+      REPRO_BFS_CASE(1)
+      REPRO_BFS_CASE(2)
+      REPRO_BFS_CASE(4)
 #undef REPRO_BFS_CASE
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int per_block = threads / (parts * group);
+  const dim3 grid = grid_of(n_lanes, ld, k_tile, per_block);
+  const size_t smem = parts > 1 ? static_cast<size_t>(per_block) * sizeof(uint32_t) : 0;
+  switch (k_tile) {
+#define REPRO_BFS_GROUP_CASE(K)                                                       \
+  case K:                                                                             \
+    bfs_group_step_kernel<K><<<grid, block, smem, st>>>(a, m, d, o, level, n_lanes, width, \
+                                                   c, ld, n_nodes, parts);            \
+    break;
+    REPRO_BFS_GROUP_CASE(1)
+    REPRO_BFS_GROUP_CASE(2)
+    REPRO_BFS_GROUP_CASE(4)
+    REPRO_BFS_GROUP_CASE(8)
+    REPRO_BFS_GROUP_CASE(16)
+    REPRO_BFS_GROUP_CASE(32)
+#undef REPRO_BFS_GROUP_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -200,37 +470,59 @@ int repro_bfs_sell_bucket(const void* adj, const void* nodes, const void* dist, 
 }
 
 // One SELL bucket of a PageRank power step: adj stored (n_slices, width, c),
-// nodes (n_slices, c), contrib and out (n_nodes + 1, ld) float64, consts
-// (3, ld) float64.
+// nodes (n_slices, c), contrib and out (n_nodes + 1, ld) float64 16-byte
+// aligned, consts (3, ld) float64; `threads` and `parts` as for BFS (one
+// thread a node at one part and k_tile <= 2), a group of max(1, k_tile / 2)
+// lanes.
 int repro_pagerank_sell_bucket(const void* adj, const void* nodes, const void* contrib,
                                const void* consts, void* out, int64_t n_slices,
                                int64_t width, int64_t c, int64_t ld, int k_tile,
-                               int64_t n_nodes, int threads, void* stream) {
+                               int64_t n_nodes, int threads, int parts, void* stream) {
   const int64_t n_lanes = n_slices * c;
-  if (n_slices <= 0 || c <= 0 || bad_shape(n_lanes, width, ld, k_tile, threads)) {
+  const int group = group_of<double>(k_tile);
+  if (n_slices <= 0 || c <= 0 || bad_shape(n_lanes, width, ld, k_tile, threads) ||
+      bad_split(threads, parts, group) || reinterpret_cast<uintptr_t>(contrib) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid = grid_of(n_lanes, ld, k_tile, threads);
-  const dim3 block(threads);
   auto st = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const int32_t*>(adj);
   const auto* m = static_cast<const int32_t*>(nodes);
   const auto* x = static_cast<const double*>(contrib);
   const auto* k = static_cast<const double*>(consts);
   auto* o = static_cast<double*>(out);
-  switch (k_tile) {
+  const dim3 block(threads);
+  if (group == 1 && parts == 1) {
+    const dim3 grid = grid_of(n_lanes, ld, k_tile, threads);
+    switch (k_tile) {
 #define REPRO_PR_CASE(K)                                                               \
   case K:                                                                              \
     pagerank_step_kernel<true, K><<<grid, block, 0, st>>>(a, m, x, k, o, n_lanes,     \
                                                           width, c, ld, n_nodes);     \
     break;
-    REPRO_PR_CASE(1)
-    REPRO_PR_CASE(2)
-    REPRO_PR_CASE(4)
-    REPRO_PR_CASE(8)
-    REPRO_PR_CASE(16)
-    REPRO_PR_CASE(32)
+      REPRO_PR_CASE(1)
+      REPRO_PR_CASE(2)
 #undef REPRO_PR_CASE
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid = grid_of(n_lanes, ld, k_tile, threads / (parts * group));
+  const size_t smem = parts > 1 ? static_cast<size_t>(threads / group) * k_tile * sizeof(double)
+                                : 0;
+  switch (k_tile) {
+#define REPRO_PR_GROUP_CASE(K)                                                           \
+  case K:                                                                                \
+    pagerank_group_step_kernel<K><<<grid, block, smem, st>>>(a, m, x, k, o, n_lanes, width,   \
+                                                        c, ld, n_nodes, parts);          \
+    break;
+    REPRO_PR_GROUP_CASE(1)
+    REPRO_PR_GROUP_CASE(2)
+    REPRO_PR_GROUP_CASE(4)
+    REPRO_PR_GROUP_CASE(8)
+    REPRO_PR_GROUP_CASE(16)
+    REPRO_PR_GROUP_CASE(32)
+#undef REPRO_PR_GROUP_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

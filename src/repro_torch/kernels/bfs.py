@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.autotune import NODE_STEP_BLOCK_THREADS
+from repro_torch.core.autotune import NODE_STEP_BLOCK_THREADS, node_split
 from repro_torch.graphs.gen import INF, PAD
 from repro_torch.kernels import sell_core
 
@@ -209,12 +209,14 @@ def _launch_sell_bucket(adj: torch.Tensor, nodes: torch.Tensor,
     lib = _graph_lib()
     n_slices, width, c = adj.shape
     ld = dist.shape[1] if dist.ndim == 2 else 1
+    split = node_split(width, c, n_slices, k_tile, dist.element_size())
     err = lib.repro_bfs_sell_bucket(
         adj.data_ptr(), nodes.data_ptr(), dist.data_ptr(), out.data_ptr(),
         level, n_slices, width, c, ld, k_tile, dist.shape[0] - 1,
-        NODE_STEP_BLOCK_THREADS, torch.cuda.current_stream().cuda_stream)
+        split.threads, split.parts, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, lib, f"bfs_step_sell ({n_slices}, {c}, {width}) bucket, "
-              f"k_tile={k_tile}")
+              f"k_tile={k_tile}, {split.group} lanes a node, "
+              f"{split.parts} parts")
     KERNEL_LAUNCHES["bfs_step_sell"] += 1
 
 
@@ -226,7 +228,9 @@ def bfs_step_sell(bucket_adj, bucket_nodes, dist: torch.Tensor,
     ``dist`` is (n + 1,) for a single source or (n + 1, k) for k stacked
     sources (the dump slot stays INF); returns the updated copy with the
     same shape.  On the card every non-empty bucket is one launch of kernel
-    B3 that reads ``dist`` and writes a fresh output; buckets stored
+    B3 that reads ``dist`` and writes a fresh output, walked as
+    :func:`repro_torch.core.autotune.node_split` chooses (lanes across the
+    state columns, wide buckets split; exact either way); buckets stored
     (S, W_b, C) (:meth:`~repro_torch.graphs.SellGraphSlabs.to_device`) are
     read in place, others are copied to that storage first.
     """
@@ -236,6 +240,8 @@ def bfs_step_sell(bucket_adj, bucket_nodes, dist: torch.Tensor,
         return bfs_step_sell_ref(bucket_adj, bucket_nodes, dist, level)
     _require_cuda(dist, "bfs_step_sell")
     dist = dist.contiguous()
+    if dist.data_ptr() % 16:                    # the kernel's 16 B row loads
+        dist = dist.clone()
     out = dist.clone()
     sell_core.bucketed_node_step(
         lambda adj, nodes, kt: _launch_sell_bucket(adj, nodes, dist, out,

@@ -44,24 +44,24 @@ KERNELS = {
         "repro_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
     "spmm_sell_stream": ("spmm_sell_stream.cu", {
-        # cols, vals, rows, x, y, n_slices, width, c, ld, n_cols, k_tile,
-        # col_tile, block_rows, is_double, stream
+        # lcols, vals, rows, lane_end, block_ptr, block_cols, x, y, n_slices,
+        # width, c, ld, k_tile, chunk_rows, block_rows, is_double, stream
         "repro_spmm_sell_stream_bucket": (
-            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I,
-             _P], _I),
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I,
+             _I, _I, _P], _I),
         "repro_stream_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
     "graph_step": ("graph_step.cu", {
         # adj, nodes, dist, out, level, n_slices, width, c, ld, k_tile,
-        # n_nodes, threads, stream
+        # n_nodes, threads, parts, stream
         "repro_bfs_sell_bucket": (
-            [_P, _P, _P, _P, _I, _I64, _I64, _I64, _I64, _I, _I64, _I, _P],
-            _I),
+            [_P, _P, _P, _P, _I, _I64, _I64, _I64, _I64, _I, _I64, _I, _I,
+             _P], _I),
         # adj, nodes, contrib, consts, out, n_slices, width, c, ld, k_tile,
-        # n_nodes, threads, stream
+        # n_nodes, threads, parts, stream
         "repro_pagerank_sell_bucket": (
-            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I64, _I, _P],
-            _I),
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I64, _I, _I,
+             _P], _I),
         # adj, dist, out, level, n_nodes, width, threads, stream
         "repro_bfs_ell_step": ([_P, _P, _P, _I, _I64, _I64, _I, _P], _I),
         # adj, contrib, consts, out, n_nodes, width, threads, stream

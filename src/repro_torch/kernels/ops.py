@@ -56,6 +56,7 @@ import torch
 
 from repro_torch.analysis.preflight import (
     SlabMeta,
+    StreamMapMeta,
     plan_bfs_ell,
     plan_bfs_sell,
     plan_fft_stockham,
@@ -65,6 +66,7 @@ from repro_torch.analysis.preflight import (
     plan_spmm_sell,
     plan_spmm_sell_stream,
     plan_spmv_ell,
+    stream_bucket_rows,
 )
 from repro_torch.core.autotune import (
     SellTuneResult,
@@ -88,6 +90,7 @@ from repro_torch.sparse.formats import (
     SellSlabs,
     csr_to_sell_slabs,
     sell_to_slabs,
+    stream_column_map,
     to_csr,
 )
 
@@ -210,6 +213,23 @@ def _prepared(operand: SellSlabs | EllpackMatrix, device: torch.device):
     return entry["meta"], entry[device]
 
 
+def _stream_map(slabs: SellSlabs, block_rows: tuple[int, ...],
+                device: torch.device):
+    """Kernel B2's block column lists of ``slabs`` for these block rows:
+    their preflight metadata and their tensors on ``device``, built,
+    scanned and uploaded once per (operand, block rows) and cached with the
+    operand's other uploads (:func:`_prepared` makes the entry)."""
+    entry = _PREPARED[id(slabs)]
+    host = entry.get(("stream", block_rows))
+    if host is None:
+        smap = stream_column_map(slabs.bucket_cols, block_rows)
+        host = entry[("stream", block_rows)] = (
+            smap, StreamMapMeta.from_map(smap))
+    if (device, block_rows) not in entry:
+        entry[device, block_rows] = host[0].to_device(device)
+    return host[1], entry[device, block_rows]
+
+
 def _spmm_slabs(slabs: SellSlabs, x: torch.Tensor, *, k_block: int,
                 mode: str = "auto", col_tile: int | None = None,
                 row_tile: int | None = None,
@@ -218,7 +238,9 @@ def _spmm_slabs(slabs: SellSlabs, x: torch.Tensor, *, k_block: int,
     resident schedule (kernel B1; ``mode`` ``"auto"`` or ``"resident"``) or
     the streaming one (kernel B2, ``"stream"``, at ``col_tile`` /
     ``row_tile`` or the tiles :func:`pick_stream_tiles` gives the k tile
-    that runs).  Both schedules read the same uploaded tensors.
+    that runs).  Both schedules read the same uploaded tensors; on the
+    card B2 also reads its block column lists (:func:`_stream_map`, built
+    once per operand and block rows).
 
     ``plan`` is the resident schedule's plan, with
     :func:`plan_spmm_sell`'s signature (``moe_dispatch`` passes
@@ -247,12 +269,17 @@ def _spmm_slabs(slabs: SellSlabs, x: torch.Tensor, *, k_block: int,
                                x.element_size())
     ct = ct if col_tile is None else col_tile
     rt = rt if row_tile is None else row_tile
+    map_meta = column_map = None
+    if x.device.type == "cuda" and rt >= 1:   # the plain B2 reads no map
+        map_meta, column_map = _stream_map(
+            slabs, stream_bucket_rows(rt, [c.shape for c in slabs.bucket_cols]),
+            x.device)
     streamed = plan_spmm_sell_stream(
         meta, k=k, x_dtype=dtype, k_block=k_block, col_tile=ct,
-        row_tile=rt, base=plan).raise_if_invalid()
+        row_tile=rt, base=plan, column_map=map_meta).raise_if_invalid()
     return _run_profiled("spmm", streamed, lambda: sell_core.spmm_sell_stream(
         cols, vals, rows, x, n_rows=slabs.n_rows, k_block=k_block,
-        col_tile=ct, row_tile=rt), x.device)
+        col_tile=ct, row_tile=rt, column_map=column_map), x.device)
 
 
 def _check_x_rows(x, n_cols: int, what: str) -> None:

@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.autotune import NODE_STEP_BLOCK_THREADS
+from repro_torch.core.autotune import NODE_STEP_BLOCK_THREADS, node_split
 from repro_torch.graphs.gen import PAD
 from repro_torch.kernels import sell_core
 from repro_torch.kernels.bfs import _graph_lib, _raise_on, _require_cuda
@@ -206,13 +206,15 @@ def _launch_sell_bucket(radj: torch.Tensor, nodes: torch.Tensor,
     lib = _graph_lib()
     n_slices, width, c = radj.shape
     ld = contrib.shape[1] if contrib.ndim == 2 else 1
+    split = node_split(width, c, n_slices, k_tile, contrib.element_size())
     err = lib.repro_pagerank_sell_bucket(
         radj.data_ptr(), nodes.data_ptr(), contrib.data_ptr(),
         consts.data_ptr(), out.data_ptr(), n_slices, width, c, ld, k_tile,
-        contrib.shape[0] - 1, NODE_STEP_BLOCK_THREADS,
+        contrib.shape[0] - 1, split.threads, split.parts,
         torch.cuda.current_stream().cuda_stream)
     _raise_on(err, lib, f"pagerank_step_sell ({n_slices}, {c}, {width}) "
-              f"bucket, k_tile={k_tile}")
+              f"bucket, k_tile={k_tile}, {split.group} lanes a node, "
+              f"{split.parts} parts")
     KERNEL_LAUNCHES["pagerank_step_sell"] += 1
 
 
@@ -225,7 +227,10 @@ def pagerank_step_sell(bucket_radj, bucket_nodes, contrib: torch.Tensor,
     The per-bucket results are scattered back to original node order
     through ``bucket_nodes``; returns the new rank matrix, same shape as
     ``contrib``.  On the card every non-empty bucket is one launch of
-    kernel B3.
+    kernel B3, walked as :func:`repro_torch.core.autotune.node_split`
+    chooses: bit-equal to the unsplit walk, except on a bucket split into
+    parts, whose partial sums are added in a fixed pairwise order
+    (deterministic, within rtol 1e-10 of the plain version).
     """
     _check_state(contrib, consts)
     if contrib.device.type == "cpu":
@@ -233,6 +238,8 @@ def pagerank_step_sell(bucket_radj, bucket_nodes, contrib: torch.Tensor,
                                       consts)
     _require_cuda(contrib, "pagerank_step_sell")
     contrib, consts = contrib.contiguous(), consts.contiguous()
+    if contrib.data_ptr() % 16:                 # the kernel's 16 B row loads
+        contrib = contrib.clone()
     out = torch.zeros_like(contrib)
     sell_core.bucketed_node_step(
         lambda radj, nodes, kt: _launch_sell_bucket(radj, nodes, contrib,

@@ -18,7 +18,8 @@ per width bucket.
 * :func:`spmm_sell_stream` — the same function on the streaming schedule
   (the reference's out-of-VMEM ``spmm_sell_stream``): on CUDA tensors one
   launch of ``csrc/spmm_sell_stream.cu`` (kernel B2) per bucket, which
-  stages X through shared memory in column tiles; on CPU tensors
+  stages through shared memory the rows of X each block's rows touch
+  (a :class:`~repro_torch.sparse.formats.StreamColumnMap`); on CPU tensors
   :func:`spmm_sell_stream_ref`, the TPU kernel's column-tile schedule in
   plain PyTorch.  B2 is bit-equal to B1 on every bucket B1 walks with one
   thread a row (the same multiply-adds in the same order; on a bucket B1
@@ -44,14 +45,23 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.analysis.preflight import stream_block_rows, stream_col_tile
+from repro_torch.analysis.preflight import (
+    stream_bucket_rows,
+    stream_chunk_rows,
+    stream_col_tile,
+)
 from repro_torch.core.autotune import (
     KERNEL_DTYPES,
     MAX_K_TILE,
     pick_stream_tiles,
     spmm_split,
 )
-from repro_torch.sparse.formats import PAD, pow2_ceil
+from repro_torch.sparse.formats import (
+    PAD,
+    StreamColumnMap,
+    pow2_ceil,
+    stream_column_map,
+)
 
 __all__ = [
     "KERNEL_LAUNCHES",
@@ -283,47 +293,74 @@ def spmm_sell_stream_ref(bucket_cols, bucket_vals, bucket_rows,
         bucket_rows, x, n_rows=n_rows)
 
 
-def _launch_stream_bucket(cols, vals, rows, x, y, k_tile: int, col_tile: int,
-                          block_rows: int) -> None:
-    """One launch of kernel B2 on PyTorch's current stream of X's device,
-    made with that device current."""
+def _check_column_map(column_map, bucket_cols, block_rows, device) -> None:
+    """The block column lists a B2 launch set reads: built for these block
+    rows and these slabs (``lcols`` shaped like each bucket's ``cols``), on
+    X's device.  The map's own consistency (dtypes, contiguity, sizes) was
+    checked when it was made (:class:`~repro_torch.sparse.formats
+    .StreamColumnMap`); its index bounds are the preflight's job
+    (:class:`repro_torch.analysis.preflight.StreamMapMeta`)."""
+    if tuple(column_map.block_rows) != tuple(block_rows):
+        raise ValueError(
+            f"column map built for block rows {tuple(column_map.block_rows)}"
+            f", the launch takes {tuple(block_rows)}")
+    if bucket_cols and column_map.device != device:
+        raise ValueError(f"column map on {column_map.device}, X on {device}")
+    for b, (cols, lcols) in enumerate(zip(bucket_cols, column_map.lcols)):
+        if lcols.shape != cols.shape:
+            raise ValueError(
+                f"bucket {b} column map lcols {tuple(lcols.shape)} != cols "
+                f"{tuple(cols.shape)}")
+
+
+def _launch_stream_bucket(lcols, vals, rows, lane_end, block_ptr, block_cols,
+                          x, y, k_tile: int, chunk_rows: int,
+                          block_rows: int, stream: int) -> None:
+    """One launch of kernel B2 on ``stream`` (a raw CUDA stream of X's
+    device, which the caller makes current): blocks of ``block_rows``
+    rows, each staging its column list ``chunk_rows`` X rows at a time."""
     global STREAM_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
     lib = cuda_lib.library("spmm_sell_stream")
-    n_slices, width, c = cols.shape
-    with torch.cuda.device(x.device):
-        err = lib.repro_spmm_sell_stream_bucket(
-            cols.data_ptr(), vals.data_ptr(), rows.data_ptr(), x.data_ptr(),
-            y.data_ptr(), n_slices, width, c, x.shape[1], x.shape[0], k_tile,
-            col_tile, block_rows, int(x.dtype == torch.float64),
-            torch.cuda.current_stream().cuda_stream)
+    n_slices, width, c = lcols.shape
+    err = lib.repro_spmm_sell_stream_bucket(
+        lcols.data_ptr(), vals.data_ptr(), rows.data_ptr(),
+        lane_end.data_ptr(), block_ptr.data_ptr(), block_cols.data_ptr(),
+        x.data_ptr(), y.data_ptr(), n_slices, width, c, x.shape[1], k_tile,
+        chunk_rows, block_rows, int(x.dtype == torch.float64), stream)
     if err != 0:
         msg = lib.repro_stream_cuda_error_string(err).decode()
         raise RuntimeError(
             f"spmm_sell_stream kernel launch failed (cudaError {err}: {msg}) "
             f"for a ({n_slices}, {width}, {c}) bucket, k_tile={k_tile}, "
-            f"col_tile={col_tile}, block_rows={block_rows}")
+            f"chunk_rows={chunk_rows}, block_rows={block_rows}")
     STREAM_LAUNCHES += 1
 
 
 def spmm_sell_stream(bucket_cols, bucket_vals, bucket_rows, x: torch.Tensor,
                      *, n_rows: int, k_block: int = 8,
                      col_tile: int | None = None,
-                     row_tile: int | None = None) -> torch.Tensor:
+                     row_tile: int | None = None,
+                     column_map: StreamColumnMap | None = None
+                     ) -> torch.Tensor:
     """Y = A @ X over width-bucketed SELL slabs on the streaming schedule;
     the contract and the result of :func:`spmm_sell`.
 
-    ``col_tile`` (X rows a staged tile holds) and ``row_tile`` (slices a
-    block holds) default to :func:`repro_torch.core.autotune
+    ``col_tile`` (the most X rows a staged chunk holds) and ``row_tile``
+    (slices a block holds) default to :func:`repro_torch.core.autotune
     .pick_stream_tiles` at the k tile that runs.  The k axis is padded once,
     as in :func:`spmm_sell`; ``col_tile`` is coerced to a power of two and
-    clamped at ``pow2_ceil(n_cols)`` (:func:`stream_col_tile`) and
-    ``row_tile`` at each bucket's slice count.  n_cols is not padded: the
-    kernel cuts its last tile at n_cols.  On a CUDA device every bucket is
-    one launch of kernel B2, bit-equal to :func:`spmm_sell` on the same
-    tensors wherever B1 walks a bucket with one thread a row; on the CPU the plain :func:`spmm_sell_stream_ref` runs
-    instead.
+    clamped at ``pow2_ceil(n_cols)`` (:func:`stream_col_tile`), and each
+    bucket's block rows come from :func:`stream_bucket_rows`.  On a CUDA
+    device every bucket is one launch of kernel B2, which reads the
+    block column lists of ``column_map`` (a
+    :class:`~repro_torch.sparse.formats.StreamColumnMap` on X's device for
+    those block rows; ``ops`` builds it once per operand).  Without one the
+    wrapper builds it here, from a host copy of ``bucket_cols``, on every
+    call.  B2 is bit-equal to :func:`spmm_sell` on the same tensors
+    wherever B1 walks a bucket with one thread a row; on the CPU the plain
+    :func:`spmm_sell_stream_ref` runs instead (no map needed).
     """
     _check_args(bucket_cols, bucket_vals, bucket_rows, x, n_rows)
     k = x.shape[1]
@@ -340,16 +377,28 @@ def spmm_sell_stream(bucket_cols, bucket_vals, bucket_rows, x: torch.Tensor,
         raise RuntimeError(
             f"spmm_sell_stream has a CUDA kernel and a CPU reference; got "
             f"{x.device}")
+    block_rows = stream_bucket_rows(rt, [t.shape for t in bucket_cols])
+    if column_map is None:
+        column_map = stream_column_map(
+            tuple(t.cpu().numpy() for t in bucket_cols), block_rows
+        ).to_device(x.device)
+    _check_column_map(column_map, bucket_cols, block_rows, x.device)
     if k % kt:
         x = torch.nn.functional.pad(x, (0, kt - k % kt))
     x = x.contiguous()
-    if x.data_ptr() % 16:                       # the kernel's 16 B tile loads
+    if x.data_ptr() % 16:                       # the kernel's 16 B row copies
         x = x.clone()
+    # zeros, as B1's: a row no bucket names (slabs adopted through
+    # slabs_from_arrays, or a subset of buckets) reads 0
     y = torch.zeros((n_rows + 1, x.shape[1]), dtype=x.dtype, device=x.device)
-    for cols, vals, rows in zip(bucket_cols, bucket_vals, bucket_rows):
-        _launch_stream_bucket(
-            cols, vals, rows, x, y, kt, ct,
-            stream_block_rows(min(rt, cols.shape[0]), cols.shape[2]))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for b, (vals, rows) in enumerate(zip(bucket_vals, bucket_rows)):
+            _launch_stream_bucket(
+                column_map.lcols[b], vals, rows, column_map.lane_end[b],
+                column_map.block_ptr[b], column_map.block_cols[b], x, y, kt,
+                stream_chunk_rows(ct, column_map.longest[b]), block_rows[b],
+                stream)
     return y[:n_rows, :k]
 
 

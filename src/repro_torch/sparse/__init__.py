@@ -7,6 +7,7 @@ from repro_torch.sparse.formats import (
     EllpackMatrix,
     SellCSigmaMatrix,
     SellSlabs,
+    StreamColumnMap,
     cage10_like,
     csr_to_ellpack,
     csr_to_sell,
@@ -16,6 +17,7 @@ from repro_torch.sparse.formats import (
     sell_slabs_to_csr,
     sell_to_slabs,
     slabs_from_arrays,
+    stream_column_map,
     to_csr,
 )
 
@@ -25,6 +27,7 @@ __all__ = [
     "EllpackMatrix",
     "SellCSigmaMatrix",
     "SellSlabs",
+    "StreamColumnMap",
     "cage10_like",
     "csr_to_ellpack",
     "csr_to_sell",
@@ -34,5 +37,6 @@ __all__ = [
     "sell_slabs_to_csr",
     "sell_to_slabs",
     "slabs_from_arrays",
+    "stream_column_map",
     "to_csr",
 ]

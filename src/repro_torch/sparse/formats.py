@@ -368,6 +368,124 @@ def csr_to_sell_slabs(m: CSRMatrix, c: int, sigma: int | None = None) -> SellSla
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class StreamColumnMap:
+    """Per-block column lists of width-bucketed SELL slabs: the operands of
+    the streaming SpMM schedule (kernel B2), which stages through shared
+    memory only the rows of X that a block of its rows touches.
+
+    A block of bucket ``b`` is ``block_rows[b]`` consecutive lanes (lane
+    ``s * C + c`` of its (S, W, C) slab).  For each bucket:
+
+    * ``block_ptr`` (n_blocks + 1,) int64 and ``block_cols`` (total,)
+      int32: block ``i``'s distinct stored columns, ascending, are
+      ``block_cols[block_ptr[i]:block_ptr[i + 1]]``;
+    * ``lcols`` (S, W, C) int32, shaped like the bucket's ``cols``: each
+      entry's index into its block's list, ``PAD`` kept as ``-1``, so
+      ``block_cols[block_ptr[block] + lcols] == cols`` on every real entry
+      and local order is column order;
+    * ``lane_end`` (S, C) int32: one past the last real slot of each lane's
+      w axis (0 for an empty lane), where the walk of that row ends.
+
+    ``longest`` is each bucket's longest list.  Built on the host
+    (:func:`stream_column_map`); :meth:`to_device` uploads the arrays and
+    keeps the host-side sizes, so a launch needs no device read.
+    """
+
+    block_rows: tuple[int, ...]
+    longest: tuple[int, ...]
+    block_ptr: tuple
+    block_cols: tuple
+    lcols: tuple
+    lane_end: tuple
+
+    def __post_init__(self):
+        """The arrays agree with each other (numpy on the host, tensors on
+        one device): one (lcols, lane_end, block_ptr, block_cols) per
+        bucket, int32 but ``block_ptr`` int64, contiguous, ``lane_end``
+        (S, C) and ``block_ptr`` one past the bucket's block count.  Checked
+        once here, so a launch only matches the map to its slabs."""
+        n = len(self.block_rows)
+        fields = (self.block_ptr, self.block_cols, self.lcols, self.lane_end)
+        if len(self.longest) != n or any(len(f) != n for f in fields):
+            raise ValueError("a column map needs one entry per bucket in "
+                             "every field")
+        devices = set()
+        for b, (ptr, lst, lcols, end) in enumerate(zip(*fields)):
+            for name, a, dtype in (("block_ptr", ptr, "int64"),
+                                   ("block_cols", lst, "int32"),
+                                   ("lcols", lcols, "int32"),
+                                   ("lane_end", end, "int32")):
+                tensor = isinstance(a, torch.Tensor)
+                if not str(a.dtype).endswith(dtype) or not (
+                        a.is_contiguous() if tensor
+                        else a.flags["C_CONTIGUOUS"]):
+                    raise ValueError(f"bucket {b} column map {name} is not "
+                                     f"a contiguous {dtype} array")
+                devices.add(a.device if tensor else "host")
+            s, _, c = lcols.shape
+            if tuple(end.shape) != (s, c) or tuple(ptr.shape) != (
+                    -(-s * c // self.block_rows[b]) + 1,):
+                raise ValueError(
+                    f"bucket {b} column map: lane_end {tuple(end.shape)} / "
+                    f"block_ptr {tuple(ptr.shape)} do not fit lcols "
+                    f"{tuple(lcols.shape)} at {self.block_rows[b]} rows a block")
+        if len(devices) > 1:
+            raise ValueError(f"column map arrays on {sorted(map(str, devices))}")
+
+    @property
+    def device(self):
+        """The device the arrays lie on (``None`` on the host or empty)."""
+        a = self.lcols[0] if self.lcols else None
+        return a.device if isinstance(a, torch.Tensor) else None
+
+    @property
+    def x_rows(self) -> int:
+        """(block, column) pairs over all buckets: the rows of X the
+        schedule stages per RHS tile, each once."""
+        return sum(int(p[-1]) for p in self.block_ptr)
+
+    def to_device(self, device) -> "StreamColumnMap":
+        def up(arrays):
+            return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                         for a in arrays)
+
+        return dataclasses.replace(
+            self, block_ptr=up(self.block_ptr), block_cols=up(self.block_cols),
+            lcols=up(self.lcols), lane_end=up(self.lane_end))
+
+
+def stream_column_map(bucket_cols, block_rows) -> StreamColumnMap:
+    """The :class:`StreamColumnMap` of (S, W, C) int32 column slabs, with
+    ``block_rows[b]`` lanes a block in bucket ``b``.  Vectorised: one sort
+    of (block, column) keys per bucket."""
+    ptrs, lists, locals_, ends, longest = [], [], [], [], []
+    for cols, rb in zip(bucket_cols, block_rows):
+        cols = np.asarray(cols)
+        s, w, c = cols.shape
+        n_blocks = -(-s * c // int(rb))
+        block = (np.arange(s * c, dtype=np.int64) // int(rb)).reshape(s, 1, c)
+        real = cols != PAD
+        key = (np.broadcast_to(block, cols.shape)[real] << 32) \
+            | cols[real].astype(np.int64)
+        uniq, inverse = np.unique(key, return_inverse=True)
+        ptr = np.zeros(n_blocks + 1, np.int64)
+        np.cumsum(np.bincount(uniq >> 32, minlength=n_blocks), out=ptr[1:])
+        lcols = np.full(cols.shape, PAD, np.int32)
+        lcols[real] = inverse.reshape(-1) - ptr[key >> 32]
+        last = np.where(real.any(axis=1),
+                        w - np.argmax(real[:, ::-1, :], axis=1), 0)
+        ptrs.append(ptr)
+        lists.append((uniq & 0xFFFFFFFF).astype(np.int32))
+        locals_.append(lcols)
+        ends.append(last.astype(np.int32))
+        longest.append(int(np.diff(ptr).max()) if n_blocks else 0)
+    return StreamColumnMap(
+        block_rows=tuple(int(r) for r in block_rows), longest=tuple(longest),
+        block_ptr=tuple(ptrs), block_cols=tuple(lists),
+        lcols=tuple(locals_), lane_end=tuple(ends))
+
+
 def sell_to_slabs(sell: SellCSigmaMatrix) -> SellSlabs:
     """Bucket a ragged :class:`SellCSigmaMatrix` into device slabs."""
     c = sell.c

@@ -15,13 +15,15 @@ Tolerance: 1e-10 at fp64, 1e-4 x max|y| at fp32 (summation order differs);
 B2 bit-equal to B1 wherever B1 walks each bucket with one thread a row
 (the same multiply-adds in the same order), and within 1e-10 (fp64) of it
 on buckets B1 splits across threads;
-BFS distances exactly equal, PageRank ranks at rtol 1e-10; FFT rtol 1e-9 /
+BFS distances exactly equal, PageRank ranks at rtol 1e-10 (B3's split
+buckets add their parts in a fixed order: two calls bit-equal); FFT rtol 1e-9 /
 atol 1e-9 x n at fp64 and 1e-3 / 1e-5 x max|spectrum| at fp32 (FMA
 contraction); B8
 2e-4 at fp32 and 1e-10 at fp64 (the reference's, ``tests/test_kernels.py``);
 B9 exactly equal (a copy).
 """
 import copy
+import types
 
 import numpy as np
 import pytest
@@ -238,6 +240,75 @@ def test_stream_kernel_is_bit_equal_to_b1_on_unsorted_rows_and_inner_pad(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-10), (np.float32, 1e-4)])
+def test_stream_kernel_walks_many_chunks_a_block_with_a_given_map(
+        cuda_device, dtype, tol):
+    """Blocks whose column lists take many chunks (col_tile 16 and 64), on
+    a banded and a rectangular operand, with the map built once and handed
+    in: bit-equal to B1 where B1 splits no bucket, at the tolerance of the
+    plain version, the same with and without the map."""
+    for csr in (F.cage10_like(seed=0, dtype=dtype),
+                F.random_csr(2048, 300_000, 6.0, seed=3, dtype=dtype)):
+        cols, vals, rows = F.csr_to_sell_slabs(csr, c=32).to_device(
+            cuda_device)
+        rng = np.random.default_rng(1)
+        for k, kb, col_tile in ((1, 1, 16), (8, 8, 64), (32, 32, 16)):
+            x = torch.from_numpy(rng.standard_normal(
+                (csr.n_cols, k)).astype(dtype)).to(cuda_device)
+            _, rt = sell_core.pick_stream_tiles(32, min(kb, k))
+            block_rows = sell_core.stream_bucket_rows(
+                rt, [c.shape for c in cols])
+            smap = F.stream_column_map(tuple(c.cpu().numpy() for c in cols),
+                                       block_rows)
+            assert max(smap.longest) > 2 * col_tile   # many chunks a block
+            got = sell_core.spmm_sell_stream(
+                cols, vals, rows, x, n_rows=csr.n_rows, k_block=kb,
+                col_tile=col_tile, column_map=smap.to_device(cuda_device))
+            again = sell_core.spmm_sell_stream(
+                cols, vals, rows, x, n_rows=csr.n_rows, k_block=kb,
+                col_tile=col_tile)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            _assert_b2_matches_b1(got, sell_core.spmm_sell(
+                cols, vals, rows, x, n_rows=csr.n_rows, k_block=kb), cols,
+                dtype)
+            want = sell_core.spmm_sell_stream_ref(
+                cols, vals, rows, x, n_rows=csr.n_rows, col_tile=col_tile)
+            scale = 1.0 if dtype == np.float64 else float(want.abs().max())
+            assert float((got - want).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_stream_kernel_leaves_rows_no_bucket_names_at_zero(cuda_device):
+    """Slabs adopted through slabs_from_arrays with one bucket left out:
+    the rows that bucket held are named by no bucket and read 0 from B2,
+    as from B1, even where the memory Y is carved from held NaN."""
+    full = F.csr_to_sell_slabs(F.random_csr(3000, 2500, 9.0, seed=5,
+                                            skew=1.2), c=32)
+    keep = slice(1, None)
+    sub = F.slabs_from_arrays(types.SimpleNamespace(
+        bucket_cols=full.bucket_cols[keep], bucket_vals=full.bucket_vals[keep],
+        bucket_rows=full.bucket_rows[keep], n_rows=full.n_rows,
+        n_cols=full.n_cols, sigma=full.sigma,
+        nnz=sum(int((c != F.PAD).sum()) for c in full.bucket_cols[keep])))
+    unnamed = np.setdiff1d(np.arange(sub.n_rows), np.concatenate(
+        [r.ravel() for r in sub.bucket_rows]))
+    assert unnamed.size
+    cols, vals, rows = sub.to_device(cuda_device)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2500, 8))).to(cuda_device)
+    torch.full((sub.n_rows + 1, 8), float("nan"), dtype=torch.float64,
+               device=cuda_device)            # freed to the caching allocator
+    got = sell_core.spmm_sell_stream(cols, vals, rows, x, n_rows=sub.n_rows,
+                                     k_block=8)
+    b1 = sell_core.spmm_sell(cols, vals, rows, x, n_rows=sub.n_rows,
+                             k_block=8)
+    torch.cuda.synchronize()
+    assert not got[torch.from_numpy(unnamed).to(cuda_device)].any()
+    _assert_b2_matches_b1(got, b1, cols, np.float64)
+
+
+@pytest.mark.cuda
 def test_ops_stream_on_the_card_matches_host_csr(cuda_device):
     csr = F.cage10_like(seed=0)
     x = np.random.default_rng(2).standard_normal((csr.n_cols, 4))
@@ -258,11 +329,16 @@ def test_refused_stream_launch_raises_and_leaves_no_error_behind(cuda_device):
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (40_000, 1))).to(cuda_device)
     y = torch.zeros((501, 1), dtype=x.dtype, device=cuda_device)
-    ct, _ = autotune.pick_stream_tiles(32, 1, 8)
+    ct, rt = autotune.pick_stream_tiles(32, 1, 8)
+    block_rows = sell_core.stream_bucket_rows(rt, [c.shape for c in cols])
+    smap = F.stream_column_map(tuple(c.cpu().numpy() for c in cols),
+                               block_rows).to_device(cuda_device)
     before = sell_core.STREAM_LAUNCHES
     with pytest.raises(RuntimeError, match="cudaError"):
-        sell_core._launch_stream_bucket(cols[0], vals[0], rows[0], x, y, 1,
-                                        2 * ct, 256)
+        sell_core._launch_stream_bucket(
+            smap.lcols[0], vals[0], rows[0], smap.lane_end[0],
+            smap.block_ptr[0], smap.block_cols[0], x, y, 1, 2 * ct,
+            block_rows[0], torch.cuda.current_stream().cuda_stream)
     assert sell_core.STREAM_LAUNCHES == before
     got = sell_core.spmm_sell_stream(cols, vals, rows, x, n_rows=500,
                                      k_block=1)
@@ -318,6 +394,47 @@ def test_graph_sell_kernels_match_plain_versions(cuda_device, c):
         got = pagerank.pagerank_step_sell(adj, nodes, contrib, consts)
         want = pagerank.pagerank_step_sell_ref(adj, nodes, contrib, consts)
         torch.testing.assert_close(got, want, rtol=1e-10, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 32])
+def test_graph_sell_split_buckets_match_plain_versions(cuda_device, c):
+    """B3's split buckets (rmat's widest in-degree slices, 16 .. 1,024
+    threads a node) at k in (1, 3, 8, 32): BFS exactly equal to the plain
+    step over four levels, PageRank at rtol 1e-10; two calls bit-equal
+    (the parts add in a fixed order)."""
+    from repro_torch.core import autotune
+    from repro_torch.graphs import gen as G
+    from repro_torch.kernels import bfs, pagerank
+
+    g = G.rmat_graph(4096, 16, seed=1)
+    n = g.n_nodes
+    adj, nodes = G.graph_to_sell_slabs(g.transpose(), c=c).to_device(
+        cuda_device)
+    rng = np.random.default_rng(c)
+    for k in (1, 3, 8, 32):
+        kt = sell_core.node_k_tile(k)
+        for itemsize in (4, 8):
+            assert any(autotune.node_split(a.shape[2], c, a.shape[0], kt,
+                                           itemsize).parts > 1 for a in adj)
+        dist = torch.full((n + 1, k), G.INF, dtype=torch.int32,
+                          device=cuda_device)
+        src = torch.from_numpy(rng.choice(n, k, replace=False))
+        dist[src.to(cuda_device), torch.arange(k, device=cuda_device)] = 0
+        for level in range(1, 5):
+            got = bfs.bfs_step_sell(adj, nodes, dist, level)
+            torch.cuda.synchronize()
+            assert torch.equal(got, bfs.bfs_step_sell_ref(adj, nodes, dist,
+                                                          level))
+            dist = got
+        contrib = torch.from_numpy(rng.random((n + 1, k))).to(cuda_device)
+        contrib[-1] = 0.0
+        consts = torch.from_numpy(rng.random((3, k))).to(cuda_device)
+        got = pagerank.pagerank_step_sell(adj, nodes, contrib, consts)
+        assert torch.equal(got, pagerank.pagerank_step_sell(
+            adj, nodes, contrib, consts))
+        torch.testing.assert_close(got, pagerank.pagerank_step_sell_ref(
+            adj, nodes, contrib, consts), rtol=1e-10, atol=0)
 
 
 @pytest.mark.cuda

@@ -40,6 +40,7 @@ from repro_torch.sparse import formats as F
 
 RTOL = 1e-10
 INF = G.INF
+PAD = G.PAD
 CPU = ExecSpec(device="cpu")
 
 
@@ -222,6 +223,94 @@ def test_plain_gather_chunks_give_the_same_step(monkeypatch):
         rtol=RTOL, atol=0)
 
 
+def _group_walk(bucket_adj, bucket_nodes, state, *, level=None,
+                consts=None):
+    """Kernel B3's group-form walk in plain PyTorch, as
+    :func:`autotune.node_split` lays each bucket out: part p of a node
+    walks slots w = p, p + parts, ... in ascending order (each lane of its
+    group holding k_tile / group of the state columns, which the columns'
+    independence leaves out of the arithmetic); BFS ORs the parts' hit
+    masks, PageRank sums each part in order and adds the parts pairwise as
+    the kernel's shared-memory tree does (stride parts / 2, then / 4, ...).
+    Returns the new state and the largest ``parts`` used."""
+    bfs_step = level is not None
+    st = state if state.ndim == 2 else state[:, None]
+    n = state.shape[0] - 1
+    k_tile = sell_core.node_k_tile(st.shape[1])
+    out = st.clone() if bfs_step else torch.zeros_like(st)
+    most = 1
+    for adj, nodes in zip(bucket_adj, bucket_nodes):
+        s, c, w = adj.shape
+        split = autotune.node_split(w, c, s, k_tile, state.element_size())
+        most = max(most, split.parts)
+        a = adj.reshape(s * c, w).long()
+        v = nodes.reshape(-1).long()
+        parts = []
+        for p in range(split.parts):
+            acc = torch.zeros((s * c, st.shape[1]), dtype=st.dtype) \
+                if not bfs_step else torch.zeros((s * c, st.shape[1]), dtype=torch.bool)
+            for ww in range(p, w, split.parts):
+                u = a[:, ww]
+                ok = u != PAD
+                g = st[u.clamp(min=0)]
+                if bfs_step:
+                    acc |= ok[:, None] & (g == level - 1)
+                else:
+                    acc[ok] += g[ok]
+            parts.append(acc)
+        while len(parts) > 1:
+            half = len(parts) // 2
+            parts = [parts[i] | parts[i + half] if bfs_step
+                     else parts[i] + parts[i + half] for i in range(half)]
+        real = v < n
+        if bfs_step:
+            mine = st[v[real]]
+            out[v[real]] = torch.where((mine == INF) & parts[0][real], level,
+                                       mine)
+        else:
+            cm = consts if consts.ndim == 2 else consts[:, None]
+            out[v[real]] = cm[0] + cm[1] * (parts[0][real] + cm[2])
+    return (out if state.ndim == 2 else out[:, 0]), most
+
+
+@pytest.mark.parametrize("k", [None, 1, 3, 8, 32])
+def test_group_split_walk_model_matches_both_references(k):
+    """The model of B3's split walk on an rmat graph whose W = 1024 bucket
+    is split (64 parts at k = 32): BFS exactly equal to the plain step and
+    the reference's (interpret mode) over three levels, PageRank within
+    rtol 1e-10 of both."""
+    ref, _ = _pair("rmat", 600, 16, 2)
+    (radj_j, nodes_j), (radj, nodes) = _slabs(ref, 8)
+    assert max(a.shape[2] for a in radj) == 1024
+    n = ref.n_nodes
+    rng = np.random.default_rng(5)
+    sources = rng.choice(n, k or 1, replace=False)
+    dist = _dist0(n, sources[0] if k is None else sources, k)
+    for level in (1, 2, 3):
+        got, most = _group_walk(radj, nodes, _t(dist), level=level)
+        assert most > 1
+        want = bfs.bfs_step_sell_ref(radj, nodes, _t(dist), level)
+        assert torch.equal(got, want)
+        jax_want = np.asarray(ref_bfs.bfs_step_sell(
+            radj_j, nodes_j, jnp.asarray(dist), jnp.array([level], jnp.int32),
+            interpret=True))
+        assert np.array_equal(got.numpy(), jax_want)
+        dist = jax_want
+    shape = (n + 1,) if k is None else (n + 1, k)
+    contrib = rng.random(shape)
+    contrib[-1] = 0.0
+    consts = rng.random((3,) if k is None else (3, k))
+    got, most = _group_walk(radj, nodes, _t(contrib), consts=_t(consts))
+    assert most > 1
+    torch.testing.assert_close(
+        got, pagerank.pagerank_step_sell_ref(radj, nodes, _t(contrib),
+                                             _t(consts)), rtol=RTOL, atol=0)
+    want = np.asarray(ref_pr.pagerank_step_sell(
+        radj_j, nodes_j, jnp.asarray(contrib), jnp.asarray(consts),
+        interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # Full drives
 # ---------------------------------------------------------------------------
@@ -351,14 +440,19 @@ def test_graph_plans_mirror_the_kernel_launch():
     meta = SlabMeta.from_slabs(slabs, check_bounds=True)
     assert meta.kind == "graph" and meta.val_dtype is None
     assert meta.idx_max < 300 and meta.map_max == 300 and meta.map_min == 0
-    threads = autotune.NODE_STEP_BLOCK_THREADS
     for k, want_y in ((1, 1), (6, 3), (32, 1), (64, 2)):
-        for plan in (plan_bfs_sell(meta, k=k), plan_pagerank_sell(meta, k=k)):
+        k_tile = sell_core.node_k_tile(k)
+        for plan, itemsize in ((plan_bfs_sell(meta, k=k), 4),
+                               (plan_pagerank_sell(meta, k=k), 8)):
             assert plan.ok and plan.n_launches == len(slabs.widths)
             for b, a in zip(plan.blocks, slabs.bucket_adj):
-                s, c, _ = a.shape
-                assert b.grid == (-(-s * c // threads), want_y)
-                assert b.block == (threads,)
+                s, c, w = a.shape
+                split = autotune.node_split(w, c, s, k_tile, itemsize)
+                assert b.grid == (-(-s * c // split.nodes), want_y)
+                assert b.block == (split.threads,)
+                assert b.smem_bytes == split.smem_bytes
+                assert split.threads <= 1024
+                assert split.group == max(1, k_tile * itemsize // 16)
     ell = plan_bfs_ell(SlabMeta.from_ell(port.transpose().adj, 300,
                                          check_bounds=True))
     assert ell.ok and ell.n_launches == 1 and ell.blocks[0].grid == (2, 1)

@@ -457,3 +457,74 @@ def test_plan_prices_the_split_blocks():
                 assert blk.grid == (math.ceil(s * 32 / split.lanes), 1)
                 assert blk.smem_bytes == split.smem_bytes > 0
     assert sum(b.smem_bytes > 0 for b in plan.blocks) == 5    # W >= 128
+
+
+
+# ---------------------------------------------------------------------------
+# Kernel B3's lane groups and split (autotune.node_split)
+# ---------------------------------------------------------------------------
+
+#: The graph path's SELL buckets at C = 32, (width, slices): uniform21
+#: (random_graph(2^21, 16, seed=0)) and rmat15 (rmat_graph(2^15, 16,
+#: seed=0)), as their registration reports them.
+GRAPH_BUCKETS = {
+    "uniform21": ((16, 29604), (32, 35456), (64, 476)),
+    "rmat15": ((1, 581), (2, 85), (4, 88), (8, 87), (16, 58), (32, 47),
+               (64, 38), (128, 4), (256, 19), (1024, 11), (2048, 5),
+               (8192, 1)),
+}
+
+
+@pytest.mark.parametrize("graph", sorted(GRAPH_BUCKETS))
+@pytest.mark.parametrize("k_tile,itemsize", [(32, 8), (32, 4), (1, 8),
+                                             (1, 4), (8, 8)])
+def test_node_split_at_the_graph_paths_bucket_shapes(graph, k_tile,
+                                                     itemsize):
+    """Lanes across the state columns: a group of k_tile x itemsize / 16
+    lanes a node (16 for PageRank fp64 at k = 32, 8 for BFS int32, one at
+    k = 1, where a thread walks a node).  From
+    NODE_SPLIT_WIDTH on a bucket is split so that no group walks more than
+    NODE_SPLIT_MAX_CHAIN slots nor fewer than NODE_SPLIT_MIN_CHAIN, a block
+    is at most 1,024 threads and its combine fits 48 KB; narrower buckets
+    are not split.  rmat15's one W = 8192 slice no longer walks 8,192
+    dependent steps a thread."""
+    from repro_torch.analysis import SlabMeta
+    from repro_torch.analysis.preflight import plan_bfs_sell, plan_pagerank_sell
+    from repro_torch.core import autotune as A
+
+    group = {(32, 8): 16, (32, 4): 8, (1, 8): 1, (1, 4): 1, (8, 8): 4}
+    for w, s in GRAPH_BUCKETS[graph]:
+        split = A.node_split(w, 32, s, k_tile, itemsize)
+        assert split.group == group[k_tile, itemsize]
+        assert split.threads <= A.NODE_SPLIT_MAX_THREADS
+        assert split.threads % 32 == 0
+        if w < A.NODE_SPLIT_WIDTH:
+            assert split.parts == 1 and split.smem_bytes == 0
+            assert split.threads == A.NODE_STEP_BLOCK_THREADS
+            continue
+        assert split.parts > 1
+        chain = -(-w // split.parts)                  # slots a group walks
+        assert A.NODE_SPLIT_MIN_CHAIN <= chain <= A.NODE_SPLIT_MAX_CHAIN \
+            or split.threads == A.NODE_SPLIT_MAX_THREADS
+        assert split.smem_bytes <= 48 * 1024
+        want = (split.nodes * split.parts * k_tile * 8 if itemsize == 8
+                else 4 * split.nodes)
+        assert split.smem_bytes == want
+    if graph == "rmat15":
+        widest = A.node_split(8192, 32, 1, k_tile, itemsize)
+        assert 8192 // widest.parts <= 128
+        assert widest.nodes == 1 and widest.threads == 1024
+    # the plans mirror it, bucket by bucket
+    meta = SlabMeta(kind="graph", c=32,
+                    widths=tuple(w for w, _ in GRAPH_BUCKETS[graph]),
+                    n_slices=tuple(s for _, s in GRAPH_BUCKETS[graph]),
+                    n_rows=1 << 15, n_cols=1 << 15, val_dtype=None,
+                    idx_dtype="int32")
+    plan = (plan_pagerank_sell(meta, k=k_tile) if itemsize == 8
+            else plan_bfs_sell(meta, k=k_tile))
+    assert plan.ok
+    for b, (w, s) in zip(plan.blocks, GRAPH_BUCKETS[graph]):
+        split = A.node_split(w, 32, s, k_tile, itemsize)
+        assert b.block == (split.threads,)
+        assert b.grid == (-(-s * 32 // split.nodes), 1)
+        assert b.smem_bytes == split.smem_bytes

@@ -9,6 +9,7 @@ ascend the plain B2 is bit-equal to the plain B1, since the column tiles
 only reorder exact zeros.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -21,10 +22,17 @@ from repro.kernels import sell_core as ref_sell_core
 from repro.kernels.execspec import ExecSpec as RefExecSpec
 from repro.sparse import formats as RF
 from repro_torch.analysis import LaunchPlanError, SlabMeta
-from repro_torch.analysis.preflight import plan_spmm_sell_stream
+from repro_torch.analysis.preflight import (
+    StreamMapMeta,
+    plan_spmm_sell_stream,
+    stream_block_rows,
+    stream_bucket_rows,
+    stream_chunk_rows,
+)
 from repro_torch.core.autotune import (
     MAX_K_TILE,
     SMEM_PER_BLOCK,
+    STREAM_FILL_BLOCKS,
     pick_stream_tiles,
     stream_smem_bytes,
     tune_sell_layout,
@@ -286,3 +294,330 @@ def test_auto_runs_the_resident_kernel_where_the_reference_streams(
         got = ops.spmm(csr, x, spec=dataclasses.replace(CPU, vl=32))
         want = np.stack([csr.matvec(x[:, j]) for j in range(8)], axis=1)
         np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Kernel B2's block column map and a plain model of its chunk walk
+# ---------------------------------------------------------------------------
+
+
+def _map_operands():
+    """A cage10-like operand, a rectangular giant-like one (few entries a
+    row over many columns), and cage10 with its rows out of column order
+    and with PAD before their entries."""
+    cage = F.cage10_like(seed=0)
+    shuffled = F.csr_to_sell_slabs(_shuffled_rows(cage, 5), c=32)
+    return {
+        "cage10": F.csr_to_sell_slabs(cage, c=256),
+        "giant_like": F.csr_to_sell_slabs(
+            F.random_csr(1024, 300_000, 2.0, seed=3), c=256),
+        "shuffled": shuffled,
+        "pad_first": _pad_first(shuffled),
+    }
+
+
+def _block_rows(slabs, row_tile=None, k_tile=8):
+    rt = row_tile or pick_stream_tiles(slabs.c, k_tile)[1]
+    return stream_bucket_rows(rt, [c.shape for c in slabs.bucket_cols])
+
+
+@pytest.mark.parametrize("name", ["cage10", "giant_like", "shuffled",
+                                  "pad_first"])
+def test_column_map_lists_every_blocks_columns_once_in_order(name):
+    slabs = _map_operands()[name]
+    block_rows = _block_rows(slabs)
+    smap = F.stream_column_map(slabs.bucket_cols, block_rows)
+    distinct = 0
+    for cols, ptr, lst, lcols, end, rb in zip(
+            slabs.bucket_cols, smap.block_ptr, smap.block_cols, smap.lcols,
+            smap.lane_end, smap.block_rows):
+        s, w, c = cols.shape
+        assert lcols.shape == cols.shape and lcols.dtype == np.int32
+        assert ptr.dtype == np.int64 and lst.dtype == np.int32
+        assert len(ptr) == -(-s * c // rb) + 1
+        lane = np.arange(s * c).reshape(s, c)
+        for b in range(len(ptr) - 1):
+            seg = lst[ptr[b]:ptr[b + 1]]
+            mine = cols.transpose(0, 2, 1).reshape(s * c, w)[b * rb:(b + 1) * rb]
+            want = np.unique(mine[mine != F.PAD])
+            np.testing.assert_array_equal(seg, want)    # ascending, distinct
+            distinct += len(want)
+        real = cols != F.PAD
+        block = np.broadcast_to((lane // rb)[:, None, :], cols.shape)
+        np.testing.assert_array_equal(lst[ptr[block[real]] + lcols[real]],
+                                      cols[real])
+        assert (lcols[~real] == F.PAD).all()
+        # each lane's walk ends one past its last real slot
+        last = np.array([[max([i + 1 for i in range(w) if cols[a, i, b]
+                               != F.PAD], default=0) for b in range(c)]
+                         for a in range(s)])
+        np.testing.assert_array_equal(end, last)
+    assert smap.x_rows == distinct
+    assert smap.longest == tuple(int(np.diff(p).max()) for p in smap.block_ptr)
+    # the schedule's X bytes at fp64 and k_tile 8: one staged row of the
+    # k tile for each (block, distinct column) pair
+    assert smap.x_rows * 8 * 8 == distinct * 64
+    if name == "pad_first":
+        assert any((c[:, 0] == F.PAD).any() for c in slabs.bucket_cols)
+
+
+def _chunk_walk(bucket_cols, bucket_vals, bucket_rows, x, n_rows, smap,
+                chunk_rows):
+    """Kernel B2's walk in plain PyTorch, thread by thread in step: per
+    block, each row's cursor over its lane's w axis (ending at lane_end,
+    skipping PAD), the next chunk the one holding the block-wide minimum of
+    the cursors' local indices, its X rows staged from the block's list,
+    and every row consuming, in w order, its entries in that chunk (one
+    multiply and one add each, as the plain B1).  Returns Y and the X rows
+    staged."""
+    y = torch.zeros((n_rows + 1, x.shape[1]), dtype=x.dtype)
+    staged = 0
+    end_mark = np.iinfo(np.int64).max
+    for cols, vals, rows, ptr, lst, lcols, ends, rb in zip(
+            bucket_cols, bucket_vals, bucket_rows, smap.block_ptr,
+            smap.block_cols, smap.lcols, smap.lane_end, smap.block_rows):
+        s, w, c = cols.shape
+        lc = torch.from_numpy(lcols).permute(0, 2, 1).reshape(s * c, w)
+        vl = vals.permute(0, 2, 1).reshape(s * c, w)
+        ends = torch.from_numpy(ends).reshape(-1).long()
+        rows = rows.reshape(-1).long()
+        for b in range(len(ptr) - 1):
+            lanes = torch.arange(b * rb, min((b + 1) * rb, s * c))
+            lst_b = torch.from_numpy(lst[ptr[b]:ptr[b + 1]]).long()
+            cur = torch.zeros(len(lanes), dtype=torch.long)
+            acc = torch.zeros((len(lanes), x.shape[1]), dtype=x.dtype)
+
+            def nxt():
+                """Each cursor moved past PAD; its local index, or END."""
+                while True:
+                    inside = cur < ends[lanes]
+                    at = lc[lanes, cur.clamp(max=w - 1)]
+                    out = torch.where(inside, at.long(), end_mark)
+                    pad = inside & (at == F.PAD)
+                    if not bool(pad.any()):
+                        return out
+                    cur[pad] += 1
+
+            nc = nxt()
+            while int(nc.min()) != end_mark:
+                lo = int(nc.min()) // chunk_rows * chunk_rows
+                hi = min(lo + chunk_rows, len(lst_b))
+                buf = x[lst_b[lo:hi]]
+                staged += hi - lo
+                while True:
+                    take = (nc >= lo) & (nc < hi)
+                    if not bool(take.any()):
+                        break
+                    i = torch.nonzero(take).reshape(-1)
+                    t = lanes[i]
+                    acc[i] += vl[t, cur[i]][:, None] * buf[nc[i] - lo]
+                    cur[i] += 1
+                    nc = nxt()
+            y[rows[lanes]] = acc
+    return y[:n_rows], staged
+
+
+def _model_operands():
+    """Smaller operands of the same kinds for the walk model (the
+    reference's interpret mode runs at a few hundred rows a second)."""
+    cage = F.random_csr(1500, 1500, 8.0, seed=4, skew=1.2)
+    shuffled = F.csr_to_sell_slabs(_shuffled_rows(cage, 5), c=32)
+    return {
+        "cage10": F.csr_to_sell_slabs(F.cage10_like(seed=0), c=256),
+        "giant_like": F.csr_to_sell_slabs(
+            F.random_csr(1024, 300_000, 2.0, seed=3), c=256),
+        "shuffled": shuffled,
+        "pad_first": _pad_first(shuffled),
+    }
+
+
+@pytest.mark.parametrize("name,chunk_rows", [
+    ("cage10", 64), ("cage10", 4096), ("giant_like", 16),
+    ("shuffled", 64), ("pad_first", 64)])
+def test_chunk_walk_model_holds_to_b1_and_both_stream_references(
+        name, chunk_rows):
+    """The model of B2's walk is bit-equal to the plain B1 (rows out of
+    column order and PAD first included), within 1e-10 of the plain B2 and
+    of the reference's streaming schedule (interpret mode), and stages
+    each (block, column) pair once where rows ascend."""
+    slabs = _model_operands()[name]
+    block_rows = _block_rows(slabs)
+    smap = F.stream_column_map(slabs.bucket_cols, block_rows)
+    cols, vals, rows = slabs.to_device("cpu")
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (slabs.n_cols, 3)))
+    got, staged = _chunk_walk(cols, vals, rows, x, slabs.n_rows, smap,
+                              chunk_rows)
+    b1 = sell_core.spmm_sell_ref(cols, vals, rows, x, n_rows=slabs.n_rows)
+    assert torch.equal(got, b1)
+    plain = sell_core.spmm_sell_stream_ref(cols, vals, rows, x,
+                                           n_rows=slabs.n_rows,
+                                           col_tile=chunk_rows)
+    torch.testing.assert_close(got, plain, rtol=1e-10, atol=1e-10)
+    if name in ("cage10", "giant_like"):
+        assert staged == smap.x_rows
+        multi = any(int(np.diff(p).max()) > chunk_rows for p in smap.block_ptr)
+        assert multi == (chunk_rows < max(smap.longest))
+    else:
+        assert staged >= smap.x_rows
+    if name != "cage10":     # interpret mode is slow on cage10's 11,397 rows
+        ref = np.asarray(ref_sell_core.spmm_sell_stream(
+            *_ref_args(slabs), jnp.asarray(x.numpy()), n_rows=slabs.n_rows,
+            w_block=8, k_block=4, col_tile=chunk_rows, row_tile=1,
+            interpret=True))
+        np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+def _some_buckets(slabs: F.SellSlabs, keep: slice) -> F.SellSlabs:
+    """``slabs`` with only the buckets ``keep`` names, adopted through
+    :func:`F.slabs_from_arrays`: the rows of the other buckets are named
+    by no bucket."""
+    cols, vals, rows = (a[keep] for a in (slabs.bucket_cols,
+                                          slabs.bucket_vals,
+                                          slabs.bucket_rows))
+    return F.slabs_from_arrays(types.SimpleNamespace(
+        bucket_cols=cols, bucket_vals=vals, bucket_rows=rows,
+        n_rows=slabs.n_rows, n_cols=slabs.n_cols,
+        nnz=sum(int((c != F.PAD).sum()) for c in cols), sigma=slabs.sigma))
+
+
+def test_rows_no_bucket_names_read_zero_on_the_streaming_schedule():
+    """Slabs adopted through slabs_from_arrays need not name every row
+    (here the first bucket is left out).  Such rows read 0 from the plain
+    B2, from the model of its walk (which allocates Y as the wrapper does)
+    and from ``ops`` in stream mode, as from the plain B1 and the
+    reference's streaming schedule; the other rows keep their values."""
+    full = F.csr_to_sell_slabs(F.random_csr(300, 400, 6.0, seed=11,
+                                            skew=1.2), c=8)
+    assert full.n_buckets >= 2
+    sub = _some_buckets(full, slice(1, None))
+    named = np.unique(np.concatenate([r.ravel() for r in sub.bucket_rows]))
+    unnamed = np.setdiff1d(np.arange(sub.n_rows), named)
+    assert unnamed.size
+    cols, vals, rows = sub.to_device("cpu")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((400, 3)))
+    b1 = sell_core.spmm_sell_ref(cols, vals, rows, x, n_rows=sub.n_rows)
+    plain = sell_core.spmm_sell_stream(cols, vals, rows, x,
+                                       n_rows=sub.n_rows, col_tile=64)
+    smap = F.stream_column_map(sub.bucket_cols, _block_rows(sub))
+    model, _ = _chunk_walk(cols, vals, rows, x, sub.n_rows, smap, 64)
+    via_ops = ops.spmm(sub, x.numpy(), spec=dataclasses.replace(
+        CPU, mode="stream"))
+    ref = np.asarray(ref_sell_core.spmm_sell_stream(
+        *_ref_args(sub), jnp.asarray(x.numpy()), n_rows=sub.n_rows,
+        w_block=8, k_block=4, col_tile=64, row_tile=1, interpret=True))
+    whole = sell_core.spmm_sell_ref(*full.to_device("cpu"), x,
+                                    n_rows=full.n_rows)
+    for y in (b1, plain, model, torch.as_tensor(via_ops), torch.tensor(ref)):
+        assert not y[unnamed].any()
+        torch.testing.assert_close(y[named[named < sub.n_rows]],
+                                   whole[named[named < sub.n_rows]], **TOL)
+    assert torch.equal(model, b1)
+
+
+def test_block_rows_shrink_to_fill_the_card():
+    """A block holds row_tile slices (at most 256 rows), cut in whole warps
+    down to one while the bucket gives fewer than two blocks an SM."""
+    assert STREAM_FILL_BLOCKS == 2 * 132
+    # the 2,097,152-row operand at C = 32: 8 slices a block, thousands of
+    # blocks in its big buckets, smaller blocks in its two widest
+    assert stream_block_rows(8, 32, 16_712 * 32) == 256
+    assert stream_block_rows(8, 32, 2 * 32) == 32
+    assert stream_block_rows(8, 32, 663 * 32) == 64      # 332 blocks
+    # the 8,192-row giant operand at C = 256: one slice a block would be
+    # 32 blocks; one warp a block gives 256
+    assert stream_block_rows(1, 256, 8192) == 32
+    for rows in (32, 64, 128, 256, 8192, 1 << 20):
+        got = stream_block_rows(8, 32, rows)
+        assert got % 32 == 0 and 32 <= got <= 256
+        assert got == 32 or -(-rows // got) >= STREAM_FILL_BLOCKS
+        assert got == 256 or -(-rows // (2 * got)) < STREAM_FILL_BLOCKS
+    # below a warp (row_tile 3 of C = 8) nothing is cut
+    assert stream_block_rows(3, 8, 40) == 24
+
+
+def test_ops_builds_the_column_map_once_per_operand(monkeypatch):
+    slabs = F.csr_to_sell_slabs(F.random_csr(300, 5000, 4.0, seed=1), c=32)
+    ops._prepared(slabs, torch.device("cpu"))
+    built = []
+    real = ops.stream_column_map
+    monkeypatch.setattr(ops, "stream_column_map",
+                        lambda *a: built.append(1) or real(*a))
+    rows = _block_rows(slabs)
+    meta1, map1 = ops._stream_map(slabs, rows, torch.device("cpu"))
+    meta2, map2 = ops._stream_map(slabs, rows, torch.device("cpu"))
+    assert built == [1] and map1 is map2 and meta1 is meta2
+    assert all(isinstance(t, torch.Tensor) for t in map1.lcols)
+    assert meta1.block_rows == rows and sum(meta1.listed) == map1.x_rows
+    sell_core._check_column_map(map1, tuple(
+        torch.from_numpy(c) for c in slabs.bucket_cols), rows,
+        torch.device("cpu"))
+    with pytest.raises(ValueError, match="block rows"):
+        sell_core._check_column_map(map1, tuple(
+            torch.from_numpy(c) for c in slabs.bucket_cols),
+            tuple(r * 2 for r in rows), torch.device("cpu"))
+    ops._stream_map(slabs, tuple(64 for _ in rows), torch.device("cpu"))
+    assert built == [1, 1]
+
+
+def test_stream_plan_holds_the_column_map_to_the_slabs():
+    slabs = F.csr_to_sell_slabs(F.random_csr(300, 5000, 4.0, seed=1), c=32)
+    meta = SlabMeta.from_slabs(slabs, check_bounds=True)
+    ct, rt = pick_stream_tiles(32, 8)
+    rows = stream_bucket_rows(rt, [c.shape for c in slabs.bucket_cols])
+    smap = F.stream_column_map(slabs.bucket_cols, rows)
+    good = StreamMapMeta.from_map(smap)
+    assert good.local_excess < 0 and good.col_max < 5000
+    plan = plan_spmm_sell_stream(meta, k=8, x_dtype="float64", k_block=8,
+                                 col_tile=ct, row_tile=rt, column_map=good)
+    plan.raise_if_invalid()
+    for b, longest, r in zip(plan.blocks, smap.longest, rows):
+        chunk = stream_chunk_rows(ct, longest)
+        assert chunk == min(ct, longest)
+        assert b.smem_bytes == stream_smem_bytes(chunk, 8, 8)
+        assert b.block == (r,)
+    # a local index past its block's list, a listed column past n_cols,
+    # another block size: refused before any launch
+    lcols = list(smap.lcols)
+    lcols[-1] = np.where(lcols[-1] == F.PAD, F.PAD, lcols[-1] + 10_000)
+    bad = StreamMapMeta.from_map(dataclasses.replace(smap, lcols=tuple(lcols)))
+    with pytest.raises(LaunchPlanError, match="local index"):
+        plan_spmm_sell_stream(meta, k=8, col_tile=ct, row_tile=rt,
+                              column_map=bad).raise_if_invalid()
+    lists = list(smap.block_cols)
+    lists[0] = lists[0] + 5000
+    bad = StreamMapMeta.from_map(dataclasses.replace(
+        smap, block_cols=tuple(lists)))
+    with pytest.raises(LaunchPlanError, match="out of bounds for n_cols"):
+        plan_spmm_sell_stream(meta, k=8, col_tile=ct, row_tile=rt,
+                              column_map=bad).raise_if_invalid()
+    other = dataclasses.replace(good, block_rows=tuple(
+        2 * r for r in good.block_rows))
+    with pytest.raises(LaunchPlanError, match="block rows"):
+        plan_spmm_sell_stream(meta, k=8, col_tile=ct, row_tile=rt,
+                              column_map=other).raise_if_invalid()
+
+
+def test_column_map_refuses_arrays_that_disagree():
+    """A map is checked once when it is made (a launch then only matches
+    it to its slabs): dtypes, contiguity, lane_end and block_ptr sizes."""
+    slabs = F.csr_to_sell_slabs(F.random_csr(200, 3000, 3.0, seed=6), c=16)
+    rows = _block_rows(slabs)
+    smap = F.stream_column_map(slabs.bucket_cols, rows)
+    on_cpu = smap.to_device("cpu")
+    assert on_cpu.device == torch.device("cpu") and smap.device is None
+    assert on_cpu.longest == smap.longest
+    bad = [
+        dict(block_ptr=tuple(p.astype(np.int32) for p in smap.block_ptr)),
+        dict(lcols=smap.lcols[:-1] + (smap.lcols[-1][:, ::-1, :],)),
+        dict(lane_end=tuple(e[:, :-1] for e in smap.lane_end)),
+        dict(block_rows=tuple(2 * r for r in smap.block_rows)),
+        dict(longest=smap.longest[:-1]),
+    ]
+    for change in bad:
+        with pytest.raises(ValueError, match="column map"):
+            dataclasses.replace(smap, **change)
+    assert slabs.bucket_cols[-1].shape[1] > 1
+    with pytest.raises(ValueError, match="column map arrays on"):
+        dataclasses.replace(on_cpu, lcols=tuple(
+            c.to("meta") for c in on_cpu.lcols))
