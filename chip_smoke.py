@@ -26,13 +26,20 @@ result line is printed:
               buckets at k 1, 3, 8 and 32 among them), B4 (``bfs_step``)
               and B5 (``pagerank_step``) over RMAT and uniform graphs at
               2^12 and a prime node count, C x k; B6
-              (``spmv_ell``) over C x dtype on two operands; B7
+              (``spmv_ell``) over C x dtype on two operands, packed and
+              with PAD inside rows and a warp of all-PAD rows, its live
+              widths against a host count, and its k-column form
+              (``spmm_ell``, k in 1, 2, 3, 8, 32, 33) torch.equal to the
+              column-by-column launches and within tolerance of
+              ``spmm_ell_ref``; B7
               (``fft_stockham``, the in-block and the two-pass form) over
               n x batch x dtype, and the two-pass form's tiles, each form
               reading row 0 of the twiddle tables only; B8
-              (``ssd_fused``) at mamba2-2.7b's prefill shapes (b 1 and 4)
-              and at small shapes in fp32 and fp64, from a zero and a
-              random state; B9 (``embedding_gather``) from mamba2's
+              (``ssd_fused``, three launches a call) at mamba2-2.7b's
+              prefill shapes (b 1 and 4) and three chunks at its widths,
+              and at small shapes in fp32 and fp64 (three chunks over 160
+              (b, h) planes among them), from a zero and a random state;
+              B9 (``embedding_gather``) from mamba2's
               (50,280, 2560) table at T in (1, 4, 512, 2048), fp32 and
               fp64, int32 and int64 ids on the host and on the card,
               exactly, one launch a call;
@@ -57,9 +64,11 @@ result line is printed:
               are read around the drain;
 7. ellpack  — ``ops.spmv`` on cage10 and ``ops.spmm`` (k = 32) on a
               2,097,152-row uniform operand, both as ELLPACK at C = vl =
-              256 (kernel B6, no repack), checked against the plain version
-              on the card and the host ``EllpackMatrix.matvec``; B6's
-              launch count is read around them;
+              256 (kernel B6, no repack: one launch for the vector, one
+              launch a k tile of the k-column form for the 32 columns),
+              checked against the plain version on the card and the host
+              ``EllpackMatrix.matvec``; B6's launch count is read around
+              them (1 + k tiles);
 8. stream   — the streaming schedule as a user drives it: ``ops.spmm`` with
               ``mode="stream"`` on cage10 (k = 32) and on a 8,192 x
               4,300,000 operand (k = 8), ``ops.spmv`` with it on the latter
@@ -82,7 +91,8 @@ result line is printed:
               published widths and depth (64 layers, 2.7 B parameters,
               random init from a seed) on the card; a ``Batcher(n_slots=4)``
               serves 8 requests of 512-token prompts, 16 new tokens each
-              (every prefill a chunk multiple: B8 in each layer, B9 for its
+              (every prefill a chunk multiple: B8's three launches in
+              each layer, B9 for its
               tokens and for every decode step), then one
               ``ServeEngine.generate`` on a (4, 512) batch; B8's and B9's
               launch counts are read around each drive; tokens/s, prefill
@@ -95,7 +105,12 @@ result line is printed:
               L2 flushed, beside its bound (the larger of the function's
               least bytes and its operations over the card's peak rates;
               the bytes count the rows of X that stored entries name),
-              the same bytes over the padded layout, the plain version
+              the same bytes over the padded layout (B6: also the slots
+              its live widths walk, and k = 32 as one call beside the
+              column-by-column walk and ``torch.sparse.mm`` at k = 32; B8:
+              the flops its tiles execute and the form's floor, launch 1 at
+              the CUDA cores' rate and launch 3's 3xTF32 products at the
+              tensor cores'; the goals marked met or missed), the plain version
               and, where one PyTorch call computes the same function, that
               call (``torch.sparse.mm``, ``torch.fft.fft``,
               ``torch.nn.functional.embedding``; B9 also as a launch
@@ -131,6 +146,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
 FP32_OPS = 67e12
+#: H100 SXM data sheet: dense TF32 tensor-core peak
+TF32_OPS = 495e12
 BIG = dict(n_rows=2_097_152, n_cols=2_097_152, avg_nnz_row=16.0, seed=0,
            skew=1.0)
 N_SLOTS = 32
@@ -153,6 +170,8 @@ FFT_COMPARE_BATCHES = (1, 3, 8, 13)
 ELL_BIG = dict(n_rows=2_097_152, n_cols=2_097_152, avg_nnz_row=16.0, seed=0)
 ELL_C = 256
 ELL_K = 32
+#: Column counts of B6's k-form compare cases (33: a ragged second tile)
+ELL_COMPARE_KS = (1, 2, 3, 8, 32, 33)
 #: the streaming phase's rectangular operand (the reference's
 #: tests/test_stream.py giant: X is 34 MB a column)
 GIANT = dict(n_rows=8192, n_cols=4_300_000, avg_nnz_row=2.0, seed=3)
@@ -191,6 +210,8 @@ LM_LOGIT_RTOL = 1e-4
 #: fp32 absolute part is taken relative to max(1, max|y|), since at
 #: mamba2's widths y sums 256 x 128 products and reaches |y| ~ 1e2
 SSD_TOL = {"float32": 2e-4, "float64": 1e-10}
+#: B8's time goals at the LM prefill shape, by batch (ms)
+SSD_GOAL_MS = {1: 0.40, 4: 1.2}
 #: B9 compare: ids per call (a decode step of one and of four sequences, a
 #: prefill, four prefills)
 GATHER_TS = (1, 4, 512, 2048)
@@ -1159,9 +1180,44 @@ def compare_fft(torch, np, fft_k) -> dict:
     return worst
 
 
+def live_count(np, cols):
+    """B6's live widths counted on the host: per 32 consecutive rows (row r
+    is lane r % C of slice r // C), 1 + the last slot holding a column."""
+    slots = np.arange(1, cols.shape[1] + 1)[None, :, None]
+    rows = np.where(cols != -1, slots, 0).max(axis=1).reshape(-1)
+    rows = np.pad(rows, (0, -len(rows) % 32))
+    return rows.reshape(-1, 32).max(axis=1)
+
+
+def holey_ellpack(np, F, ell, seed: int):
+    """``ell`` with PAD punched inside rows (a quarter of the slots) and the
+    rows 32 .. 63 all PAD (one warp with nothing to walk)."""
+    rng = np.random.default_rng(seed)
+    cols, vals = ell.cols.copy(), ell.vals.copy()
+    holes = rng.random(cols.shape) < 0.25
+    cols[holes] = F.PAD
+    rows = cols.transpose(0, 2, 1).reshape(-1, cols.shape[1])
+    rows[32:64] = F.PAD
+    cols = np.ascontiguousarray(rows.reshape(
+        cols.shape[0], cols.shape[2], cols.shape[1]).transpose(0, 2, 1))
+    vals = np.where(cols == F.PAD, 0, vals).astype(vals.dtype)
+    return F.EllpackMatrix(cols=cols, vals=vals, n_rows=ell.n_rows,
+                           n_cols=ell.n_cols, nnz=int((cols != F.PAD).sum()))
+
+
+def ell_tiles(k: int, itemsize: int) -> list:
+    """B6's k-form launches for k columns of X (16 B aligned)."""
+    from repro_torch.core import autotune
+
+    return autotune.ell_k_tiles(k, autotune.ell_vec(k, itemsize))
+
+
 def compare_spmv_ell(torch, np, F, spmv_k) -> float:
-    """Phase 3 (ELLPACK): B6 against spmv_ell_ref on the card; returns the
-    fp64 max error."""
+    """Phase 3 (ELLPACK): B6 against spmv_ell_ref on the card, then its
+    k-column form at ELL_COMPARE_KS against k one-column launches
+    (torch.equal) and spmm_ell_ref, on the packed operands and on copies
+    with PAD inside rows and a warp of all-PAD rows; the live widths against
+    a host count.  Returns the fp64 max error."""
     operands = {
         "cage10": lambda dt: F.cage10_like(seed=0, dtype=dt),
         "rand4093": lambda dt: F.random_csr(4093, 4093, 8.0, seed=3,
@@ -1169,31 +1225,66 @@ def compare_spmv_ell(torch, np, F, spmv_k) -> float:
     }
     rng = np.random.default_rng(5)
     worst64 = 0.0
-    n_cases = 0
+    n_cases = n_k = 0
     for dt in (np.float64, np.float32):
         for name, make in operands.items():
             csr = make(dt)
             x = torch.from_numpy(
                 rng.standard_normal(csr.n_cols).astype(dt)).to(DEVICE)
+            X = torch.from_numpy(rng.standard_normal(
+                (csr.n_cols, max(ELL_COMPARE_KS))).astype(dt)).to(DEVICE)
             for c in (8, 32, 128, 256):
-                cols, vals = F.csr_to_ellpack(csr, c=c).to_device(DEVICE)
-                got = spmv_k.spmv_ell(cols, vals, x)
-                torch.cuda.synchronize()
-                want = spmv_k.spmv_ell_ref(cols, vals, x)
-                err = max_err(got, want)
-                if dt == np.float64:
-                    tol = 1e-10
-                    worst64 = max(worst64, err)
-                else:
-                    tol = 1e-4 * float(want.abs().max())
-                if not err <= tol:
-                    raise AssertionError(f"B6 vs plain: {name} "
-                                         f"{np.dtype(dt).name} C={c}: max abs "
-                                         f"err {err} > {tol}")
-                n_cases += 1
+                packed = F.csr_to_ellpack(csr, c=c)
+                for ell in (packed, holey_ellpack(np, F, packed, c)):
+                    cols, vals = ell.to_device(DEVICE)
+                    live = spmv_k.live_widths(cols)
+                    if not np.array_equal(live.cpu().numpy(),
+                                          live_count(np, ell.cols)):
+                        raise AssertionError(f"B6 live widths: {name} C={c}")
+                    got = spmv_k.spmv_ell(cols, vals, x, live_width=live)
+                    torch.cuda.synchronize()
+                    want = spmv_k.spmv_ell_ref(cols, vals, x)
+                    err = max_err(got, want)
+                    if dt == np.float64:
+                        tol = 1e-10
+                        worst64 = max(worst64, err)
+                    else:
+                        tol = 1e-4 * float(want.abs().max())
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"B6 vs plain: {name} {np.dtype(dt).name} C={c}: "
+                            f"max abs err {err} > {tol}")
+                    n_cases += 1
+                    if c not in (32, 256):
+                        continue
+                    for k in ELL_COMPARE_KS:
+                        xk = X[:, :k].contiguous()
+                        gk = spmv_k.spmm_ell(cols, vals, xk, live_width=live)
+                        cbc = torch.stack([spmv_k.spmv_ell(
+                            cols, vals, xk[:, i].contiguous(),
+                            live_width=live) for i in range(k)], dim=1)
+                        torch.cuda.synchronize()
+                        if not torch.equal(gk, cbc):
+                            raise AssertionError(
+                                f"B6 k form != column by column: {name} "
+                                f"{np.dtype(dt).name} C={c} k={k}")
+                        wk = spmv_k.spmm_ell_ref(cols, vals, xk)
+                        err = max_err(gk, wk)
+                        tol = 1e-10 if dt == np.float64 else \
+                            1e-4 * float(wk.abs().max())
+                        if dt == np.float64:
+                            worst64 = max(worst64, err)
+                        if not err <= tol:
+                            raise AssertionError(
+                                f"B6 k form vs plain: {name} C={c} k={k}: "
+                                f"{err} > {tol}")
+                        n_k += 1
             phase("compare", f"B6 {name} {np.dtype(dt).name}: C in (8, 32, "
-                  "128, 256) within tolerance")
-    phase("compare", f"{n_cases} B6 cases ok; fp64 max abs err "
+                  "128, 256), packed and with PAD inside rows and an all-PAD "
+                  "warp, within tolerance; live widths equal the host count")
+    phase("compare", f"{n_cases} B6 cases ok; {n_k} k-form cases (k in "
+          f"{ELL_COMPARE_KS}) torch.equal to the column-by-column launches "
+          f"and within tolerance of spmm_ell_ref; fp64 max abs err "
           f"{worst64:.3e} (tol 1e-10), fp32 tol 1e-4 * max|y|")
     return worst64
 
@@ -1314,19 +1405,23 @@ def ellpack_ops_path(torch, np, F, spmv_k, ops, ExecSpec) -> dict:
     rng = np.random.default_rng(8)
     x1 = rng.standard_normal(cage.n_cols)
     xk = rng.standard_normal((big.n_cols, ELL_K))
+    tiles = len(ell_tiles(ELL_K, 8))
     torch.cuda.synchronize()
     spmv_k.KERNEL_LAUNCHES = 0
+    spmv_k.SPMM_LAUNCHES = 0
     t0 = time.perf_counter()
     y1 = ops.spmv(cage, x1, spec=spec)
     yk = ops.spmm(big, xk, spec=spec)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = spmv_k.KERNEL_LAUNCHES
-    phase("ellpack", f"spmv.KERNEL_LAUNCHES grew by {launches} (1 + "
-          f"{ELL_K} expected); ops wall {wall:.2f} s incl. bounds scan and "
-          "upload")
-    if launches != 1 + ELL_K:
-        raise AssertionError(f"B6 launches {launches} != {1 + ELL_K}")
+    launches, k_launches = spmv_k.KERNEL_LAUNCHES, spmv_k.SPMM_LAUNCHES
+    phase("ellpack", f"spmv.KERNEL_LAUNCHES grew by {launches} (1 + {tiles} "
+          f"k tile(s) of the k-column form expected, where the "
+          f"column-by-column walk made 1 + {ELL_K}); ops wall {wall:.2f} s "
+          "incl. bounds scan, upload and live widths")
+    if launches != 1 + tiles or k_launches != tiles:
+        raise AssertionError(f"B6 launches {launches} ({k_launches} of the k "
+                             f"form) != 1 + {tiles}")
     if tuple(y1.shape) != (cage.n_rows,) or \
             tuple(yk.shape) != (big.n_rows, ELL_K) or \
             not bool(torch.isfinite(yk).all()):
@@ -1334,7 +1429,7 @@ def ellpack_ops_path(torch, np, F, spmv_k, ops, ExecSpec) -> dict:
     errs = {}
     for name, ell, y, x in (("cage10", cage, y1[:, None], x1[:, None]),
                             ("uniform2m", big, yk, xk)):
-        cols, vals = ops._prepared(ell, torch.device(DEVICE))[1]
+        cols, vals, _ = ops._prepared(ell, torch.device(DEVICE))[1]
         xd = torch.from_numpy(x).to(DEVICE)
         plain = torch.stack([spmv_k.spmv_ell_ref(cols, vals, xd[:, i]
                                                  .contiguous())[:ell.n_rows]
@@ -1348,7 +1443,8 @@ def ellpack_ops_path(torch, np, F, spmv_k, ops, ExecSpec) -> dict:
         if not (err_ref <= 1e-10 and err_host <= 1e-10):
             raise AssertionError(f"{name}: ELLPACK results disagree")
         errs[name] = err_ref
-    return dict(big=big, csr=csr, launches=launches, errs=errs)
+    return dict(big=big, csr=csr, launches=launches - k_launches,
+                k_launches=k_launches, errs=errs)
 
 
 def time_fft(torch, np, fft_k, fm: dict, flush) -> list[dict]:
@@ -1411,12 +1507,16 @@ def time_fft(torch, np, fft_k, fm: dict, flush) -> list[dict]:
     return out
 
 
-def time_spmv_ell(torch, np, spmv_k, ops, em: dict, flush) -> dict:
-    """Phase 8 (ELLPACK): B6 on the 2M-row operand, one column, fp64."""
+def time_spmv_ell(torch, np, spmv_k, ops, em: dict, flush) -> list[dict]:
+    """Phase 11 (ELLPACK): B6 on the 2M-row operand, fp64, one column and
+    then ELL_K columns as one ``ops.spmm``-shaped call (the cached live
+    widths handed in), beside the column-by-column walk (ELL_K one-column
+    launches) and ``torch.sparse.mm`` at the same k."""
     big, csr = em["big"], em["csr"]
-    cols, vals = ops._prepared(big, torch.device(DEVICE))[1]
-    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
-        big.n_cols)).to(DEVICE)
+    cols, vals, live = ops._prepared(big, torch.device(DEVICE))[1]
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal(big.n_cols)).to(DEVICE)
+    X = torch.from_numpy(rng.standard_normal((big.n_cols, ELL_K))).to(DEVICE)
     a_lib = torch.sparse_csr_tensor(
         torch.from_numpy(csr.indptr),
         torch.from_numpy(csr.indices.astype(np.int64)),
@@ -1424,7 +1524,7 @@ def time_spmv_ell(torch, np, spmv_k, ops, em: dict, flush) -> dict:
     xc = x[:, None]
 
     def run():
-        return spmv_k.spmv_ell(cols, vals, x)
+        return spmv_k.spmv_ell(cols, vals, x, live_width=live)
 
     def plain():
         return spmv_k.spmv_ell_ref(cols, vals, x)
@@ -1447,21 +1547,81 @@ def time_spmv_ell(torch, np, spmv_k, ops, em: dict, flush) -> dict:
         / HBM_BYTES_PER_S * 1e3
     padded_ms = (12 * big.padded_nnz + 8 * big.n_cols + 8 * lanes) \
         / HBM_BYTES_PER_S * 1e3
+    live_h = live.cpu().numpy()
+    walked = int((live_h.astype(np.int64) * 32).sum())
+    walk_ms = (12 * walked + 8 * x_rows + 8 * lanes) / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * big.nnz / FP64_FLOPS * 1e3
-    phase("timing", f"uniform2m ELLPACK k=1: spmv_ell {ms:.4f} ms | bound "
-          f"{bytes_ms:.4f} ms (bytes; ops {ops_ms:.4f}) | padded-ELLPACK "
-          f"(width {big.width}) bytes bound {padded_ms:.4f} ms | plain "
-          f"{plain_ms:.4f} ms | torch.sparse.mm {lib_ms:.4f} ms | max abs "
-          f"err vs plain {err:.3e}, vs sparse.mm {err_lib:.3e}")
-    return {"name": "spmv_ell", "route": "cuda",
+    phase("timing", f"uniform2m ELLPACK k=1: spmv_ell {ms:.4f} ms (goal <= "
+          f"0.36: {'met' if ms <= 0.36 else 'missed'}) | bound "
+          f"{bytes_ms:.4f} ms (bytes; ops {ops_ms:.4f}) | slots walked to "
+          f"the live widths {walked} of {big.padded_nnz} stored "
+          f"({walked / big.padded_nnz:.3f}), their bytes {walk_ms:.4f} ms | "
+          f"padded-ELLPACK (width {big.width}) bytes bound {padded_ms:.4f} "
+          f"ms | plain {plain_ms:.4f} ms | torch.sparse.mm {lib_ms:.4f} ms | "
+          f"max abs err vs plain {err:.3e}, vs sparse.mm {err_lib:.3e}")
+    one = {"name": "spmv_ell", "route": "cuda",
+           "source": "src/repro_torch/csrc/spmv_ell.cu",
+           "replaces": "src/repro/kernels/spmv.py:28",
+           "launches": em["launches"], "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": lib_ms,
+           "shape": f"uniform2m ELLPACK {big.n_rows} rows nnz {big.nnz} "
+                    f"width {big.width} C={big.c} fp64, k=1"}
+
+    k = ELL_K
+    cols_x = [X[:, i].contiguous() for i in range(k)]
+
+    def run_k():
+        return spmv_k.spmm_ell(cols, vals, X, live_width=live)
+
+    def by_column():
+        return [spmv_k.spmv_ell(cols, vals, xi, live_width=live)
+                for xi in cols_x]
+
+    def plain_k():
+        return spmv_k.spmm_ell_ref(cols, vals, X)
+
+    def library_k():
+        return torch.sparse.mm(a_lib, X)
+
+    gk, wk, lk = run_k(), plain_k(), library_k()
+    cbc = torch.stack(by_column(), dim=1)
+    torch.cuda.synchronize()
+    if not torch.equal(gk, cbc):
+        raise AssertionError("B6 k form != column by column at uniform2m")
+    err_k = max_err(gk, wk)
+    err_lk = max_err(gk[:big.n_rows], lk)
+    if not (err_k <= 1e-10 and err_lk <= 1e-10):
+        raise AssertionError(f"B6 k form vs plain {err_k}, vs sparse.mm "
+                             f"{err_lk}")
+    del wk, lk, cbc
+    ms_k = time_ms(torch, run_k, flush)
+    cbc_ms = time_ms(torch, by_column, flush)
+    plain_k_ms = time_ms(torch, plain_k, flush, runs=3, warmup=1)
+    lib_k_ms = time_ms(torch, library_k, flush)
+    least = 12 * big.nnz + 8 * k * (x_rows + big.n_rows)
+    gather = 8 * k * big.nnz
+    least_ms = least / HBM_BYTES_PER_S * 1e3
+    ops_k_ms = 2 * k * big.nnz / FP64_FLOPS * 1e3
+    phase("timing", f"uniform2m ELLPACK k={k}: spmm_ell {ms_k:.4f} ms in "
+          f"{len(ell_tiles(k, 8))} launch(es) (goal <= 5: "
+          f"{'met' if ms_k <= 5 else 'missed'}) | column by column ({k} "
+          f"launches, bit-equal) {cbc_ms:.4f} ms | torch.sparse.mm "
+          f"{lib_k_ms:.4f} ms | plain {plain_k_ms:.4f} ms | least bytes "
+          f"12 nnz + 8 k (n_x + n_rows) = {least / 1e9:.3f} GB, "
+          f"{least_ms:.4f} ms | X gather bytes 8 k nnz = {gather / 1e9:.3f} "
+          f"GB, {gather / HBM_BYTES_PER_S * 1e3:.4f} ms | max abs err vs "
+          f"plain {err_k:.3e}, vs sparse.mm {err_lk:.3e}")
+    many = {"name": "spmm_ell", "route": "cuda",
             "source": "src/repro_torch/csrc/spmv_ell.cu",
             "replaces": "src/repro/kernels/spmv.py:28",
-            "launches": em["launches"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": lib_ms,
-            "shape": f"uniform2m ELLPACK {big.n_rows} rows nnz {big.nnz} "
-                     f"width {big.width} C={big.c} fp64, k=1"}
+            "launches": em["k_launches"], "max_abs_err": err_k, "ms": ms_k,
+            "plain_ms": plain_k_ms, "bound_ms": max(least_ms, ops_k_ms),
+            "bound_by": "bytes" if least_ms >= ops_k_ms else "operations",
+            "library_ms": lib_k_ms, "column_by_column_ms": cbc_ms,
+            "shape": f"uniform2m ELLPACK fp64, k={k} (one ops.spmm)"}
+    return [one, many]
 
 
 # ---------------------------------------------------------------------------
@@ -2051,14 +2211,20 @@ def lm_config(configs):
 
 def ssd_cases(cfg) -> list[tuple]:
     """B8 compare cases (b, l, h, p, g, n, chunk, dtype): the LM phase's
-    prefill shapes (b 1 and LM_SLOTS), then small shapes with two groups and
-    with l == chunk, in fp32 and fp64."""
+    prefill shapes (b 1 and LM_SLOTS) and three chunks at its widths, then
+    small shapes with two groups, with l == chunk, and with three chunks
+    over more (b, h) planes than the card has SMs, in fp32 and fp64."""
     s = cfg.ssm
     big = [(b, LM_PROMPT, cfg.n_ssm_heads, s.head_dim, s.n_groups, s.d_state,
             s.chunk, "float32") for b in (1, LM_SLOTS)]
+    three = [(1, 3 * s.chunk, cfg.n_ssm_heads, s.head_dim, s.n_groups,
+              s.d_state, s.chunk, "float32")]
     small = [(2, 64, 4, 8, 2, 16, 16, dt) for dt in ("float32", "float64")]
     small += [(1, 64, 4, 32, 2, 16, 64, dt) for dt in ("float32", "float64")]
-    return big + small
+    # three chunks over b h = 160 planes (more than the card's 132 SMs),
+    # ragged p and n tiles
+    small += [(2, 192, 80, 40, 2, 72, 64, dt) for dt in ("float32", "float64")]
+    return big + three + small
 
 
 def ssd_inputs(torch, np, b, l, h, p, g, n, dtype, seed, init=False):
@@ -2201,10 +2367,13 @@ def lm_path(torch, np, configs, M, serve, ssd_k, gather_k) -> dict:
         raise AssertionError("batcher: a request is missing, short or out of "
                              "the vocabulary")
     steps = len(batcher.decode_s)
-    if b8 != LM_REQUESTS * cfg.n_layers or b9 != LM_REQUESTS + steps:
+    per_call = ssd_k.LAUNCHES_PER_CALL
+    if b8 != LM_REQUESTS * cfg.n_layers * per_call \
+            or b9 != LM_REQUESTS + steps:
         raise AssertionError(
             f"batcher launches B8 {b8} (want {LM_REQUESTS} prefills x "
-            f"{cfg.n_layers} layers), B9 {b9} (want {LM_REQUESTS} + {steps})")
+            f"{cfg.n_layers} layers x {per_call} launches a call), B9 {b9} "
+            f"(want {LM_REQUESTS} + {steps})")
     prefill_ms = 1e3 * statistics.mean(batcher.prefill_s)
     decode_ms = 1e3 * statistics.mean(batcher.decode_s)
     phase("lm", f"Batcher(n_slots={LM_SLOTS}): {LM_REQUESTS} requests x "
@@ -2229,9 +2398,9 @@ def lm_path(torch, np, configs, M, serve, ssd_k, gather_k) -> dict:
             or out.max() >= cfg.vocab_size:
         raise AssertionError(f"engine: tokens of shape {out.shape} in "
                              f"[{out.min()}, {out.max()}]")
-    if e8 != cfg.n_layers or e9 != LM_NEW_TOKENS:
-        raise AssertionError(f"engine launches B8 {e8} (want {cfg.n_layers}), "
-                             f"B9 {e9} (want {LM_NEW_TOKENS})")
+    if e8 != cfg.n_layers * per_call or e9 != LM_NEW_TOKENS:
+        raise AssertionError(f"engine launches B8 {e8} (want {cfg.n_layers} "
+                             f"x {per_call}), B9 {e9} (want {LM_NEW_TOKENS})")
     by_rid = {r.rid: r.generated for r in done}
     same = sum(out[i].tolist() == by_rid[i] for i in range(LM_SLOTS))
     phase("lm", f"ServeEngine.generate ({LM_SLOTS}, {LM_PROMPT}): "
@@ -2309,6 +2478,8 @@ def time_lm(torch, np, ssd_k, gather_k, lm: dict, comp_err: float,
             flush) -> list[dict]:
     """Phase 11 (LM): B8 at the batcher's (b 1) and the engine's (b 4)
     prefill shapes; B9 (:func:`time_gather`)."""
+    from repro_torch.core import autotune
+
     cfg = lm["cfg"]
     s = cfg.ssm
     l, h, p, g, n, q = LM_PROMPT, cfg.n_ssm_heads, s.head_dim, s.n_groups, \
@@ -2331,18 +2502,31 @@ def time_lm(torch, np, ssd_k, gather_k, lm: dict, comp_err: float,
         plain_ms = time_ms(torch, plain, flush)
         nbytes = 4 * (2 * b * l * h * p + b * l * h + 2 * b * l * g * n
                       + b * h * p * n)
-        flops = b * h * (l // q) * (q * (q + 1) * (n + p) + 4 * q * n * p)
+        flops = autotune.ssd_flops(b, l, h, p, n, q)
+        executed = autotune.ssd_flops_executed(b, l, h, p, n, q)
+        # the built form: launch 1 on the CUDA cores, launch 3's products
+        # 3xTF32 on the tensor cores (three TF32 passes each)
+        tc = sum(v for k, v in executed.items() if k != "chunk_state")
+        floor_ms = (executed["chunk_state"] / FP32_OPS
+                    + 3 * tc / TF32_OPS) * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / FP32_OPS * 1e3
+        goal = SSD_GOAL_MS[b]
         b8.append({"b": b, "ms": ms, "plain_ms": plain_ms, "err": err,
                    "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
                    "ops_ms": ops_ms, "gflop": flops / 1e9})
         phase("timing", f"B8 ssd_fused (b, l, h, p, g, n) = {(b, l, h, p, g, n)} "
-              f"chunk {q} fp32: {ms:.4f} ms | bound {max(bytes_ms, ops_ms):.4f} "
-              f"ms (ops {ops_ms:.4f}: {flops / 1e9:.3f} GFLOP; bytes "
-              f"{bytes_ms:.4f}) | plain {plain_ms:.4f} ms | no single PyTorch "
-              f"call | max abs err y vs plain {err:.3e} | "
-              f"{flops / ms / 1e6:.1f} GFLOP/s")
+              f"chunk {q} fp32: {ms:.4f} ms in {ssd_k.LAUNCHES_PER_CALL} "
+              f"launches (goal <= {goal}: {'met' if ms <= goal else 'missed'})"
+              f" | bound {max(bytes_ms, ops_ms):.4f} ms (ops {ops_ms:.4f}: "
+              f"{flops / 1e9:.3f} GFLOP; bytes {bytes_ms:.4f}) | the form's "
+              f"floor ({sum(executed.values()) / 1e9:.3f} GFLOP executed, "
+              + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in executed.items())
+              + "; chunk_state on the CUDA cores at 67 TFLOP/s, the rest "
+              f"3xTF32, 3 x its flops at 495 TFLOP/s) {floor_ms:.4f} ms | "
+              f"plain {plain_ms:.4f} "
+              f"ms | no single PyTorch call | max abs err y vs plain "
+              f"{err:.3e} | {flops / ms / 1e6:.1f} GFLOP/s of the function")
     main = b8[0]
     ssd_rec = {"name": "ssd_fused", "route": "cuda",
                "source": "src/repro_torch/csrc/ssd_fused.cu",
@@ -2355,6 +2539,8 @@ def time_lm(torch, np, ssd_k, gather_k, lm: dict, comp_err: float,
                "library_ms": None,
                "shape": f"(b, l, h, p, g, n) = {(1, l, h, p, g, n)} chunk {q} "
                         "fp32 (a batcher prefill, one layer)",
+               "form": "launch 3 (fp32) 3xTF32 mma.sync on the tensor cores, "
+                       "launch 1 register micro-tiles on the CUDA cores",
                "b4": {k: b8[1][k] for k in ("ms", "plain_ms", "bound_ms")}}
 
     table = lm["params"].tok_embed
@@ -2607,7 +2793,7 @@ def main() -> int:
                          spmv_launches, flush)]
     kernels += graph_records(gm, time_graphs(torch, np, G, sell_core, bfs_k,
                                              pr_k, gm, flush))
-    kernels.append(time_spmv_ell(torch, np, spmv_k, ops, em, flush))
+    kernels += time_spmv_ell(torch, np, spmv_k, ops, em, flush)
     kernels += time_fft(torch, np, fft_k, fm, flush)
     kernels.append(stream_record(sm, time_stream(
         torch, np, sell_core, ops, sm, reg.get("big"), big, flush)))

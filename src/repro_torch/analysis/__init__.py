@@ -1,6 +1,7 @@
 """Static launch preflight for the port's CUDA kernels."""
 from repro_torch.analysis.launchplan import BlockPlan, LaunchPlan, LaunchPlanError
 from repro_torch.analysis.preflight import (
+    LiveWidthMeta,
     SlabMeta,
     plan_bfs_ell,
     plan_bfs_sell,
@@ -15,7 +16,8 @@ from repro_torch.analysis.preflight import (
     plan_ssd_fused,
 )
 
-__all__ = ["BlockPlan", "LaunchPlan", "LaunchPlanError", "SlabMeta",
+__all__ = ["BlockPlan", "LaunchPlan", "LaunchPlanError", "LiveWidthMeta",
+           "SlabMeta",
            "plan_bfs_ell", "plan_bfs_sell", "plan_embedding_gather",
            "plan_fft_stockham",
            "plan_moe_dispatch", "plan_pagerank_ell", "plan_pagerank_sell",

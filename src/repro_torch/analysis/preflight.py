@@ -30,8 +30,10 @@ reference's ``_plan_node_step`` there is no fast-memory footprint to
 price: the state stays in device memory and is gathered through L2.
 
 :func:`plan_spmv_ell` (kernel B6, :func:`repro_torch.kernels.spmv
-.spmv_ell`): one launch, one thread per ELLPACK row, ``grid = ceil(S * C /
-threads)``.
+.spmv_ell` / ``.spmm_ell``): at k = 1 one launch, one thread per ELLPACK
+row, ``grid = ceil(S * C / threads)``; for k columns one launch a k tile,
+a group of lanes a row; the slab's live widths checked for length and
+range.
 
 :func:`plan_fft_stockham` (kernel B7, :func:`repro_torch.kernels.fft
 .fft_stockham`): the in-block form (one launch, whole signals a block, at
@@ -42,8 +44,9 @@ launches, each block a tile of sub-signals in shared memory).
 :func:`plan_embedding_gather` (kernel B9, :func:`repro_torch.kernels
 .gather.embedding_gather`): one launch, a block per (row, chunk of the
 row); the ids that lie on the host are scanned for range.
-:func:`plan_ssd_fused` (kernel B8, :func:`repro_torch.kernels.ssd.ssd_fused`): one launch, one
-block per (b, h) plane and slice of head columns, its shared memory priced.
+:func:`plan_ssd_fused` (kernel B8, :func:`repro_torch.kernels.ssd.ssd_fused`): three
+launches of the chunk-parallel scan (chunk states, the state pass, chunk
+outputs), their grids and fixed shared memory.
 
 Checked contracts:
 
@@ -74,14 +77,19 @@ import numpy as np
 from repro_torch.analysis.launchplan import BlockPlan, LaunchPlan, is_pow2
 from repro_torch.core.autotune import (
     ACC_BYTES_PER_THREAD,
+    ELL_BLOCK_THREADS,
+    ELL_LIVE_ROWS,
     KERNEL_DTYPES,
     MAX_K_TILE,
     NODE_STEP_BLOCK_THREADS,
     SMEM_PER_BLOCK,
     SPMM_BLOCK_THREADS,
     SSD_BLOCK_THREADS,
+    SSD_LAUNCHES,
     STREAM_FILL_BLOCKS,
     WARP,
+    ell_k_tiles,
+    ell_vec,
     fft_block_limit,
     fft_block_radix,
     fft_block_signals,
@@ -93,13 +101,14 @@ from repro_torch.core.autotune import (
     gather_grid,
     node_split,
     spmm_split,
-    ssd_p_block,
+    ssd_grids,
     ssd_smem_bytes,
     stream_smem_bytes,
 )
 from repro_torch.sparse.formats import PAD, pow2_ceil
 
 __all__ = [
+    "LiveWidthMeta",
     "SlabMeta",
     "StreamMapMeta",
     "gather_ids_violation",
@@ -645,11 +654,41 @@ def plan_pagerank_ell(meta: SlabMeta, dtype: str = "float64") -> LaunchPlan:
 # ---------------------------------------------------------------------------
 
 
-def plan_spmv_ell(meta: SlabMeta, *, dtype: str | None = None) -> LaunchPlan:
-    """Plan one ``spmv_ell`` launch for an x of ``dtype`` against this
-    ELLPACK matrix (:meth:`SlabMeta.from_ellpack`).  With a bounds-scanned
-    meta every stored column must be PAD or lie in ``[0, n_cols)``: the
-    kernel gathers ``x[col]`` unchecked."""
+@dataclasses.dataclass(frozen=True)
+class LiveWidthMeta:
+    """What the B6 plan needs of a slab's live-width array
+    (:func:`repro_torch.kernels.spmv.live_widths`): its length and range,
+    read once per operand (``ops`` caches it beside the tensors)."""
+
+    n: int
+    lo: int
+    hi: int
+
+    @classmethod
+    def from_array(cls, live) -> "LiveWidthMeta":
+        """From a numpy array or a tensor (a card tensor is read back
+        once)."""
+        arr = np.asarray(live.cpu() if hasattr(live, "cpu") else live)
+        if arr.size == 0:
+            return cls(0, 0, 0)
+        return cls(int(arr.size), int(arr.min()), int(arr.max()))
+
+
+def plan_spmv_ell(meta: SlabMeta, *, dtype: str | None = None, k: int = 1,
+                  live: LiveWidthMeta | None = None) -> LaunchPlan:
+    """Plan ``spmv_ell`` (k = 1) or ``spmm_ell`` (k columns) for an x of
+    ``dtype`` against this ELLPACK matrix (:meth:`SlabMeta.from_ellpack`).
+
+    k = 1: one launch, one thread a row, ``grid = ceil(S * C / threads)``.
+    k > 1: one launch of the k-column form per k tile
+    (:func:`~repro_torch.core.autotune.ell_k_tiles`, at 16 B of columns a
+    lane), groups of lanes a row, ``grid = ceil(S * C / (threads /
+    group))``, each tile as wide as one warp's lanes hold.  With a
+    bounds-scanned meta every
+    stored column must be PAD or lie in ``[0, n_cols)``: the kernel gathers
+    ``x[col]`` unchecked.  ``live`` (the slab's live widths) must hold one
+    entry per 32 rows, each in ``[0, W]``: the kernel walks each warp's
+    rows up to it and reads no slot past it."""
     violations: list[str] = []
     if meta.kind != "ellpack":
         violations.append(f"spmv_ell needs an ELLPACK matrix, got {meta.kind}")
@@ -660,22 +699,46 @@ def plan_spmv_ell(meta: SlabMeta, *, dtype: str | None = None) -> LaunchPlan:
     if dtype is not None and dtype != meta.val_dtype:
         violations.append(
             f"x dtype {dtype} != ELLPACK value dtype {meta.val_dtype}")
-    threads = SPMM_BLOCK_THREADS
+    threads = ELL_BLOCK_THREADS
     (s,), (w,) = meta.n_slices, meta.widths
-    grid_x = math.ceil(s * meta.c / threads)
-    if grid_x > MAX_GRID_X:
-        violations.append(f"grid.x {grid_x} > {MAX_GRID_X}")
-    block = BlockPlan(
-        label=f"ell[W={w}]", grid=(grid_x,), block=(threads,),
-        operands=(
-            ("cols", (s, w, meta.c), meta.idx_dtype),
-            ("vals", (s, w, meta.c), meta.val_dtype),
-            ("x", (meta.n_cols,), dtype or meta.val_dtype),
-            ("y", (s * meta.c,), meta.val_dtype),
-        ))
-    return LaunchPlan(kernel="spmv_ell", operand=meta.describe(),
-                      dtype=meta.val_dtype, blocks=(block,),
-                      violations=tuple(violations))
+    lanes = s * meta.c
+    if live is not None:
+        want = -(-lanes // ELL_LIVE_ROWS)
+        if live.n != want:
+            violations.append(f"live widths hold {live.n} entries, want "
+                              f"{want} (one per {ELL_LIVE_ROWS} rows)")
+        if live.n and (live.lo < 0 or live.hi > w):
+            violations.append(f"live widths in [{live.lo}, {live.hi}] "
+                              f"outside [0, W={w}]")
+    vdt = dtype or meta.val_dtype
+    itemsize = int(np.dtype(vdt).itemsize) if vdt in KERNEL_DTYPES else 8
+    live_op = ("live", (-(-lanes // ELL_LIVE_ROWS),), "int32")
+    slab = (("cols", (s, w, meta.c), meta.idx_dtype),
+            ("vals", (s, w, meta.c), meta.val_dtype))
+    blocks = []
+    if k < 1:
+        violations.append(f"k must be >= 1, got {k}")
+    elif k == 1:
+        grid_x = math.ceil(lanes / threads)
+        if grid_x > MAX_GRID_X:
+            violations.append(f"grid.x {grid_x} > {MAX_GRID_X}")
+        blocks.append(BlockPlan(
+            label=f"ell[W={w}]", grid=(grid_x,), block=(threads,),
+            operands=slab + (live_op, ("x", (meta.n_cols,), vdt),
+                             ("y", (lanes,), meta.val_dtype))))
+    else:
+        for k0, kt, group in ell_k_tiles(k, ell_vec(k, itemsize)):
+            grid_x = math.ceil(lanes / (threads // group))
+            if grid_x > MAX_GRID_X:
+                violations.append(f"grid.x {grid_x} > {MAX_GRID_X}")
+            blocks.append(BlockPlan(
+                label=f"ell[W={w}, cols {k0}:{k0 + kt}, group={group}]",
+                grid=(grid_x,), block=(threads,),
+                operands=slab + (live_op, ("X", (meta.n_cols, k), vdt),
+                                 ("Y", (lanes, k), meta.val_dtype))))
+    return LaunchPlan(kernel="spmv_ell" if k == 1 else "spmm_ell",
+                      operand=meta.describe(), dtype=meta.val_dtype,
+                      blocks=tuple(blocks), violations=tuple(violations))
 
 
 # ---------------------------------------------------------------------------
@@ -842,14 +905,15 @@ def plan_ssd_fused(b: int, l: int, h: int, p: int, g: int, n: int, *,
     """Plan ``ssd_fused`` for xd (b, l, h, p), ad (b, l, h) and B, C
     (b, l, g, n).
 
-    One launch, one block per (b, h) plane and slice of ``p_block`` head
-    columns (:func:`~repro_torch.core.autotune.ssd_p_block`): ``grid = (b *
-    h, p / p_block)``, ``SSD_BLOCK_THREADS`` threads, the chunk loop inside
-    the block.  Refused: a sequence that is not a whole number of chunks
-    (``ssd.py:69``), heads that groups do not divide, and a block whose
-    shared memory (:func:`~repro_torch.core.autotune.ssd_smem_bytes`:
-    carried state, one tile each of C, B, x, the decay product and y)
-    exceeds :data:`SMEM_PER_BLOCK`.
+    Three launches (:func:`~repro_torch.core.autotune.ssd_grids`,
+    ``SSD_BLOCK_THREADS`` threads each): ``chunk_state``, a block per
+    (b, h, chunk) and 64 x 64 tile of the state; ``state_pass``, a thread
+    per state entry; ``chunk_output``, a block per (b, h, chunk) and 64-row
+    query tile.  Their shared memory is fixed
+    (:func:`~repro_torch.core.autotune.ssd_smem_bytes`: 55 KB at most in
+    fp32, 105 KB in fp64), so no shape is refused for it.  Refused: a
+    sequence that is not a whole number of chunks (``ssd.py:69``), heads
+    that groups do not divide, and grids past CUDA's limits.
     """
     violations: list[str] = []
     if min(b, l, h, p, g, n) < 1:
@@ -865,23 +929,35 @@ def plan_ssd_fused(b: int, l: int, h: int, p: int, g: int, n: int, *,
     if dtype not in KERNEL_DTYPES:
         violations.append(f"ssd dtype {dtype} is not float32 or float64")
     itemsize = int(np.dtype(dtype).itemsize) if dtype in KERNEL_DTYPES else 8
-    pb = ssd_p_block(b, h, p) if min(b, h, p) >= 1 else max(p, 1)
-    smem = ssd_smem_bytes(max(chunk, 1), pb, max(n, 1), itemsize)
-    if smem > SMEM_PER_BLOCK:
-        violations.append(f"{smem} B of shared memory a block > "
-                          f"{SMEM_PER_BLOCK} (chunk {chunk}, {pb} head "
-                          f"columns, d_state {n})")
-    grid = (max(b * h, 1), max(p // pb, 1))
-    if grid[0] > MAX_GRID_X:
-        violations.append(f"grid.x {grid[0]} > {MAX_GRID_X}")
-    block = BlockPlan(
-        label=f"planes[p_block={pb}]", grid=grid, block=(SSD_BLOCK_THREADS,),
-        operands=(("xd", (b, l, h, p), dtype), ("ad", (b, l, h), dtype),
-                  ("B", (b, l, g, n), dtype), ("C", (b, l, g, n), dtype),
-                  ("y", (b, l, h, p), dtype), ("state", (b, h, p, n), dtype)),
-        smem_bytes=smem)
+    ext = [max(int(v), 1) for v in (b, l, h, p, n, chunk)]
+    grids = ssd_grids(*ext)
+    nc = ext[1] // ext[5]
+    scratch = (("cum", (b, h, l), dtype), ("states", (b, h, nc, p, n), dtype))
+    entering = ("entering", (b, h, nc, p, n), dtype)
+    io = {"xd": ("xd", (b, l, h, p), dtype), "ad": ("ad", (b, l, h), dtype),
+          "B": ("B", (b, l, g, n), dtype), "C": ("C", (b, l, g, n), dtype),
+          "y": ("y", (b, l, h, p), dtype),
+          "state": ("state", (b, h, p, n), dtype)}
+    operands = {
+        "chunk_state": (io["xd"], io["ad"], io["B"]) + scratch,
+        "state_pass": scratch + (entering, io["state"]),
+        "chunk_output": (io["xd"], io["B"], io["C"], scratch[0], entering,
+                         io["y"]),
+    }
+    blocks = []
+    for launch in SSD_LAUNCHES:
+        grid = grids[launch]
+        if grid[0] > MAX_GRID_X:
+            violations.append(f"{launch}: grid.x {grid[0]} > {MAX_GRID_X}")
+        if any(d > MAX_GRID_Y for d in grid[1:]):
+            violations.append(f"{launch}: grid {grid} past {MAX_GRID_Y} in "
+                              "y or z")
+        blocks.append(BlockPlan(
+            label=launch, grid=grid, block=(SSD_BLOCK_THREADS,),
+            operands=operands[launch],
+            smem_bytes=ssd_smem_bytes(launch, itemsize)))
     return LaunchPlan(kernel="ssd_fused",
                       operand=f"ssd b={b} l={l} h={h} p={p} g={g} n={n} "
                               f"chunk={chunk}",
-                      dtype=dtype, blocks=(block,),
+                      dtype=dtype, blocks=tuple(blocks),
                       violations=tuple(violations))

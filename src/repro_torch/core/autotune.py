@@ -320,12 +320,63 @@ GATHER_MAX_THREADS = 256
 #: Bytes one B9 thread copies: four 16 B loads in flight before it stores
 #: (eight 8 B or sixteen 4 B loads where the rows allow no wider vector).
 GATHER_THREAD_BYTES = 64
-#: Threads per block of the fused SSD scan (B8).
+#: Threads per block of B6, both forms (the best of 128 / 256 / 512 at the
+#: 2,097,152-row operand on an H100: ``scripts/b6_variants.py``).
+ELL_BLOCK_THREADS = 128
+#: Bytes of a row's columns one lane of B6's k-column form holds (and
+#: gathers from X in one load): 2 fp64 or 4 fp32 values.
+ELL_LANE_BYTES = 16
+#: Rows B6's live-width array covers an entry: one warp of the k = 1 body.
+ELL_LIVE_ROWS = WARP
+
+
+def ell_vec(k: int, itemsize: int, aligned: bool = True) -> int:
+    """Columns one lane of B6's k-column form holds: 16 B
+    (:data:`ELL_LANE_BYTES`) when X's rows of ``k`` values keep every
+    lane's piece 16 B aligned (``aligned``: X's base is), else 1."""
+    v = ELL_LANE_BYTES // int(itemsize)
+    return v if aligned and int(k) % v == 0 else 1
+
+
+def ell_max_k_tile(vec: int) -> int:
+    """Widest k tile of one B6 k-form launch: a group of at most one warp's
+    lanes, each ``vec`` columns, so a lane's accumulators and its unrolled
+    X pieces stay within its registers."""
+    return WARP * int(vec)
+
+
+def ell_k_tiles(k: int, vec: int) -> list[tuple[int, int, int]]:
+    """The launches of B6's k-column form for ``k`` columns: ``(k0, kt,
+    group)`` each, columns ``[k0, k0 + kt)`` served by groups of ``group``
+    lanes a row (the power of two covering ``kt / vec`` lanes).  Tiles of
+    :func:`ell_max_k_tile` columns, the last one ragged: k = 32 fp64 is one
+    launch of 16-lane groups, k = 33 (odd, so one column a lane) a 32-lane
+    launch and a 1-lane one."""
+    tile = ell_max_k_tile(vec)
+    tiles = []
+    for k0 in range(0, int(k), tile):
+        kt = min(tile, int(k) - k0)
+        tiles.append((k0, kt, pow2_ceil(-(-kt // int(vec)))))
+    return tiles
+
+
+#: Threads per block of the SSD scan's launches (B8): 16 x 16, each a
+#: 4 x 4 register tile of a 64 x 64 output tile.
 SSD_BLOCK_THREADS = 256
-#: Query and key rows of one (i, j) tile of the SSD chunk's decay product:
-#: the (q, q) matrix of a 256-row chunk (256 KB at fp32) never fits a
-#: block, a (32, 32) tile does.
-SSD_TILE = 32
+#: Rows and columns of one B8 output tile: query rows and key rows of the
+#: C Bᵀ tile, head columns of y and of the state, state columns.
+SSD_TILE = 64
+#: k rows one B8 product stages through shared memory a step (of n, or of
+#: a chunk's rows): one warp's scan segment.
+SSD_K_CHUNK = 32
+#: Rows of a chunk B8's block scan covers at once (one a thread).
+SSD_SCAN_ROWS = 256
+#: Blocks of each B8 launch an SM is guaranteed to hold (the kernels'
+#: launch bound caps registers at 65,536 / (256 x 2) a thread).
+SSD_MIN_BLOCKS_SM = 2
+#: Launches of one ``ssd_fused`` call on the card: chunk states, the
+#: state pass over the chunks, chunk outputs.
+SSD_LAUNCHES = ("chunk_state", "state_pass", "chunk_output")
 
 
 def gather_grid(t: int, row_bytes: int) -> tuple[int, int]:
@@ -345,27 +396,93 @@ def gather_grid(t: int, row_bytes: int) -> tuple[int, int]:
     return -(-warps_row // warps), warps * WARP
 
 
-def ssd_p_block(b: int, h: int, p: int) -> int:
-    """Head columns one B8 block carries: all ``p`` when the (b, h) planes
-    fill the card, else halved (the decay tile recomputed per half) until
-    the grid reaches :data:`SM_COUNT` blocks or a half would drop below a
-    warp.  Columns never change the arithmetic of an output element."""
-    pb = p
-    while b * h * (p // pb) < SM_COUNT and pb % 2 == 0 and pb // 2 >= WARP:
-        pb //= 2
-    return pb
+def _tiles(x: int, t: int = SSD_TILE) -> int:
+    return -(-int(x) // t)
 
 
-def ssd_smem_bytes(chunk: int, p_block: int, n: int, itemsize: int) -> int:
-    """Dynamic shared memory of one B8 block: the chunk's cumulative decay
-    (q), the carried state (p_block, n + 1), one query tile of C and one
-    key tile of B ((SSD_TILE, n + 1) each, rows padded a bank), one key
-    tile of x (SSD_TILE, p_block), the decay-weighted tile of C Bᵀ
-    (SSD_TILE, SSD_TILE + 1) and the output tile (SSD_TILE, p_block)."""
-    t = SSD_TILE
-    elems = (chunk + p_block * (n + 1) + 2 * t * (n + 1) + t * p_block
-             + t * (t + 1) + t * p_block)
-    return elems * itemsize
+def ssd_grids(b: int, l: int, h: int, p: int, n: int,
+              chunk: int) -> dict[str, tuple[int, ...]]:
+    """Grids of B8's three launches: ``chunk_state`` one block per (b, h,
+    chunk) and 64 x 64 tile of the (p, n) state; ``state_pass`` one thread
+    per (b, h, p, n) entry, a block per (b, h) and 256 entries; ``chunk_output``
+    one block per (b, h, chunk) and 64-row query tile.  At mamba2's prefill
+    (b 1: h 80, p 64, n 128, l 512, chunk 256) that is (160, 1, 2), (80,
+    32) and (160, 4)."""
+    planes = int(b) * int(h) * (int(l) // max(int(chunk), 1))
+    return {
+        "chunk_state": (planes, _tiles(p), _tiles(n)),
+        "state_pass": (int(b) * int(h), _tiles(int(p) * int(n),
+                                               SSD_BLOCK_THREADS)),
+        "chunk_output": (planes, _tiles(chunk)),
+    }
+
+
+def ssd_smem_bytes(launch: str, itemsize: int) -> int:
+    """Dynamic shared memory of one block of a B8 launch, the same whatever
+    the shape: both tiled launches stage their operands in two stages of
+    two (32, 68) tiles; ``chunk_state`` adds a 256-row segment's cum and
+    decays and the 8 warp totals of its scan; ``chunk_output`` the (64, 68)
+    decay-weighted C Bᵀ tile and 2 x 64 cum values (its x tile reuses a
+    stage; in fp32, its tensor-core form, the stages hold row-major (64,
+    36) tiles); ``state_pass`` none.  fp32: 37 KB and 55 KB; fp64: 74 KB
+    and 105 KB."""
+    lds = SSD_TILE + 4
+    stages = 2 * 2 * SSD_K_CHUNK * lds
+    if launch == "chunk_output" and int(itemsize) == 4:
+        # the tensor-core form: row-major (64, 36) operand tiles
+        stages = 2 * 2 * SSD_TILE * (SSD_K_CHUNK + 4)
+    elems = {"chunk_state": stages + 2 * SSD_SCAN_ROWS
+             + SSD_BLOCK_THREADS // WARP,
+             "state_pass": 0,
+             "chunk_output": stages + SSD_TILE * lds + 2 * SSD_TILE}[launch]
+    return elems * int(itemsize)
+
+
+def ssd_warps_per_sm(grid: tuple[int, ...], smem_bytes: int) -> int:
+    """Warps every SM holds at once in a B8 launch of ``grid``: its blocks
+    a wave spread over :data:`SM_COUNT` SMs, at most
+    :data:`SSD_MIN_BLOCKS_SM` each (the launch bound's guarantee) and as
+    many as the shared memory allows.  mamba2's prefill at b 1: 16 in both
+    tiled launches."""
+    blocks = 1
+    for g in grid:
+        blocks *= int(g)
+    fit = SMEM_PER_BLOCK // max(int(smem_bytes), 1)
+    per_sm = min(SSD_MIN_BLOCKS_SM, fit, blocks // SM_COUNT)
+    return per_sm * (SSD_BLOCK_THREADS // WARP)
+
+
+def ssd_flops(b: int, l: int, h: int, p: int, n: int, chunk: int) -> int:
+    """Operations of the scan's function: per (b, h) and chunk, q(q+1)/2
+    entries of C Bᵀ (n multiply-adds each) and of its product with x (p
+    each), the chunk's state (q n p) and the carried-state term (q n p),
+    two operations a multiply-add.  mamba2's prefill at b 1: 3.363 GFLOP."""
+    q = int(chunk)
+    per = q * (q + 1) * (int(n) + int(p)) + 4 * q * int(n) * int(p)
+    return int(b) * int(h) * (int(l) // q) * per
+
+
+def ssd_flops_executed(b: int, l: int, h: int, p: int, n: int, chunk: int,
+                       init: bool = False) -> dict[str, int]:
+    """Operations B8's launches execute, tiles padded: ``chunk_state``
+    (64-padded p and n, 32-padded chunk rows), ``state_term`` (the
+    carried-state product, skipped for chunk 0 without an initial state),
+    ``cb`` (the C Bᵀ tiles on and below the diagonal, each once) and
+    ``gx`` (their products with x)."""
+    q, nc = int(chunk), int(l) // int(chunk)
+    t, kc = SSD_TILE, SSD_K_CHUNK
+    pp, nn = _tiles(p) * t, _tiles(n) * t
+    nk = _tiles(n, kc) * kc
+    qk, r = _tiles(q, kc) * kc, _tiles(q)
+    tri = r * (r + 1) // 2
+    planes = int(b) * int(h)
+    state_chunks = nc if init else nc - 1
+    return {
+        "chunk_state": planes * nc * 2 * qk * pp * nn,
+        "state_term": planes * state_chunks * 2 * r * t * nk * pp,
+        "cb": planes * nc * tri * 2 * t * t * nk,
+        "gx": planes * nc * tri * 2 * t * t * pp,
+    }
 
 
 #: Most columns one pass-A block of the two-pass FFT holds (the tile T):

@@ -69,8 +69,15 @@ KERNELS = {
         "repro_graph_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
     "spmv_ell": ("spmv_ell.cu", {
-        # cols, vals, x, y, n_slices, width, c, threads, is_double, stream
-        "repro_spmv_ell": ([_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P], _I),
+        # cols, vals, x, y, live, n_slices, width, c, threads, is_double,
+        # stream
+        "repro_spmv_ell": (
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P], _I),
+        # cols, vals, X, Y, live, n_slices, width, c, ld, k0, kt, group,
+        # vec, threads, is_double, stream
+        "repro_spmm_ell": (
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _I,
+             _I, _P], _I),
         "repro_spmv_ell_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
     "fft_stockham": ("fft_stockham.cu", {
@@ -86,11 +93,18 @@ KERNELS = {
         "repro_fft_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
     "ssd_fused": ("ssd_fused.cu", {
-        # xd, ad, B, C, init (nullable), y, fstate, b, l, h, p, g, n, chunk,
-        # p_block, threads, is_double, stream
-        "repro_ssd_fused": (
-            [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _I,
-             _I, _I, _P], _I),
+        # xd, ad, B, cum, states, b, l, h, p, g, n, chunk, is_double, stream
+        "repro_ssd_chunk_state": (
+            [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _I, _P], _I),
+        # states, entering, cum, init (nullable), fstate, b, l, h, p, n,
+        # chunk, is_double, stream
+        "repro_ssd_state_pass": (
+            [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _P], _I),
+        # xd, B, C, cum, states, has_init, y, b, l, h, p, g, n, chunk,
+        # is_double, stream
+        "repro_ssd_chunk_output": (
+            [_P, _P, _P, _P, _P, _I, _P, _I64, _I64, _I, _I, _I, _I, _I, _I,
+             _P], _I),
         "repro_ssd_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
     "embedding_gather": ("embedding_gather.cu", {

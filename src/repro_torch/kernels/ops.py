@@ -15,7 +15,8 @@ kernels:
   column tiles (``spec.col_tile`` / ``spec.row_tile`` override the picked
   tiles).  An :class:`EllpackMatrix` whose slice height equals ``spec.vl``
   runs the uniform-width kernel B6 instead
-  (:func:`repro_torch.kernels.spmv.spmv_ell`, one launch per RHS column),
+  (:func:`repro_torch.kernels.spmv.spmv_ell` for one column,
+  :func:`~repro_torch.kernels.spmv.spmm_ell` for k: one launch a k tile),
   one of another height is repacked to SELL slabs;
 * ``moe_dispatch`` — Y = R @ X for an MoE routing matrix: packed to SELL
   slabs at ``spec.vl`` and run through the same dispatch as ``spmm``
@@ -55,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.preflight import (
+    LiveWidthMeta,
     SlabMeta,
     StreamMapMeta,
     plan_bfs_ell,
@@ -190,16 +192,20 @@ def _run_profiled(op: str, plan, thunk, device: torch.device):
 
 
 #: id(operand) -> {"meta": bounds-scanned SlabMeta, device: uploaded
-#: tensors}, for SELL slabs and ELLPACK matrices.  Packed operands are
-#: immutable, so one operand's index scan and uploads are paid once however
-#: often it is called, whichever schedule runs it; an entry dies with its
-#: object.
+#: tensors}, for SELL slabs and ELLPACK matrices (an ELLPACK matrix's
+#: tensors also hold its live widths on that device, and the entry
+#: ``"live"`` their length and range).  Packed operands are immutable, so
+#: one operand's index scan and uploads are paid once however often it is
+#: called, whichever schedule runs it; an entry dies with its object.
 _PREPARED: dict[int, dict] = {}
 
 
 def _prepared(operand: SellSlabs | EllpackMatrix, device: torch.device):
     """The bounds-scanned metadata of ``operand`` and its tensors on
-    ``device``, computed at the first call on this object."""
+    ``device``, computed at the first call on this object: ``(cols, vals,
+    rows)`` bucket tuples for slabs, ``(cols, vals, live)`` for an
+    ELLPACK matrix, ``live`` its :func:`repro_torch.kernels.spmv
+    .live_widths` computed on ``device``."""
     entry = _PREPARED.get(id(operand))
     if entry is None:
         meta = (SlabMeta.from_ellpack(operand, check_bounds=True)
@@ -209,7 +215,13 @@ def _prepared(operand: SellSlabs | EllpackMatrix, device: torch.device):
         _PREPARED[id(operand)] = entry
         weakref.finalize(operand, _PREPARED.pop, id(operand), None)
     if device not in entry:
-        entry[device] = operand.to_device(device)
+        tensors = operand.to_device(device)
+        if isinstance(operand, EllpackMatrix):
+            live = spmv_k.live_widths(tensors[0])
+            if "live" not in entry:
+                entry["live"] = LiveWidthMeta.from_array(live)
+            tensors = (*tensors, live)
+        entry[device] = tensors
     return entry["meta"], entry[device]
 
 
@@ -305,22 +317,30 @@ def _check_mode(mode: str) -> None:
         raise ValueError(f"unknown mode {mode!r}: expected one of {_SPMM_MODES}")
 
 
-def _spmv_ellpack(ell: EllpackMatrix, x: torch.Tensor,
+def _spmm_ellpack(ell: EllpackMatrix, x: torch.Tensor,
                   spec: ExecSpec) -> torch.Tensor:
-    """One ELLPACK SpMV through kernel B6 on x's device, trimmed to
-    n_rows.  The column bounds scan and the upload happen once per matrix
-    object (:func:`_prepared`); the plan refuses a stored column outside
-    ``[PAD, n_cols)`` before the kernel gathers it."""
+    """Y = A @ X through kernel B6 on X's device for X (n_cols, k), trimmed
+    to n_rows: at k = 1 its one-column body, else its k-column form, one
+    launch a k tile.  The column bounds scan, the upload and the live
+    widths happen once per matrix object (:func:`_prepared`); the plan
+    refuses a stored column outside ``[PAD, n_cols)`` or a live-width array
+    of the wrong length or range before the kernel reads them."""
     if spec.mode == "stream":
         raise ValueError(
             "mode='stream' requires a SELL slab layout; ELLPACK operands "
             "only run the resident uniform-width kernel")
-    meta, (cols, vals) = _prepared(ell, x.device)
+    meta, (cols, vals, live) = _prepared(ell, x.device)
+    k = int(x.shape[1])
     plan = plan_spmv_ell(
-        meta, dtype=str(x.dtype).removeprefix("torch.")).raise_if_invalid()
-    w_block = max(min(spec.w_block, ell.width), 1)
-    return _run_profiled("spmv", plan, lambda: spmv_k.spmv_ell(
-        cols, vals, x, w_block=w_block)[:ell.n_rows], x.device)
+        meta, dtype=str(x.dtype).removeprefix("torch."), k=k,
+        live=_PREPARED[id(ell)]["live"]).raise_if_invalid()
+    if k == 1:
+        w_block = max(min(spec.w_block, ell.width), 1)
+        return _run_profiled("spmv", plan, lambda: spmv_k.spmv_ell(
+            cols, vals, x[:, 0].contiguous(), w_block=w_block,
+            live_width=live)[:ell.n_rows, None], x.device)
+    return _run_profiled("spmm", plan, lambda: spmv_k.spmm_ell(
+        cols, vals, x, live_width=live)[:ell.n_rows], x.device)
 
 
 def spmm(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
@@ -331,10 +351,10 @@ def spmm(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
     the whole RHS stack runs as one launch set.  ``spec.k_block`` defaults
     to the power of two covering k, capped at 8 — pass the co-tuned
     :attr:`SellTuneResult.k_block` for the register-fitted value.  An
-    :class:`EllpackMatrix` at ``C == spec.vl`` runs the stack column by
-    column through kernel B6 (the paper's baseline; the SELL path is the
-    batched one).  Returns Y of shape (n_rows, k) as a tensor on
-    ``spec.device``.
+    :class:`EllpackMatrix` at ``C == spec.vl`` runs kernel B6 (the paper's
+    baseline): its k-column form, one launch a k tile (k = 32 is one
+    launch), each column bit-equal to a one-column B6 walk.  Returns Y of
+    shape (n_rows, k) as a tensor on ``spec.device``.
     """
     spec = spec if spec is not None else ExecSpec()
     device = resolve_device(spec.device)
@@ -349,8 +369,7 @@ def spmm(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
     if isinstance(matrix, SellSlabs):
         return _spmm_slabs(matrix, x, k_block=kb, mode=spec.mode,
                            col_tile=spec.col_tile, row_tile=spec.row_tile)
-    return torch.stack([_spmv_ellpack(matrix, x[:, i].contiguous(), spec)
-                        for i in range(x.shape[1])], dim=1)
+    return _spmm_ellpack(matrix, x, spec)
 
 
 def spmv(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
@@ -378,7 +397,7 @@ def spmv(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
         return _spmm_slabs(matrix, x[:, None], k_block=1, mode=spec.mode,
                            col_tile=spec.col_tile,
                            row_tile=spec.row_tile)[:, 0]
-    return _spmv_ellpack(matrix, x, spec)
+    return _spmm_ellpack(matrix, x[:, None], spec)[:, 0]
 
 
 # ---------------------------------------------------------------------------

@@ -7,33 +7,45 @@ computes ``y = (C Bᵀ ∘ L) x + e^{cum} · C stateᵀ`` with the causal decay
 ``state = state · e^{cum_last} + Σ_j e^{cum_last - cum_j} x_j ⊗ B_j`` into
 the next chunk.  Heads share B and C per group (``h / g`` heads a group).
 
-* :func:`ssd_fused` — the wrapper.  It plans the launch
+* :func:`ssd_fused` — the wrapper.  It plans the launches
   (:func:`repro_torch.analysis.preflight.plan_ssd_fused`: whole chunks,
-  groups dividing heads, shared memory); on CUDA tensors it launches
-  ``csrc/ssd_fused.cu`` (one block per (b, h) plane and slice of head
-  columns, the chunk loop inside the block) or raises; on CPU tensors, and
+  groups dividing heads, grid limits); on CUDA tensors it launches
+  ``csrc/ssd_fused.cu`` in its chunk-parallel form, three launches a call
+  (:data:`LAUNCHES_PER_CALL`: each chunk's local state, a pass over the
+  chunks that carries the state, each chunk's output by 64-row query
+  tiles, in fp32 on the tensor cores), or raises; on CPU tensors, and
   only there, it runs :func:`ssd_fused_ref`.
 * :func:`ssd_fused_ref` — the plain PyTorch version: a loop over chunks in
   the TPU kernel body's order (``ssd.py:26-53``), batched over (b, h).
+* :func:`ssd_chunk_parallel_model` — the kernel's decomposition in plain
+  PyTorch (the segmented cum, the chunk states, the carry, the query and
+  key tiles on and below the diagonal), to test the decomposition on the
+  CPU against the reference.
 
-Beyond the reference's ``ssd_fused`` both take an optional ``init_state``
+Beyond the reference's ``ssd_fused`` all take an optional ``init_state``
 (b, h, p, n), the contract of ``repro.models.ssm.ssd_chunked``, which the
 model calls; with ``None`` the scan starts from zero, as ``ssd_fused`` does.
-Accumulation is in promote(xd, float32): y comes back in xd's dtype, the
-final state in the accumulation dtype.
+Accumulation is in promote(xd, float32), the carried state included: y
+comes back in xd's dtype, the final state in the accumulation dtype.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.analysis.preflight import plan_ssd_fused
-from repro_torch.core.autotune import SSD_BLOCK_THREADS, ssd_p_block
+from repro_torch.core.autotune import SSD_LAUNCHES, SSD_SCAN_ROWS, SSD_TILE
 
-__all__ = ["KERNEL_LAUNCHES", "segsum", "ssd_fused", "ssd_fused_ref"]
+__all__ = ["KERNEL_LAUNCHES", "LAUNCHES_PER_CALL", "segsum",
+           "ssd_chunk_parallel_model", "ssd_fused", "ssd_fused_ref"]
 
-#: Launches of kernel B8 by :func:`ssd_fused` in this process: one per call
-#: on CUDA tensors, counted where the kernel is launched and nowhere else.
+#: Launches of kernel B8 by :func:`ssd_fused` in this process, on CUDA
+#: tensors, counted where each launch is made and nowhere else:
+#: :data:`LAUNCHES_PER_CALL` a call.
 KERNEL_LAUNCHES = 0
+#: Launches of one :func:`ssd_fused` call on the card.
+LAUNCHES_PER_CALL = len(SSD_LAUNCHES)
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
 
@@ -71,6 +83,16 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+@functools.lru_cache(maxsize=256)
+def _plan(b: int, l: int, h: int, p: int, g: int, n: int, chunk: int,
+          dtype: torch.dtype):
+    """:func:`plan_ssd_fused` of one shape, built once: a prefill calls the
+    scan once a layer with the same shape, and the plan is host work in
+    front of the first launch."""
+    return plan_ssd_fused(b, l, h, p, g, n, chunk=chunk,
+                          dtype=str(dtype).removeprefix("torch."))
+
+
 def segsum(a: torch.Tensor) -> torch.Tensor:
     """Lower-triangular segment sums (the reference's ``ssm._segsum``):
     out[..., i, j] = sum_{k=j+1..i} a[..., k] for i >= j, -inf above the
@@ -91,8 +113,7 @@ def ssd_fused_ref(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
     kernel's body, on whatever device its tensors are on.  Returns
     (y (b, l, h, p) in xd's dtype, final state (b, h, p, n))."""
     b, l, h, p, g, n = _check_args(xd, ad, B, C, init_state)
-    plan_ssd_fused(b, l, h, p, g, n, chunk=chunk,
-                   dtype=str(xd.dtype).removeprefix("torch.")).raise_if_invalid()
+    _plan(b, l, h, p, g, n, chunk, xd.dtype).raise_if_invalid()
     acc = _acc_dtype(xd.dtype)
     grp = torch.arange(h, device=xd.device) // (h // g)
     state = (torch.zeros((b, h, p, n), dtype=acc, device=xd.device)
@@ -117,29 +138,117 @@ def ssd_fused_ref(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
     return y, state
 
 
-def _launch(xd, ad, B, C, init, y, fstate, chunk: int, p_block: int) -> None:
-    """One launch of kernel B8 on PyTorch's current stream of xd's device,
-    made with that device current."""
+def _segmented_cum(ac: torch.Tensor) -> torch.Tensor:
+    """The kernel's running sum over the last axis: segments of
+    :data:`SSD_SCAN_ROWS` rows, each summed from its start, then the carry
+    of the rows before it."""
+    out, carry = [], torch.zeros_like(ac[..., 0])
+    for j0 in range(0, ac.shape[-1], SSD_SCAN_ROWS):
+        seg = torch.cumsum(ac[..., j0:j0 + SSD_SCAN_ROWS], dim=-1) \
+            + carry[..., None]
+        out.append(seg)
+        carry = seg[..., -1]
+    return torch.cat(out, dim=-1)
+
+
+def ssd_chunk_parallel_model(xd: torch.Tensor, ad: torch.Tensor,
+                             B: torch.Tensor, C: torch.Tensor, *,
+                             chunk: int = 128,
+                             init_state: torch.Tensor | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B8's decomposition in plain PyTorch, all chunks at once:
+    launch 1's segmented cum and chunk states, launch 2's carry, launch 3's
+    query tiles of :data:`SSD_TILE` rows over the key tiles on and below
+    the diagonal, each C Bᵀ tile once.  Same contract as
+    :func:`ssd_fused_ref`."""
+    b, l, h, p, g, n = _check_args(xd, ad, B, C, init_state)
+    _plan(b, l, h, p, g, n, chunk, xd.dtype).raise_if_invalid()
+    acc = _acc_dtype(xd.dtype)
+    q, nc = chunk, l // chunk
+    grp = torch.arange(h, device=xd.device) // (h // g)
+
+    def per_chunk(t, last):                   # (b, l, h, last) -> (b, h, nc, q, last)
+        return t.to(acc).reshape(b, nc, q, h, last).permute(0, 3, 1, 2, 4)
+
+    x = per_chunk(xd, p)
+    bh, ch = (per_chunk(t[:, :, grp], n) for t in (B, C))
+    cum = _segmented_cum(ad.to(acc).reshape(b, nc, q, h).permute(0, 3, 1, 2))
+    # launch 1: each chunk's local state
+    dec = torch.exp(cum[..., -1:] - cum)
+    states = (x * dec[..., None]).transpose(-1, -2) @ bh       # (b, h, nc, p, n)
+    # launch 2: the state entering each chunk, and the final state
+    carried = (torch.zeros((b, h, p, n), dtype=acc, device=xd.device)
+               if init_state is None else init_state.to(acc))
+    entering = []
+    for c in range(nc):
+        entering.append(carried)
+        carried = carried * torch.exp(cum[:, :, c, -1])[..., None, None] \
+            + states[:, :, c]
+    entering = torch.stack(entering, dim=2)
+    # launch 3: query tiles, key tiles on and below the diagonal
+    y = torch.empty_like(x)
+    for i0 in range(0, q, SSD_TILE):
+        rows = slice(i0, min(i0 + SSD_TILE, q))
+        ci, cq = ch[..., rows, :], cum[..., rows]
+        yi = torch.exp(cq)[..., None] * (ci @ entering.transpose(-1, -2))
+        ii = torch.arange(rows.start, rows.stop, device=xd.device)[:, None]
+        for j0 in range(0, i0 + 1, SSD_TILE):
+            keys = slice(j0, min(j0 + SSD_TILE, q))
+            jj = torch.arange(keys.start, keys.stop, device=xd.device)[None, :]
+            diff = cq[..., :, None] - cum[..., None, keys]
+            decay = torch.exp(torch.where(ii >= jj, diff, float("-inf")))
+            gm = ci @ bh[..., keys, :].transpose(-1, -2)
+            yi = yi + (gm * decay) @ x[..., keys, :]
+        y[..., rows, :] = yi
+    y = y.permute(0, 2, 3, 1, 4).reshape(b, l, h, p).to(xd.dtype)
+    return y, carried
+
+
+def _launch(xd, ad, B, C, init, y, fstate, chunk: int) -> None:
+    """Kernel B8's three launches on PyTorch's current stream of xd's
+    device, made with that device current; each is counted once it is
+    made, and a refused one raises before the next is tried.  The scratch
+    (cum (b, h, l), the chunk states and the states entering each chunk,
+    (b, h, l / chunk, p, n) each) is allocated here, in one block."""
     global KERNEL_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
     lib = cuda_lib.library("ssd_fused")
     b, l, h, p = xd.shape
     g, n = B.shape[2], B.shape[3]
+    dbl = int(xd.dtype == torch.float64)
+    nc = l // chunk
+    n_cum = -(-b * h * l // 4) * 4            # the states start 16 B aligned
+    n_st = b * h * nc * p * n
+    scratch = torch.empty(n_cum + 2 * n_st, dtype=fstate.dtype,
+                          device=xd.device)
+    cum = scratch[:b * h * l].view(b, h, l)
+    states = scratch[n_cum:n_cum + n_st].view(b, h, nc, p, n)
+    entering = scratch[n_cum + n_st:].view(b, h, nc, p, n)
     with torch.cuda.device(xd.device):
-        err = lib.repro_ssd_fused(
-            xd.data_ptr(), ad.data_ptr(), B.data_ptr(), C.data_ptr(),
-            None if init is None else init.data_ptr(), y.data_ptr(),
-            fstate.data_ptr(), b, l, h, p, g, n, chunk, p_block,
-            SSD_BLOCK_THREADS, int(xd.dtype == torch.float64),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        msg = lib.repro_ssd_cuda_error_string(err).decode()
-        raise RuntimeError(
-            f"ssd_fused kernel launch failed (cudaError {err}: {msg}) for "
-            f"(b, l, h, p, g, n) = {(b, l, h, p, g, n)}, chunk {chunk}, "
-            f"p_block {p_block}")
-    KERNEL_LAUNCHES += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        calls = {
+            "chunk_state": lambda: lib.repro_ssd_chunk_state(
+                xd.data_ptr(), ad.data_ptr(), B.data_ptr(), cum.data_ptr(),
+                states.data_ptr(), b, l, h, p, g, n, chunk, dbl, stream),
+            "state_pass": lambda: lib.repro_ssd_state_pass(
+                states.data_ptr(), entering.data_ptr(), cum.data_ptr(),
+                None if init is None else init.data_ptr(), fstate.data_ptr(),
+                b, l, h, p, n, chunk, dbl, stream),
+            "chunk_output": lambda: lib.repro_ssd_chunk_output(
+                xd.data_ptr(), B.data_ptr(), C.data_ptr(), cum.data_ptr(),
+                entering.data_ptr(), int(init is not None), y.data_ptr(), b, l,
+                h, p, g, n, chunk, dbl, stream),
+        }
+        for launch in SSD_LAUNCHES:
+            err = calls[launch]()
+            if err != 0:
+                msg = lib.repro_ssd_cuda_error_string(err).decode()
+                raise RuntimeError(
+                    f"ssd_fused {launch} launch failed (cudaError {err}: "
+                    f"{msg}) for (b, l, h, p, g, n) = {(b, l, h, p, g, n)}, "
+                    f"chunk {chunk}")
+            KERNEL_LAUNCHES += 1
 
 
 def ssd_fused(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
@@ -149,8 +258,8 @@ def ssd_fused(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
     """Fused scan.  xd (b, l, h, p) (inputs pre-multiplied by dt), ad
     (b, l, h), B and C (b, l, g, n), all float32 or all float64; l a
     multiple of ``chunk``.  Returns (y (b, l, h, p), final state
-    (b, h, p, n)).  On a CUDA device one launch of kernel B8; on the CPU
-    the plain :func:`ssd_fused_ref`.
+    (b, h, p, n)).  On a CUDA device the :data:`LAUNCHES_PER_CALL` launches
+    of kernel B8; on the CPU the plain :func:`ssd_fused_ref`.
     """
     b, l, h, p, g, n = _check_args(xd, ad, B, C, init_state)
     if xd.device.type == "cpu":
@@ -158,12 +267,11 @@ def ssd_fused(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
     if xd.device.type != "cuda":
         raise RuntimeError(
             f"ssd_fused has a CUDA kernel and a CPU reference; got {xd.device}")
-    plan_ssd_fused(b, l, h, p, g, n, chunk=chunk,
-                   dtype=str(xd.dtype).removeprefix("torch.")).raise_if_invalid()
+    _plan(b, l, h, p, g, n, chunk, xd.dtype).raise_if_invalid()
     xd, ad, B, C = (t.contiguous() for t in (xd, ad, B, C))
     acc = _acc_dtype(xd.dtype)
     init = None if init_state is None else init_state.to(acc).contiguous()
     y = torch.empty_like(xd)
     fstate = torch.empty((b, h, p, n), dtype=acc, device=xd.device)
-    _launch(xd, ad, B, C, init, y, fstate, chunk, ssd_p_block(b, h, p))
+    _launch(xd, ad, B, C, init, y, fstate, chunk)
     return y, fstate

@@ -18,7 +18,7 @@ on buckets B1 splits across threads;
 BFS distances exactly equal, PageRank ranks at rtol 1e-10 (B3's split
 buckets add their parts in a fixed order: two calls bit-equal); FFT rtol 1e-9 /
 atol 1e-9 x n at fp64 and 1e-3 / 1e-5 x max|spectrum| at fp32 (FMA
-contraction); B8
+contraction); B6's k-column form bit-equal to its one-column launches; B8
 2e-4 at fp32 and 1e-10 at fp64 (the reference's, ``tests/test_kernels.py``);
 B9 exactly equal (a copy).
 """
@@ -498,6 +498,59 @@ def test_spmv_ell_kernel_matches_plain_version(cuda_device, dtype, tol):
                                            else float(np.abs(want).max())))
 
 
+def _holey_ellpack(csr, c, seed):
+    """``csr`` packed at height ``c`` with PAD punched inside rows and the
+    rows 32 .. 63 (one warp) all PAD."""
+    ell = F.csr_to_ellpack(csr, c=c)
+    rng = np.random.default_rng(seed)
+    cols, vals = ell.cols.copy(), ell.vals.copy()
+    holes = rng.random(cols.shape) < 0.25
+    cols[holes], vals[holes] = F.PAD, 0
+    rows = cols.transpose(0, 2, 1).reshape(-1, cols.shape[1])
+    rows[32:64] = F.PAD
+    cols = np.ascontiguousarray(rows.reshape(cols.shape[0], cols.shape[2],
+                                             cols.shape[1]).transpose(0, 2, 1))
+    vals = np.where(cols == F.PAD, 0, vals).astype(vals.dtype)
+    return F.EllpackMatrix(cols=cols, vals=vals, n_rows=ell.n_rows,
+                           n_cols=ell.n_cols, nnz=int((cols != F.PAD).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-10), (np.float32, 1e-4)])
+def test_spmm_ell_k_form_is_bit_equal_to_column_by_column_b6(cuda_device,
+                                                              dtype, tol):
+    """B6's k-column form against k one-column launches (torch.equal: the
+    same multiply-adds in the same order) and the plain version, with PAD
+    inside rows and a whole warp of PAD; one launch a k tile; the live
+    widths on the card against a host count."""
+    from repro_torch.kernels import spmv
+
+    csr = F.random_csr(3001, 2500, 11.0, seed=4, skew=1.3, dtype=dtype)
+    for c in (8, 32, 256):
+        ell = _holey_ellpack(csr, c, c)
+        cols, vals = ell.to_device(cuda_device)
+        live = spmv.live_widths(cols)
+        rows = np.where(ell.cols != F.PAD, np.arange(1, ell.width + 1)[None, :, None],
+                        0).max(axis=1).reshape(-1)
+        rows = np.pad(rows, (0, -len(rows) % 32)).reshape(-1, 32).max(axis=1)
+        np.testing.assert_array_equal(live.cpu().numpy(), rows)
+        assert rows[1] == 0                      # the all-PAD warp
+        for k in (1, 2, 3, 8, 32, 33):
+            X = torch.from_numpy(np.random.default_rng(k).standard_normal(
+                (2500, k)).astype(dtype)).to(cuda_device)
+            before = spmv.KERNEL_LAUNCHES
+            got = spmv.spmm_ell(cols, vals, X, live_width=live)
+            torch.cuda.synchronize()
+            assert spmv.KERNEL_LAUNCHES - before == (2 if k == 33 else 1)
+            cbc = torch.stack([spmv.spmv_ell(cols, vals, X[:, i].contiguous(),
+                                             live_width=live)
+                               for i in range(k)], dim=1)
+            assert torch.equal(got, cbc), (c, k)
+            want = spmv.spmm_ell_ref(cols, vals, X)
+            scale = 1.0 if dtype == np.float64 else float(want.abs().max())
+            assert float((got - want).abs().max()) <= tol * scale
+
+
 def _fft_case(n, batch, dtype, device, seed=0):
     from repro_torch.kernels import fft
 
@@ -709,7 +762,9 @@ def _ssd_case(b, l, h, p, g, n, dtype, device, seed, init=False):
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-4), (np.float64, 1e-10)])
 @pytest.mark.parametrize("shape,chunk", [
     ((2, 64, 4, 8, 2, 16), 16),          # the reference's test shape, g = 2
-    ((1, 64, 4, 32, 1, 16), 64),         # l == chunk, p split in two blocks
+    ((1, 64, 4, 32, 1, 16), 64),         # l == chunk
+    ((1, 192, 4, 72, 2, 80), 64),        # 3 chunks, ragged p and n tiles
+    ((1, 300, 3, 8, 1, 16), 100),        # ragged query tiles
     ((1, 512, 80, 64, 1, 128), 256),     # mamba2-2.7b's prefill
 ])
 def test_ssd_kernel_matches_plain_version(cuda_device, dtype, tol, shape, chunk):
@@ -726,7 +781,7 @@ def test_ssd_kernel_matches_plain_version(cuda_device, dtype, tol, shape, chunk)
         before = ssd.KERNEL_LAUNCHES
         y, f = ssd.ssd_fused(xd, ad, B, C, chunk=chunk, init_state=s0)
         torch.cuda.synchronize()
-        assert ssd.KERNEL_LAUNCHES == before + 1
+        assert ssd.KERNEL_LAUNCHES == before + ssd.LAUNCHES_PER_CALL
         y0, f0 = ssd.ssd_fused_ref(xd, ad, B, C, chunk=chunk, init_state=s0)
         for got, want in ((y, y0), (f, f0)):
             scale = max(1.0, float(want.abs().max())) if dtype == np.float32 \
@@ -736,28 +791,28 @@ def test_ssd_kernel_matches_plain_version(cuda_device, dtype, tol, shape, chunk)
 
 @pytest.mark.cuda
 def test_refused_ssd_launch_raises_and_leaves_no_error_behind(cuda_device):
-    """A B8 block asking for more dynamic shared memory than the card grants
-    (fp64, d_state 512, chunk 256: 420 KB) is refused: the wrapper's plan
-    raises before launching, a forced launch raises instead of returning
-    garbage and counts nothing, and the next launch runs clean."""
+    """A B8 call whose chunk does not divide the sequence is refused: the
+    wrapper's plan raises before launching, a forced launch is refused by
+    the kernel's own check and raises instead of returning garbage,
+    counting nothing, and the next call runs clean."""
     from repro_torch.analysis import LaunchPlanError
     from repro_torch.kernels import ssd
 
-    (xd, ad, B, C), _ = _ssd_case(1, 256, 2, 64, 1, 512, np.float64,
+    (xd, ad, B, C), _ = _ssd_case(1, 96, 2, 64, 1, 128, np.float64,
                                   cuda_device, 0)
-    with pytest.raises(LaunchPlanError, match="shared memory"):
-        ssd.ssd_fused(xd, ad, B, C, chunk=256)
+    with pytest.raises(LaunchPlanError, match="multiple of the chunk"):
+        ssd.ssd_fused(xd, ad, B, C, chunk=64)
     y = torch.empty_like(xd)
-    f = torch.empty((1, 2, 64, 512), dtype=xd.dtype, device=cuda_device)
+    f = torch.empty((1, 2, 64, 128), dtype=xd.dtype, device=cuda_device)
     before = ssd.KERNEL_LAUNCHES
     with pytest.raises(RuntimeError, match="cudaError"):
-        ssd._launch(xd, ad, B, C, None, y, f, 256, 64)
+        ssd._launch(xd, ad, B, C, None, y, f, 64)
     assert ssd.KERNEL_LAUNCHES == before
-    (xd, ad, B, C), _ = _ssd_case(1, 256, 2, 64, 1, 128, np.float64,
+    (xd, ad, B, C), _ = _ssd_case(1, 256, 2, 64, 1, 512, np.float64,
                                   cuda_device, 1)
-    got, fs = ssd.ssd_fused(xd, ad, B, C, chunk=256)
+    got, fs = ssd.ssd_fused(xd, ad, B, C, chunk=256)   # d_state 512 runs
     torch.cuda.synchronize()
-    assert ssd.KERNEL_LAUNCHES == before + 1
+    assert ssd.KERNEL_LAUNCHES == before + ssd.LAUNCHES_PER_CALL
     want, fw = ssd.ssd_fused_ref(xd, ad, B, C, chunk=256)
     torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
     torch.testing.assert_close(fs, fw, rtol=1e-10, atol=1e-10)
@@ -784,7 +839,7 @@ def test_reduced_mamba2_serves_on_the_card_as_on_the_cpu(cuda_device):
         logits, caches = M.prefill(p, cfg, {"tokens": prompts}, caches)
         step, _ = M.decode_step(p, cfg, prompts[:, :1], caches)
         outs.append((logits.cpu(), step.cpu()))
-    assert ssd.KERNEL_LAUNCHES - b8 == cfg.n_layers
+    assert ssd.KERNEL_LAUNCHES - b8 == cfg.n_layers * ssd.LAUNCHES_PER_CALL
     assert gather.KERNEL_LAUNCHES - b9 == 2
     for want, got in zip(*outs):
         tol = 1e-5 * float(want.abs().max())

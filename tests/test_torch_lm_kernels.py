@@ -290,7 +290,7 @@ def test_ssd_with_init_state_matches_chunked_and_recurrence(dtype):
     ((1, 60, 4, 8, 1, 16), 16, "float32", "multiple of the chunk"),
     ((1, 8, 4, 8, 1, 16), 16, "float32", "multiple of the chunk"),
     ((1, 64, 4, 8, 3, 16), 16, "float32", "not a multiple of 3 groups"),
-    ((1, 256, 2, 64, 1, 512), 256, "float64", "shared memory"),
+    ((1, 64, 4, 8, 1, 16), 0, "float64", "chunk must be >= 1"),
 ])
 def test_ssd_plan_refusals_raise_before_any_launch(shape, chunk, dtype, match):
     b, l, h, p, g, n = shape
@@ -317,17 +317,79 @@ def test_ssd_wrapper_refuses_mixed_dtypes_and_shapes():
 
 
 def test_ssd_plan_at_mamba2_widths():
-    """mamba2-2.7b's prefill: h 80, p 64, n 128, chunk 256.  At b = 1 the
-    80 planes do not fill 132 SMs, so each plane's columns go in two
-    blocks; at b = 4 one block a plane.  Both dtypes fit a block."""
+    """mamba2-2.7b's prefill: h 80, p 64, n 128, chunk 256.  Three
+    launches: chunk states (a block per (b, h, chunk) and 64 x 64 state
+    tile), the state pass, chunk outputs (a block per (b, h, chunk) and
+    64-row query tile).  At b = 1 both tiled launches give every SM 16
+    warps; shared memory is fixed, so both dtypes fit."""
     one = plan_ssd_fused(1, 512, 80, 64, 1, 128, chunk=256)
     four = plan_ssd_fused(4, 512, 80, 64, 1, 128, chunk=256, dtype="float64")
     assert one.ok and four.ok
-    assert one.blocks[0].grid == (80, 2) and four.blocks[0].grid == (320, 1)
-    assert autotune.ssd_p_block(1, 80, 64) == 32
-    assert one.blocks[0].smem_bytes == autotune.ssd_smem_bytes(256, 32, 128, 4)
-    assert four.blocks[0].smem_bytes <= autotune.SMEM_PER_BLOCK
-    assert autotune.ssd_p_block(2, 4, 8) == 8         # never below a warp
+    assert one.n_launches == four.n_launches == ssd.LAUNCHES_PER_CALL == 3
+    assert [b.grid for b in one.blocks] == [(160, 1, 2), (80, 32), (160, 4)]
+    assert four.blocks[2].grid == (640, 4)
+    assert autotune.ssd_grids(1, 512, 80, 64, 128, 256)["chunk_output"] \
+        == (160, 4)
+    assert one.blocks[2].smem_bytes == autotune.ssd_smem_bytes(
+        "chunk_output", 4)
+    assert four.blocks[2].smem_bytes <= autotune.SMEM_PER_BLOCK
+    for blk in (one.blocks[0], one.blocks[2]):
+        assert autotune.ssd_warps_per_sm(blk.grid, blk.smem_bytes) >= 16
+    assert autotune.ssd_grids(2, 64, 4, 8, 16, 16)["chunk_state"] == (32, 1, 1)
+
+
+def test_ssd_sizing_functions():
+    """The fixed shared memory of B8's launches, the flops they execute
+    against the function's, and the warps an SM holds."""
+    lds = autotune.SSD_TILE + 4
+    kc, t = autotune.SSD_K_CHUNK, autotune.SSD_TILE
+    assert autotune.ssd_smem_bytes("chunk_output", 8) == \
+        (4 * kc * lds + t * lds + 2 * t) * 8
+    # fp32 runs the tensor-core form: row-major (64, 36) operand stages
+    assert autotune.ssd_smem_bytes("chunk_output", 4) == \
+        (4 * t * (kc + 4) + t * lds + 2 * t) * 4
+    assert autotune.ssd_smem_bytes("state_pass", 8) == 0
+    assert autotune.ssd_smem_bytes("chunk_state", 8) < \
+        autotune.ssd_smem_bytes("chunk_output", 8) < autotune.SMEM_PER_BLOCK
+    assert autotune.ssd_flops(1, 512, 80, 64, 128, 256) == 3_363_307_520
+    ex = autotune.ssd_flops_executed(1, 512, 80, 64, 128, 256)
+    assert ex == {"chunk_state": 671_088_640, "state_term": 335_544_320,
+                  "cb": 1_677_721_600, "gx": 838_860_800}
+    # with an initial state the first chunk's carried term runs too
+    assert autotune.ssd_flops_executed(1, 512, 80, 64, 128, 256,
+                                       init=True)["state_term"] == 671_088_640
+    # tiles padded to 64 on the diagonal: never less than the function
+    for shape in ((1, 512, 80, 64, 128, 256), (2, 64, 4, 8, 16, 16),
+                  (1, 192, 4, 32, 16, 64)):
+        b, _, h, p, n, q = shape        # less only the skipped zero state
+        assert sum(autotune.ssd_flops_executed(*shape).values()) >= \
+            autotune.ssd_flops(*shape) - 2 * b * h * q * n * p
+    # a grid of fewer blocks than SMs guarantees none
+    assert autotune.ssd_warps_per_sm((64, 1), 35_000) == 0
+    assert autotune.ssd_warps_per_sm((640, 4), 70_656) == 16
+
+
+@pytest.mark.parametrize("chunk,l", [(16, 48), (64, 192), (128, 256), (96, 192)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_ssd_chunk_parallel_model_matches_reference(chunk, l, dtype):
+    """B8's decomposition as a plain torch model (segmented cum, chunk
+    states, the carry, query tiles over the key tiles on and below the
+    diagonal) against the reference's kernel in interpret mode and the
+    plain chunk loop, from a zero and a random initial state."""
+    rng = np.random.default_rng(chunk + l)
+    arrs = _ssd_inputs(rng, 1, l, 4, 8, 2, 16, dtype)
+    tol = TOLS[dtype]
+    y0, f0 = ref_ssd_fused(*(jnp.asarray(a) for a in arrs), chunk=chunk)
+    tens = [torch.from_numpy(a) for a in arrs]
+    y1, f1 = ssd.ssd_chunk_parallel_model(*tens, chunk=chunk)
+    assert y1.dtype == tens[0].dtype and f1.shape == (1, 4, 8, 16)
+    np.testing.assert_allclose(y1.numpy(), np.asarray(y0), atol=tol, rtol=tol)
+    np.testing.assert_allclose(f1.numpy(), np.asarray(f0), atol=tol, rtol=tol)
+    init = torch.from_numpy(rng.standard_normal((1, 4, 8, 16)).astype(dtype))
+    y2, f2 = ssd.ssd_chunk_parallel_model(*tens, chunk=chunk, init_state=init)
+    y3, f3 = ssd.ssd_fused_ref(*tens, chunk=chunk, init_state=init)
+    torch.testing.assert_close(y2, y3, atol=tol, rtol=tol)
+    torch.testing.assert_close(f2, f3, atol=tol, rtol=tol)
 
 
 def test_segsum_matches_reference():

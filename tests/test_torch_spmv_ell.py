@@ -24,6 +24,7 @@ from repro.kernels.execspec import ExecSpec as RefExecSpec
 from repro.service.tunecache import operand_signature as ref_signature
 from repro.sparse import formats as RF
 from repro_torch.analysis import LaunchPlanError, SlabMeta, plan_spmv_ell
+from repro_torch.core import autotune
 from repro_torch.kernels import ops, sell_core, spmv
 from repro_torch.kernels.execspec import ExecSpec
 from repro_torch.service.tunecache import TuneCache, operand_signature
@@ -197,11 +198,14 @@ def test_spmv_ellpack_of_another_height_repacks_to_sell(monkeypatch):
 def test_spmm_ellpack_matches_reference_column_by_column(vl, monkeypatch):
     _, port, rell, pell = _ell_pair(16, n_rows=70)
     b6 = _counting(monkeypatch, spmv, "spmv_ell")
+    b6k = _counting(monkeypatch, spmv, "spmm_ell")
     x = np.random.default_rng(1).standard_normal((80, 3))
     want = np.asarray(ref_ops.spmm(rell, x, spec=RefExecSpec(
         vl=vl, interpret=True)))
     got = ops.spmm(pell, x, spec=dataclasses.replace(CPU, vl=vl))
-    assert b6["n"] == (3 if vl == 16 else 0)     # one B6 launch per column
+    # the reference walks the columns one B6 call each; the port makes one
+    # call of B6's k-column form for the whole stack
+    assert b6["n"] == 0 and b6k["n"] == (1 if vl == 16 else 0)
     assert tuple(got.shape) == (70, 3)
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
     # a stacked RHS through spmv dispatches to spmm
@@ -260,8 +264,9 @@ def test_plan_spmv_ell_shape_and_bounds():
     assert meta.kind == "ellpack" and meta.widths == (pell.width,)
     plan = plan_spmv_ell(meta, dtype="float64").raise_if_invalid()
     (blk,) = plan.blocks
-    assert plan.kernel == "spmv_ell" and blk.grid == (1,)
-    assert blk.block == (256,) and plan.n_launches == 1
+    threads = autotune.ELL_BLOCK_THREADS
+    assert plan.kernel == "spmv_ell" and blk.grid == (-(-160 // threads),)
+    assert blk.block == (threads,) and plan.n_launches == 1
     cols = pell.cols.copy()
     cols[0, 0, 3] = pell.n_cols
     bad = F.EllpackMatrix(cols=cols, vals=pell.vals, n_rows=pell.n_rows,
@@ -296,3 +301,163 @@ def test_ellpack_scan_and_upload_are_memoized(monkeypatch):
     assert key in ops._PREPARED
     del pell
     assert key not in ops._PREPARED
+
+
+# ---------------------------------------------------------------------------
+# The k-column form, the live widths and their plan
+# ---------------------------------------------------------------------------
+
+
+def _live_count(cols: np.ndarray) -> np.ndarray:
+    """Brute-force live widths: per 32 consecutive rows (row r = lane r % C
+    of slice r // C), 1 + the last slot holding a non-PAD column."""
+    s, w, c = cols.shape
+    rows = np.zeros(s * c, np.int64)
+    for si in range(s):
+        for lane in range(c):
+            for wi in range(w):
+                if cols[si, wi, lane] != F.PAD:
+                    rows[si * c + lane] = wi + 1
+    out = np.zeros(-(-s * c // 32), np.int64)
+    for r, v in enumerate(rows):
+        out[r // 32] = max(out[r // 32], v)
+    return out
+
+
+def _holey(pell, seed):
+    """``pell`` with PAD punched into random slots, inside rows too, and a
+    whole 32-row group of PAD when there is room for one."""
+    rng = np.random.default_rng(seed)
+    cols, vals = pell.cols.copy(), pell.vals.copy()
+    holes = rng.random(cols.shape) < 0.3
+    cols[holes], vals[holes] = F.PAD, 0.0
+    flat_c = cols.transpose(0, 2, 1).reshape(-1, cols.shape[1])
+    if flat_c.shape[0] >= 64:
+        flat_c[32:64] = F.PAD
+        cols = flat_c.reshape(cols.shape[0], cols.shape[2],
+                              cols.shape[1]).transpose(0, 2, 1).copy()
+        vals = np.where(cols == F.PAD, 0.0, vals).astype(vals.dtype)
+    return F.EllpackMatrix(cols=np.ascontiguousarray(cols),
+                           vals=np.ascontiguousarray(vals), n_rows=pell.n_rows,
+                           n_cols=pell.n_cols, nnz=int((cols != F.PAD).sum()))
+
+
+@pytest.mark.parametrize("c", [8, 32, 48, 128])
+def test_live_widths_match_a_numpy_count_with_pad_inside_rows(c):
+    _, _, _, pell = _ell_pair(c, n_rows=300, avg=7.0, seed=c)
+    for ell in (pell, _holey(pell, c)):
+        cols = torch.from_numpy(ell.cols)
+        got = spmv.live_widths(cols)
+        assert got.dtype == torch.int32 and got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), _live_count(ell.cols))
+    holey = _holey(pell, c)
+    assert (_live_count(holey.cols) == 0).any()     # a whole group of PAD
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 32, 33])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_spmm_ell_ref_matches_reference_column_by_column(k, dtype):
+    """The k-column plain version against the reference's ``ops.spmm``
+    (one B6 call a column) and bit-equal to the column-by-column plain
+    walk, PAD inside rows included."""
+    _, _, rell, pell = _ell_pair(16, n_rows=90, dtype=dtype, seed=k)
+    ell = _holey(pell, k)
+    rell = RF.EllpackMatrix(cols=ell.cols, vals=ell.vals, n_rows=ell.n_rows,
+                            n_cols=ell.n_cols, nnz=ell.nnz)
+    x = np.random.default_rng(k).standard_normal((80, k)).astype(dtype)
+    cols, vals = ell.to_device("cpu")
+    X = torch.from_numpy(x)
+    got = spmv.spmm_ell_ref(cols, vals, X)
+    assert tuple(got.shape) == (ell.n_slices * ell.c, k)
+    cbc = torch.stack([spmv.spmv_ell_ref(cols, vals, X[:, i].contiguous())
+                       for i in range(k)], dim=1)
+    assert torch.equal(got, cbc)
+    assert torch.equal(spmv.spmm_ell(cols, vals, X), got)   # CPU: plain
+    want = np.asarray(ref_ops.spmm(rell, x, spec=RefExecSpec(
+        vl=16, interpret=True)))
+    tol = TOL if dtype == np.float64 else 1e-4 * float(np.abs(want).max())
+    np.testing.assert_allclose(got.numpy()[:ell.n_rows], want, rtol=0,
+                               atol=tol)
+    via_ops = ops.spmm(ell, x, spec=dataclasses.replace(CPU, vl=16))
+    assert torch.equal(via_ops, got[:ell.n_rows])
+
+
+@pytest.mark.parametrize("k,itemsize,aligned,want", [
+    (32, 8, True, [(0, 32, 16)]),              # one launch, 16 B a lane
+    (32, 4, True, [(0, 32, 8)]),
+    (64, 8, True, [(0, 64, 32)]),
+    (33, 8, True, [(0, 32, 32), (32, 1, 1)]),  # odd k: one column a lane
+    (3, 4, True, [(0, 3, 4)]),
+    (2, 8, True, [(0, 2, 1)]),
+    (8, 8, False, [(0, 8, 8)]),                # X not 16 B aligned
+    (130, 8, True, [(0, 64, 32), (64, 64, 32), (128, 2, 1)]),
+])
+def test_ell_k_tiles(k, itemsize, aligned, want):
+    from repro_torch.core import autotune
+
+    vec = autotune.ell_vec(k, itemsize, aligned)
+    tiles = autotune.ell_k_tiles(k, vec)
+    assert tiles == want
+    assert sum(kt for _, kt, _ in tiles) == k
+    for k0, kt, group in tiles:
+        assert k0 % vec == 0 and group <= autotune.WARP
+        assert (group // 2) * vec < kt <= group * vec   # fewest lanes, pow2
+
+
+def test_plan_spmm_ell_tiles_and_refusals():
+    from repro_torch.analysis import LiveWidthMeta
+
+    _, _, _, pell = _ell_pair(32, n_rows=150)
+    meta = SlabMeta.from_ellpack(pell, check_bounds=True)
+    live = LiveWidthMeta.from_array(_live_count(pell.cols))
+    assert live.n == 5 and 0 <= live.lo <= live.hi <= pell.width
+    plan = plan_spmv_ell(meta, dtype="float64", k=32, live=live)
+    assert plan.ok and plan.kernel == "spmm_ell" and plan.n_launches == 1
+    assert plan.blocks[0].grid == (-(-160 // (autotune.ELL_BLOCK_THREADS // 16)),)
+    assert plan_spmv_ell(meta, k=33, live=live).n_launches == 2
+    for bad, match in (
+            (LiveWidthMeta(4, 0, 3), "hold 4 entries, want 5"),
+            (LiveWidthMeta(5, 0, pell.width + 1), "outside"),
+            (LiveWidthMeta(5, -1, 2), "outside")):
+        plan = plan_spmv_ell(meta, k=1, live=bad)
+        assert any(match in v for v in plan.violations), plan.violations
+    wide = plan_spmv_ell(meta, dtype="float64", k=130, live=live)
+    assert wide.ok and wide.n_launches == 3     # 64 + 64 + 2 columns
+    assert [b.grid for b in wide.blocks] == [(-(-160 // (
+        autotune.ELL_BLOCK_THREADS // g)),) for g in (32, 32, 1)]
+
+
+def test_ops_caches_live_widths_and_the_plan_refuses_bad_ones(monkeypatch):
+    _, _, _, pell = _ell_pair(16, n_rows=100)
+    spec = dataclasses.replace(CPU, vl=16)
+    calls = _counting(monkeypatch, spmv, "live_widths")
+    for _ in range(2):
+        ops.spmm(pell, np.ones((80, 4)), spec=spec)
+        ops.spmv(pell, np.ones(80), spec=spec)
+    assert calls["n"] == 1
+    _, (_, _, live) = ops._prepared(pell, torch.device("cpu"))
+    np.testing.assert_array_equal(live.numpy(), _live_count(pell.cols))
+    from repro_torch.analysis import LiveWidthMeta
+
+    ops._PREPARED[id(pell)]["live"] = LiveWidthMeta(live.numel(), 0,
+                                                    pell.width + 3)
+    before = spmv.KERNEL_LAUNCHES
+    with pytest.raises(LaunchPlanError, match="live widths"):
+        ops.spmm(pell, np.ones((80, 4)), spec=spec)
+    assert spmv.KERNEL_LAUNCHES == before
+
+
+def test_spmm_ell_wrapper_contract():
+    _, _, _, pell = _ell_pair(16)
+    cols, vals = pell.to_device("cpu")
+    X = torch.ones((80, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match=r"\(n_cols, k\)"):
+        spmv.spmm_ell(cols, vals, X[:, 0])
+    with pytest.raises(TypeError, match="dtype"):
+        spmv.spmm_ell(cols, vals, X.float())
+    live = spmv.live_widths(cols)
+    with pytest.raises(ValueError, match="live widths of shape"):
+        spmv.spmm_ell(cols, vals, X, live_width=live[:-1])
+    with pytest.raises(TypeError, match="int32"):
+        spmv.spmv_ell(cols, vals, X[:, 0].contiguous(),
+                      live_width=live.long())
