@@ -23,9 +23,13 @@ result line is printed:
               max|y| fp32), also on rows out of column order and with PAD
               before a row's entries; the graph kernels B3
               (``bfs_step_sell``, ``pagerank_step_sell``; its split
-              buckets at k 1, 3, 8 and 32 among them), B4 (``bfs_step``)
-              and B5 (``pagerank_step``) over RMAT and uniform graphs at
-              2^12 and a prime node count, C x k; B6
+              buckets at k 1, 3, 8 and 32 among them), B4 (``bfs_step``:
+              its frontier pass ``bfs_frontier`` and its walk, every
+              level) and B5 (``pagerank_step``, two calls bit-equal) over
+              RMAT and uniform graphs at 2^12 and a prime node count, C x
+              k, B4 / B5 also on an adjacency with PAD inside rows and a
+              warp of all-PAD nodes, with their live widths against a host
+              count; B6
               (``spmv_ell``) over C x dtype on two operands, packed and
               with PAD inside rows and a warp of all-PAD rows, its live
               widths against a host count, and its k-column form
@@ -120,7 +124,11 @@ result line is printed:
               at seven shapes with the bytes its schedule moves (staged X
               rows and column map) and the map's build time, and the
               rule ``mode="auto"`` follows; B3 per bucket with its lanes a
-              node and parts, and the bytes of its state gather; the MoE launch sets beside the
+              node and parts, and the bytes of its state gather; B4 / B5
+              with the live widths ``ops`` cached (their build timed on
+              its own), B4 at each level of uniform21's drive beside its
+              frontier pass, B5 beside its id-free reading (every id
+              taken mod 2048: the gap is its gathers through the L2); the MoE launch sets beside the
               dense ``torch.matmul``; then one graph drive per (graph, op)
               under ``torch.profiler``: the graph kernels' device time
               against the drive's wall time; and one mamba2 prefill (b = 1)
@@ -376,9 +384,11 @@ def check_pr(name: str, got, want) -> float:
 
 
 def compare_graph_kernels(torch, np, G, bfs_k, pr_k) -> dict:
-    """Phase 3 (graphs): B3 (BFS and PageRank combines), B4 and B5 against
-    their plain versions on the card; BFS exactly, PageRank at rtol 1e-10.
-    Returns the worst PageRank relative error per kernel."""
+    """Phase 3 (graphs): B3 (BFS and PageRank combines), B4 (its frontier
+    pass and its walk, with the live widths handed in) and B5 against their
+    plain versions on the card; BFS and the frontier exactly, PageRank at
+    rtol 1e-10, two B5 calls bit-equal.  Returns the worst PageRank
+    relative error per kernel."""
     from repro_torch.core.autotune import node_split
     from repro_torch.kernels import sell_core
 
@@ -390,27 +400,48 @@ def compare_graph_kernels(torch, np, G, bfs_k, pr_k) -> dict:
     for name, g in graph_compare_cases(G).items():
         n = g.n_nodes
         rg = g.transpose()
-        # ELLPACK: B4 over the levels from one source, B5 on random input
-        radj = rg.to_device(DEVICE)
-        dist = torch.full((n,), INF, dtype=torch.int32, device=DEVICE)
-        dist[int(rng.integers(n))] = 0
-        for level in range(1, 64):
-            got = bfs_k.bfs_step(radj, dist, level)
-            want = bfs_k.bfs_step_ref(radj, dist, level)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"B4 vs plain: {name} level {level}")
+        # ELLPACK: B4 (frontier pass and walk) over the levels from one
+        # source, B5 on random input; uniform4093 also with PAD inside rows
+        # and the warp of nodes 32 .. 63 all PAD (n is not a multiple of 32)
+        adjs = {name: rg.adj}
+        if name == "uniform4093":
+            holey = rg.adj.copy()
+            holey[rng.random(holey.shape) < 0.25] = G.PAD
+            holey[32:64] = G.PAD
+            adjs[f"{name} holey"] = holey
+        for case, host in adjs.items():
+            radj = G.EllpackGraph(adj=host, n_nodes=n).to_device(DEVICE)
+            live = bfs_k.ell_live_widths(radj)
+            if not np.array_equal(live.cpu().numpy(),
+                                  live_count(np, host.T[None])):
+                raise AssertionError(f"live widths != host count: {case}")
+            dist = torch.full((n,), INF, dtype=torch.int32, device=DEVICE)
+            dist[int(rng.integers(n))] = 0
+            for level in range(1, 64):
+                front = bfs_k.bfs_frontier(dist, level)
+                got = bfs_k.bfs_step(radj, dist, level, live_width=live)
+                want = bfs_k.bfs_step_ref(radj, dist, level)
+                torch.cuda.synchronize()
+                if not torch.equal(front, bfs_k.bfs_frontier_ref(dist, level)):
+                    raise AssertionError(f"B4 frontier vs plain: {case} "
+                                         f"level {level}")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"B4 vs plain: {case} level {level}")
+                n_cases += 1
+                if torch.equal(got, dist):
+                    break
+                dist = got
+            contrib = torch.from_numpy(rng.random(n)).to(DEVICE)
+            consts = torch.from_numpy(rng.random(3)).to(DEVICE)
+            got = pr_k.pagerank_step(radj, contrib, consts, live_width=live)
+            want = pr_k.pagerank_step_ref(radj, contrib, consts)
+            if not torch.equal(got, pr_k.pagerank_step(radj, contrib, consts,
+                                                       live_width=live)):
+                raise AssertionError(f"B5: two calls differ on {case}")
+            check_pr(f"B5 vs plain: {case}", got, want)
+            worst["pagerank_step"] = max(worst["pagerank_step"],
+                                         rel_err(got, want))
             n_cases += 1
-            if torch.equal(got, dist):
-                break
-            dist = got
-        contrib = torch.from_numpy(rng.random(n)).to(DEVICE)
-        consts = torch.from_numpy(rng.random(3)).to(DEVICE)
-        got = pr_k.pagerank_step(radj, contrib, consts)
-        want = pr_k.pagerank_step_ref(radj, contrib, consts)
-        check_pr(f"B5 vs plain: {name}", got, want)
-        worst["pagerank_step"] = max(worst["pagerank_step"], rel_err(got, want))
-        n_cases += 1
         # SELL: B3 with both combines, scalar state and k columns
         for c in (8, 32, 128, 256):
             adj, nodes = G.graph_to_sell_slabs(rg, c=c).to_device(DEVICE)
@@ -446,8 +477,10 @@ def compare_graph_kernels(torch, np, G, bfs_k, pr_k) -> dict:
                 worst["pagerank_step_sell"] = max(
                     worst["pagerank_step_sell"], rel_err(got, want))
                 n_cases += 1
-        phase("compare", f"{name}: B4/B5 and B3 (BFS, PageRank) at C in (8, "
-              "32, 128, 256) x k in (scalar, 1, 3, 6, 8, 12, 32, 48) agree")
+        phase("compare", f"{name}: B4 (frontier and walk, every level) / B5 "
+              f"on {len(adjs)} adjacency(ies) and B3 (BFS, PageRank) at C in "
+              "(8, 32, 128, 256) x k in (scalar, 1, 3, 6, 8, 12, 32, 48) "
+              "agree")
     if not {1, 3, 8, 32} <= split_ks:
         raise AssertionError(f"B3 split buckets compared only at k in "
                              f"{sorted(split_ks)}")
@@ -536,6 +569,8 @@ def max_level(np, dist) -> int:
 def graph_main_path(torch, np, G, bfs_k, pr_k, ops, ExecSpec, KernelRegistry,
                     KernelService) -> dict:
     """Phase 5: the graph path through the registry, the service and ops."""
+    from repro_torch.analysis import plan_bfs_ell
+
     graphs = {}
     for name, (make, kw) in GRAPHS.items():
         t0 = time.perf_counter()
@@ -650,6 +685,7 @@ def graph_main_path(torch, np, G, bfs_k, pr_k, ops, ExecSpec, KernelRegistry,
     spec = ExecSpec(layout="ell", device=DEVICE)
     torch.cuda.synchronize()
     bfs_k.KERNEL_LAUNCHES["bfs_step"] = 0
+    bfs_k.KERNEL_LAUNCHES["bfs_frontier"] = 0
     pr_k.KERNEL_LAUNCHES["pagerank_step"] = 0
     t0 = time.perf_counter()
     d_ell = ops.bfs(g, src, spec=spec)
@@ -657,8 +693,11 @@ def graph_main_path(torch, np, G, bfs_k, pr_k, ops, ExecSpec, KernelRegistry,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched.update(bfs_step=bfs_k.KERNEL_LAUNCHES["bfs_step"],
+                    bfs_frontier=bfs_k.KERNEL_LAUNCHES["bfs_frontier"],
                     pagerank_step=pr_k.KERNEL_LAUNCHES["pagerank_step"])
-    want = {"bfs_step": max_level(np, d_ell) + 1, "pagerank_step": ITERS}
+    levels = max_level(np, d_ell) + 1
+    want = {"bfs_step": levels, "bfs_frontier": levels,
+            "pagerank_step": ITERS}
     if any(launched[k] != v for k, v in want.items()):
         raise AssertionError(f"ELLPACK launches {launched} != steps {want}")
     rg = g.transpose()
@@ -672,12 +711,17 @@ def graph_main_path(torch, np, G, bfs_k, pr_k, ops, ExecSpec, KernelRegistry,
     err_host = check_pr("ops.pagerank (ell) vs pagerank_reference",
                         r_ell.cpu(), results["uniform21"]["host_pr"][0])
     phase("graphs", f"ops ell on uniform21 (ops wall {wall:.1f} s incl. "
-          f"transpose + upload): KERNEL_LAUNCHES bfs_step="
-          f"{launched['bfs_step']} pagerank_step={launched['pagerank_step']}; "
+          f"transpose + upload + live widths): KERNEL_LAUNCHES bfs_step="
+          f"{launched['bfs_step']} bfs_frontier={launched['bfs_frontier']} "
+          f"pagerank_step={launched['pagerank_step']}; "
           f"BFS == plain drive and bfs_reference; PageRank vs plain "
           f"{err_plain:.3e}, vs pagerank_reference {err_host:.3e}")
+    # the adjacency and live widths ops cached for uniform21 (the timing
+    # phase hands them to B4 / B5 as ops does)
+    spec, device = ops._graph_spec(spec)
+    _, ell_cached, _ = ops._prepared_graph(g, spec, device, plan_bfs_ell)
     return dict(graphs=graphs, reg=reg, launches=launched, results=results,
-                reverse_u21=rg, radj_ell=radj, deg=deg)
+                reverse_u21=rg, deg=deg, ell_cached=ell_cached)
 
 
 def profile_drives(torch, bfs_k, pr_k, gm: dict) -> None:
@@ -908,11 +952,19 @@ def time_graphs(torch, np, G, sell_core, bfs_k, pr_k, gm: dict,
                           is not None else "none (no single PyTorch call "
                           "computes a BFS level)") +
                       f" | max abs err vs plain {err:.3e}")
-    # ELLPACK kernels B4 / B5 on uniform21, one state column
+    # ELLPACK kernels B4 / B5 on uniform21, one state column, with the
+    # adjacency and live widths ops cached for it (as ops hands them in)
     g = gm["graphs"]["uniform21"]
     n, e = g.n_nodes, g.n_edges
-    radj, deg = gm["radj_ell"], gm["deg"]
+    radj, live = gm["ell_cached"]
+    deg = gm["deg"]
     width = radj.shape[1]
+    live_ms = time_ms(torch, lambda: bfs_k.ell_live_widths(radj), flush)
+    walked = int((live.cpu().numpy().astype(np.int64) * 32).sum())
+    phase("timing", f"uniform21 live widths: ell_live_widths {live_ms:.4f} ms"
+          " (built once per graph and device by ops, outside the timed "
+          f"calls); slots walked {walked} of {n * width} stored "
+          f"({walked / (n * width):.3f}), {e} of them edges")
     src = gm["results"]["uniform21"]["sources"][0]
     dist = torch.full((n,), INF, dtype=torch.int32, device=DEVICE)
     dist[src] = 0
@@ -921,23 +973,28 @@ def time_graphs(torch, np, G, sell_core, bfs_k, pr_k, gm: dict,
     dang = float(torch.where(deg == 0, rank0, 0.0).sum()) / n
     consts = torch.tensor([(1.0 - DAMPINGS[0]) / n, DAMPINGS[0], dang],
                           dtype=torch.float64, device=DEVICE)
-    for kernel, fn, plain, bytes_least, state in (
-            ("bfs_step", lambda: bfs_k.bfs_step(radj, dist, 1),
-             lambda: bfs_k.bfs_step_ref(radj, dist, 1), 4 * e + 8 * n, 8),
-            ("pagerank_step", lambda: pr_k.pagerank_step(radj, contrib, consts),
+    words = -(-n // 32)
+    for kernel, fn, plain, bytes_least, ops_ms in (
+            ("bfs_frontier", lambda: bfs_k.bfs_frontier(dist, 1),
+             lambda: bfs_k.bfs_frontier_ref(dist, 1), 4 * n + 4 * words,
+             n / FP32_OPS * 1e3),
+            ("bfs_step", lambda: bfs_k.bfs_step(radj, dist, 1,
+                                                live_width=live),
+             lambda: bfs_k.bfs_step_ref(radj, dist, 1), 4 * e + 8 * n,
+             e / FP32_OPS * 1e3),
+            ("pagerank_step", lambda: pr_k.pagerank_step(
+                radj, contrib, consts, live_width=live),
              lambda: pr_k.pagerank_step_ref(radj, contrib, consts),
-             4 * e + 16 * n, 16)):
+             4 * e + 16 * n, e / FP64_FLOPS * 1e3)):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         lib_ms = None
-        if kernel == "bfs_step":
+        if kernel != "pagerank_step":
             if not torch.equal(got, want):
-                raise AssertionError("B4 != plain at the main shape")
+                raise AssertionError(f"{kernel} != plain at the main shape")
             err = max_err(got.double(), want.double())
-            ops_ms = e / FP32_OPS * 1e3
         else:
             err = check_pr("B5 vs plain at the main shape", got, want)
-            ops_ms = e / FP64_FLOPS * 1e3
 
             def library():
                 return torch.sparse.mm(lib_a, contrib[:, None])
@@ -948,19 +1005,56 @@ def time_graphs(torch, np, G, sell_core, bfs_k, pr_k, gm: dict,
         ms = time_ms(torch, fn, flush)
         plain_ms = time_ms(torch, plain, flush)
         bytes_ms = bytes_least / HBM_BYTES_PER_S * 1e3
-        padded_ms = (4 * n * width + state * n) / HBM_BYTES_PER_S * 1e3
         records[kernel] = {1: dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             max_abs_err=err)}
-        phase("timing", f"uniform21 k=1: {kernel} {ms:.4f} ms | bound "
-              f"{bytes_ms:.4f} ms (bytes; ops {ops_ms:.4f}) | padded-ELLPACK "
-              f"(width {width}) bytes bound {padded_ms:.4f} ms | plain "
-              f"{plain_ms:.4f} ms | library " + (
-                  f"torch.sparse.mm {lib_ms:.4f} ms" if lib_ms is not None
-                  else "none (no single PyTorch call computes a BFS level)")
-              + f" | max abs err vs plain {err:.3e}")
+        state = 16 if kernel == "pagerank_step" else 8
+        walk_ms = (4 * walked + state * n) / HBM_BYTES_PER_S * 1e3
+        goal = {"bfs_step": 0.20, "pagerank_step": 0.30}.get(kernel)
+        phase("timing", f"uniform21 k=1: {kernel} {ms:.4f} ms" + (
+            f" (goal <= {goal}: {'met' if ms <= goal else 'missed'})"
+            if goal else "") + f" | bound {bytes_ms:.4f} ms (bytes; ops "
+            f"{ops_ms:.4f})" + ("" if kernel == "bfs_frontier" else
+                                f" | ids to the live widths {walk_ms:.4f} "
+                                f"ms | padded-ELLPACK (width {width}) "
+                                f"{(4 * n * width + state * n) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+            + f" | plain {plain_ms:.4f} ms | library " + (
+                f"torch.sparse.mm {lib_ms:.4f} ms" if lib_ms is not None
+                else "none (no single PyTorch call computes it)")
+            + f" | max abs err vs plain {err:.3e}")
+    # B4 at each level of the ops.bfs drive from the same source (the
+    # whole drive's kernel time is their sum), the frontier pass beside it
+    levels, d = [], dist
+    for level in range(1, n + 1):
+        new = bfs_k.bfs_step(radj, d, level, live_width=live)
+        levels.append((level, d))
+        if torch.equal(new, d):
+            break
+        d = new
+    by_level = [(level, time_ms(torch, lambda d=d, lv=level: bfs_k.bfs_step(
+        radj, d, lv, live_width=live), flush), time_ms(
+            torch, lambda d=d, lv=level: bfs_k.bfs_frontier(d, lv), flush))
+        for level, d in levels]
+    phase("timing", "uniform21 B4 by level of the drive from source "
+          f"{src} (level: bfs_step ms incl. its frontier pass, frontier ms): "
+          + ", ".join(f"{lv}: {t:.4f}, {f:.4f}" for lv, t, f in by_level)
+          + f"; sum {sum(t for _, t, _ in by_level):.4f} ms over "
+          f"{len(by_level)} levels")
+    records["bfs_step"][1]["by_level_ms"] = [t for _, t, _ in by_level]
+    # B5's id-free reading: every id u taken mod 2048 (PAD stays PAD), so
+    # the walk is the same and the gathers hit a 16 KB range; the gap to
+    # B5 is the time its gathers take through the L2
+    store = radj.t()
+    near = torch.where(store != G.PAD, store % 2048, store).t()
+    idfree_ms = time_ms(torch, lambda: pr_k.pagerank_step(
+        near, contrib, consts, live_width=live), flush)
+    pr_ms = records["pagerank_step"][1]["ms"]
+    phase("timing", f"uniform21 B5 id-free reading (ids mod 2048): "
+          f"{idfree_ms:.4f} ms against B5 {pr_ms:.4f} ms: the gathers "
+          f"through the L2 take {pr_ms - idfree_ms:.4f} ms; B5's bound "
+          f"{records['pagerank_step'][1]['bound_ms']:.4f} ms")
     return records
 
 
@@ -1044,7 +1138,7 @@ def time_spmv(torch, np, sell_core, op, big, launches, flush) -> dict:
 
 def graph_records(gm: dict, records: dict) -> list[dict]:
     """The graph kernels' entries of the kernels line (B3 at k = 32 with
-    its k = 1 record beside it; B4 and B5 at k = 1)."""
+    its k = 1 record beside it; B4, its frontier pass and B5 at k = 1)."""
     g = gm["graphs"]["uniform21"]
     shape = f"uniform21 {g.n_nodes} nodes {g.n_edges} edges"
     out = []
@@ -1054,14 +1148,19 @@ def graph_records(gm: dict, records: dict) -> list[dict]:
             ("pagerank_step_sell", "src/repro/kernels/pagerank.py:81",
              REQUESTS_PER_OPERAND),
             ("bfs_step", "src/repro/kernels/bfs.py:37", 1),
+            ("bfs_frontier", "src/repro/kernels/bfs.py:37", 1),
             ("pagerank_step", "src/repro/kernels/pagerank.py:33", 1)):
         rec = dict(records[name][main_k])
         rec.pop("bucket_ms", None)
+        rec.pop("by_level_ms", None)
         entry = {"name": name, "route": "cuda",
                  "source": "src/repro_torch/csrc/graph_step.cu",
                  "replaces": replaces, "launches": gm["launches"][name],
                  **rec, "shape": f"{shape}, k={main_k}"
-                 + (", level 1" if "bfs" in name else ", power step 1")}
+                 + (", level 1" if "bfs" in name else ", power step 1")
+                 + (" (B4's frontier pass and walk)" if name == "bfs_step"
+                    else " (B4's frontier pass)" if name == "bfs_frontier"
+                    else "")}
         if main_k != 1:
             k1 = dict(records[name][1])
             k1.pop("bucket_ms", None)

@@ -24,8 +24,10 @@ or PageRank combine) and :func:`plan_bfs_ell` / :func:`plan_pagerank_ell`
 (kernels B4 and B5): per bucket one launch of the lane groups and parts
 :func:`repro_torch.core.autotune.node_split` chooses, ``grid =
 (ceil(S_b * C / nodes), k / k_tile)``, ``nodes`` a block (ELLPACK: one
-thread per node, ``NODE_STEP_BLOCK_THREADS`` a block, one launch over n
-nodes, one state column).  Unlike the
+thread per node, ``ELL_NODE_BLOCK_THREADS`` a block, one state column,
+one launch over n nodes walking each warp up to its live width, which
+are checked for length and range, and for BFS a frontier pass before
+it).  Unlike the
 reference's ``_plan_node_step`` there is no fast-memory footprint to
 price: the state stays in device memory and is gathered through L2.
 
@@ -79,9 +81,9 @@ from repro_torch.core.autotune import (
     ACC_BYTES_PER_THREAD,
     ELL_BLOCK_THREADS,
     ELL_LIVE_ROWS,
+    ELL_NODE_BLOCK_THREADS,
     KERNEL_DTYPES,
     MAX_K_TILE,
-    NODE_STEP_BLOCK_THREADS,
     SMEM_PER_BLOCK,
     SPMM_BLOCK_THREADS,
     SSD_BLOCK_THREADS,
@@ -557,12 +559,12 @@ _STATE_DTYPES = {"bfs": "int32", "pagerank": "float64"}
 
 
 def _plan_node_step(kernel: str, combine: str, meta: SlabMeta, k: int,
-                    state_dtype: str) -> LaunchPlan:
-    """Shared plan of the graph node steps: per bucket (ELLPACK: once) one
-    launch.  ELLPACK (B4 / B5): one thread per node walking its W
-    in-neighbour slots.  SELL (B3): the lane groups, parts, threads and
-    shared memory :func:`repro_torch.core.autotune.node_split` gives the
-    bucket at this ``k_tile``."""
+                    state_dtype: str,
+                    live: "LiveWidthMeta | None" = None) -> LaunchPlan:
+    """Shared plan of the graph node steps.  SELL (B3): per bucket one
+    launch of the lane groups, parts, threads and shared memory
+    :func:`repro_torch.core.autotune.node_split` gives the bucket at this
+    ``k_tile``.  ELLPACK (B4 / B5): :func:`_ell_node_blocks`."""
     violations: list[str] = []
     ell = meta.kind == "ell"
     if meta.kind not in ("graph", "ell"):
@@ -577,6 +579,11 @@ def _plan_node_step(kernel: str, combine: str, meta: SlabMeta, k: int,
         violations.append(
             f"{combine} state dtype {state_dtype} != {want} (the kernel's "
             "only instantiation)")
+    if ell:
+        blocks = _ell_node_blocks(combine, meta, state_dtype, live, violations)
+        return LaunchPlan(kernel=kernel, operand=meta.describe(),
+                          dtype=state_dtype, blocks=blocks,
+                          violations=tuple(violations))
     sb = int(np.dtype(state_dtype).itemsize) if state_dtype in (
         "int32", "float32", "float64") else 8
     k_tile = min(max(k, 1) & -max(k, 1), MAX_K_TILE)
@@ -588,38 +595,62 @@ def _plan_node_step(kernel: str, combine: str, meta: SlabMeta, k: int,
     if grid_y > MAX_GRID_Y:
         violations.append(
             f"{grid_y} column tiles exceed grid.y limit {MAX_GRID_Y} (k={k})")
-    rows = meta.n_rows if ell else meta.n_rows + 1
-    state = (rows,) if k == 1 and ell else (rows, max(k, 1))
+    state = (meta.n_rows + 1, max(k, 1))
     blocks = []
     for i, (s, w) in enumerate(zip(meta.n_slices, meta.widths)):
-        # ELLPACK (B4 / B5): one thread a node; SELL (B3): node_split's
-        # lane groups and parts
-        split = None if ell else node_split(w, meta.c, s, k_tile, sb)
-        threads = NODE_STEP_BLOCK_THREADS if ell else split.threads
-        per_block = NODE_STEP_BLOCK_THREADS if ell else split.nodes
-        if threads > MAX_BLOCK_THREADS:
-            violations.append(f"bucket {i} (W={w}): block of {threads} "
+        split = node_split(w, meta.c, s, k_tile, sb)
+        if split.threads > MAX_BLOCK_THREADS:
+            violations.append(f"bucket {i} (W={w}): block of {split.threads} "
                               f"threads > {MAX_BLOCK_THREADS}")
-        grid_x = math.ceil(s * meta.c / per_block)
+        grid_x = math.ceil(s * meta.c / split.nodes)
         if grid_x > MAX_GRID_X:
             violations.append(f"bucket {i} (W={w}): grid.x {grid_x} > "
                               f"{MAX_GRID_X}")
-        operands = [("adj", (w, meta.c) if ell else (s, w, meta.c),
-                     meta.idx_dtype)]
-        if not ell:
-            operands.append(("nodes", (s, meta.c), meta.idx_dtype))
-        operands += [("state", state, state_dtype), ("out", state, state_dtype)]
+        operands = [("adj", (s, w, meta.c), meta.idx_dtype),
+                    ("nodes", (s, meta.c), meta.idx_dtype),
+                    ("state", state, state_dtype), ("out", state, state_dtype)]
         if combine == "pagerank":
             operands.append(("consts", (3, max(k, 1)), state_dtype))
-        label = f"bucket{i}[W={w}]" if ell else (
-            f"bucket{i}[W={w}, group={split.group}, parts={split.parts}]")
         blocks.append(BlockPlan(
-            label=label, grid=(grid_x, grid_y), block=(threads,),
-            operands=tuple(operands),
-            smem_bytes=0 if ell else split.smem_bytes))
+            label=(f"bucket{i}[W={w}, group={split.group}, "
+                   f"parts={split.parts}]"),
+            grid=(grid_x, grid_y), block=(split.threads,),
+            operands=tuple(operands), smem_bytes=split.smem_bytes))
     return LaunchPlan(kernel=kernel, operand=meta.describe(),
                       dtype=state_dtype, blocks=tuple(blocks),
                       violations=tuple(violations))
+
+
+def _ell_node_blocks(combine: str, meta: SlabMeta, state_dtype: str,
+                     live: "LiveWidthMeta | None",
+                     violations: list[str]) -> tuple[BlockPlan, ...]:
+    """B4 / B5 over an ELLPACK adjacency of n nodes: for BFS first the
+    frontier pass (one thread a node, a ``(ceil(n / 32),)`` bitmap), then
+    the walk, one thread a node up to its warp's live width, both in
+    blocks of ``ELL_NODE_BLOCK_THREADS``.  ``live`` (the adjacency's live
+    widths) must hold one entry per 32 nodes, each in ``[0, W]``."""
+    (w,), n = meta.widths, meta.n_rows
+    threads = ELL_NODE_BLOCK_THREADS
+    words = -(-n // ELL_LIVE_ROWS)
+    _live_contracts(live, words, w, violations)
+    grid_x = math.ceil(n / threads)
+    if grid_x > MAX_GRID_X:
+        violations.append(f"grid.x {grid_x} > {MAX_GRID_X}")
+    state = ("state", (n,), state_dtype)
+    walk = [("adj", (w, n), meta.idx_dtype), ("live", (words,), "int32")]
+    blocks = []
+    if combine == "bfs":
+        frontier = ("frontier", (words,), "int32")
+        blocks.append(BlockPlan(label="frontier", grid=(grid_x,),
+                                block=(threads,),
+                                operands=(state, frontier)))
+        walk.append(frontier)
+    walk += [state, ("out", (n,), state_dtype)]
+    if combine == "pagerank":
+        walk.append(("consts", (3,), state_dtype))
+    blocks.append(BlockPlan(label=f"ell[W={w}]", grid=(grid_x, 1),
+                            block=(threads,), operands=tuple(walk)))
+    return tuple(blocks)
 
 
 def plan_bfs_sell(meta: SlabMeta, k: int = 1) -> LaunchPlan:
@@ -637,16 +668,21 @@ def plan_pagerank_sell(meta: SlabMeta, k: int = 1,
     return _plan_node_step("pagerank_sell", "pagerank", meta, k, dtype)
 
 
-def plan_bfs_ell(meta: SlabMeta) -> LaunchPlan:
-    """Plan one ``bfs_step`` level (kernel B4) over an ELLPACK
-    in-adjacency (:meth:`SlabMeta.from_ell`)."""
-    return _plan_node_step("bfs_step", "bfs", meta, 1, "int32")
+def plan_bfs_ell(meta: SlabMeta,
+                 live: "LiveWidthMeta | None" = None) -> LaunchPlan:
+    """Plan one ``bfs_step`` level (kernel B4: the frontier pass and the
+    walk, two launches) over an ELLPACK in-adjacency
+    (:meth:`SlabMeta.from_ell`), its live widths checked from ``live``."""
+    return _plan_node_step("bfs_step", "bfs", meta, 1, "int32", live)
 
 
-def plan_pagerank_ell(meta: SlabMeta, dtype: str = "float64") -> LaunchPlan:
-    """Plan one ``pagerank_step`` power step (kernel B5) over an ELLPACK
-    reverse adjacency (:meth:`SlabMeta.from_ell`)."""
-    return _plan_node_step("pagerank_step", "pagerank", meta, 1, dtype)
+def plan_pagerank_ell(meta: SlabMeta, dtype: str = "float64",
+                      live: "LiveWidthMeta | None" = None) -> LaunchPlan:
+    """Plan one ``pagerank_step`` power step (kernel B5, one launch) over
+    an ELLPACK reverse adjacency (:meth:`SlabMeta.from_ell`), its live
+    widths checked from ``live``."""
+    return _plan_node_step("pagerank_step", "pagerank", meta, 1, dtype,
+                           live)
 
 
 # ---------------------------------------------------------------------------
@@ -672,6 +708,21 @@ class LiveWidthMeta:
         if arr.size == 0:
             return cls(0, 0, 0)
         return cls(int(arr.size), int(arr.min()), int(arr.max()))
+
+
+def _live_contracts(live: LiveWidthMeta | None, want: int, width: int,
+                    violations: list[str]) -> None:
+    """A live-width array (B4, B5, B6) holds ``want`` entries (one per
+    :data:`ELL_LIVE_ROWS` rows), each in ``[0, width]``: the kernels walk
+    each warp's rows up to it and read no slot past it."""
+    if live is None:
+        return
+    if live.n != want:
+        violations.append(f"live widths hold {live.n} entries, want "
+                          f"{want} (one per {ELL_LIVE_ROWS} rows)")
+    if live.n and (live.lo < 0 or live.hi > width):
+        violations.append(f"live widths in [{live.lo}, {live.hi}] "
+                          f"outside [0, W={width}]")
 
 
 def plan_spmv_ell(meta: SlabMeta, *, dtype: str | None = None, k: int = 1,
@@ -702,14 +753,7 @@ def plan_spmv_ell(meta: SlabMeta, *, dtype: str | None = None, k: int = 1,
     threads = ELL_BLOCK_THREADS
     (s,), (w,) = meta.n_slices, meta.widths
     lanes = s * meta.c
-    if live is not None:
-        want = -(-lanes // ELL_LIVE_ROWS)
-        if live.n != want:
-            violations.append(f"live widths hold {live.n} entries, want "
-                              f"{want} (one per {ELL_LIVE_ROWS} rows)")
-        if live.n and (live.lo < 0 or live.hi > w):
-            violations.append(f"live widths in [{live.lo}, {live.hi}] "
-                              f"outside [0, W={w}]")
+    _live_contracts(live, -(-lanes // ELL_LIVE_ROWS), w, violations)
     vdt = dtype or meta.val_dtype
     itemsize = int(np.dtype(vdt).itemsize) if vdt in KERNEL_DTYPES else 8
     live_op = ("live", (-(-lanes // ELL_LIVE_ROWS),), "int32")

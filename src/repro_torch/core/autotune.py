@@ -38,9 +38,13 @@ from repro_torch.sparse.formats import (
 WARP = 32
 #: Threads per block of the SELL SpMM kernel (8 warps).
 SPMM_BLOCK_THREADS = 256
-#: Threads per block of the graph node-step kernels (B3, B4, B5): one
-#: thread per node, 8 warps.
+#: Threads per block of the SELL node-step kernel B3 (8 warps; its group
+#: form fits lane groups and parts into them, :func:`node_split`).
 NODE_STEP_BLOCK_THREADS = 256
+#: Threads per block of the ELLPACK node steps B4 / B5 and B4's frontier
+#: pass, one thread a node (the better of 128 / 256 for both in both rounds
+#: at uniform21 on an H100, if by under 1.5%: ``scripts/graph_ell_variants.py``).
+ELL_NODE_BLOCK_THREADS = 128
 #: Largest RHS tile the SpMM kernel is instantiated for (its k_tile
 #: template values are the powers of two 1 .. 32).
 MAX_K_TILE = 32

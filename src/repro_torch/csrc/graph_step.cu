@@ -7,7 +7,8 @@
 //                                               running repro/kernels/bfs.py::_bfs_sell_step_kernel
 //   repro_pagerank_sell_bucket  (B3, PageRank)  the same loop running
 //                                               repro/kernels/pagerank.py::_pr_sell_step_kernel
-//   repro_bfs_ell_step          (B4)            repro/kernels/bfs.py::_bfs_step_kernel (bfs_step)
+//   repro_bfs_frontier and      (B4)            repro/kernels/bfs.py::_bfs_step_kernel (bfs_step)
+//   repro_bfs_ell_step
 //   repro_pagerank_ell_step     (B5)            repro/kernels/pagerank.py::_pr_step_kernel (pagerank_step)
 //
 // What bounds them on the card: device-memory bytes.  A step reads every
@@ -20,40 +21,65 @@
 // written); ELLPACK has no node-map term.  The pad entries of the slabs are
 // the layout's own bytes above that.
 //
-// Design, right and simple first:
-//   * one thread per node (one (slice, lane) of a SELL bucket, or node v of
-//     an ELLPACK adjacency) walks its W in-neighbour slots in ascending w and
-//     keeps K_TILE state columns in registers (K_TILE a template parameter in
-//     {1, 2, 4, 8, 16, 32}; grid.y walks the column tiles);
-//   * layout: the JAX package stores graph slabs node-major, (S, C, W), so
-//     neighbouring threads would read ids W * 4 B apart.  The port's upload
-//     keeps the neighbour axis outermost instead: a SELL bucket is stored
-//     (S, W, C) and an ELLPACK adjacency (width, n), so element (s, w, lane)
-//     lives at (s * W + w) * C + lane and a warp's id loads are coalesced.
-//     ELLPACK is the special case of one slice with C = n and the identity
-//     node map;
-//   * the scatter to node order is fused: a SELL thread reads its node id
-//     from the bucket's node map and writes out[node] directly.  Padding
-//     lanes carry node id n and return before any read or write, so the
-//     dump slot keeps the value the wrapper put there (INF for BFS, 0 for
-//     PageRank) and no two threads write one address;
-//   * a PAD neighbour (-1) is skipped, never clamped: its state is not read;
+// Layout: the JAX package stores graph slabs node-major, (S, C, W), so
+// neighbouring threads would read ids W * 4 B apart.  The port's upload
+// keeps the neighbour axis outermost instead: a SELL bucket is stored
+// (S, W, C) and an ELLPACK adjacency (width, n), so element (s, w, lane)
+// lives at (s * W + w) * C + lane and a warp's id loads are coalesced.  A
+// PAD neighbour (-1) is skipped, never clamped: its state is not read.
+//
+// B4 / B5 (ELLPACK, one thread a node v, one state column):
+//   * live width per warp: live[v >> 5] is 1 + the last slot at which any
+//     of the warp's 32 consecutive nodes stores a neighbour (0 for none),
+//     computed once per graph and device by the host
+//     (repro_torch/kernels/bfs.py::ell_live_widths, B6's live_widths of
+//     the (1, width, n) view); a thread walks only up to it.  On uniform21
+//     (Poisson in-degrees, width 40) the warps' walks cover 0.645 of the
+//     stored slots.  A PAD slot inside the walk is still skipped;
+//   * U slots a round (UNROLL_ELL): first the U id loads,
+//     evict-first (__ldcs: the ids are read once and leave the L2 to the
+//     state), then the U state reads of the non-PAD ones, then the tests or
+//     adds, so a thread keeps U loads in flight where a one-slot loop had
+//     one round trip a slot;
+//   * B4 tests a neighbour against a frontier bitmap, not its distance: a
+//     first launch (bfs_frontier_kernel) packs dist == level - 1 into
+//     ceil(n / 32) words with one __ballot_sync a warp (256 KB at 2M
+//     nodes, 8 MB of dist read once).  A 32 B sector of the bitmap covers
+//     256 nodes, so the bit tests stay in L1 / L2 where the int32 gathers
+//     took one sector a neighbour.  A node not at INF writes its distance
+//     back without walking; a node at INF stops after the first round with
+//     a hit and writes level or INF.  Exact, equal to the one-slot walk;
+//   * B5 adds each node's contributions in ascending w, skipping PAD: the
+//     one-slot loop's order, so its sum is bit-equal to it, and writes
+//     base + d * (pulled + dangling_term).  The fp64 gathers (16.7 MB at
+//     2M nodes, inside the L2) stay one 32 B sector a neighbour: on a
+//     uniform random graph no layout removes them, so the L2's random
+//     sector rate is B5's practical floor (scripts/graph_ell_variants.py
+//     reads it as B5 with every id taken mod 2048).
+//
+// B3 (SELL, k state columns), where a state row is 16 B or less and its
+// bucket is not split (k_tile 1 / 2 fp64, 1 .. 4 int32): one thread a node
+// (bfs_step_kernel / pagerank_step_kernel):
+//   * a thread reads its node id from the bucket's node map, walks its W
+//     in-neighbour slots in ascending w and keeps K_TILE state columns in
+//     registers (K_TILE a template parameter; grid.y walks the column
+//     tiles), then writes out[node] directly (the scatter to node order is
+//     fused).  Padding lanes carry node id n and return before any read or
+//     write, so the dump slot keeps the value the wrapper put there (INF
+//     for BFS, 0 for PageRank) and no two threads write one address;
 //   * BFS reads the old distances and writes a fresh buffer (the host loop
 //     compares old with new).  A thread first loads its own K_TILE
 //     distances; only the columns still at INF search the in-neighbours
 //     (a bitmask), and the walk stops once each of them has found a
-//     neighbour on level - 1.  On the first level from the sources every
-//     node searches its whole in-list, so the byte count above holds;
+//     neighbour on level - 1;
 //   * PageRank keeps K_TILE fp64 partial sums, added in ascending w, and
 //     writes base + d * (pulled + dangling_term) per column, the constants
-//     read from a (3, ld) array (ld = 1 broadcasts one configuration).
-//   * B4 / B5, and B3 where a state row is 16 B or less and its bucket is
-//     not split (k_tile 1 / 2 fp64, 1 .. 4 int32), run the body above: one
-//     thread a node.  On those B3 buckets the group form below, at one
-//     lane a node, was slower (uniform21 at k = 1, chip_smoke.py timings on
-//     an NVIDIA H100 80GB HBM3 at 700 W: BFS 0.69-0.72 ms against
-//     0.47-0.52, PageRank 0.46-0.48 against 0.38-0.42); it loads row 0 for
-//     each PAD slot and votes each step, where this body skips PAD slots.
+//     read from a (3, ld) array (ld = 1 broadcasts one configuration);
+//   * on those buckets the group form below, at one lane a node, was
+//     slower (uniform21 at k = 1, chip_smoke.py timings on an NVIDIA H100
+//     80GB HBM3 at 700 W: BFS 0.69-0.72 ms against 0.47-0.52, PageRank
+//     0.46-0.48 against 0.38-0.42); it loads row 0 for each PAD slot and
+//     votes each step, where this body skips PAD slots.
 //
 // B3's group form (bfs_group_step_kernel / pagerank_group_step_kernel) for the rest:
 //   * lanes across the state columns: a node is served by a group of G
@@ -79,9 +105,11 @@
 //     to the unsplit walk).
 //
 // The host wrappers are repro_torch/kernels/bfs.py and pagerank.py (through
-// sell_core.bucketed_node_step for SELL); they allocate the output, validate
-// device, dtype, shape and strides, skip empty buckets and raise on a
-// non-zero return code.
+// sell_core.bucketed_node_step for SELL); they allocate the output (and
+// B4's frontier words), validate device, dtype, shape and strides, skip
+// empty buckets and raise on a non-zero return code.  Neighbour-id bounds
+// and the live widths' range are the preflight's job
+// (repro_torch/analysis/preflight.py::plan_bfs_ell and friends).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -93,20 +121,20 @@ constexpr int32_t kInf = 0x7fffffff;
 constexpr int kMaxThreads = 1024;
 constexpr int64_t kMaxGridY = 65535;
 
-template <bool kSell, int K_TILE>
+template <int K_TILE>
 __global__ void bfs_step_kernel(const int32_t* __restrict__ adj,
-                                const int32_t* __restrict__ nodes,  // SELL: (S, C)
+                                const int32_t* __restrict__ nodes,  // (S, C)
                                 const int32_t* __restrict__ dist,   // (rows, ld)
                                 int32_t* __restrict__ out,          // (rows, ld)
                                 int32_t level,
                                 int64_t n_lanes,   // S * C
                                 int64_t width,     // W
-                                int64_t c,         // slice height (n for ELLPACK)
+                                int64_t c,         // slice height
                                 int64_t ld,        // state columns
                                 int64_t n_nodes) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n_lanes) return;
-  const int64_t v = kSell ? static_cast<int64_t>(__ldg(nodes + t)) : t;
+  const int64_t v = static_cast<int64_t>(__ldg(nodes + t));
   if (v >= n_nodes) return;  // padding lane: the dump slot stays as it is
   const int64_t s = t / c;
   const int64_t lane = t - s * c;
@@ -139,9 +167,9 @@ __global__ void bfs_step_kernel(const int32_t* __restrict__ adj,
   for (int kk = 0; kk < K_TILE; ++kk) o[kk] = ((hit >> kk) & 1u) ? level : mine[kk];
 }
 
-template <bool kSell, int K_TILE>
+template <int K_TILE>
 __global__ void pagerank_step_kernel(const int32_t* __restrict__ adj,
-                                     const int32_t* __restrict__ nodes,   // SELL: (S, C)
+                                     const int32_t* __restrict__ nodes,   // (S, C)
                                      const double* __restrict__ contrib,  // (rows, ld)
                                      const double* __restrict__ consts,   // (3, ld)
                                      double* __restrict__ out,            // (rows, ld)
@@ -149,7 +177,7 @@ __global__ void pagerank_step_kernel(const int32_t* __restrict__ adj,
                                      int64_t ld, int64_t n_nodes) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n_lanes) return;
-  const int64_t v = kSell ? static_cast<int64_t>(__ldg(nodes + t)) : t;
+  const int64_t v = static_cast<int64_t>(__ldg(nodes + t));
   if (v >= n_nodes) return;  // padding lane: the dump slot stays 0
   const int64_t s = t / c;
   const int64_t lane = t - s * c;
@@ -383,6 +411,91 @@ __global__ void __launch_bounds__(kMaxGroupThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// B4 / B5: ELLPACK, one thread a node, up to its warp's live width
+// ---------------------------------------------------------------------------
+
+// Slots a thread loads before it tests (B4) or adds (B5) them: the best of
+// 4 / 8 / 16 for both at uniform21 on an H100 80GB HBM3 at 700 W
+// (scripts/graph_ell_variants.py: B4's walk 0.134 / 0.149 / 0.164 ms, B5
+// 0.294 / 0.305 / 0.327 ms at 128 threads).
+constexpr int UNROLL_ELL = 4;
+
+// B4's frontier pass: bit (v & 31) of word v >> 5 is dist[v] == prev.  A
+// warp's 32 consecutive nodes are exactly one word, so lane 0 writes it
+// and no atomics are needed; lanes past n_nodes vote 0.
+__global__ void bfs_frontier_kernel(const int32_t* __restrict__ dist,
+                                    uint32_t* __restrict__ frontier, int32_t prev,
+                                    int64_t n_nodes) {
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const uint32_t word = __ballot_sync(0xffffffffu, v < n_nodes && __ldg(dist + v) == prev);
+  if ((threadIdx.x & 31) == 0 && v < n_nodes) frontier[v >> 5] = word;
+}
+
+// B4's walk: a node still at INF tests U in-neighbours a round against the
+// frontier bitmap (their U ids loaded first, evict-first) and stops after
+// the first round with a hit; every other node keeps its distance.
+template <int U>
+__global__ void bfs_ell_kernel(const int32_t* __restrict__ adj,         // (width, n)
+                               const int32_t* __restrict__ live,        // (ceil(n / 32),)
+                               const uint32_t* __restrict__ frontier,   // (ceil(n / 32),)
+                               const int32_t* __restrict__ dist,        // (n,)
+                               int32_t* __restrict__ out,               // (n,)
+                               int32_t level, int64_t n_nodes) {
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (v >= n_nodes) return;
+  const int32_t mine = __ldg(dist + v);
+  if (mine != kInf) {
+    out[v] = mine;
+    return;
+  }
+  const int wl = __ldg(live + (v >> 5));
+  const int32_t* a = adj + v;
+  bool hit = false;
+  for (int w = 0; w < wl && !hit; w += U) {
+    int32_t u[U];
+    uint32_t word[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i)
+      u[i] = w + i < wl ? __ldcs(a + static_cast<int64_t>(w + i) * n_nodes) : kPad;
+#pragma unroll
+    for (int i = 0; i < U; ++i) word[i] = u[i] != kPad ? __ldg(frontier + (u[i] >> 5)) : 0u;
+#pragma unroll
+    for (int i = 0; i < U; ++i) hit |= ((word[i] >> (u[i] & 31)) & 1u) != 0;
+  }
+  out[v] = hit ? level : kInf;
+}
+
+// B5: U ids a round (evict-first), then the U contribution gathers of the
+// non-PAD ones (contrib stays in the L2), then the adds in ascending w: the
+// order of a one-slot loop, so each node's sum is bit-equal to it.
+template <int U>
+__global__ void pagerank_ell_kernel(const int32_t* __restrict__ adj,      // (width, n)
+                                    const int32_t* __restrict__ live,     // (ceil(n / 32),)
+                                    const double* __restrict__ contrib,   // (n,)
+                                    const double* __restrict__ consts,    // (3,)
+                                    double* __restrict__ out,             // (n,)
+                                    int64_t n_nodes) {
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (v >= n_nodes) return;
+  const int wl = __ldg(live + (v >> 5));
+  const int32_t* a = adj + v;
+  double acc = 0.0;
+  for (int w = 0; w < wl; w += U) {
+    int32_t u[U];
+    double c[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i)
+      u[i] = w + i < wl ? __ldcs(a + static_cast<int64_t>(w + i) * n_nodes) : kPad;
+#pragma unroll
+    for (int i = 0; i < U; ++i) c[i] = u[i] != kPad ? __ldg(contrib + u[i]) : 0.0;
+#pragma unroll
+    for (int i = 0; i < U; ++i)
+      if (u[i] != kPad) acc += c[i];
+  }
+  out[v] = __ldg(consts) + __ldg(consts + 1) * (acc + __ldg(consts + 2));
+}
+
 // Lanes a group of the form serving a k_tile of this state type.
 template <typename T>
 int group_of(int k_tile) {
@@ -398,6 +511,12 @@ bool bad_split(int threads, int parts, int group) {
 bool bad_shape(int64_t n_lanes, int64_t width, int64_t ld, int k_tile, int threads) {
   return n_lanes <= 0 || width < 0 || ld <= 0 || k_tile <= 0 || ld % k_tile != 0 ||
          ld / k_tile > kMaxGridY || threads <= 0 || threads > kMaxThreads;
+}
+
+// B4 / B5 launches: blocks of whole warps (the frontier's ballot, the live
+// widths a warp).
+bool bad_ell(int64_t n_nodes, int threads) {
+  return n_nodes <= 0 || threads <= 0 || threads > kMaxThreads || threads % 32 != 0;
 }
 
 dim3 grid_of(int64_t n_lanes, int64_t ld, int k_tile, int threads) {
@@ -435,7 +554,7 @@ int repro_bfs_sell_bucket(const void* adj, const void* nodes, const void* dist, 
     switch (k_tile) {
 #define REPRO_BFS_CASE(K)                                                          \
   case K:                                                                          \
-    bfs_step_kernel<true, K><<<grid, block, 0, st>>>(a, m, d, o, level, n_lanes,  \
+    bfs_step_kernel<K><<<grid, block, 0, st>>>(a, m, d, o, level, n_lanes,  \
                                                      width, c, ld, n_nodes);      \
     break;
       REPRO_BFS_CASE(1)
@@ -496,7 +615,7 @@ int repro_pagerank_sell_bucket(const void* adj, const void* nodes, const void* c
     switch (k_tile) {
 #define REPRO_PR_CASE(K)                                                               \
   case K:                                                                              \
-    pagerank_step_kernel<true, K><<<grid, block, 0, st>>>(a, m, x, k, o, n_lanes,     \
+    pagerank_step_kernel<K><<<grid, block, 0, st>>>(a, m, x, k, o, n_lanes,     \
                                                           width, c, ld, n_nodes);     \
     break;
       REPRO_PR_CASE(1)
@@ -529,33 +648,53 @@ int repro_pagerank_sell_bucket(const void* adj, const void* nodes, const void* c
   return static_cast<int>(cudaGetLastError());
 }
 
-// One BFS level on an ELLPACK in-adjacency stored (width, n_nodes); dist and
-// out (n_nodes,) int32.
-int repro_bfs_ell_step(const void* adj, const void* dist, void* out, int level,
-                       int64_t n_nodes, int64_t width, int threads, void* stream) {
-  if (bad_shape(n_nodes, width, 1, 1, threads)) {
+// B4's frontier pass for a BFS level: word i of `frontier` ((ceil(n_nodes /
+// 32),) int32) gets bit j set where dist[32 i + j] == level - 1.  Blocks of
+// `threads` threads, a multiple of 32.
+int repro_bfs_frontier(const void* dist, void* frontier, int level, int64_t n_nodes,
+                       int threads, void* stream) {
+  if (bad_ell(n_nodes, threads) || dist == nullptr || frontier == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  bfs_step_kernel<false, 1><<<grid_of(n_nodes, 1, 1, threads), dim3(threads), 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(adj), nullptr, static_cast<const int32_t*>(dist),
-      static_cast<int32_t*>(out), level, n_nodes, width, n_nodes, 1, n_nodes);
+  bfs_frontier_kernel<<<grid_of(n_nodes, 1, 1, threads), dim3(threads), 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(dist), static_cast<uint32_t*>(frontier), level - 1,
+      n_nodes);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One PageRank power step on an ELLPACK reverse adjacency stored (width,
-// n_nodes); contrib and out (n_nodes,) float64, consts (3,) float64.
-int repro_pagerank_ell_step(const void* adj, const void* contrib, const void* consts,
-                            void* out, int64_t n_nodes, int64_t width, int threads,
-                            void* stream) {
-  if (bad_shape(n_nodes, width, 1, 1, threads)) {
+// One BFS level (B4's walk) on an ELLPACK in-adjacency stored (width,
+// n_nodes), live (ceil(n_nodes / 32),) int32 each warp's live width (at
+// most width), frontier the level's repro_bfs_frontier words; dist and out
+// (n_nodes,) int32.
+int repro_bfs_ell_step(const void* adj, const void* live, const void* frontier,
+                       const void* dist, void* out, int level, int64_t n_nodes,
+                       int threads, void* stream) {
+  if (bad_ell(n_nodes, threads) || live == nullptr || frontier == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  pagerank_step_kernel<false, 1><<<grid_of(n_nodes, 1, 1, threads), dim3(threads), 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(adj), nullptr, static_cast<const double*>(contrib),
-      static_cast<const double*>(consts), static_cast<double*>(out), n_nodes, width,
-      n_nodes, 1, n_nodes);
+  bfs_ell_kernel<UNROLL_ELL><<<grid_of(n_nodes, 1, 1, threads), dim3(threads), 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(adj), static_cast<const int32_t*>(live),
+      static_cast<const uint32_t*>(frontier), static_cast<const int32_t*>(dist),
+      static_cast<int32_t*>(out), level, n_nodes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One PageRank power step (B5) on an ELLPACK reverse adjacency stored
+// (width, n_nodes), live as for BFS; contrib and out (n_nodes,) float64,
+// consts (3,) float64.
+int repro_pagerank_ell_step(const void* adj, const void* live, const void* contrib,
+                            const void* consts, void* out, int64_t n_nodes, int threads,
+                            void* stream) {
+  if (bad_ell(n_nodes, threads) || live == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  pagerank_ell_kernel<UNROLL_ELL><<<grid_of(n_nodes, 1, 1, threads), dim3(threads), 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(adj), static_cast<const int32_t*>(live),
+      static_cast<const double*>(contrib), static_cast<const double*>(consts),
+      static_cast<double*>(out), n_nodes);
   return static_cast<int>(cudaGetLastError());
 }
 

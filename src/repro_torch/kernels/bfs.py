@@ -6,8 +6,10 @@ in-neighbours sits on the previous level.  Two layouts, one CUDA source
 (``csrc/graph_step.cu``):
 
 * :func:`bfs_step` — one level over an ELLPACK in-adjacency ``(n, width)``,
-  kernel B4 (``repro_bfs_ell_step``); :func:`bfs` drives it to the fixed
-  point from one source.
+  kernel B4: a frontier pass (``repro_bfs_frontier``, the bitmap of the
+  previous level, :func:`bfs_frontier`) and the walk (``repro_bfs_ell_step``,
+  each warp's nodes up to its live width, :func:`ell_live_widths`);
+  :func:`bfs` drives it to the fixed point from one source.
 * :func:`bfs_step_sell` — one level over width-bucketed, in-degree-sorted
   SELL slabs, kernel B3 with the BFS combine (``repro_bfs_sell_bucket``,
   one launch per bucket through
@@ -18,24 +20,29 @@ in-neighbours sits on the previous level.  Two layouts, one CUDA source
 
 On CUDA tensors the steps launch their kernel or raise; on CPU tensors,
 and only there, they run their plain PyTorch versions
-(:func:`bfs_step_ref`, :func:`bfs_step_sell_ref`), which the chip smoke
-run also holds the kernels against on the card.  The host loop stops when
+(:func:`bfs_step_ref`, :func:`bfs_frontier_ref`,
+:func:`bfs_step_sell_ref`), which the chip smoke run also holds the
+kernels against on the card.  The host loop stops when
 a level changes nothing: ``torch.equal`` is one device sync per level.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from repro_torch.core.autotune import NODE_STEP_BLOCK_THREADS, node_split
+from repro_torch.core.autotune import ELL_NODE_BLOCK_THREADS, WARP, node_split
 from repro_torch.graphs.gen import INF, PAD
-from repro_torch.kernels import sell_core
+from repro_torch.kernels import sell_core, spmv
 
 __all__ = [
     "INF",
     "KERNEL_LAUNCHES",
     "PAD",
     "bfs",
+    "bfs_frontier",
+    "bfs_frontier_ref",
     "bfs_ref",
     "bfs_sell",
     "bfs_sell_ref",
@@ -43,12 +50,15 @@ __all__ = [
     "bfs_step_ref",
     "bfs_step_sell",
     "bfs_step_sell_ref",
+    "ell_live_widths",
 ]
 
 #: Launches of the BFS kernels in this process, counted where each kernel
 #: is launched and nowhere else: ``bfs_step_sell`` (B3, one per non-empty
-#: bucket per level) and ``bfs_step`` (B4, one per level).
-KERNEL_LAUNCHES = {"bfs_step_sell": 0, "bfs_step": 0}
+#: bucket per level), ``bfs_step`` (B4's walk, one per level) and
+#: ``bfs_frontier`` (B4's frontier pass, one per level and per
+#: :func:`bfs_frontier` call).
+KERNEL_LAUNCHES = {"bfs_step_sell": 0, "bfs_step": 0, "bfs_frontier": 0}
 
 
 def _level(level) -> int:
@@ -98,30 +108,105 @@ def bfs_step_ref(adj: torch.Tensor, dist: torch.Tensor, level, *,
     return dist.masked_fill((dist == INF) & hit, level)
 
 
-def _launch_ell(adj: torch.Tensor, dist: torch.Tensor, out: torch.Tensor,
+def ell_live_widths(adj: torch.Tensor) -> torch.Tensor:
+    """Each warp's live width of an ELLPACK adjacency ``(n, width)``:
+    entry i is 1 + the last slot at which any of the nodes ``32 i .. 32 i
+    + 31`` stores a neighbour, 0 if none does (PAD may stand anywhere in a
+    row).  Kernel B6's :func:`repro_torch.kernels.spmv.live_widths` of the
+    ``(width, n)`` storage viewed as one ``(1, width, n)`` slab, computed
+    on ``adj``'s device; int32 of shape (ceil(n / 32),)."""
+    return spmv.live_widths(adj.t().contiguous()[None])
+
+
+def _check_live(adj: torch.Tensor, live: torch.Tensor) -> None:
+    """The live-width array of an ``(n, width)`` adjacency: dtype, shape,
+    device and contiguity (its range is the preflight's job)."""
+    spmv._check_live(adj.t()[None], live)
+
+
+def bfs_frontier_ref(dist: torch.Tensor, level) -> torch.Tensor:
+    """The frontier bitmap of a BFS level in plain PyTorch: word i of the
+    (ceil(n / 32),) int32 result has bit j set where ``dist[32 i + j] ==
+    level - 1``."""
+    level = _level(level)
+    _check_dist(dist)
+    n = dist.shape[0]
+    on = (dist == level - 1).to(torch.int64)
+    on = torch.cat([on, on.new_zeros(-n % WARP)]).view(-1, WARP)
+    words = (on << torch.arange(WARP, device=dist.device)).sum(dim=1)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def _launch_frontier(lib, stream: int, dist: torch.Tensor,
+                     frontier: torch.Tensor, level: int) -> None:
+    """One launch of B4's frontier pass on ``stream``, the current stream
+    of ``dist``'s device (which the caller makes current)."""
+    n = dist.shape[0]
+    err = lib.repro_bfs_frontier(dist.data_ptr(), frontier.data_ptr(), level,
+                                 n, ELL_NODE_BLOCK_THREADS, stream)
+    _raise_on(err, lib, f"bfs_frontier ({n} nodes)")
+    KERNEL_LAUNCHES["bfs_frontier"] += 1
+
+
+def _frontier_words(dist: torch.Tensor) -> torch.Tensor:
+    return torch.empty(-(-dist.shape[0] // WARP), dtype=torch.int32,
+                       device=dist.device)
+
+
+def bfs_frontier(dist: torch.Tensor, level) -> torch.Tensor:
+    """The frontier bitmap of a BFS level (:func:`bfs_frontier_ref`'s
+    function): on the card one launch of B4's frontier pass, a
+    ``__ballot_sync`` a warp of 32 nodes; on the CPU the plain version."""
+    level = _level(level)
+    _check_dist(dist)
+    if dist.ndim != 1:
+        raise ValueError(f"dist must be (n,), got {tuple(dist.shape)}")
+    if dist.device.type == "cpu":
+        return bfs_frontier_ref(dist, level)
+    _require_cuda(dist, "bfs_frontier")
+    dist = dist.contiguous()
+    frontier = _frontier_words(dist)
+    if dist.shape[0]:
+        lib = _graph_lib()
+        with torch.cuda.device(dist.device):
+            _launch_frontier(lib, torch.cuda.current_stream().cuda_stream,
+                             dist, frontier, level)
+    return frontier
+
+
+def _launch_ell(lib, stream: int, adj: torch.Tensor, live: torch.Tensor,
+                frontier: torch.Tensor, dist: torch.Tensor, out: torch.Tensor,
                 level: int) -> None:
-    """One launch of kernel B4; ``adj`` is the (width, n) storage."""
-    lib = _graph_lib()
+    """One launch of B4's walk on ``stream`` (as :func:`_launch_frontier`);
+    ``adj`` is the (width, n) storage."""
     width, n = adj.shape
-    with torch.cuda.device(dist.device):
-        err = lib.repro_bfs_ell_step(
-            adj.data_ptr(), dist.data_ptr(), out.data_ptr(), level, n, width,
-            NODE_STEP_BLOCK_THREADS, torch.cuda.current_stream().cuda_stream)
+    err = lib.repro_bfs_ell_step(
+        adj.data_ptr(), live.data_ptr(), frontier.data_ptr(),
+        dist.data_ptr(), out.data_ptr(), level, n, ELL_NODE_BLOCK_THREADS,
+        stream)
     _raise_on(err, lib, f"bfs_step ({n} nodes, width {width})")
     KERNEL_LAUNCHES["bfs_step"] += 1
 
 
 def bfs_step(adj: torch.Tensor, dist: torch.Tensor, level, *,
-             vl: int = 256) -> torch.Tensor:
+             vl: int = 256,
+             live_width: torch.Tensor | None = None) -> torch.Tensor:
     """One bottom-up BFS level over ELLPACK adjacency (n, width).
 
     ``level`` is an int (or the reference's (1,) array); returns the
-    updated (n,) distances as a new tensor.  On the card one thread per
-    node walks its in-neighbours (kernel B4, 256-thread blocks, the ragged
-    last block masked); ``vl`` is the reference's node block and does not
-    shape the launch.  ``adj`` stored as (width, n) (an
-    :meth:`~repro_torch.graphs.EllpackGraph.to_device` upload) is read in
-    place; any other storage is copied to it first.
+    updated (n,) distances as a new tensor.  On the card two launches of
+    kernel B4: the frontier pass packs ``dist == level - 1`` into a bitmap
+    (:func:`bfs_frontier`), then one thread a node still at INF walks its
+    in-neighbours up to its warp's live width, several ids loaded before
+    their bits are tested, and stops at the first round with a hit; a
+    node not at INF keeps its distance.  ``live_width`` is the
+    adjacency's :func:`ell_live_widths` on the same device (``ops``
+    caches it once per graph); without it the step computes it, a pass
+    over ``adj`` each call.  The CPU path ignores it.  ``vl`` is the
+    reference's node block and does not shape the launch.  ``adj`` stored
+    as (width, n) (an :meth:`~repro_torch.graphs.EllpackGraph.to_device`
+    upload) is read in place; any other storage is copied to it first.
     """
     level = _level(level)
     _check_dist(dist)
@@ -130,6 +215,8 @@ def bfs_step(adj: torch.Tensor, dist: torch.Tensor, level, *,
                          " are not (n, width) / (n,)")
     if adj.dtype != torch.int32 or adj.device != dist.device:
         raise TypeError("adj must be int32 on the distances' device")
+    if live_width is not None:
+        _check_live(adj, live_width)
     if dist.device.type == "cpu":
         return bfs_step_ref(adj, dist, level, vl=vl)
     _require_cuda(dist, "bfs_step")
@@ -137,7 +224,15 @@ def bfs_step(adj: torch.Tensor, dist: torch.Tensor, level, *,
     out = torch.empty_like(dist)
     if dist.shape[0] == 0:
         return out
-    _launch_ell(adj.t().contiguous(), dist, out, level)
+    live = ell_live_widths(adj) if live_width is None else live_width
+    frontier = _frontier_words(dist)
+    store = adj.t().contiguous()
+    lib = _graph_lib()
+    # both launches back to back: nothing but the walk's own launch between
+    with torch.cuda.device(dist.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch_frontier(lib, stream, dist, frontier, level)
+        _launch_ell(lib, stream, store, live, frontier, dist, out, level)
     return out
 
 
@@ -145,7 +240,6 @@ def _bfs_drive(step, adj, source: int, vl: int, max_levels) -> torch.Tensor:
     n = adj.shape[0]
     if not 0 <= int(source) < n:
         raise ValueError(f"source {source} out of range [0, {n})")
-    adj = sell_core.graph_storage(adj)
     dist = torch.full((n,), INF, dtype=torch.int32, device=adj.device)
     dist[int(source)] = 0
     for level in range(1, (max_levels or n) + 1):
@@ -157,20 +251,28 @@ def _bfs_drive(step, adj, source: int, vl: int, max_levels) -> torch.Tensor:
 
 
 def bfs(adj: torch.Tensor, source: int, *, vl: int = 256,
-        max_levels: int | None = None) -> torch.Tensor:
+        max_levels: int | None = None,
+        live_width: torch.Tensor | None = None) -> torch.Tensor:
     """Full BFS: fixed-point iteration of :func:`bfs_step`.
 
     Runs level-synchronous steps until no distance changes (checked on the
     host, one sync per level) or ``max_levels`` is hit.  The adjacency is
-    brought to the kernel's (width, n) storage once, not once per level.
+    brought to the kernel's (width, n) storage once, not once per level,
+    and on the card its live widths are computed once a drive unless
+    ``live_width`` hands them in.
     """
-    return _bfs_drive(bfs_step, adj, source, vl, max_levels)
+    adj = sell_core.graph_storage(adj)
+    if live_width is None and adj.device.type == "cuda":
+        live_width = ell_live_widths(adj)
+    return _bfs_drive(functools.partial(bfs_step, live_width=live_width),
+                      adj, source, vl, max_levels)
 
 
 def bfs_ref(adj: torch.Tensor, source: int, *, vl: int = 256,
             max_levels: int | None = None) -> torch.Tensor:
     """:func:`bfs` driven by the plain step on any device."""
-    return _bfs_drive(bfs_step_ref, adj, source, vl, max_levels)
+    return _bfs_drive(bfs_step_ref, sell_core.graph_storage(adj), source, vl,
+                      max_levels)
 
 
 # ---------------------------------------------------------------------------

@@ -23,10 +23,12 @@ kernels:
   (``spec.dispatch`` ``"sell"`` / ``"auto"``), or materialized and
   multiplied densely (``"dense"``, the reference's counterfactual);
 * ``bfs`` / ``pagerank`` — over the reverse graph, with ``spec.layout``
-  ``"ell"`` (the default: ELLPACK kernels B4 / B5, one launch per level or
-  power step) or ``"sell"`` (kernel B3 with the BFS or PageRank combine,
-  one launch per width bucket per step, k sources or configurations
-  batched as state columns);
+  ``"ell"`` (the default: ELLPACK kernels B4 / B5, two launches per level
+  (B4's frontier pass and walk) or one per power step, each warp's nodes
+  walked up to its live width, cached once per graph and device) or
+  ``"sell"`` (kernel B3 with the BFS or PageRank combine, one launch per
+  width bucket per step, k sources or configurations batched as state
+  columns);
 * ``fft`` — :func:`repro_torch.kernels.fft.fft_stockham`, kernel B7 (one
   launch in its in-block form, two in its two-pass form).
 
@@ -472,16 +474,20 @@ def moe_dispatch(routing: CSRMatrix | SellSlabs, x, *,
 # ---------------------------------------------------------------------------
 
 #: id(graph) -> {"ids": forward SlabMeta (bounds-scanned), "reverse": the
-#: transposed graph, (layout, vl, sigma, device): (meta, tensors, degree)}.
-#: Graphs are treated as immutable, so one graph's id scan, transpose,
-#: packing and upload are paid once however often it is served; an entry
-#: dies with its object.
+#: transposed graph, (layout, vl, sigma, device): (meta, tensors, degree),
+#: and once the ELLPACK layout is uploaded "live": the length and range of
+#: its live widths}.  Graphs are treated as immutable, so one graph's id
+#: scan, transpose, packing, upload and live widths are paid once however
+#: often it is served; an entry dies with its object.
 _PREPARED_GRAPHS: dict[int, dict] = {}
 
 
 def _prepared_graph(graph: EllpackGraph, spec: ExecSpec, device, plan_ids):
     """The reverse graph of ``graph`` in ``spec.layout``, bounds-scanned and
-    uploaded to ``device``: ``(meta, tensors, out_degree)``.
+    uploaded to ``device``: ``(meta, tensors, out_degree)``, ``tensors``
+    ``(adj, nodes)`` bucket tuples for SELL and ``(radj, live)`` for
+    ELLPACK, ``live`` its :func:`repro_torch.kernels.bfs.ell_live_widths`
+    computed on ``device``.
 
     The forward neighbour ids are planned first (``plan_ids``, the
     ELLPACK plan of the calling op), so a corrupt id is refused with a
@@ -508,7 +514,11 @@ def _prepared_graph(graph: EllpackGraph, spec: ExecSpec, device, plan_ids):
         else:
             meta = SlabMeta.from_ell(rgraph.adj, graph.n_nodes,
                                      check_bounds=True)
-            tensors = rgraph.to_device(device)
+            radj = rgraph.to_device(device)
+            live = bfs_k.ell_live_widths(radj)
+            if "live" not in entry:
+                entry["live"] = LiveWidthMeta.from_array(live)
+            tensors = (radj, live)
         deg = torch.from_numpy(graph.out_degree.astype(np.float64)).to(device)
         entry[key] = (meta, tensors, deg)
     return entry[key]
@@ -546,11 +556,13 @@ def bfs(graph: EllpackGraph, source=0, *,
         adj, nodes = tensors
         return _run_profiled("bfs", plan, lambda: bfs_k.bfs_sell(
             adj, nodes, n, source), device)
-    plan = plan_bfs_ell(meta).raise_if_invalid()
+    plan = plan_bfs_ell(
+        meta, live=_PREPARED_GRAPHS[id(graph)]["live"]).raise_if_invalid()
+    radj, live = tensors
     if np.ndim(source) == 0:
         return _run_profiled("bfs", plan, lambda: bfs_k.bfs(
-            tensors, int(source), vl=spec.vl), device)
-    return torch.stack([bfs_k.bfs(tensors, int(s), vl=spec.vl)
+            radj, int(source), vl=spec.vl, live_width=live), device)
+    return torch.stack([bfs_k.bfs(radj, int(s), vl=spec.vl, live_width=live)
                         for s in np.asarray(source)], dim=1)
 
 
@@ -578,15 +590,17 @@ def pagerank(graph: EllpackGraph, *, damping=0.85, iters=20,
         radj, nodes = tensors
         return _run_profiled("pagerank", plan, lambda: pr_k.pagerank_sell(
             radj, nodes, deg, n, damping=damping, iters=iters), device)
-    plan = plan_pagerank_ell(meta).raise_if_invalid()
+    plan = plan_pagerank_ell(
+        meta, live=_PREPARED_GRAPHS[id(graph)]["live"]).raise_if_invalid()
+    radj, live = tensors
     if np.ndim(damping) == 0 and np.ndim(iters) == 0:
         return _run_profiled("pagerank", plan, lambda: pr_k.pagerank(
-            tensors, deg, damping=float(damping), iters=int(iters),
-            vl=spec.vl), device)
+            radj, deg, damping=float(damping), iters=int(iters),
+            vl=spec.vl, live_width=live), device)
     dampings, iters_arr = pr_k.broadcast_configs(damping, iters)
     return torch.stack([
-        pr_k.pagerank(tensors, deg, damping=float(d), iters=int(it),
-                      vl=spec.vl)
+        pr_k.pagerank(radj, deg, damping=float(d), iters=int(it),
+                      vl=spec.vl, live_width=live)
         for d, it in zip(dampings, iters_arr)], dim=1)
 
 

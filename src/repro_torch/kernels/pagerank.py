@@ -7,7 +7,9 @@ Port of ``repro.kernels.pagerank``.  One power step pulls the contributions
 source (``csrc/graph_step.cu``):
 
 * :func:`pagerank_step` — one step over an ELLPACK reverse adjacency
-  ``(n, width)``, kernel B5 (``repro_pagerank_ell_step``);
+  ``(n, width)``, kernel B5 (``repro_pagerank_ell_step``: each warp's
+  nodes up to its live width, :func:`~repro_torch.kernels.bfs
+  .ell_live_widths`);
   :func:`pagerank` drives ``iters`` of them for one configuration.
 * :func:`pagerank_step_sell` — one step over width-bucketed,
   in-degree-sorted SELL slabs, kernel B3 with the PageRank combine
@@ -26,13 +28,21 @@ PyTorch versions (:func:`pagerank_step_ref`, :func:`pagerank_step_sell_ref`).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from repro_torch.core.autotune import NODE_STEP_BLOCK_THREADS, node_split
+from repro_torch.core.autotune import ELL_NODE_BLOCK_THREADS, node_split
 from repro_torch.graphs.gen import PAD
 from repro_torch.kernels import sell_core
-from repro_torch.kernels.bfs import _graph_lib, _raise_on, _require_cuda
+from repro_torch.kernels.bfs import (
+    _check_live,
+    _graph_lib,
+    _raise_on,
+    _require_cuda,
+    ell_live_widths,
+)
 
 __all__ = [
     "KERNEL_LAUNCHES",
@@ -91,27 +101,34 @@ def pagerank_step_ref(radj: torch.Tensor, contrib: torch.Tensor,
     return _combine(pulled, consts)
 
 
-def _launch_ell(radj: torch.Tensor, contrib: torch.Tensor,
+def _launch_ell(radj: torch.Tensor, live: torch.Tensor, contrib: torch.Tensor,
                 consts: torch.Tensor, out: torch.Tensor) -> None:
     """One launch of kernel B5; ``radj`` is the (width, n) storage."""
     lib = _graph_lib()
     width, n = radj.shape
     with torch.cuda.device(contrib.device):
         err = lib.repro_pagerank_ell_step(
-            radj.data_ptr(), contrib.data_ptr(), consts.data_ptr(),
-            out.data_ptr(), n, width, NODE_STEP_BLOCK_THREADS,
+            radj.data_ptr(), live.data_ptr(), contrib.data_ptr(),
+            consts.data_ptr(), out.data_ptr(), n, ELL_NODE_BLOCK_THREADS,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, lib, f"pagerank_step ({n} nodes, width {width})")
     KERNEL_LAUNCHES["pagerank_step"] += 1
 
 
 def pagerank_step(radj: torch.Tensor, contrib: torch.Tensor,
-                  consts: torch.Tensor, *, vl: int = 256) -> torch.Tensor:
+                  consts: torch.Tensor, *, vl: int = 256,
+                  live_width: torch.Tensor | None = None) -> torch.Tensor:
     """One power-iteration step over ELLPACK reverse adjacency (n, width).
 
     ``contrib`` is (n,) float64, ``consts`` = [(1-d)/n, d, dangling_mass/n]
-    as a (3,) float64 tensor on the same device.  On the card one thread
-    per node sums its in-neighbours' contributions (kernel B5); ``vl`` is
+    as a (3,) float64 tensor on the same device.  On the card one launch
+    of kernel B5: one thread a node walks its in-neighbours up to its
+    warp's live width, several ids loaded before their contributions are
+    gathered, and adds them in ascending slot order (bit-equal to a
+    one-slot walk).  ``live_width`` is the adjacency's
+    :func:`~repro_torch.kernels.bfs.ell_live_widths` on the same device
+    (``ops`` caches it once per graph); without it the step computes it,
+    a pass over ``radj`` each call.  The CPU path ignores it.  ``vl`` is
     the reference's node block and does not shape the launch.
     """
     _check_state(contrib, consts)
@@ -120,6 +137,8 @@ def pagerank_step(radj: torch.Tensor, contrib: torch.Tensor,
                          f"{tuple(contrib.shape)} are not (n, width) / (n,)")
     if radj.dtype != torch.int32 or radj.device != contrib.device:
         raise TypeError("radj must be int32 on the contributions' device")
+    if live_width is not None:
+        _check_live(radj, live_width)
     if contrib.device.type == "cpu":
         return pagerank_step_ref(radj, contrib, consts, vl=vl)
     _require_cuda(contrib, "pagerank_step")
@@ -127,7 +146,8 @@ def pagerank_step(radj: torch.Tensor, contrib: torch.Tensor,
     out = torch.empty_like(contrib)
     if contrib.shape[0] == 0:
         return out
-    _launch_ell(radj.t().contiguous(), contrib, consts, out)
+    live = ell_live_widths(radj) if live_width is None else live_width
+    _launch_ell(radj.t().contiguous(), live, contrib, consts, out)
     return out
 
 
@@ -135,7 +155,6 @@ def _pagerank_drive(step, radj, out_degree, damping: float, iters: int,
                     vl: int, n_real) -> torch.Tensor:
     n0 = radj.shape[0]
     n = n_real if n_real is not None else n0
-    radj = sell_core.graph_storage(radj)
     device = radj.device
     real = torch.arange(n0, device=device) < n
     rank = real.to(RANK_DTYPE) * (1.0 / n)
@@ -152,24 +171,30 @@ def _pagerank_drive(step, radj, out_degree, damping: float, iters: int,
 
 def pagerank(radj: torch.Tensor, out_degree: torch.Tensor, *,
              damping: float = 0.85, iters: int = 20, vl: int = 256,
-             n_real: int | None = None) -> torch.Tensor:
+             n_real: int | None = None,
+             live_width: torch.Tensor | None = None) -> torch.Tensor:
     """Full PageRank: ``iters`` power steps over the reverse adjacency.
 
     ``out_degree`` is the (n,) out-degree vector; ``n_real`` excludes
     padding nodes (rows beyond it) from the rank mass and the dangling sum.
     The adjacency is brought to the kernel's (width, n) storage once, not
-    once per step.
+    once per step, and on the card its live widths are computed once a
+    drive unless ``live_width`` hands them in.
     """
-    return _pagerank_drive(pagerank_step, radj, out_degree, damping, iters,
-                           vl, n_real)
+    radj = sell_core.graph_storage(radj)
+    if live_width is None and radj.device.type == "cuda":
+        live_width = ell_live_widths(radj)
+    return _pagerank_drive(
+        functools.partial(pagerank_step, live_width=live_width), radj,
+        out_degree, damping, iters, vl, n_real)
 
 
 def pagerank_ref(radj: torch.Tensor, out_degree: torch.Tensor, *,
                  damping: float = 0.85, iters: int = 20, vl: int = 256,
                  n_real: int | None = None) -> torch.Tensor:
     """:func:`pagerank` driven by the plain step on any device."""
-    return _pagerank_drive(pagerank_step_ref, radj, out_degree, damping,
-                           iters, vl, n_real)
+    return _pagerank_drive(pagerank_step_ref, sell_core.graph_storage(radj),
+                           out_degree, damping, iters, vl, n_real)
 
 
 # ---------------------------------------------------------------------------

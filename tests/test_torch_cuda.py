@@ -439,19 +439,52 @@ def test_graph_sell_split_buckets_match_plain_versions(cuda_device, c):
 
 @pytest.mark.cuda
 def test_graph_ell_kernels_and_ops_match_host_references(cuda_device):
-    """B4 / B5 against their plain versions, and ``ops.bfs`` /
-    ``ops.pagerank`` on both layouts against the host references."""
+    """B4 (its frontier pass and walk) / B5 against their plain versions,
+    and ``ops.bfs`` / ``ops.pagerank`` on both layouts against the host
+    references."""
     from repro_torch.graphs import gen as G
     from repro_torch.kernels import bfs, pagerank
 
     g, rg = _graph_case(G, n=4093)
     radj = rg.to_device(cuda_device)
     deg = torch.from_numpy(g.out_degree.astype(np.float64)).to(cuda_device)
-    before = bfs.KERNEL_LAUNCHES["bfs_step"]
+    before = dict(bfs.KERNEL_LAUNCHES)
     dist = bfs.bfs(radj, 11)
-    assert bfs.KERNEL_LAUNCHES["bfs_step"] > before
+    levels = int(dist[dist != G.INF].max()) + 1
+    for key in ("bfs_step", "bfs_frontier"):
+        assert bfs.KERNEL_LAUNCHES[key] == before[key] + levels
     assert torch.equal(dist, bfs.bfs_ref(radj, 11))
     np.testing.assert_array_equal(dist.cpu().numpy(), G.bfs_reference(g, 11))
+    # B4 level by level, from several sources, on this adjacency and on a
+    # holey one (PAD inside rows, the warp of nodes 32 .. 63 all PAD); B5
+    # twice on each, bit-equal, and at rtol 1e-10 of its plain version
+    holey = rg.adj.copy()
+    holey[np.random.default_rng(3).random(holey.shape) < 0.25] = G.PAD
+    holey[32:64] = G.PAD
+    for adj in (radj, G.EllpackGraph(adj=holey, n_nodes=4093)
+                .to_device(cuda_device)):
+        live = bfs.ell_live_widths(adj)
+        for src in (0, 11, 2000, 4092):
+            d = torch.full((4093,), G.INF, dtype=torch.int32,
+                           device=cuda_device)
+            d[src] = 0
+            for level in range(1, 64):
+                front = bfs.bfs_frontier(d, level)
+                assert torch.equal(front, bfs.bfs_frontier_ref(d, level))
+                got = bfs.bfs_step(adj, d, level, live_width=live)
+                assert torch.equal(got, bfs.bfs_step_ref(adj, d, level))
+                assert torch.equal(got, bfs.bfs_step(adj, d, level))
+                if torch.equal(got, d):
+                    break
+                d = got
+        contrib = torch.from_numpy(np.random.default_rng(4).random(4093)).to(
+            cuda_device)
+        consts = torch.tensor([0.15 / 4093, 0.85, 1e-5], dtype=torch.float64,
+                              device=cuda_device)
+        got = pagerank.pagerank_step(adj, contrib, consts, live_width=live)
+        assert torch.equal(got, pagerank.pagerank_step(adj, contrib, consts))
+        torch.testing.assert_close(got, pagerank.pagerank_step_ref(
+            adj, contrib, consts), rtol=1e-10, atol=0)
     rank = pagerank.pagerank(radj, deg, damping=0.9, iters=7)
     torch.testing.assert_close(rank, pagerank.pagerank_ref(
         radj, deg, damping=0.9, iters=7), rtol=1e-10, atol=0)

@@ -26,6 +26,7 @@ from repro.kernels import pagerank as ref_pr
 from repro.kernels.execspec import ExecSpec as RefExecSpec
 from repro_torch.analysis import (
     LaunchPlanError,
+    LiveWidthMeta,
     SlabMeta,
     plan_bfs_ell,
     plan_bfs_sell,
@@ -152,10 +153,37 @@ def test_node_k_tile_divides_every_k():
 # ---------------------------------------------------------------------------
 
 
+def _holey_adj(adj: np.ndarray, seed: int) -> np.ndarray:
+    """An (n, width) ELLPACK adjacency with PAD punched into a quarter of
+    its slots, inside rows too, and the nodes 32 .. 63 (one warp) all
+    PAD."""
+    out = adj.copy()
+    out[np.random.default_rng(seed).random(out.shape) < 0.25] = PAD
+    out[32:64] = PAD
+    return out
+
+
+def _live_count_adj(adj: np.ndarray) -> np.ndarray:
+    """Live widths of an (n, width) adjacency counted in numpy: per 32
+    consecutive nodes, 1 + the last slot holding a neighbour."""
+    slots = np.arange(1, adj.shape[1] + 1)
+    rows = np.where(adj != PAD, slots, 0).max(axis=1, initial=0)
+    rows = np.pad(rows, (0, -len(rows) % 32))
+    return rows.reshape(-1, 32).max(axis=1)
+
+
+@pytest.mark.parametrize("holey", [False, True])
 @pytest.mark.parametrize("n", [256, 263])
-def test_ell_steps_match_reference_kernels(n):
+def test_ell_steps_match_reference_kernels(n, holey):
+    """B4 / B5's plain paths against the reference's kernels; the holey
+    adjacency (PAD inside rows, an all-PAD warp) is stepped with its live
+    widths handed in, as ``ops`` hands them."""
     ref, port = _pair("rmat", n, 8, 2)
     radj = ref.transpose().adj
+    live = {}
+    if holey:
+        radj = _holey_adj(radj, n)
+        live = {"live_width": bfs.ell_live_widths(_t(radj))}
     rng = np.random.default_rng(n)
     dist = np.full(n, INF, np.int32)
     dist[rng.choice(n, 5, replace=False)] = 0
@@ -163,7 +191,7 @@ def test_ell_steps_match_reference_kernels(n):
         want = np.asarray(ref_bfs.bfs_step(
             jnp.asarray(radj), jnp.asarray(dist),
             jnp.array([level], jnp.int32), vl=64, interpret=True))
-        got = bfs.bfs_step(_t(radj), _t(dist), level, vl=64)
+        got = bfs.bfs_step(_t(radj), _t(dist), level, vl=64, **live)
         assert got.dtype == torch.int32
         assert np.array_equal(got.numpy(), want)
         dist = want
@@ -172,8 +200,43 @@ def test_ell_steps_match_reference_kernels(n):
     want = np.asarray(ref_pr.pagerank_step(
         jnp.asarray(radj), jnp.asarray(contrib), jnp.asarray(consts), vl=64,
         interpret=True))
-    got = pagerank.pagerank_step(_t(radj), _t(contrib), _t(consts), vl=64)
+    got = pagerank.pagerank_step(_t(radj), _t(contrib), _t(consts), vl=64,
+                                 **live)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 263])
+def test_bfs_frontier_matches_a_numpy_packing(n):
+    """B4's frontier bitmap: bit j of word i is dist[32 i + j] == level - 1,
+    the ragged last word padded with zeros."""
+    rng = np.random.default_rng(n)
+    dist = rng.choice(np.array([0, 1, 2, INF], np.int32), n)
+    for level in (1, 2, 3):
+        bits = np.pad(dist == level - 1, (0, -n % 32))
+        want = np.packbits(bits, bitorder="little").view("<u4").view(np.int32)
+        got = bfs.bfs_frontier_ref(_t(dist), level)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (-(-n // 32),)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert torch.equal(bfs.bfs_frontier(_t(dist), level), got)  # CPU
+
+
+def test_ell_live_widths_match_a_numpy_count():
+    """A graph's live widths (B6's, over the (1, width, n) view) against a
+    numpy count, on a plain, a holey (PAD inside rows, an all-PAD warp)
+    and a ragged (n not a multiple of 32) adjacency."""
+    for n, seed in ((256, 1), (263, 2)):
+        radj = _pair("uniform", n, 8, seed)[1].transpose().adj
+        for adj in (radj, _holey_adj(radj, seed)):
+            for t in (_t(adj), G.EllpackGraph(adj=adj, n_nodes=n)
+                      .to_device("cpu")):                 # (width, n) storage
+                got = bfs.ell_live_widths(t)
+                assert got.dtype == torch.int32 and got.is_contiguous()
+                np.testing.assert_array_equal(got.numpy(),
+                                              _live_count_adj(adj))
+    assert _live_count_adj(_holey_adj(radj, 2))[1] == 0     # the PAD warp
+    with pytest.raises(ValueError, match="live widths of shape"):
+        bfs.bfs_step(_t(radj), torch.zeros(n, dtype=torch.int32), 1,
+                     live_width=torch.zeros(3, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("c", [8, 32])
@@ -434,6 +497,38 @@ def test_ops_graph_prep_happens_once_per_graph(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
+def test_ops_computes_live_widths_once_per_graph_and_device(monkeypatch):
+    """``ops`` computes an ELLPACK graph's live widths beside its upload,
+    once per graph and device, hands them to every drive, and plans them;
+    the SELL layout never computes them."""
+    calls = {"n": 0}
+    real = bfs.ell_live_widths
+
+    def counting(adj):
+        calls["n"] += 1
+        return real(adj)
+
+    monkeypatch.setattr(bfs, "ell_live_widths", counting)
+    handed = []
+    real_bfs, real_pr = bfs.bfs, pagerank.pagerank
+    monkeypatch.setattr(bfs, "bfs", lambda *a, **kw: (
+        handed.append(kw["live_width"]), real_bfs(*a, **kw))[1])
+    monkeypatch.setattr(pagerank, "pagerank", lambda *a, **kw: (
+        handed.append(kw["live_width"]), real_pr(*a, **kw))[1])
+    _, port = _pair("uniform", 200, 6, 19)
+    for layout in ("sell", "ell", "ell"):
+        spec = dataclasses.replace(CPU, layout=layout, vl=8)
+        ops.bfs(port, 0, spec=spec)
+        ops.bfs(port, [0, 5], spec=spec)
+        ops.pagerank(port, iters=2, spec=spec)
+    assert calls["n"] == 1
+    assert len(handed) == 8 and all(h is handed[0] for h in handed)
+    want = _live_count_adj(port.transpose().adj)
+    np.testing.assert_array_equal(handed[0].numpy(), want)
+    meta = ops._PREPARED_GRAPHS[id(port)]["live"]
+    assert (meta.n, meta.lo, meta.hi) == (len(want), want.min(), want.max())
+
+
 def test_graph_plans_mirror_the_kernel_launch():
     _, port = _pair("rmat", 300, 8, 16)
     slabs = G.graph_to_sell_slabs(port.transpose(), c=32)
@@ -453,10 +548,24 @@ def test_graph_plans_mirror_the_kernel_launch():
                 assert b.smem_bytes == split.smem_bytes
                 assert split.threads <= 1024
                 assert split.group == max(1, k_tile * itemsize // 16)
-    ell = plan_bfs_ell(SlabMeta.from_ell(port.transpose().adj, 300,
-                                         check_bounds=True))
-    assert ell.ok and ell.n_launches == 1 and ell.blocks[0].grid == (2, 1)
-    assert plan_pagerank_ell(SlabMeta.from_ell(port.adj, 300)).ok
+    # ELLPACK: B4 is the frontier pass, then the walk; B5 the walk alone
+    threads = autotune.ELL_NODE_BLOCK_THREADS
+    grid = -(-300 // threads)
+    for adj, plan_ell, launches in ((port.transpose().adj, plan_bfs_ell, 2),
+                                    (port.adj, plan_pagerank_ell, 1)):
+        live = LiveWidthMeta.from_array(_live_count_adj(adj))
+        ell = plan_ell(SlabMeta.from_ell(adj, 300, check_bounds=True),
+                       live=live)
+        assert ell.ok and ell.n_launches == launches
+        assert all(b.block == (threads,) for b in ell.blocks)
+        walk = ell.blocks[-1]
+        assert walk.grid == (grid, 1)
+        assert ("live", (10,), "int32") in walk.operands
+        assert ("adj", (adj.shape[1], 300), "int32") in walk.operands
+    front = plan_bfs_ell(SlabMeta.from_ell(port.adj, 300)).blocks[0]
+    assert front.label == "frontier" and front.grid == (grid,)
+    assert front.operands == (("state", (300,), "int32"),
+                              ("frontier", (10,), "int32"))
 
 
 def test_graph_plans_reject_what_the_kernels_cannot_take():
@@ -480,6 +589,14 @@ def test_graph_plans_reject_what_the_kernels_cannot_take():
                       ).raise_if_invalid()
     ell = SlabMeta.from_ell(port.adj, 300, check_bounds=True)
     assert plan_bfs_ell(ell).ok
+    w = port.adj.shape[1]
+    for plan_ell in (plan_bfs_ell, plan_pagerank_ell):
+        with pytest.raises(LaunchPlanError, match="live widths hold 9"):
+            plan_ell(ell, live=LiveWidthMeta(9, 0, w)).raise_if_invalid()
+        with pytest.raises(LaunchPlanError, match="outside"):
+            plan_ell(ell, live=LiveWidthMeta(10, 0, w + 1)).raise_if_invalid()
+        with pytest.raises(LaunchPlanError, match="outside"):
+            plan_ell(ell, live=LiveWidthMeta(10, -1, w)).raise_if_invalid()
     with pytest.raises(LaunchPlanError, match="one state column"):
         plan_bfs_sell(ell, k=2).raise_if_invalid()
     mslabs = F.csr_to_sell_slabs(F.random_csr(50, 50, 3.0, seed=0), c=8)
@@ -535,6 +652,8 @@ def test_wrappers_check_arguments_and_never_fall_back():
     with pytest.raises(RuntimeError, match="CUDA kernel and a CPU reference"):
         bfs.bfs_step_sell(tuple(a.to("meta") for a in adj),
                           tuple(m.to("meta") for m in nodes), meta_dist, 1)
+    with pytest.raises(RuntimeError, match="CUDA kernel and a CPU reference"):
+        bfs.bfs_frontier(meta_dist, 1)
     radj = port.to_device("meta")
     with pytest.raises(RuntimeError, match="CUDA kernel and a CPU reference"):
         pagerank.pagerank_step(radj, torch.empty(128, dtype=torch.float64,
@@ -549,7 +668,9 @@ def test_graph_kernels_are_registered_for_the_build():
     source, fns = cuda_lib.KERNELS["graph_step"]
     assert (cuda_lib.CSRC / source).exists()
     assert {"repro_bfs_sell_bucket", "repro_pagerank_sell_bucket",
-            "repro_bfs_ell_step", "repro_pagerank_ell_step"} <= set(fns)
-    assert set(bfs.KERNEL_LAUNCHES) == {"bfs_step_sell", "bfs_step"}
+            "repro_bfs_frontier", "repro_bfs_ell_step",
+            "repro_pagerank_ell_step"} <= set(fns)
+    assert set(bfs.KERNEL_LAUNCHES) == {"bfs_step_sell", "bfs_step",
+                                        "bfs_frontier"}
     assert set(pagerank.KERNEL_LAUNCHES) == {"pagerank_step_sell",
                                              "pagerank_step"}
