@@ -46,7 +46,11 @@ result line is printed:
               B9 (``embedding_gather``) from mamba2's
               (50,280, 2560) table at T in (1, 4, 512, 2048), fp32 and
               fp64, int32 and int64 ids on the host and on the card,
-              exactly, one launch a call;
+              exactly, one launch a call, and ids on the card outside
+              [0, V) equal to ``table[clamp_ids(ids)]`` with the context
+              usable after them; B4 / B5 / B6 handed live widths W + 5
+              (equal to the true widths') and -1 (no slot walked, equal to
+              the plain path handed the same widths);
 4. main     — the SpMV path as a user drives it: a ``KernelRegistry`` on the
               card registers cage10 and a 2,097,152-row operand, a
               ``KernelService(n_slots=32)`` serves 64 SpMV requests, every
@@ -105,6 +109,14 @@ result line is printed:
               the card and on the CPU (plain versions): logits within
               ``LM_LOGIT_RTOL`` x max|logit|, greedy tokens equal wherever
               the CPU's top-2 margin exceeds that;
+10b. lm-dense — the dense attention LM the same way: llama-3.2-3b at its
+              published widths and depth (28 layers, 24 query / 8 kv
+              heads of 128, 3.6 B parameters, random init from the same
+              seed) through the batcher (8 requests of 512 tokens) and the
+              engine ((4, 512)), B9's launches read around each drive and
+              B8's (none) too, its 2-layer full-width card-vs-CPU check,
+              and one b = 1 prefill and one b = 4 decode step under
+              ``torch.profiler``; then its weights are freed;
 11. timing  — every kernel at the main paths' shapes, CUDA events with the
               L2 flushed, beside its bound (the larger of the function's
               least bytes and its operations over the card's peak rates;
@@ -209,6 +221,10 @@ LM_REQUESTS = 8
 #: two of mamba2's 256-row chunks: every prefill runs B8
 LM_PROMPT = 512
 LM_NEW_TOKENS = 16
+#: the dense attention LM phase (kernel B9): llama-3.2-3b at its published
+#: widths and depth (src/repro_torch/configs/llama3_2_3b.py), random init
+#: from LM_SEED, served the same way as LM_ARCH
+LM_DENSE_ARCH = "llama3.2-3b"
 #: depth of the card-against-CPU check (full width, the first layers)
 LM_CHECK_LAYERS = 2
 #: card logits against the CPU's plain versions, relative to max|logit|:
@@ -2308,6 +2324,21 @@ def lm_config(configs):
     return configs.get_config(LM_ARCH)
 
 
+def lm_dense_config(configs):
+    """The dense LM phase's model: llama-3.2-3b's published config."""
+    return configs.get_config(LM_DENSE_ARCH)
+
+
+def describe_lm(cfg) -> str:
+    """The widths that shape an LM phase's model."""
+    if cfg.family == "ssm":
+        return (f"{cfg.n_ssm_heads} heads of {cfg.ssm.head_dim}, d_state "
+                f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}")
+    return (f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of {cfg.d_head}, "
+            f"d_ff {cfg.d_ff}, rope theta {cfg.rope_theta:g}, "
+            f"{'tied' if cfg.tie_embeddings else 'untied'} head")
+
+
 def ssd_cases(cfg) -> list[tuple]:
     """B8 compare cases (b, l, h, p, g, n, chunk, dtype): the LM phase's
     prefill shapes (b 1 and LM_SLOTS) and three chunks at its widths, then
@@ -2376,10 +2407,16 @@ def compare_ssd(torch, np, ssd_k, cfg) -> float:
 
 def compare_gather(torch, np, gather_k, cfg) -> None:
     """Phase 3 (B9): rows of the LM's table shape, exactly equal, for ids
-    of int32 and int64 on the host and on the card; one launch a call."""
+    of int32 and int64 on the host and on the card; one launch a call.
+    Then ids on the card outside ``[0, V)`` (V, V + 7, -1, -V - 3,
+    2^31 - 1, and 2^31 as int64): the kernel bounds each by
+    ``gather.clamp_ids``'s rule, equal to ``table[clamp_ids(ids)]``, and
+    the CUDA context stays usable (a synchronize passes).  Raw
+    out-of-range ids never go to ``table[ids]`` on the card: its device
+    assert would poison the context."""
     rng = np.random.default_rng(7)
     v, d = cfg.vocab_size, cfg.d_model
-    n_cases = 0
+    n_cases = n_bound = 0
     for dt in (torch.float32, torch.float64):
         table = torch.randn((v, d), dtype=dt, device=DEVICE)
         for t in GATHER_TS:
@@ -2400,22 +2437,103 @@ def compare_gather(torch, np, gather_k, cfg) -> None:
                             f"{np.dtype(id_dtype).name} on "
                             f"{getattr(ids, 'device', 'the host')} differ")
                     n_cases += 1
+        raw = [v, v + 7, -1, -v - 3, 2**31 - 1, 0, v - 1]
+        for id_dtype, extra in ((torch.int32, []), (torch.int64, [2**31, -2**31 - 5])):
+            ids = torch.tensor(raw + extra, dtype=id_dtype, device=DEVICE)
+            got = gather_k.embedding_gather(table, ids)
+            torch.cuda.synchronize()
+            if not torch.equal(got, table[gather_k.clamp_ids(ids, v)]):
+                raise AssertionError(f"B9 out-of-range {id_dtype} ids on the "
+                                     f"card: rows differ from table[clamped]")
+            n_bound += 1
         del table
+    torch.cuda.synchronize()
     phase("compare", f"B9 ({v}, {d}) table, T in {GATHER_TS}, fp32 and fp64, "
           f"int32 and int64 ids on the host and on the card: {n_cases} cases "
-          "torch.equal to table[ids], one launch each")
+          f"torch.equal to table[ids], one launch each; {n_bound} cases of ids "
+          "on the card outside [0, V) (V, V + 7, -1, -V - 3, 2^31 - 1; int64 "
+          "also 2^31, -2^31 - 5) torch.equal to table[clamp_ids(ids)], the "
+          "context usable after them")
 
 
-def lm_path(torch, np, configs, M, serve, ssd_k, gather_k) -> dict:
-    """Phase 10: mamba2-2.7b served through the batcher and the engine."""
-    cfg = lm_config(configs)
+def compare_live_bounds(torch, np, F, G, spmv_k, bfs_k, pr_k) -> None:
+    """Phase 3 (B4, B5, B6): live widths handed to the wrappers are bounded
+    to ``[0, W]`` inside the kernels.  W + 5 in every warp gives results
+    torch.equal to the true widths' (the slots past a warp's last entry are
+    PAD); -1 in one warp walks no slot there: its rows read 0 (B6), its
+    nodes keep their distances (B4), and the kernels equal the plain path
+    handed the same widths (B4 exactly, B5 / B6 within 1e-10, fp32 B6
+    1e-4 x max|y|)."""
+    n_cases = 0
+    for dt, tol in ((np.float64, 1e-10), (np.float32, 1e-4)):
+        csr = F.random_csr(4093, 3000, 9.0, seed=6, skew=1.2, dtype=dt)
+        cols, vals = F.csr_to_ellpack(csr, c=32).to_device(DEVICE)
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal(3000).astype(dt)).to(DEVICE)
+        X = torch.from_numpy(rng.standard_normal((3000, 8)).astype(dt)).to(DEVICE)
+        live = spmv_k.live_widths(cols)
+        over = torch.full_like(live, cols.shape[1] + 5)
+        neg = live.clone()
+        neg[1] = -1
+        for fn, rhs in ((spmv_k.spmv_ell, x), (spmv_k.spmm_ell, X)):
+            want = fn(cols, vals, rhs, live_width=live)
+            if not torch.equal(fn(cols, vals, rhs, live_width=over), want):
+                raise AssertionError(f"B6 {fn.__name__} {np.dtype(dt).name}: "
+                                     "widths W + 5 differ from the true widths")
+            got = fn(cols, vals, rhs, live_width=neg).cpu()
+            plain = fn(cols.cpu(), vals.cpu(), rhs.cpu(), live_width=neg.cpu())
+            scale = 1.0 if dt == np.float64 else float(plain.abs().max())
+            if got[32:64].any() or max_err(got, plain) > tol * scale:
+                raise AssertionError(f"B6 {fn.__name__} {np.dtype(dt).name}: "
+                                     "width -1 differs from the plain walk")
+            n_cases += 2
+    radj = G.rmat_graph(4093, 8, seed=7).transpose().to_device(DEVICE)
+    live = bfs_k.ell_live_widths(radj)
+    over = torch.full_like(live, radj.shape[1] + 5)
+    neg = live.clone()
+    neg[2] = -1
+    rng = np.random.default_rng(2)
+    d = torch.full((4093,), G.INF, dtype=torch.int32, device=DEVICE)
+    d[torch.from_numpy(rng.choice(4093, 40, replace=False)).to(DEVICE)] = 0
+    contrib = torch.from_numpy(rng.random(4093)).to(DEVICE)
+    consts = torch.tensor([0.15 / 4093, 0.85, 1e-5], dtype=torch.float64,
+                          device=DEVICE)
+    want_b = bfs_k.bfs_step(radj, d, 1, live_width=live)
+    want_p = pr_k.pagerank_step(radj, contrib, consts, live_width=live)
+    got_b = bfs_k.bfs_step(radj, d, 1, live_width=neg).cpu()
+    got_p = pr_k.pagerank_step(radj, contrib, consts, live_width=neg).cpu()
+    plain_p = pr_k.pagerank_step(radj.cpu(), contrib.cpu(), consts.cpu(),
+                                 live_width=neg.cpu())
+    if not (torch.equal(bfs_k.bfs_step(radj, d, 1, live_width=over), want_b)
+            and torch.equal(pr_k.pagerank_step(radj, contrib, consts,
+                                               live_width=over), want_p)
+            and torch.equal(got_b, bfs_k.bfs_step(radj.cpu(), d.cpu(), 1,
+                                                  live_width=neg.cpu()))
+            and torch.equal(got_b[64:96], d[64:96].cpu())
+            and max_err(got_p, plain_p) <= PR_RTOL * float(plain_p.abs().max())):
+        raise AssertionError("B4 / B5 with handed live widths W + 5 or -1 "
+                             "differ from the documented results")
+    torch.cuda.synchronize()
+    phase("compare", f"live widths bounded in the kernels: {n_cases + 4} B4 / "
+          "B5 / B6 cases (W + 5 torch.equal to the true widths; -1 walks no "
+          "slot, equal to the plain path handed the same widths)")
+
+
+def lm_path(torch, np, configs, M, serve, ssd_k, gather_k, *, cfg=None,
+            name: str = "lm") -> dict:
+    """Phase 10: mamba2-2.7b served through the batcher and the engine;
+    phase 10b (``name`` "lm-dense", ``cfg`` llama-3.2-3b's): the dense
+    attention LM the same way.  B8 runs in every mamba2 layer of a prefill
+    and never in a dense model; B9 once a prefill and once a decode step."""
+    cfg = cfg or lm_config(configs)
+    ssm = cfg.family == "ssm"
+    smi = smi_line()
     t0 = time.perf_counter()
     params = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in params.parameters())
-    phase("lm", f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_ssm_heads} heads of {cfg.ssm.head_dim}, d_state "
-          f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}, vocab {cfg.vocab_size}: "
+    phase(name, f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{describe_lm(cfg)}, vocab {cfg.vocab_size}: "
           f"{n_params:,} parameters ({4 * n_params / 1e9:.2f} GB fp32), "
           f"random init (seed {LM_SEED}) in {time.perf_counter() - t0:.1f} s")
 
@@ -2466,7 +2584,7 @@ def lm_path(torch, np, configs, M, serve, ssd_k, gather_k) -> dict:
         raise AssertionError("batcher: a request is missing, short or out of "
                              "the vocabulary")
     steps = len(batcher.decode_s)
-    per_call = ssd_k.LAUNCHES_PER_CALL
+    per_call = ssd_k.LAUNCHES_PER_CALL if ssm else 0
     if b8 != LM_REQUESTS * cfg.n_layers * per_call \
             or b9 != LM_REQUESTS + steps:
         raise AssertionError(
@@ -2475,14 +2593,19 @@ def lm_path(torch, np, configs, M, serve, ssd_k, gather_k) -> dict:
             f"(want {LM_REQUESTS} + {steps})")
     prefill_ms = 1e3 * statistics.mean(batcher.prefill_s)
     decode_ms = 1e3 * statistics.mean(batcher.decode_s)
-    phase("lm", f"Batcher(n_slots={LM_SLOTS}): {LM_REQUESTS} requests x "
+
+    def spread(times) -> str:
+        ms = sorted(1e3 * t for t in times)
+        return f"min {ms[0]:.2f} / median {statistics.median(ms):.2f} / max {ms[-1]:.2f}"
+    phase(name, f"Batcher(n_slots={LM_SLOTS}): {LM_REQUESTS} requests x "
           f"{LM_PROMPT}-token prompts, {n_tok} tokens in {wall:.3f} s = "
           f"{n_tok / wall:.2f} tokens/s; prefill {prefill_ms:.2f} ms a request "
-          f"(b = 1), decode {decode_ms:.2f} ms a step ({steps} steps of "
-          f"{LM_SLOTS} slots); ssd.KERNEL_LAUNCHES={b8}, "
-          f"gather.KERNEL_LAUNCHES={b9}")
+          f"(b = 1; {spread(batcher.prefill_s)}), decode {decode_ms:.2f} ms a "
+          f"step ({steps} steps of {LM_SLOTS} slots; {spread(batcher.decode_s)})"
+          f"; ssd.KERNEL_LAUNCHES={b8}, "
+          f"gather.KERNEL_LAUNCHES={b9} | {smi}")
     for r in done[:2]:
-        phase("lm", f"  request {r.rid}: {r.generated[:8]}...")
+        phase(name, f"  request {r.rid}: {r.generated[:8]}...")
 
     engine = serve.ServeEngine(cfg, params, gcfg)
     torch.cuda.synchronize()
@@ -2502,20 +2625,21 @@ def lm_path(torch, np, configs, M, serve, ssd_k, gather_k) -> dict:
                              f"x {per_call}), B9 {e9} (want {LM_NEW_TOKENS})")
     by_rid = {r.rid: r.generated for r in done}
     same = sum(out[i].tolist() == by_rid[i] for i in range(LM_SLOTS))
-    phase("lm", f"ServeEngine.generate ({LM_SLOTS}, {LM_PROMPT}): "
+    phase(name, f"ServeEngine.generate ({LM_SLOTS}, {LM_PROMPT}): "
           f"{out.size} tokens in {eng_wall:.3f} s = {out.size / eng_wall:.2f} "
           f"tokens/s; ssd.KERNEL_LAUNCHES={e8}, gather.KERNEL_LAUNCHES={e9}; "
           f"greedy tokens equal to the batcher's for {same} of {LM_SLOTS} "
-          "prompts (b = 4 against b = 1 prefills: other cuBLAS shapes)")
+          f"prompts (b = 4 against b = 1 prefills: other cuBLAS shapes) | {smi}")
     return {"cfg": cfg, "params": params, "prompts": prompts,
             "launches": {"ssd_fused": b8 + e8, "embedding_gather": b9 + e9},
             "tokens_per_s": n_tok / wall, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "engine_tokens_per_s": out.size / eng_wall}
 
 
-def lm_check(torch, np, M, lm: dict) -> None:
-    """Phase 10: the first LM_CHECK_LAYERS layers at full width from the
-    same weights on the card (B8, B9) and on the CPU (plain versions)."""
+def lm_check(torch, np, M, lm: dict, label: str = "lm") -> None:
+    """Phases 10 / 10b: the first LM_CHECK_LAYERS layers at full width from
+    the same weights on the card (B9; B8 for mamba2) and on the CPU (plain
+    versions)."""
     import copy
 
     from torch import nn
@@ -2565,7 +2689,7 @@ def lm_check(torch, np, M, lm: dict) -> None:
                                  f"{step_err} > {tol}")
         err = max(err, step_err)
         checked += 1
-    phase("lm", f"check: {LM_CHECK_LAYERS} layers at full width, card vs CPU "
+    phase(label, f"check: {LM_CHECK_LAYERS} layers at full width, card vs CPU "
           f"(plain versions) on a ({1}, {LM_PROMPT}) prompt: max abs logit err "
           f"{err:.3e} <= {LM_LOGIT_RTOL} x max|logit| {scale:.3f}; greedy "
           f"tokens equal at {checked} of {LM_NEW_TOKENS} positions with a "
@@ -2574,9 +2698,10 @@ def lm_check(torch, np, M, lm: dict) -> None:
 
 
 def time_lm(torch, np, ssd_k, gather_k, lm: dict, comp_err: float,
-            flush) -> list[dict]:
+            b9_by_path: dict, flush) -> list[dict]:
     """Phase 11 (LM): B8 at the batcher's (b 1) and the engine's (b 4)
-    prefill shapes; B9 (:func:`time_gather`)."""
+    prefill shapes; B9 (:func:`time_gather`), its launches the sum of
+    ``b9_by_path`` (each LM path's count from its own run)."""
     from repro_torch.core import autotune
 
     cfg = lm["cfg"]
@@ -2644,7 +2769,8 @@ def time_lm(torch, np, ssd_k, gather_k, lm: dict, comp_err: float,
 
     table = lm["params"].tok_embed
     gather_rec = time_gather(torch, np, gather_k, table,
-                             lm["launches"]["embedding_gather"], flush)
+                             sum(b9_by_path.values()), flush)
+    gather_rec["launches_by_path"] = dict(b9_by_path)
     return [ssd_rec, gather_rec]
 
 
@@ -2838,6 +2964,7 @@ def main() -> int:
     compare_kernel(torch, np, sell_core, F)
     compare_graph_kernels(torch, np, G, bfs_k, pr_k)
     compare_spmv_ell(torch, np, F, spmv_k)
+    compare_live_bounds(torch, np, F, G, spmv_k, bfs_k, pr_k)
     compare_fft(torch, np, fft_k)
     compare_stream(torch, np, sell_core, F)
     ssd_err = compare_ssd(torch, np, ssd_k, lm_config(configs))
@@ -2884,6 +3011,18 @@ def main() -> int:
     lm_check(torch, np, M, lm)
     phase("lm", f"done in {time.perf_counter() - t0:.1f} s")
 
+    # -- 10b. the dense attention LM (B9) ----------------------------------------
+    t0 = time.perf_counter()
+    dense = lm_path(torch, np, configs, M, serve, ssd_k, gather_k,
+                    cfg=lm_dense_config(configs), name="lm-dense")
+    lm_check(torch, np, M, dense, label="lm-dense")
+    profile_lm(torch, M, dense)
+    b9_by_path = {"lm": lm["launches"]["embedding_gather"],
+                  "lm-dense": dense["launches"]["embedding_gather"]}
+    del dense
+    torch.cuda.empty_cache()
+    phase("lm-dense", f"done in {time.perf_counter() - t0:.1f} s")
+
     # -- 11. timing at the main paths' shapes ----------------------------------
     t0 = time.perf_counter()
     flush = torch.empty(2 * 50 * 1000 * 1000 // 4, dtype=torch.float32,
@@ -2897,7 +3036,8 @@ def main() -> int:
     kernels.append(stream_record(sm, time_stream(
         torch, np, sell_core, ops, sm, reg.get("big"), big, flush)))
     kernels += time_moe(torch, np, sell_core, mm, flush)
-    kernels += time_lm(torch, np, ssd_k, gather_k, lm, ssd_err, flush)
+    kernels += time_lm(torch, np, ssd_k, gather_k, lm, ssd_err,
+                       b9_by_path, flush)
     profile_drives(torch, bfs_k, pr_k, gm)
     profile_lm(torch, M, lm)
     phase("timing", f"done in {time.perf_counter() - t0:.1f} s; whole run "

@@ -17,10 +17,11 @@ gap is the time B5's gathers take through the L2.  Last, the host time a
 call of the B4 / B5 wrappers beside their kernels launched raw.
 
 With a checkout of the parent commit as its argument, it also builds that
-checkout's ``graph_step.cu`` (B4 / B5 as one thread a node walking every
-slot) and times it in turns with the committed kernels, parent, new, new,
-parent: B4 at every level of uniform21's drive from the same source
-(summed: the drive's kernel time) and B5.  Run from the repository root on
+checkout's ``graph_step.cu`` (B4 / B5 walking to the live widths as they
+are handed in, without the kernel's bound to ``[0, width]``) and times it
+in turns with the committed kernels, parent, new, new, parent: B4 (its
+frontier pass and walk) at every level of uniform21's drive from the same
+source (summed: the drive's kernel time) and B5.  Run from the repository root on
 a machine with an NVIDIA GPU:
 
     python3 scripts/graph_ell_variants.py [PARENT_CHECKOUT]
@@ -50,12 +51,14 @@ WALK = "  bfs_ell_kernel<UNROLL_ELL><<<"
 CARVEOUT = ("  cudaFuncSetAttribute(bfs_ell_kernel<UNROLL_ELL>, "
             "cudaFuncAttributePreferredSharedMemoryCarveout, 0);\n")
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-#: the parent's B4 / B5 entry points: (adj, dist, out, level, n, width,
-#: threads, stream) and (adj, contrib, consts, out, n, width, threads,
-#: stream), one thread a node walking every slot
-PARENT_FNS = {"repro_bfs_ell_step": [_P, _P, _P, _I, _I64, _I64, _I, _P],
-              "repro_pagerank_ell_step": [_P, _P, _P, _P, _I64, _I64, _I, _P]}
-PARENT_THREADS = 256
+#: the parent's B4 / B5 entry points: (adj, live, frontier, dist, out,
+#: level, n, threads, stream) and (adj, live, contrib, consts, out, n,
+#: threads, stream), the live widths walked unbounded; its frontier pass
+#: is the committed one's
+PARENT_FNS = {"repro_bfs_frontier": [_P, _P, _I, _I64, _I, _P],
+              "repro_bfs_ell_step": [_P, _P, _P, _P, _P, _I, _I64, _I, _P],
+              "repro_pagerank_ell_step": [_P, _P, _P, _P, _P, _I64, _I, _P]}
+PARENT_THREADS = bfs.ELL_NODE_BLOCK_THREADS
 
 
 def variant_source(src: str, unroll: int, carveout: bool) -> str:
@@ -177,12 +180,12 @@ def main() -> int:
                 def walk():
                     return lib.repro_bfs_ell_step(
                         store.data_ptr(), live.data_ptr(), front.data_ptr(),
-                        dist.data_ptr(), out4.data_ptr(), 1, n, threads, stream)
+                        dist.data_ptr(), out4.data_ptr(), 1, n, width, threads, stream)
 
                 def step():
                     return lib.repro_pagerank_ell_step(
                         store.data_ptr(), live.data_ptr(), contrib.data_ptr(),
-                        consts.data_ptr(), out5.data_ptr(), n, threads, stream)
+                        consts.data_ptr(), out5.data_ptr(), n, width, threads, stream)
 
                 if walk() or step():
                     raise RuntimeError(f"u{unroll} at {threads} threads: launch refused")
@@ -214,11 +217,13 @@ def main() -> int:
     def raw_b4():
         committed.repro_bfs_frontier(dist.data_ptr(), front.data_ptr(), 1, n, threads, stream)
         committed.repro_bfs_ell_step(store.data_ptr(), live.data_ptr(), front.data_ptr(),
-                                     dist.data_ptr(), out4.data_ptr(), 1, n, threads, stream)
+                                     dist.data_ptr(), out4.data_ptr(), 1, n, width, threads,
+                                     stream)
 
     def raw_b5():
         committed.repro_pagerank_ell_step(store.data_ptr(), live.data_ptr(), contrib.data_ptr(),
-                                          consts.data_ptr(), out5.data_ptr(), n, threads, stream)
+                                          consts.data_ptr(), out5.data_ptr(), n, width, threads,
+                                          stream)
 
     print("through the wrappers, L2 flushed: bfs_step "
           f"{cs.time_ms(torch, lambda: bfs.bfs_step(radj, dist, 1, live_width=live), flush):.4f}"
@@ -243,12 +248,16 @@ def main() -> int:
             break
         d = new
 
-    def old_b4(d, level):
-        return lambda: old.repro_bfs_ell_step(store.data_ptr(), d.data_ptr(),
-                                              out4.data_ptr(), level, n, width,
-                                              PARENT_THREADS, stream)
-
     words = torch.empty_like(front)
+
+    def old_b4(d, level):
+        def run():
+            old.repro_bfs_frontier(d.data_ptr(), words.data_ptr(), level, n,
+                                   PARENT_THREADS, stream)
+            return old.repro_bfs_ell_step(
+                store.data_ptr(), live.data_ptr(), words.data_ptr(), d.data_ptr(),
+                out4.data_ptr(), level, n, PARENT_THREADS, stream)
+        return run
 
     def new_b4(d, level):
         def run():
@@ -256,13 +265,13 @@ def main() -> int:
                                          bfs.ELL_NODE_BLOCK_THREADS, stream)
             return committed.repro_bfs_ell_step(
                 store.data_ptr(), live.data_ptr(), words.data_ptr(), d.data_ptr(),
-                out4.data_ptr(), level, n, bfs.ELL_NODE_BLOCK_THREADS, stream)
+                out4.data_ptr(), level, n, width, bfs.ELL_NODE_BLOCK_THREADS, stream)
         return run
 
     def old_b5():
-        return old.repro_pagerank_ell_step(store.data_ptr(), contrib.data_ptr(),
-                                           consts.data_ptr(), out5.data_ptr(), n,
-                                           width, PARENT_THREADS, stream)
+        return old.repro_pagerank_ell_step(store.data_ptr(), live.data_ptr(),
+                                           contrib.data_ptr(), consts.data_ptr(),
+                                           out5.data_ptr(), n, PARENT_THREADS, stream)
 
     old_b4(dist, 1)()
     old_b5()

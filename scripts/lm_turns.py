@@ -19,6 +19,7 @@ import sys
 from pathlib import Path
 
 CHILD = """
+import inspect
 import sys
 sys.path[:0] = ["src", "."]
 import numpy as np
@@ -35,7 +36,10 @@ cuda_lib.build_all(["ssd_fused", "embedding_gather"])
 lm = cs.lm_path(torch, np, configs, M, serve, ssd_k, gather_k)
 cs.profile_lm(torch, M, lm)
 flush = torch.empty(25_000_000, dtype=torch.float32, device="cuda")
-cs.time_lm(torch, np, ssd_k, gather_k, lm, 0.0, flush)
+by_path = ({"b9_by_path": {"lm": lm["launches"]["embedding_gather"]}}
+           if "b9_by_path" in inspect.signature(cs.time_lm).parameters
+           else {})
+cs.time_lm(torch, np, ssd_k, gather_k, lm, 0.0, flush=flush, **by_path)
 """
 
 

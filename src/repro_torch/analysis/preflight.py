@@ -739,7 +739,8 @@ def plan_spmv_ell(meta: SlabMeta, *, dtype: str | None = None, k: int = 1,
     stored column must be PAD or lie in ``[0, n_cols)``: the kernel gathers
     ``x[col]`` unchecked.  ``live`` (the slab's live widths) must hold one
     entry per 32 rows, each in ``[0, W]``: the kernel walks each warp's
-    rows up to it and reads no slot past it."""
+    rows up to it (bounded to ``[0, W]`` inside the kernel as well, so a
+    width handed past the plan reads no slot outside the slab)."""
     violations: list[str] = []
     if meta.kind != "ellpack":
         violations.append(f"spmv_ell needs an ELLPACK matrix, got {meta.kind}")
@@ -902,11 +903,11 @@ def plan_embedding_gather(vocab: int, d: int, ids, *, dtype: str = "float32",
     must be one axis of integers; the kernel reads int32 and int64 ids as
     they are (other integer types are widened to int64 first).  Where the
     ids lie on the host (numpy, or a CPU tensor) their values are scanned
-    too, and an id outside ``[0, vocab)`` is a violation: the kernel
-    gathers unchecked, and CUDA does not clamp the way JAX does.  Ids
-    already on the card (a decode step's argmax) are in range by
-    construction and are not read back, so their plan depends on the shapes
-    and dtypes alone.  ``vl`` is the reference's rows a grid step; the CUDA
+    too, and an id outside ``[0, vocab)`` is a violation, refused before
+    upload.  Ids already on the card (a decode step's argmax) are not read
+    back, so their plan depends on the shapes and dtypes alone: the kernel
+    bounds each of them to a row by the reference's rule
+    (:func:`repro_torch.kernels.gather.clamp_ids`).  ``vl`` is the reference's rows a grid step; the CUDA
     grid does not depend on it.
     """
     violations: list[str] = []

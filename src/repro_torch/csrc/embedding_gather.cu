@@ -26,11 +26,13 @@
 //   * ids are read as they come, int32 or int64 (a template on the id type),
 //     so the engine's int64 argmax ids need no conversion kernel: one
 //     launch a call.
-// Ids are not range-checked here: CUDA does not clamp an out-of-range
-// gather the way JAX does, so the host preflight
-// (repro_torch/analysis/preflight.py::plan_embedding_gather) refuses ids
-// outside [0, V) wherever they come from the host; ids made on the card
-// (a decode step's argmax over V) are in range by construction.
+//   * every id is bounded here, as the reference's indexing bounds it: a
+//     negative id wraps by V once, then the row is clamped to [0, V - 1]
+//     (an int64 id is bounded as it is, without narrowing it to int32).
+//     So no id already on the card reads outside the table, and the
+//     bound needs no host read (a captured decode step allows none).  The
+//     host preflight (repro_torch/analysis/preflight.py::
+//     plan_embedding_gather) still refuses host ids outside [0, V).
 //
 // The host wrapper is repro_torch/kernels/gather.py::embedding_gather; it
 // plans the launch (once per shape for ids already on the card), allocates
@@ -49,11 +51,14 @@ constexpr int kMaxThreads = 256;
 template <typename V, typename Id>
 __global__ void __launch_bounds__(kMaxThreads)
 gather_rows_kernel(const Id* __restrict__ ids, const V* __restrict__ table,
-                   V* __restrict__ out, int64_t row_vecs) {
+                   V* __restrict__ out, int64_t row_vecs, int64_t n_rows) {
   constexpr int LOADS = kThreadBytes / sizeof(V);
   const int64_t r = blockIdx.x;
   const int64_t begin = static_cast<int64_t>(blockIdx.y) * LOADS * blockDim.x;
-  const V* src = table + static_cast<int64_t>(__ldg(ids + r)) * row_vecs;
+  int64_t id = static_cast<int64_t>(__ldg(ids + r));
+  if (id < 0) id += n_rows;
+  id = id < 0 ? 0 : (id >= n_rows ? n_rows - 1 : id);
+  const V* src = table + id * row_vecs;
   V* dst = out + r * row_vecs;
   V buf[LOADS];
 #pragma unroll
@@ -69,42 +74,47 @@ gather_rows_kernel(const Id* __restrict__ ids, const V* __restrict__ table,
 }
 
 template <typename V, typename Id>
-cudaError_t launch(const void* table, const void* ids, void* out, int64_t n_ids,
-                   int64_t row_bytes, int chunks, int threads, cudaStream_t stream) {
+cudaError_t launch(const void* table, int64_t n_rows, const void* ids, void* out,
+                   int64_t n_ids, int64_t row_bytes, int chunks, int threads,
+                   cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(n_ids), static_cast<unsigned>(chunks));
   gather_rows_kernel<V, Id><<<grid, threads, 0, stream>>>(
       static_cast<const Id*>(ids), static_cast<const V*>(table),
-      static_cast<V*>(out), row_bytes / static_cast<int64_t>(sizeof(V)));
+      static_cast<V*>(out), row_bytes / static_cast<int64_t>(sizeof(V)), n_rows);
   return cudaGetLastError();
 }
 
 template <typename Id>
-cudaError_t launch_id(const void* table, const void* ids, void* out, int64_t n_ids,
-                      int64_t row_bytes, int chunks, int threads, cudaStream_t st) {
+cudaError_t launch_id(const void* table, int64_t n_rows, const void* ids, void* out,
+                      int64_t n_ids, int64_t row_bytes, int chunks, int threads,
+                      cudaStream_t st) {
   auto aligned = [&](uintptr_t v) {
     return row_bytes % v == 0 && reinterpret_cast<uintptr_t>(table) % v == 0 &&
            reinterpret_cast<uintptr_t>(out) % v == 0;
   };
-  if (aligned(16)) return launch<uint4, Id>(table, ids, out, n_ids, row_bytes, chunks, threads, st);
-  if (aligned(8)) return launch<uint2, Id>(table, ids, out, n_ids, row_bytes, chunks, threads, st);
-  return launch<unsigned, Id>(table, ids, out, n_ids, row_bytes, chunks, threads, st);
+  if (aligned(16))
+    return launch<uint4, Id>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads, st);
+  if (aligned(8))
+    return launch<uint2, Id>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads, st);
+  return launch<unsigned, Id>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// table (V, d) and out (n_ids, d) of one element type, row_bytes = d times
-// its size (a multiple of 4); ids (n_ids,) of id_bytes (4: int32, 8: int64)
-// in [0, V).  Grid (n_ids, chunks) of `threads` (a multiple of 32, at most
+// table (n_rows = V, d) and out (n_ids, d) of one element type, row_bytes =
+// d times its size (a multiple of 4); ids (n_ids,) of id_bytes (4: int32,
+// 8: int64), any values: each is bounded to a row as above.  Grid (n_ids, chunks) of `threads` (a multiple of 32, at most
 // 256), each block copying 64 * threads bytes of its row: the chunks must
 // cover the row and none may start past its end.  The caller makes the
 // stream's device current.  Returns the launch's cudaError_t.
-int repro_embedding_gather(const void* table, const void* ids, void* out,
-                           int64_t n_ids, int64_t row_bytes, int id_bytes,
-                           int chunks, int threads, void* stream) {
+int repro_embedding_gather(const void* table, int64_t n_rows, const void* ids,
+                           void* out, int64_t n_ids, int64_t row_bytes,
+                           int id_bytes, int chunks, int threads, void* stream) {
   const int64_t chunk_bytes = static_cast<int64_t>(kThreadBytes) * threads;
-  if (n_ids <= 0 || n_ids > 2147483647 || row_bytes <= 0 || row_bytes % 4 != 0 ||
+  if (n_rows <= 0 || n_ids <= 0 || n_ids > 2147483647 || row_bytes <= 0 ||
+      row_bytes % 4 != 0 ||
       (id_bytes != 4 && id_bytes != 8) || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || chunks < 1 || chunks > 65535 ||
       chunks * chunk_bytes < row_bytes || (chunks - 1) * chunk_bytes >= row_bytes) {
@@ -113,8 +123,9 @@ int repro_embedding_gather(const void* table, const void* ids, void* out,
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       id_bytes == 8
-          ? launch_id<long long>(table, ids, out, n_ids, row_bytes, chunks, threads, st)
-          : launch_id<int>(table, ids, out, n_ids, row_bytes, chunks, threads, st);
+          ? launch_id<long long>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads,
+                                 st)
+          : launch_id<int>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads, st);
   return static_cast<int>(err);
 }
 

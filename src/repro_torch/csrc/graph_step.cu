@@ -35,7 +35,10 @@
 //     (repro_torch/kernels/bfs.py::ell_live_widths, B6's live_widths of
 //     the (1, width, n) view); a thread walks only up to it.  On uniform21
 //     (Poisson in-degrees, width 40) the warps' walks cover 0.645 of the
-//     stored slots.  A PAD slot inside the walk is still skipped;
+//     stored slots.  A PAD slot inside the walk is still skipped.  The
+//     width read is bounded to [0, width] in the kernel, so a width handed
+//     in past the adjacency's walks the whole row and a negative one walks
+//     none: no id outside the adjacency is read;
 //   * U slots a round (UNROLL_ELL): first the U id loads,
 //     evict-first (__ldcs: the ids are read once and leave the L2 to the
 //     state), then the U state reads of the non-PAD ones, then the tests or
@@ -108,8 +111,8 @@
 // sell_core.bucketed_node_step for SELL); they allocate the output (and
 // B4's frontier words), validate device, dtype, shape and strides, skip
 // empty buckets and raise on a non-zero return code.  Neighbour-id bounds
-// and the live widths' range are the preflight's job
-// (repro_torch/analysis/preflight.py::plan_bfs_ell and friends).
+// are the preflight's job (repro_torch/analysis/preflight.py::plan_bfs_ell
+// and friends); B4 / B5 bound the live widths themselves, as above.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -421,6 +424,12 @@ __global__ void __launch_bounds__(kMaxGroupThreads)
 // 0.294 / 0.305 / 0.327 ms at 128 threads).
 constexpr int UNROLL_ELL = 4;
 
+// A warp's live width as the walk takes it: in [0, width] whatever was
+// handed in.
+__device__ __forceinline__ int bounded_width(int32_t live, int64_t width) {
+  return live < 0 ? 0 : (live > width ? static_cast<int>(width) : live);
+}
+
 // B4's frontier pass: bit (v & 31) of word v >> 5 is dist[v] == prev.  A
 // warp's 32 consecutive nodes are exactly one word, so lane 0 writes it
 // and no atomics are needed; lanes past n_nodes vote 0.
@@ -441,7 +450,7 @@ __global__ void bfs_ell_kernel(const int32_t* __restrict__ adj,         // (widt
                                const uint32_t* __restrict__ frontier,   // (ceil(n / 32),)
                                const int32_t* __restrict__ dist,        // (n,)
                                int32_t* __restrict__ out,               // (n,)
-                               int32_t level, int64_t n_nodes) {
+                               int32_t level, int64_t n_nodes, int64_t width) {
   const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (v >= n_nodes) return;
   const int32_t mine = __ldg(dist + v);
@@ -449,7 +458,7 @@ __global__ void bfs_ell_kernel(const int32_t* __restrict__ adj,         // (widt
     out[v] = mine;
     return;
   }
-  const int wl = __ldg(live + (v >> 5));
+  const int wl = bounded_width(__ldg(live + (v >> 5)), width);
   const int32_t* a = adj + v;
   bool hit = false;
   for (int w = 0; w < wl && !hit; w += U) {
@@ -475,10 +484,10 @@ __global__ void pagerank_ell_kernel(const int32_t* __restrict__ adj,      // (wi
                                     const double* __restrict__ contrib,   // (n,)
                                     const double* __restrict__ consts,    // (3,)
                                     double* __restrict__ out,             // (n,)
-                                    int64_t n_nodes) {
+                                    int64_t n_nodes, int64_t width) {
   const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (v >= n_nodes) return;
-  const int wl = __ldg(live + (v >> 5));
+  const int wl = bounded_width(__ldg(live + (v >> 5)), width);
   const int32_t* a = adj + v;
   double acc = 0.0;
   for (int w = 0; w < wl; w += U) {
@@ -664,20 +673,20 @@ int repro_bfs_frontier(const void* dist, void* frontier, int level, int64_t n_no
 }
 
 // One BFS level (B4's walk) on an ELLPACK in-adjacency stored (width,
-// n_nodes), live (ceil(n_nodes / 32),) int32 each warp's live width (at
-// most width), frontier the level's repro_bfs_frontier words; dist and out
-// (n_nodes,) int32.
+// n_nodes), live (ceil(n_nodes / 32),) int32 each warp's live width
+// (bounded to [0, width] by the kernel), frontier the level's
+// repro_bfs_frontier words; dist and out (n_nodes,) int32.
 int repro_bfs_ell_step(const void* adj, const void* live, const void* frontier,
                        const void* dist, void* out, int level, int64_t n_nodes,
-                       int threads, void* stream) {
-  if (bad_ell(n_nodes, threads) || live == nullptr || frontier == nullptr) {
+                       int64_t width, int threads, void* stream) {
+  if (bad_ell(n_nodes, threads) || width < 0 || live == nullptr || frontier == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   bfs_ell_kernel<UNROLL_ELL><<<grid_of(n_nodes, 1, 1, threads), dim3(threads), 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(adj), static_cast<const int32_t*>(live),
       static_cast<const uint32_t*>(frontier), static_cast<const int32_t*>(dist),
-      static_cast<int32_t*>(out), level, n_nodes);
+      static_cast<int32_t*>(out), level, n_nodes, width);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -685,16 +694,16 @@ int repro_bfs_ell_step(const void* adj, const void* live, const void* frontier,
 // (width, n_nodes), live as for BFS; contrib and out (n_nodes,) float64,
 // consts (3,) float64.
 int repro_pagerank_ell_step(const void* adj, const void* live, const void* contrib,
-                            const void* consts, void* out, int64_t n_nodes, int threads,
-                            void* stream) {
-  if (bad_ell(n_nodes, threads) || live == nullptr) {
+                            const void* consts, void* out, int64_t n_nodes, int64_t width,
+                            int threads, void* stream) {
+  if (bad_ell(n_nodes, threads) || width < 0 || live == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   pagerank_ell_kernel<UNROLL_ELL><<<grid_of(n_nodes, 1, 1, threads), dim3(threads), 0,
                                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(adj), static_cast<const int32_t*>(live),
       static_cast<const double*>(contrib), static_cast<const double*>(consts),
-      static_cast<double*>(out), n_nodes);
+      static_cast<double*>(out), n_nodes, width);
   return static_cast<int>(cudaGetLastError());
 }
 

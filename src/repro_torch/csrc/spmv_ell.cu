@@ -24,7 +24,9 @@
 //     warp walks w only up to it: the slots past it are PAD in every lane,
 //     so their int32 columns are never loaded (on a Poisson operand at
 //     width 38 the warps' longest rows end near slot 25).  A PAD slot
-//     inside the walk is still masked;
+//     inside the walk is still masked.  The width read is bounded to
+//     [0, W] here, so a width handed in past W walks the whole row and a
+//     negative one walks none: no slot outside the slab is read;
 //   * the walk is unrolled by U slots (UNROLL_1 / UNROLL_K), the last round
 //     masked at the live width: first the U column loads, then the value
 //     loads and the x gathers of the live ones, then the multiply-adds in
@@ -56,9 +58,9 @@
 //
 // The host wrappers are repro_torch/kernels/spmv.py::spmv_ell and
 // ::spmm_ell; they allocate y, validate device, dtype, shape and
-// contiguity, and raise on a non-zero return code.  Column bounds and the
-// live widths' range are the preflight's job
-// (repro_torch/analysis/preflight.py::plan_spmv_ell).
+// contiguity, and raise on a non-zero return code.  Column bounds are the
+// preflight's job (repro_torch/analysis/preflight.py::plan_spmv_ell); the
+// live widths are bounded in the kernel as above.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -135,7 +137,8 @@ __global__ void spmm_ell_kernel(const int32_t* __restrict__ cols,
   const int64_t s = r / c;
   const int64_t lane = r - s * c;
   const int64_t base = s * width * c + lane;
-  const int wl = __ldg(live + (r >> 5));
+  const int32_t handed = __ldg(live + (r >> 5));
+  const int wl = handed < 0 ? 0 : (handed > width ? static_cast<int>(width) : handed);
   T acc[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) acc[i] = T(0);

@@ -50,6 +50,7 @@ __all__ = [
     "bfs_step_ref",
     "bfs_step_sell",
     "bfs_step_sell_ref",
+    "cut_to_live",
     "ell_live_widths",
 ]
 
@@ -120,8 +121,19 @@ def ell_live_widths(adj: torch.Tensor) -> torch.Tensor:
 
 def _check_live(adj: torch.Tensor, live: torch.Tensor) -> None:
     """The live-width array of an ``(n, width)`` adjacency: dtype, shape,
-    device and contiguity (its range is the preflight's job)."""
+    device and contiguity.  Its values may be anything: the walk bounds
+    each to ``[0, width]`` (:func:`cut_to_live`)."""
     spmv._check_live(adj.t()[None], live)
+
+
+def cut_to_live(adj: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """An ``(n, width)`` adjacency with every slot past its warp's live
+    width (bounded to ``[0, width]``) set to PAD: what B4 / B5's walk
+    reads, :func:`repro_torch.kernels.spmv.cut_to_live` of the ``(1,
+    width, n)`` view, laid out as ``adj`` is (so a plain step sums in the
+    same order)."""
+    cut = spmv.cut_to_live(adj.t()[None], live)[0].t()
+    return cut if adj.t().is_contiguous() else cut.contiguous()
 
 
 def bfs_frontier_ref(dist: torch.Tensor, level) -> torch.Tensor:
@@ -183,8 +195,8 @@ def _launch_ell(lib, stream: int, adj: torch.Tensor, live: torch.Tensor,
     width, n = adj.shape
     err = lib.repro_bfs_ell_step(
         adj.data_ptr(), live.data_ptr(), frontier.data_ptr(),
-        dist.data_ptr(), out.data_ptr(), level, n, ELL_NODE_BLOCK_THREADS,
-        stream)
+        dist.data_ptr(), out.data_ptr(), level, n, width,
+        ELL_NODE_BLOCK_THREADS, stream)
     _raise_on(err, lib, f"bfs_step ({n} nodes, width {width})")
     KERNEL_LAUNCHES["bfs_step"] += 1
 
@@ -203,7 +215,11 @@ def bfs_step(adj: torch.Tensor, dist: torch.Tensor, level, *,
     node not at INF keeps its distance.  ``live_width`` is the
     adjacency's :func:`ell_live_widths` on the same device (``ops``
     caches it once per graph); without it the step computes it, a pass
-    over ``adj`` each call.  The CPU path ignores it.  ``vl`` is the
+    over ``adj`` each call.  The walk bounds each width to ``[0, width]``:
+    a width past the last neighbour walks as far as the true one (the
+    slots past it are PAD), a negative one walks no slot (the warp's nodes
+    at INF stay there); the CPU path walks the same slots
+    (:func:`cut_to_live`).  ``vl`` is the
     reference's node block and does not shape the launch.  ``adj`` stored
     as (width, n) (an :meth:`~repro_torch.graphs.EllpackGraph.to_device`
     upload) is read in place; any other storage is copied to it first.
@@ -218,6 +234,8 @@ def bfs_step(adj: torch.Tensor, dist: torch.Tensor, level, *,
     if live_width is not None:
         _check_live(adj, live_width)
     if dist.device.type == "cpu":
+        if live_width is not None:
+            adj = cut_to_live(adj, live_width)
         return bfs_step_ref(adj, dist, level, vl=vl)
     _require_cuda(dist, "bfs_step")
     dist = dist.contiguous()

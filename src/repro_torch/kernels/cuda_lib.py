@@ -64,10 +64,13 @@ KERNELS = {
              _P], _I),
         # dist, frontier, level, n_nodes, threads, stream
         "repro_bfs_frontier": ([_P, _P, _I, _I64, _I, _P], _I),
-        # adj, live, frontier, dist, out, level, n_nodes, threads, stream
-        "repro_bfs_ell_step": ([_P, _P, _P, _P, _P, _I, _I64, _I, _P], _I),
-        # adj, live, contrib, consts, out, n_nodes, threads, stream
-        "repro_pagerank_ell_step": ([_P, _P, _P, _P, _P, _I64, _I, _P], _I),
+        # adj, live, frontier, dist, out, level, n_nodes, width, threads,
+        # stream
+        "repro_bfs_ell_step": ([_P, _P, _P, _P, _P, _I, _I64, _I64, _I, _P],
+                               _I),
+        # adj, live, contrib, consts, out, n_nodes, width, threads, stream
+        "repro_pagerank_ell_step": ([_P, _P, _P, _P, _P, _I64, _I64, _I, _P],
+                                    _I),
         "repro_graph_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
     "spmv_ell": ("spmv_ell.cu", {
@@ -110,10 +113,10 @@ KERNELS = {
         "repro_ssd_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
     "embedding_gather": ("embedding_gather.cu", {
-        # table, ids, out, n_ids, row_bytes, id_bytes, chunks, threads,
-        # stream
-        "repro_embedding_gather": ([_P, _P, _P, _I64, _I64, _I, _I, _I, _P],
-                                   _I),
+        # table, n_rows, ids, out, n_ids, row_bytes, id_bytes, chunks,
+        # threads, stream
+        "repro_embedding_gather": (
+            [_P, _I64, _P, _P, _I64, _I64, _I, _I, _I, _P], _I),
         "repro_gather_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
 }

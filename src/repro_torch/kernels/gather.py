@@ -6,14 +6,18 @@ table and (T,) ids, the same traffic class as the paper's SpMV x-gather.
 * :func:`embedding_gather` — the wrapper.  It plans the launch first
   (:func:`repro_torch.analysis.preflight.plan_embedding_gather`): ids that
   lie on the host are range-checked there on every call, before upload,
-  because the kernel gathers unchecked and CUDA does not clamp the way JAX
-  does; the rest of the plan reads no value, so it is built once per
-  shape and dtype and reused (ids already on the card are never read
-  back).  On a CUDA table it launches ``csrc/embedding_gather.cu`` (a
-  block per row and chunk of the row, int32 or int64 ids read as they are)
-  or raises; on a CPU table, and only there, it runs
-  :func:`embedding_gather_ref`.
-* :func:`embedding_gather_ref` — the plain PyTorch version, ``table[ids]``.
+  and refused outside ``[0, V)``; the rest of the plan reads no value, so
+  it is built once per shape and dtype and reused (ids already on the
+  card are never read back).  On a CUDA table it launches
+  ``csrc/embedding_gather.cu`` (a block per row and chunk of the row,
+  int32 or int64 ids read as they are, each bounded to a row by
+  :func:`clamp_ids`'s rule inside the kernel, so an id already on the card
+  never reads outside the table) or raises; on a CPU table, and only
+  there, it runs :func:`embedding_gather_ref`.
+* :func:`embedding_gather_ref` — the plain PyTorch version,
+  ``table[clamp_ids(ids, V)]``.
+* :func:`clamp_ids` — the row each id reads: the reference's indexing
+  rule.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ from repro_torch.analysis.preflight import (
     plan_embedding_gather,
 )
 
-__all__ = ["KERNEL_LAUNCHES", "embedding_gather", "embedding_gather_ref"]
+__all__ = ["KERNEL_LAUNCHES", "clamp_ids", "embedding_gather",
+           "embedding_gather_ref"]
 
 #: Launches of kernel B9 by :func:`embedding_gather` in this process: one
 #: per call on a CUDA table, counted where the kernel is launched and
@@ -40,9 +45,23 @@ _DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64"}
 _ID_BYTES = {torch.int32: 4, torch.int64: 8}
 
 
+def clamp_ids(ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The row each id reads, as int64: a negative id wraps by ``vocab``
+    once, then the row is clamped to ``[0, vocab - 1]``.  This is the
+    reference's rule (JAX's indexing: ids 10, 17, -1 and 2^31 - 1 of a
+    10-row table all read row 9, -13 reads row 0), and the kernel applies
+    the same rule on the card.  An int64 id is bounded as it is (JAX
+    narrows it to int32 first, so 2^31 reads row 0 there and row
+    ``vocab - 1`` here): either way no id reads outside the table."""
+    ids = torch.as_tensor(ids).long()
+    ids = torch.where(ids < 0, ids + vocab, ids)
+    return ids.clamp(0, vocab - 1)
+
+
 def embedding_gather_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Plain ``table[ids]`` on the table's device: (T, d)."""
-    return table[torch.as_tensor(ids, device=table.device).long()]
+    """Plain ``table[clamp_ids(ids, V)]`` on the table's device: (T, d)."""
+    ids = torch.as_tensor(ids, device=table.device)
+    return table[clamp_ids(ids, table.shape[0])]
 
 
 @functools.lru_cache(maxsize=256)
@@ -82,7 +101,8 @@ def _launch(table, ids, out, chunks: int, threads: int) -> None:
     global KERNEL_LAUNCHES
     fn, error_string = _kernel()
     index = table.device.index
-    args = (table.data_ptr(), ids.data_ptr(), out.data_ptr(), ids.shape[0],
+    args = (table.data_ptr(), table.shape[0], ids.data_ptr(), out.data_ptr(),
+            ids.shape[0],
             table.shape[1] * table.element_size(), _ID_BYTES[ids.dtype],
             chunks, threads, torch.cuda.current_stream(index).cuda_stream)
     if index == torch.cuda.current_device():
@@ -107,8 +127,10 @@ def embedding_gather(table: torch.Tensor, ids, *, vl: int = 256) -> torch.Tensor
     Returns (T, d) in the table's dtype on its device.  Raises
     :class:`~repro_torch.analysis.launchplan.LaunchPlanError` (a
     ``ValueError``) before any launch or upload when host ids leave
-    ``[0, V)``, or ids are not integers.  ``vl`` is the reference's rows a
-    grid step; the CUDA grid does not depend on it.
+    ``[0, V)``, or ids are not integers.  Ids already on the card are not
+    read back: the kernel bounds each one by :func:`clamp_ids`'s rule.
+    ``vl`` is the reference's rows a grid step; the CUDA grid does not
+    depend on it.
     """
     if table.ndim != 2:
         raise ValueError(f"table must be (V, d), got shape {tuple(table.shape)}")

@@ -177,6 +177,13 @@ def _normalize_matrix(matrix, spec: ExecSpec) -> SellSlabs | EllpackMatrix:
 # ---------------------------------------------------------------------------
 
 
+def _handed_live(live: torch.Tensor) -> torch.Tensor | None:
+    """Cached live widths as handed to a B4 / B5 / B6 wrapper: none on the
+    CPU, whose plain path walks every slot (the true widths cut nothing
+    there), so it takes no masked copy of the slab."""
+    return None if live.device.type == "cpu" else live
+
+
 def _run_profiled(op: str, plan, thunk, device: torch.device):
     """Run a core call under the optional launch profiler; with one
     installed, the device is synchronized so the wall time covers the
@@ -332,6 +339,7 @@ def _spmm_ellpack(ell: EllpackMatrix, x: torch.Tensor,
             "mode='stream' requires a SELL slab layout; ELLPACK operands "
             "only run the resident uniform-width kernel")
     meta, (cols, vals, live) = _prepared(ell, x.device)
+    live = _handed_live(live)
     k = int(x.shape[1])
     plan = plan_spmv_ell(
         meta, dtype=str(x.dtype).removeprefix("torch."), k=k,
@@ -559,6 +567,7 @@ def bfs(graph: EllpackGraph, source=0, *,
     plan = plan_bfs_ell(
         meta, live=_PREPARED_GRAPHS[id(graph)]["live"]).raise_if_invalid()
     radj, live = tensors
+    live = _handed_live(live)
     if np.ndim(source) == 0:
         return _run_profiled("bfs", plan, lambda: bfs_k.bfs(
             radj, int(source), vl=spec.vl, live_width=live), device)
@@ -593,6 +602,7 @@ def pagerank(graph: EllpackGraph, *, damping=0.85, iters=20,
     plan = plan_pagerank_ell(
         meta, live=_PREPARED_GRAPHS[id(graph)]["live"]).raise_if_invalid()
     radj, live = tensors
+    live = _handed_live(live)
     if np.ndim(damping) == 0 and np.ndim(iters) == 0:
         return _run_profiled("pagerank", plan, lambda: pr_k.pagerank(
             radj, deg, damping=float(damping), iters=int(iters),

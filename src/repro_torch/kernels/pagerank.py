@@ -41,6 +41,7 @@ from repro_torch.kernels.bfs import (
     _graph_lib,
     _raise_on,
     _require_cuda,
+    cut_to_live,
     ell_live_widths,
 )
 
@@ -109,8 +110,8 @@ def _launch_ell(radj: torch.Tensor, live: torch.Tensor, contrib: torch.Tensor,
     with torch.cuda.device(contrib.device):
         err = lib.repro_pagerank_ell_step(
             radj.data_ptr(), live.data_ptr(), contrib.data_ptr(),
-            consts.data_ptr(), out.data_ptr(), n, ELL_NODE_BLOCK_THREADS,
-            torch.cuda.current_stream().cuda_stream)
+            consts.data_ptr(), out.data_ptr(), n, width,
+            ELL_NODE_BLOCK_THREADS, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, lib, f"pagerank_step ({n} nodes, width {width})")
     KERNEL_LAUNCHES["pagerank_step"] += 1
 
@@ -128,8 +129,12 @@ def pagerank_step(radj: torch.Tensor, contrib: torch.Tensor,
     one-slot walk).  ``live_width`` is the adjacency's
     :func:`~repro_torch.kernels.bfs.ell_live_widths` on the same device
     (``ops`` caches it once per graph); without it the step computes it,
-    a pass over ``radj`` each call.  The CPU path ignores it.  ``vl`` is
-    the reference's node block and does not shape the launch.
+    a pass over ``radj`` each call.  The walk bounds each width to ``[0,
+    width]``: a width past the last neighbour walks as far as the true
+    one, a negative one walks no slot (the warp's nodes pull nothing); the
+    CPU path walks the same slots (:func:`~repro_torch.kernels.bfs
+    .cut_to_live`).  ``vl`` is the reference's node block and does not
+    shape the launch.
     """
     _check_state(contrib, consts)
     if radj.ndim != 2 or contrib.shape != (radj.shape[0],):
@@ -140,6 +145,8 @@ def pagerank_step(radj: torch.Tensor, contrib: torch.Tensor,
     if live_width is not None:
         _check_live(radj, live_width)
     if contrib.device.type == "cpu":
+        if live_width is not None:
+            radj = cut_to_live(radj, live_width)
         return pagerank_step_ref(radj, contrib, consts, vl=vl)
     _require_cuda(contrib, "pagerank_step")
     contrib, consts = contrib.contiguous(), consts.contiguous()

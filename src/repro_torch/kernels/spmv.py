@@ -15,7 +15,9 @@ The matrix is uniform-width ELLPACK in the slice-transposed layout
   columns a lane), bit-equal to k launches of :func:`spmv_ell`; on CPU
   tensors :func:`spmm_ell_ref`.
 * :func:`live_widths` — each warp's live width, the bound of the kernel's
-  walk, computed from ``cols`` with torch ops on ``cols``' device.
+  walk, computed from ``cols`` with torch ops on ``cols``' device;
+  :func:`cut_to_live` — the slab as a walk to handed-in widths reads it
+  (each bounded to ``[0, W]``, in the kernel as here).
 * :func:`spmv_ell_ref` / :func:`spmm_ell_ref` — the plain PyTorch versions
   of the same functions.
 """
@@ -31,8 +33,8 @@ from repro_torch.core.autotune import (
 )
 from repro_torch.sparse.formats import PAD
 
-__all__ = ["KERNEL_LAUNCHES", "SPMM_LAUNCHES", "live_widths", "spmm_ell",
-           "spmm_ell_ref", "spmv_ell", "spmv_ell_ref"]
+__all__ = ["KERNEL_LAUNCHES", "SPMM_LAUNCHES", "cut_to_live", "live_widths",
+           "spmm_ell", "spmm_ell_ref", "spmv_ell", "spmv_ell_ref"]
 
 #: Launches of kernel B6 by :func:`spmv_ell` and :func:`spmm_ell` in this
 #: process: one per call of the one-column form, one per k tile of the
@@ -72,8 +74,9 @@ def _check_args(cols, vals, x) -> None:
 
 
 def _check_live(cols, live) -> None:
-    """The live-width array's dtype, device, shape and contiguity; its range
-    is the preflight's job."""
+    """The live-width array's dtype, device, shape and contiguity.  Its
+    values may be anything: the walk bounds each to ``[0, W]``
+    (:func:`cut_to_live`)."""
     n_slices, _, c = cols.shape
     want = (-(-n_slices * c // ELL_LIVE_ROWS),)
     if live.dtype != torch.int32:
@@ -107,6 +110,19 @@ def live_widths(cols: torch.Tensor) -> torch.Tensor:
         flat = torch.cat([flat, flat.new_zeros(short)])
     return flat.view(groups, ELL_LIVE_ROWS).amax(dim=1).to(
         torch.int32).contiguous()
+
+
+def cut_to_live(cols: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """``cols`` (S, W, C) with every slot the kernel's walk does not reach
+    set to PAD: row r walks slots ``w < clamp(live[r // 32], 0, W)``.  A
+    width past the warp's true one reaches only PAD slots more, so the
+    result is unchanged; a negative one reaches none.  The kernel bounds
+    the widths it reads the same way, so no walk leaves the slab."""
+    n_slices, width, c = cols.shape
+    bound = live.clamp(0, width).repeat_interleave(ELL_LIVE_ROWS)
+    bound = bound[:n_slices * c].view(n_slices, 1, c)
+    w = torch.arange(width, device=cols.device).view(1, width, 1)
+    return torch.where(w < bound, cols, PAD)
 
 
 def spmv_ell_ref(cols: torch.Tensor, vals: torch.Tensor,
@@ -215,8 +231,12 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
     the plain :func:`spmv_ell_ref`.  ``live_width`` is the slab's
     :func:`live_widths` on x's device (``ops`` caches it once per
     operand); without it the wrapper computes it itself, a pass over
-    ``cols`` each call.  ``w_block`` is the reference's width tile: one
-    thread walks the whole width, so it does not change the result.
+    ``cols`` each call.  The walk bounds each handed-in width to ``[0,
+    W]``: a width past the warp's last entry gives the true widths'
+    result, a negative one walks no slot (the warp's rows read 0); the CPU
+    path walks the same slots (:func:`cut_to_live`).  ``w_block`` is the
+    reference's width tile: one thread walks the whole width, so it does
+    not change the result.
     """
     _check_args(cols, vals, x)
     if w_block < 1:
@@ -224,6 +244,8 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
     if live_width is not None:
         _check_live(cols, live_width)
     if not _on_card(x, "spmv_ell"):
+        if live_width is not None:
+            cols = cut_to_live(cols, live_width)
         return spmv_ell_ref(cols, vals, x)
     x = x.contiguous()
     live = live_widths(cols) if live_width is None else live_width
@@ -244,12 +266,14 @@ def spmm_ell(cols: torch.Tensor, vals: torch.Tensor, X: torch.Tensor, *,
     (:func:`repro_torch.core.autotune.ell_k_tiles`: as many columns as one
     warp's lanes hold at 16 B each, so k = 32 is one launch), every column bit-equal to :func:`spmv_ell` of that column of
     X; on the CPU the plain :func:`spmm_ell_ref`.  ``live_width`` as in
-    :func:`spmv_ell` (computed here when absent).
+    :func:`spmv_ell` (computed here when absent; bounded the same way).
     """
     _check_rhs(cols, vals, X)
     if live_width is not None:
         _check_live(cols, live_width)
     if not _on_card(X, "spmm_ell"):
+        if live_width is not None:
+            cols = cut_to_live(cols, live_width)
         return spmm_ell_ref(cols, vals, X)
     X = X.contiguous()
     live = live_widths(cols) if live_width is None else live_width

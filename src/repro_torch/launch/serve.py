@@ -1,14 +1,18 @@
 """Batched serving CLI: continuous batcher over the generation engine —
 port of ``repro.launch.serve``.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --full \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --full \\
       --prompt-len 512 --new-tokens 16
 
-runs on the card (random init at the published widths, 11.3 GB of fp32
-weights for mamba2-2.7b); ``--device cpu`` without ``--full`` runs the
-reduced config on the CPU through the kernels' plain versions.  The port
-serves family ``"ssm"`` (mamba2); other archs raise ``NotImplementedError``
-(ROADMAP A12), and any ``--mesh`` other than ``none`` raises (A10).
+runs on the card (random init at the published widths: 14.4 GB of fp32
+weights for llama-3.2-3b, 11.3 GB for mamba2-2.7b); ``--device cpu``
+without ``--full`` runs the reduced config on the CPU through the kernels'
+plain versions.  The port serves families ``"dense"`` (llama3.2-3b,
+qwen2-1.5b, qwen3-14b, minicpm-2b) and ``"ssm"`` (mamba2-2.7b); hymba
+raises ``NotImplementedError`` (ROADMAP A12.1b), as do the MoE archs
+(A12.2) and the vision and enc-dec archs (A12.3), and any ``--mesh`` other
+than ``none`` raises (A10).  The batcher's KV caches share one length
+across slots, as the reference's: prompts of one length serve correctly.
 """
 from __future__ import annotations
 

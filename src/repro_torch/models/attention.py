@@ -1,0 +1,215 @@
+"""Attention — port of ``repro.models.attention``: GQA with RoPE, qk-norm,
+QKV bias, sliding windows and the ring-buffer KV-cache decode.
+
+Shapes as in the reference: hidden (B, S, d); q (B, S, Hq, dh); k / v (B,
+S, Hkv, dh) with Hq % Hkv == 0 (GQA groups).
+
+The KV cache is a ring buffer of capacity ``min(max_len, sliding_window)``
+for sliding-window layers and ``max_len`` otherwise.  Keys are stored with
+RoPE already applied at their absolute position; a parallel ``pos`` array
+holds each slot's absolute position (-1: empty) for the mask, so
+wrap-around eviction is just overwriting slots.  ``length`` and ``pos``
+stay tensors on the cache's device and every position is computed from
+them with tensor ops: no call here reads a device value back to the host.
+Caches are written functionally (a new :class:`KVCache` each call), as the
+reference writes them.
+
+The reference computes attention with plain einsums outside any Pallas
+kernel, so the port does the same with ``torch.einsum`` / ``torch.matmul``:
+scores in float32, the additive ``NEG_INF`` mask, a float32 softmax.  It
+does not call ``F.scaled_dot_product_attention``, whose masking is not the
+reference's.
+
+Not ported (listed under ROADMAP A12.1b): cross-attention (``ctx=``, with
+the vision and enc-dec families, A12.3) and the reference's opt-in module
+flags, all off by default there: ``ATTN_KV_CHUNK`` (online-softmax key blocks),
+``ATTN_BF16_SCORES`` (bf16 score buffers) and ``SEQ_SHARD_FALLBACK``
+(sequence-parallel queries on a mesh, A10).
+
+Parameters live in :class:`Attention`, an ``nn.Module`` whose tensors keep
+the reference's names and layouts (``wq`` is (d, Hq dh), ``wo`` (Hq dh,
+d)), so the reference's weights move over as they are
+(:mod:`repro_torch.models.convert`).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.execspec import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, he_init, rms_norm, rope_freqs
+
+__all__ = ["NEG_INF", "Attention", "KVCache", "attention", "cache_append",
+           "init_attn_params", "init_cache"]
+
+NEG_INF = -1e30
+
+#: The parameter names an :class:`Attention` may hold, in the reference's
+#: order: the projections, then the ``qkv_bias`` and ``qk_norm`` leaves.
+PARAM_NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "q_norm", "k_norm")
+
+
+class KVCache(NamedTuple):
+    """Ring-buffer cache.  k / v: (B, C, Hkv, dh); pos: (C,) int32 absolute
+    positions of each slot (-1 = empty); length: () int32 tokens cached so
+    far.  Stacked per layer, each leaf gains a leading layer axis."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    length: torch.Tensor
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> KVCache:
+    """An empty cache on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
+    cap = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    shape = (batch, cap, cfg.n_kv_heads, cfg.d_head)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((cap,), -1, dtype=torch.int32, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def cache_append(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> KVCache:
+    """Append S new tokens (absolute positions length .. length + S - 1) to
+    the ring; returns a new cache."""
+    s = k.shape[1]
+    cap = cache.k.shape[1]
+    newpos = cache.length + torch.arange(s, dtype=torch.int32, device=k.device)
+    if s >= cap:
+        # keep only the last `cap` tokens, laid out by their ring slots
+        k_tail, v_tail, p_tail = k[:, -cap:], v[:, -cap:], newpos[-cap:]
+        inv = torch.argsort(p_tail % cap)
+        return KVCache(k=k_tail[:, inv].to(cache.k.dtype),
+                       v=v_tail[:, inv].to(cache.v.dtype),
+                       pos=p_tail[inv], length=cache.length + s)
+    slots = (newpos % cap).long()
+    return KVCache(k=cache.k.index_copy(1, slots, k.to(cache.k.dtype)),
+                   v=cache.v.index_copy(1, slots, v.to(cache.v.dtype)),
+                   pos=cache.pos.index_copy(0, slots, newpos),
+                   length=cache.length + s)
+
+
+class Attention(nn.Module):
+    """The parameters of one self-attention layer (see
+    :func:`init_attn_params`), frozen: the port serves only."""
+
+    def __init__(self, tensors: dict[str, torch.Tensor]):
+        super().__init__()
+        unknown = set(tensors) - set(PARAM_NAMES)
+        if unknown:
+            raise ValueError(f"unknown attention parameters {sorted(unknown)}")
+        for name in PARAM_NAMES:
+            if name in tensors:
+                self.register_parameter(
+                    name, nn.Parameter(tensors[name], requires_grad=False))
+
+
+def init_attn_params(gen: torch.Generator, cfg: ModelConfig) -> Attention:
+    """Random init on the generator's device, the reference's scheme: He
+    projections, zero biases (``qkv_bias``), unit norms (``qk_norm``)."""
+    d, dh = cfg.d_model, cfg.d_head
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    dev = gen.device
+    p = {"wq": he_init(gen, (d, hq * dh)),
+         "wk": he_init(gen, (d, hkv * dh)),
+         "wv": he_init(gen, (d, hkv * dh)),
+         "wo": he_init(gen, (hq * dh, d), fan_in=hq * dh)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+            p[name] = torch.zeros((n * dh,), device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((dh,), device=dev)
+        p["k_norm"] = torch.ones((dh,), device=dev)
+    return Attention(p)
+
+
+def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor):
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = torch.matmul(x, p.wq.to(x.dtype))
+    k = torch.matmul(x, p.wk.to(x.dtype))
+    v = torch.matmul(x, p.wv.to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + p.bq.to(x.dtype)
+        k = k + p.bk.to(x.dtype)
+        v = v + p.bv.to(x.dtype)
+    q = q.reshape(b, s, hq, dh)
+    k = k.reshape(b, s, hkv, dh)
+    v = v.reshape(b, s, hkv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    return q, k, v
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor) -> torch.Tensor:
+    """Grouped SDPA.  mask: additive, broadcastable to (1, Hkv, 1, S, T).
+    Returns (B, S, Hq dh)."""
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    q = q.reshape(b, s, hkv, hq // hkv, dh)
+    scores = torch.einsum("bshgd,bthd->bhgst", q, k).float()
+    scores = scores * (dh ** -0.5) + mask.float()
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgst,bthd->bshgd", w, v)
+    return out.reshape(b, s, hq * dh)
+
+
+def _window_mask(ok: torch.Tensor, kpos: torch.Tensor, qpos: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """``ok`` narrowed to the sliding window, if any, as the additive mask
+    (1, 1, 1, S, T)."""
+    if cfg.sliding_window is not None:
+        ok = ok & (kpos > qpos - cfg.sliding_window)
+    return torch.where(ok, 0.0, NEG_INF)[None, None, None]
+
+
+def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
+              ctx: torch.Tensor | None = None, cache: KVCache | None = None,
+              causal: bool = True) -> tuple[torch.Tensor, KVCache | None]:
+    """One attention layer.
+
+    - no cache: (a)causal self-attention over ``x`` (``causal=False`` for
+      encoder stacks), the sliding window applied when causal;
+    - ``cache``: ``x`` is the new token block (a prefill into the ring or a
+      decode step); keys and values are appended, then the queries attend
+      over every filled slot at or before their position (and inside the
+      window).  Returns (out, new cache).
+
+    ``ctx`` (cross-attention) is ROADMAP A12.3 and raises.
+    """
+    if ctx is not None:
+        raise NotImplementedError(
+            "cross-attention (ctx=) serves the vision and enc-dec families, "
+            "ROADMAP A12.3")
+    s = x.shape[1]
+    q, k, v = _project_qkv(p, cfg, x)
+    ar = torch.arange(s, dtype=torch.int32, device=x.device)
+    if cache is None:
+        cos, sin = rope_freqs(cfg.d_head, cfg.rope_theta, ar[None, :])
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if causal:
+            qpos, kpos = ar[:, None], ar[None, :]
+            mask = _window_mask(kpos <= qpos, kpos, qpos, cfg)
+        else:
+            mask = torch.zeros((1, 1, 1, 1, 1), device=x.device)
+        out, new_cache = _sdpa(q, k, v, mask), None
+    else:
+        pos = cache.length + ar
+        cos, sin = rope_freqs(cfg.d_head, cfg.rope_theta, pos[None, :])
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        new_cache = cache_append(cache, k, v)
+        qpos, kpos = pos[:, None], new_cache.pos[None, :]
+        mask = _window_mask((kpos >= 0) & (kpos <= qpos), kpos, qpos, cfg)
+        out = _sdpa(q, new_cache.k.to(q.dtype), new_cache.v.to(q.dtype), mask)
+    return torch.matmul(out, p.wo.to(x.dtype)), new_cache

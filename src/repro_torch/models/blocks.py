@@ -1,11 +1,14 @@
-"""Blocks and block stacks — port of ``repro.models.blocks`` for kind
-``"ssm"`` (ln -> mamba2 mixer, the mamba2 family).
+"""Blocks and block stacks — port of ``repro.models.blocks`` for kinds
+``"dense"`` (ln -> attention -> ln -> SwiGLU MLP: llama, qwen, minicpm) and
+``"ssm"`` (ln -> mamba2 mixer).
 
 A Python loop over the layers replaces the reference's ``lax.scan``
 (``blocks.py:161``): PyTorch runs eagerly, and the per-layer decode caches
-stay stacked on a leading layer axis, as in the reference.  Every other
-block kind (dense, moe, hybrid, cross) raises ``NotImplementedError``:
-attention, MoE and cross-attention are ROADMAP A12.
+stay stacked on a leading layer axis, as in the reference: a KV cache's k /
+v are (L, B, C, Hkv, dh), its pos (L, C) and length (L,); an SSM state's
+leaves (L, B, ...).  The other block kinds raise ``NotImplementedError``:
+``"hybrid"`` (hymba) is ROADMAP A12.1b, ``"moe"`` A12.2 and ``"cross"``
+A12.3.
 """
 from __future__ import annotations
 
@@ -15,54 +18,100 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.execspec import resolve_device
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import he_init, rms_norm, swiglu
 from repro_torch.models.ssm import SSMState
 
-__all__ = ["Block", "LayerCaches", "block_forward", "init_block_params",
+__all__ = ["Block", "LayerCaches", "MLP", "block_forward", "init_block_params",
            "init_layer_caches", "run_blocks", "stack_init"]
 
+#: The block kinds the port runs.
+KINDS = ("dense", "ssm")
+_ROADMAP = {"hybrid": "A12.1b", "moe": "A12.2", "cross": "A12.3"}
 
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported: the port serves kind 'ssm' "
-        "(mamba2); attention, MoE, hybrid and cross blocks are ROADMAP A12")
+
+def _check_kind(kind: str) -> None:
+    if kind not in KINDS:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported: the port runs kinds 'dense' "
+            f"and 'ssm'; {kind!r} is ROADMAP {_ROADMAP.get(kind, 'A12')}")
 
 
 class LayerCaches(NamedTuple):
     """Per-stack decode caches (leaves stacked on a leading layer axis)."""
 
-    kv: None
+    kv: KVCache | None
     ssm: SSMState | None
 
 
-class Block(nn.Module):
-    """One ``"ssm"`` block: ``ln1`` and the mixer ``ssm``."""
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
 
-    def __init__(self, ln1: torch.Tensor, mixer: ssm_mod.SSMMixer):
+
+class MLP(nn.Module):
+    """A SwiGLU MLP's weights: ``w_gate`` / ``w_up`` (d, f), ``w_down`` (f, d)."""
+
+    def __init__(self, w_gate: torch.Tensor, w_up: torch.Tensor,
+                 w_down: torch.Tensor):
         super().__init__()
-        self.ln1 = nn.Parameter(ln1, requires_grad=False)
-        self.ssm = mixer
+        self.w_gate = _frozen(w_gate)
+        self.w_up = _frozen(w_up)
+        self.w_down = _frozen(w_down)
+
+
+class Block(nn.Module):
+    """One block: ``ln1`` and its mixer (``attn`` for kind ``"dense"``,
+    ``ssm`` for ``"ssm"``), then ``ln2`` and ``mlp`` where the kind has an
+    MLP."""
+
+    def __init__(self, ln1: torch.Tensor, *, ssm: ssm_mod.SSMMixer | None = None,
+                 attn: attn_mod.Attention | None = None,
+                 ln2: torch.Tensor | None = None, mlp: MLP | None = None):
+        super().__init__()
+        self.ln1 = _frozen(ln1)
+        self.ssm = ssm
+        self.attn = attn
+        self.ln2 = None if ln2 is None else _frozen(ln2)
+        self.mlp = mlp
 
 
 def init_block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Block:
-    if kind != "ssm":
-        raise _unported(kind)
-    ln1 = torch.ones((cfg.d_model,), device=gen.device)
-    return Block(ln1, ssm_mod.init_ssm_params(gen, cfg))
+    _check_kind(kind)
+    d, dev = cfg.d_model, gen.device
+    ln1 = torch.ones((d,), device=dev)
+    if kind == "ssm":
+        return Block(ln1, ssm=ssm_mod.init_ssm_params(gen, cfg))
+    attn = attn_mod.init_attn_params(gen, cfg)
+    f = cfg.d_ff
+    mlp = MLP(he_init(gen, (d, f)), he_init(gen, (d, f)),
+              he_init(gen, (f, d), fan_in=f))
+    return Block(ln1, attn=attn, ln2=torch.ones((d,), device=dev), mlp=mlp)
 
 
 def block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
-                  ssm_state: SSMState | None = None
-                  ) -> tuple[torch.Tensor, SSMState | None]:
-    """Returns (x, new_ssm).  The reference's kv, ctx and aux-loss outputs
-    belong to the attention and MoE kinds (ROADMAP A12)."""
-    if kind != "ssm":
-        raise _unported(kind)
+                  kv: KVCache | None = None, ssm_state: SSMState | None = None
+                  ) -> tuple[torch.Tensor, KVCache | None, SSMState | None]:
+    """Returns (x, new_kv, new_ssm).  The reference's aux-loss output
+    belongs to the MoE kind (ROADMAP A12.2) and its ``ctx`` to the cross
+    kind (A12.3)."""
+    _check_kind(kind)
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    s_out, new_ssm = ssm_mod.ssm_forward(p.ssm, cfg, h, ssm_state)
-    return x + s_out, new_ssm
+    new_kv, new_ssm = None, None
+    if kind == "ssm":
+        s_out, new_ssm = ssm_mod.ssm_forward(p.ssm, cfg, h, ssm_state)
+        x = x + s_out
+    else:
+        a, new_kv = attn_mod.attention(p.attn, cfg, h, cache=kv)
+        x = x + a
+    if p.mlp is not None:
+        h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+        m = p.mlp
+        x = x + swiglu(h2, m.w_gate.to(x.dtype), m.w_up.to(x.dtype),
+                       m.w_down.to(x.dtype))
+    return x, new_kv, new_ssm
 
 
 def stack_init(gen: torch.Generator, n_layers: int, cfg: ModelConfig,
@@ -71,38 +120,56 @@ def stack_init(gen: torch.Generator, n_layers: int, cfg: ModelConfig,
     return nn.ModuleList(init_block_params(gen, cfg, kind) for _ in range(n_layers))
 
 
+def _layer(stacked: NamedTuple | None, i: int):
+    """Layer ``i`` of a layer-stacked cache (every leaf indexed)."""
+    return None if stacked is None else type(stacked)(*(a[i] for a in stacked))
+
+
+def _stack(per_layer: list, cls):
+    """The per-layer caches stacked on a new leading layer axis."""
+    if not per_layer:
+        return None
+    return cls(*(torch.stack(leaves) for leaves in zip(*per_layer)))
+
+
 def run_blocks(stack: nn.ModuleList, cfg: ModelConfig, kind: str, x: torch.Tensor,
                *, caches: LayerCaches | None = None
                ) -> tuple[torch.Tensor, LayerCaches | None]:
     """Run a homogeneous stack layer by layer (the reference's
     ``scan_blocks``).  Returns (x, new_caches); new caches are new tensors,
     the given ones are left as they were."""
-    if kind != "ssm":
-        raise _unported(kind)
-    states, convs = [], []
+    _check_kind(kind)
+    kvs, states = [], []
     for i, block in enumerate(stack):
-        st = (SSMState(caches.ssm.state[i], caches.ssm.conv[i])
-              if caches is not None else None)
-        x, new = block_forward(block, cfg, kind, x, ssm_state=st)
-        if new is not None:
-            states.append(new.state)
-            convs.append(new.conv)
+        kv = _layer(caches.kv, i) if caches is not None else None
+        st = _layer(caches.ssm, i) if caches is not None else None
+        x, new_kv, new_ssm = block_forward(block, cfg, kind, x, kv=kv,
+                                           ssm_state=st)
+        if new_kv is not None:
+            kvs.append(new_kv)
+        if new_ssm is not None:
+            states.append(new_ssm)
     if caches is None:
         return x, None
-    return x, LayerCaches(kv=None, ssm=SSMState(torch.stack(states),
-                                                torch.stack(convs)))
+    return x, LayerCaches(kv=_stack(kvs, KVCache), ssm=_stack(states, SSMState))
 
 
 def init_layer_caches(cfg: ModelConfig, n_layers: int, kind: str, batch: int,
                       max_len: int, dtype=torch.bfloat16,
                       device=None) -> LayerCaches:
     """Stacked decode caches for one homogeneous group on ``device``
-    (``None``: the card).  ``max_len`` sizes a KV cache; an SSM state is
-    O(1) in length."""
+    (``None``: the card): each leaf of one layer's cache broadcast to a
+    leading ``n_layers`` axis, as the reference's.  ``max_len`` sizes a KV
+    cache; an SSM state is O(1) in length."""
     device = resolve_device(device)
-    if kind != "ssm":
-        raise _unported(kind)
-    one = ssm_mod.init_ssm_state(cfg, batch, dtype, device=device)
-    return LayerCaches(kv=None, ssm=SSMState(
-        state=one.state.expand((n_layers,) + one.state.shape).contiguous(),
-        conv=one.conv.expand((n_layers,) + one.conv.shape).contiguous()))
+    _check_kind(kind)
+
+    def stacked(one):
+        return type(one)(*(a.expand((n_layers,) + a.shape).contiguous()
+                           for a in one))
+
+    if kind == "ssm":
+        return LayerCaches(kv=None, ssm=stacked(
+            ssm_mod.init_ssm_state(cfg, batch, dtype, device=device)))
+    return LayerCaches(kv=stacked(attn_mod.init_cache(cfg, batch, max_len, dtype,
+                                                      device=device)), ssm=None)

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.execspec import resolve_device
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
@@ -24,8 +25,11 @@ __all__ = ["params_from_reference"]
 
 def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> LM:
     """The reference's ``init_params`` pytree (numpy leaves) as an
-    :class:`LM` on ``device`` (``None``: the card).  Family ``"ssm"`` only,
-    as the rest of the port's model."""
+    :class:`LM` on ``device`` (``None``: the card).  The families the
+    port's model runs: ``"ssm"`` (``ln1``, ``ssm.*``) and ``"dense"``
+    (``ln1``, ``attn.{wq, wk, wv, wo}`` with ``bq / bk / bv`` and ``q_norm
+    / k_norm`` where the config has them, ``ln2``, ``mlp.{w_gate, w_up,
+    w_down}``), each leaf stacked on the layer axis."""
     _check_family(cfg)
     dev = resolve_device(device)
 
@@ -37,10 +41,20 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> LM:
     if n_layers != cfg.n_layers:
         raise ValueError(f"the tree stacks {n_layers} blocks; {cfg.name} has "
                          f"{cfg.n_layers}")
-    blocks = nn.ModuleList(
-        blk.Block(t(stacked["ln1"][i]), ssm_mod.SSMMixer(
-            {k: t(v[i]) for k, v in stacked["ssm"].items()}))
-        for i in range(n_layers))
+
+    def layer(group: str, i: int) -> dict:
+        return {k: t(v[i]) for k, v in stacked[group].items()}
+
+    def block(i: int) -> blk.Block:
+        ln1 = t(stacked["ln1"][i])
+        if "ssm" in stacked:
+            return blk.Block(ln1, ssm=ssm_mod.SSMMixer(layer("ssm", i)))
+        m = layer("mlp", i)
+        return blk.Block(ln1, attn=attn_mod.Attention(layer("attn", i)),
+                         ln2=t(stacked["ln2"][i]),
+                         mlp=blk.MLP(m["w_gate"], m["w_up"], m["w_down"]))
+
+    blocks = nn.ModuleList(block(i) for i in range(n_layers))
     head = tree.get("lm_head")
     return LM(t(tree["tok_embed"]), t(tree["final_norm"]),
               None if head is None else t(head), blocks)

@@ -1,19 +1,21 @@
-"""Shared low-level layers: RMSNorm and the initializers (port of
-``repro.models.layers``).
+"""Shared low-level layers: RMSNorm, rotary embeddings, SwiGLU and the
+initializers (port of ``repro.models.layers``).
 
 The initializers draw from an explicit ``torch.Generator`` (the counterpart
 of a ``jax.random`` key) on the generator's device; the same seed gives
 other numbers than JAX's, so parity tests move the reference's weights over
-instead (:mod:`repro_torch.models.convert`).  Rope, SwiGLU and the loss
-come with the attention and training slices (ROADMAP A12).
+instead (:mod:`repro_torch.models.convert`).  The loss comes with the
+training slice (ROADMAP A12.4).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.nn import functional as Fn
 
-__all__ = ["embed_init", "he_init", "rms_norm"]
+__all__ = ["apply_rope", "embed_init", "he_init", "rms_norm", "rope_freqs",
+           "swiglu"]
 
 
 def he_init(gen: torch.Generator, shape, dtype=torch.float32,
@@ -33,3 +35,32 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     var = xf.square().mean(dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
     return (xf * scale.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for rotary embeddings at the given positions, on the
+    positions' device: shape ``positions.shape + (head_dim // 2,)``, angles
+    in float32 as the reference computes them."""
+    dev = positions.device
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=dev) / head_dim
+    inv = 1.0 / (theta ** exps)
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); cos/sin: (..., seq, head_dim // 2).
+    Rotates the two halves of the head dimension; returns x's dtype."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """``(silu(x @ w_gate) * (x @ w_up)) @ w_down`` over the last axis."""
+    g = torch.matmul(x, w_gate)
+    u = torch.matmul(x, w_up)
+    return torch.matmul(Fn.silu(g) * u, w_down)

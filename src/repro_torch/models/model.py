@@ -1,5 +1,6 @@
 """Top-level model — port of ``repro.models.model`` for the stacked-block
-families, of which family ``"ssm"`` (mamba2) is ported.
+families, of which families ``"dense"`` (llama-3.2-3b, qwen2-1.5b,
+qwen3-14b, minicpm-2b) and ``"ssm"`` (mamba2) are ported.
 
 Public surface (the reference's, with an ``nn.Module`` for the pytree):
   init_params(gen, cfg)                         -> LM on gen's device (f32)
@@ -12,12 +13,13 @@ Public surface (the reference's, with an ``nn.Module`` for the pytree):
 CPU tensor (both range-checked against the vocabulary before upload) or a
 tensor on the model's device (a decode step's argmax).  The token
 embedding is kernel B9 (:func:`repro_torch.kernels.gather.embedding_gather`);
-the head is a plain ``torch.matmul``, as the reference leaves it to XLA.
-Everything runs on the device the parameters live on.
+the head is a plain ``torch.matmul`` (the tied head ``tok_embed.T`` where
+the config ties it), as the reference leaves it to XLA.  Everything runs on
+the device the parameters live on.
 
-Attention, MoE, hybrid, vision and enc-dec families raise
-``NotImplementedError`` (ROADMAP A12); so do ``remat`` and ``mesh``
-(training is A12, multi-device A10).
+The hybrid (hymba, ROADMAP A12.1b), MoE (A12.2), vision and enc-dec
+(A12.3) families raise ``NotImplementedError``; so do ``remat`` and
+``mesh`` (training is A12.4, multi-device A10).
 """
 from __future__ import annotations
 
@@ -48,13 +50,17 @@ def _kind(cfg: ModelConfig) -> str:
 
 def _check_family(cfg: ModelConfig) -> str:
     kind = _kind(cfg)
-    if kind != "ssm" or cfg.encdec is not None or cfg.cross_attn is not None \
-            or cfg.dense_first_layer_ff:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) is not ported: the port "
-            "serves family 'ssm' (mamba2); attention, MoE, hybrid, vision "
-            "and enc-dec families are ROADMAP A12")
-    return kind
+    if cfg.encdec is not None or cfg.cross_attn is not None:
+        item = "A12.3"
+    elif kind == "hybrid":
+        item = "A12.1b"
+    elif kind == "moe" or cfg.dense_first_layer_ff:
+        item = "A12.2"
+    else:
+        return kind
+    raise NotImplementedError(
+        f"{cfg.name} (family {cfg.family!r}) is not ported: the port serves "
+        f"families 'dense' and 'ssm'; this one is ROADMAP {item}")
 
 
 class LM(nn.Module):
@@ -130,7 +136,7 @@ def _no_mesh(mesh, remat=None) -> None:
     if mesh is not None:
         raise NotImplementedError("mesh: multi-device execution is ROADMAP A10")
     if remat is not None:
-        raise NotImplementedError("remat: training is ROADMAP A12")
+        raise NotImplementedError("remat: training is ROADMAP A12.4")
 
 
 # ---------------------------------------------------------------------------

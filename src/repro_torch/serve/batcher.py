@@ -4,8 +4,8 @@
 The engine decodes a fixed-width batch; the batcher multiplexes a request
 queue onto those slots.  When a sequence finishes its slot is refilled by
 prefilling the next queued prompt alone (a b = 1 prefill: kernel B9 for
-its tokens, kernel B8 for a chunk-multiple prompt) and writing that
-prefill's caches into the slot's batch row.  The admission/eviction loop
+its tokens, and for mamba2 kernel B8 for a chunk-multiple prompt) and
+writing that prefill's caches into the slot's batch row.  The admission/eviction loop
 is :class:`repro_torch.serve.slots.SlotLoop`, the core the kernel service
 batches on.
 
@@ -13,7 +13,15 @@ The reference's ``_splice_caches`` (``batcher.py:109``) guesses the batch
 axis of each cache leaf from its shape, which is ambiguous when
 ``n_layers`` or ``n_slots`` is 1; the port writes the batch row of each
 cache field by name (:func:`_write_slot`), in place: the shared caches
-belong to the batcher alone.
+belong to the batcher alone.  A KV cache's ``pos`` and ``length`` have no
+batch axis: all slots share them, in the reference as here, and the
+admitted prefill's replace them.  So attention caches are right only for
+prompts of equal length admitted in aligned waves (the reference's
+``_splice_caches`` says so too); per-slot lengths would be a feature the
+reference lacks.  Where the reference would silently re-position the
+live slots' keys, the batcher refuses: it keeps the shared length on the
+host and raises :class:`ValueError` at an admission that would change it
+while another slot is still decoding.
 """
 from __future__ import annotations
 
@@ -45,10 +53,19 @@ class Request:
 
 def _write_slot(shared: M.Caches, single: M.Caches, slot: int) -> None:
     """Write the b = 1 caches into batch row ``slot`` of the shared ones.
-    The SSM leaves are (layers, batch, ...): the batch axis is axis 1."""
-    dst, src = shared["layers"].ssm, single["layers"].ssm
-    dst.state[:, slot] = src.state[:, 0]
-    dst.conv[:, slot] = src.conv[:, 0]
+    The SSM leaves and a KV cache's k / v are (layers, batch, ...): the
+    batch axis is axis 1.  A KV cache's pos (layers, C) and length
+    (layers,) are shared by every slot and copied from the prefill, as the
+    reference's splice does."""
+    dst, src = shared["layers"], single["layers"]
+    if dst.ssm is not None:
+        dst.ssm.state[:, slot] = src.ssm.state[:, 0]
+        dst.ssm.conv[:, slot] = src.ssm.conv[:, 0]
+    if dst.kv is not None:
+        dst.kv.k[:, slot] = src.kv.k[:, 0]
+        dst.kv.v[:, slot] = src.kv.v[:, 0]
+        dst.kv.pos.copy_(src.kv.pos)
+        dst.kv.length.copy_(src.kv.length)
 
 
 class Batcher(SlotLoop[Request]):
@@ -65,6 +82,9 @@ class Batcher(SlotLoop[Request]):
         self.caches = M.init_caches(cfg, n_slots, max_len=self.gcfg.cache_len,
                                     dtype=self.gcfg.dtype, device=params.device)
         self._next_tok = np.zeros((n_slots,), np.int32)
+        #: The KV caches' shared length as the host knows it: the last
+        #: admitted prompt's length plus the decode steps since.
+        self._kv_len = 0
 
     # -- SlotLoop hooks ----------------------------------------------------
     def done(self, req: Request) -> bool:
@@ -72,13 +92,27 @@ class Batcher(SlotLoop[Request]):
 
     def admit(self, slot: int, req: Request) -> None:
         """Prefill the admitted prompt alone and write its caches into the
-        slot's row."""
+        slot's row.  With KV caches, a prompt whose length is not the
+        shared one is refused while another slot is decoding (its keys
+        would move); the request goes back to the head of the queue."""
+        s = int(np.asarray(req.prompt).shape[-1])
+        if self.caches["layers"].kv is not None and s != self._kv_len and any(
+                r is not None and not r.done
+                for j, r in enumerate(self.slots) if j != slot):
+            self.slots[slot] = None
+            self.queue.appendleft(req)
+            raise ValueError(
+                f"request {req.rid}: a {s}-token prompt would move the "
+                f"shared KV length ({self._kv_len}) under the slots still "
+                "decoding; attention caches take equal prompt lengths in "
+                "aligned waves (the reference's splice)")
         one = M.init_caches(self.cfg, 1, max_len=self.gcfg.cache_len,
                             dtype=self.gcfg.dtype, device=self.params.device)
         logits, one = M.prefill(self.params, self.cfg,
                                 {"tokens": np.asarray(req.prompt)[None]}, one,
                                 dtype=self.gcfg.dtype)
         _write_slot(self.caches, one, slot)
+        self._kv_len = s
         tok = int(torch.argmax(logits[0, -1]))
         req.generated.append(tok)
         self._next_tok[slot] = tok
@@ -89,6 +123,7 @@ class Batcher(SlotLoop[Request]):
         logits, self.caches = M.decode_step(
             self.params, self.cfg, self._next_tok[:, None], self.caches,
             dtype=self.gcfg.dtype)
+        self._kv_len += 1
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         for i, req in active:
             if not req.done:

@@ -3,13 +3,16 @@ port of ``repro.serve.engine`` in its plain mode.
 
 The model's parameters fix the device: a prompt batch (numpy, host) is
 range-checked and uploaded by the first prefill's embedding gather (kernel
-B9), the chunk-multiple prefill runs the fused scan (kernel B8), and each
-decode step feeds the previous step's argmax, still on the device, back
-through B9.  PyTorch runs eagerly, so there is no compiled step to reuse.
+B9), a mamba2 chunk-multiple prefill runs the fused scan (kernel B8), an
+attention model fills its KV caches, and each decode step feeds the
+previous step's argmax, still on the device, back through B9.  PyTorch
+runs eagerly, so there is no compiled step to reuse (ROADMAP A20).  The
+families served are the model's: ``"dense"`` and ``"ssm"``.
 
 The reference's fused kernel-service mode (MoE combines through the
 service's slot loop) needs the MoE families: it raises
-``NotImplementedError`` (ROADMAP A12), as does a ``mesh`` (A10).
+``NotImplementedError`` (ROADMAP A12.2), as do ``extras`` (the vision and
+enc-dec families' ``ctx_embeds``, A12.3) and a ``mesh`` (A10).
 """
 from __future__ import annotations
 
@@ -56,14 +59,14 @@ class ServeEngine:
                  dispatch_spec=None):
         """Plain mode only: ``mesh`` is ROADMAP A10 and the fused
         kernel-service mode (``kernel_service``, ``moe_operand``,
-        ``dispatch_spec``) is A12; either raises."""
+        ``dispatch_spec``) is A12.2; either raises."""
         if mesh is not None:
             raise NotImplementedError("mesh: multi-device serving is ROADMAP A10")
         if kernel_service is not None or moe_operand is not None \
                 or dispatch_spec is not None:
             raise NotImplementedError(
                 "fused kernel-service mode serves the MoE families, which are "
-                "ROADMAP A12; construct the engine without kernel_service")
+                "ROADMAP A12.2; construct the engine without kernel_service")
         self.cfg = cfg
         self.params = params
         self.gcfg = gcfg
@@ -75,7 +78,7 @@ class ServeEngine:
         if extras:
             raise NotImplementedError(
                 "extras (ctx_embeds) feed the vision and enc-dec families, "
-                "ROADMAP A12")
+                "ROADMAP A12.3")
         cfg, gcfg = self.cfg, self.gcfg
         dev = self.params.device
         b = prompts.shape[0]

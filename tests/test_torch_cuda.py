@@ -4,7 +4,8 @@
 the FFT B7 (``csrc/fft_stockham.cu``), the fused SSD scan B8
 (``csrc/ssd_fused.cu``) and the embedding gather B9
 (``csrc/embedding_gather.cu``) against their plain PyTorch versions on the
-card, and the reduced mamba2 LM path on the card against the CPU.  Every test here carries the ``cuda`` marker and skips without
+card, and the reduced mamba2 and dense attention LM paths on the card
+against the CPU.  Every test here carries the ``cuda`` marker and skips without
 a GPU (decided inside the fixture, never at import).  This file imports
 neither ``jax`` nor ``repro``, so it runs on a machine that has only the
 port's dependencies:
@@ -780,6 +781,87 @@ def test_gather_device_ids_launch_once_without_a_conversion(cuda_device,
         assert torch.equal(got, table[ids])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_gather_card_ids_out_of_range_read_inside_the_table(cuda_device,
+                                                            id_dtype):
+    """Ids on the card outside ``[0, V)`` (V, V + 7, -1, -V - 3, 2^31 - 1,
+    and 2^31 for int64): the kernel bounds each by ``clamp_ids``'s rule
+    and equals ``table[clamp_ids(ids)]``; the CUDA context stays usable
+    (a synchronize and a further launch pass).  Raw out-of-range ids never
+    go to ``table[ids]`` on the card: its device assert would poison the
+    context."""
+    from repro_torch.kernels import gather
+
+    v = 1000
+    table = torch.randn((v, 66), dtype=torch.float32, device=cuda_device)
+    raw = [v, v + 7, -1, -v - 3, 2**31 - 1, 3, -v]
+    if id_dtype == torch.int64:
+        raw += [2**31, -2**31 - 5]
+    ids = torch.tensor(raw, dtype=id_dtype, device=cuda_device)
+    got = gather.embedding_gather(table, ids)
+    torch.cuda.synchronize()
+    rows = gather.clamp_ids(ids, v)
+    assert torch.equal(got, table[rows])
+    assert torch.equal(got, gather.embedding_gather_ref(table, ids))
+    ok = torch.tensor([0, v - 1], dtype=id_dtype, device=cuda_device)
+    assert torch.equal(gather.embedding_gather(table, ok), table[ok.long()])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_ell_kernels_bound_handed_live_widths(cuda_device):
+    """B4 / B5 / B6 with live widths W + 5 in every warp are torch.equal to
+    the true widths; -1 in one warp walks no slot there, torch.equal to the
+    plain path handed the same widths (which cuts the slab as the kernel
+    walks it)."""
+    from repro_torch.graphs import gen as G
+    from repro_torch.kernels import bfs, pagerank, spmv
+
+    csr = F.random_csr(4093, 3000, 9.0, seed=6, skew=1.2)
+    cols, vals = F.csr_to_ellpack(csr, c=32).to_device(cuda_device)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(3000)) \
+        .to(cuda_device)
+    X = torch.from_numpy(np.random.default_rng(1).standard_normal((3000, 8))) \
+        .to(cuda_device)
+    live = spmv.live_widths(cols)
+    over = torch.full_like(live, cols.shape[1] + 5)
+    neg = live.clone()
+    neg[1] = -1
+    for fn, rhs in ((spmv.spmv_ell, x), (spmv.spmm_ell, X)):
+        want = fn(cols, vals, rhs, live_width=live)
+        assert torch.equal(fn(cols, vals, rhs, live_width=over), want)
+        got = fn(cols, vals, rhs, live_width=neg)
+        plain = fn(cols.cpu(), vals.cpu(), rhs.cpu(), live_width=neg.cpu())
+        assert not got[32:64].any()
+        torch.testing.assert_close(got.cpu(), plain, rtol=1e-10, atol=1e-10)
+    g, rg = _graph_case(G, n=4093)
+    radj = rg.to_device(cuda_device)
+    live = bfs.ell_live_widths(radj)
+    over = torch.full_like(live, radj.shape[1] + 5)
+    neg = live.clone()
+    neg[2] = -1
+    d = torch.full((4093,), G.INF, dtype=torch.int32, device=cuda_device)
+    d[np.random.default_rng(2).choice(4093, 40, replace=False)] = 0
+    contrib = torch.from_numpy(np.random.default_rng(4).random(4093)).to(
+        cuda_device)
+    consts = torch.tensor([0.15 / 4093, 0.85, 1e-5], dtype=torch.float64,
+                          device=cuda_device)
+    want_b = bfs.bfs_step(radj, d, 1, live_width=live)
+    want_p = pagerank.pagerank_step(radj, contrib, consts, live_width=live)
+    assert torch.equal(bfs.bfs_step(radj, d, 1, live_width=over), want_b)
+    assert torch.equal(pagerank.pagerank_step(radj, contrib, consts,
+                                              live_width=over), want_p)
+    got_b = bfs.bfs_step(radj, d, 1, live_width=neg)
+    assert torch.equal(got_b.cpu(), bfs.bfs_step(
+        radj.cpu(), d.cpu(), 1, live_width=neg.cpu()))
+    got_p = pagerank.pagerank_step(radj, contrib, consts, live_width=neg)
+    torch.testing.assert_close(got_p.cpu(), pagerank.pagerank_step(
+        radj.cpu(), contrib.cpu(), consts.cpu(), live_width=neg.cpu()),
+        rtol=1e-10, atol=0)
+    torch.cuda.synchronize()
+
+
 def _ssd_case(b, l, h, p, g, n, dtype, device, seed, init=False):
     rng = np.random.default_rng(seed)
     arrs = [rng.standard_normal((b, l, h, p)),
@@ -880,3 +962,45 @@ def test_reduced_mamba2_serves_on_the_card_as_on_the_cpu(cuda_device):
     gcfg = GenerationConfig(max_new_tokens=6, cache_len=64)
     np.testing.assert_array_equal(ServeEngine(cfg, card, gcfg).generate(prompts),
                                   ServeEngine(cfg, cpu, gcfg).generate(prompts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-1.5b", "qwen3-14b",
+                                  "minicpm-2b"])
+def test_reduced_dense_lms_serve_on_the_card_as_on_the_cpu(cuda_device, arch):
+    """A dense attention LM with the same weights on the card (B9, the
+    attention and MLP in plain torch) and on the CPU: prefill and decode
+    logits and the KV caches at 1e-5 x max|value|, the engine's and the
+    batcher's greedy tokens equal; B9 once a prefill and once a step."""
+    from repro_torch import configs
+    from repro_torch.kernels import gather
+    from repro_torch.models import model as M
+    from repro_torch.serve import Batcher, GenerationConfig, Request, ServeEngine
+
+    cfg = configs.reduced_config(arch)
+    cpu = M.init_params(M.make_generator(0, "cpu"), cfg)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16))
+    b9 = gather.KERNEL_LAUNCHES
+    outs = []
+    for p, dev in ((cpu, "cpu"), (card, cuda_device)):
+        caches = M.init_caches(cfg, 2, 64, dtype=torch.float32, device=dev)
+        logits, caches = M.prefill(p, cfg, {"tokens": prompts}, caches)
+        step, caches = M.decode_step(p, cfg, prompts[:, :1], caches)
+        kv = caches["layers"].kv
+        outs.append((logits.cpu(), step.cpu(), kv.k.cpu(), kv.v.cpu()))
+        assert kv.length.tolist() == [17] * cfg.n_layers
+    assert gather.KERNEL_LAUNCHES - b9 == 2
+    for want, got in zip(*outs):
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    gcfg = GenerationConfig(max_new_tokens=6, cache_len=64)
+    np.testing.assert_array_equal(ServeEngine(cfg, card, gcfg).generate(prompts),
+                                  ServeEngine(cfg, cpu, gcfg).generate(prompts))
+    served = []
+    for p in (cpu, card):
+        b = Batcher(cfg, p, n_slots=2, gcfg=gcfg)
+        for i, pr in enumerate(np.concatenate([prompts, prompts[::-1]])):
+            b.submit(Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=4))
+        served.append({r.rid: r.generated for r in b.run()})
+    assert served[0] == served[1]

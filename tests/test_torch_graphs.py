@@ -205,6 +205,41 @@ def test_ell_steps_match_reference_kernels(n, holey):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=0)
 
 
+def test_ell_steps_bound_handed_live_widths():
+    """B4 / B5's walk bounds each handed-in live width to ``[0, width]``,
+    on the plain path as in the kernels: width + 5 in every warp gives the
+    true widths' result; -1 walks no slot, so that warp's nodes at INF
+    stay there (BFS) and pull nothing (PageRank), the rest unchanged."""
+    ref, _ = _pair("rmat", 263, 8, 2)
+    radj = _t(ref.transpose().adj)
+    n, width = radj.shape
+    live = bfs.ell_live_widths(radj)
+    rng = np.random.default_rng(8)
+    dist = np.full(n, INF, np.int32)
+    dist[rng.choice(n, 9, replace=False)] = 0
+    dist = _t(dist)
+    contrib = _t(rng.random(n))
+    consts = _t(np.array([0.15 / n, 0.85, 0.01 / n]))
+    want_b = bfs.bfs_step(radj, dist, 1)
+    want_p = pagerank.pagerank_step(radj, contrib, consts)
+    assert (want_b[64:96] == 1).any()           # the warp cut below has hits
+    over = torch.full_like(live, width + 5)
+    assert torch.equal(bfs.cut_to_live(radj, over), radj)
+    assert torch.equal(bfs.bfs_step(radj, dist, 1, live_width=over), want_b)
+    assert torch.equal(pagerank.pagerank_step(radj, contrib, consts,
+                                              live_width=over), want_p)
+    neg = live.clone()
+    neg[2] = -1                                   # nodes 64 .. 95
+    warp = (torch.arange(n) // 32) == 2
+    got_b = bfs.bfs_step(radj, dist, 1, live_width=neg)
+    assert torch.equal(got_b[warp], dist[warp])
+    assert torch.equal(got_b[~warp], want_b[~warp])
+    got_p = pagerank.pagerank_step(radj, contrib, consts, live_width=neg)
+    assert torch.equal(got_p[warp], torch.full((32,), float(
+        consts[0] + consts[1] * consts[2]), dtype=torch.float64))
+    assert torch.equal(got_p[~warp], want_p[~warp])
+
+
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 263])
 def test_bfs_frontier_matches_a_numpy_packing(n):
     """B4's frontier bitmap: bit j of word i is dist[32 i + j] == level - 1,
@@ -499,8 +534,9 @@ def test_ops_graph_prep_happens_once_per_graph(monkeypatch):
 
 def test_ops_computes_live_widths_once_per_graph_and_device(monkeypatch):
     """``ops`` computes an ELLPACK graph's live widths beside its upload,
-    once per graph and device, hands them to every drive, and plans them;
-    the SELL layout never computes them."""
+    once per graph and device, and plans them; it hands them to every
+    drive on the card and none on the CPU, whose plain step walks every
+    slot; the SELL layout never computes them."""
     calls = {"n": 0}
     real = bfs.ell_live_widths
 
@@ -521,10 +557,13 @@ def test_ops_computes_live_widths_once_per_graph_and_device(monkeypatch):
         ops.bfs(port, 0, spec=spec)
         ops.bfs(port, [0, 5], spec=spec)
         ops.pagerank(port, iters=2, spec=spec)
+    assert len(handed) == 8 and all(h is None for h in handed)
+    _, (_, live), _ = ops._prepared_graph(
+        port, dataclasses.replace(CPU, vl=8), torch.device("cpu"),
+        plan_bfs_ell)
     assert calls["n"] == 1
-    assert len(handed) == 8 and all(h is handed[0] for h in handed)
     want = _live_count_adj(port.transpose().adj)
-    np.testing.assert_array_equal(handed[0].numpy(), want)
+    np.testing.assert_array_equal(live.numpy(), want)
     meta = ops._PREPARED_GRAPHS[id(port)]["live"]
     assert (meta.n, meta.lo, meta.hi) == (len(want), want.min(), want.max())
 

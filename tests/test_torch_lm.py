@@ -280,19 +280,33 @@ def test_cli_serves_reduced_mamba2_on_the_cpu(capsys):
 def test_cli_refuses_mesh_other_archs_and_a_missing_gpu(monkeypatch):
     with pytest.raises(NotImplementedError, match="A10"):
         cli.main(["--device", "cpu", "--mesh", "single"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        cli.main(["--arch", "qwen2-1.5b", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A12.1b"):
+        cli.main(["--arch", "hymba-1.5b", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         cli.main(["--requests", "1"])                      # default: cuda
 
 
-@pytest.mark.parametrize("arch", [a for a in ref_configs.ARCHS if a != ARCH])
+#: the archs of families the port does not run yet, each with its item
+UNPORTED = {"hymba-1.5b": "A12.1b", "mixtral-8x7b": "A12.2",
+            "deepseek-moe-16b": "A12.2", "llama-3.2-vision-11b": "A12.3",
+            "seamless-m4t-medium": "A12.3"}
+
+
+def test_unported_archs_are_the_registry_less_the_served_families():
+    served = {a for a in ref_configs.ARCHS
+              if ref_configs.get_config(a).family in ("dense", "ssm")
+              and not ref_configs.get_config(a).hybrid}
+    assert set(UNPORTED) == set(ref_configs.ARCHS) - served
+    assert ARCH in served and len(served) == 5
+
+
+@pytest.mark.parametrize("arch", sorted(UNPORTED))
 def test_other_families_raise_not_implemented(arch):
     cfg = configs.reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
         M.init_params(M.make_generator(0, "cpu"), cfg)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
         M.init_caches(cfg, 1, 8, device="cpu")
 
 

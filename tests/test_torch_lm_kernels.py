@@ -164,6 +164,30 @@ def test_gather_host_ids_are_scanned_on_every_call():
     assert gather.KERNEL_LAUNCHES == before
 
 
+@pytest.mark.parametrize("v", [10, 500])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_card_ids_out_of_range_read_the_reference_rows(v, dtype):
+    """Ids as they may lie on the card, outside ``[0, V)`` (V, V + 7, -1,
+    -V - 3, 2^31 - 1, int32): the rows :func:`gather.clamp_ids` picks,
+    the rule the kernel applies on the card, are the rows the reference's
+    gather returns for the same ids; the plain version reads them."""
+    table = RNG.standard_normal((v, 8)).astype(dtype)
+    ids = np.array([v, v + 7, -1, -v - 3, 2**31 - 1, 3, -v, -2 * v, 0],
+                   np.int32)
+    want = np.asarray(ref_gather(jnp.asarray(table), jnp.asarray(ids), vl=8))
+    rows = gather.clamp_ids(torch.from_numpy(ids), v)
+    assert rows.dtype == torch.int64
+    assert int(rows.min()) >= 0 and int(rows.max()) <= v - 1
+    np.testing.assert_array_equal(table[rows.numpy()], want)
+    got = gather.embedding_gather_ref(torch.from_numpy(table),
+                                      torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # int64 ids are bounded as they are: past int32 they read the last or
+    # the first row, never outside the table
+    big = torch.tensor([2**31, 2**40, -2**31 - 5, v - 1], dtype=torch.int64)
+    assert gather.clamp_ids(big, v).tolist() == [v - 1, v - 1, 0, v - 1]
+
+
 def _grid_cover(t, row_bytes, vec_bytes):
     """Python mirror of the kernel's grid: every (row, vector) that block
     (row, c), thread x, load k copies, for vectors of ``vec_bytes``."""

@@ -461,3 +461,35 @@ def test_spmm_ell_wrapper_contract():
     with pytest.raises(TypeError, match="int32"):
         spmv.spmv_ell(cols, vals, X[:, 0].contiguous(),
                       live_width=live.long())
+
+
+@pytest.mark.parametrize("k", [None, 3])
+def test_handed_live_widths_are_bounded_to_the_slab(k):
+    """Live widths handed to the wrappers are bounded to ``[0, W]`` by the
+    walk, on the plain path as in the kernel: W + 5 in every warp gives
+    the true widths' result (the slots past a warp's last entry are PAD),
+    -1 walks no slot, so that warp's 32 rows read 0 and the others are
+    unchanged; ``cut_to_live`` is the slab the walk reads."""
+    _, _, _, pell = _ell_pair(32, n_rows=300, avg=7.0, seed=4)
+    cols, vals = pell.to_device("cpu")
+    rng = np.random.default_rng(5)
+    shape = (pell.n_cols,) if k is None else (pell.n_cols, k)
+    x = torch.from_numpy(rng.standard_normal(shape))
+    fn, ref = ((spmv.spmv_ell, spmv.spmv_ell_ref) if k is None
+               else (spmv.spmm_ell, spmv.spmm_ell_ref))
+    live = spmv.live_widths(cols)
+    want = ref(cols, vals, x)
+    assert torch.equal(fn(cols, vals, x, live_width=live), want)
+    over = torch.full_like(live, pell.width + 5)
+    assert torch.equal(spmv.cut_to_live(cols, over), cols)
+    assert torch.equal(fn(cols, vals, x, live_width=over), want)
+    neg = live.clone()
+    neg[1] = -1
+    got = fn(cols, vals, x, live_width=neg)
+    warp = (torch.arange(got.shape[0]) // 32) == 1
+    assert not got[warp].any()
+    assert torch.equal(got[~warp], want[~warp])
+    cut = spmv.cut_to_live(cols, neg).permute(0, 2, 1).reshape(-1, pell.width)
+    assert (cut[warp] == F.PAD).all()
+    assert torch.equal(cut[~warp], cols.permute(0, 2, 1).reshape(
+        -1, pell.width)[~warp])
