@@ -145,14 +145,36 @@ result line is printed:
               under ``torch.profiler``: the graph kernels' device time
               against the drive's wall time; and one mamba2 prefill (b = 1)
               and decode step (b = 4) under it: the device's busy time
-              against the wall time, and the kernels that take most.
+              against the wall time, and the kernels that take most;
+12. lm-moe  — the MoE LM, after every earlier phase's operands and models
+              are freed: deepseek-moe-16b at its published widths and depth
+              (a dense first layer, then 27 MoE layers of 64 routed experts
+              top-6 and 2 shared, random init from the seed directly on the
+              card) served on (4, 512) prompts, 16 new tokens, by the plain
+              engine (the combines on the dense path, B9 for the tokens)
+              and by the fused engine (a float32 ``register_moe``
+              envelope; every combine a ``moe_dispatch`` request, kernel
+              B1): the fused tokens equal the plain ones under the LM
+              check's margin rule, ``moe_dispatch_launches`` = 27 x 16, as
+              many routing reads, 16 token latencies, B1's and B9's launch
+              counts read around each run, tokens/s, first-token and
+              decode-step ms of both; B1 timed at the first MoE layer's
+              prefill (2048 tokens x 15,616 slots) and decode (4 x 256)
+              routing, k = 2048 fp32, beside its bound and
+              ``torch.sparse.mm``; the 2-layer full-width check (the dense
+              first layer and the first MoE layer) with the card's combine
+              on B1 and the CPU's on the dense path; a prefill and a decode
+              step under ``torch.profiler`` on each path; the peak device
+              memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with a record per kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -225,6 +247,12 @@ LM_NEW_TOKENS = 16
 #: widths and depth (src/repro_torch/configs/llama3_2_3b.py), random init
 #: from LM_SEED, served the same way as LM_ARCH
 LM_DENSE_ARCH = "llama3.2-3b"
+#: the MoE LM phase (kernel B1 on the LM's combines, B9 for the tokens):
+#: deepseek-moe-16b at its published widths and depth
+#: (src/repro_torch/configs/deepseek_moe_16b.py, 67.5 GB of fp32 weights),
+#: random init from LM_SEED on the card, served by the plain engine and by
+#: the fused one (every combine a moe_dispatch request on the service)
+LM_MOE_ARCH = "deepseek-moe-16b"
 #: depth of the card-against-CPU check (full width, the first layers)
 LM_CHECK_LAYERS = 2
 #: card logits against the CPU's plain versions, relative to max|logit|:
@@ -782,12 +810,15 @@ def profile_drives(torch, bfs_k, pr_k, gm: dict) -> None:
                   f"{share}")
 
 
-def profile_lm(torch, M, lm: dict) -> None:
+def profile_lm(torch, M, lm: dict, scope=contextlib.nullcontext,
+               label: str = "") -> None:
     """Where the LM path's time goes: one b = 1 prefill (a batcher
     admission) and one decode step of LM_SLOTS sequences under
-    ``torch.profiler``; the device's busy time (the device-side events'
-    time, summed: one stream, so they do not overlap) against the host wall
-    clock, and the kernels that take the most of it."""
+    ``torch.profiler`` (inside ``scope``: the MoE phase profiles its SELL
+    combine this way, ``label`` naming it); the device's busy time (the
+    device-side events' time, summed: one stream, so they do not overlap)
+    against the host wall clock, and the kernels that take the most of
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -800,7 +831,8 @@ def profile_lm(torch, M, lm: dict) -> None:
         batch = {"tokens": toks} if fn is M.prefill else toks
 
         def run():
-            return fn(params, cfg, batch, caches)
+            with scope():
+                return fn(params, cfg, batch, caches)
 
         run()
         torch.cuda.synchronize()
@@ -817,7 +849,7 @@ def profile_lm(torch, M, lm: dict) -> None:
         top = sorted(dev, key=lambda e: e.device_time_total, reverse=True)[:5]
         share = (f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%)"
                  if busy > 0 else "device time not measured (no device events)")
-        phase("profile", f"{cfg.name} {what}: wall {wall_ms:.3f} ms under the "
+        phase("profile", f"{cfg.name}{label} {what}: wall {wall_ms:.3f} ms under the "
               f"profiler; {share}; most device time: " + "; ".join(
                   f"{e.key[:48]} {e.device_time_total / 1e3:.3f} ms x{e.count}"
                   for e in top))
@@ -2329,11 +2361,24 @@ def lm_dense_config(configs):
     return configs.get_config(LM_DENSE_ARCH)
 
 
+def lm_moe_config(configs):
+    """The MoE LM phase's model: deepseek-moe-16b's published config."""
+    return configs.get_config(LM_MOE_ARCH)
+
+
 def describe_lm(cfg) -> str:
     """The widths that shape an LM phase's model."""
     if cfg.family == "ssm":
         return (f"{cfg.n_ssm_heads} heads of {cfg.ssm.head_dim}, d_state "
                 f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}")
+    if cfg.moe is not None:
+        m = cfg.moe
+        return (f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of "
+                f"{cfg.d_head}, {m.n_experts} routed experts of d_ff "
+                f"{cfg.d_ff} top-{m.top_k} + {m.n_shared} shared, capacity "
+                f"factor {m.capacity_factor}, dense first layer d_ff "
+                f"{cfg.dense_first_layer_ff}, "
+                f"{'tied' if cfg.tie_embeddings else 'untied'} head")
     return (f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of {cfg.d_head}, "
             f"d_ff {cfg.d_ff}, rope theta {cfg.rope_theta:g}, "
             f"{'tied' if cfg.tie_embeddings else 'untied'} head")
@@ -2636,33 +2681,43 @@ def lm_path(torch, np, configs, M, serve, ssd_k, gather_k, *, cfg=None,
             "decode_ms": decode_ms, "engine_tokens_per_s": out.size / eng_wall}
 
 
-def lm_check(torch, np, M, lm: dict, label: str = "lm") -> None:
-    """Phases 10 / 10b: the first LM_CHECK_LAYERS layers at full width from
-    the same weights on the card (B9; B8 for mamba2) and on the CPU (plain
-    versions)."""
+def lm_check(torch, np, M, lm: dict, label: str = "lm",
+             card_scope=contextlib.nullcontext) -> None:
+    """Phases 10 / 10b / 12: the first LM_CHECK_LAYERS layers at full width
+    (a dense first layer counted among them) from the same weights on the
+    card (B9; B8 for mamba2; B1 for a MoE layer's combine, under
+    ``card_scope``) and on the CPU (plain versions, the MoE combine on the
+    dense path).  The CPU copy is made tensor by tensor from the card's,
+    so the card holds no second copy."""
     import copy
 
     from torch import nn
 
     cfg, params = lm["cfg"], lm["params"]
     cfg2 = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    n_stacked = LM_CHECK_LAYERS - (params.dense0 is not None)
     card = M.LM(params.tok_embed, params.final_norm, params.lm_head,
-                nn.ModuleList(list(params.blocks)[:LM_CHECK_LAYERS]))
-    host = copy.deepcopy(card).to("cpu")
+                nn.ModuleList(list(params.blocks)[:n_stacked]), params.dense0)
+    host = copy.deepcopy(card, memo={
+        id(t): nn.Parameter(t.detach().cpu(), requires_grad=False)
+        for t in card.parameters()})
     prompt = lm["prompts"][:1]
     runs = {}
     t0 = time.perf_counter()
-    for name, p, dev in (("card", card, DEVICE), ("cpu", host, "cpu")):
-        caches = M.init_caches(cfg2, 1, LM_PROMPT + LM_NEW_TOKENS,
-                               dtype=torch.float32, device=dev)
-        logits, caches = M.prefill(p, cfg2, {"tokens": prompt}, caches)
-        steps, toks = [logits[:, -1].cpu()], []
-        for _ in range(LM_NEW_TOKENS - 1):
-            tok = torch.argmax(steps[-1], dim=-1)
-            toks.append(int(tok[0]))
-            last, caches = M.decode_step(p, cfg2, tok[:, None].numpy(), caches)
-            steps.append(last.cpu())
-        toks.append(int(torch.argmax(steps[-1], dim=-1)[0]))
+    for name, p, dev, scope in (("card", card, DEVICE, card_scope),
+                                ("cpu", host, "cpu", contextlib.nullcontext)):
+        with scope():
+            caches = M.init_caches(cfg2, 1, LM_PROMPT + LM_NEW_TOKENS,
+                                   dtype=torch.float32, device=dev)
+            logits, caches = M.prefill(p, cfg2, {"tokens": prompt}, caches)
+            steps, toks = [logits[:, -1].cpu()], []
+            for _ in range(LM_NEW_TOKENS - 1):
+                tok = torch.argmax(steps[-1], dim=-1)
+                toks.append(int(tok[0]))
+                last, caches = M.decode_step(p, cfg2, tok[:, None].numpy(),
+                                             caches)
+                steps.append(last.cpu())
+            toks.append(int(torch.argmax(steps[-1], dim=-1)[0]))
         runs[name] = (logits.cpu(), steps, toks)
     (lc, sc, tc), (lh, sh, th) = runs["card"], runs["cpu"]
     scale = float(lh.abs().max())
@@ -2671,24 +2726,17 @@ def lm_check(torch, np, M, lm: dict, label: str = "lm") -> None:
     if not err <= tol:
         raise AssertionError(f"lm check: prefill logits differ by {err} > "
                              f"{LM_LOGIT_RTOL} x max|logit| = {tol}")
-    checked, close = 0, []
-    for i, (a, b) in enumerate(zip(sc, sh)):
-        top2 = torch.topk(b[0], 2).values
-        margin = float(top2[0] - top2[1])
-        if margin <= tol:
-            close.append((i, margin))
-            if tc[i] != th[i]:
-                break                 # the continuations differ from here on
-            continue
-        if tc[i] != th[i]:
-            raise AssertionError(f"lm check: token {i} {tc[i]} on the card, "
-                                 f"{th[i]} on the CPU (margin {margin} > {tol})")
-        step_err = float((a - b).abs().max())
+    top2 = torch.topk(torch.cat(sh), 2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).numpy()[None]
+    checked, close = margin_rule(np.array([tc]), np.array([th]), margins, tol,
+                                 label="lm check")
+    for _, i in checked:
+        step_err = float((sc[i] - sh[i]).abs().max())
         if not step_err <= tol:
             raise AssertionError(f"lm check: step {i} logits differ by "
                                  f"{step_err} > {tol}")
         err = max(err, step_err)
-        checked += 1
+    checked = len(checked)
     phase(label, f"check: {LM_CHECK_LAYERS} layers at full width, card vs CPU "
           f"(plain versions) on a ({1}, {LM_PROMPT}) prompt: max abs logit err "
           f"{err:.3e} <= {LM_LOGIT_RTOL} x max|logit| {scale:.3f}; greedy "
@@ -2914,6 +2962,301 @@ def time_gather(torch, np, gather_k, table, launches: int, flush) -> dict:
                 for t, r in rows.items() if t != LM_PROMPT}}
 
 
+# ---------------------------------------------------------------------------
+# The MoE LM path: the combine on B1 through the kernel service
+# ---------------------------------------------------------------------------
+
+
+def margin_rule(got, want, margins, tol: float,
+                label: str = "lm-moe") -> tuple[list, list]:
+    """The greedy-token rule on (rows, steps) token grids: ``got`` equals
+    ``want`` wherever the top-2 margin that chose ``want`` exceeds
+    ``tol``; a closer margin is reported and, where the tokens differ,
+    ends its row's check (the continuations part there).  Returns the
+    positions checked and the close ones."""
+    checked, close = [], []
+    for r in range(want.shape[0]):
+        for c in range(want.shape[1]):
+            if margins[r, c] <= tol:
+                close.append((r, c, float(margins[r, c])))
+                if got[r, c] != want[r, c]:
+                    break
+                continue
+            if got[r, c] != want[r, c]:
+                raise AssertionError(
+                    f"{label}: token ({r}, {c}) {got[r, c]} against "
+                    f"{want[r, c]} (margin {margins[r, c]} > {tol})")
+            checked.append((r, c))
+    return checked, close
+
+
+def lm_moe_path(torch, np, configs, M, serve, moe, sell_core, gather_k, ops,
+                KernelRegistry, KernelService) -> dict:
+    """Phase 12: deepseek-moe-16b at full width on the card, served by the
+    plain engine (the MoE combines on the dense path, B9 for the tokens)
+    and by the fused engine (every combine a ``moe_dispatch`` request on a
+    float32 envelope of the service: kernel B1), on the same (LM_SLOTS,
+    LM_PROMPT) prompts.  The fused run counts B1's launches combine by
+    combine (``ops.moe_dispatch`` wrapped where the service calls it), and
+    its first prefill and decode combines give the timing phase its two
+    B1 shapes."""
+    cfg = lm_moe_config(configs)
+    m = cfg.moe
+    n_moe = cfg.n_layers - (1 if cfg.dense_first_layer_ff else 0)
+    smi = smi_line()
+    free, total = torch.cuda.mem_get_info()
+    phase("lm-moe", f"device memory before init: {free / 1e9:.2f} GB free of "
+          f"{total / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params.parameters())
+    phase("lm-moe", f"{cfg.name}: {cfg.n_layers} layers (a dense first layer, "
+          f"then {n_moe} MoE), d_model {cfg.d_model}, {describe_lm(cfg)}, "
+          f"vocab {cfg.vocab_size}: {n_params:,} parameters "
+          f"({4 * n_params / 1e9:.2f} GB fp32), random init (seed {LM_SEED}) "
+          f"on the card in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated (the "
+          f"config's estimate ModelConfig.n_params: {cfg.n_params():,})")
+
+    rng = np.random.default_rng(LM_SEED)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (LM_SLOTS, LM_PROMPT)).astype(np.int32)
+    gcfg = serve.GenerationConfig(max_new_tokens=LM_NEW_TOKENS,
+                                  cache_len=LM_PROMPT + LM_NEW_TOKENS)
+    cap = int(LM_PROMPT * m.top_k / m.n_experts * m.capacity_factor) + 1
+    reg = KernelRegistry(device=DEVICE)
+    reg.register_moe("deepseek", n_tokens=LM_SLOTS * LM_PROMPT,
+                     n_slots=LM_SLOTS * m.n_experts * cap, d_model=cfg.d_model,
+                     top_k=m.top_k, dtype="float32")
+    svc = KernelService(reg, n_slots=N_SLOTS)
+    engines = {"plain": serve.ServeEngine(cfg, params, gcfg),
+               "fused": serve.ServeEngine(cfg, params, gcfg, kernel_service=svc,
+                                          moe_operand="deepseek")}
+    runs, combines, shapes = {}, [], {}
+    dispatch = ops.moe_dispatch
+
+    def counted(csr, x, **kw):
+        """The service's combine launch, its B1 launches noted."""
+        before = sell_core.KERNEL_LAUNCHES
+        y = dispatch(csr, x, **kw)
+        what = "prefill" if csr.n_rows > LM_SLOTS else "decode"
+        combines.append((what, sell_core.KERNEL_LAUNCHES - before))
+        shapes.setdefault(what, (csr, x))
+        return y
+
+    for name, engine in engines.items():
+        # on a service of its own: a two-token warm-up (the first call of
+        # each GEMM shape and the allocator's growth stay out of the
+        # readings), then a one-token run, the first token's time
+        side = (dict(kernel_service=KernelService(reg, n_slots=N_SLOTS),
+                     moe_operand="deepseek") if engine.fused else {})
+        first = []
+        for n_new in (2, 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve.ServeEngine(cfg, params, dataclasses.replace(
+                gcfg, max_new_tokens=n_new), **side).generate(prompts)
+            torch.cuda.synchronize()
+            first.append(1e3 * (time.perf_counter() - t0))
+        sell_core.KERNEL_LAUNCHES = 0
+        gather_k.KERNEL_LAUNCHES = 0
+        moe.ROUTING_READS = 0
+        ops.moe_dispatch = counted if engine.fused else dispatch
+        try:
+            t0 = time.perf_counter()
+            out = engine.generate(prompts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ops.moe_dispatch = dispatch
+        runs[name] = dict(out=out, wall=wall, b1=sell_core.KERNEL_LAUNCHES,
+                          b9=gather_k.KERNEL_LAUNCHES, reads=moe.ROUTING_READS,
+                          stats=dict(svc.stats), first_ms=first[1])
+        if out.shape != (LM_SLOTS, LM_NEW_TOKENS) or out.min() < 0 \
+                or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"{name} engine: tokens of shape {out.shape} "
+                                 f"in [{out.min()}, {out.max()}]")
+        if gather_k.KERNEL_LAUNCHES != LM_NEW_TOKENS:
+            raise AssertionError(f"{name} engine: B9 launches "
+                                 f"{gather_k.KERNEL_LAUNCHES} != {LM_NEW_TOKENS}")
+    hist = svc.metrics.get("latency_us_class_lm_token")
+    plain, fused = runs["plain"], runs["fused"]
+    want_launches = n_moe * LM_NEW_TOKENS
+    if plain["b1"] or plain["reads"]:
+        raise AssertionError(f"plain engine: B1 {plain['b1']}, routing reads "
+                             f"{plain['reads']} (want 0: the dense path)")
+    # B1 counted combine by combine: each combine launched it, and the
+    # combines' launches are the whole run's
+    b1_by = {w: [n for v, n in combines if v == w] for w in ("prefill", "decode")}
+    if fused["stats"]["moe_dispatch_launches"] != want_launches \
+            or fused["reads"] != want_launches \
+            or hist.count != LM_NEW_TOKENS \
+            or fused["stats"]["failed"] or fused["stats"]["served"] != want_launches \
+            or len(b1_by["prefill"]) != n_moe \
+            or len(b1_by["decode"]) != n_moe * (LM_NEW_TOKENS - 1) \
+            or min(n for _, n in combines) < 1 \
+            or sum(n for _, n in combines) != fused["b1"]:
+        raise AssertionError(
+            f"fused engine: stats {fused['stats']}, routing reads "
+            f"{fused['reads']}, B1 {fused['b1']} over {len(combines)} combines "
+            f"(prefill {b1_by['prefill']}, decode {b1_by['decode']}), token "
+            f"latencies {hist.count} (want {want_launches} launches and reads,"
+            f" {n_moe} prefill and {n_moe * (LM_NEW_TOKENS - 1)} decode "
+            f"combines each launching B1, {LM_NEW_TOKENS} tokens)")
+    token_us = (hist.count, hist.mean, hist.max)
+
+    # the plain path driven directly along the plain engine's tokens: its
+    # top-2 margins (the token rule) and its prefill / decode times
+    caches = M.init_caches(cfg, LM_SLOTS, gcfg.cache_len, dtype=torch.float32,
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = M.prefill(params, cfg, {"tokens": prompts}, caches)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    scale = float(logits.abs().max())
+    last, margins, step_s = logits[:, -1], [], []
+    for i in range(LM_NEW_TOKENS):
+        top2 = torch.topk(last, 2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+        if i + 1 < LM_NEW_TOKENS:
+            tok = torch.from_numpy(plain["out"][:, i:i + 1].astype(np.int64))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, caches = M.decode_step(params, cfg, tok.to(DEVICE), caches)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    del logits, last, caches
+    margins = np.stack(margins, 1)
+    tol = LM_LOGIT_RTOL * scale
+    checked, close = margin_rule(fused["out"], plain["out"], margins, tol)
+    checked = len(checked)
+    decode_ms = 1e3 * statistics.median(step_s)
+
+    for name, r in runs.items():
+        r["decode_ms"] = (1e3 * r["wall"] - r["first_ms"]) / (LM_NEW_TOKENS - 1)
+        phase("lm-moe", f"{name} ServeEngine.generate ({LM_SLOTS}, {LM_PROMPT})"
+              f": {r['out'].size} tokens in {r['wall']:.3f} s = "
+              f"{r['out'].size / r['wall']:.2f} tokens/s; first token "
+              f"(prefill + sample, a one-token generate) {r['first_ms']:.2f} "
+              f"ms, then {r['decode_ms']:.2f} ms a decode step; "
+              f"sell_core.KERNEL_LAUNCHES={r['b1']}, "
+              f"gather.KERNEL_LAUNCHES={r['b9']}, routing reads {r['reads']}"
+              f" | {smi}")
+    phase("lm-moe", f"fused: moe_dispatch_launches="
+          f"{fused['stats']['moe_dispatch_launches']} ({n_moe} MoE layers x "
+          f"{LM_NEW_TOKENS} steps), latency_us_class_lm_token count "
+          f"{token_us[0]} (mean {token_us[1] / 1e3:.2f} ms, max "
+          f"{token_us[2] / 1e3:.2f} ms); tokens equal to the plain engine's at "
+          f"{checked} of {plain['out'].size} positions with a top-2 margin "
+          f"above {LM_LOGIT_RTOL} x max|logit| = {tol:.3e}; closer margins "
+          f"{close}")
+    phase("lm-moe", f"plain path driven directly: prefill ({LM_SLOTS}, "
+          f"{LM_PROMPT}) {prefill_ms:.2f} ms, decode step {decode_ms:.2f} ms "
+          f"(median of {len(step_s)}; floor: {4 * n_params / 1e9:.2f} GB of "
+          f"weights at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+          f"{4 * n_params / HBM_BYTES_PER_S * 1e3:.2f} ms)")
+    phase("lm-moe", "fused: B1 launches by combine: " + "; ".join(
+        f"{w} {sum(n)} over {len(n)} combines ({sorted(set(n))} a combine; "
+        f"the first {shapes[w][0].n_rows} tokens x {shapes[w][0].n_cols} "
+        f"slots, nnz {shapes[w][0].nnz})" for w, n in b1_by.items())
+          + f"; together {fused['b1']} = sell_core.KERNEL_LAUNCHES")
+    return {"cfg": cfg, "params": params, "prompts": prompts, "runs": runs,
+            "shapes": shapes, "b1_by": b1_by,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms}
+
+
+def time_moe_lm(torch, np, sell_core, ml: dict, flush) -> list[dict]:
+    """Phase 12 (timing): B1 at the MoE LM's two routing shapes (the first
+    MoE layer's prefill and decode combines) beside its bound, the plain
+    version and ``torch.sparse.mm``; ``launches`` the fused engine's B1
+    launches on its combines of that kind."""
+    from repro_torch.service.registry import moe_k_block
+    from repro_torch.sparse import formats as F
+
+    out = []
+    for what, (csr, x) in ml["shapes"].items():
+        cols, vals, rows = F.csr_to_sell_slabs(csr, c=32).to_device(DEVICE)
+        kb = moe_k_block(x.shape[1], "float32")
+        a_lib = sparse_csr(torch, np, csr)
+
+        def run():
+            return sell_core.spmm_sell(cols, vals, rows, x, n_rows=csr.n_rows,
+                                       k_block=kb)
+
+        def plain():
+            return sell_core.spmm_sell_ref(cols, vals, rows, x,
+                                           n_rows=csr.n_rows)
+
+        def library():
+            return torch.sparse.mm(a_lib, x)
+
+        y, yp, yl = run(), plain(), library()
+        torch.cuda.synchronize()
+        err = max_err(y, yp)
+        tol = 1e-4 * max(1.0, float(yp.abs().max()))
+        if not max(err, max_err(y, yl)) <= tol:
+            raise AssertionError(f"lm-moe {what}: B1 vs plain {err}, vs "
+                                 f"sparse.mm {max_err(y, yl)} > {tol}")
+        ms = time_ms(torch, run, flush)
+        plain_ms = time_ms(torch, plain, flush)
+        lib_ms = time_ms(torch, library, flush)
+        k = x.shape[1]
+        x_rows = touched_columns(np, csr.indices, csr.n_cols)
+        # fp32 values and int32 ids once, X's named rows and Y once
+        bytes_ms = (8 * csr.nnz + 4 * csr.n_rows + 4 * k * (x_rows
+                                                           + csr.n_rows)) \
+            / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * csr.nnz * k / FP32_OPS * 1e3
+        per = ml["b1_by"][what]
+        out.append({
+            "name": f"spmm_sell[lm-moe {what}]", "route": "cuda",
+            "source": "src/repro_torch/csrc/spmm_sell.cu",
+            "replaces": "src/repro/kernels/sell_core.py:93",
+            "launches": sum(per), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_ms,
+            "launches_per_combine": sorted(set(per)),
+            "shape": f"{csr.n_rows} tokens x {csr.n_cols} slots, nnz "
+                     f"{csr.nnz} over {x_rows} slots, k={k} fp32 (the first "
+                     f"MoE layer's {what} combine); launches: the fused "
+                     f"engine's B1 launches over its {len(per)} {what} "
+                     "combines"})
+        phase("timing", f"lm-moe {what} combine ({csr.n_rows} x {csr.n_cols}, "
+              f"nnz {csr.nnz} over {x_rows} slots, k={k} fp32): B1 {ms:.4f} ms"
+              f" | bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
+              f"{bytes_ms:.4f}, ops {ops_ms:.4f}) | plain {plain_ms:.4f} ms | "
+              f"torch.sparse.mm {lib_ms:.4f} ms | max abs err vs plain "
+              f"{err:.3e}")
+    return out
+
+
+def run_lm_moe(torch, np, configs, M, serve, moe, sell_core, gather_k, ops,
+               KernelRegistry, KernelService, flush) -> tuple[list[dict], int]:
+    """Phase 12 whole: :func:`lm_moe_path`, B1 timed at its two routing
+    shapes (:func:`time_moe_lm`), the 2-layer card-vs-CPU check with the
+    card's combine on B1, a profiled prefill and decode step on each path,
+    and the peak memory.  Returns the two B1 records and the engines' B9
+    launches; the model is released on return."""
+    ml = lm_moe_path(torch, np, configs, M, serve, moe, sell_core, gather_k,
+                     ops, KernelRegistry, KernelService)
+    records = time_moe_lm(torch, np, sell_core, ml, flush)
+    b1_before = sell_core.KERNEL_LAUNCHES
+    lm_check(torch, np, M, ml, label="lm-moe", card_scope=moe.sell_dispatch)
+    if sell_core.KERNEL_LAUNCHES == b1_before:
+        raise AssertionError("lm-moe check: the card run launched no B1")
+    phase("lm-moe", f"check: B1 launched {sell_core.KERNEL_LAUNCHES - b1_before}"
+          " times on the card (the MoE layer's combines, SELL path)")
+    profile_lm(torch, M, ml)
+    profile_lm(torch, M, ml, scope=moe.sell_dispatch, label=" (combine on B1)")
+    phase("lm-moe", f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          " GB allocated since the model's init")
+    return records, sum(r["b9"] for r in ml["runs"].values())
+
+
 def main() -> int:
     import torch
 
@@ -2938,6 +3281,7 @@ def main() -> int:
     from repro_torch.kernels import ssd as ssd_k
     from repro_torch.kernels.execspec import ExecSpec
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch.service import KernelRegistry, KernelService
     from repro_torch.sparse import formats as F
 
@@ -3040,7 +3384,25 @@ def main() -> int:
                        b9_by_path, flush)
     profile_drives(torch, bfs_k, pr_k, gm)
     profile_lm(torch, M, lm)
-    phase("timing", f"done in {time.perf_counter() - t0:.1f} s; whole run "
+    phase("timing", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 12. the MoE LM (B1 on its combines, B9) -----------------------------
+    # deepseek-moe-16b's 67.5 GB need the card to themselves: every earlier
+    # phase's operands and models go first
+    t0 = time.perf_counter()
+    del lm, reg, big, gm, fm, em, sm, mm
+    gc.collect()
+    torch.cuda.empty_cache()
+    records, b9 = run_lm_moe(torch, np, configs, M, serve, moe, sell_core,
+                             gather_k, ops, KernelRegistry, KernelService,
+                             flush)
+    kernels += records
+    for rec in kernels:
+        if rec["name"] == "embedding_gather":
+            rec["launches"] += b9
+            rec["launches_by_path"]["lm-moe"] = b9
+    torch.cuda.empty_cache()
+    phase("lm-moe", f"done in {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,14 +4,18 @@ port of ``repro.launch.serve``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --full \\
       --prompt-len 512 --new-tokens 16
 
-runs on the card (random init at the published widths: 14.4 GB of fp32
-weights for llama-3.2-3b, 11.3 GB for mamba2-2.7b); ``--device cpu``
-without ``--full`` runs the reduced config on the CPU through the kernels'
-plain versions.  The port serves families ``"dense"`` (llama3.2-3b,
-qwen2-1.5b, qwen3-14b, minicpm-2b) and ``"ssm"`` (mamba2-2.7b); hymba
-raises ``NotImplementedError`` (ROADMAP A12.1b), as do the MoE archs
-(A12.2) and the vision and enc-dec archs (A12.3), and any ``--mesh`` other
-than ``none`` raises (A10).  The batcher's KV caches share one length
+runs on the card (random init at the published widths, directly on the
+card: 14.4 GB of fp32 weights for llama-3.2-3b, 11.3 GB for mamba2-2.7b,
+67.5 GB for deepseek-moe-16b); ``--device cpu`` without ``--full`` runs the
+reduced config on the CPU through the kernels' plain versions.  The port
+serves families ``"dense"`` (llama3.2-3b, qwen2-1.5b, qwen3-14b,
+minicpm-2b), ``"moe"`` (mixtral-8x7b, deepseek-moe-16b; the batcher runs
+their MoE combines on the dense path, as the reference's does) and
+``"ssm"`` (mamba2-2.7b).  mixtral-8x7b ``--full`` does not fit one card:
+its 46.7 B parameters are 186.8 GB in fp32 against 80 GB (it waits for
+multi-device serving, ROADMAP A10).  hymba raises ``NotImplementedError``
+(A12.1b), as do the vision and enc-dec archs (A12.3), and any ``--mesh``
+other than ``none`` raises (A10).  The batcher's KV caches share one length
 across slots, as the reference's: prompts of one length serve correctly.
 """
 from __future__ import annotations

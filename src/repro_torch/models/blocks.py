@@ -1,14 +1,17 @@
 """Blocks and block stacks — port of ``repro.models.blocks`` for kinds
-``"dense"`` (ln -> attention -> ln -> SwiGLU MLP: llama, qwen, minicpm) and
-``"ssm"`` (ln -> mamba2 mixer).
+``"dense"`` (ln -> attention -> ln -> SwiGLU MLP: llama, qwen, minicpm),
+``"moe"`` (ln -> attention -> ln -> MoE with its shared experts: mixtral,
+deepseek) and ``"ssm"`` (ln -> mamba2 mixer).
 
 A Python loop over the layers replaces the reference's ``lax.scan``
-(``blocks.py:161``): PyTorch runs eagerly, and the per-layer decode caches
-stay stacked on a leading layer axis, as in the reference: a KV cache's k /
-v are (L, B, C, Hkv, dh), its pos (L, C) and length (L,); an SSM state's
-leaves (L, B, ...).  The other block kinds raise ``NotImplementedError``:
-``"hybrid"`` (hymba) is ROADMAP A12.1b, ``"moe"`` A12.2 and ``"cross"``
-A12.3.
+(``blocks.py:161``): PyTorch runs eagerly, so every layer sees concrete
+activations, which the MoE SELL dispatch needs (the reference's
+``eager_blocks`` scope is the default here and is not ported).  The
+per-layer decode caches stay stacked on a leading layer axis, as in the
+reference: a KV cache's k / v are (L, B, C, Hkv, dh), its pos (L, C) and
+length (L,); an SSM state's leaves (L, B, ...).  The other block kinds
+raise ``NotImplementedError``: ``"hybrid"`` (hymba) is ROADMAP A12.1b and
+``"cross"`` A12.3.
 """
 from __future__ import annotations
 
@@ -19,25 +22,27 @@ from torch import nn
 
 from repro_torch.kernels.execspec import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import he_init, rms_norm, swiglu
+from repro_torch.models.layers import MLP, frozen, he_init, rms_norm, swiglu
 from repro_torch.models.ssm import SSMState
 
 __all__ = ["Block", "LayerCaches", "MLP", "block_forward", "init_block_params",
            "init_layer_caches", "run_blocks", "stack_init"]
 
 #: The block kinds the port runs.
-KINDS = ("dense", "ssm")
-_ROADMAP = {"hybrid": "A12.1b", "moe": "A12.2", "cross": "A12.3"}
+KINDS = ("dense", "moe", "ssm")
+_ROADMAP = {"hybrid": "A12.1b", "cross": "A12.3"}
 
 
 def _check_kind(kind: str) -> None:
     if kind not in KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported: the port runs kinds 'dense' "
-            f"and 'ssm'; {kind!r} is ROADMAP {_ROADMAP.get(kind, 'A12')}")
+            f"block kind {kind!r} is not ported: the port runs kinds "
+            f"{', '.join(map(repr, KINDS))}; {kind!r} is ROADMAP "
+            f"{_ROADMAP.get(kind, 'A12')}")
 
 
 class LayerCaches(NamedTuple):
@@ -47,35 +52,22 @@ class LayerCaches(NamedTuple):
     ssm: SSMState | None
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
-class MLP(nn.Module):
-    """A SwiGLU MLP's weights: ``w_gate`` / ``w_up`` (d, f), ``w_down`` (f, d)."""
-
-    def __init__(self, w_gate: torch.Tensor, w_up: torch.Tensor,
-                 w_down: torch.Tensor):
-        super().__init__()
-        self.w_gate = _frozen(w_gate)
-        self.w_up = _frozen(w_up)
-        self.w_down = _frozen(w_down)
-
-
 class Block(nn.Module):
-    """One block: ``ln1`` and its mixer (``attn`` for kind ``"dense"``,
-    ``ssm`` for ``"ssm"``), then ``ln2`` and ``mlp`` where the kind has an
-    MLP."""
+    """One block: ``ln1`` and its mixer (``attn`` for kinds ``"dense"`` and
+    ``"moe"``, ``ssm`` for ``"ssm"``), then ``ln2`` and ``mlp`` (kind
+    ``"dense"``) or ``moe`` (kind ``"moe"``)."""
 
     def __init__(self, ln1: torch.Tensor, *, ssm: ssm_mod.SSMMixer | None = None,
                  attn: attn_mod.Attention | None = None,
-                 ln2: torch.Tensor | None = None, mlp: MLP | None = None):
+                 ln2: torch.Tensor | None = None, mlp: MLP | None = None,
+                 moe: moe_mod.MoE | None = None):
         super().__init__()
-        self.ln1 = _frozen(ln1)
+        self.ln1 = frozen(ln1)
         self.ssm = ssm
         self.attn = attn
-        self.ln2 = None if ln2 is None else _frozen(ln2)
+        self.ln2 = None if ln2 is None else frozen(ln2)
         self.mlp = mlp
+        self.moe = moe
 
 
 def init_block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Block:
@@ -85,19 +77,24 @@ def init_block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Bloc
     if kind == "ssm":
         return Block(ln1, ssm=ssm_mod.init_ssm_params(gen, cfg))
     attn = attn_mod.init_attn_params(gen, cfg)
+    ln2 = torch.ones((d,), device=dev)
+    if kind == "moe":
+        return Block(ln1, attn=attn, ln2=ln2, moe=moe_mod.init_moe_params(gen, cfg))
     f = cfg.d_ff
     mlp = MLP(he_init(gen, (d, f)), he_init(gen, (d, f)),
               he_init(gen, (f, d), fan_in=f))
-    return Block(ln1, attn=attn, ln2=torch.ones((d,), device=dev), mlp=mlp)
+    return Block(ln1, attn=attn, ln2=ln2, mlp=mlp)
 
 
 def block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
                   kv: KVCache | None = None, ssm_state: SSMState | None = None
-                  ) -> tuple[torch.Tensor, KVCache | None, SSMState | None]:
-    """Returns (x, new_kv, new_ssm).  The reference's aux-loss output
-    belongs to the MoE kind (ROADMAP A12.2) and its ``ctx`` to the cross
-    kind (A12.3)."""
+                  ) -> tuple[torch.Tensor, KVCache | None, SSMState | None,
+                             torch.Tensor]:
+    """Returns (x, new_kv, new_ssm, aux_loss): the aux loss is the MoE
+    layer's (zero for the other kinds).  The reference's ``ctx`` belongs
+    to the cross kind (ROADMAP A12.3)."""
     _check_kind(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     new_kv, new_ssm = None, None
     if kind == "ssm":
@@ -106,12 +103,16 @@ def block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
     else:
         a, new_kv = attn_mod.attention(p.attn, cfg, h, cache=kv)
         x = x + a
-    if p.mlp is not None:
+    if p.moe is not None:
+        h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+        m_out, aux = moe_mod.moe_forward(p.moe, cfg, h2)
+        x = x + m_out
+    elif p.mlp is not None:
         h2 = rms_norm(x, p.ln2, cfg.norm_eps)
         m = p.mlp
         x = x + swiglu(h2, m.w_gate.to(x.dtype), m.w_up.to(x.dtype),
                        m.w_down.to(x.dtype))
-    return x, new_kv, new_ssm
+    return x, new_kv, new_ssm, aux
 
 
 def stack_init(gen: torch.Generator, n_layers: int, cfg: ModelConfig,
@@ -120,9 +121,16 @@ def stack_init(gen: torch.Generator, n_layers: int, cfg: ModelConfig,
     return nn.ModuleList(init_block_params(gen, cfg, kind) for _ in range(n_layers))
 
 
-def _layer(stacked: NamedTuple | None, i: int):
-    """Layer ``i`` of a layer-stacked cache (every leaf indexed)."""
-    return None if stacked is None else type(stacked)(*(a[i] for a in stacked))
+def layer_of(stacked, i: int):
+    """Layer ``i`` of a layer-stacked cache (a NamedTuple) or parameter
+    subtree (a dict of arrays): every leaf indexed."""
+    if stacked is None:
+        return None
+    if isinstance(stacked, dict):
+        return {k: layer_of(v, i) for k, v in stacked.items()}
+    if isinstance(stacked, tuple):
+        return type(stacked)(*(a[i] for a in stacked))
+    return stacked[i]
 
 
 def _stack(per_layer: list, cls):
@@ -134,24 +142,27 @@ def _stack(per_layer: list, cls):
 
 def run_blocks(stack: nn.ModuleList, cfg: ModelConfig, kind: str, x: torch.Tensor,
                *, caches: LayerCaches | None = None
-               ) -> tuple[torch.Tensor, LayerCaches | None]:
+               ) -> tuple[torch.Tensor, LayerCaches | None, torch.Tensor]:
     """Run a homogeneous stack layer by layer (the reference's
-    ``scan_blocks``).  Returns (x, new_caches); new caches are new tensors,
-    the given ones are left as they were."""
+    ``scan_blocks``).  Returns (x, new_caches, aux_sum); new caches are new
+    tensors, the given ones are left as they were."""
     _check_kind(kind)
     kvs, states = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, block in enumerate(stack):
-        kv = _layer(caches.kv, i) if caches is not None else None
-        st = _layer(caches.ssm, i) if caches is not None else None
-        x, new_kv, new_ssm = block_forward(block, cfg, kind, x, kv=kv,
-                                           ssm_state=st)
+        kv = layer_of(caches.kv, i) if caches is not None else None
+        st = layer_of(caches.ssm, i) if caches is not None else None
+        x, new_kv, new_ssm, aux_l = block_forward(block, cfg, kind, x, kv=kv,
+                                                  ssm_state=st)
+        aux = aux + aux_l
         if new_kv is not None:
             kvs.append(new_kv)
         if new_ssm is not None:
             states.append(new_ssm)
     if caches is None:
-        return x, None
-    return x, LayerCaches(kv=_stack(kvs, KVCache), ssm=_stack(states, SSMState))
+        return x, None, aux
+    return (x, LayerCaches(kv=_stack(kvs, KVCache), ssm=_stack(states, SSMState)),
+            aux)
 
 
 def init_layer_caches(cfg: ModelConfig, n_layers: int, kind: str, batch: int,

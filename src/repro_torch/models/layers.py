@@ -12,10 +12,27 @@ from __future__ import annotations
 import math
 
 import torch
+from torch import nn
 from torch.nn import functional as Fn
 
-__all__ = ["apply_rope", "embed_init", "he_init", "rms_norm", "rope_freqs",
-           "swiglu"]
+__all__ = ["MLP", "apply_rope", "embed_init", "frozen", "he_init", "rms_norm",
+           "rope_freqs", "swiglu"]
+
+
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    """``t`` as a parameter without a gradient: the port serves only."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+class MLP(nn.Module):
+    """A SwiGLU MLP's weights: ``w_gate`` / ``w_up`` (d, f), ``w_down`` (f, d)."""
+
+    def __init__(self, w_gate: torch.Tensor, w_up: torch.Tensor,
+                 w_down: torch.Tensor):
+        super().__init__()
+        self.w_gate = frozen(w_gate)
+        self.w_up = frozen(w_up)
+        self.w_down = frozen(w_down)
 
 
 def he_init(gen: torch.Generator, shape, dtype=torch.float32,

@@ -1,6 +1,8 @@
 """Top-level model — port of ``repro.models.model`` for the stacked-block
 families, of which families ``"dense"`` (llama-3.2-3b, qwen2-1.5b,
-qwen3-14b, minicpm-2b) and ``"ssm"`` (mamba2) are ported.
+qwen3-14b, minicpm-2b), ``"moe"`` (mixtral-8x7b, deepseek-moe-16b, with
+DeepSeek's dense first layer ``dense0``) and ``"ssm"`` (mamba2) are
+ported.
 
 Public surface (the reference's, with an ``nn.Module`` for the pytree):
   init_params(gen, cfg)                         -> LM on gen's device (f32)
@@ -17,11 +19,13 @@ the head is a plain ``torch.matmul`` (the tied head ``tok_embed.T`` where
 the config ties it), as the reference leaves it to XLA.  Everything runs on
 the device the parameters live on.
 
-The hybrid (hymba, ROADMAP A12.1b), MoE (A12.2), vision and enc-dec
-(A12.3) families raise ``NotImplementedError``; so do ``remat`` and
-``mesh`` (training is A12.4, multi-device A10).
+The hybrid (hymba, ROADMAP A12.1b), vision and enc-dec (A12.3) families
+raise ``NotImplementedError``; so do ``remat`` and ``mesh`` (training is
+A12.4, multi-device A10).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -29,6 +33,7 @@ from torch import nn
 from repro_torch.kernels import gather
 from repro_torch.kernels.execspec import resolve_device
 from repro_torch.models import blocks as blk
+from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_init, he_init, rms_norm
 
@@ -54,26 +59,34 @@ def _check_family(cfg: ModelConfig) -> str:
         item = "A12.3"
     elif kind == "hybrid":
         item = "A12.1b"
-    elif kind == "moe" or cfg.dense_first_layer_ff:
-        item = "A12.2"
     else:
         return kind
     raise NotImplementedError(
         f"{cfg.name} (family {cfg.family!r}) is not ported: the port serves "
-        f"families 'dense' and 'ssm'; this one is ROADMAP {item}")
+        f"families 'dense', 'moe' and 'ssm'; this one is ROADMAP {item}")
+
+
+def _dense0_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config of DeepSeek's dense first layer: its own FFN width, no
+    MoE."""
+    return dataclasses.replace(cfg, d_ff=cfg.dense_first_layer_ff, moe=None)
 
 
 class LM(nn.Module):
     """Parameters of a stacked-block LM: ``tok_embed`` (V, d),
-    ``final_norm`` (d), ``lm_head`` (d, V) unless tied, and ``blocks``."""
+    ``final_norm`` (d), ``lm_head`` (d, V) unless tied, ``blocks`` and,
+    where the config has a dense first layer, ``dense0`` (a kind
+    ``"dense"`` block run before them)."""
 
     def __init__(self, tok_embed: torch.Tensor, final_norm: torch.Tensor,
-                 lm_head: torch.Tensor | None, blocks: nn.ModuleList):
+                 lm_head: torch.Tensor | None, blocks: nn.ModuleList,
+                 dense0: blk.Block | None = None):
         super().__init__()
         self.tok_embed = nn.Parameter(tok_embed, requires_grad=False)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.lm_head = (None if lm_head is None
                         else nn.Parameter(lm_head, requires_grad=False))
+        self.dense0 = dense0
         self.blocks = blocks
 
     @property
@@ -92,8 +105,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> LM:
     d = cfg.d_model
     tok = embed_init(gen, (cfg.vocab_size, d))
     head = None if cfg.tie_embeddings else he_init(gen, (d, cfg.vocab_size))
-    blocks = blk.stack_init(gen, cfg.n_layers, cfg, kind)
-    return LM(tok, torch.ones((d,), device=gen.device), head, blocks)
+    dense0 = None
+    if cfg.dense_first_layer_ff:
+        dense0 = blk.init_block_params(gen, _dense0_cfg(cfg), "dense")
+    blocks = blk.stack_init(gen, cfg.n_layers - (dense0 is not None), cfg, kind)
+    return LM(tok, torch.ones((d,), device=gen.device), head, blocks, dense0)
 
 
 def make_generator(seed: int, device=None) -> torch.Generator:
@@ -125,10 +141,19 @@ def _run(p: LM, cfg: ModelConfig, batch: dict, caches: Caches | None,
     kind = _check_family(cfg)
     with torch.no_grad():
         x = _embed(p, cfg, batch["tokens"], dtype)
+        if p.dense0 is not None:
+            kv0 = blk.layer_of(caches["dense0"].kv, 0) if caches is not None else None
+            x, new_kv0, _, _ = blk.block_forward(p.dense0, _dense0_cfg(cfg),
+                                                 "dense", x, kv=kv0)
         layer_caches = caches["layers"] if caches is not None else None
-        x, new_layers = blk.run_blocks(p.blocks, cfg, kind, x, caches=layer_caches)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        new_caches = {"layers": new_layers} if caches is not None else None
+        x, new_layers, aux = blk.run_blocks(p.blocks, cfg, kind, x,
+                                            caches=layer_caches)
+        new_caches = None
+        if caches is not None:
+            new_caches = {"layers": new_layers}
+            if p.dense0 is not None:
+                new_caches["dense0"] = blk.LayerCaches(
+                    kv=KVCache(*(a[None] for a in new_kv0)), ssm=None)
         return _logits(p, cfg, x), new_caches, aux
 
 
@@ -147,7 +172,8 @@ def _no_mesh(mesh, remat=None) -> None:
 def forward(p: LM, cfg: ModelConfig, batch: dict, *, dtype=torch.float32,
             remat: str | None = None, mesh=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal logits + the MoE aux loss (0: no MoE here)."""
+    """Full-sequence causal logits + the MoE aux loss (summed over the MoE
+    layers; 0 without them)."""
     _no_mesh(mesh, remat)
     logits, _, aux = _run(p, cfg, batch, None, dtype)
     return logits, aux
@@ -155,11 +181,18 @@ def forward(p: LM, cfg: ModelConfig, batch: dict, *, dtype=torch.float32,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None) -> Caches:
-    """Zero decode caches on ``device`` (``None``: the card)."""
+    """Zero decode caches on ``device`` (``None``: the card): ``"layers"``
+    for the stacked blocks and, with a dense first layer, ``"dense0"`` (a
+    one-layer stack)."""
     kind = _check_family(cfg)
-    return {"layers": blk.init_layer_caches(cfg, cfg.n_layers, kind, batch,
-                                            max_len, dtype,
-                                            device=resolve_device(device))}
+    device = resolve_device(device)
+    n_stacked = cfg.n_layers - (1 if cfg.dense_first_layer_ff else 0)
+    caches = {"layers": blk.init_layer_caches(cfg, n_stacked, kind, batch,
+                                              max_len, dtype, device=device)}
+    if cfg.dense_first_layer_ff:
+        caches["dense0"] = blk.init_layer_caches(cfg, 1, "dense", batch,
+                                                 max_len, dtype, device=device)
+    return caches
 
 
 def prefill(p: LM, cfg: ModelConfig, batch: dict, caches: Caches, *,

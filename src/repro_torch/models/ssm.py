@@ -29,7 +29,7 @@ from torch.nn import functional as Fn
 from repro_torch.kernels import ssd as ssd_k
 from repro_torch.kernels.execspec import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import he_init, rms_norm
+from repro_torch.models.layers import frozen, he_init, rms_norm
 
 __all__ = ["SSMMixer", "SSMState", "SSD_BF16", "init_ssm_params",
            "init_ssm_state", "ssd_chunked", "ssd_reference", "ssm_forward"]
@@ -48,10 +48,6 @@ class SSMState(NamedTuple):
 SSD_BF16: bool = False
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class SSMMixer(nn.Module):
     """The parameters of one Mamba2 mixer (see :func:`init_ssm_params`)."""
 
@@ -59,7 +55,7 @@ class SSMMixer(nn.Module):
         super().__init__()
         for name in ("in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D",
                      "gate_norm", "out_proj"):
-            self.register_parameter(name, _frozen(tensors[name]))
+            self.register_parameter(name, frozen(tensors[name]))
 
 
 # ---------------------------------------------------------------------------

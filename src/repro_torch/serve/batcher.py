@@ -52,20 +52,22 @@ class Request:
 
 
 def _write_slot(shared: M.Caches, single: M.Caches, slot: int) -> None:
-    """Write the b = 1 caches into batch row ``slot`` of the shared ones.
-    The SSM leaves and a KV cache's k / v are (layers, batch, ...): the
-    batch axis is axis 1.  A KV cache's pos (layers, C) and length
-    (layers,) are shared by every slot and copied from the prefill, as the
-    reference's splice does."""
-    dst, src = shared["layers"], single["layers"]
-    if dst.ssm is not None:
-        dst.ssm.state[:, slot] = src.ssm.state[:, 0]
-        dst.ssm.conv[:, slot] = src.ssm.conv[:, 0]
-    if dst.kv is not None:
-        dst.kv.k[:, slot] = src.kv.k[:, 0]
-        dst.kv.v[:, slot] = src.kv.v[:, 0]
-        dst.kv.pos.copy_(src.kv.pos)
-        dst.kv.length.copy_(src.kv.length)
+    """Write the b = 1 caches into batch row ``slot`` of the shared ones,
+    each stack by name (``"layers"`` and, with a dense first layer,
+    ``"dense0"``).  The SSM leaves and a KV cache's k / v are (layers,
+    batch, ...): the batch axis is axis 1.  A KV cache's pos (layers, C)
+    and length (layers,) are shared by every slot and copied from the
+    prefill, as the reference's splice does."""
+    for name, dst in shared.items():
+        src = single[name]
+        if dst.ssm is not None:
+            dst.ssm.state[:, slot] = src.ssm.state[:, 0]
+            dst.ssm.conv[:, slot] = src.ssm.conv[:, 0]
+        if dst.kv is not None:
+            dst.kv.k[:, slot] = src.kv.k[:, 0]
+            dst.kv.v[:, slot] = src.kv.v[:, 0]
+            dst.kv.pos.copy_(src.kv.pos)
+            dst.kv.length.copy_(src.kv.length)
 
 
 class Batcher(SlotLoop[Request]):

@@ -1,5 +1,5 @@
 """Generation engine: prefill + decode loop over the model's cache API —
-port of ``repro.serve.engine`` in its plain mode.
+port of ``repro.serve.engine``.
 
 The model's parameters fix the device: a prompt batch (numpy, host) is
 range-checked and uploaded by the first prefill's embedding gather (kernel
@@ -7,12 +7,23 @@ B9), a mamba2 chunk-multiple prefill runs the fused scan (kernel B8), an
 attention model fills its KV caches, and each decode step feeds the
 previous step's argmax, still on the device, back through B9.  PyTorch
 runs eagerly, so there is no compiled step to reuse (ROADMAP A20).  The
-families served are the model's: ``"dense"`` and ``"ssm"``.
+families served are the model's: ``"dense"``, ``"moe"`` and ``"ssm"``.
 
-The reference's fused kernel-service mode (MoE combines through the
-service's slot loop) needs the MoE families: it raises
-``NotImplementedError`` (ROADMAP A12.2), as do ``extras`` (the vision and
-enc-dec families' ``ctx_embeds``, A12.3) and a ``mesh`` (A10).
+**Fused kernel-service mode.**  Constructed with a
+:class:`repro_torch.service.service.KernelService` and a registered MoE
+dispatch envelope (``moe_operand``), the engine reroutes every MoE combine
+through the service's slot loop: each per-step routing matrix is submitted
+as a ``moe_dispatch`` request (kernel B1 on the card), with the
+expert-output tensor as it is on its device, and the service coalesces
+those launches with whatever SpMV / BFS / PageRank / FFT traffic shares the
+loop.  The wall time of each generated token, the card synchronized first,
+lands in the service metrics registry as the ``latency_us_class_lm_token``
+histogram, next to the service's own ``moe_dispatch`` / ``kernel`` request
+classes.  :func:`retrieve_context` is the graph-retrieval scenario on the
+same loop.
+
+``extras`` (the vision and enc-dec families' ``ctx_embeds``, ROADMAP
+A12.3) and a ``mesh`` (A10) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,9 +34,12 @@ import numpy as np
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import Stopwatch
 
-__all__ = ["GenerationConfig", "ServeEngine", "sample_token"]
+__all__ = ["GenerationConfig", "ServeEngine", "retrieve_context",
+           "sample_token"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,24 +71,61 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: M.LM, gcfg: GenerationConfig,
                  mesh=None, kernel_service=None, moe_operand: str | None = None,
                  dispatch_spec=None):
-        """Plain mode only: ``mesh`` is ROADMAP A10 and the fused
-        kernel-service mode (``kernel_service``, ``moe_operand``,
-        ``dispatch_spec``) is A12.2; either raises."""
+        """``mesh`` is ROADMAP A10 and raises.
+
+        ``kernel_service`` + ``moe_operand`` (a name registered via
+        :meth:`repro_torch.service.registry.KernelRegistry.register_moe`)
+        switch the engine into fused mode: MoE combines ride the service's
+        slot loop as ``moe_dispatch`` requests instead of launching inline.
+        ``dispatch_spec`` (an :class:`~repro_torch.kernels.execspec.ExecSpec`)
+        attaches to those submissions — requests only coalesce when their
+        specs agree — and selects the dispatch path (``None``: ``"auto"``).
+        """
         if mesh is not None:
             raise NotImplementedError("mesh: multi-device serving is ROADMAP A10")
-        if kernel_service is not None or moe_operand is not None \
-                or dispatch_spec is not None:
-            raise NotImplementedError(
-                "fused kernel-service mode serves the MoE families, which are "
-                "ROADMAP A12.2; construct the engine without kernel_service")
+        if kernel_service is not None and moe_operand is None:
+            raise ValueError(
+                "fused mode needs moe_operand: the registered dispatch "
+                "envelope the MoE submissions execute against")
         self.cfg = cfg
         self.params = params
         self.gcfg = gcfg
+        self.kernel_service = kernel_service
+        self.moe_operand = moe_operand
+        self.dispatch_spec = dispatch_spec
+
+    @property
+    def fused(self) -> bool:
+        return self.kernel_service is not None
+
+    def _submit_moe(self, csr, x: torch.Tensor) -> torch.Tensor:
+        """The :func:`repro_torch.models.moe.sell_dispatch` submit hook: one
+        per-step routing matrix and the expert-output tensor (on its
+        device, not copied to the host) in, the combined activations out.
+        Submits to the shared service and steps the loop until the result
+        lands — each step is a coalescing round where this request can
+        share a launch with queued kernel traffic."""
+        from repro_torch.service.service import SubmitRequest
+
+        return _serve_one(self.kernel_service, SubmitRequest(
+            op="moe_dispatch", operand=self.moe_operand,
+            payload={"indptr": csr.indptr, "indices": csr.indices,
+                     "data": csr.data, "x": x},
+            spec=self.dispatch_spec))
 
     def generate(self, prompts: np.ndarray, extras: dict | None = None,
                  seed: int = 0) -> np.ndarray:
         """Greedy/sampled continuation for a (B, S) prompt batch; returns
-        (B, n_new) int32 on the host."""
+        (B, n_new) int32 on the host.  In fused mode every MoE combine of
+        the generation rides the kernel service's slot loop."""
+        if self.fused:
+            with moe_mod.sell_dispatch(spec=self.dispatch_spec,
+                                       submit=self._submit_moe):
+                return self._generate(prompts, extras, seed)
+        return self._generate(prompts, extras, seed)
+
+    def _generate(self, prompts: np.ndarray, extras: dict | None,
+                  seed: int) -> np.ndarray:
         if extras:
             raise NotImplementedError(
                 "extras (ctx_embeds) feed the vision and enc-dec families, "
@@ -82,22 +133,71 @@ class ServeEngine:
         cfg, gcfg = self.cfg, self.gcfg
         dev = self.params.device
         b = prompts.shape[0]
+        tok_hist = None
+        if self.fused:
+            tok_hist = self.kernel_service.metrics.histogram(
+                "latency_us_class_lm_token",
+                "wall time per generated token (LM serving class)")
+
+        def observe(sw: Stopwatch) -> None:
+            if tok_hist is not None:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)   # the token is computed
+                tok_hist.observe(sw.stop().elapsed_us)
+
         caches = M.init_caches(cfg, b, max_len=gcfg.cache_len, dtype=gcfg.dtype,
                                device=dev)
+        sw = Stopwatch().start()
         logits, caches = M.prefill(self.params, cfg,
                                    {"tokens": np.asarray(prompts)}, caches,
                                    dtype=gcfg.dtype)
         gen = torch.Generator(device=dev).manual_seed(seed)
         tok = sample_token(logits[:, -1], gen, gcfg)
+        observe(sw)
         out = [tok]
         done = tok == gcfg.eos_id
         for _ in range(1, gcfg.max_new_tokens):
+            sw = Stopwatch().start()
             logits, caches = M.decode_step(self.params, cfg, tok[:, None], caches,
                                            dtype=gcfg.dtype)
             tok = sample_token(logits, gen, gcfg)
+            observe(sw)
             tok = torch.where(done, gcfg.eos_id, tok)
             out.append(tok)
             done = done | (tok == gcfg.eos_id)
             if gcfg.eos_id >= 0 and bool(done.all()):
                 break
         return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+
+
+def retrieve_context(service, operand: str, n_ctx: int, *,
+                     damping: float = 0.85, iters: int = 8) -> np.ndarray:
+    """Graph-retrieval scenario: PageRank over a registered user graph,
+    returning the ``n_ctx`` highest-ranked node ids (int64, on the host) —
+    the per-request context a caller prepends to its ``generate`` prompts.
+    The PageRank request rides the same service loop as the MoE and kernel
+    traffic, so retrieval coalesces with everything else in flight."""
+    from repro_torch.service.service import SubmitRequest
+
+    rank = _serve_one(service, SubmitRequest(
+        op="pagerank", operand=operand,
+        params={"damping": damping, "iters": iters}))
+    return np.argsort(rank.cpu().numpy())[::-1][:n_ctx].copy()
+
+
+def _serve_one(service, req):
+    """Submit ``req`` (stepping the loop while the queue is full), step
+    until its result lands, release it and return the result."""
+    # the service imports the serving package's slot loop: import it here
+    from repro_torch.service.service import QueueFull
+
+    while True:
+        try:
+            rid = service.submit(req)
+            break
+        except QueueFull:
+            service.step()              # drain one round, then retry
+    while (result := service.poll(rid)) is None:
+        service.step()
+    service.release(rid)
+    return result

@@ -415,7 +415,7 @@ def test_cross_attention_and_unported_kinds_raise():
     with pytest.raises(NotImplementedError, match="A12.3"):
         attn.attention(tp, tcfg, x, ctx=x)
     gen = M.make_generator(0, "cpu")
-    for kind, item in (("hybrid", "A12.1b"), ("moe", "A12.2"), ("cross", "A12.3")):
+    for kind, item in (("hybrid", "A12.1b"), ("cross", "A12.3")):
         with pytest.raises(NotImplementedError, match=item):
             blocks.init_block_params(gen, tcfg, kind)
         with pytest.raises(NotImplementedError, match=item):

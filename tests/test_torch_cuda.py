@@ -1004,3 +1004,85 @@ def test_reduced_dense_lms_serve_on_the_card_as_on_the_cpu(cuda_device, arch):
             b.submit(Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=4))
         served.append({r.rid: r.generated for r in b.run()})
     assert served[0] == served[1]
+
+
+@pytest.mark.cuda
+def test_fp32_envelope_combine_runs_b1_as_the_plain_version(cuda_device):
+    """A float32 MoE envelope on the card: the service's combine launches
+    B1 (one launch a width bucket) and returns float32 within 1e-4 x
+    max|y| of the plain version on the same routing; the expert-output
+    tensor goes in on the card as it is."""
+    from repro_torch.service import KernelRegistry, KernelService
+
+    rng = np.random.default_rng(7)
+    n_tok, n_slots, top_k, d = 96, 4 * 64, 6, 256
+    indptr, indices = [0], []
+    for _ in range(n_tok):
+        indices += sorted(rng.choice(n_slots, size=top_k, replace=False).tolist())
+        indptr.append(len(indices))
+    csr = F.CSRMatrix(indptr=np.asarray(indptr, np.int64),
+                      indices=np.asarray(indices, np.int32),
+                      data=rng.random(len(indices)).astype(np.float32),
+                      n_cols=n_slots)
+    x = torch.from_numpy(rng.standard_normal((n_slots, d)).astype(np.float32)
+                         ).to(cuda_device)
+    reg = KernelRegistry()
+    reg.register_moe("moe", n_tokens=n_tok, n_slots=n_slots, d_model=d,
+                     top_k=top_k, dtype="float32")
+    svc = KernelService(reg, n_slots=2)
+    before = sell_core.KERNEL_LAUNCHES
+    rid = svc.submit("moe_dispatch", "moe", {"indptr": csr.indptr,
+                                             "indices": csr.indices,
+                                             "data": csr.data, "x": x})
+    svc.drain()
+    y = svc.poll(rid)
+    assert sell_core.KERNEL_LAUNCHES > before
+    assert y.dtype == torch.float32 and y.device.type == "cuda"
+    cols, vals, rows = F.csr_to_sell_slabs(csr, c=32).to_device(cuda_device)
+    want = sell_core.spmm_sell_ref(cols, vals, rows, x, n_rows=n_tok)
+    torch.testing.assert_close(y, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_reduced_deepseek_fused_engine_on_the_card(cuda_device):
+    """Reduced deepseek-moe-16b on the card: the SELL combine (B1) against
+    the dense path on the CPU at 1e-5 x max|out|, and the fused engine
+    (a float32 envelope on the card) against the plain engine: equal
+    greedy tokens, one ``moe_dispatch`` launch a MoE layer a step."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve import GenerationConfig, ServeEngine
+    from repro_torch.service import KernelRegistry, KernelService
+
+    cfg = configs.reduced_config("deepseek-moe-16b")
+    cpu = M.init_params(M.make_generator(0, "cpu"), cfg)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    x = np.random.default_rng(3).standard_normal((2, 16, cfg.d_model)
+                                                 ).astype(np.float32)
+    layer = card.blocks[0].moe
+    before = sell_core.KERNEL_LAUNCHES
+    got, _ = MOE.moe_forward(layer, cfg, torch.from_numpy(x).to(cuda_device),
+                             spec=ExecSpec(dispatch="sell", vl=32))
+    assert sell_core.KERNEL_LAUNCHES > before
+    want, _ = MOE.moe_forward(cpu.blocks[0].moe, cfg, torch.from_numpy(x),
+                              spec=ExecSpec(dispatch="dense"))
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16))
+    gcfg = GenerationConfig(max_new_tokens=6, cache_len=64)
+    plain = ServeEngine(cfg, card, gcfg).generate(prompts)
+    m = cfg.moe
+    cap = int(16 * m.top_k / m.n_experts * m.capacity_factor) + 1
+    reg = KernelRegistry()
+    reg.register_moe("moe", n_tokens=2 * 16, n_slots=2 * m.n_experts * cap,
+                     d_model=cfg.d_model, top_k=m.top_k, dtype="float32")
+    svc = KernelService(reg, n_slots=4)
+    fused = ServeEngine(cfg, card, gcfg, kernel_service=svc,
+                        moe_operand="moe").generate(prompts)
+    np.testing.assert_array_equal(fused, plain)
+    assert svc.stats["moe_dispatch_launches"] == \
+        (cfg.n_layers - 1) * gcfg.max_new_tokens
+    assert svc.metrics.get("latency_us_class_lm_token").count == \
+        gcfg.max_new_tokens

@@ -288,17 +288,16 @@ def test_cli_refuses_mesh_other_archs_and_a_missing_gpu(monkeypatch):
 
 
 #: the archs of families the port does not run yet, each with its item
-UNPORTED = {"hymba-1.5b": "A12.1b", "mixtral-8x7b": "A12.2",
-            "deepseek-moe-16b": "A12.2", "llama-3.2-vision-11b": "A12.3",
+UNPORTED = {"hymba-1.5b": "A12.1b", "llama-3.2-vision-11b": "A12.3",
             "seamless-m4t-medium": "A12.3"}
 
 
 def test_unported_archs_are_the_registry_less_the_served_families():
     served = {a for a in ref_configs.ARCHS
-              if ref_configs.get_config(a).family in ("dense", "ssm")
+              if ref_configs.get_config(a).family in ("dense", "moe", "ssm")
               and not ref_configs.get_config(a).hybrid}
     assert set(UNPORTED) == set(ref_configs.ARCHS) - served
-    assert ARCH in served and len(served) == 5
+    assert ARCH in served and len(served) == 7
 
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
@@ -313,8 +312,9 @@ def test_other_families_raise_not_implemented(arch):
 def test_fused_mode_mesh_and_bf16_scan_raise(lm, monkeypatch):
     _, _, tcfg, tp, _ = lm
     gcfg = GenerationConfig()
-    with pytest.raises(NotImplementedError, match="A12"):
-        ServeEngine(tcfg, tp, gcfg, kernel_service=object(), moe_operand="moe")
+    # the reference's refusal of a fused engine without its envelope
+    with pytest.raises(ValueError, match="fused mode needs moe_operand"):
+        ServeEngine(tcfg, tp, gcfg, kernel_service=object())
     with pytest.raises(NotImplementedError, match="A10"):
         ServeEngine(tcfg, tp, gcfg, mesh=object())
     with pytest.raises(NotImplementedError, match="A10"):
