@@ -146,7 +146,27 @@ result line is printed:
               against the drive's wall time; and one mamba2 prefill (b = 1)
               and decode step (b = 4) under it: the device's busy time
               against the wall time, and the kernels that take most;
-12. lm-moe  — the MoE LM, after every earlier phase's operands and models
+11b. study  — the paper's sweep study as a user drives it
+              (``repro_torch.core.campaign``): the four named campaigns,
+              both paper claims checked on ``paper-fig3`` / ``paper-fig5``
+              (no violations); ``measure_cuda`` times the four kernels
+              through ``ops`` at each paper VL (8 .. 256) on the problems
+              the traces model (cage10 as ELLPACK at C = vl: B6; BFS and
+              10 PageRank steps on rmat15: B4, B5; one 2048-point fp64
+              FFT: B7), CUDA events with the L2 flushed, every result
+              held against its plain version on the card and the phase's
+              launches counted, then 10 calls per kernel at VL 256 under
+              ``torch.profiler`` (device busy time a call against the
+              events' µs, which span ``ops``' host time); a user cube over
+              ``h100_machine()`` prints
+              modeled µs beside measured µs; both go to a ``SweepStore``
+              under ``build/study/`` and are reloaded strictly (cubes
+              ``==``); a fresh ``TuneCache`` warm-started from it narrows
+              a ``KernelRegistry``'s candidate C on cage10 and rmat15
+              against a cold registry's, and 32 SpMV requests are served
+              on the warm cage10 (B1), each held against its plain
+              version;
+12. lm-moe  —the MoE LM, after every earlier phase's operands and models
               are freed: deepseek-moe-16b at its published widths and depth
               (a dense first layer, then 27 MoE layers of 64 routed experts
               top-6 and 2 shared, random init from the seed directly on the
@@ -273,6 +293,17 @@ GATHER_TS = (1, 4, 512, 2048)
 GATHER_ID_SETS = 16
 GATHER_LAUNCH_REPS = 64
 GATHER_HOST_CALLS = 256
+#: the study phase (the paper's sweep study): calls timed per (kernel, VL)
+#: by measure_cuda (median, after its 2 warm-up calls), the latencies of
+#: the user cube over h100_machine(), SpMV requests served on the
+#: warm-started registry, and where its campaign store is written
+STUDY_REPS = 10
+STUDY_LATENCIES = (0, 128, 512)
+STUDY_SPMV_REQUESTS = 32
+#: calls of each kernel in the study's profiled window
+STUDY_PROFILE_CALLS = 10
+STUDY_STORE = Path(__file__).resolve().parent / "build" / "study" / \
+    "BENCH_sweeps.json"
 #: where every tensor of the run lives: the card
 DEVICE = "cuda"
 
@@ -1380,7 +1411,7 @@ def compare_spmv_ell(torch, np, F, spmv_k) -> float:
                 rng.standard_normal(csr.n_cols).astype(dt)).to(DEVICE)
             X = torch.from_numpy(rng.standard_normal(
                 (csr.n_cols, max(ELL_COMPARE_KS))).astype(dt)).to(DEVICE)
-            for c in (8, 32, 128, 256):
+            for c in (8, 16, 32, 64, 128, 256):
                 packed = F.csr_to_ellpack(csr, c=c)
                 for ell in (packed, holey_ellpack(np, F, packed, c)):
                     cols, vals = ell.to_device(DEVICE)
@@ -1426,8 +1457,8 @@ def compare_spmv_ell(torch, np, F, spmv_k) -> float:
                                 f"B6 k form vs plain: {name} C={c} k={k}: "
                                 f"{err} > {tol}")
                         n_k += 1
-            phase("compare", f"B6 {name} {np.dtype(dt).name}: C in (8, 32, "
-                  "128, 256), packed and with PAD inside rows and an all-PAD "
+            phase("compare", f"B6 {name} {np.dtype(dt).name}: C in (8, 16, "
+                  "32, 64, 128, 256), packed and with PAD inside rows and an all-PAD "
                   "warp, within tolerance; live widths equal the host count")
     phase("compare", f"{n_cases} B6 cases ok; {n_k} k-form cases (k in "
           f"{ELL_COMPARE_KS}) torch.equal to the column-by-column launches "
@@ -3257,6 +3288,316 @@ def run_lm_moe(torch, np, configs, M, serve, moe, sell_core, gather_k, ops,
     return records, sum(r["b9"] for r in ml["runs"].values())
 
 
+# ---------------------------------------------------------------------------
+# The paper's sweep study (B4, B5, B6, B7 at each VL; the warm start, B1)
+# ---------------------------------------------------------------------------
+
+
+def study_named_campaigns(C, sweep) -> dict:
+    """Phase 11b, step 1: the named campaigns and the paper's two claims on
+    ``paper-fig3`` / ``paper-fig5`` (no violations)."""
+    t0 = time.perf_counter()
+    named = {n: C.run_campaign(n) for n in C.campaign_names()}
+    violations = sweep.check_latency_claim(sweep.slowdown_tables(
+        sweep.sweep_result_from_campaign(named["paper-fig3"]))) \
+        + sweep.check_bandwidth_claim(
+            sweep.sweep_result_from_campaign(named["paper-fig5"]))
+    phase("study", f"named campaigns {sorted(named)}: "
+          f"{sum(r.spec.n_points for r in named.values())} modeled points in "
+          f"{time.perf_counter() - t0:.3f} s; paper claims: "
+          f"{len(violations)} violation(s)")
+    if violations:
+        raise AssertionError(f"paper claim violations: {violations}")
+    return named
+
+
+def study_counts(bfs_k, pr_k, spmv_k, fft_k, zero: bool = False) -> dict:
+    """The launch counts of B4, B5, B6 and B7 (both forms), read now, or
+    first set to 0 (``zero``)."""
+    if zero:
+        spmv_k.KERNEL_LAUNCHES = spmv_k.SPMM_LAUNCHES = 0
+        for counts in (bfs_k.KERNEL_LAUNCHES, pr_k.KERNEL_LAUNCHES,
+                       fft_k.KERNEL_LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+    return {"spmv_ell": spmv_k.KERNEL_LAUNCHES,
+            "spmm_ell": spmv_k.SPMM_LAUNCHES,
+            "bfs_step": bfs_k.KERNEL_LAUNCHES["bfs_step"],
+            "bfs_frontier": bfs_k.KERNEL_LAUNCHES["bfs_frontier"],
+            "pagerank_step": pr_k.KERNEL_LAUNCHES["pagerank_step"],
+            "fft_stockham_block": fft_k.KERNEL_LAUNCHES["fft_stockham_block"],
+            "fft_stockham_two_pass":
+                fft_k.KERNEL_LAUNCHES["fft_stockham_two_pass"]}
+
+
+def study_check(torch, np, C, F, bfs_k, pr_k, spmv_k, fft_k, problems,
+                outputs, vls) -> None:
+    """Phase 11b, step 2's check: each (kernel, vl)'s last timed result
+    against its plain version on the card (fp64 SpMV 1e-10, BFS exact,
+    PageRank rtol 1e-10, FFT rtol 1e-9 / atol 1e-9 n)."""
+    from repro_torch.core.traffic import PAPER_PROBLEMS
+
+    _, (csr, x) = problems["spmv"]
+    xd = torch.from_numpy(x).to(DEVICE)
+    host = torch.from_numpy(csr.matvec(x))
+    _, graph = problems["bfs"]
+    radj = graph.transpose().to_device(DEVICE)
+    deg = torch.from_numpy(graph.out_degree.astype(np.float64)).to(DEVICE)
+    dist = bfs_k.bfs_ref(radj, 0)
+    rank = pr_k.pagerank_ref(radj, deg, iters=PAPER_PROBLEMS["pagerank"].pr_iters)
+    _, sig = problems["fft"]
+    re = torch.from_numpy(sig).to(DEVICE)
+    n = re.shape[-1]
+    wre, wim = (torch.from_numpy(w).to(DEVICE) for w in fft_k.fft_twiddles(n))
+    spectrum = fft_k.fft_stockham_ref(re, torch.zeros_like(re), wre, wim)
+    worst = {"spmv": 0.0, "pagerank": 0.0, "fft": 0.0}
+    for vl in vls:
+        cols, vals = F.csr_to_ellpack(csr, c=vl).to_device(DEVICE)
+        want = spmv_k.spmv_ell_ref(cols, vals, xd)[:csr.n_rows]
+        got = outputs["spmv", vl]
+        err = max(max_err(got, want), max_err(got.cpu(), host))
+        if got.shape != want.shape or not err <= 1e-10:
+            raise AssertionError(f"study spmv vl={vl}: max abs err {err} "
+                                 "against the plain version / CSR matvec")
+        worst["spmv"] = max(worst["spmv"], err)
+        if not torch.equal(outputs["bfs", vl], dist):
+            raise AssertionError(f"study bfs vl={vl}: != the plain drive")
+        worst["pagerank"] = max(worst["pagerank"], check_pr(
+            f"study pagerank vl={vl}", outputs["pagerank", vl], rank))
+        worst["fft"] = max(worst["fft"], check_fft(
+            torch, np, f"study fft vl={vl}", outputs["fft", vl], spectrum, n,
+            np.float64))
+    phase("study", f"{len(outputs)} results vs plain on card: spmv max abs "
+          f"err {worst['spmv']:.3e} (also vs host CSR matvec; tol 1e-10), bfs "
+          f"equal, pagerank {worst['pagerank']:.3e} (rtol {PR_RTOL}), fft "
+          f"{worst['fft']:.3e} (rtol 1e-9 / atol 1e-9 n)")
+
+
+def study_profile(torch, C, problems, vl: int, us: dict) -> None:
+    """Where a study call's time goes: STUDY_PROFILE_CALLS calls per kernel
+    at ``vl`` (each followed by a synchronize) under ``torch.profiler``,
+    after one unprofiled call; the device's busy time a call (device-side events,
+    one stream) against the event-timed µs of ``measure_cuda`` (``us``),
+    which span ``ops``' host time too, and the kernels that take most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for kernel in C.KERNELS:
+        fn = C.measure_runner(kernel, vl, problems[kernel][1],
+                              torch.device(DEVICE))
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(STUDY_PROFILE_CALLS):
+                fn()
+                torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        calls = STUDY_PROFILE_CALLS
+        busy_us = sum(e.device_time_total for e in dev) / calls
+        top = sorted(dev, key=lambda e: e.device_time_total, reverse=True)[:3]
+        timed = us[kernel][vl]
+        share = (f"device busy {busy_us:.2f} µs a call, {100 * busy_us / timed:.1f}% "
+                 f"of the event-timed {timed:.2f} µs" if busy_us > 0 else
+                 "device time not measured (no device events)")
+        phase("study", f"{kernel} at VL {vl}, {calls} calls under the "
+              f"profiler: {share}; most device time a call: " + "; ".join(
+                  f"{e.key[:40]} {e.device_time_total / calls:.2f} µs "
+                  f"x{e.count / calls:g}" for e in top))
+
+
+def study_warm_start(torch, np, F, G, sell_core, KernelRegistry,
+                     KernelService, TuneCache, store_path, machine,
+                     problems) -> int:
+    """Phase 11b, step 5: a fresh TuneCache warm-started from the store; the
+    registry's candidate C and picks against a cold registry's on cage10
+    and rmat15; then SpMV requests served on the warm cage10 (B1).
+    Returns B1's launches."""
+    cache = TuneCache()
+    seeded = cache.warm_from_sweeps(str(store_path))
+    hint = cache.hint_vl("spmv", machine.name)
+    hinted = cache.candidate_vls_for("spmv", machine.name)
+    phase("study", f"warm start: {seeded} hints from {store_path.name}; "
+          f"{machine.name} hint VL {hint} for every kernel "
+          f"{sorted({cache.hint_vl(k, machine.name) for k in ('spmv', 'bfs', 'pagerank', 'fft')})}"
+          f" -> candidate C {hinted}")
+    _, (cage, _) = problems["spmv"]
+    _, graph = problems["bfs"]
+    regs = {"cold": KernelRegistry(device=DEVICE),
+            "warm": KernelRegistry(device=DEVICE, cache=cache)}
+    cands = {}
+    for how, reg in regs.items():
+        for name, register, operand in (
+                ("cage10", reg.register_matrix, cage),
+                ("rmat15", reg.register_graph, graph)):
+            op = register(name, operand)
+            cands[how, name] = sorted({row[0] for row in op.tuned.table})
+            phase("study", f"{how} registry {name}: candidate C "
+                  f"{cands[how, name]} ({len(op.tuned.table)} (C, sigma) "
+                  f"measured) -> C={op.tuned.c} sigma={op.tuned.sigma} pad="
+                  f"{op.pad_factor:.4f} in {op.register_us / 1e6:.2f} s")
+    for name in ("cage10", "rmat15"):
+        if cands["warm", name] != hinted or \
+                not len(cands["warm", name]) < len(cands["cold", name]):
+            raise AssertionError(f"{name}: the warm start did not narrow the "
+                                 f"tune: {cands}")
+    reg = regs["warm"]
+    svc = KernelService(reg, n_slots=N_SLOTS)
+    rng = np.random.default_rng(11)
+    xs = [rng.standard_normal(cage.n_cols) for _ in range(STUDY_SPMV_REQUESTS)]
+    torch.cuda.synchronize()
+    sell_core.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    rids = [svc.submit("spmv", "cage10", x) for x in xs]
+    svc.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sell_core.KERNEL_LAUNCHES
+    op = reg.get("cage10")
+    if launches <= 0 or launches != op.launches * op.slabs.n_buckets:
+        raise AssertionError(f"warm cage10: {launches} B1 launches, "
+                             f"{op.launches} groups x {op.slabs.n_buckets} "
+                             "buckets expected")
+    got = torch.stack([svc.poll(r) for r in rids], dim=1)
+    arrs = op.device_arrays
+    want = sell_core.spmm_sell_ref(
+        arrs["cols"], arrs["vals"], arrs["rows"],
+        torch.from_numpy(np.stack(xs, axis=1)).to(DEVICE), n_rows=cage.n_rows)
+    err = max_err(got, want)
+    phase("study", f"warm cage10 (C={op.tuned.c}): {len(rids)} SpMV requests "
+          f"in {wall:.4f} s, B1 launches {launches}; results vs plain on card "
+          f"max abs err {err:.3e} (tol 1e-10)")
+    if svc.stats["served"] != len(rids) or svc.stats["failed"] \
+            or not err <= 1e-10:
+        raise AssertionError(f"warm cage10: {svc.stats}, err {err}")
+    return launches
+
+
+def study_path(torch, np, F, G, bfs_k, pr_k, spmv_k, fft_k, sell_core,
+               KernelRegistry, KernelService) -> dict:
+    """Phase 11b: the paper's sweep study on the card.  The named campaigns
+    and both claims; ``measure_cuda`` over the four kernels at every paper
+    VL (B6, B4, B5, B7 through ``ops``; each result held against its plain
+    version on the card; the phase's launches counted; STUDY_PROFILE_CALLS
+    calls of each profiled); a user cube over ``h100_machine()`` with
+    modeled µs (cycles / freq_mhz) beside the measured µs; both saved to a ``SweepStore`` under ``build/`` and
+    reloaded strictly (cubes ``==``); a ``TuneCache`` warm-started from it
+    narrowing the registry's tune, and SpMV requests served on B1.
+    Returns ``{"launches": kernel -> n, "us": kernel -> {vl: µs}}``."""
+    from repro_torch.core import campaign as C
+    from repro_torch.core import sweep
+    from repro_torch.core.sdv import h100_machine
+    from repro_torch.core.traffic import PAPER_PROBLEMS
+    from repro_torch.core.vconfig import PAPER_VLS, SCALAR_VL
+    from repro_torch.service import TuneCache
+
+    named = study_named_campaigns(C, sweep)
+
+    kernels = C.KERNELS
+    t0 = time.perf_counter()
+    problems = C.measure_problems(kernels)
+    phase("study", "problems built in "
+          f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"{k}: {problems[k][0]}" for k in kernels))
+    outputs = {}
+    torch.cuda.synchronize()
+    study_counts(bfs_k, pr_k, spmv_k, fft_k, zero=True)
+    t0 = time.perf_counter()
+    records = C.measure_cuda(kernels, vls=PAPER_VLS, reps=STUDY_REPS,
+                             campaign="h100-study", device=DEVICE,
+                             problems=problems, outputs=outputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = study_counts(bfs_k, pr_k, spmv_k, fft_k)
+    calls = len(PAPER_VLS) * (C.MEASURE_WARMUP + STUDY_REPS)
+    pr_iters = PAPER_PROBLEMS["pagerank"].pr_iters
+    want = {"spmv_ell": calls, "spmm_ell": 0,
+            "pagerank_step": calls * pr_iters,
+            "fft_stockham_block": calls, "fft_stockham_two_pass": 0}
+    phase("study", f"measure_cuda: {len(records)} records (4 kernels x "
+          f"{len(PAPER_VLS)} VLs, {STUDY_REPS} timed calls each after "
+          f"{C.MEASURE_WARMUP}) in "
+          f"{wall:.1f} s; launches {json.dumps(launched)}")
+    if len(records) != len(kernels) * len(PAPER_VLS) or any(
+            launched[k] != v for k, v in want.items()) or \
+            launched["bfs_step"] != launched["bfs_frontier"] or \
+            launched["bfs_step"] < calls:
+        raise AssertionError(f"study: {len(records)} records, launches "
+                             f"{launched}, expected {want} and B4 >= {calls}")
+    us = {k: {r["vl"]: r["us_per_call"] for r in records if r["kernel"] == k}
+          for k in kernels}
+    for k in kernels:
+        phase("study", f"{k} µs a call at VL " + ", ".join(
+            f"{vl}: {t:.2f}" for vl, t in us[k].items())
+            + f" ({problems[k][0]})")
+    study_check(torch, np, C, F, bfs_k, pr_k, spmv_k, fft_k, problems,
+                outputs, PAPER_VLS)
+    study_profile(torch, C, problems, max(PAPER_VLS), us)
+
+    machine = h100_machine()
+    spec = C.CampaignSpec(
+        name="h100-study", kernels=kernels, vls=(SCALAR_VL,) + PAPER_VLS,
+        latencies=STUDY_LATENCIES, bandwidths=(C.BW_UNLIMITED,),
+        machines=(machine,),
+        description="The paper's grid over h100_machine()'s constants, "
+                    "with the card's timings of the same problems.")
+    study = C.run_campaign(spec)
+    study.measured = records
+    rows = C.crosscheck_measured(study)
+    if len(rows) != len(records):
+        raise AssertionError(f"crosscheck joined {len(rows)} of "
+                             f"{len(records)} measured records")
+    for k in kernels:
+        phase("study", f"{k} modeled / measured µs at VL " + ", ".join(
+            f"{r['vl']}: {r['modeled_cycles'] / machine.freq_mhz:.2f} / "
+            f"{r['measured_us']:.2f}" for r in rows if r["kernel"] == k)
+            + f" ({machine.name}, {machine.freq_mhz:.0f} MHz, +0 cycles)")
+    li = STUDY_LATENCIES.index(max(STUDY_LATENCIES))
+    phase("study", f"modeled cycles at +{STUDY_LATENCIES[li]}: " + "; ".join(
+        f"{k} " + ", ".join(f"{vl}: {study.cycles[0, ki, vi, li, 0]:.0f}"
+                            for vi, vl in enumerate(spec.vls))
+        for ki, k in enumerate(kernels)))
+
+    STUDY_STORE.parent.mkdir(parents=True, exist_ok=True)
+    if STUDY_STORE.exists():
+        STUDY_STORE.unlink()
+    store = C.SweepStore(str(STUDY_STORE))
+    for result in (*named.values(), study):
+        store.put(result)
+    store.save()
+    back = C.SweepStore(str(STUDY_STORE), strict=True)
+    for result in (*named.values(), study):
+        got = back.get(result.spec.name)
+        if got.spec != result.spec or not np.array_equal(
+                got.cycles, result.cycles) or got.measured != result.measured:
+            raise AssertionError(f"store round trip: {result.spec.name}")
+    phase("study", f"store {STUDY_STORE} ({STUDY_STORE.stat().st_size} B): "
+          f"{back.names()} reloaded strictly, cubes == and records equal")
+
+    b1 = study_warm_start(torch, np, F, G, sell_core, KernelRegistry,
+                          KernelService, TuneCache, STUDY_STORE, machine,
+                          problems)
+    launched["spmm_sell"] = b1
+    return {"launches": {k: v for k, v in launched.items() if v},
+            "us": us}
+
+
+def add_study(kernels: list[dict], study: dict) -> None:
+    """The study phase's launches (and its µs by VL) on the kernels line:
+    added to each kernel's first record, the earlier paths' count kept
+    under ``launches_by_path``."""
+    by_kernel = {"spmv_ell": "spmv", "bfs_step": "bfs",
+                 "pagerank_step": "pagerank", "fft_stockham_block": "fft"}
+    for name, n in study["launches"].items():
+        rec = next(r for r in kernels if r["name"] == name)
+        rec.setdefault("launches_by_path", {"main paths": rec["launches"]})
+        rec["launches_by_path"]["study"] = n
+        rec["launches"] += n
+        if name in by_kernel:
+            rec["study_us_by_vl"] = study["us"][by_kernel[name]]
+
+
 def main() -> int:
     import torch
 
@@ -3385,6 +3726,12 @@ def main() -> int:
     profile_drives(torch, bfs_k, pr_k, gm)
     profile_lm(torch, M, lm)
     phase("timing", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 11b. the paper's sweep study (B4, B5, B6, B7 at each VL; B1) --------
+    t0 = time.perf_counter()
+    add_study(kernels, study_path(torch, np, F, G, bfs_k, pr_k, spmv_k, fft_k,
+                                  sell_core, KernelRegistry, KernelService))
+    phase("study", f"done in {time.perf_counter() - t0:.1f} s")
 
     # -- 12. the MoE LM (B1 on its combines, B9) -----------------------------
     # deepseek-moe-16b's 67.5 GB need the card to themselves: every earlier

@@ -7,8 +7,10 @@ with the SDV cycle model; on an H100 a SIMT instruction is one 32-thread
 warp whatever C is, so that model saw every warp-multiple C at the same
 vector length and ranked layouts by pad factor alone.  The port therefore
 ranks by pad factor directly, and brings the cycle model back once the
-card's memory latencies are measured (ROADMAP A14).  What else changes on
-an H100 is the budget the RHS tile is priced against.
+card's memory latencies are measured (ROADMAP A14).  The reference's
+model-driven VL tuner is here too (:func:`tune_vl`), on the port's cycle
+model and shared-memory budget; nothing on the serving path calls it.
+What else changes on an H100 is the budget the RHS tile is priced against.
 
 The TPU tuner sizes ``k_block`` so that the whole ``(n_cols, k_block)`` X
 block fits VMEM (64 MiB, double-buffered); a 2M-column operand fails that
@@ -23,10 +25,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 
+from repro_torch.core.sdv import MachineParams, SDVMachine, Trace, h100_machine
+from repro_torch.core.vconfig import VectorConfig
 from repro_torch.sparse.formats import (
     next_pow2,
     pow2_ceil,
@@ -597,6 +601,49 @@ def candidate_vls(max_vl: int = 1024, min_vl: int = MIN_C) -> list[int]:
         out.append(v)
         v *= 2
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TuneResult:
+    vl: int
+    cycles: float
+    table: tuple[tuple[int, float], ...]   # (vl, modeled cycles) per candidate
+
+    def speedup_over_worst(self) -> float:
+        worst = max(c for _, c in self.table)
+        return worst / self.cycles
+
+
+def tune_vl(
+    trace_builder: Callable[[VectorConfig], Trace],
+    machine: MachineParams | None = None,
+    candidates: Sequence[int] | None = None,
+    bytes_per_vl_row: float = 0.0,
+    smem_budget: float = SMEM_PER_BLOCK,
+) -> TuneResult:
+    """Pick the vector length minimizing SDV-modeled cycles under a budget.
+
+    The reference's ``tune_vl`` with the Hopper budget: a block of width
+    ``vl`` must fit ``bytes_per_vl_row * vl`` bytes of shared memory
+    (``smem_budget``, by default the :data:`SMEM_PER_BLOCK` one block may
+    claim; ``bytes_per_vl_row = 0`` is no bound), and the default machine
+    is :func:`repro_torch.core.sdv.h100_machine`, whose latencies are
+    estimates (ROADMAP A14).  With the machine, candidates and budget
+    passed explicitly, the result equals the reference's.
+    """
+    machine = machine or h100_machine()
+    cands = list(candidates) if candidates is not None else candidate_vls()
+    sdv = SDVMachine(machine)
+    rows: list[tuple[int, float]] = []
+    for vl in cands:
+        if bytes_per_vl_row and bytes_per_vl_row * vl > smem_budget:
+            continue
+        cycles = sdv.run(trace_builder(VectorConfig(vl=vl, lanes=machine.lanes))).cycles
+        rows.append((vl, cycles))
+    if not rows:
+        raise ValueError("no candidate vl fits the shared-memory budget")
+    best_vl, best_cycles = min(rows, key=lambda r: r[1])
+    return TuneResult(vl=best_vl, cycles=best_cycles, table=tuple(rows))
 
 
 def measured_pad_factor(

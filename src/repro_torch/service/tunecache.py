@@ -4,9 +4,11 @@ A copy of ``repro.service.tunecache`` with the **same JSON schema**, so a
 cache file written by the JAX reference loads here unchanged and the
 reference's recorded layout for an operand can be reused as is (same key,
 same content signature).  Covered: matrix and graph signatures, tune
-entries, the packed-slab memo, the repack ledger, hints and the
-cross-process lock + merge-on-save protocol.  ``warm_from_sweeps`` waits
-for a port of the campaign store (ROADMAP A9).
+entries, the packed-slab memo, the repack ledger, hints, the
+cross-process lock + merge-on-save protocol and the campaign warm start
+(``warm_from_sweeps``, from a store of
+:class:`repro_torch.core.campaign.SweepStore`, which reads the reference's
+``BENCH_sweeps.json`` too).
 
 Keys are ``(kernel, device, dtype, machine tag, operand signature)``:
 the signature fingerprints the operand's shape, nnz and content digest,
@@ -427,7 +429,7 @@ class TuneCache:
         while len(self._packed) > self.max_packed:
             self._packed.popitem(last=False)
 
-    # -- campaign hints (read from a reference-written document) ----------
+    # -- campaign warm-start ----------------------------------------------
     def hint_vl(self, kernel: str, machine: str) -> int | None:
         """Campaign-derived 'best VL' hint for (kernel, machine), if any."""
         return self._hints.get(f"{kernel}|{machine}")
@@ -435,6 +437,47 @@ class TuneCache:
     def set_hint(self, kernel: str, machine: str, vl: int) -> None:
         self._hints[f"{kernel}|{machine}"] = int(vl)
         self._dirty_hints.add(f"{kernel}|{machine}")
+
+    def warm_from_sweeps(self, store) -> int:
+        """Seed VL hints from campaign cubes (offline warm start).
+
+        ``store`` is a :class:`repro_torch.core.campaign.SweepStore` or a
+        path to a ``BENCH_sweeps.json`` document (written by either
+        package).  For every (machine, kernel) in every stored campaign,
+        the hint is the vector VL that minimizes modeled cycles at the
+        campaign's most hostile latency corner — the sweep's answer to "how
+        long should the vectors be on this memory system", handed to the
+        serving tuner as its starting point.  Returns the number of hints
+        seeded.
+        """
+        from repro_torch.core.campaign import SweepStore
+        from repro_torch.core.vconfig import SCALAR_VL
+
+        if not isinstance(store, SweepStore):
+            # a warm start that silently seeds nothing is worse than an
+            # error: a missing path (typo, campaign never run) and a
+            # future-versioned document both fail loudly
+            if not os.path.exists(str(store)):
+                raise FileNotFoundError(
+                    f"warm_from_sweeps: no campaign store at {store!r} — "
+                    "run a campaign first (python -m "
+                    "repro_torch.launch.campaign --campaign paper-fig3)")
+            store = SweepStore(str(store), strict=True)
+        seeded = 0
+        for name in store.names():
+            result = store.get(name)
+            s = result.spec
+            vec = [vi for vi, vl in enumerate(s.vls) if vl != SCALAR_VL]
+            if not vec:
+                continue
+            li = int(np.argmax(s.latencies))         # harshest latency corner
+            for mi, m in enumerate(s.machines):
+                for ki, kernel in enumerate(s.kernels):
+                    curve = result.cycles[mi, ki, :, li, 0]
+                    best = min(vec, key=lambda vi: curve[vi])
+                    self.set_hint(kernel, m.name, s.vls[best])
+                    seeded += 1
+        return seeded
 
     def candidate_vls_for(self, kernel: str, machine: str,
                           spread: int = 1) -> list[int] | None:

@@ -4,8 +4,9 @@
 the FFT B7 (``csrc/fft_stockham.cu``), the fused SSD scan B8
 (``csrc/ssd_fused.cu``) and the embedding gather B9
 (``csrc/embedding_gather.cu``) against their plain PyTorch versions on the
-card, and the reduced mamba2 and dense attention LM paths on the card
-against the CPU.  Every test here carries the ``cuda`` marker and skips without
+card, the reduced mamba2 and dense attention LM paths on the card
+against the CPU, and the sweep study's ``measure_cuda`` (B4, B5, B6, B7
+through ``ops``).  Every test here carries the ``cuda`` marker and skips without
 a GPU (decided inside the fixture, never at import).  This file imports
 neither ``jax`` nor ``repro``, so it runs on a machine that has only the
 port's dependencies:
@@ -1086,3 +1087,38 @@ def test_reduced_deepseek_fused_engine_on_the_card(cuda_device):
         (cfg.n_layers - 1) * gcfg.max_new_tokens
     assert svc.metrics.get("latency_us_class_lm_token").count == \
         gcfg.max_new_tokens
+
+
+# ---------------------------------------------------------------------------
+# The sweep study's measured half (B4, B5, B6, B7 through ops)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_measure_cuda_times_each_kernel_on_the_card(cuda_device):
+    from repro_torch.core import campaign as C
+    from repro_torch.kernels import bfs as bfs_k
+    from repro_torch.kernels import fft as fft_k
+    from repro_torch.kernels import pagerank as pr_k
+    from repro_torch.kernels import spmv as spmv_k
+
+    before = (spmv_k.KERNEL_LAUNCHES, bfs_k.KERNEL_LAUNCHES["bfs_step"],
+              pr_k.KERNEL_LAUNCHES["pagerank_step"],
+              fft_k.KERNEL_LAUNCHES["fft_stockham_block"])
+    outputs = {}
+    recs = C.measure_cuda(vls=(64,), reps=2, campaign="t", outputs=outputs)
+    after = (spmv_k.KERNEL_LAUNCHES, bfs_k.KERNEL_LAUNCHES["bfs_step"],
+             pr_k.KERNEL_LAUNCHES["pagerank_step"],
+             fft_k.KERNEL_LAUNCHES["fft_stockham_block"])
+    assert [r["kernel"] for r in recs] == list(C.KERNELS)
+    for r in recs:
+        assert set(r) == {"campaign", "machine", "kernel", "vl",
+                          "extra_latency", "bw_limit", "us_per_call",
+                          "problem", "source"}
+        assert (r["campaign"], r["vl"], r["source"]) == (
+            "t", 64, "measured-cuda")
+        assert r["machine"] == torch.cuda.get_device_name(0)
+        assert r["us_per_call"] > 0 and "L2 flushed" in r["problem"]
+    assert all(b < a for b, a in zip(before, after))
+    assert all(out[0].is_cuda if isinstance(out, tuple) else out.is_cuda
+               for out in outputs.values())
