@@ -41,8 +41,10 @@ result line is printed:
               reading row 0 of the twiddle tables only; B8
               (``ssd_fused``, three launches a call) at mamba2-2.7b's
               prefill shapes (b 1 and 4) and three chunks at its widths,
-              and at small shapes in fp32 and fp64 (three chunks over 160
-              (b, h) planes among them), from a zero and a random state;
+              at small shapes in fp32 and fp64 (three chunks over 160
+              (b, h) planes among them) and at hymba-1.5b's prefill shapes
+              ((1 and 4, 512), (1, 2560): h 50, p 64, n 16, chunk 256) in
+              fp32 and fp64, from a zero and a random state;
               B9 (``embedding_gather``) from mamba2's
               (50,280, 2560) table at T in (1, 4, 512, 2048), fp32 and
               fp64, int32 and int64 ids on the host and on the card,
@@ -185,7 +187,30 @@ result line is printed:
               first layer and the first MoE layer) with the card's combine
               on B1 and the CPU's on the dense path; a prefill and a decode
               step under ``torch.profiler`` on each path; the peak device
-              memory.
+              memory;
+13. lm-families — the last three LM families, one at a time, each freed
+              before the next, at their published widths and depth with
+              random init from the seed on the card: hymba-1.5b (32
+              hybrid layers: attention with a 2048-token window beside a
+              mamba2 mixer; B8 in every layer of a chunk-multiple
+              prefill), seamless-m4t-medium (a 12-layer bidirectional
+              encoder, 12 decoder layers cross-attending its memory) and
+              llama-3.2-vision-11b (10 groups of 4 self blocks, each
+              followed by a cross block over 1601 projected patch
+              embeddings); each served by ``Batcher(n_slots=4)`` (8
+              requests of 512 tokens, 16 new each; no ``ctx_embeds``, so
+              the zero context, as the reference's batcher) and by
+              ``ServeEngine.generate`` on (4, 512) (seamless with (4, 1024,
+              1024) stub frames, vision with (4, 1601, 1280) stub patch
+              embeddings, numpy from the seed, as ``ctx_embeds``), B8's and
+              B9's launches read around each drive, tokens/s, prefill ms
+              and decode ms printed; its card-vs-CPU check cut in depth
+              (hymba 2 layers, also on a 2560-token prompt whose ring of
+              2048 slots wraps; seamless 2 encoder and 2 decoder layers;
+              vision one group, 4 self blocks and a cross block); B8 timed
+              at hymba's prefill shapes (b 1 and 4) beside its bound and
+              plain version; a prefill and a decode step under
+              ``torch.profiler``; the peak device memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with a record per kernel.
@@ -273,6 +298,14 @@ LM_DENSE_ARCH = "llama3.2-3b"
 #: random init from LM_SEED on the card, served by the plain engine and by
 #: the fused one (every combine a moe_dispatch request on the service)
 LM_MOE_ARCH = "deepseek-moe-16b"
+#: the families phase (kernels B8, B9): the last three LM families at their
+#: published widths (src/repro_torch/configs/hymba_1_5b.py,
+#: seamless_m4t_medium.py, llama3_2_vision_11b.py), one at a time, each
+#: freed before the next, random init from LM_SEED on the card
+LM_FAMILY_ARCHS = ("hymba-1.5b", "seamless-m4t-medium", "llama-3.2-vision-11b")
+#: hymba's long check prompt: ten 256-row chunks (B8's path), past its
+#: 2048-token sliding window (the ring of 2048 slots wraps)
+LM_HYMBA_LONG = 2560
 #: depth of the card-against-CPU check (full width, the first layers)
 LM_CHECK_LAYERS = 2
 #: card logits against the CPU's plain versions, relative to max|logit|:
@@ -2397,11 +2430,37 @@ def lm_moe_config(configs):
     return configs.get_config(LM_MOE_ARCH)
 
 
+def lm_family_config(configs, arch: str):
+    """A families phase model: ``arch``'s published config."""
+    return configs.get_config(arch)
+
+
+def family_ctx(np, cfg, b: int):
+    """The stub frontend's output for ``b`` sequences, float32 from
+    LM_SEED: vision patch embeddings (b, n_ctx_tokens, d_ctx), enc-dec
+    frames (b, n_ctx_tokens, d_model); None for the other families."""
+    if cfg.encdec is not None:
+        shape = (b, cfg.encdec.n_ctx_tokens, cfg.d_model)
+    elif cfg.cross_attn is not None:
+        shape = (b, cfg.cross_attn.n_ctx_tokens,
+                 cfg.cross_attn.d_ctx or cfg.d_model)
+    else:
+        return None
+    rng = np.random.default_rng(LM_SEED)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
 def describe_lm(cfg) -> str:
     """The widths that shape an LM phase's model."""
     if cfg.family == "ssm":
         return (f"{cfg.n_ssm_heads} heads of {cfg.ssm.head_dim}, d_state "
                 f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk}")
+    if cfg.hybrid:
+        s = cfg.ssm
+        return (f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of "
+                f"{cfg.d_head} (sliding window {cfg.sliding_window}) in "
+                f"parallel with {cfg.n_ssm_heads} SSM heads of {s.head_dim}, "
+                f"d_state {s.d_state}, chunk {s.chunk}; d_ff {cfg.d_ff}")
     if cfg.moe is not None:
         m = cfg.moe
         return (f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of "
@@ -2410,16 +2469,37 @@ def describe_lm(cfg) -> str:
                 f"factor {m.capacity_factor}, dense first layer d_ff "
                 f"{cfg.dense_first_layer_ff}, "
                 f"{'tied' if cfg.tie_embeddings else 'untied'} head")
-    return (f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of {cfg.d_head}, "
-            f"d_ff {cfg.d_ff}, rope theta {cfg.rope_theta:g}, "
-            f"{'tied' if cfg.tie_embeddings else 'untied'} head")
+    out = (f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of {cfg.d_head}, "
+           f"d_ff {cfg.d_ff}, rope theta {cfg.rope_theta:g}, "
+           f"{'tied' if cfg.tie_embeddings else 'untied'} head")
+    if cfg.encdec is not None:
+        e = cfg.encdec
+        out += (f"; a {e.encoder_layers}-layer bidirectional encoder over "
+                f"{e.n_ctx_tokens} frames, decoder layers of self-attention "
+                "(no MLP) then cross-attention over its memory with the MLP")
+    elif cfg.cross_attn is not None:
+        c = cfg.cross_attn
+        out += (f"; {cfg.n_layers // c.every} groups of {c.every} self "
+                f"blocks, each followed by a cross block over {c.n_ctx_tokens}"
+                f" patch embeddings of {c.d_ctx} projected to d_model")
+    return out
 
 
-def ssd_cases(cfg) -> list[tuple]:
+def ssd_cases(cfg, hybrid=None) -> list[tuple]:
     """B8 compare cases (b, l, h, p, g, n, chunk, dtype): the LM phase's
     prefill shapes (b 1 and LM_SLOTS) and three chunks at its widths, then
     small shapes with two groups, with l == chunk, and with three chunks
-    over more (b, h) planes than the card has SMs, in fp32 and fp64."""
+    over more (b, h) planes than the card has SMs, in fp32 and fp64; with
+    ``hybrid`` (hymba's config) its prefill shapes too, (b 1 and LM_SLOTS,
+    LM_PROMPT) and (1, LM_HYMBA_LONG), in fp32 and fp64: n = 16 below the
+    32-row k step and the 64-wide tiles, h = 50."""
+    out = []
+    if hybrid is not None:
+        s = hybrid.ssm
+        w = (hybrid.n_ssm_heads, s.head_dim, s.n_groups, s.d_state, s.chunk)
+        out = [(b, l) + w + (dt,) for dt in ("float32", "float64")
+               for b, l in ((1, LM_PROMPT), (LM_SLOTS, LM_PROMPT),
+                            (1, LM_HYMBA_LONG))]
     s = cfg.ssm
     big = [(b, LM_PROMPT, cfg.n_ssm_heads, s.head_dim, s.n_groups, s.d_state,
             s.chunk, "float32") for b in (1, LM_SLOTS)]
@@ -2430,7 +2510,7 @@ def ssd_cases(cfg) -> list[tuple]:
     # three chunks over b h = 160 planes (more than the card's 132 SMs),
     # ragged p and n tiles
     small += [(2, 192, 80, 40, 2, 72, 64, dt) for dt in ("float32", "float64")]
-    return big + three + small
+    return big + three + small + out
 
 
 def ssd_inputs(torch, np, b, l, h, p, g, n, dtype, seed, init=False):
@@ -2459,11 +2539,15 @@ def ssd_violation(torch, got, want, dtype: str) -> float:
     return float(diff.max())
 
 
-def compare_ssd(torch, np, ssd_k, cfg) -> float:
+def compare_ssd(torch, np, ssd_k, cfg, hybrid=None) -> dict:
     """Phase 3 (B8): every case from a zero and a random initial state;
-    returns the max abs error of y at the batcher's prefill shape (b 1)."""
-    main_err = 0.0
-    for i, (b, l, h, p, g, n, q, dt) in enumerate(ssd_cases(cfg)):
+    returns the max abs error of y at each LM's batcher prefill shape (b 1,
+    fp32): ``{"lm": ..., "hybrid": ...}``."""
+    errs_at = {}
+    mains = {"lm": ssd_cases(cfg)[0]}
+    if hybrid is not None:
+        mains["hybrid"] = ssd_cases(cfg, hybrid)[-6]
+    for i, (b, l, h, p, g, n, q, dt) in enumerate(ssd_cases(cfg, hybrid)):
         errs = []
         for init in (False, True):
             (xd, ad, B, C), s0 = ssd_inputs(torch, np, b, l, h, p, g, n, dt,
@@ -2473,12 +2557,13 @@ def compare_ssd(torch, np, ssd_k, cfg) -> float:
             y0, f0 = ssd_k.ssd_fused_ref(xd, ad, B, C, chunk=q, init_state=s0)
             errs += [ssd_violation(torch, y, y0, dt),
                      ssd_violation(torch, f, f0, dt)]
-        if i == 0:
-            main_err = errs[0]
+        for name, case in mains.items():
+            if case == (b, l, h, p, g, n, q, dt):
+                errs_at[name] = errs[0]
         phase("compare", f"B8 (b, l, h, p, g, n) = {(b, l, h, p, g, n)} chunk "
               f"{q} {dt}: max abs err y / state {max(errs[0::2]):.3e} / "
               f"{max(errs[1::2]):.3e} (zero and random initial state)")
-    return main_err
+    return errs_at
 
 
 def compare_gather(torch, np, gather_k, cfg) -> None:
@@ -2596,13 +2681,16 @@ def compare_live_bounds(torch, np, F, G, spmv_k, bfs_k, pr_k) -> None:
 
 
 def lm_path(torch, np, configs, M, serve, ssd_k, gather_k, *, cfg=None,
-            name: str = "lm") -> dict:
+            name: str = "lm", ctx=None) -> dict:
     """Phase 10: mamba2-2.7b served through the batcher and the engine;
     phase 10b (``name`` "lm-dense", ``cfg`` llama-3.2-3b's): the dense
-    attention LM the same way.  B8 runs in every mamba2 layer of a prefill
-    and never in a dense model; B9 once a prefill and once a decode step."""
+    attention LM the same way; phase 13 (``name`` "lm-families"): hymba,
+    seamless and the vision LM, the engine's prompts with ``ctx`` (the
+    stub frontend's output, numpy) as ``ctx_embeds`` where the family takes
+    it (the batcher's decode against the caches' zero context, as the
+    reference's).  B8 runs in every mamba2 or hymba layer of a prefill and
+    never in the other models; B9 once a prefill and once a decode step."""
     cfg = cfg or lm_config(configs)
-    ssm = cfg.family == "ssm"
     smi = smi_line()
     t0 = time.perf_counter()
     params = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg)
@@ -2660,7 +2748,7 @@ def lm_path(torch, np, configs, M, serve, ssd_k, gather_k, *, cfg=None,
         raise AssertionError("batcher: a request is missing, short or out of "
                              "the vocabulary")
     steps = len(batcher.decode_s)
-    per_call = ssd_k.LAUNCHES_PER_CALL if ssm else 0
+    per_call = ssd_k.LAUNCHES_PER_CALL if cfg.ssm is not None else 0
     if b8 != LM_REQUESTS * cfg.n_layers * per_call \
             or b9 != LM_REQUESTS + steps:
         raise AssertionError(
@@ -2688,7 +2776,8 @@ def lm_path(torch, np, configs, M, serve, ssd_k, gather_k, *, cfg=None,
     ssd_k.KERNEL_LAUNCHES = 0
     gather_k.KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
-    out = engine.generate(prompts[:LM_SLOTS])
+    out = engine.generate(prompts[:LM_SLOTS], extras=None if ctx is None
+                          else {"ctx_embeds": ctx})
     torch.cuda.synchronize()
     eng_wall = time.perf_counter() - t0
     e8, e9 = ssd_k.KERNEL_LAUNCHES, gather_k.KERNEL_LAUNCHES
@@ -2701,46 +2790,78 @@ def lm_path(torch, np, configs, M, serve, ssd_k, gather_k, *, cfg=None,
                              f"x {per_call}), B9 {e9} (want {LM_NEW_TOKENS})")
     by_rid = {r.rid: r.generated for r in done}
     same = sum(out[i].tolist() == by_rid[i] for i in range(LM_SLOTS))
-    phase(name, f"ServeEngine.generate ({LM_SLOTS}, {LM_PROMPT}): "
+    with_ctx = "" if ctx is None else (
+        f" with ctx_embeds {ctx.shape} (the batcher's requests: the zero "
+        "context)")
+    phase(name, f"ServeEngine.generate ({LM_SLOTS}, {LM_PROMPT}){with_ctx}: "
           f"{out.size} tokens in {eng_wall:.3f} s = {out.size / eng_wall:.2f} "
           f"tokens/s; ssd.KERNEL_LAUNCHES={e8}, gather.KERNEL_LAUNCHES={e9}; "
           f"greedy tokens equal to the batcher's for {same} of {LM_SLOTS} "
           f"prompts (b = 4 against b = 1 prefills: other cuBLAS shapes) | {smi}")
-    return {"cfg": cfg, "params": params, "prompts": prompts,
+    return {"cfg": cfg, "params": params, "prompts": prompts, "ctx": ctx,
             "launches": {"ssd_fused": b8 + e8, "embedding_gather": b9 + e9},
             "tokens_per_s": n_tok / wall, "prefill_ms": prefill_ms,
             "decode_ms": decode_ms, "engine_tokens_per_s": out.size / eng_wall}
 
 
+def check_model(M, nn, params, cfg):
+    """The first layers of ``params`` at full width as an LM of their own
+    (the card's tensors, no copy) and its config: LM_CHECK_LAYERS blocks (a
+    dense first layer counted among them), the enc-dec's first
+    LM_CHECK_LAYERS encoder and decoder layers, or the vision stack's first
+    group (``every`` self blocks and its cross block)."""
+    head = (params.tok_embed, params.final_norm, params.lm_head)
+    n = LM_CHECK_LAYERS
+    if cfg.encdec is not None:
+        cfg2 = dataclasses.replace(cfg, n_layers=n, encdec=dataclasses.replace(
+            cfg.encdec, encoder_layers=n))
+        return M.LM(*head, None, encoder=nn.ModuleList(list(params.encoder)[:n]),
+                    enc_norm=params.enc_norm,
+                    decoder=nn.ModuleList(list(params.decoder)[:n])), cfg2
+    if params.self_blocks is not None:
+        cfg2 = dataclasses.replace(cfg, n_layers=cfg.cross_attn.every)
+        return M.LM(*head, None,
+                    self_blocks=nn.ModuleList(list(params.self_blocks)[:1]),
+                    cross_blocks=nn.ModuleList(list(params.cross_blocks)[:1]),
+                    ctx_proj=params.ctx_proj), cfg2
+    n_stacked = n - (params.dense0 is not None)
+    return (M.LM(*head, nn.ModuleList(list(params.blocks)[:n_stacked]),
+                 params.dense0), dataclasses.replace(cfg, n_layers=n))
+
+
 def lm_check(torch, np, M, lm: dict, label: str = "lm",
-             card_scope=contextlib.nullcontext) -> None:
-    """Phases 10 / 10b / 12: the first LM_CHECK_LAYERS layers at full width
-    (a dense first layer counted among them) from the same weights on the
-    card (B9; B8 for mamba2; B1 for a MoE layer's combine, under
-    ``card_scope``) and on the CPU (plain versions, the MoE combine on the
-    dense path).  The CPU copy is made tensor by tensor from the card's,
-    so the card holds no second copy."""
+             card_scope=contextlib.nullcontext, prompt=None) -> None:
+    """Phases 10 / 10b / 12 / 13: the model's first layers at full width
+    (:func:`check_model`) from the same weights on the card (B9; B8 for
+    mamba2 and hymba; B1 for a MoE layer's combine, under ``card_scope``)
+    and on the CPU (plain versions, the MoE combine on the dense path), on
+    ``prompt`` (default: the first of the phase's prompts), with the
+    phase's first ``ctx_embeds`` where it has them.  The CPU copy is made
+    tensor by tensor from the card's, so the card holds no second copy.
+    Where the prompt passes a sliding window, the CPU's caches must show
+    the ring wrapped: only the last ``window`` positions kept."""
     import copy
 
     from torch import nn
 
     cfg, params = lm["cfg"], lm["params"]
-    cfg2 = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
-    n_stacked = LM_CHECK_LAYERS - (params.dense0 is not None)
-    card = M.LM(params.tok_embed, params.final_norm, params.lm_head,
-                nn.ModuleList(list(params.blocks)[:n_stacked]), params.dense0)
+    card, cfg2 = check_model(M, nn, params, cfg)
     host = copy.deepcopy(card, memo={
         id(t): nn.Parameter(t.detach().cpu(), requires_grad=False)
         for t in card.parameters()})
-    prompt = lm["prompts"][:1]
+    prompt = lm["prompts"][:1] if prompt is None else prompt
+    s = prompt.shape[1]
+    batch = {"tokens": prompt}
+    if lm.get("ctx") is not None:
+        batch["ctx_embeds"] = lm["ctx"][:1]
     runs = {}
     t0 = time.perf_counter()
     for name, p, dev, scope in (("card", card, DEVICE, card_scope),
                                 ("cpu", host, "cpu", contextlib.nullcontext)):
         with scope():
-            caches = M.init_caches(cfg2, 1, LM_PROMPT + LM_NEW_TOKENS,
+            caches = M.init_caches(cfg2, 1, s + LM_NEW_TOKENS,
                                    dtype=torch.float32, device=dev)
-            logits, caches = M.prefill(p, cfg2, {"tokens": prompt}, caches)
+            logits, caches = M.prefill(p, cfg2, batch, caches)
             steps, toks = [logits[:, -1].cpu()], []
             for _ in range(LM_NEW_TOKENS - 1):
                 tok = torch.argmax(steps[-1], dim=-1)
@@ -2750,30 +2871,97 @@ def lm_check(torch, np, M, lm: dict, label: str = "lm",
                 steps.append(last.cpu())
             toks.append(int(torch.argmax(steps[-1], dim=-1)[0]))
         runs[name] = (logits.cpu(), steps, toks)
+    ring = ""
+    window = cfg.sliding_window
+    if window is not None and s > window:
+        kv = caches["layers"].kv
+        end = s + LM_NEW_TOKENS - 1
+        if kv.k.shape[2] != window or int(kv.length.min()) != end \
+                or int(kv.pos.min()) != end - window:
+            raise AssertionError(
+                f"{label} check: the ring of {kv.k.shape[2]} slots holds "
+                f"positions {int(kv.pos.min())} .. {int(kv.pos.max())} after "
+                f"{end} tokens (want the last {window})")
+        ring = (f"; the ring of {window} slots wrapped (positions "
+                f"{int(kv.pos.min())} .. {int(kv.pos.max())} kept)")
+    del caches
     (lc, sc, tc), (lh, sh, th) = runs["card"], runs["cpu"]
     scale = float(lh.abs().max())
     tol = LM_LOGIT_RTOL * scale
     err = float((lc - lh).abs().max())
     if not err <= tol:
-        raise AssertionError(f"lm check: prefill logits differ by {err} > "
+        raise AssertionError(f"{label} check: prefill logits differ by {err} > "
                              f"{LM_LOGIT_RTOL} x max|logit| = {tol}")
     top2 = torch.topk(torch.cat(sh), 2, dim=-1).values
     margins = (top2[:, 0] - top2[:, 1]).numpy()[None]
     checked, close = margin_rule(np.array([tc]), np.array([th]), margins, tol,
-                                 label="lm check")
+                                 label=f"{label} check")
     for _, i in checked:
         step_err = float((sc[i] - sh[i]).abs().max())
         if not step_err <= tol:
-            raise AssertionError(f"lm check: step {i} logits differ by "
+            raise AssertionError(f"{label} check: step {i} logits differ by "
                                  f"{step_err} > {tol}")
         err = max(err, step_err)
     checked = len(checked)
-    phase(label, f"check: {LM_CHECK_LAYERS} layers at full width, card vs CPU "
-          f"(plain versions) on a ({1}, {LM_PROMPT}) prompt: max abs logit err "
-          f"{err:.3e} <= {LM_LOGIT_RTOL} x max|logit| {scale:.3f}; greedy "
-          f"tokens equal at {checked} of {LM_NEW_TOKENS} positions with a "
-          f"top-2 margin above the tolerance; closer margins {close} "
-          f"({time.perf_counter() - t0:.1f} s)")
+    ctx = "" if "ctx_embeds" not in batch else \
+        f" with ctx_embeds {batch['ctx_embeds'].shape}"
+    phase(label, f"check: {cfg2.n_layers} layers at full width"
+          + (f" (and {cfg2.encdec.encoder_layers} encoder layers)"
+             if cfg2.encdec is not None else "")
+          + f", card vs CPU (plain versions) on a (1, {s}) prompt{ctx}: "
+          f"max abs logit err {err:.3e} <= {LM_LOGIT_RTOL} x max|logit| "
+          f"{scale:.3f}; greedy tokens equal at {checked} of {LM_NEW_TOKENS} "
+          f"positions with a top-2 margin above the tolerance; closer margins "
+          f"{close}{ring} ({time.perf_counter() - t0:.1f} s)")
+
+
+def time_ssd(torch, np, ssd_k, b, l, h, p, g, n, q, flush, goal=None) -> dict:
+    """B8 at (b, l, h, p, g, n) chunk q in fp32 (CUDA events, the L2
+    flushed) beside its bound (operations; bytes printed beside), the
+    form's floor and its plain version; ``goal`` (ms) marked met or
+    missed where given."""
+    from repro_torch.core import autotune
+
+    (xd, ad, B, C), _ = ssd_inputs(torch, np, b, l, h, p, g, n, "float32",
+                                   seed=11)
+
+    def run():
+        return ssd_k.ssd_fused(xd, ad, B, C, chunk=q)
+
+    def plain():
+        return ssd_k.ssd_fused_ref(xd, ad, B, C, chunk=q)
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = ssd_violation(torch, got[0], want[0], "float32")
+    ms = time_ms(torch, run, flush)
+    plain_ms = time_ms(torch, plain, flush)
+    nbytes = 4 * (2 * b * l * h * p + b * l * h + 2 * b * l * g * n
+                  + b * h * p * n)
+    flops = autotune.ssd_flops(b, l, h, p, n, q)
+    executed = autotune.ssd_flops_executed(b, l, h, p, n, q)
+    # the built form: launch 1 on the CUDA cores, launch 3's products
+    # 3xTF32 on the tensor cores (three TF32 passes each)
+    tc = sum(v for k, v in executed.items() if k != "chunk_state")
+    floor_ms = (executed["chunk_state"] / FP32_OPS + 3 * tc / TF32_OPS) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_OPS * 1e3
+    met = "" if goal is None else \
+        f" (goal <= {goal}: {'met' if ms <= goal else 'missed'})"
+    phase("timing", f"B8 ssd_fused (b, l, h, p, g, n) = {(b, l, h, p, g, n)} "
+          f"chunk {q} fp32: {ms:.4f} ms in {ssd_k.LAUNCHES_PER_CALL} "
+          f"launches{met} | bound {max(bytes_ms, ops_ms):.4f} ms (ops "
+          f"{ops_ms:.4f}: {flops / 1e9:.3f} GFLOP; bytes {bytes_ms:.4f}) | the "
+          f"form's floor ({sum(executed.values()) / 1e9:.3f} GFLOP executed, "
+          + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in executed.items())
+          + "; chunk_state on the CUDA cores at 67 TFLOP/s, the rest "
+          f"3xTF32, 3 x its flops at 495 TFLOP/s) {floor_ms:.4f} ms | "
+          f"plain {plain_ms:.4f} ms | no single PyTorch call | max abs err y "
+          f"vs plain {err:.3e} | {flops / ms / 1e6:.1f} GFLOP/s of the function")
+    return {"b": b, "ms": ms, "plain_ms": plain_ms, "err": err,
+            "shape": f"(b, l, h, p, g, n) = {(b, l, h, p, g, n)} chunk {q} fp32",
+            "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "gflop": flops / 1e9}
 
 
 def time_lm(torch, np, ssd_k, gather_k, lm: dict, comp_err: float,
@@ -2781,55 +2969,12 @@ def time_lm(torch, np, ssd_k, gather_k, lm: dict, comp_err: float,
     """Phase 11 (LM): B8 at the batcher's (b 1) and the engine's (b 4)
     prefill shapes; B9 (:func:`time_gather`), its launches the sum of
     ``b9_by_path`` (each LM path's count from its own run)."""
-    from repro_torch.core import autotune
-
     cfg = lm["cfg"]
     s = cfg.ssm
     l, h, p, g, n, q = LM_PROMPT, cfg.n_ssm_heads, s.head_dim, s.n_groups, \
         s.d_state, s.chunk
-    b8 = []
-    for b in (1, LM_SLOTS):
-        (xd, ad, B, C), _ = ssd_inputs(torch, np, b, l, h, p, g, n, "float32",
-                                       seed=11)
-
-        def run():
-            return ssd_k.ssd_fused(xd, ad, B, C, chunk=q)
-
-        def plain():
-            return ssd_k.ssd_fused_ref(xd, ad, B, C, chunk=q)
-
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        err = ssd_violation(torch, got[0], want[0], "float32")
-        ms = time_ms(torch, run, flush)
-        plain_ms = time_ms(torch, plain, flush)
-        nbytes = 4 * (2 * b * l * h * p + b * l * h + 2 * b * l * g * n
-                      + b * h * p * n)
-        flops = autotune.ssd_flops(b, l, h, p, n, q)
-        executed = autotune.ssd_flops_executed(b, l, h, p, n, q)
-        # the built form: launch 1 on the CUDA cores, launch 3's products
-        # 3xTF32 on the tensor cores (three TF32 passes each)
-        tc = sum(v for k, v in executed.items() if k != "chunk_state")
-        floor_ms = (executed["chunk_state"] / FP32_OPS
-                    + 3 * tc / TF32_OPS) * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FP32_OPS * 1e3
-        goal = SSD_GOAL_MS[b]
-        b8.append({"b": b, "ms": ms, "plain_ms": plain_ms, "err": err,
-                   "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
-                   "ops_ms": ops_ms, "gflop": flops / 1e9})
-        phase("timing", f"B8 ssd_fused (b, l, h, p, g, n) = {(b, l, h, p, g, n)} "
-              f"chunk {q} fp32: {ms:.4f} ms in {ssd_k.LAUNCHES_PER_CALL} "
-              f"launches (goal <= {goal}: {'met' if ms <= goal else 'missed'})"
-              f" | bound {max(bytes_ms, ops_ms):.4f} ms (ops {ops_ms:.4f}: "
-              f"{flops / 1e9:.3f} GFLOP; bytes {bytes_ms:.4f}) | the form's "
-              f"floor ({sum(executed.values()) / 1e9:.3f} GFLOP executed, "
-              + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in executed.items())
-              + "; chunk_state on the CUDA cores at 67 TFLOP/s, the rest "
-              f"3xTF32, 3 x its flops at 495 TFLOP/s) {floor_ms:.4f} ms | "
-              f"plain {plain_ms:.4f} "
-              f"ms | no single PyTorch call | max abs err y vs plain "
-              f"{err:.3e} | {flops / ms / 1e6:.1f} GFLOP/s of the function")
+    b8 = [time_ssd(torch, np, ssd_k, b, l, h, p, g, n, q, flush,
+                   goal=SSD_GOAL_MS[b]) for b in (1, LM_SLOTS)]
     main = b8[0]
     ssd_rec = {"name": "ssd_fused", "route": "cuda",
                "source": "src/repro_torch/csrc/ssd_fused.cu",
@@ -3288,6 +3433,80 @@ def run_lm_moe(torch, np, configs, M, serve, moe, sell_core, gather_k, ops,
     return records, sum(r["b9"] for r in ml["runs"].values())
 
 
+def lm_families_path(torch, np, configs, M, serve, ssd_k, gather_k,
+                     flush) -> dict:
+    """Phase 13: the last three LM families at full width on the card, one
+    at a time (each freed before the next), random init from LM_SEED:
+    hymba-1.5b (B8 in every layer of a prefill, B9), seamless-m4t-medium
+    and llama-3.2-vision-11b (B9; the engine's prompts with stub
+    ``ctx_embeds``), each through :func:`lm_path` (the batcher, then the
+    engine), its card-vs-CPU check (:func:`lm_check`; hymba also on a
+    LM_HYMBA_LONG-token prompt, whose ring wraps), a profiled prefill and
+    decode step and its peak device memory; B8 timed at hymba's prefill
+    shapes.  Returns each arch's B8 and B9 launches and hymba's B8
+    readings."""
+    out = {"ssd_fused": {}, "embedding_gather": {}, "hymba_b8": None}
+    for arch in LM_FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        cfg = lm_family_config(configs, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        phase("lm-families", f"{arch}: device memory before init "
+              f"{free / 1e9:.2f} GB free of {total / 1e9:.2f} GB")
+        torch.cuda.reset_peak_memory_stats()
+        lm = lm_path(torch, np, configs, M, serve, ssd_k, gather_k, cfg=cfg,
+                     name="lm-families", ctx=family_ctx(np, cfg, LM_SLOTS))
+        for k in ("ssd_fused", "embedding_gather"):
+            out[k][arch] = lm["launches"][k]
+        lm_check(torch, np, M, lm, label="lm-families")
+        if cfg.ssm is not None:
+            s = cfg.ssm
+            out["hymba_b8"] = (arch, [time_ssd(
+                torch, np, ssd_k, b, LM_PROMPT, cfg.n_ssm_heads, s.head_dim,
+                s.n_groups, s.d_state, s.chunk, flush) for b in (1, LM_SLOTS)])
+        if cfg.sliding_window is not None:
+            rng = np.random.default_rng(LM_SEED + 1)
+            before = ssd_k.KERNEL_LAUNCHES
+            lm_check(torch, np, M, lm, label="lm-families",
+                     prompt=rng.integers(0, cfg.vocab_size, (1, LM_HYMBA_LONG))
+                     .astype(np.int32))
+            if cfg.ssm is not None and ssd_k.KERNEL_LAUNCHES == before:
+                raise AssertionError("lm-families: the long check's card "
+                                     "prefill launched no B8")
+        profile_lm(torch, M, lm)
+        phase("lm-families", f"{arch}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated "
+              f"since its init; done in {time.perf_counter() - t0:.1f} s")
+        del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def add_families(kernels: list[dict], fam: dict, comp_err: float) -> None:
+    """The families phase's B8 and B9 launches on the kernels line, by
+    arch under ``launches_by_path``; B8's readings at hymba's prefill
+    shapes (b 1 and LM_SLOTS) under ``"hymba"``."""
+    for name in ("ssd_fused", "embedding_gather"):
+        rec = next(r for r in kernels if r["name"] == name)
+        rec.setdefault("launches_by_path", {"lm": rec["launches"]})
+        for arch, n in fam[name].items():
+            rec["launches_by_path"][arch] = n
+            rec["launches"] += n
+    if fam["hymba_b8"] is not None:
+        arch, (one, four) = fam["hymba_b8"]
+        rec = next(r for r in kernels if r["name"] == "ssd_fused")
+        rec["hymba"] = {
+            "shape": one["shape"] + " (a hymba batcher prefill, one layer)",
+            "launches": fam["ssd_fused"][arch],
+            "max_abs_err": max(comp_err, one["err"]), "ms": one["ms"],
+            "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
+            "bound_by": ("bytes" if one["bytes_ms"] >= one["ops_ms"]
+                         else "operations"),
+            "b4": {k: four[k] for k in ("ms", "plain_ms", "bound_ms")}}
+
+
 # ---------------------------------------------------------------------------
 # The paper's sweep study (B4, B5, B6, B7 at each VL; the warm start, B1)
 # ---------------------------------------------------------------------------
@@ -3652,7 +3871,8 @@ def main() -> int:
     compare_live_bounds(torch, np, F, G, spmv_k, bfs_k, pr_k)
     compare_fft(torch, np, fft_k)
     compare_stream(torch, np, sell_core, F)
-    ssd_err = compare_ssd(torch, np, ssd_k, lm_config(configs))
+    ssd_errs = compare_ssd(torch, np, ssd_k, lm_config(configs),
+                           lm_family_config(configs, LM_FAMILY_ARCHS[0]))
     compare_gather(torch, np, gather_k, lm_config(configs))
     phase("compare", f"done in {time.perf_counter() - t0:.1f} s")
 
@@ -3721,7 +3941,7 @@ def main() -> int:
     kernels.append(stream_record(sm, time_stream(
         torch, np, sell_core, ops, sm, reg.get("big"), big, flush)))
     kernels += time_moe(torch, np, sell_core, mm, flush)
-    kernels += time_lm(torch, np, ssd_k, gather_k, lm, ssd_err,
+    kernels += time_lm(torch, np, ssd_k, gather_k, lm, ssd_errs["lm"],
                        b9_by_path, flush)
     profile_drives(torch, bfs_k, pr_k, gm)
     profile_lm(torch, M, lm)
@@ -3749,8 +3969,17 @@ def main() -> int:
             rec["launches"] += b9
             rec["launches_by_path"]["lm-moe"] = b9
     torch.cuda.empty_cache()
-    phase("lm-moe", f"done in {time.perf_counter() - t0:.1f} s; whole run "
-          f"{time.perf_counter() - t_start:.1f} s")
+    phase("lm-moe", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. the hybrid, enc-dec and vision LMs (B8 at hymba's widths, B9) --
+    # one model on the card at a time: llama-3.2-vision-11b's 47.85 GB
+    # after deepseek's are freed
+    t0 = time.perf_counter()
+    add_families(kernels, lm_families_path(torch, np, configs, M, serve,
+                                           ssd_k, gather_k, flush),
+                 ssd_errs["hybrid"])
+    phase("lm-families", f"done in {time.perf_counter() - t0:.1f} s; whole "
+          f"run {time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

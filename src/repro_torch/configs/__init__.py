@@ -1,7 +1,8 @@
 """Architecture registry: the 10 assigned archs × 4 input shapes (40 cells).
 
-A copy of ``repro.configs`` (data only).  The port serves family ``"ssm"``
-(mamba2-2.7b); the other families are ROADMAP A12.
+A copy of ``repro.configs`` (data only).  The port serves every arch here
+(``repro_torch.launch.serve``); mixtral-8x7b at full width needs more
+than one card (ROADMAP A10).
 
 ``get_config(arch)`` returns the full published config; ``reduced`` gives the
 CPU smoke-test version.  ``SHAPES`` defines the per-arch input shapes, and

@@ -6,17 +6,21 @@ port of ``repro.launch.serve``.
 
 runs on the card (random init at the published widths, directly on the
 card: 14.4 GB of fp32 weights for llama-3.2-3b, 11.3 GB for mamba2-2.7b,
-67.5 GB for deepseek-moe-16b); ``--device cpu`` without ``--full`` runs the
-reduced config on the CPU through the kernels' plain versions.  The port
-serves families ``"dense"`` (llama3.2-3b, qwen2-1.5b, qwen3-14b,
-minicpm-2b), ``"moe"`` (mixtral-8x7b, deepseek-moe-16b; the batcher runs
-their MoE combines on the dense path, as the reference's does) and
-``"ssm"`` (mamba2-2.7b).  mixtral-8x7b ``--full`` does not fit one card:
-its 46.7 B parameters are 186.8 GB in fp32 against 80 GB (it waits for
-multi-device serving, ROADMAP A10).  hymba raises ``NotImplementedError``
-(A12.1b), as do the vision and enc-dec archs (A12.3), and any ``--mesh``
-other than ``none`` raises (A10).  The batcher's KV caches share one length
-across slots, as the reference's: prompts of one length serve correctly.
+65.5 GB for deepseek-moe-16b, 6.6 GB for hymba-1.5b, 47.9 GB for
+llama-3.2-vision-11b, 3.9 GB for seamless-m4t-medium); ``--device cpu``
+without ``--full`` runs the reduced config on the CPU through the kernels'
+plain versions.  Every arch of the registry is served: families
+``"dense"`` (llama3.2-3b, qwen2-1.5b, qwen3-14b, minicpm-2b), ``"moe"``
+(mixtral-8x7b, deepseek-moe-16b; the batcher runs their MoE combines on
+the dense path, as the reference's does), ``"ssm"`` (mamba2-2.7b),
+``"hybrid"`` (hymba-1.5b), ``"vlm"`` (llama-3.2-vision-11b) and
+``"audio"`` (seamless-m4t-medium); as in the reference, the batcher hands
+the last two no ``ctx_embeds``, so their requests decode against the
+caches' zero context.  mixtral-8x7b ``--full`` does not fit one card: its
+46.7 B parameters are 186.8 GB in fp32 against 80 GB (it waits for
+multi-device serving, ROADMAP A10), and any ``--mesh`` other than
+``none`` raises (A10).  The batcher's KV caches share one length across
+slots, as the reference's: prompts of one length serve correctly.
 """
 from __future__ import annotations
 

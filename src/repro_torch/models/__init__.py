@@ -1,3 +1,4 @@
-"""The LM stack of the port: configs, layers, the Mamba2 mixer, blocks and
-the model's prefill / decode API.  Family ``"ssm"`` (mamba2) is ported; the
-attention, MoE, vision and enc-dec families are ROADMAP A12."""
+"""The LM stack of the port: configs, layers, attention, the Mamba2 mixer,
+MoE, blocks and the model's prefill / decode API for every family of the
+reference (dense, MoE, SSM, hybrid, vision, enc-dec); training is ROADMAP
+A12.4."""

@@ -1,5 +1,6 @@
 """Attention — port of ``repro.models.attention``: GQA with RoPE, qk-norm,
-QKV bias, sliding windows and the ring-buffer KV-cache decode.
+QKV bias, sliding windows, cross-attention and the ring-buffer KV-cache
+decode.
 
 Shapes as in the reference: hidden (B, S, d); q (B, S, Hq, dh); k / v (B,
 S, Hkv, dh) with Hq % Hkv == 0 (GQA groups).
@@ -20,11 +21,15 @@ scores in float32, the additive ``NEG_INF`` mask, a float32 softmax.  It
 does not call ``F.scaled_dot_product_attention``, whose masking is not the
 reference's.
 
-Not ported (listed under ROADMAP A12.1b): cross-attention (``ctx=``, with
-the vision and enc-dec families, A12.3) and the reference's opt-in module
-flags, all off by default there: ``ATTN_KV_CHUNK`` (online-softmax key blocks),
-``ATTN_BF16_SCORES`` (bf16 score buffers) and ``SEQ_SHARD_FALLBACK``
-(sequence-parallel queries on a mesh, A10).
+Cross-attention (``ctx=``: the vision and enc-dec families' memory)
+projects keys and values from the context, of its own length T and width
+``d_ctx``, and attends without rope, mask or cache, as the reference does:
+so a decode step recomputes them from the whole context.
+
+Not ported: the reference's opt-in module flags, all off by default there:
+``ATTN_KV_CHUNK`` (online-softmax key blocks), ``ATTN_BF16_SCORES`` (bf16
+score buffers) and ``SEQ_SHARD_FALLBACK`` (sequence-parallel queries on a
+mesh, A10).
 
 Parameters live in :class:`Attention`, an ``nn.Module`` whose tensors keep
 the reference's names and layouts (``wq`` is (d, Hq dh), ``wo`` (Hq dh,
@@ -97,8 +102,8 @@ def cache_append(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> KVCache:
 
 
 class Attention(nn.Module):
-    """The parameters of one self-attention layer (see
-    :func:`init_attn_params`), frozen: the port serves only."""
+    """The parameters of one attention layer (see :func:`init_attn_params`),
+    frozen: the port serves only."""
 
     def __init__(self, tensors: dict[str, torch.Tensor]):
         super().__init__()
@@ -113,7 +118,9 @@ class Attention(nn.Module):
 
 def init_attn_params(gen: torch.Generator, cfg: ModelConfig) -> Attention:
     """Random init on the generator's device, the reference's scheme: He
-    projections, zero biases (``qkv_bias``), unit norms (``qk_norm``)."""
+    projections, zero biases (``qkv_bias``), unit norms (``qk_norm``).  A
+    cross-attention layer's ``wk`` / ``wv`` take the context at d_model,
+    as every model here feeds it (the vision context projected first)."""
     d, dh = cfg.d_model, cfg.d_head
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     dev = gen.device
@@ -130,19 +137,24 @@ def init_attn_params(gen: torch.Generator, cfg: ModelConfig) -> Attention:
     return Attention(p)
 
 
-def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor):
+def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                 ctx: torch.Tensor | None = None):
+    """q from ``x`` (B, S, d); k / v from ``ctx`` (B, T, d_ctx) when given,
+    else from ``x``."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    kv_in = ctx if ctx is not None else x
+    t = kv_in.shape[1]
     q = torch.matmul(x, p.wq.to(x.dtype))
-    k = torch.matmul(x, p.wk.to(x.dtype))
-    v = torch.matmul(x, p.wv.to(x.dtype))
+    k = torch.matmul(kv_in, p.wk.to(x.dtype))
+    v = torch.matmul(kv_in, p.wv.to(x.dtype))
     if cfg.qkv_bias:
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
         v = v + p.bv.to(x.dtype)
     q = q.reshape(b, s, hq, dh)
-    k = k.reshape(b, s, hkv, dh)
-    v = v.reshape(b, s, hkv, dh)
+    k = k.reshape(b, t, hkv, dh)
+    v = v.reshape(b, t, hkv, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -182,16 +194,16 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     - ``cache``: ``x`` is the new token block (a prefill into the ring or a
       decode step); keys and values are appended, then the queries attend
       over every filled slot at or before their position (and inside the
-      window).  Returns (out, new cache).
-
-    ``ctx`` (cross-attention) is ROADMAP A12.3 and raises.
+      window).  Returns (out, new cache);
+    - ``ctx`` (B, T, d_ctx): cross-attention over the encoder / vision
+      memory: bidirectional, no rope on either side, no cache (``cache``
+      is not read).  Returns (out, None).
     """
-    if ctx is not None:
-        raise NotImplementedError(
-            "cross-attention (ctx=) serves the vision and enc-dec families, "
-            "ROADMAP A12.3")
     s = x.shape[1]
-    q, k, v = _project_qkv(p, cfg, x)
+    q, k, v = _project_qkv(p, cfg, x, ctx)
+    if ctx is not None:
+        out = _sdpa(q, k, v, torch.zeros((1, 1, 1, 1, 1), device=x.device))
+        return torch.matmul(out, p.wo.to(x.dtype)), None
     ar = torch.arange(s, dtype=torch.int32, device=x.device)
     if cache is None:
         cos, sin = rope_freqs(cfg.d_head, cfg.rope_theta, ar[None, :])

@@ -1,7 +1,13 @@
-"""Blocks and block stacks — port of ``repro.models.blocks`` for kinds
-``"dense"`` (ln -> attention -> ln -> SwiGLU MLP: llama, qwen, minicpm),
-``"moe"`` (ln -> attention -> ln -> MoE with its shared experts: mixtral,
-deepseek) and ``"ssm"`` (ln -> mamba2 mixer).
+"""Blocks and block stacks — port of ``repro.models.blocks``.  Block kinds:
+
+  dense  : ln -> attention -> ln -> SwiGLU MLP     (llama, qwen, minicpm)
+  moe    : ln -> attention -> ln -> MoE (+shared)  (mixtral, deepseek)
+  ssm    : ln -> mamba2 mixer                      (mamba2)
+  hybrid : ln -> (attention ∥ mamba2) / 2 -> ln -> MLP   (hymba)
+  cross  : ln -> cross-attention -> ln -> MLP      (vision / enc-dec memory)
+
+A block whose config has ``d_ff = 0`` has no MLP (the enc-dec decoder's
+self-attention blocks).
 
 A Python loop over the layers replaces the reference's ``lax.scan``
 (``blocks.py:161``): PyTorch runs eagerly, so every layer sees concrete
@@ -9,9 +15,8 @@ activations, which the MoE SELL dispatch needs (the reference's
 ``eager_blocks`` scope is the default here and is not ported).  The
 per-layer decode caches stay stacked on a leading layer axis, as in the
 reference: a KV cache's k / v are (L, B, C, Hkv, dh), its pos (L, C) and
-length (L,); an SSM state's leaves (L, B, ...).  The other block kinds
-raise ``NotImplementedError``: ``"hybrid"`` (hymba) is ROADMAP A12.1b and
-``"cross"`` A12.3.
+length (L,); an SSM state's leaves (L, B, ...).  A hybrid stack carries
+both.  Any other kind raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -32,17 +37,14 @@ from repro_torch.models.ssm import SSMState
 __all__ = ["Block", "LayerCaches", "MLP", "block_forward", "init_block_params",
            "init_layer_caches", "run_blocks", "stack_init"]
 
-#: The block kinds the port runs.
-KINDS = ("dense", "moe", "ssm")
-_ROADMAP = {"hybrid": "A12.1b", "cross": "A12.3"}
+#: The block kinds, the reference's.
+KINDS = ("dense", "moe", "ssm", "hybrid", "cross")
 
 
 def _check_kind(kind: str) -> None:
     if kind not in KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported: the port runs kinds "
-            f"{', '.join(map(repr, KINDS))}; {kind!r} is ROADMAP "
-            f"{_ROADMAP.get(kind, 'A12')}")
+        raise ValueError(f"unknown block kind {kind!r}; the kinds are "
+                         f"{', '.join(map(repr, KINDS))}")
 
 
 class LayerCaches(NamedTuple):
@@ -53,9 +55,10 @@ class LayerCaches(NamedTuple):
 
 
 class Block(nn.Module):
-    """One block: ``ln1`` and its mixer (``attn`` for kinds ``"dense"`` and
-    ``"moe"``, ``ssm`` for ``"ssm"``), then ``ln2`` and ``mlp`` (kind
-    ``"dense"``) or ``moe`` (kind ``"moe"``)."""
+    """One block: ``ln1`` and its mixers (``attn`` for every kind but
+    ``"ssm"``, ``ssm`` for kinds ``"ssm"`` and ``"hybrid"``), then ``ln2``
+    and ``moe`` (kind ``"moe"``) or ``mlp`` (the other attention kinds,
+    where ``d_ff`` is not 0)."""
 
     def __init__(self, ln1: torch.Tensor, *, ssm: ssm_mod.SSMMixer | None = None,
                  attn: attn_mod.Attention | None = None,
@@ -71,37 +74,50 @@ class Block(nn.Module):
 
 
 def init_block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Block:
+    """Random init of one block (a cross block's context at d_model)."""
     _check_kind(kind)
     d, dev = cfg.d_model, gen.device
-    ln1 = torch.ones((d,), device=dev)
-    if kind == "ssm":
-        return Block(ln1, ssm=ssm_mod.init_ssm_params(gen, cfg))
-    attn = attn_mod.init_attn_params(gen, cfg)
-    ln2 = torch.ones((d,), device=dev)
+    kw = {}
+    if kind != "ssm":
+        kw["attn"] = attn_mod.init_attn_params(gen, cfg)
+    if kind in ("ssm", "hybrid"):
+        kw["ssm"] = ssm_mod.init_ssm_params(gen, cfg)
     if kind == "moe":
-        return Block(ln1, attn=attn, ln2=ln2, moe=moe_mod.init_moe_params(gen, cfg))
-    f = cfg.d_ff
-    mlp = MLP(he_init(gen, (d, f)), he_init(gen, (d, f)),
-              he_init(gen, (f, d), fan_in=f))
-    return Block(ln1, attn=attn, ln2=ln2, mlp=mlp)
+        kw["moe"] = moe_mod.init_moe_params(gen, cfg)
+    elif kind != "ssm" and cfg.d_ff:
+        f = cfg.d_ff
+        kw["mlp"] = MLP(he_init(gen, (d, f)), he_init(gen, (d, f)),
+                        he_init(gen, (f, d), fan_in=f))
+    if "moe" in kw or "mlp" in kw:
+        kw["ln2"] = torch.ones((d,), device=dev)
+    return Block(torch.ones((d,), device=dev), **kw)
 
 
 def block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
-                  kv: KVCache | None = None, ssm_state: SSMState | None = None
+                  kv: KVCache | None = None, ssm_state: SSMState | None = None,
+                  ctx: torch.Tensor | None = None, causal: bool = True
                   ) -> tuple[torch.Tensor, KVCache | None, SSMState | None,
                              torch.Tensor]:
     """Returns (x, new_kv, new_ssm, aux_loss): the aux loss is the MoE
-    layer's (zero for the other kinds).  The reference's ``ctx`` belongs
-    to the cross kind (ROADMAP A12.3)."""
+    layer's (zero for the other kinds).  ``ctx`` is a cross block's memory;
+    ``causal=False`` makes a self-attention block bidirectional (the
+    encoder's)."""
     _check_kind(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     new_kv, new_ssm = None, None
-    if kind == "ssm":
+    if kind == "cross":
+        a, _ = attn_mod.attention(p.attn, cfg, h, ctx=ctx)
+        x = x + a
+    elif kind == "ssm":
         s_out, new_ssm = ssm_mod.ssm_forward(p.ssm, cfg, h, ssm_state)
         x = x + s_out
-    else:
+    elif kind == "hybrid":
         a, new_kv = attn_mod.attention(p.attn, cfg, h, cache=kv)
+        s_out, new_ssm = ssm_mod.ssm_forward(p.ssm, cfg, h, ssm_state)
+        x = x + 0.5 * (a + s_out)          # hymba: fused parallel heads
+    else:
+        a, new_kv = attn_mod.attention(p.attn, cfg, h, cache=kv, causal=causal)
         x = x + a
     if p.moe is not None:
         h2 = rms_norm(x, p.ln2, cfg.norm_eps)
@@ -141,11 +157,13 @@ def _stack(per_layer: list, cls):
 
 
 def run_blocks(stack: nn.ModuleList, cfg: ModelConfig, kind: str, x: torch.Tensor,
-               *, caches: LayerCaches | None = None
+               *, caches: LayerCaches | None = None,
+               ctx: torch.Tensor | None = None, causal: bool = True
                ) -> tuple[torch.Tensor, LayerCaches | None, torch.Tensor]:
     """Run a homogeneous stack layer by layer (the reference's
-    ``scan_blocks``).  Returns (x, new_caches, aux_sum); new caches are new
-    tensors, the given ones are left as they were."""
+    ``scan_blocks``; ``ctx`` and ``causal`` go to every block).  Returns
+    (x, new_caches, aux_sum); new caches are new tensors, the given ones
+    are left as they were."""
     _check_kind(kind)
     kvs, states = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -153,7 +171,8 @@ def run_blocks(stack: nn.ModuleList, cfg: ModelConfig, kind: str, x: torch.Tenso
         kv = layer_of(caches.kv, i) if caches is not None else None
         st = layer_of(caches.ssm, i) if caches is not None else None
         x, new_kv, new_ssm, aux_l = block_forward(block, cfg, kind, x, kv=kv,
-                                                  ssm_state=st)
+                                                  ssm_state=st, ctx=ctx,
+                                                  causal=causal)
         aux = aux + aux_l
         if new_kv is not None:
             kvs.append(new_kv)
@@ -171,7 +190,8 @@ def init_layer_caches(cfg: ModelConfig, n_layers: int, kind: str, batch: int,
     """Stacked decode caches for one homogeneous group on ``device``
     (``None``: the card): each leaf of one layer's cache broadcast to a
     leading ``n_layers`` axis, as the reference's.  ``max_len`` sizes a KV
-    cache; an SSM state is O(1) in length."""
+    cache (kinds ``"dense"``, ``"moe"``, ``"hybrid"``); an SSM state
+    (``"ssm"``, ``"hybrid"``) is O(1) in length; a cross stack has none."""
     device = resolve_device(device)
     _check_kind(kind)
 
@@ -179,8 +199,10 @@ def init_layer_caches(cfg: ModelConfig, n_layers: int, kind: str, batch: int,
         return type(one)(*(a.expand((n_layers,) + a.shape).contiguous()
                            for a in one))
 
-    if kind == "ssm":
-        return LayerCaches(kv=None, ssm=stacked(
-            ssm_mod.init_ssm_state(cfg, batch, dtype, device=device)))
-    return LayerCaches(kv=stacked(attn_mod.init_cache(cfg, batch, max_len, dtype,
-                                                      device=device)), ssm=None)
+    kv = ssm = None
+    if kind in ("dense", "moe", "hybrid"):
+        kv = stacked(attn_mod.init_cache(cfg, batch, max_len, dtype,
+                                         device=device))
+    if kind in ("ssm", "hybrid"):
+        ssm = stacked(ssm_mod.init_ssm_state(cfg, batch, dtype, device=device))
+    return LayerCaches(kv=kv, ssm=ssm)

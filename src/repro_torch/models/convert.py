@@ -20,57 +20,88 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP
-from repro_torch.models.model import LM, _check_family
+from repro_torch.models.model import LM, decoder_layer
 
 __all__ = ["params_from_reference"]
 
 
 def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> LM:
     """The reference's ``init_params`` pytree (numpy leaves) as an
-    :class:`LM` on ``device`` (``None``: the card).  The families the
-    port's model runs: ``"ssm"`` (``ln1``, ``ssm.*``), ``"dense"`` (``ln1``,
-    ``attn.{wq, wk, wv, wo}`` with ``bq / bk / bv`` and ``q_norm /
-    k_norm`` where the config has them, ``ln2``, ``mlp.{w_gate, w_up,
-    w_down}``) and ``"moe"`` (``mlp`` replaced by ``moe.{router,
-    experts_gate, experts_up, experts_down}`` and ``moe.shared.{w_gate,
-    w_up, w_down}`` where the config has shared experts), each leaf
-    stacked on the layer axis; DeepSeek's ``dense0`` subtree (one dense
-    block, unstacked) too."""
-    _check_family(cfg)
+    :class:`LM` on ``device`` (``None``: the card).  Each block subtree
+    holds ``ln1``, then whichever of its kind's leaves it has: ``attn.{wq,
+    wk, wv, wo}`` with ``bq / bk / bv`` and ``q_norm / k_norm`` where the
+    config has them, ``ssm.*``, ``ln2`` with ``mlp.{w_gate, w_up, w_down}``
+    or ``moe.{router, experts_gate, experts_up, experts_down}`` and
+    ``moe.shared.{w_gate, w_up, w_down}``.  The stacks by family:
+    ``blocks`` (each leaf stacked on the layer axis) and DeepSeek's
+    ``dense0`` (one block, unstacked); vision: ``self_blocks`` (two
+    leading axes, group and layer), ``cross_blocks`` and ``ctx_proj``;
+    enc-dec: ``encoder``, ``enc_norm`` and ``decoder.{self, cross}``.  The
+    layer counts are checked against ``cfg``."""
     dev = resolve_device(device)
 
     def t(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a)).to(dev)
 
-    stacked = tree["blocks"]
-    n_layers = np.asarray(stacked["ln1"]).shape[0]
-    want = cfg.n_layers - (1 if "dense0" in tree else 0)
-    if n_layers != want:
-        raise ValueError(f"the tree stacks {n_layers} blocks; {cfg.name} has "
-                         f"{want}")
+    def count(stacked: dict, axis: int = 0) -> int:
+        return np.asarray(stacked["ln1"]).shape[axis]
+
+    def check(name: str, got: int, want: int) -> None:
+        if got != want:
+            raise ValueError(f"the tree stacks {got} {name}; {cfg.name} has "
+                             f"{want}")
 
     def mlp(leaves: dict) -> MLP:
         return MLP(t(leaves["w_gate"]), t(leaves["w_up"]), t(leaves["w_down"]))
 
     def block(leaves: dict) -> blk.Block:
-        ln1 = t(leaves["ln1"])
+        kw = {}
+        if "attn" in leaves:
+            kw["attn"] = attn_mod.Attention(
+                {k: t(v) for k, v in leaves["attn"].items()})
         if "ssm" in leaves:
-            return blk.Block(ln1, ssm=ssm_mod.SSMMixer(
-                {k: t(v) for k, v in leaves["ssm"].items()}))
-        attn = attn_mod.Attention({k: t(v) for k, v in leaves["attn"].items()})
+            kw["ssm"] = ssm_mod.SSMMixer({k: t(v) for k, v in leaves["ssm"].items()})
+        if "ln2" in leaves:
+            kw["ln2"] = t(leaves["ln2"])
+        if "mlp" in leaves:
+            kw["mlp"] = mlp(leaves["mlp"])
         if "moe" in leaves:
             m = leaves["moe"]
-            shared = mlp(m["shared"]) if "shared" in m else None
-            return blk.Block(ln1, attn=attn, ln2=t(leaves["ln2"]),
-                             moe=moe_mod.MoE(t(m["router"]), t(m["experts_gate"]),
-                                             t(m["experts_up"]),
-                                             t(m["experts_down"]), shared))
-        return blk.Block(ln1, attn=attn, ln2=t(leaves["ln2"]),
-                         mlp=mlp(leaves["mlp"]))
+            kw["moe"] = moe_mod.MoE(t(m["router"]), t(m["experts_gate"]),
+                                    t(m["experts_up"]), t(m["experts_down"]),
+                                    mlp(m["shared"]) if "shared" in m else None)
+        return blk.Block(t(leaves["ln1"]), **kw)
 
-    blocks = nn.ModuleList(block(blk.layer_of(stacked, i))
-                           for i in range(n_layers))
-    dense0 = block(tree["dense0"]) if "dense0" in tree else None
+    def stack(stacked: dict) -> nn.ModuleList:
+        return nn.ModuleList(block(blk.layer_of(stacked, i))
+                             for i in range(count(stacked)))
+
     head = tree.get("lm_head")
-    return LM(t(tree["tok_embed"]), t(tree["final_norm"]),
-              None if head is None else t(head), blocks, dense0)
+    common = (t(tree["tok_embed"]), t(tree["final_norm"]),
+              None if head is None else t(head))
+    if cfg.encdec is not None:
+        check("encoder blocks", count(tree["encoder"]), cfg.encdec.encoder_layers)
+        dec = tree["decoder"]
+        check("decoder layers", count(dec["self"]), cfg.n_layers)
+        decoder = nn.ModuleList(
+            decoder_layer(block(blk.layer_of(dec["self"], i)),
+                          block(blk.layer_of(dec["cross"], i)))
+            for i in range(cfg.n_layers))
+        return LM(*common, None, encoder=stack(tree["encoder"]),
+                  enc_norm=t(tree["enc_norm"]), decoder=decoder)
+    if cfg.cross_attn is not None and cfg.cross_attn.every:
+        selfs, every = tree["self_blocks"], cfg.cross_attn.every
+        n_groups = cfg.n_layers // every
+        check("self-attention groups", count(selfs), n_groups)
+        check("blocks a group", count(selfs, 1), every)
+        check("cross blocks", count(tree["cross_blocks"]), n_groups)
+        proj = tree.get("ctx_proj")
+        return LM(*common, None,
+                  self_blocks=nn.ModuleList(stack(blk.layer_of(selfs, g))
+                                            for g in range(n_groups)),
+                  cross_blocks=stack(tree["cross_blocks"]),
+                  ctx_proj=None if proj is None else t(proj))
+    check("blocks", count(tree["blocks"]),
+          cfg.n_layers - (1 if "dense0" in tree else 0))
+    dense0 = block(tree["dense0"]) if "dense0" in tree else None
+    return LM(*common, stack(tree["blocks"]), dense0)

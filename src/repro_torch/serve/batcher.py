@@ -4,8 +4,11 @@
 The engine decodes a fixed-width batch; the batcher multiplexes a request
 queue onto those slots.  When a sequence finishes its slot is refilled by
 prefilling the next queued prompt alone (a b = 1 prefill: kernel B9 for
-its tokens, and for mamba2 kernel B8 for a chunk-multiple prompt) and
-writing that prefill's caches into the slot's batch row.  The admission/eviction loop
+its tokens, and for mamba2 and hymba kernel B8 for a chunk-multiple
+prompt) and writing that prefill's caches into the slot's batch row.  As
+in the reference, a request carries no ``ctx_embeds``: vision and enc-dec
+requests decode against the zero context (``"ctx"`` / ``"memory"``) of the
+caches.  The admission/eviction loop
 is :class:`repro_torch.serve.slots.SlotLoop`, the core the kernel service
 batches on.
 
@@ -53,19 +56,26 @@ class Request:
 
 def _write_slot(shared: M.Caches, single: M.Caches, slot: int) -> None:
     """Write the b = 1 caches into batch row ``slot`` of the shared ones,
-    each stack by name (``"layers"`` and, with a dense first layer,
-    ``"dense0"``).  The SSM leaves and a KV cache's k / v are (layers,
-    batch, ...): the batch axis is axis 1.  A KV cache's pos (layers, C)
-    and length (layers,) are shared by every slot and copied from the
-    prefill, as the reference's splice does."""
+    each entry by name: the layer stacks (``"layers"`` and, with a dense
+    first layer, ``"dense0"``) field by field, and the vision / enc-dec
+    context (``"ctx"`` / ``"memory"``, (B, T, d)) on axis 0.  The SSM
+    leaves are (layers, batch, ...); a KV cache's k / v are (*lead, batch,
+    C, Hkv, dh) with ``lead = pos.shape[:-1]`` ((layers,), or vision's
+    (groups, every)), so their batch axis is ``pos.dim() - 1``.  A KV
+    cache's pos (*lead, C) and length (*lead) are shared by every slot and
+    copied from the prefill, as the reference's splice does."""
     for name, dst in shared.items():
         src = single[name]
+        if isinstance(dst, torch.Tensor):
+            dst[slot] = src[0]
+            continue
         if dst.ssm is not None:
             dst.ssm.state[:, slot] = src.ssm.state[:, 0]
             dst.ssm.conv[:, slot] = src.ssm.conv[:, 0]
         if dst.kv is not None:
-            dst.kv.k[:, slot] = src.kv.k[:, 0]
-            dst.kv.v[:, slot] = src.kv.v[:, 0]
+            axis = dst.kv.pos.dim() - 1
+            dst.kv.k.select(axis, slot).copy_(src.kv.k.select(axis, 0))
+            dst.kv.v.select(axis, slot).copy_(src.kv.v.select(axis, 0))
             dst.kv.pos.copy_(src.kv.pos)
             dst.kv.length.copy_(src.kv.length)
 

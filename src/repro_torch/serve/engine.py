@@ -6,8 +6,10 @@ range-checked and uploaded by the first prefill's embedding gather (kernel
 B9), a mamba2 chunk-multiple prefill runs the fused scan (kernel B8), an
 attention model fills its KV caches, and each decode step feeds the
 previous step's argmax, still on the device, back through B9.  PyTorch
-runs eagerly, so there is no compiled step to reuse (ROADMAP A20).  The
-families served are the model's: ``"dense"``, ``"moe"`` and ``"ssm"``.
+runs eagerly, so there is no compiled step to reuse (ROADMAP A20).  Every
+family of the model is served; ``generate(extras={"ctx_embeds": ...})``
+hands the vision and enc-dec families their stub frontend's output, which
+the prefill uploads to the parameters' device and stores in the caches.
 
 **Fused kernel-service mode.**  Constructed with a
 :class:`repro_torch.service.service.KernelService` and a registered MoE
@@ -22,8 +24,7 @@ histogram, next to the service's own ``moe_dispatch`` / ``kernel`` request
 classes.  :func:`retrieve_context` is the graph-retrieval scenario on the
 same loop.
 
-``extras`` (the vision and enc-dec families' ``ctx_embeds``, ROADMAP
-A12.3) and a ``mesh`` (A10) raise ``NotImplementedError``.
+A ``mesh`` (ROADMAP A10) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -116,8 +117,10 @@ class ServeEngine:
     def generate(self, prompts: np.ndarray, extras: dict | None = None,
                  seed: int = 0) -> np.ndarray:
         """Greedy/sampled continuation for a (B, S) prompt batch; returns
-        (B, n_new) int32 on the host.  In fused mode every MoE combine of
-        the generation rides the kernel service's slot loop."""
+        (B, n_new) int32 on the host.  ``extras`` joins the prefill's batch
+        (``{"ctx_embeds": (B, T, d_ctx)}`` for the vision and enc-dec
+        families).  In fused mode every MoE combine of the generation rides
+        the kernel service's slot loop."""
         if self.fused:
             with moe_mod.sell_dispatch(spec=self.dispatch_spec,
                                        submit=self._submit_moe):
@@ -126,10 +129,6 @@ class ServeEngine:
 
     def _generate(self, prompts: np.ndarray, extras: dict | None,
                   seed: int) -> np.ndarray:
-        if extras:
-            raise NotImplementedError(
-                "extras (ctx_embeds) feed the vision and enc-dec families, "
-                "ROADMAP A12.3")
         cfg, gcfg = self.cfg, self.gcfg
         dev = self.params.device
         b = prompts.shape[0]
@@ -147,9 +146,11 @@ class ServeEngine:
 
         caches = M.init_caches(cfg, b, max_len=gcfg.cache_len, dtype=gcfg.dtype,
                                device=dev)
+        batch = {"tokens": np.asarray(prompts)}
+        if extras:
+            batch.update(extras)
         sw = Stopwatch().start()
-        logits, caches = M.prefill(self.params, cfg,
-                                   {"tokens": np.asarray(prompts)}, caches,
+        logits, caches = M.prefill(self.params, cfg, batch, caches,
                                    dtype=gcfg.dtype)
         gen = torch.Generator(device=dev).manual_seed(seed)
         tok = sample_token(logits[:, -1], gen, gcfg)

@@ -4,7 +4,8 @@
 the FFT B7 (``csrc/fft_stockham.cu``), the fused SSD scan B8
 (``csrc/ssd_fused.cu``) and the embedding gather B9
 (``csrc/embedding_gather.cu``) against their plain PyTorch versions on the
-card, the reduced mamba2 and dense attention LM paths on the card
+card, the reduced mamba2, dense attention, hybrid, vision and enc-dec LM
+paths on the card
 against the CPU, and the sweep study's ``measure_cuda`` (B4, B5, B6, B7
 through ``ops``).  Every test here carries the ``cuda`` marker and skips without
 a GPU (decided inside the fixture, never at import).  This file imports
@@ -882,6 +883,9 @@ def _ssd_case(b, l, h, p, g, n, dtype, device, seed, init=False):
     ((1, 192, 4, 72, 2, 80), 64),        # 3 chunks, ragged p and n tiles
     ((1, 300, 3, 8, 1, 16), 100),        # ragged query tiles
     ((1, 512, 80, 64, 1, 128), 256),     # mamba2-2.7b's prefill
+    ((1, 512, 50, 64, 1, 16), 256),      # hymba-1.5b's: n 16 below the k step
+    ((4, 512, 50, 64, 1, 16), 256),      # hymba's engine prefill
+    ((1, 2560, 50, 64, 1, 16), 256),     # hymba past its 2048-token window
 ])
 def test_ssd_kernel_matches_plain_version(cuda_device, dtype, tol, shape, chunk):
     """B8 against its plain version on the card, from zero and from a random
@@ -1122,3 +1126,59 @@ def test_measure_cuda_times_each_kernel_on_the_card(cuda_device):
     assert all(b < a for b, a in zip(before, after))
     assert all(out[0].is_cuda if isinstance(out, tuple) else out.is_cuda
                for out in outputs.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_reduced_families_serve_on_the_card_as_on_the_cpu(cuda_device, arch):
+    """The hybrid, vision and enc-dec LMs with the same weights on the
+    card (B9; B8 in hymba's chunk-multiple prefill) and on the CPU: prefill
+    logits with ``ctx_embeds`` (numpy, uploaded by the model) and a decode
+    step reading the context back from the caches at 1e-5 x max|logit|,
+    the engine's greedy tokens equal with ``extras`` and the batcher's
+    without."""
+    from repro_torch import configs
+    from repro_torch.kernels import gather, ssd
+    from repro_torch.models import model as M
+    from repro_torch.serve import Batcher, GenerationConfig, Request, ServeEngine
+
+    cfg = configs.reduced_config(arch)
+    cpu = M.init_params(M.make_generator(0, "cpu"), cfg)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 16))
+    ctx = None
+    if cfg.encdec is not None:
+        ctx = rng.standard_normal((2, cfg.encdec.n_ctx_tokens, cfg.d_model))
+    elif cfg.cross_attn is not None:
+        ctx = rng.standard_normal((2, cfg.cross_attn.n_ctx_tokens,
+                                   cfg.cross_attn.d_ctx))
+    batch = {"tokens": prompts}
+    if ctx is not None:
+        batch["ctx_embeds"] = ctx.astype(np.float32)
+    b8, b9 = ssd.KERNEL_LAUNCHES, gather.KERNEL_LAUNCHES
+    outs = []
+    for p, dev in ((cpu, "cpu"), (card, cuda_device)):
+        caches = M.init_caches(cfg, 2, 64, dtype=torch.float32, device=dev)
+        logits, caches = M.prefill(p, cfg, batch, caches)
+        step, _ = M.decode_step(p, cfg, prompts[:, :1], caches)
+        outs.append((logits.cpu(), step.cpu()))
+    assert ssd.KERNEL_LAUNCHES - b8 == (
+        cfg.n_layers * ssd.LAUNCHES_PER_CALL if cfg.hybrid else 0)
+    assert gather.KERNEL_LAUNCHES - b9 == 2
+    for want, got in zip(*outs):
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    gcfg = GenerationConfig(max_new_tokens=6, cache_len=64)
+    extras = None if ctx is None else {"ctx_embeds": batch["ctx_embeds"]}
+    np.testing.assert_array_equal(
+        ServeEngine(cfg, card, gcfg).generate(prompts, extras=extras),
+        ServeEngine(cfg, cpu, gcfg).generate(prompts, extras=extras))
+    served = []
+    for p in (card, cpu):
+        b = Batcher(cfg, p, n_slots=2, gcfg=gcfg)
+        for i, pr in enumerate(prompts):
+            b.submit(Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=4))
+        served.append({r.rid: r.generated for r in b.run()})
+    assert served[0] == served[1]

@@ -278,35 +278,52 @@ def test_cli_serves_reduced_mamba2_on_the_cpu(capsys):
 
 
 def test_cli_refuses_mesh_other_archs_and_a_missing_gpu(monkeypatch):
+    """A mesh and a card that is not there are refused (every arch of the
+    registry is served: no arch is refused any more)."""
     with pytest.raises(NotImplementedError, match="A10"):
         cli.main(["--device", "cpu", "--mesh", "single"])
-    with pytest.raises(NotImplementedError, match="A12.1b"):
-        cli.main(["--arch", "hymba-1.5b", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         cli.main(["--requests", "1"])                      # default: cuda
 
 
-#: the archs of families the port does not run yet, each with its item
-UNPORTED = {"hymba-1.5b": "A12.1b", "llama-3.2-vision-11b": "A12.3",
-            "seamless-m4t-medium": "A12.3"}
+#: the archs of the families served last (the hybrid, vision and enc-dec
+#: families), each with its block kinds
+UNPORTED = {"hymba-1.5b": ("hybrid",), "llama-3.2-vision-11b": ("dense", "cross"),
+            "seamless-m4t-medium": ("dense", "cross")}
 
 
 def test_unported_archs_are_the_registry_less_the_served_families():
-    served = {a for a in ref_configs.ARCHS
-              if ref_configs.get_config(a).family in ("dense", "moe", "ssm")
-              and not ref_configs.get_config(a).hybrid}
-    assert set(UNPORTED) == set(ref_configs.ARCHS) - served
-    assert ARCH in served and len(served) == 7
+    """No arch is left unported: the families served since the dense,
+    MoE and SSM ones (``UNPORTED``) and those make up the registry."""
+    first = {a for a in ref_configs.ARCHS
+             if ref_configs.get_config(a).family in ("dense", "moe", "ssm")
+             and not ref_configs.get_config(a).hybrid}
+    assert set(UNPORTED) == set(ref_configs.ARCHS) - first
+    assert ARCH in first and len(first) == 7 and len(configs.ARCHS) == 10
 
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
 def test_other_families_raise_not_implemented(arch):
+    """Every arch of the registry now inits and sizes its caches on the
+    CPU (these three raised before they were served): the parameters hold
+    their block kinds, and the zero caches the reference's entries."""
     cfg = configs.reduced_config(arch)
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        M.init_params(M.make_generator(0, "cpu"), cfg)
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        M.init_caches(cfg, 1, 8, device="cpu")
+    tp = M.init_params(M.make_generator(0, "cpu"), cfg)
+    names = {n.split(".")[0] for n, _ in tp.named_parameters()}
+    if cfg.encdec is not None:
+        assert {"encoder", "enc_norm", "decoder"} <= names
+    elif cfg.cross_attn is not None:
+        assert {"self_blocks", "cross_blocks", "ctx_proj"} <= names
+    else:
+        assert all(b.attn is not None and b.ssm is not None for b in tp.blocks)
+    caches = M.init_caches(cfg, 1, 8, device="cpu")
+    want = RM.init_caches(ref_configs.reduced_config(arch), 1, 8)
+    assert sorted(caches) == sorted(want)
+    assert caches["layers"].kv.k.dtype == torch.bfloat16
+    assert (caches["layers"].ssm is None) == (want["layers"].ssm is None)
+    assert tuple(caches["layers"].kv.k.shape) == want["layers"].kv.k.shape
+    assert UNPORTED[arch] == (("hybrid",) if cfg.hybrid else ("dense", "cross"))
 
 
 def test_fused_mode_mesh_and_bf16_scan_raise(lm, monkeypatch):

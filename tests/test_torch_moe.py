@@ -398,9 +398,11 @@ def test_init_caches_and_blocks_of_the_moe_kind(lm):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     kv = blocks.init_layer_caches(tcfg, 3, "moe", 1, 8, device="cpu").kv
     assert kv.k.shape[0] == 3
-    for kind, item in (("hybrid", "A12.1b"), ("cross", "A12.3")):
-        with pytest.raises(NotImplementedError, match=item):
-            blocks.init_block_params(M.make_generator(0, "cpu"), tcfg, kind)
+    # a cross block (served now) at the moe config's widths: an MLP, no MoE
+    block = blocks.init_block_params(M.make_generator(0, "cpu"), tcfg, "cross")
+    assert block.moe is None and block.mlp is not None
+    with pytest.raises(ValueError, match="unknown block kind"):
+        blocks.init_block_params(M.make_generator(0, "cpu"), tcfg, "expert")
 
 
 @pytest.mark.parametrize("length", [16, 13])
