@@ -11,7 +11,8 @@ result line is printed:
 1. device   — the card's name and power limit (``nvidia-smi``);
 2. build    — every CUDA kernel of the main paths (``spmm_sell.cu``,
               ``spmm_sell_stream.cu``, ``graph_step.cu``, ``spmv_ell.cu``,
-              ``fft_stockham.cu``, ``ssd_fused.cu``, ``embedding_gather.cu``),
+              ``fft_stockham.cu``, ``ssd_fused.cu``, ``ssd_bwd.cu``,
+              ``embedding_gather.cu``),
               built from ``src/`` with ``nvcc`` (one process per source,
               started together);
 3. compare  — each kernel against its plain PyTorch version on the card:
@@ -210,7 +211,31 @@ result line is printed:
               vision one group, 4 self blocks and a cross block); B8 timed
               at hymba's prefill shapes (b 1 and 4) beside its bound and
               plain version; a prefill and a decode step under
-              ``torch.profiler``; the peak device memory.
+              ``torch.profiler``; the peak device memory;
+14. train   — the training path: B8's backward (``ssd_fused_bwd``, five
+              launches a call) against its plain version at the train
+              step's scan shapes ((1 and 2, 512) at mamba2's widths, (1,
+              512) at hymba's) in fp32 and fp64, from a zero and a random
+              initial state, with and without a final-state gradient, two
+              calls bit-equal; B9's backward (``embedding_gather_bwd``)
+              from mamba2's table at T = 1024 and 4, equal to its plain
+              version and within 1e-6 x max of ``index_add_``; a 2-layer
+              full-width mamba2 train step on the card against the CPU
+              (loss 1e-5 relative, each gradient 1e-4 x max|g|) and under
+              remat "full" against none (1e-6 x max|g|); mamba2-2.7b at
+              full width and depth trained 3 steps of (2, 512) tokens
+              through the port's CLI (``repro_torch.launch.train``, remat
+              "full", lr 3e-4; the four counts set to 0 just before and
+              read just after): each step's loss, grad norm and ms,
+              tokens/s, the peak device memory, then one more step under
+              ``torch.profiler`` (the device's busy share, B8's and B9's
+              forward and backward shares, the launches split forward /
+              backward, the remat recompute among the latter); resume on
+              the card at the reduced config (crashed at step 5, restarted
+              from the step-4 checkpoint, within 1e-6 of an uninterrupted
+              run); both backward kernels timed at the train step's shapes
+              beside their bounds, plain versions and (B9) ``zeros +
+              index_add_``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with a record per kernel.
@@ -218,6 +243,7 @@ one JSON object with a record per kernel.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -326,6 +352,26 @@ GATHER_TS = (1, 4, 512, 2048)
 GATHER_ID_SETS = 16
 GATHER_LAUNCH_REPS = 64
 GATHER_HOST_CALLS = 256
+#: the train phase (B8 and B9 forward and backward): mamba2-2.7b at full
+#: width trained through the port's CLI, TRAIN_STEPS steps of
+#: TRAIN_BATCH x TRAIN_SEQ tokens under remat "full", fp32
+TRAIN_ARCH = "mamba2-2.7b"
+TRAIN_BATCH = 2
+TRAIN_SEQ = 512
+TRAIN_STEPS = 3
+TRAIN_LR = 3e-4
+TRAIN_REMAT = "full"
+#: the 2-layer card-vs-CPU train step: its batch, and the loss (relative),
+#: gradient (x max|g| of the CPU's tensor) and remat (x max|g|) tolerances
+TRAIN_CHECK_BATCH = 1
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_REMAT_TOL = 1e-6
+#: the resume check: the reference's bound, its checkpoints' directory
+TRAIN_RESUME_TOL = 1e-6
+TRAIN_CKPT = Path(__file__).resolve().parent / "build" / "train_ckpt"
+#: B9's backward compare cases: ids a step of the train phase, and a few
+GATHER_BWD_TS = (TRAIN_BATCH * TRAIN_SEQ, 4)
 #: the study phase (the paper's sweep study): calls timed per (kernel, VL)
 #: by measure_cuda (median, after its 2 warm-up calls), the latencies of
 #: the user cube over h100_machine(), SpMV requests served on the
@@ -3817,6 +3863,455 @@ def add_study(kernels: list[dict], study: dict) -> None:
             rec["study_us_by_vl"] = study["us"][by_kernel[name]]
 
 
+# ---------------------------------------------------------------------------
+# The training path (B8 and B9, forward and backward)
+# ---------------------------------------------------------------------------
+
+
+def train_config(configs):
+    """The train phase's model: mamba2-2.7b's published config."""
+    return configs.get_config(TRAIN_ARCH)
+
+
+def ssd_bwd_cases(cfg, hybrid) -> list[tuple]:
+    """B8 backward compare cases (b, l, h, p, g, n, chunk, dtype): the train
+    phase's (TRAIN_BATCH, TRAIN_SEQ) and (1, TRAIN_SEQ) at mamba2's widths,
+    hymba's (1, TRAIN_SEQ), each in fp32 and fp64."""
+    out = []
+    for c, bs in ((cfg, (TRAIN_BATCH, 1)), (hybrid, (1,))):
+        s = c.ssm
+        out += [(b, TRAIN_SEQ, c.n_ssm_heads, s.head_dim, s.n_groups,
+                 s.d_state, s.chunk, dt) for b in bs
+                for dt in ("float32", "float64")]
+    return out
+
+
+def compare_ssd_bwd(torch, np, ssd_k, cfg, hybrid) -> float:
+    """Phase 14 (B8's backward) against its plain version on the card, from
+    a zero and a random initial state, with a final-state gradient and (zero
+    state) without one, at SSD_TOL (fp32 relative to max(1, max|grad|));
+    two calls bit-equal.  Returns the max abs error at the train step's
+    shape in fp32."""
+    main_err = 0.0
+    for i, (b, l, h, p, g, n, q, dt) in enumerate(ssd_bwd_cases(cfg, hybrid)):
+        errs = []
+        for init, fin in ((False, False), (False, True), (True, True)):
+            (xd, ad, B, C), s0 = ssd_inputs(torch, np, b, l, h, p, g, n, dt,
+                                            seed=100 + i, init=init)
+            rng = np.random.default_rng(200 + i)
+            dy = torch.from_numpy(rng.standard_normal((b, l, h, p)).astype(dt)
+                                  ).to(DEVICE)
+            df = (torch.from_numpy(rng.standard_normal((b, h, p, n)).astype(dt)
+                                   ).to(DEVICE) if fin else None)
+            before = ssd_k.BWD_LAUNCHES
+            got = ssd_k.ssd_fused_bwd(xd, ad, B, C, dy, df, chunk=q,
+                                      init_state=s0)
+            again = ssd_k.ssd_fused_bwd(xd, ad, B, C, dy, df, chunk=q,
+                                        init_state=s0)
+            torch.cuda.synchronize()
+            if ssd_k.BWD_LAUNCHES - before != 2 * ssd_k.LAUNCHES_PER_BWD:
+                raise AssertionError("B8 backward: a call did not make its "
+                                     f"{ssd_k.LAUNCHES_PER_BWD} launches")
+            want = ssd_k.ssd_fused_bwd_ref(xd, ad, B, C, dy, df, chunk=q,
+                                           init_state=s0)
+            for name, gv, av, wv in zip(("dxd", "dad", "dB", "dC", "dinit"),
+                                        got, again, want):
+                if gv is None:
+                    continue
+                if not torch.equal(gv, av):
+                    raise AssertionError(f"B8 backward {name}: two calls "
+                                         "differ")
+                errs.append(ssd_violation(torch, gv, wv.to(gv.dtype), dt))
+        if (b, dt) == (TRAIN_BATCH, "float32") and h == cfg.n_ssm_heads:
+            main_err = max(errs)
+        phase("compare", f"B8 backward (b, l, h, p, g, n) = {(b, l, h, p, g, n)} "
+              f"chunk {q} {dt}: max abs err {max(errs):.3e} over dxd, dad, dB, "
+              "dC (and d init_state) from a zero and a random state, with and "
+              "without a final-state gradient; two calls bit-equal")
+    return main_err
+
+
+def compare_gather_bwd(torch, np, gather_k, cfg) -> float:
+    """Phase 14 (B9's backward): from mamba2's (V, d) table shape at T in
+    GATHER_BWD_TS, fp32 and fp64, ids with repeats: equal to its plain
+    version (the same sums in the same order), two calls bit-equal, within
+    1e-6 x max of ``index_add_``.  Returns the max abs error against
+    ``index_add_`` in fp32."""
+    v, d = cfg.vocab_size, cfg.d_model
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for t in GATHER_BWD_TS:
+            rng = np.random.default_rng(t)
+            ids_np = rng.integers(0, v, t)
+            ids_np[::5] = ids_np[0]                      # a long run
+            ids = torch.from_numpy(ids_np).to(DEVICE)
+            dout = torch.from_numpy(rng.standard_normal((t, d))).to(
+                dtype=dtype, device=DEVICE)
+            before = gather_k.BWD_LAUNCHES
+            got = gather_k.embedding_gather_bwd(dout, ids, v)
+            again = gather_k.embedding_gather_bwd(dout, ids, v)
+            torch.cuda.synchronize()
+            if gather_k.BWD_LAUNCHES - before != 2:
+                raise AssertionError("B9 backward: not one launch a call")
+            if not (torch.equal(got, again) and torch.equal(
+                    got, gather_k.embedding_gather_bwd_ref(dout, ids, v))):
+                raise AssertionError(f"B9 backward T={t} {dtype}: not equal to "
+                                     "its plain version")
+            lib = torch.zeros((v, d), dtype=dtype, device=DEVICE
+                              ).index_add_(0, ids, dout)
+            err = float((got - lib).abs().max())
+            if err > 1e-6 * float(lib.abs().max()):
+                raise AssertionError(f"B9 backward T={t}: {err} from index_add_")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            del got, again, lib
+    phase("compare", f"B9 backward ({v}, {d}) table, T in {GATHER_BWD_TS}, fp32 "
+          "and fp64, ids with repeats: equal to its plain version, two calls "
+          f"bit-equal, max abs err vs index_add_ {worst:.3e} (fp32)")
+    return worst
+
+
+def train_counts(ssd_k, gather_k) -> dict:
+    return {"ssd_fused": ssd_k.KERNEL_LAUNCHES,
+            "ssd_fused_bwd": ssd_k.BWD_LAUNCHES,
+            "embedding_gather": gather_k.KERNEL_LAUNCHES,
+            "embedding_gather_bwd": gather_k.BWD_LAUNCHES}
+
+
+def train_batch(np, cfg, b: int) -> dict:
+    """Step 0 of the synthetic stream (the CLI's data) at b x TRAIN_SEQ."""
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    tokens, labels = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=b,
+        seed=LM_SEED)).batch_for(0)
+    return {"tokens": tokens, "labels": labels}
+
+
+def train_check(torch, np, M, ssd_k, gather_k, cfg) -> dict:
+    """Phase 14: a 2-layer model at full width, trainable, from LM_SEED on
+    the CPU and copied to the card: one train step's loss and gradients
+    (:func:`repro_torch.train.step.loss_and_grads`) on the card (B8, B9
+    and their backward kernels) against the CPU's (plain versions), loss
+    to TRAIN_LOSS_RTOL, each gradient to TRAIN_GRAD_TOL x max|g|; then the
+    card's under remat "full" against none, TRAIN_REMAT_TOL x max|g|."""
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.step import loss_and_grads
+
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    cpu = M.init_params(M.make_generator(LM_SEED, "cpu"), cfg2, trainable=True)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    batch = train_batch(np, cfg2, TRAIN_CHECK_BATCH)
+    before = train_counts(ssd_k, gather_k)
+    g_card, l_card, _ = loss_and_grads(card, cfg2, TrainConfig(remat=None), batch)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in train_counts(ssd_k, gather_k).items()}
+    if not all(ran.values()):
+        raise AssertionError(f"train check: the card's step launched {ran}")
+    g_cpu, l_cpu, _ = loss_and_grads(cpu, cfg2, TrainConfig(remat=None), batch)
+    rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train check: loss {float(l_card)} vs CPU "
+                             f"{float(l_cpu)} ({rel:.2e} > {TRAIN_LOSS_RTOL})")
+    worst, worst_name = 0.0, ""
+    for k, gc in g_cpu.items():
+        scale = max(float(gc.abs().max()), 1e-30)
+        e = float((g_card[k].cpu() - gc).abs().max()) / scale
+        if not e <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"train check: gradient {k} differs by {e:.2e}"
+                                 f" x max|g| > {TRAIN_GRAD_TOL}")
+        if e >= worst:
+            worst, worst_name = e, k
+    del cpu, g_cpu
+    g_remat, _, _ = loss_and_grads(card, cfg2, TrainConfig(remat="full"), batch)
+    rworst = max(float((g_remat[k] - g).abs().max())
+                 / max(float(g.abs().max()), 1e-30) for k, g in g_card.items())
+    if not rworst <= TRAIN_REMAT_TOL:
+        raise AssertionError(f"train check: remat 'full' gradients differ by "
+                             f"{rworst:.2e} x max|g| > {TRAIN_REMAT_TOL}")
+    phase("train", f"check: {LM_CHECK_LAYERS} layers at full width, one step on "
+          f"({TRAIN_CHECK_BATCH}, {TRAIN_SEQ}) tokens, card vs CPU (plain "
+          f"versions): loss {float(l_card):.6f} vs {float(l_cpu):.6f} (rel "
+          f"{rel:.2e} <= {TRAIN_LOSS_RTOL}); worst gradient {worst_name} "
+          f"{worst:.2e} x max|g| <= {TRAIN_GRAD_TOL}; remat 'full' vs none on "
+          f"the card {rworst:.2e} x max|g| <= {TRAIN_REMAT_TOL}; launches "
+          f"{ran} ({time.perf_counter() - t0:.1f} s)")
+    del card, g_card, g_remat
+    return {"loss_rel": rel, "grad_err": worst, "remat_err": rworst}
+
+
+def train_profile(torch, M, state, cfg, tcfg, batch, ssd_k, gather_k,
+                  step_ms: float) -> dict:
+    """One more train step of the state, under ``torch.profiler``, made of
+    its parts so that the launches split: the forward (B8, B9), the
+    backward (B8 recomputed under remat "full", B8's and B9's backward
+    kernels), the AdamW update.  The device's busy time against the wall
+    clock under the profiler (whose host-side tracing of every op
+    stretches it) and against ``step_ms``, an unprofiled step's wall; B8's
+    and B9's (forward and backward) shares of the busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.layers import softmax_cross_entropy
+    from repro_torch.optim import adamw_update, decay_mask
+
+    params = state.params
+    named = dict(params.named_parameters())
+    counts = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        counts.append(train_counts(ssd_k, gather_k))
+        logits, aux = M.forward(params, cfg, batch, remat=tcfg.remat)
+        loss, _ = softmax_cross_entropy(logits, batch["labels"])
+        counts.append(train_counts(ssd_k, gather_k))
+        grads = torch.autograd.grad(loss + tcfg.aux_weight * aux,
+                                    list(named.values()))
+        counts.append(train_counts(ssd_k, gather_k))
+        adamw_update(dict(zip(named, grads)), state.opt, named, tcfg.optimizer,
+                     decay=decay_mask(named))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    del grads, logits
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in dev) / 1e3
+
+    def share(*keys):
+        ms = sum(e.device_time_total for e in dev
+                 if any(k in e.key for k in keys)) / 1e3
+        return ms, (100 * ms / busy if busy > 0 else None)
+
+    parts = {"b8_fwd": share("ssd_chunk", "ssd_state_pass"),
+             "b8_bwd": share("ssd_bwd"),
+             "b9_fwd": share("gather_rows_kernel"),
+             "b9_bwd": share("gather_bwd_kernel")}
+    split = {k: {"forward": counts[1][k] - counts[0][k],
+                 "backward": counts[2][k] - counts[1][k]} for k in counts[0]}
+    top = sorted(dev, key=lambda e: e.device_time_total, reverse=True)[:5]
+    busy_txt = (f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}% of "
+                f"it; {100 * busy / step_ms:.1f}% of an unprofiled step's "
+                f"{step_ms:.1f} ms)" if busy > 0
+                else "device time not measured (no device events)")
+    phase("profile", f"{cfg.name} train step ({TRAIN_BATCH}, {TRAIN_SEQ}) remat "
+          f"{tcfg.remat}: wall {wall_ms:.1f} ms under the profiler; {busy_txt}; "
+          + "; ".join(f"{k} {ms:.2f} ms" + ("" if pct is None else f" ({pct:.1f}%)")
+                      for k, (ms, pct) in parts.items())
+          + "; most device time: " + "; ".join(
+              f"{e.key[:40]} {e.device_time_total / 1e3:.2f} ms x{e.count}"
+              for e in top))
+    phase("train", "launches in that step, forward / in the backward (B8's "
+          "forward kernel there is the remat recompute): " + ", ".join(
+              f"{k} {v['forward']} / {v['backward']}" for k, v in split.items()))
+    return {"wall_ms": wall_ms, "busy_ms": busy, "step_ms": step_ms,
+            "parts": parts, "split": split}
+
+
+def train_resume(torch, configs) -> float:
+    """Phase 14: resume on the card at the reduced config — a run crashed at
+    step 5 restarts from its step-4 checkpoint and ends where an
+    uninterrupted run ends, within TRAIN_RESUME_TOL."""
+    import shutil
+
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, TrainLoopConfig, train_loop
+
+    cfg = configs.reduced_config(TRAIN_ARCH)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), remat=None)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=2 * cfg.ssm.chunk,
+                      global_batch=4, seed=LM_SEED)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+
+    def lcfg(name):
+        return TrainLoopConfig(total_steps=8, ckpt_every=4, log_every=100,
+                               ckpt_dir=str(TRAIN_CKPT / name), seed=LM_SEED)
+
+    quiet = lambda s: None  # noqa: E731
+    whole, _ = train_loop(cfg, tcfg, dcfg, lcfg("whole"), log=quiet,
+                          device=DEVICE)
+    try:
+        train_loop(cfg, tcfg, dcfg, lcfg("crashed"), log=quiet,
+                   fail_at_step=5, device=DEVICE)
+        raise AssertionError("resume: the injected failure did not happen")
+    except RuntimeError as e:
+        if "injected failure at step 5" not in str(e):
+            raise
+    logs = []
+    resumed, hist = train_loop(cfg, tcfg, dcfg, lcfg("crashed"),
+                               log=logs.append, device=DEVICE)
+    if logs[:1] != ["[resume] restored checkpoint at step 4"] or \
+            [h["step"] for h in hist] != [4, 5, 6, 7]:
+        raise AssertionError(f"resume: {logs[:1]}, steps {[h['step'] for h in hist]}")
+    worst = max(float((a - b).detach().abs().max()) for a, b in
+                zip(whole.params.parameters(), resumed.params.parameters()))
+    if not worst <= TRAIN_RESUME_TOL:
+        raise AssertionError(f"resume: parameters differ by {worst} > "
+                             f"{TRAIN_RESUME_TOL}")
+    phase("train", f"resume on the card ({cfg.name}, {dcfg.global_batch} x "
+          f"{dcfg.seq_len} tokens): crashed at step 5, restored the step-4 "
+          f"checkpoint, ran steps 4-7; final parameters vs an uninterrupted "
+          f"run max abs diff {worst:.3e} <= {TRAIN_RESUME_TOL}")
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    return worst
+
+
+def train_path(torch, np, configs, M, ssd_k, gather_k) -> dict:
+    """Phase 14, the main path: mamba2-2.7b at full width and depth trained
+    TRAIN_STEPS steps through the port's CLI
+    (:func:`repro_torch.launch.train.main`: random init on the card from
+    LM_SEED, the synthetic stream, remat "full", AdamW at TRAIN_LR), the
+    four counts set to 0 just before and read just after; each step's
+    loss, grad norm and ms, tokens/s, the peak device memory; then one
+    more step profiled (:func:`train_profile`)."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+
+    t0 = time.perf_counter()
+    cfg = train_config(configs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    phase("train", f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}; device memory before init {free / 1e9:.2f} "
+          f"GB free of {total / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", TRAIN_ARCH, "--seq-len", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--remat", TRAIN_REMAT, "--steps",
+            str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--seed", str(LM_SEED),
+            "--device", DEVICE]
+    if cfg == configs.get_config(TRAIN_ARCH):
+        argv.append("--full")
+    ssd_k.KERNEL_LAUNCHES = ssd_k.BWD_LAUNCHES = 0
+    gather_k.KERNEL_LAUNCHES = gather_k.BWD_LAUNCHES = 0
+    state, hist = train_cli.main(argv, log=lambda s: print(s, flush=True))
+    torch.cuda.synchronize()
+    launches = train_counts(ssd_k, gather_k)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in state.params.parameters())
+    for h in hist:
+        phase("train", f"step {h['step']}: loss {h['loss']:.6f} grad norm "
+              f"{h['grad_norm']:.6f} lr {h['lr']:.3e} {h['wall_s'] * 1e3:.1f} ms")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist):
+        raise AssertionError(f"train: a loss or grad norm is not finite: {hist}")
+    if not all(launches.values()):
+        raise AssertionError(f"train: the run launched {launches}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = [h["wall_s"] for h in hist[1:]] or [hist[0]["wall_s"]]
+    tps = tokens / statistics.median(steady)
+    phase("train", f"{cfg.name} ({n_params / 1e9:.3f} B parameters, fp32) "
+          f"{len(hist)} steps of ({TRAIN_BATCH}, {TRAIN_SEQ}) tokens, remat "
+          f"{TRAIN_REMAT}: {tps:.1f} tokens/s (median of steps 1+; step 0 "
+          f"{hist[0]['wall_s'] * 1e3:.1f} ms); peak device memory {peak:.2f} "
+          f"GB; launches {launches}")
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR), remat=TRAIN_REMAT)
+    prof = train_profile(torch, M, state, cfg, tcfg,
+                         {k: torch.as_tensor(v).to(DEVICE) if k == "labels" else v
+                          for k, v in train_batch(np, cfg, TRAIN_BATCH).items()},
+                         ssd_k, gather_k, statistics.median(steady) * 1e3)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("train", f"main path done in {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "hist": hist, "tokens_per_s": tps,
+            "peak_gb": peak, "profile": prof, "cfg": cfg}
+
+
+def time_train_kernels(torch, np, ssd_k, gather_k, tm: dict, errs: dict,
+                       flush) -> list[dict]:
+    """Phase 14 (timing): B8's backward at the train step's scan shape and
+    B9's at its ids (CUDA events, the L2 flushed) beside their bounds, the
+    plain versions and, for B9, ``zeros + index_add_``."""
+    from repro_torch.core import autotune
+
+    cfg = tm["cfg"]
+    s = cfg.ssm
+    b, l, h, p, g, n, q = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_ssm_heads, s.head_dim,
+                           s.n_groups, s.d_state, s.chunk)
+    (xd, ad, B, C), _ = ssd_inputs(torch, np, b, l, h, p, g, n, "float32", seed=12)
+    dy = torch.randn_like(xd)
+    _, fstate, cum, entering = ssd_k._forward(xd, ad, B, C, q, None, keep=True)
+    saved = (fstate, cum, entering)
+    ms = time_ms(torch, lambda: ssd_k.ssd_fused_bwd(xd, ad, B, C, dy, chunk=q,
+                                                     saved=saved), flush)
+    plain_ms = time_ms(torch, lambda: ssd_k.ssd_fused_bwd_ref(xd, ad, B, C, dy,
+                                                              chunk=q), flush)
+    nc = l // q
+    nbytes = 4 * (3 * b * l * h * p + 2 * b * l * h + 4 * b * l * g * n
+                  + b * h * l + b * h * nc * p * n + b * h * p * n)
+    flops = autotune.ssd_bwd_flops(b, l, h, p, n, q)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_OPS * 1e3
+    phase("timing", f"B8 backward (b, l, h, p, g, n) = {(b, l, h, p, g, n)} chunk "
+          f"{q} fp32: {ms:.4f} ms in {ssd_k.LAUNCHES_PER_BWD} launches | bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms (ops {ops_ms:.4f}: {flops / 1e9:.3f} "
+          f"GFLOP at the CUDA cores' 67 TFLOP/s; bytes {bytes_ms:.4f}) | plain "
+          f"{plain_ms:.4f} ms | no single PyTorch call | "
+          f"{flops / ms / 1e6:.1f} GFLOP/s of the function")
+    ssd_rec = {"name": "ssd_fused_bwd", "route": "cuda",
+               "source": "src/repro_torch/csrc/ssd_bwd.cu",
+               "replaces": "src/repro/kernels/ssd.py:78 (its backward: the "
+                           "reference differentiates src/repro/models/ssm.py:81)",
+               "launches": tm["launches"]["ssd_fused_bwd"],
+               "max_abs_err": errs["ssd"], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "library_ms": None,
+               "shape": f"(b, l, h, p, g, n) = {(b, l, h, p, g, n)} chunk {q} "
+                        "fp32 (a train step's layer)"}
+    del xd, ad, B, C, dy, saved, fstate, cum, entering
+
+    v, d = cfg.vocab_size, cfg.d_model
+    t = TRAIN_BATCH * TRAIN_SEQ
+    ids = torch.from_numpy(train_batch(np, cfg, TRAIN_BATCH)["tokens"].reshape(-1)
+                           .astype(np.int64)).to(DEVICE)
+    dout = torch.randn((t, d), dtype=torch.float32, device=DEVICE)
+    gms = time_ms(torch, lambda: gather_k.embedding_gather_bwd(dout, ids, v), flush)
+    gplain = time_ms(torch, lambda: gather_k.embedding_gather_bwd_ref(dout, ids, v),
+                     flush)
+    glib = time_ms(torch, lambda: torch.zeros((v, d), device=DEVICE)
+                   .index_add_(0, ids, dout), flush)
+    # the launch alone, on ids bounded and sorted once (the wrapper's
+    # preparation is the rest of its time)
+    sorted_ids, order = gather_k._sorted_runs(ids, v)
+    dtable = torch.empty((v, d), dtype=torch.float32, device=DEVICE)
+    (blk,) = gather_k._bwd_plan(v, d, t, "float32").blocks
+    glaunch = time_ms(torch, lambda: gather_k._launch_bwd(
+        sorted_ids, order, dout, dtable, blk.grid[1], blk.block[0]), flush)
+    gprep = time_ms(torch, lambda: gather_k._sorted_runs(ids, v), flush)
+    gbound = ((v * d + t * d) * 4 + 8 * t) / HBM_BYTES_PER_S * 1e3
+    phase("timing", f"B9 backward T={t} into ({v}, {d}) fp32 (the train step's "
+          f"ids, sorted on the card first), grid {blk.grid} x {blk.block[0]}: "
+          f"wrapper {gms:.4f} ms | launch alone {glaunch:.4f} ms | the ids' "
+          f"bound and stable sort {gprep:.4f} ms | bound {gbound:.4f} ms "
+          f"(bytes) | plain {gplain:.4f} ms | zeros + index_add_ {glib:.4f} ms")
+    del dtable
+    gather_rec = {"name": "embedding_gather_bwd", "route": "cuda",
+                  "source": "src/repro_torch/csrc/embedding_gather.cu",
+                  "replaces": "src/repro/kernels/gather.py:44 (its backward: "
+                              "the reference differentiates XLA's gather, "
+                              "src/repro/models/model.py:118)",
+                  "launches": tm["launches"]["embedding_gather_bwd"],
+                  "max_abs_err": errs["gather"], "ms": gms, "plain_ms": gplain,
+                  "bound_ms": gbound, "bound_by": "bytes", "library_ms": glib,
+                  "launch_ms": glaunch, "prep_ms": gprep,
+                  "shape": f"T={t} ids into ({v}, {d}) fp32 (a train step's "
+                           "tokens)"}
+    return [ssd_rec, gather_rec]
+
+
+def add_train(kernels: list[dict], tm: dict) -> None:
+    """The train phase's forward launches of B8 and B9 on their kernels
+    line records, under ``launches_by_path["train"]``."""
+    for name in ("ssd_fused", "embedding_gather"):
+        rec = next(r for r in kernels if r["name"] == name)
+        rec.setdefault("launches_by_path", {"lm": rec["launches"]})
+        rec["launches_by_path"]["train"] = tm["launches"][name]
+        rec["launches"] += tm["launches"][name]
+
+
 def main() -> int:
     import torch
 
@@ -3978,8 +4473,22 @@ def main() -> int:
     add_families(kernels, lm_families_path(torch, np, configs, M, serve,
                                            ssd_k, gather_k, flush),
                  ssd_errs["hybrid"])
-    phase("lm-families", f"done in {time.perf_counter() - t0:.1f} s; whole "
-          f"run {time.perf_counter() - t_start:.1f} s")
+    phase("lm-families", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 14. training (B8 and B9, forward and backward) --------------------
+    t0 = time.perf_counter()
+    terrs = {"ssd": compare_ssd_bwd(torch, np, ssd_k, train_config(configs),
+                                    lm_family_config(configs,
+                                                     LM_FAMILY_ARCHS[0])),
+             "gather": compare_gather_bwd(torch, np, gather_k,
+                                          train_config(configs))}
+    train_check(torch, np, M, ssd_k, gather_k, train_config(configs))
+    tm = train_path(torch, np, configs, M, ssd_k, gather_k)
+    train_resume(torch, configs)
+    add_train(kernels, tm)
+    kernels += time_train_kernels(torch, np, ssd_k, gather_k, tm, terrs, flush)
+    phase("train", f"done in {time.perf_counter() - t0:.1f} s; whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ from repro_torch.analysis.preflight import (
     plan_bfs_ell,
     plan_bfs_sell,
     plan_embedding_gather,
+    plan_embedding_gather_bwd,
     plan_fft_stockham,
     plan_moe_dispatch,
     plan_pagerank_ell,
@@ -14,12 +15,14 @@ from repro_torch.analysis.preflight import (
     plan_spmm_sell_stream,
     plan_spmv_ell,
     plan_ssd_fused,
+    plan_ssd_fused_bwd,
 )
 
 __all__ = ["BlockPlan", "LaunchPlan", "LaunchPlanError", "LiveWidthMeta",
            "SlabMeta",
            "plan_bfs_ell", "plan_bfs_sell", "plan_embedding_gather",
+           "plan_embedding_gather_bwd",
            "plan_fft_stockham",
            "plan_moe_dispatch", "plan_pagerank_ell", "plan_pagerank_sell",
            "plan_spmm_sell", "plan_spmm_sell_stream", "plan_spmv_ell",
-           "plan_ssd_fused"]
+           "plan_ssd_fused", "plan_ssd_fused_bwd"]

@@ -87,6 +87,7 @@ from repro_torch.core.autotune import (
     SMEM_PER_BLOCK,
     SPMM_BLOCK_THREADS,
     SSD_BLOCK_THREADS,
+    SSD_BWD_LAUNCHES,
     SSD_LAUNCHES,
     STREAM_FILL_BLOCKS,
     WARP,
@@ -103,6 +104,8 @@ from repro_torch.core.autotune import (
     gather_grid,
     node_split,
     spmm_split,
+    ssd_bwd_grids,
+    ssd_bwd_smem_bytes,
     ssd_grids,
     ssd_smem_bytes,
     stream_smem_bytes,
@@ -945,6 +948,37 @@ def plan_embedding_gather(vocab: int, d: int, ids, *, dtype: str = "float32",
                       blocks=(block,), violations=tuple(violations))
 
 
+def plan_embedding_gather_bwd(vocab: int, d: int, t: int, *,
+                              dtype: str = "float32") -> LaunchPlan:
+    """Plan ``embedding_gather_bwd`` of (t, d) output gradients into a
+    (vocab, d) table gradient: one launch, ``grid = (vocab, chunks)``
+    blocks of ``threads``, each block one chunk of one table row
+    (:func:`~repro_torch.core.autotune.gather_grid` at ``vocab`` rows),
+    after the ids are bounded and stable-sorted on the card."""
+    violations: list[str] = []
+    if dtype not in KERNEL_DTYPES:
+        violations.append(f"gradient dtype {dtype} is not float32 or float64")
+    if vocab < 1 or d < 1:
+        violations.append(f"table ({vocab}, {d}) is empty")
+    if t < 1:
+        violations.append(f"no ids ({t})")
+    itemsize = np.dtype(dtype).itemsize if dtype in KERNEL_DTYPES else 4
+    chunks, threads = gather_grid(max(vocab, 1), d * itemsize)
+    if vocab > MAX_GRID_X:
+        violations.append(f"grid.x {vocab} > {MAX_GRID_X}")
+    if chunks > MAX_GRID_Y:
+        violations.append(f"grid.y {chunks} > {MAX_GRID_Y}")
+    block = BlockPlan(
+        label=f"table rows[{chunks} chunk(s) of {threads} threads a row]",
+        grid=(max(vocab, 1), chunks), block=(threads,),
+        operands=(("sorted_ids", (t,), "int64"), ("order", (t,), "int64"),
+                  ("dout", (t, d), dtype), ("dtable", (vocab, d), dtype)))
+    return LaunchPlan(kernel="embedding_gather_bwd",
+                      operand=f"scatter T={t} into ({vocab}, {d})",
+                      dtype=dtype, blocks=(block,),
+                      violations=tuple(violations))
+
+
 def plan_ssd_fused(b: int, l: int, h: int, p: int, g: int, n: int, *,
                    chunk: int, dtype: str = "float32") -> LaunchPlan:
     """Plan ``ssd_fused`` for xd (b, l, h, p), ad (b, l, h) and B, C
@@ -1006,3 +1040,58 @@ def plan_ssd_fused(b: int, l: int, h: int, p: int, g: int, n: int, *,
                               f"chunk={chunk}",
                       dtype=dtype, blocks=tuple(blocks),
                       violations=tuple(violations))
+
+
+def plan_ssd_fused_bwd(b: int, l: int, h: int, p: int, g: int, n: int, *,
+                       chunk: int, dtype: str = "float32") -> LaunchPlan:
+    """Plan ``ssd_fused_bwd``, the backward of :func:`plan_ssd_fused`'s
+    scan: five launches (:func:`~repro_torch.core.autotune.ssd_bwd_grids`,
+    ``SSD_BLOCK_THREADS`` threads each) of fixed shared memory
+    (:func:`~repro_torch.core.autotune.ssd_bwd_smem_bytes`: 70 KB at most
+    in fp32, 140 KB in fp64), the forward's contracts (whole chunks,
+    groups dividing heads, grid limits) and its operands: the forward's
+    inputs, its cum and entering states, the output gradients, and the
+    per-head scratch of dB and dC (b, l, h, n) before their group sums."""
+    fwd = plan_ssd_fused(b, l, h, p, g, n, chunk=chunk, dtype=dtype)
+    violations = list(fwd.violations)
+    itemsize = int(np.dtype(dtype).itemsize) if dtype in KERNEL_DTYPES else 8
+    ext = [max(int(v), 1) for v in (b, l, h, p, g, n, chunk)]
+    grids = ssd_bwd_grids(*ext)
+    nc = ext[1] // ext[6]
+    ops = {name: (name, shape, dtype) for name, shape in (
+        ("xd", (b, l, h, p)), ("dy", (b, l, h, p)), ("dx", (b, l, h, p)),
+        ("B", (b, l, g, n)), ("C", (b, l, g, n)), ("dB", (b, l, g, n)),
+        ("dC", (b, l, g, n)), ("dad", (b, l, h)), ("cum", (b, h, l)),
+        ("dcq", (b, h, l)), ("dck", (b, h, l)),
+        ("entering", (b, h, nc, p, n)), ("local", (b, h, nc, p, n)),
+        ("dso", (b, h, nc, p, n)), ("state", (b, h, p, n)),
+        ("dbh", (b, l, h, n)), ("dch", (b, l, h, n)))}
+    operands = {
+        "bwd_local": ("dy", "C", "cum", "local"),
+        "bwd_state_pass": ("local", "dso", "cum", "state"),
+        "bwd_query": ("xd", "dy", "B", "C", "cum", "entering", "dch", "dcq"),
+        "bwd_key": ("xd", "dy", "B", "C", "cum", "entering", "state", "dso",
+                    "dbh", "dx", "dck"),
+        "bwd_finish": ("dcq", "dck", "dad", "dbh", "dch", "dB", "dC"),
+    }
+    blocks = []
+    for launch in SSD_BWD_LAUNCHES:
+        grid = grids[launch]
+        if grid[0] > MAX_GRID_X:
+            violations.append(f"{launch}: grid.x {grid[0]} > {MAX_GRID_X}")
+        if any(d > MAX_GRID_Y for d in grid[1:]):
+            violations.append(f"{launch}: grid {grid} past {MAX_GRID_Y} in "
+                              "y or z")
+        smem = ssd_bwd_smem_bytes(launch, itemsize)
+        if smem > SMEM_PER_BLOCK:
+            violations.append(f"{launch}: {smem} B of shared memory > "
+                              f"{SMEM_PER_BLOCK}")
+        blocks.append(BlockPlan(
+            label=launch, grid=grid, block=(SSD_BLOCK_THREADS,),
+            operands=tuple(ops[o] for o in operands[launch]),
+            smem_bytes=smem))
+    return LaunchPlan(kernel="ssd_fused_bwd",
+                      operand=f"ssd backward b={b} l={l} h={h} p={p} g={g} "
+                              f"n={n} chunk={chunk}",
+                      dtype=dtype, blocks=tuple(blocks),
+                      violations=tuple(dict.fromkeys(violations)))

@@ -387,6 +387,15 @@ SSD_MIN_BLOCKS_SM = 2
 SSD_LAUNCHES = ("chunk_state", "state_pass", "chunk_output")
 
 
+#: Launches of one ``ssd_fused_bwd`` call on the card (B8's backward):
+#: each chunk's local dY-C term, the reverse state pass, the query-tile
+#: side (dC, dcum's row sums), the key-tile side (dX, dB, dcum's column
+#: sums and the dS_out terms), and the finish (dad, the group sums of dB
+#: and dC).
+SSD_BWD_LAUNCHES = ("bwd_local", "bwd_state_pass", "bwd_query", "bwd_key",
+                    "bwd_finish")
+
+
 def gather_grid(t: int, row_bytes: int) -> tuple[int, int]:
     """(chunks a row, threads a block) of kernel B9: its grid is (T,
     chunks), block (row, c) copying bytes [c * threads * 64, (c + 1) *
@@ -444,6 +453,54 @@ def ssd_smem_bytes(launch: str, itemsize: int) -> int:
              "state_pass": 0,
              "chunk_output": stages + SSD_TILE * lds + 2 * SSD_TILE}[launch]
     return elems * int(itemsize)
+
+
+def ssd_bwd_grids(b: int, l: int, h: int, p: int, g: int, n: int,
+                  chunk: int) -> dict[str, tuple[int, ...]]:
+    """Grids of B8's five backward launches: ``bwd_local`` as the forward's
+    ``chunk_state`` (a block per (b, h, chunk) and 64 x 64 tile of (p, n)),
+    ``bwd_state_pass`` as its ``state_pass``, ``bwd_query`` / ``bwd_key``
+    one block per (b, h, chunk) and 64-row tile, ``bwd_finish`` one thread
+    per element of dB (b, l, g, n) or per (b, h, chunk), whichever is more,
+    three planes (dB, dC, dad).  mamba2 at (2, 512): (320, 1, 2), (160,
+    32), (320, 4), (320, 4) and (512, 3)."""
+    grids = ssd_grids(b, l, h, p, n, chunk)
+    planes = grids["chunk_output"][0]
+    most = max(int(b) * int(l) * int(g) * int(n), planes)
+    return {
+        "bwd_local": grids["chunk_state"],
+        "bwd_state_pass": grids["state_pass"],
+        "bwd_query": grids["chunk_output"],
+        "bwd_key": grids["chunk_output"],
+        "bwd_finish": (_tiles(most, SSD_BLOCK_THREADS), 3),
+    }
+
+
+def ssd_bwd_smem_bytes(launch: str, itemsize: int) -> int:
+    """Dynamic shared memory of one block of a B8 backward launch, fixed
+    whatever the shape: every tiled launch stages operands in two stages of
+    two (32, 68) tiles; ``bwd_query`` adds a (64, 68) M tile and 2 x 64 cum
+    values, ``bwd_key`` a second (64, 68) tile and 8 warp sums.  fp32: 34,
+    52 and 70 KB; fp64 twice that."""
+    lds = SSD_TILE + 4
+    stages = 2 * 2 * SSD_K_CHUNK * lds
+    elems = {"bwd_local": stages, "bwd_state_pass": 0,
+             "bwd_query": stages + SSD_TILE * lds + 2 * SSD_TILE,
+             "bwd_key": stages + 2 * SSD_TILE * lds + 2 * SSD_TILE
+             + SSD_BLOCK_THREADS // WARP,
+             "bwd_finish": 0}[launch]
+    return elems * int(itemsize)
+
+
+def ssd_bwd_flops(b: int, l: int, h: int, p: int, n: int, chunk: int) -> int:
+    """Operations of the scan's backward as a function: per (b, h) and
+    chunk, q(q+1)/2 entries each of C Bᵀ (n multiply-adds), dY Xᵀ (p) and
+    of their products into dC (n), dB (n) and dX (p), then the local term
+    and the three dS terms (q n p each), two operations a multiply-add.
+    mamba2 at (2, 512): 16.15 GFLOP."""
+    q = int(chunk)
+    per = q * (q + 1) * (3 * int(n) + 2 * int(p)) + 8 * q * int(n) * int(p)
+    return int(b) * int(h) * (int(l) // q) * per
 
 
 def ssd_warps_per_sm(grid: tuple[int, ...], smem_bytes: int) -> int:

@@ -37,6 +37,20 @@
 // The host wrapper is repro_torch/kernels/gather.py::embedding_gather; it
 // plans the launch (once per shape for ids already on the card), allocates
 // the output and raises on a non-zero return code.
+//
+// The backward, gather_bwd_kernel: dtable[v] = sum of dout[i] over the i
+// with ids[i] = v (ids bounded as above), dense (V, d) as XLA's scatter into
+// zeros is.  It replaces no TPU kernel (the reference differentiates XLA's
+// gather, repro/models/model.py::_embed); it keeps plain PyTorch off the
+// card's training path.  Deterministic, with no atomics: the wrapper
+// (gather.py::embedding_gather_bwd) stable-sorts the bounded ids on the card
+// first, a preparation step as the SELL pack is, so equal ids form a run in
+// ascending position.  Grid (V, chunks): block (v, c) finds v's run by
+// binary search in the sorted ids and sums its rows of dout, chunk c of the
+// row, in ascending position, each thread 64 bytes of the row (a zero row
+// where v has no id).  Bound: bytes, V * d + T * d values and the ids and
+// their order (8 B each), 0.155 ms at mamba2's V = 50,280, d = 2560, T =
+// 1024 in fp32 on an H100's 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -70,6 +84,47 @@ gather_rows_kernel(const Id* __restrict__ ids, const V* __restrict__ table,
   for (int k = 0; k < LOADS; ++k) {
     const int64_t i = begin + threadIdx.x + k * blockDim.x;
     if (i < row_vecs) dst[i] = buf[k];
+  }
+}
+
+// Block (v, chunk): dtable[v][chunk] = sum over the run of v in `sorted`
+// (ids ascending, `order` their positions, ascending within a run) of
+// dout[order[k]][chunk], in ascending k; zero where v has no run.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+gather_bwd_kernel(const long long* __restrict__ sorted, const long long* __restrict__ order,
+                  const T* __restrict__ dout, T* __restrict__ dtable, int64_t n_ids,
+                  int64_t d) {
+  constexpr int PER = kThreadBytes / sizeof(T);
+  __shared__ int64_t run[2];
+  const int64_t v = blockIdx.x;
+  if (threadIdx.x < 2) {
+    const int64_t want = v + threadIdx.x;    // lower bounds of v and v + 1
+    int64_t lo = 0, hi = n_ids;
+    while (lo < hi) {
+      const int64_t mid = (lo + hi) / 2;
+      if (sorted[mid] < want) lo = mid + 1; else hi = mid;
+    }
+    run[threadIdx.x] = lo;
+  }
+  __syncthreads();
+  const int64_t begin = static_cast<int64_t>(blockIdx.y) * PER * blockDim.x;
+  T acc[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) acc[k] = T(0);
+  for (int64_t r = run[0]; r < run[1]; ++r) {
+    const T* src = dout + order[r] * d;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int64_t i = begin + threadIdx.x + k * blockDim.x;
+      if (i < d) acc[k] += src[i];
+    }
+  }
+  T* dst = dtable + v * d;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int64_t i = begin + threadIdx.x + k * blockDim.x;
+    if (i < d) dst[i] = acc[k];
   }
 }
 
@@ -127,6 +182,37 @@ int repro_embedding_gather(const void* table, int64_t n_rows, const void* ids,
                                  st)
           : launch_id<int>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads, st);
   return static_cast<int>(err);
+}
+
+// The backward.  sorted (n_ids,) int64: the bounded ids in ascending order;
+// order (n_ids,) int64: their positions, ascending within equal ids; dout
+// (n_ids, d) and dtable (n_rows, d) of one element type (float64 when
+// is_double).  Grid (n_rows, chunks) of `threads` (a multiple of 32, at most
+// 256), each thread 64 bytes of a row: the chunks must cover the row and
+// none may start past its end.  The caller makes the stream's device
+// current.  Returns the launch's cudaError_t.
+int repro_embedding_gather_bwd(const void* sorted, const void* order, const void* dout,
+                               void* dtable, int64_t n_rows, int64_t n_ids, int64_t d,
+                               int is_double, int chunks, int threads, void* stream) {
+  const int64_t chunk_elems =
+      static_cast<int64_t>(kThreadBytes / (is_double ? 8 : 4)) * threads;
+  if (n_rows <= 0 || n_rows > 2147483647 || n_ids <= 0 || d <= 0 || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 || chunks < 1 || chunks > 65535 ||
+      chunks * chunk_elems < d || (chunks - 1) * chunk_elems >= d) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n_rows), static_cast<unsigned>(chunks));
+  auto ids = static_cast<const long long*>(sorted);
+  auto pos = static_cast<const long long*>(order);
+  if (is_double) {
+    gather_bwd_kernel<double><<<grid, threads, 0, st>>>(
+        ids, pos, static_cast<const double*>(dout), static_cast<double*>(dtable), n_ids, d);
+  } else {
+    gather_bwd_kernel<float><<<grid, threads, 0, st>>>(
+        ids, pos, static_cast<const float*>(dout), static_cast<float*>(dtable), n_ids, d);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* repro_gather_cuda_error_string(int code) {

@@ -112,11 +112,40 @@ KERNELS = {
              _P], _I),
         "repro_ssd_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
+    "ssd_bwd": ("ssd_bwd.cu", {
+        # dy, C, cum, local, b, l, h, p, g, n, chunk, is_double, stream
+        "repro_ssd_bwd_local": (
+            [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _I, _P], _I),
+        # local, dso, cum, dfinal (nullable), dinit (nullable), b, l, h, p,
+        # n, chunk, is_double, stream
+        "repro_ssd_bwd_state_pass": (
+            [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _P], _I),
+        # xd, dy, B, C, cum, entering, has_init, dch, dcq, b, l, h, p, g, n,
+        # chunk, is_double, stream
+        "repro_ssd_bwd_query": (
+            [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I64, _I64, _I, _I, _I, _I,
+             _I, _I, _P], _I),
+        # xd, dy, B, C, cum, entering, fstate, dso, has_dfinal, dbh, dx,
+        # dck, b, l, h, p, g, n, chunk, is_double, stream
+        "repro_ssd_bwd_key": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I64, _I64, _I,
+             _I, _I, _I, _I, _I, _P], _I),
+        # dcq, dck, dad, dbh, dch, dB, dC, b, l, h, g, n, chunk, is_double,
+        # stream
+        "repro_ssd_bwd_finish": (
+            [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _P],
+            _I),
+        "repro_ssd_bwd_cuda_error_string": ([_I], ctypes.c_char_p),
+    }),
     "embedding_gather": ("embedding_gather.cu", {
         # table, n_rows, ids, out, n_ids, row_bytes, id_bytes, chunks,
         # threads, stream
         "repro_embedding_gather": (
             [_P, _I64, _P, _P, _I64, _I64, _I, _I, _I, _P], _I),
+        # sorted ids, order, dout, dtable, n_rows, n_ids, d, is_double,
+        # chunks, threads, stream
+        "repro_embedding_gather_bwd": (
+            [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P], _I),
         "repro_gather_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
 }

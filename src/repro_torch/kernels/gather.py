@@ -18,6 +18,15 @@ table and (T,) ids, the same traffic class as the paper's SpMV x-gather.
   ``table[clamp_ids(ids, V)]``.
 * :func:`clamp_ids` — the row each id reads: the reference's indexing
   rule.
+* :func:`embedding_gather_bwd` — the backward, ``dtable[v] = Σ_{i: ids_i
+  = v} dout_i`` (dense (V, d), XLA's scatter into zeros): the ids bounded
+  by :func:`clamp_ids` and stable-sorted on the card (a preparation step,
+  as the SELL pack is), then one launch of ``csrc/embedding_gather.cu``'s
+  backward kernel, a block a table row summing its run of rows in
+  ascending position; on CPU tensors, and only there,
+  :func:`embedding_gather_bwd_ref`, the same sums in the same order.
+  :func:`embedding_gather` records a graph whose backward is this only
+  when grad is enabled and the table requires it.
 """
 from __future__ import annotations
 
@@ -31,15 +40,20 @@ from repro_torch.analysis.preflight import (
     gather_ids_violation,
     ids_on_host,
     plan_embedding_gather,
+    plan_embedding_gather_bwd,
 )
 
-__all__ = ["KERNEL_LAUNCHES", "clamp_ids", "embedding_gather",
+__all__ = ["BWD_LAUNCHES", "KERNEL_LAUNCHES", "clamp_ids", "embedding_gather",
+           "embedding_gather_bwd", "embedding_gather_bwd_ref",
            "embedding_gather_ref"]
 
 #: Launches of kernel B9 by :func:`embedding_gather` in this process: one
 #: per call on a CUDA table, counted where the kernel is launched and
 #: nowhere else.
 KERNEL_LAUNCHES = 0
+#: Launches of B9's backward kernel by :func:`embedding_gather_bwd` in this
+#: process: one per call on a CUDA gradient.
+BWD_LAUNCHES = 0
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64"}
 _ID_BYTES = {torch.int32: 4, torch.int64: 8}
@@ -142,20 +156,131 @@ def embedding_gather(table: torch.Tensor, ids, *, vl: int = 256) -> torch.Tensor
     plan.raise_if_invalid()
     if isinstance(ids, np.ndarray):
         ids = torch.from_numpy(ids)
-    if table.device.type == "cpu":
-        return embedding_gather_ref(table, ids)
-    if table.device.type != "cuda":
+    if table.device.type == "cuda":
+        if ids.device.type == "cuda" and ids.device != table.device:
+            raise ValueError(f"ids on {ids.device}, table on {table.device}")
+        if ids.dtype not in _ID_BYTES:
+            ids = ids.to(torch.int64)
+        ids = ids.to(table.device).contiguous()
+    elif table.device.type != "cpu":
         raise RuntimeError(
             f"embedding_gather has a CUDA kernel and a CPU reference; got "
             f"{table.device}")
-    if ids.device.type == "cuda" and ids.device != table.device:
-        raise ValueError(f"ids on {ids.device}, table on {table.device}")
-    if ids.dtype not in _ID_BYTES:
-        ids = ids.to(torch.int64)
-    ids = ids.to(table.device).contiguous()
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbeddingGather.apply(table, ids, plan)
+    return _gather(table, ids, plan)
+
+
+def _gather(table: torch.Tensor, ids: torch.Tensor, plan) -> torch.Tensor:
+    """The gather of planned ids: :func:`embedding_gather_ref` on a CPU
+    table, else one launch of kernel B9 (ids already on the table's card)."""
+    if table.device.type == "cpu":
+        return embedding_gather_ref(table, ids)
     table = table.contiguous()
-    out = torch.empty((ids.shape[0], d), dtype=table.dtype, device=table.device)
+    out = torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=table.device)
     if ids.shape[0]:
         (blk,) = plan.blocks
         _launch(table, ids, out, blk.grid[1], blk.block[0])
     return out
+
+
+class _EmbeddingGather(torch.autograd.Function):
+    """Kernel B9 with a gradient: its backward is
+    :func:`embedding_gather_bwd` on the ids the forward read."""
+
+    @staticmethod
+    def forward(ctx, table, ids, plan):
+        ctx.vocab = table.shape[0]
+        ctx.save_for_backward(ids)
+        return _gather(table, ids, plan)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (ids,) = ctx.saved_tensors
+        return embedding_gather_bwd(dout, ids, ctx.vocab), None, None
+
+
+def _sorted_runs(ids: torch.Tensor, vocab: int):
+    """The ids bounded by :func:`clamp_ids` and stable-sorted: (sorted ids,
+    their positions), equal ids forming runs in ascending position."""
+    return torch.sort(clamp_ids(ids, vocab), stable=True)
+
+
+def embedding_gather_bwd_ref(dout: torch.Tensor, ids, vocab: int) -> torch.Tensor:
+    """Plain backward of ``table[clamp_ids(ids)]``: the (vocab, d) table
+    gradient, each row the sum of its ids' rows of ``dout`` from zero in
+    ascending position (the kernel's order, so its results are equal)."""
+    ids = torch.as_tensor(ids, device=dout.device)
+    out = torch.zeros((vocab, dout.shape[1]), dtype=dout.dtype,
+                      device=dout.device)
+    if ids.numel() == 0:
+        return out
+    sorted_ids, order = _sorted_runs(ids, vocab)
+    rows, counts = torch.unique_consecutive(sorted_ids, return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    acc = torch.zeros((rows.shape[0], dout.shape[1]), dtype=dout.dtype,
+                      device=dout.device)
+    for k in range(int(counts.max())):
+        live = counts > k
+        acc[live] = acc[live] + dout[order[starts[live] + k]]
+    out[rows] = acc
+    return out
+
+
+def embedding_gather_bwd(dout: torch.Tensor, ids, vocab: int) -> torch.Tensor:
+    """The gradient of a (vocab, d) table gathered at ``ids`` (T,) given
+    ``dout`` (T, d) float32 or float64.  On a CUDA ``dout`` the ids are
+    bounded and stable-sorted on the card, then one launch of B9's backward
+    kernel; on the CPU :func:`embedding_gather_bwd_ref`."""
+    if dout.ndim != 2:
+        raise ValueError(f"dout must be (T, d), got {tuple(dout.shape)}")
+    dtype = _DTYPE_NAMES.get(dout.dtype)
+    if dtype is None:
+        raise TypeError(f"dout dtype {dout.dtype} is not float32 or float64")
+    ids = torch.as_tensor(ids)
+    if ids.shape != (dout.shape[0],):
+        raise ValueError(f"ids {tuple(ids.shape)} do not match dout "
+                         f"{tuple(dout.shape)}")
+    if dout.device.type == "cpu":
+        return embedding_gather_bwd_ref(dout, ids.cpu(), vocab)
+    if dout.device.type != "cuda":
+        raise RuntimeError(f"embedding_gather_bwd has a CUDA kernel and a CPU "
+                           f"reference; got {dout.device}")
+    d = dout.shape[1]
+    plan = _bwd_plan(vocab, d, ids.shape[0], dtype)
+    plan.raise_if_invalid()
+    sorted_ids, order = _sorted_runs(ids.to(dout.device), vocab)
+    dout = dout.contiguous()
+    dtable = torch.empty((vocab, d), dtype=dout.dtype, device=dout.device)
+    (blk,) = plan.blocks
+    _launch_bwd(sorted_ids, order, dout, dtable, blk.grid[1], blk.block[0])
+    return dtable
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_plan(vocab: int, d: int, t: int, dtype: str):
+    return plan_embedding_gather_bwd(vocab, d, t, dtype=dtype)
+
+
+def _launch_bwd(sorted_ids, order, dout, dtable, chunks: int,
+                threads: int) -> None:
+    """One launch of B9's backward kernel, grid (V, ``chunks``) of
+    ``threads``, on PyTorch's current stream of the gradient's device,
+    with that device current."""
+    global BWD_LAUNCHES
+    from repro_torch.kernels import cuda_lib
+
+    lib = cuda_lib.library("embedding_gather")
+    with torch.cuda.device(dout.device):
+        err = lib.repro_embedding_gather_bwd(
+            sorted_ids.data_ptr(), order.data_ptr(), dout.data_ptr(),
+            dtable.data_ptr(), dtable.shape[0], dout.shape[0], dout.shape[1],
+            int(dout.dtype == torch.float64), chunks, threads,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"embedding_gather_bwd kernel launch failed (cudaError {err}: "
+            f"{lib.repro_gather_cuda_error_string(err).decode()}) for "
+            f"{dout.shape[0]} rows into a {tuple(dtable.shape)} table")
+    BWD_LAUNCHES += 1

@@ -21,6 +21,14 @@ the next chunk.  Heads share B and C per group (``h / g`` heads a group).
   PyTorch (the segmented cum, the chunk states, the carry, the query and
   key tiles on and below the diagonal), to test the decomposition on the
   CPU against the reference.
+* :func:`ssd_fused_bwd` — the backward: on CUDA tensors the
+  :data:`LAUNCHES_PER_BWD` launches of ``csrc/ssd_bwd.cu`` (the local
+  dY-C terms, the reverse state pass, the query-tile side, the key-tile
+  side, the finish), from the forward's cum and entering states; on CPU
+  tensors, and only there, :func:`ssd_fused_bwd_ref`, the same chunk
+  formulas in plain PyTorch.  :func:`ssd_fused` records a graph through
+  an autograd Function whose backward is this, when grad is enabled and
+  an input requires it; else it records nothing, as it did for serving.
 
 Beyond the reference's ``ssd_fused`` all take an optional ``init_state``
 (b, h, p, n), the contract of ``repro.models.ssm.ssd_chunked``, which the
@@ -34,11 +42,17 @@ import functools
 
 import torch
 
-from repro_torch.analysis.preflight import plan_ssd_fused
-from repro_torch.core.autotune import SSD_LAUNCHES, SSD_SCAN_ROWS, SSD_TILE
+from repro_torch.analysis.preflight import plan_ssd_fused, plan_ssd_fused_bwd
+from repro_torch.core.autotune import (
+    SSD_BWD_LAUNCHES,
+    SSD_LAUNCHES,
+    SSD_SCAN_ROWS,
+    SSD_TILE,
+)
 
-__all__ = ["KERNEL_LAUNCHES", "LAUNCHES_PER_CALL", "segsum",
-           "ssd_chunk_parallel_model", "ssd_fused", "ssd_fused_ref"]
+__all__ = ["BWD_LAUNCHES", "KERNEL_LAUNCHES", "LAUNCHES_PER_BWD",
+           "LAUNCHES_PER_CALL", "segsum", "ssd_chunk_parallel_model",
+           "ssd_fused", "ssd_fused_bwd", "ssd_fused_bwd_ref", "ssd_fused_ref"]
 
 #: Launches of kernel B8 by :func:`ssd_fused` in this process, on CUDA
 #: tensors, counted where each launch is made and nowhere else:
@@ -46,6 +60,12 @@ __all__ = ["KERNEL_LAUNCHES", "LAUNCHES_PER_CALL", "segsum",
 KERNEL_LAUNCHES = 0
 #: Launches of one :func:`ssd_fused` call on the card.
 LAUNCHES_PER_CALL = len(SSD_LAUNCHES)
+#: Launches of the backward kernel by :func:`ssd_fused_bwd` in this
+#: process, on CUDA tensors, counted where each launch is made:
+#: :data:`LAUNCHES_PER_BWD` a call.
+BWD_LAUNCHES = 0
+#: Launches of one :func:`ssd_fused_bwd` call on the card.
+LAUNCHES_PER_BWD = len(SSD_BWD_LAUNCHES)
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
 
@@ -91,6 +111,15 @@ def _plan(b: int, l: int, h: int, p: int, g: int, n: int, chunk: int,
     front of the first launch."""
     return plan_ssd_fused(b, l, h, p, g, n, chunk=chunk,
                           dtype=str(dtype).removeprefix("torch."))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(b: int, l: int, h: int, p: int, g: int, n: int, chunk: int,
+              dtype: torch.dtype):
+    """:func:`plan_ssd_fused_bwd` of one shape, built once (a train step
+    calls the backward once a layer with the same shape)."""
+    return plan_ssd_fused_bwd(b, l, h, p, g, n, chunk=chunk,
+                              dtype=str(dtype).removeprefix("torch."))
 
 
 def segsum(a: torch.Tensor) -> torch.Tensor:
@@ -204,12 +233,14 @@ def ssd_chunk_parallel_model(xd: torch.Tensor, ad: torch.Tensor,
     return y, carried
 
 
-def _launch(xd, ad, B, C, init, y, fstate, chunk: int) -> None:
+def _launch(xd, ad, B, C, init, y, fstate, chunk: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B8's three launches on PyTorch's current stream of xd's
     device, made with that device current; each is counted once it is
     made, and a refused one raises before the next is tried.  The scratch
     (cum (b, h, l), the chunk states and the states entering each chunk,
-    (b, h, l / chunk, p, n) each) is allocated here, in one block."""
+    (b, h, l / chunk, p, n) each) is allocated here; cum and the entering
+    states share one block and are returned, for the backward."""
     global KERNEL_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
@@ -220,11 +251,11 @@ def _launch(xd, ad, B, C, init, y, fstate, chunk: int) -> None:
     nc = l // chunk
     n_cum = -(-b * h * l // 4) * 4            # the states start 16 B aligned
     n_st = b * h * nc * p * n
-    scratch = torch.empty(n_cum + 2 * n_st, dtype=fstate.dtype,
-                          device=xd.device)
-    cum = scratch[:b * h * l].view(b, h, l)
-    states = scratch[n_cum:n_cum + n_st].view(b, h, nc, p, n)
-    entering = scratch[n_cum + n_st:].view(b, h, nc, p, n)
+    kept = torch.empty(n_cum + n_st, dtype=fstate.dtype, device=xd.device)
+    cum = kept[:b * h * l].view(b, h, l)
+    entering = kept[n_cum:].view(b, h, nc, p, n)
+    states = torch.empty((b, h, nc, p, n), dtype=fstate.dtype,
+                         device=xd.device)
     with torch.cuda.device(xd.device):
         stream = torch.cuda.current_stream().cuda_stream
         calls = {
@@ -249,6 +280,56 @@ def _launch(xd, ad, B, C, init, y, fstate, chunk: int) -> None:
                     f"{msg}) for (b, l, h, p, g, n) = {(b, l, h, p, g, n)}, "
                     f"chunk {chunk}")
             KERNEL_LAUNCHES += 1
+    return cum, entering
+
+
+def _forward(xd, ad, B, C, chunk: int, init_state, keep: bool):
+    """The scan of checked arguments: (y, final state) and, on the card,
+    the forward's cum and entering states (for the backward when ``keep``;
+    None on the CPU)."""
+    b, l, h, p, g, n = _check_args(xd, ad, B, C, init_state)
+    if xd.device.type == "cpu":
+        y, fstate = ssd_fused_ref(xd, ad, B, C, chunk=chunk,
+                                  init_state=init_state)
+        return y, fstate, None, None
+    if xd.device.type != "cuda":
+        raise RuntimeError(
+            f"ssd_fused has a CUDA kernel and a CPU reference; got {xd.device}")
+    _plan(b, l, h, p, g, n, chunk, xd.dtype).raise_if_invalid()
+    xd, ad, B, C = (t.contiguous() for t in (xd, ad, B, C))
+    acc = _acc_dtype(xd.dtype)
+    init = None if init_state is None else init_state.to(acc).contiguous()
+    y = torch.empty_like(xd)
+    fstate = torch.empty((b, h, p, n), dtype=acc, device=xd.device)
+    cum, entering = _launch(xd, ad, B, C, init, y, fstate, chunk)
+    return (y, fstate) + ((cum, entering) if keep else (None, None))
+
+
+class _SSDFused(torch.autograd.Function):
+    """:func:`ssd_fused` with a gradient: the forward's launches (or its
+    plain version on the CPU), then :func:`ssd_fused_bwd`'s, which read the
+    forward's cum and entering states (saved, not recomputed: at mamba2's
+    (2, 512) 10.5 MB a layer in fp32)."""
+
+    @staticmethod
+    def forward(ctx, xd, ad, B, C, init_state, chunk):
+        y, fstate, cum, entering = _forward(xd, ad, B, C, chunk, init_state,
+                                            keep=True)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xd, ad, B, C, init_state, fstate, cum, entering)
+        return y, fstate
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        xd, ad, B, C, init_state, fstate, cum, entering = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(xd)
+        dxd, dad, dB, dC, dinit = ssd_fused_bwd(
+            xd, ad, B, C, dy, dfinal, chunk=ctx.chunk, init_state=init_state,
+            saved=(fstate, cum, entering))
+        return (dxd, dad, dB, dC,
+                dinit if ctx.needs_input_grad[4] else None, None)
 
 
 def ssd_fused(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
@@ -259,19 +340,207 @@ def ssd_fused(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
     (b, l, h), B and C (b, l, g, n), all float32 or all float64; l a
     multiple of ``chunk``.  Returns (y (b, l, h, p), final state
     (b, h, p, n)).  On a CUDA device the :data:`LAUNCHES_PER_CALL` launches
-    of kernel B8; on the CPU the plain :func:`ssd_fused_ref`.
+    of kernel B8; on the CPU the plain :func:`ssd_fused_ref`.  Where grad
+    is enabled and an input requires it, the result carries a graph whose
+    backward is :func:`ssd_fused_bwd`.
     """
-    b, l, h, p, g, n = _check_args(xd, ad, B, C, init_state)
-    if xd.device.type == "cpu":
-        return ssd_fused_ref(xd, ad, B, C, chunk=chunk, init_state=init_state)
-    if xd.device.type != "cuda":
-        raise RuntimeError(
-            f"ssd_fused has a CUDA kernel and a CPU reference; got {xd.device}")
-    _plan(b, l, h, p, g, n, chunk, xd.dtype).raise_if_invalid()
-    xd, ad, B, C = (t.contiguous() for t in (xd, ad, B, C))
-    acc = _acc_dtype(xd.dtype)
-    init = None if init_state is None else init_state.to(acc).contiguous()
-    y = torch.empty_like(xd)
-    fstate = torch.empty((b, h, p, n), dtype=acc, device=xd.device)
-    _launch(xd, ad, B, C, init, y, fstate, chunk)
+    _check_args(xd, ad, B, C, init_state)
+    ins = (xd, ad, B, C) + (() if init_state is None else (init_state,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return _SSDFused.apply(xd, ad, B, C, init_state, chunk)
+    y, fstate, _, _ = _forward(xd, ad, B, C, chunk, init_state, keep=False)
     return y, fstate
+
+
+# ---------------------------------------------------------------------------
+# The backward
+# ---------------------------------------------------------------------------
+
+
+def ssd_fused_bwd_ref(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
+                      C: torch.Tensor, dy: torch.Tensor,
+                      dfinal: torch.Tensor | None = None, *, chunk: int = 128,
+                      init_state: torch.Tensor | None = None):
+    """The backward of :func:`ssd_fused_ref` in plain PyTorch, by the chunk
+    formulas the kernel computes (``csrc/ssd_bwd.cu``), all chunks at once:
+    the forward's cum and entering states (recomputed here), each chunk's
+    local term ``Σ_i e^{cum_i} dY_iᵀ C_i``, the reverse pass over the
+    chunks for the gradient of each chunk's leaving state dS_out, then
+    ``M = (dY Xᵀ) ∘ L``, ``dX = (G ∘ L)ᵀ dY + diag(e^{cum_last - cum}) B
+    dS_outᵀ``, ``dC = M B + diag(e^{cum}) dY S_in``, ``dB = Mᵀ C +
+    diag(e^{cum_last - cum}) X dS_out``, dcum and its reverse running sum
+    dad; dB and dC summed over the heads of a group in ascending order.
+    ``dfinal`` is the final state's gradient (None: zero).  Returns (dxd,
+    dad, dB, dC, d init_state (b, h, p, n) in the accumulation dtype, the
+    gradient of the zero state without one)."""
+    b, l, h, p, g, n = _check_args(xd, ad, B, C, init_state)
+    _plan(b, l, h, p, g, n, chunk, xd.dtype).raise_if_invalid()
+    acc = _acc_dtype(xd.dtype)
+    q, nc, hg = chunk, l // chunk, h // g
+    grp = torch.arange(h, device=xd.device) // hg
+
+    def per_chunk(t, last):                   # (b, l, h, last) -> (b, h, nc, q, last)
+        return t.to(acc).reshape(b, nc, q, h, last).permute(0, 3, 1, 2, 4)
+
+    def back(t, last):                        # the inverse of per_chunk
+        return t.permute(0, 2, 3, 1, 4).reshape(b, l, h, last)
+
+    x = per_chunk(xd, p)
+    bh, ch = (per_chunk(t[:, :, grp], n) for t in (B, C))
+    dyc = per_chunk(dy, p)
+    a = ad.to(acc).reshape(b, nc, q, h).permute(0, 3, 1, 2)     # (b, h, nc, q)
+    cum = torch.cumsum(a, dim=-1)
+    last = cum[..., -1]
+    dec_end = torch.exp(last[..., None] - cum)
+    zeros = torch.zeros((b, h, p, n), dtype=acc, device=xd.device)
+    # the forward's states: entering each chunk (S_in) and leaving it
+    carried = zeros if init_state is None else init_state.to(acc)
+    s_in = []
+    for c in range(nc):
+        s_in.append(carried)
+        carried = carried * torch.exp(last[:, :, c])[..., None, None] \
+            + (x[:, :, c] * dec_end[:, :, c, :, None]).transpose(-1, -2) \
+            @ bh[:, :, c]
+    s_out = torch.stack(s_in[1:] + [carried], dim=2)
+    s_in = torch.stack(s_in, dim=2)
+    # launch 1: local terms; launch 2: the reverse pass
+    local = (dyc * torch.exp(cum)[..., None]).transpose(-1, -2) @ ch
+    run = zeros if dfinal is None else dfinal.to(acc)
+    d_out = []
+    for c in reversed(range(nc)):
+        d_out.append(run)
+        run = run * torch.exp(last[:, :, c])[..., None, None] + local[:, :, c]
+    d_out = torch.stack(d_out[::-1], dim=2)
+    # launches 3 and 4: the chunk formulas
+    lmat = torch.exp(segsum(a))
+    gm = ch @ bh.transpose(-1, -2)
+    m = (dyc @ x.transpose(-1, -2)) * lmat
+    x_dso = x @ d_out                                           # (.., q, n)
+    dx = (gm * lmat).transpose(-1, -2) @ dyc \
+        + dec_end[..., None] * (bh @ d_out.transpose(-1, -2))
+    dc = m @ bh + torch.exp(cum)[..., None] * (dyc @ s_in)
+    db = m.transpose(-1, -2) @ ch + dec_end[..., None] * x_dso
+    pm = gm * m
+    y_inter = torch.exp(cum)[..., None] * (ch @ s_in.transpose(-1, -2))
+    dcum = pm.sum(-1) - pm.sum(-2) + (dyc * y_inter).sum(-1) \
+        - dec_end * (x_dso * bh).sum(-1)
+    dcum[..., -1] += (d_out * s_out).sum((-1, -2))
+    # launch 5: dad, the group sums
+    dad = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    dad = dad.permute(0, 2, 3, 1).reshape(b, l, h)
+
+    def group_sum(t):
+        t = back(t, n).reshape(b, l, g, hg, n)
+        out = t[:, :, :, 0]
+        for k in range(1, hg):
+            out = out + t[:, :, :, k]
+        return out
+
+    return (back(dx, p).to(xd.dtype), dad.to(ad.dtype),
+            group_sum(db).to(B.dtype), group_sum(dc).to(C.dtype), run)
+
+
+def _launch_bwd(xd, B, C, dy, dfinal, init, fstate, cum, entering,
+                chunk: int):
+    """The backward kernel's five launches on PyTorch's current stream of
+    xd's device, made with that device current; each counted once made, a
+    refused one raising before the next is tried.  Returns (dxd, dad, dB,
+    dC, dinit or None); the scratch (local terms and dS_out (b, h, nc, p,
+    n), per-head dB and dC (b, l, h, n), dcum's two parts (b, h, l)) is
+    allocated here."""
+    global BWD_LAUNCHES
+    from repro_torch.kernels import cuda_lib
+
+    lib = cuda_lib.library("ssd_bwd")
+    b, l, h, p = xd.shape
+    g, n = B.shape[2], B.shape[3]
+    dbl = int(xd.dtype == torch.float64)
+    nc = l // chunk
+    dev, dt = xd.device, xd.dtype
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    local, dso = empty(b, h, nc, p, n), empty(b, h, nc, p, n)
+    dbh, dch = empty(b, l, h, n), empty(b, l, h, n)
+    dcq, dck = empty(b, h, l), empty(b, h, l)
+    dx, dad = empty(b, l, h, p), empty(b, l, h)
+    dB, dC = empty(b, l, g, n), empty(b, l, g, n)
+    dinit = None if init is None else empty(b, h, p, n)
+
+    def ptr(t):                               # a nullable operand
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        calls = {
+            "bwd_local": lambda: lib.repro_ssd_bwd_local(
+                dy.data_ptr(), C.data_ptr(), cum.data_ptr(), local.data_ptr(),
+                b, l, h, p, g, n, chunk, dbl, stream),
+            "bwd_state_pass": lambda: lib.repro_ssd_bwd_state_pass(
+                local.data_ptr(), dso.data_ptr(), cum.data_ptr(), ptr(dfinal),
+                ptr(dinit), b, l, h, p, n, chunk, dbl, stream),
+            "bwd_query": lambda: lib.repro_ssd_bwd_query(
+                xd.data_ptr(), dy.data_ptr(), B.data_ptr(), C.data_ptr(),
+                cum.data_ptr(), entering.data_ptr(), int(init is not None),
+                dch.data_ptr(), dcq.data_ptr(), b, l, h, p, g, n, chunk, dbl,
+                stream),
+            "bwd_key": lambda: lib.repro_ssd_bwd_key(
+                xd.data_ptr(), dy.data_ptr(), B.data_ptr(), C.data_ptr(),
+                cum.data_ptr(), entering.data_ptr(), fstate.data_ptr(),
+                dso.data_ptr(), int(dfinal is not None), dbh.data_ptr(),
+                dx.data_ptr(), dck.data_ptr(), b, l, h, p, g, n, chunk, dbl,
+                stream),
+            "bwd_finish": lambda: lib.repro_ssd_bwd_finish(
+                dcq.data_ptr(), dck.data_ptr(), dad.data_ptr(), dbh.data_ptr(),
+                dch.data_ptr(), dB.data_ptr(), dC.data_ptr(), b, l, h, g, n,
+                chunk, dbl, stream),
+        }
+        for launch in SSD_BWD_LAUNCHES:
+            err = calls[launch]()
+            if err != 0:
+                msg = lib.repro_ssd_bwd_cuda_error_string(err).decode()
+                raise RuntimeError(
+                    f"ssd_fused_bwd {launch} launch failed (cudaError {err}: "
+                    f"{msg}) for (b, l, h, p, g, n) = {(b, l, h, p, g, n)}, "
+                    f"chunk {chunk}")
+            BWD_LAUNCHES += 1
+    return dx, dad, dB, dC, dinit
+
+
+def ssd_fused_bwd(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
+                  C: torch.Tensor, dy: torch.Tensor,
+                  dfinal: torch.Tensor | None = None, *, chunk: int = 128,
+                  init_state: torch.Tensor | None = None, saved=None):
+    """Gradients of :func:`ssd_fused`'s (y, final state) with respect to
+    (xd, ad, B, C, init_state), given dy (b, l, h, p) and ``dfinal``
+    (b, h, p, n; None: zero).  On CUDA tensors the
+    :data:`LAUNCHES_PER_BWD` launches of ``csrc/ssd_bwd.cu``, or raises; on
+    CPU tensors :func:`ssd_fused_bwd_ref`.  ``saved`` is the forward's
+    (final state, cum, entering states) from its launches; without it the
+    forward's launches run first to make them.  Returns (dxd, dad, dB, dC,
+    d init_state or None) in the inputs' dtype."""
+    b, l, h, p, g, n = _check_args(xd, ad, B, C, init_state)
+    if dy.shape != xd.shape or dy.device != xd.device:
+        raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} is not xd's "
+                         f"{tuple(xd.shape)} on {xd.device}")
+    if xd.device.type == "cpu":
+        dxd, dad, dB, dC, dinit = ssd_fused_bwd_ref(
+            xd, ad, B, C, dy, dfinal, chunk=chunk, init_state=init_state)
+        return dxd, dad, dB, dC, None if init_state is None else dinit
+    if xd.device.type != "cuda":
+        raise RuntimeError(f"ssd_fused_bwd has a CUDA kernel and a CPU "
+                           f"reference; got {xd.device}")
+    _bwd_plan(b, l, h, p, g, n, chunk, xd.dtype).raise_if_invalid()
+    acc = _acc_dtype(xd.dtype)
+    xd, B, C = (t.contiguous() for t in (xd, B, C))
+    init = None if init_state is None else init_state.to(acc).contiguous()
+    if saved is None:
+        _, fstate, cum, entering = _forward(xd, ad, B, C, chunk, init,
+                                            keep=True)
+    else:
+        fstate, cum, entering = saved
+    dy = dy.to(xd.dtype).contiguous()
+    dfinal = None if dfinal is None else dfinal.to(acc).contiguous()
+    return _launch_bwd(xd, B, C, dy, dfinal, init, fstate, cum, entering,
+                       chunk)

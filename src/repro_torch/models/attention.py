@@ -45,7 +45,7 @@ from torch import nn
 
 from repro_torch.kernels.execspec import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, he_init, rms_norm, rope_freqs
+from repro_torch.models.layers import apply_rope, he_init, param, rms_norm, rope_freqs
 
 __all__ = ["NEG_INF", "Attention", "KVCache", "attention", "cache_append",
            "init_attn_params", "init_cache"]
@@ -103,7 +103,8 @@ def cache_append(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> KVCache:
 
 class Attention(nn.Module):
     """The parameters of one attention layer (see :func:`init_attn_params`),
-    frozen: the port serves only."""
+    without a gradient until the model is made trainable
+    (:func:`repro_torch.models.layers.param`)."""
 
     def __init__(self, tensors: dict[str, torch.Tensor]):
         super().__init__()
@@ -112,8 +113,7 @@ class Attention(nn.Module):
             raise ValueError(f"unknown attention parameters {sorted(unknown)}")
         for name in PARAM_NAMES:
             if name in tensors:
-                self.register_parameter(
-                    name, nn.Parameter(tensors[name], requires_grad=False))
+                self.register_parameter(name, param(tensors[name]))
 
 
 def init_attn_params(gen: torch.Generator, cfg: ModelConfig) -> Attention:

@@ -12,7 +12,15 @@ self-attention blocks).
 A Python loop over the layers replaces the reference's ``lax.scan``
 (``blocks.py:161``): PyTorch runs eagerly, so every layer sees concrete
 activations, which the MoE SELL dispatch needs (the reference's
-``eager_blocks`` scope is the default here and is not ported).  The
+``eager_blocks`` scope is the default here and is not ported).
+
+``remat`` (the reference's ``jax.checkpoint`` around its scan body) wraps
+each block where a graph is recorded (:func:`remat_call`): ``"full"``
+saves a block's inputs only and recomputes the rest in the backward,
+``"dots"`` also saves the outputs of the un-batched matrix products
+(``aten.mm`` / ``aten.addmm``: the counterpart of
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest, kernel
+B8 included.  The
 per-layer decode caches stay stacked on a leading layer axis, as in the
 reference: a KV cache's k / v are (L, B, C, Hkv, dh), its pos (L, C) and
 length (L,); an SSM state's leaves (L, B, ...).  A hybrid stack carries
@@ -20,10 +28,12 @@ both.  Any other kind raises ``ValueError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.kernels.execspec import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -31,14 +41,43 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, frozen, he_init, rms_norm, swiglu
+from repro_torch.models.layers import MLP, he_init, param, rms_norm, swiglu
 from repro_torch.models.ssm import SSMState
 
-__all__ = ["Block", "LayerCaches", "MLP", "block_forward", "init_block_params",
-           "init_layer_caches", "run_blocks", "stack_init"]
+__all__ = ["Block", "LayerCaches", "MLP", "REMAT_POLICIES", "block_forward",
+           "init_block_params", "init_layer_caches", "remat_call", "run_blocks",
+           "stack_init"]
 
 #: The block kinds, the reference's.
 KINDS = ("dense", "moe", "ssm", "hybrid", "cross")
+#: The rematerialization policies, the reference's (None: save everything).
+REMAT_POLICIES = (None, "full", "dots")
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep un-batched matrix products, recompute the
+    rest."""
+    policy = torch_checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def remat_call(fn, remat: str | None, *args):
+    """``fn(*args)`` under the ``remat`` policy where grad is enabled:
+    ``"full"`` a non-reentrant checkpoint, ``"dots"`` a selective one that
+    saves the un-batched matrix products; ``None``, or no grad, a plain
+    call."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat {remat!r}; the policies are "
+                         f"{REMAT_POLICIES}")
+    if remat is None or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _save_dots)
+    return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _check_kind(kind: str) -> None:
@@ -65,10 +104,10 @@ class Block(nn.Module):
                  ln2: torch.Tensor | None = None, mlp: MLP | None = None,
                  moe: moe_mod.MoE | None = None):
         super().__init__()
-        self.ln1 = frozen(ln1)
+        self.ln1 = param(ln1)
         self.ssm = ssm
         self.attn = attn
-        self.ln2 = None if ln2 is None else frozen(ln2)
+        self.ln2 = None if ln2 is None else param(ln2)
         self.mlp = mlp
         self.moe = moe
 
@@ -158,21 +197,26 @@ def _stack(per_layer: list, cls):
 
 def run_blocks(stack: nn.ModuleList, cfg: ModelConfig, kind: str, x: torch.Tensor,
                *, caches: LayerCaches | None = None,
-               ctx: torch.Tensor | None = None, causal: bool = True
+               ctx: torch.Tensor | None = None, causal: bool = True,
+               remat: str | None = None
                ) -> tuple[torch.Tensor, LayerCaches | None, torch.Tensor]:
     """Run a homogeneous stack layer by layer (the reference's
-    ``scan_blocks``; ``ctx`` and ``causal`` go to every block).  Returns
-    (x, new_caches, aux_sum); new caches are new tensors, the given ones
-    are left as they were."""
+    ``scan_blocks``; ``ctx`` and ``causal`` go to every block, each block
+    under ``remat``, :func:`remat_call`).  Returns (x, new_caches,
+    aux_sum); new caches are new tensors, the given ones are left as they
+    were."""
     _check_kind(kind)
     kvs, states = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, block in enumerate(stack):
         kv = layer_of(caches.kv, i) if caches is not None else None
         st = layer_of(caches.ssm, i) if caches is not None else None
-        x, new_kv, new_ssm, aux_l = block_forward(block, cfg, kind, x, kv=kv,
-                                                  ssm_state=st, ctx=ctx,
-                                                  causal=causal)
+
+        def body(h, block=block, kv=kv, st=st):
+            return block_forward(block, cfg, kind, h, kv=kv, ssm_state=st,
+                                 ctx=ctx, causal=causal)
+
+        x, new_kv, new_ssm, aux_l = remat_call(body, remat, x)
         aux = aux + aux_l
         if new_kv is not None:
             kvs.append(new_kv)

@@ -6,6 +6,11 @@ blocks carry a leading layer axis) and builds the port's :class:`~repro_torch
 .models.model.LM` with the same values on ``device``.  The parity tests
 use it so that both packages compute with the same weights; nothing here
 imports ``jax`` or ``repro``.
+
+:func:`reference_path` maps a parameter's name in the port back to its
+reference leaf and the index into that leaf's leading layer axes;
+:func:`reference_rank` is that leaf's rank, which the reference's AdamW
+reads to choose what to decay (:func:`repro_torch.optim.adamw.decay_mask`).
 """
 from __future__ import annotations
 
@@ -22,10 +27,31 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP
 from repro_torch.models.model import LM, decoder_layer
 
-__all__ = ["params_from_reference"]
+__all__ = ["params_from_reference", "reference_path", "reference_rank"]
 
 
-def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> LM:
+def reference_path(name: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """The reference leaf of the port's parameter ``name`` (a
+    ``named_parameters()`` name of an :class:`LM`): (its keys in the
+    reference's pytree, its index into the leaf's stacked layer axes).
+    ``blocks.3.ssm.in_proj`` is ``(("blocks", "ssm", "in_proj"), (3,))``,
+    ``self_blocks.1.2.attn.wq`` is ``(("self_blocks", "attn", "wq"), (1,
+    2))`` (group, layer), ``decoder.0.cross.ln1`` is ``(("decoder",
+    "cross", "ln1"), (0,))``; ``dense0`` and the top-level leaves carry no
+    index."""
+    parts = name.split(".")
+    return (tuple(k for k in parts if not k.isdigit()),
+            tuple(int(k) for k in parts if k.isdigit()))
+
+
+def reference_rank(name: str, shape) -> int:
+    """The rank of the reference leaf that holds the port's parameter
+    ``name`` of ``shape``: its own rank plus its stacked layer axes."""
+    return len(shape) + len(reference_path(name)[1])
+
+
+def params_from_reference(tree: dict, cfg: ModelConfig, device=None, *,
+                          trainable: bool = False) -> LM:
     """The reference's ``init_params`` pytree (numpy leaves) as an
     :class:`LM` on ``device`` (``None``: the card).  Each block subtree
     holds ``ln1``, then whichever of its kind's leaves it has: ``attn.{wq,
@@ -37,7 +63,12 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> LM:
     ``dense0`` (one block, unstacked); vision: ``self_blocks`` (two
     leading axes, group and layer), ``cross_blocks`` and ``ctx_proj``;
     enc-dec: ``encoder``, ``enc_norm`` and ``decoder.{self, cross}``.  The
-    layer counts are checked against ``cfg``."""
+    layer counts are checked against ``cfg``.  Every parameter requires
+    grad when ``trainable``."""
+    return _from_reference(tree, cfg, device).requires_grad_(trainable)
+
+
+def _from_reference(tree: dict, cfg: ModelConfig, device) -> LM:
     dev = resolve_device(device)
 
     def t(a) -> torch.Tensor:

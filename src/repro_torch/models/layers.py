@@ -1,11 +1,10 @@
 """Shared low-level layers: RMSNorm, rotary embeddings, SwiGLU and the
-initializers (port of ``repro.models.layers``).
+initializers and the training loss (port of ``repro.models.layers``).
 
 The initializers draw from an explicit ``torch.Generator`` (the counterpart
 of a ``jax.random`` key) on the generator's device; the same seed gives
 other numbers than JAX's, so parity tests move the reference's weights over
-instead (:mod:`repro_torch.models.convert`).  The loss comes with the
-training slice (ROADMAP A12.4).
+instead (:mod:`repro_torch.models.convert`).
 """
 from __future__ import annotations
 
@@ -19,7 +18,7 @@ __all__ = ["MLP", "apply_rope", "embed_init", "frozen", "he_init", "rms_norm",
            "rope_freqs", "swiglu"]
 
 
-def frozen(t: torch.Tensor) -> nn.Parameter:
+def param(t: torch.Tensor) -> nn.Parameter:
     """``t`` as a parameter without a gradient: the port serves only."""
     return nn.Parameter(t, requires_grad=False)
 
@@ -30,9 +29,9 @@ class MLP(nn.Module):
     def __init__(self, w_gate: torch.Tensor, w_up: torch.Tensor,
                  w_down: torch.Tensor):
         super().__init__()
-        self.w_gate = frozen(w_gate)
-        self.w_up = frozen(w_up)
-        self.w_down = frozen(w_down)
+        self.w_gate = param(w_gate)
+        self.w_up = param(w_up)
+        self.w_down = param(w_down)
 
 
 def he_init(gen: torch.Generator, shape, dtype=torch.float32,
@@ -81,3 +80,18 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = torch.matmul(x, w_gate)
     u = torch.matmul(x, w_up)
     return torch.matmul(Fn.silu(g) * u, w_down)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels, ignore_id: int = -1
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean token cross-entropy in float32 over the labels that are not
+    ``ignore_id``; returns (loss, n_valid_tokens), the reference's."""
+    logits = logits.float()
+    labels = torch.as_tensor(labels, device=logits.device)
+    mask = labels != ignore_id
+    safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = torch.where(mask, logz - gold, 0.0)
+    n = torch.clamp(mask.sum(), min=1)
+    return nll.sum() / n, n

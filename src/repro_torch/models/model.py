@@ -6,7 +6,7 @@ interleaved cross-attention (``"vlm"``: llama-3.2-vision-11b) and the
 encoder-decoder (``"audio"``: seamless-m4t-medium).
 
 Public surface (the reference's, with an ``nn.Module`` for the pytree):
-  init_params(gen, cfg)                         -> LM on gen's device (f32)
+  init_params(gen, cfg, trainable=False)        -> LM on gen's device (f32)
   forward(params, cfg, batch, ...)              -> (logits, aux)
   init_caches(cfg, batch_size, max_len, ...)    -> decode caches
   prefill(params, cfg, batch, caches, ...)      -> (logits, caches)
@@ -26,8 +26,15 @@ the reference does.  The token embedding is kernel B9
 as the reference leaves it to XLA.  Everything runs on the device the
 parameters live on.
 
-``remat`` and ``mesh`` raise ``NotImplementedError`` (training is ROADMAP
-A12.4, multi-device A10).
+:func:`forward` records a graph where grad is enabled and the parameters
+require it (a trainable model, the train step's); its ``remat`` wraps each
+block (each vision group, each enc-dec decoder layer) as the reference's
+``jax.checkpoint`` wraps its scan bodies
+(:func:`repro_torch.models.blocks.remat_call`).  :func:`prefill` and
+:func:`decode_step` record none.  A ``tok_embed`` in another dtype than
+float32 / float64 (bf16 parameters) is cast to float32 before kernel B9,
+one copy, the gradient flowing back through the cast.  ``mesh`` raises
+``NotImplementedError`` (multi-device is ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import embed_init, frozen, he_init, rms_norm
+from repro_torch.models.layers import embed_init, he_init, param, rms_norm
 
 __all__ = ["LM", "decode_step", "decoder_layer", "forward", "init_caches",
            "init_params", "make_generator", "prefill"]
@@ -95,16 +102,16 @@ class LM(nn.Module):
                  enc_norm: torch.Tensor | None = None,
                  decoder: nn.ModuleList | None = None):
         super().__init__()
-        self.tok_embed = frozen(tok_embed)
-        self.final_norm = frozen(final_norm)
-        self.lm_head = None if lm_head is None else frozen(lm_head)
+        self.tok_embed = param(tok_embed)
+        self.final_norm = param(final_norm)
+        self.lm_head = None if lm_head is None else param(lm_head)
         self.dense0 = dense0
         self.blocks = blocks
         self.self_blocks = self_blocks
         self.cross_blocks = cross_blocks
-        self.ctx_proj = None if ctx_proj is None else frozen(ctx_proj)
+        self.ctx_proj = None if ctx_proj is None else param(ctx_proj)
         self.encoder = encoder
-        self.enc_norm = None if enc_norm is None else frozen(enc_norm)
+        self.enc_norm = None if enc_norm is None else param(enc_norm)
         self.decoder = decoder
 
     @property
@@ -123,8 +130,14 @@ def decoder_layer(self_block: blk.Block, cross_block: blk.Block) -> nn.ModuleDic
 # ---------------------------------------------------------------------------
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> LM:
-    """Random init at ``cfg``'s widths on ``gen``'s device, float32."""
+def init_params(gen: torch.Generator, cfg: ModelConfig, *,
+                trainable: bool = False) -> LM:
+    """Random init at ``cfg``'s widths on ``gen``'s device, float32; every
+    parameter requires grad when ``trainable``."""
+    return _init_params(gen, cfg).requires_grad_(trainable)
+
+
+def _init_params(gen: torch.Generator, cfg: ModelConfig) -> LM:
     d = cfg.d_model
     tok = embed_init(gen, (cfg.vocab_size, d))
     head = None if cfg.tie_embeddings else he_init(gen, (d, cfg.vocab_size))
@@ -168,9 +181,13 @@ def make_generator(seed: int, device=None) -> torch.Generator:
 
 
 def _embed(p: LM, cfg: ModelConfig, tokens, dtype) -> torch.Tensor:
-    """(B, S) tokens (numpy or a tensor) -> (B, S, d) through kernel B9."""
+    """(B, S) tokens (numpy or a tensor) -> (B, S, d) through kernel B9 (a
+    table of another dtype than float32 / float64 cast to float32 first)."""
     b, s = tokens.shape
-    x = gather.embedding_gather(p.tok_embed, tokens.reshape(-1))
+    table = p.tok_embed
+    if table.dtype not in (torch.float32, torch.float64):
+        table = table.float()
+    x = gather.embedding_gather(table, tokens.reshape(-1))
     return x.reshape(b, s, cfg.d_model).to(dtype)
 
 
@@ -200,21 +217,32 @@ def _memory(caches: Caches | None, name: str, dtype) -> torch.Tensor:
     return caches[name].to(dtype)
 
 
-def _encode(p: LM, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def _encode(p: LM, cfg: ModelConfig, frames: torch.Tensor,
+            remat: str | None = None) -> torch.Tensor:
     """The bidirectional encoder over the stub frames (enc-dec)."""
-    h, _, _ = blk.run_blocks(p.encoder, cfg, "dense", frames, causal=False)
+    h, _, _ = blk.run_blocks(p.encoder, cfg, "dense", frames, causal=False,
+                             remat=remat)
     return rms_norm(h, p.enc_norm, cfg.norm_eps)
 
 
 def _decoder_encdec(p: LM, cfg: ModelConfig, x: torch.Tensor,
-                    memory: torch.Tensor, caches: blk.LayerCaches | None):
-    """The enc-dec decoder layer by layer: self-attention (the KV cache),
-    then cross-attention over ``memory`` with the MLP."""
+                    memory: torch.Tensor, caches: blk.LayerCaches | None,
+                    remat: str | None = None):
+    """The enc-dec decoder layer by layer (each under ``remat``):
+    self-attention (the KV cache), then cross-attention over ``memory``
+    with the MLP."""
     kvs = []
     for i, layer in enumerate(p.decoder):
         kv = blk.layer_of(caches.kv, i) if caches is not None else None
-        x, new_kv, _, _ = blk.block_forward(layer["self"], cfg, "dense", x, kv=kv)
-        x, _, _, _ = blk.block_forward(layer["cross"], cfg, "cross", x, ctx=memory)
+
+        def body(h, layer=layer, kv=kv):
+            h, new_kv, _, _ = blk.block_forward(layer["self"], cfg, "dense",
+                                                h, kv=kv)
+            h, _, _, _ = blk.block_forward(layer["cross"], cfg, "cross", h,
+                                           ctx=memory)
+            return h, new_kv
+
+        x, new_kv = blk.remat_call(body, remat, x)
         kvs.append(new_kv)
     if caches is None:
         return x, None
@@ -223,17 +251,23 @@ def _decoder_encdec(p: LM, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _vision_stack(p: LM, cfg: ModelConfig, x: torch.Tensor, ctx: torch.Tensor,
-                  caches: blk.LayerCaches | None):
-    """Group by group: ``every`` self blocks (their KV caches (G, every,
-    ...)), then the group's cross block over ``ctx``."""
+                  caches: blk.LayerCaches | None, remat: str | None = None):
+    """Group by group (each under ``remat``): ``every`` self blocks (their
+    KV caches (G, every, ...)), then the group's cross block over
+    ``ctx``."""
     kind = _kind(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     groups = []
     for g, (selfs, cross) in enumerate(zip(p.self_blocks, p.cross_blocks)):
         group = (blk.LayerCaches(kv=blk.layer_of(caches.kv, g), ssm=None)
                  if caches is not None else None)
-        x, new, aux_g = blk.run_blocks(selfs, cfg, kind, x, caches=group)
-        x, _, _, _ = blk.block_forward(cross, cfg, "cross", x, ctx=ctx)
+
+        def body(h, selfs=selfs, cross=cross, group=group):
+            h, new, aux_g = blk.run_blocks(selfs, cfg, kind, h, caches=group)
+            h, _, _, _ = blk.block_forward(cross, cfg, "cross", h, ctx=ctx)
+            return h, new, aux_g
+
+        x, new, aux_g = blk.remat_call(body, remat, x)
         aux = aux + aux_g
         groups.append(new)
     if caches is None:
@@ -243,50 +277,53 @@ def _vision_stack(p: LM, cfg: ModelConfig, x: torch.Tensor, ctx: torch.Tensor,
 
 
 def _run(p: LM, cfg: ModelConfig, batch: dict, caches: Caches | None,
-         dtype) -> tuple[torch.Tensor, Caches | None, torch.Tensor]:
-    with torch.no_grad():
-        x = _embed(p, cfg, batch["tokens"], dtype)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        layer_caches = caches["layers"] if caches is not None else None
-        ctx = _ctx_embeds(p, batch, dtype)
-        if cfg.encdec is not None:
-            memory = (_encode(p, cfg, ctx) if ctx is not None
-                      else _memory(caches, "memory", dtype))
-            x, new_layers = _decoder_encdec(p, cfg, x, memory, layer_caches)
-            new_caches = None if caches is None else {
-                "layers": new_layers,
-                "memory": memory.to(caches["memory"].dtype)}
-            return _logits(p, cfg, x), new_caches, aux
-        if _vision(cfg):
-            if ctx is not None:
-                if p.ctx_proj is not None:
-                    ctx = torch.matmul(ctx, p.ctx_proj.to(dtype))
-            else:
-                ctx = _memory(caches, "ctx", dtype)
-            x, new_layers, aux = _vision_stack(p, cfg, x, ctx, layer_caches)
-            new_caches = None if caches is None else {
-                "layers": new_layers, "ctx": ctx.to(caches["ctx"].dtype)}
-            return _logits(p, cfg, x), new_caches, aux
-        if p.dense0 is not None:
-            kv0 = blk.layer_of(caches["dense0"].kv, 0) if caches is not None else None
-            x, new_kv0, _, _ = blk.block_forward(p.dense0, _dense0_cfg(cfg),
-                                                 "dense", x, kv=kv0)
-        x, new_layers, aux = blk.run_blocks(p.blocks, cfg, _kind(cfg), x,
-                                            caches=layer_caches)
-        new_caches = None
-        if caches is not None:
-            new_caches = {"layers": new_layers}
-            if p.dense0 is not None:
-                new_caches["dense0"] = blk.LayerCaches(
-                    kv=KVCache(*(a[None] for a in new_kv0)), ssm=None)
+         dtype, remat: str | None = None
+         ) -> tuple[torch.Tensor, Caches | None, torch.Tensor]:
+    x = _embed(p, cfg, batch["tokens"], dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer_caches = caches["layers"] if caches is not None else None
+    ctx = _ctx_embeds(p, batch, dtype)
+    if cfg.encdec is not None:
+        memory = (_encode(p, cfg, ctx, remat) if ctx is not None
+                  else _memory(caches, "memory", dtype))
+        x, new_layers = _decoder_encdec(p, cfg, x, memory, layer_caches, remat)
+        new_caches = None if caches is None else {
+            "layers": new_layers,
+            "memory": memory.to(caches["memory"].dtype)}
         return _logits(p, cfg, x), new_caches, aux
+    if _vision(cfg):
+        if ctx is not None:
+            if p.ctx_proj is not None:
+                ctx = torch.matmul(ctx, p.ctx_proj.to(dtype))
+        else:
+            ctx = _memory(caches, "ctx", dtype)
+        x, new_layers, aux = _vision_stack(p, cfg, x, ctx, layer_caches, remat)
+        new_caches = None if caches is None else {
+            "layers": new_layers, "ctx": ctx.to(caches["ctx"].dtype)}
+        return _logits(p, cfg, x), new_caches, aux
+    if p.dense0 is not None:
+        kv0 = blk.layer_of(caches["dense0"].kv, 0) if caches is not None else None
+
+        def dense0(h):
+            h, new_kv0, _, _ = blk.block_forward(p.dense0, _dense0_cfg(cfg),
+                                                 "dense", h, kv=kv0)
+            return h, new_kv0
+
+        x, new_kv0 = blk.remat_call(dense0, remat, x)
+    x, new_layers, aux = blk.run_blocks(p.blocks, cfg, _kind(cfg), x,
+                                        caches=layer_caches, remat=remat)
+    new_caches = None
+    if caches is not None:
+        new_caches = {"layers": new_layers}
+        if p.dense0 is not None:
+            new_caches["dense0"] = blk.LayerCaches(
+                kv=KVCache(*(a[None] for a in new_kv0)), ssm=None)
+    return _logits(p, cfg, x), new_caches, aux
 
 
-def _no_mesh(mesh, remat=None) -> None:
+def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("mesh: multi-device execution is ROADMAP A10")
-    if remat is not None:
-        raise NotImplementedError("remat: training is ROADMAP A12.4")
 
 
 # ---------------------------------------------------------------------------
@@ -298,9 +335,11 @@ def forward(p: LM, cfg: ModelConfig, batch: dict, *, dtype=torch.float32,
             remat: str | None = None, mesh=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal logits + the MoE aux loss (summed over the MoE
-    layers; 0 without them)."""
-    _no_mesh(mesh, remat)
-    logits, _, aux = _run(p, cfg, batch, None, dtype)
+    layers; 0 without them).  Records a graph where grad is enabled and the
+    parameters require it, each block under ``remat`` (None, ``"full"``
+    or ``"dots"``)."""
+    _no_mesh(mesh)
+    logits, _, aux = _run(p, cfg, batch, None, dtype, remat)
     return logits, aux
 
 
@@ -340,9 +379,14 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 def prefill(p: LM, cfg: ModelConfig, batch: dict, caches: Caches, *,
             dtype=torch.float32, remat: str | None = None, mesh=None
             ) -> tuple[torch.Tensor, Caches]:
-    """Process the prompt, fill caches, return full-sequence logits."""
-    _no_mesh(mesh, remat)
-    logits, new_caches, _ = _run(p, cfg, batch, caches, dtype)
+    """Process the prompt, fill caches, return full-sequence logits (no
+    graph recorded, so ``remat`` changes nothing)."""
+    _no_mesh(mesh)
+    if remat not in blk.REMAT_POLICIES:
+        raise ValueError(f"unknown remat {remat!r}; the policies are "
+                         f"{blk.REMAT_POLICIES}")
+    with torch.no_grad():
+        logits, new_caches, _ = _run(p, cfg, batch, caches, dtype)
     return logits, new_caches
 
 
@@ -350,5 +394,6 @@ def decode_step(p: LM, cfg: ModelConfig, tokens, caches: Caches, *,
                 dtype=torch.float32, mesh=None) -> tuple[torch.Tensor, Caches]:
     """One autoregressive step.  tokens: (B, S_new) with S_new typically 1."""
     _no_mesh(mesh)
-    logits, new_caches, _ = _run(p, cfg, {"tokens": tokens}, caches, dtype)
+    with torch.no_grad():
+        logits, new_caches, _ = _run(p, cfg, {"tokens": tokens}, caches, dtype)
     return logits[:, -1], new_caches

@@ -27,7 +27,10 @@ Two execution paths share the routing math, as in the reference:
 keeps ``"auto"`` dense under a JAX tracer.  PyTorch runs eagerly, so its
 counterpart of a tracer is CUDA-graph capture or ``torch.compile``
 (:func:`_under_capture`): there ``"auto"`` runs dense and ``"sell"``
-raises; everywhere else ``"auto"`` runs SELL.  ``spec=None`` outside a
+raises; everywhere else ``"auto"`` runs SELL.  A forward that records a
+graph (a train step) is treated as capture too, as the reference's jitted
+train step is: kernel B1 has no backward in either package, so ``"auto"``
+runs dense and ``"sell"`` raises.  ``spec=None`` outside a
 :func:`sell_dispatch` scope is dense.
 
 Each SELL combine reads the routing back from the device once
@@ -50,7 +53,7 @@ from torch.nn import functional as Fn
 from repro_torch.kernels import ops
 from repro_torch.kernels.execspec import ExecSpec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, frozen, he_init, swiglu
+from repro_torch.models.layers import MLP, he_init, param, swiglu
 from repro_torch.sparse.formats import CSRMatrix
 
 __all__ = ["DISPATCH_MODES", "GROUP", "MoE", "SELL_SPEC", "init_moe_params",
@@ -106,8 +109,9 @@ def _under_capture() -> bool:
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
-def _dispatch_mode(spec: ExecSpec | None) -> str:
-    """Resolve the effective path ("dense" | "sell")."""
+def _dispatch_mode(spec: ExecSpec | None, graph: bool = False) -> str:
+    """Resolve the effective path ("dense" | "sell"); ``graph``: the
+    forward records a graph for a gradient."""
     if spec is None:
         return "dense"
     mode = spec.dispatch
@@ -116,6 +120,13 @@ def _dispatch_mode(spec: ExecSpec | None) -> str:
             f"unknown dispatch {mode!r}: expected one of {DISPATCH_MODES}")
     if mode == "dense":
         return "dense"
+    if graph:
+        if mode == "sell":
+            raise ValueError(
+                "dispatch='sell' under a gradient: kernel B1 (the SELL "
+                "combine) has no backward; use dispatch='auto', which runs "
+                "the dense path when the forward records a graph")
+        return "dense"           # auto: dense under a gradient
     if _under_capture():
         if mode == "sell":
             raise ValueError(
@@ -137,10 +148,10 @@ class MoE(nn.Module):
                  experts_up: torch.Tensor, experts_down: torch.Tensor,
                  shared: MLP | None = None):
         super().__init__()
-        self.router = frozen(router)
-        self.experts_gate = frozen(experts_gate)
-        self.experts_up = frozen(experts_up)
-        self.experts_down = frozen(experts_down)
+        self.router = param(router)
+        self.experts_gate = param(experts_gate)
+        self.experts_up = param(experts_up)
+        self.experts_down = param(experts_down)
         self.shared = shared
 
 
@@ -198,7 +209,9 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     slot = torch.where(keep, pos, 0).to(torch.int32)
 
     spec = spec if spec is not None else _ACTIVE["spec"]
-    if _dispatch_mode(spec) == "sell":
+    graph = torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in p.parameters()))
+    if _dispatch_mode(spec, graph) == "sell":
         ein, combine_csr = _sell_routing(
             xg, *_routing_to_host(top_i, top_w, keep, slot), cap=cap, e=e)
     else:

@@ -15,8 +15,9 @@ a KV cache: O(1) memory per token.
 Parameters live in :class:`SSMMixer`, an ``nn.Module`` whose tensors keep
 the reference's names and layouts (``in_proj`` is (d, e), ``conv_w`` is
 (channels, d_conv)), so the reference's weights move over as they are
-(:mod:`repro_torch.models.convert`).  They carry no gradient: B8 has no
-backward yet, and the port serves only (training is ROADMAP A12).
+(:mod:`repro_torch.models.convert`).  They carry a gradient once the model
+is made trainable: kernel B8 then records a graph whose backward is a
+kernel too (:func:`repro_torch.kernels.ssd.ssd_fused_bwd`).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from torch.nn import functional as Fn
 from repro_torch.kernels import ssd as ssd_k
 from repro_torch.kernels.execspec import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import frozen, he_init, rms_norm
+from repro_torch.models.layers import he_init, param, rms_norm
 
 __all__ = ["SSMMixer", "SSMState", "SSD_BF16", "init_ssm_params",
            "init_ssm_state", "ssd_chunked", "ssd_reference", "ssm_forward"]
@@ -55,7 +56,7 @@ class SSMMixer(nn.Module):
         super().__init__()
         for name in ("in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D",
                      "gate_norm", "out_proj"):
-            self.register_parameter(name, frozen(tensors[name]))
+            self.register_parameter(name, param(tensors[name]))
 
 
 # ---------------------------------------------------------------------------

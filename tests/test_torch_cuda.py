@@ -22,8 +22,12 @@ BFS distances exactly equal, PageRank ranks at rtol 1e-10 (B3's split
 buckets add their parts in a fixed order: two calls bit-equal); FFT rtol 1e-9 /
 atol 1e-9 x n at fp64 and 1e-3 / 1e-5 x max|spectrum| at fp32 (FMA
 contraction); B6's k-column form bit-equal to its one-column launches; B8
-2e-4 at fp32 and 1e-10 at fp64 (the reference's, ``tests/test_kernels.py``);
-B9 exactly equal (a copy).
+2e-4 at fp32 and 1e-10 at fp64 (the reference's, ``tests/test_kernels.py``),
+its backward the same, fp32 relative to max(1, max|grad|), two calls
+bit-equal; B9 exactly equal (a copy), its backward equal to its plain
+version (the same sums in the same order) and within 1e-6 x max of
+``index_add_``; the reduced mamba2 train step's loss 1e-5 relative and its
+gradients 1e-4 x max|g| against the CPU.
 """
 import copy
 import types
@@ -936,6 +940,144 @@ def test_refused_ssd_launch_raises_and_leaves_no_error_behind(cuda_device):
     want, fw = ssd.ssd_fused_ref(xd, ad, B, C, chunk=256)
     torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
     torch.testing.assert_close(fs, fw, rtol=1e-10, atol=1e-10)
+
+
+def _ssd_bwd_tol(dtype, want) -> float:
+    """B8's backward tolerance: fp64 1e-10; fp32 the forward's 2e-4 times
+    max(1, max|grad|) of the output (sums of 256 x 128 products in another
+    order, as the forward's)."""
+    if dtype == np.float64:
+        return 1e-10
+    return 2e-4 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape,chunk", [
+    ((2, 64, 4, 8, 2, 16), 16),          # g = 2: dB, dC summed over 2 heads
+    ((1, 192, 4, 72, 2, 80), 64),        # 3 chunks, ragged p and n tiles
+    ((1, 300, 3, 8, 1, 16), 100),        # ragged query and key tiles
+    ((2, 512, 80, 64, 1, 128), 256),     # mamba2-2.7b's train step
+    ((1, 512, 50, 64, 1, 16), 256),      # hymba-1.5b's
+])
+def test_ssd_backward_kernel_matches_plain_version(cuda_device, dtype, shape,
+                                                   chunk):
+    """B8's backward against its plain version on the card, from a zero and
+    a random initial state, with and without a final-state gradient; two
+    calls bit-equal; the launches counted five a call."""
+    from repro_torch.kernels import ssd
+
+    for init, fin in ((False, False), (True, True)):
+        (xd, ad, B, C), s0 = _ssd_case(*shape, dtype, cuda_device, chunk, init)
+        rng = np.random.default_rng(chunk + 1)
+        b, l, h, p, g, n = shape
+        dy = torch.from_numpy(rng.standard_normal((b, l, h, p)).astype(dtype)
+                              ).to(cuda_device)
+        df = (torch.from_numpy(rng.standard_normal((b, h, p, n)).astype(dtype)
+                               ).to(cuda_device) if fin else None)
+        before = ssd.BWD_LAUNCHES
+        got = ssd.ssd_fused_bwd(xd, ad, B, C, dy, df, chunk=chunk,
+                                init_state=s0)
+        again = ssd.ssd_fused_bwd(xd, ad, B, C, dy, df, chunk=chunk,
+                                  init_state=s0)
+        torch.cuda.synchronize()
+        assert ssd.BWD_LAUNCHES == before + 2 * ssd.LAUNCHES_PER_BWD
+        want = ssd.ssd_fused_bwd_ref(xd, ad, B, C, dy, df, chunk=chunk,
+                                     init_state=s0)
+        assert (got[4] is None) == (s0 is None)
+        for gv, av, wv in zip(got, again, want):
+            if gv is None:
+                continue
+            assert torch.equal(gv, av)
+            tol = _ssd_bwd_tol(dtype, wv)
+            torch.testing.assert_close(gv, wv.to(gv.dtype), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_autograd_on_the_card_runs_both_kernels(cuda_device):
+    """A gradient through ``ssd_fused`` on the card launches the forward's
+    three and the backward's five, and equals autograd of the plain
+    version."""
+    from repro_torch.kernels import ssd
+
+    (xd, ad, B, C), s0 = _ssd_case(1, 128, 4, 16, 2, 16, np.float64,
+                                   cuda_device, 3, init=True)
+    ins = [t.clone().requires_grad_() for t in (xd, ad, B, C, s0)]
+    f0, b0 = ssd.KERNEL_LAUNCHES, ssd.BWD_LAUNCHES
+    y, f = ssd.ssd_fused(*ins[:4], chunk=32, init_state=ins[4])
+    got = torch.autograd.grad(y.square().sum() + f.sum(), ins)
+    torch.cuda.synchronize()
+    assert ssd.KERNEL_LAUNCHES - f0 == ssd.LAUNCHES_PER_CALL
+    assert ssd.BWD_LAUNCHES - b0 == ssd.LAUNCHES_PER_BWD
+    y1, f1 = ssd.ssd_fused_ref(*ins[:4], chunk=32, init_state=ins[4])
+    want = torch.autograd.grad(y1.square().sum() + f1.sum(), ins)
+    for gv, wv in zip(got, want):
+        torch.testing.assert_close(gv, wv, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("t,vocab,d", [(1024, 50280, 2560), (4, 50280, 2560),
+                                       (300, 97, 24)])
+def test_gather_backward_kernel_equals_plain_version(cuda_device, dtype, t,
+                                                     vocab, d):
+    """B9's backward equals its plain version exactly (the same sums in the
+    same order) with repeated ids, and ``index_add_`` to 1e-6 x max; one
+    launch a call; through autograd too."""
+    from repro_torch.kernels import gather
+
+    g = torch.Generator(device=cuda_device).manual_seed(t)
+    ids = torch.randint(0, min(vocab, 64), (t,), device=cuda_device,
+                        generator=g)
+    dout = torch.randn((t, d), dtype=dtype, device=cuda_device, generator=g)
+    before = gather.BWD_LAUNCHES
+    got = gather.embedding_gather_bwd(dout, ids, vocab)
+    torch.cuda.synchronize()
+    assert gather.BWD_LAUNCHES == before + 1
+    assert torch.equal(got, gather.embedding_gather_bwd_ref(dout, ids, vocab))
+    lib = torch.zeros((vocab, d), dtype=dtype, device=cuda_device
+                      ).index_add_(0, ids, dout)
+    torch.testing.assert_close(got, lib, rtol=0,
+                               atol=1e-6 * float(lib.abs().max()))
+    table = torch.randn((vocab, d), dtype=dtype, device=cuda_device,
+                        generator=g, requires_grad=True)
+    out = gather.embedding_gather(table, ids)
+    (dt,) = torch.autograd.grad(out, table, dout)
+    assert torch.equal(dt, got)
+
+
+@pytest.mark.cuda
+def test_reduced_mamba2_train_step_on_the_card_as_on_the_cpu(cuda_device):
+    """One train step of the reduced mamba2 (its scans chunk multiples): the
+    card's loss and gradients (B8, B9 and their backward kernels) against
+    the CPU's (plain versions), loss 1e-5 relative, each gradient 1e-4 x
+    max|g|; the same under remat "full"."""
+    from repro_torch import configs
+    from repro_torch.kernels import gather, ssd
+    from repro_torch.models import model as M
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = configs.reduced_config("mamba2-2.7b")
+    cpu = M.init_params(M.make_generator(0, "cpu"), cfg, trainable=True)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 32)),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 32))}
+    want, lw, _ = loss_and_grads(cpu, cfg, TrainConfig(remat=None), batch)
+    for remat in (None, "full"):
+        counts = (ssd.KERNEL_LAUNCHES, ssd.BWD_LAUNCHES, gather.KERNEL_LAUNCHES,
+                  gather.BWD_LAUNCHES)
+        got, lg, _ = loss_and_grads(card, cfg, TrainConfig(remat=remat), batch)
+        torch.cuda.synchronize()
+        fwd = cfg.n_layers * ssd.LAUNCHES_PER_CALL * (2 if remat else 1)
+        assert (ssd.KERNEL_LAUNCHES - counts[0], ssd.BWD_LAUNCHES - counts[1],
+                gather.KERNEL_LAUNCHES - counts[2], gather.BWD_LAUNCHES - counts[3]
+                ) == (fwd, cfg.n_layers * ssd.LAUNCHES_PER_BWD, 1, 1)
+        assert float(lg) == pytest.approx(float(lw), rel=1e-5)
+        for k, g in want.items():
+            tol = 1e-4 * max(float(g.abs().max()), 1e-30)
+            torch.testing.assert_close(got[k].cpu(), g, rtol=0, atol=tol)
 
 
 @pytest.mark.cuda

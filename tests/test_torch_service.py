@@ -485,7 +485,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "assert not bad, bad\n"
         "for m in ('repro_torch.graphs.gen', 'repro_torch.kernels.bfs',\n"
         "          'repro_torch.kernels.pagerank', 'repro_torch.kernels.fft',\n"
-        "          'repro_torch.kernels.spmv'):\n"
+        "          'repro_torch.kernels.spmv', 'repro_torch.optim.adamw',\n"
+        "          'repro_torch.data.pipeline', 'repro_torch.checkpoint.store',\n"
+        "          'repro_torch.runtime.supervisor', 'repro_torch.train.loop',\n"
+        "          'repro_torch.launch.train'):\n"
         "    assert m in sys.modules, m\n"
         "print('ok', len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )
