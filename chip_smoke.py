@@ -4238,18 +4238,34 @@ def time_train_kernels(torch, np, ssd_k, gather_k, tm: dict, errs: dict,
                                                      saved=saved), flush)
     plain_ms = time_ms(torch, lambda: ssd_k.ssd_fused_bwd_ref(xd, ad, B, C, dy,
                                                               chunk=q), flush)
+    # each launch alone through its C entry point, in order once first
+    from repro_torch.kernels import cuda_lib
+
+    buf = ssd_k._BwdBuffers(xd, B, None, q)
+    calls = ssd_k._bwd_calls(cuda_lib.library("ssd_bwd"), xd, B, C, dy, None, None,
+                             fstate, cum, entering, q, buf,
+                             torch.cuda.current_stream().cuda_stream)
+    for name in autotune.SSD_BWD_LAUNCHES:
+        if calls[name]():
+            raise AssertionError(f"B8 backward {name} was refused")
+    launch_ms = {name: time_ms(torch, calls[name], flush)
+                 for name in autotune.SSD_BWD_LAUNCHES}
+    del buf, calls
     nc = l // q
     nbytes = 4 * (3 * b * l * h * p + 2 * b * l * h + 4 * b * l * g * n
                   + b * h * l + b * h * nc * p * n + b * h * p * n)
     flops = autotune.ssd_bwd_flops(b, l, h, p, n, q)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_OPS * 1e3
+    tf32_ms = 3 * flops / TF32_OPS * 1e3
     phase("timing", f"B8 backward (b, l, h, p, g, n) = {(b, l, h, p, g, n)} chunk "
-          f"{q} fp32: {ms:.4f} ms in {ssd_k.LAUNCHES_PER_BWD} launches | bound "
-          f"{max(ops_ms, bytes_ms):.4f} ms (ops {ops_ms:.4f}: {flops / 1e9:.3f} "
-          f"GFLOP at the CUDA cores' 67 TFLOP/s; bytes {bytes_ms:.4f}) | plain "
-          f"{plain_ms:.4f} ms | no single PyTorch call | "
-          f"{flops / ms / 1e6:.1f} GFLOP/s of the function")
+          f"{q} fp32: {ms:.4f} ms in {ssd_k.LAUNCHES_PER_BWD} launches ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in launch_ms.items())
+          + f" alone) | bound {max(ops_ms, bytes_ms):.4f} ms (ops {ops_ms:.4f}: "
+          f"{flops / 1e9:.3f} GFLOP at the CUDA cores' 67 TFLOP/s; bytes "
+          f"{bytes_ms:.4f}); 3xTF32 floor {tf32_ms:.4f} ms (3 x the GFLOP at the "
+          f"tensor cores' 495 TFLOP/s) | plain {plain_ms:.4f} ms | no single "
+          f"PyTorch call | {flops / ms / 1e6:.1f} GFLOP/s of the function")
     ssd_rec = {"name": "ssd_fused_bwd", "route": "cuda",
                "source": "src/repro_torch/csrc/ssd_bwd.cu",
                "replaces": "src/repro/kernels/ssd.py:78 (its backward: the "
@@ -4258,7 +4274,7 @@ def time_train_kernels(torch, np, ssd_k, gather_k, tm: dict, errs: dict,
                "max_abs_err": errs["ssd"], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-               "library_ms": None,
+               "library_ms": None, "launch_ms": launch_ms,
                "shape": f"(b, l, h, p, g, n) = {(b, l, h, p, g, n)} chunk {q} "
                         "fp32 (a train step's layer)"}
     del xd, ad, B, C, dy, saved, fstate, cum, entering
@@ -4273,20 +4289,20 @@ def time_train_kernels(torch, np, ssd_k, gather_k, tm: dict, errs: dict,
                      flush)
     glib = time_ms(torch, lambda: torch.zeros((v, d), device=DEVICE)
                    .index_add_(0, ids, dout), flush)
-    # the launch alone, on ids bounded and sorted once (the wrapper's
-    # preparation is the rest of its time)
-    sorted_ids, order = gather_k._sorted_runs(ids, v)
+    # the launch alone, on the wrapper's plan and buffers (the wrapper adds
+    # its host work: the plan lookup and the output's allocation)
+    plan, (stripe, chunks, threads, vec) = gather_k._bwd_plan(
+        v, d, t, torch.float32, ids.dtype)
     dtable = torch.empty((v, d), dtype=torch.float32, device=DEVICE)
-    (blk,) = gather_k._bwd_plan(v, d, t, "float32").blocks
     glaunch = time_ms(torch, lambda: gather_k._launch_bwd(
-        sorted_ids, order, dout, dtable, blk.grid[1], blk.block[0]), flush)
-    gprep = time_ms(torch, lambda: gather_k._sorted_runs(ids, v), flush)
+        ids, dout, dtable, vec, stripe, chunks, threads), flush)
     gbound = ((v * d + t * d) * 4 + 8 * t) / HBM_BYTES_PER_S * 1e3
+    blk = plan.blocks[0]
     phase("timing", f"B9 backward T={t} into ({v}, {d}) fp32 (the train step's "
-          f"ids, sorted on the card first), grid {blk.grid} x {blk.block[0]}: "
-          f"wrapper {gms:.4f} ms | launch alone {glaunch:.4f} ms | the ids' "
-          f"bound and stable sort {gprep:.4f} ms | bound {gbound:.4f} ms "
-          f"(bytes) | plain {gplain:.4f} ms | zeros + index_add_ {glib:.4f} ms")
+          f"ids, no sort: one launch), grid {blk.grid} x {blk.block[0]} "
+          f"(stripes of {stripe} rows, {vec} B vectors): wrapper {gms:.4f} ms | "
+          f"launch alone {glaunch:.4f} ms | bound {gbound:.4f} ms (bytes) | "
+          f"plain {gplain:.4f} ms | zeros + index_add_ {glib:.4f} ms")
     del dtable
     gather_rec = {"name": "embedding_gather_bwd", "route": "cuda",
                   "source": "src/repro_torch/csrc/embedding_gather.cu",
@@ -4296,7 +4312,7 @@ def time_train_kernels(torch, np, ssd_k, gather_k, tm: dict, errs: dict,
                   "launches": tm["launches"]["embedding_gather_bwd"],
                   "max_abs_err": errs["gather"], "ms": gms, "plain_ms": gplain,
                   "bound_ms": gbound, "bound_by": "bytes", "library_ms": glib,
-                  "launch_ms": glaunch, "prep_ms": gprep,
+                  "launch_ms": glaunch,
                   "shape": f"T={t} ids into ({v}, {d}) fp32 (a train step's "
                            "tokens)"}
     return [ssd_rec, gather_rec]

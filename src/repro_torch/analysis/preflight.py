@@ -89,6 +89,7 @@ from repro_torch.core.autotune import (
     SSD_BLOCK_THREADS,
     SSD_BWD_LAUNCHES,
     SSD_LAUNCHES,
+    SSD_TILE,
     STREAM_FILL_BLOCKS,
     WARP,
     ell_k_tiles,
@@ -101,10 +102,13 @@ from repro_torch.core.autotune import (
     fft_pass_smem_bytes,
     fft_pass_threads,
     fft_two_pass,
+    gather_bwd_grid,
+    gather_bwd_smem_bytes,
     gather_grid,
     node_split,
     spmm_split,
     ssd_bwd_grids,
+    ssd_bwd_pairs,
     ssd_bwd_smem_bytes,
     ssd_grids,
     ssd_smem_bytes,
@@ -949,12 +953,17 @@ def plan_embedding_gather(vocab: int, d: int, ids, *, dtype: str = "float32",
 
 
 def plan_embedding_gather_bwd(vocab: int, d: int, t: int, *,
-                              dtype: str = "float32") -> LaunchPlan:
+                              dtype: str = "float32",
+                              id_dtype: str = "int64") -> LaunchPlan:
     """Plan ``embedding_gather_bwd`` of (t, d) output gradients into a
-    (vocab, d) table gradient: one launch, ``grid = (vocab, chunks)``
-    blocks of ``threads``, each block one chunk of one table row
-    (:func:`~repro_torch.core.autotune.gather_grid` at ``vocab`` rows),
-    after the ids are bounded and stable-sorted on the card."""
+    (vocab, d) table gradient: one launch of ``ceil(vocab / stripe) x
+    chunks`` blocks of ``threads``
+    (:func:`~repro_torch.core.autotune.gather_bwd_grid`), block s chunks +
+    c owning a stripe of table rows and one vector of each a thread; the
+    ids are read as they come (int32 or int64) and walked in slices of
+    :data:`~repro_torch.core.autotune.GATHER_BWD_SLICE`, so no T is refused
+    for shared memory (fixed: :func:`~repro_torch.core.autotune.
+    gather_bwd_smem_bytes`, static)."""
     violations: list[str] = []
     if dtype not in KERNEL_DTYPES:
         violations.append(f"gradient dtype {dtype} is not float32 or float64")
@@ -962,17 +971,22 @@ def plan_embedding_gather_bwd(vocab: int, d: int, t: int, *,
         violations.append(f"table ({vocab}, {d}) is empty")
     if t < 1:
         violations.append(f"no ids ({t})")
+    if t > MAX_GRID_X:
+        violations.append(f"{t} ids > {MAX_GRID_X}")
     itemsize = np.dtype(dtype).itemsize if dtype in KERNEL_DTYPES else 4
-    chunks, threads = gather_grid(max(vocab, 1), d * itemsize)
-    if vocab > MAX_GRID_X:
-        violations.append(f"grid.x {vocab} > {MAX_GRID_X}")
-    if chunks > MAX_GRID_Y:
-        violations.append(f"grid.y {chunks} > {MAX_GRID_Y}")
+    stripe, chunks, threads, vec = gather_bwd_grid(max(vocab, 1), max(d, 1),
+                                                   t, itemsize)
+    blocks = -(-max(vocab, 1) // stripe) * chunks
+    if blocks > MAX_GRID_X:
+        violations.append(f"grid.x {blocks} > {MAX_GRID_X}")
+    kernel_ids = id_dtype if id_dtype in ("int32", "int64") else "int64"
     block = BlockPlan(
-        label=f"table rows[{chunks} chunk(s) of {threads} threads a row]",
-        grid=(max(vocab, 1), chunks), block=(threads,),
-        operands=(("sorted_ids", (t,), "int64"), ("order", (t,), "int64"),
-                  ("dout", (t, d), dtype), ("dtable", (vocab, d), dtype)))
+        label=f"stripes[{stripe} rows x {chunks} chunk(s) of {threads} "
+              f"threads, {vec} B vectors]",
+        grid=(blocks,), block=(threads,),
+        operands=(("ids", (t,), kernel_ids), ("dout", (t, d), dtype),
+                  ("dtable", (vocab, d), dtype)),
+        smem_bytes=gather_bwd_smem_bytes())
     return LaunchPlan(kernel="embedding_gather_bwd",
                       operand=f"scatter T={t} into ({vocab}, {d})",
                       dtype=dtype, blocks=(block,),
@@ -1047,17 +1061,22 @@ def plan_ssd_fused_bwd(b: int, l: int, h: int, p: int, g: int, n: int, *,
     """Plan ``ssd_fused_bwd``, the backward of :func:`plan_ssd_fused`'s
     scan: five launches (:func:`~repro_torch.core.autotune.ssd_bwd_grids`,
     ``SSD_BLOCK_THREADS`` threads each) of fixed shared memory
-    (:func:`~repro_torch.core.autotune.ssd_bwd_smem_bytes`: 70 KB at most
-    in fp32, 140 KB in fp64), the forward's contracts (whole chunks,
-    groups dividing heads, grid limits) and its operands: the forward's
-    inputs, its cum and entering states, the output gradients, and the
-    per-head scratch of dB and dC (b, l, h, n) before their group sums."""
+    (:func:`~repro_torch.core.autotune.ssd_bwd_smem_bytes`: 107 KB at most
+    in fp32, 214 KB in fp64; refused past a block's share), the forward's
+    contracts (whole chunks, groups dividing heads, grid limits) and its
+    operands: the forward's inputs, its cum and entering states, the
+    output gradients, the per-head scratch of dB and dC (b, l, h, n)
+    before their group sums, the key launch's M and (G ∘ L) tiles (``mh``,
+    ``gh`` (b h nc, pairs, 64, 64)) and the pairs' row sums (``rh`` (b h
+    nc, pairs, 64)), of which it hands the query launch ``mh`` and
+    ``rh``."""
     fwd = plan_ssd_fused(b, l, h, p, g, n, chunk=chunk, dtype=dtype)
     violations = list(fwd.violations)
     itemsize = int(np.dtype(dtype).itemsize) if dtype in KERNEL_DTYPES else 8
     ext = [max(int(v), 1) for v in (b, l, h, p, g, n, chunk)]
     grids = ssd_bwd_grids(*ext)
     nc = ext[1] // ext[6]
+    pairs = b * h * nc * ssd_bwd_pairs(ext[1], ext[6])
     ops = {name: (name, shape, dtype) for name, shape in (
         ("xd", (b, l, h, p)), ("dy", (b, l, h, p)), ("dx", (b, l, h, p)),
         ("B", (b, l, g, n)), ("C", (b, l, g, n)), ("dB", (b, l, g, n)),
@@ -1065,13 +1084,16 @@ def plan_ssd_fused_bwd(b: int, l: int, h: int, p: int, g: int, n: int, *,
         ("dcq", (b, h, l)), ("dck", (b, h, l)),
         ("entering", (b, h, nc, p, n)), ("local", (b, h, nc, p, n)),
         ("dso", (b, h, nc, p, n)), ("state", (b, h, p, n)),
-        ("dbh", (b, l, h, n)), ("dch", (b, l, h, n)))}
+        ("dbh", (b, l, h, n)), ("dch", (b, l, h, n)),
+        ("mh", (pairs, SSD_TILE, SSD_TILE)), ("gh", (pairs, SSD_TILE, SSD_TILE)),
+        ("rh", (pairs, SSD_TILE)))}
     operands = {
         "bwd_local": ("dy", "C", "cum", "local"),
         "bwd_state_pass": ("local", "dso", "cum", "state"),
-        "bwd_query": ("xd", "dy", "B", "C", "cum", "entering", "dch", "dcq"),
         "bwd_key": ("xd", "dy", "B", "C", "cum", "entering", "state", "dso",
-                    "dbh", "dx", "dck"),
+                    "dbh", "dx", "dck", "mh", "gh", "rh"),
+        "bwd_query": ("dy", "B", "C", "cum", "entering", "mh", "rh", "dch",
+                      "dcq"),
         "bwd_finish": ("dcq", "dck", "dad", "dbh", "dch", "dB", "dC"),
     }
     blocks = []

@@ -387,12 +387,14 @@ SSD_MIN_BLOCKS_SM = 2
 SSD_LAUNCHES = ("chunk_state", "state_pass", "chunk_output")
 
 
-#: Launches of one ``ssd_fused_bwd`` call on the card (B8's backward):
-#: each chunk's local dY-C term, the reverse state pass, the query-tile
-#: side (dC, dcum's row sums), the key-tile side (dX, dB, dcum's column
-#: sums and the dS_out terms), and the finish (dad, the group sums of dB
-#: and dC).
-SSD_BWD_LAUNCHES = ("bwd_local", "bwd_state_pass", "bwd_query", "bwd_key",
+#: Launches of one ``ssd_fused_bwd`` call on the card (B8's backward), in
+#: order: each chunk's local dY-C term, the reverse state pass, the
+#: key-tile side (each tile pair's C Bᵀ and dY Xᵀ computed once, its M and
+#: (G ∘ L) tiles to scratch, its row sums handed on; then dX, dB, dcum's
+#: column sums and the dS_out terms), the query-tile side (dC from the
+#: handed M tiles, dcum's row sums), and the finish (dad, the group sums of
+#: dB and dC).
+SSD_BWD_LAUNCHES = ("bwd_local", "bwd_state_pass", "bwd_key", "bwd_query",
                     "bwd_finish")
 
 
@@ -411,6 +413,70 @@ def gather_grid(t: int, row_bytes: int) -> tuple[int, int]:
     chunks = max(chunks, min(warps_row, -(-2 * SM_COUNT // max(int(t), 1))))
     warps = -(-warps_row // chunks)
     return -(-warps_row // warps), warps * WARP
+
+
+#: Ids B9's backward compacts and sorts in a block's shared memory at a
+#: time (8 KB of packed hits, 8 KB of their order); a longer T is walked
+#: in slices of this many.
+GATHER_BWD_SLICE = 2048
+#: Most and fewest table rows of one backward block's stripe (a hit's row
+#: is packed into 8 bits).
+GATHER_BWD_MAX_STRIPE = 256
+GATHER_BWD_MIN_STRIPE = 16
+#: Bytes a backward block writes for each id byte it reads: every block
+#: reads all T ids (from L2), so its stripe grows with T.
+GATHER_BWD_WRITE_PER_ID_BYTE = 16
+
+
+def gather_bwd_smem_bytes() -> int:
+    """Static shared memory of one B9 backward block: the slice's packed
+    hits and their order (4 B each), the stripe rows' counts, offsets and
+    placed counts (4 B each), a flag and the hit count."""
+    s = GATHER_BWD_MAX_STRIPE
+    return 8 * GATHER_BWD_SLICE + 4 * (3 * s + 1) + s + 4
+
+
+def gather_bwd_vec_bytes(row_bytes: int, itemsize: int) -> int:
+    """The widest vector (16, 8 or 4 bytes, at least one element) that
+    divides a gradient row: each backward thread reads and writes one of
+    them of every row it owns."""
+    for v in (16, 8, 4):
+        if v >= itemsize and int(row_bytes) % v == 0:
+            return v
+    return int(itemsize)
+
+
+def gather_bwd_grid(vocab: int, d: int, t: int,
+                    itemsize: int) -> tuple[int, int, int, int]:
+    """(stripe rows, chunks a row, threads a block, vector bytes) of B9's
+    backward: ceil(vocab / stripe) x chunks blocks, block s chunks + c
+    owning table rows [s stripe, (s + 1) stripe) and vectors [c threads,
+    (c + 1) threads) of each.  Threads: the most whole warps, at most
+    :data:`GATHER_MAX_THREADS`, that cut a row into equal chunks (else the
+    fewest chunks of at most 256 threads), so a frequent id's run is
+    spread over the chunks.  Stripe: a power of two at least
+    :data:`GATHER_BWD_WRITE_PER_ID_BYTE` x the id bytes a block reads over
+    the bytes it writes a row, in [16, 256], halved while the grid gives
+    fewer than two blocks an SM.  mamba2 (V 50,280, d 2560 fp32, T 1024):
+    stripe 64, 4 chunks of 160 threads, 16 B vectors: 786 x 4 blocks."""
+    vec = gather_bwd_vec_bytes(int(d) * int(itemsize), int(itemsize))
+    row_vecs = max(1, int(d) * int(itemsize) // vec)
+    threads = 0
+    for warps in range(GATHER_MAX_THREADS // WARP, 0, -1):
+        if row_vecs % (warps * WARP) == 0:
+            threads = warps * WARP
+            break
+    if not threads:
+        chunks = -(-row_vecs // GATHER_MAX_THREADS)
+        threads = -(-(-(-row_vecs // chunks)) // WARP) * WARP
+    chunks = -(-row_vecs // threads)
+    want = GATHER_BWD_WRITE_PER_ID_BYTE * 8 * max(int(t), 1) / (threads * vec)
+    stripe = GATHER_BWD_MIN_STRIPE
+    while stripe < GATHER_BWD_MAX_STRIPE and stripe < want:
+        stripe *= 2
+    while stripe > 1 and -(-int(vocab) // stripe) * chunks < 2 * SM_COUNT:
+        stripe //= 2
+    return stripe, chunks, threads, vec
 
 
 def _tiles(x: int, t: int = SSD_TILE) -> int:
@@ -459,35 +525,51 @@ def ssd_bwd_grids(b: int, l: int, h: int, p: int, g: int, n: int,
                   chunk: int) -> dict[str, tuple[int, ...]]:
     """Grids of B8's five backward launches: ``bwd_local`` as the forward's
     ``chunk_state`` (a block per (b, h, chunk) and 64 x 64 tile of (p, n)),
-    ``bwd_state_pass`` as its ``state_pass``, ``bwd_query`` / ``bwd_key``
+    ``bwd_state_pass`` as its ``state_pass``, ``bwd_key`` / ``bwd_query``
     one block per (b, h, chunk) and 64-row tile, ``bwd_finish`` one thread
-    per element of dB (b, l, g, n) or per (b, h, chunk), whichever is more,
-    three planes (dB, dC, dad).  mamba2 at (2, 512): (320, 1, 2), (160,
+    per element of dB (b, l, g, n) or one warp per (b, h, chunk), whichever
+    is more, three planes (dad, dB, dC).  mamba2 at (2, 512): (320, 1, 2), (160,
     32), (320, 4), (320, 4) and (512, 3)."""
     grids = ssd_grids(b, l, h, p, n, chunk)
     planes = grids["chunk_output"][0]
-    most = max(int(b) * int(l) * int(g) * int(n), planes)
+    most = max(int(b) * int(l) * int(g) * int(n), WARP * planes)
     return {
         "bwd_local": grids["chunk_state"],
         "bwd_state_pass": grids["state_pass"],
-        "bwd_query": grids["chunk_output"],
         "bwd_key": grids["chunk_output"],
+        "bwd_query": grids["chunk_output"],
         "bwd_finish": (_tiles(most, SSD_BLOCK_THREADS), 3),
     }
 
 
+def ssd_bwd_pairs(l: int, chunk: int) -> int:
+    """(query tile, key tile) pairs on and below the diagonal of one chunk
+    (64-row tiles): the key launch hands the query launch one M tile and 64
+    row sums for each.  chunk 256: 10."""
+    t = _tiles(chunk)
+    return t * (t + 1) // 2
+
+
+#: Stages of B8's backward pipelines (launches 1, 3 and 4): every step is a
+#: k-step of 32 over two tiles of 4608 elements (a product over a tile's
+#: 64 rows takes two), four of them in shared memory.
+SSD_BWD_STAGES = 4
+
+
 def ssd_bwd_smem_bytes(launch: str, itemsize: int) -> int:
     """Dynamic shared memory of one block of a B8 backward launch, fixed
-    whatever the shape: every tiled launch stages operands in two stages of
-    two (32, 68) tiles; ``bwd_query`` adds a (64, 68) M tile and 2 x 64 cum
-    values, ``bwd_key`` a second (64, 68) tile and 8 warp sums.  fp32: 34,
-    52 and 70 KB; fp64 twice that."""
-    lds = SSD_TILE + 4
-    stages = 2 * 2 * SSD_K_CHUNK * lds
-    elems = {"bwd_local": stages, "bwd_state_pass": 0,
-             "bwd_query": stages + SSD_TILE * lds + 2 * SSD_TILE,
-             "bwd_key": stages + 2 * SSD_TILE * lds + 2 * SSD_TILE
-             + SSD_BLOCK_THREADS // WARP,
+    whatever the shape (``csrc/ssd_bwd.cu``): :data:`SSD_BWD_STAGES` stages
+    of a k-step's two (64, 36) or (32, 72) tiles (4608 elements);
+    ``bwd_local`` adds 32 decay scales a stage; ``bwd_key`` a (64, 65) tile
+    for row and column sums, 3 x 64 cum and dcum values and 8 warp sums;
+    ``bwd_query`` the sums tile and 64 cum values.  fp32: 73, 89 and 89 KB
+    (two blocks an SM); fp64 twice that."""
+    t, kc = SSD_TILE, SSD_K_CHUNK
+    stages = SSD_BWD_STAGES * 2 * t * (kc + 4)
+    sums = t * (t + 1)
+    elems = {"bwd_local": stages + SSD_BWD_STAGES * kc, "bwd_state_pass": 0,
+             "bwd_key": stages + sums + 3 * t + SSD_BLOCK_THREADS // WARP,
+             "bwd_query": stages + sums + t,
              "bwd_finish": 0}[launch]
     return elems * int(itemsize)
 

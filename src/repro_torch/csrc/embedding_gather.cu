@@ -38,19 +38,52 @@
 // plans the launch (once per shape for ids already on the card), allocates
 // the output and raises on a non-zero return code.
 //
-// The backward, gather_bwd_kernel: dtable[v] = sum of dout[i] over the i
-// with ids[i] = v (ids bounded as above), dense (V, d) as XLA's scatter into
-// zeros is.  It replaces no TPU kernel (the reference differentiates XLA's
-// gather, repro/models/model.py::_embed); it keeps plain PyTorch off the
-// card's training path.  Deterministic, with no atomics: the wrapper
-// (gather.py::embedding_gather_bwd) stable-sorts the bounded ids on the card
-// first, a preparation step as the SELL pack is, so equal ids form a run in
-// ascending position.  Grid (V, chunks): block (v, c) finds v's run by
-// binary search in the sorted ids and sums its rows of dout, chunk c of the
-// row, in ascending position, each thread 64 bytes of the row (a zero row
-// where v has no id).  Bound: bytes, V * d + T * d values and the ids and
-// their order (8 B each), 0.155 ms at mamba2's V = 50,280, d = 2560, T =
-// 1024 in fp32 on an H100's 3.35 TB/s.
+// The backward, gather_bwd_kernel: dtable[v] = the sum of dout[i] over the
+// i with ids[i] = v (ids bounded as above), in ascending i, dense (V, d) as
+// XLA's scatter into zeros is.  It replaces no TPU kernel (the reference
+// differentiates XLA's gather, repro/models/model.py::_embed); it keeps
+// plain PyTorch off the card's training path.
+//
+// What bounds it: bytes.  The (V, d) gradient is written once and each row
+// of dout read once: (V d + T d) itemsize + T id bytes, 0.157 ms at
+// mamba2's V = 50,280, d = 2560, T = 1024 fp32 on an H100's 3.35 TB/s.
+// Almost all of it is the zero rows: at most T of V rows have an id.
+//
+// Design: one launch, no sort and no search (the form before it bound and
+// stable-sorted the ids on the card in several small launches, then had
+// each of V blocks search its run serially before its stores: 0.82 ms the
+// launch alone, 0.99 through its wrapper).  Block s C + c (C chunks a
+// row; a stripe's chunks neighbours in launch order, so a Zipf stream's
+// frequent low ids start first) owns a stripe of table rows [s S, (s + 1)
+// S) and column chunk c (a 16 B vector of every row a thread, or 8 / 4 B
+// where the row or a pointer allows no wider):
+//   1. warps 1.. zero-fill the stripe's chunk, vector stores at the memory
+//      rate (the kernel's bulk), while
+//   2. warp 0 reads the ids (from L2: every block reads all T) in slices of
+//      kSlice, whose positions fit the block's shared memory (8 KB of packed
+//      hits, 8 KB of their order), bounding each by the forward's rule and
+//      compacting the slice's hits on the stripe in ascending position
+//      (ballot and popc, 4 x 32 ids' loads in flight), counting them per
+//      stripe row, and
+//   3. places them by row with a stable counting sort (a warp scan of the
+//      counts, __match_any_sync ranks in ascending position);
+//   4. after a barrier (which orders the zeros before the sums, whichever
+//      thread stored them) every thread sums the hits of the column it owns,
+//      each hit row's rows of dout in ascending position, from zero (or
+//      from the row's sum over the earlier slices, re-read by the thread
+//      that wrote it), and stores the sum over the row's zeros.  The sorted
+//      hits go in groups of kRowsInFlight across row boundaries: a group's
+//      loads are in flight together, so a stripe of many rows with few hits
+//      each costs a round trip a group, not one a row.
+// Per column this is the plain version's order (kernels/gather.py::
+// embedding_gather_bwd_ref), so the two are equal; no atomics.  A long run
+// (a frequent token: ~200 of 1024 ids on token 0 in the Zipf stream) is
+// spread over the row's column chunks, never into partial sums.  The host
+// (repro_torch/core/autotune.py::gather_bwd_grid) picks S, the chunk and
+// the vector width from V, d and T.  On an H100 at the train shape
+// (scripts/ssd_launch_times.py gather) it runs ~0.20 ms against ~0.18 for
+// torch.zeros of the table: the zero-fill is the bulk.  All T ids equal
+// (one run summed by one stripe's blocks, serially a column) take ~0.22.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -87,44 +120,168 @@ gather_rows_kernel(const Id* __restrict__ ids, const V* __restrict__ table,
   }
 }
 
-// Block (v, chunk): dtable[v][chunk] = sum over the run of v in `sorted`
-// (ids ascending, `order` their positions, ascending within a run) of
-// dout[order[k]][chunk], in ascending k; zero where v has no run.
-template <typename T>
+// Backward (autotune.py GATHER_BWD_SLICE, GATHER_BWD_MAX_STRIPE).
+constexpr int kSlice = 2048;        // ids compacted and sorted at a time
+constexpr int kMaxStripe = 256;     // table rows a block (a hit's row fits 8 bits)
+constexpr int kRowsInFlight = 16;   // dout rows loaded before they are added
+constexpr int kIdsInFlight = 4;     // rounds of 32 ids warp 0 loads at once
+
+__device__ __forceinline__ void vadd(float4& a, const float4& b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+__device__ __forceinline__ void vadd(float2& a, const float2& b) { a.x += b.x; a.y += b.y; }
+__device__ __forceinline__ void vadd(float& a, const float& b) { a += b; }
+__device__ __forceinline__ void vadd(double2& a, const double2& b) { a.x += b.x; a.y += b.y; }
+__device__ __forceinline__ void vadd(double& a, const double& b) { a += b; }
+
+template <typename V>
+__device__ __forceinline__ V vzero();
+template <>
+__device__ __forceinline__ float4 vzero<float4>() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+template <>
+__device__ __forceinline__ float2 vzero<float2>() { return make_float2(0.f, 0.f); }
+template <>
+__device__ __forceinline__ float vzero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ double2 vzero<double2>() { return make_double2(0.0, 0.0); }
+template <>
+__device__ __forceinline__ double vzero<double>() { return 0.0; }
+
+template <typename Id>
+__device__ __forceinline__ int64_t bounded(const Id* ids, int64_t k, int64_t n_rows) {
+  int64_t id = static_cast<int64_t>(__ldg(ids + k));
+  if (id < 0) id += n_rows;
+  return id < 0 ? 0 : (id >= n_rows ? n_rows - 1 : id);
+}
+
+// Block s * chunks + c: rows [s * stripe, (s + 1) * stripe) of dtable,
+// vector c * blockDim.x + threadIdx.x of each (row_vecs vectors V a row);
+// a stripe's chunks are neighbours in launch order, so the first stripes
+// (the frequent ids of a Zipf stream) start first.  Warp 0 reads the ids
+// while the other warps zero-fill the stripe; then every thread sums the
+// hits of the column it owns.
+template <typename V, typename Id>
 __global__ void __launch_bounds__(kMaxThreads)
-gather_bwd_kernel(const long long* __restrict__ sorted, const long long* __restrict__ order,
-                  const T* __restrict__ dout, T* __restrict__ dtable, int64_t n_ids,
-                  int64_t d) {
-  constexpr int PER = kThreadBytes / sizeof(T);
-  __shared__ int64_t run[2];
-  const int64_t v = blockIdx.x;
-  if (threadIdx.x < 2) {
-    const int64_t want = v + threadIdx.x;    // lower bounds of v and v + 1
-    int64_t lo = 0, hi = n_ids;
-    while (lo < hi) {
-      const int64_t mid = (lo + hi) / 2;
-      if (sorted[mid] < want) lo = mid + 1; else hi = mid;
-    }
-    run[threadIdx.x] = lo;
+gather_bwd_kernel(const Id* __restrict__ ids, const V* __restrict__ dout,
+                  V* __restrict__ dtable, int64_t n_rows, int n_ids, int64_t row_vecs,
+                  int stripe, int chunks) {
+  __shared__ int hits[kSlice];              // (stripe row << 16) | slice position
+  __shared__ int order[kSlice];             // the hits by row, ascending position within
+  __shared__ int cnt[kMaxStripe];           // hits of each row in this slice
+  __shared__ int start[kMaxStripe + 1];     // their offsets in order[]
+  __shared__ int placed[kMaxStripe];        // hits of each row placed so far
+  __shared__ unsigned char done[kMaxStripe];  // an earlier slice summed into it
+  __shared__ int n_hits;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x / chunks) * stripe;
+  const int rows = static_cast<int>(min(static_cast<int64_t>(stripe), n_rows - r0));
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x % chunks) * blockDim.x;
+  const int vecs = static_cast<int>(min(static_cast<int64_t>(blockDim.x), row_vecs - c0));
+  V* dst = dtable + r0 * row_vecs + c0;     // this block's corner
+
+  // 1. the zeros: every vector of the stripe's chunk, by warps 1.. (by the
+  // one warp first where the block is one warp), while warp 0 reads ids
+  if (warp > 0 || blockDim.x == 32) {
+    const int first = blockDim.x == 32 ? 0 : 32, workers = blockDim.x - first;
+    const V z = vzero<V>();
+    for (int e = tid - first; e < rows * vecs; e += workers)
+      dst[static_cast<int64_t>(e / vecs) * row_vecs + e % vecs] = z;
   }
-  __syncthreads();
-  const int64_t begin = static_cast<int64_t>(blockIdx.y) * PER * blockDim.x;
-  T acc[PER];
+  if (warp == 0)
+    for (int r = lane; r < rows; r += 32) done[r] = 0;
+  for (int s0 = 0; s0 < n_ids; s0 += kSlice) {
+    const int len = min(kSlice, n_ids - s0);
+    if (warp == 0) {
+      // 2. the slice's hits on the stripe, in ascending position
+      // (kIdsInFlight rounds of 32 ids loaded at once), counted per row
+      for (int r = lane; r < rows; r += 32) cnt[r] = 0;
+      __syncwarp();
+      int nh = 0;
+      for (int k0 = 0; k0 < len; k0 += 32 * kIdsInFlight) {
+        int64_t rr[kIdsInFlight];
 #pragma unroll
-  for (int k = 0; k < PER; ++k) acc[k] = T(0);
-  for (int64_t r = run[0]; r < run[1]; ++r) {
-    const T* src = dout + order[r] * d;
+        for (int u = 0; u < kIdsInFlight; ++u) {
+          const int k = k0 + 32 * u + lane;
+          rr[u] = k < len ? bounded(ids, s0 + k, n_rows) - r0 : -1;
+        }
 #pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int64_t i = begin + threadIdx.x + k * blockDim.x;
-      if (i < d) acc[k] += src[i];
+        for (int u = 0; u < kIdsInFlight; ++u) {
+          const bool in = rr[u] >= 0 && rr[u] < rows;
+          const unsigned ball = __ballot_sync(0xffffffffu, in);
+          if (in) {
+            const int r = static_cast<int>(rr[u]);
+            hits[nh + __popc(ball & ((1u << lane) - 1u))] = (r << 16) | (k0 + 32 * u + lane);
+            atomicAdd(&cnt[r], 1);           // an integer count: order-free
+          }
+          nh += __popc(ball);
+        }
+      }
+      __syncwarp();
+      // exclusive offsets of the rows' hits (a warp scan, 32 rows a step)
+      int carry = 0;
+      for (int c = 0; c < rows; c += 32) {
+        const int v = c + lane < rows ? cnt[c + lane] : 0;
+        int inc = v;
+#pragma unroll
+        for (int dd = 1; dd < 32; dd <<= 1) {
+          const int u = __shfl_up_sync(0xffffffffu, inc, dd);
+          if (lane >= dd) inc += u;
+        }
+        if (c + lane < rows) { start[c + lane] = carry + inc - v; placed[c + lane] = 0; }
+        carry += __shfl_sync(0xffffffffu, inc, 31);
+      }
+      if (lane == 0) { start[rows] = carry; n_hits = nh; }
+      __syncwarp();
+      // 3. stable placement by row, in ascending position: a hit's rank
+      // among the equal rows of its 32 goes after those placed before
+      for (int i0 = 0; i0 < nh; i0 += 32) {
+        const int i = i0 + lane;
+        const int h = i < nh ? hits[i] : -1;
+        const int key = h < 0 ? -1 : h >> 16;
+        const unsigned same = __match_any_sync(0xffffffffu, key);
+        if (key >= 0) order[start[key] + placed[key] + __popc(same & ((1u << lane) - 1u))] = h;
+        __syncwarp();
+        if (key >= 0 && lane == __ffs(same) - 1) placed[key] += __popc(same);
+        __syncwarp();
+      }
     }
-  }
-  T* dst = dtable + v * d;
+    __syncthreads();                         // the zeros stored, the slice sorted
+    const int nh = n_hits;
+    if (nh > 0 && tid < vecs) {
+      // 4. the sorted hits in groups of kRowsInFlight, across row
+      // boundaries: a group's loads are all in flight before its adds,
+      // which run in order, a row's sum stored when the next row begins
+      const V* src = dout + static_cast<int64_t>(s0) * row_vecs + c0 + tid;
+      V* out = dst + tid;
+      int cur = -1;
+      V acc = vzero<V>();
+      for (int k0 = 0; k0 < nh; k0 += kRowsInFlight) {
+        V v[kRowsInFlight];
 #pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int64_t i = begin + threadIdx.x + k * blockDim.x;
-    if (i < d) dst[i] = acc[k];
+        for (int u = 0; u < kRowsInFlight; ++u)
+          if (k0 + u < nh)
+            v[u] = __ldg(src + static_cast<int64_t>(order[k0 + u] & 0xffff) * row_vecs);
+#pragma unroll
+        for (int u = 0; u < kRowsInFlight; ++u) {
+          if (k0 + u >= nh) break;
+          const int r = order[k0 + u] >> 16;
+          if (r != cur) {
+            if (cur >= 0) out[static_cast<int64_t>(cur) * row_vecs] = acc;
+            cur = r;
+            // from zero, or from the row's sum over the earlier slices
+            // (this thread's own store)
+            acc = done[r] ? out[static_cast<int64_t>(r) * row_vecs] : vzero<V>();
+          }
+          vadd(acc, v[u]);
+        }
+      }
+      if (cur >= 0) out[static_cast<int64_t>(cur) * row_vecs] = acc;
+    }
+    __syncthreads();                         // the sums read start[], order[] and done[]
+    if (warp == 0)
+      for (int r = lane; r < rows; r += 32)
+        if (start[r + 1] > start[r]) done[r] = 1;
   }
 }
 
@@ -152,6 +309,23 @@ cudaError_t launch_id(const void* table, int64_t n_rows, const void* ids, void* 
   if (aligned(8))
     return launch<uint2, Id>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads, st);
   return launch<unsigned, Id>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads, st);
+}
+
+template <typename V>
+int launch_bwd(const void* ids, int id_bytes, const void* dout, void* dtable, int64_t n_rows,
+               int n_ids, int64_t row_vecs, int stripe, int chunks, int threads,
+               cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>(((n_rows + stripe - 1) / stripe) * chunks);
+  if (id_bytes == 8) {
+    gather_bwd_kernel<V, long long><<<grid, threads, 0, st>>>(
+        static_cast<const long long*>(ids), static_cast<const V*>(dout), static_cast<V*>(dtable),
+        n_rows, n_ids, row_vecs, stripe, chunks);
+  } else {
+    gather_bwd_kernel<V, int><<<grid, threads, 0, st>>>(
+        static_cast<const int*>(ids), static_cast<const V*>(dout), static_cast<V*>(dtable),
+        n_rows, n_ids, row_vecs, stripe, chunks);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -184,35 +358,53 @@ int repro_embedding_gather(const void* table, int64_t n_rows, const void* ids,
   return static_cast<int>(err);
 }
 
-// The backward.  sorted (n_ids,) int64: the bounded ids in ascending order;
-// order (n_ids,) int64: their positions, ascending within equal ids; dout
-// (n_ids, d) and dtable (n_rows, d) of one element type (float64 when
-// is_double).  Grid (n_rows, chunks) of `threads` (a multiple of 32, at most
-// 256), each thread 64 bytes of a row: the chunks must cover the row and
-// none may start past its end.  The caller makes the stream's device
-// current.  Returns the launch's cudaError_t.
-int repro_embedding_gather_bwd(const void* sorted, const void* order, const void* dout,
-                               void* dtable, int64_t n_rows, int64_t n_ids, int64_t d,
-                               int is_double, int chunks, int threads, void* stream) {
-  const int64_t chunk_elems =
-      static_cast<int64_t>(kThreadBytes / (is_double ? 8 : 4)) * threads;
-  if (n_rows <= 0 || n_rows > 2147483647 || n_ids <= 0 || d <= 0 || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0 || chunks < 1 || chunks > 65535 ||
-      chunks * chunk_elems < d || (chunks - 1) * chunk_elems >= d) {
+// The backward.  ids (n_ids,) of id_bytes (4: int32, 8: int64), any values
+// (each bounded to a row as above); dout (n_ids, d) and dtable (n_rows, d)
+// of one element type (float64 when is_double), their rows read and written
+// as vectors of vec_bytes (16, 8 or 4, at least the element size; d times
+// the element size and both pointers multiples of it).  Grid
+// ceil(n_rows / stripe) x chunks blocks of `threads` (a multiple of 32, at
+// most 256), stripe at most 256 rows, each thread one vector of each row:
+// the chunks must cover the row and none may start past its end.  The caller
+// makes the stream's device current.  Returns the launch's cudaError_t.
+int repro_embedding_gather_bwd(const void* ids, int id_bytes, const void* dout, void* dtable,
+                               int64_t n_rows, int64_t n_ids, int64_t d, int is_double,
+                               int vec_bytes, int stripe, int chunks, int threads,
+                               void* stream) {
+  const int64_t item = is_double ? 8 : 4;
+  const int64_t row_bytes = d * item;
+  const int64_t row_vecs = vec_bytes > 0 ? row_bytes / vec_bytes : 0;
+  const int64_t n_stripes = stripe > 0 ? (n_rows + stripe - 1) / stripe : 0;
+  auto misaligned = [&](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % static_cast<uintptr_t>(vec_bytes) != 0;
+  };
+  if (n_rows <= 0 || n_ids <= 0 || n_ids > 2147483647 || d <= 0 ||
+      (id_bytes != 4 && id_bytes != 8) ||
+      (vec_bytes != 4 && vec_bytes != 8 && vec_bytes != 16) || vec_bytes < item ||
+      row_bytes % vec_bytes != 0 || misaligned(dout) || misaligned(dtable) ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || stripe < 1 ||
+      stripe > kMaxStripe || chunks < 1 || n_stripes * chunks > 2147483647 ||
+      static_cast<int64_t>(chunks) * threads < row_vecs ||
+      static_cast<int64_t>(chunks - 1) * threads >= row_vecs) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(n_rows), static_cast<unsigned>(chunks));
-  auto ids = static_cast<const long long*>(sorted);
-  auto pos = static_cast<const long long*>(order);
+  const int t = static_cast<int>(n_ids);
   if (is_double) {
-    gather_bwd_kernel<double><<<grid, threads, 0, st>>>(
-        ids, pos, static_cast<const double*>(dout), static_cast<double*>(dtable), n_ids, d);
-  } else {
-    gather_bwd_kernel<float><<<grid, threads, 0, st>>>(
-        ids, pos, static_cast<const float*>(dout), static_cast<float*>(dtable), n_ids, d);
+    if (vec_bytes == 16)
+      return launch_bwd<double2>(ids, id_bytes, dout, dtable, n_rows, t, row_vecs, stripe,
+                                 chunks, threads, st);
+    return launch_bwd<double>(ids, id_bytes, dout, dtable, n_rows, t, row_vecs, stripe, chunks,
+                              threads, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (vec_bytes == 16)
+    return launch_bwd<float4>(ids, id_bytes, dout, dtable, n_rows, t, row_vecs, stripe, chunks,
+                              threads, st);
+  if (vec_bytes == 8)
+    return launch_bwd<float2>(ids, id_bytes, dout, dtable, n_rows, t, row_vecs, stripe, chunks,
+                              threads, st);
+  return launch_bwd<float>(ids, id_bytes, dout, dtable, n_rows, t, row_vecs, stripe, chunks,
+                           threads, st);
 }
 
 const char* repro_gather_cuda_error_string(int code) {

@@ -24,39 +24,71 @@
 // and the state term of dcum_j as -sum_n B[j, n] (e^{cum_last - cum_j} X_j
 // dS_out)[n]: both from products the gradients need anyway.
 //
-// Five launches:
-//   1. ssd_bwd_local_kernel, grid (b h nc, ceil(p/64), ceil(n/64)): each
-//      chunk's local term sum_i e^{cum_i} dY_iᵀ C_i, a 64 x 64 tile of (p, n)
-//      a block (the forward's launch 1 with dY, C and e^{cum} in place of x,
-//      B and e^{cum_last - cum});
-//   2. ssd_bwd_state_pass_kernel, on the forward state pass's grid (one thread
-//      per (b, h, p, n) entry): walks the chunks last to first, writes dS_out
-//      of each chunk and carries dS_in; writes init_state's gradient;
-//   3. ssd_bwd_query_kernel, grid (b h nc, ceil(q/64)), one 64-row query tile
-//      I a block: dC_I and the row sums of dcum over the key tiles J <= I;
-//   4. ssd_bwd_key_kernel, the same grid, one 64-row key tile J a block: dX_J,
-//      dB_J and the column sums of dcum over the query tiles I >= J, with the
-//      dS_out terms;
-//   5. ssd_bwd_finish_kernel: dad (the reverse running sum, one thread a
-//      chunk, last row to first), and dB, dC summed over the h / g heads of
-//      each group in ascending head order.
-// Launches 3 and 4 both recompute the (I, J) tiles of G and dY Xᵀ: launch 3
-// owns the query rows, launch 4 the key rows, so no output has two writers
-// and no float atomics are needed: two calls give bit-equal gradients.
-// The per-head dB and dC of launches 3 and 4 go to (b, l, h, n) scratch
-// before the group sums.
-//
 // What bounds it on the card: operations.  Per (b, h) and chunk the function
 // is q(q+1)/2 (3n + 2p) + 4 q p n multiply-adds (G, M, dC, dB and dX on and
 // below the diagonal; the local term and the three dS terms), two operations
-// each: about 2.7 times the forward's quadratic part.  All products are
-// register micro-tiles on the CUDA cores (256 threads as 16 x 16, a 4 x 4
-// tile each, operands staged k-major through shared memory in k-steps of
-// 32), in the element type T (float, or double for float64): fp32 at the
-// CUDA cores' 67 TFLOP/s, not the tensor cores'.  Outputs wider than one
-// 64-column tile are carried through device memory between key tiles (each
-// element owned by one thread), as the forward's y is.  Simple and right
-// first; its speed is queue B's (ROADMAP).
+// each: 16.15 GFLOP at mamba2's train step (b 2, l 512, h 80, p 64, n 128,
+// q 256), 0.241 ms at the CUDA cores' 67 TFLOP/s, 0.098 ms as 3xTF32 (three
+// TF32 products each) at the tensor cores' 495.  Its 64-row tiles execute
+// at most 18.8 GFLOP there (the diagonal tiles whole, each pair once).
+//
+// Five launches:
+//   1. ssd_bwd_local_kernel, grid (b h nc, ceil(p/64), ceil(n/64)): each
+//      chunk's local term sum_i e^{cum_i} dY_iᵀ C_i, a 64 x 64 tile of (p, n)
+//      a block;
+//   2. ssd_bwd_state_pass_kernel, on the forward state pass's grid (one thread
+//      per (b, h, p, n) entry): walks the chunks last to first, writes dS_out
+//      of each chunk and carries dS_in; writes init_state's gradient;
+//   3. ssd_bwd_key_kernel, grid (b h nc, ceil(q/64)), one 64-row key tile J a
+//      block (the most query tiles first), in two phases: (1) for each query
+//      tile I >= J the pair's G_IJ and dY_I X_Jᵀ, once; M_IJ and (G ∘ L)_IJ
+//      to (b h nc, pairs, 64, 64) scratch (52 MB each at the train shape),
+//      the pair's row sums of G ∘ M to scratch, its column sums into dcum's
+//      key part; (2) each 64-column slice of dB_J = X_J dS_out-term +
+//      sum_I M_IJᵀ C_I and of dX_J = B_J dS_outᵀ-term + sum_I (G ∘ L)_IJᵀ
+//      dY_I, stored once;
+//   4. ssd_bwd_query_kernel, the same grid, one 64-row query tile I a block:
+//      dC_I = diag(e^{cum}) dY_I S_in + sum_{J <= I} M_IJ B_J from launch 3's
+//      M tiles, and dcum's query part (the state term's row sums and launch
+//      3's row sums, ascending J);
+//   5. ssd_bwd_finish_kernel: dad (the reverse running sum within each chunk,
+//      a warp a chunk), and dB, dC summed over the h / g heads of each group
+//      in ascending head order.
+// Each launch has its own entry point; the host makes them in this order.
+//
+// Design, against what bounds it:
+//   * No product is computed twice: launch 4 reads launch 3's M tiles
+//     instead of recomputing G and dY Xᵀ (that recomputation was ~5 of the
+//     ~23.8 GFLOP the five-launch form before it executed).  Handing tiles
+//     through scratch was chosen over a cluster of four blocks sharing them
+//     through distributed shared memory: a key block's pairs vary from 1 to
+//     q / 64, so no fixed cluster balances them, and the round trip (~210
+//     MB, mostly L2) costs less than the work it removes.  No output has
+//     two writers, no float atomics are used, and every sum runs in a fixed
+//     order: two calls give bit-equal gradients.
+//   * fp32 products (the training path) on the tensor cores: mma.sync
+//     m16n8k8 TF32 with the 3xTF32 split of ssd_mma.cuh (shared with the
+//     forward; its split is integer arithmetic, not the conversion pipe), 8
+//     warps tiling a 64 x 64 output 4 x 2.  fp64: CUDA-core micro-tiles, 256
+//     threads as 16 x 16, a 4 x 4 tile each.
+//   * Operands come from shared-memory tiles staged as they lie in device
+//     memory by cp.async, four stages deep: every step is a k-step of 32
+//     over two tiles (4608 elements; a product over a tile's 64 rows takes
+//     two steps), and each block's products run as one pipeline a phase, so
+//     a product's first tiles arrive during the one before.  No register
+//     carries a tile.  Ragged tiles (q, p or n not a multiple of the tile)
+//     are staged as zeros and masked on store.
+//   * Row and column sums of a tile go through a (64, 65) shared tile, four
+//     threads a row or column, each a quarter in index order, the quarters
+//     added in a fixed butterfly.
+//   * Shared memory is fixed whatever the shape: fp32 73, 89 and 89 KB for
+//     launches 1, 3 and 4, two blocks an SM (fp64 twice that).
+//   * The per-head dB and dC go to (b, l, h, n) scratch (42 MB each at the
+//     train shape) before launch 5's group sums; launch 5 takes ~5% of the
+//     call once dad is a warp a chunk.
+//   * On an H100 at the train shape (scripts/ssd_launch_times.py): ~0.06,
+//     0.016, 0.47, 0.15 and 0.044 ms; the five-launch form before this
+//     design read 0.123, 0.016, 0.706 (key), 0.577 (query) and 0.086.
 //
 // The entering states S_in and the cum of every chunk are the forward's
 // (saved by repro_torch/kernels/ssd.py's autograd Function from the forward
@@ -69,13 +101,22 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "ssd_mma.cuh"
+
 namespace {
 
+using namespace ssd_mma;
+
 constexpr int TILE = 64;       // rows and columns of an output tile
-constexpr int KC = 32;         // k rows staged a step
-constexpr int LDS = TILE + 4;  // shared-memory row stride (16 B aligned)
-constexpr int THREADS = 256;   // 16 x 16 threads, a 4 x 4 tile each
-constexpr int PER = TILE * KC / THREADS;   // elements of a staged tile a thread holds
+constexpr int KC = 32;         // k of one staged step of a product over n or p
+constexpr int THREADS = 256;   // 8 warps (fp32) or 16 x 16 threads (fp64)
+constexpr int LDR = KC + 4;    // row stride of a (64, 32) tile contracted along its rows
+constexpr int LDK = TILE + 8;  // row stride of a 64-wide tile contracted down its columns
+constexpr int LDW = TILE + 1;  // row stride of the sums tile
+constexpr int STAGE = 2 * TILE * LDR;            // a k-step's two tiles (= 2 * KC * LDK)
+constexpr int PAIR = TILE * TILE;                // elements of a handed M tile
+static_assert(STAGE == 2 * KC * LDK, "the two k-step layouts fill one stage");
+constexpr int NS = 4;          // stages of every pipeline (k-steps of 32: STAGE each)
 
 template <typename T>
 __device__ __forceinline__ T exp_t(T v);
@@ -84,35 +125,73 @@ __device__ __forceinline__ float exp_t<float>(float v) { return expf(v); }
 template <>
 __device__ __forceinline__ double exp_t<double>(double v) { return exp(v); }
 
-__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  const double2 b = *reinterpret_cast<const double2*>(p + 2);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-
-// acc[a][b] += sum_k A[k][ty*4 + a] * B[k][tx*4 + b]; A and B k-major with
-// row stride LDS.
+// The product engine: element (x, y) of a thread's 4 x 4 accumulator lies at
+// (row(x, y), col(x, y)) of the block's 64 x 64 output tile, and mma<AK, BK,
+// K> adds A B over k in [0, K): A[m][k] at A[m * lda + k] (at A[k * lda + m]
+// when AK), B[k][n] at B[n * ldb + k] (at B[k * ldb + n] when BK); a
+// non-null ascale multiplies A's column k by ascale[k].
 template <typename T>
-__device__ __forceinline__ void micro(const T* __restrict__ A, const T* __restrict__ Bt,
-                                      int kc, int ty, int tx, T (&acc)[4][4]) {
-#pragma unroll 8
-  for (int k = 0; k < kc; ++k) {
-    T a[4], b[4];
-    load4(A + k * LDS + ty * 4, a);
-    load4(Bt + k * LDS + tx * 4, b);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fma_t(a[i], b[j], acc[i][j]);
+struct Engine;
+
+template <>
+struct Engine<float> {
+  __device__ static int row(int tid, int x, int y) {
+    return ((tid >> 5) & 3) * 16 + ((tid & 31) >> 2) + (y >> 1) * 8;
   }
-}
+  __device__ static int col(int tid, int x, int y) {
+    return (tid >> 7) * 32 + 8 * x + 2 * (tid & 3) + (y & 1);
+  }
+  template <bool AK, bool BK, int K>
+  __device__ static void mma(float (&acc)[4][4], const float* A, int lda, const float* B,
+                             int ldb, const float* ascale, int tid) {
+    const int lane = tid & 31, warp = tid >> 5;
+    const int mb = (warp & 3) * 16, nb = (warp >> 2) * 32;
+#pragma unroll
+    for (int kb = 0; kb < K; kb += 8) {
+      uint32_t a[4], b[4][2];
+      if constexpr (AK) frag_a_cols(a, A, lda, mb, kb, lane);
+      else frag_a(a, A, lda, mb, kb, lane);
+      if (ascale) {
+        const float s0 = ascale[kb + (lane & 3)], s1 = ascale[kb + (lane & 3) + 4];
+        a[0] = __float_as_uint(__uint_as_float(a[0]) * s0);
+        a[1] = __float_as_uint(__uint_as_float(a[1]) * s0);
+        a[2] = __float_as_uint(__uint_as_float(a[2]) * s1);
+        a[3] = __float_as_uint(__uint_as_float(a[3]) * s1);
+      }
+      if constexpr (BK) frag_b_cols(b, B, ldb, nb, kb, lane);
+      else frag_b_rows(b, B, ldb, nb, kb, lane);
+      mma3(acc, a, b);
+    }
+  }
+};
+
+template <>
+struct Engine<double> {
+  __device__ static int row(int tid, int x, int y) { return (tid >> 4) * 4 + x; }
+  __device__ static int col(int tid, int x, int y) { return (tid & 15) * 4 + y; }
+  template <bool AK, bool BK, int K>
+  __device__ static void mma(double (&acc)[4][4], const double* A, int lda, const double* B,
+                             int ldb, const double* ascale, int tid) {
+    const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      double a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = AK ? A[k * lda + r0 + i] : A[(r0 + i) * lda + k];
+        b[i] = BK ? B[k * ldb + c0 + i] : B[(c0 + i) * ldb + k];
+      }
+      if (ascale) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] *= ascale[k];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
+    }
+  }
+};
 
 template <typename T>
 __device__ __forceinline__ void zero(T (&acc)[4][4]) {
@@ -122,103 +201,110 @@ __device__ __forceinline__ void zero(T (&acc)[4][4]) {
     for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
 }
 
-// A staged (KC x TILE) operand tile is written k-major, S[kk * LDS + m].  A
-// ROWS source has rows m and k contiguous, a COLS source rows k and m
-// contiguous, so that consecutive threads read consecutive addresses.
-enum Kind { ROWS, COLS };
-
-template <Kind K>
-__device__ __forceinline__ void coords(int e, int& kk, int& m) {
-  if constexpr (K == ROWS) { m = e / KC; kk = e % KC; }
-  else { kk = e / TILE; m = e % TILE; }
-}
-
-template <Kind K, typename T, typename F>
-__device__ __forceinline__ void fetch(F f, int k0, int tid, T (&v)[PER]) {
+// f(row, col, value&) for each element of this thread's accumulator.
+template <typename T, typename F>
+__device__ __forceinline__ void each(T (&acc)[4][4], int tid, F f) {
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    int kk, m;
-    coords<K>(tid + i * THREADS, kk, m);
-    v[i] = f(k0 + kk, m);
-  }
-}
-
-template <Kind K, typename T>
-__device__ __forceinline__ void put(T* S, const T (&v)[PER], int tid) {
+  for (int x = 0; x < 4; ++x)
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    int kk, m;
-    coords<K>(tid + i * THREADS, kk, m);
-    S[kk * LDS + m] = v[i];
-  }
+    for (int y = 0; y < 4; ++y) f(Engine<T>::row(tid, x, y), Engine<T>::col(tid, x, y), acc[x][y]);
 }
 
-// acc += A Bᵀ over k = 0 .. k_end in steps of KC, A[k][m] = fa(k, m) and
-// B[k][n] = fb(k, n) (the callers return 0 outside their bounds), in two
-// shared-memory stages (the next step's loads issued before this step's
-// products).  `ab` holds 4 (KC, LDS) tiles.  Starts with a barrier, so the
-// caller may reuse `ab` and whatever it read before.
-template <Kind KA, Kind KB, typename T, typename FA, typename FB>
-__device__ __forceinline__ void staged(T* ab, int k_end, FA fa, FB fb, int tid, int ty,
-                                       int tx, T (&acc)[4][4]) {
-  T ra[PER], rb[PER];
-  __syncthreads();
-  fetch<KA>(fa, 0, tid, ra);
-  fetch<KB>(fb, 0, tid, rb);
-  for (int k0 = 0, s = 0; k0 < k_end; k0 += KC, ++s) {
-    T* As = ab + (s & 1) * 2 * KC * LDS;
-    T* Bs = As + KC * LDS;
-    put<KA>(As, ra, tid);
-    put<KB>(Bs, rb, tid);
-    __syncthreads();
-    if (k0 + KC < k_end) {
-      fetch<KA>(fa, k0 + KC, tid, ra);
-      fetch<KB>(fb, k0 + KC, tid, rb);
-    }
-    micro(As, Bs, KC, ty, tx, acc);
-  }
-}
-
-// The sum over the 16 threads of one tile row (tx = lane & 15), in a fixed
-// butterfly order; every lane of the row gets a sum, lane tx = 0's is used.
+// Reads (load) or writes this thread's part of a 64 x 64 output tile at
+// rows r0.., columns c0.. of base (row stride `stride`), within (rows, cols);
+// a load leaves 0 outside.  Elements (x, y) and (x, y + 1), y even, are
+// neighbours in a row: one 2-vector access where base and stride allow.
 template <typename T>
-__device__ __forceinline__ T row_sum(T v) {
+__device__ __forceinline__ void tile_io(T (&acc)[4][4], T* base, int64_t stride, int r0, int c0,
+                                        int rows, int cols, int tid, bool store) {
+  const bool pairs = (reinterpret_cast<uintptr_t>(base) % (2 * sizeof(T))) == 0 &&
+                     stride % 2 == 0 && c0 % 2 == 0;
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Reads (load) or writes this thread's 4 x 4 tile of a (rows, cols) output
-// whose row r, column c lies at base[r * stride + c]; rows past `rows` and
-// columns past `cols` are skipped (a load leaves 0 there).
-template <typename T>
-__device__ __forceinline__ void tile_io(T* base, int64_t stride, int r0, int c0, int rows,
-                                        int cols, int ty, int tx, T (&acc)[4][4], bool store) {
+  for (int x = 0; x < 4; ++x)
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = r0 + ty * 4 + a;
+    for (int y = 0; y < 4; y += 2) {
+      const int r = r0 + Engine<T>::row(tid, x, y), c = c0 + Engine<T>::col(tid, x, y);
+      T* p = base + static_cast<int64_t>(r) * stride + c;
+      if (pairs && r < rows && c + 1 < cols) {
+        if constexpr (sizeof(T) == 4) {
+          if (store) *reinterpret_cast<float2*>(p) = make_float2(acc[x][y], acc[x][y + 1]);
+          else {
+            const float2 v = *reinterpret_cast<const float2*>(p);
+            acc[x][y] = v.x; acc[x][y + 1] = v.y;
+          }
+        } else {
+          if (store) *reinterpret_cast<double2*>(p) = make_double2(acc[x][y], acc[x][y + 1]);
+          else {
+            const double2 v = *reinterpret_cast<const double2*>(p);
+            acc[x][y] = v.x; acc[x][y + 1] = v.y;
+          }
+        }
+        continue;
+      }
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int c = c0 + tx * 4 + b;
-      if (r < rows && c < cols) {
-        T* p = base + static_cast<int64_t>(r) * stride + c;
-        if (store) *p = acc[a][b]; else acc[a][b] = *p;
-      } else if (!store) {
-        acc[a][b] = T(0);
+      for (int e = 0; e < 2; ++e) {
+        if (r < rows && c + e < cols) {
+          if (store) p[e] = acc[x][y + e]; else acc[x][y + e] = p[e];
+        } else if (!store) {
+          acc[x][y + e] = T(0);
+        }
       }
     }
+}
+
+template <typename T>
+__device__ __forceinline__ bool aligned16(const T* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Stages rows [r0, r0 + R) and columns [c0, c0 + CC) of a row-major source
+// (row r at base + r * stride) into S (row stride ld) by cp.async, zeros
+// where a row is >= rows or a column >= cols.  vec: 16-byte copies (base
+// and stride 16 B aligned, c0 a multiple of 16 B), else an element a copy.
+template <typename T, int R, int CC>
+__device__ __forceinline__ void stage_tile(T* S, int ld, const T* base, int64_t stride, int r0,
+                                           int c0, int rows, int cols, bool vec, int tid) {
+  if (vec) {
+    constexpr int PV = 16 / sizeof(T);
+    constexpr int ROWV = CC / PV;
+    for (int e = tid; e < R * ROWV; e += THREADS) {
+      const int r = e / ROWV, c = (e % ROWV) * PV;
+      const int rr = r0 + r, cc = c0 + c;
+      int valid = rr < rows ? cols - cc : 0;
+      valid = valid < 0 ? 0 : (valid > PV ? PV : valid);
+      const T* src = valid ? base + static_cast<int64_t>(rr) * stride + cc : base;
+      cp_async<16>(S + r * ld + c, src, valid * static_cast<int>(sizeof(T)));
+    }
+  } else {
+    for (int e = tid; e < R * CC; e += THREADS) {
+      const int r = e / CC, c = e % CC;
+      const int rr = r0 + r, cc = c0 + c;
+      const bool in = rr < rows && cc < cols;
+      cp_async<sizeof(T)>(S + r * ld + c, in ? base + static_cast<int64_t>(rr) * stride + cc : base,
+                          in ? static_cast<int>(sizeof(T)) : 0);
+    }
   }
 }
 
-// Loads a (TILE, TILE) tile of a row-major source (rows r0 .., columns c0 ..)
-// into S k-major (S[r * LDS + c]), zeros outside (rows, cols).
-template <typename T>
-__device__ __forceinline__ void load_tile(T* S, const T* __restrict__ base, int64_t stride,
-                                          int r0, int c0, int rows, int cols, int tid) {
-  for (int e = tid; e < TILE * TILE; e += THREADS) {
-    const int r = e / TILE, c = e % TILE;
-    S[r * LDS + c] = r0 + r < rows && c0 + c < cols
-        ? base[static_cast<int64_t>(r0 + r) * stride + c0 + c] : T(0);
+// Runs `steps` steps NS stages deep: stage(s, buf) issues step s's
+// cp.async copies into stage buffer buf (s % NS), work(s, buf) consumes
+// them.  The copies of steps s + 1 .. s + NS - 1 are in flight during step
+// s's work; one barrier a step.  Starts with a barrier (whatever read the
+// stages before is done); the caller syncs before reusing them.
+template <int NS, typename Stage, typename Work>
+__device__ __forceinline__ void pipeline(int steps, Stage stage, Work work) {
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < steps) stage(s, s);
+    cp_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_wait<NS - 2>();                          // step s's copies have landed
+    __syncthreads();                            // ... everyone's; step s - 1's work done
+    if (s + NS - 1 < steps) stage(s + NS - 1, (s + NS - 1) % NS);
+    cp_commit();
+    work(s, s % NS);
   }
 }
 
@@ -240,31 +326,41 @@ __device__ __forceinline__ Plane plane_of(int64_t l, int h, int g, int q) {
   return pl;
 }
 
-// Launch 1: local[b, h, c] (p, n) = sum_i e^{cum_i} dY_iᵀ C_i.
+// Launch 1: local[b, h, c] (p, n) = sum_i e^{cum_i} dY_iᵀ C_i, over the
+// chunk's rows in k-steps of 32 (dY and C tiles k-major, e^{cum} a k-scale).
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 ssd_bwd_local_kernel(const T* __restrict__ dy, const T* __restrict__ Cm,
                      const T* __restrict__ cum, T* __restrict__ local, int64_t l, int h,
                      int p, int g, int n, int q) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ab = reinterpret_cast<T*>(smem_raw);
+  T* st = reinterpret_cast<T*>(smem_raw);   // NS stages: dY (KC, LDK) and C (KC, LDK)
+  T* sc = st + NS * STAGE;                  // NS x KC scales e^{cum}
   const Plane pl = plane_of(l, h, g, q);
   const int p0 = blockIdx.y * TILE, n0 = blockIdx.z * TILE;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x;
   const int64_t xrow = static_cast<int64_t>(h) * p, brow = static_cast<int64_t>(g) * n;
   const T* dybase = dy + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
   const T* cbase = Cm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
   const T* cumb = cum + pl.bh * l + pl.t0;
-  auto fa = [&](int i, int m) -> T {
-    return i < q && p0 + m < p ? dybase[i * xrow + p0 + m] * exp_t(cumb[i]) : T(0);
-  };
-  auto fb = [&](int i, int m) -> T {
-    return i < q && n0 + m < n ? cbase[i * brow + n0 + m] : T(0);
-  };
+  const bool vx = aligned16(dybase) && (xrow * sizeof(T)) % 16 == 0;
+  const bool vb = aligned16(cbase) && (brow * sizeof(T)) % 16 == 0;
   T acc[4][4];
   zero(acc);
-  staged<COLS, COLS>(ab, q, fa, fb, tid, ty, tx, acc);
-  tile_io(local + pl.bhc * p * static_cast<int64_t>(n), n, p0, n0, p, n, ty, tx, acc, true);
+  pipeline<NS>(
+      (q + KC - 1) / KC,
+      [&](int s, int buf) {
+        T* A = st + buf * STAGE;
+        stage_tile<T, KC, TILE>(A, LDK, dybase, xrow, s * KC, p0, q, p, vx, tid);
+        stage_tile<T, KC, TILE>(A + KC * LDK, LDK, cbase, brow, s * KC, n0, q, n, vb, tid);
+        if (tid < KC) sc[buf * KC + tid] = s * KC + tid < q ? exp_t(cumb[s * KC + tid]) : T(0);
+      },
+      [&](int, int buf) {
+        const T* A = st + buf * STAGE;
+        Engine<T>::template mma<true, true, KC>(acc, A, LDK, A + KC * LDK, LDK, sc + buf * KC,
+                                                tid);
+      });
+  tile_io(acc, local + pl.bhc * p * static_cast<int64_t>(n), n, p0, n0, p, n, tid, true);
 }
 
 // Launch 2: the reverse pass over the chunks, one thread per state entry r
@@ -287,148 +383,59 @@ __global__ void ssd_bwd_state_pass_kernel(const T* __restrict__ local, T* __rest
   if (dinit) dinit[bh * pn + r] = run;
 }
 
-// Launch 3: query tile I of one chunk.  dC_I (per head, into dch (b, l, h,
-// n)) and the row part of dcum (into dcq (b, h, l)).
+// The sums of row and of column tid / 4 of W (all 256 threads: four a row,
+// a quarter each in index order, the quarters added in a fixed butterfly),
+// in every one of the four threads.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-ssd_bwd_query_kernel(const T* __restrict__ xd, const T* __restrict__ dy,
-                     const T* __restrict__ Bm, const T* __restrict__ Cm,
-                     const T* __restrict__ cum, const T* __restrict__ entering, int has_init,
-                     T* __restrict__ dch, T* __restrict__ dcq, int64_t l, int h, int p, int g,
-                     int n, int q) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ab = reinterpret_cast<T*>(smem_raw);   // stages; an operand tile between products
-  T* Ms = ab + 4 * KC * LDS;                // (TILE, LDS) M_IJ, key-major
-  T* cq = Ms + TILE * LDS;                  // (TILE) cum of the query rows
-  T* ck = cq + TILE;                        // (TILE) cum of the key rows
-
-  const Plane pl = plane_of(l, h, g, q);
-  const int i0 = blockIdx.y * TILE;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int64_t xrow = static_cast<int64_t>(h) * p, brow = static_cast<int64_t>(g) * n;
-  const int64_t hrow = static_cast<int64_t>(h) * n;
-  const T* xbase = xd + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
-  const T* dybase = dy + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
-  const T* bbase = Bm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
-  const T* cbase = Cm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
-  T* dcbase = dch + (pl.bi * l + pl.t0) * hrow + static_cast<int64_t>(pl.hh) * n;
-  const T* cumb = cum + pl.bh * l + pl.t0;
-  const T* s_in = entering + pl.bhc * p * static_cast<int64_t>(n);   // (p, n)
-  const bool has_state = pl.c > 0 || has_init;
-  const int n_ns = (n + TILE - 1) / TILE;
-
-  if (tid < TILE) cq[tid] = i0 + tid < q ? cumb[i0 + tid] : T(0);
-  __syncthreads();
-
-  T rowacc[4] = {T(0), T(0), T(0), T(0)};
-  T acc[4][4];
-  auto dy_rows = [&](int k, int m) -> T {      // dY_I[m][k]
-    return i0 + m < q && k < p ? dybase[static_cast<int64_t>(i0 + m) * xrow + k] : T(0);
-  };
-  auto c_rows = [&](int k, int m) -> T {       // C_I[m][k]
-    return i0 + m < q && k < n ? cbase[static_cast<int64_t>(i0 + m) * brow + k] : T(0);
-  };
-
-  // state term: dC_I = diag(e^{cum}) dY_I S_in; its dcum part sum_n C dC
-  for (int s = 0; s < n_ns; ++s) {
-    const int ns = s * TILE;
-    zero(acc);
-    if (has_state) {
-      auto s_cols = [&](int k, int m) -> T {   // S_in[k][ns + m]
-        return k < p && ns + m < n ? s_in[static_cast<int64_t>(k) * n + ns + m] : T(0);
-      };
-      staged<ROWS, COLS>(ab, p, dy_rows, s_cols, tid, ty, tx, acc);
+__device__ __forceinline__ void tile_sums(const T* W, int tid, T& row, T& col) {
+  const int i = tid >> 2, q16 = (tid & 3) * 16;
+  row = col = T(0);
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int ii = ty * 4 + a;
-        const T d = exp_t(cq[ii]);
-        T part = T(0);
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          acc[a][b] *= d;
-          part += acc[a][b] * c_rows(ns + tx * 4 + b, ii);
-        }
-        rowacc[a] += row_sum(part);
-      }
-    }
-    tile_io(dcbase, hrow, i0, ns, q, n, ty, tx, acc, true);
+  for (int k = 0; k < 16; ++k) {
+    row += W[i * LDW + q16 + k];
+    col += W[(q16 + k) * LDW + i];
   }
-
-  // the key tiles J <= I
-  for (int J = 0; J <= static_cast<int>(blockIdx.y); ++J) {
-    const int j0 = J * TILE;
-    __syncthreads();                         // ck, Ms and the operand tile read
-    if (tid < TILE) ck[tid] = j0 + tid < q ? cumb[j0 + tid] : T(0);
-    auto b_rows = [&](int k, int m) -> T {     // B_J[m][k]
-      return j0 + m < q && k < n ? bbase[static_cast<int64_t>(j0 + m) * brow + k] : T(0);
-    };
-    auto x_rows = [&](int k, int m) -> T {     // X_J[m][k]
-      return j0 + m < q && k < p ? xbase[static_cast<int64_t>(j0 + m) * xrow + k] : T(0);
-    };
-    T gacc[4][4], macc[4][4];
-    zero(gacc);
-    zero(macc);
-    staged<ROWS, ROWS>(ab, n, c_rows, b_rows, tid, ty, tx, gacc);   // G_IJ
-    staged<ROWS, ROWS>(ab, p, dy_rows, x_rows, tid, ty, tx, macc);  // dY_I X_Jᵀ
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int ii = ty * 4 + a, i = i0 + ii;
-      T part = T(0);
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int jj = tx * 4 + b, j = j0 + jj;
-        T mv = T(0);
-        if (i >= j && i < q) mv = macc[a][b] * exp_t(cq[ii] - ck[jj]);
-        part += gacc[a][b] * mv;
-        Ms[jj * LDS + ii] = mv;
-      }
-      rowacc[a] += row_sum(part);
-    }
-    // dC_I += M_IJ B_J, a 64-column slice of n at a time
-    for (int s = 0; s < n_ns; ++s) {
-      const int ns = s * TILE;
-      __syncthreads();                       // Ms written; the last tile read
-      load_tile(ab, bbase, brow, j0, ns, q, n, tid);
-      __syncthreads();
-      tile_io(dcbase, hrow, i0, ns, q, n, ty, tx, acc, false);
-      micro(Ms, ab, TILE, ty, tx, acc);
-      tile_io(dcbase, hrow, i0, ns, q, n, ty, tx, acc, true);
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = i0 + ty * 4 + a;
-      if (i < q) dcq[pl.bh * l + pl.t0 + i] = rowacc[a];
-    }
+  for (int off = 1; off < 4; off <<= 1) {
+    row += __shfl_xor_sync(0xffffffffu, row, off);
+    col += __shfl_xor_sync(0xffffffffu, col, off);
   }
 }
 
-// Launch 4: key tile J of one chunk.  dX_J (into dx (b, l, h, p)), dB_J (per
-// head, into dbh (b, l, h, n)) and the column part of dcum (into dck
-// (b, h, l)), with the terms of the gradient dS_out of the state leaving the
-// chunk (dso[c]; for the last chunk the final state's, absent without one).
+// Launch 3: key tile J of one chunk, in two phases.
+//   1. For each query tile I >= J, the pair's G_IJ = C_I B_Jᵀ and dY_I X_Jᵀ
+//      (k-steps over n, then over p), once: M_IJ and (G ∘ L)_IJ into mh and
+//      gh ((b h nc, pairs, 64, 64) scratch), the pair's row sums of G ∘ M
+//      into rh (b h nc, pairs, 64) for launch 4, its column sums into
+//      dcum's key part.
+//   2. For each 64-column slice of dB_J and of dX_J: the dS_out term's
+//      k-steps (dB_J: X_J dS_out over p; dX_J: B_J dS_outᵀ over n), then
+//      one step a pair, M_IJᵀ C_I (dB) or (G ∘ L)_IJᵀ dY_I (dX) over the
+//      pair's 64 query rows; the slice is stored once (dx (b, l, h, p),
+//      per-head dbh (b, l, h, n)), with dcum's dS_out part -sum_n B dB.
+// Each phase is one pipeline of staged steps; the key part of dcum goes to
+// dck (b, h, l).
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 ssd_bwd_key_kernel(const T* __restrict__ xd, const T* __restrict__ dy,
                    const T* __restrict__ Bm, const T* __restrict__ Cm,
                    const T* __restrict__ cum, const T* __restrict__ entering,
                    const T* __restrict__ fstate, const T* __restrict__ dso, int has_dfinal,
-                   T* __restrict__ dbh, T* __restrict__ dx, T* __restrict__ dck, int64_t l,
-                   int h, int p, int g, int n, int q) {
+                   T* __restrict__ dbh, T* __restrict__ dx, T* __restrict__ dck,
+                   T* __restrict__ mh, T* __restrict__ gh, T* __restrict__ rh, int64_t l, int h,
+                   int p, int g, int n, int q) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ab = reinterpret_cast<T*>(smem_raw);   // stages; an operand tile between products
-  T* Ms = ab + 4 * KC * LDS;                // (TILE, LDS) M_IJᵀ, query-major
-  T* GLs = Ms + TILE * LDS;                 // (TILE, LDS) (G ∘ L)_IJᵀ, query-major
-  T* cq = GLs + TILE * LDS;                 // (TILE) cum of the query rows
+  T* st = reinterpret_cast<T*>(smem_raw);   // NS stages of STAGE
+  T* W = st + NS * STAGE;                   // (TILE, LDW) the tile being summed
+  T* cq = W + TILE * LDW;                   // (TILE) cum of the query rows
   T* ck = cq + TILE;                        // (TILE) cum of the key rows
-  T* red = ck + TILE;                       // (THREADS / 32) warp sums
+  T* kacc = ck + TILE;                      // (TILE) dcum's key part
+  T* red = kacc + TILE;                     // (THREADS / 32) warp sums
 
   const Plane pl = plane_of(l, h, g, q);
   const int64_t nc = l / q;
-  const int j0 = blockIdx.y * TILE;
-  const int n_tiles = gridDim.y;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int J = blockIdx.y, j0 = J * TILE, nt = gridDim.y;
+  const int tid = threadIdx.x;
   const int64_t xrow = static_cast<int64_t>(h) * p, brow = static_cast<int64_t>(g) * n;
   const int64_t hrow = static_cast<int64_t>(h) * n;
   const int64_t pn = static_cast<int64_t>(p) * n;
@@ -443,62 +450,19 @@ ssd_bwd_key_kernel(const T* __restrict__ xd, const T* __restrict__ dy,
   const T* s_out = pl.c + 1 < nc ? entering + (pl.bhc + 1) * pn : fstate + pl.bh * pn;
   const bool has_dso = pl.c + 1 < nc || has_dfinal;
   const int n_ns = (n + TILE - 1) / TILE, n_ps = (p + TILE - 1) / TILE;
+  const int kn = (n + KC - 1) / KC, kp = (p + KC - 1) / KC;
+  const int np = nt - J;                    // the block's pairs: I = J .. nt - 1
+  const int64_t pair0 = pl.bhc * (static_cast<int64_t>(nt) * (nt + 1) / 2);
   const T cum_last = cumb[q - 1];
+  const bool vx = aligned16(xbase) && aligned16(dybase) && (xrow * sizeof(T)) % 16 == 0;
+  const bool vb = aligned16(bbase) && aligned16(cbase) && (brow * sizeof(T)) % 16 == 0;
+  const bool vs = aligned16(ds_out) && (n * sizeof(T)) % 16 == 0;
+  auto pair_of = [&](int I) { return pair0 + static_cast<int64_t>(I) * (I + 1) / 2 + J; };
 
-  if (tid < TILE) ck[tid] = j0 + tid < q ? cumb[j0 + tid] : T(0);
-  __syncthreads();
-  T dec[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) dec[a] = exp_t(cum_last - ck[ty * 4 + a]);
-
-  T rowacc[4] = {T(0), T(0), T(0), T(0)};
-  T acc[4][4];
-  auto x_rows = [&](int k, int m) -> T {       // X_J[m][k]
-    return j0 + m < q && k < p ? xbase[static_cast<int64_t>(j0 + m) * xrow + k] : T(0);
-  };
-  auto b_rows = [&](int k, int m) -> T {       // B_J[m][k]
-    return j0 + m < q && k < n ? bbase[static_cast<int64_t>(j0 + m) * brow + k] : T(0);
-  };
-
-  // dS_out terms: dB_J = diag(e^{cum_last - cum}) X_J dS_out (and its dcum
-  // part -sum_n B dB), dX_J = diag(e^{cum_last - cum}) B_J dS_outᵀ
-  for (int s = 0; s < n_ns; ++s) {
-    const int ns = s * TILE;
-    zero(acc);
-    if (has_dso) {
-      auto so_cols = [&](int k, int m) -> T {  // dS_out[k][ns + m]
-        return k < p && ns + m < n ? ds_out[static_cast<int64_t>(k) * n + ns + m] : T(0);
-      };
-      staged<ROWS, COLS>(ab, p, x_rows, so_cols, tid, ty, tx, acc);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        T part = T(0);
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          acc[a][b] *= dec[a];
-          part += acc[a][b] * b_rows(ns + tx * 4 + b, ty * 4 + a);
-        }
-        rowacc[a] -= row_sum(part);
-      }
-    }
-    tile_io(dbbase, hrow, j0, ns, q, n, ty, tx, acc, true);
+  if (tid < TILE) {
+    ck[tid] = j0 + tid < q ? cumb[j0 + tid] : T(0);
+    kacc[tid] = T(0);
   }
-  for (int s = 0; s < n_ps; ++s) {
-    const int ps = s * TILE;
-    zero(acc);
-    if (has_dso) {
-      auto so_rows = [&](int k, int m) -> T {  // dS_out[ps + m][k]
-        return ps + m < p && k < n ? ds_out[static_cast<int64_t>(ps + m) * n + k] : T(0);
-      };
-      staged<ROWS, ROWS>(ab, n, b_rows, so_rows, tid, ty, tx, acc);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] *= dec[a];
-    }
-    tile_io(dxbase, xrow, j0, ps, q, p, ty, tx, acc, true);
-  }
-
   // <dS_out, S_out> at the chunk's last row (the block that holds it)
   if (has_dso && j0 <= q - 1 && q - 1 < j0 + TILE) {
     T v = T(0);
@@ -507,80 +471,248 @@ ssd_bwd_key_kernel(const T* __restrict__ xd, const T* __restrict__ dy,
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
     if ((tid & 31) == 0) red[tid >> 5] = v;
     __syncthreads();
-    T total = T(0);
-    for (int w = 0; w < THREADS / 32; ++w) total += red[w];
-    const int last = q - 1 - j0;
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      if (ty * 4 + a == last) rowacc[a] += total;
+    if (tid == 0) {
+      T total = T(0);
+      for (int w = 0; w < THREADS / 32; ++w) total += red[w];
+      kacc[q - 1 - j0] += total;
+    }
   }
 
-  // the query tiles I >= J
-  for (int I = blockIdx.y; I < n_tiles; ++I) {
-    const int i0 = I * TILE;
-    __syncthreads();                         // cq, Ms, GLs and the operand tile read
-    if (tid < TILE) cq[tid] = i0 + tid < q ? cumb[i0 + tid] : T(0);
-    auto c_rows = [&](int k, int m) -> T {     // C_I[m][k]
-      return i0 + m < q && k < n ? cbase[static_cast<int64_t>(i0 + m) * brow + k] : T(0);
-    };
-    auto dy_rows = [&](int k, int m) -> T {    // dY_I[m][k]
-      return i0 + m < q && k < p ? dybase[static_cast<int64_t>(i0 + m) * xrow + k] : T(0);
-    };
-    T gacc[4][4], macc[4][4];
-    zero(gacc);
-    zero(macc);
-    staged<ROWS, ROWS>(ab, n, b_rows, c_rows, tid, ty, tx, gacc);   // G_IJᵀ
-    staged<ROWS, ROWS>(ab, p, x_rows, dy_rows, tid, ty, tx, macc);  // X_J dY_Iᵀ
+  T acc[4][4], gacc[4][4];
+  zero(acc);
+  zero(gacc);
+  // phase 1: each pair's G and dY Xᵀ
+  const int per_pair = kn + kp;
+  pipeline<NS>(
+      np * per_pair,
+      [&](int s, int buf) {
+        const int i0 = (J + s / per_pair) * TILE, k = s % per_pair;
+        T* A = st + buf * STAGE;
+        if (k < kn) {                        // C_I and B_J (64, 32)
+          stage_tile<T, TILE, KC>(A, LDR, cbase, brow, i0, k * KC, q, n, vb, tid);
+          stage_tile<T, TILE, KC>(A + TILE * LDR, LDR, bbase, brow, j0, k * KC, q, n, vb, tid);
+        } else {                             // dY_I and X_J (64, 32)
+          stage_tile<T, TILE, KC>(A, LDR, dybase, xrow, i0, (k - kn) * KC, q, p, vx, tid);
+          stage_tile<T, TILE, KC>(A + TILE * LDR, LDR, xbase, xrow, j0, (k - kn) * KC, q, p, vx,
+                                  tid);
+        }
+      },
+      [&](int s, int buf) {
+        const int I = J + s / per_pair, i0 = I * TILE, k = s % per_pair;
+        const T* A = st + buf * STAGE;
+        if (k < kn) {
+          if (k == 0 && tid < TILE) cq[tid] = i0 + tid < q ? cumb[i0 + tid] : T(0);
+          Engine<T>::template mma<false, false, KC>(gacc, A, LDR, A + TILE * LDR, LDR, nullptr,
+                                                    tid);
+          return;
+        }
+        Engine<T>::template mma<false, false, KC>(acc, A, LDR, A + TILE * LDR, LDR, nullptr, tid);
+        if (k + 1 < per_pair) return;
+        // M = (dY Xᵀ) ∘ L, G ∘ L and G ∘ M (above the diagonal 0, its decay
+        // never evaluated; cq was written at the pair's first step)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int jj = ty * 4 + a, j = j0 + jj;
-      T part = T(0);
+        for (int x = 0; x < 4; ++x)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int ii = tx * 4 + b, i = i0 + ii;
-        T lv = T(0);
-        if (i >= j && i < q) lv = exp_t(cq[ii] - ck[jj]);
-        const T mv = macc[a][b] * lv;
-        part += gacc[a][b] * mv;
-        Ms[ii * LDS + jj] = mv;
-        GLs[ii * LDS + jj] = gacc[a][b] * lv;
-      }
-      rowacc[a] -= row_sum(part);
-    }
-    // dB_J += M_IJᵀ C_I, a 64-column slice of n at a time
-    for (int s = 0; s < n_ns; ++s) {
-      const int ns = s * TILE;
-      __syncthreads();
-      load_tile(ab, cbase, brow, i0, ns, q, n, tid);
-      __syncthreads();
-      tile_io(dbbase, hrow, j0, ns, q, n, ty, tx, acc, false);
-      micro(Ms, ab, TILE, ty, tx, acc);
-      tile_io(dbbase, hrow, j0, ns, q, n, ty, tx, acc, true);
-    }
-    // dX_J += (G ∘ L)_IJᵀ dY_I, a 64-column slice of p at a time
-    for (int s = 0; s < n_ps; ++s) {
-      const int ps = s * TILE;
-      __syncthreads();
-      load_tile(ab, dybase, xrow, i0, ps, q, p, tid);
-      __syncthreads();
-      tile_io(dxbase, xrow, j0, ps, q, p, ty, tx, acc, false);
-      micro(GLs, ab, TILE, ty, tx, acc);
-      tile_io(dxbase, xrow, j0, ps, q, p, ty, tx, acc, true);
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int j = j0 + ty * 4 + a;
-      if (j < q) dck[pl.bh * l + pl.t0 + j] = rowacc[a];
-    }
+          for (int y = 0; y < 4; ++y) {
+            const int r = Engine<T>::row(tid, x, y), c = Engine<T>::col(tid, x, y);
+            const int i = i0 + r, j = j0 + c;
+            const T lv = i >= j && i < q ? exp_t(cq[r] - ck[c]) : T(0);
+            const T m = acc[x][y] * lv;
+            W[r * LDW + c] = gacc[x][y] * m;
+            acc[x][y] = m;
+            gacc[x][y] *= lv;
+          }
+        const int64_t pair = pair_of(I);
+        tile_io(acc, mh + pair * PAIR, TILE, 0, 0, TILE, TILE, tid, true);
+        tile_io(gacc, gh + pair * PAIR, TILE, 0, 0, TILE, TILE, tid, true);
+        zero(acc);
+        zero(gacc);
+        __syncthreads();
+        T row, col;
+        tile_sums(W, tid, row, col);
+        if ((tid & 3) == 0) {
+          rh[pair * TILE + (tid >> 2)] = row;
+          kacc[tid >> 2] -= col;
+        }
+      });
+  __threadfence_block();                     // mh, gh written before phase 2 reads them
+
+  // phase 2: the slices of dB_J, then of dX_J; a pair's product over its
+  // 64 query rows in two k-steps of 32
+  const int sdb = has_dso ? kp : 0, sdx = has_dso ? kn : 0;
+  const int per_b = sdb + 2 * np, per_x = sdx + 2 * np;
+  auto decode = [&](int s, bool& is_b, int& c0, int& k) {
+    is_b = s < n_ns * per_b;
+    if (!is_b) s -= n_ns * per_b;
+    const int per = is_b ? per_b : per_x;
+    c0 = (s / per) * TILE;
+    k = s % per;
+  };
+  pipeline<NS>(
+      n_ns * per_b + n_ps * per_x,
+      [&](int s, int buf) {
+        bool is_b;
+        int c0, k;
+        decode(s, is_b, c0, k);
+        T* A = st + buf * STAGE;
+        const int ks = is_b ? sdb : sdx;
+        if (k < ks) {
+          if (is_b) {                        // X_J (64, 32) and dS_out (32, 64)
+            stage_tile<T, TILE, KC>(A, LDR, xbase, xrow, j0, k * KC, q, p, vx, tid);
+            stage_tile<T, KC, TILE>(A + TILE * LDR, LDK, ds_out, n, k * KC, c0, p, n, vs, tid);
+          } else {                           // B_J (64, 32) and dS_out (64, 32)
+            stage_tile<T, TILE, KC>(A, LDR, bbase, brow, j0, k * KC, q, n, vb, tid);
+            stage_tile<T, TILE, KC>(A + TILE * LDR, LDR, ds_out, n, c0, k * KC, p, n, vs, tid);
+          }
+          return;
+        }
+        // half h of pair I: rows [h 32, h 32 + 32) of M_IJ or (G ∘ L)_IJ and
+        // of C_I's or dY_I's slice, (32, 64) each
+        const int I = J + (k - ks) / 2, r0 = ((k - ks) & 1) * KC;
+        stage_tile<T, KC, TILE>(A, LDK, (is_b ? mh : gh) + pair_of(I) * PAIR + r0 * TILE, TILE,
+                                0, 0, KC, TILE, true, tid);
+        if (is_b) stage_tile<T, KC, TILE>(A + KC * LDK, LDK, cbase, brow, I * TILE + r0, c0, q,
+                                          n, vb, tid);
+        else stage_tile<T, KC, TILE>(A + KC * LDK, LDK, dybase, xrow, I * TILE + r0, c0, q, p,
+                                     vx, tid);
+      },
+      [&](int s, int buf) {
+        bool is_b;
+        int c0, k;
+        decode(s, is_b, c0, k);
+        const T* A = st + buf * STAGE;
+        const int ks = is_b ? sdb : sdx;
+        if (k < ks) {                        // the dS_out term
+          if (is_b)
+            Engine<T>::template mma<false, true, KC>(acc, A, LDR, A + TILE * LDR, LDK, nullptr,
+                                                     tid);
+          else
+            Engine<T>::template mma<false, false, KC>(acc, A, LDR, A + TILE * LDR, LDR, nullptr,
+                                                      tid);
+          if (k + 1 < ks) return;
+          if (!is_b) {
+            each(acc, tid, [&](int r, int, T& v) { v *= exp_t(cum_last - ck[r]); });
+            return;
+          }
+          each(acc, tid, [&](int r, int c, T& v) {
+            v *= exp_t(cum_last - ck[r]);
+            const int j = j0 + r, kk = c0 + c;
+            W[r * LDW + c] = j < q && kk < n ? v * bbase[static_cast<int64_t>(j) * brow + kk]
+                                             : T(0);
+          });
+          __syncthreads();
+          T row, col;
+          tile_sums(W, tid, row, col);
+          if ((tid & 3) == 0) kacc[tid >> 2] -= row;
+          return;
+        }
+        // dB_J += M_IJᵀ C_I or dX_J += (G ∘ L)_IJᵀ dY_I: A[j][i] is tile[i][j]
+        Engine<T>::template mma<true, true, KC>(acc, A, LDK, A + KC * LDK, LDK, nullptr, tid);
+        if (k + 1 < ks + 2 * np) return;
+        if (is_b) tile_io(acc, dbbase, hrow, j0, c0, q, n, tid, true);
+        else tile_io(acc, dxbase, xrow, j0, c0, q, p, tid, true);
+        zero(acc);
+      });
+  __syncthreads();
+  if (tid < TILE && j0 + tid < q) dck[pl.bh * l + pl.t0 + j0 + tid] = kacc[tid];
+}
+
+// Launch 4: query tile I of one chunk.  dC_I (per head, into dch (b, l, h,
+// n)) from the state term and launch 3's M_IJ, and the query part of dcum
+// (into dcq (b, h, l)) from the state term and launch 3's row sums.  One
+// pipeline: for each n-slice the state term's k-steps over p, then one
+// step a key tile J <= I (M_IJ and B_J's slice).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_bwd_query_kernel(const T* __restrict__ dy, const T* __restrict__ Bm,
+                     const T* __restrict__ Cm, const T* __restrict__ cum,
+                     const T* __restrict__ entering, int has_init, const T* __restrict__ mh,
+                     const T* __restrict__ rh, T* __restrict__ dch, T* __restrict__ dcq,
+                     int64_t l, int h, int p, int g, int n, int q) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* st = reinterpret_cast<T*>(smem_raw);   // NS stages of STAGE
+  T* W = st + NS * STAGE;                   // (TILE, LDW) the tile being summed
+  T* cq = W + TILE * LDW;                   // (TILE) cum of the query rows
+
+  const Plane pl = plane_of(l, h, g, q);
+  const int nt = gridDim.y;
+  const int I = nt - 1 - blockIdx.y, i0 = I * TILE;   // the most key tiles first
+  const int tid = threadIdx.x;
+  const int64_t xrow = static_cast<int64_t>(h) * p, brow = static_cast<int64_t>(g) * n;
+  const int64_t hrow = static_cast<int64_t>(h) * n;
+  const T* dybase = dy + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
+  const T* bbase = Bm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
+  const T* cbase = Cm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
+  T* dcbase = dch + (pl.bi * l + pl.t0) * hrow + static_cast<int64_t>(pl.hh) * n;
+  const T* cumb = cum + pl.bh * l + pl.t0;
+  const T* s_in = entering + pl.bhc * p * static_cast<int64_t>(n);   // (p, n)
+  const bool has_state = pl.c > 0 || has_init;
+  const int n_ns = (n + TILE - 1) / TILE, kp = (p + KC - 1) / KC;
+  const int64_t pair0 = pl.bhc * (static_cast<int64_t>(nt) * (nt + 1) / 2) +
+                        static_cast<int64_t>(I) * (I + 1) / 2;
+  const bool vx = aligned16(dybase) && (xrow * sizeof(T)) % 16 == 0;
+  const bool vb = aligned16(bbase) && (brow * sizeof(T)) % 16 == 0;
+  const bool vs = aligned16(s_in) && (n * sizeof(T)) % 16 == 0;
+  const int ks = has_state ? kp : 0;        // state k-steps of a slice
+  const int per_slice = ks + 2 * (I + 1);   // a pair in two k-steps of 32
+
+  if (tid < TILE) cq[tid] = i0 + tid < q ? cumb[i0 + tid] : T(0);
+  T racc = T(0);                            // dcum's query part of row tid / 4
+  T acc[4][4];
+  zero(acc);
+  pipeline<NS>(
+      n_ns * per_slice,
+      [&](int s, int buf) {
+        const int ns = (s / per_slice) * TILE, k = s % per_slice;
+        T* A = st + buf * STAGE;
+        if (k < ks) {                        // dY_I (64, 32) and S_in (32, 64)
+          stage_tile<T, TILE, KC>(A, LDR, dybase, xrow, i0, k * KC, q, p, vx, tid);
+          stage_tile<T, KC, TILE>(A + TILE * LDR, LDK, s_in, n, k * KC, ns, p, n, vs, tid);
+        } else {                             // half h of pair J: M_IJ (64, 32), B_J (32, 64)
+          const int J = (k - ks) / 2, c0 = ((k - ks) & 1) * KC;
+          stage_tile<T, TILE, KC>(A, LDR, mh + (pair0 + J) * PAIR, TILE, 0, c0, TILE, TILE, true,
+                                  tid);
+          stage_tile<T, KC, TILE>(A + TILE * LDR, LDK, bbase, brow, J * TILE + c0, ns, q, n, vb,
+                                  tid);
+        }
+      },
+      [&](int s, int buf) {
+        const int ns = (s / per_slice) * TILE, k = s % per_slice;
+        const T* A = st + buf * STAGE;
+        if (k < ks) {                        // dC_I = diag(e^{cum}) dY_I S_in
+          Engine<T>::template mma<false, true, KC>(acc, A, LDR, A + TILE * LDR, LDK, nullptr,
+                                                   tid);
+          if (k + 1 < ks) return;
+          each(acc, tid, [&](int r, int c, T& v) {
+            v *= exp_t(cq[r]);
+            const int i = i0 + r, kk = ns + c;
+            W[r * LDW + c] = i < q && kk < n ? v * cbase[static_cast<int64_t>(i) * brow + kk]
+                                             : T(0);
+          });
+          __syncthreads();
+          T row, col;
+          tile_sums(W, tid, row, col);
+          racc += row;
+          return;
+        }
+        // dC_I += M_IJ B_J
+        Engine<T>::template mma<false, true, KC>(acc, A, LDR, A + TILE * LDR, LDK, nullptr, tid);
+        if (k + 1 < per_slice) return;
+        tile_io(acc, dcbase, hrow, i0, ns, q, n, tid, true);
+        zero(acc);
+      });
+  const int r = tid >> 2;                   // racc is row r's in its four threads
+  if ((tid & 3) == 0 && i0 + r < q) {
+    for (int J = 0; J <= I; ++J) racc += rh[(pair0 + J) * TILE + r];
+    dcq[pl.bh * l + pl.t0 + i0 + r] = racc;
   }
 }
 
-// Launch 5.  blockIdx.y 0 / 1: dB / dC (b, l, g, n) = the per-head dbh / dch
-// summed over the h / g heads of the group in ascending order, one thread an
-// element; blockIdx.y 2: dad (b, l, h), one thread a (b, h, chunk), the
-// reverse running sum of dcq + dck from the chunk's last row to its first.
+// Launch 5.  blockIdx.y 0: dad (b, l, h), one warp a (b, h, chunk), the
+// reverse running sum of dcq + dck within the chunk (first in launch
+// order); blockIdx.y 1 / 2: dB / dC (b, l, g, n) = the per-head dbh / dch
+// summed over the h / g heads of the group in ascending order, one thread
+// an element.
 template <typename T>
 __global__ void ssd_bwd_finish_kernel(const T* __restrict__ dcq, const T* __restrict__ dck,
                                       T* __restrict__ dad, const T* __restrict__ dbh,
@@ -588,35 +720,61 @@ __global__ void ssd_bwd_finish_kernel(const T* __restrict__ dcq, const T* __rest
                                       T* __restrict__ dC, int64_t b, int64_t l, int h, int g,
                                       int n, int q) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (blockIdx.y < 2) {
+  if (blockIdx.y > 0) {
     const int64_t gn = static_cast<int64_t>(g) * n;
     if (idx >= b * l * gn) return;
     const int64_t bt = idx / gn;
     const int rem = static_cast<int>(idx % gn);
     const int gi = rem / n, k = rem % n, hg = h / g;
-    const T* src = (blockIdx.y == 0 ? dbh : dch) + (bt * h + static_cast<int64_t>(gi) * hg) * n + k;
+    const T* src = (blockIdx.y == 1 ? dbh : dch) + (bt * h + static_cast<int64_t>(gi) * hg) * n + k;
     T s = T(0);
     for (int j = 0; j < hg; ++j) s += src[static_cast<int64_t>(j) * n];
-    (blockIdx.y == 0 ? dB : dC)[idx] = s;
+    (blockIdx.y == 1 ? dB : dC)[idx] = s;
     return;
   }
+  // dad: one warp a (b, h, chunk), the chunk's rows in segments of 256 from
+  // the last, 8 consecutive rows a lane: the lane's suffix sums, then the
+  // totals of the lanes after it (a fixed shuffle order), then the carry of
+  // the segments after this one
   const int64_t nc = l / q;
-  if (idx >= b * h * nc) return;
-  const int64_t bh = idx / nc, c = idx % nc;
+  const int64_t wc = idx >> 5;               // the warp's (b, h, chunk)
+  const int lane = threadIdx.x & 31;
+  if (wc >= b * h * nc) return;
+  const int64_t bh = wc / nc, c = wc % nc;
   const int64_t bi = bh / h;
   const int hh = static_cast<int>(bh % h);
-  T run = T(0);
-  for (int i = q - 1; i >= 0; --i) {
-    const int64_t t = c * q + i;
-    run += dcq[bh * l + t] + dck[bh * l + t];
-    dad[(bi * l + t) * h + hh] = run;
+  const T* cq_ = dcq + bh * l + c * q;
+  const T* ck_ = dck + bh * l + c * q;
+  T* out = dad + (bi * l + c * q) * h + hh;
+  constexpr int R = 8;
+  T carry = T(0);
+  for (int seg = ((q - 1) / (32 * R)) * 32 * R; seg >= 0; seg -= 32 * R) {
+    const int r0 = seg + lane * R;
+    T v[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) v[u] = r0 + u < q ? cq_[r0 + u] + ck_[r0 + u] : T(0);
+#pragma unroll
+    for (int u = R - 2; u >= 0; --u) v[u] += v[u + 1];   // the lane's suffix sums
+    T x = v[0];                                // lanes lane .. 31: an inclusive suffix scan
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const T y = __shfl_down_sync(0xffffffffu, x, off);
+      if (lane + off < 32) x += y;
+    }
+    const T next = __shfl_down_sync(0xffffffffu, x, 1);
+    const T after = lane < 31 ? next : T(0);   // the lanes after this one
+    const T seg_total = __shfl_sync(0xffffffffu, x, 0);
+#pragma unroll
+    for (int u = 0; u < R; ++u)
+      if (r0 + u < q) out[static_cast<int64_t>(r0 + u) * h] = carry + (after + v[u]);
+    carry += seg_total;
   }
 }
 
 // Dynamic shared memory of launches 1, 3 and 4 (elements).
-constexpr int LOCAL_SMEM = 4 * KC * LDS;
-constexpr int QUERY_SMEM = 4 * KC * LDS + TILE * LDS + 2 * TILE;
-constexpr int KEY_SMEM = 4 * KC * LDS + 2 * TILE * LDS + 2 * TILE + THREADS / 32;
+constexpr int LOCAL_SMEM = NS * (STAGE + KC);
+constexpr int KEY_SMEM = NS * STAGE + TILE * LDW + 3 * TILE + THREADS / 32;
+constexpr int QUERY_SMEM = NS * STAGE + TILE * LDW + TILE;
 
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
@@ -667,25 +825,11 @@ cudaError_t state_pass(const void* local, void* dso, const void* cum, const void
 }
 
 template <typename T>
-cudaError_t query_side(const void* xd, const void* dy, const void* B, const void* C,
-                       const void* cum, const void* entering, int has_init, void* dch, void* dcq,
-                       int64_t b, int64_t l, int h, int p, int g, int n, int q, cudaStream_t st) {
-  const size_t smem = QUERY_SMEM * sizeof(T);
-  cudaError_t err = set_smem(ssd_bwd_query_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(b * h * (l / q)), static_cast<unsigned>((q + TILE - 1) / TILE));
-  ssd_bwd_query_kernel<T><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(xd), static_cast<const T*>(dy), static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<const T*>(cum), static_cast<const T*>(entering),
-      has_init, static_cast<T*>(dch), static_cast<T*>(dcq), l, h, p, g, n, q);
-  return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t key_side(const void* xd, const void* dy, const void* B, const void* C,
                      const void* cum, const void* entering, const void* fstate, const void* dso,
-                     int has_dfinal, void* dbh, void* dx, void* dck, int64_t b, int64_t l, int h,
-                     int p, int g, int n, int q, cudaStream_t st) {
+                     int has_dfinal, void* dbh, void* dx, void* dck, void* mh, void* gh,
+                     void* rh, int64_t b, int64_t l, int h, int p, int g, int n, int q,
+                     cudaStream_t st) {
   const size_t smem = KEY_SMEM * sizeof(T);
   cudaError_t err = set_smem(ssd_bwd_key_kernel<T>, smem);
   if (err != cudaSuccess) return err;
@@ -694,7 +838,25 @@ cudaError_t key_side(const void* xd, const void* dy, const void* B, const void* 
       static_cast<const T*>(xd), static_cast<const T*>(dy), static_cast<const T*>(B),
       static_cast<const T*>(C), static_cast<const T*>(cum), static_cast<const T*>(entering),
       static_cast<const T*>(fstate), static_cast<const T*>(dso), has_dfinal,
-      static_cast<T*>(dbh), static_cast<T*>(dx), static_cast<T*>(dck), l, h, p, g, n, q);
+      static_cast<T*>(dbh), static_cast<T*>(dx), static_cast<T*>(dck), static_cast<T*>(mh),
+      static_cast<T*>(gh), static_cast<T*>(rh), l, h, p, g, n, q);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t query_side(const void* dy, const void* B, const void* C, const void* cum,
+                       const void* entering, int has_init, const void* mh, const void* rh,
+                       void* dch, void* dcq, int64_t b, int64_t l, int h, int p, int g, int n,
+                       int q, cudaStream_t st) {
+  const size_t smem = QUERY_SMEM * sizeof(T);
+  cudaError_t err = set_smem(ssd_bwd_query_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(b * h * (l / q)), static_cast<unsigned>((q + TILE - 1) / TILE));
+  ssd_bwd_query_kernel<T><<<grid, THREADS, smem, st>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(B), static_cast<const T*>(C),
+      static_cast<const T*>(cum), static_cast<const T*>(entering), has_init,
+      static_cast<const T*>(mh), static_cast<const T*>(rh), static_cast<T*>(dch),
+      static_cast<T*>(dcq), l, h, p, g, n, q);
   return cudaGetLastError();
 }
 
@@ -702,8 +864,8 @@ template <typename T>
 cudaError_t finish(const void* dcq, const void* dck, void* dad, const void* dbh, const void* dch,
                    void* dB, void* dC, int64_t b, int64_t l, int h, int g, int n, int q,
                    cudaStream_t st) {
-  const int64_t elems = b * l * g * n, chunks = b * h * (l / q);
-  const int64_t most = elems > chunks ? elems : chunks;
+  const int64_t elems = b * l * g * n, lanes = 32 * b * h * (l / q);
+  const int64_t most = elems > lanes ? elems : lanes;
   const dim3 grid(static_cast<unsigned>((most + THREADS - 1) / THREADS), 3);
   ssd_bwd_finish_kernel<T><<<grid, THREADS, 0, st>>>(
       static_cast<const T*>(dcq), static_cast<const T*>(dck), static_cast<T*>(dad),
@@ -721,7 +883,9 @@ extern "C" {
 // cudaError_t of its attribute call or launch.  Layouts: xd, dy, dx (b, l,
 // h, p); ad, dad (b, l, h); B, C, dB, dC (b, l, g, n); dbh, dch (b, l, h, n)
 // scratch; cum, dcq, dck (b, h, l); entering, local, dso (b, h, l / chunk,
-// p, n); fstate, dfinal, dinit (b, h, p, n).
+// p, n); fstate, dfinal, dinit (b, h, p, n); mh, gh (b h (l / chunk), pairs,
+// 64, 64) and rh (b h (l / chunk), pairs, 64) scratch, pairs = t (t + 1) / 2
+// for t = ceil(chunk / 64).
 
 // Launch 1: local (b, h, nc, p, n) from dy, C and the forward's cum.
 int repro_ssd_bwd_local(const void* dy, const void* C, const void* cum, void* local, int64_t b,
@@ -746,34 +910,36 @@ int repro_ssd_bwd_state_pass(const void* local, void* dso, const void* cum, cons
       : state_pass<float>(local, dso, cum, dfinal, dinit, b, l, h, p, n, chunk, st));
 }
 
-// Launch 3: dch and dcq; has_init is 1 when the forward started from a given
-// state (entering[chunk 0] is then that state).
-int repro_ssd_bwd_query(const void* xd, const void* dy, const void* B, const void* C,
-                        const void* cum, const void* entering, int has_init, void* dch,
-                        void* dcq, int64_t b, int64_t l, int h, int p, int g, int n, int chunk,
-                        int is_double, void* stream) {
-  if (bad_shape(b, l, h, p, g, n, chunk)) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_double
-      ? query_side<double>(xd, dy, B, C, cum, entering, has_init, dch, dcq, b, l, h, p, g, n,
-                           chunk, st)
-      : query_side<float>(xd, dy, B, C, cum, entering, has_init, dch, dcq, b, l, h, p, g, n,
-                          chunk, st));
-}
-
-// Launch 4: dbh, dx and dck; fstate is the forward's final state, has_dfinal
-// 1 when the final state has a gradient (dso's last chunk is then it).
+// Launch 3: dbh, dx, dck, the handed mh, rh and its own gh; fstate is the forward's
+// final state, has_dfinal 1 when the final state has a gradient (dso's last
+// chunk is then it).
 int repro_ssd_bwd_key(const void* xd, const void* dy, const void* B, const void* C,
                       const void* cum, const void* entering, const void* fstate, const void* dso,
-                      int has_dfinal, void* dbh, void* dx, void* dck, int64_t b, int64_t l,
-                      int h, int p, int g, int n, int chunk, int is_double, void* stream) {
+                      int has_dfinal, void* dbh, void* dx, void* dck, void* mh, void* gh,
+                      void* rh, int64_t b, int64_t l, int h, int p, int g, int n, int chunk,
+                      int is_double, void* stream) {
   if (bad_shape(b, l, h, p, g, n, chunk)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(is_double
-      ? key_side<double>(xd, dy, B, C, cum, entering, fstate, dso, has_dfinal, dbh, dx, dck, b,
-                         l, h, p, g, n, chunk, st)
-      : key_side<float>(xd, dy, B, C, cum, entering, fstate, dso, has_dfinal, dbh, dx, dck, b,
-                        l, h, p, g, n, chunk, st));
+      ? key_side<double>(xd, dy, B, C, cum, entering, fstate, dso, has_dfinal, dbh, dx, dck, mh,
+                         gh, rh, b, l, h, p, g, n, chunk, st)
+      : key_side<float>(xd, dy, B, C, cum, entering, fstate, dso, has_dfinal, dbh, dx, dck, mh,
+                        gh, rh, b, l, h, p, g, n, chunk, st));
+}
+
+// Launch 4: dch and dcq from launch 3's mh and rh; has_init is 1 when the
+// forward started from a given state (entering[chunk 0] is then that state).
+int repro_ssd_bwd_query(const void* dy, const void* B, const void* C, const void* cum,
+                        const void* entering, int has_init, const void* mh, const void* rh,
+                        void* dch, void* dcq, int64_t b, int64_t l, int h, int p, int g, int n,
+                        int chunk, int is_double, void* stream) {
+  if (bad_shape(b, l, h, p, g, n, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(is_double
+      ? query_side<double>(dy, B, C, cum, entering, has_init, mh, rh, dch, dcq, b, l, h, p, g,
+                           n, chunk, st)
+      : query_side<float>(dy, B, C, cum, entering, has_init, mh, rh, dch, dcq, b, l, h, p, g,
+                          n, chunk, st));
 }
 
 // Launch 5: dad, dB and dC.

@@ -79,7 +79,11 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "ssd_mma.cuh"
+
 namespace {
+
+using namespace ssd_mma;
 
 constexpr int TILE = 64;       // rows and columns of an output tile
 constexpr int KC = 32;         // k rows staged a step (one warp's segment)
@@ -429,7 +433,8 @@ ssd_chunk_output_kernel(const T* __restrict__ xd, const T* __restrict__ Bm,
 // ---------------------------------------------------------------------------
 // Launch 3 in fp32 on the tensor cores: mma.sync m16n8k8 TF32 with the
 // 3xTF32 split (each operand x = hi + lo, both TF32; a_lo b_hi + a_hi b_lo
-// + a_hi b_hi accumulated in fp32, so the error stays at fp32's level).
+// + a_hi b_hi accumulated in fp32, so the error stays at fp32's level; the
+// helpers are ssd_mma.cuh's, shared with the backward).
 // The 8 warps of a block tile its 64 x 64 output 4 x 2, each 16 rows x 4
 // n-tiles of 8.  C, B and state tiles are staged row-major as they lie in
 // memory (row stride CK = 36 floats: conflict-free rows for ldmatrix),
@@ -440,82 +445,6 @@ ssd_chunk_output_kernel(const T* __restrict__ xd, const T* __restrict__ Bm,
 constexpr int CK = KC + 4;
 constexpr int GS = TILE + 4;
 constexpr int XS = TILE + 8;
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(uint32_t raw, uint32_t& hi, uint32_t& lo) {
-  const float x = __uint_as_float(raw);
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c[j] += A B_j over one k8 step, 3xTF32.  a: the raw fp32 A fragment
-// (rows g, g + 8; cols t, t + 4); b[j]: the raw B fragment of n-tile j.
-__device__ __forceinline__ void mma3(float (&c)[4][4], const uint32_t (&a)[4],
-                                     const uint32_t (&b)[4][2]) {
-  uint32_t ah[4], al[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(a[i], ah[i], al[i]);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t bh0, bl0, bh1, bl1;
-    split(b[j][0], bh0, bl0);
-    split(b[j][1], bh1, bl1);
-    mma_tf32(c[j], al, bh0, bh1);
-    mma_tf32(c[j], ah, bl0, bl1);
-    mma_tf32(c[j], ah, bh0, bh1);
-  }
-}
-
-// A fragment (rows mb .. mb + 15, cols kb .. kb + 7) of a row-major tile.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const float* S, int ld, int mb,
-                                       int kb, int lane) {
-  const int mi = lane >> 3, r = lane & 7;
-  ldsm_x4(a, S + (mb + r + (mi & 1) * 8) * ld + kb + (mi >> 1) * 4);
-}
-
-// B fragments of n-tiles 0 .. 3 (rows nb + 8 j of a row-major (n, k) tile).
-__device__ __forceinline__ void frag_b_rows(uint32_t (&b)[4][2], const float* S, int ld,
-                                            int nb, int kb, int lane) {
-  const int mi = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int j = 0; j < 4; j += 2) {
-    uint32_t q[4];
-    ldsm_x4(q, S + (nb + 8 * (j + (mi >> 1)) + r) * ld + kb + (mi & 1) * 4);
-    b[j][0] = q[0]; b[j][1] = q[1]; b[j + 1][0] = q[2]; b[j + 1][1] = q[3];
-  }
-}
-
-// B fragments of n-tiles 0 .. 3 from a key-major (k, n) tile, stride XS.
-__device__ __forceinline__ void frag_b_cols(uint32_t (&b)[4][2], const float* S, int nb,
-                                            int kb, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    b[j][0] = __float_as_uint(S[(kb + t) * XS + nb + 8 * j + g]);
-    b[j][1] = __float_as_uint(S[(kb + t + 4) * XS + nb + 8 * j + g]);
-  }
-}
 
 template <typename F>
 __device__ __forceinline__ void fetch_rm(F f, int k0, int tid, float (&v)[PER]) {
@@ -682,7 +611,7 @@ ssd_chunk_output_tc_kernel(const float* __restrict__ xd, const float* __restrict
       for (int kb = 0; kb < TILE; kb += 8) {
         uint32_t a[4], b[4][2];
         frag_a(a, Gs, GS, mb, kb, lane);
-        frag_b_cols(b, Xs, nb, kb, lane);
+        frag_b_cols(b, Xs, XS, nb, kb, lane);
         mma3(acc, a, b);
       }
       if (n_ps > 1) y_io(acc, ps, true);

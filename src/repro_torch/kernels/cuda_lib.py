@@ -4,8 +4,9 @@ Each source under ``repro_torch/csrc`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded with
 ``ctypes`` — no PyTorch headers, so a build takes seconds.  Libraries land
 in ``build/repro_torch_kernels/`` at the repository root, named by a hash
-of the source and the flags: a checkout builds what it needs at first use,
-and an edited source never loads a stale library.
+of the source, the headers of ``csrc/`` and the flags: a checkout builds
+what it needs at first use, and an edited source or header never loads a
+stale library.
 
 Nothing here runs at import time: the CPU-only test environment imports
 every module and has no ``nvcc``.
@@ -120,16 +121,16 @@ KERNELS = {
         # n, chunk, is_double, stream
         "repro_ssd_bwd_state_pass": (
             [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _P], _I),
-        # xd, dy, B, C, cum, entering, has_init, dch, dcq, b, l, h, p, g, n,
-        # chunk, is_double, stream
-        "repro_ssd_bwd_query": (
-            [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I64, _I64, _I, _I, _I, _I,
-             _I, _I, _P], _I),
         # xd, dy, B, C, cum, entering, fstate, dso, has_dfinal, dbh, dx,
-        # dck, b, l, h, p, g, n, chunk, is_double, stream
+        # dck, mh, gh, rh, b, l, h, p, g, n, chunk, is_double, stream
         "repro_ssd_bwd_key": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I64, _I64, _I,
-             _I, _I, _I, _I, _I, _P], _I),
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I64,
+             _I64, _I, _I, _I, _I, _I, _I, _P], _I),
+        # dy, B, C, cum, entering, has_init, mh, rh, dch, dcq, b, l, h, p,
+        # g, n, chunk, is_double, stream
+        "repro_ssd_bwd_query": (
+            [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I, _I, _I,
+             _I, _I, _I, _P], _I),
         # dcq, dck, dad, dbh, dch, dB, dC, b, l, h, g, n, chunk, is_double,
         # stream
         "repro_ssd_bwd_finish": (
@@ -142,10 +143,10 @@ KERNELS = {
         # threads, stream
         "repro_embedding_gather": (
             [_P, _I64, _P, _P, _I64, _I64, _I, _I, _I, _P], _I),
-        # sorted ids, order, dout, dtable, n_rows, n_ids, d, is_double,
-        # chunks, threads, stream
+        # ids, id_bytes, dout, dtable, n_rows, n_ids, d, is_double,
+        # vec_bytes, stripe, chunks, threads, stream
         "repro_embedding_gather_bwd": (
-            [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P], _I),
+            [_P, _I, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _I, _P], _I),
         "repro_gather_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
 }
@@ -172,9 +173,15 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[Path, Path]:
+    """The source of kernel ``name`` and its library's path, named by a
+    hash of the source, every header of ``csrc/`` (a source may include
+    any of them) and the flags."""
     source = CSRC / KERNELS[name][0]
     h = hashlib.blake2b(digest_size=8)
     h.update(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return source, BUILD_DIR / f"lib{name}-{h.hexdigest()}.so"
 

@@ -19,11 +19,11 @@ table and (T,) ids, the same traffic class as the paper's SpMV x-gather.
 * :func:`clamp_ids` — the row each id reads: the reference's indexing
   rule.
 * :func:`embedding_gather_bwd` — the backward, ``dtable[v] = Σ_{i: ids_i
-  = v} dout_i`` (dense (V, d), XLA's scatter into zeros): the ids bounded
-  by :func:`clamp_ids` and stable-sorted on the card (a preparation step,
-  as the SELL pack is), then one launch of ``csrc/embedding_gather.cu``'s
-  backward kernel, a block a table row summing its run of rows in
-  ascending position; on CPU tensors, and only there,
+  = v} dout_i`` (dense (V, d), XLA's scatter into zeros): one launch of
+  ``csrc/embedding_gather.cu``'s backward kernel on the ids as they are
+  (a block a stripe of table rows and a column chunk: it zero-fills the
+  stripe while one warp reads the ids, then sums each hit row's rows of
+  dout in ascending position); on CPU tensors, and only there,
   :func:`embedding_gather_bwd_ref`, the same sums in the same order.
   :func:`embedding_gather` records a graph whose backward is this only
   when grad is enabled and the table requires it.
@@ -42,6 +42,7 @@ from repro_torch.analysis.preflight import (
     plan_embedding_gather,
     plan_embedding_gather_bwd,
 )
+from repro_torch.core.autotune import gather_bwd_grid
 
 __all__ = ["BWD_LAUNCHES", "KERNEL_LAUNCHES", "clamp_ids", "embedding_gather",
            "embedding_gather_bwd", "embedding_gather_bwd_ref",
@@ -203,7 +204,8 @@ class _EmbeddingGather(torch.autograd.Function):
 
 def _sorted_runs(ids: torch.Tensor, vocab: int):
     """The ids bounded by :func:`clamp_ids` and stable-sorted: (sorted ids,
-    their positions), equal ids forming runs in ascending position."""
+    their positions), equal ids forming runs in ascending position (the
+    plain version's order; the kernel sorts nothing)."""
     return torch.sort(clamp_ids(ids, vocab), stable=True)
 
 
@@ -230,54 +232,81 @@ def embedding_gather_bwd_ref(dout: torch.Tensor, ids, vocab: int) -> torch.Tenso
 
 def embedding_gather_bwd(dout: torch.Tensor, ids, vocab: int) -> torch.Tensor:
     """The gradient of a (vocab, d) table gathered at ``ids`` (T,) given
-    ``dout`` (T, d) float32 or float64.  On a CUDA ``dout`` the ids are
-    bounded and stable-sorted on the card, then one launch of B9's backward
-    kernel; on the CPU :func:`embedding_gather_bwd_ref`."""
+    ``dout`` (T, d) float32 or float64.  On a CUDA ``dout``: one launch of
+    B9's backward kernel, which reads the ids as they are (int32 or int64,
+    each bounded by :func:`clamp_ids`' rule inside the kernel; no sort, no
+    bound, no conversion on the card before it); on the CPU
+    :func:`embedding_gather_bwd_ref`."""
     if dout.ndim != 2:
         raise ValueError(f"dout must be (T, d), got {tuple(dout.shape)}")
     dtype = _DTYPE_NAMES.get(dout.dtype)
     if dtype is None:
         raise TypeError(f"dout dtype {dout.dtype} is not float32 or float64")
-    ids = torch.as_tensor(ids)
+    if not isinstance(ids, torch.Tensor):
+        ids = torch.as_tensor(ids)
     if ids.shape != (dout.shape[0],):
         raise ValueError(f"ids {tuple(ids.shape)} do not match dout "
                          f"{tuple(dout.shape)}")
-    if dout.device.type == "cpu":
+    dev = dout.device
+    if dev.type == "cpu":
         return embedding_gather_bwd_ref(dout, ids.cpu(), vocab)
-    if dout.device.type != "cuda":
+    if dev.type != "cuda":
         raise RuntimeError(f"embedding_gather_bwd has a CUDA kernel and a CPU "
-                           f"reference; got {dout.device}")
-    d = dout.shape[1]
-    plan = _bwd_plan(vocab, d, ids.shape[0], dtype)
+                           f"reference; got {dev}")
+    if ids.dtype not in _ID_BYTES:
+        ids = ids.to(torch.int64)
+    if not ids.is_cuda:
+        ids = ids.to(dev)
+    elif ids.get_device() != dev.index:
+        raise ValueError(f"ids on {ids.device}, dout on {dev}")
+    if not ids.is_contiguous():
+        ids = ids.contiguous()
+    if not dout.is_contiguous():
+        dout = dout.contiguous()
+    vocab, d = int(vocab), dout.shape[1]
+    plan, (stripe, chunks, threads, vec) = _bwd_plan(
+        vocab, d, ids.shape[0], dout.dtype, ids.dtype)
     plan.raise_if_invalid()
-    sorted_ids, order = _sorted_runs(ids.to(dout.device), vocab)
-    dout = dout.contiguous()
-    dtable = torch.empty((vocab, d), dtype=dout.dtype, device=dout.device)
-    (blk,) = plan.blocks
-    _launch_bwd(sorted_ids, order, dout, dtable, blk.grid[1], blk.block[0])
+    if dout.data_ptr() % vec:
+        dout = dout.clone()                   # a fresh allocation is aligned
+    dtable = torch.empty((vocab, d), dtype=dout.dtype, device=dev)
+    _launch_bwd(ids, dout, dtable, vec, stripe, chunks, threads)
     return dtable
 
 
 @functools.lru_cache(maxsize=64)
-def _bwd_plan(vocab: int, d: int, t: int, dtype: str):
-    return plan_embedding_gather_bwd(vocab, d, t, dtype=dtype)
+def _bwd_plan(vocab: int, d: int, t: int, dtype: torch.dtype,
+              id_dtype: torch.dtype):
+    """The backward's plan of one shape and its grid (stripe rows, chunks,
+    threads, vector bytes), built once (a train step calls it once with the
+    same shape; the checks before the launch are host time the card
+    waits on)."""
+    name = _DTYPE_NAMES[dtype]
+    ids = str(id_dtype).removeprefix("torch.")
+    plan = plan_embedding_gather_bwd(vocab, d, t, dtype=name, id_dtype=ids)
+    return plan, gather_bwd_grid(max(vocab, 1), max(d, 1), t,
+                                 8 if name == "float64" else 4)
 
 
-def _launch_bwd(sorted_ids, order, dout, dtable, chunks: int,
+def _launch_bwd(ids, dout, dtable, vec: int, stripe: int, chunks: int,
                 threads: int) -> None:
-    """One launch of B9's backward kernel, grid (V, ``chunks``) of
-    ``threads``, on PyTorch's current stream of the gradient's device,
-    with that device current."""
+    """One launch of B9's backward kernel, grid (ceil(V / ``stripe``),
+    ``chunks``) of ``threads``, ``vec``-byte vectors, on PyTorch's current
+    stream of the gradient's device, with that device current."""
     global BWD_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
     lib = cuda_lib.library("embedding_gather")
-    with torch.cuda.device(dout.device):
-        err = lib.repro_embedding_gather_bwd(
-            sorted_ids.data_ptr(), order.data_ptr(), dout.data_ptr(),
+    index = dout.get_device()
+    args = (ids.data_ptr(), _ID_BYTES[ids.dtype], dout.data_ptr(),
             dtable.data_ptr(), dtable.shape[0], dout.shape[0], dout.shape[1],
-            int(dout.dtype == torch.float64), chunks, threads,
-            torch.cuda.current_stream().cuda_stream)
+            int(dout.dtype == torch.float64), vec, stripe, chunks, threads,
+            torch.cuda.current_stream(index).cuda_stream)
+    if index == torch.cuda.current_device():
+        err = lib.repro_embedding_gather_bwd(*args)
+    else:
+        with torch.cuda.device(index):
+            err = lib.repro_embedding_gather_bwd(*args)
     if err != 0:
         raise RuntimeError(
             f"embedding_gather_bwd kernel launch failed (cudaError {err}: "

@@ -23,8 +23,10 @@ the next chunk.  Heads share B and C per group (``h / g`` heads a group).
   CPU against the reference.
 * :func:`ssd_fused_bwd` — the backward: on CUDA tensors the
   :data:`LAUNCHES_PER_BWD` launches of ``csrc/ssd_bwd.cu`` (the local
-  dY-C terms, the reverse state pass, the query-tile side, the key-tile
-  side, the finish), from the forward's cum and entering states; on CPU
+  dY-C terms, the reverse state pass, the key-tile side, which computes
+  each tile pair's C Bᵀ and dY Xᵀ once and hands the query side its M
+  tiles, the query-tile side, the finish), fp32 products on the tensor
+  cores (3xTF32), from the forward's cum and entering states; on CPU
   tensors, and only there, :func:`ssd_fused_bwd_ref`, the same chunk
   formulas in plain PyTorch.  :func:`ssd_fused` records a graph through
   an autograd Function whose backward is this, when grad is enabled and
@@ -38,7 +40,9 @@ comes back in xd's dtype, the final state in the accumulation dtype.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import math
 
 import torch
 
@@ -48,6 +52,7 @@ from repro_torch.core.autotune import (
     SSD_LAUNCHES,
     SSD_SCAN_ROWS,
     SSD_TILE,
+    ssd_bwd_pairs,
 )
 
 __all__ = ["BWD_LAUNCHES", "KERNEL_LAUNCHES", "LAUNCHES_PER_BWD",
@@ -233,14 +238,17 @@ def ssd_chunk_parallel_model(xd: torch.Tensor, ad: torch.Tensor,
     return y, carried
 
 
-def _launch(xd, ad, B, C, init, y, fstate, chunk: int
+def _launch(xd, ad, B, C, init, y, fstate, chunk: int, keep: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B8's three launches on PyTorch's current stream of xd's
     device, made with that device current; each is counted once it is
     made, and a refused one raises before the next is tried.  The scratch
     (cum (b, h, l), the chunk states and the states entering each chunk,
-    (b, h, l / chunk, p, n) each) is allocated here; cum and the entering
-    states share one block and are returned, for the backward."""
+    (b, h, l / chunk, p, n) each) is allocated here and cum and the
+    entering states are returned when ``keep`` (the backward saves them),
+    in a block of their own, so that the chunk states are freed after the
+    call; without it (serving) the three share one block, passed to the
+    launches as raw pointers, and nothing is returned (None, None)."""
     global KERNEL_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
@@ -251,26 +259,30 @@ def _launch(xd, ad, B, C, init, y, fstate, chunk: int
     nc = l // chunk
     n_cum = -(-b * h * l // 4) * 4            # the states start 16 B aligned
     n_st = b * h * nc * p * n
-    kept = torch.empty(n_cum + n_st, dtype=fstate.dtype, device=xd.device)
-    cum = kept[:b * h * l].view(b, h, l)
-    entering = kept[n_cum:].view(b, h, nc, p, n)
-    states = torch.empty((b, h, nc, p, n), dtype=fstate.dtype,
-                         device=xd.device)
-    with torch.cuda.device(xd.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        calls = {
-            "chunk_state": lambda: lib.repro_ssd_chunk_state(
-                xd.data_ptr(), ad.data_ptr(), B.data_ptr(), cum.data_ptr(),
-                states.data_ptr(), b, l, h, p, g, n, chunk, dbl, stream),
-            "state_pass": lambda: lib.repro_ssd_state_pass(
-                states.data_ptr(), entering.data_ptr(), cum.data_ptr(),
-                None if init is None else init.data_ptr(), fstate.data_ptr(),
-                b, l, h, p, n, chunk, dbl, stream),
-            "chunk_output": lambda: lib.repro_ssd_chunk_output(
-                xd.data_ptr(), B.data_ptr(), C.data_ptr(), cum.data_ptr(),
-                entering.data_ptr(), int(init is not None), y.data_ptr(), b, l,
-                h, p, g, n, chunk, dbl, stream),
-        }
+    kept = torch.empty(n_cum + (1 if keep else 2) * n_st, dtype=fstate.dtype,
+                       device=xd.device)
+    base, item = kept.data_ptr(), kept.element_size()
+    cum, entering = base, base + n_cum * item
+    states = (torch.empty(n_st, dtype=fstate.dtype, device=xd.device)
+              if keep else None)
+    st = states.data_ptr() if keep else base + (n_cum + n_st) * item
+    x_, b_ = xd.data_ptr(), B.data_ptr()
+    y_, f_ = y.data_ptr(), fstate.data_ptr()
+    init_ = None if init is None else init.data_ptr()
+    index = xd.device.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    calls = {
+        "chunk_state": lambda: lib.repro_ssd_chunk_state(
+            x_, ad.data_ptr(), b_, cum, st, b, l, h, p, g, n, chunk, dbl,
+            stream),
+        "state_pass": lambda: lib.repro_ssd_state_pass(
+            st, entering, cum, init_, f_, b, l, h, p, n, chunk, dbl, stream),
+        "chunk_output": lambda: lib.repro_ssd_chunk_output(
+            x_, b_, C.data_ptr(), cum, entering, int(init is not None), y_, b,
+            l, h, p, g, n, chunk, dbl, stream),
+    }
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
         for launch in SSD_LAUNCHES:
             err = calls[launch]()
             if err != 0:
@@ -280,14 +292,18 @@ def _launch(xd, ad, B, C, init, y, fstate, chunk: int
                     f"{msg}) for (b, l, h, p, g, n) = {(b, l, h, p, g, n)}, "
                     f"chunk {chunk}")
             KERNEL_LAUNCHES += 1
-    return cum, entering
+    if not keep:
+        return None, None
+    return (kept[:b * h * l].view(b, h, l),
+            kept[n_cum:n_cum + n_st].view(b, h, nc, p, n))
 
 
-def _forward(xd, ad, B, C, chunk: int, init_state, keep: bool):
+def _forward(xd, ad, B, C, chunk: int, init_state, keep: bool, dims=None):
     """The scan of checked arguments: (y, final state) and, on the card,
     the forward's cum and entering states (for the backward when ``keep``;
-    None on the CPU)."""
-    b, l, h, p, g, n = _check_args(xd, ad, B, C, init_state)
+    None on the CPU).  ``dims``: :func:`_check_args`' result, when the
+    caller has it."""
+    b, l, h, p, g, n = dims or _check_args(xd, ad, B, C, init_state)
     if xd.device.type == "cpu":
         y, fstate = ssd_fused_ref(xd, ad, B, C, chunk=chunk,
                                   init_state=init_state)
@@ -296,13 +312,14 @@ def _forward(xd, ad, B, C, chunk: int, init_state, keep: bool):
         raise RuntimeError(
             f"ssd_fused has a CUDA kernel and a CPU reference; got {xd.device}")
     _plan(b, l, h, p, g, n, chunk, xd.dtype).raise_if_invalid()
-    xd, ad, B, C = (t.contiguous() for t in (xd, ad, B, C))
+    xd, ad, B, C = (t if t.is_contiguous() else t.contiguous()
+                    for t in (xd, ad, B, C))
     acc = _acc_dtype(xd.dtype)
     init = None if init_state is None else init_state.to(acc).contiguous()
     y = torch.empty_like(xd)
     fstate = torch.empty((b, h, p, n), dtype=acc, device=xd.device)
-    cum, entering = _launch(xd, ad, B, C, init, y, fstate, chunk)
-    return (y, fstate) + ((cum, entering) if keep else (None, None))
+    cum, entering = _launch(xd, ad, B, C, init, y, fstate, chunk, keep)
+    return y, fstate, cum, entering
 
 
 class _SSDFused(torch.autograd.Function):
@@ -344,11 +361,14 @@ def ssd_fused(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
     is enabled and an input requires it, the result carries a graph whose
     backward is :func:`ssd_fused_bwd`.
     """
-    _check_args(xd, ad, B, C, init_state)
-    ins = (xd, ad, B, C) + (() if init_state is None else (init_state,))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+    dims = _check_args(xd, ad, B, C, init_state)
+    if torch.is_grad_enabled() and (
+            xd.requires_grad or ad.requires_grad or B.requires_grad
+            or C.requires_grad
+            or (init_state is not None and init_state.requires_grad)):
         return _SSDFused.apply(xd, ad, B, C, init_state, chunk)
-    y, fstate, _, _ = _forward(xd, ad, B, C, chunk, init_state, keep=False)
+    y, fstate, _, _ = _forward(xd, ad, B, C, chunk, init_state, keep=False,
+                               dims=dims)
     return y, fstate
 
 
@@ -440,72 +460,121 @@ def ssd_fused_bwd_ref(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
             group_sum(db).to(B.dtype), group_sum(dc).to(C.dtype), run)
 
 
+class _BwdBuffers:
+    """The backward's outputs and scratch on xd's device: dx, dad, dB, dC,
+    dinit (None without an initial state), the local terms and dS_out
+    (b, h, nc, p, n), the per-head dB and dC (b, l, h, n), dcum's two parts
+    (b, h, l), the key launch's M and (G ∘ L) tiles ((b h nc, pairs, 64,
+    64) each, a pair for each query tile I and key tile J <= I of a chunk)
+    and the pairs' row sums (b h nc, pairs, 64); the M tiles and the row
+    sums are handed to the query launch.  The scratch is one allocation cut
+    at 16 B aligned offsets, passed to the launches as raw pointers
+    (``ptr``; host work in front of the first launch is time the card
+    waits); ``buf[name]`` makes any of it a view."""
+
+    def __init__(self, xd, B, init, chunk: int):
+        b, l, h, p = xd.shape
+        g, n = B.shape[2], B.shape[3]
+
+        self.outputs = (torch.empty_like(xd), xd.new_empty((b, l, h)),
+                        xd.new_empty((b, l, g, n)), xd.new_empty((b, l, g, n)),
+                        None if init is None else xd.new_empty((b, h, p, n)))
+        self._at, total = _bwd_scratch_layout(b, l, h, p, g, n, chunk)
+        self._block = xd.new_empty((total,))
+        base, item = self._block.data_ptr(), self._block.element_size()
+        self.ptr = {k: base + at * item for k, (at, _) in self._at.items()}
+        for k, t in zip(("dx", "dad", "dB", "dC", "dinit"), self.outputs):
+            self.ptr[k] = None if t is None else t.data_ptr()
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        outs = dict(zip(("dx", "dad", "dB", "dC", "dinit"), self.outputs))
+        if name in outs:
+            return outs[name]
+        at, shape = self._at[name]
+        return self._block[at:at + math.prod(shape)].view(shape)
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_scratch_layout(b: int, l: int, h: int, p: int, g: int, n: int,
+                        chunk: int) -> tuple[dict, int]:
+    """The backward's scratch, cut at 16 B aligned offsets of one block:
+    ({name: (offset, shape)}, elements), built once a shape."""
+    nc = l // chunk
+    pairs = b * h * nc * ssd_bwd_pairs(l, chunk)
+    shapes = {"local": (b, h, nc, p, n), "dso": (b, h, nc, p, n),
+              "dbh": (b, l, h, n), "dch": (b, l, h, n), "dcq": (b, h, l),
+              "dck": (b, h, l), "mh": (pairs, SSD_TILE, SSD_TILE),
+              "gh": (pairs, SSD_TILE, SSD_TILE), "rh": (pairs, SSD_TILE)}
+    at, total = {}, 0
+    for k, shape in shapes.items():
+        at[k] = (total, shape)
+        total += -(-math.prod(shape) // 4) * 4
+    return at, total
+
+
+def _bwd_calls(lib, xd, B, C, dy, dfinal, init, fstate, cum, entering,
+               chunk: int, buf: _BwdBuffers, stream: int) -> dict:
+    """One closure per backward launch, by :data:`SSD_BWD_LAUNCHES` name,
+    each making its launch through its own C entry point and returning the
+    cudaError code.  :func:`_launch_bwd` runs them in order; counting is
+    its own, so ``scripts/ssd_launch_times.py`` and the tests may call one
+    alone to time it or to inspect what it hands on."""
+    b, l, h, p = xd.shape
+    g, n = B.shape[2], B.shape[3]
+    dbl = int(xd.dtype == torch.float64)
+    o = buf.ptr
+    x_, dy_, b_, c_ = xd.data_ptr(), dy.data_ptr(), B.data_ptr(), C.data_ptr()
+    cum_, ent_ = cum.data_ptr(), entering.data_ptr()
+    df_ = None if dfinal is None else dfinal.data_ptr()
+    return {
+        "bwd_local": lambda: lib.repro_ssd_bwd_local(
+            dy_, c_, cum_, o["local"], b, l, h, p, g, n, chunk, dbl, stream),
+        "bwd_state_pass": lambda: lib.repro_ssd_bwd_state_pass(
+            o["local"], o["dso"], cum_, df_, o["dinit"], b, l, h, p, n, chunk,
+            dbl, stream),
+        "bwd_key": lambda: lib.repro_ssd_bwd_key(
+            x_, dy_, b_, c_, cum_, ent_, fstate.data_ptr(), o["dso"],
+            int(dfinal is not None), o["dbh"], o["dx"], o["dck"], o["mh"],
+            o["gh"], o["rh"], b, l, h, p, g, n, chunk, dbl, stream),
+        "bwd_query": lambda: lib.repro_ssd_bwd_query(
+            dy_, b_, c_, cum_, ent_, int(init is not None), o["mh"], o["rh"],
+            o["dch"], o["dcq"], b, l, h, p, g, n, chunk, dbl, stream),
+        "bwd_finish": lambda: lib.repro_ssd_bwd_finish(
+            o["dcq"], o["dck"], o["dad"], o["dbh"], o["dch"], o["dB"],
+            o["dC"], b, l, h, g, n, chunk, dbl, stream),
+    }
+
+
 def _launch_bwd(xd, B, C, dy, dfinal, init, fstate, cum, entering,
                 chunk: int):
-    """The backward kernel's five launches on PyTorch's current stream of
-    xd's device, made with that device current; each counted once made, a
-    refused one raising before the next is tried.  Returns (dxd, dad, dB,
-    dC, dinit or None); the scratch (local terms and dS_out (b, h, nc, p,
-    n), per-head dB and dC (b, l, h, n), dcum's two parts (b, h, l)) is
-    allocated here."""
+    """The backward kernel's :data:`LAUNCHES_PER_BWD` launches on PyTorch's
+    current stream of xd's device, made with that device current, in
+    :data:`SSD_BWD_LAUNCHES` order through :func:`_bwd_calls`; each is
+    counted once it is made, and a refused one raises, naming it, before
+    the next is tried.  Returns (dxd, dad, dB, dC, dinit or None); outputs
+    and scratch are allocated here (:class:`_BwdBuffers`)."""
     global BWD_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
     lib = cuda_lib.library("ssd_bwd")
-    b, l, h, p = xd.shape
-    g, n = B.shape[2], B.shape[3]
-    dbl = int(xd.dtype == torch.float64)
-    nc = l // chunk
-    dev, dt = xd.device, xd.dtype
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=dt, device=dev)
-
-    local, dso = empty(b, h, nc, p, n), empty(b, h, nc, p, n)
-    dbh, dch = empty(b, l, h, n), empty(b, l, h, n)
-    dcq, dck = empty(b, h, l), empty(b, h, l)
-    dx, dad = empty(b, l, h, p), empty(b, l, h)
-    dB, dC = empty(b, l, g, n), empty(b, l, g, n)
-    dinit = None if init is None else empty(b, h, p, n)
-
-    def ptr(t):                               # a nullable operand
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        calls = {
-            "bwd_local": lambda: lib.repro_ssd_bwd_local(
-                dy.data_ptr(), C.data_ptr(), cum.data_ptr(), local.data_ptr(),
-                b, l, h, p, g, n, chunk, dbl, stream),
-            "bwd_state_pass": lambda: lib.repro_ssd_bwd_state_pass(
-                local.data_ptr(), dso.data_ptr(), cum.data_ptr(), ptr(dfinal),
-                ptr(dinit), b, l, h, p, n, chunk, dbl, stream),
-            "bwd_query": lambda: lib.repro_ssd_bwd_query(
-                xd.data_ptr(), dy.data_ptr(), B.data_ptr(), C.data_ptr(),
-                cum.data_ptr(), entering.data_ptr(), int(init is not None),
-                dch.data_ptr(), dcq.data_ptr(), b, l, h, p, g, n, chunk, dbl,
-                stream),
-            "bwd_key": lambda: lib.repro_ssd_bwd_key(
-                xd.data_ptr(), dy.data_ptr(), B.data_ptr(), C.data_ptr(),
-                cum.data_ptr(), entering.data_ptr(), fstate.data_ptr(),
-                dso.data_ptr(), int(dfinal is not None), dbh.data_ptr(),
-                dx.data_ptr(), dck.data_ptr(), b, l, h, p, g, n, chunk, dbl,
-                stream),
-            "bwd_finish": lambda: lib.repro_ssd_bwd_finish(
-                dcq.data_ptr(), dck.data_ptr(), dad.data_ptr(), dbh.data_ptr(),
-                dch.data_ptr(), dB.data_ptr(), dC.data_ptr(), b, l, h, g, n,
-                chunk, dbl, stream),
-        }
-        for launch in SSD_BWD_LAUNCHES:
-            err = calls[launch]()
+    buf = _BwdBuffers(xd, B, init, chunk)
+    index = xd.device.index
+    calls = _bwd_calls(lib, xd, B, C, dy, dfinal, init, fstate, cum,
+                       entering, chunk, buf,
+                       torch.cuda.current_stream(index).cuda_stream)
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
+        for name in SSD_BWD_LAUNCHES:
+            err = calls[name]()
             if err != 0:
+                b, l, h, p = xd.shape
                 msg = lib.repro_ssd_bwd_cuda_error_string(err).decode()
                 raise RuntimeError(
-                    f"ssd_fused_bwd {launch} launch failed (cudaError {err}: "
-                    f"{msg}) for (b, l, h, p, g, n) = {(b, l, h, p, g, n)}, "
-                    f"chunk {chunk}")
+                    f"ssd_fused_bwd {name} launch failed (cudaError {err}: "
+                    f"{msg}) for (b, l, h, p, g, n) = "
+                    f"{(b, l, h, p) + tuple(B.shape[2:])}, chunk {chunk}")
             BWD_LAUNCHES += 1
-    return dx, dad, dB, dC, dinit
+    return buf.outputs
 
 
 def ssd_fused_bwd(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
@@ -533,14 +602,15 @@ def ssd_fused_bwd(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
                            f"reference; got {xd.device}")
     _bwd_plan(b, l, h, p, g, n, chunk, xd.dtype).raise_if_invalid()
     acc = _acc_dtype(xd.dtype)
-    xd, B, C = (t.contiguous() for t in (xd, B, C))
+    xd, B, C = (t if t.is_contiguous() else t.contiguous() for t in (xd, B, C))
     init = None if init_state is None else init_state.to(acc).contiguous()
     if saved is None:
         _, fstate, cum, entering = _forward(xd, ad, B, C, chunk, init,
                                             keep=True)
     else:
         fstate, cum, entering = saved
-    dy = dy.to(xd.dtype).contiguous()
+    if dy.dtype != xd.dtype or not dy.is_contiguous():
+        dy = dy.to(xd.dtype).contiguous()
     dfinal = None if dfinal is None else dfinal.to(acc).contiguous()
     return _launch_bwd(xd, B, C, dy, dfinal, init, fstate, cum, entering,
                        chunk)

@@ -1047,6 +1047,126 @@ def test_gather_backward_kernel_equals_plain_version(cuda_device, dtype, t,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape,chunk", [
+    ((2, 512, 80, 64, 1, 128), 256),     # mamba2-2.7b's train step
+    ((1, 512, 50, 64, 1, 16), 256),      # hymba-1.5b's: n 16
+    ((2, 192, 4, 72, 2, 80), 64),        # g = 2, ragged p and n tiles
+])
+def test_ssd_backward_hands_each_tile_pair_once(cuda_device, dtype, shape, chunk):
+    """B8's key launch computes each (query, key) tile pair's C Bᵀ and dY Xᵀ
+    once and hands the query launch M = (dY Xᵀ) ∘ L and the pair's row sums
+    of C Bᵀ ∘ M: those handed tiles against a plain computation (fp64
+    1e-10; fp32 2e-4 x max(1, max|M|)), zero above the diagonal, and the
+    launches' gradients bit-equal over two calls."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels import cuda_lib, ssd
+
+    b, l, h, p, g, n = shape
+    (xd, ad, B, C), _ = _ssd_case(*shape, dtype, cuda_device, chunk)
+    dy = torch.from_numpy(np.random.default_rng(chunk + 2).standard_normal(
+        (b, l, h, p)).astype(dtype)).to(cuda_device)
+    _, fstate, cum, entering = ssd._forward(xd, ad, B, C, chunk, None, keep=True)
+    lib = cuda_lib.library("ssd_bwd")
+    outs = []
+    for _ in range(2):
+        buf = ssd._BwdBuffers(xd, B, None, chunk)
+        calls = ssd._bwd_calls(lib, xd, B, C, dy, None, None, fstate, cum, entering,
+                               chunk, buf, torch.cuda.current_stream().cuda_stream)
+        for name in autotune.SSD_BWD_LAUNCHES:
+            assert calls[name]() == 0, name
+        outs.append(buf)
+    torch.cuda.synchronize()
+    for k in ("dx", "dad", "dB", "dC", "mh", "rh"):
+        assert torch.equal(outs[0][k], outs[1][k]), k
+    nc, t, hg = l // chunk, -(-chunk // 64), h // g
+    pairs = t * (t + 1) // 2
+    mh = outs[0]["mh"].view(b, h, nc, pairs, 64, 64)
+    rh = outs[0]["rh"].view(b, h, nc, pairs, 64)
+    grp = torch.arange(h, device=cuda_device) // hg
+    pad = t * 64
+    x = torch.zeros((b, h, nc, pad, p), dtype=xd.dtype, device=cuda_device)
+    x[:, :, :, :chunk] = xd.reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4)
+    dyc = torch.zeros_like(x)
+    dyc[:, :, :, :chunk] = dy.reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4)
+    bb = torch.zeros((b, h, nc, pad, n), dtype=xd.dtype, device=cuda_device)
+    cc = torch.zeros_like(bb)
+    bb[:, :, :, :chunk] = B[:, :, grp].reshape(b, nc, chunk, h, n).permute(0, 3, 1, 2, 4)
+    cc[:, :, :, :chunk] = C[:, :, grp].reshape(b, nc, chunk, h, n).permute(0, 3, 1, 2, 4)
+    cm = torch.zeros((b, h, nc, pad), dtype=xd.dtype, device=cuda_device)
+    cm[..., :chunk] = cum.view(b, h, nc, chunk)
+    idx = torch.arange(pad, device=cuda_device)
+    live = (idx[:, None] >= idx[None, :]) & (idx[:, None] < chunk)
+    lmat = torch.where(live, torch.exp(torch.where(
+        live, cm[..., :, None] - cm[..., None, :], 0)), 0)
+    m = (dyc @ x.transpose(-1, -2)) * lmat
+    gm = cc @ bb.transpose(-1, -2)
+    rows = (gm * m)
+    tol = 1e-10 if dtype == np.float64 else 2e-4
+    for i in range(t):
+        for j in range(i + 1):
+            k = i * (i + 1) // 2 + j
+            want = m[..., i * 64:(i + 1) * 64, j * 64:(j + 1) * 64]
+            scale = 1.0 if dtype == np.float64 else max(1.0, float(want.abs().max()))
+            torch.testing.assert_close(mh[:, :, :, k], want, rtol=tol, atol=tol * scale)
+            if i == j:
+                assert not mh[:, :, :, k].triu(1).any()
+            wr = rows[..., i * 64:(i + 1) * 64, j * 64:(j + 1) * 64].sum(-1)
+            scale = 1.0 if dtype == np.float64 else max(1.0, float(wr.abs().max()))
+            torch.testing.assert_close(rh[:, :, :, k], wr, rtol=tol, atol=tol * scale)
+
+
+def _zipf_ids(rng, t, vocab, run=0):
+    """A Zipf-like stream (rank r drawn ~ 1 / (r + 1)) with ``run`` extra ids
+    on token 0, shuffled."""
+    w = 1.0 / np.arange(1, vocab + 1)
+    ids = rng.choice(vocab, size=t - run, p=w / w.sum())
+    ids = np.concatenate([ids, np.zeros(run, ids.dtype)])
+    rng.shuffle(ids)
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["equal", "zipf", "card_range", "t1", "t8192"])
+def test_gather_backward_kernel_edge_cases(cuda_device, dtype, case):
+    """B9's backward (one launch, no sort) equals its plain version on
+    all-equal ids (one run of every id), a Zipf stream with a 200-id run on
+    token 0, card ids outside [0, V) (bounded as the forward bounds them),
+    T = 1 and T = 8192 (four slices of ids) at mamba2's table shape, int32
+    and int64 ids; two calls bit-equal."""
+    from repro_torch.kernels import gather
+
+    vocab, d = 50280, 2560
+    rng = np.random.default_rng(len(case))
+    t = {"t1": 1, "t8192": 8192}.get(case, 1024)
+    if case == "equal":
+        ids = np.full(t, 777)
+    elif case == "zipf":
+        ids = _zipf_ids(rng, t, vocab, run=200)
+    elif case == "card_range":
+        ids = rng.integers(-2 * vocab, 2 * vocab, t)
+        ids[:4] = (-1, vocab, -vocab - 5, 2**40)
+    else:
+        ids = _zipf_ids(rng, t, vocab)
+    dout = torch.from_numpy(rng.standard_normal((t, d))).to(dtype=dtype,
+                                                            device=cuda_device)
+    want = gather.embedding_gather_bwd_ref(dout, torch.from_numpy(ids).to(cuda_device),
+                                           vocab)
+    for id_dtype in (torch.int64, torch.int32):
+        if id_dtype == torch.int32 and np.abs(ids).max() >= 2**31:
+            continue
+        tid = torch.from_numpy(ids).to(dtype=id_dtype, device=cuda_device)
+        before = gather.BWD_LAUNCHES
+        got = gather.embedding_gather_bwd(dout, tid, vocab)
+        again = gather.embedding_gather_bwd(dout, tid, vocab)
+        torch.cuda.synchronize()
+        assert gather.BWD_LAUNCHES == before + 2
+        assert torch.equal(got, again)
+        assert torch.equal(got, want), (case, id_dtype)
+
+
+@pytest.mark.cuda
 def test_reduced_mamba2_train_step_on_the_card_as_on_the_cpu(cuda_device):
     """One train step of the reduced mamba2 (its scans chunk multiples): the
     card's loss and gradients (B8, B9 and their backward kernels) against

@@ -197,12 +197,19 @@ def test_gather_backward_bounds_card_style_ids_as_the_forward_does():
 def test_backward_plans_and_sources():
     plan = plan_ssd_fused_bwd(2, 512, 80, 64, 1, 128, chunk=256)
     assert plan.ok and plan.n_launches == ssd.LAUNCHES_PER_BWD == 5
-    assert [b.label for b in plan.blocks] == list(autotune.SSD_BWD_LAUNCHES)
+    assert [b.label for b in plan.blocks] == list(autotune.SSD_BWD_LAUNCHES) == [
+        "bwd_local", "bwd_state_pass", "bwd_key", "bwd_query", "bwd_finish"]
     assert [b.grid for b in plan.blocks] == [(320, 1, 2), (160, 32), (320, 4),
                                              (320, 4), (512, 3)]
-    assert max(b.smem_bytes for b in plan.blocks) == 70176
+    assert [b.smem_bytes for b in plan.blocks] == [74240, 0, 91168, 90624, 0]
     assert plan_ssd_fused_bwd(1, 512, 80, 64, 1, 128, chunk=256,
-                              dtype="float64").blocks[3].smem_bytes == 2 * 70176
+                              dtype="float64").blocks[2].smem_bytes == 2 * 91168
+    assert 2 * (91168 + 1024) <= 228 * 1024        # two key blocks an SM
+    # the key launch hands the query launch one M tile a tile pair
+    ops = {o[0]: o[1] for o in plan.blocks[2].operands}
+    assert ops["mh"] == ops["gh"] == (320 * 10, 64, 64)
+    assert ops["rh"] == (320 * 10, 64)
+    assert {o[0] for o in plan.blocks[3].operands} >= {"mh", "rh", "dch", "dcq"}
     with pytest.raises(LaunchPlanError, match="multiple of the chunk"):
         plan_ssd_fused_bwd(1, 100, 4, 8, 1, 16, chunk=64).raise_if_invalid()
     with pytest.raises(LaunchPlanError, match="multiple of the chunk"):
@@ -211,8 +218,11 @@ def test_backward_plans_and_sources():
                                                      (1, 100, 1, 16))),
                           torch.zeros(1, 100, 4, 8), chunk=64)
     assert autotune.ssd_bwd_flops(2, 512, 80, 64, 128, 256) == 16_148_070_400
+    # B9's backward: stripes of 64 rows, 4 chunks of 160 threads, 16 B vectors
     g = plan_embedding_gather_bwd(50280, 2560, 1024)
-    assert g.ok and g.blocks[0].grid == (50280, 1) and g.blocks[0].block == (160,)
+    assert g.ok and g.blocks[0].grid == (786 * 4,) and g.blocks[0].block == (160,)
+    assert autotune.gather_bwd_grid(50280, 2560, 1024, 4) == (64, 4, 160, 16)
+    assert g.blocks[0].smem_bytes == autotune.gather_bwd_smem_bytes() <= 48 * 1024
     # every backward entry point is bound with as many arguments as its C
     # signature takes
     for lib, fns in (("ssd_bwd", None), ("embedding_gather", None)):
@@ -224,6 +234,81 @@ def test_backward_plans_and_sources():
             sig = text[text.index(f"int {fn}("):]
             sig = sig[:sig.index(")")]
             assert sig.count(",") + 1 == len(argtypes), fn
+
+
+@pytest.mark.parametrize("vocab,d,t,itemsize", [
+    (50280, 2560, 1024, 4),     # mamba2's train step
+    (50280, 2560, 8192, 8),     # past one slice of ids, fp64
+    (1000, 24, 5000, 4),        # V not a multiple of the stripe
+    (97, 3, 2049, 4),           # 4 B vectors, one id past a slice
+    (97, 6, 1, 8),              # 16 B vectors of fp64, T = 1
+])
+def test_gather_backward_stripes_cover_every_row_once(vocab, d, t, itemsize):
+    """B9's backward grid: the stripes cover rows [0, V) once (the last one
+    ragged), the chunks every vector of a row once (none starting past its
+    end), the vector divides a row, and ids past one slice are walked in
+    slices (the kernel's limit, not a refusal)."""
+    stripe, chunks, threads, vec = autotune.gather_bwd_grid(vocab, d, t, itemsize)
+    assert 1 <= stripe <= autotune.GATHER_BWD_MAX_STRIPE and threads % 32 == 0
+    assert threads <= autotune.GATHER_MAX_THREADS and vec >= itemsize
+    assert (d * itemsize) % vec == 0
+    row_vecs = d * itemsize // vec
+    stripes = -(-vocab // stripe)
+    rows = np.zeros(vocab, int)
+    for s in range(stripes):
+        rows[s * stripe:min((s + 1) * stripe, vocab)] += 1
+    assert (rows == 1).all() and (stripes - 1) * stripe < vocab
+    cols = np.zeros(row_vecs, int)
+    for c in range(chunks):
+        assert c * threads < row_vecs
+        cols[c * threads:min((c + 1) * threads, row_vecs)] += 1
+    assert (cols == 1).all()
+    plan = plan_embedding_gather_bwd(vocab, d, t,
+                                     dtype="float64" if itemsize == 8 else "float32")
+    assert plan.ok and plan.blocks[0].grid == (stripes * chunks,)
+    assert plan.blocks[0].block == (threads,)
+    slices = -(-t // autotune.GATHER_BWD_SLICE)
+    assert slices == (1 if t <= 2048 else -(-t // 2048))
+
+
+def test_gather_backward_on_cpu_runs_only_the_plain_version(monkeypatch):
+    """One launch a call on the card (the plan's one block); on CPU tensors
+    the plain version and no launch, whatever the id dtype."""
+    assert plan_embedding_gather_bwd(50280, 2560, 1024).n_launches == 1
+
+    def no_launch(*a, **k):
+        raise AssertionError("a CPU call reached the kernel")
+
+    monkeypatch.setattr(gather, "_launch_bwd", no_launch)
+    rng = np.random.default_rng(9)
+    dout = torch.from_numpy(rng.standard_normal((40, 6)))
+    before = gather.BWD_LAUNCHES
+    for ids in (rng.integers(-3, 14, 40), rng.integers(0, 11, 40).astype(np.int32)):
+        got = gather.embedding_gather_bwd(dout, torch.from_numpy(ids), 11)
+        want = torch.zeros(11, 6, dtype=dout.dtype).index_add_(
+            0, gather.clamp_ids(torch.from_numpy(ids), 11), dout)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+        assert torch.equal(got, gather.embedding_gather_bwd_ref(
+            dout, torch.from_numpy(ids), 11))
+    assert gather.BWD_LAUNCHES == before
+
+
+def test_header_change_builds_a_new_library(tmp_path, monkeypatch):
+    """A library is named by its source, every csrc header and the flags: an
+    edited header never loads a stale library (ssd_mma.cuh is shared by B8's
+    forward and backward)."""
+    for f in cuda_lib.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(cuda_lib, "CSRC", tmp_path)
+    assert (tmp_path / "ssd_mma.cuh").exists()
+    before = {name: cuda_lib._target(name)[1] for name in ("ssd_fused", "ssd_bwd",
+                                                           "embedding_gather")}
+    with open(tmp_path / "ssd_mma.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {name: cuda_lib._target(name)[1] for name in before}
+    assert all(after[k] != before[k] for k in before)
+    assert after["ssd_fused"].parent == before["ssd_fused"].parent
+    assert cuda_lib._target("ssd_bwd") == (tmp_path / "ssd_bwd.cu", after["ssd_bwd"])
 
 
 @pytest.fixture(scope="module")
