@@ -169,6 +169,31 @@ result line is printed:
               against a cold registry's, and 32 SpMV requests are served
               on the warm cage10 (B1), each held against its plain
               version;
+11c. sharded — the sharded SELL drives on a mesh naming the card
+              SHARD_N = 4 times, as a user drives them: ``ops.spmv`` /
+              ``ops.spmm`` on the 2,097,152-row operand with
+              ``ExecSpec(placement=("cuda:0",) * 4)`` at k = 1 and 8
+              (row-sharded: each shard's B1 launches against its X window)
+              and k = 32 (RHS-sharded: whole k tiles a shard), then
+              ``ops.bfs`` / ``ops.pagerank`` (k = 32, 20 steps, float64 and
+              float32) on rmat15 and uniform21 node-partitioned (B3 a
+              shard, frontiers folded by a minimum, ranks by a sum), then
+              a ``KernelRegistry(mesh=...)`` and ``KernelService`` (32
+              SpMV requests on the big operand, 32 BFS and 32 PageRank
+              requests in each dtype a graph); every result ``torch.equal``
+              to the serial fold (``mesh=None``) and to the unsharded port,
+              or, where B1 or B3 splits a bucket of either layout (the
+              parts' sums follow the slices a bucket has), within 1e-10 x
+              max|y| (fp64) / 1e-4 x max|rank| (fp32); ``placement=2``
+              raising on a one-card machine (on two cards: run and held to
+              the one-card mesh); float32 PageRank through ``ops`` on both
+              layouts (B3, B5) against the plain drives at 1e-4 x
+              max|rank|; the phase's B1, B3 and B5 launches counted from
+              0; then B3's and B5's float forms timed at uniform21's
+              shapes beside their bounds, plain versions and
+              ``torch.sparse.mm`` in fp32, the 4-shard fold on the card
+              against the unsharded call, and each shard's X window and
+              padded slices;
 12. lm-moe  —the MoE LM, after every earlier phase's operands and models
               are freed: deepseek-moe-16b at its published widths and depth
               (a dense first layer, then 27 MoE layers of 64 routed experts
@@ -383,6 +408,28 @@ STUDY_SPMV_REQUESTS = 32
 STUDY_PROFILE_CALLS = 10
 STUDY_STORE = Path(__file__).resolve().parent / "build" / "study" / \
     "BENCH_sweeps.json"
+#: the sharded phase: a mesh naming the card SHARD_N times, big at these
+#: k (row-sharded at 1 and 8, RHS-sharded at 32: a whole k tile a device),
+#: SHARD_REQUESTS requests a (graph, op) through the service, and the
+#: configurations of its k = 32 PageRank drives
+SHARD_N = 4
+SHARD_KS = (1, 8, 32)
+SHARD_REQUESTS = 32
+SHARD_DAMPINGS = [DAMPINGS[i % len(DAMPINGS)] for i in range(SHARD_REQUESTS)]
+#: where B1 or B3 splits a bucket of either layout, the sharded result is
+#: held to the unsharded one at this fraction of max|y| a column (fp64;
+#: PageRank at PR_RTOL, float32 PageRank at SHARD_FP32_TOL): a split's
+#: parts follow its bucket's width and slice count, and a shard packs its
+#: rows into other slices (scripts/shard_split_rows.py counts the rows
+#: whose split differs)
+SHARD_TOL = 1e-10
+#: float32 PageRank against its plain version: x max|rank| a column (the
+#: port's fp32 scale, PERF.md section 2)
+PR_FP32_TOL = 1e-4
+#: float32 PageRank sharded against unsharded where a bucket splits: x
+#: max|rank| a column (the same float32 sums grouped otherwise: 3.6e-8
+#: measured on rmat15 at k = 32)
+SHARD_FP32_TOL = 1e-6
 #: where every tensor of the run lives: the card
 DEVICE = "cuda"
 
@@ -601,7 +648,8 @@ def compare_graph_kernels(torch, np, G, bfs_k, pr_k) -> dict:
             adj, nodes = G.graph_to_sell_slabs(rg, c=c).to_device(DEVICE)
             for k in (None, 1, 3, 6, 8, 12, 32, 48):
                 kt = sell_core.node_k_tile(1 if k is None else k)
-                if any(node_split(a.shape[2], c, a.shape[0], kt, 8).parts > 1
+                if any(node_split(a.shape[2], c, a.shape[0], kt, 8,
+                                  "pagerank").parts > 1
                        for a in adj):
                     split_ks.add(1 if k is None else k)
                 cols = 1 if k is None else k
@@ -1074,7 +1122,8 @@ def time_graphs(torch, np, G, sell_core, bfs_k, pr_k, gm: dict,
                 per_bucket = node_bucket_ms(torch, launch, adj, nodes, flush)
                 itemsize = 4 if kernel == "bfs_step_sell" else 8
                 splits = [node_split(a.shape[2], a.shape[1], a.shape[0], kt,
-                                     itemsize) for a in adj]
+                                     itemsize, "bfs" if itemsize == 4
+                                     else "pagerank") for a in adj]
                 phase("timing", f"{name} k={k} {kernel} per bucket (W: slices, "
                       "lanes a node x parts, ms): " + ", ".join(
                           f"{a.shape[2]}: {a.shape[0]}, {sp.group}x"
@@ -3864,6 +3913,496 @@ def add_study(kernels: list[dict], study: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The sharded path (B1 and B3 a shard over a mesh) and float32 PageRank
+# (B3's and B5's float forms)
+# ---------------------------------------------------------------------------
+
+
+def shard_mesh():
+    """The sharded phase's mesh: the card named SHARD_N times."""
+    return (DEVICE,) * SHARD_N
+
+
+def shard_k_block(k: int) -> int:
+    """The k tile ``ops`` takes when the spec names none."""
+    return min(8, 1 << max(int(k) - 1, 0).bit_length())
+
+
+def bucket_split(node_split, spmm_split, layout, kt: int, itemsize: int,
+                 pagerank: bool) -> bool:
+    """Whether B1 (matrix layouts) or B3 (graph layouts; the PageRank or
+    the BFS combine) splits any bucket of ``layout`` (SellSlabs /
+    ShardedSlabs / SellGraphSlabs / ShardedGraphSlabs) at this tile."""
+    if hasattr(layout, "bucket_cols"):
+        shapes = [c.shape[-3:] for c in layout.bucket_cols]     # (S, W, C)
+        return any(spmm_split(w, c, s, kt, itemsize).parts > 1
+                   for s, w, c in shapes)
+    shapes = [a.shape[-3:] for a in layout.bucket_adj]          # (S, C, W)
+    return any(node_split(w, c, s, kt, itemsize,
+                          "pagerank" if pagerank else "bfs").parts > 1
+               for s, c, w in shapes)
+
+
+def agree(torch, what: str, got, want, split: bool, tol: float) -> str:
+    """The sharded result against the unsharded port's: ``torch.equal``,
+    or, where B1 or B3 splits a bucket of either layout (the parts' sums
+    then depend on the slices a bucket has), within ``tol`` x max|want| a
+    column.  Returns how it agreed."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if torch.equal(got, want):
+        return "torch.equal"
+    if not split:
+        raise AssertionError(f"{what}: differs from the unsharded port, and "
+                             "neither layout splits a bucket")
+    g = got.reshape(got.shape[0], -1).double()
+    w = want.reshape(want.shape[0], -1).double()
+    err = float(((g - w).abs() / w.abs().amax(dim=0).clamp(min=1e-300)).max())
+    if not err <= tol:
+        raise AssertionError(f"{what}: {err:.3e} x max|y| > {tol}")
+    return f"split buckets, {err:.3e} x max|y| (tol {tol})"
+
+
+def fp32_check(what: str, got, want) -> float:
+    """Float32 ranks against their plain version on the card: within
+    PR_FP32_TOL x max|rank| a column; returns the worst such ratio."""
+    g = got.reshape(got.shape[0], -1).double()
+    w = want.reshape(want.shape[0], -1).double()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: dtype or shape differs")
+    err = float(((g - w).abs() / w.abs().amax(dim=0)).max())
+    if not err <= PR_FP32_TOL:
+        raise AssertionError(f"{what}: {err:.3e} x max|rank| > {PR_FP32_TOL}")
+    return err
+
+
+def sharded_counts(sell_core, bfs_k, pr_k, zero: bool = False) -> dict:
+    """B1's, B3's (both combines, PageRank in both dtypes) and B5's float
+    form's launch counts, read now, or first set to 0 (``zero``)."""
+    keys = ("pagerank_step_sell", "pagerank_step_sell_fp32",
+            "pagerank_step_fp32")
+    if zero:
+        sell_core.KERNEL_LAUNCHES = 0
+        bfs_k.KERNEL_LAUNCHES["bfs_step_sell"] = 0
+        for key in keys:
+            pr_k.KERNEL_LAUNCHES[key] = 0
+    return {"spmm_sell": sell_core.KERNEL_LAUNCHES,
+            "bfs_step_sell": bfs_k.KERNEL_LAUNCHES["bfs_step_sell"],
+            **{key: pr_k.KERNEL_LAUNCHES[key] for key in keys}}
+
+
+def sharded_path(torch, np, sell_core, sell_shard, bfs_k, pr_k, ops,
+                 ExecSpec, KernelRegistry, KernelService, reg, big,
+                 gm) -> dict:
+    """Phase 11c: the sharded drives on a mesh naming the card SHARD_N
+    times, and float32 PageRank, as a user drives them (through ``ops``
+    and a ``KernelRegistry(mesh=...)`` + ``KernelService``), each
+    sharded result against the serial fold and the unsharded port."""
+    from repro_torch.core.autotune import node_split, spmm_split
+
+    mesh = shard_mesh()
+    t0 = time.perf_counter()
+    if torch.cuda.device_count() < 2:
+        try:
+            ops.spmv(reg.get("cage10").slabs,
+                     np.ones(reg.get("cage10").n_cols),
+                     spec=ExecSpec(vl=reg.get("cage10").tuned.c, placement=2))
+        except ValueError as exc:
+            phase("sharded", f"placement=2 on {torch.cuda.device_count()} "
+                  f"card(s) raises ValueError: {exc}")
+        else:
+            raise AssertionError("placement=2 ran on a one-card machine")
+    rng = np.random.default_rng(5)
+    big_op = reg.get("big")
+    slabs = big_op.slabs
+    cols, vals, rows = big_op.device_arrays["cols"], \
+        big_op.device_arrays["vals"], big_op.device_arrays["rows"]
+    n_rows, n_cols = big_op.n, big_op.n_cols
+    # ops' own k tile (k_block=None: the power of two covering k, capped
+    # at 8), as a user calls it: k = 32 is then RHS-sharded
+    specm = ExecSpec(vl=slabs.c, placement=mesh)
+    xs = {k: torch.from_numpy(rng.standard_normal((n_cols, k))).to(DEVICE)
+          for k in SHARD_KS}
+    out = dict(mesh=mesh, xs=xs, big=big_op)
+    torch.cuda.synchronize()
+    sharded_counts(sell_core, bfs_k, pr_k, zero=True)
+    got = {}
+    for k, x in xs.items():
+        got[k] = (ops.spmv(slabs, x[:, 0], spec=specm)[:, None] if k == 1
+                  else ops.spmm(slabs, x, spec=specm))
+    torch.cuda.synchronize()
+    b1_ops = sharded_counts(sell_core, bfs_k, pr_k)["spmm_sell"]
+    sharded = ops._shard_cached(slabs, SHARD_N, None)
+    out["sharded"] = sharded
+    for k, x in xs.items():
+        kb = shard_k_block(k)
+        kt = sell_core.k_tile_for(k, kb)
+        rhs = sell_core.padded_k(k, kb) >= SHARD_N * kt
+        split_rows = any(bucket_split(node_split, spmm_split, layout, kt, 8,
+                                      False) for layout in (slabs, sharded))
+        fold = (sell_shard.spmm_sell_rhs_sharded(slabs, x, k_block=kb) if rhs
+                else sell_shard.spmm_sell_sharded(sharded, x, k_block=kb))
+        want = sell_core.spmm_sell(cols, vals, rows, x, n_rows=n_rows,
+                                   k_block=kb)
+        if not torch.equal(got[k], fold):
+            raise AssertionError(f"big k={k}: the mesh path != the serial "
+                                 "fold")
+        how = agree(torch, f"big k={k}", got[k], want,
+                    split_rows and not rhs, SHARD_TOL)
+        phase("sharded", f"big k={k} ({'RHS' if rhs else 'row'}-sharded "
+              f"through ops): == serial fold; vs unsharded: {how}")
+    if b1_ops <= 0:
+        raise AssertionError("the sharded SpMM launched B1 no time")
+    # the service: a registry with the mesh, SHARD_REQUESTS SpMV requests
+    sreg = KernelRegistry(mesh=mesh)
+    t1 = time.perf_counter()
+    sop = sreg.register_matrix("big", big)
+    phase("sharded", f"registered big on the mesh in "
+          f"{time.perf_counter() - t1:.1f} s: mode {sop.mode}, C={sop.tuned.c} "
+          f"k_block={sop.tuned.k_block}, {sop.sharded.n_shards} shards, "
+          f"window_cols {sop.sharded.window_cols}, plan "
+          f"{sop.plans['spmv'].kernel} ({sop.plans['spmv'].n_launches} blocks)")
+    svc = KernelService(sreg, n_slots=N_SLOTS)
+    xr = [rng.standard_normal(n_cols) for _ in range(SHARD_REQUESTS)]
+    before = sell_core.KERNEL_LAUNCHES
+    rids = [svc.submit("spmv", "big", x) for x in xr]
+    svc.drain()
+    torch.cuda.synchronize()
+    b1_svc = sell_core.KERNEL_LAUNCHES - before
+    if svc.stats["sharded_launches"] != 1 or svc.stats["served"] != \
+            SHARD_REQUESTS or b1_svc <= 0:
+        raise AssertionError(f"service on the mesh: {dict(svc.stats)}, "
+                             f"B1 launches {b1_svc}")
+    ys = torch.stack([svc.poll(r) for r in rids], dim=1)
+    xstack = torch.from_numpy(np.stack(xr, axis=1)).to(DEVICE)
+    want = sell_core.spmm_sell(*(sop.device_arrays[a] for a in
+                                 ("cols", "vals", "rows")), xstack,
+                               n_rows=n_rows, k_block=sop.tuned.k_block)
+    fold = sell_shard.spmm_sell_sharded(sop.sharded, xstack,
+                                        k_block=sop.tuned.k_block)
+    if not torch.equal(ys, fold):
+        raise AssertionError("service on the mesh != the serial fold")
+    kt = sell_core.k_tile_for(SHARD_REQUESTS, sop.tuned.k_block)
+    split = any(bucket_split(node_split, spmm_split, layout, kt, 8, False)
+                for layout in (sop.slabs, sop.sharded))
+    phase("sharded", f"service: {SHARD_REQUESTS} SpMV requests on big, "
+          f"sharded_launches {svc.stats['sharded_launches']}, B1 launches "
+          f"{b1_svc}: == serial fold; vs unsharded: "
+          + agree(torch, "service big", ys, want, split, SHARD_TOL))
+    out["service_big"] = sop
+    del sreg, svc, sop
+    # graphs: BFS and PageRank (fp64, fp32) at k = 32 through ops, the
+    # serial fold and the service
+    sources = {}
+    for name in ("uniform21", "rmat15"):
+        g = gm["graphs"][name]
+        op = gm["reg"].get(name)
+        t = op.tuned
+        n = g.n_nodes
+        arrs = op.device_arrays
+        src = gm["results"][name]["sources"]
+        sources[name] = src
+        spec = ExecSpec(layout="sell", vl=t.c, sigma=t.sigma, placement=mesh)
+        d_mesh = ops.bfs(g, src, spec=spec)
+        sg, _ = ops._sharded_graph(g, spec, mesh, ops.plan_bfs_ell)
+        out[f"sg_{name}"] = sg
+        d_fold = sell_shard.bfs_sell_sharded(sg, src, device=DEVICE)
+        d_one = bfs_k.bfs_sell(arrs["adj"], arrs["nodes"], n, src)
+        if not (torch.equal(d_mesh, d_fold) and torch.equal(d_mesh, d_one)):
+            raise AssertionError(f"{name}: sharded BFS != fold / unsharded")
+        line = [f"{name} ({SHARD_N} shards, union widths {list(sg.widths)}, "
+                f"slices a shard {list(sg.slices_per_shard)}): BFS k=32 == "
+                "serial fold == unsharded"]
+        for dtype in (torch.float64, torch.float32):
+            r_mesh = ops.pagerank(g, damping=SHARD_DAMPINGS, iters=ITERS,
+                                  spec=spec, dtype=dtype)
+            r_fold = sell_shard.pagerank_sell_sharded(
+                sg, arrs["out_degree"], damping=SHARD_DAMPINGS, iters=ITERS,
+                dtype=dtype, device=DEVICE)
+            r_one = pr_k.pagerank_sell(arrs["adj"], arrs["nodes"],
+                                       arrs["out_degree"], n,
+                                       damping=SHARD_DAMPINGS, iters=ITERS,
+                                       dtype=dtype)
+            if not torch.equal(r_mesh, r_fold):
+                raise AssertionError(f"{name} {dtype}: mesh != serial fold")
+            isz = 8 if dtype == torch.float64 else 4
+            split = bucket_split(node_split, spmm_split, op.slabs,
+                                 sell_core.node_k_tile(32), isz, True) or \
+                bucket_split(node_split, spmm_split, sg,
+                             sell_core.node_k_tile(32), isz, True)
+            how = agree(torch, f"{name} PageRank {dtype}", r_mesh, r_one,
+                        split, PR_RTOL if isz == 8 else SHARD_FP32_TOL)
+            line.append(f"PageRank {str(dtype)[6:]} == serial fold, vs "
+                        f"unsharded: {how}")
+        phase("sharded", "; ".join(line))
+    # the service on the mesh: 32 BFS, 32 fp64 and 32 fp32 PageRank
+    # requests a graph
+    greg = KernelRegistry(cache=gm["reg"].cache, mesh=mesh)
+    svc = KernelService(greg, n_slots=N_SLOTS)
+    rids = {}
+    for name in ("uniform21", "rmat15"):
+        greg.register_graph(name, gm["graphs"][name])
+        rids[name] = (
+            [svc.submit("bfs", name, None, source=s) for s in sources[name]],
+            [svc.submit("pagerank", name, None, damping=d, iters=ITERS)
+             for d in SHARD_DAMPINGS],
+            [svc.submit("pagerank", name, None, damping=d, iters=ITERS,
+                        dtype="float32") for d in SHARD_DAMPINGS])
+    svc.drain()
+    torch.cuda.synchronize()
+    if svc.stats["sharded_launches"] != 6 or svc.stats["failed"]:
+        raise AssertionError(f"graph service on the mesh: {dict(svc.stats)}")
+    for name in ("uniform21", "rmat15"):
+        op, sop = gm["reg"].get(name), greg.get(name)
+        arrs = op.device_arrays
+        n = gm["graphs"][name].n_nodes
+        d = torch.stack([svc.poll(r) for r in rids[name][0]], dim=1)
+        if not torch.equal(d, bfs_k.bfs_sell(arrs["adj"], arrs["nodes"], n,
+                                             sources[name])):
+            raise AssertionError(f"{name}: service sharded BFS != unsharded")
+        hows = []
+        for i, dtype in ((1, torch.float64), (2, torch.float32)):
+            r = torch.stack([svc.poll(x) for x in rids[name][i]], dim=1)
+            fold = sell_shard.pagerank_sell_sharded(
+                sop.sharded, arrs["out_degree"], damping=SHARD_DAMPINGS,
+                iters=ITERS, dtype=dtype, device=DEVICE)
+            if not torch.equal(r, fold):
+                raise AssertionError(f"{name}: service {dtype} != fold")
+            isz = 8 if dtype == torch.float64 else 4
+            split = bucket_split(node_split, spmm_split, op.slabs,
+                                 sell_core.node_k_tile(32), isz, True) or \
+                bucket_split(node_split, spmm_split, sop.sharded,
+                             sell_core.node_k_tile(32), isz, True)
+            hows.append(f"{str(dtype)[6:]} " + agree(
+                torch, f"service {name} {dtype}", r, pr_k.pagerank_sell(
+                    arrs["adj"], arrs["nodes"], arrs["out_degree"], n,
+                    damping=SHARD_DAMPINGS, iters=ITERS, dtype=dtype), split,
+                PR_RTOL if isz == 8 else SHARD_FP32_TOL))
+        phase("sharded", f"service {name}: 32 BFS == unsharded; PageRank "
+              "== serial fold, vs unsharded: " + "; ".join(hows))
+    stats = dict(svc.stats)
+    del greg, svc
+    # float32 PageRank alone: both layouts through ops, against the plain
+    # drives on the card
+    fp32 = {}
+    for name in ("uniform21", "rmat15"):
+        g = gm["graphs"][name]
+        op = gm["reg"].get(name)
+        arrs = op.device_arrays
+        n = g.n_nodes
+        sell = ExecSpec(layout="sell", vl=op.tuned.c, sigma=op.tuned.sigma,
+                        device=DEVICE)
+        ell = ExecSpec(layout="ell", device=DEVICE)
+        r_sell = ops.pagerank(g, damping=SHARD_DAMPINGS, iters=ITERS,
+                              spec=sell, dtype=torch.float32)
+        r_ell = ops.pagerank(g, damping=DAMPINGS[0], iters=ITERS, spec=ell,
+                             dtype=torch.float32)
+        spec, device = ops._graph_spec(sell)
+        _, (adj, nodes), deg = ops._prepared_graph(g, spec, device,
+                                                   ops.plan_pagerank_ell)
+        radj = ops._prepared_graph(g, ell, device,
+                                   ops.plan_pagerank_ell)[1][0]
+        e_sell = fp32_check(f"{name} B3 fp32 drive", r_sell,
+                            pr_k.pagerank_sell_ref(
+                                adj, nodes, deg, n, damping=SHARD_DAMPINGS,
+                                iters=ITERS, dtype=torch.float32))
+        e_ell = fp32_check(f"{name} B5 fp32 drive", r_ell, pr_k.pagerank_ref(
+            radj, deg, damping=DAMPINGS[0], iters=ITERS, dtype=torch.float32))
+        fp32[name] = (e_sell, e_ell)
+        phase("sharded", f"{name}: ops.pagerank float32, sell k=32 (B3) "
+              f"{e_sell:.3e} and ell (B5) {e_ell:.3e} x max|rank| from the "
+              f"plain drives (tol {PR_FP32_TOL})")
+    torch.cuda.synchronize()
+    counts = sharded_counts(sell_core, bfs_k, pr_k)
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel of the sharded path launched no "
+                             f"time: {counts}")
+    phase("sharded", f"launches in the phase's drives: {json.dumps(counts)}"
+          f"; graph service stats {json.dumps(stats)}; path done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if torch.cuda.device_count() >= 2:
+        two = ops.spmm(slabs, xs[SHARD_KS[1]],
+                       spec=ExecSpec(vl=slabs.c, placement=2))
+        same = ops.spmm(slabs, xs[SHARD_KS[1]], spec=ExecSpec(
+            vl=slabs.c, placement=(DEVICE,) * 2))
+        if not torch.equal(two, same):
+            raise AssertionError("placement=2 on two cards != on one card")
+        phase("sharded", "placement=2 on two distinct cards == the same "
+              "mesh on one card")
+    else:
+        phase("sharded", "one card visible: placement=2 on distinct cards "
+              "not run")
+    out.update(counts=counts, fp32=fp32)
+    return out
+
+
+def time_sharded(torch, np, sell_core, sell_shard, pr_k, shm: dict,
+                 gm: dict, flush) -> list[dict]:
+    """Phase 11c's timings: B3's and B5's float forms alone at uniform21's
+    shapes beside their bounds, plain versions and ``torch.sparse.mm`` in
+    fp32; the SHARD_N-shard fold on one card against the unsharded call;
+    each shard's X window and its padded slices.  Returns the float forms'
+    records for the kernels line."""
+    mesh = shm["mesh"]
+    # the shard layouts: windows, boundary columns, padding
+    sh, slabs = shm["sharded"], shm["big"].slabs
+    phase("timing", f"big {SHARD_N} shards: rows {sh.row_counts.tolist()}, "
+          f"window_cols {sh.window_cols} of {sh.n_cols} (col_starts "
+          f"{sh.col_starts.tolist()}), boundary_cols {sh.boundary_cols}; "
+          f"slices a shard {list(sh.slices_per_shard)} x {SHARD_N} = "
+          f"{sum(sh.slices_per_shard) * SHARD_N} against the unsharded "
+          f"{slabs.n_slices}; padded entries {sh.padded_nnz} against "
+          f"{slabs.padded_nnz} (pad factor {sh.pad_factor:.4f} against "
+          f"{slabs.pad_factor:.4f})")
+    cols, vals, rows = (shm["big"].device_arrays[a] for a in
+                        ("cols", "vals", "rows"))
+    for k, x in shm["xs"].items():
+        kb = shard_k_block(k)
+        rhs = sell_core.padded_k(k, kb) >= SHARD_N * sell_core.k_tile_for(
+            k, kb)
+        one = time_ms(torch, lambda: sell_core.spmm_sell(
+            cols, vals, rows, x, n_rows=slabs.n_rows, k_block=kb), flush)
+        fold = time_ms(torch, (lambda: sell_shard.spmm_sell_rhs_sharded(
+            slabs, x, mesh=mesh, k_block=kb)) if rhs else (
+            lambda: sell_shard.spmm_sell_sharded(sh, x, mesh=mesh,
+                                                 k_block=kb)), flush)
+        phase("timing", f"big k={k}: {SHARD_N}-shard {'RHS' if rhs else 'row'}"
+              f" fold on one card {fold:.4f} ms against unsharded B1 "
+              f"{one:.4f} ms ({fold / one:.2f}x)")
+    g = gm["graphs"]["uniform21"]
+    op = gm["reg"].get("uniform21")
+    adj, nodes = op.device_arrays["adj"], op.device_arrays["nodes"]
+    deg = op.device_arrays["out_degree"]
+    n, e = g.n_nodes, g.n_edges
+    spec_sg = shm["sg_uniform21"]
+    phase("timing", f"uniform21 {SHARD_N} shards: nodes "
+          f"{spec_sg.node_counts.tolist()}, union widths "
+          f"{list(spec_sg.widths)}, slices a shard "
+          f"{list(spec_sg.slices_per_shard)} x {SHARD_N} = "
+          f"{sum(spec_sg.slices_per_shard) * SHARD_N} against the unsharded "
+          f"{sum(a.shape[0] for a in op.slabs.bucket_adj)}")
+    lib_a = sparse_reverse(torch, np, gm["reverse_u21"]).to(torch.float32)
+    records = []
+    rank0 = 1.0 / n
+    c1 = torch.where(deg > 0, rank0 / torch.clamp(deg, min=1), 0.0)
+    dang = float(torch.where(deg == 0, rank0, 0.0).sum()) / n
+    for k in (REQUESTS_PER_OPERAND, 1):
+        d = torch.tensor([DAMPINGS[i % len(DAMPINGS)] for i in range(k)],
+                         dtype=torch.float64, device=DEVICE)
+        consts64 = torch.stack([(1.0 - d) / n, d, torch.full_like(d, dang)])
+        contrib64 = torch.cat([c1, c1.new_zeros(1)])
+        if k == 1:
+            consts64 = consts64[:, 0].contiguous()
+        else:
+            contrib64 = contrib64[:, None].expand(n + 1, k).contiguous()
+        # the 4-shard fold of one power step on one card against the
+        # unsharded step (fp64)
+        devs = sell_shard._mesh_devices(mesh, SHARD_N)
+        home = devs[0]
+        one = time_ms(torch, lambda: pr_k.pagerank_step_sell(
+            adj, nodes, contrib64, consts64), flush)
+        fold = time_ms(torch, lambda: sell_shard._graph_step(
+            spec_sg, devs, home, pr_k.pagerank_step_sell, torch.add,
+            (contrib64, consts64)), flush)
+        phase("timing", f"uniform21 k={k}: a {SHARD_N}-shard PageRank step "
+              f"fold on one card {fold:.4f} ms against the unsharded B3 step "
+              f"{one:.4f} ms ({fold / one:.2f}x)")
+        contrib, consts = contrib64.float(), consts64.float()
+
+        def kernel():
+            return pr_k.pagerank_step_sell(adj, nodes, contrib, consts)
+
+        def plain():
+            return pr_k.pagerank_step_sell_ref(adj, nodes, contrib, consts)
+
+        xk = contrib[:n].reshape(n, k)
+
+        def library():
+            return torch.sparse.mm(lib_a, xk)
+
+        got, want = kernel(), plain()
+        err = fp32_check(f"uniform21 k={k}: B3 fp32 vs plain", got, want)
+        cm = consts.reshape(3, k)
+        fp32_check(f"uniform21 k={k}: B3 fp32 vs torch.sparse.mm",
+                   got[:n].reshape(n, k), cm[0] + cm[1] * (library() + cm[2]))
+        ms, plain_ms = time_ms(torch, kernel, flush), time_ms(torch, plain,
+                                                              flush)
+        lib_ms = time_ms(torch, library, flush)
+        bytes_ms = (4 * e + 4 * n + 8 * n * k) / HBM_BYTES_PER_S * 1e3
+        ops_ms = e * k / FP32_OPS * 1e3
+        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   max_abs_err=max_err(got.double(), want.double()),
+                   rel_to_max=err)
+        phase("timing", f"uniform21 k={k}: pagerank_step_sell fp32 {ms:.4f} "
+              f"ms | bound {bytes_ms:.4f} ms (bytes; ops {ops_ms:.4f}) | plain"
+              f" {plain_ms:.4f} ms | torch.sparse.mm fp32 {lib_ms:.4f} ms | "
+              f"{err:.3e} x max|rank| from plain")
+        if k == REQUESTS_PER_OPERAND:
+            main = rec
+        else:
+            k1 = rec
+    records.append({"name": "pagerank_step_sell_fp32", "route": "cuda",
+                    "source": "src/repro_torch/csrc/graph_step.cu",
+                    "replaces": "src/repro/kernels/pagerank.py:81",
+                    "launches": shm["counts"]["pagerank_step_sell_fp32"],
+                    **main, "k1": k1,
+                    "shape": f"uniform21 {n} nodes {e} edges fp32, k=32, "
+                             "power step 1"})
+    radj, live = gm["ell_cached"]
+    contrib = c1.float()
+    consts = torch.tensor([(1.0 - DAMPINGS[0]) / n, DAMPINGS[0], dang],
+                          dtype=torch.float32, device=DEVICE)
+
+    def kernel():
+        return pr_k.pagerank_step(radj, contrib, consts, live_width=live)
+
+    def plain():
+        return pr_k.pagerank_step_ref(radj, contrib, consts)
+
+    def library():
+        return torch.sparse.mm(lib_a, contrib[:, None])
+
+    got, want = kernel(), plain()
+    err = fp32_check("uniform21: B5 fp32 vs plain", got, want)
+    fp32_check("uniform21: B5 fp32 vs torch.sparse.mm", got,
+               consts[0] + consts[1] * (library()[:, 0] + consts[2]))
+    ms, plain_ms = time_ms(torch, kernel, flush), time_ms(torch, plain, flush)
+    lib_ms = time_ms(torch, library, flush)
+    bytes_ms = (4 * e + 8 * n) / HBM_BYTES_PER_S * 1e3
+    ops_ms = e / FP32_OPS * 1e3
+    phase("timing", f"uniform21 k=1: pagerank_step fp32 {ms:.4f} ms | bound "
+          f"{bytes_ms:.4f} ms (bytes; ops {ops_ms:.4f}) | plain {plain_ms:.4f}"
+          f" ms | torch.sparse.mm fp32 {lib_ms:.4f} ms | {err:.3e} x "
+          "max|rank| from plain")
+    records.append({"name": "pagerank_step_fp32", "route": "cuda",
+                    "source": "src/repro_torch/csrc/graph_step.cu",
+                    "replaces": "src/repro/kernels/pagerank.py:33",
+                    "launches": shm["counts"]["pagerank_step_fp32"],
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations",
+                    "max_abs_err": max_err(got.double(), want.double()),
+                    "rel_to_max": err,
+                    "shape": f"uniform21 {n} nodes {e} edges fp32, k=1, "
+                             "power step 1"})
+    return records
+
+
+def add_sharded(kernels: list[dict], shm: dict) -> None:
+    """The sharded phase's B1 and B3 launches on the kernels line, under
+    ``launches_by_path["sharded"]`` of each kernel's record."""
+    for name in ("spmm_sell", "bfs_step_sell", "pagerank_step_sell"):
+        rec = next(r for r in kernels if r["name"] == name)
+        rec.setdefault("launches_by_path", {"main paths": rec["launches"]})
+        rec["launches_by_path"]["sharded"] = shm["counts"][name]
+        rec["launches"] += shm["counts"][name]
+
+
+# ---------------------------------------------------------------------------
 # The training path (B8 and B9, forward and backward)
 # ---------------------------------------------------------------------------
 
@@ -4344,7 +4883,7 @@ def main() -> int:
     from repro_torch import configs, serve
     from repro_torch.graphs import gen as G
     from repro_torch.kernels import bfs as bfs_k
-    from repro_torch.kernels import cuda_lib, ops, sell_core
+    from repro_torch.kernels import cuda_lib, ops, sell_core, sell_shard
     from repro_torch.kernels import fft as fft_k
     from repro_torch.kernels import gather as gather_k
     from repro_torch.kernels import pagerank as pr_k
@@ -4463,6 +5002,17 @@ def main() -> int:
     add_study(kernels, study_path(torch, np, F, G, bfs_k, pr_k, spmv_k, fft_k,
                                   sell_core, KernelRegistry, KernelService))
     phase("study", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 11c. the sharded path (B1, B3 a shard) and float32 PageRank --------
+    t0 = time.perf_counter()
+    shm = sharded_path(torch, np, sell_core, sell_shard, bfs_k, pr_k, ops,
+                       ExecSpec, KernelRegistry, KernelService, reg, big, gm)
+    kernels += time_sharded(torch, np, sell_core, sell_shard, pr_k, shm, gm,
+                            flush)
+    add_sharded(kernels, shm)
+    del shm
+    ops.reset_default_tune_cache()       # the sharded layouts it holds
+    phase("sharded", f"done in {time.perf_counter() - t0:.1f} s")
 
     # -- 12. the MoE LM (B1 on its combines, B9) -----------------------------
     # deepseek-moe-16b's 67.5 GB need the card to themselves: every earlier

@@ -129,7 +129,7 @@ def main() -> int:
                 o5.data_ptr(), n, threads, stream)
         return lambda: g_new.repro_pagerank_ell_step(
             store.data_ptr(), live.data_ptr(), contrib.data_ptr(), consts.data_ptr(),
-            o5.data_ptr(), n, width, threads, stream)
+            o5.data_ptr(), n, width, threads, 1, stream)
 
     # B6: uniform2m, C = 256, fp64
     ell = F.csr_to_ellpack(F.random_csr(**cs.ELL_BIG), c=cs.ELL_C)

@@ -185,7 +185,7 @@ def main() -> int:
                 def step():
                     return lib.repro_pagerank_ell_step(
                         store.data_ptr(), live.data_ptr(), contrib.data_ptr(),
-                        consts.data_ptr(), out5.data_ptr(), n, width, threads, stream)
+                        consts.data_ptr(), out5.data_ptr(), n, width, threads, 1, stream)
 
                 if walk() or step():
                     raise RuntimeError(f"u{unroll} at {threads} threads: launch refused")
@@ -223,7 +223,7 @@ def main() -> int:
     def raw_b5():
         committed.repro_pagerank_ell_step(store.data_ptr(), live.data_ptr(), contrib.data_ptr(),
                                           consts.data_ptr(), out5.data_ptr(), n, width, threads,
-                                          stream)
+                                          1, stream)
 
     print("through the wrappers, L2 flushed: bfs_step "
           f"{cs.time_ms(torch, lambda: bfs.bfs_step(radj, dist, 1, live_width=live), flush):.4f}"

@@ -12,6 +12,7 @@ from repro_torch.analysis.preflight import (
     plan_pagerank_ell,
     plan_pagerank_sell,
     plan_spmm_sell,
+    plan_spmm_sell_sharded,
     plan_spmm_sell_stream,
     plan_spmv_ell,
     plan_ssd_fused,
@@ -24,5 +25,6 @@ __all__ = ["BlockPlan", "LaunchPlan", "LaunchPlanError", "LiveWidthMeta",
            "plan_embedding_gather_bwd",
            "plan_fft_stockham",
            "plan_moe_dispatch", "plan_pagerank_ell", "plan_pagerank_sell",
-           "plan_spmm_sell", "plan_spmm_sell_stream", "plan_spmv_ell",
+           "plan_spmm_sell", "plan_spmm_sell_sharded",
+           "plan_spmm_sell_stream", "plan_spmv_ell",
            "plan_ssd_fused", "plan_ssd_fused_bwd"]

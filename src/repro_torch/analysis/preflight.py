@@ -65,8 +65,16 @@ Checked contracts:
   ``[0, n_rows]`` — the kernels gather and scatter unchecked, and CUDA
   does not clamp an out-of-range index the way JAX does;
 * dtype flow: int32 indices; SpMM / SpMV values and X of one dtype,
-  float32 or float64; BFS state int32; PageRank state float64; FFT planes
-  float32 or float64 (the kernels' instantiations).
+  float32 or float64; BFS state int32; PageRank state float64 or float32;
+  FFT planes float32 or float64 (the kernels' instantiations).
+
+:func:`plan_spmm_sell_sharded` (the row-sharded drive of
+:mod:`repro_torch.kernels.sell_shard`): the parent operand's contracts,
+then one device's B1 plan over its shard's slices against its X window
+(``window_cols`` rows, gathered from device memory as B1 always does), and
+a zero-shared-memory pseudo-block that prices what crosses devices.  The
+graph plans take a sharded layout's :meth:`SlabMeta.from_sharded`: each
+device runs its slices of every union bucket against the whole state.
 """
 from __future__ import annotations
 
@@ -130,6 +138,7 @@ __all__ = [
     "plan_pagerank_ell",
     "plan_pagerank_sell",
     "plan_spmm_sell",
+    "plan_spmm_sell_sharded",
     "plan_spmm_sell_stream",
     "plan_spmv_ell",
     "plan_ssd_fused",
@@ -139,6 +148,19 @@ __all__ = [
 MAX_GRID_X = 2**31 - 1
 MAX_GRID_Y = 65_535
 MAX_BLOCK_THREADS = 1024
+
+
+def _bounds(idx, maps) -> dict:
+    """The index and lane-map bounds of a packed operand's buckets (one
+    vectorized min / max a bucket)."""
+    def lo(arrays):
+        return min((int(np.min(a)) for a in arrays if a.size), default=None)
+
+    def hi(arrays):
+        return max((int(np.max(a)) for a in arrays if a.size), default=None)
+
+    return dict(idx_min=lo(idx), idx_max=hi(idx), map_min=lo(maps),
+                map_max=hi(maps))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,17 +210,7 @@ class SlabMeta:
             raise TypeError(
                 f"expected SellSlabs or SellGraphSlabs, got "
                 f"{type(slabs).__name__}")
-        bounds = {}
-        if check_bounds:
-            bounds = dict(
-                idx_min=min((int(np.min(a)) for a in idx if a.size),
-                            default=None),
-                idx_max=max((int(np.max(a)) for a in idx if a.size),
-                            default=None),
-                map_min=min((int(np.min(a)) for a in maps if a.size),
-                            default=None),
-                map_max=max((int(np.max(a)) for a in maps if a.size),
-                            default=None))
+        bounds = _bounds(idx, maps) if check_bounds else {}
         return cls(
             kind=kind, c=c, widths=widths,
             n_slices=tuple(int(a.shape[0]) for a in idx),
@@ -232,6 +244,37 @@ class SlabMeta:
                    n_slices=(int(ell.n_slices),), n_rows=int(ell.n_rows),
                    n_cols=int(ell.n_cols), val_dtype=str(ell.vals.dtype),
                    idx_dtype=str(ell.cols.dtype), **bounds)
+
+    @classmethod
+    def from_sharded(cls, sharded, check_bounds: bool = False) -> "SlabMeta":
+        """One device's metadata of a sharded layout (duck-typed):
+        :class:`~repro_torch.sparse.formats.ShardedSlabs` is a matrix of
+        ``rows_max`` local rows against its ``window_cols``-row X window,
+        :class:`~repro_torch.graphs.ShardedGraphSlabs` a graph over all
+        ``n_nodes``; the slices are a shard's of each union bucket.  The
+        bounds scan covers every shard."""
+        if hasattr(sharded, "bucket_cols"):
+            idx, maps = sharded.bucket_cols, sharded.bucket_rows
+            widths = tuple(int(a.shape[2]) for a in idx)
+            c = int(idx[0].shape[3]) if idx else 0
+            kind, n_rows, n_cols = ("matrix", sharded.rows_max,
+                                    sharded.window_cols)
+            val_dtype = str(sharded.bucket_vals[0].dtype) if idx else None
+        elif hasattr(sharded, "bucket_adj"):
+            idx, maps = sharded.bucket_adj, sharded.bucket_nodes
+            widths = tuple(int(a.shape[3]) for a in idx)
+            c = int(idx[0].shape[2]) if idx else 0
+            kind, n_rows, n_cols = "graph", sharded.n_nodes, sharded.n_nodes
+            val_dtype = None
+        else:
+            raise TypeError(f"expected ShardedSlabs or ShardedGraphSlabs, "
+                            f"got {type(sharded).__name__}")
+        bounds = _bounds(idx, maps) if check_bounds else {}
+        return cls(kind=kind, c=c, widths=widths,
+                   n_slices=tuple(int(a.shape[1]) for a in idx),
+                   n_rows=int(n_rows), n_cols=int(n_cols),
+                   val_dtype=val_dtype,
+                   idx_dtype=str(idx[0].dtype) if idx else "int32", **bounds)
 
     def describe(self) -> str:
         return (f"{self.kind} {self.n_rows}x{self.n_cols} "
@@ -525,6 +568,60 @@ def plan_spmm_sell_stream(
     )
 
 
+def plan_spmm_sell_sharded(
+    meta: SlabMeta,
+    k: int = 1,
+    x_dtype: str | None = None,
+    *,
+    n_devices: int,
+    k_block: int = 8,
+    window_cols: int,
+    shard: SlabMeta,
+) -> LaunchPlan:
+    """Plan the row-sharded ``spmm_sell_sharded`` drive over ``n_devices``.
+
+    ``meta`` is the whole operand's (its contracts, the index bounds among
+    them, hold first).  Each device then runs B1 over its shard's slices
+    against its ``window_cols``-row X window: ``shard`` is one device's
+    :meth:`SlabMeta.from_sharded` (the union buckets, ``rows_max`` rows,
+    stored columns rebased into the window).  X stays in device memory
+    and is gathered through the L2 (no window has to fit on chip), so the
+    window bounds the gather's indices, not a budget.  A last pseudo-block
+    with no shared memory prices what crosses devices: the X window each
+    device reads (``window_cols x k_pad``) and the output rows it hands to
+    the first device (``~n_rows / n_devices x k_pad``).
+    """
+    violations: list[str] = []
+    nd = int(n_devices)
+    if nd < 1:
+        violations.append(f"n_devices must be >= 1, got {n_devices}")
+        nd = 1
+    win = int(window_cols)
+    if win < 1 or win > max(meta.n_cols, 1):
+        violations.append(
+            f"window_cols {win} outside [1, n_cols={meta.n_cols}]")
+    whole = plan_spmm_sell(meta, k=k, x_dtype=x_dtype, k_block=k_block)
+    violations += whole.violations
+    shard = dataclasses.replace(shard, n_cols=max(win, 1))
+    per_device = plan_spmm_sell(shard, k=k, x_dtype=x_dtype, k_block=k_block)
+    violations += [f"per device: {v}" for v in per_device.violations
+                   if v not in whole.violations]
+    dtype = x_dtype or meta.val_dtype or "float64"
+    k_tile = min(max(int(k_block), 1), pow2_ceil(max(k, 1)))
+    k_pad = k_tile * math.ceil(max(k, 1) / k_tile)
+    blocks = tuple(dataclasses.replace(b, label=f"{b.label}/dev")
+                   for b in per_device.blocks)
+    blocks += (BlockPlan(
+        label="collectives", grid=(nd,), block=(0,),
+        operands=(("x_window", (win, k_pad), dtype),
+                  ("y_rows", (math.ceil(max(meta.n_rows, 1) / nd), k_pad),
+                   dtype)),
+        smem_bytes=0),)
+    return LaunchPlan(kernel="spmm_sell_sharded", operand=meta.describe(),
+                      dtype=dtype, blocks=blocks,
+                      violations=tuple(violations))
+
+
 def plan_moe_dispatch(meta: SlabMeta, k: int = 1, x_dtype: str | None = None,
                       *, top_k: int, k_block: int = 8) -> LaunchPlan:
     """Plan the MoE expert-dispatch SpMM (:func:`repro_torch.kernels.ops
@@ -561,8 +658,8 @@ def plan_moe_dispatch(meta: SlabMeta, k: int = 1, x_dtype: str | None = None,
 # Graph node steps (kernels B3, B4, B5)
 # ---------------------------------------------------------------------------
 
-#: state dtype each graph kernel is instantiated for
-_STATE_DTYPES = {"bfs": "int32", "pagerank": "float64"}
+#: state dtypes each graph kernel is instantiated for
+_STATE_DTYPES = {"bfs": ("int32",), "pagerank": ("float32", "float64")}
 
 
 def _plan_node_step(kernel: str, combine: str, meta: SlabMeta, k: int,
@@ -582,10 +679,10 @@ def _plan_node_step(kernel: str, combine: str, meta: SlabMeta, k: int,
         violations.append(f"{kernel} advances one state column, got k={k}")
     _index_contracts(meta, violations, "neighbour id", "the state")
     want = _STATE_DTYPES[combine]
-    if state_dtype != want:
+    if state_dtype not in want:
         violations.append(
-            f"{combine} state dtype {state_dtype} != {want} (the kernel's "
-            "only instantiation)")
+            f"{combine} state dtype {state_dtype} is not one of {want} (the "
+            "kernel's instantiations)")
     if ell:
         blocks = _ell_node_blocks(combine, meta, state_dtype, live, violations)
         return LaunchPlan(kernel=kernel, operand=meta.describe(),
@@ -605,7 +702,7 @@ def _plan_node_step(kernel: str, combine: str, meta: SlabMeta, k: int,
     state = (meta.n_rows + 1, max(k, 1))
     blocks = []
     for i, (s, w) in enumerate(zip(meta.n_slices, meta.widths)):
-        split = node_split(w, meta.c, s, k_tile, sb)
+        split = node_split(w, meta.c, s, k_tile, sb, combine)
         if split.threads > MAX_BLOCK_THREADS:
             violations.append(f"bucket {i} (W={w}): block of {split.threads} "
                               f"threads > {MAX_BLOCK_THREADS}")
@@ -670,8 +767,8 @@ def plan_pagerank_sell(meta: SlabMeta, k: int = 1,
                        dtype: str = "float64") -> LaunchPlan:
     """Plan one ``pagerank_step_sell`` power step for k stacked
     configurations: (n + 1, k) contribution columns and (3, k) constants
-    in the rank dtype, one B3 launch per bucket.  The kernel runs float64
-    only (the reference's x64 path)."""
+    in the rank dtype, float64 (the reference's x64 path) or float32 (its
+    x64-off path), one B3 launch per bucket."""
     return _plan_node_step("pagerank_sell", "pagerank", meta, k, dtype)
 
 

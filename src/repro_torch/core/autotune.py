@@ -34,6 +34,7 @@ from repro_torch.core.vconfig import VectorConfig
 from repro_torch.sparse.formats import (
     next_pow2,
     pow2_ceil,
+    shard_row_ranges,
     sigma_sort_order,
     slice_widths,
 )
@@ -232,7 +233,7 @@ class NodeSplit:
     ``nodes`` nodes; at one lane and one part the kernel runs its
     one-thread-a-node body.  ``smem_bytes`` is what a split block claims to
     combine its parts: the PageRank partial sums (``nodes x parts x
-    k_tile`` fp64) or one BFS hit mask a node."""
+    k_tile`` ranks of the state's itemsize) or one BFS hit mask a node."""
 
     group: int
     parts: int
@@ -247,15 +248,16 @@ class NodeSplit:
 def node_group(k_tile: int, itemsize: int) -> int:
     """Lanes of kernel B3 that serve one node: enough that each reads
     :data:`NODE_LANE_BYTES` of a neighbour's ``k_tile``-column state row
-    (PageRank fp64 at k_tile 32: 16; BFS int32: 8), one when the row is
-    no wider than that."""
+    (PageRank fp64 at k_tile 32: 16; PageRank fp32 and BFS int32: 8), one
+    when the row is no wider than that."""
     return max(1, int(k_tile) * int(itemsize) // NODE_LANE_BYTES)
 
 
-def node_split(width: int, c: int, n_slices: int, k_tile: int = 1,
-               itemsize: int = 8) -> NodeSplit:
+def node_split(width: int, c: int, n_slices: int, k_tile: int,
+               itemsize: int, combine: str) -> NodeSplit:
     """The walk of one B3 bucket of ``n_slices`` (``width``, ``c``) slices
-    at this state tile (``itemsize`` 4: BFS int32, 8: PageRank fp64).
+    at this state tile of ``itemsize`` bytes a column.  ``combine`` is
+    ``"bfs"`` (int32 state) or ``"pagerank"`` (fp64 or fp32 ranks).
 
     Built as :func:`spmm_split` is: from :data:`NODE_SPLIT_WIDTH` on,
     ``parts`` groups share a node (part p walks w = p, p + parts, ...):
@@ -281,7 +283,8 @@ def node_split(width: int, c: int, n_slices: int, k_tile: int = 1,
     nodes = max(1, NODE_STEP_BLOCK_THREADS // (parts * group))
     smem = 0
     if parts > 1:
-        smem = nodes * parts * int(k_tile) * 8 if itemsize == 8 else 4 * nodes
+        smem = (nodes * parts * int(k_tile) * int(itemsize)
+                if combine == "pagerank" else 4 * nodes)
     return NodeSplit(group=group, parts=parts, nodes=nodes, smem_bytes=smem)
 
 
@@ -829,6 +832,7 @@ def tune_sell_layout(
     sigma_factors: Sequence[int] = (1, 4, 8, 32),
     cache=None,
     cache_key: str | None = None,
+    n_devices: int = 1,
 ) -> SellTuneResult:
     """Co-select (C, sigma) and the RHS tile for the SELL SpMM kernel.
 
@@ -846,12 +850,23 @@ def tune_sell_layout(
     :class:`repro_torch.service.tunecache.TuneCache`): the cache is
     consulted before any pad factor is measured, and a miss records its
     result.
+
+    ``n_devices > 1`` tunes for the row-sharded drive, as the reference
+    does: each device packs its own row range, so the tuner scores the
+    busiest shard (the largest nnz under the partition
+    :func:`repro_torch.sparse.formats.shard_row_ranges` makes), which sets
+    the drive's critical path.  Key the cache with the same device count
+    (``TuneCache.sell_key(n_devices=...)``).
     """
     if cache is not None and cache_key is not None:
         hit = cache.get_sell(cache_key)
         if hit is not None:
             return hit
     lengths = np.asarray(row_lengths, np.int64)
+    if int(n_devices) > 1 and len(lengths):
+        ranges = shard_row_ranges(lengths, int(n_devices))
+        lo, hi = max(ranges, key=lambda r: int(lengths[r[0]:r[1]].sum()))
+        lengths = lengths[lo:hi]
     n_rows = len(lengths)
     if candidates_c is not None:
         cands = list(candidates_c)

@@ -17,9 +17,16 @@
 // new state once; per neighbour it does one compare (BFS) or one add per
 // state column (PageRank), far below the card's arithmetic rate.  The least
 // bytes of a step are 4 E + 4 n + 8 n k (BFS: int32 state read and written
-// once) and 4 E + 4 n + 16 n k (PageRank: fp64 contributions read, ranks
-// written); ELLPACK has no node-map term.  The pad entries of the slabs are
-// the layout's own bytes above that.
+// once) and 4 E + 4 n + 2 s n k (PageRank: contributions read, ranks
+// written, s = 8 B in fp64 and 4 B in fp32); ELLPACK has no node-map term.
+// The pad entries of the slabs are the layout's own bytes above that.
+//
+// PageRank runs in the rank type T, double or float (the JAX package's x64
+// and x64-off paths): B3's PageRank kernels and B5 are templates on T, and
+// their C entries take an is_double code.  In fp32 a state row of 16 B is 4
+// columns (float4 loads where fp64 loads double2), the split parts' partial
+// sums are sizeof(T) wide in shared memory, and every sum and the combine
+// base + d * (pulled + dangling_term) are made in T.  BFS stays int32.
 //
 // Layout: the JAX package stores graph slabs node-major, (S, C, W), so
 // neighbouring threads would read ids W * 4 B apart.  The port's upload
@@ -61,7 +68,7 @@
 //     reads it as B5 with every id taken mod 2048).
 //
 // B3 (SELL, k state columns), where a state row is 16 B or less and its
-// bucket is not split (k_tile 1 / 2 fp64, 1 .. 4 int32): one thread a node
+// bucket is not split (k_tile 1 / 2 fp64, 1 .. 4 fp32 or int32): one thread a node
 // (bfs_step_kernel / pagerank_step_kernel):
 //   * a thread reads its node id from the bucket's node map, walks its W
 //     in-neighbour slots in ascending w and keeps K_TILE state columns in
@@ -75,7 +82,7 @@
 //     distances; only the columns still at INF search the in-neighbours
 //     (a bitmask), and the walk stops once each of them has found a
 //     neighbour on level - 1;
-//   * PageRank keeps K_TILE fp64 partial sums, added in ascending w, and
+//   * PageRank keeps K_TILE partial sums in T, added in ascending w, and
 //     writes base + d * (pulled + dangling_term) per column, the constants
 //     read from a (3, ld) array (ld = 1 broadcasts one configuration);
 //   * on those buckets the group form below, at one lane a node, was
@@ -87,7 +94,7 @@
 // B3's group form (bfs_group_step_kernel / pagerank_group_step_kernel) for the rest:
 //   * lanes across the state columns: a node is served by a group of G
 //     lanes of one warp, G = K_TILE * sizeof(state) / 16 (PageRank fp64 at
-//     k_tile 32: 16; BFS int32: 8), so one neighbour's K_TILE state row is
+//     k_tile 32: 16; fp32 and BFS int32: 8), so one neighbour's K_TILE state row is
 //     read as one coalesced access, 16 B a lane, where one thread made
 //     K_TILE scalar loads from one row and a warp load touched 32 rows;
 //   * the group's lanes load G neighbour ids at once, one each, and pass
@@ -170,12 +177,12 @@ __global__ void bfs_step_kernel(const int32_t* __restrict__ adj,
   for (int kk = 0; kk < K_TILE; ++kk) o[kk] = ((hit >> kk) & 1u) ? level : mine[kk];
 }
 
-template <int K_TILE>
+template <typename T, int K_TILE>
 __global__ void pagerank_step_kernel(const int32_t* __restrict__ adj,
                                      const int32_t* __restrict__ nodes,   // (S, C)
-                                     const double* __restrict__ contrib,  // (rows, ld)
-                                     const double* __restrict__ consts,   // (3, ld)
-                                     double* __restrict__ out,            // (rows, ld)
+                                     const T* __restrict__ contrib,       // (rows, ld)
+                                     const T* __restrict__ consts,        // (3, ld)
+                                     T* __restrict__ out,                 // (rows, ld)
                                      int64_t n_lanes, int64_t width, int64_t c,
                                      int64_t ld, int64_t n_nodes) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -186,23 +193,23 @@ __global__ void pagerank_step_kernel(const int32_t* __restrict__ adj,
   const int64_t lane = t - s * c;
   const int64_t k0 = static_cast<int64_t>(blockIdx.y) * K_TILE;
 
-  double acc[K_TILE];
+  T acc[K_TILE];
 #pragma unroll
-  for (int kk = 0; kk < K_TILE; ++kk) acc[kk] = 0.0;
+  for (int kk = 0; kk < K_TILE; ++kk) acc[kk] = T(0);
   const int64_t base = s * width * c + lane;
   for (int64_t w = 0; w < width; ++w) {
     const int32_t u = __ldg(adj + base + w * c);
     if (u == kPad) continue;
-    const double* cu = contrib + static_cast<int64_t>(u) * ld + k0;
+    const T* cu = contrib + static_cast<int64_t>(u) * ld + k0;
 #pragma unroll
     for (int kk = 0; kk < K_TILE; ++kk) acc[kk] += __ldg(cu + kk);
   }
-  double* o = out + v * ld + k0;
+  T* o = out + v * ld + k0;
 #pragma unroll
   for (int kk = 0; kk < K_TILE; ++kk) {
-    const double base_term = __ldg(consts + k0 + kk);
-    const double damping = __ldg(consts + ld + k0 + kk);
-    const double dangling = __ldg(consts + 2 * ld + k0 + kk);
+    const T base_term = __ldg(consts + k0 + kk);
+    const T damping = __ldg(consts + ld + k0 + kk);
+    const T dangling = __ldg(consts + 2 * ld + k0 + kk);
     o[kk] = base_term + damping * (acc[kk] + dangling);
   }
 }
@@ -240,6 +247,19 @@ template <int N>
 __device__ __forceinline__ void load_cols(const double* p, double (&o)[N]) {
   if constexpr (N == 2) {
     const double2 v = __ldg(reinterpret_cast<const double2*>(p));
+    o[0] = v.x; o[1] = v.y;
+  } else {
+    o[0] = __ldg(p);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_cols(const float* p, float (&o)[N]) {
+  if constexpr (N == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
     o[0] = v.x; o[1] = v.y;
   } else {
     o[0] = __ldg(p);
@@ -339,18 +359,18 @@ __global__ void __launch_bounds__(kMaxGroupThreads)
   for (int i = 0; i < kCols; ++i) o[i] = ((hit >> i) & 1u) ? level : mine[i];
 }
 
-template <int K_TILE>
+template <typename T, int K_TILE>
 __global__ void __launch_bounds__(kMaxGroupThreads)
     pagerank_group_step_kernel(const int32_t* __restrict__ adj, const int32_t* __restrict__ nodes,
-                          const double* __restrict__ contrib,
-                          const double* __restrict__ consts, double* __restrict__ out,
+                          const T* __restrict__ contrib,
+                          const T* __restrict__ consts, T* __restrict__ out,
                           int64_t n_lanes, int64_t width, int64_t c, int64_t ld,
                           int64_t n_nodes, int parts) {
-  using L = Lanes<double, K_TILE>;
+  using L = Lanes<T, K_TILE>;
   constexpr int G = L::G;
   constexpr int kCols = L::kCols;
   extern __shared__ __align__(16) unsigned char group_smem[];
-  double* s_part = reinterpret_cast<double*>(group_smem);  // (nodes, parts, K_TILE) when split
+  T* s_part = reinterpret_cast<T*>(group_smem);  // (nodes, parts, K_TILE) when split
   const Place at = place_of<G>(parts);
   const int per_block = static_cast<int>(blockDim.x) / (parts * G);
   const int64_t t = static_cast<int64_t>(blockIdx.x) * per_block + at.node;
@@ -359,9 +379,9 @@ __global__ void __launch_bounds__(kMaxGroupThreads)
   int64_t v = n_nodes;
   if (t < n_lanes) v = __ldg(nodes + t);
   const bool active = v < n_nodes;
-  double acc[kCols];
+  T acc[kCols];
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) acc[i] = 0.0;
+  for (int i = 0; i < kCols; ++i) acc[i] = T(0);
   if (active) {
     const int64_t s = t / c;
     const int64_t base = s * width * c + (t - s * c);
@@ -372,7 +392,7 @@ __global__ void __launch_bounds__(kMaxGroupThreads)
 #pragma unroll
       for (int j = 0; j < G; ++j) {
         const int32_t u = group_id<G>(id, j, at.gmask);
-        double cu[kCols];
+        T cu[kCols];
         load_cols<kCols>(contrib + static_cast<int64_t>(u == kPad ? 0 : u) * ld + col0, cu);
         if (u != kPad) {
 #pragma unroll
@@ -383,7 +403,7 @@ __global__ void __launch_bounds__(kMaxGroupThreads)
   }
   if (parts > 1) {
     // the parts' partial sums, added in a fixed pairwise order
-    double* mine = s_part + (static_cast<int64_t>(at.node) * parts + at.part) * K_TILE
+    T* mine = s_part + (static_cast<int64_t>(at.node) * parts + at.part) * K_TILE
                    + at.g * kCols;
 #pragma unroll
     for (int i = 0; i < kCols; ++i) mine[i] = acc[i];
@@ -404,12 +424,12 @@ __global__ void __launch_bounds__(kMaxGroupThreads)
     for (int i = 0; i < kCols; ++i) acc[i] = mine[i];
   }
   if (!active) return;  // padding lane: the dump slot stays 0
-  double* o = out + v * ld + col0;
+  T* o = out + v * ld + col0;
 #pragma unroll
   for (int i = 0; i < kCols; ++i) {
-    const double base_term = __ldg(consts + col0 + i);
-    const double damping = __ldg(consts + ld + col0 + i);
-    const double dangling = __ldg(consts + 2 * ld + col0 + i);
+    const T base_term = __ldg(consts + col0 + i);
+    const T damping = __ldg(consts + ld + col0 + i);
+    const T dangling = __ldg(consts + 2 * ld + col0 + i);
     o[i] = base_term + damping * (acc[i] + dangling);
   }
 }
@@ -478,26 +498,26 @@ __global__ void bfs_ell_kernel(const int32_t* __restrict__ adj,         // (widt
 // B5: U ids a round (evict-first), then the U contribution gathers of the
 // non-PAD ones (contrib stays in the L2), then the adds in ascending w: the
 // order of a one-slot loop, so each node's sum is bit-equal to it.
-template <int U>
+template <typename T, int U>
 __global__ void pagerank_ell_kernel(const int32_t* __restrict__ adj,      // (width, n)
                                     const int32_t* __restrict__ live,     // (ceil(n / 32),)
-                                    const double* __restrict__ contrib,   // (n,)
-                                    const double* __restrict__ consts,    // (3,)
-                                    double* __restrict__ out,             // (n,)
+                                    const T* __restrict__ contrib,        // (n,)
+                                    const T* __restrict__ consts,         // (3,)
+                                    T* __restrict__ out,                  // (n,)
                                     int64_t n_nodes, int64_t width) {
   const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (v >= n_nodes) return;
   const int wl = bounded_width(__ldg(live + (v >> 5)), width);
   const int32_t* a = adj + v;
-  double acc = 0.0;
+  T acc = T(0);
   for (int w = 0; w < wl; w += U) {
     int32_t u[U];
-    double c[U];
+    T c[U];
 #pragma unroll
     for (int i = 0; i < U; ++i)
       u[i] = w + i < wl ? __ldcs(a + static_cast<int64_t>(w + i) * n_nodes) : kPad;
 #pragma unroll
-    for (int i = 0; i < U; ++i) c[i] = u[i] != kPad ? __ldg(contrib + u[i]) : 0.0;
+    for (int i = 0; i < U; ++i) c[i] = u[i] != kPad ? __ldg(contrib + u[i]) : T(0);
 #pragma unroll
     for (int i = 0; i < U; ++i)
       if (u[i] != kPad) acc += c[i];
@@ -531,6 +551,56 @@ bool bad_ell(int64_t n_nodes, int threads) {
 dim3 grid_of(int64_t n_lanes, int64_t ld, int k_tile, int threads) {
   return dim3(static_cast<unsigned>((n_lanes + threads - 1) / threads),
               static_cast<unsigned>(ld / k_tile));
+}
+
+// One SELL bucket of a PageRank power step in the rank type T: a launch of
+// the one-thread body (one part, a state row of 16 B or less) or of the
+// group form (groups of max(1, k_tile * sizeof(T) / 16) lanes, `parts`
+// groups a node, the parts' sums in shared memory).
+template <typename T>
+int pagerank_sell_bucket(const int32_t* a, const int32_t* m, const T* x, const T* k, T* o,
+                         int64_t n_lanes, int64_t width, int64_t c, int64_t ld, int k_tile,
+                         int64_t n_nodes, int threads, int parts, cudaStream_t st) {
+  const int group = group_of<T>(k_tile);
+  const dim3 block(threads);
+  if (group == 1 && parts == 1) {
+    const dim3 grid = grid_of(n_lanes, ld, k_tile, threads);
+    switch (k_tile) {
+#define REPRO_PR_CASE(K)                                                               \
+  case K:                                                                              \
+    pagerank_step_kernel<T, K><<<grid, block, 0, st>>>(a, m, x, k, o, n_lanes,         \
+                                                       width, c, ld, n_nodes);         \
+    break;
+      REPRO_PR_CASE(1)
+      REPRO_PR_CASE(2)
+      REPRO_PR_CASE(4)
+#undef REPRO_PR_CASE
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid = grid_of(n_lanes, ld, k_tile, threads / (parts * group));
+  const size_t smem =
+      parts > 1 ? static_cast<size_t>(threads / group) * k_tile * sizeof(T) : 0;
+  switch (k_tile) {
+#define REPRO_PR_GROUP_CASE(K)                                                           \
+  case K:                                                                                \
+    pagerank_group_step_kernel<T, K><<<grid, block, smem, st>>>(a, m, x, k, o, n_lanes,  \
+                                                                width, c, ld, n_nodes,   \
+                                                                parts);                  \
+    break;
+    REPRO_PR_GROUP_CASE(1)
+    REPRO_PR_GROUP_CASE(2)
+    REPRO_PR_GROUP_CASE(4)
+    REPRO_PR_GROUP_CASE(8)
+    REPRO_PR_GROUP_CASE(16)
+    REPRO_PR_GROUP_CASE(32)
+#undef REPRO_PR_GROUP_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -598,16 +668,18 @@ int repro_bfs_sell_bucket(const void* adj, const void* nodes, const void* dist, 
 }
 
 // One SELL bucket of a PageRank power step: adj stored (n_slices, width, c),
-// nodes (n_slices, c), contrib and out (n_nodes + 1, ld) float64 16-byte
-// aligned, consts (3, ld) float64; `threads` and `parts` as for BFS (one
-// thread a node at one part and k_tile <= 2), a group of max(1, k_tile / 2)
-// lanes.
+// nodes (n_slices, c), contrib and out (n_nodes + 1, ld) 16-byte aligned,
+// consts (3, ld), all three float64 when is_double is 1 and float32 when it
+// is 0; `threads` and `parts` as for BFS (one thread a node at one part and
+// a state row of 16 B or less: k_tile <= 2 in fp64, <= 4 in fp32), else a
+// group of max(1, k_tile * sizeof(T) / 16) lanes.
 int repro_pagerank_sell_bucket(const void* adj, const void* nodes, const void* contrib,
                                const void* consts, void* out, int64_t n_slices,
                                int64_t width, int64_t c, int64_t ld, int k_tile,
-                               int64_t n_nodes, int threads, int parts, void* stream) {
+                               int64_t n_nodes, int threads, int parts, int is_double,
+                               void* stream) {
   const int64_t n_lanes = n_slices * c;
-  const int group = group_of<double>(k_tile);
+  const int group = is_double ? group_of<double>(k_tile) : group_of<float>(k_tile);
   if (n_slices <= 0 || c <= 0 || bad_shape(n_lanes, width, ld, k_tile, threads) ||
       bad_split(threads, parts, group) || reinterpret_cast<uintptr_t>(contrib) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -615,46 +687,14 @@ int repro_pagerank_sell_bucket(const void* adj, const void* nodes, const void* c
   auto st = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const int32_t*>(adj);
   const auto* m = static_cast<const int32_t*>(nodes);
-  const auto* x = static_cast<const double*>(contrib);
-  const auto* k = static_cast<const double*>(consts);
-  auto* o = static_cast<double*>(out);
-  const dim3 block(threads);
-  if (group == 1 && parts == 1) {
-    const dim3 grid = grid_of(n_lanes, ld, k_tile, threads);
-    switch (k_tile) {
-#define REPRO_PR_CASE(K)                                                               \
-  case K:                                                                              \
-    pagerank_step_kernel<K><<<grid, block, 0, st>>>(a, m, x, k, o, n_lanes,     \
-                                                          width, c, ld, n_nodes);     \
-    break;
-      REPRO_PR_CASE(1)
-      REPRO_PR_CASE(2)
-#undef REPRO_PR_CASE
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
+  if (is_double) {
+    return pagerank_sell_bucket<double>(
+        a, m, static_cast<const double*>(contrib), static_cast<const double*>(consts),
+        static_cast<double*>(out), n_lanes, width, c, ld, k_tile, n_nodes, threads, parts, st);
   }
-  const dim3 grid = grid_of(n_lanes, ld, k_tile, threads / (parts * group));
-  const size_t smem = parts > 1 ? static_cast<size_t>(threads / group) * k_tile * sizeof(double)
-                                : 0;
-  switch (k_tile) {
-#define REPRO_PR_GROUP_CASE(K)                                                           \
-  case K:                                                                                \
-    pagerank_group_step_kernel<K><<<grid, block, smem, st>>>(a, m, x, k, o, n_lanes, width,   \
-                                                        c, ld, n_nodes, parts);          \
-    break;
-    REPRO_PR_GROUP_CASE(1)
-    REPRO_PR_GROUP_CASE(2)
-    REPRO_PR_GROUP_CASE(4)
-    REPRO_PR_GROUP_CASE(8)
-    REPRO_PR_GROUP_CASE(16)
-    REPRO_PR_GROUP_CASE(32)
-#undef REPRO_PR_GROUP_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return pagerank_sell_bucket<float>(
+      a, m, static_cast<const float*>(contrib), static_cast<const float*>(consts),
+      static_cast<float*>(out), n_lanes, width, c, ld, k_tile, n_nodes, threads, parts, st);
 }
 
 // B4's frontier pass for a BFS level: word i of `frontier` ((ceil(n_nodes /
@@ -691,19 +731,27 @@ int repro_bfs_ell_step(const void* adj, const void* live, const void* frontier,
 }
 
 // One PageRank power step (B5) on an ELLPACK reverse adjacency stored
-// (width, n_nodes), live as for BFS; contrib and out (n_nodes,) float64,
-// consts (3,) float64.
+// (width, n_nodes), live as for BFS; contrib and out (n_nodes,), consts (3,),
+// all float64 when is_double is 1 and float32 when it is 0.
 int repro_pagerank_ell_step(const void* adj, const void* live, const void* contrib,
                             const void* consts, void* out, int64_t n_nodes, int64_t width,
-                            int threads, void* stream) {
+                            int threads, int is_double, void* stream) {
   if (bad_ell(n_nodes, threads) || width < 0 || live == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  pagerank_ell_kernel<UNROLL_ELL><<<grid_of(n_nodes, 1, 1, threads), dim3(threads), 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(adj), static_cast<const int32_t*>(live),
-      static_cast<const double*>(contrib), static_cast<const double*>(consts),
-      static_cast<double*>(out), n_nodes, width);
+  const dim3 grid = grid_of(n_nodes, 1, 1, threads);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const int32_t*>(adj);
+  const auto* l = static_cast<const int32_t*>(live);
+  if (is_double) {
+    pagerank_ell_kernel<double, UNROLL_ELL><<<grid, dim3(threads), 0, st>>>(
+        a, l, static_cast<const double*>(contrib), static_cast<const double*>(consts),
+        static_cast<double*>(out), n_nodes, width);
+  } else {
+    pagerank_ell_kernel<float, UNROLL_ELL><<<grid, dim3(threads), 0, st>>>(
+        a, l, static_cast<const float*>(contrib), static_cast<const float*>(consts),
+        static_cast<float*>(out), n_nodes, width);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,11 +5,13 @@ from repro_torch.graphs.gen import (
     PAD,
     EllpackGraph,
     SellGraphSlabs,
+    ShardedGraphSlabs,
     bfs_reference,
     graph_to_sell_slabs,
     pagerank_reference,
     random_graph,
     rmat_graph,
+    shard_graph_slabs,
 )
 
 __all__ = [
@@ -17,9 +19,11 @@ __all__ = [
     "PAD",
     "EllpackGraph",
     "SellGraphSlabs",
+    "ShardedGraphSlabs",
     "bfs_reference",
     "graph_to_sell_slabs",
     "pagerank_reference",
     "random_graph",
     "rmat_graph",
+    "shard_graph_slabs",
 ]

@@ -1,7 +1,8 @@
 """Graph generation, SELL slab packing and host references for BFS and
 PageRank (paper §3.1).
 
-The port's copy of ``repro.graphs.gen`` (single-device part).  The
+The port's copy of ``repro.graphs.gen``, the node-partitioned layout
+of the sharded drives (:class:`ShardedGraphSlabs`) included.  The
 generators draw the same random stream as the reference, so the same seed
 gives the byte-identical graph, and :func:`graph_to_sell_slabs` builds the
 byte-identical slabs (tests hold both against the reference).  Packing and
@@ -23,18 +24,25 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.sparse.formats import next_pow2, sigma_sort_order, slice_widths
+from repro_torch.sparse.formats import (
+    next_pow2,
+    shard_row_ranges,
+    sigma_sort_order,
+    slice_widths,
+)
 
 __all__ = [
     "INF",
     "PAD",
     "EllpackGraph",
     "SellGraphSlabs",
+    "ShardedGraphSlabs",
     "bfs_reference",
     "graph_to_sell_slabs",
     "pagerank_reference",
     "random_graph",
     "rmat_graph",
+    "shard_graph_slabs",
 ]
 
 PAD = -1
@@ -185,6 +193,116 @@ def graph_to_sell_slabs(
     return SellGraphSlabs(
         bucket_adj=tuple(bucket_adj),
         bucket_nodes=tuple(bucket_nodes),
+        n_nodes=n,
+        sigma=sigma,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedGraphSlabs:
+    """Node-partitioned :class:`SellGraphSlabs`, stacked along a device axis.
+
+    Shard ``d`` owns the contiguous node range ``[node_starts[d],
+    node_starts[d] + node_counts[d])`` and carries that range's in-degree
+    sorted adjacency as a common bucket structure (same widths and slice
+    counts on every shard, PAD-padded), so one program serves all
+    devices.  Unlike the matrix case, ids stay GLOBAL: ``bucket_adj`` holds
+    global neighbor ids (the frontier/rank state is replicated, so every
+    shard gathers from the full vector) and ``bucket_nodes`` holds global
+    owned-node ids (padding lanes map to ``n_nodes``, the shared dump slot)
+    — each shard scatters only its own nodes, and the cross-device combine
+    (BFS frontier union by element-wise min, PageRank rank exchange by
+    sum) merges
+    the disjoint updates.
+    """
+
+    bucket_adj: tuple[np.ndarray, ...]    # each (n_shards, S_b, C, W_b) int32
+    bucket_nodes: tuple[np.ndarray, ...]  # each (n_shards, S_b, C) int32
+    node_starts: np.ndarray               # (n_shards,) int64
+    node_counts: np.ndarray               # (n_shards,) int64
+    n_nodes: int
+    sigma: int
+
+    @property
+    def c(self) -> int:
+        return self.bucket_adj[0].shape[2]
+
+    @property
+    def n_shards(self) -> int:
+        return self.bucket_adj[0].shape[0]
+
+    @property
+    def widths(self) -> tuple[int, ...]:
+        return tuple(a.shape[3] for a in self.bucket_adj)
+
+    @property
+    def slices_per_shard(self) -> tuple[int, ...]:
+        return tuple(a.shape[1] for a in self.bucket_adj)
+
+    def shard_to_device(self, d: int, device) -> tuple[tuple[torch.Tensor, ...],
+                                                       tuple[torch.Tensor, ...]]:
+        """Shard ``d``'s bucket tensors on ``device``: ``(adj, nodes)``, each
+        a tuple over the union buckets, stored as
+        :meth:`SellGraphSlabs.to_device` stores one graph (adjacency
+        (S, W, C) in memory, viewed (S, C, W)).  The one upload of that
+        shard."""
+        return (tuple(_lane_minor(a[d], device) for a in self.bucket_adj),
+                tuple(torch.from_numpy(np.ascontiguousarray(m[d])).to(device)
+                      for m in self.bucket_nodes))
+
+
+def shard_graph_slabs(
+    g: EllpackGraph, c: int, n_shards: int, sigma: int | None = None
+) -> ShardedGraphSlabs:
+    """Node-partition a (reverse) graph into per-device SELL slabs.
+
+    Nodes split into contiguous in-degree-balanced ranges; each range is
+    degree-sorted and bucketed *locally* (so no slice mixes nodes across
+    the partition), then the per-shard structures are padded to the union
+    bucket layout exactly as :func:`repro.sparse.formats.shard_slabs` does
+    for matrices.
+    """
+    sigma = int(sigma or 8 * c)
+    n = g.n_nodes
+    deg = (g.adj != PAD).sum(axis=1).astype(np.int64)
+    ranges = shard_row_ranges(deg, n_shards)
+    n_shards = len(ranges)
+    shards = []
+    for lo, hi in ranges:
+        sub = EllpackGraph(adj=g.adj[lo:hi], n_nodes=hi - lo)
+        shards.append((lo, graph_to_sell_slabs(sub, c=c, sigma=sigma)))
+
+    per_shard = [dict(zip(s.widths, range(len(s.bucket_adj))))
+                 for _, s in shards]
+    union_w = sorted({w for _, s in shards for w in s.widths})
+    smax = {
+        w: max(
+            (s.bucket_adj[per_shard[d][w]].shape[0]
+             if w in per_shard[d] else 0)
+            for d, (_, s) in enumerate(shards))
+        for w in union_w
+    }
+    bucket_adj, bucket_nodes = [], []
+    for w in union_w:
+        s_b = smax[w]
+        adj = np.full((n_shards, s_b, c, w), PAD, np.int32)
+        nodes = np.full((n_shards, s_b, c), n, np.int32)
+        for d, (lo, s) in enumerate(shards):
+            if w not in per_shard[d]:
+                continue  # empty per-device bucket: stays all-PAD
+            b = per_shard[d][w]
+            sa, sn = s.bucket_adj[b], s.bucket_nodes[b]
+            nb = sa.shape[0]
+            adj[d, :nb] = sa                    # neighbor ids already global
+            # owned nodes: local sorted ids -> global; pads -> global dump
+            nodes[d, :nb] = np.where(sn == s.n_nodes, n, sn + lo)
+        bucket_adj.append(adj)
+        bucket_nodes.append(nodes)
+    return ShardedGraphSlabs(
+        bucket_adj=tuple(bucket_adj),
+        bucket_nodes=tuple(bucket_nodes),
+        node_starts=np.array([lo for lo, _ in ranges], np.int64),
+        node_counts=np.array([hi - lo for lo, hi in ranges], np.int64),
         n_nodes=n,
         sigma=sigma,
     )

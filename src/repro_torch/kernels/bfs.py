@@ -52,6 +52,7 @@ __all__ = [
     "bfs_step_sell_ref",
     "cut_to_live",
     "ell_live_widths",
+    "level_sync",
 ]
 
 #: Launches of the BFS kernels in this process, counted where each kernel
@@ -329,7 +330,8 @@ def _launch_sell_bucket(adj: torch.Tensor, nodes: torch.Tensor,
     lib = _graph_lib()
     n_slices, width, c = adj.shape
     ld = dist.shape[1] if dist.ndim == 2 else 1
-    split = node_split(width, c, n_slices, k_tile, dist.element_size())
+    split = node_split(width, c, n_slices, k_tile, dist.element_size(),
+                       "bfs")
     err = lib.repro_bfs_sell_bucket(
         adj.data_ptr(), nodes.data_ptr(), dist.data_ptr(), out.data_ptr(),
         level, n_slices, width, c, ld, k_tile, dist.shape[0] - 1,
@@ -371,15 +373,21 @@ def bfs_step_sell(bucket_adj, bucket_nodes, dist: torch.Tensor,
     return out
 
 
-def _bfs_sell_drive(step, bucket_adj, bucket_nodes, n_nodes: int, source,
-                    max_levels) -> torch.Tensor:
+def level_sync(step, n_nodes: int, source, device,
+               max_levels=None) -> torch.Tensor:
+    """The level loop of the SELL drives around ``step(dist, level)``,
+    which returns the new ``(n + 1[, k])`` distances of one level: the
+    state starts INF with 0 at each source (one column per source of a
+    sequence) and advances until a level changes nothing (``torch.equal``,
+    one sync a level) or ``max_levels`` is hit.  Shared by
+    :func:`bfs_sell` and the sharded drive
+    (:func:`repro_torch.kernels.sell_shard.bfs_sell_sharded`).  Returns
+    (n,) distances for a scalar source, (n, k) for k."""
     scalar = np.ndim(source) == 0
     sources = np.atleast_1d(np.asarray(source, np.int64))
     if sources.size and not (0 <= sources.min() and sources.max() < n_nodes):
         raise ValueError(f"sources {sources.tolist()} out of range "
                          f"[0, {n_nodes})")
-    device = bucket_nodes[0].device if bucket_nodes else torch.device("cpu")
-    bucket_adj = tuple(sell_core.graph_storage(a) for a in bucket_adj)
     k = len(sources)
     if scalar:                                # single-column fast path
         dist = torch.full((n_nodes + 1,), INF, dtype=torch.int32,
@@ -391,11 +399,20 @@ def _bfs_sell_drive(step, bucket_adj, bucket_nodes, n_nodes: int, source,
         dist[torch.from_numpy(sources).to(device),
              torch.arange(k, device=device)] = 0
     for level in range(1, (max_levels or n_nodes) + 1):
-        new = step(bucket_adj, bucket_nodes, dist, level)
+        new = step(dist, level)
         if torch.equal(new, dist):
             break
         dist = new
     return dist[:n_nodes]
+
+
+def _bfs_sell_drive(step, bucket_adj, bucket_nodes, n_nodes: int, source,
+                    max_levels) -> torch.Tensor:
+    device = bucket_nodes[0].device if bucket_nodes else torch.device("cpu")
+    bucket_adj = tuple(sell_core.graph_storage(a) for a in bucket_adj)
+    return level_sync(
+        lambda dist, level: step(bucket_adj, bucket_nodes, dist, level),
+        n_nodes, source, device, max_levels)
 
 
 def bfs_sell(bucket_adj, bucket_nodes, n_nodes: int, source, *,

@@ -59,19 +59,20 @@ KERNELS = {
             [_P, _P, _P, _P, _I, _I64, _I64, _I64, _I64, _I, _I64, _I, _I,
              _P], _I),
         # adj, nodes, contrib, consts, out, n_slices, width, c, ld, k_tile,
-        # n_nodes, threads, parts, stream
+        # n_nodes, threads, parts, is_double, stream
         "repro_pagerank_sell_bucket": (
             [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I64, _I, _I,
-             _P], _I),
+             _I, _P], _I),
         # dist, frontier, level, n_nodes, threads, stream
         "repro_bfs_frontier": ([_P, _P, _I, _I64, _I, _P], _I),
         # adj, live, frontier, dist, out, level, n_nodes, width, threads,
         # stream
         "repro_bfs_ell_step": ([_P, _P, _P, _P, _P, _I, _I64, _I64, _I, _P],
                                _I),
-        # adj, live, contrib, consts, out, n_nodes, width, threads, stream
-        "repro_pagerank_ell_step": ([_P, _P, _P, _P, _P, _I64, _I64, _I, _P],
-                                    _I),
+        # adj, live, contrib, consts, out, n_nodes, width, threads,
+        # is_double, stream
+        "repro_pagerank_ell_step": (
+            [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P], _I),
         "repro_graph_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
     "spmv_ell": ("spmv_ell.cu", {

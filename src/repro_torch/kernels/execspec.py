@@ -7,6 +7,12 @@ call runs.  ``device=None`` means the card (``"cuda"``); the CPU runs only
 when a caller asks for it (``device="cpu"``), and a CUDA request on a
 machine without a GPU raises instead of falling back.
 
+``placement`` spreads a call over a mesh of devices, as the reference's
+does: an int ``n`` is the first ``n`` visible CUDA devices (too few
+raises when the call resolves it), a device sequence names them and may
+repeat one (``("cuda:0",) * 4``, ``("cpu",) * 4``), and a
+:class:`~repro_torch.kernels.sell_shard.ShardMesh` is taken as it is.
+
 The reference's deprecated per-function keyword aliases are not carried
 over: the port's entry points take ``spec=`` only.
 """
@@ -47,7 +53,11 @@ class ExecSpec:
                ``"auto"`` | ``"sell"`` (the routing matrix packed to SELL
                slabs, run as ``mode`` says) | ``"dense"`` (materialized,
                one ``torch.matmul``).
-    placement: ``None`` or ``1``; multi-GPU placement is ROADMAP A10.
+    placement: ``None`` (one device), an ``int`` device count, a device
+               sequence or a ``ShardMesh``: ``ops`` runs a placement of
+               more than one device on the sharded drives
+               (:mod:`repro_torch.kernels.sell_shard`), the result on the
+               mesh's first device.
     vl:        SELL slice height C, the effective vector length (the
                ELLPACK graph kernels ignore it: blocks are 256 nodes).
     sigma:     sorting-window height (``None`` -> the packer default 8*C).
@@ -85,18 +95,47 @@ class ExecSpec:
     cache: Any = None
 
     def __post_init__(self) -> None:
-        if self.placement not in (None, 1):
-            raise NotImplementedError(
-                f"placement={self.placement!r}: multi-GPU execution is not "
-                "ported yet (ROADMAP A10); use None or 1")
+        p = self.placement
+        if p is None or isinstance(p, int) and not isinstance(p, bool):
+            return
+        from repro_torch.kernels.sell_shard import ShardMesh
+
+        if isinstance(p, ShardMesh):
+            return
+        if isinstance(p, (str, torch.device)) or not hasattr(p, "__len__"):
+            raise TypeError(
+                f"placement must be None, an int, a ShardMesh or a sequence "
+                f"of devices, got {p!r}")
+        object.__setattr__(self, "placement", tuple(p))   # hashable
+
+    def resolved_placement(self):
+        """The placement as a :class:`~repro_torch.kernels.sell_shard
+        .ShardMesh` (the null mesh for None or one device)."""
+        from repro_torch.kernels.sell_shard import ShardMesh, device_mesh
+
+        p = self.placement
+        if p is None:
+            return ShardMesh()
+        if isinstance(p, ShardMesh):
+            return p
+        if isinstance(p, int):
+            return device_mesh(p)
+        return device_mesh(len(p), p)
 
     def n_devices(self) -> int:
-        """Device count implied by the placement (always 1 in the port)."""
-        return 1
+        """Device count implied by the placement (1 when unplaced); an int
+        placement is not checked against the visible devices here."""
+        p = self.placement
+        if p is None:
+            return 1
+        if isinstance(p, int):
+            return max(1, p)
+        return max(1, len(p))
 
     def coalesce_key(self) -> tuple:
         """Hashable identity for service coalescing groups (excludes the
-        process-local ``cache``), shaped like the reference's key."""
+        process-local ``cache``), shaped like the reference's key: the
+        placement folds to its device count, so equal meshes coalesce."""
         return (
             self.layout, self.mode, self.dispatch, self.n_devices(), self.vl,
             self.sigma, self.w_block, self.k_block, self.col_tile,

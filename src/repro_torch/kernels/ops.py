@@ -32,6 +32,15 @@ kernels:
 * ``fft`` — :func:`repro_torch.kernels.fft.fft_stockham`, kernel B7 (one
   launch in its in-block form, two in its two-pass form).
 
+A ``spec.placement`` of more than one device runs ``spmm`` / ``spmv`` /
+``bfs`` / ``pagerank`` on the sharded drives of
+:mod:`repro_torch.kernels.sell_shard`, as the reference does: SpMM with
+its RHS columns sharded when the padded k covers a whole k tile a device,
+with its rows sharded otherwise; graphs node-partitioned (SELL layout
+only).  The layouts are packed once per operand and memoized in the
+TuneCache (``("shard", ...)`` / ``("shard-graph", ...)``); the result
+lands on the mesh's first device.
+
 ``spmv``, ``spmm`` and ``moe_dispatch`` refuse an X with fewer rows than
 the operand has columns before anything is uploaded, planned or launched:
 the kernels gather ``X[col]`` unchecked (the reference clamps the gather
@@ -45,9 +54,11 @@ when X outgrows VMEM; B1 keeps nothing resident on Hopper (X is gathered
 through L2), so there is no capacity limit to fall back from, and on an
 H100 B2 was slower than B1 on every shape measured, banded and random, X
 in L2 and far above it (``PERF.md``, ``chip_smoke.py``'s timing phase).
-Not ported yet, and refused with ``NotImplementedError`` rather than
-substituted: multi-GPU placement (ROADMAP A10).  As in the reference,
-``mode="stream"`` with an ELLPACK operand run by B6 is a ``ValueError``.
+As in the reference these are ``ValueError``: ``mode="stream"`` with an
+ELLPACK operand run by B6 or with a placement, an ELLPACK operand or a
+``layout="ell"`` graph with a placement, and ``fft`` with a placement.
+``moe_dispatch`` runs on one device whatever the placement, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -68,6 +79,7 @@ from repro_torch.analysis.preflight import (
     plan_pagerank_ell,
     plan_pagerank_sell,
     plan_spmm_sell,
+    plan_spmm_sell_sharded,
     plan_spmm_sell_stream,
     plan_spmv_ell,
     stream_bucket_rows,
@@ -78,11 +90,15 @@ from repro_torch.core.autotune import (
     tune_sell_layout,
 )
 from repro_torch.core.sdv import h100_machine
-from repro_torch.graphs.gen import EllpackGraph, graph_to_sell_slabs
+from repro_torch.graphs.gen import (
+    EllpackGraph,
+    graph_to_sell_slabs,
+    shard_graph_slabs,
+)
 from repro_torch.kernels import bfs as bfs_k
 from repro_torch.kernels import fft as fft_k
 from repro_torch.kernels import pagerank as pr_k
-from repro_torch.kernels import sell_core
+from repro_torch.kernels import sell_core, sell_shard, uploads
 from repro_torch.kernels import spmv as spmv_k
 from repro_torch.kernels.execspec import ExecSpec, resolve_device
 from repro_torch.obs import Stopwatch
@@ -94,6 +110,7 @@ from repro_torch.sparse.formats import (
     SellSlabs,
     csr_to_sell_slabs,
     sell_to_slabs,
+    shard_slabs,
     stream_column_map,
     to_csr,
 )
@@ -172,6 +189,68 @@ def _normalize_matrix(matrix, spec: ExecSpec) -> SellSlabs | EllpackMatrix:
     return matrix
 
 
+def _placed(spec: ExecSpec):
+    """``(mesh, device)`` of a call: the spec's mesh (None for one device)
+    and where the result lands, the mesh's first device or
+    ``spec.device``.  A mesh and a ``spec.device`` of another type are
+    refused."""
+    if spec.n_devices() <= 1:
+        return None, resolve_device(spec.device)
+    mesh = spec.resolved_placement()
+    if spec.device is not None and \
+            resolve_device(spec.device).type != mesh[0].type:
+        raise ValueError(f"placement on {mesh[0].type} devices but "
+                         f"device={spec.device!r}")
+    return mesh, mesh[0]
+
+
+def _signature(obj):
+    """``obj``'s content signature, computed once per object (kept in its
+    :mod:`uploads` entry)."""
+    from repro_torch.service.tunecache import operand_signature
+
+    entry = uploads.entry(obj)
+    if "signature" not in entry:
+        entry["signature"] = operand_signature(obj)
+    return entry["signature"]
+
+
+def _shard_cached(slabs: SellSlabs, n_shards: int, cache):
+    """Row-partition slabs for a mesh, memoized like repacks: the layout
+    sits in the TuneCache's packed-layout LRU under the content signature
+    and the shard count (:func:`_repack_cached`'s pay-once protocol)."""
+    cache = cache if cache is not None else default_tune_cache()
+    sig = _signature(slabs)
+    key = ("shard", sig.key, slabs.c, int(slabs.sigma or 0), int(n_shards))
+    sharded = cache.packed_get(key)
+    if sharded is None:
+        sharded = shard_slabs(slabs, n_shards)
+        cache.packed_put(key, sharded)
+    return sharded
+
+
+def _shard_graph_cached(rgraph: EllpackGraph, vl: int, sigma: int | None,
+                        n_shards: int, cache):
+    """Node-partitioned graph slabs for a mesh, memoized (see
+    :func:`_shard_cached`)."""
+    cache = cache if cache is not None else default_tune_cache()
+    sig = _signature(rgraph)
+    key = ("shard-graph", sig.key, int(vl), int(sigma or 0), int(n_shards))
+    sg = cache.packed_get(key)
+    if sg is None:
+        sg = shard_graph_slabs(rgraph, c=vl, n_shards=n_shards, sigma=sigma)
+        cache.packed_put(key, sg)
+    return sg
+
+
+def _sharded_graph_meta(sg) -> SlabMeta:
+    """One device's bounds-scanned :class:`SlabMeta` of sharded graph slabs:
+    each device runs its slices of every union bucket against the whole
+    replicated state, which is what ``plan_bfs_sell`` /
+    ``plan_pagerank_sell`` price."""
+    return SlabMeta.from_sharded(sg, check_bounds=True)
+
+
 # ---------------------------------------------------------------------------
 # SpMM / SpMV
 # ---------------------------------------------------------------------------
@@ -201,12 +280,13 @@ def _run_profiled(op: str, plan, thunk, device: torch.device):
 
 
 #: id(operand) -> {"meta": bounds-scanned SlabMeta, device: uploaded
-#: tensors}, for SELL slabs and ELLPACK matrices (an ELLPACK matrix's
+#: tensors, ...}, for SELL slabs and ELLPACK matrices (an ELLPACK matrix's
 #: tensors also hold its live widths on that device, and the entry
-#: ``"live"`` their length and range).  Packed operands are immutable, so
-#: one operand's index scan and uploads are paid once however often it is
-#: called, whichever schedule runs it; an entry dies with its object.
-_PREPARED: dict[int, dict] = {}
+#: ``"live"`` their length and range): the port's one memo of an operand's
+#: scans and uploads (:mod:`uploads`), shared with the sharded drives, so
+#: they are paid once however often it is called, whichever schedule runs
+#: it; an entry dies with its object.
+_PREPARED = uploads.ENTRIES
 
 
 def _prepared(operand: SellSlabs | EllpackMatrix, device: torch.device):
@@ -214,23 +294,23 @@ def _prepared(operand: SellSlabs | EllpackMatrix, device: torch.device):
     ``device``, computed at the first call on this object: ``(cols, vals,
     rows)`` bucket tuples for slabs, ``(cols, vals, live)`` for an
     ELLPACK matrix, ``live`` its :func:`repro_torch.kernels.spmv
-    .live_widths` computed on ``device``."""
-    entry = _PREPARED.get(id(operand))
-    if entry is None:
-        meta = (SlabMeta.from_ellpack(operand, check_bounds=True)
-                if isinstance(operand, EllpackMatrix)
-                else SlabMeta.from_slabs(operand, check_bounds=True))
-        entry = {"meta": meta}
-        _PREPARED[id(operand)] = entry
-        weakref.finalize(operand, _PREPARED.pop, id(operand), None)
+    .live_widths` computed on ``device`` (``device=None``: the metadata
+    alone, nothing uploaded)."""
+    entry = uploads.entry(operand)
+    if "meta" not in entry:
+        entry["meta"] = (SlabMeta.from_ellpack(operand, check_bounds=True)
+                         if isinstance(operand, EllpackMatrix)
+                         else SlabMeta.from_slabs(operand, check_bounds=True))
+    if device is None:
+        return entry["meta"], None
+    if not isinstance(operand, EllpackMatrix):
+        return entry["meta"], uploads.on_device(operand, device)
     if device not in entry:
         tensors = operand.to_device(device)
-        if isinstance(operand, EllpackMatrix):
-            live = spmv_k.live_widths(tensors[0])
-            if "live" not in entry:
-                entry["live"] = LiveWidthMeta.from_array(live)
-            tensors = (*tensors, live)
-        entry[device] = tensors
+        live = spmv_k.live_widths(tensors[0])
+        if "live" not in entry:
+            entry["live"] = LiveWidthMeta.from_array(live)
+        entry[device] = (*tensors, live)
     return entry["meta"], entry[device]
 
 
@@ -303,6 +383,40 @@ def _spmm_slabs(slabs: SellSlabs, x: torch.Tensor, *, k_block: int,
         col_tile=ct, row_tile=rt, column_map=column_map), x.device)
 
 
+def _spmm_sharded(slabs: SellSlabs, x: torch.Tensor, spec: ExecSpec, mesh,
+                  *, k_block: int) -> torch.Tensor:
+    """A slab SpMM across the spec's mesh (X on its first device).  When
+    the padded k covers a whole k tile a device, the RHS columns shard and
+    the operand replicates (:func:`sell_shard.spmm_sell_rhs_sharded`);
+    otherwise the rows shard (:func:`sell_shard.spmm_sell_sharded`, each
+    device's X window, the row blocks concatenated).  Each path plans its
+    per-device launches first."""
+    if spec.mode == "stream":
+        raise ValueError(
+            "mode='stream' and a multi-device placement cannot combine: the "
+            "streaming schedule is a single-device pipeline; drop the "
+            "placement or use mode='auto'")
+    ndev = len(mesh)
+    k = int(x.shape[1])
+    kp = sell_core.k_tile_for(k, k_block)
+    dtype = str(x.dtype).removeprefix("torch.")
+    meta, _ = _prepared(slabs, None)
+    if sell_core.padded_k(k, k_block) >= ndev * kp:
+        plan = plan_spmm_sell(meta, k=max(1, -(-k // ndev)), x_dtype=dtype,
+                              k_block=k_block).raise_if_invalid()
+        return _run_profiled("spmm", plan, lambda: sell_shard
+                             .spmm_sell_rhs_sharded(slabs, x, mesh=mesh,
+                                                    k_block=k_block),
+                             x.device)
+    sharded = _shard_cached(slabs, ndev, spec.cache)
+    plan = plan_spmm_sell_sharded(
+        meta, k=k, x_dtype=dtype, n_devices=ndev, k_block=k_block,
+        window_cols=sharded.window_cols,
+        shard=SlabMeta.from_sharded(sharded)).raise_if_invalid()
+    return _run_profiled("spmm", plan, lambda: sell_shard.spmm_sell_sharded(
+        sharded, x, mesh=mesh, k_block=k_block), x.device)
+
+
 def _check_x_rows(x, n_cols: int, what: str) -> None:
     """Refuse an X shorter than the operand's ``n_cols``: B1, B2 and B6
     would gather ``X[col]`` past its end.  Checked on the caller's array,
@@ -319,6 +433,13 @@ def _as_rhs(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def _refuse_ellpack_placement(mesh) -> None:
+    if mesh is not None:
+        raise ValueError(
+            "multi-device placement requires a SELL slab layout; ELLPACK "
+            "operands only run the single-device uniform-width kernel")
 
 
 def _check_mode(mode: str) -> None:
@@ -364,10 +485,13 @@ def spmm(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
     :class:`EllpackMatrix` at ``C == spec.vl`` runs kernel B6 (the paper's
     baseline): its k-column form, one launch a k tile (k = 32 is one
     launch), each column bit-equal to a one-column B6 walk.  Returns Y of
-    shape (n_rows, k) as a tensor on ``spec.device``.
+    shape (n_rows, k) as a tensor on ``spec.device``.  A multi-device
+    ``spec.placement`` runs the sharded drives (RHS-sharded when k covers a
+    k tile a device, row-sharded otherwise), the result on the mesh's
+    first device.
     """
     spec = spec if spec is not None else ExecSpec()
-    device = resolve_device(spec.device)
+    mesh, device = _placed(spec)
     _check_x_rows(x, getattr(matrix, "n_cols", 0), "spmm")
     x = _as_rhs(x, device)
     if x.ndim != 2:
@@ -377,8 +501,11 @@ def spmm(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
         else min(8, sell_core.pow2_ceil(x.shape[1]))
     matrix = _normalize_matrix(matrix, spec)
     if isinstance(matrix, SellSlabs):
+        if mesh is not None:
+            return _spmm_sharded(matrix, x, spec, mesh, k_block=kb)
         return _spmm_slabs(matrix, x, k_block=kb, mode=spec.mode,
                            col_tile=spec.col_tile, row_tile=spec.row_tile)
+    _refuse_ellpack_placement(mesh)
     return _spmm_ellpack(matrix, x, spec)
 
 
@@ -393,10 +520,11 @@ def spmv(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
     kernel B6.  A pre-packed matrix whose C disagrees with ``spec.vl`` is
     repacked once to SELL slabs and the layout is memoized in the
     TuneCache (``spec.cache``, defaulting to the process-wide
-    :func:`default_tune_cache`).
+    :func:`default_tune_cache`).  A multi-device ``spec.placement`` runs
+    the row-sharded drive.
     """
     spec = spec if spec is not None else ExecSpec()
-    device = resolve_device(spec.device)
+    mesh, device = _placed(spec)
     _check_x_rows(x, getattr(matrix, "n_cols", 0), "spmv")
     x = _as_rhs(x, device)
     if x.ndim == 2:
@@ -404,9 +532,13 @@ def spmv(matrix: CSRMatrix | EllpackMatrix | SellCSigmaMatrix | SellSlabs,
     _check_mode(spec.mode)
     matrix = _normalize_matrix(matrix, spec)
     if isinstance(matrix, SellSlabs):
+        if mesh is not None:
+            return _spmm_sharded(matrix, x[:, None], spec, mesh,
+                                 k_block=1)[:, 0]
         return _spmm_slabs(matrix, x[:, None], k_block=1, mode=spec.mode,
                            col_tile=spec.col_tile,
                            row_tile=spec.row_tile)[:, 0]
+    _refuse_ellpack_placement(mesh)
     return _spmm_ellpack(matrix, x[:, None], spec)[:, 0]
 
 
@@ -490,17 +622,11 @@ def moe_dispatch(routing: CSRMatrix | SellSlabs, x, *,
 _PREPARED_GRAPHS: dict[int, dict] = {}
 
 
-def _prepared_graph(graph: EllpackGraph, spec: ExecSpec, device, plan_ids):
-    """The reverse graph of ``graph`` in ``spec.layout``, bounds-scanned and
-    uploaded to ``device``: ``(meta, tensors, out_degree)``, ``tensors``
-    ``(adj, nodes)`` bucket tuples for SELL and ``(radj, live)`` for
-    ELLPACK, ``live`` its :func:`repro_torch.kernels.bfs.ell_live_widths`
-    computed on ``device``.
-
-    The forward neighbour ids are planned first (``plan_ids``, the
-    ELLPACK plan of the calling op), so a corrupt id is refused with a
-    :class:`LaunchPlanError` before the transpose indexes with it.
-    """
+def _graph_entry(graph: EllpackGraph, plan_ids) -> dict:
+    """``graph``'s entry of :data:`_PREPARED_GRAPHS`, its forward ids
+    planned (``plan_ids``, the ELLPACK plan of the calling op: a corrupt id
+    is refused with a :class:`LaunchPlanError` before the transpose indexes
+    with it) and its reverse graph made once."""
     if not isinstance(graph, EllpackGraph):
         raise TypeError(f"expected an EllpackGraph, got {type(graph).__name__}")
     entry = _PREPARED_GRAPHS.get(id(graph))
@@ -512,6 +638,31 @@ def _prepared_graph(graph: EllpackGraph, spec: ExecSpec, device, plan_ids):
     plan_ids(entry["ids"]).raise_if_invalid()
     if "reverse" not in entry:
         entry["reverse"] = graph.transpose()
+    return entry
+
+
+def _sharded_graph(graph: EllpackGraph, spec: ExecSpec, mesh, plan_ids):
+    """The node-partitioned reverse graph of ``graph`` for ``mesh`` and its
+    one-device :class:`SlabMeta` (SELL layout only, as in the reference)."""
+    if spec.layout != "sell":
+        raise ValueError(
+            "multi-device placement requires layout='sell' (the ELLPACK "
+            "drive has no sharded path)")
+    sg = _shard_graph_cached(_graph_entry(graph, plan_ids)["reverse"],
+                             spec.vl, spec.sigma, len(mesh), spec.cache)
+    return sg, _sharded_graph_meta(sg)
+
+
+def _prepared_graph(graph: EllpackGraph, spec: ExecSpec, device, plan_ids):
+    """The reverse graph of ``graph`` in ``spec.layout``, bounds-scanned and
+    uploaded to ``device``: ``(meta, tensors, out_degree)``, ``tensors``
+    ``(adj, nodes)`` bucket tuples for SELL and ``(radj, live)`` for
+    ELLPACK, ``live`` its :func:`repro_torch.kernels.bfs.ell_live_widths`
+    computed on ``device``.
+
+    The forward neighbour ids are planned first (:func:`_graph_entry`).
+    """
+    entry = _graph_entry(graph, plan_ids)
     rgraph = entry["reverse"]
     key = (spec.layout, spec.vl, spec.sigma, device)
     if key not in entry:
@@ -537,7 +688,7 @@ def _graph_spec(spec: ExecSpec | None) -> tuple[ExecSpec, torch.device]:
     if spec.layout not in ("ell", "sell"):
         raise ValueError(
             f"unknown layout {spec.layout!r}: expected 'ell' or 'sell'")
-    return spec, resolve_device(spec.device)
+    return spec, _placed(spec)[1]
 
 
 def bfs(graph: EllpackGraph, source=0, *,
@@ -555,8 +706,18 @@ def bfs(graph: EllpackGraph, source=0, *,
     SELL layout the whole stack advances through one launch set per level,
     on ELLPACK the sources run one by one.  Returns a tensor on
     ``spec.device``.
+
+    A multi-device ``spec.placement`` (SELL layout only) node-partitions
+    the reverse graph and, every level, unions the shards' frontiers by an
+    element-wise minimum on the mesh's first device, where the result
+    lands (:func:`sell_shard.bfs_sell_sharded`).
     """
     spec, device = _graph_spec(spec)
+    if mesh := _placed(spec)[0]:
+        sg, meta = _sharded_graph(graph, spec, mesh, plan_bfs_ell)
+        plan = plan_bfs_sell(meta, k=int(np.size(source))).raise_if_invalid()
+        return _run_profiled("bfs", plan, lambda: sell_shard.bfs_sell_sharded(
+            sg, source, mesh=mesh), mesh[0])
     meta, tensors, _ = _prepared_graph(graph, spec, device, plan_bfs_ell)
     n = graph.n_nodes
     if spec.layout == "sell":
@@ -576,9 +737,11 @@ def bfs(graph: EllpackGraph, source=0, *,
 
 
 def pagerank(graph: EllpackGraph, *, damping=0.85, iters=20,
-             spec: ExecSpec | None = None) -> torch.Tensor:
-    """PageRank scores via the pull-style kernels on the reverse graph,
-    float64.
+             spec: ExecSpec | None = None,
+             dtype: torch.dtype = pr_k.RANK_DTYPE) -> torch.Tensor:
+    """PageRank scores via the pull-style kernels on the reverse graph, in
+    ``dtype``: float64 (the reference's x64 path) or float32 (its x64-off
+    path; B3 and B5 have a form for each).
 
     ``spec.layout = "sell"`` runs kernel B3 over in-degree-sorted,
     width-bucketed reverse adjacency; the default ``"ell"`` runs kernel B5.
@@ -587,30 +750,47 @@ def pagerank(graph: EllpackGraph, *, damping=0.85, iters=20,
     per configuration; on the SELL layout every power step is one launch
     set for all k columns, on ELLPACK the configurations run one by one.
     Returns a tensor on ``spec.device``.
+
+    A multi-device ``spec.placement`` (SELL layout only) node-partitions
+    the reverse graph; every power step each shard writes its own nodes'
+    new ranks and the shards' ranks are summed on the mesh's first device,
+    where the result lands (:func:`sell_shard.pagerank_sell_sharded`).
     """
     spec, device = _graph_spec(spec)
+    k = max(int(np.size(damping)), int(np.size(iters)))
+    rank_dtype = str(dtype).removeprefix("torch.")
+    if mesh := _placed(spec)[0]:
+        sg, meta = _sharded_graph(graph, spec, mesh, plan_pagerank_ell)
+        plan = plan_pagerank_sell(meta, k=k,
+                                  dtype=rank_dtype).raise_if_invalid()
+        deg = torch.from_numpy(graph.out_degree.astype(np.float64))
+        return _run_profiled(
+            "pagerank", plan, lambda: sell_shard.pagerank_sell_sharded(
+                sg, deg, mesh=mesh, damping=damping, iters=iters,
+                dtype=dtype), mesh[0])
     meta, tensors, deg = _prepared_graph(graph, spec, device,
                                          plan_pagerank_ell)
     n = graph.n_nodes
     if spec.layout == "sell":
-        plan = plan_pagerank_sell(
-            meta, k=max(int(np.size(damping)), int(np.size(iters))),
-        ).raise_if_invalid()
+        plan = plan_pagerank_sell(meta, k=k,
+                                  dtype=rank_dtype).raise_if_invalid()
         radj, nodes = tensors
         return _run_profiled("pagerank", plan, lambda: pr_k.pagerank_sell(
-            radj, nodes, deg, n, damping=damping, iters=iters), device)
+            radj, nodes, deg, n, damping=damping, iters=iters, dtype=dtype),
+            device)
     plan = plan_pagerank_ell(
-        meta, live=_PREPARED_GRAPHS[id(graph)]["live"]).raise_if_invalid()
+        meta, dtype=rank_dtype,
+        live=_PREPARED_GRAPHS[id(graph)]["live"]).raise_if_invalid()
     radj, live = tensors
     live = _handed_live(live)
     if np.ndim(damping) == 0 and np.ndim(iters) == 0:
         return _run_profiled("pagerank", plan, lambda: pr_k.pagerank(
             radj, deg, damping=float(damping), iters=int(iters),
-            vl=spec.vl, live_width=live), device)
+            vl=spec.vl, live_width=live, dtype=dtype), device)
     dampings, iters_arr = pr_k.broadcast_configs(damping, iters)
     return torch.stack([
         pr_k.pagerank(radj, deg, damping=float(d), iters=int(it),
-                      vl=spec.vl, live_width=live)
+                      vl=spec.vl, live_width=live, dtype=dtype)
         for d, it in zip(dampings, iters_arr)], dim=1)
 
 
@@ -640,9 +820,14 @@ def fft(signal_re, signal_im=None, *,
     ``spec.b_block`` caps the signals one block of kernel B7 holds (capped
     again to the shared memory a block may claim; the result does not
     depend on it).  Returns ``(re, im)`` tensors of shape (batch, n) on
-    ``spec.device``.
+    ``spec.device``.  There is no sharded FFT: a multi-device placement is
+    refused, as in the reference.
     """
     spec = spec if spec is not None else ExecSpec()
+    if spec.n_devices() > 1:
+        raise ValueError(
+            "fft has no sharded execution path; use a single-device "
+            "placement")
     device = resolve_device(spec.device)
     re = _as_signal(signal_re, device)
     im = torch.zeros_like(re) if signal_im is None \
@@ -667,7 +852,7 @@ def fft(signal_re, signal_im=None, *,
 
 def pack_tuned(
     matrix: CSRMatrix, machine=None, cache=None, device=None,
-    candidates_c=None, signature=None,
+    candidates_c=None, signature=None, n_devices: int = 1,
 ) -> tuple[SellSlabs, SellTuneResult]:
     """Autotune (C, sigma, k_block) for this matrix and pack it.
 
@@ -677,7 +862,8 @@ def pack_tuned(
     (default :func:`repro_torch.core.sdv.h100_machine`); the packed slabs
     are memoized by (signature, C, sigma).
     ``signature`` skips re-hashing an operand the caller already
-    fingerprinted.
+    fingerprinted.  ``n_devices > 1`` tunes for the row-sharded drive (the
+    busiest shard's rows, keyed ``|dev{n}``).
     """
     base_key = None
     machine = machine if machine is not None else h100_machine()
@@ -685,16 +871,18 @@ def pack_tuned(
         base_key = cache.sell_key(
             "spmv", signature if signature is not None else matrix,
             device=device_tag(device), dtype=str(matrix.data.dtype),
-            machine=machine)
+            machine=machine, n_devices=n_devices)
     return tune_and_pack(
         matrix.row_lengths,
         lambda t: csr_to_sell_slabs(matrix, c=t.c, sigma=t.sigma),
         candidates_c=candidates_c, cache=cache, base_key=base_key,
+        n_devices=n_devices,
     )
 
 
 def cached_tune_sell(
     row_lengths, candidates_c=None, cache=None, base_key: str | None = None,
+    n_devices: int = 1,
 ) -> SellTuneResult:
     """The one cached-tune protocol: a narrowed candidate sweep lives under
     a ``|cands...``-suffixed key and never masquerades as a full-sweep
@@ -708,18 +896,19 @@ def cached_tune_sell(
                 return full
     return tune_sell_layout(
         row_lengths, candidates_c=candidates_c, cache=cache, cache_key=key,
+        n_devices=n_devices,
     )
 
 
 def tune_and_pack(
     row_lengths, pack_fn, candidates_c=None, cache=None,
-    base_key: str | None = None,
+    base_key: str | None = None, n_devices: int = 1,
 ):
     """Cached tune + memoized pack: ``pack_fn(tuned)`` builds the layout for
     the winning (C, sigma), memoized under ``(base_key, C, sigma)``."""
     tuned = cached_tune_sell(
         row_lengths, candidates_c=candidates_c, cache=cache,
-        base_key=base_key,
+        base_key=base_key, n_devices=n_devices,
     )
     if cache is not None and base_key is not None:
         packed_key = (base_key, tuned.c, tuned.sigma)

@@ -22,7 +22,9 @@ source (``csrc/graph_step.cu``):
 
 The contributions, the dangling mass and the constants are plain torch ops
 on the device, as the JAX package computes them outside Pallas too.  Ranks
-are float64 (the reference's x64 path).  On CUDA tensors the steps launch
+are float64 by default (the reference's x64 path, :data:`RANK_DTYPE`) or
+float32 (its x64-off path): the drives take ``dtype=``, and B3 and B5 have
+a form for each.  On CUDA tensors the steps launch
 their kernel or raise; on CPU tensors, and only there, they run their plain
 PyTorch versions (:func:`pagerank_step_ref`, :func:`pagerank_step_sell_ref`).
 """
@@ -57,21 +59,32 @@ __all__ = [
     "pagerank_step_ref",
     "pagerank_step_sell",
     "pagerank_step_sell_ref",
+    "power_iteration",
 ]
 
 #: Launches of the PageRank kernels in this process, counted where each
 #: kernel is launched and nowhere else: ``pagerank_step_sell`` (B3, one per
-#: non-empty bucket per power step) and ``pagerank_step`` (B5, one per step).
-KERNEL_LAUNCHES = {"pagerank_step_sell": 0, "pagerank_step": 0}
+#: non-empty bucket per power step) and ``pagerank_step`` (B5, one per
+#: step), their float forms under the same names with ``_fp32``.
+KERNEL_LAUNCHES = {"pagerank_step_sell": 0, "pagerank_step": 0,
+                   "pagerank_step_sell_fp32": 0, "pagerank_step_fp32": 0}
 
+
+def _count(kernel: str, dtype: torch.dtype) -> None:
+    KERNEL_LAUNCHES[kernel if dtype == torch.float64
+                    else f"{kernel}_fp32"] += 1
+
+#: The default rank dtype (the reference's x64 path), and the dtypes the
+#: kernels have a form for.
 RANK_DTYPE = torch.float64
+RANK_DTYPES = (torch.float32, torch.float64)
 
 
 def _check_state(contrib: torch.Tensor, consts: torch.Tensor) -> None:
-    if contrib.dtype != RANK_DTYPE or consts.dtype != RANK_DTYPE:
+    if contrib.dtype not in RANK_DTYPES or consts.dtype != contrib.dtype:
         raise TypeError(
-            f"contributions and constants must be float64, got "
-            f"{contrib.dtype} / {consts.dtype}")
+            f"contributions and constants must be one dtype, float32 or "
+            f"float64, got {contrib.dtype} / {consts.dtype}")
     want = (3,) if contrib.ndim == 1 else (3, contrib.shape[1])
     if tuple(consts.shape) != want:
         raise ValueError(
@@ -111,9 +124,10 @@ def _launch_ell(radj: torch.Tensor, live: torch.Tensor, contrib: torch.Tensor,
         err = lib.repro_pagerank_ell_step(
             radj.data_ptr(), live.data_ptr(), contrib.data_ptr(),
             consts.data_ptr(), out.data_ptr(), n, width,
-            ELL_NODE_BLOCK_THREADS, torch.cuda.current_stream().cuda_stream)
+            ELL_NODE_BLOCK_THREADS, int(contrib.dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, lib, f"pagerank_step ({n} nodes, width {width})")
-    KERNEL_LAUNCHES["pagerank_step"] += 1
+    _count("pagerank_step", contrib.dtype)
 
 
 def pagerank_step(radj: torch.Tensor, contrib: torch.Tensor,
@@ -121,8 +135,8 @@ def pagerank_step(radj: torch.Tensor, contrib: torch.Tensor,
                   live_width: torch.Tensor | None = None) -> torch.Tensor:
     """One power-iteration step over ELLPACK reverse adjacency (n, width).
 
-    ``contrib`` is (n,) float64, ``consts`` = [(1-d)/n, d, dangling_mass/n]
-    as a (3,) float64 tensor on the same device.  On the card one launch
+    ``contrib`` is (n,) float64 or float32, ``consts`` = [(1-d)/n, d,
+    dangling_mass/n] as a (3,) tensor of its dtype on the same device.  On the card one launch
     of kernel B5: one thread a node walks its in-neighbours up to its
     warp's live width, several ids loaded before their contributions are
     gathered, and adds them in ascending slot order (bit-equal to a
@@ -158,15 +172,22 @@ def pagerank_step(radj: torch.Tensor, contrib: torch.Tensor,
     return out
 
 
+def _rank_dtype(dtype) -> torch.dtype:
+    if dtype not in RANK_DTYPES:
+        raise TypeError(f"rank dtype must be float32 or float64, got {dtype}")
+    return dtype
+
+
 def _pagerank_drive(step, radj, out_degree, damping: float, iters: int,
-                    vl: int, n_real) -> torch.Tensor:
+                    vl: int, n_real, dtype) -> torch.Tensor:
+    dtype = _rank_dtype(dtype)
     n0 = radj.shape[0]
     n = n_real if n_real is not None else n0
     device = radj.device
     real = torch.arange(n0, device=device) < n
-    rank = real.to(RANK_DTYPE) * (1.0 / n)
-    deg = out_degree.to(device=device, dtype=RANK_DTYPE)
-    head = torch.tensor([(1.0 - damping) / n, damping], dtype=RANK_DTYPE,
+    rank = real.to(dtype) * (1.0 / n)
+    deg = out_degree.to(device=device, dtype=dtype)
+    head = torch.tensor([(1.0 - damping) / n, damping], dtype=dtype,
                         device=device)
     for _ in range(int(iters)):
         contrib = torch.where(deg > 0, rank / torch.clamp(deg, min=1), 0.0)
@@ -179,11 +200,13 @@ def _pagerank_drive(step, radj, out_degree, damping: float, iters: int,
 def pagerank(radj: torch.Tensor, out_degree: torch.Tensor, *,
              damping: float = 0.85, iters: int = 20, vl: int = 256,
              n_real: int | None = None,
-             live_width: torch.Tensor | None = None) -> torch.Tensor:
+             live_width: torch.Tensor | None = None,
+             dtype: torch.dtype = RANK_DTYPE) -> torch.Tensor:
     """Full PageRank: ``iters`` power steps over the reverse adjacency.
 
     ``out_degree`` is the (n,) out-degree vector; ``n_real`` excludes
     padding nodes (rows beyond it) from the rank mass and the dangling sum.
+    ``dtype`` is the rank dtype, float64 or float32 (B5's two forms).
     The adjacency is brought to the kernel's (width, n) storage once, not
     once per step, and on the card its live widths are computed once a
     drive unless ``live_width`` hands them in.
@@ -193,15 +216,16 @@ def pagerank(radj: torch.Tensor, out_degree: torch.Tensor, *,
         live_width = ell_live_widths(radj)
     return _pagerank_drive(
         functools.partial(pagerank_step, live_width=live_width), radj,
-        out_degree, damping, iters, vl, n_real)
+        out_degree, damping, iters, vl, n_real, dtype)
 
 
 def pagerank_ref(radj: torch.Tensor, out_degree: torch.Tensor, *,
                  damping: float = 0.85, iters: int = 20, vl: int = 256,
-                 n_real: int | None = None) -> torch.Tensor:
+                 n_real: int | None = None,
+                 dtype: torch.dtype = RANK_DTYPE) -> torch.Tensor:
     """:func:`pagerank` driven by the plain step on any device."""
     return _pagerank_drive(pagerank_step_ref, sell_core.graph_storage(radj),
-                           out_degree, damping, iters, vl, n_real)
+                           out_degree, damping, iters, vl, n_real, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +243,7 @@ def pagerank_step_sell_ref(bucket_radj, bucket_nodes, contrib: torch.Tensor,
     out = torch.zeros_like(contrib)
     for radj, nodes in zip(bucket_radj, bucket_nodes):
         pulled = torch.zeros(tuple(radj.shape[:2]) + tuple(contrib.shape[1:]),
-                             dtype=RANK_DTYPE, device=contrib.device)
+                             dtype=contrib.dtype, device=contrib.device)
         for mask, g in sell_core.neighbour_chunks(radj, contrib):
             pulled += torch.where(mask, g, 0.0).sum(dim=2)
         res = _combine(pulled, consts)
@@ -238,16 +262,18 @@ def _launch_sell_bucket(radj: torch.Tensor, nodes: torch.Tensor,
     lib = _graph_lib()
     n_slices, width, c = radj.shape
     ld = contrib.shape[1] if contrib.ndim == 2 else 1
-    split = node_split(width, c, n_slices, k_tile, contrib.element_size())
+    split = node_split(width, c, n_slices, k_tile, contrib.element_size(),
+                       "pagerank")
     err = lib.repro_pagerank_sell_bucket(
         radj.data_ptr(), nodes.data_ptr(), contrib.data_ptr(),
         consts.data_ptr(), out.data_ptr(), n_slices, width, c, ld, k_tile,
         contrib.shape[0] - 1, split.threads, split.parts,
+        int(contrib.dtype == torch.float64),
         torch.cuda.current_stream().cuda_stream)
     _raise_on(err, lib, f"pagerank_step_sell ({n_slices}, {c}, {width}) "
               f"bucket, k_tile={k_tile}, {split.group} lanes a node, "
               f"{split.parts} parts")
-    KERNEL_LAUNCHES["pagerank_step_sell"] += 1
+    _count("pagerank_step_sell", contrib.dtype)
 
 
 def pagerank_step_sell(bucket_radj, bucket_nodes, contrib: torch.Tensor,
@@ -297,48 +323,61 @@ def broadcast_configs(damping, iters) -> tuple[np.ndarray, np.ndarray]:
             "be scalars or equal-length sequences") from None
 
 
-def _pagerank_sell_drive(step, bucket_radj, bucket_nodes, out_degree,
-                         n_nodes: int, damping, iters) -> torch.Tensor:
+def power_iteration(step, out_degree: torch.Tensor, n_nodes: int, damping,
+                    iters, dtype=RANK_DTYPE) -> torch.Tensor:
+    """The power iteration of the SELL drives around ``step(contrib,
+    consts)``, which returns the new ``(n + 1[, k])`` ranks of one power
+    step: ``contrib`` carries the dump slot's zero row, ``consts`` is (3,)
+    or (3, k).  Shared by :func:`pagerank_sell` and the sharded drive
+    (:func:`repro_torch.kernels.sell_shard.pagerank_sell_sharded`), so both
+    iterate alike.  Returns (n,) ranks for scalar configurations, (n, k)
+    for k."""
+    dtype = _rank_dtype(dtype)
     scalar = np.ndim(damping) == 0 and np.ndim(iters) == 0
     n = n_nodes
     device = out_degree.device
-    bucket_radj = tuple(sell_core.graph_storage(a) for a in bucket_radj)
     if scalar:                                # single-column fast path
-        rank = torch.full((n,), 1.0 / n, dtype=RANK_DTYPE, device=device)
-        deg = out_degree.to(RANK_DTYPE)
-        head = torch.tensor([(1.0 - damping) / n, damping], dtype=RANK_DTYPE,
+        rank = torch.full((n,), 1.0 / n, dtype=dtype, device=device)
+        deg = out_degree.to(dtype)
+        head = torch.tensor([(1.0 - damping) / n, damping], dtype=dtype,
                             device=device)
-        zero = torch.zeros(1, dtype=RANK_DTYPE, device=device)
+        zero = torch.zeros(1, dtype=dtype, device=device)
         for _ in range(int(iters)):
             contrib = torch.where(deg > 0, rank / torch.clamp(deg, min=1), 0.0)
             dangling = torch.where(deg == 0, rank, 0.0).sum()
             consts = torch.cat([head, (dangling / n).reshape(1)])
-            new = step(bucket_radj, bucket_nodes,
-                       torch.cat([contrib, zero]),  # dump slot contributes 0
-                       consts)
+            new = step(torch.cat([contrib, zero]), consts)  # dump slot: 0
             rank = new[:n]
         return rank
     dampings, iters_arr = broadcast_configs(damping, iters)
     k = len(dampings)
-    rank = torch.full((n, k), 1.0 / n, dtype=RANK_DTYPE, device=device)
-    deg = out_degree.to(RANK_DTYPE)[:, None]  # (n, 1) broadcasts over columns
-    d = torch.tensor(dampings, dtype=RANK_DTYPE, device=device)        # (k,)
+    rank = torch.full((n, k), 1.0 / n, dtype=dtype, device=device)
+    deg = out_degree.to(dtype)[:, None]       # (n, 1) broadcasts over columns
+    d = torch.tensor(dampings, dtype=dtype, device=device)             # (k,)
     head = torch.stack([(1.0 - d) / n, d])                            # (2, k)
-    zero_row = torch.zeros((1, k), dtype=RANK_DTYPE, device=device)
+    zero_row = torch.zeros((1, k), dtype=dtype, device=device)
     budget = torch.tensor(iters_arr, dtype=torch.int64, device=device)
     for t in range(1, int(iters_arr.max(initial=0)) + 1):
         contrib = torch.where(deg > 0, rank / torch.clamp(deg, min=1), 0.0)
         dangling = torch.where(deg == 0, rank, 0.0).sum(dim=0)       # (k,)
         consts = torch.cat([head, (dangling / n)[None]])              # (3, k)
-        new = step(bucket_radj, bucket_nodes,
-                   torch.cat([contrib, zero_row]),  # dump slot contributes 0
-                   consts)
+        new = step(torch.cat([contrib, zero_row]), consts)  # dump slot: 0
         rank = torch.where((t <= budget)[None, :], new[:n], rank)  # freeze
     return rank
 
 
+def _pagerank_sell_drive(step, bucket_radj, bucket_nodes, out_degree,
+                         n_nodes: int, damping, iters, dtype) -> torch.Tensor:
+    bucket_radj = tuple(sell_core.graph_storage(a) for a in bucket_radj)
+    return power_iteration(
+        lambda contrib, consts: step(bucket_radj, bucket_nodes, contrib,
+                                     consts),
+        out_degree, n_nodes, damping, iters, dtype)
+
+
 def pagerank_sell(bucket_radj, bucket_nodes, out_degree: torch.Tensor,
-                  n_nodes: int, *, damping=0.85, iters=20) -> torch.Tensor:
+                  n_nodes: int, *, damping=0.85, iters=20,
+                  dtype: torch.dtype = RANK_DTYPE) -> torch.Tensor:
     """Full PageRank over bucketed SELL reverse adjacency, batched configs.
 
     ``damping`` / ``iters`` may be scalars or sequences: configurations are
@@ -346,16 +385,17 @@ def pagerank_sell(bucket_radj, bucket_nodes, out_degree: torch.Tensor,
     run as one launch set per power step.  A column whose ``iters`` budget
     is exhausted freezes while longer ones keep iterating.  ``out_degree``
     is the (n_nodes,) degree vector in *original* node order, on the
-    device the step runs on; returns (n_nodes,) float64 ranks for scalar
-    inputs, (n_nodes, k) otherwise.
+    device the step runs on; returns (n_nodes,) ranks of ``dtype`` (float64
+    or float32) for scalar inputs, (n_nodes, k) otherwise.
     """
     return _pagerank_sell_drive(pagerank_step_sell, bucket_radj, bucket_nodes,
-                                out_degree, n_nodes, damping, iters)
+                                out_degree, n_nodes, damping, iters, dtype)
 
 
 def pagerank_sell_ref(bucket_radj, bucket_nodes, out_degree: torch.Tensor,
-                      n_nodes: int, *, damping=0.85, iters=20) -> torch.Tensor:
+                      n_nodes: int, *, damping=0.85, iters=20,
+                      dtype: torch.dtype = RANK_DTYPE) -> torch.Tensor:
     """:func:`pagerank_sell` driven by the plain step on any device."""
     return _pagerank_sell_drive(pagerank_step_sell_ref, bucket_radj,
                                 bucket_nodes, out_degree, n_nodes, damping,
-                                iters)
+                                iters, dtype)

@@ -18,8 +18,8 @@ the dense path, as the reference's does), ``"ssm"`` (mamba2-2.7b),
 the last two no ``ctx_embeds``, so their requests decode against the
 caches' zero context.  mixtral-8x7b ``--full`` does not fit one card: its
 46.7 B parameters are 186.8 GB in fp32 against 80 GB (it waits for
-multi-device serving, ROADMAP A10), and any ``--mesh`` other than
-``none`` raises (A10).  The batcher's KV caches share one length across
+multi-device serving, ROADMAP A10b), and any ``--mesh`` other than
+``none`` raises (A10b).  The batcher's KV caches share one length across
 slots, as the reference's: prompts of one length serve correctly.
 """
 from __future__ import annotations
@@ -47,14 +47,14 @@ def main(argv=None) -> None:
     ap.add_argument("--cache-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", choices=["none", "single", "multi"], default="none",
-                    help="production mesh to shard over (ROADMAP A10: only "
+                    help="production mesh to shard over (ROADMAP A10b: only "
                          "'none' is ported)")
     ap.add_argument("--device", default="cuda",
                     help="where to serve: cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-device serving is ROADMAP A10")
+            f"--mesh {args.mesh}: multi-device serving is ROADMAP A10b")
     dev = resolve_device(args.device)
 
     cfg = configs.get_config(args.arch) if args.full else configs.reduced_config(args.arch)

@@ -29,7 +29,7 @@ so a decode step recomputes them from the whole context.
 Not ported: the reference's opt-in module flags, all off by default there:
 ``ATTN_KV_CHUNK`` (online-softmax key blocks), ``ATTN_BF16_SCORES`` (bf16
 score buffers) and ``SEQ_SHARD_FALLBACK`` (sequence-parallel queries on a
-mesh, A10).
+mesh, A10b).
 
 Parameters live in :class:`Attention`, an ``nn.Module`` whose tensors keep
 the reference's names and layouts (``wq`` is (d, Hq dh), ``wo`` (Hq dh,

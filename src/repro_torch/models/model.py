@@ -34,7 +34,7 @@ block (each vision group, each enc-dec decoder layer) as the reference's
 :func:`decode_step` record none.  A ``tok_embed`` in another dtype than
 float32 / float64 (bf16 parameters) is cast to float32 before kernel B9,
 one copy, the gradient flowing back through the cast.  ``mesh`` raises
-``NotImplementedError`` (multi-device is ROADMAP A10).
+``NotImplementedError`` (multi-device is ROADMAP A10b).
 """
 from __future__ import annotations
 
@@ -323,7 +323,7 @@ def _run(p: LM, cfg: ModelConfig, batch: dict, caches: Caches | None,
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError("mesh: multi-device execution is ROADMAP A10")
+        raise NotImplementedError("mesh: multi-device execution is ROADMAP A10b")
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,7 @@ Each SELL combine reads the routing back from the device once
 reference's design, a host-side pack.
 
 Not ported: the reference's ``_ep_ok`` and its sharding constraints (no
-mesh: ROADMAP A10); one device is expert-parallel trivially.
+mesh: ROADMAP A10b); one device is expert-parallel trivially.
 """
 from __future__ import annotations
 

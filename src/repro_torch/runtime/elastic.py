@@ -1,6 +1,6 @@
 """Elastic re-mesh planning: choose a new (pod, data, model) mesh after node
 loss or growth (a stdlib copy of ``repro.runtime.elastic``; the port runs no
-mesh yet, ROADMAP A10).
+mesh yet, ROADMAP A10b).
 
 Policy: preserve the model (TP) axis if the surviving device count allows —
 params reshard along data only, which is cheap (pure replication change) —

@@ -86,7 +86,7 @@ class Batcher(SlotLoop[Request]):
     def __init__(self, cfg: ModelConfig, params: M.LM, n_slots: int = 4,
                  gcfg: GenerationConfig | None = None, mesh=None):
         if mesh is not None:
-            raise NotImplementedError("mesh: multi-device serving is ROADMAP A10")
+            raise NotImplementedError("mesh: multi-device serving is ROADMAP A10b")
         super().__init__(n_slots)
         self.cfg = cfg
         self.params = params

@@ -24,7 +24,7 @@ histogram, next to the service's own ``moe_dispatch`` / ``kernel`` request
 classes.  :func:`retrieve_context` is the graph-retrieval scenario on the
 same loop.
 
-A ``mesh`` (ROADMAP A10) raises ``NotImplementedError``.
+A ``mesh`` (ROADMAP A10b) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -72,7 +72,7 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: M.LM, gcfg: GenerationConfig,
                  mesh=None, kernel_service=None, moe_operand: str | None = None,
                  dispatch_spec=None):
-        """``mesh`` is ROADMAP A10 and raises.
+        """``mesh`` is ROADMAP A10b and raises.
 
         ``kernel_service`` + ``moe_operand`` (a name registered via
         :meth:`repro_torch.service.registry.KernelRegistry.register_moe`)
@@ -83,7 +83,7 @@ class ServeEngine:
         specs agree — and selects the dispatch path (``None``: ``"auto"``).
         """
         if mesh is not None:
-            raise NotImplementedError("mesh: multi-device serving is ROADMAP A10")
+            raise NotImplementedError("mesh: multi-device serving is ROADMAP A10b")
         if kernel_service is not None and moe_operand is None:
             raise ValueError(
                 "fused mode needs moe_operand: the registered dispatch "

@@ -11,7 +11,14 @@ device-resident tensors.  The tune goes through the persistent
 whose signature the cache has seen (this process, an earlier one, or the
 JAX reference writing the same file) performs no pad-factor measurement.
 
-Not sharded: one registry serves one device (multi-GPU is ROADMAP A10).
+A registry made with a ``mesh`` (an int device count, a device sequence or
+a :class:`~repro_torch.kernels.sell_shard.ShardMesh`, as
+``ExecSpec.placement`` takes it) packs every matrix and graph it registers
+into its sharded layout as well (``mode = "sharded"``, ``sharded``, the
+row-sharded plan), uploads each shard to its device, and the service runs
+those operands on the sharded drives; results land on the mesh's first
+device.  The matrix tune then scores the busiest shard under a key that
+names the device count (``|dev{n}``), as the reference's does.
 """
 from __future__ import annotations
 
@@ -29,11 +36,18 @@ from repro_torch.analysis.preflight import (
     plan_moe_dispatch,
     plan_pagerank_sell,
     plan_spmm_sell,
+    plan_spmm_sell_sharded,
 )
 from repro_torch.core.autotune import SellTuneResult, pick_k_block
 from repro_torch.core.sdv import MachineParams, h100_machine
-from repro_torch.graphs.gen import PAD, EllpackGraph, graph_to_sell_slabs
-from repro_torch.kernels.execspec import resolve_device
+from repro_torch.graphs.gen import (
+    PAD,
+    EllpackGraph,
+    graph_to_sell_slabs,
+    shard_graph_slabs,
+)
+from repro_torch.kernels import sell_shard
+from repro_torch.kernels.execspec import ExecSpec, resolve_device
 from repro_torch.kernels.fft import fft_twiddles
 from repro_torch.kernels.ops import device_tag, pack_tuned, tune_and_pack
 from repro_torch.obs import MetricsRegistry, Stopwatch
@@ -42,7 +56,12 @@ from repro_torch.service.tunecache import (
     TuneCache,
     operand_signature,
 )
-from repro_torch.sparse.formats import CSRMatrix, pow2_ceil, to_csr
+from repro_torch.sparse.formats import (
+    CSRMatrix,
+    pow2_ceil,
+    shard_slabs,
+    to_csr,
+)
 
 
 def moe_k_block(d_model: int, dtype: str = "float64") -> int:
@@ -76,6 +95,12 @@ class RegisteredOperand:
     launches: int = 0                       # batched core calls served
     slab_meta: Any = None                   # SlabMeta (bounds-scanned)
     plans: dict = dataclasses.field(default_factory=dict)  # op -> LaunchPlan
+    #: "sharded" when the registry carries a multi-device mesh, else
+    #: "resident"
+    mode: str = "resident"
+    #: the device-partitioned layout (ShardedSlabs / ShardedGraphSlabs)
+    #: when the registry carries a multi-device mesh, else None
+    sharded: Any = None
     #: MoE dispatch envelope (kind == "moe"): slice height ``c``, ``top_k``,
     #: ``d_model`` and value ``dtype`` of the per-step routing operands
     moe: dict | None = None
@@ -87,12 +112,25 @@ class RegisteredOperand:
 
 class KernelRegistry:
     """Named operands, packed and tuned once through a shared TuneCache,
-    resident on one device (``device=None`` is the card)."""
+    resident on one device (``device=None`` is the card), or sharded over
+    a ``mesh`` (results on its first device)."""
 
     def __init__(self, cache: TuneCache | None = None,
                  machine: MachineParams | None = None,
                  device=None,
+                 mesh=None,
                  metrics: MetricsRegistry | None = None):
+        # the placement resolves as ExecSpec's does, so the registry and
+        # ops agree on what a mesh means
+        placement = ExecSpec(placement=mesh)
+        self.mesh = placement.resolved_placement()
+        self.n_devices = placement.n_devices()
+        if len(self.mesh):
+            if device is not None and \
+                    resolve_device(device).type != self.mesh[0].type:
+                raise ValueError(f"mesh on {self.mesh[0].type} devices but "
+                                 f"device={device!r}")
+            device = self.mesh[0]
         self.device = resolve_device(device)
         self.cache = cache if cache is not None else TuneCache()
         # resolve the tuner's default machine eagerly: the cache key must
@@ -168,6 +206,7 @@ class KernelRegistry:
             candidates_c=self.cache.candidate_vls_for(
                 "spmv", self.machine.name),
             signature=sig,                 # skip the second content hash
+            n_devices=self.n_devices,
         )
         op = RegisteredOperand(
             name=name, kind="matrix", signature=sig, tuned=tuned,
@@ -175,15 +214,32 @@ class KernelRegistry:
             tune_was_cached=self.cache.hits > before,
         )
         op.slab_meta = SlabMeta.from_slabs(slabs, check_bounds=True)
-        op.plans = {"spmv": plan_spmm_sell(
-            op.slab_meta, k=max(1, tuned.k_block),
-            x_dtype=str(csr.data.dtype), k_block=tuned.k_block,
-        ).raise_if_invalid()}
+        if self.n_devices > 1:
+            op.sharded = shard_slabs(slabs, self.n_devices)
+            op.mode = "sharded"
+            sell_shard.upload(op.sharded, self.mesh)
+        op.plans = {"spmv": self.spmv_plan(op, max(1, tuned.k_block))
+                    .raise_if_invalid()}
         cols, vals, rows = slabs.to_device(self.device)
         op.device_arrays = {"cols": cols, "vals": vals, "rows": rows}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # upload inside register_us
         return self._admit(op, sw)
+
+    def spmv_plan(self, op: RegisteredOperand, k: int):
+        """The SpMV plan of a registered matrix for a k-column group at its
+        tuned tiles: B1's, or the row-sharded drive's on a mesh (each
+        device's buckets against its X window)."""
+        tuned = op.tuned
+        if op.mode == "sharded":
+            return plan_spmm_sell_sharded(
+                op.slab_meta, k=k, x_dtype=op.slab_meta.val_dtype,
+                n_devices=self.n_devices, k_block=tuned.k_block,
+                window_cols=op.sharded.window_cols,
+                shard=SlabMeta.from_sharded(op.sharded))
+        return plan_spmm_sell(op.slab_meta, k=k,
+                              x_dtype=op.slab_meta.val_dtype,
+                              k_block=tuned.k_block)
 
     def register_graph(self, name: str, graph: EllpackGraph) -> RegisteredOperand:
         """Pack + tune a graph for BFS/PageRank serving and upload it.
@@ -191,10 +247,13 @@ class KernelRegistry:
         Both pull-style kernels consume the *reverse* adjacency, so the
         registry packs ``graph.transpose()`` into SELL slabs, tuned on the
         in-degree distribution (the row-length law of the pull traffic).
-        Graph kernels serve float64 ranks (the reference's x64 path), so
-        the cache key's dtype is fixed to it, and its device is the card's
-        name.  The neighbour ids and node maps are bounds-scanned and the
-        B3 launches planned before anything is uploaded.
+        The layout does not depend on the rank dtype, so the cache key's
+        dtype is fixed to float64 (the reference's), and its device is the
+        card's name.  The neighbour ids and node maps are bounds-scanned
+        and the B3 launches planned before anything is uploaded.  On a
+        mesh the reverse graph is node-partitioned at the tuned (C, sigma)
+        as well, each shard uploaded to its device, and the plans are one
+        device's.
         """
         dtype = "float64"
         sw = Stopwatch().start()
@@ -223,6 +282,13 @@ class KernelRegistry:
             tune_was_cached=self.cache.hits > before,
         )
         op.slab_meta = SlabMeta.from_slabs(slabs, check_bounds=True)
+        if self.n_devices > 1:
+            op.sharded = shard_graph_slabs(rgraph, c=tuned.c,
+                                           n_shards=self.n_devices,
+                                           sigma=tuned.sigma)
+            op.mode = "sharded"
+            op.slab_meta = SlabMeta.from_sharded(op.sharded, check_bounds=True)
+            sell_shard.upload(op.sharded, self.mesh)
         op.plans = {
             "bfs": plan_bfs_sell(op.slab_meta).raise_if_invalid(),
             "pagerank": plan_pagerank_sell(op.slab_meta).raise_if_invalid(),

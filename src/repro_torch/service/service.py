@@ -23,6 +23,13 @@ concatenate into one RHS, one :func:`repro_torch.kernels.ops.moe_dispatch`
 call (kernel B1).  A singleton graph group keeps the 1-D state; larger
 groups are pow2-padded.  Results stay on the registry's device.
 
+Operands a registry with a ``mesh`` registered (``mode == "sharded"``)
+run on the sharded drives of :mod:`repro_torch.kernels.sell_shard` (the
+SpMV group row-sharded, BFS and PageRank node-partitioned), each group
+counted once in ``stats["sharded_launches"]``.  A PageRank request's
+``dtype`` (``"float64"``, the default, or ``"float32"``) joins its
+coalescing key, so the two never share a drive.
+
 ``max_queue`` bounds the admission queue (:class:`QueueFull`).  ``stats``
 is the frozen-key view over the service's metrics registry, and an
 optional tracer records one span tree per request, as in the reference.
@@ -42,13 +49,12 @@ from repro_torch.analysis.preflight import (
     plan_fft_stockham,
     plan_moe_dispatch,
     plan_pagerank_sell,
-    plan_spmm_sell,
 )
 from repro_torch.kernels import bfs as bfs_k
 from repro_torch.kernels import fft as fft_k
 from repro_torch.kernels import ops
 from repro_torch.kernels import pagerank as pr_k
-from repro_torch.kernels import sell_core
+from repro_torch.kernels import sell_core, sell_shard
 from repro_torch.kernels.execspec import ExecSpec
 from repro_torch.obs import (
     CounterDict,
@@ -75,8 +81,8 @@ OP_CLASS = {op: ("moe_dispatch" if op == "moe_dispatch" else "kernel")
             for op in OPS}
 
 #: FROZEN contract: the exact key set of ``KernelService.stats`` — the
-#: reference's, key for key (``sharded_launches`` stays 0 until multi-GPU
-#: placement is ported).  These
+#: reference's, key for key (``sharded_launches`` counts the groups a
+#: registry with a mesh runs on the sharded drives).  These
 #: names are observability API — dashboards and the bench gate
 #: (``scripts/bench_compare.py`` zero-base counters) key on them, so
 #: renaming or removing one is a breaking change; additions append here.
@@ -164,9 +170,18 @@ class KernelRequest:
     def group_key(self) -> tuple:
         """Coalescing identity: requests collapse into one launch only when
         op, operand AND execution spec agree (a spec-less request uses the
-        default-spec key, so legacy submits coalesce exactly as before)."""
+        default-spec key, so legacy submits coalesce exactly as before),
+        and for PageRank the rank dtype too."""
         spec = self.spec if self.spec is not None else _DEFAULT_SPEC
-        return (self.op, self.operand, spec.coalesce_key())
+        key = (self.op, self.operand, spec.coalesce_key())
+        if self.op == "pagerank":
+            key += (_rank_dtype(self.params),)
+        return key
+
+
+def _rank_dtype(params: dict) -> str:
+    """A PageRank request's rank dtype as a string (default float64)."""
+    return str(params.get("dtype", "float64")).removeprefix("torch.")
 
 
 _DEFAULT_SPEC = ExecSpec()
@@ -242,7 +257,7 @@ class KernelService(SlotLoop[KernelRequest]):
             record = self.registry.get(operand)  # fail fast: unknown operand
             pre = self._t_start("preflight", parent=root)
             try:
-                self._preflight(op, record)      # ... infeasible launches
+                self._preflight(op, record, params)  # ... infeasible launches
             except LaunchPlanError:
                 self._t_end(pre, status="rejected")
                 raise
@@ -341,21 +356,22 @@ class KernelService(SlotLoop[KernelRequest]):
         }
 
     # -- launch preflight --------------------------------------------------
-    def _operand_plans(self, record: RegisteredOperand) -> dict[str, LaunchPlan]:
+    def _operand_plans(self, record: RegisteredOperand,
+                       params: dict | None = None) -> dict[str, LaunchPlan]:
         """Live launch plans for every op this operand can serve, derived
         from the *current* tuned tiles: a tune that drifts out of the
-        kernel's envelope after registration is caught at the next submit."""
+        kernel's envelope after registration is caught at the next submit.
+        A PageRank plan is made at the request's rank dtype (``params``)."""
         plans: dict[str, LaunchPlan] = {}
         if record.kind == "matrix" and record.slab_meta is not None:
-            tuned = record.tuned
-            plans["spmv"] = plan_spmm_sell(
-                record.slab_meta, k=max(1, tuned.k_block),
-                x_dtype=record.slab_meta.val_dtype, k_block=tuned.k_block)
+            plans["spmv"] = self.registry.spmv_plan(
+                record, max(1, record.tuned.k_block))
         elif record.kind == "graph" and record.slab_meta is not None:
             # worst case: a full coalesced group, pow2-padded
             k = pow2_ceil(max(1, self.n_slots))
             plans["bfs"] = plan_bfs_sell(record.slab_meta, k=k)
-            plans["pagerank"] = plan_pagerank_sell(record.slab_meta, k=k)
+            plans["pagerank"] = plan_pagerank_sell(
+                record.slab_meta, k=k, dtype=_rank_dtype(params or {}))
         elif record.kind == "fft":
             plans["fft"] = plan_fft_stockham(record.n, batch=8)
         elif record.kind == "moe" and record.slab_meta is not None:
@@ -366,11 +382,13 @@ class KernelService(SlotLoop[KernelRequest]):
                                                       m["dtype"]))
         return plans
 
-    def _preflight(self, op: str, record: RegisteredOperand) -> None:
+    def _preflight(self, op: str, record: RegisteredOperand,
+                   params: dict | None = None) -> None:
         """Admission-time launch-contract check: an operand whose plan
-        violates a contract is rejected HERE with a structured
+        violates a contract (a PageRank rank dtype no kernel form takes
+        among them) is rejected HERE with a structured
         :class:`LaunchPlanError` — no kernel launch, nothing queued."""
-        plan = self._operand_plans(record).get(op)
+        plan = self._operand_plans(record, params).get(op)
         if plan is None:                # op/kind mismatch: fails at execute
             return
         try:
@@ -432,7 +450,7 @@ class KernelService(SlotLoop[KernelRequest]):
         for _, req in active:
             if not req.done:
                 groups.setdefault(req.group_key, []).append(req)
-        for (op, operand, _speckey), reqs in groups.items():
+        for (op, operand, *_), reqs in groups.items():
             self.stats["groups"] += 1
             self.stats["max_group"] = max(self.stats["max_group"], len(reqs))
             if len(reqs) > 1:
@@ -530,10 +548,16 @@ class KernelService(SlotLoop[KernelRequest]):
         # each a whole number of k tiles (see _pow2_pad)
         x_stack = torch.stack(_pow2_pad(xs), dim=1)
         sw = Stopwatch().start()
-        y = sell_core.spmm_sell(
-            arrs["cols"], arrs["vals"], arrs["rows"], x_stack,
-            n_rows=operand.n, k_block=tuned.k_block,
-        )
+        if operand.mode == "sharded":
+            y = sell_shard.spmm_sell_sharded(
+                operand.sharded, x_stack, mesh=self.registry.mesh,
+                k_block=tuned.k_block)
+            self.stats["sharded_launches"] += 1
+        else:
+            y = sell_core.spmm_sell(
+                arrs["cols"], arrs["vals"], arrs["rows"], x_stack,
+                n_rows=operand.n, k_block=tuned.k_block,
+            )
         if device.type == "cuda":
             torch.cuda.synchronize(device)   # the wall time covers the kernels
         sw.stop()
@@ -563,7 +587,13 @@ class KernelService(SlotLoop[KernelRequest]):
         batch = sources[0] if len(good) == 1 else _pow2_pad(sources)
         device = self.registry.device
         sw = Stopwatch().start()
-        dist = bfs_k.bfs_sell(arrs["adj"], arrs["nodes"], operand.n, batch)
+        if operand.mode == "sharded":
+            dist = sell_shard.bfs_sell_sharded(
+                operand.sharded, batch, mesh=self.registry.mesh)
+            self.stats["sharded_launches"] += 1
+        else:
+            dist = bfs_k.bfs_sell(arrs["adj"], arrs["nodes"], operand.n,
+                                  batch)
         if device.type == "cuda":
             torch.cuda.synchronize(device)   # the wall time covers the kernels
         sw.stop()
@@ -576,7 +606,8 @@ class KernelService(SlotLoop[KernelRequest]):
 
     def _run_pagerank(self, operand, reqs):
         """The whole group is one batched drive: (damping, iters) configs
-        become iterate columns, every power step is a single launch set."""
+        become iterate columns, every power step is a single launch set, in
+        the group's rank dtype (one per group: it is part of the key)."""
         if operand.kind != "graph":
             raise TypeError(f"operand {operand.name!r} is not a graph")
         arrs = operand.device_arrays
@@ -595,10 +626,18 @@ class KernelService(SlotLoop[KernelRequest]):
             damping = [d for d, _ in configs]
             iters = [i for _, i in configs]
         device = self.registry.device
+        dtype = getattr(torch, _rank_dtype(good[0].params))
         sw = Stopwatch().start()
-        rank = pr_k.pagerank_sell(arrs["adj"], arrs["nodes"],
-                                  arrs["out_degree"], operand.n,
-                                  damping=damping, iters=iters)
+        if operand.mode == "sharded":
+            rank = sell_shard.pagerank_sell_sharded(
+                operand.sharded, arrs["out_degree"], mesh=self.registry.mesh,
+                damping=damping, iters=iters, dtype=dtype)
+            self.stats["sharded_launches"] += 1
+        else:
+            rank = pr_k.pagerank_sell(arrs["adj"], arrs["nodes"],
+                                      arrs["out_degree"], operand.n,
+                                      damping=damping, iters=iters,
+                                      dtype=dtype)
         if device.type == "cuda":
             torch.cuda.synchronize(device)   # the wall time covers the kernels
         sw.stop()

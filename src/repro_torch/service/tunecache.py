@@ -368,9 +368,8 @@ class TuneCache:
     @staticmethod
     def sell_key(kernel: str, signature: OperandSignature | Any,
                  device: str = "cpu", dtype: str = "float64",
-                 machine=None) -> str:
-        """Cache key for a SELL layout decision — the reference's spelling
-        for a single-device tune.
+                 machine=None, n_devices: int = 1) -> str:
+        """Cache key for a SELL layout decision — the reference's spelling.
 
         ``signature`` may be an :class:`OperandSignature` or a raw operand
         (fingerprinted on the spot).  ``device`` names where the layout
@@ -378,11 +377,17 @@ class TuneCache:
         alias TPU or CPU tunes.  ``machine`` is the
         :class:`~repro_torch.core.sdv.MachineParams` the tune scores
         against (callers resolve their default before keying).
+        ``n_devices`` joins the key when > 1 (``|dev{n}``): a sharded tune
+        scores the busiest shard's rows, not the whole operand's, so
+        single-device and n-device layouts never share an entry.
         """
         if not isinstance(signature, OperandSignature):
             signature = operand_signature(signature)
         mtag = machine_tag(machine) if machine is not None else "any-machine"
-        return f"{kernel}|{device}|{dtype}|{mtag}|{signature.key}"
+        key = f"{kernel}|{device}|{dtype}|{mtag}|{signature.key}"
+        if int(n_devices) > 1:
+            key += f"|dev{int(n_devices)}"
+        return key
 
     # -- tune entries (the duck-typed protocol core.autotune consults) -----
     def get_sell(self, key: str) -> SellTuneResult | None:

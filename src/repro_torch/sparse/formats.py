@@ -612,6 +612,225 @@ def slabs_from_arrays(src) -> SellSlabs:
 
 
 # ---------------------------------------------------------------------------
+# Multi-device row partitioning
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedSlabs:
+    """Row-partitioned :class:`SellSlabs`, stacked along a device axis.
+
+    Every shard owns a contiguous, nnz-balanced range of rows and is packed
+    independently at the parent's (C, sigma); the per-shard slabs are then
+    padded to one COMMON bucket structure (union of power-of-two widths,
+    per-bucket slice counts padded with PAD-only slabs) so a single
+    program runs every device.  ``bucket_cols[b]``
+    is (n_shards, S_b, W_b, C), ``bucket_rows[b]`` is (n_shards, S_b, C)
+    holding *shard-local* row ids (padding lanes map to ``rows_max``, the
+    shared local dump slot).
+
+    The boundary-column gather metadata: shard ``d`` only references
+    columns in the window ``[col_starts[d], col_starts[d] + window_cols)``,
+    so each shard gathers from one uniform ``window_cols``-wide slice of
+    the replicated X instead of the whole operand; stored column indices
+    are already rebased into that window.  ``boundary_cols`` is the worst
+    per-shard count of referenced columns outside the shard's even
+    ``n_cols / n_shards`` share — the volume a column-exchange collective
+    would move, priced by :func:`repro_torch.analysis.preflight.plan_spmm_sell_sharded`.
+    """
+
+    bucket_cols: tuple[np.ndarray, ...]   # each (n_shards, S_b, W_b, C) int32
+    bucket_vals: tuple[np.ndarray, ...]   # each (n_shards, S_b, W_b, C) float
+    bucket_rows: tuple[np.ndarray, ...]   # each (n_shards, S_b, C) int32, local
+    row_starts: np.ndarray                # (n_shards,) int64: first global row
+    row_counts: np.ndarray                # (n_shards,) int64: rows owned
+    col_starts: np.ndarray                # (n_shards,) int32: X window start
+    window_cols: int                      # uniform X window width
+    boundary_cols: int                    # worst out-of-share column count
+    n_rows: int
+    n_cols: int
+    nnz: int
+    sigma: int
+
+    @property
+    def c(self) -> int:
+        return self.bucket_cols[0].shape[3]
+
+    @property
+    def n_shards(self) -> int:
+        return self.bucket_cols[0].shape[0]
+
+    @property
+    def widths(self) -> tuple[int, ...]:
+        return tuple(c.shape[2] for c in self.bucket_cols)
+
+    @property
+    def slices_per_shard(self) -> tuple[int, ...]:
+        return tuple(c.shape[1] for c in self.bucket_cols)
+
+    @property
+    def rows_max(self) -> int:
+        """Rows of the widest shard — the local dump-slot index."""
+        return int(self.row_counts.max()) if len(self.row_counts) else 0
+
+    @property
+    def padded_nnz(self) -> int:
+        return sum(c.size for c in self.bucket_cols)
+
+    @property
+    def pad_factor(self) -> float:
+        return self.padded_nnz / max(self.nnz, 1)
+
+    def shard_to_device(self, d: int, device) -> tuple[tuple[torch.Tensor, ...], ...]:
+        """Shard ``d``'s bucket tensors on ``device``: ``(cols, vals,
+        rows)``, each a tuple over the union buckets, as
+        :meth:`SellSlabs.to_device` uploads one operand (rows local, the
+        dump slot ``rows_max``).  The one upload of that shard."""
+        def up(arrays):
+            return tuple(
+                torch.from_numpy(np.ascontiguousarray(a[d])).to(device)
+                for a in arrays)
+
+        return up(self.bucket_cols), up(self.bucket_vals), up(self.bucket_rows)
+
+    def matvec(self, x: np.ndarray) -> np.ndarray:
+        """Reference host SpMV mirroring the sharded schedule exactly:
+        per-shard window gather + local scatter, shards concatenated."""
+        out = np.zeros(self.n_rows, dtype=np.result_type(self.bucket_vals[0], x))
+        for d in range(self.n_shards):
+            lo = int(self.col_starts[d])
+            xw = x[lo : lo + self.window_cols]
+            xg = np.concatenate([xw, np.zeros(1, x.dtype)])
+            y = np.zeros(self.rows_max + 1, out.dtype)
+            for cols, vals, rows in zip(self.bucket_cols, self.bucket_vals,
+                                        self.bucket_rows):
+                safe = np.where(cols[d] == PAD, len(xw), cols[d])
+                yb = np.einsum("swc,swc->sc", vals[d], xg[safe])
+                y[rows[d].reshape(-1)] = yb.reshape(-1)
+            r0, cnt = int(self.row_starts[d]), int(self.row_counts[d])
+            out[r0 : r0 + cnt] = y[:cnt]
+        return out
+
+
+def shard_row_ranges(lengths: np.ndarray, n_shards: int) -> list[tuple[int, int]]:
+    """Contiguous row ranges [lo, hi) balancing nnz across ``n_shards``.
+
+    The weight is ``nnz + 1`` per row so all-empty stretches still spread
+    instead of collapsing into one shard.  Ranges partition [0, n_rows)
+    exactly; a shard may be empty (lo == hi) when rows run out.
+    """
+    lengths = np.asarray(lengths, np.int64)
+    n = len(lengths)
+    n_shards = max(int(n_shards), 1)
+    cum = np.zeros(n + 1, np.int64)
+    np.cumsum(lengths + 1, out=cum[1:])
+    targets = cum[-1] * np.arange(1, n_shards) / n_shards
+    cuts = np.searchsorted(cum, targets)
+    bounds = np.maximum.accumulate(np.concatenate([[0], cuts, [n]]))
+    return [(int(bounds[i]), int(bounds[i + 1])) for i in range(n_shards)]
+
+
+def _csr_row_slice(m: CSRMatrix, lo: int, hi: int) -> CSRMatrix:
+    """Rows [lo, hi) of ``m`` as a standalone CSR (column ids unchanged)."""
+    s, e = int(m.indptr[lo]), int(m.indptr[hi])
+    return CSRMatrix(
+        indptr=(m.indptr[lo : hi + 1] - m.indptr[lo]),
+        indices=m.indices[s:e],
+        data=m.data[s:e],
+        n_cols=m.n_cols,
+    )
+
+
+def shard_slabs(slabs: SellSlabs, n_shards: int) -> ShardedSlabs:
+    """Row-partition slabs into ``n_shards`` device slabs (see
+    :class:`ShardedSlabs` for the layout contract).
+
+    Each shard re-packs its contiguous nnz-balanced row range at the
+    parent's (C, sigma) — the sigma-sort is *local*, so a shard's slices
+    never mix rows across the partition — and the shard structures are
+    unified so one kernel program serves every device.
+    """
+    csr = sell_slabs_to_csr(slabs)
+    c = slabs.c
+    sigma = int(slabs.sigma or 8 * c)
+    ranges = shard_row_ranges(csr.row_lengths, n_shards)
+    n_shards = len(ranges)
+    shards = [
+        csr_to_sell_slabs(_csr_row_slice(csr, lo, hi), c=c, sigma=sigma)
+        for lo, hi in ranges
+    ]
+    rows_max = max(s.n_rows for s in shards)
+
+    # Per-shard referenced-column window + out-of-share boundary count.
+    col_starts = np.zeros(n_shards, np.int32)
+    window = 1
+    boundary = 0
+    n_cols = max(csr.n_cols, 1)
+    for d, ((lo, hi), s) in enumerate(zip(ranges, shards)):
+        ref = csr.indices[int(csr.indptr[lo]) : int(csr.indptr[hi])]
+        if len(ref):
+            c_lo, c_hi = int(ref.min()), int(ref.max()) + 1
+        else:
+            c_lo, c_hi = 0, 1
+        col_starts[d] = c_lo
+        window = max(window, c_hi - c_lo)
+        fair_lo = d * csr.n_cols // n_shards
+        fair_hi = (d + 1) * csr.n_cols // n_shards
+        outside = np.unique(ref[(ref < fair_lo) | (ref >= fair_hi)])
+        boundary = max(boundary, len(outside))
+    window = min(window, n_cols)
+    col_starts = np.minimum(col_starts, n_cols - window).astype(np.int32)
+
+    # Union bucket structure: every width any shard produced, slice counts
+    # padded to the per-width max with PAD-only slabs.
+    per_shard = [dict(zip(s.widths, range(s.n_buckets))) for s in shards]
+    union_w = sorted({w for s in shards for w in s.widths})
+    smax = {
+        w: max(
+            (s.bucket_cols[per_shard[d][w]].shape[0]
+             if w in per_shard[d] else 0)
+            for d, s in enumerate(shards))
+        for w in union_w
+    }
+    val_dtype = slabs.bucket_vals[0].dtype if slabs.bucket_vals else np.float64
+    bucket_cols, bucket_vals, bucket_rows = [], [], []
+    for w in union_w:
+        s_b = smax[w]
+        cols = np.full((n_shards, s_b, w, c), PAD, np.int32)
+        vals = np.zeros((n_shards, s_b, w, c), val_dtype)
+        rows = np.full((n_shards, s_b, c), rows_max, np.int32)
+        for d, s in enumerate(shards):
+            if w not in per_shard[d]:
+                continue  # empty per-device bucket: stays all-PAD
+            b = per_shard[d][w]
+            sc, sv, sr = s.bucket_cols[b], s.bucket_vals[b], s.bucket_rows[b]
+            nb = sc.shape[0]
+            # rebase columns into the shard's X window; PAD stays PAD
+            cols[d, :nb] = np.where(sc == PAD, PAD, sc - col_starts[d])
+            vals[d, :nb] = sv
+            # local ids; the shard's own dump slot remaps to the shared one
+            rows[d, :nb] = np.where(sr == s.n_rows, rows_max, sr)
+        bucket_cols.append(cols)
+        bucket_vals.append(vals)
+        bucket_rows.append(rows)
+
+    return ShardedSlabs(
+        bucket_cols=tuple(bucket_cols),
+        bucket_vals=tuple(bucket_vals),
+        bucket_rows=tuple(bucket_rows),
+        row_starts=np.array([lo for lo, _ in ranges], np.int64),
+        row_counts=np.array([hi - lo for lo, hi in ranges], np.int64),
+        col_starts=col_starts,
+        window_cols=int(window),
+        boundary_cols=int(boundary),
+        n_rows=csr.n_rows,
+        n_cols=csr.n_cols,
+        nnz=csr.nnz,
+        sigma=sigma,
+    )
+
+
+# ---------------------------------------------------------------------------
 # Generators (vectorized: distinct sorted column draws via order statistics)
 # ---------------------------------------------------------------------------
 

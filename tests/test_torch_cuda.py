@@ -422,8 +422,10 @@ def test_graph_sell_split_buckets_match_plain_versions(cuda_device, c):
     for k in (1, 3, 8, 32):
         kt = sell_core.node_k_tile(k)
         for itemsize in (4, 8):
-            assert any(autotune.node_split(a.shape[2], c, a.shape[0], kt,
-                                           itemsize).parts > 1 for a in adj)
+            assert any(autotune.node_split(
+                a.shape[2], c, a.shape[0], kt, itemsize,
+                "bfs" if itemsize == 4 else "pagerank").parts > 1
+                for a in adj)
         dist = torch.full((n + 1, k), G.INF, dtype=torch.int32,
                           device=cuda_device)
         src = torch.from_numpy(rng.choice(n, k, replace=False))
@@ -505,6 +507,234 @@ def test_graph_ell_kernels_and_ops_match_host_references(cuda_device):
         np.testing.assert_allclose(r[:, 1].cpu().numpy(),
                                    G.pagerank_reference(g, 0.9, 7),
                                    rtol=1e-10, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# Float32 PageRank (B3's PageRank forms and B5 in float) and the sharded
+# drives on one card
+# ---------------------------------------------------------------------------
+
+#: blake2b digests of the float64 PageRank kernels' outputs on the inputs
+#: of :func:`pagerank_fp64_cases`, read from the kernels before they were
+#: templated on the rank type (``scripts/graph_fp_turns.py`` on an NVIDIA
+#: H100 80GB HBM3): the float64 forms must stay bit-equal to them.
+PAGERANK_FP64_DIGESTS = {
+    "B3 rmat4096 k=None": "d94db1a4a926c227dc6b67852bdaa851",
+    "B3 rmat4096 k=1": "ce02dae249de92770f3349e577b26942",
+    "B3 rmat4096 k=3": "a210a97b7eef42571e162988b38f8514",
+    "B3 rmat4096 k=32": "ad5e50e4653c182027472d98ebc3a8f8",
+    "B5 rmat4096": "07c9b16753d3789637ba4b173b1fb7ec",
+    "B3 uniform4093 k=None": "135c39733427d828b140305796006342",
+    "B3 uniform4093 k=1": "79003e5d21d2c542f1565c481ec8b25c",
+    "B3 uniform4093 k=3": "d74671ab0638b8532cd2ec9c7a8666bb",
+    "B3 uniform4093 k=32": "3cabbc79085e842db8d8d639616c3e3b",
+    "B5 uniform4093": "02e18e149811fa402dff97d1f9606304",
+}
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.blake2b(t.cpu().numpy().tobytes(),
+                           digest_size=16).hexdigest()
+
+
+def pagerank_fp64_cases(G, step_sell, step_ell, device) -> dict:
+    """The float64 PageRank steps of B3 (unsplit and split buckets, k =
+    1 / 3 / 32 and one configuration) and B5 on fixed inputs: name ->
+    output.  ``step_sell(adj, nodes, contrib, consts)`` and ``step_ell(radj,
+    contrib, consts)`` are the launches under test."""
+    from repro_torch.kernels import bfs
+
+    rng = np.random.default_rng(27)
+    out = {}
+    for name, g, c in (("rmat4096", G.rmat_graph(4096, 16, seed=1), 8),
+                       ("uniform4093", G.random_graph(4093, 8, seed=2), 32)):
+        n = g.n_nodes
+        adj, nodes = G.graph_to_sell_slabs(g.transpose(), c=c).to_device(device)
+        for k in (None, 1, 3, 32):
+            shape = (n + 1,) if k is None else (n + 1, k)
+            contrib = torch.from_numpy(rng.random(shape)).to(device)
+            contrib[-1] = 0.0
+            consts = torch.from_numpy(
+                rng.random((3,) if k is None else (3, k))).to(device)
+            out[f"B3 {name} k={k}"] = step_sell(adj, nodes, contrib, consts)
+        radj = g.transpose().to_device(device)
+        contrib = torch.from_numpy(rng.random(n)).to(device)
+        consts = torch.from_numpy(rng.random(3)).to(device)
+        out[f"B5 {name}"] = step_ell(radj, bfs.ell_live_widths(radj), contrib,
+                                     consts)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+def test_pagerank_fp64_forms_bit_equal_to_before(cuda_device):
+    from repro_torch.graphs import gen as G
+    from repro_torch.kernels import pagerank
+
+    got = pagerank_fp64_cases(
+        G, pagerank.pagerank_step_sell,
+        lambda radj, live, contrib, consts: pagerank.pagerank_step(
+            radj, contrib, consts, live_width=live), cuda_device)
+    assert {name: _digest(t) for name, t in got.items()} == \
+        PAGERANK_FP64_DIGESTS
+
+
+def _fp32_close(got, want, what: str) -> None:
+    """Float32 ranks against their plain version: 1e-4 x max|rank| a
+    column (the port's fp32 scale; only the summation order differs)."""
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    g = got.reshape(got.shape[0], -1).double()
+    w = want.reshape(want.shape[0], -1).double()
+    bound = 1e-4 * w.abs().amax(dim=0)
+    assert bool(((g - w).abs() <= bound).all()), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 32])
+def test_graph_fp32_pagerank_forms_match_plain_versions(cuda_device, c):
+    """B3's float PageRank forms on unsplit and split buckets (rmat's
+    widest in-degree slices) at k in (scalar, 1, 3, 32) and B5's float
+    form, against their plain versions at 1e-4 x max|rank| a column; two
+    calls bit-equal; ``ops.pagerank(dtype=torch.float32)`` on both layouts
+    against the plain drives."""
+    from repro_torch.core import autotune
+    from repro_torch.graphs import gen as G
+    from repro_torch.kernels import bfs, pagerank
+
+    rng = np.random.default_rng(c)
+    g = G.rmat_graph(4096, 16, seed=1)
+    n = g.n_nodes
+    adj, nodes = G.graph_to_sell_slabs(g.transpose(), c=c).to_device(
+        cuda_device)
+    for k in (None, 1, 3, 32):
+        kt = sell_core.node_k_tile(1 if k is None else k)
+        assert any(autotune.node_split(a.shape[2], c, a.shape[0], kt, 4,
+                                       "pagerank").parts > 1 for a in adj)
+        assert any(autotune.node_split(a.shape[2], c, a.shape[0], kt, 4,
+                                       "pagerank").parts == 1 for a in adj)
+        shape = (n + 1,) if k is None else (n + 1, k)
+        contrib = torch.from_numpy(rng.random(shape).astype(np.float32)).to(
+            cuda_device)
+        contrib[-1] = 0.0
+        consts = torch.from_numpy(rng.random(
+            (3,) if k is None else (3, k)).astype(np.float32)).to(cuda_device)
+        before = dict(pagerank.KERNEL_LAUNCHES)
+        got = pagerank.pagerank_step_sell(adj, nodes, contrib, consts)
+        torch.cuda.synchronize()
+        assert pagerank.KERNEL_LAUNCHES["pagerank_step_sell_fp32"] == \
+            before["pagerank_step_sell_fp32"] + len(adj)
+        assert pagerank.KERNEL_LAUNCHES["pagerank_step_sell"] == \
+            before["pagerank_step_sell"]
+        assert torch.equal(got, pagerank.pagerank_step_sell(
+            adj, nodes, contrib, consts))
+        _fp32_close(got, pagerank.pagerank_step_sell_ref(
+            adj, nodes, contrib, consts), f"B3 fp32 C={c} k={k}")
+    radj = g.transpose().to_device(cuda_device)
+    live = bfs.ell_live_widths(radj)
+    contrib = torch.from_numpy(rng.random(n).astype(np.float32)).to(
+        cuda_device)
+    consts = torch.tensor([0.15 / n, 0.85, 1e-5], dtype=torch.float32,
+                          device=cuda_device)
+    got = pagerank.pagerank_step(radj, contrib, consts, live_width=live)
+    assert torch.equal(got, pagerank.pagerank_step(radj, contrib, consts))
+    _fp32_close(got, pagerank.pagerank_step_ref(radj, contrib, consts),
+                "B5 fp32")
+    deg = torch.from_numpy(g.out_degree.astype(np.float64)).to(cuda_device)
+    for layout in ("ell", "sell"):
+        r = ops.pagerank(g, damping=[0.85, 0.9], iters=[20, 7],
+                         spec=ExecSpec(layout=layout, vl=c,
+                                       device=cuda_device.type),
+                         dtype=torch.float32)
+        if layout == "sell":
+            want = pagerank.pagerank_sell_ref(
+                adj, nodes, deg, n, damping=[0.85, 0.9], iters=[20, 7],
+                dtype=torch.float32)
+        else:
+            want = torch.stack([pagerank.pagerank_ref(
+                radj, deg, damping=d, iters=it, dtype=torch.float32)
+                for d, it in ((0.85, 20), (0.9, 7))], dim=1)
+        _fp32_close(r, want, f"ops.pagerank fp32 {layout}")
+
+
+@pytest.mark.cuda
+def test_sharded_drives_on_one_card_bit_equal_to_unsharded(cuda_device):
+    """The four sharded drives on a mesh naming the card three times:
+    each ``torch.equal`` to the serial fold (the same per-shard launches)
+    and, on operands none of whose buckets B1 or B3 splits, to the
+    unsharded port; RHS-sharded SpMM and BFS equal everywhere; the same
+    through ``ops`` and through a registry with the mesh and the
+    service."""
+    from repro_torch.core import autotune
+    from repro_torch.graphs import gen as G
+    from repro_torch.kernels import bfs, pagerank, sell_shard
+    from repro_torch.service import KernelRegistry, KernelService
+
+    mesh = (cuda_device,) * 3
+    rng = np.random.default_rng(9)
+    csr = F.random_csr(6000, 6000, 9.0, seed=5, skew=0.3)
+    slabs = F.csr_to_sell_slabs(csr, c=32)
+    assert not sell_core.splits(slabs.bucket_cols)
+    sharded = F.shard_slabs(slabs, 3)
+    assert not sell_core.splits(tuple(b[0] for b in sharded.bucket_cols))
+    cols, vals, rows = slabs.to_device(cuda_device)
+    for k in (1, 8, 32):
+        x = torch.from_numpy(rng.standard_normal((6000, k))).to(cuda_device)
+        want = sell_core.spmm_sell(cols, vals, rows, x, n_rows=6000,
+                                   k_block=8)
+        got = sell_shard.spmm_sell_sharded(sharded, x, mesh=mesh, k_block=8)
+        assert torch.equal(got, sell_shard.spmm_sell_sharded(sharded, x,
+                                                             k_block=8))
+        assert torch.equal(got, want)
+        assert torch.equal(sell_shard.spmm_sell_rhs_sharded(
+            slabs, x, mesh=mesh, k_block=8), want)
+        assert torch.equal(ops.spmm(slabs, x, spec=ExecSpec(
+            vl=32, k_block=8, placement=mesh)), want)
+    g = G.random_graph(5000, 8, seed=4)
+    n = g.n_nodes
+    rg = g.transpose()
+    sg = G.shard_graph_slabs(rg, c=32, n_shards=3)
+    assert max(sg.widths) < autotune.NODE_SPLIT_WIDTH
+    adj, nodes = G.graph_to_sell_slabs(rg, c=32).to_device(cuda_device)
+    deg = torch.from_numpy(g.out_degree.astype(np.float64)).to(cuda_device)
+    src = [0, 17, 4999]
+    d0 = bfs.bfs_sell(adj, nodes, n, src)
+    assert torch.equal(sell_shard.bfs_sell_sharded(sg, src, mesh=mesh), d0)
+    assert torch.equal(sell_shard.bfs_sell_sharded(sg, src,
+                                                   device=cuda_device), d0)
+    for dtype in (torch.float64, torch.float32):
+        r0 = pagerank.pagerank_sell(adj, nodes, deg, n, damping=[0.85, 0.9],
+                                    iters=12, dtype=dtype)
+        r1 = sell_shard.pagerank_sell_sharded(
+            sg, deg, mesh=mesh, damping=[0.85, 0.9], iters=12, dtype=dtype)
+        assert torch.equal(r1, sell_shard.pagerank_sell_sharded(
+            sg, deg, damping=[0.85, 0.9], iters=12, dtype=dtype,
+            device=cuda_device))
+        assert torch.equal(r1, r0)
+    spec = ExecSpec(layout="sell", vl=32, placement=mesh)
+    assert torch.equal(ops.bfs(g, src, spec=spec), d0)
+    assert torch.equal(ops.pagerank(g, iters=12, spec=spec),
+                       ops.pagerank(g, iters=12, spec=ExecSpec(
+                           layout="sell", vl=32, device=cuda_device.type)))
+    reg = KernelRegistry(mesh=mesh)
+    reg.register_matrix("a", csr)
+    reg.register_graph("g", g)
+    svc = KernelService(reg, n_slots=8)
+    xs = [rng.standard_normal(6000) for _ in range(4)]
+    r = [svc.submit("spmv", "a", x) for x in xs]
+    b = [svc.submit("bfs", "g", None, source=s) for s in src]
+    svc.drain()
+    assert svc.stats["sharded_launches"] == 2
+    op = reg.get("a")
+    want = sell_core.spmm_sell(*op.slabs.to_device(cuda_device),
+                               torch.from_numpy(np.stack(xs, 1)).to(
+                                   cuda_device), n_rows=6000,
+                               k_block=op.tuned.k_block)
+    for i, rid in enumerate(r):
+        assert torch.equal(svc.poll(rid), want[:, i])
+    for i, rid in enumerate(b):
+        assert torch.equal(svc.poll(rid), d0[:, i])
 
 
 # ---------------------------------------------------------------------------

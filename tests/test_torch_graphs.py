@@ -339,7 +339,8 @@ def _group_walk(bucket_adj, bucket_nodes, state, *, level=None,
     most = 1
     for adj, nodes in zip(bucket_adj, bucket_nodes):
         s, c, w = adj.shape
-        split = autotune.node_split(w, c, s, k_tile, state.element_size())
+        split = autotune.node_split(w, c, s, k_tile, state.element_size(),
+                                    "bfs" if bfs_step else "pagerank")
         most = max(most, split.parts)
         a = adj.reshape(s * c, w).long()
         v = nodes.reshape(-1).long()
@@ -576,12 +577,14 @@ def test_graph_plans_mirror_the_kernel_launch():
     assert meta.idx_max < 300 and meta.map_max == 300 and meta.map_min == 0
     for k, want_y in ((1, 1), (6, 3), (32, 1), (64, 2)):
         k_tile = sell_core.node_k_tile(k)
-        for plan, itemsize in ((plan_bfs_sell(meta, k=k), 4),
-                               (plan_pagerank_sell(meta, k=k), 8)):
+        for plan, itemsize, combine in (
+                (plan_bfs_sell(meta, k=k), 4, "bfs"),
+                (plan_pagerank_sell(meta, k=k), 8, "pagerank")):
             assert plan.ok and plan.n_launches == len(slabs.widths)
             for b, a in zip(plan.blocks, slabs.bucket_adj):
                 s, c, w = a.shape
-                split = autotune.node_split(w, c, s, k_tile, itemsize)
+                split = autotune.node_split(w, c, s, k_tile, itemsize,
+                                            combine)
                 assert b.grid == (-(-s * c // split.nodes), want_y)
                 assert b.block == (split.threads,)
                 assert b.smem_bytes == split.smem_bytes
@@ -619,8 +622,10 @@ def test_graph_plans_reject_what_the_kernels_cannot_take():
                            ).raise_if_invalid()
     with pytest.raises(LaunchPlanError, match="beyond the dump slot"):
         plan_bfs_sell(dataclasses.replace(meta, map_max=301)).raise_if_invalid()
+    # the kernels have a float64 and a float32 form, and no other
+    assert plan_pagerank_sell(meta, dtype="float32").ok
     with pytest.raises(LaunchPlanError, match="float64"):
-        plan_pagerank_sell(meta, dtype="float32").raise_if_invalid()
+        plan_pagerank_sell(meta, dtype="float16").raise_if_invalid()
     with pytest.raises(LaunchPlanError, match="grid.y"):
         plan_bfs_sell(meta, k=65_537).raise_if_invalid()
     with pytest.raises(LaunchPlanError, match="not a power of two"):
@@ -711,5 +716,6 @@ def test_graph_kernels_are_registered_for_the_build():
             "repro_pagerank_ell_step"} <= set(fns)
     assert set(bfs.KERNEL_LAUNCHES) == {"bfs_step_sell", "bfs_step",
                                         "bfs_frontier"}
-    assert set(pagerank.KERNEL_LAUNCHES) == {"pagerank_step_sell",
-                                             "pagerank_step"}
+    assert set(pagerank.KERNEL_LAUNCHES) == {
+        "pagerank_step_sell", "pagerank_step", "pagerank_step_sell_fp32",
+        "pagerank_step_fp32"}

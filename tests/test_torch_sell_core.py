@@ -493,8 +493,9 @@ def test_node_split_at_the_graph_paths_bucket_shapes(graph, k_tile,
     from repro_torch.core import autotune as A
 
     group = {(32, 8): 16, (32, 4): 8, (1, 8): 1, (1, 4): 1, (8, 8): 4}
+    combine = "pagerank" if itemsize == 8 else "bfs"
     for w, s in GRAPH_BUCKETS[graph]:
-        split = A.node_split(w, 32, s, k_tile, itemsize)
+        split = A.node_split(w, 32, s, k_tile, itemsize, combine)
         assert split.group == group[k_tile, itemsize]
         assert split.threads <= A.NODE_SPLIT_MAX_THREADS
         assert split.threads % 32 == 0
@@ -511,7 +512,7 @@ def test_node_split_at_the_graph_paths_bucket_shapes(graph, k_tile,
                 else 4 * split.nodes)
         assert split.smem_bytes == want
     if graph == "rmat15":
-        widest = A.node_split(8192, 32, 1, k_tile, itemsize)
+        widest = A.node_split(8192, 32, 1, k_tile, itemsize, combine)
         assert 8192 // widest.parts <= 128
         assert widest.nodes == 1 and widest.threads == 1024
     # the plans mirror it, bucket by bucket
@@ -524,7 +525,7 @@ def test_node_split_at_the_graph_paths_bucket_shapes(graph, k_tile,
             else plan_bfs_sell(meta, k=k_tile))
     assert plan.ok
     for b, (w, s) in zip(plan.blocks, GRAPH_BUCKETS[graph]):
-        split = A.node_split(w, 32, s, k_tile, itemsize)
+        split = A.node_split(w, 32, s, k_tile, itemsize, combine)
         assert b.block == (split.threads,)
         assert b.grid == (-(-s * 32 // split.nodes), 1)
         assert b.smem_bytes == split.smem_bytes
