@@ -260,7 +260,29 @@ result line is printed:
               from the step-4 checkpoint, within 1e-6 of an uninterrupted
               run); both backward kernels timed at the train step's shapes
               beside their bounds, plain versions and (B9) ``zeros +
-              index_add_``.
+              index_add_``;
+15. mesh    — the dense and MoE families over (data, model) meshes that
+              name the card data x model times (one process drives every
+              device of a mesh): B9's vocab-shard form against its plain
+              version (4 row shards of mixtral's and llama's tables, T =
+              512 and 4, int32 / int64 ids on every shard boundary and
+              outside [0, V), ``torch.equal``, the shards summing to the
+              whole-table gather); mixtral-8x7b at full width cut to 2
+              layers on (1, 4), (2, 2) and (1, 16), deepseek-moe-16b cut to
+              2 (its dense first layer and one MoE layer) on (1, 4) and
+              llama-3.2-3b at full width and depth on (1, 4), each placed by
+              the partition rules from the unsharded model's weights:
+              prefill logits of (4, 512) prompts and 4 decode steps within
+              1e-4 x max|logit| of the unsharded port (MoE combines on B1),
+              greedy tokens equal past the margin, ``Batcher(n_slots=4)``
+              on 8 requests of 512 tokens and 16 new, every token equal
+              to the unsharded continuation past the margin; mixtral's
+              plain and fused engines on (1, 4) (the fused combines on B1
+              through a service on the lead device); prefill ms, decode ms
+              a step and tokens/s a mesh; B9's shard form and B1's
+              launches counted around each mesh's drive; the shard form
+              timed at mixtral's and llama's shards beside the whole-table
+              B9, the plain version and its bound.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with a record per kernel.
@@ -430,6 +452,25 @@ PR_FP32_TOL = 1e-4
 #: max|rank| a column (the same float32 sums grouped otherwise: 3.6e-8
 #: measured on rmat15 at k = 32)
 SHARD_FP32_TOL = 1e-6
+#: the mesh phase: (arch, depth (None: the published one), (data, model)
+#: meshes), each mesh naming the card data x model times; every run held
+#: against the unsharded port with the same weights
+MESH_RUNS = (("mixtral-8x7b", 2, ((1, 4), (2, 2), (1, 16))),
+             ("deepseek-moe-16b", 2, ((1, 4),)),
+             ("llama3.2-3b", None, ((1, 4),)))
+#: decode steps of the mesh runs' logits check
+MESH_DECODE_STEPS = 4
+#: the mesh phase's logits against the unsharded port's, x max|logit|: fp32
+#: partial products summed in another order (as LM_LOGIT_RTOL)
+MESH_LOGIT_RTOL = 1e-4
+#: the device a mesh phase's mesh names data x model times
+MESH_DEVICE = "cuda:0"
+#: B9's vocab-shard form: the tables split over a 4-way model axis
+#: (mixtral's and llama's vocabularies and widths), its timing shard
+MESH_GATHER_TABLES = {"mixtral-8x7b": (32_000, 4096), "llama3.2-3b": (128_256, 3072)}
+MESH_GATHER_SHARDS = 4
+#: the card's memory rate for bounds (NVIDIA's H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
 #: where every tensor of the run lives: the card
 DEVICE = "cuda"
 
@@ -4867,6 +4908,351 @@ def add_train(kernels: list[dict], tm: dict) -> None:
         rec["launches"] += tm["launches"][name]
 
 
+# ---------------------------------------------------------------------------
+# The mesh phase: the dense and MoE families on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+def mesh_config(configs, arch: str, layers):
+    """A mesh run's model: ``arch``'s published config, cut to ``layers``
+    (deepseek's 2: its dense first layer and one MoE layer)."""
+    cfg = configs.get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def gather_shard_ids(torch, np, v: int, n_shards: int, t: int, id_dtype, seed):
+    """(t,) ids on the card: every shard's first and last rows and ids past
+    either end of the vocabulary (a card's ids, bounded by the kernel),
+    then random rows."""
+    rows = v // n_shards
+    edge = [e for k in range(n_shards) for e in (k * rows, (k + 1) * rows - 1)]
+    edge += [v, v + 7, -1, -v - 3, 2**31 - 1, -v]
+    ids = np.random.default_rng(seed).integers(0, v, t)
+    ids[:min(t, len(edge))] = edge[:t]
+    return torch.tensor(ids, dtype=id_dtype, device=DEVICE)
+
+
+def compare_gather_shard(torch, np, gather_k) -> float:
+    """B9's vocab-shard form against its plain version on the card, each
+    of MESH_GATHER_SHARDS row shards of mixtral's and llama's tables, T =
+    LM_PROMPT and LM_SLOTS, int32 and int64 ids (every shard's boundary
+    rows, card ids past V and below 0): ``torch.equal``, one launch a
+    call, the shards' sum equal to the whole-table gather.  Returns the
+    largest absolute difference seen (0 where every case is equal)."""
+    n_cases, worst = 0, 0.0
+    for name, (v, d) in MESH_GATHER_TABLES.items():
+        table = torch.randn((v, d), dtype=torch.float32, device=DEVICE)
+        rows = v // MESH_GATHER_SHARDS
+        for t in (LM_PROMPT, LM_SLOTS):
+            for id_dtype in (torch.int32, torch.int64):
+                ids = gather_shard_ids(torch, np, v, MESH_GATHER_SHARDS, t,
+                                       id_dtype, t)
+                total = None
+                for k in range(MESH_GATHER_SHARDS):
+                    shard = table[k * rows:(k + 1) * rows]
+                    before = gather_k.SHARD_LAUNCHES
+                    got = gather_k.embedding_gather_shard(shard, ids, k * rows, v)
+                    torch.cuda.synchronize()
+                    if gather_k.SHARD_LAUNCHES != before + 1:
+                        raise AssertionError("B9 shard: not one launch a call")
+                    want = gather_k.embedding_gather_shard_ref(shard, ids,
+                                                               k * rows, v)
+                    worst = max(worst, max_err(got, want))
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"B9 shard {name} k={k} T={t} {id_dtype}: max err "
+                            f"{max_err(got, want):.3e}")
+                    total = got if total is None else total + got
+                    n_cases += 1
+                if not torch.equal(total, gather_k.embedding_gather_ref(table, ids)):
+                    raise AssertionError(f"B9 shard {name} T={t}: the shards "
+                                         "do not sum to the whole gather")
+        del table
+    phase("compare", f"B9 shard form: {n_cases} cases torch.equal to "
+          f"embedding_gather_shard_ref ({MESH_GATHER_SHARDS} row shards of "
+          f"{', '.join(f'{n} {v}x{d}' for n, (v, d) in MESH_GATHER_TABLES.items())}"
+          f", T in ({LM_PROMPT}, {LM_SLOTS}), int32 / int64 ids with every "
+          "boundary row and card ids outside [0, V)); the shards sum to the "
+          "whole-table gather")
+    return worst
+
+
+def time_gather_shard(torch, np, gather_k, flush, launches: int,
+                      err: float) -> dict:
+    """B9's shard form at the mesh runs' shapes: mixtral's and llama's
+    (V / 4, d) shard (shard 1) at T = LM_PROMPT and LM_SLOTS, int64 ids
+    across the whole vocabulary on the card, the median of 10 CUDA-event
+    timings with the L2 flushed, beside the whole-table B9 at the same T
+    and the plain version.  Bound: bytes this run's ids need (the T output
+    rows written, the rows this shard owns read once each, the ids read)
+    over HBM_BYTES_PER_S."""
+    out = {}
+    for name, (v, d) in MESH_GATHER_TABLES.items():
+        table = torch.randn((v, d), dtype=torch.float32, device=DEVICE)
+        rows = v // MESH_GATHER_SHARDS
+        shard = table[rows:2 * rows]
+        for t in (LM_PROMPT, LM_SLOTS):
+            ids = torch.tensor(np.random.default_rng(t).integers(0, v, t),
+                               dtype=torch.int64, device=DEVICE)
+            owned = int(((ids >= rows) & (ids < 2 * rows)).sum())
+            ms = time_ms(torch, lambda: gather_k.embedding_gather_shard(
+                shard, ids, rows, v), flush)
+            whole_ms = time_ms(torch, lambda: gather_k.embedding_gather(
+                table, ids), flush)
+            plain_ms = time_ms(torch, lambda: gather_k.embedding_gather_shard_ref(
+                shard, ids, rows, v), flush)
+            nbytes = (t + owned) * d * 4 + t * 8
+            rec = {"ms": ms, "whole_table_ms": whole_ms, "plain_ms": plain_ms,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "owned_rows": owned}
+            out[(name, t)] = rec
+            phase("timing", f"B9 shard {name} ({rows}, {d}) shard 1, T={t}: "
+                  f"{ms:.4f} ms | whole-table B9 {whole_ms:.4f} ms | plain "
+                  f"{plain_ms:.4f} ms | bound {rec['bound_ms']:.4f} ms "
+                  f"({owned} rows owned) | {smi_line()}")
+        del table, shard
+    main = out[("mixtral-8x7b", LM_PROMPT)]
+    return {"name": "embedding_gather_shard", "route": "cuda",
+            "source": "src/repro_torch/csrc/embedding_gather.cu",
+            "replaces": "src/repro/kernels/gather.py:24",
+            "launches": launches, "max_abs_err": err,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "whole_table_ms": main["whole_table_ms"],
+            "shape": f"T={LM_PROMPT} int64 ids on the card, shard 1 of "
+                     f"mixtral's table over a {MESH_GATHER_SHARDS}-way model "
+                     "axis (8000, 4096) fp32",
+            "other": {f"{n} T={t}": r for (n, t), r in out.items()
+                      if (n, t) != ("mixtral-8x7b", LM_PROMPT)}}
+
+
+def greedy_steps(torch, np, M, params, cfg, prompts, n_steps: int, *,
+                 mesh=None, scope=contextlib.nullcontext):
+    """Prefill ``prompts`` and ``n_steps - 1`` greedy decode steps: the
+    prefill logits, each step's last logits (on the host), the greedy
+    tokens, their top-2 margins and the host-clock ms of the prefill and a
+    decode step (the card synchronized)."""
+    with scope():
+        caches = M.init_caches(cfg, prompts.shape[0], LM_PROMPT + LM_NEW_TOKENS,
+                               dtype=torch.float32, device=DEVICE, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = M.prefill(params, cfg, {"tokens": prompts}, caches,
+                                   mesh=mesh)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        last = logits[:, -1]
+        steps = [last.cpu()]
+        t0 = time.perf_counter()
+        for _ in range(n_steps - 1):
+            last, caches = M.decode_step(params, cfg,
+                                         torch.argmax(last, dim=-1)[:, None],
+                                         caches, mesh=mesh)
+            steps.append(last.cpu())
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / max(n_steps - 1, 1)
+    last = torch.stack(steps, 1).numpy()
+    top2 = np.sort(last, axis=-1)[..., -2:]
+    return {"steps": last, "tokens": last.argmax(-1).astype(np.int32),
+            "margins": top2[..., 1] - top2[..., 0],
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms}
+
+
+def mesh_prefill(torch, M, params, cfg, prompts, mesh=None,
+                 scope=contextlib.nullcontext):
+    """The (b, S) prefill logits on the host (the logits check's)."""
+    with scope():
+        caches = M.init_caches(cfg, prompts.shape[0], LM_PROMPT + LM_NEW_TOKENS,
+                               dtype=torch.float32, device=DEVICE, mesh=mesh)
+        logits, _ = M.prefill(params, cfg, {"tokens": prompts}, caches,
+                              mesh=mesh)
+    return logits.cpu()
+
+
+def serve_batcher(torch, serve, cfg, params, prompts, mesh=None) -> tuple:
+    """LM_REQUESTS requests of LM_PROMPT tokens and LM_NEW_TOKENS new ones
+    through ``Batcher(n_slots=LM_SLOTS)``: tokens by request and tokens/s."""
+    gcfg = serve.GenerationConfig(cache_len=LM_PROMPT + LM_NEW_TOKENS)
+    b = serve.Batcher(cfg, params, n_slots=LM_SLOTS, gcfg=gcfg, mesh=mesh)
+    for rid, pr in enumerate(prompts):
+        b.submit(serve.Request(rid=rid, prompt=pr, max_new_tokens=LM_NEW_TOKENS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = {r.rid: r.generated for r in done}
+    return toks, sum(len(t) for t in toks.values()) / wall
+
+
+def mesh_path(torch, np, configs, M, serve, moe, sell_core, gather_k,
+              KernelRegistry, KernelService, make_mesh, sharding) -> dict:
+    """Phase 15: the dense and MoE families tensor-, expert- and
+    data-parallel over (data, model) meshes naming the card data x model
+    times (one process drives every device of a mesh; here all are
+    cuda:0).  For each of MESH_RUNS: the model at full width from LM_SEED
+    on the card, unsharded; its greedy continuation of LM_REQUESTS prompts
+    (LM_PROMPT tokens, LM_NEW_TOKENS new) with top-2 margins and its
+    batcher's tokens; then on each mesh the same weights placed by the
+    partition rules: prefill logits of (LM_SLOTS, LM_PROMPT) prompts and
+    MESH_DECODE_STEPS decode steps within MESH_LOGIT_RTOL x max|logit| of
+    the unsharded run (the MoE combines on B1, ``moe.sell_dispatch``),
+    greedy tokens equal past the margin, and the batcher's tokens; on
+    mixtral's first mesh the plain and the fused engine (its combines on B1
+    through a service whose registry is on the lead device).  Each mesh's
+    drive runs with B9's and B1's counts set to 0 just before it and read
+    just after: the shard form of B9 must have launched, and B1 for a MoE
+    model."""
+    out = {"b9_shard": 0, "b1": 0, "runs": []}
+    for arch, layers, shapes in MESH_RUNS:
+        t_arch = time.perf_counter()
+        cfg = mesh_config(configs, arch, layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg)
+        rng = np.random.default_rng(LM_SEED)
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (LM_REQUESTS, LM_PROMPT)).astype(np.int32)
+        head = prompts[:LM_SLOTS]
+        want = greedy_steps(torch, np, M, params, cfg, prompts, LM_NEW_TOKENS)
+        want_pre = mesh_prefill(torch, M, params, cfg, head)
+        is_moe = cfg.moe is not None
+        scope = moe.sell_dispatch if is_moe else contextlib.nullcontext
+        # the unsharded times at the mesh runs' batch and dispatch, after the
+        # same warm call
+        base = greedy_steps(torch, np, M, params, cfg, head,
+                            MESH_DECODE_STEPS + 1, scope=scope)
+        scale = float(np.abs(want["steps"]).max())
+        tol = MESH_LOGIT_RTOL * max(1.0, float(want_pre.abs().max()), scale)
+        plain_toks, plain_tps = serve_batcher(torch, serve, cfg, params, prompts)
+        for rid, toks in plain_toks.items():
+            margin_rule(np.asarray([toks]), want["tokens"][rid:rid + 1],
+                        want["margins"][rid:rid + 1], tol, label=f"mesh {arch}")
+        phase("mesh", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {describe_lm(cfg)}, vocab {cfg.vocab_size}; "
+              f"unsharded: prefill ({LM_SLOTS}, {LM_PROMPT}) "
+              f"{base['prefill_ms']:.2f} ms, decode {base['decode_ms']:.2f} ms "
+              f"a step of {LM_SLOTS}, batcher {plain_tps:.2f} tokens/s")
+        for k, shape in enumerate(shapes):
+            n_dev = shape[0] * shape[1]
+            mesh = make_mesh(shape, ("data", "model"), (MESH_DEVICE,) * n_dev)
+            t0 = time.perf_counter()
+            placed = sharding.place_params(params, cfg, mesh)
+            torch.cuda.synchronize()
+            place_s = time.perf_counter() - t0
+            gather_k.SHARD_LAUNCHES = 0
+            sell_core.KERNEL_LAUNCHES = 0
+            got_pre = mesh_prefill(torch, M, placed, cfg, head, mesh, scope)
+            got = greedy_steps(torch, np, M, placed, cfg, head,
+                               MESH_DECODE_STEPS + 1, mesh=mesh, scope=scope)
+            pre_err = max_err(got_pre, want_pre)
+            step_err = float(np.abs(got["steps"] - want["steps"][
+                :LM_SLOTS, :MESH_DECODE_STEPS + 1]).max())
+            if pre_err > tol or step_err > tol:
+                raise AssertionError(
+                    f"mesh {arch} {shape}: logits differ by {pre_err:.3e} "
+                    f"(prefill) / {step_err:.3e} (decode) > {tol:.3e}")
+            checked, close = margin_rule(
+                got["tokens"], want["tokens"][:LM_SLOTS, :MESH_DECODE_STEPS + 1],
+                want["margins"][:LM_SLOTS], tol, label=f"mesh {arch} {shape}")
+            toks, tps = serve_batcher(torch, serve, cfg, placed, prompts, mesh)
+            for rid, t in toks.items():
+                margin_rule(np.asarray([t]), want["tokens"][rid:rid + 1],
+                            want["margins"][rid:rid + 1], tol,
+                            label=f"mesh {arch} {shape} batcher {rid}")
+            same = sum(toks[r] == plain_toks[r] for r in toks)
+            run = {"arch": arch, "layers": cfg.n_layers, "mesh": list(shape),
+                   "prefill_ms": got["prefill_ms"], "decode_ms": got["decode_ms"],
+                   "unsharded_prefill_ms": base["prefill_ms"],
+                   "unsharded_decode_ms": base["decode_ms"],
+                   "tokens_per_s": tps, "unsharded_tokens_per_s": plain_tps,
+                   "prefill_err": pre_err, "decode_err": step_err,
+                   "place_s": place_s}
+            if is_moe and k == 0 and arch == MESH_RUNS[0][0]:
+                run.update(mesh_engines(torch, np, serve, moe, KernelRegistry,
+                                        KernelService, cfg, placed, mesh, head,
+                                        want, tol))
+            b9, b1 = gather_k.SHARD_LAUNCHES, sell_core.KERNEL_LAUNCHES
+            if b9 == 0:
+                raise AssertionError(f"mesh {arch} {shape}: no B9 shard launch")
+            if is_moe and b1 == 0:
+                raise AssertionError(f"mesh {arch} {shape}: no B1 launch on "
+                                     "the MoE combines")
+            run.update(b9_shard_launches=b9, b1_launches=b1)
+            out["b9_shard"] += b9
+            out["b1"] += b1
+            out["runs"].append(run)
+            phase("mesh", f"{cfg.name} on {shape} (data, model) over {MESH_DEVICE} x "
+                  f"{n_dev}: placed in {place_s:.2f} s; prefill ({LM_SLOTS}, "
+                  f"{LM_PROMPT}) {got['prefill_ms']:.2f} ms, decode "
+                  f"{got['decode_ms']:.2f} ms a step of {LM_SLOTS}, batcher "
+                  f"{tps:.2f} tokens/s (unsharded {plain_tps:.2f}); logits "
+                  f"within {pre_err:.3e} / {step_err:.3e} of the unsharded "
+                  f"(limit {tol:.3e}); {len(checked)} greedy tokens equal, "
+                  f"{len(close)} within the margin; batcher {same} of "
+                  f"{len(toks)} requests equal to the unsharded batcher's, all "
+                  f"past the margin; B9 shard launches {b9}, B1 {b1} | "
+                  f"{smi_line()}")
+            del placed
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
+        phase("mesh", f"{cfg.name} done in {time.perf_counter() - t_arch:.1f} s")
+    return out
+
+
+def mesh_engines(torch, np, serve, moe, KernelRegistry, KernelService, cfg,
+                 placed, mesh, prompts, want, tol) -> dict:
+    """The plain and the fused engine on a mesh, LM_NEW_TOKENS tokens of
+    ``prompts``: the fused run's combines are ``moe_dispatch`` requests of
+    a float32 envelope on a service whose registry is on the lead device
+    (kernel B1); its tokens equal the plain engine's past the margin."""
+    m = cfg.moe
+    replicas = mesh.shape["data"]
+    b, s = prompts.shape
+    cap = int(s * m.top_k / m.n_experts * m.capacity_factor) + 1
+    reg = KernelRegistry(device=DEVICE)
+    reg.register_moe("mesh-moe", n_tokens=b * s // replicas,
+                     n_slots=b // replicas * m.n_experts * cap,
+                     d_model=cfg.d_model, top_k=m.top_k, dtype="float32")
+    svc = KernelService(reg, n_slots=LM_SLOTS)
+    gcfg = serve.GenerationConfig(max_new_tokens=LM_NEW_TOKENS,
+                                  cache_len=LM_PROMPT + LM_NEW_TOKENS)
+    ran = {}
+    for name, kw in (("plain", {}), ("fused", dict(kernel_service=svc,
+                                                   moe_operand="mesh-moe"))):
+        eng = serve.ServeEngine(cfg, placed, gcfg, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ran[name] = eng.generate(prompts)
+        torch.cuda.synchronize()
+        ran[name + "_tokens_per_s"] = ran[name].size / (time.perf_counter() - t0)
+    margin_rule(ran["plain"], want["tokens"][:b], want["margins"][:b], tol,
+                label="mesh plain engine")
+    margin_rule(ran["fused"], ran["plain"], want["margins"][:b], tol,
+                label="mesh fused engine")
+    n = svc.stats["moe_dispatch_launches"]
+    phase("mesh", f"{cfg.name} engines on {tuple(mesh.devices.shape)}: plain "
+          f"{ran['plain_tokens_per_s']:.2f} tokens/s, fused "
+          f"{ran['fused_tokens_per_s']:.2f} tokens/s ({n} moe_dispatch "
+          f"launches on B1 through the service on {reg.device}); fused tokens "
+          f"{'equal to' if np.array_equal(ran['fused'], ran['plain']) else 'past the margin of'}"
+          " the plain engine's")
+    return {"plain_engine_tokens_per_s": ran["plain_tokens_per_s"],
+            "fused_engine_tokens_per_s": ran["fused_tokens_per_s"],
+            "fused_moe_dispatch_launches": n}
+
+
+def add_mesh(kernels: list[dict], mp: dict, shard_rec: dict) -> None:
+    """The mesh phase on the kernels line: B9's shard form (its launches
+    the phase's), and B1's launches there under ``launches_by_path``."""
+    kernels.append(shard_rec)
+    rec = next(r for r in kernels if r["name"] == "spmm_sell")
+    rec.setdefault("launches_by_path", {"main paths": rec["launches"]})
+    rec["launches_by_path"]["mesh"] = mp["b1"]
+    rec["launches"] += mp["b1"]
+
+
 def main() -> int:
     import torch
 
@@ -4881,6 +5267,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch import configs, serve
+    from repro_torch.compat import make_mesh
     from repro_torch.graphs import gen as G
     from repro_torch.kernels import bfs as bfs_k
     from repro_torch.kernels import cuda_lib, ops, sell_core, sell_shard
@@ -4891,7 +5278,7 @@ def main() -> int:
     from repro_torch.kernels import ssd as ssd_k
     from repro_torch.kernels.execspec import ExecSpec
     from repro_torch.models import model as M
-    from repro_torch.models import moe
+    from repro_torch.models import moe, sharding
     from repro_torch.service import KernelRegistry, KernelService
     from repro_torch.sparse import formats as F
 
@@ -5053,7 +5440,19 @@ def main() -> int:
     train_resume(torch, configs)
     add_train(kernels, tm)
     kernels += time_train_kernels(torch, np, ssd_k, gather_k, tm, terrs, flush)
-    phase("train", f"done in {time.perf_counter() - t0:.1f} s; whole run "
+    phase("train", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 15. the dense and MoE families over (data, model) meshes ---------
+    t0 = time.perf_counter()
+    del tm
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_err = compare_gather_shard(torch, np, gather_k)
+    mp = mesh_path(torch, np, configs, M, serve, moe, sell_core, gather_k,
+                   KernelRegistry, KernelService, make_mesh, sharding)
+    add_mesh(kernels, mp, time_gather_shard(torch, np, gather_k, flush,
+                                            mp["b9_shard"], shard_err))
+    phase("mesh", f"done in {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -133,6 +133,7 @@ __all__ = [
     "plan_bfs_ell",
     "plan_bfs_sell",
     "plan_embedding_gather",
+    "plan_embedding_gather_shard",
     "plan_fft_stockham",
     "plan_moe_dispatch",
     "plan_pagerank_ell",
@@ -1047,6 +1048,33 @@ def plan_embedding_gather(vocab: int, d: int, ids, *, dtype: str = "float32",
     return LaunchPlan(kernel="embedding_gather",
                       operand=f"gather T={t} from ({vocab}, {d})", dtype=dtype,
                       blocks=(block,), violations=tuple(violations))
+
+
+def plan_embedding_gather_shard(vocab: int, lo: int, rows: int, d: int, ids, *,
+                                dtype: str = "float32",
+                                vl: int = 256) -> LaunchPlan:
+    """Plan the vocab-shard form of ``embedding_gather``: rows ``[lo, lo +
+    rows)`` of a (vocab, d) table, held on one device of a mesh's model
+    axis.  The launch is the whole-table gather's
+    (:func:`plan_embedding_gather`, its grid (T, chunks)); host ids are
+    scanned against the *whole* vocabulary and refused before upload outside
+    ``[0, vocab)``, ids on the card are bounded by the whole vocabulary inside
+    the kernel, then masked to the shard.  The window must lie inside the
+    vocabulary."""
+    plan = plan_embedding_gather(vocab, d, ids, dtype=dtype, vl=vl)
+    violations = list(plan.violations)
+    if lo < 0 or rows < 1 or lo + rows > vocab:
+        violations.append(f"shard rows [{lo}, {lo + rows}) outside the "
+                          f"vocabulary [0, {vocab})")
+    (blk,) = plan.blocks
+    t = blk.operands[0][1][0]
+    block = dataclasses.replace(blk, operands=(
+        blk.operands[0], ("table", (rows, d), dtype), ("out", (t, d), dtype)))
+    return LaunchPlan(kernel="embedding_gather_shard",
+                      operand=f"gather T={t} from rows [{lo}, {lo + rows}) of "
+                              f"({vocab}, {d})",
+                      dtype=dtype, blocks=(block,),
+                      violations=tuple(violations))
 
 
 def plan_embedding_gather_bwd(vocab: int, d: int, t: int, *,

@@ -2,7 +2,8 @@
 
 A copy of ``repro.configs`` (data only).  The port serves every arch here
 (``repro_torch.launch.serve``); mixtral-8x7b at full width needs more
-than one card (ROADMAP A10b).
+than one card: a mesh (``repro_torch.models.sharding``,
+``scripts/mesh_serve_cards.py``).
 
 ``get_config(arch)`` returns the full published config; ``reduced`` gives the
 CPU smoke-test version.  ``SHAPES`` defines the per-arch input shapes, and

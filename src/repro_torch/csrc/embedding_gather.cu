@@ -34,6 +34,16 @@
 //     host preflight (repro_torch/analysis/preflight.py::
 //     plan_embedding_gather) still refuses host ids outside [0, V).
 //
+// The vocab-shard form (repro_embedding_gather_shard, the same kernel): a
+// table sharded by rows over a mesh's model axis, each device holding rows
+// [lo, lo + V_d).  Each id is bounded by the whole table's V first, then a
+// row this shard does not hold gathers zeros, so the shards' outputs sum to
+// the whole-table gather exactly.  (A bound by the shard's own rows would
+// be wrong: an id past V must read row V - 1 from the last shard alone.)
+// It moves T * d * itemsize bytes of zeros or rows out a shard and reads
+// only its own rows; the whole table (lo = 0, V_d = V) is the special case
+// the plain entry launches.  Host wrapper: gather.py::embedding_gather_shard.
+//
 // The host wrapper is repro_torch/kernels/gather.py::embedding_gather; it
 // plans the launch (once per shape for ids already on the card), allocates
 // the output and raises on a non-zero return code.
@@ -98,15 +108,25 @@ constexpr int kMaxThreads = 256;
 template <typename V, typename Id>
 __global__ void __launch_bounds__(kMaxThreads)
 gather_rows_kernel(const Id* __restrict__ ids, const V* __restrict__ table,
-                   V* __restrict__ out, int64_t row_vecs, int64_t n_rows) {
+                   V* __restrict__ out, int64_t row_vecs, int64_t vocab, int64_t lo,
+                   int64_t shard_rows) {
   constexpr int LOADS = kThreadBytes / sizeof(V);
   const int64_t r = blockIdx.x;
   const int64_t begin = static_cast<int64_t>(blockIdx.y) * LOADS * blockDim.x;
   int64_t id = static_cast<int64_t>(__ldg(ids + r));
-  if (id < 0) id += n_rows;
-  id = id < 0 ? 0 : (id >= n_rows ? n_rows - 1 : id);
-  const V* src = table + id * row_vecs;
+  if (id < 0) id += vocab;
+  id = (id < 0 ? 0 : (id >= vocab ? vocab - 1 : id)) - lo;
   V* dst = out + r * row_vecs;
+  if (id < 0 || id >= shard_rows) {          // another shard owns the row
+    const V zero{};
+#pragma unroll
+    for (int k = 0; k < LOADS; ++k) {
+      const int64_t i = begin + threadIdx.x + k * blockDim.x;
+      if (i < row_vecs) dst[i] = zero;
+    }
+    return;
+  }
+  const V* src = table + id * row_vecs;
   V buf[LOADS];
 #pragma unroll
   for (int k = 0; k < LOADS; ++k) {
@@ -286,29 +306,54 @@ gather_bwd_kernel(const Id* __restrict__ ids, const V* __restrict__ dout,
 }
 
 template <typename V, typename Id>
-cudaError_t launch(const void* table, int64_t n_rows, const void* ids, void* out,
-                   int64_t n_ids, int64_t row_bytes, int chunks, int threads,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* table, const void* ids, void* out, int64_t n_ids,
+                   int64_t row_bytes, int64_t vocab, int64_t lo, int64_t shard_rows,
+                   int chunks, int threads, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(n_ids), static_cast<unsigned>(chunks));
   gather_rows_kernel<V, Id><<<grid, threads, 0, stream>>>(
-      static_cast<const Id*>(ids), static_cast<const V*>(table),
-      static_cast<V*>(out), row_bytes / static_cast<int64_t>(sizeof(V)), n_rows);
+      static_cast<const Id*>(ids), static_cast<const V*>(table), static_cast<V*>(out),
+      row_bytes / static_cast<int64_t>(sizeof(V)), vocab, lo, shard_rows);
   return cudaGetLastError();
 }
 
 template <typename Id>
-cudaError_t launch_id(const void* table, int64_t n_rows, const void* ids, void* out,
-                      int64_t n_ids, int64_t row_bytes, int chunks, int threads,
-                      cudaStream_t st) {
+cudaError_t launch_id(const void* table, const void* ids, void* out, int64_t n_ids,
+                      int64_t row_bytes, int64_t vocab, int64_t lo, int64_t shard_rows,
+                      int chunks, int threads, cudaStream_t st) {
   auto aligned = [&](uintptr_t v) {
     return row_bytes % v == 0 && reinterpret_cast<uintptr_t>(table) % v == 0 &&
            reinterpret_cast<uintptr_t>(out) % v == 0;
   };
   if (aligned(16))
-    return launch<uint4, Id>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads, st);
+    return launch<uint4, Id>(table, ids, out, n_ids, row_bytes, vocab, lo, shard_rows, chunks,
+                             threads, st);
   if (aligned(8))
-    return launch<uint2, Id>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads, st);
-  return launch<unsigned, Id>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads, st);
+    return launch<uint2, Id>(table, ids, out, n_ids, row_bytes, vocab, lo, shard_rows, chunks,
+                             threads, st);
+  return launch<unsigned, Id>(table, ids, out, n_ids, row_bytes, vocab, lo, shard_rows, chunks,
+                              threads, st);
+}
+
+// The checks and the launch of both forward entries: rows [lo, lo +
+// shard_rows) of a vocab-row table, held in `table`.
+int gather_entry(const void* table, int64_t vocab, int64_t lo, int64_t shard_rows,
+                 const void* ids, void* out, int64_t n_ids, int64_t row_bytes, int id_bytes,
+                 int chunks, int threads, void* stream) {
+  const int64_t chunk_bytes = static_cast<int64_t>(kThreadBytes) * threads;
+  if (vocab <= 0 || lo < 0 || shard_rows <= 0 || lo + shard_rows > vocab || n_ids <= 0 ||
+      n_ids > 2147483647 || row_bytes <= 0 || row_bytes % 4 != 0 ||
+      (id_bytes != 4 && id_bytes != 8) || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || chunks < 1 || chunks > 65535 ||
+      chunks * chunk_bytes < row_bytes || (chunks - 1) * chunk_bytes >= row_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      id_bytes == 8 ? launch_id<long long>(table, ids, out, n_ids, row_bytes, vocab, lo,
+                                           shard_rows, chunks, threads, st)
+                    : launch_id<int>(table, ids, out, n_ids, row_bytes, vocab, lo, shard_rows,
+                                     chunks, threads, st);
+  return static_cast<int>(err);
 }
 
 template <typename V>
@@ -341,21 +386,22 @@ extern "C" {
 int repro_embedding_gather(const void* table, int64_t n_rows, const void* ids,
                            void* out, int64_t n_ids, int64_t row_bytes,
                            int id_bytes, int chunks, int threads, void* stream) {
-  const int64_t chunk_bytes = static_cast<int64_t>(kThreadBytes) * threads;
-  if (n_rows <= 0 || n_ids <= 0 || n_ids > 2147483647 || row_bytes <= 0 ||
-      row_bytes % 4 != 0 ||
-      (id_bytes != 4 && id_bytes != 8) || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 || chunks < 1 || chunks > 65535 ||
-      chunks * chunk_bytes < row_bytes || (chunks - 1) * chunk_bytes >= row_bytes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      id_bytes == 8
-          ? launch_id<long long>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads,
-                                 st)
-          : launch_id<int>(table, n_rows, ids, out, n_ids, row_bytes, chunks, threads, st);
-  return static_cast<int>(err);
+  return gather_entry(table, n_rows, 0, n_rows, ids, out, n_ids, row_bytes, id_bytes, chunks,
+                      threads, stream);
+}
+
+// The vocab-shard form: `table` holds rows [lo, lo + shard_rows) of a vocab-row
+// table (0 <= lo, lo + shard_rows <= vocab).  Each id is bounded to a row of the
+// whole table as above (by vocab, not by the shard); out[i] is that row where this
+// shard holds it, else zeros.  Summed over the shards of a table, the outputs are
+// the whole-table gather exactly (one shard owns each row).  The rest as for
+// repro_embedding_gather.
+int repro_embedding_gather_shard(const void* table, int64_t shard_rows, int64_t lo,
+                                 int64_t vocab, const void* ids, void* out, int64_t n_ids,
+                                 int64_t row_bytes, int id_bytes, int chunks, int threads,
+                                 void* stream) {
+  return gather_entry(table, vocab, lo, shard_rows, ids, out, n_ids, row_bytes, id_bytes,
+                      chunks, threads, stream);
 }
 
 // The backward.  ids (n_ids,) of id_bytes (4: int32, 8: int64), any values

@@ -144,6 +144,10 @@ KERNELS = {
         # threads, stream
         "repro_embedding_gather": (
             [_P, _I64, _P, _P, _I64, _I64, _I, _I, _I, _P], _I),
+        # table, shard_rows, lo, vocab, ids, out, n_ids, row_bytes,
+        # id_bytes, chunks, threads, stream
+        "repro_embedding_gather_shard": (
+            [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I, _I, _I, _P], _I),
         # ids, id_bytes, dout, dtable, n_rows, n_ids, d, is_double,
         # vec_bytes, stripe, chunks, threads, stream
         "repro_embedding_gather_bwd": (

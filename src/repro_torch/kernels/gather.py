@@ -18,6 +18,16 @@ table and (T,) ids, the same traffic class as the paper's SpMV x-gather.
   ``table[clamp_ids(ids, V)]``.
 * :func:`clamp_ids` — the row each id reads: the reference's indexing
   rule.
+* :func:`embedding_gather_shard` — the vocab-shard form, for a table split
+  by rows over a mesh's model axis
+  (:mod:`repro_torch.models.sharding`): the shard holding rows ``[lo, lo +
+  V_d)`` gathers ``table_d[r - lo]`` where the bounded row ``r =
+  clamp_ids(ids, V)[i]`` (the *whole* table's V) lies in its window, else
+  zeros, so the shards' outputs sum to :func:`embedding_gather` exactly.
+  The same kernel, its own C entry; host ids are scanned against V before
+  upload (:func:`~repro_torch.analysis.preflight
+  .plan_embedding_gather_shard`).  Plain version:
+  :func:`embedding_gather_shard_ref`.  Its backward waits for ROADMAP A10c.
 * :func:`embedding_gather_bwd` — the backward, ``dtable[v] = Σ_{i: ids_i
   = v} dout_i`` (dense (V, d), XLA's scatter into zeros): one launch of
   ``csrc/embedding_gather.cu``'s backward kernel on the ids as they are
@@ -41,17 +51,22 @@ from repro_torch.analysis.preflight import (
     ids_on_host,
     plan_embedding_gather,
     plan_embedding_gather_bwd,
+    plan_embedding_gather_shard,
 )
 from repro_torch.core.autotune import gather_bwd_grid
 
-__all__ = ["BWD_LAUNCHES", "KERNEL_LAUNCHES", "clamp_ids", "embedding_gather",
-           "embedding_gather_bwd", "embedding_gather_bwd_ref",
-           "embedding_gather_ref"]
+__all__ = ["BWD_LAUNCHES", "KERNEL_LAUNCHES", "SHARD_LAUNCHES", "clamp_ids",
+           "embedding_gather", "embedding_gather_bwd", "embedding_gather_bwd_ref",
+           "embedding_gather_ref", "embedding_gather_shard",
+           "embedding_gather_shard_ref"]
 
 #: Launches of kernel B9 by :func:`embedding_gather` in this process: one
 #: per call on a CUDA table, counted where the kernel is launched and
 #: nowhere else.
 KERNEL_LAUNCHES = 0
+#: Launches of B9's vocab-shard form by :func:`embedding_gather_shard` in
+#: this process: one per call on a CUDA table shard.
+SHARD_LAUNCHES = 0
 #: Launches of B9's backward kernel by :func:`embedding_gather_bwd` in this
 #: process: one per call on a CUDA gradient.
 BWD_LAUNCHES = 0
@@ -79,47 +94,65 @@ def embedding_gather_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor
     return table[clamp_ids(ids, table.shape[0])]
 
 
+def _full_plan(vocab: int, d: int, ids, dtype: str, vl: int,
+               shard: tuple[int, int] | None):
+    """The plan of the whole-table gather, or of the shard ``(lo, rows)``
+    of the table."""
+    if shard is None:
+        return plan_embedding_gather(vocab, d, ids, dtype=dtype, vl=vl)
+    return plan_embedding_gather_shard(vocab, *shard, d, ids, dtype=dtype, vl=vl)
+
+
 @functools.lru_cache(maxsize=256)
 def _shape_plan(vocab: int, d: int, shape: tuple, id_dtype: str, dtype: str,
-                vl: int):
+                vl: int, shard: tuple[int, int] | None = None):
     """The plan of ids whose values it does not read: what it checks and
-    the grid it sets depend on (V, d, T, id dtype, table dtype) alone, so
-    one plan serves every call of those."""
+    the grid it sets depend on (V, d, T, id dtype, table dtype, shard)
+    alone, so one plan serves every call of those."""
     unread = types.SimpleNamespace(shape=shape, dtype=id_dtype, device="meta")
-    return plan_embedding_gather(vocab, d, unread, dtype=dtype, vl=vl)
+    return _full_plan(vocab, d, unread, dtype, vl, shard)
 
 
-def _plan(vocab: int, d: int, ids, dtype: str, vl: int):
+def _plan(vocab: int, d: int, ids, dtype: str, vl: int,
+          shard: tuple[int, int] | None = None):
     """The launch plan of one call.  Ids on a device: the cached plan of
     their shape and dtype (their values are never read back).  Ids on the
     host: the same cached plan once their values pass the range scan, which
     runs on every call; else the full plan, naming the violation."""
-    plan = _shape_plan(vocab, d, tuple(ids.shape), str(ids.dtype), dtype, vl)
+    plan = _shape_plan(vocab, d, tuple(ids.shape), str(ids.dtype), dtype, vl,
+                       shard)
     if plan.ok and ids_on_host(ids) and gather_ids_violation(ids, vocab):
-        return plan_embedding_gather(vocab, d, ids, dtype=dtype, vl=vl)
+        return _full_plan(vocab, d, ids, dtype, vl, shard)
     return plan
 
 
 @functools.cache
 def _kernel():
-    """The bound C entry point and its error-string function, resolved once."""
+    """The bound C entry points and the error-string function, resolved once."""
     from repro_torch.kernels import cuda_lib
 
     lib = cuda_lib.library("embedding_gather")
-    return lib.repro_embedding_gather, lib.repro_gather_cuda_error_string
+    return (lib.repro_embedding_gather, lib.repro_embedding_gather_shard,
+            lib.repro_gather_cuda_error_string)
 
 
-def _launch(table, ids, out, chunks: int, threads: int) -> None:
+def _launch(table, ids, out, chunks: int, threads: int,
+            window: tuple[int, int] | None = None) -> None:
     """One launch of kernel B9, grid (T, ``chunks``) of ``threads``, on
     PyTorch's current stream of the table's device, with that device
-    current.  ``ids`` are int32 or int64 on the table's device."""
-    global KERNEL_LAUNCHES
-    fn, error_string = _kernel()
+    current.  ``ids`` are int32 or int64 on the table's device.
+    ``window``: ``(lo, vocab)`` where ``table`` holds rows ``[lo, lo +
+    len(table))`` of a vocab-row table (the vocab-shard form's entry)."""
+    global KERNEL_LAUNCHES, SHARD_LAUNCHES
+    whole, shard, error_string = _kernel()
     index = table.device.index
-    args = (table.data_ptr(), table.shape[0], ids.data_ptr(), out.data_ptr(),
-            ids.shape[0],
+    tail = (ids.data_ptr(), out.data_ptr(), ids.shape[0],
             table.shape[1] * table.element_size(), _ID_BYTES[ids.dtype],
             chunks, threads, torch.cuda.current_stream(index).cuda_stream)
+    if window is None:
+        fn, args = whole, (table.data_ptr(), table.shape[0]) + tail
+    else:
+        fn, args = shard, (table.data_ptr(), table.shape[0]) + tuple(window) + tail
     if index == torch.cuda.current_device():
         err = fn(*args)
     else:
@@ -130,7 +163,10 @@ def _launch(table, ids, out, chunks: int, threads: int) -> None:
             f"embedding_gather kernel launch failed (cudaError {err}: "
             f"{error_string(err).decode()}) for {ids.shape[0]} ids from a "
             f"{tuple(table.shape)} table")
-    KERNEL_LAUNCHES += 1
+    if window is None:
+        KERNEL_LAUNCHES += 1
+    else:
+        SHARD_LAUNCHES += 1
 
 
 def embedding_gather(table: torch.Tensor, ids, *, vl: int = 256) -> torch.Tensor:
@@ -147,13 +183,28 @@ def embedding_gather(table: torch.Tensor, ids, *, vl: int = 256) -> torch.Tensor
     ``vl`` is the reference's rows a grid step; the CUDA grid does not
     depend on it.
     """
+    table, ids, plan = _checked(table, ids, vl)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbeddingGather.apply(table, ids, plan)
+    return _gather(table, ids, plan)
+
+
+def _checked(table: torch.Tensor, ids, vl: int,
+             window: tuple[int, int] | None = None):
+    """The checks of both wrappers: the table's shape and dtype, the plan
+    (raised if invalid, before any upload), then the ids as a tensor (on
+    the table's card as int32 / int64 for a CUDA table).  ``window``:
+    ``(lo, vocab)`` of a table shard.  Returns (table, ids, plan)."""
     if table.ndim != 2:
         raise ValueError(f"table must be (V, d), got shape {tuple(table.shape)}")
     dtype = _DTYPE_NAMES.get(table.dtype)
     if dtype is None:
         raise TypeError(f"table dtype {table.dtype} is not float32 or float64")
-    v, d = table.shape
-    plan = _plan(v, d, ids, dtype, vl)
+    rows, d = table.shape
+    if window is None:
+        plan = _plan(rows, d, ids, dtype, vl)
+    else:
+        plan = _plan(window[1], d, ids, dtype, vl, (window[0], rows))
     plan.raise_if_invalid()
     if isinstance(ids, np.ndarray):
         ids = torch.from_numpy(ids)
@@ -167,23 +218,53 @@ def embedding_gather(table: torch.Tensor, ids, *, vl: int = 256) -> torch.Tensor
         raise RuntimeError(
             f"embedding_gather has a CUDA kernel and a CPU reference; got "
             f"{table.device}")
-    if torch.is_grad_enabled() and table.requires_grad:
-        return _EmbeddingGather.apply(table, ids, plan)
-    return _gather(table, ids, plan)
+    return table, ids, plan
 
 
-def _gather(table: torch.Tensor, ids: torch.Tensor, plan) -> torch.Tensor:
-    """The gather of planned ids: :func:`embedding_gather_ref` on a CPU
-    table, else one launch of kernel B9 (ids already on the table's card)."""
+def _gather(table: torch.Tensor, ids: torch.Tensor, plan,
+            window: tuple[int, int] | None = None) -> torch.Tensor:
+    """The gather of planned ids (the shard ``window = (lo, vocab)`` of a
+    table where given): the plain version on a CPU table, else one launch
+    of kernel B9 (ids already on the table's card)."""
     if table.device.type == "cpu":
-        return embedding_gather_ref(table, ids)
+        if window is None:
+            return embedding_gather_ref(table, ids)
+        return embedding_gather_shard_ref(table, ids, *window)
     table = table.contiguous()
     out = torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
                       device=table.device)
     if ids.shape[0]:
         (blk,) = plan.blocks
-        _launch(table, ids, out, blk.grid[1], blk.block[0])
+        _launch(table, ids, out, blk.grid[1], blk.block[0], window)
     return out
+
+
+def embedding_gather_shard_ref(table: torch.Tensor, ids, lo: int,
+                               vocab: int) -> torch.Tensor:
+    """Plain vocab-shard gather: row ``clamp_ids(ids, vocab)[i] - lo`` of
+    ``table`` (rows ``[lo, lo + len(table))`` of the whole table) where the
+    shard holds it, else zeros: (T, d) on the table's device."""
+    ids = torch.as_tensor(ids, device=table.device)
+    rows = clamp_ids(ids, vocab) - lo
+    own = (rows >= 0) & (rows < table.shape[0])
+    out = table[rows.clamp(0, table.shape[0] - 1)]
+    return torch.where(own[:, None], out, torch.zeros((), dtype=table.dtype,
+                                                       device=table.device))
+
+
+def embedding_gather_shard(table: torch.Tensor, ids, lo: int, vocab: int, *,
+                           vl: int = 256) -> torch.Tensor:
+    """The vocab-shard form of :func:`embedding_gather`: ``table`` (V_d,
+    d) holds rows ``[lo, lo + V_d)`` of a (``vocab``, d) table; returns (T,
+    d), each row the gathered one where this shard holds the bounded id's
+    row, else zeros.  Ids as for :func:`embedding_gather`: host ids outside
+    ``[0, vocab)`` are refused before upload, ids on the card are bounded by
+    ``vocab`` inside the kernel.  On a CUDA table one launch of B9 (its
+    shard entry) or a raise; on a CPU table, and only there,
+    :func:`embedding_gather_shard_ref`.  No gradient (ROADMAP A10c)."""
+    window = (int(lo), int(vocab))
+    table, ids, plan = _checked(table, ids, vl, window)
+    return _gather(table, ids, plan, window)
 
 
 class _EmbeddingGather(torch.autograd.Function):

@@ -17,10 +17,15 @@ the dense path, as the reference's does), ``"ssm"`` (mamba2-2.7b),
 ``"audio"`` (seamless-m4t-medium); as in the reference, the batcher hands
 the last two no ``ctx_embeds``, so their requests decode against the
 caches' zero context.  mixtral-8x7b ``--full`` does not fit one card: its
-46.7 B parameters are 186.8 GB in fp32 against 80 GB (it waits for
-multi-device serving, ROADMAP A10b), and any ``--mesh`` other than
-``none`` raises (A10b).  The batcher's KV caches share one length across
-slots, as the reference's: prompts of one length serve correctly.
+46.7 B parameters are 186.8 GB in fp32 against 80 GB.  ``--mesh single``
+/ ``multi`` serves on the reference's production mesh
+(:func:`repro_torch.launch.mesh.make_production_mesh`: (16, 16) or (2, 16,
+16) distinct cards, ``ValueError`` on a machine with fewer), the
+parameters born sharded by the partition rules (the dense and MoE
+families; the others raise, ROADMAP A10c).  ``scripts/mesh_serve_cards.py``
+serves mixtral-8x7b on the cards a machine has.  The batcher's KV caches
+share one length across slots, as the reference's: prompts of one length
+serve correctly.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.kernels.execspec import resolve_device
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.obs import Stopwatch
 from repro_torch.serve import Batcher, GenerationConfig, Request
@@ -47,20 +53,19 @@ def main(argv=None) -> None:
     ap.add_argument("--cache-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", choices=["none", "single", "multi"], default="none",
-                    help="production mesh to shard over (ROADMAP A10b: only "
-                         "'none' is ported)")
+                    help="production mesh to shard over (needs the device count)")
     ap.add_argument("--device", default="cuda",
                     help="where to serve: cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-device serving is ROADMAP A10b")
-    dev = resolve_device(args.device)
+    mesh = (None if args.mesh == "none"
+            else make_production_mesh(multi_pod=(args.mesh == "multi")))
+    dev = resolve_device(args.device) if mesh is None else mesh.devices.flat[0]
 
     cfg = configs.get_config(args.arch) if args.full else configs.reduced_config(args.arch)
-    params = M.init_params(M.make_generator(args.seed, dev), cfg)
+    # on a mesh the parameters are born sharded by the partition rules
+    params = M.init_params(M.make_generator(args.seed, dev), cfg, mesh=mesh)
     gcfg = GenerationConfig(cache_len=args.cache_len)
-    batcher = Batcher(cfg, params, n_slots=args.slots, gcfg=gcfg)
+    batcher = Batcher(cfg, params, n_slots=args.slots, gcfg=gcfg, mesh=mesh)
     rng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size, (args.prompt_len,)).astype(np.int32)

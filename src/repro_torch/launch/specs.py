@@ -1,0 +1,81 @@
+"""Placement specs for a model's batch, parameters and decode caches on a
+mesh — the placement half of ``repro.launch.specs``.
+
+Each function returns the tree of its input with a spec at every leaf (a
+tuple of axis names or ``None``, one entry a dim: see
+:mod:`repro_torch.models.sharding`); the leaves may be tensors or anything
+with a ``shape``.  ``state_shardings`` (the train state with ZeRO-1) waits
+for ROADMAP A10c; ``input_specs*`` and ``abstract_*`` (the dry run's
+shape-only stand-ins) for A12.5.  The reference's opt-in flags
+``KV_SEQ_SHARD`` and ``FSDP_PARAMS`` (both off by default there) are not
+ported.
+"""
+from __future__ import annotations
+
+from repro_torch.compat import MeshContext
+from repro_torch.models import sharding as shrd
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["batch_shardings", "cache_shardings", "param_shardings"]
+
+
+def _dp_axes(mesh) -> tuple[str, ...]:
+    ctx = MeshContext.of(mesh)
+    return tuple(a for a in shrd.DATA if ctx.has_axis(a))
+
+
+def _dp_size(mesh) -> int:
+    return MeshContext.of(mesh).axis_size(_dp_axes(mesh))
+
+
+def batch_shardings(mesh, batch: dict, batch_size: int) -> dict:
+    """Batch dim over (pod, data) when divisible, else replicated."""
+    dp = _dp_axes(mesh)
+    dp = dp if batch_size % max(_dp_size(mesh), 1) == 0 else ()
+
+    def spec(leaf):
+        return shrd.canonical((dp,) + (None,) * (len(leaf.shape) - 1))
+    return {k: spec(v) for k, v in batch.items()}
+
+
+def param_shardings(mesh, cfg: ModelConfig, params) -> dict[str, tuple]:
+    """Parameter name -> spec: the TP / EP partition rules."""
+    return shrd.model_param_specs(cfg, params, mesh)
+
+
+def cache_shardings(mesh, cfg: ModelConfig, caches, batch_size: int):
+    """Decode caches: batch over (pod, data) when divisible; kv heads / ssm
+    channels over model; ring ``pos`` / scalars replicated."""
+    ctx = MeshContext.of(mesh)
+    dp = _dp_axes(mesh)
+    dp = dp if batch_size % max(_dp_size(mesh), 1) == 0 else ()
+    dp_or_none = dp if dp else None
+    model = "model" if ctx.has_axis("model") else None
+
+    def spec_for(leaf) -> tuple:
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        # KV k/v: (..., B, C, Hkv, dh) ; ssm state: (..., B, h, p, n)
+        # conv ring: (..., B, k-1, channels) ; pos: (..., C) ; length: (...)
+        if nd >= 4 and shape[-1] > 1 and shape[-2] > 1:
+            lead = nd - 4
+            if shape[-2] == cfg.n_kv_heads and cfg.n_kv_heads:
+                heads_ok = cfg.n_kv_heads % max(ctx.axis_size("model"), 1) == 0
+                head_ax = model if heads_ok else None
+                return (None,) * lead + (dp_or_none, None, head_ax, None)
+            if cfg.ssm and shape[-1] == cfg.ssm.d_state and shape[-2] == cfg.ssm.head_dim:
+                return (None,) * lead + (dp_or_none, model, None, None)
+        if nd >= 3 and cfg.ssm and shape[-1] == cfg.d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state:
+            return (None,) * (nd - 3) + (dp_or_none, None, model)
+        if nd >= 3 and shape[-1] == cfg.d_model:     # memory/ctx (B, T, d)
+            return (None,) * (nd - 3) + (dp_or_none, None, None)
+        return ()
+
+    def checked(leaf) -> tuple:
+        spec = spec_for(leaf)
+        parts = spec + (None,) * (len(leaf.shape) - len(spec))
+        return shrd.canonical(
+            a if a and leaf.shape[i] % ctx.axis_size(a) == 0 else None
+            for i, a in enumerate(parts))
+
+    return shrd.tree_map(checked, caches)

@@ -16,7 +16,7 @@ trains in float32 (kernels B8 and B9 take float32 / float64).  minicpm
 trains with WSD, as in the reference; the others at a constant rate.  The
 vision and enc-dec families need ``ctx_embeds`` in the batch, which this
 CLI does not make (the reference's neither); ``--mesh`` other than
-``none`` raises (multi-device is ROADMAP A10b).  Prints a ``[train]`` line
+``none`` raises (multi-device training is ROADMAP A10c).  Prints a ``[train]`` line
 every 10 steps and a ``[done]`` line; :func:`main` returns (final state,
 history).
 """
@@ -48,7 +48,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", choices=["none", "single", "multi"], default="none",
-                    help="production mesh to shard over (ROADMAP A10b: only "
+                    help="production mesh to shard over (ROADMAP A10c: only "
                          "'none' is ported)")
     ap.add_argument("--device", default="cuda",
                     help="where to train: cuda (default) or cpu")
@@ -59,7 +59,7 @@ def main(argv=None, log=print):
     args = parse_args(argv)
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-device training is ROADMAP A10b")
+            f"--mesh {args.mesh}: multi-device training is ROADMAP A10c")
     cfg = configs.get_config(args.arch) if args.full else configs.reduced_config(args.arch)
     # minicpm trains with WSD (its defining feature); the others at a constant rate
     if args.arch == "minicpm-2b":

@@ -26,10 +26,20 @@ projects keys and values from the context, of its own length T and width
 ``d_ctx``, and attends without rope, mask or cache, as the reference does:
 so a decode step recomputes them from the whole context.
 
+On a mesh (:func:`attention_tp`) each device of a data replica's model
+axis runs its own q heads against its own kv heads and its own piece of
+the KV cache, and the partial products of ``wo``'s row shards are summed
+on the replica's lead device (the reference's GSPMD constraints, made
+explicit).  Where the spec splits ``wk`` / ``wv`` inside a head (the kv
+heads do not divide over the model axis), each device gathers those
+weights, keeps every kv head in its (replicated) cache piece and attends
+with the kv head of each of its q heads; where the q heads do not divide,
+the layer runs whole on the lead.
+
 Not ported: the reference's opt-in module flags, all off by default there:
 ``ATTN_KV_CHUNK`` (online-softmax key blocks), ``ATTN_BF16_SCORES`` (bf16
 score buffers) and ``SEQ_SHARD_FALLBACK`` (sequence-parallel queries on a
-mesh, A10b).
+mesh, ROADMAP's list of the reference's mesh flags left).
 
 Parameters live in :class:`Attention`, an ``nn.Module`` whose tensors keep
 the reference's names and layouts (``wq`` is (d, Hq dh), ``wo`` (Hq dh,
@@ -38,23 +48,28 @@ d)), so the reference's weights move over as they are
 """
 from __future__ import annotations
 
+import dataclasses
+import types
 from typing import NamedTuple
 
 import torch
 from torch import nn
 
 from repro_torch.kernels.execspec import resolve_device
+from repro_torch.models import sharding as shrd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, he_init, param, rms_norm, rope_freqs
 
-__all__ = ["NEG_INF", "Attention", "KVCache", "attention", "cache_append",
-           "init_attn_params", "init_cache"]
+__all__ = ["NEG_INF", "Attention", "KVCache", "attention", "attention_tp",
+           "cache_append", "init_attn_params", "init_cache"]
 
 NEG_INF = -1e30
 
 #: The parameter names an :class:`Attention` may hold, in the reference's
 #: order: the projections, then the ``qkv_bias`` and ``qk_norm`` leaves.
 PARAM_NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "q_norm", "k_norm")
+#: The parameters a kv head owns (split with the kv heads on a mesh).
+_KV_SIDE = ("wk", "wv", "bk", "bv")
 
 
 class KVCache(NamedTuple):
@@ -186,7 +201,8 @@ def _window_mask(ok: torch.Tensor, kpos: torch.Tensor, qpos: torch.Tensor,
 
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
               ctx: torch.Tensor | None = None, cache: KVCache | None = None,
-              causal: bool = True) -> tuple[torch.Tensor, KVCache | None]:
+              causal: bool = True, kv_heads: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, KVCache | None]:
     """One attention layer.
 
     - no cache: (a)causal self-attention over ``x`` (``causal=False`` for
@@ -197,7 +213,10 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
       window).  Returns (out, new cache);
     - ``ctx`` (B, T, d_ctx): cross-attention over the encoder / vision
       memory: bidirectional, no rope on either side, no cache (``cache``
-      is not read).  Returns (out, None).
+      is not read).  Returns (out, None);
+    - ``kv_heads`` (Hq,): the kv head each query head attends with, in
+      place of the GQA grouping (a model device's share of the q heads
+      against every kv head, :func:`attention_tp`).
     """
     s = x.shape[1]
     q, k, v = _project_qkv(p, cfg, x, ctx)
@@ -214,6 +233,8 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
             mask = _window_mask(kpos <= qpos, kpos, qpos, cfg)
         else:
             mask = torch.zeros((1, 1, 1, 1, 1), device=x.device)
+        if kv_heads is not None:
+            k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
         out, new_cache = _sdpa(q, k, v, mask), None
     else:
         pos = cache.length + ar
@@ -223,5 +244,52 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
         new_cache = cache_append(cache, k, v)
         qpos, kpos = pos[:, None], new_cache.pos[None, :]
         mask = _window_mask((kpos >= 0) & (kpos <= qpos), kpos, qpos, cfg)
-        out = _sdpa(q, new_cache.k.to(q.dtype), new_cache.v.to(q.dtype), mask)
+        k, v = new_cache.k.to(q.dtype), new_cache.v.to(q.dtype)
+        if kv_heads is not None:
+            k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
+        out = _sdpa(q, k, v, mask)
     return torch.matmul(out, p.wo.to(x.dtype)), new_cache
+
+
+def attention_tp(p: shrd.PlacedParams, cfg: ModelConfig, x: torch.Tensor,
+                 row: shrd.Row, *, cache: list[KVCache] | None = None,
+                 causal: bool = True) -> tuple[torch.Tensor, list | None]:
+    """One self-attention layer over the model devices of a data replica.
+    ``p``: the layer's placed parameters; ``x``: (B, S, d) on the replica's
+    lead; ``cache``: each model device's piece of the layer's KV cache (heads
+    split where the model axis divides the kv heads, else every kv head).
+    Returns (out on the lead, the new cache pieces)."""
+    hq, hkv, m_size = cfg.n_heads, cfg.n_kv_heads, row.size
+    if hq % m_size:
+        # the q heads do not split: the layer runs whole on the lead, and
+        # the other devices take copies of its cache (every kv head)
+        whole = types.SimpleNamespace(**{n: leaf.full(row.lead)
+                                         for n, leaf in p.named_leaves()})
+        out, new = attention(whole, cfg, x, cache=None if cache is None
+                             else cache[0], causal=causal)
+        if new is None:
+            return out, None
+        return out, [new] + [KVCache(*(a.to(dev, copy=True) for a in new))
+                             for dev in row.devices[1:]]
+    c = hq // m_size
+    kv_split = hkv % m_size == 0
+    local_cfg = dataclasses.replace(cfg, n_heads=c, head_dim=cfg.d_head,
+                                    n_kv_heads=hkv // m_size if kv_split else hkv)
+    parts, new_cache = [], []
+    for m, (coord, dev) in enumerate(zip(row.coords, row.devices)):
+        def weight(name: str, split: bool) -> torch.Tensor:
+            leaf = p[name]
+            if split or leaf.tp_dim() is None:
+                return leaf.pieces[coord]
+            return leaf.full(dev)             # split inside a head: gathered
+        w = {n: weight(n, n not in _KV_SIDE or kv_split)
+             for n, _ in p.named_leaves()}
+        kv_heads = None
+        if not kv_split:
+            kv_heads = torch.arange(m * c, (m + 1) * c, device=dev) // (hq // hkv)
+        out, new = attention(types.SimpleNamespace(**w), local_cfg, x.to(dev),
+                             cache=None if cache is None else cache[m],
+                             causal=causal, kv_heads=kv_heads)
+        parts.append(out)
+        new_cache.append(new)
+    return shrd.sum_on(parts, row.lead), None if cache is None else new_cache

@@ -25,6 +25,16 @@ per-layer decode caches stay stacked on a leading layer axis, as in the
 reference: a KV cache's k / v are (L, B, C, Hkv, dh), its pos (L, C) and
 length (L,); an SSM state's leaves (L, B, ...).  A hybrid stack carries
 both.  Any other kind raises ``ValueError``.
+
+On a mesh (:func:`run_blocks_tp`, :func:`block_forward_tp`) the kinds
+``"dense"`` and ``"moe"`` run over the placed layers of each data replica:
+the residual stream and the norms stay on the replica's lead device, the
+attention, MLP and experts run over its model devices
+(:func:`~repro_torch.models.attention.attention_tp`,
+:func:`~repro_torch.models.layers.swiglu_tp`,
+:func:`~repro_torch.models.moe.moe_forward_tp`), and each device keeps its
+own pieces of the KV caches.  The other kinds under a mesh are ROADMAP
+A10c.
 """
 from __future__ import annotations
 
@@ -38,15 +48,17 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch.kernels.execspec import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharding as shrd
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, he_init, param, rms_norm, swiglu
+from repro_torch.models.layers import (MLP, he_init, param, rms_norm, swiglu,
+                                       swiglu_tp)
 from repro_torch.models.ssm import SSMState
 
 __all__ = ["Block", "LayerCaches", "MLP", "REMAT_POLICIES", "block_forward",
-           "init_block_params", "init_layer_caches", "remat_call", "run_blocks",
-           "stack_init"]
+           "block_forward_tp", "init_block_params", "init_layer_caches",
+           "remat_call", "run_blocks", "run_blocks_tp", "stack_init"]
 
 #: The block kinds, the reference's.
 KINDS = ("dense", "moe", "ssm", "hybrid", "cross")
@@ -168,6 +180,54 @@ def block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
         x = x + swiglu(h2, m.w_gate.to(x.dtype), m.w_up.to(x.dtype),
                        m.w_down.to(x.dtype))
     return x, new_kv, new_ssm, aux
+
+
+def block_forward_tp(p: shrd.PlacedParams, cfg: ModelConfig, kind: str,
+                     x: torch.Tensor, row: shrd.Row, *,
+                     kv: list[KVCache] | None = None, causal: bool = True
+                     ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
+    """:func:`block_forward` of a placed block of kind ``"dense"`` or
+    ``"moe"`` over a data replica's model devices (``x`` on its lead;
+    ``kv``: each device's piece of the layer's KV cache).  Returns (x, the
+    new KV pieces, aux_loss)."""
+    if kind not in ("dense", "moe"):
+        raise NotImplementedError(f"block kind {kind!r} on a mesh is ROADMAP A10c")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, row.pieces(p["ln1"])[0], cfg.norm_eps)
+    a, new_kv = attn_mod.attention_tp(p.sub("attn"), cfg, h, row, cache=kv,
+                                      causal=causal)
+    x = x + a
+    if "moe" in p:
+        h2 = rms_norm(x, row.pieces(p["ln2"])[0], cfg.norm_eps)
+        m_out, aux = moe_mod.moe_forward_tp(p.sub("moe"), cfg, h2, row)
+        x = x + m_out
+    elif "mlp" in p:
+        h2 = rms_norm(x, row.pieces(p["ln2"])[0], cfg.norm_eps)
+        x = x + swiglu_tp(h2, p.sub("mlp"), row)
+    return x, new_kv, aux
+
+
+def run_blocks_tp(p: shrd.PlacedParams, n_layers: int, cfg: ModelConfig,
+                  kind: str, x: torch.Tensor, row: shrd.Row, *,
+                  kv: list[KVCache] | None = None, causal: bool = True
+                  ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
+    """:func:`run_blocks` over the placed stack ``p`` (layers ``0`` ..
+    ``n_layers - 1``) of a data replica; ``kv``: each model device's
+    layer-stacked KV cache pieces.  Returns (x, the new stacked pieces,
+    aux_sum)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = []
+    for i in range(n_layers):
+        x, new, aux_l = block_forward_tp(
+            p.sub(str(i)), cfg, kind, x, row,
+            kv=None if kv is None else [layer_of(c, i) for c in kv],
+            causal=causal)
+        aux = aux + aux_l
+        layers.append(new)
+    if kv is None:
+        return x, None, aux
+    return x, [_stack([layer[m] for layer in layers], KVCache)
+               for m in range(row.size)], aux
 
 
 def stack_init(gen: torch.Generator, n_layers: int, cfg: ModelConfig,

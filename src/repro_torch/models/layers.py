@@ -14,8 +14,10 @@ import torch
 from torch import nn
 from torch.nn import functional as Fn
 
+from repro_torch.models import sharding as shrd
+
 __all__ = ["MLP", "apply_rope", "embed_init", "frozen", "he_init", "rms_norm",
-           "rope_freqs", "swiglu"]
+           "rope_freqs", "swiglu", "swiglu_tp"]
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
@@ -80,6 +82,21 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = torch.matmul(x, w_gate)
     u = torch.matmul(x, w_up)
     return torch.matmul(Fn.silu(g) * u, w_down)
+
+
+def swiglu_tp(x: torch.Tensor, p, row) -> torch.Tensor:
+    """:func:`swiglu` over the model devices of a data replica (``row``, a
+    :class:`~repro_torch.models.sharding.Row`; ``p``: the MLP's placed
+    weights): ``w_gate`` / ``w_up`` column-parallel, ``w_down``
+    row-parallel, each device's partial product summed on the replica's
+    lead, where ``x`` lies.  An MLP whose width the model axis does not
+    divide is replicated and runs on the lead."""
+    names = ("w_gate", "w_up", "w_down")
+    if p["w_gate"].tp_dim() is None:
+        return swiglu(x, *(row.pieces(p[n])[0].to(x.dtype) for n in names))
+    parts = [swiglu(x.to(dev), *(w.to(x.dtype) for w in ws))
+             for dev, *ws in zip(row.devices, *(row.pieces(p[n]) for n in names))]
+    return shrd.sum_on(parts, x.device)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels, ignore_id: int = -1

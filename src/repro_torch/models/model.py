@@ -33,8 +33,30 @@ block (each vision group, each enc-dec decoder layer) as the reference's
 (:func:`repro_torch.models.blocks.remat_call`).  :func:`prefill` and
 :func:`decode_step` record none.  A ``tok_embed`` in another dtype than
 float32 / float64 (bf16 parameters) is cast to float32 before kernel B9,
-one copy, the gradient flowing back through the cast.  ``mesh`` raises
-``NotImplementedError`` (multi-device is ROADMAP A10b).
+one copy, the gradient flowing back through the cast.
+
+**On a mesh** (``mesh=``, a :class:`~repro_torch.compat.Mesh` with axes
+``("pod", "data", "model")`` or a subset, or the ambient
+:func:`~repro_torch.compat.use_mesh` scope) the dense and MoE families run
+tensor-, expert- and data-parallel, one process driving every device
+(:mod:`repro_torch.models.sharding`).  The parameters are placed by the
+reference's partition rules (:func:`init_params` with ``mesh=`` draws them
+born sharded; :func:`~repro_torch.models.sharding.place_params` places an
+existing model) and the caches by
+:func:`repro_torch.launch.specs.cache_shardings` (:func:`init_caches` with
+``mesh=``).  The batch splits over the data replicas where their count
+divides it; a batch it does not divide (a b = 1 admission) runs on one
+replica (``replica=``), whose new caches the other replicas copy.  In each
+replica the token embedding is kernel B9's vocab-shard form on each
+device's rows of ``tok_embed``, summed on the replica's lead (exact: one
+shard owns each row; the whole-table B9 on the lead where the vocabulary
+does not divide), the blocks run as :func:`~repro_torch.models.blocks
+.run_blocks_tp` says, and the head's column shards (``lm_head``, or the
+tied ``tok_embed.T``) give logits joined on the lead along the
+vocabulary.  Logits land on the mesh's first device.  The result is the
+model's without a mesh, to rounding.  No gradient under a mesh, and the
+SSM, hybrid, vision and enc-dec families raise ``NotImplementedError``
+(ROADMAP A10c).
 """
 from __future__ import annotations
 
@@ -44,16 +66,20 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.compat import MeshContext, current_mesh_context
 from repro_torch.kernels import gather
 from repro_torch.kernels.execspec import resolve_device
+from repro_torch.launch import specs as S
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
+from repro_torch.models import sharding as shrd
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_init, he_init, param, rms_norm
 
-__all__ = ["LM", "decode_step", "decoder_layer", "forward", "init_caches",
-           "init_params", "make_generator", "prefill"]
+__all__ = ["LM", "check_mesh_family", "decode_step", "decoder_layer",
+           "forward", "init_caches", "init_params", "make_generator",
+           "params_mesh", "prefill"]
 
 Caches = dict
 
@@ -76,6 +102,11 @@ def _dense0_cfg(cfg: ModelConfig) -> ModelConfig:
 
 def _vision(cfg: ModelConfig) -> bool:
     return cfg.cross_attn is not None and bool(cfg.cross_attn.every)
+
+
+def _n_stacked(cfg: ModelConfig) -> int:
+    """The blocks of a decoder-only stack after DeepSeek's ``dense0``."""
+    return cfg.n_layers - (1 if cfg.dense_first_layer_ff else 0)
 
 
 class LM(nn.Module):
@@ -131,10 +162,44 @@ def decoder_layer(self_block: blk.Block, cross_block: blk.Block) -> nn.ModuleDic
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *,
-                trainable: bool = False) -> LM:
+                trainable: bool = False, mesh=None) -> LM | shrd.PlacedParams:
     """Random init at ``cfg``'s widths on ``gen``'s device, float32; every
-    parameter requires grad when ``trainable``."""
-    return _init_params(gen, cfg).requires_grad_(trainable)
+    parameter requires grad when ``trainable``.
+
+    With ``mesh`` the parameters are born sharded: drawn from ``gen`` in
+    the same order, block after block, each placed on the mesh
+    (:func:`~repro_torch.models.sharding.place`) before the next is drawn,
+    so no device holds more than its share and one whole block.  The
+    pieces are ``torch.equal`` to those of ``place_params(init_params(gen,
+    cfg), cfg, mesh)``."""
+    mesh = _mesh_arg(mesh)
+    if mesh is None:
+        return _init_params(gen, cfg).requires_grad_(trainable)
+    check_mesh_family(cfg)
+    if trainable:
+        raise NotImplementedError("training on a mesh is ROADMAP A10c")
+    leaves: dict[str, shrd.Sharded] = {}
+
+    def put(named) -> None:
+        named = dict(named)
+        specs = shrd.model_param_specs(cfg, named, mesh)
+        for name, t in named.items():
+            leaves[name] = shrd.place(t, specs[name], mesh)
+
+    d = cfg.d_model
+    put([("tok_embed", embed_init(gen, (cfg.vocab_size, d)))])
+    if not cfg.tie_embeddings:
+        put([("lm_head", he_init(gen, (d, cfg.vocab_size)))])
+    put([("final_norm", torch.ones((d,), device=gen.device))])
+    # each block is referenced only inside its put(), so it is freed before
+    # the next one is drawn
+    if cfg.dense_first_layer_ff:
+        put((f"dense0.{n}", t) for n, t in blk.init_block_params(
+            gen, _dense0_cfg(cfg), "dense").named_parameters())
+    for i in range(_n_stacked(cfg)):
+        put((f"blocks.{i}.{n}", t) for n, t in blk.init_block_params(
+            gen, cfg, _kind(cfg)).named_parameters())
+    return shrd.PlacedParams(mesh, leaves)
 
 
 def _init_params(gen: torch.Generator, cfg: ModelConfig) -> LM:
@@ -164,8 +229,7 @@ def _init_params(gen: torch.Generator, cfg: ModelConfig) -> LM:
     dense0 = None
     if cfg.dense_first_layer_ff:
         dense0 = blk.init_block_params(gen, _dense0_cfg(cfg), "dense")
-    blocks = blk.stack_init(gen, cfg.n_layers - (dense0 is not None), cfg,
-                            _kind(cfg))
+    blocks = blk.stack_init(gen, _n_stacked(cfg), cfg, _kind(cfg))
     return LM(tok, norm, head, blocks, dense0)
 
 
@@ -321,9 +385,208 @@ def _run(p: LM, cfg: ModelConfig, batch: dict, caches: Caches | None,
     return _logits(p, cfg, x), new_caches, aux
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh: multi-device execution is ROADMAP A10b")
+# ---------------------------------------------------------------------------
+# The mesh path
+# ---------------------------------------------------------------------------
+
+
+def _mesh_arg(mesh):
+    """The mesh a call runs on: ``mesh`` (a Mesh or MeshContext), else the
+    ambient scope's; None without either."""
+    ctx = MeshContext.of(mesh) if mesh is not None else current_mesh_context()
+    if ctx.empty:
+        return None
+    extra = set(ctx.axis_names) - {*shrd.DATA, shrd.TP}
+    if extra:
+        raise ValueError(f"the model runs on axes {shrd.DATA + (shrd.TP,)}; "
+                         f"the mesh has {sorted(extra)} too")
+    return ctx.mesh
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe") or cfg.hybrid:
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family!r}) on a mesh is ROADMAP A10c: "
+            "the dense and MoE families run on one")
+
+
+def params_mesh(p, cfg: ModelConfig, mesh=None):
+    """The mesh a call with parameters ``p`` runs on: the explicit or
+    ambient mesh, else the one placed parameters lie on; None for an
+    unplaced model without a mesh.  On a mesh the family must be dense or
+    MoE (else ``NotImplementedError``, ROADMAP A10c) and the parameters
+    placed on that mesh (else ``ValueError``)."""
+    mesh = _mesh_arg(mesh)
+    placed = isinstance(p, shrd.PlacedParams)
+    if mesh is None and not placed:
+        return None
+    check_mesh_family(cfg)
+    if not placed:
+        raise ValueError("a mesh needs parameters placed on it: "
+                         "init_params(gen, cfg, mesh=mesh) or "
+                         "sharding.place_params(params, cfg, mesh)")
+    if mesh is not None and mesh != p.mesh:
+        raise ValueError(f"the parameters are placed on {p.mesh!r}, the "
+                         f"call names {mesh!r}")
+    return p.mesh
+
+
+def _ids_for(ids, device: torch.device):
+    """Token ids for a gather on ``device``: card ids move there (host ids
+    stay, to be range-checked before upload)."""
+    if isinstance(ids, torch.Tensor) and ids.device.type != "cpu":
+        return ids.to(device)
+    return ids
+
+
+def _embed_tp(p: shrd.PlacedParams, cfg: ModelConfig, tokens, row: shrd.Row,
+              dtype) -> torch.Tensor:
+    """(B, S) tokens -> (B, S, d) on the replica's lead: kernel B9's
+    vocab-shard form on each device's rows of the table, summed on the
+    lead (the whole-table B9 there where ``tok_embed`` is replicated)."""
+    b, s = tokens.shape
+    ids = tokens.reshape(-1)
+    table = p["tok_embed"]
+    pieces = [t if t.dtype in (torch.float32, torch.float64) else t.float()
+              for t in row.pieces(table)]
+    if table.tp_dim() is None:
+        x = gather.embedding_gather(pieces[0], _ids_for(ids, row.lead))
+    else:
+        rows = table.shape[0] // row.size
+        x = shrd.sum_on([gather.embedding_gather_shard(
+            t, _ids_for(ids, dev), m * rows, cfg.vocab_size)
+            for m, (dev, t) in enumerate(zip(row.devices, pieces))], row.lead)
+    return x.reshape(b, s, cfg.d_model).to(dtype)
+
+
+def _logits_tp(p: shrd.PlacedParams, cfg: ModelConfig, x: torch.Tensor,
+               row: shrd.Row) -> torch.Tensor:
+    """The final norm on the lead, then the head's column shards joined on
+    the lead along the vocabulary."""
+    x = rms_norm(x, row.pieces(p["final_norm"])[0], cfg.norm_eps)
+    leaf = p["tok_embed"] if cfg.tie_embeddings else p["lm_head"]
+    heads = [w.T if cfg.tie_embeddings else w for w in row.pieces(leaf)]
+    if leaf.tp_dim() is None:
+        return torch.matmul(x, heads[0].to(x.dtype))
+    return shrd.cat_on([torch.matmul(x.to(dev), w.to(x.dtype))
+                        for dev, w in zip(row.devices, heads)], row.lead, dim=-1)
+
+
+def _row_kv(kv: KVCache, row: shrd.Row, part: slice | None) -> list[KVCache]:
+    """Each model device's pieces of a placed KV cache; ``part``: the
+    replica's rows of a batch split over the data replicas (taken from k /
+    v pieces that hold every row: a cache replicated over data)."""
+    out = []
+    for c in row.coords:
+        leaves = [leaf.pieces[c] for leaf in kv]
+        if part is not None and kv.k.spec[1] is None:
+            leaves[:2] = [a[:, part] for a in leaves[:2]]
+        out.append(KVCache(*leaves))
+    return out
+
+
+def _placed_kv(kv: KVCache, ran: dict) -> KVCache:
+    """The new placed KV cache.  ``ran`` maps the replicas that ran, in
+    order, to their new pieces (one KVCache a model device).  A k / v
+    replicated over data while several replicas ran is their rows joined
+    (an all-gather); a replica that did not run copies the pieces of the
+    one that did, device by device."""
+    src = next(iter(ran.values()))
+    gather = len(ran) > 1 and kv.k.spec[1] is None
+    out = []
+    for j, leaf in enumerate(kv):
+        pieces = np.empty(leaf.pieces.shape, dtype=object)
+        for row in shrd.rows(leaf.mesh):
+            for m, (c, dev) in enumerate(zip(row.coords, row.devices)):
+                if gather and j < 2:
+                    pieces[c] = torch.cat([got[m][j].to(dev)
+                                           for got in ran.values()], dim=1)
+                elif row.index in ran:
+                    pieces[c] = ran[row.index][m][j]
+                else:
+                    pieces[c] = src[m][j].to(dev, copy=True)
+        out.append(shrd.Sharded(leaf.mesh, leaf.spec, leaf.shape, pieces))
+    return KVCache(*out)
+
+
+def _run_mesh(p: shrd.PlacedParams, cfg: ModelConfig, batch: dict,
+              caches: Caches | None, dtype, replica: int
+              ) -> tuple[torch.Tensor, Caches | None, torch.Tensor]:
+    if set(batch) - {"tokens"}:
+        raise ValueError(f"the mesh path takes tokens only, got {sorted(batch)}")
+    tokens = batch["tokens"]
+    b = tokens.shape[0]
+    replicas = shrd.rows(p.mesh)
+    n = len(replicas)
+    if b % n == 0 and n > 1:
+        plan = [(row, slice(row.index * (b // n), (row.index + 1) * (b // n)))
+                for row in replicas]
+    else:
+        plan = [(replicas[replica if b % n else 0], None)]
+    logits, auxes, ran0, ran = [], [], {}, {}
+    for row, part in plan:
+        x = _embed_tp(p, cfg, tokens if part is None else tokens[part], row,
+                      dtype)
+        if "dense0" in p:
+            kv0 = None if caches is None else [
+                blk.layer_of(c, 0) for c in _row_kv(caches["dense0"].kv, row, part)]
+            x, new0, _ = blk.block_forward_tp(p.sub("dense0"), _dense0_cfg(cfg),
+                                              "dense", x, row, kv=kv0)
+            if caches is not None:
+                ran0[row.index] = [KVCache(*(a[None] for a in c)) for c in new0]
+        kv = None if caches is None else _row_kv(caches["layers"].kv, row, part)
+        x, new, aux = blk.run_blocks_tp(p.sub("blocks"), _n_stacked(cfg), cfg,
+                                        _kind(cfg), x, row, kv=kv)
+        if caches is not None:
+            ran[row.index] = new
+        logits.append(_logits_tp(p, cfg, x, row))
+        auxes.append(aux)
+    out = shrd.cat_on(logits, p.device, dim=0)
+    aux = shrd.sum_on(auxes, p.device) / len(auxes)
+    if caches is None:
+        return out, None, aux
+    new_caches = {"layers": blk.LayerCaches(
+        kv=_placed_kv(caches["layers"].kv, ran), ssm=None)}
+    if ran0:
+        new_caches["dense0"] = blk.LayerCaches(
+            kv=_placed_kv(caches["dense0"].kv, ran0), ssm=None)
+    return out, new_caches, aux
+
+
+def _kv_layout(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
+               dtype) -> blk.LayerCaches:
+    """The shapes of a stack's KV cache (meta tensors: nothing allocated),
+    :func:`~repro_torch.models.attention.init_cache`'s layout stacked."""
+    cap = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    kv = (n_layers, batch, cap, cfg.n_kv_heads, cfg.d_head)
+
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    return blk.LayerCaches(kv=KVCache(
+        k=meta(kv, dtype), v=meta(kv, dtype),
+        pos=meta((n_layers, cap), torch.int32),
+        length=meta((n_layers,), torch.int32)), ssm=None)
+
+
+def _init_caches_mesh(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                      mesh) -> Caches:
+    """Zero caches placed on ``mesh`` by ``cache_shardings``, each piece
+    made on its device at its own shape (``pos`` -1, the rest 0)."""
+    check_mesh_family(cfg)
+    layout = {"layers": _kv_layout(cfg, _n_stacked(cfg), batch, max_len, dtype)}
+    if cfg.dense_first_layer_ff:
+        layout["dense0"] = _kv_layout(cfg, 1, batch, max_len, dtype)
+    specs = S.cache_shardings(mesh, cfg, layout, batch)
+    out = {}
+    for name, stack in layout.items():
+        kv = stack.kv
+        out[name] = blk.LayerCaches(kv=KVCache(*(
+            shrd.zeros(leaf.shape, spec, mesh, leaf.dtype,
+                       fill=-1 if field == "pos" else 0)
+            for field, leaf, spec in zip(KVCache._fields, kv,
+                                         specs[name].kv))), ssm=None)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -337,20 +600,28 @@ def forward(p: LM, cfg: ModelConfig, batch: dict, *, dtype=torch.float32,
     """Full-sequence causal logits + the MoE aux loss (summed over the MoE
     layers; 0 without them).  Records a graph where grad is enabled and the
     parameters require it, each block under ``remat`` (None, ``"full"``
-    or ``"dots"``)."""
-    _no_mesh(mesh)
+    or ``"dots"``).  On a mesh (placed parameters) no graph is recorded."""
+    if params_mesh(p, cfg, mesh) is not None:
+        with torch.no_grad():
+            logits, _, aux = _run_mesh(p, cfg, batch, None, dtype, 0)
+        return logits, aux
     logits, _, aux = _run(p, cfg, batch, None, dtype, remat)
     return logits, aux
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                dtype=torch.bfloat16, device=None) -> Caches:
+                dtype=torch.bfloat16, device=None, mesh=None) -> Caches:
     """Zero decode caches on ``device`` (``None``: the card), the
     reference's layout: ``"layers"`` for the stacked blocks and, with a
     dense first layer, ``"dense0"`` (a one-layer stack); vision: its KV
     leaves (G, every, B, C, Hkv, dh), pos (G, every, C), length (G, every)
     and ``"ctx"`` (B, n_ctx_tokens, d); enc-dec: the decoder's
-    ``"layers"`` and ``"memory"`` (B, n_ctx_tokens, d)."""
+    ``"layers"`` and ``"memory"`` (B, n_ctx_tokens, d).  With ``mesh``
+    (dense and MoE families) the same layout with every leaf placed by
+    :func:`repro_torch.launch.specs.cache_shardings`."""
+    mesh = _mesh_arg(mesh)
+    if mesh is not None:
+        return _init_caches_mesh(cfg, batch, max_len, dtype, mesh)
     device = resolve_device(device)
     d = cfg.d_model
     if cfg.encdec is not None:
@@ -367,8 +638,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         return {"layers": blk.LayerCaches(kv=kv, ssm=None),
                 "ctx": torch.zeros((batch, cfg.cross_attn.n_ctx_tokens, d),
                                    dtype=dtype, device=device)}
-    n_stacked = cfg.n_layers - (1 if cfg.dense_first_layer_ff else 0)
-    caches = {"layers": blk.init_layer_caches(cfg, n_stacked, _kind(cfg), batch,
+    caches = {"layers": blk.init_layer_caches(cfg, _n_stacked(cfg), _kind(cfg), batch,
                                               max_len, dtype, device=device)}
     if cfg.dense_first_layer_ff:
         caches["dense0"] = blk.init_layer_caches(cfg, 1, "dense", batch,
@@ -377,23 +647,29 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(p: LM, cfg: ModelConfig, batch: dict, caches: Caches, *,
-            dtype=torch.float32, remat: str | None = None, mesh=None
-            ) -> tuple[torch.Tensor, Caches]:
+            dtype=torch.float32, remat: str | None = None, mesh=None,
+            replica: int = 0) -> tuple[torch.Tensor, Caches]:
     """Process the prompt, fill caches, return full-sequence logits (no
-    graph recorded, so ``remat`` changes nothing)."""
-    _no_mesh(mesh)
+    graph recorded, so ``remat`` changes nothing).  On a mesh, a batch the
+    data replicas do not divide runs on replica ``replica``."""
     if remat not in blk.REMAT_POLICIES:
         raise ValueError(f"unknown remat {remat!r}; the policies are "
                          f"{blk.REMAT_POLICIES}")
+    mesh = params_mesh(p, cfg, mesh)
     with torch.no_grad():
-        logits, new_caches, _ = _run(p, cfg, batch, caches, dtype)
+        if mesh is not None:
+            logits, new_caches, _ = _run_mesh(p, cfg, batch, caches, dtype,
+                                              replica)
+        else:
+            logits, new_caches, _ = _run(p, cfg, batch, caches, dtype)
     return logits, new_caches
 
 
 def decode_step(p: LM, cfg: ModelConfig, tokens, caches: Caches, *,
-                dtype=torch.float32, mesh=None) -> tuple[torch.Tensor, Caches]:
-    """One autoregressive step.  tokens: (B, S_new) with S_new typically 1."""
-    _no_mesh(mesh)
-    with torch.no_grad():
-        logits, new_caches, _ = _run(p, cfg, {"tokens": tokens}, caches, dtype)
+                dtype=torch.float32, mesh=None, replica: int = 0
+                ) -> tuple[torch.Tensor, Caches]:
+    """One autoregressive step.  tokens: (B, S_new) with S_new typically 1.
+    ``replica`` as for :func:`prefill`."""
+    logits, new_caches = prefill(p, cfg, {"tokens": tokens}, caches,
+                                 dtype=dtype, mesh=mesh, replica=replica)
     return logits[:, -1], new_caches

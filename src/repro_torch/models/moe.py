@@ -37,27 +37,39 @@ Each SELL combine reads the routing back from the device once
 (:func:`_routing_to_host`, counted in :data:`ROUTING_READS`): the
 reference's design, a host-side pack.
 
-Not ported: the reference's ``_ep_ok`` and its sharding constraints (no
-mesh: ROADMAP A10b); one device is expert-parallel trivially.
+On a mesh (:func:`moe_forward_tp`) the router, the routing and the
+capacity run on the data replica's lead device (one host read of the
+routing a layer and replica, as without a mesh), and so do the dispatch
+and the combine: the dense einsums, or kernel B1 through
+``ops.moe_dispatch`` or the fused engine's ``submit``, unchanged.  The
+experts run over the replica's model devices as the reference's partition
+rules place them (:func:`_ep_ok`): expert-parallel where the model axis
+divides E (each device its slice of E on its slice of the slot
+activations, the slices joined on the lead), else tensor-parallel inside
+each expert (``experts_gate`` / ``experts_up`` split along f,
+``experts_down`` along f, the partial expert outputs summed on the lead).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as Fn
 
+from repro_torch.compat import MeshContext, current_mesh_context
 from repro_torch.kernels import ops
 from repro_torch.kernels.execspec import ExecSpec
+from repro_torch.models import sharding as shrd
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, he_init, param, swiglu
+from repro_torch.models.layers import MLP, he_init, param, swiglu, swiglu_tp
 from repro_torch.sparse.formats import CSRMatrix
 
 __all__ = ["DISPATCH_MODES", "GROUP", "MoE", "SELL_SPEC", "init_moe_params",
-           "moe_forward", "sell_dispatch"]
+           "moe_forward", "moe_forward_tp", "sell_dispatch"]
 
 #: tokens per routing group (memory knob for the dispatch one-hots)
 GROUP = 2048
@@ -171,11 +183,22 @@ def init_moe_params(gen: torch.Generator, cfg: ModelConfig) -> MoE:
     return MoE(router, gate, up, down, shared)
 
 
-def router_probs(p: MoE, xg: torch.Tensor) -> torch.Tensor:
+def router_probs(router: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
     """Router logits in the activations' dtype, softmax in float32:
     (b, ng, g, d) -> (b, ng, g, E)."""
-    logits = torch.einsum("bngd,de->bnge", xg, p.router.float().to(xg.dtype))
+    logits = torch.einsum("bngd,de->bnge", xg, router.float().to(xg.dtype))
     return torch.softmax(logits.float(), dim=-1)
+
+
+def _experts(ein: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+             down: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over their slots: (b, ng, e, cap, d) ->
+    (b, ng, e, cap, d)."""
+    dt = ein.dtype
+    h_gate = torch.einsum("bnecd,edf->bnecf", ein, gate.to(dt))
+    h_up = torch.einsum("bnecd,edf->bnecf", ein, up.to(dt))
+    h = Fn.silu(h_gate) * h_up
+    return torch.einsum("bnecf,efd->bnecd", h, down.to(dt))
 
 
 def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
@@ -187,6 +210,67 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     omitted the :func:`sell_dispatch` scope applies, and with neither the
     dense path runs.
     """
+    shared = None
+    if cfg.moe.n_shared:
+        sh = p.shared
+        shared = lambda xg: swiglu(xg, sh.w_gate.to(x.dtype), sh.w_up.to(x.dtype),
+                                   sh.w_down.to(x.dtype))
+    graph = torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in p.parameters()))
+    experts = functools.partial(_experts, gate=p.experts_gate,
+                                up=p.experts_up, down=p.experts_down)
+    return _moe(p.router, experts, shared, cfg, x, spec, graph)
+
+
+def _ep_ok(n_experts: int, ctx=None) -> bool:
+    """Expert-parallel iff the model axis divides the expert count."""
+    ctx = current_mesh_context() if ctx is None else MeshContext.of(ctx)
+    if not ctx.has_axis(shrd.TP):
+        return True
+    return n_experts % ctx.axis_size(shrd.TP) == 0
+
+
+def _experts_tp(p: shrd.PlacedParams, row: shrd.Row,
+                ein: torch.Tensor) -> torch.Tensor:
+    """:func:`_experts` over a data replica's model devices, as the
+    partition rules placed the expert weights: expert-parallel (each device
+    its slice of E and of ``ein``, joined on the lead), in-expert
+    tensor-parallel (f split, partial outputs summed on the lead), or
+    replicated (on the lead)."""
+    names = ("experts_gate", "experts_up", "experts_down")
+    split = p["experts_gate"].tp_dim()
+    pieces = list(zip(row.devices, *(row.pieces(p[n]) for n in names)))
+    if split is None:
+        return _experts(ein, *pieces[0][1:])
+    if _ep_ok(p["experts_gate"].shape[0], p.mesh):
+        e_dev = p["experts_gate"].shape[0] // row.size
+        parts = [_experts(ein[:, :, m * e_dev:(m + 1) * e_dev].to(dev), *w)
+                 for m, (dev, *w) in enumerate(pieces)]
+        return shrd.cat_on(parts, ein.device, dim=2)
+    parts = [_experts(ein.to(dev), *w) for dev, *w in pieces]
+    return shrd.sum_on(parts, ein.device)
+
+
+def moe_forward_tp(p: shrd.PlacedParams, cfg: ModelConfig, x: torch.Tensor,
+                   row: shrd.Row, *, spec: ExecSpec | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_forward` over the model devices of a data replica
+    (``row``; ``p``: the layer's placed weights; ``x`` on the replica's
+    lead, where the routing, dispatch and combine run)."""
+    shared = None
+    if cfg.moe.n_shared:
+        shared = functools.partial(swiglu_tp, p=p.sub("shared"), row=row)
+    return _moe(row.pieces(p["router"])[0],
+                functools.partial(_experts_tp, p, row), shared, cfg, x, spec,
+                graph=False)
+
+
+def _moe(router: torch.Tensor, experts, shared, cfg: ModelConfig,
+         x: torch.Tensor, spec: ExecSpec | None, graph: bool
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routing, dispatch, ``experts(ein) -> eout``, combine and
+    ``shared(xg)`` of one MoE layer; ``graph``: the forward records a
+    graph for a gradient."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.n_experts, m.top_k
@@ -196,7 +280,7 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
         g = s
     xg = x.reshape(b, ng, g, d)
 
-    probs = router_probs(p, xg)                                       # (b,ng,g,e)
+    probs = router_probs(router, xg)                                  # (b,ng,g,e)
     top_w, top_i = torch.topk(probs, k, dim=-1, sorted=True)          # descending
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
 
@@ -209,8 +293,6 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     slot = torch.where(keep, pos, 0).to(torch.int32)
 
     spec = spec if spec is not None else _ACTIVE["spec"]
-    graph = torch.is_grad_enabled() and (
-        x.requires_grad or any(t.requires_grad for t in p.parameters()))
     if _dispatch_mode(spec, graph) == "sell":
         ein, combine_csr = _sell_routing(
             xg, *_routing_to_host(top_i, top_w, keep, slot), cap=cap, e=e)
@@ -224,10 +306,7 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
                                slot_oh, top_w.to(x.dtype))
         ein = torch.einsum("bngec,bngd->bnecd", dispatch, xg)         # (b,ng,e,cap,d)
 
-    h_gate = torch.einsum("bnecd,edf->bnecf", ein, p.experts_gate.to(x.dtype))
-    h_up = torch.einsum("bnecd,edf->bnecf", ein, p.experts_up.to(x.dtype))
-    h = Fn.silu(h_gate) * h_up
-    eout = torch.einsum("bnecf,efd->bnecd", h, p.experts_down.to(x.dtype))
+    eout = experts(ein)
 
     if combine_csr is not None:
         out = _sell_combine(combine_csr, eout, spec, top_k=k)
@@ -235,10 +314,8 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         out = torch.einsum("bngec,bnecd->bngd", combine, eout)
 
-    if m.n_shared:
-        sh = p.shared
-        out = out + swiglu(xg, sh.w_gate.to(x.dtype), sh.w_up.to(x.dtype),
-                           sh.w_down.to(x.dtype))
+    if shared is not None:
+        out = out + shared(xg)
 
     # load-balance aux: E * sum_e(frac_tokens_e * mean_prob_e) over the
     # kept (token, k) assignments of each (b, ng, e)

@@ -1,0 +1,468 @@
+"""Sharding rules: partition specs for every parameter and their placement
+on a mesh — port of ``repro.models.sharding``.
+
+Mesh axes (production): ``(pod, data, model)`` multi-pod or ``(data,
+model)`` single-pod.  The batch shards over ``(pod, data)``; the
+tensor-parallel dims over ``model``.  A spec is a tuple with one entry a
+dim: ``None`` (replicated), an axis name or a tuple of axis names (their
+sizes multiply).  The rules (:data:`_RULES`, :func:`param_specs`,
+:func:`zero1_specs`) are the reference's, matched against each
+parameter's reference path (:func:`repro_torch.models.convert
+.reference_path`), so ``blocks.3.attn.wq`` takes the rule of
+``blocks/attn/wq``.  A rule covers a leaf's trailing dims; the reference's
+leading stacked-layer dims are the port's separate layers.
+
+Where the reference constrains a value with GSPMD and lets XLA move it,
+the port places it: :func:`shard` / :func:`place` cut a tensor by its
+spec into a :class:`Sharded` value, one piece on each device of the mesh
+(a piece replicated along the axes its spec does not name), and
+:meth:`Sharded.full` gathers the pieces back.  :func:`place_params` places
+an LM leaf by leaf (a :class:`PlacedParams`); the model's mesh path
+(:mod:`repro_torch.models.model`) then runs each data replica (a
+:class:`Row` of the mesh) on its own devices.  Every piece has storage of
+its own, also where a mesh repeats a device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.compat import Mesh, MeshContext, current_mesh_context
+
+__all__ = ["DATA", "TP", "PlacedParams", "Row", "Sharded", "canonical",
+           "cat_on", "current_axis_names", "logical", "model_param_specs", "param_specs",
+           "place", "place_params", "rows", "shard", "sum_on", "tree_leaves",
+           "tree_map", "zeros", "zero1_specs"]
+
+#: logical batch axes (flattened onto whichever of these exist in the mesh)
+DATA = ("pod", "data")
+#: tensor-parallel axis
+TP = "model"
+
+
+def current_axis_names(ctx: MeshContext | None = None) -> tuple[str, ...]:
+    ctx = current_mesh_context() if ctx is None else MeshContext.of(ctx)
+    return ctx.axis_names
+
+
+def _filter(axis, present) -> Any:
+    if axis is None:
+        return None
+    if isinstance(axis, (tuple, list)):
+        kept = tuple(a for a in axis if a in present)
+        return kept if kept else None
+    return axis if axis in present else None
+
+
+def logical(*axes, ctx: MeshContext | None = None) -> tuple:
+    """A spec from logical axes, filtered to the active mesh."""
+    present = current_axis_names(ctx)
+    return canonical(_filter(a, present) for a in axes)
+
+
+# ---------------------------------------------------------------------------
+# Sharded values
+# ---------------------------------------------------------------------------
+
+
+def _names(axis) -> tuple[str, ...]:
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _block(mesh: Mesh, coord: tuple[int, ...], axis) -> tuple[int, int]:
+    """(block index, block count) of the device at ``coord`` along a spec
+    entry: row-major over the entry's axes in the order it names them."""
+    pos = {a: i for i, a in enumerate(mesh.axis_names)}
+    sizes = mesh.devices.shape
+    idx, n = 0, 1
+    for a in _names(axis):
+        idx = idx * sizes[pos[a]] + coord[pos[a]]
+        n *= sizes[pos[a]]
+    return idx, n
+
+
+def _slices(shape, spec, mesh: Mesh, coord) -> tuple[slice, ...]:
+    out = []
+    for dim, axis in zip(shape, spec):
+        idx, n = _block(mesh, coord, axis)
+        step = dim // n
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
+def _canon(axis):
+    """A spec entry in one form: a one-name tuple is that name (as
+    JAX's ``PartitionSpec`` reads it), an empty one None."""
+    if isinstance(axis, (tuple, list)):
+        axis = tuple(axis)
+        return None if not axis else axis[0] if len(axis) == 1 else axis
+    return axis
+
+
+def canonical(spec) -> tuple:
+    return tuple(_canon(a) for a in spec)
+
+
+def _full_spec(spec, ndim: int) -> tuple:
+    spec = canonical(spec)
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than {ndim} dims")
+    return spec + (None,) * (ndim - len(spec))
+
+
+class Sharded:
+    """A value of global ``shape`` placed on ``mesh`` by ``spec``:
+    ``pieces[coord]`` is the block the device ``mesh.devices[coord]`` holds
+    (an object array of the mesh's shape).  Pieces along axes the spec does
+    not name are replicas."""
+
+    __slots__ = ("mesh", "spec", "shape", "pieces")
+
+    def __init__(self, mesh: Mesh, spec: tuple, shape, pieces: np.ndarray):
+        self.mesh = mesh
+        self.spec = _full_spec(spec, len(shape))
+        self.shape = tuple(int(s) for s in shape)
+        self.pieces = pieces
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces.flat[0].dtype
+
+    def tp_dim(self) -> int | None:
+        """The dim the model axis splits, or None."""
+        for i, axis in enumerate(self.spec):
+            if TP in _names(axis):
+                return i
+        return None
+
+    def block(self, coord: tuple[int, ...], dim: int) -> tuple[int, int]:
+        """(block index, block count) of the piece at ``coord`` along
+        ``dim``."""
+        return _block(self.mesh, coord, self.spec[dim])
+
+    def full(self, device=None) -> torch.Tensor:
+        """The whole value gathered on ``device`` (default: the mesh's first
+        device)."""
+        dev = self.mesh.devices.flat[0] if device is None else torch.device(device)
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        used = {a for axis in self.spec for a in _names(axis)}
+        for coord in np.ndindex(self.mesh.devices.shape):
+            if any(c and a not in used
+                   for a, c in zip(self.mesh.axis_names, coord)):
+                continue                          # a replica of a block taken
+            out[_slices(self.shape, self.spec, self.mesh, coord)] = \
+                self.pieces[coord].to(dev)
+        return out
+
+    def __repr__(self) -> str:
+        return f"Sharded({self.shape}, spec={self.spec}, {self.mesh!r})"
+
+
+def _pieces(mesh: Mesh, make) -> np.ndarray:
+    pieces = np.empty(mesh.devices.shape, dtype=object)
+    for coord in np.ndindex(mesh.devices.shape):
+        pieces[coord] = make(coord, mesh.devices[coord])
+    return pieces
+
+
+def place(x: torch.Tensor, spec, mesh: Mesh) -> Sharded:
+    """``x`` cut by ``spec`` (every named axis must divide its dim), each
+    block copied to its device: a fresh contiguous tensor a piece."""
+    spec = _full_spec(spec, x.ndim)
+    sizes = mesh.shape
+    for dim, axis in zip(x.shape, spec):
+        n = math.prod(sizes[a] for a in _names(axis))
+        if dim % n:
+            raise ValueError(f"spec {spec} does not divide shape "
+                             f"{tuple(x.shape)} on {mesh!r}")
+    with torch.no_grad():
+        pieces = _pieces(mesh, lambda coord, dev: x[
+            _slices(x.shape, spec, mesh, coord)].to(dev, copy=True).contiguous())
+    return Sharded(mesh, spec, x.shape, pieces)
+
+
+def zeros(shape, spec, mesh: Mesh, dtype, fill=0) -> Sharded:
+    """A value of ``shape`` full of ``fill`` placed by ``spec``, each piece
+    made on its device at its own shape (no whole value is made)."""
+    spec = _full_spec(spec, len(shape))
+    local = tuple(dim // _block(mesh, (0,) * mesh.devices.ndim, axis)[1]
+                  for dim, axis in zip(shape, spec))
+    return Sharded(mesh, spec, shape, _pieces(
+        mesh, lambda coord, dev: torch.full(local, fill, dtype=dtype, device=dev)))
+
+
+def shard(x, *axes, ctx: MeshContext | None = None):
+    """``x`` placed on the active mesh by logical axes.
+
+    ``x`` unchanged without a mesh; drops any axis absent from the mesh, and
+    any whose mesh size does not divide the corresponding dim (e.g. 12
+    attention heads on a 16-way model axis): those dims replicate.
+    """
+    ctx = current_mesh_context() if ctx is None else MeshContext.of(ctx)
+    if ctx.empty:
+        return x
+    present = ctx.axis_names
+    spec = []
+    for i, axis in enumerate(axes):
+        a = _filter(axis, present)
+        if a is not None and x.shape[i] % ctx.axis_size(a) != 0:
+            a = None
+        spec.append(a)
+    return place(x, tuple(spec), ctx.mesh)
+
+
+# ---------------------------------------------------------------------------
+# Parameter partition rules
+# ---------------------------------------------------------------------------
+#
+# Rules map a leaf's path (joined with '/') to a spec over its TRAILING dims;
+# leading dims are padded with None.  First match wins.
+
+_RULES: list[tuple[str, tuple]] = [
+    # embeddings / unembedding: vocab over TP
+    (r"tok_embed$", (TP, None)),
+    (r"lm_head$", (None, TP)),
+    (r"ctx_proj$", (None, TP)),
+    # attention: column-parallel QKV, row-parallel output
+    (r"(wq|wk|wv)$", (None, TP)),
+    (r"(bq|bk|bv)$", (TP,)),
+    (r"wo$", (TP, None)),
+    # dense / shared-expert MLP: column in, row out
+    (r"(w_gate|w_up)$", (None, TP)),
+    (r"w_down$", (TP, None)),
+    # MoE experts: expert-parallel when E % model == 0, else per-expert
+    # tensor parallel
+    (r"experts_(gate|up)$", ("EP_OR_TP_IN", None, None)),
+    (r"experts_down$", ("EP_OR_TP_OUT", None, None)),
+    (r"router$", (None, None)),
+    # Mamba/SSD: channel dims over TP
+    (r"in_proj$", (None, TP)),
+    (r"out_proj$", (TP, None)),
+    (r"conv_w$", (TP, None)),
+    (r"conv_b$", (TP,)),
+    (r"(A_log|dt_bias)$", (None,)),
+    (r"(D)$", (None,)),
+    # norms, scalars: replicated
+    (r".*", ()),
+]
+
+
+def _spec_for(path: str, shape: tuple[int, ...], ep_ok: bool,
+              sizes: dict[str, int]) -> tuple:
+    for pat, spec in _RULES:
+        if re.search(pat, path):
+            spec = tuple(spec)
+            if spec and spec[0] == "EP_OR_TP_IN":
+                spec = (TP, None, None) if ep_ok else (None, None, TP)
+            elif spec and spec[0] == "EP_OR_TP_OUT":
+                spec = (TP, None, None) if ep_ok else (None, TP, None)
+            full = (None,) * (len(shape) - len(spec)) + spec
+            # drop axes that do not divide the dim (e.g. vocab 122753 on a
+            # 16-way model axis): those weights replicate instead
+            return tuple(
+                a if a is None or shape[i] % sizes.get(a, 1) == 0 else None
+                for i, a in enumerate(full))
+    return ()
+
+
+def _path(name: str) -> str:
+    """The reference path a rule matches for the port's parameter ``name``."""
+    from repro_torch.models.convert import reference_path  # convert imports the model
+
+    return "/".join(reference_path(name)[0])
+
+
+def _named_shapes(params) -> list[tuple[str, tuple[int, ...]]]:
+    """(name, shape) of every leaf: an :class:`~torch.nn.Module`'s named
+    parameters, or a mapping of names to anything with a ``shape``."""
+    items = params.named_parameters() if isinstance(params, torch.nn.Module) \
+        else params.items()
+    return [(n, tuple(p.shape)) for n, p in items]
+
+
+def param_specs(params, n_experts: int = 0, model_axis_size: int = 1,
+                mesh=None) -> dict[str, tuple]:
+    """Parameter name -> spec for ``params`` (an LM or a mapping of names
+    to shaped values).
+
+    ``n_experts`` / ``model_axis_size`` decide expert-parallel vs in-expert
+    tensor-parallel sharding for MoE weights.  ``mesh`` (a Mesh or
+    MeshContext; default: the ambient mesh context) provides axis sizes for
+    divisibility checks.
+    """
+    ep_ok = n_experts > 0 and model_axis_size > 0 and n_experts % model_axis_size == 0
+    ctx = current_mesh_context() if mesh is None else MeshContext.of(mesh)
+    sizes = ctx.shape
+    if model_axis_size and TP not in sizes:
+        sizes[TP] = model_axis_size
+    return {n: _spec_for(_path(n), shape, ep_ok, sizes)
+            for n, shape in _named_shapes(params)}
+
+
+def zero1_specs(params, specs: dict[str, tuple], data_size: int,
+                data_axis: str = "data") -> dict[str, tuple]:
+    """ZeRO-1: optimizer-state specs with the first replicated, divisible
+    dim sharded over the data axis.  Non-divisible or already-sharded dims
+    stay put."""
+    out = {}
+    for name, shape in _named_shapes(params):
+        spec = tuple(specs[name])
+        if len(shape) == 0:
+            out[name] = spec
+            continue
+        parts = spec if spec else (None,) * len(shape)
+        if parts[0] is None and shape[0] % max(data_size, 1) == 0:
+            out[name] = (data_axis,) + tuple(parts[1:])
+        else:
+            out[name] = spec
+    return out
+
+
+def model_param_specs(cfg, params, mesh) -> dict[str, tuple]:
+    """The specs of a model's parameters on ``mesh``: :func:`param_specs`
+    with the config's expert count and the mesh's model axis."""
+    ctx = MeshContext.of(mesh)
+    n_exp = cfg.moe.n_experts if cfg.moe else 0
+    return param_specs(params, n_experts=n_exp,
+                       model_axis_size=ctx.axis_size(TP), mesh=mesh)
+
+
+class PlacedParams:
+    """A model's parameters placed on a mesh: name (an ``LM``
+    ``named_parameters()`` name) -> :class:`Sharded`.  :meth:`sub` views a
+    submodule (``p.sub("blocks.0").sub("attn")["wq"]``)."""
+
+    def __init__(self, mesh: Mesh, leaves: dict[str, Sharded], prefix: str = "",
+                 _groups: frozenset | None = None):
+        self.mesh = mesh
+        self.leaves = leaves
+        self.prefix = prefix
+        if _groups is None:
+            _groups = frozenset(
+                ".".join(n.split(".")[:i]) for n in leaves
+                for i in range(1, n.count(".") + 1))
+        self._groups = _groups
+
+    @property
+    def device(self) -> torch.device:
+        """The first device of the mesh: where results land."""
+        return self.mesh.devices.flat[0]
+
+    def __getitem__(self, name: str) -> Sharded:
+        return self.leaves[self.prefix + name]
+
+    def __contains__(self, name: str) -> bool:
+        full = self.prefix + name
+        return full in self.leaves or full in self._groups
+
+    def sub(self, name: str) -> "PlacedParams":
+        return PlacedParams(self.mesh, self.leaves, f"{self.prefix}{name}.",
+                            self._groups)
+
+    def named_leaves(self):
+        return ((n[len(self.prefix):], v) for n, v in self.leaves.items()
+                if n.startswith(self.prefix))
+
+
+def place_params(params, cfg, mesh: Mesh) -> PlacedParams:
+    """``params`` (an ``LM``) placed on ``mesh`` by
+    :func:`model_param_specs`, leaf by leaf."""
+    specs = model_param_specs(cfg, params, mesh)
+    return PlacedParams(mesh, {n: place(p, specs[n], mesh)
+                               for n, p in params.named_parameters()})
+
+
+# ---------------------------------------------------------------------------
+# Data replicas
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Row:
+    """One data replica of a mesh: the devices of its model axis in model
+    order (the first is the replica's lead, where its residual stream,
+    norms, routing and combines run) and their mesh coordinates."""
+
+    index: int
+    coords: tuple[tuple[int, ...], ...]
+    devices: tuple[torch.device, ...]
+
+    @property
+    def lead(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def pieces(self, leaf: Sharded) -> list[torch.Tensor]:
+        return [leaf.pieces[c] for c in self.coords]
+
+
+def sum_on(parts: list[torch.Tensor], device) -> torch.Tensor:
+    """The partial results of a row's devices summed on ``device``, in
+    model order (the all-reduce of a row-parallel product)."""
+    out = parts[0].to(device)
+    for part in parts[1:]:
+        out = out + part.to(device)
+    return out
+
+
+def cat_on(parts: list[torch.Tensor], device, dim: int) -> torch.Tensor:
+    """The blocks of a row's devices joined on ``device`` along ``dim``
+    (the all-gather of a column-parallel product)."""
+    return torch.cat([part.to(device) for part in parts], dim=dim)
+
+
+def rows(mesh: Mesh) -> list[Row]:
+    """The data replicas of ``mesh``, in the order the batch splits over
+    :data:`DATA` (row-major over the data axes present); axes that are
+    neither data nor model stay at index 0."""
+    names = mesh.axis_names
+    sizes = mesh.devices.shape
+    dp = [names.index(a) for a in DATA if a in names]
+    tp = names.index(TP) if TP in names else None
+    out = []
+    for r, dcoord in enumerate(np.ndindex(*(sizes[i] for i in dp))):
+        coords = []
+        for m in range(sizes[tp] if tp is not None else 1):
+            c = [0] * len(names)
+            for i, v in zip(dp, dcoord):
+                c[i] = v
+            if tp is not None:
+                c[tp] = m
+            coords.append(tuple(c))
+        out.append(Row(r, tuple(coords),
+                       tuple(mesh.devices[c] for c in coords)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Trees of caches and specs
+# ---------------------------------------------------------------------------
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of dicts and NamedTuples (``None`` stays
+    ``None``); ``rest`` are trees of the same structure."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *leaves)
+                            for leaves in zip(tree, *rest)))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out

@@ -1,6 +1,7 @@
 """Elastic re-mesh planning: choose a new (pod, data, model) mesh after node
-loss or growth (a stdlib copy of ``repro.runtime.elastic``; the port runs no
-mesh yet, ROADMAP A10b).
+loss or growth (a stdlib copy of ``repro.runtime.elastic``; a plan's shape
+and axes build the mesh through
+:func:`repro_torch.launch.mesh.make_mesh_from_plan`).
 
 Policy: preserve the model (TP) axis if the surviving device count allows —
 params reshard along data only, which is cheap (pure replication change) —

@@ -25,6 +25,14 @@ reference lacks.  Where the reference would silently re-position the
 live slots' keys, the batcher refuses: it keeps the shared length on the
 host and raises :class:`ValueError` at an admission that would change it
 while another slot is still decoding.
+
+**On a mesh** (``mesh=``, the parameters placed on it) the shared caches
+are placed by :func:`repro_torch.launch.specs.cache_shardings`: the slots
+split over the data replicas where their count divides them.  An
+admission's b = 1 prefill runs on the one data replica that owns the slot
+(``replica=`` of :func:`repro_torch.models.model.prefill`), and
+:func:`_write_slot` writes each piece of its caches into the shared piece
+on the same device; each decode step runs every replica on its slots.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.models import sharding as shrd
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.engine import GenerationConfig
 from repro_torch.serve.slots import SlotLoop
@@ -63,7 +72,9 @@ def _write_slot(shared: M.Caches, single: M.Caches, slot: int) -> None:
     C, Hkv, dh) with ``lead = pos.shape[:-1]`` ((layers,), or vision's
     (groups, every)), so their batch axis is ``pos.dim() - 1``.  A KV
     cache's pos (*lead, C) and length (*lead) are shared by every slot and
-    copied from the prefill, as the reference's splice does."""
+    copied from the prefill, as the reference's splice does.  Placed caches
+    (a mesh) are written piece by piece, each on its device:
+    :func:`_write_slot_placed`."""
     for name, dst in shared.items():
         src = single[name]
         if isinstance(dst, torch.Tensor):
@@ -80,19 +91,38 @@ def _write_slot(shared: M.Caches, single: M.Caches, slot: int) -> None:
             dst.kv.length.copy_(src.kv.length)
 
 
+def _write_slot_placed(shared: M.Caches, single: M.Caches, slot: int) -> None:
+    """:func:`_write_slot` for caches placed on a mesh (the KV caches of
+    the dense and MoE families).  Every device's b = 1 piece goes into its
+    shared piece on the same device: where the shared k / v split the batch
+    over the data replicas, into the replica that owns ``slot`` at its
+    local row; where they replicate it, into every replica.  ``pos`` and
+    ``length`` are copied to every piece."""
+    for name, dst in shared.items():
+        kv, one = dst.kv, single[name].kv
+        for coord in np.ndindex(kv.k.pieces.shape):
+            idx, n = kv.k.block(coord, 1)
+            local = kv.k.shape[1] // n
+            if idx * local <= slot < (idx + 1) * local:
+                for d, s in zip(kv[:2], one[:2]):
+                    d.pieces[coord][:, slot - idx * local].copy_(s.pieces[coord][:, 0])
+            for d, s in zip(kv[2:], one[2:]):
+                d.pieces[coord].copy_(s.pieces[coord])
+
+
 class Batcher(SlotLoop[Request]):
     """Slot-multiplexed decode over a fixed batch width."""
 
     def __init__(self, cfg: ModelConfig, params: M.LM, n_slots: int = 4,
                  gcfg: GenerationConfig | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh: multi-device serving is ROADMAP A10b")
         super().__init__(n_slots)
         self.cfg = cfg
         self.params = params
         self.gcfg = gcfg or GenerationConfig()
+        self.mesh = M.params_mesh(params, cfg, mesh)
         self.caches = M.init_caches(cfg, n_slots, max_len=self.gcfg.cache_len,
-                                    dtype=self.gcfg.dtype, device=params.device)
+                                    dtype=self.gcfg.dtype, device=params.device,
+                                    mesh=self.mesh)
         self._next_tok = np.zeros((n_slots,), np.int32)
         #: The KV caches' shared length as the host knows it: the last
         #: admitted prompt's length plus the decode steps since.
@@ -119,22 +149,35 @@ class Batcher(SlotLoop[Request]):
                 "decoding; attention caches take equal prompt lengths in "
                 "aligned waves (the reference's splice)")
         one = M.init_caches(self.cfg, 1, max_len=self.gcfg.cache_len,
-                            dtype=self.gcfg.dtype, device=self.params.device)
+                            dtype=self.gcfg.dtype, device=self.params.device,
+                            mesh=self.mesh)
         logits, one = M.prefill(self.params, self.cfg,
                                 {"tokens": np.asarray(req.prompt)[None]}, one,
-                                dtype=self.gcfg.dtype)
-        _write_slot(self.caches, one, slot)
+                                dtype=self.gcfg.dtype, mesh=self.mesh,
+                                replica=self._owner(slot))
+        if self.mesh is None:
+            _write_slot(self.caches, one, slot)
+        else:
+            _write_slot_placed(self.caches, one, slot)
         self._kv_len = s
         tok = int(torch.argmax(logits[0, -1]))
         req.generated.append(tok)
         self._next_tok[slot] = tok
+
+    def _owner(self, slot: int) -> int:
+        """The data replica whose batch rows hold ``slot`` (0 where the
+        replicas do not divide the slots: every replica holds them all)."""
+        if self.mesh is None:
+            return 0
+        n = len(shrd.rows(self.mesh))
+        return slot // (self.n_slots // n) if self.n_slots % n == 0 else 0
 
     def execute(self, active: Sequence[tuple[int, Request]]) -> None:
         """One decode step across all slots (idle ones included, as in the
         reference)."""
         logits, self.caches = M.decode_step(
             self.params, self.cfg, self._next_tok[:, None], self.caches,
-            dtype=self.gcfg.dtype)
+            dtype=self.gcfg.dtype, mesh=self.mesh)
         self._kv_len += 1
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         for i, req in active:

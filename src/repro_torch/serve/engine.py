@@ -24,7 +24,16 @@ histogram, next to the service's own ``moe_dispatch`` / ``kernel`` request
 classes.  :func:`retrieve_context` is the graph-retrieval scenario on the
 same loop.
 
-A ``mesh`` (ROADMAP A10b) raises ``NotImplementedError``.
+**On a mesh** (``mesh=``, as in the reference) the engine serves the
+dense and MoE families tensor-, expert- and data-parallel: the parameters
+must be placed on the mesh (:func:`repro_torch.models.model.init_params`
+with ``mesh=``, or :func:`repro_torch.models.sharding.place_params`), the
+caches are placed by :func:`repro_torch.launch.specs.cache_shardings`, and
+every prefill and decode step runs on the mesh
+(:mod:`repro_torch.models.model`), its logits on the mesh's first device.
+In fused mode each data replica's MoE combines go to the service from the
+replica's lead device, so the service's registry must live there: a
+registry on another device is refused with ``ValueError``.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import torch
 
 from repro_torch.models import model as M
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharding as shrd
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import Stopwatch
 
@@ -72,7 +82,9 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: M.LM, gcfg: GenerationConfig,
                  mesh=None, kernel_service=None, moe_operand: str | None = None,
                  dispatch_spec=None):
-        """``mesh`` is ROADMAP A10b and raises.
+        """``mesh`` (a :class:`~repro_torch.compat.Mesh` or MeshContext,
+        optional) is the mesh every prefill and decode step runs on; the
+        parameters must be placed on it.
 
         ``kernel_service`` + ``moe_operand`` (a name registered via
         :meth:`repro_torch.service.registry.KernelRegistry.register_moe`)
@@ -82,12 +94,14 @@ class ServeEngine:
         attaches to those submissions — requests only coalesce when their
         specs agree — and selects the dispatch path (``None``: ``"auto"``).
         """
-        if mesh is not None:
-            raise NotImplementedError("mesh: multi-device serving is ROADMAP A10b")
         if kernel_service is not None and moe_operand is None:
             raise ValueError(
                 "fused mode needs moe_operand: the registered dispatch "
                 "envelope the MoE submissions execute against")
+        self.mesh = M.params_mesh(params, cfg, mesh)
+        if self.mesh is not None:
+            if kernel_service is not None:
+                _check_service_device(kernel_service, self.mesh)
         self.cfg = cfg
         self.params = params
         self.gcfg = gcfg
@@ -145,13 +159,13 @@ class ServeEngine:
                 tok_hist.observe(sw.stop().elapsed_us)
 
         caches = M.init_caches(cfg, b, max_len=gcfg.cache_len, dtype=gcfg.dtype,
-                               device=dev)
+                               device=dev, mesh=self.mesh)
         batch = {"tokens": np.asarray(prompts)}
         if extras:
             batch.update(extras)
         sw = Stopwatch().start()
         logits, caches = M.prefill(self.params, cfg, batch, caches,
-                                   dtype=gcfg.dtype)
+                                   dtype=gcfg.dtype, mesh=self.mesh)
         gen = torch.Generator(device=dev).manual_seed(seed)
         tok = sample_token(logits[:, -1], gen, gcfg)
         observe(sw)
@@ -160,7 +174,7 @@ class ServeEngine:
         for _ in range(1, gcfg.max_new_tokens):
             sw = Stopwatch().start()
             logits, caches = M.decode_step(self.params, cfg, tok[:, None], caches,
-                                           dtype=gcfg.dtype)
+                                           dtype=gcfg.dtype, mesh=self.mesh)
             tok = sample_token(logits, gen, gcfg)
             observe(sw)
             tok = torch.where(done, gcfg.eos_id, tok)
@@ -169,6 +183,20 @@ class ServeEngine:
             if gcfg.eos_id >= 0 and bool(done.all()):
                 break
         return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+
+
+def _check_service_device(service, mesh) -> None:
+    """A fused engine on a mesh: every data replica's lead device (where
+    its MoE combines run) must be the service's registry device."""
+    dev = service.registry.device
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    leads = {row.lead for row in shrd.rows(mesh)}
+    if leads != {dev}:
+        raise ValueError(
+            f"a fused engine on a mesh needs the service's registry on the "
+            f"replicas' lead device; the registry is on {dev}, the leads are "
+            f"{sorted(str(d) for d in leads)}")
 
 
 def retrieve_context(service, operand: str, n_ctx: int, *,

@@ -86,7 +86,7 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig,
     fault-tolerance tests.  Returns (final state, metric history of
     ``{loss, aux, grad_norm, lr, step, wall_s}``)."""
     if mesh is not None:
-        raise NotImplementedError("mesh: multi-device training is ROADMAP A10b")
+        raise NotImplementedError("mesh: multi-device training is ROADMAP A10c")
     dev = resolve_device(device)
     state = init_train_state(M.make_generator(lcfg.seed, dev), cfg, tcfg)
     start_step = 0

@@ -1001,9 +1001,9 @@ def test_gather_device_ids_launch_once_without_a_conversion(cuda_device,
     seen = []
     launch = gather._launch
 
-    def spy(table, ids, out, chunks, threads):
+    def spy(table, ids, out, chunks, threads, window=None):
         seen.append((ids.data_ptr(), ids.dtype))
-        launch(table, ids, out, chunks, threads)
+        launch(table, ids, out, chunks, threads, window)
 
     monkeypatch.setattr(gather, "_launch", spy)
     table = torch.randn((5000, d), dtype=torch.float32, device=cuda_device)
@@ -1043,6 +1043,45 @@ def test_gather_card_ids_out_of_range_read_inside_the_table(cuda_device,
     ok = torch.tensor([0, v - 1], dtype=id_dtype, device=cuda_device)
     assert torch.equal(gather.embedding_gather(table, ok), table[ok.long()])
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 512])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gather_shard_form_equals_plain_version(cuda_device, dtype, id_dtype, t):
+    """B9's vocab-shard form on four row shards of a table: each shard
+    ``torch.equal`` to ``embedding_gather_shard_ref``, one launch a call,
+    and the shards' sum equal to the whole-table gather; the ids hold every
+    shard's first and last rows and card ids outside ``[0, V)`` (bounded by
+    the whole V: an id past V reads row V - 1 from the last shard only)."""
+    from repro_torch.kernels import gather
+
+    v, d, n = 4000, 66, 4
+    rows = v // n
+    table = torch.randn((v, d), dtype=dtype, device=cuda_device)
+    edges = [e for k in range(n) for e in (k * rows, (k + 1) * rows - 1)]
+    raw = edges + [v, v + 7, -1, -v - 3, 2**31 - 1, -v]
+    rng = np.random.default_rng(t)
+    raw += rng.integers(0, v, t - len(raw)).tolist() if t > len(raw) else []
+    ids = torch.tensor(raw[:t] if t < len(raw) else raw, dtype=id_dtype,
+                       device=cuda_device)
+    parts = []
+    for k in range(n):
+        shard = table[k * rows:(k + 1) * rows]
+        before = gather.SHARD_LAUNCHES
+        got = gather.embedding_gather_shard(shard, ids, k * rows, v)
+        torch.cuda.synchronize()
+        assert gather.SHARD_LAUNCHES == before + 1
+        assert torch.equal(got, gather.embedding_gather_shard_ref(
+            shard, ids, k * rows, v))
+        parts.append(got)
+    assert torch.equal(sum(parts[1:], parts[0]), gather.embedding_gather_ref(table, ids))
+    host = rng.integers(0, v, t).astype(np.int32)        # scanned, then uploaded
+    assert torch.equal(gather.embedding_gather_shard(table[rows:2 * rows], host,
+                                                     rows, v),
+                       gather.embedding_gather_shard_ref(
+                           table[rows:2 * rows], torch.from_numpy(host), rows, v))
 
 
 @pytest.mark.cuda

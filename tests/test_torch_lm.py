@@ -33,6 +33,7 @@ from repro.serve import GenerationConfig as RefGenerationConfig
 from repro.serve import Request as RefRequest
 from repro.serve import ServeEngine as RefEngine
 from repro_torch import configs
+from repro_torch.compat import make_mesh
 from repro_torch.launch import serve as cli
 from repro_torch.models import blocks
 from repro_torch.models import model as M
@@ -278,9 +279,10 @@ def test_cli_serves_reduced_mamba2_on_the_cpu(capsys):
 
 
 def test_cli_refuses_mesh_other_archs_and_a_missing_gpu(monkeypatch):
-    """A mesh and a card that is not there are refused (every arch of the
-    registry is served: no arch is refused any more)."""
-    with pytest.raises(NotImplementedError, match="A10"):
+    """A production mesh on too few cards and a card that is not there are
+    refused (every arch of the registry is served: no arch is refused any
+    more; ``--mesh single`` needs 256 cards, as the reference's)."""
+    with pytest.raises(ValueError, match="needs 256 devices"):
         cli.main(["--device", "cpu", "--mesh", "single"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
@@ -332,12 +334,14 @@ def test_fused_mode_mesh_and_bf16_scan_raise(lm, monkeypatch):
     # the reference's refusal of a fused engine without its envelope
     with pytest.raises(ValueError, match="fused mode needs moe_operand"):
         ServeEngine(tcfg, tp, gcfg, kernel_service=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        ServeEngine(tcfg, tp, gcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        Batcher(tcfg, tp, mesh=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        M.forward(tp, tcfg, {"tokens": np.zeros((1, 8), np.int32)}, mesh=object())
+    # mamba2 on a mesh is ROADMAP A10c (the dense and MoE families run on one)
+    mesh = make_mesh((1, 2), ("data", "model"), ("cpu",) * 2)
+    with pytest.raises(NotImplementedError, match="A10c"):
+        ServeEngine(tcfg, tp, gcfg, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="A10c"):
+        Batcher(tcfg, tp, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="A10c"):
+        M.forward(tp, tcfg, {"tokens": np.zeros((1, 8), np.int32)}, mesh=mesh)
     monkeypatch.setattr(ssm, "SSD_BF16", True)
     with pytest.raises(NotImplementedError, match="bf16"):
         M.forward(tp, tcfg, {"tokens": np.zeros((1, 8), np.int32)})

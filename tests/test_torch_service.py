@@ -488,7 +488,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "          'repro_torch.kernels.spmv', 'repro_torch.optim.adamw',\n"
         "          'repro_torch.data.pipeline', 'repro_torch.checkpoint.store',\n"
         "          'repro_torch.runtime.supervisor', 'repro_torch.train.loop',\n"
-        "          'repro_torch.launch.train'):\n"
+        "          'repro_torch.launch.train', 'repro_torch.compat.meshctx',\n"
+        "          'repro_torch.launch.mesh', 'repro_torch.launch.specs',\n"
+        "          'repro_torch.models.sharding'):\n"
         "    assert m in sys.modules, m\n"
         "print('ok', len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )
