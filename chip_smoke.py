@@ -282,7 +282,31 @@ result line is printed:
               a step and tokens/s a mesh; B9's shard form and B1's
               launches counted around each mesh's drive; the shard form
               timed at mixtral's and llama's shards beside the whole-table
-              B9, the plain version and its bound.
+              B9, the plain version and its bound;
+16. mesh-train — training over (data, model) meshes naming the card four
+              times, and mamba2 on a mesh: B9's shard backward
+              (``embedding_gather_shard_bwd``) against its plain version
+              on mamba2's four (12570, 2560) row shards, T = 4 / 512 /
+              1024, int32 / int64 ids with card ids outside [0, V),
+              ``torch.equal``, the shards stacked ``torch.equal`` to the
+              whole-table backward; one step of 2-layer full-width cuts of
+              mamba2-2.7b on (1, 4) and (2, 2), llama-3.2-3b and
+              deepseek-moe-16b on (1, 4) against the unsharded port on the
+              card (loss 1e-5 relative, every gradient 1e-4 x max|g|, the
+              grad norm 1e-5, AdamW on the mesh's ZeRO-1 blocks given the
+              unsharded gradients 1e-6 x max|p|, every block's pieces
+              equal after a step); mamba2 2 layers served on (1, 4) (B8 a
+              head shard: prefill and decode logits within 1e-4 x
+              max|logit|, engine and batcher tokens past the margin); the
+              main path, mamba2-2.7b at full width and depth trained 3
+              steps of (2, 512) on (1, 4) through ``train_loop(mesh=)``
+              (born sharded, remat "full"; B8, its backward, B9's shard
+              form and shard backward counted from 0): step ms, tokens/s,
+              peak GB beside the unsharded step's, one more step under
+              ``torch.profiler``; a crash and resume on (2, 2) and the
+              mesh checkpoint restored on one device, ``torch.equal``; the
+              shard backward timed beside its bound, plain version and
+              ``zeros + index_add_``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with a record per kernel.
@@ -294,6 +318,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -469,6 +494,28 @@ MESH_DEVICE = "cuda:0"
 #: (mixtral's and llama's vocabularies and widths), its timing shard
 MESH_GATHER_TABLES = {"mixtral-8x7b": (32_000, 4096), "llama3.2-3b": (128_256, 3072)}
 MESH_GATHER_SHARDS = 4
+#: the mesh-train phase: its main path (mamba2-2.7b at full width and
+#: depth, trained TRAIN_STEPS steps of (TRAIN_BATCH, TRAIN_SEQ) tokens on
+#: MESH_TRAIN_MESH naming the card four times), the 2-layer full-width
+#: checks ((arch, meshes), each a step against the unsharded port on the
+#: card) and their tolerances
+MESH_TRAIN_ARCH = "mamba2-2.7b"
+MESH_TRAIN_MESH = (1, 4)
+MESH_TRAIN_CHECKS = (("mamba2-2.7b", ((1, 4), (2, 2))),
+                     ("llama3.2-3b", ((1, 4),)),
+                     ("deepseek-moe-16b", ((1, 4),)))
+MESH_TRAIN_LOSS_RTOL = 1e-5
+MESH_TRAIN_GRAD_TOL = 1e-4
+MESH_TRAIN_NORM_RTOL = 1e-5
+MESH_TRAIN_PARAM_TOL = 1e-6
+#: the unsharded main path's step on the card (phase 14's train path as
+#: PERF.md section 5 records it, NVIDIA H100 80GB HBM3, 700.00 W): ms,
+#: tokens/s, peak GB
+MESH_TRAIN_UNSHARDED = (889.0, 1155.3, 48.72)
+#: B9's shard backward compare cases: ids a train step feeds a shard, and
+#: fewer and more
+SHARD_BWD_TS = (4, 512, TRAIN_BATCH * TRAIN_SEQ)
+MESH_TRAIN_CKPT = Path(__file__).resolve().parent / "build" / "mesh_train_ckpt"
 #: the card's memory rate for bounds (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 #: where every tensor of the run lives: the card
@@ -5253,6 +5300,499 @@ def add_mesh(kernels: list[dict], mp: dict, shard_rec: dict) -> None:
     rec["launches"] += mp["b1"]
 
 
+# ---------------------------------------------------------------------------
+# The mesh-train phase: training over a (data, model) mesh, the SSM family
+# on a mesh
+# ---------------------------------------------------------------------------
+
+
+def mesh_train_counts(ssd_k, gather_k) -> dict:
+    return {"ssd_fused": ssd_k.KERNEL_LAUNCHES,
+            "ssd_fused_bwd": ssd_k.BWD_LAUNCHES,
+            "embedding_gather_shard": gather_k.SHARD_LAUNCHES,
+            "embedding_gather_shard_bwd": gather_k.SHARD_BWD_LAUNCHES}
+
+
+def compare_gather_shard_bwd(torch, np, gather_k, cfg) -> float:
+    """Phase 16: B9's shard backward against its plain version on each of
+    MESH_GATHER_SHARDS row shards of ``cfg``'s table (mamba2: (12570,
+    2560)), T in SHARD_BWD_TS, int32 and int64 ids (every shard's boundary
+    rows, card ids past V and below 0, repeats): ``torch.equal``, one
+    launch a call, and the shards' gradients stacked in model order
+    ``torch.equal`` to the whole-table backward.  Returns the largest
+    absolute difference (0 where every case is equal)."""
+    v, d, n = cfg.vocab_size, cfg.d_model, MESH_GATHER_SHARDS
+    rows = v // n
+    worst, n_cases = 0.0, 0
+    for t in SHARD_BWD_TS:
+        for id_dtype in (torch.int32, torch.int64):
+            ids = gather_shard_ids(torch, np, v, n, t, id_dtype, t + 1)
+            dout = torch.randn((t, d), dtype=torch.float32, device=DEVICE)
+            parts = []
+            for k in range(n):
+                before = gather_k.SHARD_BWD_LAUNCHES
+                got = gather_k.embedding_gather_shard_bwd(dout, ids, k * rows,
+                                                          rows, v)
+                torch.cuda.synchronize()
+                if gather_k.SHARD_BWD_LAUNCHES != before + 1:
+                    raise AssertionError("B9 shard backward: not one launch a "
+                                         "call")
+                want = gather_k.embedding_gather_shard_bwd_ref(dout, ids,
+                                                               k * rows, rows, v)
+                worst = max(worst, max_err(got, want))
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"B9 shard backward k={k} T={t} {id_dtype}: max err "
+                        f"{max_err(got, want):.3e}")
+                parts.append(got)
+                n_cases += 1
+            if not torch.equal(torch.cat(parts),
+                               gather_k.embedding_gather_bwd(dout, ids, v)):
+                raise AssertionError(f"B9 shard backward T={t}: the shards do "
+                                     "not stack to the whole-table backward")
+            del parts
+    phase("compare", f"B9 shard backward: {n_cases} cases torch.equal to "
+          f"embedding_gather_shard_bwd_ref ({n} row shards of {cfg.name}'s "
+          f"({v}, {d}) table, T in {SHARD_BWD_TS}, int32 / int64 ids with "
+          "every boundary row, repeats and card ids outside [0, V)); the "
+          "shards stack to the whole-table backward, torch.equal")
+    return worst
+
+
+def mesh_train_batch(np, cfg) -> dict:
+    return train_batch(np, cfg, TRAIN_BATCH)
+
+
+def mesh_train_check(torch, np, configs, M, sharding, make_mesh, ssd_k,
+                     gather_k) -> list[dict]:
+    """Phase 16: for each of MESH_TRAIN_CHECKS a 2-layer full-width cut
+    (deepseek's 2: its dense first layer and one MoE layer), trainable
+    from LM_SEED on the card, one step on each mesh (naming the card data
+    x model times) against the unsharded port on the card, both on the
+    synthetic stream's (TRAIN_BATCH, TRAIN_SEQ) tokens: the loss to
+    MESH_TRAIN_LOSS_RTOL, every gradient to MESH_TRAIN_GRAD_TOL x max|g|,
+    the grad norm (a whole train step) to MESH_TRAIN_NORM_RTOL, the
+    parameters AdamW makes on the mesh (ZeRO-1 blocks) of the unsharded
+    gradients to MESH_TRAIN_PARAM_TOL x max|p| of the unsharded update,
+    and every block's pieces ``torch.equal`` after the step.  (A whole
+    step's parameters are printed, not held: AdamW's first step is g / (|g|
+    + eps), so an element whose tiny g the rounding turns moves by 2 lr.)"""
+    from repro_torch.optim import adamw_init, adamw_update, decay_mask
+    from repro_torch.optim import global_norm
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.step import loss_and_grads
+
+    out = []
+    tc = TrainConfig(remat=None)
+    for arch, shapes in MESH_TRAIN_CHECKS:
+        t0 = time.perf_counter()
+        cfg = mesh_config(configs, arch, LM_CHECK_LAYERS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg, trainable=True)
+        batch = mesh_train_batch(np, cfg)
+        g1, l1, _ = loss_and_grads(lm, cfg, tc, batch)
+        norm1 = float(global_norm(g1))
+        p1 = {k: p.detach().clone() for k, p in lm.named_parameters()}
+        adamw_update(g1, adamw_init(p1), p1, tc.optimizer, decay=decay_mask(p1))
+        for shape in shapes:
+            mesh = make_mesh(shape, ("data", "model"),
+                             (MESH_DEVICE,) * (shape[0] * shape[1]))
+            placed = sharding.place_params(lm, cfg, mesh)
+            before = mesh_train_counts(ssd_k, gather_k)
+            g2, l2, _ = loss_and_grads(placed, cfg, tc, batch)
+            torch.cuda.synchronize()
+            ran = {k: v - before[k] for k, v in
+                   mesh_train_counts(ssd_k, gather_k).items()}
+            loss_rel = abs(float(l2) - float(l1)) / abs(float(l1))
+            if not loss_rel <= MESH_TRAIN_LOSS_RTOL:
+                raise AssertionError(f"mesh-train {arch} {shape}: loss "
+                                     f"{float(l2)} vs {float(l1)}")
+            grad_err, worst_name = 0.0, ""
+            for k, g in g1.items():
+                e = float((g2[k].full() - g).abs().max()) / max(
+                    float(g.abs().max()), 1e-30)
+                if not e <= MESH_TRAIN_GRAD_TOL:
+                    raise AssertionError(f"mesh-train {arch} {shape}: gradient "
+                                         f"{k} differs by {e:.2e} x max|g|")
+                if e >= grad_err:
+                    grad_err, worst_name = e, k
+            del g2
+            state = init_train_state(None, cfg, tc, params=placed)
+            state, m = make_train_step(cfg, tc)(state, batch)
+            norm_rel = abs(float(m["grad_norm"]) - norm1) / norm1
+            if not norm_rel <= MESH_TRAIN_NORM_RTOL:
+                raise AssertionError(f"mesh-train {arch} {shape}: grad norm "
+                                     f"{float(m['grad_norm'])} vs {norm1}")
+            step_diff = max(float((leaf.full() - p1[k]).abs().max())
+                            for k, leaf in state.params.items())
+            for k, leaf in list(state.params.items()) + [
+                    (k, x) for k, x in state.opt["m"].items()]:
+                for grp in sharding.groups(leaf):
+                    if not all(torch.equal(leaf.pieces[c], leaf.pieces[grp[0]])
+                               for c in grp):
+                        raise AssertionError(f"mesh-train {arch} {shape}: the "
+                                             f"pieces of a block of {k} differ")
+            del state
+            # AdamW on the mesh's ZeRO-1 blocks, given the unsharded gradients
+            placed = sharding.place_params(lm, cfg, mesh)
+            state = init_train_state(None, cfg, tc, params=placed)
+            grads = {k: sharding.place(g1[k], state.opt["m"][k].spec, mesh)
+                     for k in g1}
+            adamw_update(grads, state.opt, placed, tc.optimizer)
+            param_err = max(float((leaf.full() - p1[k]).abs().max())
+                            / float(p1[k].abs().max())
+                            for k, leaf in placed.items())
+            if not param_err <= MESH_TRAIN_PARAM_TOL:
+                raise AssertionError(f"mesh-train {arch} {shape}: AdamW's "
+                                     f"parameters differ by {param_err:.2e}")
+            del state, grads, placed
+            rec = {"arch": arch, "mesh": list(shape), "layers": cfg.n_layers,
+                   "loss_rel": loss_rel, "grad_err": grad_err,
+                   "norm_rel": norm_rel, "param_err": param_err,
+                   "step_param_diff": step_diff, "launches": ran}
+            out.append(rec)
+            phase("mesh-train", f"check {cfg.name} {cfg.n_layers} layers at "
+                  f"full width on {shape} over {MESH_DEVICE} x "
+                  f"{shape[0] * shape[1]}, one step on ({TRAIN_BATCH}, "
+                  f"{TRAIN_SEQ}) tokens vs the unsharded port on the card: loss "
+                  f"rel {loss_rel:.2e} <= {MESH_TRAIN_LOSS_RTOL}; worst gradient "
+                  f"{worst_name} {grad_err:.2e} x max|g| <= {MESH_TRAIN_GRAD_TOL}; "
+                  f"grad norm rel {norm_rel:.2e} <= {MESH_TRAIN_NORM_RTOL}; AdamW "
+                  f"on the mesh given the unsharded gradients {param_err:.2e} x "
+                  f"max|p| <= {MESH_TRAIN_PARAM_TOL}; a whole step's parameters "
+                  f"max abs diff {step_diff:.3e}; every block's pieces equal; "
+                  f"launches {ran}")
+        del lm, g1, p1
+        phase("mesh-train", f"{cfg.name} checks in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_serve(torch, np, configs, M, serve, ssm_mod, sharding, make_mesh,
+                     ssd_k, gather_k) -> dict:
+    """Phase 16: mamba2 at full width cut to LM_CHECK_LAYERS layers, served
+    on MESH_TRAIN_MESH over the card: prefill logits of (LM_SLOTS,
+    LM_PROMPT) prompts and MESH_DECODE_STEPS decode steps within
+    MESH_LOGIT_RTOL x max|logit| of the unsharded port, greedy tokens past
+    the margin; ``ServeEngine`` and ``Batcher(n_slots=LM_SLOTS)`` (every
+    admission a b = 1 prefill) on LM_REQUESTS prompts, tokens equal to the
+    unsharded continuation past the margin; B8 a head shard."""
+    t0 = time.perf_counter()
+    cfg = mesh_config(configs, MESH_TRAIN_ARCH, LM_CHECK_LAYERS)
+    params = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg)
+    prompts = np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)
+    head = prompts[:LM_SLOTS]
+    want = greedy_steps(torch, np, M, params, cfg, prompts, LM_NEW_TOKENS)
+    want_pre = mesh_prefill(torch, M, params, cfg, head)
+    tol = MESH_LOGIT_RTOL * max(1.0, float(want_pre.abs().max()),
+                                float(np.abs(want["steps"]).max()))
+    mesh = make_mesh(MESH_TRAIN_MESH, ("data", "model"),
+                     (MESH_DEVICE,) * (MESH_TRAIN_MESH[0] * MESH_TRAIN_MESH[1]))
+    placed = sharding.place_params(params, cfg, mesh)
+    before = mesh_train_counts(ssd_k, gather_k)
+    got_pre = mesh_prefill(torch, M, placed, cfg, head, mesh)
+    scan = "lead" if ssm_mod.head_split(cfg, MESH_TRAIN_MESH[1]) is None else "heads"
+    got = greedy_steps(torch, np, M, placed, cfg, head, MESH_DECODE_STEPS + 1,
+                       mesh=mesh)
+    pre_err = max_err(got_pre, want_pre)
+    step_err = float(np.abs(got["steps"] - want["steps"][
+        :LM_SLOTS, :MESH_DECODE_STEPS + 1]).max())
+    if pre_err > tol or step_err > tol or scan != "heads":
+        raise AssertionError(f"mesh-train serve: logits differ by {pre_err:.3e} "
+                             f"/ {step_err:.3e} (limit {tol:.3e}), scan {scan}")
+    margin_rule(got["tokens"], want["tokens"][:LM_SLOTS, :MESH_DECODE_STEPS + 1],
+                want["margins"][:LM_SLOTS], tol, label="mesh-train serve")
+    gcfg = serve.GenerationConfig(max_new_tokens=LM_NEW_TOKENS,
+                                  cache_len=LM_PROMPT + LM_NEW_TOKENS)
+    eng = serve.ServeEngine(cfg, placed, gcfg, mesh=mesh).generate(head)
+    margin_rule(eng, want["tokens"][:LM_SLOTS], want["margins"][:LM_SLOTS], tol,
+                label="mesh-train engine")
+    toks, tps = serve_batcher(torch, serve, cfg, placed, prompts, mesh)
+    for rid, t in toks.items():
+        margin_rule(np.asarray([t]), want["tokens"][rid:rid + 1],
+                    want["margins"][rid:rid + 1], tol,
+                    label=f"mesh-train batcher {rid}")
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in mesh_train_counts(ssd_k, gather_k).items()}
+    if not (ran["ssd_fused"] and ran["embedding_gather_shard"]):
+        raise AssertionError(f"mesh-train serve: launches {ran}")
+    phase("mesh-train", f"serve {cfg.name} {cfg.n_layers} layers at full width on "
+          f"{MESH_TRAIN_MESH} over {MESH_DEVICE} x 4 (scan: {scan}, B8 on each "
+          f"device's {cfg.n_ssm_heads // MESH_TRAIN_MESH[1]} heads): prefill "
+          f"({LM_SLOTS}, {LM_PROMPT}) {got['prefill_ms']:.2f} ms, decode "
+          f"{got['decode_ms']:.2f} ms a step; logits within {pre_err:.3e} / "
+          f"{step_err:.3e} of the unsharded (limit {tol:.3e}); engine and "
+          f"batcher ({LM_REQUESTS} requests, {tps:.2f} tokens/s) tokens equal "
+          f"to the unsharded past the margin; launches {ran} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del params, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": ran, "prefill_err": pre_err, "decode_err": step_err,
+            "tokens_per_s": tps, "prefill_ms": got["prefill_ms"],
+            "decode_ms": got["decode_ms"]}
+
+
+def mesh_train_path(torch, np, configs, make_mesh, ssd_k, gather_k) -> dict:
+    """Phase 16, the main path: mamba2-2.7b at full width and depth,
+    trained TRAIN_STEPS steps of (TRAIN_BATCH, TRAIN_SEQ) tokens on
+    MESH_TRAIN_MESH naming the card four times through
+    :func:`repro_torch.train.train_loop` (``mesh=``: the state born
+    sharded, remat "full", AdamW at TRAIN_LR), the four counts set to 0
+    just before and read just after: each step's loss, grad norm and ms,
+    tokens/s and the peak device memory beside the unsharded step's."""
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, TrainLoopConfig, train_loop
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config(MESH_TRAIN_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    mesh = make_mesh(MESH_TRAIN_MESH, ("data", "model"),
+                     (MESH_DEVICE,) * (MESH_TRAIN_MESH[0] * MESH_TRAIN_MESH[1]))
+    phase("mesh-train", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_ssm_heads} SSM heads, vocab {cfg.vocab_size} "
+          f"on {MESH_TRAIN_MESH} over {MESH_DEVICE} x 4; device memory before "
+          f"init {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR), remat=TRAIN_REMAT)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=LM_SEED)
+    lcfg = TrainLoopConfig(total_steps=TRAIN_STEPS, log_every=1, seed=LM_SEED)
+    ssd_k.KERNEL_LAUNCHES = ssd_k.BWD_LAUNCHES = 0
+    gather_k.SHARD_LAUNCHES = gather_k.SHARD_BWD_LAUNCHES = 0
+    gather_k.KERNEL_LAUNCHES = gather_k.BWD_LAUNCHES = 0
+    state, hist = train_loop(cfg, tcfg, dcfg, lcfg, mesh=mesh,
+                             log=lambda s: print(s, flush=True))
+    torch.cuda.synchronize()
+    launches = mesh_train_counts(ssd_k, gather_k)
+    whole_table = {"embedding_gather": gather_k.KERNEL_LAUNCHES,
+                   "embedding_gather_bwd": gather_k.BWD_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(math.prod(leaf.shape) for _, leaf in state.params.items())
+    for h in hist:
+        phase("mesh-train", f"step {h['step']}: loss {h['loss']:.6f} grad norm "
+              f"{h['grad_norm']:.6f} lr {h['lr']:.3e} {h['wall_s'] * 1e3:.1f} ms")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist):
+        raise AssertionError(f"mesh-train: a loss or grad norm is not finite: "
+                             f"{hist}")
+    if not all(launches.values()):
+        raise AssertionError(f"mesh-train: the run launched {launches}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = [h["wall_s"] for h in hist[1:]] or [hist[0]["wall_s"]]
+    step_ms = statistics.median(steady) * 1e3
+    tps = tokens / statistics.median(steady)
+    ms0, tps0, gb0 = MESH_TRAIN_UNSHARDED
+    phase("mesh-train", f"{cfg.name} ({n_params / 1e9:.3f} B parameters, fp32) on "
+          f"{MESH_TRAIN_MESH}: {len(hist)} steps of ({TRAIN_BATCH}, {TRAIN_SEQ}) "
+          f"tokens, remat {TRAIN_REMAT}: step {step_ms:.1f} ms, {tps:.1f} "
+          f"tokens/s (median of steps 1+; step 0 {hist[0]['wall_s'] * 1e3:.1f} "
+          f"ms), peak device memory {peak:.2f} GB, beside the unsharded step's "
+          f"{ms0} ms / {tps0} tokens/s / {gb0} GB (PERF.md section 5); "
+          f"launches {launches}"
+          f" (whole-table B9 {whole_table}) | {smi_line()}")
+    prof = mesh_train_profile(torch, np, state, cfg, tcfg, step_ms)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("mesh-train", f"main path done in {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "hist": hist, "step_ms": step_ms,
+            "tokens_per_s": tps, "peak_gb": peak, "cfg": cfg,
+            "whole_table": whole_table, "profile": prof}
+
+
+def mesh_train_profile(torch, np, state, cfg, tcfg, step_ms: float) -> dict:
+    """One more step of the main path's state under ``torch.profiler``:
+    the card's busy time against the profiled wall and against
+    ``step_ms`` (an unprofiled step), the kernels that take most of it,
+    and the host's torch ops a step (the mesh's launches are issued by one
+    process for every device)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import make_train_step
+
+    step = make_train_step(cfg, tcfg)
+    batch = mesh_train_batch(np, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in dev) / 1e3
+    host_ops = sum(e.count for e in events if e.device_type == DeviceType.CPU
+                   and e.key.startswith("aten::"))
+    top = sorted(dev, key=lambda e: e.device_time_total, reverse=True)[:5]
+    busy_txt = (f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}% of it; "
+                f"{100 * busy / step_ms:.1f}% of an unprofiled step's "
+                f"{step_ms:.1f} ms)" if busy > 0
+                else "device time not measured (no device events)")
+    phase("profile", f"{cfg.name} mesh train step {MESH_TRAIN_MESH} ({TRAIN_BATCH}, "
+          f"{TRAIN_SEQ}) remat {tcfg.remat}: wall {wall_ms:.1f} ms under the "
+          f"profiler; {busy_txt}; {host_ops} aten ops issued by the host; most "
+          "device time: " + "; ".join(
+              f"{e.key[:40]} {e.device_time_total / 1e3:.2f} ms x{e.count}"
+              for e in top))
+    return {"wall_ms": wall_ms, "busy_ms": busy, "step_ms": step_ms,
+            "host_aten_ops": host_ops}
+
+
+def mesh_train_resume(torch, configs, M, make_mesh) -> float:
+    """Phase 16: resume on a mesh — the reduced mamba2 on (2, 2) over the
+    card, a run crashed at step 2 restarts from its step-2 checkpoint and
+    ends within TRAIN_RESUME_TOL of an uninterrupted run; the mesh's
+    step-4 checkpoint restores on one device, ``torch.equal``."""
+    import shutil
+
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, TrainLoopConfig, train_loop
+
+    cfg = configs.reduced_config(MESH_TRAIN_ARCH)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), remat="full")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=2 * cfg.ssm.chunk,
+                      global_batch=4, seed=LM_SEED)
+    mesh = make_mesh((2, 2), ("data", "model"), (MESH_DEVICE,) * 4)
+    shutil.rmtree(MESH_TRAIN_CKPT, ignore_errors=True)
+
+    def run(name, placement, **kw):
+        lcfg = TrainLoopConfig(total_steps=4, ckpt_every=2, log_every=100,
+                               ckpt_dir=str(MESH_TRAIN_CKPT / name), seed=LM_SEED)
+        return train_loop(cfg, tcfg, dcfg, lcfg, mesh=placement, device=DEVICE,
+                          log=lambda s: None, **kw)
+
+    whole, _ = run("whole", mesh)
+    try:
+        run("crashed", mesh, fail_at_step=2)
+        raise AssertionError("mesh resume: the injected failure did not happen")
+    except RuntimeError as e:
+        if "injected failure at step 2" not in str(e):
+            raise
+    resumed, hist = run("crashed", mesh)
+    if [h["step"] for h in hist] != [2, 3]:
+        raise AssertionError(f"mesh resume: steps {[h['step'] for h in hist]}")
+    worst = max(float((a.full() - b.full()).detach().abs().max()) for (_, a), (_, b)
+                in zip(whole.params.items(), resumed.params.items()))
+    if not worst <= TRAIN_RESUME_TOL:
+        raise AssertionError(f"mesh resume: parameters differ by {worst}")
+    one, hist = run("whole", None)
+    equal = not hist and all(torch.equal(p.detach(), whole.params[k].full())
+                             for k, p in one.params.named_parameters())
+    if not equal:
+        raise AssertionError("mesh resume: the mesh checkpoint restored on one "
+                             "device differs")
+    phase("mesh-train", f"resume on (2, 2) over the card ({cfg.name}, "
+          f"{dcfg.global_batch} x {dcfg.seq_len} tokens): crashed at step 2, "
+          f"restored the step-2 checkpoint, ran steps 2-3; parameters vs an "
+          f"uninterrupted run max abs diff {worst:.3e} <= {TRAIN_RESUME_TOL}; "
+          "the mesh's step-4 checkpoint restored on one device torch.equal")
+    shutil.rmtree(MESH_TRAIN_CKPT, ignore_errors=True)
+    return worst
+
+
+def time_gather_shard_bwd(torch, np, gather_k, cfg, flush, launches: int,
+                          err: float) -> dict:
+    """B9's shard backward at the main path's shape: every shard of
+    mamba2's table over MESH_TRAIN_MESH's model axis ((12570, 2560) fp32)
+    given the train step's (TRAIN_BATCH x TRAIN_SEQ) int64 ids on the card,
+    each the median of 10 CUDA-event timings with the L2 flushed.  The
+    record is the slowest shard's, beside its bound, its plain version,
+    ``zeros + index_add_`` over the masked ids (the library call) and the
+    whole-table backward.  Bound: bytes this run's ids need (the shard's
+    rows written, the dout rows of the ids it owns and every id read once)
+    over HBM_BYTES_PER_S."""
+    v, d = cfg.vocab_size, cfg.d_model
+    n_shards = MESH_TRAIN_MESH[1]
+    rows = v // n_shards
+    t = TRAIN_BATCH * TRAIN_SEQ
+    ids = torch.from_numpy(mesh_train_batch(np, cfg)["tokens"].reshape(-1)
+                           .astype(np.int64)).to(DEVICE)
+    dout = torch.randn((t, d), dtype=torch.float32, device=DEVICE)
+    bounded = gather_k.clamp_ids(ids, v)
+    shards = []
+    for s in range(n_shards):
+        lo = s * rows
+        ms = time_ms(torch, lambda lo=lo: gather_k.embedding_gather_shard_bwd(
+            dout, ids, lo, rows, v), flush)
+        owned = int(((bounded >= lo) & (bounded < lo + rows)).sum())
+        nbytes = (rows + owned) * d * 4 + ids.element_size() * t
+        shards.append({"shard": s, "ms": ms, "owned_ids": owned,
+                       "bytes": nbytes,
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    worst = max(shards, key=lambda r: r["ms"])
+    lo = worst["shard"] * rows
+    plain_ms = time_ms(torch, lambda: gather_k.embedding_gather_shard_bwd_ref(
+        dout, ids, lo, rows, v), flush)
+
+    def library():
+        local = bounded - lo
+        own = (local >= 0) & (local < rows)
+        return torch.zeros((rows, d), device=DEVICE).index_add_(
+            0, local[own], dout[own])
+    lib_ms = time_ms(torch, library, flush)
+    whole_ms = time_ms(torch, lambda: gather_k.embedding_gather_bwd(dout, ids, v),
+                       flush)
+    phase("timing", f"B9 shard backward T={t} into each ({rows}, {d}) shard of "
+          f"{cfg.name}'s table fp32: " + "; ".join(
+              f"shard {r['shard']} {r['ms']:.4f} ms, {r['owned_ids']} ids owned, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB)"
+              for r in shards)
+          + f" | slowest shard {worst['shard']}: plain {plain_ms:.4f} ms | zeros "
+          f"+ index_add_ over the masked ids {lib_ms:.4f} ms | whole-table "
+          f"backward {whole_ms:.4f} ms | {smi_line()}")
+    return {"name": "embedding_gather_shard_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/embedding_gather.cu",
+            "replaces": "src/repro/kernels/gather.py:44 (its vocab-shard form's "
+                        "backward: the reference differentiates XLA's gather "
+                        "under GSPMD, src/repro/models/model.py:118)",
+            "launches": launches, "max_abs_err": err, "ms": worst["ms"],
+            "plain_ms": plain_ms, "bound_ms": worst["bound_ms"],
+            "bound_by": "bytes", "library_ms": lib_ms, "whole_table_ms": whole_ms,
+            "shards": shards,
+            "shape": f"T={t} int64 ids (a train step's) into shard "
+                     f"{worst['shard']} (the slowest) of {cfg.name}'s table "
+                     f"over a {n_shards}-way model axis ({rows}, {d}) fp32"}
+
+
+def add_mesh_train(kernels: list[dict], mt: dict, shard_bwd: dict) -> None:
+    """Phase 16 on the kernels line: its main path's launches of B8, B8's
+    backward and B9's shard form under ``launches_by_path["mesh-train"]``,
+    and B9's shard backward record."""
+    for name in ("ssd_fused", "ssd_fused_bwd", "embedding_gather_shard"):
+        rec = next(r for r in kernels if r["name"] == name)
+        rec.setdefault("launches_by_path", {"earlier phases": rec["launches"]})
+        rec["launches_by_path"]["mesh-train"] = mt["launches"][name]
+        rec["launches"] += mt["launches"][name]
+    kernels.append(shard_bwd)
+
+
+def run_mesh_train(torch, np, configs, M, serve, ssm_mod, sharding, make_mesh,
+                   ssd_k, gather_k, flush) -> tuple[dict, dict]:
+    """Phase 16 whole, as ``main()`` and ``scripts/mesh_train_alone.py`` run
+    it: (the main path's readings, B9's shard backward record)."""
+    err = compare_gather_shard_bwd(torch, np, gather_k,
+                                   configs.get_config(MESH_TRAIN_ARCH))
+    checks = mesh_train_check(torch, np, configs, M, sharding, make_mesh,
+                              ssd_k, gather_k)
+    served = mesh_train_serve(torch, np, configs, M, serve, ssm_mod, sharding,
+                              make_mesh, ssd_k, gather_k)
+    mt = mesh_train_path(torch, np, configs, make_mesh, ssd_k, gather_k)
+    mesh_train_resume(torch, configs, M, make_mesh)
+    rec = time_gather_shard_bwd(torch, np, gather_k, mt["cfg"], flush,
+                                mt["launches"]["embedding_gather_shard_bwd"], err)
+    mt.update(checks=checks, serve=served)
+    return mt, rec
+
+
 def main() -> int:
     import torch
 
@@ -5279,6 +5819,7 @@ def main() -> int:
     from repro_torch.kernels.execspec import ExecSpec
     from repro_torch.models import model as M
     from repro_torch.models import moe, sharding
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.service import KernelRegistry, KernelService
     from repro_torch.sparse import formats as F
 
@@ -5452,7 +5993,16 @@ def main() -> int:
                    KernelRegistry, KernelService, make_mesh, sharding)
     add_mesh(kernels, mp, time_gather_shard(torch, np, gather_k, flush,
                                             mp["b9_shard"], shard_err))
-    phase("mesh", f"done in {time.perf_counter() - t0:.1f} s; whole run "
+    phase("mesh", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 16. training over a (data, model) mesh, mamba2 on a mesh ---------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mt, shard_bwd = run_mesh_train(torch, np, configs, M, serve, ssm_mod,
+                                   sharding, make_mesh, ssd_k, gather_k, flush)
+    add_mesh_train(kernels, mt, shard_bwd)
+    phase("mesh-train", f"done in {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

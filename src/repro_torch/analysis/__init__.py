@@ -7,6 +7,8 @@ from repro_torch.analysis.preflight import (
     plan_bfs_sell,
     plan_embedding_gather,
     plan_embedding_gather_bwd,
+    plan_embedding_gather_shard,
+    plan_embedding_gather_shard_bwd,
     plan_fft_stockham,
     plan_moe_dispatch,
     plan_pagerank_ell,
@@ -22,7 +24,8 @@ from repro_torch.analysis.preflight import (
 __all__ = ["BlockPlan", "LaunchPlan", "LaunchPlanError", "LiveWidthMeta",
            "SlabMeta",
            "plan_bfs_ell", "plan_bfs_sell", "plan_embedding_gather",
-           "plan_embedding_gather_bwd",
+           "plan_embedding_gather_bwd", "plan_embedding_gather_shard",
+           "plan_embedding_gather_shard_bwd",
            "plan_fft_stockham",
            "plan_moe_dispatch", "plan_pagerank_ell", "plan_pagerank_sell",
            "plan_spmm_sell", "plan_spmm_sell_sharded",

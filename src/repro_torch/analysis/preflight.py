@@ -46,6 +46,10 @@ launches, each block a tile of sub-signals in shared memory).
 :func:`plan_embedding_gather` (kernel B9, :func:`repro_torch.kernels
 .gather.embedding_gather`): one launch, a block per (row, chunk of the
 row); the ids that lie on the host are scanned for range.
+:func:`plan_embedding_gather_bwd` (B9's backward) and
+:func:`plan_embedding_gather_shard_bwd` (its vocab-shard form, a mesh's
+row shard of the table): one launch, a block per stripe of table rows and
+column chunk.
 :func:`plan_ssd_fused` (kernel B8, :func:`repro_torch.kernels.ssd.ssd_fused`): three
 launches of the chunk-parallel scan (chunk states, the state pass, chunk
 outputs), their grids and fixed shared memory.
@@ -1115,6 +1119,27 @@ def plan_embedding_gather_bwd(vocab: int, d: int, t: int, *,
     return LaunchPlan(kernel="embedding_gather_bwd",
                       operand=f"scatter T={t} into ({vocab}, {d})",
                       dtype=dtype, blocks=(block,),
+                      violations=tuple(violations))
+
+
+def plan_embedding_gather_shard_bwd(vocab: int, lo: int, rows: int, d: int,
+                                    t: int, *, dtype: str = "float32",
+                                    id_dtype: str = "int64") -> LaunchPlan:
+    """Plan the vocab-shard backward: the (rows, d) gradient of rows ``[lo,
+    lo + rows)`` of a (vocab, d) table from (t, d) output gradients.  The
+    launch is the whole-table backward's (:func:`plan_embedding_gather_bwd`)
+    over the shard's rows: ``ceil(rows / stripe) x chunks`` blocks, the ids
+    bounded by the *whole* vocabulary inside the kernel, then those outside
+    the window dropped.  The window must lie inside the vocabulary."""
+    plan = plan_embedding_gather_bwd(rows, d, t, dtype=dtype, id_dtype=id_dtype)
+    violations = list(plan.violations)
+    if lo < 0 or rows < 1 or lo + rows > vocab:
+        violations.append(f"shard rows [{lo}, {lo + rows}) outside the "
+                          f"vocabulary [0, {vocab})")
+    return LaunchPlan(kernel="embedding_gather_shard_bwd",
+                      operand=f"scatter T={t} into rows [{lo}, {lo + rows}) of "
+                              f"({vocab}, {d})",
+                      dtype=dtype, blocks=plan.blocks,
                       violations=tuple(violations))
 
 

@@ -15,8 +15,11 @@ in the other:
   the parameters cannot reach the snapshot) and writes in a background
   thread, overlapping the next training steps.
 
-Leaves are tensors (on any device), numpy arrays or Python numbers;
-restore returns numpy arrays in the example tree's structure.
+Leaves are tensors (on any device), values placed on a mesh (a
+:class:`~repro_torch.models.sharding.Sharded`, gathered to the host whole,
+so a checkpoint written on a mesh is the one a single device writes),
+numpy arrays or Python numbers; restore returns numpy arrays in the
+example tree's structure.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.models.sharding import Sharded
 
 __all__ = ["CheckpointManager", "SEP", "latest_step", "restore_checkpoint",
            "save_checkpoint"]
@@ -59,7 +64,11 @@ def _leaves(tree, prefix=()):
 
 
 def _host(leaf) -> np.ndarray:
-    """A host copy of a leaf (a tensor detached and copied, never a view)."""
+    """A host copy of a leaf (a tensor detached and copied, never a view; a
+    placed value gathered from its blocks)."""
+    if isinstance(leaf, Sharded):
+        with torch.no_grad():
+            return leaf.full("cpu").numpy()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)

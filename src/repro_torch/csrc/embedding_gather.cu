@@ -94,6 +94,19 @@
 // (scripts/ssd_launch_times.py gather) it runs ~0.20 ms against ~0.18 for
 // torch.zeros of the table: the zero-fill is the bulk.  All T ids equal
 // (one run summed by one stripe's blocks, serially a column) take ~0.22.
+//
+// The vocab-shard backward (repro_embedding_gather_shard_bwd, the same
+// kernel): the (shard_rows, d) gradient of rows [lo, lo + shard_rows) of a
+// vocab-row table, the shard a device of a mesh's model axis holds.  Each
+// id is bounded by the whole vocab first, exactly as the forward bounds it
+// (so an id past V lands on row V - 1, the last shard's alone), then an id
+// outside the window is dropped at step 2's compaction, so the kernel
+// writes only the owned rows.  A row's hits are summed in ascending
+// position from zero as in the whole-table form, so the shards' gradients
+// stacked in model order are the whole-table gradient, bit for bit.
+// Bound: (shard_rows d + T d) itemsize + T id bytes (every block reads
+// all of dout's hit rows at most once a column; the zeros are the bulk).
+// Host wrapper: gather.py::embedding_gather_shard_bwd.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -180,11 +193,13 @@ __device__ __forceinline__ int64_t bounded(const Id* ids, int64_t k, int64_t n_r
 // (the frequent ids of a Zipf stream) start first.  Warp 0 reads the ids
 // while the other warps zero-fill the stripe; then every thread sums the
 // hits of the column it owns.
+// Ids are bounded by `vocab` and shifted by `lo` (the shard's first row);
+// rows outside [0, n_rows) after the shift are another shard's.
 template <typename V, typename Id>
 __global__ void __launch_bounds__(kMaxThreads)
 gather_bwd_kernel(const Id* __restrict__ ids, const V* __restrict__ dout,
-                  V* __restrict__ dtable, int64_t n_rows, int n_ids, int64_t row_vecs,
-                  int stripe, int chunks) {
+                  V* __restrict__ dtable, int64_t n_rows, int64_t vocab, int64_t lo,
+                  int n_ids, int64_t row_vecs, int stripe, int chunks) {
   __shared__ int hits[kSlice];              // (stripe row << 16) | slice position
   __shared__ int order[kSlice];             // the hits by row, ascending position within
   __shared__ int cnt[kMaxStripe];           // hits of each row in this slice
@@ -223,7 +238,7 @@ gather_bwd_kernel(const Id* __restrict__ ids, const V* __restrict__ dout,
 #pragma unroll
         for (int u = 0; u < kIdsInFlight; ++u) {
           const int k = k0 + 32 * u + lane;
-          rr[u] = k < len ? bounded(ids, s0 + k, n_rows) - r0 : -1;
+          rr[u] = k < len ? bounded(ids, s0 + k, vocab) - lo - r0 : -1;
         }
 #pragma unroll
         for (int u = 0; u < kIdsInFlight; ++u) {
@@ -358,19 +373,60 @@ int gather_entry(const void* table, int64_t vocab, int64_t lo, int64_t shard_row
 
 template <typename V>
 int launch_bwd(const void* ids, int id_bytes, const void* dout, void* dtable, int64_t n_rows,
-               int n_ids, int64_t row_vecs, int stripe, int chunks, int threads,
-               cudaStream_t st) {
+               int64_t vocab, int64_t lo, int n_ids, int64_t row_vecs, int stripe, int chunks,
+               int threads, cudaStream_t st) {
   const unsigned grid = static_cast<unsigned>(((n_rows + stripe - 1) / stripe) * chunks);
   if (id_bytes == 8) {
     gather_bwd_kernel<V, long long><<<grid, threads, 0, st>>>(
         static_cast<const long long*>(ids), static_cast<const V*>(dout), static_cast<V*>(dtable),
-        n_rows, n_ids, row_vecs, stripe, chunks);
+        n_rows, vocab, lo, n_ids, row_vecs, stripe, chunks);
   } else {
     gather_bwd_kernel<V, int><<<grid, threads, 0, st>>>(
         static_cast<const int*>(ids), static_cast<const V*>(dout), static_cast<V*>(dtable),
-        n_rows, n_ids, row_vecs, stripe, chunks);
+        n_rows, vocab, lo, n_ids, row_vecs, stripe, chunks);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The checks and the launch of both backward entries: the gradient of rows
+// [lo, lo + n_rows) of a vocab-row table.
+int bwd_entry(const void* ids, int id_bytes, const void* dout, void* dtable, int64_t n_rows,
+              int64_t lo, int64_t vocab, int64_t n_ids, int64_t d, int is_double,
+              int vec_bytes, int stripe, int chunks, int threads, void* stream) {
+  const int64_t item = is_double ? 8 : 4;
+  const int64_t row_bytes = d * item;
+  const int64_t row_vecs = vec_bytes > 0 ? row_bytes / vec_bytes : 0;
+  const int64_t n_stripes = stripe > 0 ? (n_rows + stripe - 1) / stripe : 0;
+  auto misaligned = [&](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % static_cast<uintptr_t>(vec_bytes) != 0;
+  };
+  if (n_rows <= 0 || lo < 0 || lo + n_rows > vocab || n_ids <= 0 || n_ids > 2147483647 ||
+      d <= 0 || (id_bytes != 4 && id_bytes != 8) ||
+      (vec_bytes != 4 && vec_bytes != 8 && vec_bytes != 16) || vec_bytes < item ||
+      row_bytes % vec_bytes != 0 || misaligned(dout) || misaligned(dtable) ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || stripe < 1 ||
+      stripe > kMaxStripe || chunks < 1 || n_stripes * chunks > 2147483647 ||
+      static_cast<int64_t>(chunks) * threads < row_vecs ||
+      static_cast<int64_t>(chunks - 1) * threads >= row_vecs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  const int t = static_cast<int>(n_ids);
+  if (is_double) {
+    if (vec_bytes == 16)
+      return launch_bwd<double2>(ids, id_bytes, dout, dtable, n_rows, vocab, lo, t, row_vecs,
+                                 stripe, chunks, threads, st);
+    return launch_bwd<double>(ids, id_bytes, dout, dtable, n_rows, vocab, lo, t, row_vecs,
+                              stripe, chunks, threads, st);
+  }
+  if (vec_bytes == 16)
+    return launch_bwd<float4>(ids, id_bytes, dout, dtable, n_rows, vocab, lo, t, row_vecs,
+                              stripe, chunks, threads, st);
+  if (vec_bytes == 8)
+    return launch_bwd<float2>(ids, id_bytes, dout, dtable, n_rows, vocab, lo, t, row_vecs,
+                              stripe, chunks, threads, st);
+  return launch_bwd<float>(ids, id_bytes, dout, dtable, n_rows, vocab, lo, t, row_vecs,
+                           stripe, chunks, threads, st);
 }
 
 }  // namespace
@@ -417,40 +473,22 @@ int repro_embedding_gather_bwd(const void* ids, int id_bytes, const void* dout, 
                                int64_t n_rows, int64_t n_ids, int64_t d, int is_double,
                                int vec_bytes, int stripe, int chunks, int threads,
                                void* stream) {
-  const int64_t item = is_double ? 8 : 4;
-  const int64_t row_bytes = d * item;
-  const int64_t row_vecs = vec_bytes > 0 ? row_bytes / vec_bytes : 0;
-  const int64_t n_stripes = stripe > 0 ? (n_rows + stripe - 1) / stripe : 0;
-  auto misaligned = [&](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % static_cast<uintptr_t>(vec_bytes) != 0;
-  };
-  if (n_rows <= 0 || n_ids <= 0 || n_ids > 2147483647 || d <= 0 ||
-      (id_bytes != 4 && id_bytes != 8) ||
-      (vec_bytes != 4 && vec_bytes != 8 && vec_bytes != 16) || vec_bytes < item ||
-      row_bytes % vec_bytes != 0 || misaligned(dout) || misaligned(dtable) ||
-      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || stripe < 1 ||
-      stripe > kMaxStripe || chunks < 1 || n_stripes * chunks > 2147483647 ||
-      static_cast<int64_t>(chunks) * threads < row_vecs ||
-      static_cast<int64_t>(chunks - 1) * threads >= row_vecs) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto st = static_cast<cudaStream_t>(stream);
-  const int t = static_cast<int>(n_ids);
-  if (is_double) {
-    if (vec_bytes == 16)
-      return launch_bwd<double2>(ids, id_bytes, dout, dtable, n_rows, t, row_vecs, stripe,
-                                 chunks, threads, st);
-    return launch_bwd<double>(ids, id_bytes, dout, dtable, n_rows, t, row_vecs, stripe, chunks,
-                              threads, st);
-  }
-  if (vec_bytes == 16)
-    return launch_bwd<float4>(ids, id_bytes, dout, dtable, n_rows, t, row_vecs, stripe, chunks,
-                              threads, st);
-  if (vec_bytes == 8)
-    return launch_bwd<float2>(ids, id_bytes, dout, dtable, n_rows, t, row_vecs, stripe, chunks,
-                              threads, st);
-  return launch_bwd<float>(ids, id_bytes, dout, dtable, n_rows, t, row_vecs, stripe, chunks,
-                           threads, st);
+  return bwd_entry(ids, id_bytes, dout, dtable, n_rows, 0, n_rows, n_ids, d, is_double,
+                   vec_bytes, stripe, chunks, threads, stream);
+}
+
+// The vocab-shard backward: dtable (shard_rows, d) is the gradient of rows
+// [lo, lo + shard_rows) of a vocab-row table (0 <= lo, lo + shard_rows <=
+// vocab).  Each id is bounded by vocab as the forward bounds it; an id whose
+// row this shard does not hold adds nothing.  The rest as for
+// repro_embedding_gather_bwd, the grid's stripes over the shard's rows.
+int repro_embedding_gather_shard_bwd(const void* ids, int id_bytes, const void* dout,
+                                     void* dtable, int64_t shard_rows, int64_t lo,
+                                     int64_t vocab, int64_t n_ids, int64_t d, int is_double,
+                                     int vec_bytes, int stripe, int chunks, int threads,
+                                     void* stream) {
+  return bwd_entry(ids, id_bytes, dout, dtable, shard_rows, lo, vocab, n_ids, d, is_double,
+                   vec_bytes, stripe, chunks, threads, stream);
 }
 
 const char* repro_gather_cuda_error_string(int code) {

@@ -152,6 +152,11 @@ KERNELS = {
         # vec_bytes, stripe, chunks, threads, stream
         "repro_embedding_gather_bwd": (
             [_P, _I, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _I, _P], _I),
+        # ids, id_bytes, dout, dtable, shard_rows, lo, vocab, n_ids, d,
+        # is_double, vec_bytes, stripe, chunks, threads, stream
+        "repro_embedding_gather_shard_bwd": (
+            [_P, _I, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _I,
+             _P], _I),
         "repro_gather_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
 }

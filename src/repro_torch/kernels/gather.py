@@ -27,7 +27,9 @@ table and (T,) ids, the same traffic class as the paper's SpMV x-gather.
   The same kernel, its own C entry; host ids are scanned against V before
   upload (:func:`~repro_torch.analysis.preflight
   .plan_embedding_gather_shard`).  Plain version:
-  :func:`embedding_gather_shard_ref`.  Its backward waits for ROADMAP A10c.
+  :func:`embedding_gather_shard_ref`.  It records a graph whose backward is
+  :func:`embedding_gather_shard_bwd` where grad is enabled and the shard
+  requires it.
 * :func:`embedding_gather_bwd` — the backward, ``dtable[v] = Σ_{i: ids_i
   = v} dout_i`` (dense (V, d), XLA's scatter into zeros): one launch of
   ``csrc/embedding_gather.cu``'s backward kernel on the ids as they are
@@ -37,6 +39,16 @@ table and (T,) ids, the same traffic class as the paper's SpMV x-gather.
   :func:`embedding_gather_bwd_ref`, the same sums in the same order.
   :func:`embedding_gather` records a graph whose backward is this only
   when grad is enabled and the table requires it.
+* :func:`embedding_gather_shard_bwd` — the vocab-shard form's backward:
+  the (rows, d) gradient of the rows ``[lo, lo + rows)`` a shard owns, each
+  id bounded by the whole vocabulary first (as the forward bounds it), the
+  ids outside the window dropped.  One launch of the backward kernel's
+  shard entry (``repro_embedding_gather_shard_bwd``, the stripes over the
+  shard's rows) on a CUDA ``dout``, else
+  :func:`embedding_gather_shard_bwd_ref`.  A row sums its ids' rows of
+  ``dout`` in ascending position from zero, as the whole-table backward,
+  so the shards' gradients stacked in model order are
+  :func:`embedding_gather_bwd`'s, bit for bit.
 """
 from __future__ import annotations
 
@@ -52,12 +64,15 @@ from repro_torch.analysis.preflight import (
     plan_embedding_gather,
     plan_embedding_gather_bwd,
     plan_embedding_gather_shard,
+    plan_embedding_gather_shard_bwd,
 )
 from repro_torch.core.autotune import gather_bwd_grid
 
-__all__ = ["BWD_LAUNCHES", "KERNEL_LAUNCHES", "SHARD_LAUNCHES", "clamp_ids",
-           "embedding_gather", "embedding_gather_bwd", "embedding_gather_bwd_ref",
+__all__ = ["BWD_LAUNCHES", "KERNEL_LAUNCHES", "SHARD_BWD_LAUNCHES",
+           "SHARD_LAUNCHES", "clamp_ids", "embedding_gather",
+           "embedding_gather_bwd", "embedding_gather_bwd_ref",
            "embedding_gather_ref", "embedding_gather_shard",
+           "embedding_gather_shard_bwd", "embedding_gather_shard_bwd_ref",
            "embedding_gather_shard_ref"]
 
 #: Launches of kernel B9 by :func:`embedding_gather` in this process: one
@@ -70,6 +85,9 @@ SHARD_LAUNCHES = 0
 #: Launches of B9's backward kernel by :func:`embedding_gather_bwd` in this
 #: process: one per call on a CUDA gradient.
 BWD_LAUNCHES = 0
+#: Launches of the shard form's backward by :func:`embedding_gather_shard_bwd`
+#: in this process: one per call on a CUDA gradient.
+SHARD_BWD_LAUNCHES = 0
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64"}
 _ID_BYTES = {torch.int32: 4, torch.int64: 8}
@@ -261,9 +279,13 @@ def embedding_gather_shard(table: torch.Tensor, ids, lo: int, vocab: int, *,
     ``[0, vocab)`` are refused before upload, ids on the card are bounded by
     ``vocab`` inside the kernel.  On a CUDA table one launch of B9 (its
     shard entry) or a raise; on a CPU table, and only there,
-    :func:`embedding_gather_shard_ref`.  No gradient (ROADMAP A10c)."""
+    :func:`embedding_gather_shard_ref`.  Where grad is enabled and
+    ``table`` requires it, the graph's backward is
+    :func:`embedding_gather_shard_bwd`."""
     window = (int(lo), int(vocab))
     table, ids, plan = _checked(table, ids, vl, window)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbeddingGatherShard.apply(table, ids, plan, window)
     return _gather(table, ids, plan, window)
 
 
@@ -281,6 +303,25 @@ class _EmbeddingGather(torch.autograd.Function):
     def backward(ctx, dout):
         (ids,) = ctx.saved_tensors
         return embedding_gather_bwd(dout, ids, ctx.vocab), None, None
+
+
+class _EmbeddingGatherShard(torch.autograd.Function):
+    """B9's vocab-shard form with a gradient: its backward is
+    :func:`embedding_gather_shard_bwd` on the ids the forward read."""
+
+    @staticmethod
+    def forward(ctx, table, ids, plan, window):
+        ctx.rows = table.shape[0]
+        ctx.window = window
+        ctx.save_for_backward(ids)
+        return _gather(table, ids, plan, window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (ids,) = ctx.saved_tensors
+        lo, vocab = ctx.window
+        return (embedding_gather_shard_bwd(dout, ids, lo, ctx.rows, vocab),
+                None, None, None)
 
 
 def _sorted_runs(ids: torch.Tensor, vocab: int):
@@ -318,6 +359,40 @@ def embedding_gather_bwd(dout: torch.Tensor, ids, vocab: int) -> torch.Tensor:
     each bounded by :func:`clamp_ids`' rule inside the kernel; no sort, no
     bound, no conversion on the card before it); on the CPU
     :func:`embedding_gather_bwd_ref`."""
+    return _bwd(dout, ids, int(vocab))
+
+
+def embedding_gather_shard_bwd_ref(dout: torch.Tensor, ids, lo: int, rows: int,
+                                   vocab: int) -> torch.Tensor:
+    """Plain backward of :func:`embedding_gather_shard_ref`: the (rows, d)
+    gradient of rows ``[lo, lo + rows)`` of a vocab-row table, i.e. zeros
+    plus ``index_add_`` of ``dout``'s rows at the ids whose bounded row
+    (:func:`clamp_ids` by the whole ``vocab``) lies in the window, each row
+    summed in ascending position (:func:`embedding_gather_bwd_ref` on the
+    masked rows, so that the order is the same on the card too)."""
+    ids = torch.as_tensor(ids, device=dout.device)
+    local = clamp_ids(ids, vocab) - lo
+    own = (local >= 0) & (local < rows)
+    return embedding_gather_bwd_ref(dout[own], local[own], rows)
+
+
+def embedding_gather_shard_bwd(dout: torch.Tensor, ids, lo: int, rows: int,
+                               vocab: int) -> torch.Tensor:
+    """The gradient of the shard holding rows ``[lo, lo + rows)`` of a
+    (vocab, d) table gathered at ``ids`` (T,) by
+    :func:`embedding_gather_shard`, given ``dout`` (T, d) float32 or
+    float64: (rows, d).  On a CUDA ``dout``: one launch of the backward
+    kernel's shard entry (ids read as they are, each bounded by ``vocab``
+    inside the kernel, those outside the window dropped), or a raise; on
+    the CPU, and only there, :func:`embedding_gather_shard_bwd_ref`."""
+    return _bwd(dout, ids, int(vocab), (int(lo), int(rows)))
+
+
+def _bwd(dout: torch.Tensor, ids, vocab: int,
+         shard: tuple[int, int] | None = None) -> torch.Tensor:
+    """Both backward wrappers: the checks, then the plain version on the
+    CPU or one launch of the kernel (``shard``: ``(lo, rows)`` of the
+    table's rows)."""
     if dout.ndim != 2:
         raise ValueError(f"dout must be (T, d), got {tuple(dout.shape)}")
     dtype = _DTYPE_NAMES.get(dout.dtype)
@@ -330,7 +405,9 @@ def embedding_gather_bwd(dout: torch.Tensor, ids, vocab: int) -> torch.Tensor:
                          f"{tuple(dout.shape)}")
     dev = dout.device
     if dev.type == "cpu":
-        return embedding_gather_bwd_ref(dout, ids.cpu(), vocab)
+        if shard is None:
+            return embedding_gather_bwd_ref(dout, ids.cpu(), vocab)
+        return embedding_gather_shard_bwd_ref(dout, ids.cpu(), *shard, vocab)
     if dev.type != "cuda":
         raise RuntimeError(f"embedding_gather_bwd has a CUDA kernel and a CPU "
                            f"reference; got {dev}")
@@ -344,53 +421,71 @@ def embedding_gather_bwd(dout: torch.Tensor, ids, vocab: int) -> torch.Tensor:
         ids = ids.contiguous()
     if not dout.is_contiguous():
         dout = dout.contiguous()
-    vocab, d = int(vocab), dout.shape[1]
+    d = dout.shape[1]
     plan, (stripe, chunks, threads, vec) = _bwd_plan(
-        vocab, d, ids.shape[0], dout.dtype, ids.dtype)
+        vocab, d, ids.shape[0], dout.dtype, ids.dtype, shard)
     plan.raise_if_invalid()
     if dout.data_ptr() % vec:
         dout = dout.clone()                   # a fresh allocation is aligned
-    dtable = torch.empty((vocab, d), dtype=dout.dtype, device=dev)
-    _launch_bwd(ids, dout, dtable, vec, stripe, chunks, threads)
+    n_rows = vocab if shard is None else shard[1]
+    dtable = torch.empty((n_rows, d), dtype=dout.dtype, device=dev)
+    _launch_bwd(ids, dout, dtable, vec, stripe, chunks, threads,
+                None if shard is None else (shard[0], vocab))
     return dtable
 
 
 @functools.lru_cache(maxsize=64)
 def _bwd_plan(vocab: int, d: int, t: int, dtype: torch.dtype,
-              id_dtype: torch.dtype):
-    """The backward's plan of one shape and its grid (stripe rows, chunks,
-    threads, vector bytes), built once (a train step calls it once with the
-    same shape; the checks before the launch are host time the card
-    waits on)."""
+              id_dtype: torch.dtype, shard: tuple[int, int] | None = None):
+    """The backward's plan of one shape (``shard``: ``(lo, rows)`` of the
+    shard form) and its grid (stripe rows, chunks, threads, vector bytes),
+    built once (a train step calls it once with the same shape; the checks
+    before the launch are host time the card waits on)."""
     name = _DTYPE_NAMES[dtype]
     ids = str(id_dtype).removeprefix("torch.")
-    plan = plan_embedding_gather_bwd(vocab, d, t, dtype=name, id_dtype=ids)
-    return plan, gather_bwd_grid(max(vocab, 1), max(d, 1), t,
+    if shard is None:
+        plan = plan_embedding_gather_bwd(vocab, d, t, dtype=name, id_dtype=ids)
+    else:
+        plan = plan_embedding_gather_shard_bwd(vocab, *shard, d, t, dtype=name,
+                                               id_dtype=ids)
+    rows = vocab if shard is None else shard[1]
+    return plan, gather_bwd_grid(max(rows, 1), max(d, 1), t,
                                  8 if name == "float64" else 4)
 
 
 def _launch_bwd(ids, dout, dtable, vec: int, stripe: int, chunks: int,
-                threads: int) -> None:
-    """One launch of B9's backward kernel, grid (ceil(V / ``stripe``),
+                threads: int, window: tuple[int, int] | None = None) -> None:
+    """One launch of B9's backward kernel, grid (ceil(rows / ``stripe``),
     ``chunks``) of ``threads``, ``vec``-byte vectors, on PyTorch's current
-    stream of the gradient's device, with that device current."""
-    global BWD_LAUNCHES
+    stream of the gradient's device, with that device current.
+    ``window``: ``(lo, vocab)`` where ``dtable`` is the gradient of rows
+    ``[lo, lo + len(dtable))`` of a vocab-row table (the shard entry)."""
+    global BWD_LAUNCHES, SHARD_BWD_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
     lib = cuda_lib.library("embedding_gather")
     index = dout.get_device()
-    args = (ids.data_ptr(), _ID_BYTES[ids.dtype], dout.data_ptr(),
-            dtable.data_ptr(), dtable.shape[0], dout.shape[0], dout.shape[1],
-            int(dout.dtype == torch.float64), vec, stripe, chunks, threads,
-            torch.cuda.current_stream(index).cuda_stream)
+    tail = (dout.shape[0], dout.shape[1], int(dout.dtype == torch.float64), vec,
+            stripe, chunks, threads, torch.cuda.current_stream(index).cuda_stream)
+    head = (ids.data_ptr(), _ID_BYTES[ids.dtype], dout.data_ptr(),
+            dtable.data_ptr(), dtable.shape[0])
+    if window is None:
+        fn, args = lib.repro_embedding_gather_bwd, head + tail
+    else:
+        fn, args = lib.repro_embedding_gather_shard_bwd, head + window + tail
     if index == torch.cuda.current_device():
-        err = lib.repro_embedding_gather_bwd(*args)
+        err = fn(*args)
     else:
         with torch.cuda.device(index):
-            err = lib.repro_embedding_gather_bwd(*args)
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(
             f"embedding_gather_bwd kernel launch failed (cudaError {err}: "
             f"{lib.repro_gather_cuda_error_string(err).decode()}) for "
-            f"{dout.shape[0]} rows into a {tuple(dtable.shape)} table")
-    BWD_LAUNCHES += 1
+            f"{dout.shape[0]} rows into a {tuple(dtable.shape)} table"
+            + ("" if window is None else f" (rows from {window[0]} of "
+                                          f"{window[1]})"))
+    if window is None:
+        BWD_LAUNCHES += 1
+    else:
+        SHARD_BWD_LAUNCHES += 1

@@ -4,11 +4,17 @@ mesh — the placement half of ``repro.launch.specs``.
 Each function returns the tree of its input with a spec at every leaf (a
 tuple of axis names or ``None``, one entry a dim: see
 :mod:`repro_torch.models.sharding`); the leaves may be tensors or anything
-with a ``shape``.  ``state_shardings`` (the train state with ZeRO-1) waits
-for ROADMAP A10c; ``input_specs*`` and ``abstract_*`` (the dry run's
-shape-only stand-ins) for A12.5.  The reference's opt-in flags
-``KV_SEQ_SHARD`` and ``FSDP_PARAMS`` (both off by default there) are not
-ported.
+with a ``shape``.  ``input_specs*`` and ``abstract_*`` (the dry run's
+shape-only stand-ins) wait for ROADMAP A12.5.  The reference's opt-in
+flags ``KV_SEQ_SHARD`` and ``FSDP_PARAMS`` (both off by default there)
+are not ported.
+
+:func:`state_shardings` is the reference's rule on the port's leaves:
+parameters tensor-parallel, the moments (and any master copy and
+compression residual) tensor-parallel plus ZeRO-1 over ``data``.  The
+reference stacks a block's layers into one leaf, so its ZeRO-1 takes the
+layer axis where ``data`` divides it; the port's layers are leaves of
+their own, so the same rule takes each layer's first dim.
 """
 from __future__ import annotations
 
@@ -16,7 +22,8 @@ from repro_torch.compat import MeshContext
 from repro_torch.models import sharding as shrd
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["batch_shardings", "cache_shardings", "param_shardings"]
+__all__ = ["batch_shardings", "cache_shardings", "moment_shardings",
+           "param_shardings", "state_shardings"]
 
 
 def _dp_axes(mesh) -> tuple[str, ...]:
@@ -41,6 +48,35 @@ def batch_shardings(mesh, batch: dict, batch_size: int) -> dict:
 def param_shardings(mesh, cfg: ModelConfig, params) -> dict[str, tuple]:
     """Parameter name -> spec: the TP / EP partition rules."""
     return shrd.model_param_specs(cfg, params, mesh)
+
+
+def moment_shardings(mesh, cfg: ModelConfig, params,
+                     zero1: bool = True) -> dict[str, tuple]:
+    """Parameter name -> the spec of its optimizer state (moments, master,
+    compression residual): :func:`param_shardings` plus ZeRO-1 over
+    ``data`` (:func:`~repro_torch.models.sharding.zero1_specs`) where the
+    mesh has that axis and ``zero1``."""
+    ctx = MeshContext.of(mesh)
+    specs = param_shardings(mesh, cfg, params)
+    if zero1 and ctx.has_axis("data"):
+        specs = shrd.zero1_specs(params, specs, ctx.axis_size("data"))
+    return specs
+
+
+def state_shardings(mesh, cfg: ModelConfig, state, zero1: bool = True):
+    """The train state's specs, a state of the same type (``params``,
+    ``opt``, ``comp``, ``step``): parameters by :func:`param_shardings`;
+    ``m``, ``v``, any ``master`` and the compression ``error`` by
+    :func:`moment_shardings`; the step counts replicated.  ``state``'s
+    parameters may be an LM, placed parameters or a mapping of names to
+    shaped values."""
+    p_specs = param_shardings(mesh, cfg, state.params)
+    m_specs = moment_shardings(mesh, cfg, state.params, zero1)
+    opt = {"m": m_specs, "v": m_specs, "step": ()}
+    if "master" in state.opt:
+        opt["master"] = m_specs
+    comp = None if state.comp is None else type(state.comp)(error=m_specs)
+    return type(state)(params=p_specs, opt=opt, comp=comp, step=())
 
 
 def cache_shardings(mesh, cfg: ModelConfig, caches, batch_size: int):

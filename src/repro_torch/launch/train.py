@@ -15,10 +15,14 @@ keeps the saved activations near a block's input a layer.  The model
 trains in float32 (kernels B8 and B9 take float32 / float64).  minicpm
 trains with WSD, as in the reference; the others at a constant rate.  The
 vision and enc-dec families need ``ctx_embeds`` in the batch, which this
-CLI does not make (the reference's neither); ``--mesh`` other than
-``none`` raises (multi-device training is ROADMAP A10c).  Prints a ``[train]`` line
-every 10 steps and a ``[done]`` line; :func:`main` returns (final state,
-history).
+CLI does not make (the reference's neither).  ``--mesh single`` /
+``multi`` trains on the reference's production mesh
+(:func:`repro_torch.launch.mesh.make_production_mesh`: (16, 16) or (2, 16,
+16) distinct cards, ``ValueError`` naming the count on a machine with
+fewer), the state born sharded (:func:`repro_torch.train.loop
+.train_loop` with ``mesh=``; the dense, MoE and SSM families).  Prints a
+``[train]`` line every 10 steps and a ``[done]`` line; :func:`main`
+returns (final state, history).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import argparse
 
 from repro_torch import configs
 from repro_torch.data import DataConfig
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.optim import AdamWConfig, wsd_schedule
 from repro_torch.train import TrainConfig, TrainLoopConfig, train_loop
 
@@ -48,8 +53,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", choices=["none", "single", "multi"], default="none",
-                    help="production mesh to shard over (ROADMAP A10c: only "
-                         "'none' is ported)")
+                    help="production mesh to shard over (needs the device count)")
     ap.add_argument("--device", default="cuda",
                     help="where to train: cuda (default) or cpu")
     return ap.parse_args(argv)
@@ -57,9 +61,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None, log=print):
     args = parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-device training is ROADMAP A10c")
+    mesh = (None if args.mesh == "none"
+            else make_production_mesh(multi_pod=(args.mesh == "multi")))
     cfg = configs.get_config(args.arch) if args.full else configs.reduced_config(args.arch)
     # minicpm trains with WSD (its defining feature); the others at a constant rate
     if args.arch == "minicpm-2b":
@@ -77,11 +80,12 @@ def main(argv=None, log=print):
                       global_batch=args.batch, seed=args.seed)
     lcfg = TrainLoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                            ckpt_dir=args.ckpt_dir, log_every=10, seed=args.seed)
-    state, history = train_loop(cfg, tcfg, dcfg, lcfg, log=log,
+    state, history = train_loop(cfg, tcfg, dcfg, lcfg, log=log, mesh=mesh,
                                 device=args.device)
     first = sum(h["loss"] for h in history[:5]) / max(len(history[:5]), 1)
     last = sum(h["loss"] for h in history[-5:]) / max(len(history[-5:]), 1)
-    log(f"[done] arch={cfg.name} on {args.device} steps={len(history)} "
+    where = args.device if mesh is None else f"a {mesh.shape} mesh"
+    log(f"[done] arch={cfg.name} on {where} steps={len(history)} "
         f"loss {first:.4f} -> {last:.4f}")
     return state, history
 

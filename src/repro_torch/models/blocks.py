@@ -27,23 +27,26 @@ length (L,); an SSM state's leaves (L, B, ...).  A hybrid stack carries
 both.  Any other kind raises ``ValueError``.
 
 On a mesh (:func:`run_blocks_tp`, :func:`block_forward_tp`) the kinds
-``"dense"`` and ``"moe"`` run over the placed layers of each data replica:
-the residual stream and the norms stay on the replica's lead device, the
-attention, MLP and experts run over its model devices
-(:func:`~repro_torch.models.attention.attention_tp`,
+``"dense"``, ``"moe"`` and ``"ssm"`` run over the placed layers of each
+data replica: the residual stream and the norms stay on the replica's lead
+device, the attention, MLP, experts and the Mamba2 mixer run over its
+model devices (:func:`~repro_torch.models.attention.attention_tp`,
 :func:`~repro_torch.models.layers.swiglu_tp`,
-:func:`~repro_torch.models.moe.moe_forward_tp`), and each device keeps its
-own pieces of the KV caches.  The other kinds under a mesh are ROADMAP
-A10c.
+:func:`~repro_torch.models.moe.moe_forward_tp`,
+:func:`~repro_torch.models.ssm.ssm_forward_tp`), each device keeps its
+own pieces of the KV caches and SSM states, and ``remat`` wraps each block
+(:func:`remat_call_tp`).  The other kinds under a mesh are ROADMAP A10c.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple
 
 import torch
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels.execspec import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -58,7 +61,8 @@ from repro_torch.models.ssm import SSMState
 
 __all__ = ["Block", "LayerCaches", "MLP", "REMAT_POLICIES", "block_forward",
            "block_forward_tp", "init_block_params", "init_layer_caches",
-           "remat_call", "run_blocks", "run_blocks_tp", "stack_init"]
+           "remat_call", "remat_call_tp", "run_blocks", "run_blocks_tp",
+           "stack_init"]
 
 #: The block kinds, the reference's.
 KINDS = ("dense", "moe", "ssm", "hybrid", "cross")
@@ -90,6 +94,95 @@ def remat_call(fn, remat: str | None, *args):
         kw["context_fn"] = functools.partial(
             torch_checkpoint.create_selective_checkpoint_contexts, _save_dots)
     return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+class _Dots(TorchDispatchMode):
+    """The ``"dots"`` policy of :class:`_Recompute`: a block's forward
+    keeps the outputs of its un-batched matrix products (``saved`` None),
+    and its recompute hands them back in the same order (``saved``: the
+    forward's), below autograd, so the backward still reaches their
+    inputs; every other op runs."""
+
+    def __init__(self, saved: list | None = None):
+        super().__init__()
+        self.replay = saved is not None
+        self.saved = [] if saved is None else saved
+        self.at = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in _DOTS:
+            return func(*args, **kwargs)
+        shapes = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+        if not self.replay:
+            out = func(*args, **kwargs)
+            self.saved.append((func, shapes, out.detach(), out._version))
+            return out
+        entry = self.saved[self.at] if self.at < len(self.saved) else None
+        if entry is None or entry[:2] != (func, shapes) or \
+                entry[2]._version != entry[3]:
+            raise RuntimeError(f"remat 'dots': the recompute's product {self.at} "
+                               f"({func}, {shapes}) is not the forward's")
+        self.at += 1
+        return entry[2].detach()
+
+
+class _Recompute(torch.autograd.Function):
+    """``fn(x) -> (out, aux)`` keeping only ``x`` (and, under ``"dots"``,
+    the outputs of the un-batched matrix products, :class:`_Dots`): the
+    backward recomputes ``fn`` under grad and takes the gradients of ``x``
+    and of ``tensors`` (the placed block's pieces, which ``fn`` reads) by
+    one nested ``torch.autograd.grad``.  The remat of a placed block:
+    torch's checkpoint hooks are not safe where a block spans several
+    cards (the autograd engine runs each card's part of the backward on a
+    thread of its own, and two of them unpack one checkpoint)."""
+
+    @staticmethod
+    def forward(ctx, fn, dots, x, *tensors):
+        ctx.fn = fn
+        ctx.save_for_backward(x, *tensors)
+        mode = _Dots() if dots else None
+        with torch.no_grad(), contextlib.nullcontext() if mode is None else mode:
+            out = fn(x)
+        ctx.dots = None if mode is None else mode.saved
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, *tensors = ctx.saved_tensors
+        replay = None if ctx.dots is None else _Dots(ctx.dots)
+        with (torch.enable_grad(),
+              contextlib.nullcontext() if replay is None else replay):
+            xi = x.detach().requires_grad_(x.requires_grad)
+            outs = ctx.fn(xi)
+        if replay is not None and replay.at != len(ctx.dots):
+            raise RuntimeError(f"remat 'dots': the recompute ran {replay.at} of "
+                               f"the forward's {len(ctx.dots)} products")
+        ctx.dots = None
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        wanted = [t for t in [xi] + tensors if t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                       [g for _, g in pairs], allow_unused=True))
+        return (None, None) + tuple(next(got) if t.requires_grad else None
+                                    for t in [xi] + tensors)
+
+
+def remat_call_tp(fn, remat: str | None, x: torch.Tensor,
+                  p: shrd.PlacedParams):
+    """:func:`remat_call` of a placed block's ``fn(x) -> (x, caches,
+    aux)``: where grad is enabled and ``remat`` is given, :class:`_Recompute`
+    over ``p``'s pieces, saving the block's input (``"full"``) and also
+    the outputs of its un-batched matrix products (``"dots"``); a block
+    makes no caches under a gradient."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat {remat!r}; the policies are "
+                         f"{REMAT_POLICIES}")
+    if remat is None or not torch.is_grad_enabled():
+        return fn(x)
+    out, aux = _Recompute.apply(lambda h: fn(h)[::2], remat == "dots", x,
+                                *p.pieces())
+    return out, None, aux
 
 
 def _check_kind(kind: str) -> None:
@@ -184,18 +277,27 @@ def block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
 
 def block_forward_tp(p: shrd.PlacedParams, cfg: ModelConfig, kind: str,
                      x: torch.Tensor, row: shrd.Row, *,
-                     kv: list[KVCache] | None = None, causal: bool = True
+                     caches: list[LayerCaches] | None = None,
+                     causal: bool = True
                      ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
-    """:func:`block_forward` of a placed block of kind ``"dense"`` or
-    ``"moe"`` over a data replica's model devices (``x`` on its lead;
-    ``kv``: each device's piece of the layer's KV cache).  Returns (x, the
-    new KV pieces, aux_loss)."""
-    if kind not in ("dense", "moe"):
+    """:func:`block_forward` of a placed block of kind ``"dense"``,
+    ``"moe"`` or ``"ssm"`` over a data replica's model devices (``x`` on
+    its lead; ``caches``: each device's pieces of the layer's KV cache or
+    SSM state).  Returns (x, each device's new :class:`LayerCaches`,
+    aux_loss)."""
+    if kind not in ("dense", "moe", "ssm"):
         raise NotImplementedError(f"block kind {kind!r} on a mesh is ROADMAP A10c")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, row.pieces(p["ln1"])[0], cfg.norm_eps)
-    a, new_kv = attn_mod.attention_tp(p.sub("attn"), cfg, h, row, cache=kv,
-                                      causal=causal)
+    if kind == "ssm":
+        s_out, new = ssm_mod.ssm_forward_tp(
+            p.sub("ssm"), cfg, h, row,
+            None if caches is None else [c.ssm for c in caches])
+        return x + s_out, None if new is None else [
+            LayerCaches(kv=None, ssm=st) for st in new], aux
+    a, new_kv = attn_mod.attention_tp(
+        p.sub("attn"), cfg, h, row,
+        cache=None if caches is None else [c.kv for c in caches], causal=causal)
     x = x + a
     if "moe" in p:
         h2 = rms_norm(x, row.pieces(p["ln2"])[0], cfg.norm_eps)
@@ -204,29 +306,39 @@ def block_forward_tp(p: shrd.PlacedParams, cfg: ModelConfig, kind: str,
     elif "mlp" in p:
         h2 = rms_norm(x, row.pieces(p["ln2"])[0], cfg.norm_eps)
         x = x + swiglu_tp(h2, p.sub("mlp"), row)
-    return x, new_kv, aux
+    return x, None if new_kv is None else [
+        LayerCaches(kv=kv, ssm=None) for kv in new_kv], aux
 
 
 def run_blocks_tp(p: shrd.PlacedParams, n_layers: int, cfg: ModelConfig,
                   kind: str, x: torch.Tensor, row: shrd.Row, *,
-                  kv: list[KVCache] | None = None, causal: bool = True
+                  caches: list[LayerCaches] | None = None, causal: bool = True,
+                  remat: str | None = None
                   ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
     """:func:`run_blocks` over the placed stack ``p`` (layers ``0`` ..
-    ``n_layers - 1``) of a data replica; ``kv``: each model device's
-    layer-stacked KV cache pieces.  Returns (x, the new stacked pieces,
-    aux_sum)."""
+    ``n_layers - 1``) of a data replica, each block under ``remat``
+    (:func:`remat_call_tp`); ``caches``: each model device's layer-stacked
+    cache pieces.  Returns (x, each device's new stacked pieces, aux_sum)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = []
     for i in range(n_layers):
-        x, new, aux_l = block_forward_tp(
-            p.sub(str(i)), cfg, kind, x, row,
-            kv=None if kv is None else [layer_of(c, i) for c in kv],
-            causal=causal)
+        layer = None if caches is None else [
+            LayerCaches(kv=layer_of(c.kv, i), ssm=layer_of(c.ssm, i))
+            for c in caches]
+
+        block = p.sub(str(i))
+
+        def body(h, block=block, layer=layer):
+            return block_forward_tp(block, cfg, kind, h, row, caches=layer,
+                                    causal=causal)
+
+        x, new, aux_l = remat_call_tp(body, remat, x, block)
         aux = aux + aux_l
         layers.append(new)
-    if kv is None:
+    if caches is None:
         return x, None, aux
-    return x, [_stack([layer[m] for layer in layers], KVCache)
+    return x, [LayerCaches(kv=_stack([layer[m].kv for layer in layers], KVCache),
+                           ssm=_stack([layer[m].ssm for layer in layers], SSMState))
                for m in range(row.size)], aux
 
 
@@ -249,8 +361,9 @@ def layer_of(stacked, i: int):
 
 
 def _stack(per_layer: list, cls):
-    """The per-layer caches stacked on a new leading layer axis."""
-    if not per_layer:
+    """The per-layer caches stacked on a new leading layer axis (None
+    where the layers have none)."""
+    if not per_layer or per_layer[0] is None:
         return None
     return cls(*(torch.stack(leaves) for leaves in zip(*per_layer)))
 

@@ -37,12 +37,13 @@ one copy, the gradient flowing back through the cast.
 
 **On a mesh** (``mesh=``, a :class:`~repro_torch.compat.Mesh` with axes
 ``("pod", "data", "model")`` or a subset, or the ambient
-:func:`~repro_torch.compat.use_mesh` scope) the dense and MoE families run
-tensor-, expert- and data-parallel, one process driving every device
-(:mod:`repro_torch.models.sharding`).  The parameters are placed by the
-reference's partition rules (:func:`init_params` with ``mesh=`` draws them
-born sharded; :func:`~repro_torch.models.sharding.place_params` places an
-existing model) and the caches by
+:func:`~repro_torch.compat.use_mesh` scope) the dense, MoE and SSM
+families run tensor-, expert- and data-parallel, one process driving
+every device (:mod:`repro_torch.models.sharding`).  The parameters are
+placed by the reference's partition rules (:func:`init_params` with
+``mesh=`` draws them born sharded;
+:func:`~repro_torch.models.sharding.place_params` places an existing
+model) and the caches by
 :func:`repro_torch.launch.specs.cache_shardings` (:func:`init_caches` with
 ``mesh=``).  The batch splits over the data replicas where their count
 divides it; a batch it does not divide (a b = 1 admission) runs on one
@@ -54,9 +55,13 @@ does not divide), the blocks run as :func:`~repro_torch.models.blocks
 .run_blocks_tp` says, and the head's column shards (``lm_head``, or the
 tied ``tok_embed.T``) give logits joined on the lead along the
 vocabulary.  Logits land on the mesh's first device.  The result is the
-model's without a mesh, to rounding.  No gradient under a mesh, and the
-SSM, hybrid, vision and enc-dec families raise ``NotImplementedError``
-(ROADMAP A10c).
+model's without a mesh, to rounding.  :func:`forward` records a graph on
+a mesh too, where grad is enabled and the pieces require it
+(:func:`init_params` with ``trainable=True``), each block under
+``remat``; :func:`forward_replicas` gives each data replica's logits on
+its lead, for a loss weighted across the replicas
+(:mod:`repro_torch.train.step`).  The hybrid, vision and enc-dec families
+on a mesh raise ``NotImplementedError`` (ROADMAP A10c).
 """
 from __future__ import annotations
 
@@ -78,8 +83,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_init, he_init, param, rms_norm
 
 __all__ = ["LM", "check_mesh_family", "decode_step", "decoder_layer",
-           "forward", "init_caches", "init_params", "make_generator",
-           "params_mesh", "prefill"]
+           "forward", "forward_replicas", "init_caches", "init_params",
+           "make_generator", "params_mesh", "prefill", "resolve_mesh"]
 
 Caches = dict
 
@@ -171,13 +176,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     (:func:`~repro_torch.models.sharding.place`) before the next is drawn,
     so no device holds more than its share and one whole block.  The
     pieces are ``torch.equal`` to those of ``place_params(init_params(gen,
-    cfg), cfg, mesh)``."""
-    mesh = _mesh_arg(mesh)
+    cfg), cfg, mesh)``; with ``trainable`` every piece is a leaf that
+    requires grad."""
+    mesh = resolve_mesh(mesh)
     if mesh is None:
         return _init_params(gen, cfg).requires_grad_(trainable)
     check_mesh_family(cfg)
-    if trainable:
-        raise NotImplementedError("training on a mesh is ROADMAP A10c")
     leaves: dict[str, shrd.Sharded] = {}
 
     def put(named) -> None:
@@ -199,7 +203,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     for i in range(_n_stacked(cfg)):
         put((f"blocks.{i}.{n}", t) for n, t in blk.init_block_params(
             gen, cfg, _kind(cfg)).named_parameters())
-    return shrd.PlacedParams(mesh, leaves)
+    return shrd.PlacedParams(mesh, leaves).requires_grad_(trainable)
 
 
 def _init_params(gen: torch.Generator, cfg: ModelConfig) -> LM:
@@ -390,7 +394,7 @@ def _run(p: LM, cfg: ModelConfig, batch: dict, caches: Caches | None,
 # ---------------------------------------------------------------------------
 
 
-def _mesh_arg(mesh):
+def resolve_mesh(mesh):
     """The mesh a call runs on: ``mesh`` (a Mesh or MeshContext), else the
     ambient scope's; None without either."""
     ctx = MeshContext.of(mesh) if mesh is not None else current_mesh_context()
@@ -404,19 +408,19 @@ def _mesh_arg(mesh):
 
 
 def check_mesh_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.hybrid:
+    if cfg.family not in ("dense", "moe", "ssm") or cfg.hybrid:
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family!r}) on a mesh is ROADMAP A10c: "
-            "the dense and MoE families run on one")
+            "the dense, MoE and SSM families run on one")
 
 
 def params_mesh(p, cfg: ModelConfig, mesh=None):
     """The mesh a call with parameters ``p`` runs on: the explicit or
     ambient mesh, else the one placed parameters lie on; None for an
-    unplaced model without a mesh.  On a mesh the family must be dense or
-    MoE (else ``NotImplementedError``, ROADMAP A10c) and the parameters
+    unplaced model without a mesh.  On a mesh the family must be dense,
+    MoE or SSM (else ``NotImplementedError``, ROADMAP A10c) and the parameters
     placed on that mesh (else ``ValueError``)."""
-    mesh = _mesh_arg(mesh)
+    mesh = resolve_mesh(mesh)
     placed = isinstance(p, shrd.PlacedParams)
     if mesh is None and not placed:
         return None
@@ -472,33 +476,44 @@ def _logits_tp(p: shrd.PlacedParams, cfg: ModelConfig, x: torch.Tensor,
                         for dev, w in zip(row.devices, heads)], row.lead, dim=-1)
 
 
-def _row_kv(kv: KVCache, row: shrd.Row, part: slice | None) -> list[KVCache]:
-    """Each model device's pieces of a placed KV cache; ``part``: the
-    replica's rows of a batch split over the data replicas (taken from k /
-    v pieces that hold every row: a cache replicated over data)."""
-    out = []
-    for c in row.coords:
-        leaves = [leaf.pieces[c] for leaf in kv]
-        if part is not None and kv.k.spec[1] is None:
-            leaves[:2] = [a[:, part] for a in leaves[:2]]
-        out.append(KVCache(*leaves))
-    return out
+#: the cache fields with a batch axis (axis 1, after the layer axis): a KV
+#: cache's k / v, an SSM state's state and conv ring
+_BATCH_FIELDS = ("k", "v", "state", "conv")
 
 
-def _placed_kv(kv: KVCache, ran: dict) -> KVCache:
-    """The new placed KV cache.  ``ran`` maps the replicas that ran, in
-    order, to their new pieces (one KVCache a model device).  A k / v
-    replicated over data while several replicas ran is their rows joined
-    (an all-gather); a replica that did not run copies the pieces of the
-    one that did, device by device."""
+def _row_caches(stack: blk.LayerCaches, row: shrd.Row,
+                part: slice | None) -> list[blk.LayerCaches]:
+    """Each model device's pieces of a placed layer stack; ``part``: the
+    replica's rows of a batch split over the data replicas (taken from
+    pieces that hold every row: a cache replicated over data)."""
+    def one(cache, coord):
+        if cache is None:
+            return None
+        leaves = []
+        for field, leaf in zip(cache._fields, cache):
+            t = leaf.pieces[coord]
+            if part is not None and field in _BATCH_FIELDS and leaf.spec[1] is None:
+                t = t[:, part]
+            leaves.append(t)
+        return type(cache)(*leaves)
+    return [blk.LayerCaches(kv=one(stack.kv, c), ssm=one(stack.ssm, c))
+            for c in row.coords]
+
+
+def _placed_cache(cache, ran: dict):
+    """The new placed cache (a KVCache or an SSMState of Sharded leaves).
+    ``ran`` maps the replicas that ran, in order, to their new pieces (one
+    a model device).  A batch leaf replicated over data while several
+    replicas ran is their rows joined (an all-gather); a replica that did
+    not run copies the pieces of the one that did, device by device."""
     src = next(iter(ran.values()))
-    gather = len(ran) > 1 and kv.k.spec[1] is None
     out = []
-    for j, leaf in enumerate(kv):
+    for j, (field, leaf) in enumerate(zip(cache._fields, cache)):
+        gather = len(ran) > 1 and field in _BATCH_FIELDS and leaf.spec[1] is None
         pieces = np.empty(leaf.pieces.shape, dtype=object)
         for row in shrd.rows(leaf.mesh):
             for m, (c, dev) in enumerate(zip(row.coords, row.devices)):
-                if gather and j < 2:
+                if gather:
                     pieces[c] = torch.cat([got[m][j].to(dev)
                                            for got in ran.values()], dim=1)
                 elif row.index in ran:
@@ -506,67 +521,111 @@ def _placed_kv(kv: KVCache, ran: dict) -> KVCache:
                 else:
                     pieces[c] = src[m][j].to(dev, copy=True)
         out.append(shrd.Sharded(leaf.mesh, leaf.spec, leaf.shape, pieces))
-    return KVCache(*out)
+    return type(cache)(*out)
+
+
+def _placed_stack(stack: blk.LayerCaches, ran: dict) -> blk.LayerCaches:
+    """:func:`_placed_cache` of each field of a layer stack; ``ran`` maps
+    the replicas that ran to each device's new :class:`LayerCaches`."""
+    return blk.LayerCaches(*(
+        None if cache is None else _placed_cache(
+            cache, {r: [getattr(c, field) for c in got] for r, got in ran.items()})
+        for field, cache in zip(blk.LayerCaches._fields, stack)))
+
+
+def _run_replica(p: shrd.PlacedParams, cfg: ModelConfig, tokens,
+                 row: shrd.Row, part: slice | None, caches: Caches | None,
+                 dtype, remat: str | None):
+    """One data replica's run: (logits on its lead, aux, each device's new
+    ``dense0`` caches, each device's new layer caches)."""
+    x = _embed_tp(p, cfg, tokens, row, dtype)
+    new0 = None
+    if "dense0" in p:
+        c0 = None if caches is None else [
+            blk.LayerCaches(kv=blk.layer_of(c.kv, 0), ssm=None)
+            for c in _row_caches(caches["dense0"], row, part)]
+
+        def dense0(h):
+            return blk.block_forward_tp(p.sub("dense0"), _dense0_cfg(cfg),
+                                        "dense", h, row, caches=c0)
+
+        x, new0, _ = blk.remat_call_tp(dense0, remat, x, p.sub("dense0"))
+        if new0 is not None:
+            new0 = [blk.LayerCaches(kv=KVCache(*(a[None] for a in c.kv)), ssm=None)
+                    for c in new0]
+    layers = None if caches is None else _row_caches(caches["layers"], row, part)
+    x, new, aux = blk.run_blocks_tp(p.sub("blocks"), _n_stacked(cfg), cfg,
+                                    _kind(cfg), x, row, caches=layers,
+                                    remat=remat)
+    return _logits_tp(p, cfg, x, row), aux, new0, new
 
 
 def _run_mesh(p: shrd.PlacedParams, cfg: ModelConfig, batch: dict,
-              caches: Caches | None, dtype, replica: int
+              caches: Caches | None, dtype, replica: int,
+              remat: str | None = None
               ) -> tuple[torch.Tensor, Caches | None, torch.Tensor]:
     if set(batch) - {"tokens"}:
         raise ValueError(f"the mesh path takes tokens only, got {sorted(batch)}")
     tokens = batch["tokens"]
-    b = tokens.shape[0]
-    replicas = shrd.rows(p.mesh)
-    n = len(replicas)
-    if b % n == 0 and n > 1:
-        plan = [(row, slice(row.index * (b // n), (row.index + 1) * (b // n)))
-                for row in replicas]
-    else:
-        plan = [(replicas[replica if b % n else 0], None)]
     logits, auxes, ran0, ran = [], [], {}, {}
-    for row, part in plan:
-        x = _embed_tp(p, cfg, tokens if part is None else tokens[part], row,
-                      dtype)
-        if "dense0" in p:
-            kv0 = None if caches is None else [
-                blk.layer_of(c, 0) for c in _row_kv(caches["dense0"].kv, row, part)]
-            x, new0, _ = blk.block_forward_tp(p.sub("dense0"), _dense0_cfg(cfg),
-                                              "dense", x, row, kv=kv0)
-            if caches is not None:
-                ran0[row.index] = [KVCache(*(a[None] for a in c)) for c in new0]
-        kv = None if caches is None else _row_kv(caches["layers"].kv, row, part)
-        x, new, aux = blk.run_blocks_tp(p.sub("blocks"), _n_stacked(cfg), cfg,
-                                        _kind(cfg), x, row, kv=kv)
+    for row, part in shrd.replica_plan(p.mesh, tokens.shape[0], replica):
+        out, aux, new0, new = _run_replica(
+            p, cfg, tokens if part is None else tokens[part], row, part, caches,
+            dtype, remat)
         if caches is not None:
             ran[row.index] = new
-        logits.append(_logits_tp(p, cfg, x, row))
+            if new0 is not None:
+                ran0[row.index] = new0
+        logits.append(out)
         auxes.append(aux)
     out = shrd.cat_on(logits, p.device, dim=0)
     aux = shrd.sum_on(auxes, p.device) / len(auxes)
     if caches is None:
         return out, None, aux
-    new_caches = {"layers": blk.LayerCaches(
-        kv=_placed_kv(caches["layers"].kv, ran), ssm=None)}
+    new_caches = {"layers": _placed_stack(caches["layers"], ran)}
     if ran0:
-        new_caches["dense0"] = blk.LayerCaches(
-            kv=_placed_kv(caches["dense0"].kv, ran0), ssm=None)
+        new_caches["dense0"] = _placed_stack(caches["dense0"], ran0)
     return out, new_caches, aux
 
 
-def _kv_layout(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
-               dtype) -> blk.LayerCaches:
-    """The shapes of a stack's KV cache (meta tensors: nothing allocated),
-    :func:`~repro_torch.models.attention.init_cache`'s layout stacked."""
-    cap = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    kv = (n_layers, batch, cap, cfg.n_kv_heads, cfg.d_head)
+def forward_replicas(p: shrd.PlacedParams, cfg: ModelConfig, shares, *,
+                     dtype=torch.float32, remat: str | None = None, mesh=None
+                     ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The full-sequence logits and aux loss of each data replica's tokens:
+    ``shares`` is a list of (:class:`~repro_torch.models.sharding.Row`,
+    tokens) (:func:`~repro_torch.models.sharding.place_batch`); the
+    logits land on each replica's lead.  A graph is recorded as by
+    :func:`forward`."""
+    params_mesh(p, cfg, mesh)
+    if not isinstance(p, shrd.PlacedParams):
+        raise ValueError("forward_replicas takes parameters placed on a mesh")
+    return [_run_replica(p, cfg, tokens, row, None, None, dtype, remat)[:2]
+            for row, tokens in shares]
 
+
+def _cache_layout(cfg: ModelConfig, kind: str, n_layers: int, batch: int,
+                  max_len: int, dtype) -> blk.LayerCaches:
+    """The shapes of a stack's caches (meta tensors: nothing allocated),
+    :func:`~repro_torch.models.blocks.init_layer_caches`' layout: a KV
+    cache for the attention kinds, an SSM state for ``"ssm"``."""
     def meta(shape, dt):
         return torch.empty(shape, dtype=dt, device="meta")
 
-    return blk.LayerCaches(kv=KVCache(
-        k=meta(kv, dtype), v=meta(kv, dtype),
-        pos=meta((n_layers, cap), torch.int32),
-        length=meta((n_layers,), torch.int32)), ssm=None)
+    kv = ssm = None
+    if kind != "ssm":
+        cap = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+        k = (n_layers, batch, cap, cfg.n_kv_heads, cfg.d_head)
+        kv = KVCache(k=meta(k, dtype), v=meta(k, dtype),
+                     pos=meta((n_layers, cap), torch.int32),
+                     length=meta((n_layers,), torch.int32))
+    else:
+        s = cfg.ssm
+        ssm = blk.SSMState(
+            state=meta((n_layers, batch, cfg.n_ssm_heads, s.head_dim, s.d_state),
+                       torch.float32),
+            conv=meta((n_layers, batch, s.d_conv - 1,
+                       cfg.d_inner + 2 * s.n_groups * s.d_state), dtype))
+    return blk.LayerCaches(kv=kv, ssm=ssm)
 
 
 def _init_caches_mesh(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -574,19 +633,21 @@ def _init_caches_mesh(cfg: ModelConfig, batch: int, max_len: int, dtype,
     """Zero caches placed on ``mesh`` by ``cache_shardings``, each piece
     made on its device at its own shape (``pos`` -1, the rest 0)."""
     check_mesh_family(cfg)
-    layout = {"layers": _kv_layout(cfg, _n_stacked(cfg), batch, max_len, dtype)}
+    layout = {"layers": _cache_layout(cfg, _kind(cfg), _n_stacked(cfg), batch,
+                                      max_len, dtype)}
     if cfg.dense_first_layer_ff:
-        layout["dense0"] = _kv_layout(cfg, 1, batch, max_len, dtype)
+        layout["dense0"] = _cache_layout(cfg, "dense", 1, batch, max_len, dtype)
     specs = S.cache_shardings(mesh, cfg, layout, batch)
-    out = {}
-    for name, stack in layout.items():
-        kv = stack.kv
-        out[name] = blk.LayerCaches(kv=KVCache(*(
-            shrd.zeros(leaf.shape, spec, mesh, leaf.dtype,
-                       fill=-1 if field == "pos" else 0)
-            for field, leaf, spec in zip(KVCache._fields, kv,
-                                         specs[name].kv))), ssm=None)
-    return out
+
+    def placed(cache, spec):
+        if cache is None:
+            return None
+        return type(cache)(*(shrd.zeros(leaf.shape, sp, mesh, leaf.dtype,
+                                        fill=-1 if field == "pos" else 0)
+                             for field, leaf, sp in zip(cache._fields, cache, spec)))
+
+    return {name: blk.LayerCaches(*(placed(c, sp) for c, sp in zip(stack, specs[name])))
+            for name, stack in layout.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -599,11 +660,10 @@ def forward(p: LM, cfg: ModelConfig, batch: dict, *, dtype=torch.float32,
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal logits + the MoE aux loss (summed over the MoE
     layers; 0 without them).  Records a graph where grad is enabled and the
-    parameters require it, each block under ``remat`` (None, ``"full"``
-    or ``"dots"``).  On a mesh (placed parameters) no graph is recorded."""
+    parameters require it (on a mesh, the pieces), each block under
+    ``remat`` (None, ``"full"`` or ``"dots"``)."""
     if params_mesh(p, cfg, mesh) is not None:
-        with torch.no_grad():
-            logits, _, aux = _run_mesh(p, cfg, batch, None, dtype, 0)
+        logits, _, aux = _run_mesh(p, cfg, batch, None, dtype, 0, remat)
         return logits, aux
     logits, _, aux = _run(p, cfg, batch, None, dtype, remat)
     return logits, aux
@@ -619,7 +679,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     ``"layers"`` and ``"memory"`` (B, n_ctx_tokens, d).  With ``mesh``
     (dense and MoE families) the same layout with every leaf placed by
     :func:`repro_torch.launch.specs.cache_shardings`."""
-    mesh = _mesh_arg(mesh)
+    mesh = resolve_mesh(mesh)
     if mesh is not None:
         return _init_caches_mesh(cfg, batch, max_len, dtype, mesh)
     device = resolve_device(device)

@@ -260,9 +260,12 @@ def moe_forward_tp(p: shrd.PlacedParams, cfg: ModelConfig, x: torch.Tensor,
     shared = None
     if cfg.moe.n_shared:
         shared = functools.partial(swiglu_tp, p=p.sub("shared"), row=row)
+    # under a gradient the combine runs dense, as off the mesh
+    graph = torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for _, leaf in p.named_leaves() for t in leaf.pieces.flat))
     return _moe(row.pieces(p["router"])[0],
                 functools.partial(_experts_tp, p, row), shared, cfg, x, spec,
-                graph=False)
+                graph)
 
 
 def _moe(router: torch.Tensor, experts, shared, cfg: ModelConfig,

@@ -21,12 +21,28 @@ an LM leaf by leaf (a :class:`PlacedParams`); the model's mesh path
 (:mod:`repro_torch.models.model`) then runs each data replica (a
 :class:`Row` of the mesh) on its own devices.  Every piece has storage of
 its own, also where a mesh repeats a device.
+
+Training on a mesh (where GSPMD inserts the reduce-scatters and
+all-gathers, the port calls these): each piece of a trainable
+:class:`PlacedParams` is a leaf tensor of its own, so a backward gives
+every piece the gradient of the uses it had.  :func:`reduce_grads` sums
+the pieces of each block (its replicas over every mesh axis the spec does
+not name: the data replicas' copies, and the model devices' copies of a
+model-replicated leaf that several of them read) into one tensor on the
+block's first device: a *reduced* value, one piece a block, the others
+None; cut by a finer spec (ZeRO-1's :func:`zero1_specs`), each data
+replica sums only its own rows of the block (the reduce-scatter).
+:func:`write_blocks` copies the blocks of a reduced value into every
+piece that holds them (the all-gather of the updated parameters), and
+:func:`global_norm` sums the squares of each block once.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
+import types
 from typing import Any
 
 import numpy as np
@@ -35,9 +51,11 @@ import torch
 from repro_torch.compat import Mesh, MeshContext, current_mesh_context
 
 __all__ = ["DATA", "TP", "PlacedParams", "Row", "Sharded", "canonical",
-           "cat_on", "current_axis_names", "logical", "model_param_specs", "param_specs",
-           "place", "place_params", "rows", "shard", "sum_on", "tree_leaves",
-           "tree_map", "zeros", "zero1_specs"]
+           "cat_on", "current_axis_names", "cut", "global_norm", "groups",
+           "leads", "logical", "model_param_specs", "param_specs", "place",
+           "place_batch", "place_params", "recut", "reduce_grads", "refine_slices",
+           "replica_plan", "rows", "shard", "sum_on", "tree_leaves",
+           "tree_map", "write_blocks", "zeros", "zero1_specs"]
 
 #: logical batch axes (flattened onto whichever of these exist in the mesh)
 DATA = ("pod", "data")
@@ -131,10 +149,6 @@ class Sharded:
         self.shape = tuple(int(s) for s in shape)
         self.pieces = pieces
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.pieces.flat[0].dtype
-
     def tp_dim(self) -> int | None:
         """The dim the model axis splits, or None."""
         for i, axis in enumerate(self.spec):
@@ -147,19 +161,29 @@ class Sharded:
         ``dim``."""
         return _block(self.mesh, coord, self.spec[dim])
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(t for t in self.pieces.flat if t is not None).dtype
+
     def full(self, device=None) -> torch.Tensor:
         """The whole value gathered on ``device`` (default: the mesh's first
-        device)."""
+        device); each block read from its first coordinate, so a reduced
+        value (:func:`reduce_grads`) gathers too.  Differentiable."""
         dev = self.mesh.devices.flat[0] if device is None else torch.device(device)
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
-        used = {a for axis in self.spec for a in _names(axis)}
-        for coord in np.ndindex(self.mesh.devices.shape):
-            if any(c and a not in used
-                   for a, c in zip(self.mesh.axis_names, coord)):
-                continue                          # a replica of a block taken
-            out[_slices(self.shape, self.spec, self.mesh, coord)] = \
-                self.pieces[coord].to(dev)
+        for grp in groups(self):
+            out[_slices(self.shape, self.spec, self.mesh, grp[0])] = \
+                self.pieces[grp[0]].to(dev)
         return out
+
+    @classmethod
+    def empty(cls, mesh: Mesh, spec, shape) -> "Sharded":
+        """A value with no pieces yet (to be filled block by block)."""
+        return cls(mesh, spec, shape, np.empty(mesh.devices.shape, dtype=object))
+
+    def region(self, coord: tuple[int, ...]) -> tuple[slice, ...]:
+        """The slices of the whole value the piece at ``coord`` holds."""
+        return _slices(self.shape, self.spec, self.mesh, coord)
 
     def __repr__(self) -> str:
         return f"Sharded({self.shape}, spec={self.spec}, {self.mesh!r})"
@@ -196,6 +220,140 @@ def zeros(shape, spec, mesh: Mesh, dtype, fill=0) -> Sharded:
                   for dim, axis in zip(shape, spec))
     return Sharded(mesh, spec, shape, _pieces(
         mesh, lambda coord, dev: torch.full(local, fill, dtype=dtype, device=dev)))
+
+
+def cut(x: Sharded, spec, dtype=None) -> Sharded:
+    """``x`` placed by the finer ``spec`` (each of its blocks inside one of
+    ``x``'s), every piece a fresh copy on its device, in ``dtype`` (default
+    ``x``'s): ZeRO-1's share of a parameter."""
+    out = Sharded.empty(x.mesh, spec, x.shape)
+    with torch.no_grad():
+        for coord in np.ndindex(x.pieces.shape):
+            rel = _relative(out.region(coord), x.region(coord))
+            out.pieces[coord] = x.pieces[coord][rel].to(
+                dtype=dtype or x.dtype, copy=True).contiguous()
+    return out
+
+
+def _relative(inner: tuple[slice, ...], outer: tuple[slice, ...]) -> tuple[slice, ...]:
+    return tuple(slice(i.start - o.start, i.stop - o.start)
+                 for i, o in zip(inner, outer))
+
+
+def _inside(inner: tuple[slice, ...], outer: tuple[slice, ...]) -> bool:
+    return all(o.start <= i.start and i.stop <= o.stop
+               for i, o in zip(inner, outer))
+
+
+def _used(spec) -> set[str]:
+    return {a for axis in spec for a in _names(axis)}
+
+
+def groups(x: Sharded) -> list[tuple[tuple[int, ...], ...]]:
+    """The mesh's coordinates grouped by the block of ``x`` they hold:
+    each group in coordinate order (its first is the block's first
+    coordinate, zero along every axis the spec does not name), the groups
+    in their first coordinates' order."""
+    return _groups(x.mesh.axis_names, x.mesh.devices.shape, x.spec)
+
+
+@functools.lru_cache(maxsize=1024)
+def _groups(names, shape, spec):
+    used = _used(spec)
+    out: dict[tuple, list] = {}
+    for coord in np.ndindex(shape):
+        key = tuple(c for a, c in zip(names, coord) if a in used)
+        out.setdefault(key, []).append(coord)
+    return tuple(tuple(g) for g in out.values())
+
+
+def leads(x: Sharded):
+    """(first coordinate, its piece) of each block of ``x``."""
+    return ((grp[0], x.pieces[grp[0]]) for grp in groups(x))
+
+
+def reduce_grads(leaf: Sharded, grads: dict, spec=None) -> Sharded:
+    """The gradient of ``leaf`` given each piece's (``grads[coord]``, None
+    for a piece the loss did not reach): the pieces of a block summed in
+    coordinate order (the all-reduce over the axes the spec does not
+    name), a zero block where none was reached.  A reduced value in
+    ``spec`` (default ``leaf``'s; a finer one, each of its blocks inside
+    one of ``leaf``'s, sums each of its blocks from the same rows of the
+    pieces, on that block's first device: the reduce-scatter)."""
+    spec = leaf.spec if spec is None else spec
+    out = Sharded.empty(leaf.mesh, spec, leaf.shape)
+    holders = {c: grp for grp in groups(leaf) for c in grp}
+    for grp in groups(out):
+        c = grp[0]
+        rel = refine_slices(out, leaf, c)
+        parts = [grads[h][rel] for h in holders[c] if grads.get(h) is not None]
+        out.pieces[c] = (sum_on(parts, leaf.mesh.devices[c]) if parts
+                         else torch.zeros_like(leaf.pieces[c][rel]))
+    return out
+
+
+def recut(x: Sharded, spec) -> Sharded:
+    """The reduced ``x`` (one piece a block, :func:`reduce_grads`) on the
+    finer ``spec``: each block the rows of ``x``'s block that holds it, on
+    that block's first device; ``x`` itself where the specs agree.  A
+    gradient reduced by the parameters' spec meets its ZeRO-1 moments so."""
+    out = Sharded.empty(x.mesh, spec, x.shape)
+    if out.spec == x.spec:
+        return x
+    for grp in groups(out):
+        if not _inside(out.region(grp[0]), x.region(grp[0])):
+            raise ValueError(f"spec {out.spec} does not refine {x.spec} "
+                             f"(shape {x.shape})")
+    return reduce_grads(x, dict(leads(x)), out.spec)
+
+
+def refine_slices(fine: Sharded, coarse: Sharded, coord) -> tuple[slice, ...]:
+    """The slices of ``coarse``'s piece at ``coord`` that ``fine``'s piece
+    there holds (``fine``'s spec refining ``coarse``'s)."""
+    return _relative(fine.region(coord), coarse.region(coord))
+
+
+@functools.lru_cache(maxsize=1024)
+def _copy_plan(names, shape, dst_spec, src_spec, value_shape):
+    """(coordinate, slices of its piece, the source block's first
+    coordinate) of every source block inside every piece of ``dst``."""
+    mesh = types.SimpleNamespace(axis_names=names,
+                                 devices=np.empty(shape, dtype=object))
+    plan = []
+    src_firsts = [g[0] for g in _groups(names, shape, src_spec)]
+    for coord in np.ndindex(shape):
+        outer = _slices(value_shape, dst_spec, mesh, coord)
+        for first in src_firsts:
+            inner = _slices(value_shape, src_spec, mesh, first)
+            if _inside(inner, outer):
+                plan.append((coord, _relative(inner, outer), first))
+    return tuple(plan)
+
+
+@torch.no_grad()
+def write_blocks(dst: Sharded, src: Sharded) -> None:
+    """Copy each block of the reduced ``src`` (its spec ``dst``'s or a
+    finer one) into every piece of ``dst`` that holds it, in place (the
+    all-gather of updated blocks; ``write_blocks(m, m)`` brings the
+    replicas of ``m``'s blocks up to their first pieces)."""
+    mesh = dst.mesh
+    for coord, rel, first in _copy_plan(mesh.axis_names, mesh.devices.shape,
+                                        dst.spec, src.spec, dst.shape):
+        if dst is src and coord == first:
+            continue
+        dst.pieces[coord][rel].copy_(src.pieces[first])
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """sqrt of the sum of squares of reduced values (name -> Sharded),
+    float32, each block counted once, on the first value's mesh's first
+    device."""
+    dev = None
+    total = []
+    for x in tree.values():
+        dev = x.mesh.devices.flat[0] if dev is None else dev
+        total += [torch.sum(torch.square(t.float())) for _, t in leads(x)]
+    return torch.sqrt(sum_on(total, dev))
 
 
 def shard(x, *axes, ctx: MeshContext | None = None):
@@ -370,13 +528,41 @@ class PlacedParams:
         return ((n[len(self.prefix):], v) for n, v in self.leaves.items()
                 if n.startswith(self.prefix))
 
+    def items(self):
+        """(name, :class:`Sharded`) of every leaf under the prefix: what
+        :func:`param_specs` reads of a mapping."""
+        return list(self.named_leaves())
+
+    def pieces(self) -> list[torch.Tensor]:
+        """Every piece of every leaf, leaf by leaf in coordinate order."""
+        return [t for _, leaf in self.named_leaves() for t in leaf.pieces.flat]
+
+    def requires_grad_(self, flag: bool = True) -> "PlacedParams":
+        """Every piece made (or no longer) a leaf that requires grad."""
+        for t in self.pieces():
+            t.requires_grad_(flag)
+        return self
+
+    def to(self, dtype: torch.dtype) -> "PlacedParams":
+        """Every piece cast to ``dtype`` in place of the old one (as
+        ``nn.Module.to`` swaps a parameter's data), keeping whether it
+        requires grad."""
+        with torch.no_grad():
+            for _, leaf in self.named_leaves():
+                for coord in np.ndindex(leaf.pieces.shape):
+                    t = leaf.pieces[coord]
+                    leaf.pieces[coord] = t.to(dtype).requires_grad_(t.requires_grad)
+        return self
+
 
 def place_params(params, cfg, mesh: Mesh) -> PlacedParams:
     """``params`` (an ``LM``) placed on ``mesh`` by
-    :func:`model_param_specs`, leaf by leaf."""
+    :func:`model_param_specs`, leaf by leaf; the pieces require grad where
+    the parameters do."""
     specs = model_param_specs(cfg, params, mesh)
-    return PlacedParams(mesh, {n: place(p, specs[n], mesh)
-                               for n, p in params.named_parameters()})
+    placed = PlacedParams(mesh, {n: place(p, specs[n], mesh)
+                                 for n, p in params.named_parameters()})
+    return placed.requires_grad_(any(p.requires_grad for p in params.parameters()))
 
 
 # ---------------------------------------------------------------------------
@@ -419,6 +605,35 @@ def cat_on(parts: list[torch.Tensor], device, dim: int) -> torch.Tensor:
     """The blocks of a row's devices joined on ``device`` along ``dim``
     (the all-gather of a column-parallel product)."""
     return torch.cat([part.to(device) for part in parts], dim=dim)
+
+
+def replica_plan(mesh: Mesh, batch: int,
+                 replica: int = 0) -> list[tuple[Row, slice | None]]:
+    """The data replicas a batch of ``batch`` rows runs on and each one's
+    rows: every replica its equal share where their count divides the
+    batch (``batch_shardings``' split), else replica ``replica`` the whole
+    batch (``None``: a b = 1 admission, or a batch the reference
+    replicates)."""
+    replicas = rows(mesh)
+    n = len(replicas)
+    if batch % n == 0 and n > 1:
+        share = batch // n
+        return [(row, slice(row.index * share, (row.index + 1) * share))
+                for row in replicas]
+    return [(replicas[replica if batch % n else 0], None)]
+
+
+def place_batch(batch: dict, mesh: Mesh) -> list[tuple[Row, dict]]:
+    """A train batch (``tokens``, ``labels``: numpy or tensors) split over
+    the data replicas by :func:`replica_plan`: each replica's rows, the
+    labels on its lead device, the tokens as given (host ids are checked
+    against the vocabulary by the embedding before their upload)."""
+    out = []
+    for row, part in replica_plan(mesh, batch["tokens"].shape[0]):
+        share = {k: v if part is None else v[part] for k, v in batch.items()}
+        share["labels"] = torch.as_tensor(share["labels"]).to(row.lead)
+        out.append((row, share))
+    return out
 
 
 def rows(mesh: Mesh) -> list[Row]:

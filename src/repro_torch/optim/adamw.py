@@ -21,7 +21,21 @@ for the vision self blocks): every parameter of a stacked block is
 decayed, norms, ``A_log``, ``dt_bias``, ``D`` and biases among them, while
 DeepSeek's unstacked ``dense0`` and the top-level 1-D norms are not.
 :func:`decay_mask` reads that rank from
-:func:`repro_torch.models.convert.reference_rank`.
+:func:`repro_torch.models.convert.reference_rank` (on a mesh, from the
+leaf's global shape).
+
+**On a mesh** (placed parameters, :class:`~repro_torch.models.sharding
+.PlacedParams`) the state is placed too: :func:`adamw_init` makes ``m``,
+``v`` and any ``master`` by the moments' specs
+(:func:`repro_torch.launch.specs.moment_shardings`: ZeRO-1 over ``data``),
+so no device holds more than its share of them.  :func:`adamw_update`
+takes the gradients reduced and cut by those specs (one piece a block,
+:func:`~repro_torch.models.sharding.reduce_grads`): each block of the
+moments is updated once, on its first device, with the clip scale of the
+global norm
+(each block counted once), its replicas then copied from it; the new
+parameter blocks are copied into every piece that holds them (the
+all-gather of ZeRO-1).  The arithmetic a value is the unsharded one.
 """
 from __future__ import annotations
 
@@ -30,6 +44,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models import sharding as shrd
 from repro_torch.models.convert import reference_rank
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "clip_by_global_norm",
@@ -51,8 +66,10 @@ class AdamWConfig:
         return torch.as_tensor(lr, dtype=torch.float32)
 
 
-def _named(params) -> dict[str, torch.Tensor]:
-    return dict(params.items() if isinstance(params, dict) else params)
+def _named(params) -> dict:
+    if isinstance(params, (dict, shrd.PlacedParams)):
+        return dict(params.items())
+    return dict(params)
 
 
 def decay_mask(params) -> dict[str, bool]:
@@ -61,9 +78,14 @@ def decay_mask(params) -> dict[str, bool]:
     return {k: reference_rank(k, v.shape) >= 2 for k, v in _named(params).items()}
 
 
-def adamw_init(params, keep_master: bool = False) -> dict:
+def adamw_init(params, keep_master: bool = False,
+               specs: dict | None = None) -> dict:
     """Optimizer state: zero float32 ``m`` / ``v`` per parameter, ``step``
-    0 and, with ``keep_master``, a float32 ``master`` copy."""
+    0 and, with ``keep_master``, a float32 ``master`` copy.  Placed
+    parameters take their state placed by ``specs`` (name -> spec; default
+    the parameters' own)."""
+    if isinstance(params, shrd.PlacedParams):
+        return _init_placed(params, keep_master, specs)
     params = _named(params)
     zeros = {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
              for k, v in params.items()}
@@ -76,9 +98,29 @@ def adamw_init(params, keep_master: bool = False) -> dict:
     return state
 
 
+def _init_placed(params: shrd.PlacedParams, keep_master: bool,
+                 specs: dict | None) -> dict:
+    leaves = dict(params.items())
+    specs = specs or {k: leaf.spec for k, leaf in leaves.items()}
+
+    def zeros():
+        return {k: shrd.zeros(leaf.shape, specs[k], leaf.mesh, torch.float32)
+                for k, leaf in leaves.items()}
+
+    state = {"m": zeros(), "v": zeros(), "step": 0}
+    if keep_master:
+        state["master"] = {k: shrd.cut(leaf, specs[k], torch.float32)
+                           for k, leaf in leaves.items()}
+    return state
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
+    """sqrt of the sum of squares of every leaf, in float32 (reduced
+    placed leaves: each block once, :func:`repro_torch.models.sharding
+    .global_norm`)."""
     leaves = list(tree.values())
+    if leaves and isinstance(leaves[0], shrd.Sharded):
+        return shrd.global_norm(tree)
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
 
 
@@ -97,10 +139,14 @@ def adamw_update(grads: dict, opt_state: dict, params, cfg: AdamWConfig, *,
                  ) -> tuple[dict, dict, dict]:
     """One AdamW step, in place.  ``grads`` and ``params`` share their
     names; ``decay`` is :func:`decay_mask` of the parameters unless given.
+    On placed state a gradient reduced by its parameter's spec
+    (:func:`~repro_torch.train.step.loss_and_grads`) is cut to its
+    moments' ZeRO-1 blocks first.
     Returns (params, opt_state, metrics ``{"grad_norm", "lr"}``), the
     same parameter and state tensors, updated."""
-    params = _named(params)
-    decay = decay_mask(params) if decay is None else decay
+    placed = isinstance(params, shrd.PlacedParams)
+    named = _named(params)
+    decay = decay_mask(named) if decay is None else decay
     gnorm = global_norm(grads)
     # clip_by_global_norm's scale, applied leaf by leaf below (a clipped
     # copy of every gradient at once would not fit the card beside them)
@@ -112,25 +158,49 @@ def adamw_update(grads: dict, opt_state: dict, params, cfg: AdamWConfig, *,
     bc1 = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** stepf
     bc2 = 1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** stepf
     masters = opt_state.get("master")
-    scalars: dict = {}                 # (lr, bc1, bc2) on each device, once
-    for k, p in params.items():
-        g, m, v = grads[k].float(), opt_state["m"][k], opt_state["v"][k]
-        if scale is not None:
-            g = g * scale
-        if m.device not in scalars:
-            scalars[m.device] = [t.to(m.device) for t in (lr, bc1, bc2)]
-        lr_d, bc1_d, bc2_d = scalars[m.device]
+    scalars: dict = {}         # (scale, lr, bc1, bc2) on each device, once
+
+    def on(device):
+        if device not in scalars:
+            scalars[device] = [None if t is None else t.to(device)
+                               for t in (scale, lr, bc1, bc2)]
+        return scalars[device]
+
+    def update(g, m, v, base, decayed: bool) -> torch.Tensor:
+        """One tensor's update in place of ``m`` / ``v``: the new value."""
+        scale_d, lr_d, bc1_d, bc2_d = on(m.device)
+        g = g.float()
+        if scale_d is not None:
+            g = g * scale_d
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
-        mhat = m / bc1_d
-        vhat = v / bc2_d
-        base = masters[k] if masters is not None else p.float()
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if decay[k]:
+        delta = (m / bc1_d) / (torch.sqrt(v / bc2_d) + cfg.eps)
+        if decayed:
             delta = delta + cfg.weight_decay * base
-        new = base - lr_d * delta
-        if masters is not None:
-            masters[k].copy_(new)
-        p.copy_(new.to(p.dtype))
+        return base - lr_d * delta
+
+    for k, p in named.items():
+        m, v = opt_state["m"][k], opt_state["v"][k]
+        if not placed:
+            new = update(grads[k], m, v,
+                         masters[k] if masters is not None else p.float(), decay[k])
+            if masters is not None:
+                masters[k].copy_(new)
+            p.copy_(new.to(p.dtype))
+            continue
+        # each block of the moments once, on its first device
+        g = shrd.recut(grads[k], m.spec)
+        new = shrd.Sharded.empty(p.mesh, m.spec, p.shape)
+        for coord, mb in shrd.leads(m):
+            base = (masters[k].pieces[coord] if masters is not None else
+                    p.pieces[coord][shrd.refine_slices(m, p, coord)].float())
+            nb = update(g.pieces[coord], mb, v.pieces[coord], base,
+                        decay[k])
+            if masters is not None:
+                masters[k].pieces[coord].copy_(nb)
+            new.pieces[coord] = nb.to(p.dtype)
+        for state in (m, v) + ((masters[k],) if masters is not None else ()):
+            shrd.write_blocks(state, state)
+        shrd.write_blocks(p, new)
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -93,21 +93,27 @@ def _write_slot(shared: M.Caches, single: M.Caches, slot: int) -> None:
 
 def _write_slot_placed(shared: M.Caches, single: M.Caches, slot: int) -> None:
     """:func:`_write_slot` for caches placed on a mesh (the KV caches of
-    the dense and MoE families).  Every device's b = 1 piece goes into its
-    shared piece on the same device: where the shared k / v split the batch
-    over the data replicas, into the replica that owns ``slot`` at its
-    local row; where they replicate it, into every replica.  ``pos`` and
-    ``length`` are copied to every piece."""
+    the dense and MoE families, the SSM states of the SSM family).  Every
+    device's b = 1 piece goes into its shared piece on the same device:
+    where the shared k / v (state / conv ring) split the batch over the
+    data replicas, into the replica that owns ``slot`` at its local row;
+    where they replicate it, into every replica.  ``pos`` and ``length``
+    are copied to every piece."""
     for name, dst in shared.items():
-        kv, one = dst.kv, single[name].kv
-        for coord in np.ndindex(kv.k.pieces.shape):
-            idx, n = kv.k.block(coord, 1)
-            local = kv.k.shape[1] // n
-            if idx * local <= slot < (idx + 1) * local:
-                for d, s in zip(kv[:2], one[:2]):
-                    d.pieces[coord][:, slot - idx * local].copy_(s.pieces[coord][:, 0])
-            for d, s in zip(kv[2:], one[2:]):
-                d.pieces[coord].copy_(s.pieces[coord])
+        src = single[name]
+        for cache, one in ((dst.kv, src.kv), (dst.ssm, src.ssm)):
+            if cache is None:
+                continue
+            lead = cache[0]
+            for coord in np.ndindex(lead.pieces.shape):
+                idx, n = lead.block(coord, 1)
+                local = lead.shape[1] // n
+                if idx * local <= slot < (idx + 1) * local:
+                    for d, s in zip(cache[:2], one[:2]):
+                        d.pieces[coord][:, slot - idx * local].copy_(
+                            s.pieces[coord][:, 0])
+                for d, s in zip(cache[2:], one[2:]):
+                    d.pieces[coord].copy_(s.pieces[coord])
 
 
 class Batcher(SlotLoop[Request]):

@@ -181,8 +181,19 @@ def test_supervisor_gives_up():
 
 
 def test_loop_refuses_a_mesh():
+    """The loop trains the dense, MoE and SSM families on a mesh
+    (``tests/test_torch_mesh_train.py``); it refuses a mesh with an axis
+    the model does not run on, and the hybrid family on a mesh (ROADMAP
+    A10c)."""
+    from repro_torch.compat import make_mesh
+
+    with pytest.raises(ValueError, match="the mesh has"):
+        train_loop(*_loop_cfgs("unused"), device="cpu",
+                   mesh=make_mesh((1, 2), ("shard", "model"), ("cpu",) * 2))
+    cfg, tcfg, dcfg, lcfg = _loop_cfgs("unused")
     with pytest.raises(NotImplementedError, match="A10"):
-        train_loop(*_loop_cfgs("unused"), mesh=object(), device="cpu")
+        train_loop(configs.reduced_config("hymba-1.5b"), tcfg, dcfg, lcfg,
+                   mesh=make_mesh((1, 2), ("data", "model"), ("cpu",) * 2))
 
 
 # ---------------------------------------------------------------------------

@@ -24,10 +24,11 @@ atol 1e-9 x n at fp64 and 1e-3 / 1e-5 x max|spectrum| at fp32 (FMA
 contraction); B6's k-column form bit-equal to its one-column launches; B8
 2e-4 at fp32 and 1e-10 at fp64 (the reference's, ``tests/test_kernels.py``),
 its backward the same, fp32 relative to max(1, max|grad|), two calls
-bit-equal; B9 exactly equal (a copy), its backward equal to its plain
-version (the same sums in the same order) and within 1e-6 x max of
-``index_add_``; the reduced mamba2 train step's loss 1e-5 relative and its
-gradients 1e-4 x max|g| against the CPU.
+bit-equal; B9 exactly equal (a copy), its backward and its shard form's
+backward equal to their plain versions (the same sums in the same order)
+and within 1e-6 x max of ``index_add_``; the reduced mamba2 train step's
+loss 1e-5 relative and its gradients 1e-4 x max|g| against the CPU, and on
+a mesh naming the card four times against the unsharded step on the card.
 """
 import copy
 import types
@@ -1082,6 +1083,103 @@ def test_gather_shard_form_equals_plain_version(cuda_device, dtype, id_dtype, t)
                                                      rows, v),
                        gather.embedding_gather_shard_ref(
                            table[rows:2 * rows], torch.from_numpy(host), rows, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 512, 3000])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gather_shard_backward_equals_plain_version(cuda_device, dtype,
+                                                    id_dtype, t):
+    """B9's shard backward on four row shards: each ``torch.equal`` to
+    ``embedding_gather_shard_bwd_ref``, one launch a call, the four
+    stacked ``torch.equal`` to the whole-table backward; ids on every
+    shard boundary, repeated, past V and below 0 (bounded by the whole V);
+    a window no id hits is all zeros."""
+    from repro_torch.kernels import gather
+
+    v, d, n = 4000, 66, 4
+    rows = v // n
+    edges = [e for k in range(n) for e in (k * rows, (k + 1) * rows - 1)]
+    raw = edges + [v, v + 7, -1, -v - 3, 2**31 - 1, -v, 5, 5, 5]
+    rng = np.random.default_rng(t)
+    raw += rng.integers(0, v, max(t - len(raw), 0)).tolist()
+    ids = torch.tensor(raw[:t], dtype=id_dtype, device=cuda_device)
+    dout = torch.randn((t, d), dtype=dtype, device=cuda_device)
+    parts = []
+    for k in range(n):
+        before = gather.SHARD_BWD_LAUNCHES
+        got = gather.embedding_gather_shard_bwd(dout, ids, k * rows, rows, v)
+        torch.cuda.synchronize()
+        assert gather.SHARD_BWD_LAUNCHES == before + 1
+        assert torch.equal(got, gather.embedding_gather_shard_bwd_ref(
+            dout, ids, k * rows, rows, v))
+        parts.append(got)
+    assert torch.equal(torch.cat(parts), gather.embedding_gather_bwd(dout, ids, v))
+    low = torch.tensor([0, 1, 2, 3] * (t // 4 or 1), dtype=id_dtype,
+                       device=cuda_device)[:t]
+    empty = gather.embedding_gather_shard_bwd(dout[:low.shape[0]], low, 2 * rows,
+                                              rows, v)
+    assert not empty.any()
+
+
+@pytest.mark.cuda
+def test_gather_shard_backward_refuses_before_any_launch(cuda_device):
+    """A window outside the vocabulary is refused by the launch plan
+    before any launch."""
+    from repro_torch.analysis import LaunchPlanError
+    from repro_torch.kernels import gather
+
+    dout = torch.randn((8, 16), device=cuda_device)
+    ids = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    before = gather.SHARD_BWD_LAUNCHES
+    with pytest.raises(LaunchPlanError, match="outside the vocabulary"):
+        gather.embedding_gather_shard_bwd(dout, ids, 90, 20, 100)
+    assert gather.SHARD_BWD_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_reduced_mamba2_train_step_on_a_card_mesh(cuda_device, shape):
+    """The reduced mamba2's train step on a mesh naming the card four times
+    (B8 a head shard, B9's shard form and its backward) against the
+    unsharded step on the card: loss 1e-5 relative, gradients 1e-4 x
+    max|g|; every block's pieces equal after AdamW."""
+    from repro_torch import configs
+    from repro_torch.compat import make_mesh
+    from repro_torch.kernels import gather, ssd
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = configs.reduced_config("mamba2-2.7b")
+    lm = M.init_params(M.make_generator(0, cuda_device), cfg, trainable=True)
+    mesh = make_mesh(shape, ("data", "model"), (cuda_device,) * 4)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, 256, (4, 16)).astype(np.int32),
+             "labels": rng.integers(0, 256, (4, 16)).astype(np.int32)}
+    tc = TrainConfig(remat="full")
+    want, wl, _ = loss_and_grads(lm, cfg, tc, batch)
+    placed = sharding.place_params(lm, cfg, mesh)
+    counts = (ssd.KERNEL_LAUNCHES, ssd.BWD_LAUNCHES, gather.SHARD_LAUNCHES,
+              gather.SHARD_BWD_LAUNCHES)
+    got, gl, _ = loss_and_grads(placed, cfg, tc, batch)
+    torch.cuda.synchronize()
+    ran = [a - b for a, b in zip((ssd.KERNEL_LAUNCHES, ssd.BWD_LAUNCHES,
+                                  gather.SHARD_LAUNCHES,
+                                  gather.SHARD_BWD_LAUNCHES), counts)]
+    assert all(ran), ran
+    assert float(gl) == pytest.approx(float(wl), rel=1e-5)
+    for k, g in want.items():
+        tol = 1e-4 * max(float(g.abs().max()), 1e-30)
+        torch.testing.assert_close(got[k].full(), g, rtol=0, atol=tol)
+    state, _ = make_train_step(cfg, tc)(init_train_state(None, cfg, tc,
+                                                         params=placed), batch)
+    for _, leaf in state.params.items():
+        for grp in sharding.groups(leaf):
+            for c in grp:
+                assert torch.equal(leaf.pieces[c], leaf.pieces[grp[0]])
 
 
 @pytest.mark.cuda

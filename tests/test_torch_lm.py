@@ -334,13 +334,14 @@ def test_fused_mode_mesh_and_bf16_scan_raise(lm, monkeypatch):
     # the reference's refusal of a fused engine without its envelope
     with pytest.raises(ValueError, match="fused mode needs moe_operand"):
         ServeEngine(tcfg, tp, gcfg, kernel_service=object())
-    # mamba2 on a mesh is ROADMAP A10c (the dense and MoE families run on one)
+    # mamba2 runs on a mesh (tests/test_torch_mesh_train.py) once its
+    # parameters are placed there: unplaced ones are refused
     mesh = make_mesh((1, 2), ("data", "model"), ("cpu",) * 2)
-    with pytest.raises(NotImplementedError, match="A10c"):
+    with pytest.raises(ValueError, match="placed on it"):
         ServeEngine(tcfg, tp, gcfg, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A10c"):
+    with pytest.raises(ValueError, match="placed on it"):
         Batcher(tcfg, tp, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A10c"):
+    with pytest.raises(ValueError, match="placed on it"):
         M.forward(tp, tcfg, {"tokens": np.zeros((1, 8), np.int32)}, mesh=mesh)
     monkeypatch.setattr(ssm, "SSD_BF16", True)
     with pytest.raises(NotImplementedError, match="bf16"):
