@@ -306,7 +306,28 @@ result line is printed:
               ``torch.profiler``; a crash and resume on (2, 2) and the
               mesh checkpoint restored on one device, ``torch.equal``; the
               shard backward timed beside its bound, plain version and
-              ``zeros + index_add_``.
+              ``zeros + index_add_``;
+17. mesh-families — the hybrid, enc-dec and vision families on (1, 4)
+              and (2, 2) meshes naming the card four times: hymba-1.5b,
+              seamless-m4t-medium and llama-3.2-vision-11b at full width
+              and depth (vision on (2, 2) at its first 20 layers: two
+              data replicas of its 47.85 GB do not fit the card), each run
+              unsharded first (its logits and tokens kept on the host, the
+              model freed), then born sharded from the same seed: a (4,
+              512) prefill with stub ``ctx_embeds`` and 4 decode steps
+              reading the context back within 1e-4 x max|logit| of the
+              unsharded run, greedy tokens, the engine's (with
+              ``extras``) and the batcher's (8 requests against the zero
+              context) equal past the margin; prefill ms, decode ms a step,
+              batcher tokens/s and GB a device beside the unsharded
+              readings; B8 (hymba: 25 heads a device on (2, 2), all 50 on
+              the lead on (1, 4)) and B9 (its shard form where the
+              vocabulary divides) counted from 0 around each mesh's drive;
+              then one train step of hymba's 2-layer full-width cut on
+              each mesh against the unsharded step (phase 16's
+              tolerances), and the loss and gradients of seamless's (2
+              encoder and 2 decoder layers) and vision's (its first group)
+              cuts with ``ctx_embeds``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with a record per kernel.
@@ -377,6 +398,9 @@ MOE_C = 32
 DAMPINGS = (0.85, 0.9, 0.8, 0.95)
 ITERS = 20
 PR_RTOL = 1e-10
+#: PageRank columns a graph held to the host's pagerank_reference (every
+#: column is held to the plain drive on the card)
+GRAPH_HOST_PR_COLUMNS = 1
 #: the LM phase (kernels B8, B9): mamba2-2.7b at its published widths and
 #: depth (src/repro_torch/configs/mamba2_2_7b.py), random init from LM_SEED
 LM_ARCH = "mamba2-2.7b"
@@ -516,6 +540,20 @@ MESH_TRAIN_UNSHARDED = (889.0, 1155.3, 48.72)
 #: fewer and more
 SHARD_BWD_TS = (4, 512, TRAIN_BATCH * TRAIN_SEQ)
 MESH_TRAIN_CKPT = Path(__file__).resolve().parent / "build" / "mesh_train_ckpt"
+#: the mesh-families phase: the hybrid, enc-dec and vision archs at full
+#: width on each mesh (naming the card data x model times), at full depth
+#: but where MESH_FAMILY_DEPTH cuts it: two data replicas of vision's 47.85
+#: GB do not fit one 80 GB card, so (2, 2) takes its first 20 layers (5
+#: groups of 4 and their cross blocks, 26.0 GB a replica)
+MESH_FAMILY_ARCHS = ("hymba-1.5b", "seamless-m4t-medium", "llama-3.2-vision-11b")
+MESH_FAMILY_SHAPES = ((1, 4), (2, 2))
+MESH_FAMILY_DEPTH = {("llama-3.2-vision-11b", (2, 2)): 20}
+#: the unsharded readings of these archs (phase 13 as PERF.md section 5
+#: records it, NVIDIA H100 80GB HBM3, 700.00 W): prefill ms (b = 1),
+#: decode ms a step of LM_SLOTS, batcher tokens/s
+MESH_FAMILY_PHASE13 = {"hymba-1.5b": (107.84, 110.52, 30.12),
+                       "seamless-m4t-medium": (40.99, 31.95, 98.77),
+                       "llama-3.2-vision-11b": (282.98, 93.08, 25.30)}
 #: the card's memory rate for bounds (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 #: where every tensor of the run lives: the card
@@ -951,7 +989,9 @@ def graph_main_path(torch, np, G, bfs_k, pr_k, ops, ExecSpec, KernelRegistry,
                 raise AssertionError(f"{name}: BFS column {i} != bfs_reference")
         host_pr = {}
         err_host = 0.0
-        for i in range(2):
+        # one column a graph: the host reference is the phase's slowest
+        # check (rmat15's transpose is 5,754 wide)
+        for i in range(GRAPH_HOST_PR_COLUMNS):
             host_pr[i] = torch.from_numpy(
                 G.pagerank_reference(g, dampings[i], ITERS))
             err_host = max(err_host, check_pr(
@@ -959,7 +999,8 @@ def graph_main_path(torch, np, G, bfs_k, pr_k, ops, ExecSpec, KernelRegistry,
                 rank[:, i].cpu(), host_pr[i]))
         phase("graphs", f"{name}: 32 BFS results == plain drive on card, 4 == "
               f"bfs_reference; 32 PageRank results vs plain max abs err "
-              f"{err_plain:.3e}, 2 vs pagerank_reference {err_host:.3e} (rtol "
+              f"{err_plain:.3e}, {GRAPH_HOST_PR_COLUMNS} vs pagerank_reference "
+              f"{err_host:.3e} (rtol "
               f"{PR_RTOL}); max level {max_level(np, dist)}; plain drives "
               f"{t_plain:.1f} s, host references {time.perf_counter() - t0:.1f}"
               " s")
@@ -5074,21 +5115,27 @@ def time_gather_shard(torch, np, gather_k, flush, launches: int,
 
 
 def greedy_steps(torch, np, M, params, cfg, prompts, n_steps: int, *,
-                 mesh=None, scope=contextlib.nullcontext):
-    """Prefill ``prompts`` and ``n_steps - 1`` greedy decode steps: the
-    prefill logits, each step's last logits (on the host), the greedy
+                 mesh=None, scope=contextlib.nullcontext, ctx=None,
+                 keep_prefill: bool = False):
+    """Prefill ``prompts`` (with ``ctx`` as ``ctx_embeds`` where given) and
+    ``n_steps - 1`` greedy decode steps: each step's last logits (on the
+    host; with ``keep_prefill`` the whole prefill logits too), the greedy
     tokens, their top-2 margins and the host-clock ms of the prefill and a
     decode step (the card synchronized)."""
+    batch = {"tokens": prompts}
+    if ctx is not None:
+        batch["ctx_embeds"] = ctx
     with scope():
         caches = M.init_caches(cfg, prompts.shape[0], LM_PROMPT + LM_NEW_TOKENS,
                                dtype=torch.float32, device=DEVICE, mesh=mesh)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, caches = M.prefill(params, cfg, {"tokens": prompts}, caches,
-                                   mesh=mesh)
+        logits, caches = M.prefill(params, cfg, batch, caches, mesh=mesh)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
+        pre = logits.cpu() if keep_prefill else None
         last = logits[:, -1]
+        del logits
         steps = [last.cpu()]
         t0 = time.perf_counter()
         for _ in range(n_steps - 1):
@@ -5101,7 +5148,7 @@ def greedy_steps(torch, np, M, params, cfg, prompts, n_steps: int, *,
     last = torch.stack(steps, 1).numpy()
     top2 = np.sort(last, axis=-1)[..., -2:]
     return {"steps": last, "tokens": last.argmax(-1).astype(np.int32),
-            "margins": top2[..., 1] - top2[..., 0],
+            "margins": top2[..., 1] - top2[..., 0], "prefill": pre,
             "prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
 
@@ -5313,6 +5360,14 @@ def mesh_train_counts(ssd_k, gather_k) -> dict:
             "embedding_gather_shard_bwd": gather_k.SHARD_BWD_LAUNCHES}
 
 
+def all_lm_counts(ssd_k, gather_k) -> dict:
+    """:func:`mesh_train_counts` and the whole-table B9's forward and
+    backward launches (a vocabulary the model axis does not divide)."""
+    return dict(mesh_train_counts(ssd_k, gather_k),
+                embedding_gather=gather_k.KERNEL_LAUNCHES,
+                embedding_gather_bwd=gather_k.BWD_LAUNCHES)
+
+
 def compare_gather_shard_bwd(torch, np, gather_k, cfg) -> float:
     """Phase 16: B9's shard backward against its plain version on each of
     MESH_GATHER_SHARDS row shards of ``cfg``'s table (mamba2: (12570,
@@ -5369,14 +5424,32 @@ def mesh_train_check(torch, np, configs, M, sharding, make_mesh, ssd_k,
     (deepseek's 2: its dense first layer and one MoE layer), trainable
     from LM_SEED on the card, one step on each mesh (naming the card data
     x model times) against the unsharded port on the card, both on the
-    synthetic stream's (TRAIN_BATCH, TRAIN_SEQ) tokens: the loss to
-    MESH_TRAIN_LOSS_RTOL, every gradient to MESH_TRAIN_GRAD_TOL x max|g|,
-    the grad norm (a whole train step) to MESH_TRAIN_NORM_RTOL, the
-    parameters AdamW makes on the mesh (ZeRO-1 blocks) of the unsharded
-    gradients to MESH_TRAIN_PARAM_TOL x max|p| of the unsharded update,
-    and every block's pieces ``torch.equal`` after the step.  (A whole
-    step's parameters are printed, not held: AdamW's first step is g / (|g|
-    + eps), so an element whose tiny g the rounding turns moves by 2 lr.)"""
+    synthetic stream's (TRAIN_BATCH, TRAIN_SEQ) tokens
+    (:func:`mesh_step_check`)."""
+    out = []
+    for arch, shapes in MESH_TRAIN_CHECKS:
+        out += mesh_step_check(torch, np, M, sharding, make_mesh, ssd_k,
+                               gather_k, mesh_config(configs, arch,
+                                                     LM_CHECK_LAYERS),
+                               shapes, arch=arch)
+    return out
+
+
+def mesh_step_check(torch, np, M, sharding, make_mesh, ssd_k, gather_k, cfg,
+                    shapes, *, arch: str, label: str = "mesh-train",
+                    ctx=None, step: bool = True) -> list[dict]:
+    """``cfg`` trainable from LM_SEED on the card, one step on each of
+    ``shapes`` (meshes naming the card data x model times) against the
+    unsharded port on the card, both on the synthetic stream's
+    (TRAIN_BATCH, TRAIN_SEQ) tokens (and ``ctx`` as ``ctx_embeds``): the
+    loss to MESH_TRAIN_LOSS_RTOL, every gradient to MESH_TRAIN_GRAD_TOL x
+    max|g| and their global norm to MESH_TRAIN_NORM_RTOL; with ``step``
+    also the grad norm of a whole train step, the parameters AdamW makes on
+    the mesh (ZeRO-1 blocks) of the unsharded gradients to
+    MESH_TRAIN_PARAM_TOL x max|p| of the unsharded update, and every
+    block's pieces ``torch.equal`` after the step.  (A whole step's
+    parameters are printed, not held: AdamW's first step is g / (|g| +
+    eps), so an element whose tiny g the rounding turns moves by 2 lr.)"""
     from repro_torch.optim import adamw_init, adamw_update, decay_mask
     from repro_torch.optim import global_norm
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
@@ -5384,54 +5457,58 @@ def mesh_train_check(torch, np, configs, M, sharding, make_mesh, ssd_k,
 
     out = []
     tc = TrainConfig(remat=None)
-    for arch, shapes in MESH_TRAIN_CHECKS:
-        t0 = time.perf_counter()
-        cfg = mesh_config(configs, arch, LM_CHECK_LAYERS)
-        gc.collect()
-        torch.cuda.empty_cache()
-        lm = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg, trainable=True)
-        batch = mesh_train_batch(np, cfg)
-        g1, l1, _ = loss_and_grads(lm, cfg, tc, batch)
-        norm1 = float(global_norm(g1))
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg, trainable=True)
+    batch = mesh_train_batch(np, cfg)
+    if ctx is not None:
+        batch["ctx_embeds"] = ctx
+    g1, l1, _ = loss_and_grads(lm, cfg, tc, batch)
+    norm1 = float(global_norm(g1))
+    p1 = None
+    if step:
         p1 = {k: p.detach().clone() for k, p in lm.named_parameters()}
         adamw_update(g1, adamw_init(p1), p1, tc.optimizer, decay=decay_mask(p1))
-        for shape in shapes:
-            mesh = make_mesh(shape, ("data", "model"),
-                             (MESH_DEVICE,) * (shape[0] * shape[1]))
-            placed = sharding.place_params(lm, cfg, mesh)
-            before = mesh_train_counts(ssd_k, gather_k)
-            g2, l2, _ = loss_and_grads(placed, cfg, tc, batch)
-            torch.cuda.synchronize()
-            ran = {k: v - before[k] for k, v in
-                   mesh_train_counts(ssd_k, gather_k).items()}
-            loss_rel = abs(float(l2) - float(l1)) / abs(float(l1))
-            if not loss_rel <= MESH_TRAIN_LOSS_RTOL:
-                raise AssertionError(f"mesh-train {arch} {shape}: loss "
-                                     f"{float(l2)} vs {float(l1)}")
-            grad_err, worst_name = 0.0, ""
-            for k, g in g1.items():
-                e = float((g2[k].full() - g).abs().max()) / max(
-                    float(g.abs().max()), 1e-30)
-                if not e <= MESH_TRAIN_GRAD_TOL:
-                    raise AssertionError(f"mesh-train {arch} {shape}: gradient "
-                                         f"{k} differs by {e:.2e} x max|g|")
-                if e >= grad_err:
-                    grad_err, worst_name = e, k
-            del g2
+    for shape in shapes:
+        mesh = make_mesh(shape, ("data", "model"),
+                         (MESH_DEVICE,) * (shape[0] * shape[1]))
+        placed = sharding.place_params(lm, cfg, mesh)
+        before = all_lm_counts(ssd_k, gather_k)
+        g2, l2, _ = loss_and_grads(placed, cfg, tc, batch)
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in
+               all_lm_counts(ssd_k, gather_k).items()}
+        loss_rel = abs(float(l2) - float(l1)) / abs(float(l1))
+        if not loss_rel <= MESH_TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{label} {arch} {shape}: loss "
+                                 f"{float(l2)} vs {float(l1)}")
+        grad_err, worst_name = 0.0, ""
+        for k, g in g1.items():
+            e = float((g2[k].full() - g).abs().max()) / max(
+                float(g.abs().max()), 1e-30)
+            if not e <= MESH_TRAIN_GRAD_TOL:
+                raise AssertionError(f"{label} {arch} {shape}: gradient "
+                                     f"{k} differs by {e:.2e} x max|g|")
+            if e >= grad_err:
+                grad_err, worst_name = e, k
+        norm_rel = abs(float(global_norm(g2)) - norm1) / norm1
+        del g2
+        rec = {"arch": arch, "mesh": list(shape), "layers": cfg.n_layers,
+               "loss_rel": loss_rel, "grad_err": grad_err,
+               "norm_rel": norm_rel, "launches": ran}
+        if step:
             state = init_train_state(None, cfg, tc, params=placed)
             state, m = make_train_step(cfg, tc)(state, batch)
-            norm_rel = abs(float(m["grad_norm"]) - norm1) / norm1
-            if not norm_rel <= MESH_TRAIN_NORM_RTOL:
-                raise AssertionError(f"mesh-train {arch} {shape}: grad norm "
-                                     f"{float(m['grad_norm'])} vs {norm1}")
-            step_diff = max(float((leaf.full() - p1[k]).abs().max())
+            norm_rel = max(norm_rel, abs(float(m["grad_norm"]) - norm1) / norm1)
+            step_diff = max(float((leaf.full() - p1[k]).detach().abs().max())
                             for k, leaf in state.params.items())
             for k, leaf in list(state.params.items()) + [
                     (k, x) for k, x in state.opt["m"].items()]:
                 for grp in sharding.groups(leaf):
                     if not all(torch.equal(leaf.pieces[c], leaf.pieces[grp[0]])
                                for c in grp):
-                        raise AssertionError(f"mesh-train {arch} {shape}: the "
+                        raise AssertionError(f"{label} {arch} {shape}: the "
                                              f"pieces of a block of {k} differ")
             del state
             # AdamW on the mesh's ZeRO-1 blocks, given the unsharded gradients
@@ -5440,33 +5517,37 @@ def mesh_train_check(torch, np, configs, M, sharding, make_mesh, ssd_k,
             grads = {k: sharding.place(g1[k], state.opt["m"][k].spec, mesh)
                      for k in g1}
             adamw_update(grads, state.opt, placed, tc.optimizer)
-            param_err = max(float((leaf.full() - p1[k]).abs().max())
+            param_err = max(float((leaf.full() - p1[k]).detach().abs().max())
                             / float(p1[k].abs().max())
                             for k, leaf in placed.items())
             if not param_err <= MESH_TRAIN_PARAM_TOL:
-                raise AssertionError(f"mesh-train {arch} {shape}: AdamW's "
+                raise AssertionError(f"{label} {arch} {shape}: AdamW's "
                                      f"parameters differ by {param_err:.2e}")
-            del state, grads, placed
-            rec = {"arch": arch, "mesh": list(shape), "layers": cfg.n_layers,
-                   "loss_rel": loss_rel, "grad_err": grad_err,
-                   "norm_rel": norm_rel, "param_err": param_err,
-                   "step_param_diff": step_diff, "launches": ran}
-            out.append(rec)
-            phase("mesh-train", f"check {cfg.name} {cfg.n_layers} layers at "
-                  f"full width on {shape} over {MESH_DEVICE} x "
-                  f"{shape[0] * shape[1]}, one step on ({TRAIN_BATCH}, "
-                  f"{TRAIN_SEQ}) tokens vs the unsharded port on the card: loss "
-                  f"rel {loss_rel:.2e} <= {MESH_TRAIN_LOSS_RTOL}; worst gradient "
-                  f"{worst_name} {grad_err:.2e} x max|g| <= {MESH_TRAIN_GRAD_TOL}; "
-                  f"grad norm rel {norm_rel:.2e} <= {MESH_TRAIN_NORM_RTOL}; AdamW "
-                  f"on the mesh given the unsharded gradients {param_err:.2e} x "
-                  f"max|p| <= {MESH_TRAIN_PARAM_TOL}; a whole step's parameters "
-                  f"max abs diff {step_diff:.3e}; every block's pieces equal; "
-                  f"launches {ran}")
-        del lm, g1, p1
-        phase("mesh-train", f"{cfg.name} checks in {time.perf_counter() - t0:.1f} s")
+            del state, grads
+            rec.update(param_err=param_err, step_param_diff=step_diff)
+        if not norm_rel <= MESH_TRAIN_NORM_RTOL:
+            raise AssertionError(f"{label} {arch} {shape}: grad norm rel "
+                                 f"{norm_rel:.2e}")
+        rec["norm_rel"] = norm_rel
+        del placed
+        out.append(rec)
+        stepped = ("" if not step else
+                   f"AdamW on the mesh given the unsharded gradients "
+                   f"{rec['param_err']:.2e} x max|p| <= {MESH_TRAIN_PARAM_TOL}; "
+                   f"a whole step's parameters max abs diff "
+                   f"{rec['step_param_diff']:.3e}; every block's pieces equal; ")
+        phase(label, f"check {cfg.name} {cfg.n_layers} layers at "
+              f"full width on {shape} over {MESH_DEVICE} x "
+              f"{shape[0] * shape[1]}, one step on ({TRAIN_BATCH}, "
+              f"{TRAIN_SEQ}) tokens{'' if ctx is None else ' with ctx_embeds'}"
+              f" vs the unsharded port on the card: loss rel {loss_rel:.2e} <= "
+              f"{MESH_TRAIN_LOSS_RTOL}; worst gradient {worst_name} "
+              f"{grad_err:.2e} x max|g| <= {MESH_TRAIN_GRAD_TOL}; grad norm rel "
+              f"{norm_rel:.2e} <= {MESH_TRAIN_NORM_RTOL}; {stepped}launches {ran}")
+    del lm, g1, p1
     gc.collect()
     torch.cuda.empty_cache()
+    phase(label, f"{cfg.name} checks in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -5793,6 +5874,226 @@ def run_mesh_train(torch, np, configs, M, serve, ssm_mod, sharding, make_mesh,
     return mt, rec
 
 
+# ---------------------------------------------------------------------------
+# The mesh-families phase: the hybrid, enc-dec and vision families on a
+# (data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+def family_train_cut(cfg):
+    """A family's training check at full width: 2 layers (the enc-dec's 2
+    encoder and 2 decoder layers), vision its first group (``every`` self
+    blocks and their cross block)."""
+    if cfg.encdec is not None:
+        return dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
+                                   encdec=dataclasses.replace(
+                                       cfg.encdec, encoder_layers=LM_CHECK_LAYERS))
+    if cfg.cross_attn is not None:
+        return dataclasses.replace(cfg, n_layers=cfg.cross_attn.every)
+    return dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+
+
+def gb_a_device(torch, np, placed) -> float:
+    """The parameters' GB on the busiest coordinate of the mesh."""
+    mesh = placed.mesh
+    per = np.zeros(mesh.devices.shape)
+    for _, leaf in placed.items():
+        for c in np.ndindex(mesh.devices.shape):
+            t = leaf.pieces[c]
+            per[c] += t.numel() * t.element_size()
+    return float(per.max()) / 1e9
+
+
+def family_unsharded(torch, np, M, serve, cfg) -> dict:
+    """The unsharded model at ``cfg`` from LM_SEED on the card: the
+    greedy continuation of LM_REQUESTS prompts against the zero context
+    (the batcher's margins), a prefill of the first LM_SLOTS with the stub
+    context and a decode step, then, timed, the same prefill and
+    MESH_DECODE_STEPS decode steps reading the context back (logits and
+    tokens kept on the host), and the batcher's tokens
+    and tokens/s; the model is freed before the return."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg)
+    gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    prompts = np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)
+    ctx = family_ctx(np, cfg, LM_SLOTS)
+    zero = greedy_steps(torch, np, M, params, cfg, prompts, LM_NEW_TOKENS)
+    # the timed call after one at its shapes (a new shape's first call
+    # takes seconds more on the card)
+    greedy_steps(torch, np, M, params, cfg, prompts[:LM_SLOTS], 2, ctx=ctx)
+    want = greedy_steps(torch, np, M, params, cfg, prompts[:LM_SLOTS],
+                        MESH_DECODE_STEPS + 1, ctx=ctx, keep_prefill=True)
+    toks, tps = serve_batcher(torch, serve, cfg, params, prompts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    scale = max(1.0, float(want["prefill"].abs().max()),
+                float(np.abs(want["steps"]).max()))
+    tol = MESH_LOGIT_RTOL * scale
+    for rid, t in toks.items():
+        margin_rule(np.asarray([t]), zero["tokens"][rid:rid + 1],
+                    zero["margins"][rid:rid + 1], tol,
+                    label=f"mesh-families {cfg.name} unsharded batcher {rid}")
+    return {"prompts": prompts, "ctx": ctx, "zero": zero, "want": want,
+            "tokens_per_s": tps, "tol": tol, "gb": gb,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def family_mesh_run(torch, np, M, serve, sharding, make_mesh, ssm_mod, ssd_k,
+                    gather_k, cfg, shape, base: dict) -> dict:
+    """``cfg`` born sharded from LM_SEED on ``shape`` naming the card data
+    x model times, driven with the launch counts set to 0 just before and
+    read just after: a prefill of the first LM_SLOTS prompts with the stub
+    context and a decode step, then, timed, the same prefill and
+    MESH_DECODE_STEPS decode steps (logits within the
+    unsharded run's tolerance, greedy tokens equal past the margin), the
+    engine with ``extras={"ctx_embeds": ...}`` and the batcher's
+    LM_REQUESTS requests against the zero context (tokens equal to the
+    unsharded continuation past the margin).  B9 (its shard form, or the
+    whole table where the vocabulary does not divide) must have launched,
+    and B8 for hymba."""
+    n_dev = shape[0] * shape[1]
+    mesh = make_mesh(shape, ("data", "model"), (MESH_DEVICE,) * n_dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gb = gb_a_device(torch, np, placed)
+    prompts, ctx, want, tol = base["prompts"], base["ctx"], base["want"], base["tol"]
+    head = prompts[:LM_SLOTS]
+    for k in ("KERNEL_LAUNCHES", "BWD_LAUNCHES"):
+        setattr(ssd_k, k, 0)
+    for k in ("KERNEL_LAUNCHES", "SHARD_LAUNCHES", "BWD_LAUNCHES",
+              "SHARD_BWD_LAUNCHES"):
+        setattr(gather_k, k, 0)
+    greedy_steps(torch, np, M, placed, cfg, head, 2, mesh=mesh, ctx=ctx)
+    got = greedy_steps(torch, np, M, placed, cfg, head, MESH_DECODE_STEPS + 1,
+                       mesh=mesh, ctx=ctx, keep_prefill=True)
+    pre_err = max_err(got["prefill"], want["prefill"])
+    step_err = float(np.abs(got["steps"] - want["steps"]).max())
+    if not (pre_err <= tol and step_err <= tol):
+        raise AssertionError(
+            f"mesh-families {cfg.name} {shape}: logits differ by {pre_err:.3e} "
+            f"(prefill) / {step_err:.3e} (decode) > {tol:.3e}")
+    checked, close = margin_rule(got["tokens"], want["tokens"], want["margins"],
+                                 tol, label=f"mesh-families {cfg.name} {shape}")
+    gcfg = serve.GenerationConfig(max_new_tokens=MESH_DECODE_STEPS + 1,
+                                  cache_len=LM_PROMPT + LM_NEW_TOKENS)
+    eng = serve.ServeEngine(cfg, placed, gcfg, mesh=mesh).generate(
+        head, extras=None if ctx is None else {"ctx_embeds": ctx})
+    margin_rule(eng, want["tokens"], want["margins"], tol,
+                label=f"mesh-families {cfg.name} {shape} engine")
+    toks, tps = serve_batcher(torch, serve, cfg, placed, prompts, mesh)
+    zero = base["zero"]
+    for rid, t in toks.items():
+        margin_rule(np.asarray([t]), zero["tokens"][rid:rid + 1],
+                    zero["margins"][rid:rid + 1], tol,
+                    label=f"mesh-families {cfg.name} {shape} batcher {rid}")
+    torch.cuda.synchronize()
+    ran = all_lm_counts(ssd_k, gather_k)
+    b9 = ran["embedding_gather"] + ran["embedding_gather_shard"]
+    if b9 == 0 or (cfg.ssm is not None and ran["ssd_fused"] == 0):
+        raise AssertionError(f"mesh-families {cfg.name} {shape}: launches {ran}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    scan = ""
+    if cfg.ssm is not None:
+        hd = ssm_mod.head_split(cfg, shape[1])
+        scan = (f"; B8 on {hd} of {cfg.n_ssm_heads} heads a device" if hd
+                else f"; B8 on all {cfg.n_ssm_heads} heads on the lead")
+    run = {"arch": cfg.name, "layers": cfg.n_layers, "mesh": list(shape),
+           "prefill_ms": got["prefill_ms"], "decode_ms": got["decode_ms"],
+           "tokens_per_s": tps, "gb_a_device": gb, "peak_gb": peak,
+           "init_s": init_s, "prefill_err": pre_err, "decode_err": step_err,
+           "tol": tol, "launches": ran,
+           "unsharded": {"prefill_ms": want["prefill_ms"],
+                         "decode_ms": want["decode_ms"],
+                         "tokens_per_s": base["tokens_per_s"], "gb": base["gb"],
+                         "peak_gb": base["peak_gb"]}}
+    u = run["unsharded"]
+    phase("mesh-families", f"{cfg.name} ({cfg.n_layers} layers) on {shape} "
+          f"(data, model) over {MESH_DEVICE} x {n_dev}, born sharded in "
+          f"{init_s:.2f} s: prefill ({LM_SLOTS}, {LM_PROMPT})"
+          f"{'' if ctx is None else ' with ctx_embeds'} {got['prefill_ms']:.2f} "
+          f"ms, decode {got['decode_ms']:.2f} ms a step of {LM_SLOTS}, batcher "
+          f"{tps:.2f} tokens/s, {gb:.2f} GB of parameters a device (peak "
+          f"{peak:.2f} GB on the card); unsharded {u['prefill_ms']:.2f} / "
+          f"{u['decode_ms']:.2f} ms, {u['tokens_per_s']:.2f} tokens/s, "
+          f"{u['gb']:.2f} GB (peak {u['peak_gb']:.2f}); logits within "
+          f"{pre_err:.3e} / {step_err:.3e} (limit {tol:.3e}); {len(checked)} "
+          f"greedy tokens equal, {len(close)} within the margin; engine and "
+          f"batcher tokens equal past the margin; launches {ran}{scan} | "
+          f"{smi_line()}")
+    del placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def mesh_families_path(torch, np, configs, M, serve, sharding, make_mesh,
+                       ssm_mod, ssd_k, gather_k) -> dict:
+    """Phase 17: each of MESH_FAMILY_ARCHS at full width, unsharded first
+    (its logits and tokens kept on the host, then freed), then born
+    sharded from the same seed on each of MESH_FAMILY_SHAPES
+    (:func:`family_mesh_run`; a depth MESH_FAMILY_DEPTH cuts gets an
+    unsharded run of its own); then the training checks: hymba's 2-layer
+    cut a whole step, the enc-dec's and vision's cuts
+    (:func:`family_train_cut`) their loss and gradients with
+    ``ctx_embeds``, on each mesh against the unsharded step."""
+    out = {"runs": [], "checks": [], "launches": {}}
+    for arch in MESH_FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        full = configs.get_config(arch)
+        depths: dict = {}
+        for shape in MESH_FAMILY_SHAPES:
+            depths.setdefault(MESH_FAMILY_DEPTH.get((arch, shape)), []).append(shape)
+        for layers, shapes in depths.items():
+            cfg = full if layers is None else dataclasses.replace(full,
+                                                                  n_layers=layers)
+            base = family_unsharded(torch, np, M, serve, cfg)
+            phase("mesh-families", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+                  f"{cfg.d_model}, {describe_lm(cfg)}, vocab {cfg.vocab_size}; "
+                  f"unsharded ({base['gb']:.2f} GB): prefill ({LM_SLOTS}, "
+                  f"{LM_PROMPT}) {base['want']['prefill_ms']:.2f} ms, decode "
+                  f"{base['want']['decode_ms']:.2f} ms a step of {LM_SLOTS}, "
+                  f"batcher {base['tokens_per_s']:.2f} tokens/s (phase 13 in "
+                  f"PERF.md section 5: {MESH_FAMILY_PHASE13[arch]})")
+            for shape in shapes:
+                out["runs"].append(family_mesh_run(
+                    torch, np, M, serve, sharding, make_mesh, ssm_mod, ssd_k,
+                    gather_k, cfg, shape, base))
+            del base
+        phase("mesh-families", f"{full.name} done in "
+              f"{time.perf_counter() - t0:.1f} s")
+    for arch in MESH_FAMILY_ARCHS:
+        cfg = family_train_cut(configs.get_config(arch))
+        out["checks"] += mesh_step_check(
+            torch, np, M, sharding, make_mesh, ssd_k, gather_k, cfg,
+            MESH_FAMILY_SHAPES, arch=arch, label="mesh-families",
+            ctx=family_ctx(np, cfg, TRAIN_BATCH), step=cfg.hybrid)
+    for rec in out["runs"] + out["checks"]:
+        for k, n in rec["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+    return out
+
+
+def add_mesh_families(kernels: list[dict], mf: dict) -> None:
+    """Phase 17 on the kernels line: its launches of B8, B9 (whole table
+    and shard form) and their backward kernels under
+    ``launches_by_path["mesh-families"]``."""
+    for name, n in mf["launches"].items():
+        rec = next(r for r in kernels if r["name"] == name)
+        rec.setdefault("launches_by_path", {"earlier phases": rec["launches"]})
+        rec["launches_by_path"]["mesh-families"] = n
+        rec["launches"] += n
+
+
 def main() -> int:
     import torch
 
@@ -6002,8 +6303,16 @@ def main() -> int:
     mt, shard_bwd = run_mesh_train(torch, np, configs, M, serve, ssm_mod,
                                    sharding, make_mesh, ssd_k, gather_k, flush)
     add_mesh_train(kernels, mt, shard_bwd)
-    phase("mesh-train", f"done in {time.perf_counter() - t0:.1f} s; whole run "
-          f"{time.perf_counter() - t_start:.1f} s")
+    del mt
+    phase("mesh-train", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 17. the hybrid, enc-dec and vision families on (data, model) meshes
+    t0 = time.perf_counter()
+    add_mesh_families(kernels, mesh_families_path(
+        torch, np, configs, M, serve, sharding, make_mesh, ssm_mod, ssd_k,
+        gather_k))
+    phase("mesh-families", f"done in {time.perf_counter() - t0:.1f} s; whole "
+          f"run {time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,9 @@ caches' zero context.  mixtral-8x7b ``--full`` does not fit one card: its
 / ``multi`` serves on the reference's production mesh
 (:func:`repro_torch.launch.mesh.make_production_mesh`: (16, 16) or (2, 16,
 16) distinct cards, ``ValueError`` on a machine with fewer), the
-parameters born sharded by the partition rules (the dense, MoE and SSM
-families; the others raise, ROADMAP A10c).  ``scripts/mesh_serve_cards.py``
+parameters born sharded by the partition rules (every arch; the vision
+and enc-dec ones against the zero context, as without a mesh).
+``scripts/mesh_serve_cards.py``
 serves mixtral-8x7b on the cards a machine has.  The batcher's KV caches
 share one length across slots, as the reference's: prompts of one length
 serve correctly.

@@ -20,7 +20,10 @@ CLI does not make (the reference's neither).  ``--mesh single`` /
 (:func:`repro_torch.launch.mesh.make_production_mesh`: (16, 16) or (2, 16,
 16) distinct cards, ``ValueError`` naming the count on a machine with
 fewer), the state born sharded (:func:`repro_torch.train.loop
-.train_loop` with ``mesh=``; the dense, MoE and SSM families).  Prints a
+.train_loop` with ``mesh=``; every family this CLI trains: without
+``ctx_embeds`` not the vision and enc-dec ones, which
+:func:`repro_torch.train.step.loss_and_grads` trains on a mesh given
+them).  Prints a
 ``[train]`` line every 10 steps and a ``[done]`` line; :func:`main`
 returns (final state, history).
 """

@@ -34,12 +34,15 @@ explicit).  Where the spec splits ``wk`` / ``wv`` inside a head (the kv
 heads do not divide over the model axis), each device gathers those
 weights, keeps every kv head in its (replicated) cache piece and attends
 with the kv head of each of its q heads; where the q heads do not divide,
-the layer runs whole on the lead.
+the layer runs whole on the lead.  Cross-attention on a mesh (``ctx=``, a
+copy of the context on each of the replica's devices) splits the same
+way: each device projects its q heads from ``x`` and its kv heads from its
+copy of the context.
 
 Not ported: the reference's opt-in module flags, all off by default there:
 ``ATTN_KV_CHUNK`` (online-softmax key blocks), ``ATTN_BF16_SCORES`` (bf16
 score buffers) and ``SEQ_SHARD_FALLBACK`` (sequence-parallel queries on a
-mesh, ROADMAP's list of the reference's mesh flags left).
+mesh, ROADMAP A10c, the reference's mesh flags).
 
 Parameters live in :class:`Attention`, an ``nn.Module`` whose tensors keep
 the reference's names and layouts (``wq`` is (d, Hq dh), ``wo`` (Hq dh,
@@ -221,6 +224,8 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     s = x.shape[1]
     q, k, v = _project_qkv(p, cfg, x, ctx)
     if ctx is not None:
+        if kv_heads is not None:
+            k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
         out = _sdpa(q, k, v, torch.zeros((1, 1, 1, 1, 1), device=x.device))
         return torch.matmul(out, p.wo.to(x.dtype)), None
     ar = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -253,11 +258,14 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
 
 def attention_tp(p: shrd.PlacedParams, cfg: ModelConfig, x: torch.Tensor,
                  row: shrd.Row, *, cache: list[KVCache] | None = None,
-                 causal: bool = True) -> tuple[torch.Tensor, list | None]:
-    """One self-attention layer over the model devices of a data replica.
+                 causal: bool = True, ctx: list[torch.Tensor] | None = None
+                 ) -> tuple[torch.Tensor, list | None]:
+    """One attention layer over the model devices of a data replica.
     ``p``: the layer's placed parameters; ``x``: (B, S, d) on the replica's
     lead; ``cache``: each model device's piece of the layer's KV cache (heads
-    split where the model axis divides the kv heads, else every kv head).
+    split where the model axis divides the kv heads, else every kv head);
+    ``ctx``: cross-attention over a context (B, T, d), one copy on each of
+    the replica's devices, in model order (no rope, mask or cache).
     Returns (out on the lead, the new cache pieces)."""
     hq, hkv, m_size = cfg.n_heads, cfg.n_kv_heads, row.size
     if hq % m_size:
@@ -266,7 +274,8 @@ def attention_tp(p: shrd.PlacedParams, cfg: ModelConfig, x: torch.Tensor,
         whole = types.SimpleNamespace(**{n: leaf.full(row.lead)
                                          for n, leaf in p.named_leaves()})
         out, new = attention(whole, cfg, x, cache=None if cache is None
-                             else cache[0], causal=causal)
+                             else cache[0], causal=causal,
+                             ctx=None if ctx is None else ctx[0])
         if new is None:
             return out, None
         return out, [new] + [KVCache(*(a.to(dev, copy=True) for a in new))
@@ -289,7 +298,8 @@ def attention_tp(p: shrd.PlacedParams, cfg: ModelConfig, x: torch.Tensor,
             kv_heads = torch.arange(m * c, (m + 1) * c, device=dev) // (hq // hkv)
         out, new = attention(types.SimpleNamespace(**w), local_cfg, x.to(dev),
                              cache=None if cache is None else cache[m],
-                             causal=causal, kv_heads=kv_heads)
+                             causal=causal, kv_heads=kv_heads,
+                             ctx=None if ctx is None else ctx[m])
         parts.append(out)
         new_cache.append(new)
     return shrd.sum_on(parts, row.lead), None if cache is None else new_cache

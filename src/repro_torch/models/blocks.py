@@ -26,16 +26,18 @@ reference: a KV cache's k / v are (L, B, C, Hkv, dh), its pos (L, C) and
 length (L,); an SSM state's leaves (L, B, ...).  A hybrid stack carries
 both.  Any other kind raises ``ValueError``.
 
-On a mesh (:func:`run_blocks_tp`, :func:`block_forward_tp`) the kinds
-``"dense"``, ``"moe"`` and ``"ssm"`` run over the placed layers of each
-data replica: the residual stream and the norms stay on the replica's lead
-device, the attention, MLP, experts and the Mamba2 mixer run over its
-model devices (:func:`~repro_torch.models.attention.attention_tp`,
+On a mesh (:func:`run_blocks_tp`, :func:`block_forward_tp`) every kind
+runs over the placed layers of each data replica: the residual stream and
+the norms stay on the replica's lead device, the attention (a cross
+block's over a copy of the context on each device), MLP, experts and the
+Mamba2 mixer run over its model devices
+(:func:`~repro_torch.models.attention.attention_tp`,
 :func:`~repro_torch.models.layers.swiglu_tp`,
 :func:`~repro_torch.models.moe.moe_forward_tp`,
-:func:`~repro_torch.models.ssm.ssm_forward_tp`), each device keeps its
-own pieces of the KV caches and SSM states, and ``remat`` wraps each block
-(:func:`remat_call_tp`).  The other kinds under a mesh are ROADMAP A10c.
+:func:`~repro_torch.models.ssm.ssm_forward_tp`; a hybrid block's attention
+and mixer side by side on the same normed input, joined on the lead), each
+device keeps its own pieces of the KV caches and SSM states (a hybrid
+layer's both), and ``remat`` wraps each block (:func:`remat_call_tp`).
 """
 from __future__ import annotations
 
@@ -169,19 +171,21 @@ class _Recompute(torch.autograd.Function):
 
 
 def remat_call_tp(fn, remat: str | None, x: torch.Tensor,
-                  p: shrd.PlacedParams):
+                  p: shrd.PlacedParams, ctx: list[torch.Tensor] | None = None):
     """:func:`remat_call` of a placed block's ``fn(x) -> (x, caches,
     aux)``: where grad is enabled and ``remat`` is given, :class:`_Recompute`
-    over ``p``'s pieces, saving the block's input (``"full"``) and also
-    the outputs of its un-batched matrix products (``"dots"``); a block
-    makes no caches under a gradient."""
+    over ``p``'s pieces and the context copies ``fn`` reads (``ctx``, each
+    tensor once), saving the block's input (``"full"``) and also the
+    outputs of its un-batched matrix products (``"dots"``); a block makes
+    no caches under a gradient."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat {remat!r}; the policies are "
                          f"{REMAT_POLICIES}")
     if remat is None or not torch.is_grad_enabled():
         return fn(x)
+    extra = list({id(t): t for t in ctx or ()}.values())
     out, aux = _Recompute.apply(lambda h: fn(h)[::2], remat == "dots", x,
-                                *p.pieces())
+                                *extra, *p.pieces())
     return out, None, aux
 
 
@@ -278,27 +282,39 @@ def block_forward(p: Block, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
 def block_forward_tp(p: shrd.PlacedParams, cfg: ModelConfig, kind: str,
                      x: torch.Tensor, row: shrd.Row, *,
                      caches: list[LayerCaches] | None = None,
-                     causal: bool = True
+                     ctx: list[torch.Tensor] | None = None, causal: bool = True
                      ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
-    """:func:`block_forward` of a placed block of kind ``"dense"``,
-    ``"moe"`` or ``"ssm"`` over a data replica's model devices (``x`` on
-    its lead; ``caches``: each device's pieces of the layer's KV cache or
-    SSM state).  Returns (x, each device's new :class:`LayerCaches`,
+    """:func:`block_forward` of a placed block over a data replica's model
+    devices (``x`` on its lead; ``caches``: each device's pieces of the
+    layer's KV cache and SSM state; ``ctx``: a cross block's context, a
+    copy on each device).  Returns (x, each device's new
+    :class:`LayerCaches`, or None for a cross block or without ``caches``,
     aux_loss)."""
-    if kind not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(f"block kind {kind!r} on a mesh is ROADMAP A10c")
+    _check_kind(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, row.pieces(p["ln1"])[0], cfg.norm_eps)
-    if kind == "ssm":
-        s_out, new = ssm_mod.ssm_forward_tp(
-            p.sub("ssm"), cfg, h, row,
-            None if caches is None else [c.ssm for c in caches])
-        return x + s_out, None if new is None else [
-            LayerCaches(kv=None, ssm=st) for st in new], aux
-    a, new_kv = attn_mod.attention_tp(
-        p.sub("attn"), cfg, h, row,
-        cache=None if caches is None else [c.kv for c in caches], causal=causal)
-    x = x + a
+    kvs = None if caches is None else [c.kv for c in caches]
+    states = None if caches is None else [c.ssm for c in caches]
+    new = None
+    if kind == "cross":
+        a, _ = attn_mod.attention_tp(p.sub("attn"), cfg, h, row, ctx=ctx)
+        x = x + a
+    elif kind == "ssm":
+        s_out, new_ssm = ssm_mod.ssm_forward_tp(p.sub("ssm"), cfg, h, row, states)
+        return x + s_out, None if new_ssm is None else [
+            LayerCaches(kv=None, ssm=st) for st in new_ssm], aux
+    elif kind == "hybrid":
+        a, new_kv = attn_mod.attention_tp(p.sub("attn"), cfg, h, row, cache=kvs)
+        s_out, new_ssm = ssm_mod.ssm_forward_tp(p.sub("ssm"), cfg, h, row, states)
+        x = x + 0.5 * (a + s_out)          # hymba: fused parallel heads
+        if new_kv is not None:
+            new = [LayerCaches(kv=kv, ssm=st) for kv, st in zip(new_kv, new_ssm)]
+    else:
+        a, new_kv = attn_mod.attention_tp(p.sub("attn"), cfg, h, row, cache=kvs,
+                                          causal=causal)
+        x = x + a
+        if new_kv is not None:
+            new = [LayerCaches(kv=kv, ssm=None) for kv in new_kv]
     if "moe" in p:
         h2 = rms_norm(x, row.pieces(p["ln2"])[0], cfg.norm_eps)
         m_out, aux = moe_mod.moe_forward_tp(p.sub("moe"), cfg, h2, row)
@@ -306,19 +322,20 @@ def block_forward_tp(p: shrd.PlacedParams, cfg: ModelConfig, kind: str,
     elif "mlp" in p:
         h2 = rms_norm(x, row.pieces(p["ln2"])[0], cfg.norm_eps)
         x = x + swiglu_tp(h2, p.sub("mlp"), row)
-    return x, None if new_kv is None else [
-        LayerCaches(kv=kv, ssm=None) for kv in new_kv], aux
+    return x, new, aux
 
 
 def run_blocks_tp(p: shrd.PlacedParams, n_layers: int, cfg: ModelConfig,
                   kind: str, x: torch.Tensor, row: shrd.Row, *,
-                  caches: list[LayerCaches] | None = None, causal: bool = True,
+                  caches: list[LayerCaches] | None = None,
+                  ctx: list[torch.Tensor] | None = None, causal: bool = True,
                   remat: str | None = None
                   ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
     """:func:`run_blocks` over the placed stack ``p`` (layers ``0`` ..
-    ``n_layers - 1``) of a data replica, each block under ``remat``
-    (:func:`remat_call_tp`); ``caches``: each model device's layer-stacked
-    cache pieces.  Returns (x, each device's new stacked pieces, aux_sum)."""
+    ``n_layers - 1``) of a data replica, ``ctx`` and ``causal`` to every
+    block, each block under ``remat`` (:func:`remat_call_tp`); ``caches``:
+    each model device's layer-stacked cache pieces.  Returns (x, each
+    device's new stacked pieces, aux_sum)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = []
     for i in range(n_layers):
@@ -330,9 +347,9 @@ def run_blocks_tp(p: shrd.PlacedParams, n_layers: int, cfg: ModelConfig,
 
         def body(h, block=block, layer=layer):
             return block_forward_tp(block, cfg, kind, h, row, caches=layer,
-                                    causal=causal)
+                                    ctx=ctx, causal=causal)
 
-        x, new, aux_l = remat_call_tp(body, remat, x, block)
+        x, new, aux_l = remat_call_tp(body, remat, x, block, ctx)
         aux = aux + aux_l
         layers.append(new)
     if caches is None:

@@ -37,9 +37,9 @@ one copy, the gradient flowing back through the cast.
 
 **On a mesh** (``mesh=``, a :class:`~repro_torch.compat.Mesh` with axes
 ``("pod", "data", "model")`` or a subset, or the ambient
-:func:`~repro_torch.compat.use_mesh` scope) the dense, MoE and SSM
-families run tensor-, expert- and data-parallel, one process driving
-every device (:mod:`repro_torch.models.sharding`).  The parameters are
+:func:`~repro_torch.compat.use_mesh` scope) every family runs tensor-,
+expert- and data-parallel, one process driving every device
+(:mod:`repro_torch.models.sharding`).  The parameters are
 placed by the reference's partition rules (:func:`init_params` with
 ``mesh=`` draws them born sharded;
 :func:`~repro_torch.models.sharding.place_params` places an existing
@@ -54,14 +54,19 @@ shard owns each row; the whole-table B9 on the lead where the vocabulary
 does not divide), the blocks run as :func:`~repro_torch.models.blocks
 .run_blocks_tp` says, and the head's column shards (``lm_head``, or the
 tied ``tok_embed.T``) give logits joined on the lead along the
-vocabulary.  Logits land on the mesh's first device.  The result is the
-model's without a mesh, to rounding.  :func:`forward` records a graph on
-a mesh too, where grad is enabled and the pieces require it
-(:func:`init_params` with ``trainable=True``), each block under
-``remat``; :func:`forward_replicas` gives each data replica's logits on
-its lead, for a loss weighted across the replicas
-(:mod:`repro_torch.train.step`).  The hybrid, vision and enc-dec families
-on a mesh raise ``NotImplementedError`` (ROADMAP A10c).
+vocabulary.  The vision and enc-dec families take each replica's rows of
+``ctx_embeds``: vision projects them by ``ctx_proj``'s column shards
+joined on the lead, the enc-dec runs its encoder bidirectionally through
+the same block forms, its final norm on the lead; each model device then
+attends over its own copy of that context.  A prefill with
+``ctx_embeds`` stores the context in the placed caches, and a step
+without it reads each replica's rows back.  Logits land on the mesh's
+first device.  The result is the model's without a mesh, to rounding.
+:func:`forward` records a graph on a mesh too, where grad is enabled and
+the pieces require it (:func:`init_params` with ``trainable=True``), each
+block under ``remat``; :func:`forward_replicas` gives each data replica's
+logits on its lead, for a loss weighted across the replicas
+(:mod:`repro_torch.train.step`).
 """
 from __future__ import annotations
 
@@ -82,9 +87,9 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_init, he_init, param, rms_norm
 
-__all__ = ["LM", "check_mesh_family", "decode_step", "decoder_layer",
-           "forward", "forward_replicas", "init_caches", "init_params",
-           "make_generator", "params_mesh", "prefill", "resolve_mesh"]
+__all__ = ["LM", "cache_batch_axis", "decode_step", "decoder_layer", "forward",
+           "forward_replicas", "init_caches", "init_params", "make_generator",
+           "params_mesh", "prefill", "resolve_mesh"]
 
 Caches = dict
 
@@ -181,7 +186,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     mesh = resolve_mesh(mesh)
     if mesh is None:
         return _init_params(gen, cfg).requires_grad_(trainable)
-    check_mesh_family(cfg)
     leaves: dict[str, shrd.Sharded] = {}
 
     def put(named) -> None:
@@ -190,19 +194,41 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
         for name, t in named.items():
             leaves[name] = shrd.place(t, specs[name], mesh)
 
+    def put_block(prefix: str, block_cfg: ModelConfig, kind: str) -> None:
+        # the block is referenced only inside put(), so it is freed before
+        # the next one is drawn
+        put((f"{prefix}.{n}", t) for n, t in blk.init_block_params(
+            gen, block_cfg, kind).named_parameters())
+
     d = cfg.d_model
     put([("tok_embed", embed_init(gen, (cfg.vocab_size, d)))])
     if not cfg.tie_embeddings:
         put([("lm_head", he_init(gen, (d, cfg.vocab_size)))])
     put([("final_norm", torch.ones((d,), device=gen.device))])
-    # each block is referenced only inside its put(), so it is freed before
-    # the next one is drawn
-    if cfg.dense_first_layer_ff:
-        put((f"dense0.{n}", t) for n, t in blk.init_block_params(
-            gen, _dense0_cfg(cfg), "dense").named_parameters())
-    for i in range(_n_stacked(cfg)):
-        put((f"blocks.{i}.{n}", t) for n, t in blk.init_block_params(
-            gen, cfg, _kind(cfg)).named_parameters())
+    # the draws in _init_params' order
+    if cfg.encdec is not None:
+        for i in range(cfg.encdec.encoder_layers):
+            put_block(f"encoder.{i}", cfg, "dense")
+        for i in range(cfg.n_layers):
+            put_block(f"decoder.{i}.self", dataclasses.replace(cfg, d_ff=0),
+                      "dense")
+            put_block(f"decoder.{i}.cross", cfg, "cross")
+        put([("enc_norm", torch.ones((d,), device=gen.device))])
+    elif _vision(cfg):
+        every = cfg.cross_attn.every
+        for g in range(cfg.n_layers // every):
+            for j in range(every):
+                put_block(f"self_blocks.{g}.{j}", cfg, _kind(cfg))
+        for g in range(cfg.n_layers // every):
+            put_block(f"cross_blocks.{g}", cfg, "cross")
+        d_ctx = cfg.cross_attn.d_ctx or d
+        if d_ctx != d:
+            put([("ctx_proj", he_init(gen, (d_ctx, d)))])
+    else:
+        if cfg.dense_first_layer_ff:
+            put_block("dense0", _dense0_cfg(cfg), "dense")
+        for i in range(_n_stacked(cfg)):
+            put_block(f"blocks.{i}", cfg, _kind(cfg))
     return shrd.PlacedParams(mesh, leaves).requires_grad_(trainable)
 
 
@@ -407,24 +433,15 @@ def resolve_mesh(mesh):
     return ctx.mesh
 
 
-def check_mesh_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm") or cfg.hybrid:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) on a mesh is ROADMAP A10c: "
-            "the dense, MoE and SSM families run on one")
-
-
 def params_mesh(p, cfg: ModelConfig, mesh=None):
     """The mesh a call with parameters ``p`` runs on: the explicit or
     ambient mesh, else the one placed parameters lie on; None for an
-    unplaced model without a mesh.  On a mesh the family must be dense,
-    MoE or SSM (else ``NotImplementedError``, ROADMAP A10c) and the parameters
+    unplaced model without a mesh.  On a mesh the parameters must be
     placed on that mesh (else ``ValueError``)."""
     mesh = resolve_mesh(mesh)
     placed = isinstance(p, shrd.PlacedParams)
     if mesh is None and not placed:
         return None
-    check_mesh_family(cfg)
     if not placed:
         raise ValueError("a mesh needs parameters placed on it: "
                          "init_params(gen, cfg, mesh=mesh) or "
@@ -476,9 +493,33 @@ def _logits_tp(p: shrd.PlacedParams, cfg: ModelConfig, x: torch.Tensor,
                         for dev, w in zip(row.devices, heads)], row.lead, dim=-1)
 
 
-#: the cache fields with a batch axis (axis 1, after the layer axis): a KV
-#: cache's k / v, an SSM state's state and conv ring
-_BATCH_FIELDS = ("k", "v", "state", "conv")
+def cache_batch_axis(cache, field: str) -> int | None:
+    """The batch axis of a cache field: a KV cache's k / v after its lead
+    axes (``pos``'s but the last: the layer axis, or vision's groups and
+    layers), an SSM state's state and conv ring after the layer axis; None
+    for ``pos`` and ``length``, which every batch row shares."""
+    if field in ("k", "v"):
+        return len(cache.pos.shape) - 1
+    if field in ("state", "conv"):
+        return 1
+    return None
+
+
+def _piece(leaf: shrd.Sharded, coord, axis: int | None,
+           part: slice | None) -> torch.Tensor:
+    """The piece of ``leaf`` the device at ``coord`` runs with: its batch
+    rows ``part`` where the piece holds every row (a leaf replicated over
+    data, ``axis`` its batch axis); a shared field (``axis`` None) whole,
+    gathered where the cache rule splits it (vision's (G, every, C) ring
+    positions take the context's rule where C is d_model)."""
+    t = leaf.pieces[coord]
+    if axis is None:
+        if tuple(t.shape) != leaf.shape:
+            t = leaf.full(leaf.mesh.devices[coord])
+        return t
+    if part is not None and leaf.spec[axis] is None:
+        t = t[(slice(None),) * axis + (part,)]
+    return t
 
 
 def _row_caches(stack: blk.LayerCaches, row: shrd.Row,
@@ -489,57 +530,189 @@ def _row_caches(stack: blk.LayerCaches, row: shrd.Row,
     def one(cache, coord):
         if cache is None:
             return None
-        leaves = []
-        for field, leaf in zip(cache._fields, cache):
-            t = leaf.pieces[coord]
-            if part is not None and field in _BATCH_FIELDS and leaf.spec[1] is None:
-                t = t[:, part]
-            leaves.append(t)
-        return type(cache)(*leaves)
+        return type(cache)(*(_piece(leaf, coord, cache_batch_axis(cache, field),
+                                    part)
+                             for field, leaf in zip(cache._fields, cache)))
     return [blk.LayerCaches(kv=one(stack.kv, c), ssm=one(stack.ssm, c))
             for c in row.coords]
 
 
-def _placed_cache(cache, ran: dict):
-    """The new placed cache (a KVCache or an SSMState of Sharded leaves).
-    ``ran`` maps the replicas that ran, in order, to their new pieces (one
-    a model device).  A batch leaf replicated over data while several
-    replicas ran is their rows joined (an all-gather); a replica that did
-    not run copies the pieces of the one that did, device by device."""
+def _placed_leaf(leaf: shrd.Sharded, ran: dict, axis: int | None) -> shrd.Sharded:
+    """The new placed value of a cache leaf.  ``ran`` maps the replicas
+    that ran, in order, to their new pieces (one a model device); ``axis``
+    is the leaf's batch axis (None: a field every row shares).  A batch
+    leaf replicated over data while several replicas ran is their rows
+    joined (an all-gather); a replica that did not run copies the pieces
+    of the one that did, device by device; a shared field the rule splits
+    is cut from the whole value each device ran with."""
     src = next(iter(ran.values()))
-    out = []
-    for j, (field, leaf) in enumerate(zip(cache._fields, cache)):
-        gather = len(ran) > 1 and field in _BATCH_FIELDS and leaf.spec[1] is None
-        pieces = np.empty(leaf.pieces.shape, dtype=object)
-        for row in shrd.rows(leaf.mesh):
-            for m, (c, dev) in enumerate(zip(row.coords, row.devices)):
-                if gather:
-                    pieces[c] = torch.cat([got[m][j].to(dev)
-                                           for got in ran.values()], dim=1)
-                elif row.index in ran:
-                    pieces[c] = ran[row.index][m][j]
-                else:
-                    pieces[c] = src[m][j].to(dev, copy=True)
-        out.append(shrd.Sharded(leaf.mesh, leaf.spec, leaf.shape, pieces))
-    return type(cache)(*out)
+    gather = len(ran) > 1 and axis is not None and leaf.spec[axis] is None
+    pieces = np.empty(leaf.pieces.shape, dtype=object)
+    for row in shrd.rows(leaf.mesh):
+        got = ran.get(row.index)
+        for m, (c, dev) in enumerate(zip(row.coords, row.devices)):
+            if gather:
+                pieces[c] = torch.cat([g[m].to(dev) for g in ran.values()],
+                                      dim=axis)
+            elif axis is None and tuple(leaf.pieces[c].shape) != leaf.shape:
+                pieces[c] = (src if got is None else got)[m][
+                    leaf.region(c)].to(dev, copy=True)
+            elif got is not None:
+                pieces[c] = got[m]
+            else:
+                pieces[c] = src[m].to(dev, copy=True)
+    return shrd.Sharded(leaf.mesh, leaf.spec, leaf.shape, pieces)
 
 
 def _placed_stack(stack: blk.LayerCaches, ran: dict) -> blk.LayerCaches:
-    """:func:`_placed_cache` of each field of a layer stack; ``ran`` maps
+    """:func:`_placed_leaf` of each leaf of a layer stack; ``ran`` maps
     the replicas that ran to each device's new :class:`LayerCaches`."""
-    return blk.LayerCaches(*(
-        None if cache is None else _placed_cache(
-            cache, {r: [getattr(c, field) for c in got] for r, got in ran.items()})
-        for field, cache in zip(blk.LayerCaches._fields, stack)))
+    def placed(name, cache):
+        if cache is None:
+            return None
+        return type(cache)(*(
+            _placed_leaf(leaf, {r: [getattr(getattr(c, name), field) for c in got]
+                                for r, got in ran.items()},
+                         cache_batch_axis(cache, field))
+            for field, leaf in zip(cache._fields, cache)))
+    return blk.LayerCaches(*(placed(name, cache) for name, cache
+                             in zip(blk.LayerCaches._fields, stack)))
 
 
-def _run_replica(p: shrd.PlacedParams, cfg: ModelConfig, tokens,
+def _stored_context(caches: Caches | None, name: str, row: shrd.Row,
+                    part: slice | None, dtype) -> torch.Tensor:
+    """A replica's rows of the context a prefill stored in the placed
+    caches (``"ctx"`` / ``"memory"``), on its lead: a step without
+    ``ctx_embeds``."""
+    if caches is None:
+        raise ValueError(f"a forward without caches needs batch['ctx_embeds'] "
+                         f"(no {name!r} to read)")
+    return _piece(caches[name], row.coords[0], 0, part).to(dtype)
+
+
+def _project_ctx_tp(p: shrd.PlacedParams, ctx: torch.Tensor,
+                    row: shrd.Row) -> torch.Tensor:
+    """The vision context projected to d_model on the lead: ``ctx_proj``'s
+    column shards joined there (the reference's ``_project_ctx``); the
+    context as it is without a ``ctx_proj``."""
+    if "ctx_proj" not in p:
+        return ctx
+    leaf = p["ctx_proj"]
+    ws = row.pieces(leaf)
+    if leaf.tp_dim() is None:
+        return torch.matmul(ctx, ws[0].to(ctx.dtype))
+    return shrd.cat_on([torch.matmul(ctx.to(dev), w.to(ctx.dtype))
+                        for dev, w in zip(row.devices, ws)], row.lead, dim=-1)
+
+
+def _encode_tp(p: shrd.PlacedParams, cfg: ModelConfig, frames: torch.Tensor,
+               row: shrd.Row, remat: str | None) -> torch.Tensor:
+    """The bidirectional encoder over a replica's stub frames (enc-dec),
+    its final norm on the lead."""
+    h, _, _ = blk.run_blocks_tp(p.sub("encoder"), cfg.encdec.encoder_layers,
+                                cfg, "dense", frames, row, causal=False,
+                                remat=remat)
+    return rms_norm(h, row.pieces(p["enc_norm"])[0], cfg.norm_eps)
+
+
+def _stack_kv(per_layer: list, row: shrd.Row) -> list[blk.LayerCaches]:
+    """Each device's per-layer (or per-group) KV pieces stacked on a new
+    leading axis."""
+    return [blk.LayerCaches(kv=KVCache(*(torch.stack(a) for a in zip(
+        *(layer[m].kv for layer in per_layer)))), ssm=None)
+        for m in range(row.size)]
+
+
+def _decoder_encdec_tp(p: shrd.PlacedParams, cfg: ModelConfig,
+                       x: torch.Tensor, memory: list[torch.Tensor],
+                       caches: list | None, row: shrd.Row, remat: str | None):
+    """The enc-dec decoder layer by layer (each under ``remat``): the self
+    block (no MLP) with each device's KV piece, then the cross block over
+    ``memory`` (a copy on each device) with the MLP."""
+    layers = []
+    for i in range(cfg.n_layers):
+        layer = p.sub(f"decoder.{i}")
+        kv = None if caches is None else [
+            blk.LayerCaches(kv=blk.layer_of(c.kv, i), ssm=None) for c in caches]
+
+        def body(h, layer=layer, kv=kv):
+            h, new, aux = blk.block_forward_tp(layer.sub("self"), cfg, "dense",
+                                               h, row, caches=kv)
+            h, _, _ = blk.block_forward_tp(layer.sub("cross"), cfg, "cross",
+                                           h, row, ctx=memory)
+            return h, new, aux
+
+        x, new, _ = blk.remat_call_tp(body, remat, x, layer, memory)
+        layers.append(new)
+    return x, None if caches is None else _stack_kv(layers, row)
+
+
+def _vision_stack_tp(p: shrd.PlacedParams, cfg: ModelConfig, x: torch.Tensor,
+                     ctx: list[torch.Tensor], caches: list | None,
+                     row: shrd.Row, remat: str | None):
+    """Group by group: ``every`` self blocks through
+    :func:`~repro_torch.models.blocks.run_blocks_tp` (each device's KV
+    pieces of the group), then the group's cross block over ``ctx`` (a
+    copy on each device), each block under ``remat``.  The new KV pieces
+    are (G, every, ...), as the unsharded stack's."""
+    every = cfg.cross_attn.every
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    groups = []
+    for g in range(cfg.n_layers // every):
+        group = None if caches is None else [
+            blk.LayerCaches(kv=blk.layer_of(c.kv, g), ssm=None) for c in caches]
+        x, new, aux_g = blk.run_blocks_tp(p.sub(f"self_blocks.{g}"), every, cfg,
+                                          _kind(cfg), x, row, caches=group,
+                                          remat=remat)
+        cross = p.sub(f"cross_blocks.{g}")
+
+        def body(h, cross=cross):
+            return blk.block_forward_tp(cross, cfg, "cross", h, row, ctx=ctx)
+
+        x, _, _ = blk.remat_call_tp(body, remat, x, cross, ctx)
+        aux = aux + aux_g
+        groups.append(new)
+    return x, None if caches is None else _stack_kv(groups, row), aux
+
+
+def _run_replica(p: shrd.PlacedParams, cfg: ModelConfig, tokens, ctx_embeds,
                  row: shrd.Row, part: slice | None, caches: Caches | None,
                  dtype, remat: str | None):
-    """One data replica's run: (logits on its lead, aux, each device's new
-    ``dense0`` caches, each device's new layer caches)."""
+    """One data replica's run (``tokens`` / ``ctx_embeds``: its rows):
+    (logits on its lead, aux, the new cache entries it made by name, each
+    a list of one device's pieces a model device).  A cache entry it did
+    not change (a context read back) is left out."""
     x = _embed_tp(p, cfg, tokens, row, dtype)
-    new0 = None
+    aux = torch.zeros((), dtype=torch.float32, device=row.lead)
+    new = {}
+    ctx = None
+    if ctx_embeds is not None:
+        if not isinstance(ctx_embeds, torch.Tensor):
+            ctx_embeds = torch.from_numpy(np.asarray(ctx_embeds))
+        ctx = ctx_embeds.to(device=row.lead, dtype=dtype)
+    layers = None
+    if caches is not None:
+        layers = _row_caches(caches["layers"], row, part)
+    if cfg.encdec is not None or _vision(cfg):
+        name = "memory" if cfg.encdec is not None else "ctx"
+        if ctx is None:
+            ctx = _stored_context(caches, name, row, part, dtype)
+        else:
+            ctx = (_encode_tp(p, cfg, ctx, row, remat) if cfg.encdec is not None
+                   else _project_ctx_tp(p, ctx, row))
+            if caches is not None:      # a copy a device, in the cache's dtype
+                new[name] = [ctx.to(dev, caches[name].dtype, copy=True)
+                             for dev in row.devices]
+        copies = [ctx.to(dev) for dev in row.devices]
+        if cfg.encdec is not None:
+            x, new_layers = _decoder_encdec_tp(p, cfg, x, copies, layers, row,
+                                               remat)
+        else:
+            x, new_layers, aux = _vision_stack_tp(p, cfg, x, copies, layers,
+                                                  row, remat)
+        if caches is not None:
+            new["layers"] = new_layers
+        return _logits_tp(p, cfg, x, row), aux, new
     if "dense0" in p:
         c0 = None if caches is None else [
             blk.LayerCaches(kv=blk.layer_of(c.kv, 0), ssm=None)
@@ -551,80 +724,87 @@ def _run_replica(p: shrd.PlacedParams, cfg: ModelConfig, tokens,
 
         x, new0, _ = blk.remat_call_tp(dense0, remat, x, p.sub("dense0"))
         if new0 is not None:
-            new0 = [blk.LayerCaches(kv=KVCache(*(a[None] for a in c.kv)), ssm=None)
-                    for c in new0]
-    layers = None if caches is None else _row_caches(caches["layers"], row, part)
-    x, new, aux = blk.run_blocks_tp(p.sub("blocks"), _n_stacked(cfg), cfg,
-                                    _kind(cfg), x, row, caches=layers,
-                                    remat=remat)
-    return _logits_tp(p, cfg, x, row), aux, new0, new
+            new["dense0"] = [blk.LayerCaches(kv=KVCache(*(a[None] for a in c.kv)),
+                                             ssm=None) for c in new0]
+    x, new_layers, aux = blk.run_blocks_tp(p.sub("blocks"), _n_stacked(cfg), cfg,
+                                           _kind(cfg), x, row, caches=layers,
+                                           remat=remat)
+    if caches is not None:
+        new["layers"] = new_layers
+    return _logits_tp(p, cfg, x, row), aux, new
 
 
 def _run_mesh(p: shrd.PlacedParams, cfg: ModelConfig, batch: dict,
               caches: Caches | None, dtype, replica: int,
               remat: str | None = None
               ) -> tuple[torch.Tensor, Caches | None, torch.Tensor]:
-    if set(batch) - {"tokens"}:
-        raise ValueError(f"the mesh path takes tokens only, got {sorted(batch)}")
-    tokens = batch["tokens"]
-    logits, auxes, ran0, ran = [], [], {}, {}
+    if set(batch) - {"tokens", "ctx_embeds"}:
+        raise ValueError(f"the mesh path takes tokens and ctx_embeds, got "
+                         f"{sorted(batch)}")
+    tokens, ctx = batch["tokens"], batch.get("ctx_embeds")
+    logits, auxes, ran = [], [], {}
     for row, part in shrd.replica_plan(p.mesh, tokens.shape[0], replica):
-        out, aux, new0, new = _run_replica(
-            p, cfg, tokens if part is None else tokens[part], row, part, caches,
-            dtype, remat)
-        if caches is not None:
-            ran[row.index] = new
-            if new0 is not None:
-                ran0[row.index] = new0
+        out, aux, new = _run_replica(
+            p, cfg, tokens if part is None else tokens[part],
+            ctx if part is None or ctx is None else ctx[part], row, part,
+            caches, dtype, remat)
+        for name, pieces in new.items():
+            ran.setdefault(name, {})[row.index] = pieces
         logits.append(out)
         auxes.append(aux)
     out = shrd.cat_on(logits, p.device, dim=0)
     aux = shrd.sum_on(auxes, p.device) / len(auxes)
     if caches is None:
         return out, None, aux
-    new_caches = {"layers": _placed_stack(caches["layers"], ran)}
-    if ran0:
-        new_caches["dense0"] = _placed_stack(caches["dense0"], ran0)
+    new_caches = dict(caches)
+    for name, got in ran.items():
+        cur = caches[name]
+        new_caches[name] = (_placed_leaf(cur, got, 0)
+                            if isinstance(cur, shrd.Sharded)
+                            else _placed_stack(cur, got))
     return out, new_caches, aux
 
 
 def forward_replicas(p: shrd.PlacedParams, cfg: ModelConfig, shares, *,
                      dtype=torch.float32, remat: str | None = None, mesh=None
                      ) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """The full-sequence logits and aux loss of each data replica's tokens:
+    """The full-sequence logits and aux loss of each data replica's batch:
     ``shares`` is a list of (:class:`~repro_torch.models.sharding.Row`,
-    tokens) (:func:`~repro_torch.models.sharding.place_batch`); the
+    its batch: ``tokens`` and, for the vision and enc-dec families,
+    ``ctx_embeds``; :func:`~repro_torch.models.sharding.place_batch`); the
     logits land on each replica's lead.  A graph is recorded as by
     :func:`forward`."""
     params_mesh(p, cfg, mesh)
     if not isinstance(p, shrd.PlacedParams):
         raise ValueError("forward_replicas takes parameters placed on a mesh")
-    return [_run_replica(p, cfg, tokens, row, None, None, dtype, remat)[:2]
-            for row, tokens in shares]
+    return [_run_replica(p, cfg, b["tokens"], b.get("ctx_embeds"), row, None,
+                         None, dtype, remat)[:2]
+            for row, b in shares]
 
 
-def _cache_layout(cfg: ModelConfig, kind: str, n_layers: int, batch: int,
-                  max_len: int, dtype) -> blk.LayerCaches:
+def _cache_layout(cfg: ModelConfig, kind: str, lead: tuple[int, ...],
+                  batch: int, max_len: int, dtype) -> blk.LayerCaches:
     """The shapes of a stack's caches (meta tensors: nothing allocated),
-    :func:`~repro_torch.models.blocks.init_layer_caches`' layout: a KV
-    cache for the attention kinds, an SSM state for ``"ssm"``."""
+    :func:`init_caches`' layout behind the ``lead`` axes (the layers, or
+    vision's groups and layers): a KV cache for the attention kinds, an
+    SSM state for ``"ssm"``, both for ``"hybrid"``."""
     def meta(shape, dt):
         return torch.empty(shape, dtype=dt, device="meta")
 
     kv = ssm = None
     if kind != "ssm":
         cap = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-        k = (n_layers, batch, cap, cfg.n_kv_heads, cfg.d_head)
+        k = lead + (batch, cap, cfg.n_kv_heads, cfg.d_head)
         kv = KVCache(k=meta(k, dtype), v=meta(k, dtype),
-                     pos=meta((n_layers, cap), torch.int32),
-                     length=meta((n_layers,), torch.int32))
-    else:
+                     pos=meta(lead + (cap,), torch.int32),
+                     length=meta(lead, torch.int32))
+    if kind in ("ssm", "hybrid"):
         s = cfg.ssm
         ssm = blk.SSMState(
-            state=meta((n_layers, batch, cfg.n_ssm_heads, s.head_dim, s.d_state),
+            state=meta(lead + (batch, cfg.n_ssm_heads, s.head_dim, s.d_state),
                        torch.float32),
-            conv=meta((n_layers, batch, s.d_conv - 1,
-                       cfg.d_inner + 2 * s.n_groups * s.d_state), dtype))
+            conv=meta(lead + (batch, s.d_conv - 1,
+                              cfg.d_inner + 2 * s.n_groups * s.d_state), dtype))
     return blk.LayerCaches(kv=kv, ssm=ssm)
 
 
@@ -632,22 +812,41 @@ def _init_caches_mesh(cfg: ModelConfig, batch: int, max_len: int, dtype,
                       mesh) -> Caches:
     """Zero caches placed on ``mesh`` by ``cache_shardings``, each piece
     made on its device at its own shape (``pos`` -1, the rest 0)."""
-    check_mesh_family(cfg)
-    layout = {"layers": _cache_layout(cfg, _kind(cfg), _n_stacked(cfg), batch,
-                                      max_len, dtype)}
-    if cfg.dense_first_layer_ff:
-        layout["dense0"] = _cache_layout(cfg, "dense", 1, batch, max_len, dtype)
+    if cfg.encdec is not None:
+        layout = {"layers": _cache_layout(cfg, "dense", (cfg.n_layers,), batch,
+                                          max_len, dtype),
+                  "memory": torch.empty((batch, cfg.encdec.n_ctx_tokens,
+                                         cfg.d_model), dtype=dtype, device="meta")}
+    elif _vision(cfg):
+        every = cfg.cross_attn.every
+        layout = {"layers": _cache_layout(cfg, "dense",
+                                          (cfg.n_layers // every, every), batch,
+                                          max_len, dtype),
+                  "ctx": torch.empty((batch, cfg.cross_attn.n_ctx_tokens,
+                                      cfg.d_model), dtype=dtype, device="meta")}
+    else:
+        layout = {"layers": _cache_layout(cfg, _kind(cfg), (_n_stacked(cfg),),
+                                          batch, max_len, dtype)}
+        if cfg.dense_first_layer_ff:
+            layout["dense0"] = _cache_layout(cfg, "dense", (1,), batch, max_len,
+                                             dtype)
     specs = S.cache_shardings(mesh, cfg, layout, batch)
 
-    def placed(cache, spec):
-        if cache is None:
-            return None
-        return type(cache)(*(shrd.zeros(leaf.shape, sp, mesh, leaf.dtype,
-                                        fill=-1 if field == "pos" else 0)
-                             for field, leaf, sp in zip(cache._fields, cache, spec)))
+    def placed(leaf, spec, field=None):
+        return shrd.zeros(leaf.shape, spec, mesh, leaf.dtype,
+                          fill=-1 if field == "pos" else 0)
 
-    return {name: blk.LayerCaches(*(placed(c, sp) for c, sp in zip(stack, specs[name])))
-            for name, stack in layout.items()}
+    out = {}
+    for name, stack in layout.items():
+        if isinstance(stack, torch.Tensor):
+            out[name] = placed(stack, specs[name])
+            continue
+        out[name] = blk.LayerCaches(*(
+            None if cache is None else type(cache)(*(
+                placed(leaf, sp, field)
+                for field, leaf, sp in zip(cache._fields, cache, spec)))
+            for cache, spec in zip(stack, specs[name])))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -676,8 +875,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     dense first layer, ``"dense0"`` (a one-layer stack); vision: its KV
     leaves (G, every, B, C, Hkv, dh), pos (G, every, C), length (G, every)
     and ``"ctx"`` (B, n_ctx_tokens, d); enc-dec: the decoder's
-    ``"layers"`` and ``"memory"`` (B, n_ctx_tokens, d).  With ``mesh``
-    (dense and MoE families) the same layout with every leaf placed by
+    ``"layers"`` and ``"memory"`` (B, n_ctx_tokens, d).  With ``mesh`` the
+    same layout with every leaf placed by
     :func:`repro_torch.launch.specs.cache_shardings`."""
     mesh = resolve_mesh(mesh)
     if mesh is not None:

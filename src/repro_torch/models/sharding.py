@@ -624,10 +624,11 @@ def replica_plan(mesh: Mesh, batch: int,
 
 
 def place_batch(batch: dict, mesh: Mesh) -> list[tuple[Row, dict]]:
-    """A train batch (``tokens``, ``labels``: numpy or tensors) split over
-    the data replicas by :func:`replica_plan`: each replica's rows, the
-    labels on its lead device, the tokens as given (host ids are checked
-    against the vocabulary by the embedding before their upload)."""
+    """A train batch (``tokens``, ``labels`` and any ``ctx_embeds``: numpy
+    or tensors) split over the data replicas by :func:`replica_plan`: each
+    replica's rows, the labels on its lead device, the tokens as given
+    (host ids are checked against the vocabulary by the embedding before
+    their upload), the context uploaded by the model's forward."""
     out = []
     for row, part in replica_plan(mesh, batch["tokens"].shape[0]):
         share = {k: v if part is None else v[part] for k, v in batch.items()}

@@ -26,9 +26,9 @@ live slots' keys, the batcher refuses: it keeps the shared length on the
 host and raises :class:`ValueError` at an admission that would change it
 while another slot is still decoding.
 
-**On a mesh** (``mesh=``, the parameters placed on it) the shared caches
-are placed by :func:`repro_torch.launch.specs.cache_shardings`: the slots
-split over the data replicas where their count divides them.  An
+**On a mesh** (``mesh=``, the parameters placed on it; every family) the
+shared caches are placed by :func:`repro_torch.launch.specs.cache_shardings`:
+the slots split over the data replicas where their count divides them.  An
 admission's b = 1 prefill runs on the one data replica that owns the slot
 (``replica=`` of :func:`repro_torch.models.model.prefill`), and
 :func:`_write_slot` writes each piece of its caches into the shared piece
@@ -92,28 +92,44 @@ def _write_slot(shared: M.Caches, single: M.Caches, slot: int) -> None:
 
 
 def _write_slot_placed(shared: M.Caches, single: M.Caches, slot: int) -> None:
-    """:func:`_write_slot` for caches placed on a mesh (the KV caches of
-    the dense and MoE families, the SSM states of the SSM family).  Every
-    device's b = 1 piece goes into its shared piece on the same device:
-    where the shared k / v (state / conv ring) split the batch over the
-    data replicas, into the replica that owns ``slot`` at its local row;
-    where they replicate it, into every replica.  ``pos`` and ``length``
-    are copied to every piece."""
+    """:func:`_write_slot` for caches placed on a mesh.  Every device's
+    b = 1 piece goes into its shared piece on the same device: a batch leaf
+    (a KV cache's k / v on axis ``pos.dim() - 1``, an SSM state's state /
+    conv ring on axis 1, the vision / enc-dec context on axis 0) where it
+    splits the batch over the data replicas, into the replica that owns
+    ``slot`` at its local row; where it replicates the batch, into every
+    replica.  ``pos`` and ``length`` are copied to every piece (cut from
+    the whole where the two specs differ)."""
     for name, dst in shared.items():
         src = single[name]
+        if isinstance(dst, shrd.Sharded):
+            _write_leaf(dst, src, slot, 0)
+            continue
         for cache, one in ((dst.kv, src.kv), (dst.ssm, src.ssm)):
             if cache is None:
                 continue
-            lead = cache[0]
-            for coord in np.ndindex(lead.pieces.shape):
-                idx, n = lead.block(coord, 1)
-                local = lead.shape[1] // n
-                if idx * local <= slot < (idx + 1) * local:
-                    for d, s in zip(cache[:2], one[:2]):
-                        d.pieces[coord][:, slot - idx * local].copy_(
-                            s.pieces[coord][:, 0])
-                for d, s in zip(cache[2:], one[2:]):
-                    d.pieces[coord].copy_(s.pieces[coord])
+            for field, d, s in zip(cache._fields, cache, one):
+                _write_leaf(d, s, slot, M.cache_batch_axis(cache, field))
+
+
+def _write_leaf(dst: shrd.Sharded, src: shrd.Sharded, slot: int,
+                axis: int | None) -> None:
+    """Row 0 of the b = 1 leaf ``src`` into row ``slot`` of ``dst`` along
+    its batch ``axis``, piece by piece; a shared field (``axis`` None)
+    copied whole."""
+    for coord in np.ndindex(dst.pieces.shape):
+        piece = dst.pieces[coord]
+        if axis is None:
+            if src.spec == dst.spec:
+                piece.copy_(src.pieces[coord])
+            else:
+                piece.copy_(src.full(piece.device)[dst.region(coord)])
+            continue
+        idx, n = dst.block(coord, axis)
+        local = dst.shape[axis] // n
+        if idx * local <= slot < (idx + 1) * local:
+            piece.select(axis, slot - idx * local).copy_(
+                src.pieces[coord].select(axis, 0))
 
 
 class Batcher(SlotLoop[Request]):

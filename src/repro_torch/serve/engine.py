@@ -24,8 +24,9 @@ histogram, next to the service's own ``moe_dispatch`` / ``kernel`` request
 classes.  :func:`retrieve_context` is the graph-retrieval scenario on the
 same loop.
 
-**On a mesh** (``mesh=``, as in the reference) the engine serves the
-dense and MoE families tensor-, expert- and data-parallel: the parameters
+**On a mesh** (``mesh=``, as in the reference) the engine serves every
+family tensor-, expert- and data-parallel (``extras={"ctx_embeds": ...}``
+split over the data replicas with the prompts): the parameters
 must be placed on the mesh (:func:`repro_torch.models.model.init_params`
 with ``mesh=``, or :func:`repro_torch.models.sharding.place_params`), the
 caches are placed by :func:`repro_torch.launch.specs.cache_shardings`, and

@@ -112,7 +112,6 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig,
         dev = resolve_device(device)
         devices = [dev]
     else:
-        M.check_mesh_family(cfg)
         dev = mesh.devices.flat[0]
         devices = list(mesh.devices.flat)
     state = init_train_state(M.make_generator(lcfg.seed, dev), cfg, tcfg,

@@ -29,8 +29,9 @@ new :class:`TrainState` holding the same, updated, parameter tensors.
 **On a mesh** (parameters placed on a ``(data, model)`` or ``(pod, data,
 model)`` mesh: :func:`init_train_state` with ``mesh=``) the batch splits
 over the data replicas as ``batch_shardings`` says
-(:func:`~repro_torch.models.sharding.place_batch`; ``accum_steps`` splits
-each replica's share), each replica's logits land on its lead, and the
+(:func:`~repro_torch.models.sharding.place_batch`: the tokens, the labels
+and the vision and enc-dec families' ``ctx_embeds``; ``accum_steps``
+splits each replica's share), each replica's logits land on its lead, and the
 loss is the token-weighted mean over the replicas: Σ (a replica's mean x
 its token count) / the global count (the mean of replica means would be
 wrong where the counts differ); the aux loss is the replicas' mean (the
@@ -135,8 +136,8 @@ def _placed_loss(params: shrd.PlacedParams, cfg: ModelConfig,
     """(``loss + aux_weight * aux``, loss, aux) of the replicas' shares
     (:func:`~repro_torch.models.sharding.place_batch`), on the mesh's first
     device: the token-weighted mean over the replicas."""
-    outs = M.forward_replicas(params, cfg, [(row, b["tokens"]) for row, b in shares],
-                              dtype=tcfg.dtype, remat=tcfg.remat)
+    outs = M.forward_replicas(params, cfg, shares, dtype=tcfg.dtype,
+                              remat=tcfg.remat)
     dev = params.device
     losses, counts = [], []
     for (_, b), (logits, _) in zip(shares, outs):

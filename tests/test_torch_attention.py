@@ -48,6 +48,16 @@ LOGIT_TOL = 1e-5
 DENSE = ("llama3.2-3b", "qwen2-1.5b", "qwen3-14b", "minicpm-2b")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tiny tensors (the workers of
+    a parallel test run share the cores), restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got: torch.Tensor, want) -> None:
     want = np.asarray(want)
     tol = LOGIT_TOL * max(1.0, float(np.abs(want).max()))

@@ -180,20 +180,28 @@ def test_supervisor_gives_up():
         run_with_restarts(job, max_restarts=2)
 
 
-def test_loop_refuses_a_mesh():
-    """The loop trains the dense, MoE and SSM families on a mesh
-    (``tests/test_torch_mesh_train.py``); it refuses a mesh with an axis
-    the model does not run on, and the hybrid family on a mesh (ROADMAP
-    A10c)."""
+def test_loop_refuses_a_mesh(tmp_path):
+    """The loop trains every family it makes batches for on a mesh
+    (``tests/test_torch_mesh_train.py``, ``tests/test_torch_mesh_families.py``);
+    it refuses a mesh with an axis the model does not run on.  The hybrid
+    family, refused on a mesh until ROADMAP A10c's port, trains there and
+    checkpoints: a (1, 2) run's checkpoint restores on one device, equal."""
     from repro_torch.compat import make_mesh
 
     with pytest.raises(ValueError, match="the mesh has"):
         train_loop(*_loop_cfgs("unused"), device="cpu",
                    mesh=make_mesh((1, 2), ("shard", "model"), ("cpu",) * 2))
-    cfg, tcfg, dcfg, lcfg = _loop_cfgs("unused")
-    with pytest.raises(NotImplementedError, match="A10"):
-        train_loop(configs.reduced_config("hymba-1.5b"), tcfg, dcfg, lcfg,
-                   mesh=make_mesh((1, 2), ("data", "model"), ("cpu",) * 2))
+    _, tcfg, dcfg, lcfg = _loop_cfgs(tmp_path, total=4)
+    cfg = configs.reduced_config("hymba-1.5b")
+    quiet = lambda s: None  # noqa: E731
+    on_mesh, hist = train_loop(cfg, tcfg, dcfg, lcfg, log=quiet,
+                               mesh=make_mesh((1, 2), ("data", "model"),
+                                              ("cpu",) * 2))
+    assert [h["step"] for h in hist] == [0, 1, 2, 3]
+    one, hist = train_loop(cfg, tcfg, dcfg, lcfg, log=quiet, device="cpu")
+    assert hist == [] and one.step == 4
+    for k, p in one.params.named_parameters():
+        assert torch.equal(p.detach(), on_mesh.params[k].full()), k
 
 
 # ---------------------------------------------------------------------------

@@ -1811,3 +1811,57 @@ def test_reduced_families_serve_on_the_card_as_on_the_cpu(cuda_device, arch):
             b.submit(Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=4))
         served.append({r.rid: r.generated for r in b.run()})
     assert served[0] == served[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_reduced_families_serve_on_a_mesh_of_the_card(cuda_device, arch):
+    """The hybrid, vision and enc-dec LMs placed on (2, 2) and (1, 4)
+    meshes naming the card four times against the same weights unsharded
+    on the CPU: prefill logits with ``ctx_embeds`` and a decode step
+    reading the context back from the placed caches at 1e-5 x max|logit|,
+    B9's shard form launched (the reduced vocabulary divides), B8 in
+    hymba's chunk-multiple prefill, and the engine's greedy tokens with
+    ``extras`` equal to the CPU's."""
+    from repro_torch import configs
+    from repro_torch.compat import make_mesh
+    from repro_torch.kernels import gather, ssd
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    cfg = configs.reduced_config(arch)
+    cpu = M.init_params(M.make_generator(0, "cpu"), cfg)
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    batch = {"tokens": prompts}
+    if cfg.encdec is not None:
+        batch["ctx_embeds"] = rng.standard_normal(
+            (4, cfg.encdec.n_ctx_tokens, cfg.d_model)).astype(np.float32)
+    elif cfg.cross_attn is not None:
+        batch["ctx_embeds"] = rng.standard_normal(
+            (4, cfg.cross_attn.n_ctx_tokens, cfg.cross_attn.d_ctx)).astype(np.float32)
+    caches = M.init_caches(cfg, 4, 64, dtype=torch.float32, device="cpu")
+    want, caches = M.prefill(cpu, cfg, batch, caches)
+    want_step, _ = M.decode_step(cpu, cfg, prompts[:, :1], caches)
+    gcfg = GenerationConfig(max_new_tokens=6, cache_len=64)
+    extras = {k: v for k, v in batch.items() if k == "ctx_embeds"} or None
+    want_toks = ServeEngine(cfg, cpu, gcfg).generate(prompts, extras=extras)
+    for shape in ((2, 2), (1, 4)):
+        mesh = make_mesh(shape, ("data", "model"), (cuda_device,) * 4)
+        placed = sharding.place_params(cpu, cfg, mesh)
+        b8, b9 = ssd.KERNEL_LAUNCHES, gather.SHARD_LAUNCHES
+        caches = M.init_caches(cfg, 4, 64, dtype=torch.float32, mesh=mesh)
+        got, caches = M.prefill(placed, cfg, batch, caches)
+        step, _ = M.decode_step(placed, cfg, prompts[:, :1], caches)
+        torch.cuda.synchronize()
+        assert gather.SHARD_LAUNCHES > b9
+        assert (ssd.KERNEL_LAUNCHES > b8) == bool(cfg.hybrid)
+        for g, w in ((got, want), (step, want_step)):
+            tol = 1e-5 * max(1.0, float(w.abs().max()))
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=tol)
+        np.testing.assert_array_equal(
+            ServeEngine(cfg, placed, gcfg, mesh=mesh).generate(prompts,
+                                                               extras=extras),
+            want_toks)

@@ -56,6 +56,16 @@ HYMBA, VISION, SEAMLESS = "hymba-1.5b", "llama-3.2-vision-11b", "seamless-m4t-me
 FAMILIES = (HYMBA, VISION, SEAMLESS)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tiny tensors (the workers of
+    a parallel test run share the cores), restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got: torch.Tensor, want) -> None:
     want = np.asarray(want)
     tol = LOGIT_TOL * max(1.0, float(np.abs(want).max()))

@@ -68,6 +68,16 @@ MODEL_SIZES = (1, 2, 4, 8)
 CACHE_LEN = 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tiny tensors (the workers of
+    a parallel test run share the cores), restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cpu_mesh(shape, axes=("data", "model")):
     return make_mesh(shape, axes, ("cpu",) * math.prod(shape))
 
@@ -624,20 +634,35 @@ def test_mesh_entry_points_refuse_unplaced_and_foreign_parameters(served):
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "llama-3.2-vision-11b",
                                   "seamless-m4t-medium"])
 def test_other_families_on_a_mesh_are_a10c(arch):
+    """The families ROADMAP A10c brought to a mesh (hybrid, vision,
+    enc-dec) run there through every entry point: born-sharded init, placed
+    zero caches, a prefill with ``ctx_embeds`` equal to the unsharded
+    model's to rounding, and a batcher request (the zero context).  Their
+    parity with the reference is ``tests/test_torch_mesh_families.py``."""
     cfg = configs.reduced_config(arch)
     mesh = _cpu_mesh((1, 2))
-    gen = M.make_generator(0, "cpu")
-    with pytest.raises(NotImplementedError, match="A10c"):
-        M.init_params(gen, cfg, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A10c"):
-        M.init_caches(cfg, 2, 16, mesh=mesh)
-    lm = M.init_params(gen, cfg)
+    born = M.init_params(M.make_generator(0, "cpu"), cfg, mesh=mesh)
+    caches = M.init_caches(cfg, 2, 16, dtype=torch.float32, mesh=mesh)
+    assert all(isinstance(leaf, sharding.Sharded)
+               for leaf in sharding.tree_leaves(caches))
+    lm = M.init_params(M.make_generator(0, "cpu"), cfg)
     placed = sharding.place_params(lm, cfg, mesh)     # the rules place any arch
-    with pytest.raises(NotImplementedError, match="A10c"):
-        M.prefill(placed, cfg, {"tokens": np.zeros((2, 8), np.int32)}, {},
-                  mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A10c"):
-        Batcher(cfg, placed, mesh=mesh)
+    for name, leaf in born.named_leaves():
+        assert torch.equal(leaf.full(), placed[name].full()), name
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)}
+    if cfg.encdec is not None:
+        batch["ctx_embeds"] = rng.standard_normal((2, 8, cfg.d_model))
+    elif cfg.cross_attn is not None:
+        batch["ctx_embeds"] = rng.standard_normal((2, 8, cfg.cross_attn.d_ctx))
+    got, _ = M.prefill(placed, cfg, batch, caches, mesh=mesh)
+    want, _ = M.prefill(lm, cfg, batch, M.init_caches(
+        cfg, 2, 16, dtype=torch.float32, device="cpu"))
+    _close(got, want, LOGIT_TOL)
+    b = Batcher(cfg, placed, mesh=mesh, n_slots=2,
+                gcfg=GenerationConfig(cache_len=16))
+    b.submit(Request(rid=0, prompt=batch["tokens"][0], max_new_tokens=2))
+    assert len(b.run()[0].generated) == 2
 
 
 # ---------------------------------------------------------------------------

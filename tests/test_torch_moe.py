@@ -63,6 +63,16 @@ PATHS = {"dense": (RefSpec(dispatch="dense"), ExecSpec(dispatch="dense")),
                   ExecSpec(dispatch="sell", vl=32, device="cpu"))}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tiny tensors (the workers of
+    a parallel test run share the cores), restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # moe_forward against the reference
 # ---------------------------------------------------------------------------

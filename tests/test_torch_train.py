@@ -61,6 +61,16 @@ FAMILIES = ("qwen2-1.5b", "mamba2-2.7b", "deepseek-moe-16b", "hymba-1.5b",
             "llama-3.2-vision-11b", "seamless-m4t-medium")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module's tiny tensors (the workers of
+    a parallel test run share the cores), restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ref_leaf(tree, name):
     """The reference value of the port's parameter ``name``."""
     keys, idx = reference_path(name)
