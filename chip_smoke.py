@@ -327,7 +327,29 @@ result line is printed:
               each mesh against the unsharded step (phase 16's
               tolerances), and the loss and gradients of seamless's (2
               encoder and 2 decoder layers) and vision's (its first group)
-              cuts with ``ctx_embeds``.
+              cuts with ``ctx_embeds``;
+18. bf16    — the bf16 forms of B8 and B9: B8 on bf16 xd / B / C with
+              float32 ad (phase 3's float32 cases, mamba2's and hymba's
+              prefill shapes among them, and p past one 64-column slice)
+              ``torch.equal`` to its fp32 form on the upcast inputs with y
+              rounded once and the state equal, its backward (phase 14's
+              cases) each output the fp32 backward's rounded, B9's gather,
+              shard form, backward and shard backward on mamba2's table and
+              one of odd d in bf16 (T in 1, 4, 512, 2048, 4096; int32 /
+              int64 ids on the host and the card, out-of-range card ids)
+              ``torch.equal`` to their contracts, the backwards from bf16
+              and from float32 output gradients; mamba2-2.7b at full width
+              and depth with bf16 weights and ``SSD_BF16`` served by
+              ``Batcher(n_slots=4)`` (4 requests of 512 tokens, 8 new; B8's
+              and B9's bf16 launches counted from 0), its 2-layer cut card
+              vs CPU at 1e-2 x max|logit|; 2 train steps of (2, 512) through
+              ``train_loop`` with ``TrainConfig(param_dtype=bfloat16)``
+              under ``SSD_BF16``; a 2-layer
+              step card vs CPU (loss 1e-5 relative, gradients 1e-2 x
+              max|g|), ``torch.equal`` to the copy-then-gather step with
+              ``SSD_BF16`` off, and on (1, 4) with B9's shard forms counted;
+              each form timed beside its fp32 form, its bound, its plain
+              version and (B9) ``F.embedding`` / ``zeros + index_add_``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with a record per kernel.
@@ -554,6 +576,26 @@ MESH_FAMILY_DEPTH = {("llama-3.2-vision-11b", (2, 2)): 20}
 MESH_FAMILY_PHASE13 = {"hymba-1.5b": (107.84, 110.52, 30.12),
                        "seamless-m4t-medium": (40.99, 31.95, 98.77),
                        "llama-3.2-vision-11b": (282.98, 93.08, 25.30)}
+# phase 18 (bf16): the bf16 forms of B8 and B9 and the paths that run them
+#: a bf16 scan's logits, card against CPU (both run B8's bf16 form: a y
+#: element's rounding may flip where two float32 sums differ), and a bf16
+#: step's gradients (D's is a bf16 sum of dy x in both, in another order)
+BF16_LOGIT_RTOL = 1e-2
+BF16_GRAD_TOL = 1e-2
+#: the served bf16 model: requests of LM_PROMPT tokens, new tokens each
+BF16_REQUESTS = 4
+BF16_NEW_TOKENS = 8
+BF16_TRAIN_STEPS = 2
+#: B8 bf16 cases beyond phase 3's float32 ones: p past one 64-column
+#: slice (y's partial sums through the float32 scratch), ragged
+BF16_SSD_CASES = [(1, 128, 4, 80, 1, 32, 64, "float32"),
+                  (2, 96, 6, 130, 2, 24, 32, "float32")]
+#: B9 bf16 ids counts: phase 3's, the train step's (TRAIN_BATCH x
+#: TRAIN_SEQ), and two slices of the backward's ids (its float32 carry)
+BF16_GATHER_TS = tuple(sorted(set(GATHER_TS) | {TRAIN_BATCH * TRAIN_SEQ, 4096}))
+#: a bf16 table of odd d (2 B rows: the forward's 2-byte vectors, the
+#: backward's one-element ones)
+BF16_ODD_TABLE = (4100, 2561)
 #: the card's memory rate for bounds (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 #: where every tensor of the run lives: the card
@@ -2904,6 +2946,32 @@ def compare_live_bounds(torch, np, F, G, spmv_k, bfs_k, pr_k) -> None:
           "slot, equal to the plain path handed the same widths)")
 
 
+def timed_batcher(torch, serve):
+    """``serve.Batcher`` with each admission (a b = 1 prefill) and each
+    decode step timed, the card synchronized around it."""
+
+    class TimedBatcher(serve.Batcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.prefill_s, self.decode_s = [], []
+
+        def admit(self, slot, req):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            super().admit(slot, req)
+            torch.cuda.synchronize()
+            self.prefill_s.append(time.perf_counter() - t)
+
+        def execute(self, active):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            super().execute(active)
+            torch.cuda.synchronize()
+            self.decode_s.append(time.perf_counter() - t)
+
+    return TimedBatcher
+
+
 def lm_path(torch, np, configs, M, serve, ssd_k, gather_k, *, cfg=None,
             name: str = "lm", ctx=None) -> dict:
     """Phase 10: mamba2-2.7b served through the batcher and the engine;
@@ -2925,28 +2993,7 @@ def lm_path(torch, np, configs, M, serve, ssd_k, gather_k, *, cfg=None,
           f"{n_params:,} parameters ({4 * n_params / 1e9:.2f} GB fp32), "
           f"random init (seed {LM_SEED}) in {time.perf_counter() - t0:.1f} s")
 
-    class TimedBatcher(serve.Batcher):
-        """The batcher with each admission (a b = 1 prefill) and each
-        decode step timed, the card synchronized around it."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.prefill_s, self.decode_s = [], []
-
-        def admit(self, slot, req):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            super().admit(slot, req)
-            torch.cuda.synchronize()
-            self.prefill_s.append(time.perf_counter() - t)
-
-        def execute(self, active):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            super().execute(active)
-            torch.cuda.synchronize()
-            self.decode_s.append(time.perf_counter() - t)
-
+    TimedBatcher = timed_batcher(torch, serve)
     rng = np.random.default_rng(LM_SEED)
     prompts = rng.integers(0, cfg.vocab_size,
                            (LM_REQUESTS, LM_PROMPT)).astype(np.int32)
@@ -3054,7 +3101,8 @@ def check_model(M, nn, params, cfg):
 
 
 def lm_check(torch, np, M, lm: dict, label: str = "lm",
-             card_scope=contextlib.nullcontext, prompt=None) -> None:
+             card_scope=contextlib.nullcontext, prompt=None,
+             rtol: float = LM_LOGIT_RTOL) -> float:
     """Phases 10 / 10b / 12 / 13: the model's first layers at full width
     (:func:`check_model`) from the same weights on the card (B9; B8 for
     mamba2 and hymba; B1 for a MoE layer's combine, under ``card_scope``)
@@ -3063,7 +3111,9 @@ def lm_check(torch, np, M, lm: dict, label: str = "lm",
     phase's first ``ctx_embeds`` where it has them.  The CPU copy is made
     tensor by tensor from the card's, so the card holds no second copy.
     Where the prompt passes a sliding window, the CPU's caches must show
-    the ring wrapped: only the last ``window`` positions kept."""
+    the ring wrapped: only the last ``window`` positions kept.  Logits
+    within ``rtol`` x max|logit| (the phase 18 bf16 scan: BF16_LOGIT_RTOL).
+    Returns the largest logit error over max|logit|."""
     import copy
 
     from torch import nn
@@ -3111,11 +3161,11 @@ def lm_check(torch, np, M, lm: dict, label: str = "lm",
     del caches
     (lc, sc, tc), (lh, sh, th) = runs["card"], runs["cpu"]
     scale = float(lh.abs().max())
-    tol = LM_LOGIT_RTOL * scale
+    tol = rtol * scale
     err = float((lc - lh).abs().max())
     if not err <= tol:
         raise AssertionError(f"{label} check: prefill logits differ by {err} > "
-                             f"{LM_LOGIT_RTOL} x max|logit| = {tol}")
+                             f"{rtol} x max|logit| = {tol}")
     top2 = torch.topk(torch.cat(sh), 2, dim=-1).values
     margins = (top2[:, 0] - top2[:, 1]).numpy()[None]
     checked, close = margin_rule(np.array([tc]), np.array([th]), margins, tol,
@@ -3133,10 +3183,11 @@ def lm_check(torch, np, M, lm: dict, label: str = "lm",
           + (f" (and {cfg2.encdec.encoder_layers} encoder layers)"
              if cfg2.encdec is not None else "")
           + f", card vs CPU (plain versions) on a (1, {s}) prompt{ctx}: "
-          f"max abs logit err {err:.3e} <= {LM_LOGIT_RTOL} x max|logit| "
+          f"max abs logit err {err:.3e} <= {rtol} x max|logit| "
           f"{scale:.3f}; greedy tokens equal at {checked} of {LM_NEW_TOKENS} "
           f"positions with a top-2 margin above the tolerance; closer margins "
           f"{close}{ring} ({time.perf_counter() - t0:.1f} s)")
+    return err / scale
 
 
 def time_ssd(torch, np, ssd_k, b, l, h, p, g, n, q, flush, goal=None) -> dict:
@@ -6083,6 +6134,714 @@ def mesh_families_path(torch, np, configs, M, serve, sharding, make_mesh,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the bf16 forms of B8 and B9, and the paths that run them
+# ---------------------------------------------------------------------------
+
+
+def bf16_violation(torch, got, want, what: str) -> float:
+    """Max abs error of a bf16 result against its plain version on the
+    same bf16 inputs; raises where an element leaves one bf16 ulp of
+    max(|got|, |want|) plus the fp32 form's own tolerance (SSD_TOL fp32 x
+    max(1, max|want|)): two float32 sums of different order, each rounded
+    once to bf16."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bound = ulp + SSD_TOL["float32"] * max(1.0, float(w.abs().max()))
+    diff = (g - w).abs()
+    if bool((diff > bound).any()):
+        raise AssertionError(f"{what}: {float((diff / bound).max()):.2f} x "
+                             "(one bf16 ulp + the fp32 tolerance)")
+    return float(diff.max())
+
+
+def bf16_ssd_inputs(torch, np, case, seed: int, init: bool):
+    """Phase 3's B8 inputs of ``case`` with xd, B and C rounded to bf16
+    (ad and the initial state float32): (xd, ad, B, C), init."""
+    b, l, h, p, g, n, _, _ = case
+    (xd, ad, B, C), s0 = ssd_inputs(torch, np, b, l, h, p, g, n, "float32",
+                                    seed=seed, init=init)
+    return (xd.bfloat16(), ad, B.bfloat16(), C.bfloat16()), s0
+
+
+def compare_bf16_ssd(torch, np, ssd_k, cfg, hybrid) -> float:
+    """Phase 18 (B8 bf16): phase 3's float32 cases (mamba2's and hymba's
+    prefill shapes, three chunks, the small ones) and BF16_SSD_CASES, from
+    a zero and a random state: y ``torch.equal`` to the fp32 form's on the
+    upcast inputs rounded to bf16, the state ``torch.equal`` to its; the
+    plain bf16 version held at one bf16 ulp (+ SSD_TOL) on y and SSD_TOL on
+    the state.  Returns the max abs error of y against the plain version."""
+    cases = [c for c in ssd_cases(cfg, hybrid) if c[-1] == "float32"]
+    worst = 0.0
+    for i, case in enumerate(cases + BF16_SSD_CASES):
+        q = case[6]
+        errs = []
+        for init in (False, True):
+            (xd, ad, B, C), s0 = bf16_ssd_inputs(torch, np, case, 300 + i, init)
+            before = ssd_k.KERNEL_LAUNCHES
+            y, f = ssd_k.ssd_fused(xd, ad, B, C, chunk=q, init_state=s0)
+            y32, f32 = ssd_k.ssd_fused(xd.float(), ad, B.float(), C.float(),
+                                       chunk=q, init_state=s0)
+            torch.cuda.synchronize()
+            if ssd_k.KERNEL_LAUNCHES - before != 2 * ssd_k.LAUNCHES_PER_CALL:
+                raise AssertionError("B8 bf16: not three launches a call")
+            if y.dtype != torch.bfloat16 or f.dtype != torch.float32 \
+                    or not torch.equal(y, y32.bfloat16()) \
+                    or not torch.equal(f, f32):
+                raise AssertionError(
+                    f"B8 bf16 {case[:7]} init {init}: not the fp32 form's "
+                    f"rounded (y max err {max_err(y.float(), y32):.3e}, state "
+                    f"{max_err(f, f32):.3e})")
+            y0, f0 = ssd_k.ssd_fused_ref(xd, ad, B, C, chunk=q, init_state=s0)
+            errs.append(bf16_violation(torch, y, y0, f"B8 bf16 {case[:7]} y"))
+            ssd_violation(torch, f, f0, "float32")
+        worst = max(worst, max(errs))
+        phase("compare", f"B8 bf16 (b, l, h, p, g, n) = {case[:6]} chunk {q}: "
+              "y torch.equal to the fp32 form's on the upcast inputs rounded, "
+              f"the state torch.equal; plain bf16 version max abs err y "
+              f"{max(errs):.3e} (zero and random initial state)")
+    return worst
+
+
+def compare_bf16_ssd_bwd(torch, np, ssd_k, cfg, hybrid) -> float:
+    """Phase 18 (B8's backward bf16): phase 14's float32 cases, from a zero
+    and a random state, with and without a final-state gradient: dxd, dB
+    and dC ``torch.equal`` to the fp32 backward's on the upcast inputs
+    rounded, dad and d init_state equal; the plain bf16 backward held at
+    one bf16 ulp (+ SSD_TOL) / SSD_TOL.  Returns the max abs error against
+    the plain version."""
+    worst = 0.0
+    cases = [c for c in ssd_bwd_cases(cfg, hybrid) if c[-1] == "float32"]
+    for i, case in enumerate(cases):
+        b, l, h, p, g, n, q, _ = case
+        for init, fin in ((False, False), (False, True), (True, True)):
+            (xd, ad, B, C), s0 = bf16_ssd_inputs(torch, np, case, 400 + i, init)
+            rng = np.random.default_rng(500 + i)
+            dy = torch.from_numpy(rng.standard_normal((b, l, h, p)).astype(
+                np.float32)).to(DEVICE).bfloat16()
+            df = (torch.from_numpy(rng.standard_normal((b, h, p, n)).astype(
+                np.float32)).to(DEVICE) if fin else None)
+            before = ssd_k.BWD_LAUNCHES
+            got = ssd_k.ssd_fused_bwd(xd, ad, B, C, dy, df, chunk=q,
+                                      init_state=s0)
+            want = ssd_k.ssd_fused_bwd(xd.float(), ad, B.float(), C.float(),
+                                       dy.float(), df, chunk=q, init_state=s0)
+            torch.cuda.synchronize()
+            if ssd_k.BWD_LAUNCHES - before != 2 * ssd_k.LAUNCHES_PER_BWD:
+                raise AssertionError("B8 backward bf16: not five launches a call")
+            plain = ssd_k.ssd_fused_bwd_ref(xd, ad, B, C, dy, df, chunk=q,
+                                            init_state=s0)
+            for name, gv, wv, pv in zip(("dxd", "dad", "dB", "dC", "dinit"),
+                                        got, want, plain):
+                if gv is None:
+                    continue
+                if not torch.equal(gv, wv.to(gv.dtype)):
+                    raise AssertionError(
+                        f"B8 backward bf16 {case[:7]} {name}: not the fp32 "
+                        f"backward's rounded ({max_err(gv.float(), wv):.3e})")
+                if gv.dtype == torch.bfloat16:
+                    worst = max(worst, bf16_violation(
+                        torch, gv, pv, f"B8 backward bf16 {case[:7]} {name}"))
+                else:
+                    worst = max(worst, ssd_violation(torch, gv, pv, "float32"))
+        phase("compare", f"B8 backward bf16 (b, l, h, p, g, n) = {case[:6]} chunk "
+              f"{q}: dxd, dB, dC torch.equal to the fp32 backward's on the upcast "
+              "inputs rounded once, dad and d init_state equal, from a zero and a "
+              "random state, with and without a final-state gradient; plain bf16 "
+              f"backward max abs err {worst:.3e}")
+    return worst
+
+
+def bf16_gather_ids(torch, np, v: int, t: int, id_dtype, seed: int):
+    """(t,) ids on the card with repeats (every fifth the first) and, past
+    the first slots, the out-of-range card ids of :func:`compare_gather`."""
+    ids = np.random.default_rng(seed).integers(0, v, t)
+    ids[::5] = ids[0]
+    raw = [v, v + 7, -1, -v - 3, 2**31 - 1, 0, v - 1]
+    if id_dtype == torch.int64:
+        raw += [2**31, -2**31 - 5]
+    if t >= 2 * len(raw):
+        ids[1:1 + len(raw)] = raw
+    return torch.tensor(ids, dtype=id_dtype, device=DEVICE)
+
+
+def compare_bf16_gather(torch, np, gather_k, cfg) -> dict:
+    """Phase 18 (B9's four bf16 entries) on mamba2's (V, d) table in bf16 and
+    a bf16 table of odd d, at BF16_GATHER_TS, int32 / int64 ids on the host
+    and on the card with the out-of-range card ids of phase 3: the gather
+    ``torch.equal`` to ``table[clamp_ids(ids)]``, one launch a call; the
+    shard form on 4 row shards equal to the masked rows, the shards summing
+    to the whole-table gather; the backward from bf16 and from float32
+    output gradients, and the shard backward, ``torch.equal`` to their
+    plain versions (``embedding_gather_bwd_ref`` / ``_shard_bwd_ref`` with
+    ``dtype=bfloat16``) on the same card inputs and to the fp32 backward's
+    of the same (upcast) gradients rounded once, the shards stacked equal
+    to the whole-table backward.  Returns each entry's max abs error
+    against its plain version, by the kernels line's record name."""
+    v, d = cfg.vocab_size, cfg.d_model
+    n_fwd = n_bwd = 0
+    errs = dict.fromkeys(("embedding_gather_bf16", "embedding_gather_shard_bf16",
+                          "embedding_gather_bwd_bf16",
+                          "embedding_gather_shard_bwd_bf16"), 0.0)
+
+    def err(name, got, want):
+        errs[name] = max(errs[name], max_err(got.float(), want.float()))
+    rng = np.random.default_rng(17)
+    for vv, dd in ((v, d), BF16_ODD_TABLE):
+        table = torch.randn((vv, dd), dtype=torch.float32, device=DEVICE).bfloat16()
+        rows = vv // MESH_GATHER_SHARDS
+        for t in BF16_GATHER_TS:
+            for id_dtype in (torch.int32, torch.int64):
+                host = rng.integers(0, vv, t).astype(
+                    np.int32 if id_dtype == torch.int32 else np.int64)
+                card = bf16_gather_ids(torch, np, vv, t, id_dtype, t)
+                for ids in (host, card):
+                    before = gather_k.KERNEL_LAUNCHES
+                    got = gather_k.embedding_gather(table, ids)
+                    torch.cuda.synchronize()
+                    want = table[gather_k.clamp_ids(torch.as_tensor(ids).to(DEVICE), vv)]
+                    err("embedding_gather_bf16", got, want)
+                    if gather_k.KERNEL_LAUNCHES != before + 1 or not torch.equal(got, want):
+                        raise AssertionError(f"B9 bf16 ({vv}, {dd}) T={t} "
+                                             f"{id_dtype}: not table[ids]")
+                    n_fwd += 1
+                total = None
+                for k in range(MESH_GATHER_SHARDS):
+                    shard = table[k * rows:(k + 1) * rows]
+                    got = gather_k.embedding_gather_shard(shard, card, k * rows, vv)
+                    want = gather_k.embedding_gather_shard_ref(shard, card, k * rows, vv)
+                    err("embedding_gather_shard_bf16", got, want)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"B9 shard bf16 ({vv}, {dd}) k={k} "
+                                             f"T={t}: not the masked rows")
+                    total = got if total is None else total + got
+                    n_fwd += 1
+                if not torch.equal(total, gather_k.embedding_gather(table, card)):
+                    raise AssertionError(f"B9 shard bf16 T={t}: the shards do not "
+                                         "sum to the whole gather")
+                dout = torch.randn((t, dd), dtype=torch.float32, device=DEVICE)
+                doutb = dout.bfloat16()
+                before = (gather_k.BWD_LAUNCHES, gather_k.SHARD_BWD_LAUNCHES)
+                for src, wide in ((doutb, doutb.float()), (dout, dout)):
+                    got = gather_k.embedding_gather_bwd(src, card, vv,
+                                                        dtype=torch.bfloat16)
+                    want = gather_k.embedding_gather_bwd(wide, card, vv)
+                    plain = gather_k.embedding_gather_bwd_ref(src, card, vv,
+                                                              dtype=torch.bfloat16)
+                    err("embedding_gather_bwd_bf16", got, plain)
+                    if got.dtype != torch.bfloat16 or not torch.equal(got, plain):
+                        raise AssertionError(
+                            f"B9 backward bf16 ({vv}, {dd}) T={t} {id_dtype} from "
+                            f"{src.dtype}: not its plain version")
+                    if not torch.equal(got, want.bfloat16()):
+                        raise AssertionError(
+                            f"B9 backward bf16 ({vv}, {dd}) T={t} {id_dtype} from "
+                            f"{src.dtype}: not the fp32 backward's rounded")
+                    del want, plain
+                    parts = []
+                    for k in range(MESH_GATHER_SHARDS):
+                        part = gather_k.embedding_gather_shard_bwd(
+                            src, card, k * rows, rows, vv, dtype=torch.bfloat16)
+                        want_k = gather_k.embedding_gather_shard_bwd(
+                            wide, card, k * rows, rows, vv)
+                        plain_k = gather_k.embedding_gather_shard_bwd_ref(
+                            src, card, k * rows, rows, vv, dtype=torch.bfloat16)
+                        err("embedding_gather_shard_bwd_bf16", part, plain_k)
+                        if not torch.equal(part, plain_k):
+                            raise AssertionError(
+                                f"B9 shard backward bf16 k={k} T={t} from "
+                                f"{src.dtype}: not its plain version")
+                        if not torch.equal(part, want_k.bfloat16()):
+                            raise AssertionError(
+                                f"B9 shard backward bf16 k={k} T={t} from "
+                                f"{src.dtype}: not the fp32 one's rounded")
+                        parts.append(part)
+                    if not torch.equal(torch.cat(parts), got):
+                        raise AssertionError(f"B9 shard backward bf16 T={t}: the "
+                                             "shards stacked are not the whole")
+                    n_bwd += 1 + MESH_GATHER_SHARDS
+                torch.cuda.synchronize()
+                ran = (gather_k.BWD_LAUNCHES - before[0],
+                       gather_k.SHARD_BWD_LAUNCHES - before[1])
+                if ran != (4, 4 * MESH_GATHER_SHARDS):
+                    raise AssertionError(f"B9 backward bf16: launches {ran}")
+        del table
+    phase("compare", f"B9 bf16 on ({v}, {d}) and {BF16_ODD_TABLE} tables, T in "
+          f"{BF16_GATHER_TS}, int32 / int64 ids on the host and on the card (card "
+          f"ids outside [0, V)): {n_fwd} gathers / shard gathers torch.equal to "
+          f"table[clamp_ids(ids)] / the masked rows, one launch a call; {n_bwd} "
+          "backwards / shard backwards from bf16 and from float32 dout "
+          "torch.equal to their plain versions on the same inputs and to the "
+          "fp32 backward's rounded once, the shards summing / stacking to the "
+          f"whole; max abs err vs the plain versions {errs}")
+    return errs
+
+
+def copy_then_gather(torch, gather_k):
+    """The model's embedding before B9's bf16 form: a bf16 table copied to
+    float32, then gathered (the copy's backward casts the float32 sums to
+    bf16 once): what ``models.model._embed`` must equal."""
+    def embed(p, cfg, tokens, dtype):
+        b, s = tokens.shape
+        table = p.tok_embed
+        if table.dtype not in (torch.float32, torch.float64):
+            table = table.float()
+        x = gather_k.embedding_gather(table, tokens.reshape(-1))
+        return x.reshape(b, s, cfg.d_model).to(dtype)
+    return embed
+
+
+def bf16_serve(torch, np, configs, M, serve, ssd_k, gather_k) -> dict:
+    """Phase 18's serving path (``SSD_BF16`` set by the caller): mamba2-2.7b
+    at full width and depth, random init from LM_SEED, its parameters in
+    bf16 (the embedding table gathered by B9's bf16 form), served by
+    ``Batcher(n_slots=LM_SLOTS)``: BF16_REQUESTS requests of LM_PROMPT
+    tokens, BF16_NEW_TOKENS new each, every prefill B8's bf16 form in each
+    layer; B8's and B9's counts set to 0 just before and read just after.
+    Then the 2-layer full-width card-vs-CPU check at BF16_LOGIT_RTOL."""
+    cfg = lm_config(configs)
+    t0 = time.perf_counter()
+    params = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    if params.tok_embed.dtype != torch.bfloat16:
+        raise AssertionError("bf16: the table is not bf16")
+    n_params = sum(t.numel() for t in params.parameters())
+    phase("bf16", f"{cfg.name}: {cfg.n_layers} layers, {describe_lm(cfg)}: "
+          f"{n_params:,} parameters in bf16 ({2 * n_params / 1e9:.2f} GB), random "
+          f"init (seed {LM_SEED}) in {time.perf_counter() - t0:.1f} s; SSD_BF16")
+    rng = np.random.default_rng(LM_SEED + 18)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (BF16_REQUESTS, LM_PROMPT)).astype(np.int32)
+    gcfg = serve.GenerationConfig(max_new_tokens=BF16_NEW_TOKENS,
+                                  cache_len=LM_PROMPT + BF16_NEW_TOKENS)
+    batcher = timed_batcher(torch, serve)(cfg, params, n_slots=LM_SLOTS, gcfg=gcfg)
+    for rid in range(BF16_REQUESTS):
+        batcher.submit(serve.Request(rid=rid, prompt=prompts[rid],
+                                     max_new_tokens=BF16_NEW_TOKENS))
+    torch.cuda.synchronize()
+    ssd_k.KERNEL_LAUNCHES = 0
+    gather_k.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    done = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b8, b9 = ssd_k.KERNEL_LAUNCHES, gather_k.KERNEL_LAUNCHES
+    steps = len(batcher.decode_s)
+    if len(done) != BF16_REQUESTS or any(
+            len(r.generated) != BF16_NEW_TOKENS
+            or not all(0 <= t < cfg.vocab_size for t in r.generated) for r in done):
+        raise AssertionError("bf16 batcher: a request is missing, short or out "
+                             "of the vocabulary")
+    if b8 != BF16_REQUESTS * cfg.n_layers * ssd_k.LAUNCHES_PER_CALL \
+            or b9 != BF16_REQUESTS + steps:
+        raise AssertionError(f"bf16 batcher launches B8 {b8}, B9 {b9}")
+    n_tok = sum(len(r.generated) for r in done)
+    prefill_ms = 1e3 * statistics.median(batcher.prefill_s)
+    decode_ms = 1e3 * statistics.median(batcher.decode_s)
+    phase("bf16", f"Batcher(n_slots={LM_SLOTS}), bf16 weights, SSD_BF16: "
+          f"{BF16_REQUESTS} requests x {LM_PROMPT}-token prompts, {n_tok} tokens "
+          f"in {wall:.3f} s = {n_tok / wall:.2f} tokens/s; prefill "
+          f"{prefill_ms:.2f} ms a request (median, b = 1), decode "
+          f"{decode_ms:.2f} ms a step (median of {steps}); B8 bf16 launches {b8}, "
+          f"B9 bf16 launches {b9} | {smi_line()}")
+    rel = lm_check(torch, np, M, {"cfg": cfg, "params": params,
+                                  "prompts": prompts},
+                   label="bf16", rtol=BF16_LOGIT_RTOL)
+    del params, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {"ssd_fused": b8, "embedding_gather": b9},
+            "tokens_per_s": n_tok / wall, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "logit_rel_err": rel}
+
+
+def bf16_train(torch, np, configs, ssd_k, gather_k) -> dict:
+    """Phase 18's training path (``SSD_BF16`` set by the caller):
+    mamba2-2.7b at full width and depth trained BF16_TRAIN_STEPS steps of
+    (TRAIN_BATCH, TRAIN_SEQ) by :func:`repro_torch.train.train_loop` with
+    ``TrainConfig(param_dtype=torch.bfloat16)`` and the CLI's other
+    settings (remat "full", TRAIN_LR, the synthetic stream from LM_SEED),
+    the four counts set to 0 just before and read just after: each step's
+    loss and ms, tokens/s, the peak device memory."""
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, TrainLoopConfig, train_loop
+
+    cfg = train_config(configs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR), remat=TRAIN_REMAT,
+                       param_dtype=torch.bfloat16)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=LM_SEED)
+    lcfg = TrainLoopConfig(total_steps=BF16_TRAIN_STEPS, log_every=10,
+                           seed=LM_SEED)
+    ssd_k.KERNEL_LAUNCHES = ssd_k.BWD_LAUNCHES = 0
+    gather_k.KERNEL_LAUNCHES = gather_k.BWD_LAUNCHES = 0
+    state, hist = train_loop(cfg, tcfg, dcfg, lcfg, device=DEVICE,
+                             log=lambda s: print(s, flush=True))
+    torch.cuda.synchronize()
+    launches = train_counts(ssd_k, gather_k)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    table = dict(state.params.named_parameters())["tok_embed"]
+    if table.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 train: the table is {table.dtype}")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist):
+        raise AssertionError(f"bf16 train: a loss or grad norm is not finite: {hist}")
+    if not all(launches.values()):
+        raise AssertionError(f"bf16 train: the run launched {launches}")
+    steady = [h["wall_s"] for h in hist[1:]] or [hist[0]["wall_s"]]
+    tps = TRAIN_BATCH * TRAIN_SEQ / statistics.median(steady)
+    phase("bf16", f"{cfg.name} trained {len(hist)} steps of ({TRAIN_BATCH}, "
+          f"{TRAIN_SEQ}) with bf16 parameters and SSD_BF16, remat {TRAIN_REMAT}: "
+          + "; ".join(f"step {h['step']} loss {h['loss']:.6f} "
+                      f"{h['wall_s'] * 1e3:.1f} ms" for h in hist)
+          + f"; {tps:.1f} tokens/s; peak device memory {peak:.2f} GB; launches "
+          f"(all bf16 forms) {launches}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": [h["wall_s"] * 1e3 for h in hist],
+            "tokens_per_s": tps, "peak_gb": peak}
+
+
+def bf16_train_check(torch, np, M, ssm_mod, sharding, make_mesh, ssd_k,
+                     gather_k, cfg) -> dict:
+    """Phase 18's checks of a step: a LM_CHECK_LAYERS-layer full-width cut,
+    bf16 parameters from LM_SEED on the CPU and copied to the card.  Under
+    ``SSD_BF16`` the card's loss and gradients against the CPU's (loss
+    TRAIN_LOSS_RTOL, gradients BF16_GRAD_TOL x max|g|); with it off, the
+    card's step ``torch.equal`` to :func:`copy_then_gather`'s; on a (1, 4)
+    mesh naming the card (``SSD_BF16``: B8's bf16 form a head shard) B9's
+    shard forms counted from 0, their gradient rows stacked
+    ``torch.equal`` to the whole-table backward of the same output
+    gradients."""
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.step import loss_and_grads
+
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    cpu = M.init_params(M.make_generator(LM_SEED, "cpu"), cfg2,
+                        trainable=True).to(torch.bfloat16)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    batch = train_batch(np, cfg2, TRAIN_CHECK_BATCH)
+    tc = TrainConfig(remat=None)
+    ssm_mod.SSD_BF16 = True
+    before = train_counts(ssd_k, gather_k)
+    g_card, l_card, _ = loss_and_grads(card, cfg2, tc, batch)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in train_counts(ssd_k, gather_k).items()}
+    if not all(ran.values()):
+        raise AssertionError(f"bf16 train check: the card's step launched {ran}")
+    g_cpu, l_cpu, _ = loss_and_grads(cpu, cfg2, tc, batch)
+    rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"bf16 train check: loss {float(l_card)} vs CPU "
+                             f"{float(l_cpu)} ({rel:.2e} > {TRAIN_LOSS_RTOL})")
+    worst, worst_name = 0.0, ""
+    for k, gc_ in g_cpu.items():
+        scale = max(float(gc_.float().abs().max()), 1e-30)
+        e = float((g_card[k].cpu().float() - gc_.float()).abs().max()) / scale
+        if not e <= BF16_GRAD_TOL:
+            raise AssertionError(f"bf16 train check: gradient {k} differs by "
+                                 f"{e:.2e} x max|g| > {BF16_GRAD_TOL}")
+        if e >= worst:
+            worst, worst_name = e, k
+    del cpu, g_cpu
+    # SSD_BF16 off: the bf16 table's step equals the copy-then-gather one
+    ssm_mod.SSD_BF16 = False
+    g_new, l_new, _ = loss_and_grads(card, cfg2, tc, batch)
+    embed = M._embed
+    M._embed = copy_then_gather(torch, gather_k)
+    try:
+        g_old, l_old, _ = loss_and_grads(card, cfg2, tc, batch)
+    finally:
+        M._embed = embed
+    if not torch.equal(l_new, l_old) or any(
+            not torch.equal(g, g_old[k]) for k, g in g_new.items()):
+        raise AssertionError("bf16 train check: the bf16 table's step is not "
+                             "the copy-then-gather step's")
+    del g_new, g_old
+    # (1, 4): B9's shard forms on the vocab-sharded bf16 table
+    ssm_mod.SSD_BF16 = True
+    mesh = make_mesh((1, 4), ("data", "model"), (DEVICE,) * 4)
+    placed = sharding.place_params(card, cfg2, mesh)
+    seen = []
+    shard_bwd = gather_k.embedding_gather_shard_bwd
+
+    def spy(dout, ids, lo, rows, vocab, *, dtype=None):
+        out = shard_bwd(dout, ids, lo, rows, vocab, dtype=dtype)
+        seen.append((dout, ids, lo, out))
+        return out
+    gather_k.embedding_gather_shard_bwd = spy
+    gather_k.SHARD_LAUNCHES = gather_k.SHARD_BWD_LAUNCHES = 0
+    try:
+        _, l_mesh, _ = loss_and_grads(placed, cfg2, tc, batch)
+        torch.cuda.synchronize()
+    finally:
+        gather_k.embedding_gather_shard_bwd = shard_bwd
+    shard_launches = {"embedding_gather_shard": gather_k.SHARD_LAUNCHES,
+                      "embedding_gather_shard_bwd": gather_k.SHARD_BWD_LAUNCHES}
+    if tuple(shard_launches.values()) != (4, 4) or len(seen) != 4:
+        raise AssertionError(f"bf16 mesh step: shard launches {shard_launches}")
+    seen.sort(key=lambda e: e[2])
+    dout, ids = seen[0][0], seen[0][1]
+    if seen[0][3].dtype != torch.bfloat16 or any(
+            not torch.equal(e[0].to(dout.device), dout) for e in seen):
+        raise AssertionError("bf16 mesh step: the shards' output gradients differ")
+    whole = gather_k.embedding_gather_bwd(dout, ids.to(dout.device), cfg2.vocab_size,
+                                          dtype=torch.bfloat16)
+    if not torch.equal(torch.cat([e[3].to(dout.device) for e in seen]), whole):
+        raise AssertionError("bf16 mesh step: the shard backward's rows are not "
+                             "the whole-table backward's")
+    mesh_rel = abs(float(l_mesh) - float(l_card)) / abs(float(l_card))
+    del placed, seen, card, g_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("bf16", f"check: {LM_CHECK_LAYERS} layers at full width, bf16 "
+          f"parameters, one step on ({TRAIN_CHECK_BATCH}, {TRAIN_SEQ}) tokens: "
+          f"SSD_BF16 card vs CPU loss {float(l_card):.6f} vs {float(l_cpu):.6f} "
+          f"(rel {rel:.2e} <= {TRAIN_LOSS_RTOL}), worst gradient {worst_name} "
+          f"{worst:.2e} x max|g| <= {BF16_GRAD_TOL}, launches {ran}; SSD_BF16 off: "
+          "loss and every gradient torch.equal to the copy-then-gather step; "
+          f"(1, 4) over {DEVICE} x 4: shard launches {shard_launches}, the shard "
+          "backward's rows stacked torch.equal to the whole-table backward of "
+          f"the same dout, loss rel {mesh_rel:.2e} of the unsharded "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {"loss_rel": rel, "grad_err": worst, "launches": shard_launches}
+
+
+def time_bf16(torch, np, ssd_k, gather_k, cfg, flush) -> dict:
+    """Phase 18 (timing): each bf16 form at its path's shape beside its fp32
+    form in the same run (median of 10 CUDA-event timings after 2, the L2
+    flushed), its bound, its plain version and, where one PyTorch call
+    computes the same function, that call: B8 at the batcher's prefill (1,
+    LM_PROMPT), its backward at the train step's (TRAIN_BATCH, TRAIN_SEQ),
+    B9 and its shard form (shard 0 of MESH_GATHER_SHARDS) at LM_PROMPT card
+    ids, their backwards at the train step's ids (the model's float32 dout
+    into the bf16 table, the form its path runs; bf16 dout beside it)."""
+    from repro_torch.core import autotune
+
+    embed = torch.nn.functional.embedding
+    s = cfg.ssm
+    l, h, p, g, n, q = (LM_PROMPT, cfg.n_ssm_heads, s.head_dim, s.n_groups,
+                        s.d_state, s.chunk)
+    out = {}
+    # B8, forward and backward
+    for b, name in ((1, "ssd_fused_bf16"), (TRAIN_BATCH, "ssd_fused_bwd_bf16")):
+        case = (b, l, h, p, g, n, q, "float32")
+        (xd, ad, B, C), _ = bf16_ssd_inputs(torch, np, case, 11, False)
+        up = (xd.float(), ad, B.float(), C.float())
+        if name == "ssd_fused_bf16":
+            ms = time_ms(torch, lambda: ssd_k.ssd_fused(xd, ad, B, C, chunk=q), flush)
+            fp32_ms = time_ms(torch, lambda: ssd_k.ssd_fused(*up, chunk=q), flush)
+            plain_ms = time_ms(torch, lambda: ssd_k.ssd_fused_ref(xd, ad, B, C,
+                                                                   chunk=q), flush)
+            flops = autotune.ssd_flops(b, l, h, p, n, q)
+            nbytes = 2 * (2 * b * l * h * p + 2 * b * l * g * n) \
+                + 4 * (b * l * h + b * h * p * n)
+        else:
+            dy = torch.randn_like(xd)
+            _, fs, cum, ent = ssd_k._forward(xd, ad, B, C, q, None, keep=True)
+            _, fs32, cum32, ent32 = ssd_k._forward(*up, q, None, keep=True)
+            ms = time_ms(torch, lambda: ssd_k.ssd_fused_bwd(
+                xd, ad, B, C, dy, chunk=q, saved=(fs, cum, ent)), flush)
+            fp32_ms = time_ms(torch, lambda: ssd_k.ssd_fused_bwd(
+                *up, dy.float(), chunk=q, saved=(fs32, cum32, ent32)), flush)
+            plain_ms = time_ms(torch, lambda: ssd_k.ssd_fused_bwd_ref(
+                xd, ad, B, C, dy, chunk=q), flush)
+            flops = autotune.ssd_bwd_flops(b, l, h, p, n, q)
+            nc = l // q
+            nbytes = 2 * (3 * b * l * h * p + 4 * b * l * g * n) \
+                + 4 * (2 * b * l * h + b * h * l + b * h * nc * p * n + b * h * p * n)
+        ops_ms = flops / FP32_OPS * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "fp32_ms": fp32_ms, "plain_ms": plain_ms,
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                     "library_ms": None,
+                     "shape": f"(b, l, h, p, g, n) = {(b, l, h, p, g, n)} chunk "
+                              f"{q}, bf16 xd / B / C, float32 ad"}
+        phase("timing", f"B8{' backward' if 'bwd' in name else ''} bf16 (b, l, h, "
+              f"p, g, n) = {(b, l, h, p, g, n)} chunk {q}: {ms:.4f} ms (fp32 form "
+              f"{fp32_ms:.4f} ms) | bound {max(ops_ms, bytes_ms):.4f} ms (ops "
+              f"{ops_ms:.4f}: {flops / 1e9:.3f} GFLOP at 67 TFLOP/s; bytes "
+              f"{bytes_ms:.4f}) | plain {plain_ms:.4f} ms | no single PyTorch call")
+        del xd, ad, B, C, up
+    # B9 and its shard form
+    v, d = cfg.vocab_size, cfg.d_model
+    t32 = torch.randn((v, d), dtype=torch.float32, device=DEVICE)
+    table = t32.bfloat16()
+    t = LM_PROMPT
+    ids = torch.from_numpy(np.random.default_rng(t).integers(0, v, t)).to(DEVICE)
+    chunks, threads = autotune.gather_grid(t, d * 2)
+    dst = torch.empty((t, d), dtype=torch.bfloat16, device=DEVICE)
+    rec = {"ms": time_ms(torch, lambda: gather_k.embedding_gather(table, ids), flush),
+           "fp32_ms": time_ms(torch, lambda: gather_k.embedding_gather(t32, ids), flush),
+           "launch_ms": time_ms(torch, lambda: gather_k._launch(
+               table, ids, dst, chunks, threads), flush),
+           "plain_ms": time_ms(torch, lambda: gather_k.embedding_gather_ref(table, ids),
+                               flush),
+           "library_ms": time_ms(torch, lambda: embed(ids, table), flush),
+           "bound_ms": (2 * t * d * 2 + 8 * t) / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes",
+           "shape": f"T={t} int64 ids on the card from ({v}, {d}) bf16"}
+    out["embedding_gather_bf16"] = rec
+    rows = v // MESH_GATHER_SHARDS
+    shard = table[:rows]
+    sids = gather_shard_ids(torch, np, v, MESH_GATHER_SHARDS, t, torch.int64, t)
+    owned = int((gather_k.clamp_ids(sids, v) < rows).sum())
+    srec = {"ms": time_ms(torch, lambda: gather_k.embedding_gather_shard(
+                shard, sids, 0, v), flush),
+            "fp32_ms": time_ms(torch, lambda: gather_k.embedding_gather_shard(
+                t32[:rows], sids, 0, v), flush),
+            "plain_ms": time_ms(torch, lambda: gather_k.embedding_gather_shard_ref(
+                shard, sids, 0, v), flush),
+            "library_ms": None,
+            "bound_ms": ((t + owned) * d * 2 + 8 * t) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "shape": f"T={t} card ids on shard 0 ({rows}, {d}) bf16 of ({v}, {d}), "
+                     f"{owned} owned"}
+    out["embedding_gather_shard_bf16"] = srec
+    for name, r in (("B9", rec), ("B9 shard", srec)):
+        phase("timing", f"{name} bf16 {r['shape']}: {r['ms']:.4f} ms (fp32 form "
+              f"{r['fp32_ms']:.4f} ms" + (f"; launch alone {r['launch_ms']:.4f} ms"
+                                         if "launch_ms" in r else "")
+              + f") | bound {r['bound_ms']:.5f} ms (bytes) | plain "
+              f"{r['plain_ms']:.4f} ms | " + ("F.embedding on the bf16 table "
+                                              f"{r['library_ms']:.4f} ms"
+                                              if r["library_ms"] is not None
+                                              else "no single PyTorch call"))
+    # the backwards at the train step's ids: the path's form (the model's
+    # float32 dout into the bf16 table) is the record's ms, bound, plain and
+    # library time; the bf16-dout form, which no path runs, is timed beside it
+    t = TRAIN_BATCH * TRAIN_SEQ
+    ids = torch.from_numpy(train_batch(np, cfg, TRAIN_BATCH)["tokens"].reshape(-1)
+                           .astype(np.int64)).to(DEVICE)
+    dout = torch.randn((t, d), dtype=torch.float32, device=DEVICE)
+    doutb = dout.bfloat16()
+    bf16 = torch.bfloat16
+    brec = {"ms": time_ms(torch, lambda: gather_k.embedding_gather_bwd(
+                dout, ids, v, dtype=bf16), flush),
+            "bf16_dout_ms": time_ms(torch, lambda: gather_k.embedding_gather_bwd(
+                doutb, ids, v), flush),
+            "fp32_ms": time_ms(torch, lambda: gather_k.embedding_gather_bwd(
+                dout, ids, v), flush),
+            "plain_ms": time_ms(torch, lambda: gather_k.embedding_gather_bwd_ref(
+                dout, ids, v, dtype=bf16), flush, runs=3, warmup=1),
+            "library_ms": time_ms(torch, lambda: torch.zeros(
+                (v, d), dtype=torch.float32, device=DEVICE).index_add_(
+                0, ids, dout).to(bf16), flush),
+            "bound_ms": (v * d * 2 + t * d * 4 + 8 * t) / HBM_BYTES_PER_S * 1e3,
+            "bf16_dout_bound_ms": ((v * d + t * d) * 2 + 8 * t)
+            / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "shape": f"T={t} train-step ids into ({v}, {d}) bf16 from float32 dout"}
+    out["embedding_gather_bwd_bf16"] = brec
+    mask = gather_k.clamp_ids(ids, v) < rows
+    owned = int(mask.sum())
+    sbrec = {"ms": time_ms(torch, lambda: gather_k.embedding_gather_shard_bwd(
+                 dout, ids, 0, rows, v, dtype=bf16), flush),
+             "bf16_dout_ms": time_ms(torch, lambda: gather_k.embedding_gather_shard_bwd(
+                 doutb, ids, 0, rows, v), flush),
+             "fp32_ms": time_ms(torch, lambda: gather_k.embedding_gather_shard_bwd(
+                 dout, ids, 0, rows, v), flush),
+             "plain_ms": time_ms(torch, lambda: gather_k.embedding_gather_shard_bwd_ref(
+                 dout, ids, 0, rows, v, dtype=bf16), flush, runs=3, warmup=1),
+             "library_ms": time_ms(torch, lambda: torch.zeros(
+                 (rows, d), dtype=torch.float32, device=DEVICE).index_add_(
+                 0, ids[mask], dout[mask]).to(bf16), flush),
+             "bound_ms": (rows * d * 2 + owned * d * 4 + 8 * t)
+             / HBM_BYTES_PER_S * 1e3,
+             "bf16_dout_bound_ms": ((rows + owned) * d * 2 + 8 * t)
+             / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes",
+             "shape": f"T={t} train-step ids into shard 0 ({rows}, {d}) bf16 of "
+                      f"({v}, {d}) from float32 dout, {owned} owned"}
+    out["embedding_gather_shard_bwd_bf16"] = sbrec
+    for name, r in (("B9 backward", brec), ("B9 shard backward", sbrec)):
+        phase("timing", f"{name} bf16 {r['shape']}: {r['ms']:.4f} ms (fp32 form "
+              f"{r['fp32_ms']:.4f} ms) | bound {r['bound_ms']:.4f} ms (bytes) | "
+              f"plain {r['plain_ms']:.4f} ms | zeros + index_add_ + .to(bf16) "
+              f"{r['library_ms']:.4f} ms; from bf16 dout (no path runs it) "
+              f"{r['bf16_dout_ms']:.4f} ms, bound {r['bf16_dout_bound_ms']:.4f} ms")
+    del t32, table, dout, doutb
+    return out
+
+
+#: The kernels line's bf16 records: name -> (source, the TPU kernel it
+#: replaces or the backward it is)
+BF16_RECORDS = {
+    "ssd_fused_bf16": ("src/repro_torch/csrc/ssd_fused.cu",
+                       "src/repro/kernels/ssd.py:26 (bf16 xd / B / C)"),
+    "ssd_fused_bwd_bf16": ("src/repro_torch/csrc/ssd_bwd.cu",
+                           "src/repro/kernels/ssd.py:78 (its backward, bf16; the "
+                           "reference differentiates src/repro/models/ssm.py:81)"),
+    "embedding_gather_bf16": ("src/repro_torch/csrc/embedding_gather.cu",
+                              "src/repro/kernels/gather.py:24 (a bf16 table)"),
+    "embedding_gather_shard_bf16": ("src/repro_torch/csrc/embedding_gather.cu",
+                                    "src/repro/kernels/gather.py:24 (a bf16 "
+                                    "table's vocab shard)"),
+    "embedding_gather_bwd_bf16": ("src/repro_torch/csrc/embedding_gather.cu",
+                                  "src/repro/kernels/gather.py:44 (its backward "
+                                  "into a bf16 table; the reference "
+                                  "differentiates XLA's gather, "
+                                  "src/repro/models/model.py:118)"),
+    "embedding_gather_shard_bwd_bf16": ("src/repro_torch/csrc/embedding_gather.cu",
+                                        "src/repro/kernels/gather.py:44 (its "
+                                        "backward into a bf16 table's shard)"),
+}
+
+
+def run_bf16(torch, np, configs, M, serve, ssm_mod, sharding, make_mesh, ssd_k,
+             gather_k, flush) -> list[dict]:
+    """Phase 18: the bf16 forms against their contracts, the paths that run
+    them (the served bf16 model, the bf16 train step and its checks, the
+    (1, 4) mesh step), each form timed; returns the kernels line's bf16
+    records, each with its launches on the phase's paths."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, hybrid = lm_config(configs), lm_family_config(configs, LM_FAMILY_ARCHS[0])
+    errs = {"ssd_fused_bf16": compare_bf16_ssd(torch, np, ssd_k, cfg, hybrid),
+            "ssd_fused_bwd_bf16": compare_bf16_ssd_bwd(
+                torch, np, ssd_k, train_config(configs), hybrid)}
+    errs.update(compare_bf16_gather(torch, np, gather_k, cfg))
+    phase("bf16", f"kernel checks done in {time.perf_counter() - t0:.1f} s")
+    try:
+        ssm_mod.SSD_BF16 = True
+        sv = bf16_serve(torch, np, configs, M, serve, ssd_k, gather_k)
+        tr = bf16_train(torch, np, configs, ssd_k, gather_k)
+        ck = bf16_train_check(torch, np, M, ssm_mod, sharding, make_mesh, ssd_k,
+                              gather_k, train_config(configs))
+    finally:
+        ssm_mod.SSD_BF16 = False
+    times = time_bf16(torch, np, ssd_k, gather_k, cfg, flush)
+    launches = {
+        "ssd_fused_bf16": sv["launches"]["ssd_fused"] + tr["launches"]["ssd_fused"],
+        "ssd_fused_bwd_bf16": tr["launches"]["ssd_fused_bwd"],
+        "embedding_gather_bf16": (sv["launches"]["embedding_gather"]
+                                  + tr["launches"]["embedding_gather"]),
+        "embedding_gather_shard_bf16": ck["launches"]["embedding_gather_shard"],
+        "embedding_gather_bwd_bf16": tr["launches"]["embedding_gather_bwd"],
+        "embedding_gather_shard_bwd_bf16": ck["launches"]["embedding_gather_shard_bwd"],
+    }
+    records = []
+    for name, (source, replaces) in BF16_RECORDS.items():
+        if not launches[name]:
+            raise AssertionError(f"bf16: {name} was not launched on its path")
+        records.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": errs[name], **times[name]})
+    phase("bf16", f"served {sv['tokens_per_s']:.2f} tokens/s (prefill "
+          f"{sv['prefill_ms']:.2f} ms, decode {sv['decode_ms']:.2f} ms), trained "
+          f"{tr['tokens_per_s']:.1f} tokens/s (peak {tr['peak_gb']:.2f} GB); "
+          f"launches {launches}; phase {time.perf_counter() - t0:.1f} s")
+    return records
+
+
 def add_mesh_families(kernels: list[dict], mf: dict) -> None:
     """Phase 17 on the kernels line: its launches of B8, B9 (whole table
     and shard form) and their backward kernels under
@@ -6311,8 +7070,14 @@ def main() -> int:
     add_mesh_families(kernels, mesh_families_path(
         torch, np, configs, M, serve, sharding, make_mesh, ssm_mod, ssd_k,
         gather_k))
-    phase("mesh-families", f"done in {time.perf_counter() - t0:.1f} s; whole "
-          f"run {time.perf_counter() - t_start:.1f} s")
+    phase("mesh-families", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 18. the bf16 forms of B8 and B9 and their paths --------------------
+    t0 = time.perf_counter()
+    kernels += run_bf16(torch, np, configs, M, serve, ssm_mod, sharding,
+                        make_mesh, ssd_k, gather_k, flush)
+    phase("bf16", f"done in {time.perf_counter() - t0:.1f} s; whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

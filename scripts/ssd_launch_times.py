@@ -76,7 +76,8 @@ def forward_times(flush) -> None:
         def chunk_output():
             return lib.repro_ssd_chunk_output(
                 xd.data_ptr(), B.data_ptr(), C.data_ptr(), cum.data_ptr(),
-                entering.data_ptr(), 0, y.data_ptr(), b, L, H, P, G, N, Q, 0, stream)
+                entering.data_ptr(), 0, y.data_ptr(), None, b, L, H, P, G, N, Q, 0,
+                stream)
 
         for launch in (chunk_state, state_pass, chunk_output):
             if launch():
@@ -164,8 +165,8 @@ def _ssd_fused_one_alloc(xd, ad, B, C, chunk):
                     fstate.data_ptr(), b, l, h, p, n, chunk, 0, stream),
                 lib.repro_ssd_chunk_output(
                     xd.data_ptr(), B.data_ptr(), C.data_ptr(), cum.data_ptr(),
-                    entering.data_ptr(), 0, y.data_ptr(), b, l, h, p, g, n, chunk,
-                    0, stream)):
+                    entering.data_ptr(), 0, y.data_ptr(), None, b, l, h, p, g, n,
+                    chunk, 0, stream)):
             if err:
                 raise RuntimeError(f"launch refused ({err})")
     return y, fstate
@@ -229,8 +230,8 @@ def gather_bwd_times(flush) -> None:
         for stripe in (stripe0, 32, 128):
             def launch():
                 return lib.repro_embedding_gather_bwd(
-                    ids.data_ptr(), 8, dout.data_ptr(), dtable.data_ptr(), v, t,
-                    d, 0, vec, stripe, chunks, threads, stream)
+                    ids.data_ptr(), 8, dout.data_ptr(), dtable.data_ptr(), None, v,
+                    t, d, 0, 0, vec, stripe, chunks, threads, stream)
             if launch():
                 raise RuntimeError(f"B9 backward refused at stripe {stripe}")
             if not torch.equal(dtable, want):

@@ -91,10 +91,13 @@ import numpy as np
 from repro_torch.analysis.launchplan import BlockPlan, LaunchPlan, is_pow2
 from repro_torch.core.autotune import (
     ACC_BYTES_PER_THREAD,
+    DTYPE_BYTES,
     ELL_BLOCK_THREADS,
     ELL_LIVE_ROWS,
     ELL_NODE_BLOCK_THREADS,
+    GATHER_BWD_SLICE,
     KERNEL_DTYPES,
+    LM_KERNEL_DTYPES,
     MAX_K_TILE,
     SMEM_PER_BLOCK,
     SPMM_BLOCK_THREADS,
@@ -1017,7 +1020,9 @@ def plan_embedding_gather(vocab: int, d: int, ids, *, dtype: str = "float32",
     back, so their plan depends on the shapes and dtypes alone: the kernel
     bounds each of them to a row by the reference's rule
     (:func:`repro_torch.kernels.gather.clamp_ids`).  ``vl`` is the reference's rows a grid step; the CUDA
-    grid does not depend on it.
+    grid does not depend on it.  The table is float32, float64 or
+    bfloat16 (the copy moves bytes; a bf16 row of odd d goes in 2 B
+    vectors).
     """
     violations: list[str] = []
     shape = tuple(int(s) for s in ids.shape)
@@ -1026,8 +1031,9 @@ def plan_embedding_gather(vocab: int, d: int, ids, *, dtype: str = "float32",
         violations.append(f"ids must be one axis (T,), got shape {shape}")
     if not np.issubdtype(np.dtype(id_dtype), np.integer):
         violations.append(f"ids dtype {id_dtype} is not an integer type")
-    if dtype not in KERNEL_DTYPES:
-        violations.append(f"table dtype {dtype} is not float32 or float64")
+    if dtype not in LM_KERNEL_DTYPES:
+        violations.append(f"table dtype {dtype} is not bfloat16, float32 or "
+                          "float64")
     if vocab < 1 or d < 1:
         violations.append(f"table ({vocab}, {d}) is empty")
     if vl < 1:
@@ -1037,7 +1043,7 @@ def plan_embedding_gather(vocab: int, d: int, ids, *, dtype: str = "float32",
         if bad:
             violations.append(bad)
     t = shape[0] if len(shape) == 1 else 0
-    itemsize = np.dtype(dtype).itemsize if dtype in KERNEL_DTYPES else 4
+    itemsize = DTYPE_BYTES.get(dtype, 4)
     chunks, threads = gather_grid(t, d * itemsize)
     if t > MAX_GRID_X:
         violations.append(f"grid.x {t} > {MAX_GRID_X}")
@@ -1083,38 +1089,52 @@ def plan_embedding_gather_shard(vocab: int, lo: int, rows: int, d: int, ids, *,
 
 def plan_embedding_gather_bwd(vocab: int, d: int, t: int, *,
                               dtype: str = "float32",
-                              id_dtype: str = "int64") -> LaunchPlan:
-    """Plan ``embedding_gather_bwd`` of (t, d) output gradients into a
-    (vocab, d) table gradient: one launch of ``ceil(vocab / stripe) x
-    chunks`` blocks of ``threads``
-    (:func:`~repro_torch.core.autotune.gather_bwd_grid`), block s chunks +
-    c owning a stripe of table rows and one vector of each a thread; the
-    ids are read as they come (int32 or int64) and walked in slices of
+                              id_dtype: str = "int64",
+                              table_dtype: str | None = None) -> LaunchPlan:
+    """Plan ``embedding_gather_bwd`` of (t, d) output gradients of
+    ``dtype`` into a (vocab, d) table gradient of ``table_dtype`` (None:
+    ``dtype``): one launch of ``ceil(vocab / stripe) x chunks`` blocks of
+    ``threads`` (:func:`~repro_torch.core.autotune.gather_bwd_grid`, its
+    vectors cut from the output gradient's rows), block s chunks + c
+    owning a stripe of table rows and one vector of each a thread; the ids
+    are read as they come (int32 or int64) and walked in slices of
     :data:`~repro_torch.core.autotune.GATHER_BWD_SLICE`, so no T is refused
     for shared memory (fixed: :func:`~repro_torch.core.autotune.
-    gather_bwd_smem_bytes`, static)."""
+    gather_bwd_smem_bytes`, static).  The types: one of float32, float64
+    and bfloat16 for both, or float32 output gradients into a bfloat16
+    table; sums in float32 (float64), a bf16 row rounded once, through a
+    float32 ``carry`` (t, d) where t passes one slice."""
     violations: list[str] = []
-    if dtype not in KERNEL_DTYPES:
-        violations.append(f"gradient dtype {dtype} is not float32 or float64")
+    table_dtype = dtype if table_dtype is None else table_dtype
+    if dtype not in LM_KERNEL_DTYPES:
+        violations.append(f"gradient dtype {dtype} is not bfloat16, float32 "
+                          "or float64")
+    elif table_dtype != dtype and (dtype, table_dtype) != ("float32",
+                                                           "bfloat16"):
+        violations.append(f"a {table_dtype} table's gradient from {dtype} "
+                          "output gradients (the pairs: one type, or float32 "
+                          "into bfloat16)")
     if vocab < 1 or d < 1:
         violations.append(f"table ({vocab}, {d}) is empty")
     if t < 1:
         violations.append(f"no ids ({t})")
     if t > MAX_GRID_X:
         violations.append(f"{t} ids > {MAX_GRID_X}")
-    itemsize = np.dtype(dtype).itemsize if dtype in KERNEL_DTYPES else 4
+    itemsize = DTYPE_BYTES.get(dtype, 4)
     stripe, chunks, threads, vec = gather_bwd_grid(max(vocab, 1), max(d, 1),
                                                    t, itemsize)
     blocks = -(-max(vocab, 1) // stripe) * chunks
     if blocks > MAX_GRID_X:
         violations.append(f"grid.x {blocks} > {MAX_GRID_X}")
     kernel_ids = id_dtype if id_dtype in ("int32", "int64") else "int64"
+    operands = (("ids", (t,), kernel_ids), ("dout", (t, d), dtype),
+                ("dtable", (vocab, d), table_dtype))
+    if DTYPE_BYTES.get(table_dtype, 4) < 4 and t > GATHER_BWD_SLICE:
+        operands += (("carry", (t, d), "float32"),)
     block = BlockPlan(
         label=f"stripes[{stripe} rows x {chunks} chunk(s) of {threads} "
               f"threads, {vec} B vectors]",
-        grid=(blocks,), block=(threads,),
-        operands=(("ids", (t,), kernel_ids), ("dout", (t, d), dtype),
-                  ("dtable", (vocab, d), dtype)),
+        grid=(blocks,), block=(threads,), operands=operands,
         smem_bytes=gather_bwd_smem_bytes())
     return LaunchPlan(kernel="embedding_gather_bwd",
                       operand=f"scatter T={t} into ({vocab}, {d})",
@@ -1124,14 +1144,16 @@ def plan_embedding_gather_bwd(vocab: int, d: int, t: int, *,
 
 def plan_embedding_gather_shard_bwd(vocab: int, lo: int, rows: int, d: int,
                                     t: int, *, dtype: str = "float32",
-                                    id_dtype: str = "int64") -> LaunchPlan:
+                                    id_dtype: str = "int64",
+                                    table_dtype: str | None = None) -> LaunchPlan:
     """Plan the vocab-shard backward: the (rows, d) gradient of rows ``[lo,
     lo + rows)`` of a (vocab, d) table from (t, d) output gradients.  The
     launch is the whole-table backward's (:func:`plan_embedding_gather_bwd`)
     over the shard's rows: ``ceil(rows / stripe) x chunks`` blocks, the ids
     bounded by the *whole* vocabulary inside the kernel, then those outside
     the window dropped.  The window must lie inside the vocabulary."""
-    plan = plan_embedding_gather_bwd(rows, d, t, dtype=dtype, id_dtype=id_dtype)
+    plan = plan_embedding_gather_bwd(rows, d, t, dtype=dtype, id_dtype=id_dtype,
+                                     table_dtype=table_dtype)
     violations = list(plan.violations)
     if lo < 0 or rows < 1 or lo + rows > vocab:
         violations.append(f"shard rows [{lo}, {lo + rows}) outside the "
@@ -1157,6 +1179,13 @@ def plan_ssd_fused(b: int, l: int, h: int, p: int, g: int, n: int, *,
     fp32, 105 KB in fp64), so no shape is refused for it.  Refused: a
     sequence that is not a whole number of chunks (``ssd.py:69``), heads
     that groups do not divide, and grids past CUDA's limits.
+
+    ``dtype`` "bfloat16" is the reference model's SSD_BF16 mix: xd, B, C
+    and y bf16, ad and everything else float32, the fp32 form's launches
+    and shared memory (operands widened as they are loaded, element by
+    element: no alignment beyond a bf16 element's 2 B); where p takes more
+    than one 64-column slice, y's partial sums go through a float32
+    scratch ``yacc`` (b, l, h, p), so that y is rounded once.
     """
     violations: list[str] = []
     if min(b, l, h, p, g, n) < 1:
@@ -1169,23 +1198,28 @@ def plan_ssd_fused(b: int, l: int, h: int, p: int, g: int, n: int, *,
                           f"the chunk {chunk}")
     if g >= 1 and h % g:
         violations.append(f"{h} heads are not a multiple of {g} groups")
-    if dtype not in KERNEL_DTYPES:
-        violations.append(f"ssd dtype {dtype} is not float32 or float64")
-    itemsize = int(np.dtype(dtype).itemsize) if dtype in KERNEL_DTYPES else 8
+    if dtype not in LM_KERNEL_DTYPES:
+        violations.append(f"ssd dtype {dtype} is not bfloat16, float32 or "
+                          "float64")
+    acc = "float64" if dtype == "float64" else "float32"
+    itemsize = DTYPE_BYTES[acc]
     ext = [max(int(v), 1) for v in (b, l, h, p, n, chunk)]
     grids = ssd_grids(*ext)
     nc = ext[1] // ext[5]
-    scratch = (("cum", (b, h, l), dtype), ("states", (b, h, nc, p, n), dtype))
-    entering = ("entering", (b, h, nc, p, n), dtype)
-    io = {"xd": ("xd", (b, l, h, p), dtype), "ad": ("ad", (b, l, h), dtype),
+    scratch = (("cum", (b, h, l), acc), ("states", (b, h, nc, p, n), acc))
+    entering = ("entering", (b, h, nc, p, n), acc)
+    io = {"xd": ("xd", (b, l, h, p), dtype), "ad": ("ad", (b, l, h), acc),
           "B": ("B", (b, l, g, n), dtype), "C": ("C", (b, l, g, n), dtype),
           "y": ("y", (b, l, h, p), dtype),
-          "state": ("state", (b, h, p, n), dtype)}
+          "state": ("state", (b, h, p, n), acc)}
+    out = (io["y"],)
+    if dtype == "bfloat16" and p > SSD_TILE:
+        out += (("yacc", (b, l, h, p), acc),)
     operands = {
         "chunk_state": (io["xd"], io["ad"], io["B"]) + scratch,
         "state_pass": scratch + (entering, io["state"]),
-        "chunk_output": (io["xd"], io["B"], io["C"], scratch[0], entering,
-                         io["y"]),
+        "chunk_output": (io["xd"], io["B"], io["C"], scratch[0], entering)
+        + out,
     }
     blocks = []
     for launch in SSD_LAUNCHES:
@@ -1219,15 +1253,19 @@ def plan_ssd_fused_bwd(b: int, l: int, h: int, p: int, g: int, n: int, *,
     before their group sums, the key launch's M and (G ∘ L) tiles (``mh``,
     ``gh`` (b h nc, pairs, 64, 64)) and the pairs' row sums (``rh`` (b h
     nc, pairs, 64)), of which it hands the query launch ``mh`` and
-    ``rh``."""
+    ``rh``.  In the bf16 form xd, dy, B, C, dx, dB and dC are bf16, the
+    rest float32, the shared memory the fp32 form's."""
     fwd = plan_ssd_fused(b, l, h, p, g, n, chunk=chunk, dtype=dtype)
     violations = list(fwd.violations)
-    itemsize = int(np.dtype(dtype).itemsize) if dtype in KERNEL_DTYPES else 8
+    acc = "float64" if dtype == "float64" else "float32"
+    itemsize = DTYPE_BYTES[acc]
     ext = [max(int(v), 1) for v in (b, l, h, p, g, n, chunk)]
     grids = ssd_bwd_grids(*ext)
     nc = ext[1] // ext[6]
     pairs = b * h * nc * ssd_bwd_pairs(ext[1], ext[6])
-    ops = {name: (name, shape, dtype) for name, shape in (
+    stored = {"xd", "dy", "dx", "B", "C", "dB", "dC"}
+    ops = {name: (name, shape, dtype if name in stored else acc)
+           for name, shape in (
         ("xd", (b, l, h, p)), ("dy", (b, l, h, p)), ("dx", (b, l, h, p)),
         ("B", (b, l, g, n)), ("C", (b, l, g, n)), ("dB", (b, l, g, n)),
         ("dC", (b, l, g, n)), ("dad", (b, l, h)), ("cum", (b, h, l)),

@@ -60,6 +60,12 @@ MAX_K_TILE = 32
 ACC_BYTES_PER_THREAD = 256
 #: Value dtypes the SpMM kernel is instantiated for.
 KERNEL_DTYPES = ("float32", "float64")
+#: Element types of the LM kernels B8 and B9: float32, float64 and the
+#: reference model's bf16 storage (B8: bf16 xd / B / C beside float32 ad,
+#: sums in float32; B9: bf16 rows, its backward's sums in float32).
+LM_KERNEL_DTYPES = ("float32", "float64", "bfloat16")
+#: Bytes of one element of each.
+DTYPE_BYTES = {"float32": 4, "float64": 8, "bfloat16": 2}
 #: Smallest SELL slice height the packer is asked for.
 MIN_C = 8
 #: Dynamic shared memory one block may claim on an H100: 227 KB of the

@@ -18,11 +18,13 @@
 //     160-thread block a row (T = 512: 512 blocks on 132 SMs), and T = 4 is
 //     twenty one-warp blocks;
 //   * loads in flight: each thread copies 64 bytes, four 16 B vectors (or
-//     eight 8 B, sixteen 4 B where a row or a pointer allows no wider
-//     vector), all loaded before any is stored; lane t of a warp takes
-//     vector t + 32 k, so every load and store of a warp is 512 contiguous
-//     bytes (16 B vectors).  The copy is of bytes, so one kernel serves
-//     float32 and float64;
+//     eight 8 B, sixteen 4 B, thirty-two 2 B where a row or a pointer
+//     allows no wider vector: a bf16 row of odd d is 2 B aligned), all
+//     loaded before any is stored; lane t of a warp takes vector t + 32 k,
+//     so every load and store of a warp is 512 contiguous bytes (16 B
+//     vectors).  The copy is of bytes, so one kernel serves float32,
+//     float64 and bfloat16 (the reference returns a bf16 table's rows in
+//     bf16, repro/kernels/gather.py:44, 52);
 //   * ids are read as they come, int32 or int64 (a template on the id type),
 //     so the engine's int64 argmax ids need no conversion kernel: one
 //     launch a call.
@@ -58,6 +60,16 @@
 // of dout read once: (V d + T d) itemsize + T id bytes, 0.157 ms at
 // mamba2's V = 50,280, d = 2560, T = 1024 fp32 on an H100's 3.35 TB/s.
 // Almost all of it is the zero rows: at most T of V rows have an id.
+//
+// The element types (dout_type, table_type: 0 float32, 1 float64, 2
+// bfloat16): dout and dtable of one type, or a bf16 table's gradient from
+// float32 output gradients (the model's path where the table is stored in
+// bf16 and the activations run in float32).  Sums run in float32 (float64
+// for float64), whatever is stored: a bf16 dout is widened as it is loaded,
+// a bf16 row's sum rounded once, to nearest even, as it is stored.  A sum
+// that spans slices of ids (T > kSlice) carries through a float32 scratch
+// (carry, (T, d): a row's partial at the position of its first id), not
+// through the bf16 row, so that the row is rounded once.
 //
 // Design: one launch, no sort and no search (the form before it bound and
 // stable-sorted the ids on the card in several small launches, then had
@@ -108,6 +120,7 @@
 // all of dout's hit rows at most once a column; the zeros are the bulk).
 // Host wrapper: gather.py::embedding_gather_shard_bwd.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -159,26 +172,23 @@ constexpr int kMaxStripe = 256;     // table rows a block (a hit's row fits 8 bi
 constexpr int kRowsInFlight = 16;   // dout rows loaded before they are added
 constexpr int kIdsInFlight = 4;     // rounds of 32 ids warp 0 loads at once
 
-__device__ __forceinline__ void vadd(float4& a, const float4& b) {
-  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
-}
-__device__ __forceinline__ void vadd(float2& a, const float2& b) { a.x += b.x; a.y += b.y; }
-__device__ __forceinline__ void vadd(float& a, const float& b) { a += b; }
-__device__ __forceinline__ void vadd(double2& a, const double2& b) { a.x += b.x; a.y += b.y; }
-__device__ __forceinline__ void vadd(double& a, const double& b) { a += b; }
+// N consecutive elements of one type: the vector a backward thread reads
+// from dout or writes to dtable (4, 8 or 16 B, or one element).
+template <typename E, int N>
+struct alignas(sizeof(E) * N) Pack {
+  E v[N];
+};
 
-template <typename V>
-__device__ __forceinline__ V vzero();
-template <>
-__device__ __forceinline__ float4 vzero<float4>() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-template <>
-__device__ __forceinline__ float2 vzero<float2>() { return make_float2(0.f, 0.f); }
-template <>
-__device__ __forceinline__ float vzero<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ double2 vzero<double2>() { return make_double2(0.0, 0.0); }
-template <>
-__device__ __forceinline__ double vzero<double>() { return 0.0; }
+// Sums of E run in Acc<E>: float for float32 and bfloat16, double for float64.
+template <typename E> struct AccOf { using type = float; };
+template <> struct AccOf<double> { using type = double; };
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void narrow(float v, float& out) { out = v; }
+__device__ __forceinline__ void narrow(double v, double& out) { out = v; }
+__device__ __forceinline__ void narrow(float v, __nv_bfloat16& out) { out = __float2bfloat16_rn(v); }
 
 template <typename Id>
 __device__ __forceinline__ int64_t bounded(const Id* ids, int64_t k, int64_t n_rows) {
@@ -188,23 +198,32 @@ __device__ __forceinline__ int64_t bounded(const Id* ids, int64_t k, int64_t n_r
 }
 
 // Block s * chunks + c: rows [s * stripe, (s + 1) * stripe) of dtable,
-// vector c * blockDim.x + threadIdx.x of each (row_vecs vectors V a row);
-// a stripe's chunks are neighbours in launch order, so the first stripes
-// (the frequent ids of a Zipf stream) start first.  Warp 0 reads the ids
-// while the other warps zero-fill the stripe; then every thread sums the
-// hits of the column it owns.
+// vector c * blockDim.x + threadIdx.x of each (row_vecs vectors of N
+// elements a row: N of D from dout, N of S to dtable); a stripe's chunks
+// are neighbours in launch order, so the first stripes (the frequent ids of
+// a Zipf stream) start first.  Warp 0 reads the ids while the other warps
+// zero-fill the stripe; then every thread sums the hits of the column it
+// owns, in A = AccOf<D>.
 // Ids are bounded by `vocab` and shifted by `lo` (the shard's first row);
-// rows outside [0, n_rows) after the shift are another shard's.
-template <typename V, typename Id>
+// rows outside [0, n_rows) after the shift are another shard's.  carry
+// ((n_ids, d) of A, nullable): where S is narrower than A and T > kSlice,
+// a row's partial sum between slices, at the position of its first id.
+template <typename D, typename S, int N, typename Id>
 __global__ void __launch_bounds__(kMaxThreads)
-gather_bwd_kernel(const Id* __restrict__ ids, const V* __restrict__ dout,
-                  V* __restrict__ dtable, int64_t n_rows, int64_t vocab, int64_t lo,
-                  int n_ids, int64_t row_vecs, int stripe, int chunks) {
+gather_bwd_kernel(const Id* __restrict__ ids, const D* __restrict__ dout,
+                  S* __restrict__ dtable, typename AccOf<D>::type* __restrict__ carry,
+                  int64_t n_rows, int64_t vocab, int64_t lo, int n_ids, int64_t row_vecs,
+                  int stripe, int chunks) {
+  using A = typename AccOf<D>::type;
+  using VD = Pack<D, N>;
+  using VS = Pack<S, N>;
+  constexpr bool kExact = sizeof(S) == sizeof(A);   // dtable holds the sums as they are
   __shared__ int hits[kSlice];              // (stripe row << 16) | slice position
   __shared__ int order[kSlice];             // the hits by row, ascending position within
   __shared__ int cnt[kMaxStripe];           // hits of each row in this slice
   __shared__ int start[kMaxStripe + 1];     // their offsets in order[]
   __shared__ int placed[kMaxStripe];        // hits of each row placed so far
+  __shared__ int first[kMaxStripe];         // position of a summed row's first id
   __shared__ unsigned char done[kMaxStripe];  // an earlier slice summed into it
   __shared__ int n_hits;
 
@@ -213,14 +232,14 @@ gather_bwd_kernel(const Id* __restrict__ ids, const V* __restrict__ dout,
   const int rows = static_cast<int>(min(static_cast<int64_t>(stripe), n_rows - r0));
   const int64_t c0 = static_cast<int64_t>(blockIdx.x % chunks) * blockDim.x;
   const int vecs = static_cast<int>(min(static_cast<int64_t>(blockDim.x), row_vecs - c0));
-  V* dst = dtable + r0 * row_vecs + c0;     // this block's corner
+  VS* dst = reinterpret_cast<VS*>(dtable) + r0 * row_vecs + c0;   // this block's corner
 
   // 1. the zeros: every vector of the stripe's chunk, by warps 1.. (by the
   // one warp first where the block is one warp), while warp 0 reads ids
   if (warp > 0 || blockDim.x == 32) {
-    const int first = blockDim.x == 32 ? 0 : 32, workers = blockDim.x - first;
-    const V z = vzero<V>();
-    for (int e = tid - first; e < rows * vecs; e += workers)
+    const int first_w = blockDim.x == 32 ? 0 : 32, workers = blockDim.x - first_w;
+    const VS z{};
+    for (int e = tid - first_w; e < rows * vecs; e += workers)
       dst[static_cast<int64_t>(e / vecs) * row_vecs + e % vecs] = z;
   }
   if (warp == 0)
@@ -254,7 +273,7 @@ gather_bwd_kernel(const Id* __restrict__ ids, const V* __restrict__ dout,
       }
       __syncwarp();
       // exclusive offsets of the rows' hits (a warp scan, 32 rows a step)
-      int carry = 0;
+      int carry_n = 0;
       for (int c = 0; c < rows; c += 32) {
         const int v = c + lane < rows ? cnt[c + lane] : 0;
         int inc = v;
@@ -263,10 +282,10 @@ gather_bwd_kernel(const Id* __restrict__ ids, const V* __restrict__ dout,
           const int u = __shfl_up_sync(0xffffffffu, inc, dd);
           if (lane >= dd) inc += u;
         }
-        if (c + lane < rows) { start[c + lane] = carry + inc - v; placed[c + lane] = 0; }
-        carry += __shfl_sync(0xffffffffu, inc, 31);
+        if (c + lane < rows) { start[c + lane] = carry_n + inc - v; placed[c + lane] = 0; }
+        carry_n += __shfl_sync(0xffffffffu, inc, 31);
       }
-      if (lane == 0) { start[rows] = carry; n_hits = nh; }
+      if (lane == 0) { start[rows] = carry_n; n_hits = nh; }
       __syncwarp();
       // 3. stable placement by row, in ascending position: a hit's rank
       // among the equal rows of its 32 goes after those placed before
@@ -287,36 +306,72 @@ gather_bwd_kernel(const Id* __restrict__ ids, const V* __restrict__ dout,
       // 4. the sorted hits in groups of kRowsInFlight, across row
       // boundaries: a group's loads are all in flight before its adds,
       // which run in order, a row's sum stored when the next row begins
-      const V* src = dout + static_cast<int64_t>(s0) * row_vecs + c0 + tid;
-      V* out = dst + tid;
+      const VD* src = reinterpret_cast<const VD*>(dout) + static_cast<int64_t>(s0) * row_vecs +
+                      c0 + tid;
+      VS* out = dst + tid;
+      const bool carried = !kExact && carry != nullptr && s0 + kSlice < n_ids;
+      // a row's partial between slices: at its first id's position (the
+      // row's first hit in this slice where no earlier slice hit it)
+      auto carry_at = [&](int r) {
+        const int64_t pos = done[r] ? first[r] : s0 + (order[start[r]] & 0xffff);
+        return carry + (pos * row_vecs + c0 + tid) * N;
+      };
+      auto flush = [&](int r, const A (&acc)[N]) {
+        VS o;
+#pragma unroll
+        for (int e = 0; e < N; ++e) narrow(acc[e], o.v[e]);
+        out[static_cast<int64_t>(r) * row_vecs] = o;
+        if (carried) {
+          A* c = carry_at(r);
+#pragma unroll
+          for (int e = 0; e < N; ++e) c[e] = acc[e];
+        }
+      };
       int cur = -1;
-      V acc = vzero<V>();
+      A acc[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[e] = A(0);
       for (int k0 = 0; k0 < nh; k0 += kRowsInFlight) {
-        V v[kRowsInFlight];
+        VD v[kRowsInFlight];
 #pragma unroll
         for (int u = 0; u < kRowsInFlight; ++u)
-          if (k0 + u < nh)
-            v[u] = __ldg(src + static_cast<int64_t>(order[k0 + u] & 0xffff) * row_vecs);
+          if (k0 + u < nh) v[u] = src[static_cast<int64_t>(order[k0 + u] & 0xffff) * row_vecs];
 #pragma unroll
         for (int u = 0; u < kRowsInFlight; ++u) {
           if (k0 + u >= nh) break;
           const int r = order[k0 + u] >> 16;
           if (r != cur) {
-            if (cur >= 0) out[static_cast<int64_t>(cur) * row_vecs] = acc;
+            if (cur >= 0) flush(cur, acc);
             cur = r;
             // from zero, or from the row's sum over the earlier slices
-            // (this thread's own store)
-            acc = done[r] ? out[static_cast<int64_t>(r) * row_vecs] : vzero<V>();
+            // (this thread's own store: the row itself where it holds the
+            // sum exactly, else the carry)
+            if (!done[r]) {
+#pragma unroll
+              for (int e = 0; e < N; ++e) acc[e] = A(0);
+            } else if constexpr (kExact) {
+              const VS o = out[static_cast<int64_t>(r) * row_vecs];
+#pragma unroll
+              for (int e = 0; e < N; ++e) acc[e] = widen(o.v[e]);
+            } else {
+              const A* c = carry_at(r);
+#pragma unroll
+              for (int e = 0; e < N; ++e) acc[e] = c[e];
+            }
           }
-          vadd(acc, v[u]);
+#pragma unroll
+          for (int e = 0; e < N; ++e) acc[e] += widen(v[u].v[e]);
         }
       }
-      if (cur >= 0) out[static_cast<int64_t>(cur) * row_vecs] = acc;
+      if (cur >= 0) flush(cur, acc);
     }
     __syncthreads();                         // the sums read start[], order[] and done[]
     if (warp == 0)
       for (int r = lane; r < rows; r += 32)
-        if (start[r + 1] > start[r]) done[r] = 1;
+        if (start[r + 1] > start[r] && !done[r]) {
+          first[r] = s0 + (order[start[r]] & 0xffff);
+          done[r] = 1;
+        }
   }
 }
 
@@ -345,8 +400,11 @@ cudaError_t launch_id(const void* table, const void* ids, void* out, int64_t n_i
   if (aligned(8))
     return launch<uint2, Id>(table, ids, out, n_ids, row_bytes, vocab, lo, shard_rows, chunks,
                              threads, st);
-  return launch<unsigned, Id>(table, ids, out, n_ids, row_bytes, vocab, lo, shard_rows, chunks,
-                              threads, st);
+  if (aligned(4))
+    return launch<unsigned, Id>(table, ids, out, n_ids, row_bytes, vocab, lo, shard_rows,
+                                chunks, threads, st);
+  return launch<unsigned short, Id>(table, ids, out, n_ids, row_bytes, vocab, lo, shard_rows,
+                                    chunks, threads, st);
 }
 
 // The checks and the launch of both forward entries: rows [lo, lo +
@@ -356,7 +414,8 @@ int gather_entry(const void* table, int64_t vocab, int64_t lo, int64_t shard_row
                  int chunks, int threads, void* stream) {
   const int64_t chunk_bytes = static_cast<int64_t>(kThreadBytes) * threads;
   if (vocab <= 0 || lo < 0 || shard_rows <= 0 || lo + shard_rows > vocab || n_ids <= 0 ||
-      n_ids > 2147483647 || row_bytes <= 0 || row_bytes % 4 != 0 ||
+      n_ids > 2147483647 || row_bytes <= 0 || row_bytes % 2 != 0 ||
+      reinterpret_cast<uintptr_t>(table) % 2 != 0 || reinterpret_cast<uintptr_t>(out) % 2 != 0 ||
       (id_bytes != 4 && id_bytes != 8) || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || chunks < 1 || chunks > 65535 ||
       chunks * chunk_bytes < row_bytes || (chunks - 1) * chunk_bytes >= row_bytes) {
@@ -371,39 +430,75 @@ int gather_entry(const void* table, int64_t vocab, int64_t lo, int64_t shard_row
   return static_cast<int>(err);
 }
 
-template <typename V>
-int launch_bwd(const void* ids, int id_bytes, const void* dout, void* dtable, int64_t n_rows,
-               int64_t vocab, int64_t lo, int n_ids, int64_t row_vecs, int stripe, int chunks,
-               int threads, cudaStream_t st) {
+template <typename D, typename S, int N>
+int launch_bwd(const void* ids, int id_bytes, const void* dout, void* dtable, void* carry,
+               int64_t n_rows, int64_t vocab, int64_t lo, int n_ids, int64_t row_vecs, int stripe,
+               int chunks, int threads, cudaStream_t st) {
+  using A = typename AccOf<D>::type;
   const unsigned grid = static_cast<unsigned>(((n_rows + stripe - 1) / stripe) * chunks);
   if (id_bytes == 8) {
-    gather_bwd_kernel<V, long long><<<grid, threads, 0, st>>>(
-        static_cast<const long long*>(ids), static_cast<const V*>(dout), static_cast<V*>(dtable),
-        n_rows, vocab, lo, n_ids, row_vecs, stripe, chunks);
+    gather_bwd_kernel<D, S, N, long long><<<grid, threads, 0, st>>>(
+        static_cast<const long long*>(ids), static_cast<const D*>(dout), static_cast<S*>(dtable),
+        static_cast<A*>(carry), n_rows, vocab, lo, n_ids, row_vecs, stripe, chunks);
   } else {
-    gather_bwd_kernel<V, int><<<grid, threads, 0, st>>>(
-        static_cast<const int*>(ids), static_cast<const V*>(dout), static_cast<V*>(dtable),
-        n_rows, vocab, lo, n_ids, row_vecs, stripe, chunks);
+    gather_bwd_kernel<D, S, N, int><<<grid, threads, 0, st>>>(
+        static_cast<const int*>(ids), static_cast<const D*>(dout), static_cast<S*>(dtable),
+        static_cast<A*>(carry), n_rows, vocab, lo, n_ids, row_vecs, stripe, chunks);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch of one (dout, table) type pair, by the vector's element count.
+template <typename D, typename S>
+int launch_types(int n_elems, const void* ids, int id_bytes, const void* dout, void* dtable,
+                 void* carry, int64_t n_rows, int64_t vocab, int64_t lo, int n_ids,
+                 int64_t row_vecs, int stripe, int chunks, int threads, cudaStream_t st) {
+  switch (n_elems) {
+    case 1: return launch_bwd<D, S, 1>(ids, id_bytes, dout, dtable, carry, n_rows, vocab, lo,
+                                       n_ids, row_vecs, stripe, chunks, threads, st);
+    case 2: return launch_bwd<D, S, 2>(ids, id_bytes, dout, dtable, carry, n_rows, vocab, lo,
+                                       n_ids, row_vecs, stripe, chunks, threads, st);
+    case 4: return launch_bwd<D, S, 4>(ids, id_bytes, dout, dtable, carry, n_rows, vocab, lo,
+                                       n_ids, row_vecs, stripe, chunks, threads, st);
+    default:
+      if constexpr (sizeof(D) == 2)
+        return launch_bwd<D, S, 8>(ids, id_bytes, dout, dtable, carry, n_rows, vocab, lo,
+                                   n_ids, row_vecs, stripe, chunks, threads, st);
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Element-type codes of the backward entries.
+enum DtypeCode : int { kFloat32 = 0, kFloat64 = 1, kBfloat16 = 2 };
+
+int item_bytes(int code) {
+  return code == kFloat32 ? 4 : code == kFloat64 ? 8 : code == kBfloat16 ? 2 : 0;
+}
+
 // The checks and the launch of both backward entries: the gradient of rows
-// [lo, lo + n_rows) of a vocab-row table.
-int bwd_entry(const void* ids, int id_bytes, const void* dout, void* dtable, int64_t n_rows,
-              int64_t lo, int64_t vocab, int64_t n_ids, int64_t d, int is_double,
-              int vec_bytes, int stripe, int chunks, int threads, void* stream) {
-  const int64_t item = is_double ? 8 : 4;
-  const int64_t row_bytes = d * item;
-  const int64_t row_vecs = vec_bytes > 0 ? row_bytes / vec_bytes : 0;
+// [lo, lo + n_rows) of a vocab-row table.  vec_bytes is dout's vector: N =
+// vec_bytes / dout's element size elements, the same N of the table.
+int bwd_entry(const void* ids, int id_bytes, const void* dout, void* dtable, void* carry,
+              int64_t n_rows, int64_t lo, int64_t vocab, int64_t n_ids, int64_t d,
+              int dout_type, int table_type, int vec_bytes, int stripe, int chunks,
+              int threads, void* stream) {
+  const int item = item_bytes(dout_type), titem = item_bytes(table_type);
+  const int n_elems = item > 0 && vec_bytes % item == 0 ? vec_bytes / item : 0;
+  const int64_t row_vecs = n_elems > 0 ? d / n_elems : 0;
   const int64_t n_stripes = stripe > 0 ? (n_rows + stripe - 1) / stripe : 0;
-  auto misaligned = [&](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % static_cast<uintptr_t>(vec_bytes) != 0;
+  auto misaligned = [&](const void* ptr, int64_t bytes) {
+    return bytes <= 0 || reinterpret_cast<uintptr_t>(ptr) % static_cast<uintptr_t>(bytes) != 0;
   };
-  if (n_rows <= 0 || lo < 0 || lo + n_rows > vocab || n_ids <= 0 || n_ids > 2147483647 ||
-      d <= 0 || (id_bytes != 4 && id_bytes != 8) ||
-      (vec_bytes != 4 && vec_bytes != 8 && vec_bytes != 16) || vec_bytes < item ||
-      row_bytes % vec_bytes != 0 || misaligned(dout) || misaligned(dtable) ||
+  const bool pair_ok = (item > 0 && dout_type == table_type) ||
+                       (dout_type == kFloat32 && table_type == kBfloat16);
+  const bool needs_carry = titem < item_bytes(dout_type == kFloat64 ? kFloat64 : kFloat32) &&
+                           n_ids > kSlice;
+  if (!pair_ok || n_rows <= 0 || lo < 0 || lo + n_rows > vocab || n_ids <= 0 ||
+      n_ids > 2147483647 || d <= 0 || (id_bytes != 4 && id_bytes != 8) ||
+      (n_elems != 1 && n_elems != 2 && n_elems != 4 && n_elems != 8) || vec_bytes > 16 ||
+      d % n_elems != 0 || misaligned(dout, vec_bytes) ||
+      misaligned(dtable, static_cast<int64_t>(n_elems) * titem) ||
+      (needs_carry && misaligned(carry, 4)) ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 || stripe < 1 ||
       stripe > kMaxStripe || chunks < 1 || n_stripes * chunks > 2147483647 ||
       static_cast<int64_t>(chunks) * threads < row_vecs ||
@@ -412,21 +507,20 @@ int bwd_entry(const void* ids, int id_bytes, const void* dout, void* dtable, int
   }
   auto st = static_cast<cudaStream_t>(stream);
   const int t = static_cast<int>(n_ids);
-  if (is_double) {
-    if (vec_bytes == 16)
-      return launch_bwd<double2>(ids, id_bytes, dout, dtable, n_rows, vocab, lo, t, row_vecs,
-                                 stripe, chunks, threads, st);
-    return launch_bwd<double>(ids, id_bytes, dout, dtable, n_rows, vocab, lo, t, row_vecs,
-                              stripe, chunks, threads, st);
-  }
-  if (vec_bytes == 16)
-    return launch_bwd<float4>(ids, id_bytes, dout, dtable, n_rows, vocab, lo, t, row_vecs,
-                              stripe, chunks, threads, st);
-  if (vec_bytes == 8)
-    return launch_bwd<float2>(ids, id_bytes, dout, dtable, n_rows, vocab, lo, t, row_vecs,
-                              stripe, chunks, threads, st);
-  return launch_bwd<float>(ids, id_bytes, dout, dtable, n_rows, vocab, lo, t, row_vecs,
-                           stripe, chunks, threads, st);
+  void* c = needs_carry ? carry : nullptr;
+  if (dout_type == kFloat64)
+    return launch_types<double, double>(n_elems, ids, id_bytes, dout, dtable, c, n_rows, vocab,
+                                        lo, t, row_vecs, stripe, chunks, threads, st);
+  if (dout_type == kBfloat16)
+    return launch_types<__nv_bfloat16, __nv_bfloat16>(n_elems, ids, id_bytes, dout, dtable, c,
+                                                      n_rows, vocab, lo, t, row_vecs, stripe,
+                                                      chunks, threads, st);
+  if (table_type == kBfloat16)
+    return launch_types<float, __nv_bfloat16>(n_elems, ids, id_bytes, dout, dtable, c, n_rows,
+                                              vocab, lo, t, row_vecs, stripe, chunks, threads,
+                                              st);
+  return launch_types<float, float>(n_elems, ids, id_bytes, dout, dtable, c, n_rows, vocab, lo,
+                                    t, row_vecs, stripe, chunks, threads, st);
 }
 
 }  // namespace
@@ -461,20 +555,24 @@ int repro_embedding_gather_shard(const void* table, int64_t shard_rows, int64_t 
 }
 
 // The backward.  ids (n_ids,) of id_bytes (4: int32, 8: int64), any values
-// (each bounded to a row as above); dout (n_ids, d) and dtable (n_rows, d)
-// of one element type (float64 when is_double), their rows read and written
-// as vectors of vec_bytes (16, 8 or 4, at least the element size; d times
-// the element size and both pointers multiples of it).  Grid
-// ceil(n_rows / stripe) x chunks blocks of `threads` (a multiple of 32, at
-// most 256), stripe at most 256 rows, each thread one vector of each row:
-// the chunks must cover the row and none may start past its end.  The caller
-// makes the stream's device current.  Returns the launch's cudaError_t.
+// (each bounded to a row as above); dout (n_ids, d) of dout_type and dtable
+// (n_rows, d) of table_type (codes 0 float32, 1 float64, 2 bfloat16: the
+// same type, or a bfloat16 table from float32 dout), each thread reading a
+// vector of vec_bytes (16, 8, 4 or one element) of dout's rows and writing
+// as many elements of dtable's; d a multiple of them, both pointers
+// aligned to them.  carry: (n_ids, d) float32 scratch, needed (4 B
+// aligned) where the table is bf16 and n_ids > 2048, else ignored
+// (nullable).  Grid ceil(n_rows / stripe) x chunks blocks of `threads` (a
+// multiple of 32, at most 256), stripe at most 256 rows, each thread one
+// vector of each row: the chunks must cover the row and none may start
+// past its end.  The caller makes the stream's device current.  Returns
+// the launch's cudaError_t.
 int repro_embedding_gather_bwd(const void* ids, int id_bytes, const void* dout, void* dtable,
-                               int64_t n_rows, int64_t n_ids, int64_t d, int is_double,
-                               int vec_bytes, int stripe, int chunks, int threads,
-                               void* stream) {
-  return bwd_entry(ids, id_bytes, dout, dtable, n_rows, 0, n_rows, n_ids, d, is_double,
-                   vec_bytes, stripe, chunks, threads, stream);
+                               void* carry, int64_t n_rows, int64_t n_ids, int64_t d,
+                               int dout_type, int table_type, int vec_bytes, int stripe,
+                               int chunks, int threads, void* stream) {
+  return bwd_entry(ids, id_bytes, dout, dtable, carry, n_rows, 0, n_rows, n_ids, d, dout_type,
+                   table_type, vec_bytes, stripe, chunks, threads, stream);
 }
 
 // The vocab-shard backward: dtable (shard_rows, d) is the gradient of rows
@@ -483,12 +581,12 @@ int repro_embedding_gather_bwd(const void* ids, int id_bytes, const void* dout, 
 // row this shard does not hold adds nothing.  The rest as for
 // repro_embedding_gather_bwd, the grid's stripes over the shard's rows.
 int repro_embedding_gather_shard_bwd(const void* ids, int id_bytes, const void* dout,
-                                     void* dtable, int64_t shard_rows, int64_t lo,
-                                     int64_t vocab, int64_t n_ids, int64_t d, int is_double,
-                                     int vec_bytes, int stripe, int chunks, int threads,
-                                     void* stream) {
-  return bwd_entry(ids, id_bytes, dout, dtable, shard_rows, lo, vocab, n_ids, d, is_double,
-                   vec_bytes, stripe, chunks, threads, stream);
+                                     void* dtable, void* carry, int64_t shard_rows, int64_t lo,
+                                     int64_t vocab, int64_t n_ids, int64_t d, int dout_type,
+                                     int table_type, int vec_bytes, int stripe, int chunks,
+                                     int threads, void* stream) {
+  return bwd_entry(ids, id_bytes, dout, dtable, carry, shard_rows, lo, vocab, n_ids, d,
+                   dout_type, table_type, vec_bytes, stripe, chunks, threads, stream);
 }
 
 const char* repro_gather_cuda_error_string(int code) {

@@ -94,6 +94,16 @@
 // (saved by repro_torch/kernels/ssd.py's autograd Function from the forward
 // launches), not recomputed.
 //
+// The bf16 form (the forward's SSD_BF16 mix): xd, dy, B and C stored in
+// bf16; ad, dfinal, cum, the states and every scratch float32.  Each kernel
+// is a template on the storage type S over the fp32 form's arithmetic: a
+// bf16 operand is widened to float as it is staged (a plain load and a
+// shared-memory store in place of cp.async, which cannot convert), so the
+// products and sums are the fp32 form's on the upcast inputs; dX is
+// rounded once to bf16 as it is stored, dB and dC once after the sum over
+// the heads of a group (launch 5), dad and d init_state stay float32.  So
+// each output is the fp32 form's on the upcast inputs, rounded once.
+//
 // The host wrapper is repro_torch/kernels/ssd.py::ssd_fused_bwd; it plans the
 // launches (repro_torch/analysis/preflight.py::plan_ssd_fused_bwd),
 // allocates outputs and scratch and raises on a non-zero return code.
@@ -252,9 +262,30 @@ __device__ __forceinline__ void tile_io(T (&acc)[4][4], T* base, int64_t stride,
     }
 }
 
+// The store of tile_io into a bf16 output: each element rounded once.
+__device__ __forceinline__ void tile_io(float (&acc)[4][4], __nv_bfloat16* base, int64_t stride,
+                                        int r0, int c0, int rows, int cols, int tid, bool) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int r = r0 + Engine<float>::row(tid, x, y), c = c0 + Engine<float>::col(tid, x, y);
+      if (r < rows && c < cols) store_as(base + static_cast<int64_t>(r) * stride + c, acc[x][y]);
+    }
+}
+
 template <typename T>
 __device__ __forceinline__ bool aligned16(const T* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Whether a source's tiles can be staged a vector a copy: float / double
+// rows in 16 B copies (base and row stride 16 B aligned), bf16 rows four
+// values (8 B) a load (base and row stride 8 B aligned).
+template <typename S>
+__device__ __forceinline__ bool vec_rows(const S* p, int64_t stride) {
+  constexpr int64_t V = sizeof(S) == 2 ? 8 : 16;
+  return (reinterpret_cast<uintptr_t>(p) % V) == 0 && (stride * static_cast<int64_t>(sizeof(S))) % V == 0;
 }
 
 // Stages rows [r0, r0 + R) and columns [c0, c0 + CC) of a row-major source
@@ -282,6 +313,45 @@ __device__ __forceinline__ void stage_tile(T* S, int ld, const T* base, int64_t 
       const bool in = rr < rows && cc < cols;
       cp_async<sizeof(T)>(S + r * ld + c, in ? base + static_cast<int64_t>(rr) * stride + cc : base,
                           in ? static_cast<int>(sizeof(T)) : 0);
+    }
+  }
+}
+
+// stage_tile of a bf16 source into a float tile: the same tile, widened as
+// it is loaded (cp.async copies bytes and cannot convert), by plain loads
+// and shared-memory stores; vec: four values (8 B) a load.  Its stores are
+// ordered before the tile's readers by the pipeline's barriers.
+template <typename T, int R, int CC>
+__device__ __forceinline__ void stage_tile(float* S, int ld, const __nv_bfloat16* base,
+                                           int64_t stride, int r0, int c0, int rows, int cols,
+                                           bool vec, int tid) {
+  if (vec) {
+    constexpr int ROWV = CC / 4;
+    for (int e = tid; e < R * ROWV; e += THREADS) {
+      const int r = e / ROWV, c = (e % ROWV) * 4;
+      const int rr = r0 + r, cc = c0 + c;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (rr < rows && cc < cols) {
+        const __nv_bfloat16* src = base + static_cast<int64_t>(rr) * stride + cc;
+        if (cc + 4 <= cols) {
+          const uint2 raw = *reinterpret_cast<const uint2*>(src);
+          const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+          const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+          v = make_float4(lo.x, lo.y, hi.x, hi.y);
+        } else {
+          v.x = as_acc(src[0]);
+          if (cc + 1 < cols) v.y = as_acc(src[1]);
+          if (cc + 2 < cols) v.z = as_acc(src[2]);
+        }
+      }
+      *reinterpret_cast<float4*>(S + r * ld + c) = v;
+    }
+  } else {
+    for (int e = tid; e < R * CC; e += THREADS) {
+      const int r = e / CC, c = e % CC;
+      const int rr = r0 + r, cc = c0 + c;
+      S[r * ld + c] = rr < rows && cc < cols
+          ? as_acc(base[static_cast<int64_t>(rr) * stride + cc]) : 0.f;
     }
   }
 }
@@ -328,9 +398,9 @@ __device__ __forceinline__ Plane plane_of(int64_t l, int h, int g, int q) {
 
 // Launch 1: local[b, h, c] (p, n) = sum_i e^{cum_i} dY_iᵀ C_i, over the
 // chunk's rows in k-steps of 32 (dY and C tiles k-major, e^{cum} a k-scale).
-template <typename T>
+template <typename T, typename S>
 __global__ void __launch_bounds__(THREADS, 2)
-ssd_bwd_local_kernel(const T* __restrict__ dy, const T* __restrict__ Cm,
+ssd_bwd_local_kernel(const S* __restrict__ dy, const S* __restrict__ Cm,
                      const T* __restrict__ cum, T* __restrict__ local, int64_t l, int h,
                      int p, int g, int n, int q) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -340,11 +410,11 @@ ssd_bwd_local_kernel(const T* __restrict__ dy, const T* __restrict__ Cm,
   const int p0 = blockIdx.y * TILE, n0 = blockIdx.z * TILE;
   const int tid = threadIdx.x;
   const int64_t xrow = static_cast<int64_t>(h) * p, brow = static_cast<int64_t>(g) * n;
-  const T* dybase = dy + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
-  const T* cbase = Cm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
+  const S* dybase = dy + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
+  const S* cbase = Cm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
   const T* cumb = cum + pl.bh * l + pl.t0;
-  const bool vx = aligned16(dybase) && (xrow * sizeof(T)) % 16 == 0;
-  const bool vb = aligned16(cbase) && (brow * sizeof(T)) % 16 == 0;
+  const bool vx = vec_rows(dybase, xrow);
+  const bool vb = vec_rows(cbase, brow);
   T acc[4][4];
   zero(acc);
   pipeline<NS>(
@@ -415,13 +485,13 @@ __device__ __forceinline__ void tile_sums(const T* W, int tid, T& row, T& col) {
 //      per-head dbh (b, l, h, n)), with dcum's dS_out part -sum_n B dB.
 // Each phase is one pipeline of staged steps; the key part of dcum goes to
 // dck (b, h, l).
-template <typename T>
+template <typename T, typename S>
 __global__ void __launch_bounds__(THREADS, 2)
-ssd_bwd_key_kernel(const T* __restrict__ xd, const T* __restrict__ dy,
-                   const T* __restrict__ Bm, const T* __restrict__ Cm,
+ssd_bwd_key_kernel(const S* __restrict__ xd, const S* __restrict__ dy,
+                   const S* __restrict__ Bm, const S* __restrict__ Cm,
                    const T* __restrict__ cum, const T* __restrict__ entering,
                    const T* __restrict__ fstate, const T* __restrict__ dso, int has_dfinal,
-                   T* __restrict__ dbh, T* __restrict__ dx, T* __restrict__ dck,
+                   T* __restrict__ dbh, S* __restrict__ dx, T* __restrict__ dck,
                    T* __restrict__ mh, T* __restrict__ gh, T* __restrict__ rh, int64_t l, int h,
                    int p, int g, int n, int q) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -439,11 +509,11 @@ ssd_bwd_key_kernel(const T* __restrict__ xd, const T* __restrict__ dy,
   const int64_t xrow = static_cast<int64_t>(h) * p, brow = static_cast<int64_t>(g) * n;
   const int64_t hrow = static_cast<int64_t>(h) * n;
   const int64_t pn = static_cast<int64_t>(p) * n;
-  const T* xbase = xd + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
-  const T* dybase = dy + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
-  T* dxbase = dx + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
-  const T* bbase = Bm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
-  const T* cbase = Cm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
+  const S* xbase = xd + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
+  const S* dybase = dy + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
+  S* dxbase = dx + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
+  const S* bbase = Bm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
+  const S* cbase = Cm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
   T* dbbase = dbh + (pl.bi * l + pl.t0) * hrow + static_cast<int64_t>(pl.hh) * n;
   const T* cumb = cum + pl.bh * l + pl.t0;
   const T* ds_out = dso + pl.bhc * pn;                               // (p, n)
@@ -454,8 +524,8 @@ ssd_bwd_key_kernel(const T* __restrict__ xd, const T* __restrict__ dy,
   const int np = nt - J;                    // the block's pairs: I = J .. nt - 1
   const int64_t pair0 = pl.bhc * (static_cast<int64_t>(nt) * (nt + 1) / 2);
   const T cum_last = cumb[q - 1];
-  const bool vx = aligned16(xbase) && aligned16(dybase) && (xrow * sizeof(T)) % 16 == 0;
-  const bool vb = aligned16(bbase) && aligned16(cbase) && (brow * sizeof(T)) % 16 == 0;
+  const bool vx = vec_rows(xbase, xrow) && vec_rows(dybase, xrow);
+  const bool vb = vec_rows(bbase, brow) && vec_rows(cbase, brow);
   const bool vs = aligned16(ds_out) && (n * sizeof(T)) % 16 == 0;
   auto pair_of = [&](int I) { return pair0 + static_cast<int64_t>(I) * (I + 1) / 2 + J; };
 
@@ -597,7 +667,7 @@ ssd_bwd_key_kernel(const T* __restrict__ xd, const T* __restrict__ dy,
           each(acc, tid, [&](int r, int c, T& v) {
             v *= exp_t(cum_last - ck[r]);
             const int j = j0 + r, kk = c0 + c;
-            W[r * LDW + c] = j < q && kk < n ? v * bbase[static_cast<int64_t>(j) * brow + kk]
+            W[r * LDW + c] = j < q && kk < n ? v * as_acc(bbase[static_cast<int64_t>(j) * brow + kk])
                                              : T(0);
           });
           __syncthreads();
@@ -622,10 +692,10 @@ ssd_bwd_key_kernel(const T* __restrict__ xd, const T* __restrict__ dy,
 // (into dcq (b, h, l)) from the state term and launch 3's row sums.  One
 // pipeline: for each n-slice the state term's k-steps over p, then one
 // step a key tile J <= I (M_IJ and B_J's slice).
-template <typename T>
+template <typename T, typename S>
 __global__ void __launch_bounds__(THREADS, 2)
-ssd_bwd_query_kernel(const T* __restrict__ dy, const T* __restrict__ Bm,
-                     const T* __restrict__ Cm, const T* __restrict__ cum,
+ssd_bwd_query_kernel(const S* __restrict__ dy, const S* __restrict__ Bm,
+                     const S* __restrict__ Cm, const T* __restrict__ cum,
                      const T* __restrict__ entering, int has_init, const T* __restrict__ mh,
                      const T* __restrict__ rh, T* __restrict__ dch, T* __restrict__ dcq,
                      int64_t l, int h, int p, int g, int n, int q) {
@@ -640,9 +710,9 @@ ssd_bwd_query_kernel(const T* __restrict__ dy, const T* __restrict__ Bm,
   const int tid = threadIdx.x;
   const int64_t xrow = static_cast<int64_t>(h) * p, brow = static_cast<int64_t>(g) * n;
   const int64_t hrow = static_cast<int64_t>(h) * n;
-  const T* dybase = dy + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
-  const T* bbase = Bm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
-  const T* cbase = Cm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
+  const S* dybase = dy + (pl.bi * l + pl.t0) * xrow + static_cast<int64_t>(pl.hh) * p;
+  const S* bbase = Bm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
+  const S* cbase = Cm + (pl.bi * l + pl.t0) * brow + static_cast<int64_t>(pl.gi) * n;
   T* dcbase = dch + (pl.bi * l + pl.t0) * hrow + static_cast<int64_t>(pl.hh) * n;
   const T* cumb = cum + pl.bh * l + pl.t0;
   const T* s_in = entering + pl.bhc * p * static_cast<int64_t>(n);   // (p, n)
@@ -650,8 +720,8 @@ ssd_bwd_query_kernel(const T* __restrict__ dy, const T* __restrict__ Bm,
   const int n_ns = (n + TILE - 1) / TILE, kp = (p + KC - 1) / KC;
   const int64_t pair0 = pl.bhc * (static_cast<int64_t>(nt) * (nt + 1) / 2) +
                         static_cast<int64_t>(I) * (I + 1) / 2;
-  const bool vx = aligned16(dybase) && (xrow * sizeof(T)) % 16 == 0;
-  const bool vb = aligned16(bbase) && (brow * sizeof(T)) % 16 == 0;
+  const bool vx = vec_rows(dybase, xrow);
+  const bool vb = vec_rows(bbase, brow);
   const bool vs = aligned16(s_in) && (n * sizeof(T)) % 16 == 0;
   const int ks = has_state ? kp : 0;        // state k-steps of a slice
   const int per_slice = ks + 2 * (I + 1);   // a pair in two k-steps of 32
@@ -686,7 +756,7 @@ ssd_bwd_query_kernel(const T* __restrict__ dy, const T* __restrict__ Bm,
           each(acc, tid, [&](int r, int c, T& v) {
             v *= exp_t(cq[r]);
             const int i = i0 + r, kk = ns + c;
-            W[r * LDW + c] = i < q && kk < n ? v * cbase[static_cast<int64_t>(i) * brow + kk]
+            W[r * LDW + c] = i < q && kk < n ? v * as_acc(cbase[static_cast<int64_t>(i) * brow + kk])
                                              : T(0);
           });
           __syncthreads();
@@ -713,11 +783,11 @@ ssd_bwd_query_kernel(const T* __restrict__ dy, const T* __restrict__ Bm,
 // order); blockIdx.y 1 / 2: dB / dC (b, l, g, n) = the per-head dbh / dch
 // summed over the h / g heads of the group in ascending order, one thread
 // an element.
-template <typename T>
+template <typename T, typename S>
 __global__ void ssd_bwd_finish_kernel(const T* __restrict__ dcq, const T* __restrict__ dck,
                                       T* __restrict__ dad, const T* __restrict__ dbh,
-                                      const T* __restrict__ dch, T* __restrict__ dB,
-                                      T* __restrict__ dC, int64_t b, int64_t l, int h, int g,
+                                      const T* __restrict__ dch, S* __restrict__ dB,
+                                      S* __restrict__ dC, int64_t b, int64_t l, int h, int g,
                                       int n, int q) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (blockIdx.y > 0) {
@@ -729,7 +799,7 @@ __global__ void ssd_bwd_finish_kernel(const T* __restrict__ dcq, const T* __rest
     const T* src = (blockIdx.y == 1 ? dbh : dch) + (bt * h + static_cast<int64_t>(gi) * hg) * n + k;
     T s = T(0);
     for (int j = 0; j < hg; ++j) s += src[static_cast<int64_t>(j) * n];
-    (blockIdx.y == 1 ? dB : dC)[idx] = s;
+    store_as((blockIdx.y == 1 ? dB : dC) + idx, s);
     return;
   }
   // dad: one warp a (b, h, chunk), the chunk's rows in segments of 256 from
@@ -798,16 +868,16 @@ bool bad_shape(int64_t b, int64_t l, int h, int p, int g, int n, int q) {
          (b * l * g * n + THREADS - 1) / THREADS > 2147483647;
 }
 
-template <typename T>
+template <typename T, typename S>
 cudaError_t local_term(const void* dy, const void* C, const void* cum, void* local, int64_t b,
                        int64_t l, int h, int p, int g, int n, int q, cudaStream_t st) {
   const size_t smem = LOCAL_SMEM * sizeof(T);
-  cudaError_t err = set_smem(ssd_bwd_local_kernel<T>, smem);
+  cudaError_t err = set_smem(ssd_bwd_local_kernel<T, S>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(b * h * (l / q)), static_cast<unsigned>((p + TILE - 1) / TILE),
                   static_cast<unsigned>((n + TILE - 1) / TILE));
-  ssd_bwd_local_kernel<T><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(C), static_cast<const T*>(cum),
+  ssd_bwd_local_kernel<T, S><<<grid, THREADS, smem, st>>>(
+      static_cast<const S*>(dy), static_cast<const S*>(C), static_cast<const T*>(cum),
       static_cast<T*>(local), l, h, p, g, n, q);
   return cudaGetLastError();
 }
@@ -824,88 +894,102 @@ cudaError_t state_pass(const void* local, void* dso, const void* cum, const void
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename S>
 cudaError_t key_side(const void* xd, const void* dy, const void* B, const void* C,
                      const void* cum, const void* entering, const void* fstate, const void* dso,
                      int has_dfinal, void* dbh, void* dx, void* dck, void* mh, void* gh,
                      void* rh, int64_t b, int64_t l, int h, int p, int g, int n, int q,
                      cudaStream_t st) {
   const size_t smem = KEY_SMEM * sizeof(T);
-  cudaError_t err = set_smem(ssd_bwd_key_kernel<T>, smem);
+  cudaError_t err = set_smem(ssd_bwd_key_kernel<T, S>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(b * h * (l / q)), static_cast<unsigned>((q + TILE - 1) / TILE));
-  ssd_bwd_key_kernel<T><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(xd), static_cast<const T*>(dy), static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<const T*>(cum), static_cast<const T*>(entering),
+  ssd_bwd_key_kernel<T, S><<<grid, THREADS, smem, st>>>(
+      static_cast<const S*>(xd), static_cast<const S*>(dy), static_cast<const S*>(B),
+      static_cast<const S*>(C), static_cast<const T*>(cum), static_cast<const T*>(entering),
       static_cast<const T*>(fstate), static_cast<const T*>(dso), has_dfinal,
-      static_cast<T*>(dbh), static_cast<T*>(dx), static_cast<T*>(dck), static_cast<T*>(mh),
+      static_cast<T*>(dbh), static_cast<S*>(dx), static_cast<T*>(dck), static_cast<T*>(mh),
       static_cast<T*>(gh), static_cast<T*>(rh), l, h, p, g, n, q);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename S>
 cudaError_t query_side(const void* dy, const void* B, const void* C, const void* cum,
                        const void* entering, int has_init, const void* mh, const void* rh,
                        void* dch, void* dcq, int64_t b, int64_t l, int h, int p, int g, int n,
                        int q, cudaStream_t st) {
   const size_t smem = QUERY_SMEM * sizeof(T);
-  cudaError_t err = set_smem(ssd_bwd_query_kernel<T>, smem);
+  cudaError_t err = set_smem(ssd_bwd_query_kernel<T, S>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(b * h * (l / q)), static_cast<unsigned>((q + TILE - 1) / TILE));
-  ssd_bwd_query_kernel<T><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(B), static_cast<const T*>(C),
+  ssd_bwd_query_kernel<T, S><<<grid, THREADS, smem, st>>>(
+      static_cast<const S*>(dy), static_cast<const S*>(B), static_cast<const S*>(C),
       static_cast<const T*>(cum), static_cast<const T*>(entering), has_init,
       static_cast<const T*>(mh), static_cast<const T*>(rh), static_cast<T*>(dch),
       static_cast<T*>(dcq), l, h, p, g, n, q);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename S>
 cudaError_t finish(const void* dcq, const void* dck, void* dad, const void* dbh, const void* dch,
                    void* dB, void* dC, int64_t b, int64_t l, int h, int g, int n, int q,
                    cudaStream_t st) {
   const int64_t elems = b * l * g * n, lanes = 32 * b * h * (l / q);
   const int64_t most = elems > lanes ? elems : lanes;
   const dim3 grid(static_cast<unsigned>((most + THREADS - 1) / THREADS), 3);
-  ssd_bwd_finish_kernel<T><<<grid, THREADS, 0, st>>>(
+  ssd_bwd_finish_kernel<T, S><<<grid, THREADS, 0, st>>>(
       static_cast<const T*>(dcq), static_cast<const T*>(dck), static_cast<T*>(dad),
-      static_cast<const T*>(dbh), static_cast<const T*>(dch), static_cast<T*>(dB),
-      static_cast<T*>(dC), b, l, h, g, n, q);
+      static_cast<const T*>(dbh), static_cast<const T*>(dch), static_cast<S*>(dB),
+      static_cast<S*>(dC), b, l, h, g, n, q);
   return cudaGetLastError();
+}
+
+bool bad_dtype(int dtype) { return dtype != kFloat32 && dtype != kFloat64 && dtype != kBfloat16; }
+
+// The entry's form by dtype code: F(tag) with tag's value types (acc, storage).
+template <typename F>
+cudaError_t by_dtype(int dtype, F f) {
+  if (dtype == kFloat64) return f(double{}, double{});
+  if (dtype == kBfloat16) return f(float{}, __nv_bfloat16{});
+  return f(float{}, float{});
 }
 
 }  // namespace
 
 extern "C" {
 
-// Every entry point takes one element type (float64 when is_double), runs
-// on `stream` (the caller makes its device current) and returns the
-// cudaError_t of its attribute call or launch.  Layouts: xd, dy, dx (b, l,
-// h, p); ad, dad (b, l, h); B, C, dB, dC (b, l, g, n); dbh, dch (b, l, h, n)
-// scratch; cum, dcq, dck (b, h, l); entering, local, dso (b, h, l / chunk,
-// p, n); fstate, dfinal, dinit (b, h, p, n); mh, gh (b h (l / chunk), pairs,
-// 64, 64) and rh (b h (l / chunk), pairs, 64) scratch, pairs = t (t + 1) / 2
-// for t = ceil(chunk / 64).
+// Every entry point takes the element types by `dtype` (ssd_mma.cuh's
+// codes: 0 all float32; 1 all float64; 2 the bf16 form, xd / dy / B / C /
+// dx / dB / dC bf16 and the rest float32), runs on `stream` (the caller
+// makes its device current) and returns the cudaError_t of its attribute
+// call or launch.  Layouts: xd, dy, dx (b, l, h, p); ad, dad (b, l, h); B,
+// C, dB, dC (b, l, g, n); dbh, dch (b, l, h, n) scratch; cum, dcq, dck (b,
+// h, l); entering, local, dso (b, h, l / chunk, p, n); fstate, dfinal,
+// dinit (b, h, p, n); mh, gh (b h (l / chunk), pairs, 64, 64) and rh (b h
+// (l / chunk), pairs, 64) scratch, pairs = t (t + 1) / 2 for t = ceil(chunk
+// / 64).
 
 // Launch 1: local (b, h, nc, p, n) from dy, C and the forward's cum.
 int repro_ssd_bwd_local(const void* dy, const void* C, const void* cum, void* local, int64_t b,
-                        int64_t l, int h, int p, int g, int n, int chunk, int is_double,
+                        int64_t l, int h, int p, int g, int n, int chunk, int dtype,
                         void* stream) {
-  if (bad_shape(b, l, h, p, g, n, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(b, l, h, p, g, n, chunk) || bad_dtype(dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_double
-      ? local_term<double>(dy, C, cum, local, b, l, h, p, g, n, chunk, st)
-      : local_term<float>(dy, C, cum, local, b, l, h, p, g, n, chunk, st));
+  return static_cast<int>(by_dtype(dtype, [&](auto t, auto s) {
+    return local_term<decltype(t), decltype(s)>(dy, C, cum, local, b, l, h, p, g, n, chunk, st);
+  }));
 }
 
 // Launch 2: dso (b, h, nc, p, n) and dinit (nullable) from local, cum and
 // dfinal (nullable: zero).
 int repro_ssd_bwd_state_pass(const void* local, void* dso, const void* cum, const void* dfinal,
                              void* dinit, int64_t b, int64_t l, int h, int p, int n, int chunk,
-                             int is_double, void* stream) {
-  if (bad_shape(b, l, h, p, 1, n, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+                             int dtype, void* stream) {
+  if (bad_shape(b, l, h, p, 1, n, chunk) || bad_dtype(dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_double
+  return static_cast<int>(dtype == kFloat64
       ? state_pass<double>(local, dso, cum, dfinal, dinit, b, l, h, p, n, chunk, st)
       : state_pass<float>(local, dso, cum, dfinal, dinit, b, l, h, p, n, chunk, st));
 }
@@ -917,14 +1001,15 @@ int repro_ssd_bwd_key(const void* xd, const void* dy, const void* B, const void*
                       const void* cum, const void* entering, const void* fstate, const void* dso,
                       int has_dfinal, void* dbh, void* dx, void* dck, void* mh, void* gh,
                       void* rh, int64_t b, int64_t l, int h, int p, int g, int n, int chunk,
-                      int is_double, void* stream) {
-  if (bad_shape(b, l, h, p, g, n, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+                      int dtype, void* stream) {
+  if (bad_shape(b, l, h, p, g, n, chunk) || bad_dtype(dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_double
-      ? key_side<double>(xd, dy, B, C, cum, entering, fstate, dso, has_dfinal, dbh, dx, dck, mh,
-                         gh, rh, b, l, h, p, g, n, chunk, st)
-      : key_side<float>(xd, dy, B, C, cum, entering, fstate, dso, has_dfinal, dbh, dx, dck, mh,
-                        gh, rh, b, l, h, p, g, n, chunk, st));
+  return static_cast<int>(by_dtype(dtype, [&](auto t, auto s) {
+    return key_side<decltype(t), decltype(s)>(xd, dy, B, C, cum, entering, fstate, dso,
+                                              has_dfinal, dbh, dx, dck, mh, gh, rh, b, l, h,
+                                              p, g, n, chunk, st);
+  }));
 }
 
 // Launch 4: dch and dcq from launch 3's mh and rh; has_init is 1 when the
@@ -932,25 +1017,27 @@ int repro_ssd_bwd_key(const void* xd, const void* dy, const void* B, const void*
 int repro_ssd_bwd_query(const void* dy, const void* B, const void* C, const void* cum,
                         const void* entering, int has_init, const void* mh, const void* rh,
                         void* dch, void* dcq, int64_t b, int64_t l, int h, int p, int g, int n,
-                        int chunk, int is_double, void* stream) {
-  if (bad_shape(b, l, h, p, g, n, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+                        int chunk, int dtype, void* stream) {
+  if (bad_shape(b, l, h, p, g, n, chunk) || bad_dtype(dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_double
-      ? query_side<double>(dy, B, C, cum, entering, has_init, mh, rh, dch, dcq, b, l, h, p, g,
-                           n, chunk, st)
-      : query_side<float>(dy, B, C, cum, entering, has_init, mh, rh, dch, dcq, b, l, h, p, g,
-                          n, chunk, st));
+  return static_cast<int>(by_dtype(dtype, [&](auto t, auto s) {
+    return query_side<decltype(t), decltype(s)>(dy, B, C, cum, entering, has_init, mh, rh, dch,
+                                                dcq, b, l, h, p, g, n, chunk, st);
+  }));
 }
 
 // Launch 5: dad, dB and dC.
 int repro_ssd_bwd_finish(const void* dcq, const void* dck, void* dad, const void* dbh,
                          const void* dch, void* dB, void* dC, int64_t b, int64_t l, int h, int g,
-                         int n, int chunk, int is_double, void* stream) {
-  if (bad_shape(b, l, h, 1, g, n, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+                         int n, int chunk, int dtype, void* stream) {
+  if (bad_shape(b, l, h, 1, g, n, chunk) || bad_dtype(dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_double
-      ? finish<double>(dcq, dck, dad, dbh, dch, dB, dC, b, l, h, g, n, chunk, st)
-      : finish<float>(dcq, dck, dad, dbh, dch, dB, dC, b, l, h, g, n, chunk, st));
+  return static_cast<int>(by_dtype(dtype, [&](auto t, auto s) {
+    return finish<decltype(t), decltype(s)>(dcq, dck, dad, dbh, dch, dB, dC, b, l, h, g, n,
+                                            chunk, st);
+  }));
 }
 
 const char* repro_ssd_bwd_cuda_error_string(int code) {

@@ -8,8 +8,22 @@
 //   y_i   = sum_{j <= i} (C_i . B_j) e^{cum_i - cum_j} x_j + e^{cum_i} C_i stateᵀ
 //   state = state e^{cum_{q-1}} + sum_j e^{cum_{q-1} - cum_j} x_j ⊗ B_j
 // Outputs y (b, l, h, p) and the final state (b, h, p, n).  Everything is
-// computed in the element type T (float, or double for float64 inputs: the
-// reference accumulates in promote(xd, f32)), the carried state included.
+// computed in the accumulation type T (float, or double for float64 inputs:
+// the reference accumulates in promote(xd, f32)), the carried state included.
+//
+// The bf16 form (the reference model's SSD_BF16 mix, repro/models/ssm.py:
+// 214-217): xd, B and C stored in bf16, ad in float32.  Each kernel is a
+// template on the storage type S of xd / B / C / y over the fp32 form's own
+// arithmetic: a bf16 value is widened to float as it is loaded (exact), cum,
+// the states and the entering states stay float32, y is rounded once to
+// bf16 as it is stored, the final state is float32.  So the bf16 form's y
+// is the fp32 form's y on the upcast inputs, rounded, and its state is the
+// fp32 form's, bit for bit (what the reference's ssd_fused computes for
+// bf16 inputs: promote(bf16, f32) sums, y in xd's dtype, ssd.py:30, 92-93).
+// Launch 3 keeps its 3xTF32 products (a bf16 value splits into hi = value,
+// lo = 0).  Where p takes more than one 64-column slice, y's partial sums
+// between key tiles go through a float32 scratch (yacc), not through the
+// bf16 y, so that y is rounded once.
 //
 // What bounds it on the card: operations.  The function is q(q+1)(n+p) +
 // 4qnp multiply-adds x 2 a chunk and head: 3.363 GFLOP for mamba2-2.7b's
@@ -223,10 +237,10 @@ __device__ __forceinline__ T block_scan(const T* __restrict__ abase, int64_t h, 
   return cs[SEG - 1];
 }
 
-template <typename T>
+template <typename T, typename S>
 __global__ void __launch_bounds__(THREADS, 2)
-ssd_chunk_state_kernel(const T* __restrict__ xd, const T* __restrict__ ad,
-                       const T* __restrict__ Bm, T* __restrict__ cum,
+ssd_chunk_state_kernel(const S* __restrict__ xd, const T* __restrict__ ad,
+                       const S* __restrict__ Bm, T* __restrict__ cum,
                        T* __restrict__ states, int64_t l, int h, int p, int g,
                        int n, int q) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -245,8 +259,8 @@ ssd_chunk_state_kernel(const T* __restrict__ xd, const T* __restrict__ ad,
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int64_t t0 = c * q;
   const int64_t xrow = static_cast<int64_t>(h) * p, brow = static_cast<int64_t>(g) * n;
-  const T* xbase = xd + (bi * l + t0) * xrow + static_cast<int64_t>(hh) * p;
-  const T* bbase = Bm + (bi * l + t0) * brow + static_cast<int64_t>(gi) * n;
+  const S* xbase = xd + (bi * l + t0) * xrow + static_cast<int64_t>(hh) * p;
+  const S* bbase = Bm + (bi * l + t0) * brow + static_cast<int64_t>(gi) * n;
   const T* abase = ad + (bi * l + t0) * h + hh;
   T* cbase = cum + bh * l + t0;
   const bool writer = blockIdx.y == 0 && blockIdx.z == 0;
@@ -270,10 +284,10 @@ ssd_chunk_state_kernel(const T* __restrict__ xd, const T* __restrict__ ad,
     ds[tid] = exp_t(cum_last - cs[tid]);
     __syncthreads();
     auto fa = [&](int j, int m) -> T {
-      return j < q && p0 + m < p ? xbase[j * xrow + p0 + m] * ds[j - s0] : T(0);
+      return j < q && p0 + m < p ? as_acc(xbase[j * xrow + p0 + m]) * ds[j - s0] : T(0);
     };
     auto fb = [&](int j, int m) -> T {
-      return j < q && n0 + m < n ? bbase[j * brow + n0 + m] : T(0);
+      return j < q && n0 + m < n ? as_acc(bbase[j * brow + n0 + m]) : T(0);
     };
     staged<COLS, COLS>(ab, s0, min(s0 + SEG, q), fa, fb, tid, ty, tx, acc);
     __syncthreads();                         // stages, cs and ds read
@@ -491,12 +505,15 @@ __device__ __forceinline__ void staged_tc(float* ab, int k_end, FA fa, FB fb, in
   }
 }
 
+// S: the storage type of xd, B, C and y (float, or bf16); yacc: y's float
+// partial sums where p takes more than one slice and S is not float (else
+// unused: a float y holds them itself).
+template <typename S>
 __global__ void __launch_bounds__(THREADS, 2)
-ssd_chunk_output_tc_kernel(const float* __restrict__ xd, const float* __restrict__ Bm,
-                           const float* __restrict__ Cm, const float* __restrict__ cum,
-                           const float* __restrict__ states, int has_init,
-                           float* __restrict__ y, int64_t l, int h, int p, int g, int n,
-                           int q) {
+ssd_chunk_output_tc_kernel(const S* __restrict__ xd, const S* __restrict__ Bm,
+                           const S* __restrict__ Cm, const float* __restrict__ cum,
+                           const float* __restrict__ states, int has_init, S* y,
+                           float* yacc, int64_t l, int h, int p, int g, int n, int q) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ab = reinterpret_cast<float*>(smem_raw);   // 2 stages of 2 (TILE, CK) tiles
   float* Xs = ab;                                   // (TILE, XS) x rows (reuses stage 0)
@@ -517,10 +534,13 @@ ssd_chunk_output_tc_kernel(const float* __restrict__ xd, const float* __restrict
   const int fg = lane >> 2, ft = lane & 3;                 // fragment row / column
   const int64_t t0 = c * q;
   const int64_t xrow = static_cast<int64_t>(h) * p, brow = static_cast<int64_t>(g) * n;
-  const float* xbase = xd + (bi * l + t0) * xrow + static_cast<int64_t>(hh) * p;
-  float* ybase = y + (bi * l + t0) * xrow + static_cast<int64_t>(hh) * p;
-  const float* bbase = Bm + (bi * l + t0) * brow + static_cast<int64_t>(gi) * n;
-  const float* cbase = Cm + (bi * l + t0) * brow + static_cast<int64_t>(gi) * n;
+  const S* xbase = xd + (bi * l + t0) * xrow + static_cast<int64_t>(hh) * p;
+  S* ybase = y + (bi * l + t0) * xrow + static_cast<int64_t>(hh) * p;
+  float* abase;                             // y's partial sums between key tiles
+  if constexpr (sizeof(S) == sizeof(float)) abase = ybase;
+  else abase = yacc + (bi * l + t0) * xrow + static_cast<int64_t>(hh) * p;
+  const S* bbase = Bm + (bi * l + t0) * brow + static_cast<int64_t>(gi) * n;
+  const S* cbase = Cm + (bi * l + t0) * brow + static_cast<int64_t>(gi) * n;
   const float* cumb = cum + bh * l + t0;
   const float* st_in = states + bhc * p * static_cast<int64_t>(n);   // (p, n)
   const bool has_state = c > 0 || has_init;
@@ -530,8 +550,10 @@ ssd_chunk_output_tc_kernel(const float* __restrict__ xd, const float* __restrict
   __syncthreads();
 
   // element e of this thread's fragment of n-tile j: row mb + fg (+ 8 for
-  // e >= 2), column nb + 8 j + 2 ft + (e & 1)
-  auto y_io = [&](float (&acc)[4][4], int ps, bool store) {
+  // e >= 2), column nb + 8 j + 2 ft + (e & 1).  io: LOAD a partial sum,
+  // PART store one (float), DONE store y (rounded once where S is bf16).
+  enum { LOAD, PART, DONE };
+  auto y_io = [&](float (&acc)[4][4], int ps, int io) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -539,13 +561,15 @@ ssd_chunk_output_tc_kernel(const float* __restrict__ xd, const float* __restrict
         const int i = i0 + mb + fg + (e >> 1) * 8;
         const int pp = ps + nb + 8 * j + 2 * ft + (e & 1);
         if (i < q && pp < p) {
-          float* dst = ybase + static_cast<int64_t>(i) * xrow + pp;
-          if (store) *dst = acc[j][e]; else acc[j][e] = *dst;
+          const int64_t at = static_cast<int64_t>(i) * xrow + pp;
+          if (io == LOAD) acc[j][e] = abase[at];
+          else if (io == PART) abase[at] = acc[j][e];
+          else store_as(ybase + at, acc[j][e]);
         }
       }
   };
   auto c_rows = [&](int k, int m) -> float {       // C_I[m][k]
-    return i0 + m < q && k < n ? cbase[static_cast<int64_t>(i0 + m) * brow + k] : 0.f;
+    return i0 + m < q && k < n ? as_acc(cbase[static_cast<int64_t>(i0 + m) * brow + k]) : 0.f;
   };
   auto zero4 = [](float (&a)[4][4]) {
 #pragma unroll
@@ -571,7 +595,7 @@ ssd_chunk_output_tc_kernel(const float* __restrict__ xd, const float* __restrict
         acc[j][0] *= d0; acc[j][1] *= d0; acc[j][2] *= d1; acc[j][3] *= d1;
       }
     }
-    if (n_ps > 1) y_io(acc, ps, true);
+    if (n_ps > 1) y_io(acc, ps, PART);
   }
 
   // intra-chunk term over the key tiles on or below the diagonal
@@ -582,7 +606,7 @@ ssd_chunk_output_tc_kernel(const float* __restrict__ xd, const float* __restrict
     __syncthreads();                         // Gs, Xs, ck and the stages read
     if (tid < TILE) ck[tid] = j0 + tid < q ? cumb[j0 + tid] : 0.f;
     auto b_rows = [&](int k, int m) -> float {     // B_J[m][k]
-      return j0 + m < q && k < n ? bbase[static_cast<int64_t>(j0 + m) * brow + k] : 0.f;
+      return j0 + m < q && k < n ? as_acc(bbase[static_cast<int64_t>(j0 + m) * brow + k]) : 0.f;
     };
     staged_tc(ab, n, c_rows, b_rows, tid, lane, mb, nb, gacc);
     // G ∘ L into Gs, query-major (above the diagonal 0, its decay unevaluated)
@@ -603,10 +627,10 @@ ssd_chunk_output_tc_kernel(const float* __restrict__ xd, const float* __restrict
       for (int e = tid; e < TILE * TILE; e += THREADS) {
         const int jj = e / TILE, pp = e % TILE;
         Xs[jj * XS + pp] = j0 + jj < q && ps + pp < p
-            ? xbase[static_cast<int64_t>(j0 + jj) * xrow + ps + pp] : 0.f;
+            ? as_acc(xbase[static_cast<int64_t>(j0 + jj) * xrow + ps + pp]) : 0.f;
       }
       __syncthreads();                       // Xs and Gs written
-      if (n_ps > 1) y_io(acc, ps, false);
+      if (n_ps > 1) y_io(acc, ps, LOAD);
 #pragma unroll
       for (int kb = 0; kb < TILE; kb += 8) {
         uint32_t a[4], b[4][2];
@@ -614,10 +638,10 @@ ssd_chunk_output_tc_kernel(const float* __restrict__ xd, const float* __restrict
         frag_b_cols(b, Xs, XS, nb, kb, lane);
         mma3(acc, a, b);
       }
-      if (n_ps > 1) y_io(acc, ps, true);
+      if (n_ps > 1) y_io(acc, ps, J == I ? DONE : PART);
     }
   }
-  if (n_ps == 1) y_io(acc, 0, true);
+  if (n_ps == 1) y_io(acc, 0, DONE);
 }
 
 size_t state_smem(size_t itemsize) {
@@ -648,18 +672,18 @@ bool bad_shape(int64_t b, int64_t l, int h, int p, int g, int n, int q) {
          (n + TILE - 1) / TILE > 65535 || (q + TILE - 1) / TILE > 65535;
 }
 
-template <typename T>
+template <typename T, typename S>
 cudaError_t chunk_state(const void* xd, const void* ad, const void* B, void* cum,
                         void* states, int64_t b, int64_t l, int h, int p, int g, int n,
                         int q, cudaStream_t stream) {
   const size_t smem = state_smem(sizeof(T));
-  cudaError_t err = set_smem(ssd_chunk_state_kernel<T>, smem);
+  cudaError_t err = set_smem(ssd_chunk_state_kernel<T, S>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(b * h * (l / q)),
                   static_cast<unsigned>((p + TILE - 1) / TILE),
                   static_cast<unsigned>((n + TILE - 1) / TILE));
-  ssd_chunk_state_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(xd), static_cast<const T*>(ad), static_cast<const T*>(B),
+  ssd_chunk_state_kernel<T, S><<<grid, THREADS, smem, stream>>>(
+      static_cast<const S*>(xd), static_cast<const T*>(ad), static_cast<const S*>(B),
       static_cast<T*>(cum), static_cast<T*>(states), l, h, p, g, n, q);
   return cudaGetLastError();
 }
@@ -677,21 +701,20 @@ cudaError_t state_pass(const void* states, void* entering, const void* cum, cons
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename S>
 cudaError_t chunk_output(const void* xd, const void* B, const void* C, const void* cum,
-                         const void* states, int has_init, void* y, int64_t b, int64_t l,
-                         int h, int p, int g, int n, int q, cudaStream_t stream) {
+                         const void* states, int has_init, void* y, void* yacc, int64_t b,
+                         int64_t l, int h, int p, int g, int n, int q, cudaStream_t stream) {
   const size_t smem = output_smem(sizeof(T));
   const dim3 grid(static_cast<unsigned>(b * h * (l / q)),
                   static_cast<unsigned>((q + TILE - 1) / TILE));
   if constexpr (sizeof(T) == sizeof(float)) {
-    cudaError_t err = set_smem(ssd_chunk_output_tc_kernel, smem);
+    cudaError_t err = set_smem(ssd_chunk_output_tc_kernel<S>, smem);
     if (err != cudaSuccess) return err;
-    ssd_chunk_output_tc_kernel<<<grid, THREADS, smem, stream>>>(
-        static_cast<const float*>(xd), static_cast<const float*>(B),
-        static_cast<const float*>(C), static_cast<const float*>(cum),
-        static_cast<const float*>(states), has_init, static_cast<float*>(y), l, h, p, g, n,
-        q);
+    ssd_chunk_output_tc_kernel<S><<<grid, THREADS, smem, stream>>>(
+        static_cast<const S*>(xd), static_cast<const S*>(B), static_cast<const S*>(C),
+        static_cast<const float*>(cum), static_cast<const float*>(states), has_init,
+        static_cast<S*>(y), static_cast<float*>(yacc), l, h, p, g, n, q);
   } else {
     cudaError_t err = set_smem(ssd_chunk_output_kernel<T>, smem);
     if (err != cudaSuccess) return err;
@@ -703,55 +726,74 @@ cudaError_t chunk_output(const void* xd, const void* B, const void* C, const voi
   return cudaGetLastError();
 }
 
+bool bad_dtype(int dtype) { return dtype != kFloat32 && dtype != kFloat64 && dtype != kBfloat16; }
+
 }  // namespace
 
 extern "C" {
 
+// Element types by `dtype` (ssd_mma.cuh's codes): 0 all float32; 1 all
+// float64; 2 the bf16 form, xd / B / C (and y) bf16, ad and everything
+// else (cum, the states, init, fstate, yacc) float32.  The caller makes
+// the stream's device current.  Each entry point returns the cudaError_t
+// of its attribute call or launch.
+
 // Launch 1.  xd (b, l, h, p), ad (b, l, h), B (b, l, g, n); writes cum
-// (b, h, l) and states (b, h, l / chunk, p, n).  All one element type,
-// float64 when is_double.  The caller makes the stream's device current.
-// Each entry point returns the cudaError_t of its attribute call or launch.
+// (b, h, l) and states (b, h, l / chunk, p, n).
 int repro_ssd_chunk_state(const void* xd, const void* ad, const void* B, void* cum,
                           void* states, int64_t b, int64_t l, int h, int p, int g,
-                          int n, int chunk, int is_double, void* stream) {
-  if (bad_shape(b, l, h, p, g, n, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+                          int n, int chunk, int dtype, void* stream) {
+  if (bad_shape(b, l, h, p, g, n, chunk) || bad_dtype(dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat64)
+    return static_cast<int>(
+        chunk_state<double, double>(xd, ad, B, cum, states, b, l, h, p, g, n, chunk, st));
+  if (dtype == kBfloat16)
+    return static_cast<int>(chunk_state<float, __nv_bfloat16>(xd, ad, B, cum, states, b, l,
+                                                              h, p, g, n, chunk, st));
   return static_cast<int>(
-      is_double ? chunk_state<double>(xd, ad, B, cum, states, b, l, h, p, g, n, chunk, st)
-                : chunk_state<float>(xd, ad, B, cum, states, b, l, h, p, g, n, chunk, st));
+      chunk_state<float, float>(xd, ad, B, cum, states, b, l, h, p, g, n, chunk, st));
 }
 
 // Launch 2.  states and cum from launch 1, init (b, h, p, n; nullable);
 // writes entering (b, h, l / chunk, p, n), the state entering each chunk,
-// and fstate (b, h, p, n).
+// and fstate (b, h, p, n).  All in the accumulation type (float64 for
+// dtype 1, else float32).
 int repro_ssd_state_pass(const void* states, void* entering, const void* cum,
                          const void* init, void* fstate, int64_t b, int64_t l, int h, int p,
-                         int n, int chunk, int is_double, void* stream) {
-  if (bad_shape(b, l, h, p, 1, n, chunk) ||
+                         int n, int chunk, int dtype, void* stream) {
+  if (bad_shape(b, l, h, p, 1, n, chunk) || bad_dtype(dtype) ||
       static_cast<int64_t>(p) * n > 2147483647 - THREADS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      is_double
+      dtype == kFloat64
           ? state_pass<double>(states, entering, cum, init, fstate, b, l, h, p, n, chunk, st)
           : state_pass<float>(states, entering, cum, init, fstate, b, l, h, p, n, chunk, st));
 }
 
 // Launch 3.  xd, B, C as launch 1, cum from launch 1 and the entering states
 // from launch 2 (as `states`), has_init (1 when the scan started from a given state); writes y
-// (b, l, h, p).
+// (b, l, h, p).  yacc (b, l, h, p) float32: y's partial sums, needed by the
+// bf16 form where p > 64 (nullable otherwise; unused by the other forms).
 int repro_ssd_chunk_output(const void* xd, const void* B, const void* C, const void* cum,
-                           const void* states, int has_init, void* y, int64_t b,
-                           int64_t l, int h, int p, int g, int n, int chunk,
-                           int is_double, void* stream) {
-  if (bad_shape(b, l, h, p, g, n, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+                           const void* states, int has_init, void* y, void* yacc, int64_t b,
+                           int64_t l, int h, int p, int g, int n, int chunk, int dtype,
+                           void* stream) {
+  if (bad_shape(b, l, h, p, g, n, chunk) || bad_dtype(dtype) ||
+      (dtype == kBfloat16 && p > TILE && yacc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_double ? chunk_output<double>(xd, B, C, cum, states, has_init, y, b, l, h, p, g,
-                                       n, chunk, st)
-                : chunk_output<float>(xd, B, C, cum, states, has_init, y, b, l, h, p, g,
-                                      n, chunk, st));
+  if (dtype == kFloat64)
+    return static_cast<int>(chunk_output<double, double>(xd, B, C, cum, states, has_init, y,
+                                                         yacc, b, l, h, p, g, n, chunk, st));
+  if (dtype == kBfloat16)
+    return static_cast<int>(chunk_output<float, __nv_bfloat16>(
+        xd, B, C, cum, states, has_init, y, yacc, b, l, h, p, g, n, chunk, st));
+  return static_cast<int>(chunk_output<float, float>(xd, B, C, cum, states, has_init, y, yacc,
+                                                     b, l, h, p, g, n, chunk, st));
 }
 
 const char* repro_ssd_cuda_error_string(int code) {

@@ -14,13 +14,32 @@
 // Operand tiles are staged with cp.async (16-byte copies where the source
 // rows allow, else one element a copy), zero-filled outside the source's
 // bounds, so no register holds a tile on its way to shared memory.
+//
+// The bf16 forms of both kernels keep the fp32 forms' arithmetic: bf16
+// storage is widened to float as it is loaded (exact) and each output is
+// rounded once, to nearest even, as it is stored (as_acc, store_as below).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace ssd_mma {
+
+// Element-type codes of the C entry points (kernels/ssd.py, kernels/gather.py).
+enum DtypeCode : int { kFloat32 = 0, kFloat64 = 1, kBfloat16 = 2 };
+
+// A stored value as the accumulation type reads it: float and double as
+// they are, bf16 widened to float (exact).
+__device__ __forceinline__ float as_acc(float v) { return v; }
+__device__ __forceinline__ double as_acc(double v) { return v; }
+__device__ __forceinline__ float as_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// An accumulated value stored as S: rounded once to nearest even for bf16.
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(double* p, double v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // x = hi + lo: hi is x rounded to TF32's 10 mantissa bits, half an ulp
 // away from zero (an integer add and mask, full rate, where cvt.rna takes

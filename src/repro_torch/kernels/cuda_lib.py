@@ -99,40 +99,42 @@ KERNELS = {
             _I),
         "repro_fft_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
+    # B8's entries take a dtype code: 0 float32, 1 float64, 2 the bf16
+    # form (xd / B / C / y and their gradients bf16, the rest float32)
     "ssd_fused": ("ssd_fused.cu", {
-        # xd, ad, B, cum, states, b, l, h, p, g, n, chunk, is_double, stream
+        # xd, ad, B, cum, states, b, l, h, p, g, n, chunk, dtype, stream
         "repro_ssd_chunk_state": (
             [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _I, _P], _I),
         # states, entering, cum, init (nullable), fstate, b, l, h, p, n,
-        # chunk, is_double, stream
+        # chunk, dtype, stream
         "repro_ssd_state_pass": (
             [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _P], _I),
-        # xd, B, C, cum, states, has_init, y, b, l, h, p, g, n, chunk,
-        # is_double, stream
+        # xd, B, C, cum, states, has_init, y, yacc (nullable), b, l, h, p,
+        # g, n, chunk, dtype, stream
         "repro_ssd_chunk_output": (
-            [_P, _P, _P, _P, _P, _I, _P, _I64, _I64, _I, _I, _I, _I, _I, _I,
-             _P], _I),
+            [_P, _P, _P, _P, _P, _I, _P, _P, _I64, _I64, _I, _I, _I, _I, _I,
+             _I, _P], _I),
         "repro_ssd_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
     "ssd_bwd": ("ssd_bwd.cu", {
-        # dy, C, cum, local, b, l, h, p, g, n, chunk, is_double, stream
+        # dy, C, cum, local, b, l, h, p, g, n, chunk, dtype, stream
         "repro_ssd_bwd_local": (
             [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _I, _P], _I),
         # local, dso, cum, dfinal (nullable), dinit (nullable), b, l, h, p,
-        # n, chunk, is_double, stream
+        # n, chunk, dtype, stream
         "repro_ssd_bwd_state_pass": (
             [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _P], _I),
         # xd, dy, B, C, cum, entering, fstate, dso, has_dfinal, dbh, dx,
-        # dck, mh, gh, rh, b, l, h, p, g, n, chunk, is_double, stream
+        # dck, mh, gh, rh, b, l, h, p, g, n, chunk, dtype, stream
         "repro_ssd_bwd_key": (
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I64,
              _I64, _I, _I, _I, _I, _I, _I, _P], _I),
         # dy, B, C, cum, entering, has_init, mh, rh, dch, dcq, b, l, h, p,
-        # g, n, chunk, is_double, stream
+        # g, n, chunk, dtype, stream
         "repro_ssd_bwd_query": (
             [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I, _I, _I,
              _I, _I, _I, _P], _I),
-        # dcq, dck, dad, dbh, dch, dB, dC, b, l, h, g, n, chunk, is_double,
+        # dcq, dck, dad, dbh, dch, dB, dC, b, l, h, g, n, chunk, dtype,
         # stream
         "repro_ssd_bwd_finish": (
             [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _I, _P],
@@ -148,15 +150,18 @@ KERNELS = {
         # id_bytes, chunks, threads, stream
         "repro_embedding_gather_shard": (
             [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I, _I, _I, _P], _I),
-        # ids, id_bytes, dout, dtable, n_rows, n_ids, d, is_double,
+        # ids, id_bytes, dout, dtable, carry (nullable), n_rows, n_ids, d,
+        # dout_type, table_type (0 float32, 1 float64, 2 bfloat16),
         # vec_bytes, stripe, chunks, threads, stream
         "repro_embedding_gather_bwd": (
-            [_P, _I, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _I, _P], _I),
-        # ids, id_bytes, dout, dtable, shard_rows, lo, vocab, n_ids, d,
-        # is_double, vec_bytes, stripe, chunks, threads, stream
+            [_P, _I, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _I, _I, _P],
+            _I),
+        # ids, id_bytes, dout, dtable, carry (nullable), shard_rows, lo,
+        # vocab, n_ids, d, dout_type, table_type, vec_bytes, stripe, chunks,
+        # threads, stream
         "repro_embedding_gather_shard_bwd": (
-            [_P, _I, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _I,
-             _P], _I),
+            [_P, _I, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I,
+             _I, _I, _P], _I),
         "repro_gather_cuda_error_string": ([_I], ctypes.c_char_p),
     }),
 }

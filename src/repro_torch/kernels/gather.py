@@ -49,6 +49,16 @@ table and (T,) ids, the same traffic class as the paper's SpMV x-gather.
   ``dout`` in ascending position from zero, as the whole-table backward,
   so the shards' gradients stacked in model order are
   :func:`embedding_gather_bwd`'s, bit for bit.
+
+Tables are float32, float64 or bfloat16 (the reference returns a bf16
+table's rows in bf16, ``gather.py:44, 52``): the forward copies bytes, a
+bf16 row of odd d in 2 B vectors.  The backward sums in float32 (float64
+for float64) whatever is stored and rounds a bf16 row once: from bf16
+output gradients, or, for a bf16 table whose rows feed float32
+activations (the model under ``param_dtype=torch.bfloat16``), from float32
+ones: ``out_dtype=torch.float32`` on the forwards returns the rows widened
+to float32 and records that backward, so a bf16 table's gradient is the
+float32 table's rounded once, with no float32 copy of the table.
 """
 from __future__ import annotations
 
@@ -66,7 +76,11 @@ from repro_torch.analysis.preflight import (
     plan_embedding_gather_shard,
     plan_embedding_gather_shard_bwd,
 )
-from repro_torch.core.autotune import gather_bwd_grid
+from repro_torch.core.autotune import (
+    DTYPE_BYTES,
+    GATHER_BWD_SLICE,
+    gather_bwd_grid,
+)
 
 __all__ = ["BWD_LAUNCHES", "KERNEL_LAUNCHES", "SHARD_BWD_LAUNCHES",
            "SHARD_LAUNCHES", "clamp_ids", "embedding_gather",
@@ -89,7 +103,10 @@ BWD_LAUNCHES = 0
 #: in this process: one per call on a CUDA gradient.
 SHARD_BWD_LAUNCHES = 0
 
-_DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64"}
+_DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64",
+                torch.bfloat16: "bfloat16"}
+#: The backward entries' element-type codes (``csrc/embedding_gather.cu``).
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _ID_BYTES = {torch.int32: 4, torch.int64: 8}
 
 
@@ -187,13 +204,28 @@ def _launch(table, ids, out, chunks: int, threads: int,
         SHARD_LAUNCHES += 1
 
 
-def embedding_gather(table: torch.Tensor, ids, *, vl: int = 256) -> torch.Tensor:
-    """out[i] = table[ids[i]].  ``table``: (V, d) float32 or float64;
+def _out_dtype(table: torch.Tensor, out_dtype) -> torch.dtype:
+    """The forwards' result dtype: the table's, or float32 for a bf16
+    table (its rows widened; the backward then reads float32 gradients)."""
+    if out_dtype is None or out_dtype == table.dtype:
+        return table.dtype
+    if (table.dtype, out_dtype) != (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype} for a {table.dtype} table: "
+                         "the table's dtype, or float32 for a bfloat16 table")
+    return out_dtype
+
+
+def embedding_gather(table: torch.Tensor, ids, *, vl: int = 256,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """out[i] = table[ids[i]].  ``table``: (V, d) bfloat16, float32 or
+    float64;
     ``ids``: (T,) integers, a numpy array or a tensor on the host or on the
     table's device.  The kernel reads int32 and int64 ids as they are
     (other integer types are widened to int64 first).
 
-    Returns (T, d) in the table's dtype on its device.  Raises
+    Returns (T, d) in the table's dtype on its device (``out_dtype=
+    torch.float32`` for a bf16 table: the rows widened, and a recorded
+    backward that reads float32 gradients).  Raises
     :class:`~repro_torch.analysis.launchplan.LaunchPlanError` (a
     ``ValueError``) before any launch or upload when host ids leave
     ``[0, V)``, or ids are not integers.  Ids already on the card are not
@@ -201,10 +233,11 @@ def embedding_gather(table: torch.Tensor, ids, *, vl: int = 256) -> torch.Tensor
     ``vl`` is the reference's rows a grid step; the CUDA grid does not
     depend on it.
     """
+    out_dtype = _out_dtype(table, out_dtype)
     table, ids, plan = _checked(table, ids, vl)
     if torch.is_grad_enabled() and table.requires_grad:
-        return _EmbeddingGather.apply(table, ids, plan)
-    return _gather(table, ids, plan)
+        return _EmbeddingGather.apply(table, ids, plan, out_dtype)
+    return _gather(table, ids, plan).to(out_dtype)
 
 
 def _checked(table: torch.Tensor, ids, vl: int,
@@ -217,7 +250,8 @@ def _checked(table: torch.Tensor, ids, vl: int,
         raise ValueError(f"table must be (V, d), got shape {tuple(table.shape)}")
     dtype = _DTYPE_NAMES.get(table.dtype)
     if dtype is None:
-        raise TypeError(f"table dtype {table.dtype} is not float32 or float64")
+        raise TypeError(f"table dtype {table.dtype} is not bfloat16, float32 "
+                        "or float64")
     rows, d = table.shape
     if window is None:
         plan = _plan(rows, d, ids, dtype, vl)
@@ -271,7 +305,8 @@ def embedding_gather_shard_ref(table: torch.Tensor, ids, lo: int,
 
 
 def embedding_gather_shard(table: torch.Tensor, ids, lo: int, vocab: int, *,
-                           vl: int = 256) -> torch.Tensor:
+                           vl: int = 256,
+                           out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The vocab-shard form of :func:`embedding_gather`: ``table`` (V_d,
     d) holds rows ``[lo, lo + V_d)`` of a (``vocab``, d) table; returns (T,
     d), each row the gathered one where this shard holds the bounded id's
@@ -281,28 +316,32 @@ def embedding_gather_shard(table: torch.Tensor, ids, lo: int, vocab: int, *,
     shard entry) or a raise; on a CPU table, and only there,
     :func:`embedding_gather_shard_ref`.  Where grad is enabled and
     ``table`` requires it, the graph's backward is
-    :func:`embedding_gather_shard_bwd`."""
+    :func:`embedding_gather_shard_bwd`.  ``out_dtype`` as for
+    :func:`embedding_gather`."""
     window = (int(lo), int(vocab))
+    out_dtype = _out_dtype(table, out_dtype)
     table, ids, plan = _checked(table, ids, vl, window)
     if torch.is_grad_enabled() and table.requires_grad:
-        return _EmbeddingGatherShard.apply(table, ids, plan, window)
-    return _gather(table, ids, plan, window)
+        return _EmbeddingGatherShard.apply(table, ids, plan, window, out_dtype)
+    return _gather(table, ids, plan, window).to(out_dtype)
 
 
 class _EmbeddingGather(torch.autograd.Function):
     """Kernel B9 with a gradient: its backward is
-    :func:`embedding_gather_bwd` on the ids the forward read."""
+    :func:`embedding_gather_bwd` on the ids the forward read, from
+    gradients of ``out_dtype`` into the table's dtype."""
 
     @staticmethod
-    def forward(ctx, table, ids, plan):
-        ctx.vocab = table.shape[0]
+    def forward(ctx, table, ids, plan, out_dtype):
+        ctx.vocab, ctx.dtype = table.shape[0], table.dtype
         ctx.save_for_backward(ids)
-        return _gather(table, ids, plan)
+        return _gather(table, ids, plan).to(out_dtype)
 
     @staticmethod
     def backward(ctx, dout):
         (ids,) = ctx.saved_tensors
-        return embedding_gather_bwd(dout, ids, ctx.vocab), None, None
+        return (embedding_gather_bwd(dout, ids, ctx.vocab, dtype=ctx.dtype),
+                None, None, None)
 
 
 class _EmbeddingGatherShard(torch.autograd.Function):
@@ -310,18 +349,19 @@ class _EmbeddingGatherShard(torch.autograd.Function):
     :func:`embedding_gather_shard_bwd` on the ids the forward read."""
 
     @staticmethod
-    def forward(ctx, table, ids, plan, window):
-        ctx.rows = table.shape[0]
+    def forward(ctx, table, ids, plan, window, out_dtype):
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
         ctx.window = window
         ctx.save_for_backward(ids)
-        return _gather(table, ids, plan, window)
+        return _gather(table, ids, plan, window).to(out_dtype)
 
     @staticmethod
     def backward(ctx, dout):
         (ids,) = ctx.saved_tensors
         lo, vocab = ctx.window
-        return (embedding_gather_shard_bwd(dout, ids, lo, ctx.rows, vocab),
-                None, None, None)
+        return (embedding_gather_shard_bwd(dout, ids, lo, ctx.rows, vocab,
+                                           dtype=ctx.dtype),
+                None, None, None, None)
 
 
 def _sorted_runs(ids: torch.Tensor, vocab: int):
@@ -331,39 +371,48 @@ def _sorted_runs(ids: torch.Tensor, vocab: int):
     return torch.sort(clamp_ids(ids, vocab), stable=True)
 
 
-def embedding_gather_bwd_ref(dout: torch.Tensor, ids, vocab: int) -> torch.Tensor:
+def embedding_gather_bwd_ref(dout: torch.Tensor, ids, vocab: int, *,
+                             dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain backward of ``table[clamp_ids(ids)]``: the (vocab, d) table
-    gradient, each row the sum of its ids' rows of ``dout`` from zero in
-    ascending position (the kernel's order, so its results are equal)."""
+    gradient in ``dtype`` (None: ``dout``'s), each row the sum of its ids'
+    rows of ``dout`` from zero in ascending position, in promote(dout,
+    float32), rounded once to ``dtype`` (the kernel's order and rounding,
+    so its results are equal)."""
+    dtype = dout.dtype if dtype is None else dtype
+    acc_t = torch.promote_types(dout.dtype, torch.float32)
     ids = torch.as_tensor(ids, device=dout.device)
-    out = torch.zeros((vocab, dout.shape[1]), dtype=dout.dtype,
-                      device=dout.device)
+    out = torch.zeros((vocab, dout.shape[1]), dtype=dtype, device=dout.device)
     if ids.numel() == 0:
         return out
     sorted_ids, order = _sorted_runs(ids, vocab)
     rows, counts = torch.unique_consecutive(sorted_ids, return_counts=True)
     starts = torch.cumsum(counts, 0) - counts
-    acc = torch.zeros((rows.shape[0], dout.shape[1]), dtype=dout.dtype,
+    acc = torch.zeros((rows.shape[0], dout.shape[1]), dtype=acc_t,
                       device=dout.device)
     for k in range(int(counts.max())):
         live = counts > k
-        acc[live] = acc[live] + dout[order[starts[live] + k]]
-    out[rows] = acc
+        acc[live] = acc[live] + dout[order[starts[live] + k]].to(acc_t)
+    out[rows] = acc.to(dtype)
     return out
 
 
-def embedding_gather_bwd(dout: torch.Tensor, ids, vocab: int) -> torch.Tensor:
+def embedding_gather_bwd(dout: torch.Tensor, ids, vocab: int, *,
+                         dtype: torch.dtype | None = None) -> torch.Tensor:
     """The gradient of a (vocab, d) table gathered at ``ids`` (T,) given
-    ``dout`` (T, d) float32 or float64.  On a CUDA ``dout``: one launch of
-    B9's backward kernel, which reads the ids as they are (int32 or int64,
-    each bounded by :func:`clamp_ids`' rule inside the kernel; no sort, no
-    bound, no conversion on the card before it); on the CPU
-    :func:`embedding_gather_bwd_ref`."""
-    return _bwd(dout, ids, int(vocab))
+    ``dout`` (T, d) bfloat16, float32 or float64; the gradient in
+    ``dtype``, the table's (None: ``dout``'s; a bfloat16 table's from
+    float32 ``dout`` too), summed in float32 (float64) and rounded once.
+    On a CUDA ``dout``: one launch of B9's backward kernel, which reads the
+    ids as they are (int32 or int64, each bounded by :func:`clamp_ids`'
+    rule inside the kernel; no sort, no bound, no conversion on the card
+    before it); on the CPU :func:`embedding_gather_bwd_ref`."""
+    return _bwd(dout, ids, int(vocab), dtype=dtype)
 
 
 def embedding_gather_shard_bwd_ref(dout: torch.Tensor, ids, lo: int, rows: int,
-                                   vocab: int) -> torch.Tensor:
+                                   vocab: int, *,
+                                   dtype: torch.dtype | None = None
+                                   ) -> torch.Tensor:
     """Plain backward of :func:`embedding_gather_shard_ref`: the (rows, d)
     gradient of rows ``[lo, lo + rows)`` of a vocab-row table, i.e. zeros
     plus ``index_add_`` of ``dout``'s rows at the ids whose bounded row
@@ -373,31 +422,39 @@ def embedding_gather_shard_bwd_ref(dout: torch.Tensor, ids, lo: int, rows: int,
     ids = torch.as_tensor(ids, device=dout.device)
     local = clamp_ids(ids, vocab) - lo
     own = (local >= 0) & (local < rows)
-    return embedding_gather_bwd_ref(dout[own], local[own], rows)
+    return embedding_gather_bwd_ref(dout[own], local[own], rows, dtype=dtype)
 
 
 def embedding_gather_shard_bwd(dout: torch.Tensor, ids, lo: int, rows: int,
-                               vocab: int) -> torch.Tensor:
+                               vocab: int, *,
+                               dtype: torch.dtype | None = None) -> torch.Tensor:
     """The gradient of the shard holding rows ``[lo, lo + rows)`` of a
     (vocab, d) table gathered at ``ids`` (T,) by
-    :func:`embedding_gather_shard`, given ``dout`` (T, d) float32 or
-    float64: (rows, d).  On a CUDA ``dout``: one launch of the backward
-    kernel's shard entry (ids read as they are, each bounded by ``vocab``
-    inside the kernel, those outside the window dropped), or a raise; on
-    the CPU, and only there, :func:`embedding_gather_shard_bwd_ref`."""
-    return _bwd(dout, ids, int(vocab), (int(lo), int(rows)))
+    :func:`embedding_gather_shard`, given ``dout`` (T, d): (rows, d) in
+    ``dtype`` (as for :func:`embedding_gather_bwd`).  On a CUDA ``dout``:
+    one launch of the backward kernel's shard entry (ids read as they are,
+    each bounded by ``vocab`` inside the kernel, those outside the window
+    dropped), or a raise; on the CPU, and only there,
+    :func:`embedding_gather_shard_bwd_ref`."""
+    return _bwd(dout, ids, int(vocab), (int(lo), int(rows)), dtype=dtype)
 
 
 def _bwd(dout: torch.Tensor, ids, vocab: int,
-         shard: tuple[int, int] | None = None) -> torch.Tensor:
+         shard: tuple[int, int] | None = None, *,
+         dtype: torch.dtype | None = None) -> torch.Tensor:
     """Both backward wrappers: the checks, then the plain version on the
     CPU or one launch of the kernel (``shard``: ``(lo, rows)`` of the
-    table's rows)."""
+    table's rows; ``dtype``: the gradient's, None for ``dout``'s)."""
     if dout.ndim != 2:
         raise ValueError(f"dout must be (T, d), got {tuple(dout.shape)}")
-    dtype = _DTYPE_NAMES.get(dout.dtype)
-    if dtype is None:
-        raise TypeError(f"dout dtype {dout.dtype} is not float32 or float64")
+    if dout.dtype not in _DTYPE_NAMES:
+        raise TypeError(f"dout dtype {dout.dtype} is not bfloat16, float32 "
+                        "or float64")
+    dtype = dout.dtype if dtype is None else dtype
+    if dtype != dout.dtype and (dout.dtype, dtype) != (torch.float32,
+                                                       torch.bfloat16):
+        raise TypeError(f"a {dtype} gradient from {dout.dtype} dout: the "
+                        "same dtype, or bfloat16 from float32")
     if not isinstance(ids, torch.Tensor):
         ids = torch.as_tensor(ids)
     if ids.shape != (dout.shape[0],):
@@ -406,8 +463,9 @@ def _bwd(dout: torch.Tensor, ids, vocab: int,
     dev = dout.device
     if dev.type == "cpu":
         if shard is None:
-            return embedding_gather_bwd_ref(dout, ids.cpu(), vocab)
-        return embedding_gather_shard_bwd_ref(dout, ids.cpu(), *shard, vocab)
+            return embedding_gather_bwd_ref(dout, ids.cpu(), vocab, dtype=dtype)
+        return embedding_gather_shard_bwd_ref(dout, ids.cpu(), *shard, vocab,
+                                              dtype=dtype)
     if dev.type != "cuda":
         raise RuntimeError(f"embedding_gather_bwd has a CUDA kernel and a CPU "
                            f"reference; got {dev}")
@@ -423,12 +481,12 @@ def _bwd(dout: torch.Tensor, ids, vocab: int,
         dout = dout.contiguous()
     d = dout.shape[1]
     plan, (stripe, chunks, threads, vec) = _bwd_plan(
-        vocab, d, ids.shape[0], dout.dtype, ids.dtype, shard)
+        vocab, d, ids.shape[0], dout.dtype, ids.dtype, shard, dtype)
     plan.raise_if_invalid()
     if dout.data_ptr() % vec:
         dout = dout.clone()                   # a fresh allocation is aligned
     n_rows = vocab if shard is None else shard[1]
-    dtable = torch.empty((n_rows, d), dtype=dout.dtype, device=dev)
+    dtable = torch.empty((n_rows, d), dtype=dtype, device=dev)
     _launch_bwd(ids, dout, dtable, vec, stripe, chunks, threads,
                 None if shard is None else (shard[0], vocab))
     return dtable
@@ -436,39 +494,49 @@ def _bwd(dout: torch.Tensor, ids, vocab: int,
 
 @functools.lru_cache(maxsize=64)
 def _bwd_plan(vocab: int, d: int, t: int, dtype: torch.dtype,
-              id_dtype: torch.dtype, shard: tuple[int, int] | None = None):
+              id_dtype: torch.dtype, shard: tuple[int, int] | None = None,
+              table_dtype: torch.dtype | None = None):
     """The backward's plan of one shape (``shard``: ``(lo, rows)`` of the
-    shard form) and its grid (stripe rows, chunks, threads, vector bytes),
-    built once (a train step calls it once with the same shape; the checks
-    before the launch are host time the card waits on)."""
+    shard form; ``dtype`` the output gradients', ``table_dtype`` the
+    table's, None: ``dtype``) and its grid (stripe rows, chunks, threads,
+    vector bytes of ``dout``), built once (a train step calls it once with
+    the same shape; the checks before the launch are host time the card
+    waits on)."""
     name = _DTYPE_NAMES[dtype]
+    tname = name if table_dtype is None else _DTYPE_NAMES[table_dtype]
     ids = str(id_dtype).removeprefix("torch.")
     if shard is None:
-        plan = plan_embedding_gather_bwd(vocab, d, t, dtype=name, id_dtype=ids)
+        plan = plan_embedding_gather_bwd(vocab, d, t, dtype=name, id_dtype=ids,
+                                         table_dtype=tname)
     else:
         plan = plan_embedding_gather_shard_bwd(vocab, *shard, d, t, dtype=name,
-                                               id_dtype=ids)
+                                               id_dtype=ids, table_dtype=tname)
     rows = vocab if shard is None else shard[1]
-    return plan, gather_bwd_grid(max(rows, 1), max(d, 1), t,
-                                 8 if name == "float64" else 4)
+    return plan, gather_bwd_grid(max(rows, 1), max(d, 1), t, DTYPE_BYTES[name])
 
 
 def _launch_bwd(ids, dout, dtable, vec: int, stripe: int, chunks: int,
                 threads: int, window: tuple[int, int] | None = None) -> None:
     """One launch of B9's backward kernel, grid (ceil(rows / ``stripe``),
-    ``chunks``) of ``threads``, ``vec``-byte vectors, on PyTorch's current
-    stream of the gradient's device, with that device current.
-    ``window``: ``(lo, vocab)`` where ``dtable`` is the gradient of rows
-    ``[lo, lo + len(dtable))`` of a vocab-row table (the shard entry)."""
+    ``chunks``) of ``threads``, ``vec``-byte vectors of ``dout``, on
+    PyTorch's current stream of the gradient's device, with that device
+    current.  ``window``: ``(lo, vocab)`` where ``dtable`` is the gradient
+    of rows ``[lo, lo + len(dtable))`` of a vocab-row table (the shard
+    entry).  A bf16 ``dtable`` from more than one slice of ids gets its
+    float32 carry (T, d) here."""
     global BWD_LAUNCHES, SHARD_BWD_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
     lib = cuda_lib.library("embedding_gather")
     index = dout.get_device()
-    tail = (dout.shape[0], dout.shape[1], int(dout.dtype == torch.float64), vec,
+    t, d = dout.shape
+    carry = (torch.empty((t, d), dtype=torch.float32, device=dout.device)
+             if dtable.element_size() < 4 and t > GATHER_BWD_SLICE else None)
+    tail = (t, d, _DTYPE_CODE[dout.dtype], _DTYPE_CODE[dtable.dtype], vec,
             stripe, chunks, threads, torch.cuda.current_stream(index).cuda_stream)
     head = (ids.data_ptr(), _ID_BYTES[ids.dtype], dout.data_ptr(),
-            dtable.data_ptr(), dtable.shape[0])
+            dtable.data_ptr(), None if carry is None else carry.data_ptr(),
+            dtable.shape[0])
     if window is None:
         fn, args = lib.repro_embedding_gather_bwd, head + tail
     else:

@@ -37,6 +37,15 @@ Beyond the reference's ``ssd_fused`` all take an optional ``init_state``
 model calls; with ``None`` the scan starts from zero, as ``ssd_fused`` does.
 Accumulation is in promote(xd, float32), the carried state included: y
 comes back in xd's dtype, the final state in the accumulation dtype.
+
+The dtypes: all float32, all float64, or the reference model's SSD_BF16
+mix (``repro.models.ssm``, ``ssm.py:214-217``): xd, B and C bfloat16, ad
+(and ``init_state``) float32.  The bf16 form's kernels keep the fp32
+form's arithmetic on the widened inputs and round y once, so on the card
+its y is the fp32 form's on the upcast inputs rounded to bf16 and its
+state the fp32 form's, exactly; its backward's dxd, dB and dC are the fp32
+backward's rounded once, dad and d init_state float32.  No other mix is
+taken (float16 included).
 """
 from __future__ import annotations
 
@@ -72,12 +81,16 @@ BWD_LAUNCHES = 0
 #: Launches of one :func:`ssd_fused_bwd` call on the card.
 LAUNCHES_PER_BWD = len(SSD_BWD_LAUNCHES)
 
-_KERNEL_DTYPES = (torch.float32, torch.float64)
+_KERNEL_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+#: The C entries' element-type codes (``csrc/ssd_mma.cuh``).
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 def _check_args(xd, ad, B, C, init_state) -> tuple[int, int, int, int, int, int]:
     """Device, dtype and shape of one call; returns (b, l, h, p, g, n).
-    Chunking and group counts are the plan's job."""
+    The dtypes: one of float32 / float64 for all, or the bf16 mix (xd, B,
+    C bfloat16; ad and init_state float32).  Chunking and group counts are
+    the plan's job."""
     if xd.ndim != 4:
         raise ValueError(f"xd must be (b, l, h, p), got {tuple(xd.shape)}")
     b, l, h, p = xd.shape
@@ -88,16 +101,23 @@ def _check_args(xd, ad, B, C, init_state) -> tuple[int, int, int, int, int, int]
                          f"one (b, l, g, n) pair for b={b}, l={l}")
     g, n = B.shape[2], B.shape[3]
     if xd.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"xd dtype {xd.dtype} is not float32 or float64")
-    for name, t in (("ad", ad), ("B", B), ("C", C)):
-        if t.dtype != xd.dtype:
-            raise TypeError(f"{name} dtype {t.dtype} != xd dtype {xd.dtype}")
+        raise TypeError(f"xd dtype {xd.dtype} is not bfloat16, float32 or "
+                        "float64")
+    acc = _acc_dtype(xd.dtype)
+    for name, t, want in (("ad", ad, acc), ("B", B, xd.dtype),
+                          ("C", C, xd.dtype)):
+        if t.dtype != want:
+            raise TypeError(f"{name} dtype {t.dtype} != {want} (xd dtype "
+                            f"{xd.dtype})")
         if t.device != xd.device:
             raise ValueError(f"{name} on {t.device}, xd on {xd.device}")
     if init_state is not None:
         if init_state.shape != (b, h, p, n):
             raise ValueError(f"init_state {tuple(init_state.shape)} != "
                              f"(b, h, p, n) = {(b, h, p, n)}")
+        if xd.dtype == torch.bfloat16 and init_state.dtype != acc:
+            raise TypeError(f"init_state dtype {init_state.dtype} != {acc} "
+                            "(xd dtype bfloat16)")
         if init_state.device != xd.device:
             raise ValueError(f"init_state on {init_state.device}, xd on "
                              f"{xd.device}")
@@ -248,14 +268,16 @@ def _launch(xd, ad, B, C, init, y, fstate, chunk: int, keep: bool = False
     entering states are returned when ``keep`` (the backward saves them),
     in a block of their own, so that the chunk states are freed after the
     call; without it (serving) the three share one block, passed to the
-    launches as raw pointers, and nothing is returned (None, None)."""
+    launches as raw pointers, and nothing is returned (None, None).  The
+    bf16 form's y partial sums (``yacc``, float32) are allocated here
+    where p takes more than one 64-column slice."""
     global KERNEL_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
     lib = cuda_lib.library("ssd_fused")
     b, l, h, p = xd.shape
     g, n = B.shape[2], B.shape[3]
-    dbl = int(xd.dtype == torch.float64)
+    code = _DTYPE_CODE[xd.dtype]
     nc = l // chunk
     n_cum = -(-b * h * l // 4) * 4            # the states start 16 B aligned
     n_st = b * h * nc * p * n
@@ -269,17 +291,20 @@ def _launch(xd, ad, B, C, init, y, fstate, chunk: int, keep: bool = False
     x_, b_ = xd.data_ptr(), B.data_ptr()
     y_, f_ = y.data_ptr(), fstate.data_ptr()
     init_ = None if init is None else init.data_ptr()
+    yacc = (torch.empty((b, l, h, p), dtype=fstate.dtype, device=xd.device)
+            if xd.dtype == torch.bfloat16 and p > SSD_TILE else None)
+    yacc_ = None if yacc is None else yacc.data_ptr()
     index = xd.device.index
     stream = torch.cuda.current_stream(index).cuda_stream
     calls = {
         "chunk_state": lambda: lib.repro_ssd_chunk_state(
-            x_, ad.data_ptr(), b_, cum, st, b, l, h, p, g, n, chunk, dbl,
+            x_, ad.data_ptr(), b_, cum, st, b, l, h, p, g, n, chunk, code,
             stream),
         "state_pass": lambda: lib.repro_ssd_state_pass(
-            st, entering, cum, init_, f_, b, l, h, p, n, chunk, dbl, stream),
+            st, entering, cum, init_, f_, b, l, h, p, n, chunk, code, stream),
         "chunk_output": lambda: lib.repro_ssd_chunk_output(
-            x_, b_, C.data_ptr(), cum, entering, int(init is not None), y_, b,
-            l, h, p, g, n, chunk, dbl, stream),
+            x_, b_, C.data_ptr(), cum, entering, int(init is not None), y_,
+            yacc_, b, l, h, p, g, n, chunk, code, stream),
     }
     with (contextlib.nullcontext() if index == torch.cuda.current_device()
           else torch.cuda.device(index)):
@@ -354,8 +379,9 @@ def ssd_fused(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
               init_state: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused scan.  xd (b, l, h, p) (inputs pre-multiplied by dt), ad
-    (b, l, h), B and C (b, l, g, n), all float32 or all float64; l a
-    multiple of ``chunk``.  Returns (y (b, l, h, p), final state
+    (b, l, h), B and C (b, l, g, n), all float32, all float64, or xd, B
+    and C bfloat16 beside float32 ad (and ``init_state``); l a multiple of
+    ``chunk``.  Returns (y (b, l, h, p), final state
     (b, h, p, n)).  On a CUDA device the :data:`LAUNCHES_PER_CALL` launches
     of kernel B8; on the CPU the plain :func:`ssd_fused_ref`.  Where grad
     is enabled and an input requires it, the result carries a graph whose
@@ -461,8 +487,9 @@ def ssd_fused_bwd_ref(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
 
 
 class _BwdBuffers:
-    """The backward's outputs and scratch on xd's device: dx, dad, dB, dC,
-    dinit (None without an initial state), the local terms and dS_out
+    """The backward's outputs and scratch on xd's device: dx, dB, dC in
+    xd's dtype, dad and dinit (None without an initial state) in the
+    accumulation dtype, as is the scratch: the local terms and dS_out
     (b, h, nc, p, n), the per-head dB and dC (b, l, h, n), dcum's two parts
     (b, h, l), the key launch's M and (G ∘ L) tiles ((b h nc, pairs, 64,
     64) each, a pair for each query tile I and key tile J <= I of a chunk)
@@ -476,11 +503,14 @@ class _BwdBuffers:
         b, l, h, p = xd.shape
         g, n = B.shape[2], B.shape[3]
 
-        self.outputs = (torch.empty_like(xd), xd.new_empty((b, l, h)),
+        acc = _acc_dtype(xd.dtype)
+        self.outputs = (torch.empty_like(xd),
+                        xd.new_empty((b, l, h), dtype=acc),
                         xd.new_empty((b, l, g, n)), xd.new_empty((b, l, g, n)),
-                        None if init is None else xd.new_empty((b, h, p, n)))
+                        None if init is None
+                        else xd.new_empty((b, h, p, n), dtype=acc))
         self._at, total = _bwd_scratch_layout(b, l, h, p, g, n, chunk)
-        self._block = xd.new_empty((total,))
+        self._block = xd.new_empty((total,), dtype=acc)
         base, item = self._block.data_ptr(), self._block.element_size()
         self.ptr = {k: base + at * item for k, (at, _) in self._at.items()}
         for k, t in zip(("dx", "dad", "dB", "dC", "dinit"), self.outputs):
@@ -521,27 +551,27 @@ def _bwd_calls(lib, xd, B, C, dy, dfinal, init, fstate, cum, entering,
     alone to time it or to inspect what it hands on."""
     b, l, h, p = xd.shape
     g, n = B.shape[2], B.shape[3]
-    dbl = int(xd.dtype == torch.float64)
+    code = _DTYPE_CODE[xd.dtype]
     o = buf.ptr
     x_, dy_, b_, c_ = xd.data_ptr(), dy.data_ptr(), B.data_ptr(), C.data_ptr()
     cum_, ent_ = cum.data_ptr(), entering.data_ptr()
     df_ = None if dfinal is None else dfinal.data_ptr()
     return {
         "bwd_local": lambda: lib.repro_ssd_bwd_local(
-            dy_, c_, cum_, o["local"], b, l, h, p, g, n, chunk, dbl, stream),
+            dy_, c_, cum_, o["local"], b, l, h, p, g, n, chunk, code, stream),
         "bwd_state_pass": lambda: lib.repro_ssd_bwd_state_pass(
             o["local"], o["dso"], cum_, df_, o["dinit"], b, l, h, p, n, chunk,
-            dbl, stream),
+            code, stream),
         "bwd_key": lambda: lib.repro_ssd_bwd_key(
             x_, dy_, b_, c_, cum_, ent_, fstate.data_ptr(), o["dso"],
             int(dfinal is not None), o["dbh"], o["dx"], o["dck"], o["mh"],
-            o["gh"], o["rh"], b, l, h, p, g, n, chunk, dbl, stream),
+            o["gh"], o["rh"], b, l, h, p, g, n, chunk, code, stream),
         "bwd_query": lambda: lib.repro_ssd_bwd_query(
             dy_, b_, c_, cum_, ent_, int(init is not None), o["mh"], o["rh"],
-            o["dch"], o["dcq"], b, l, h, p, g, n, chunk, dbl, stream),
+            o["dch"], o["dcq"], b, l, h, p, g, n, chunk, code, stream),
         "bwd_finish": lambda: lib.repro_ssd_bwd_finish(
             o["dcq"], o["dck"], o["dad"], o["dbh"], o["dch"], o["dB"],
-            o["dC"], b, l, h, g, n, chunk, dbl, stream),
+            o["dC"], b, l, h, g, n, chunk, code, stream),
     }
 
 

@@ -31,9 +31,10 @@ require it (a trainable model, the train step's); its ``remat`` wraps each
 block (each vision group, each enc-dec decoder layer) as the reference's
 ``jax.checkpoint`` wraps its scan bodies
 (:func:`repro_torch.models.blocks.remat_call`).  :func:`prefill` and
-:func:`decode_step` record none.  A ``tok_embed`` in another dtype than
-float32 / float64 (bf16 parameters) is cast to float32 before kernel B9,
-one copy, the gradient flowing back through the cast.
+:func:`decode_step` record none.  A bf16 ``tok_embed`` (bf16 parameters)
+is gathered by kernel B9's bf16 form as it is, its rows widened to
+float32, and its gradient summed from float32 output gradients and rounded
+once: no float32 copy of the table (515 MB at mamba2-2.7b's).
 
 **On a mesh** (``mesh=``, a :class:`~repro_torch.compat.Mesh` with axes
 ``("pod", "data", "model")`` or a subset, or the ambient
@@ -275,14 +276,21 @@ def make_generator(seed: int, device=None) -> torch.Generator:
 
 
 def _embed(p: LM, cfg: ModelConfig, tokens, dtype) -> torch.Tensor:
-    """(B, S) tokens (numpy or a tensor) -> (B, S, d) through kernel B9 (a
-    table of another dtype than float32 / float64 cast to float32 first)."""
+    """(B, S) tokens (numpy or a tensor) -> (B, S, d) through kernel B9.  A
+    bf16 table is gathered as it is, its rows widened to float32 (the
+    backward then sums float32 gradients and rounds once: the gradient of a
+    float32 copy of the table, cast back, without the copy)."""
     b, s = tokens.shape
-    table = p.tok_embed
-    if table.dtype not in (torch.float32, torch.float64):
-        table = table.float()
-    x = gather.embedding_gather(table, tokens.reshape(-1))
+    x = gather.embedding_gather(p.tok_embed, tokens.reshape(-1),
+                                out_dtype=_gathered(p.tok_embed))
     return x.reshape(b, s, cfg.d_model).to(dtype)
+
+
+def _gathered(table: torch.Tensor) -> torch.dtype:
+    """The dtype B9 hands the model a table's rows in: float32 for a bf16
+    table, else the table's (float16 and other dtypes are refused by the
+    kernel's wrapper)."""
+    return torch.float32 if table.dtype == torch.bfloat16 else table.dtype
 
 
 def _logits(p: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -468,14 +476,15 @@ def _embed_tp(p: shrd.PlacedParams, cfg: ModelConfig, tokens, row: shrd.Row,
     b, s = tokens.shape
     ids = tokens.reshape(-1)
     table = p["tok_embed"]
-    pieces = [t if t.dtype in (torch.float32, torch.float64) else t.float()
-              for t in row.pieces(table)]
+    pieces = row.pieces(table)
+    out = _gathered(pieces[0])
     if table.tp_dim() is None:
-        x = gather.embedding_gather(pieces[0], _ids_for(ids, row.lead))
+        x = gather.embedding_gather(pieces[0], _ids_for(ids, row.lead),
+                                    out_dtype=out)
     else:
         rows = table.shape[0] // row.size
         x = shrd.sum_on([gather.embedding_gather_shard(
-            t, _ids_for(ids, dev), m * rows, cfg.vocab_size)
+            t, _ids_for(ids, dev), m * rows, cfg.vocab_size, out_dtype=out)
             for m, (dev, t) in enumerate(zip(row.devices, pieces))], row.lead)
     return x.reshape(b, s, cfg.d_model).to(dtype)
 

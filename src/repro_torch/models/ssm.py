@@ -60,9 +60,11 @@ class SSMState(NamedTuple):
     conv: torch.Tensor
 
 
-#: The reference's mixed-precision switch (bf16 einsums in the chunked
-#: scan).  Kernel B8 has no bf16 form: setting it raises in
-#: :func:`ssm_forward` (ROADMAP C).
+#: The reference's mixed-precision switch: the scan's xd, B and C in bf16,
+#: ad and the carried state in float32 (``ssm.py:214-217``).  Kernel B8's
+#: bf16 form takes that mix (sums in float32, y rounded once to bf16) where
+#: the reference runs ``ssd_chunked``'s bf16 einsums; decode steps and
+#: ragged tails run the recurrence on the same dtypes, as the reference's.
 SSD_BF16: bool = False
 
 
@@ -111,13 +113,16 @@ def ssd_chunked(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
                 init_state: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked state-space dual scan: kernel B8 on the card, its plain
-    version on the CPU.  Returns (y (b, l, h, p), final_state float32 or
-    float64, as the inputs)."""
+    version on the CPU.  Returns (y (b, l, h, p) in xd's dtype,
+    final_state in promote(xd, float32))."""
     return ssd_k.ssd_fused(xd, ad, B, C, chunk=chunk, init_state=init_state)
 
 
 def ssd_reference(xd, ad, B, C, init_state=None):
-    """Naive per-token recurrence (ragged tails and decode steps)."""
+    """Naive per-token recurrence (ragged tails and decode steps), in the
+    reference's dtypes: the state starts in xd's dtype and is promoted by
+    ``exp(ad)`` (bf16 xd, float32 ad: a float32 state, the bf16 outer
+    product added to it, y in float32)."""
     b, l, h, p = xd.shape
     g = B.shape[2]
     grp = torch.arange(h, device=xd.device) // (h // g)
@@ -130,7 +135,7 @@ def ssd_reference(xd, ad, B, C, init_state=None):
     for t in range(l):
         st = st * torch.exp(ad[:, t])[..., None, None] \
             + Bh[:, t][:, :, None, :] * xd[:, t][..., None]
-        ys.append(torch.einsum("bhpn,bhn->bhp", st, Ch[:, t]))
+        ys.append(torch.einsum("bhpn,bhn->bhp", st, Ch[:, t].to(st.dtype)))
     return torch.stack(ys, dim=1), st
 
 
@@ -155,26 +160,23 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return Fn.silu(y), new_ring
 
 
-def _check_bf16() -> None:
-    if SSD_BF16:
-        raise NotImplementedError(
-            "SSD_BF16: kernel B8 has no bf16 form (ROADMAP C)")
-
-
 def _scan(xin, dt, Bc, Cc, A_log, dt_bias, D, s_cfg, init, dtype):
     """The SSD core over some heads: ``xin`` (b, l, hh p), ``dt`` (b, l,
     hh) raw, ``Bc`` / ``Cc`` (b, l, gg n) of the groups those heads read,
     their ``A_log`` / ``dt_bias`` / ``D`` (hh,).  Kernel B8 on a chunk
-    multiple, else the exact recurrence (ragged tails, decode steps).
+    multiple, else the exact recurrence (ragged tails, decode steps), the
+    reference's dtypes (``ssm.py:210-227``): xd, B and C in bf16 under
+    :data:`SSD_BF16`, else float32; ad float32.
     Returns (y (b, l, hh p) in ``dtype``, the final state)."""
     b, l, _ = xin.shape
     hh, n = dt.shape[-1], s_cfg.d_state
     dt = Fn.softplus(dt.float() + dt_bias)                         # (b, l, hh)
     A = -torch.exp(A_log)                                          # (hh,)
     xh = xin.reshape(b, l, hh, s_cfg.head_dim)
-    Bg = Bc.reshape(b, l, -1, n).float()
-    Cg = Cc.reshape(b, l, -1, n).float()
-    xd = xh.float() * dt[..., None]
+    ssd_dtype = torch.bfloat16 if SSD_BF16 else torch.float32
+    Bg = Bc.reshape(b, l, -1, n).to(ssd_dtype)
+    Cg = Cc.reshape(b, l, -1, n).to(ssd_dtype)
+    xd = (xh.float() * dt[..., None]).to(ssd_dtype)
     ad = dt * A                                                    # (b, l, hh) f32
     if l % s_cfg.chunk == 0 and l >= s_cfg.chunk:
         y, final = ssd_chunked(xd, ad, Bg, Cg, s_cfg.chunk, init)
@@ -199,7 +201,6 @@ def ssm_forward(p: SSMMixer, cfg: ModelConfig, x: torch.Tensor,
     """Mamba2 mixer.  x: (B, S, d).  ``state=None`` -> a pass without
     caches (no state returned); ``state`` given -> a prefill or decode step
     from it, returning the new state."""
-    _check_bf16()
     di, gn = cfg.d_inner, cfg.ssm.n_groups * cfg.ssm.d_state
     z, xbc, dt = _split_proj(x @ p.in_proj.to(x.dtype), cfg)
     conv_state = state.conv if state is not None else None
@@ -258,7 +259,6 @@ def ssm_forward_tp(p: shrd.PlacedParams, cfg: ModelConfig, x: torch.Tensor,
     where the model axis divides them) and conv ring (channels split where
     it divides them)).  Returns (out on the lead, each device's new state
     pieces, or None without ``state``)."""
-    _check_bf16()
     s_cfg, lead = cfg.ssm, row.lead
     di, h, ph = cfg.d_inner, cfg.n_ssm_heads, s_cfg.head_dim
     n, gn = s_cfg.d_state, s_cfg.n_groups * s_cfg.d_state

@@ -14,10 +14,13 @@ port of ``repro.train.step``.
 
 On the card the forward and the backward run kernels B8 (every mamba2
 mixer of a chunk-multiple sequence) and B9 (the token embedding), each
-with its backward kernel.  Both take float32 / float64 only: a bf16
-embedding table (``param_dtype=torch.bfloat16``) is cast to float32 before
-B9, one copy (:func:`repro_torch.models.model._embed`), and the mixer's
-scan inputs are float32 whatever ``dtype`` is.  ``dtype`` defaults to
+with its backward kernel.  Both have bf16 forms: a bf16 embedding table
+(``param_dtype=torch.bfloat16``) is gathered as it is, its gradient summed
+in float32 from the float32 output gradients and rounded once
+(:func:`repro_torch.models.model._embed`: no float32 copy of the table),
+and the mixer's scan inputs are float32, or xd / B / C in bf16 beside
+float32 ad under :data:`repro_torch.models.ssm.SSD_BF16`, whatever
+``dtype`` is.  ``dtype`` defaults to
 float32 (the reference's default is bf16 for the TPU's matrix units; the
 port's CLI trains in float32 on the card and the CPU alike).
 

@@ -1865,3 +1865,116 @@ def test_reduced_families_serve_on_a_mesh_of_the_card(cuda_device, arch):
             ServeEngine(cfg, placed, gcfg, mesh=mesh).generate(prompts,
                                                                extras=extras),
             want_toks)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 forms of B8 and B9: each against the fp32 form on the upcast
+# inputs, rounded once (their contract: the fp32 form's arithmetic)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_ssd_case(shape, device, chunk, init):
+    """``_ssd_case``'s float32 inputs with xd / B / C rounded to bf16."""
+    (xd, ad, B, C), s0 = _ssd_case(*shape, np.float32, device, chunk, init)
+    return (xd.bfloat16(), ad, B.bfloat16(), C.bfloat16()), s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk", [
+    ((2, 64, 4, 8, 2, 16), 16),
+    ((1, 192, 4, 72, 2, 80), 64),        # ragged p and n tiles
+    ((2, 96, 6, 130, 2, 24), 32),        # p past one 64-column slice
+    ((1, 512, 80, 64, 1, 128), 256),     # mamba2-2.7b's prefill
+    ((1, 512, 50, 64, 1, 16), 256),      # hymba-1.5b's
+])
+def test_ssd_bf16_kernel_equals_fp32_form_rounded(cuda_device, shape, chunk):
+    """B8's bf16 form (bf16 xd / B / C, float32 ad and initial state): y
+    ``torch.equal`` to the fp32 form's on the upcast inputs rounded to
+    bf16, the final state equal, from zero and from a random state; its
+    backward's dxd / dB / dC the fp32 backward's rounded, dad and d
+    init_state equal; three and five launches a call."""
+    from repro_torch.kernels import ssd
+
+    for init in (False, True):
+        (xd, ad, B, C), s0 = _bf16_ssd_case(shape, cuda_device, chunk, init)
+        up = (xd.float(), ad, B.float(), C.float())
+        before = ssd.KERNEL_LAUNCHES
+        y, f = ssd.ssd_fused(xd, ad, B, C, chunk=chunk, init_state=s0)
+        torch.cuda.synchronize()
+        assert ssd.KERNEL_LAUNCHES == before + ssd.LAUNCHES_PER_CALL
+        y32, f32 = ssd.ssd_fused(*up, chunk=chunk, init_state=s0)
+        assert y.dtype == torch.bfloat16 and torch.equal(y, y32.bfloat16())
+        assert torch.equal(f, f32)
+        dy = torch.randn_like(y32).bfloat16()
+        df = torch.randn_like(f32)
+        before = ssd.BWD_LAUNCHES
+        got = ssd.ssd_fused_bwd(xd, ad, B, C, dy, df, chunk=chunk, init_state=s0)
+        torch.cuda.synchronize()
+        assert ssd.BWD_LAUNCHES == before + ssd.LAUNCHES_PER_BWD
+        want = ssd.ssd_fused_bwd(*up, dy.float(), df, chunk=chunk, init_state=s0)
+        for gv, wv in zip(got, want):
+            if gv is not None:
+                assert torch.equal(gv, wv.to(gv.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2560, 7])
+@pytest.mark.parametrize("t", [4, 512, 4096])
+def test_gather_bf16_forms_on_the_card(cuda_device, d, t):
+    """B9's four bf16 entries: the gather and its shard form ``torch.equal``
+    to ``table[clamp_ids(ids)]`` and to the masked rows (odd d: 2 B
+    vectors), one launch a call; the backward and the shard backward, from
+    bf16 and from float32 output gradients, ``torch.equal`` to the fp32
+    backward's rounded once (t = 4096: two slices of ids, the float32
+    carry); ids with repeats and card ids outside [0, V)."""
+    from repro_torch.kernels import gather
+
+    v = 1000
+    table = torch.randn((v, d), device=cuda_device).bfloat16()
+    rng = np.random.default_rng(t + d)
+    ids = rng.integers(0, v, t)
+    ids[::3] = ids[0]
+    ids[:min(t, 4)] = [v + 3, -1, v - 1, -v - 7][:min(t, 4)]
+    ids = torch.from_numpy(ids).to(cuda_device)
+    before = gather.KERNEL_LAUNCHES
+    got = gather.embedding_gather(table, ids)
+    torch.cuda.synchronize()
+    assert gather.KERNEL_LAUNCHES == before + 1
+    assert torch.equal(got, table[gather.clamp_ids(ids, v)])
+    parts = [gather.embedding_gather_shard(table[k * 250:(k + 1) * 250], ids,
+                                           k * 250, v) for k in range(4)]
+    assert torch.equal(sum(parts[1:], parts[0]), got)
+    dout = torch.randn((t, d), device=cuda_device)
+    for src, wide in ((dout.bfloat16(), dout.bfloat16().float()), (dout, dout)):
+        before = gather.BWD_LAUNCHES
+        g = gather.embedding_gather_bwd(src, ids, v, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert gather.BWD_LAUNCHES == before + 1
+        assert torch.equal(g, gather.embedding_gather_bwd(wide, ids, v).bfloat16())
+        shards = [gather.embedding_gather_shard_bwd(src, ids, k * 250, 250, v,
+                                                    dtype=torch.bfloat16)
+                  for k in range(4)]
+        assert torch.equal(torch.cat(shards), g)
+
+
+@pytest.mark.cuda
+def test_float16_is_refused_before_any_launch_on_the_card(cuda_device):
+    """Float16 (no kernel form) is refused by every B8 / B9 wrapper before
+    a launch; a bf16 mix other than the reference model's too."""
+    from repro_torch.kernels import gather, ssd
+
+    (xd, ad, B, C), _ = _bf16_ssd_case((1, 64, 4, 8, 1, 16), cuda_device, 16, False)
+    counts = (ssd.KERNEL_LAUNCHES, gather.KERNEL_LAUNCHES, gather.BWD_LAUNCHES)
+    with pytest.raises(TypeError):
+        ssd.ssd_fused(xd.half(), ad, B.half(), C.half(), chunk=16)
+    with pytest.raises(TypeError):
+        ssd.ssd_fused(xd, ad.bfloat16(), B, C, chunk=16)
+    with pytest.raises(TypeError):
+        gather.embedding_gather(torch.zeros((10, 4), dtype=torch.float16,
+                                            device=cuda_device), np.arange(3))
+    with pytest.raises(TypeError):
+        gather.embedding_gather_bwd(torch.zeros((3, 4), dtype=torch.float16,
+                                                device=cuda_device),
+                                    np.arange(3), 10)
+    assert counts == (ssd.KERNEL_LAUNCHES, gather.KERNEL_LAUNCHES,
+                      gather.BWD_LAUNCHES)

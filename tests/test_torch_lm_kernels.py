@@ -426,3 +426,143 @@ def test_segsum_matches_reference():
     want = np.asarray(ref_segsum(jnp.asarray(a)))
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
     assert np.all(np.exp(got)[..., ~np.tri(16, dtype=bool)] == 0.0)
+
+
+# ---------------------------------------------------------------------------
+# bf16 forms: B8 on the reference model's SSD_BF16 mix (bf16 xd / B / C,
+# float32 ad), B9 on a bf16 table
+# ---------------------------------------------------------------------------
+
+
+def _bf16(a):
+    """A float32 array rounded to bf16 once: (the torch tensor, its values
+    as float32 numpy), so that both packages see the same bf16 values."""
+    t = torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+    return t, t.float().numpy()
+
+
+def _jbf16(v):
+    return jnp.asarray(v).astype(jnp.bfloat16)
+
+
+def _within_one_ulp(got, want):
+    """|got - want| <= one bf16 ulp of max(|got|, |want|) + 1e-6 x
+    max|want|, elementwise: two float32 sums of different order, each
+    rounded once to bf16.  The float32 sums themselves differ at fp32's
+    level of the terms (~1e-7 x max|y|), which near y = 0 exceeds a bf16
+    ulp of y: the second term covers that with a 10x margin."""
+    got, want = (np.asarray(x, np.float64) for x in (got, want))
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(mag, 2.0 ** -126))) - 7)
+    bound = ulp + 1e-6 * float(np.abs(want).max())
+    worst = float(np.max(np.abs(got - want) / bound))
+    assert worst <= 1.0, f"{worst} x (one bf16 ulp + 1e-6 max|y|)"
+
+
+@pytest.mark.parametrize("form", ["chunk_loop", "chunk_parallel"])
+@pytest.mark.parametrize("g,chunk", [(1, 16), (2, 8)])
+def test_ssd_bf16_matches_reference_and_the_fp32_scan_rounded(form, g, chunk):
+    """The bf16 mix through B8's plain versions (the chunk loop and the
+    kernel's chunk-parallel decomposition): y in bf16 within one bf16 ulp
+    of the reference's ``ssd_fused`` on the same bf16 inputs in interpret
+    mode, the float32 state at its fp32 tolerance; and each equal to its
+    own float32 run on the upcast inputs, y rounded once (the kernel's
+    contract on the card), from a zero and a random initial state."""
+    rng = np.random.default_rng(40 + g + chunk)
+    x, ad, b_, c_ = _ssd_inputs(rng, 2, 64, 4, 8, g, 16, np.float32)
+    (xt, xv), (bt, bv), (ct, cv) = _bf16(x), _bf16(b_), _bf16(c_)
+    adt = torch.from_numpy(ad)
+    fn = ssd.ssd_fused_ref if form == "chunk_loop" else ssd.ssd_chunk_parallel_model
+    y, f = fn(xt, adt, bt, ct, chunk=chunk)
+    assert y.dtype == torch.bfloat16 and f.dtype == torch.float32
+    y0, f0 = ref_ssd_fused(_jbf16(xv), jnp.asarray(ad), _jbf16(bv), _jbf16(cv),
+                           chunk=chunk)
+    assert y0.dtype == jnp.bfloat16 and f0.dtype == jnp.float32
+    _within_one_ulp(y.float().numpy(), np.asarray(y0.astype(jnp.float32)))
+    np.testing.assert_allclose(f.numpy(), np.asarray(f0), atol=2e-4, rtol=2e-4)
+    up = [torch.from_numpy(a) for a in (xv, ad, bv, cv)]
+    init = torch.from_numpy(rng.standard_normal((2, 4, 8, 16)).astype(np.float32))
+    for s0 in (None, init):
+        y1, f1 = fn(xt, adt, bt, ct, chunk=chunk, init_state=s0)
+        y32, f32 = fn(*up, chunk=chunk, init_state=s0)
+        assert torch.equal(y1, y32.bfloat16()) and torch.equal(f1, f32)
+    # the wrapper on CPU tensors is the chunk loop
+    yw, fw = ssd.ssd_fused(xt, adt, bt, ct, chunk=chunk)
+    y2, f2 = ssd.ssd_fused_ref(xt, adt, bt, ct, chunk=chunk)
+    assert torch.equal(yw, y2) and torch.equal(fw, f2)
+
+
+def test_ssd_bf16_takes_exactly_the_reference_mix():
+    """bf16 xd / B / C with float32 ad and a float32 initial state; any
+    other mix is refused before the plan, float16 included (the
+    float32 / float64 refusals above stay)."""
+    arrs = _ssd_inputs(np.random.default_rng(1), 1, 16, 2, 4, 1, 8, np.float32)
+    xd, ad, B, C = (torch.from_numpy(a) for a in arrs)
+    xb, bb, cb = xd.bfloat16(), B.bfloat16(), C.bfloat16()
+    before = ssd.KERNEL_LAUNCHES
+    with pytest.raises(TypeError, match="ad dtype"):
+        ssd.ssd_fused(xb, ad.bfloat16(), bb, cb, chunk=8)
+    with pytest.raises(TypeError, match="B dtype"):
+        ssd.ssd_fused(xb, ad, B, cb, chunk=8)
+    with pytest.raises(TypeError, match="init_state dtype"):
+        ssd.ssd_fused(xb, ad, bb, cb, chunk=8,
+                      init_state=torch.zeros((1, 2, 4, 8), dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="ad dtype"):
+        ssd.ssd_fused(xd, ad.bfloat16(), B, C, chunk=8)
+    with pytest.raises(TypeError, match="not bfloat16, float32 or float64"):
+        ssd.ssd_fused(xd.half(), ad, B.half(), C.half(), chunk=8)
+    assert ssd.KERNEL_LAUNCHES == before
+    y, f = ssd.ssd_fused(xb, ad, bb, cb, chunk=8,
+                         init_state=torch.zeros((1, 2, 4, 8)))
+    assert y.dtype == torch.bfloat16 and f.dtype == torch.float32
+
+
+@pytest.mark.parametrize("p", [64, 80])
+def test_ssd_bf16_plan_at_mamba2_widths(p):
+    """The bf16 form's plan: the fp32 form's launches and shared memory, its
+    operands bf16 (xd, B, C, y) beside float32 (ad, cum, the states); a
+    float32 scratch for y's partial sums only where p takes more than one
+    64-column slice."""
+    fp32 = plan_ssd_fused(1, 512, 80, p, 1, 128, chunk=256)
+    bf16 = plan_ssd_fused(1, 512, 80, p, 1, 128, chunk=256, dtype="bfloat16")
+    assert bf16.ok and [b.grid for b in bf16.blocks] == [b.grid for b in fp32.blocks]
+    assert [b.smem_bytes for b in bf16.blocks] == [b.smem_bytes for b in fp32.blocks]
+    ops = {o[0]: o[2] for blk in bf16.blocks for o in blk.operands}
+    assert {k: ops[k] for k in ("xd", "B", "C", "y")} == dict.fromkeys(
+        ("xd", "B", "C", "y"), "bfloat16")
+    assert {ops[k] for k in ("ad", "cum", "states", "entering", "state")} == {"float32"}
+    assert ("yacc" in ops) == (p > 64)
+    assert "float16" in plan_ssd_fused(1, 512, 80, p, 1, 128, chunk=256,
+                                       dtype="float16").violations[0]
+
+
+@pytest.mark.parametrize("d", [32, 7])
+def test_embedding_gather_bf16_equals_reference(d):
+    """A bf16 table's rows come back in bf16, exactly: ``table[ids]`` and
+    the reference's gather of the same bf16 table (odd d too, which the
+    card copies in 2 B vectors); ``out_dtype=torch.float32`` widens them;
+    the vocab-shard form's rows are the masked ones, the shards summing to
+    the whole-table gather."""
+    rng = np.random.default_rng(d)
+    tt, tv = _bf16(rng.standard_normal((300, d)))
+    ids = rng.integers(0, 300, (200,)).astype(np.int32)
+    got = gather.embedding_gather(tt, ids)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, tt[ids])
+    want = ref_gather(_jbf16(tv), jnp.asarray(ids), vl=64)
+    assert want.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    wide = gather.embedding_gather(tt, torch.from_numpy(ids.astype(np.int64)),
+                                   out_dtype=torch.float32)
+    assert wide.dtype == torch.float32 and torch.equal(wide, got.float())
+    parts = [gather.embedding_gather_shard(tt[k * 100:(k + 1) * 100], ids,
+                                           k * 100, 300) for k in range(3)]
+    for k, part in enumerate(parts):
+        assert part.dtype == torch.bfloat16
+        assert torch.equal(part, gather.embedding_gather_shard_ref(
+            tt[k * 100:(k + 1) * 100], ids, k * 100, 300))
+    assert torch.equal(parts[0] + parts[1] + parts[2], got)
+    plan = plan_embedding_gather(300, d, ids, dtype="bfloat16")
+    assert plan.ok and ("out", (200, d), "bfloat16") in plan.blocks[0].operands
+    with pytest.raises(ValueError, match="out_dtype"):
+        gather.embedding_gather(tt.float(), ids, out_dtype=torch.bfloat16)

@@ -360,3 +360,129 @@ def test_remat_full_recomputes_the_scan_in_the_backward(mamba, monkeypatch):
         params = params_from_reference(tree, cfg, "cpu", trainable=True)
         loss_and_grads(params, cfg, TrainConfig(remat=policy), batch)
         assert calls == {"fwd": want * cfg.n_layers, "bwd": cfg.n_layers}
+
+
+# ---------------------------------------------------------------------------
+# bf16 forms of the backwards
+# ---------------------------------------------------------------------------
+
+
+def _bf16_values(a):
+    """``a`` rounded to bf16 once, as float32 numpy (exact)."""
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("shape,chunk,init", [((2, 64, 4, 8, 2, 16), 16, True),
+                                              ((1, 96, 3, 5, 1, 7), 32, False)])
+def test_ssd_bf16_backward_matches_jax_grad_and_the_fp32_backward(shape, chunk,
+                                                                  init):
+    """B8's plain backward on the bf16 mix (bf16 xd / B / C / dy, float32
+    ad, final-state gradient and initial state): dxd, dB and dC in bf16
+    equal to its float32 backward on the upcast inputs rounded once (the
+    kernel's contract on the card), dad and d init_state float32 and equal
+    to it; and each within SSD_TOL x max(1, max|g|) (+ one bf16 ulp of the
+    bf16 outputs) of ``jax.vjp`` of the reference's ``ssd_chunked`` on the
+    upcast float32 inputs."""
+    rng = np.random.default_rng(50 + chunk)
+    arrs, s0, dy, df = _inputs(rng, *shape, np.float32, init)
+    for i in (0, 2, 3):
+        arrs[i] = _bf16_values(arrs[i])
+    dy = _bf16_values(dy)
+    t32 = [torch.from_numpy(a) for a in arrs]
+    tb = [t.bfloat16() if i != 1 else t for i, t in enumerate(t32)]
+    s0t = None if s0 is None else torch.from_numpy(s0)
+    got = ssd.ssd_fused_bwd(*tb, torch.from_numpy(dy).bfloat16(),
+                            torch.from_numpy(df), chunk=chunk, init_state=s0t)
+    want32 = ssd.ssd_fused_bwd(*t32, torch.from_numpy(dy), torch.from_numpy(df),
+                               chunk=chunk, init_state=s0t)
+    assert [g.dtype for g in got[:4]] == [torch.bfloat16, torch.float32,
+                                          torch.bfloat16, torch.bfloat16]
+    for gv, wv in zip(got, want32):
+        if gv is not None:
+            assert torch.equal(gv, wv.to(gv.dtype))
+    fn = (lambda xd, ad, B, C, s=None: ref_ssd_chunked(xd, ad, B, C, chunk, s))
+    ref = _ref_grads(fn, arrs, s0, dy, df)
+    for gv, rv in zip(got, ref):
+        rv = np.asarray(rv)
+        g = gv.float().numpy()
+        tol = 2e-4 * max(1.0, float(np.abs(rv).max()))
+        if gv.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** (np.floor(np.log2(np.maximum(np.abs(rv), 2.0 ** -126))) - 7)
+        assert np.all(np.abs(g - rv) <= tol)
+
+
+@pytest.mark.parametrize("t", [300, 2100])
+def test_gather_bf16_backward_forms(t):
+    """B9's plain backward into a bf16 table: from bf16 output gradients and
+    from float32 ones (the model's path), each equal to the float32
+    backward of the upcast gradients rounded once (sums in float32 in
+    ascending position); the shard form's the same per shard.  Against
+    ``jax.vjp`` of the reference's gather of the bf16 table (XLA sums the
+    repeated ids in bf16): per entry within n_v 2^-8 sum_i |dout_i|, the
+    recursive-summation bound of n_v bf16 additions and one rounding (n_v
+    the row's id count), a loose bound at large n_v; and against ``jax.vjp``
+    of the reference's gather of the float32 table on the same gradients,
+    rounded once, within one bf16 ulp (plus the float32 sums' order).
+    t = 2100 walks the ids in two slices on the card."""
+    rng = np.random.default_rng(t)
+    v, d = 40, 12
+    ids = rng.integers(0, 9, (t,)).astype(np.int32)       # many repeats
+    dout32 = torch.from_numpy(rng.standard_normal((t, d)).astype(np.float32))
+    doutb = dout32.bfloat16()
+    idt = torch.from_numpy(ids)
+    got = gather.embedding_gather_bwd(doutb, idt, v)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, gather.embedding_gather_bwd(doutb.float(), idt, v)
+                       .bfloat16())
+    wide = gather.embedding_gather_bwd(dout32, idt, v, dtype=torch.bfloat16)
+    assert torch.equal(wide, gather.embedding_gather_bwd(dout32, idt, v).bfloat16())
+    for lo, rows in ((0, 4), (4, 36)):
+        part = gather.embedding_gather_shard_bwd(doutb, idt, lo, rows, v)
+        assert part.dtype == torch.bfloat16 and torch.equal(part, got[lo:lo + rows])
+        part = gather.embedding_gather_shard_bwd(dout32, idt, lo, rows, v,
+                                                 dtype=torch.bfloat16)
+        assert torch.equal(part, wide[lo:lo + rows])
+    table = jnp.zeros((v, d), jnp.bfloat16)
+    _, vjp = jax.vjp(lambda tb: tb[jnp.asarray(ids)], table)
+    (ref,) = vjp(jnp.asarray(doutb.float().numpy()).astype(jnp.bfloat16))
+    ref = np.asarray(ref.astype(jnp.float32))
+    absum = np.zeros((v, d), np.float64)
+    np.add.at(absum, ids, np.abs(doutb.float().numpy()))
+    n_v = np.bincount(ids, minlength=v)[:, None]
+    assert np.all(np.abs(got.float().numpy() - ref) <= n_v * 2.0 ** -8 * absum)
+    # Tight: jax.vjp of the reference's gather of the float32 table on the
+    # same (upcast) gradients, rounded once to bf16.  Within one bf16 ulp
+    # plus n_v 2^-23 sum_i |dout_i| (two float32 sums whose order may
+    # differ), far below |sum| ~ sqrt(n_v) where the loose bound above is not.
+    table32 = jnp.zeros((v, d), jnp.float32)
+    _, vjp32 = jax.vjp(lambda tb: tb[jnp.asarray(ids)], table32)
+    for src, mine in ((doutb.float(), got), (dout32, wide)):
+        (r32,) = vjp32(jnp.asarray(src.numpy()))
+        r16 = np.asarray(r32.astype(jnp.bfloat16).astype(jnp.float32))
+        absum = np.zeros((v, d), np.float64)
+        np.add.at(absum, ids, np.abs(src.numpy()))
+        m = mine.float().numpy()
+        mag = np.maximum(np.maximum(np.abs(m), np.abs(r16)), 2.0 ** -126)
+        bound = 2.0 ** (np.floor(np.log2(mag)) - 7) + n_v * 2.0 ** -23 * absum
+        assert np.all(np.abs(m - r16) <= bound)
+        assert np.all(bound[:9] < 0.05 * np.abs(r16[:9]).max())   # rows hit
+    with pytest.raises(TypeError, match="bfloat16 from float32"):
+        gather.embedding_gather_bwd(doutb, idt, v, dtype=torch.float32)
+
+
+def test_gather_bf16_backward_plan():
+    """The bf16 pairs the backward's plan takes (one type, or float32
+    gradients into a bf16 table), its vectors cut from dout's rows, and
+    the float32 carry past one slice of ids."""
+    plan = plan_embedding_gather_bwd(50_280, 2560, 1024, dtype="float32",
+                                     table_dtype="bfloat16")
+    assert plan.ok
+    ops = {o[0]: o for o in plan.blocks[0].operands}
+    assert ops["dtable"][2] == "bfloat16" and "carry" not in ops
+    plan = plan_embedding_gather_bwd(50_280, 2560, 4096, dtype="bfloat16")
+    assert plan.ok and "carry" in {o[0] for o in plan.blocks[0].operands}
+    assert plan_embedding_gather_bwd(10, 7, 4, dtype="bfloat16").ok   # odd d
+    assert "pairs" in plan_embedding_gather_bwd(
+        10, 4, 4, dtype="bfloat16", table_dtype="float32").violations[0]
+    assert "float16" in plan_embedding_gather_bwd(10, 4, 4,
+                                                  dtype="float16").violations[0]
