@@ -349,7 +349,32 @@ result line is printed:
               max|g|), ``torch.equal`` to the copy-then-gather step with
               ``SSD_BF16`` off, and on (1, 4) with B9's shard forms counted;
               each form timed beside its fp32 form, its bound, its plain
-              version and (B9) ``F.embedding`` / ``zeros + index_add_``.
+              version and (B9) ``F.embedding`` / ``zeros + index_add_``;
+19. flags   — the reference's five opt-in attention and placement flags,
+              set as the port's module attributes and restored after:
+              (a) llama-3.2-3b with ``ATTN_KV_CHUNK`` = 128, 4 x (512 +
+              16) through ``Batcher(n_slots=4)`` and a (4, 512) prefill
+              with decode steps, logits within 1e-5 x max|logit| of the
+              flag-off run, tokens equal past that margin, prefill ms and
+              peak memory both ways; (b) llama-3.2-3b in bf16 activations
+              with ``ATTN_BF16_SCORES``: the whole model's logits and its
+              2-layer full-width cut's within 5e-2 x max|logit| of the
+              bf16 runs without it, the cut's card logits of the CPU's
+              under the flag (bf16 activations part card and CPU by ~1e-2
+              without it: printed beside); (c) hymba-1.5b's 2560-token
+              prefill (past its 2048-slot ring) with ``ATTN_KV_CHUNK`` =
+              256 and decode steps, every position against the flag-off
+              forward without a cache over the prompt and the tokens fed
+              (1e-4 x max|logit|), prefill ms and peak memory both ways;
+              (d) hymba-1.5b on (1, 4) with ``SEQ_SHARD_FALLBACK`` and
+              ``KV_SEQ_SHARD``, qwen2-1.5b on (1, 4) with ``KV_SEQ_SHARD``,
+              each against its unsharded run (1e-4 x max|logit|, tokens
+              equal past the margin), the k / v bytes a device and decode
+              ms; (e) llama-3.2-3b on (2, 2) with and without
+              ``FSDP_PARAMS``, logits ``torch.equal``, the resident
+              parameter bytes both ways, and two train steps of its 2-layer
+              cut, losses and updated parameters equal; B8's and B9's
+              launches counted from 0 around each drive.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with a record per kernel.
@@ -6842,6 +6867,557 @@ def run_bf16(torch, np, configs, M, serve, ssm_mod, sharding, make_mesh, ssd_k,
     return records
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the reference's attention and placement flags
+# ---------------------------------------------------------------------------
+
+#: (a): the dense LM's key block, its logits against the flag-off run (x
+#: max|logit|: the online softmax's float32 rounding)
+FLAGS_DENSE_CHUNK = 128
+FLAGS_CHUNK_RTOL = 1e-5
+#: (b): bf16 scores' logits against the bf16 run without them and the
+#: card's against the CPU's under the flag (x max|logit|).  bf16
+#: activations round every product and sum to 8 bits: without the flag
+#: the 2-layer cut's card and CPU logits already part by ~1e-2 x
+#: max|logit| (printed beside), the reference's comment puts the flag's
+#: own error at ~1e-2 relative on the weights a layer, and the flag moved
+#: llama-3.2-3b's logits 1.3e-2 (2 layers) to 2.0e-2 (28) on an H100
+FLAGS_BF16_RTOL = 5e-2
+#: (c): hymba's key block, its greedy tokens after the long prefill
+FLAGS_HYMBA_CHUNK = 256
+FLAGS_HYMBA_STEPS = 4
+#: (d): (arch, flags) served on FLAGS_MESH naming the card four times
+FLAGS_MESH = (1, 4)
+FLAGS_MESH_RUNS = (("hymba-1.5b", {"SEQ_SHARD_FALLBACK": True,
+                                   "KV_SEQ_SHARD": True}),
+                   ("qwen2-1.5b", {"KV_SEQ_SHARD": True}))
+#: (e): the FSDP_PARAMS mesh, its train check's steps
+FLAGS_FSDP_MESH = (2, 2)
+FLAGS_TRAIN_STEPS = 2
+
+
+@contextlib.contextmanager
+def flags_set(attn_mod, specs_mod, **flags):
+    """The named flags set as the port's module attributes
+    (``models.attention``: ``ATTN_KV_CHUNK``, ``ATTN_BF16_SCORES``,
+    ``SEQ_SHARD_FALLBACK``; ``launch.specs``: ``KV_SEQ_SHARD``,
+    ``FSDP_PARAMS``), each restored in a ``finally``."""
+    mods = {n: attn_mod for n in ("ATTN_KV_CHUNK", "ATTN_BF16_SCORES",
+                                  "SEQ_SHARD_FALLBACK")}
+    mods.update({n: specs_mod for n in ("KV_SEQ_SHARD", "FSDP_PARAMS")})
+    old = {n: getattr(mods[n], n) for n in flags}
+    try:
+        for n, v in flags.items():
+            setattr(mods[n], n, v)
+        yield
+    finally:
+        for n, v in old.items():
+            setattr(mods[n], n, v)
+
+
+def zero_lm_counts(ssd_k, gather_k) -> None:
+    for k in ("KERNEL_LAUNCHES", "BWD_LAUNCHES"):
+        setattr(ssd_k, k, 0)
+    for k in ("KERNEL_LAUNCHES", "SHARD_LAUNCHES", "BWD_LAUNCHES",
+              "SHARD_BWD_LAUNCHES"):
+        setattr(gather_k, k, 0)
+
+
+def add_counts(total: dict, ran: dict) -> None:
+    for k, n in ran.items():
+        total[k] = total.get(k, 0) + n
+
+
+def steps_err(np, got: dict, want: dict) -> float:
+    """The largest difference of two greedy runs' step logits, row by row
+    while the tokens fed so far agree."""
+    worst = 0.0
+    for r in range(want["tokens"].shape[0]):
+        for c in range(want["tokens"].shape[1]):
+            worst = max(worst, float(np.abs(got["steps"][r, c]
+                                            - want["steps"][r, c]).max()))
+            if got["tokens"][r, c] != want["tokens"][r, c]:
+                break
+    return worst
+
+
+def flags_dense(torch, np, configs, M, serve, attn_mod, specs_mod, ssd_k,
+                gather_k, launches: dict) -> dict:
+    """Phase 19 (a) and (b): llama-3.2-3b at full width and depth from
+    LM_SEED on one card, with and without ``ATTN_KV_CHUNK``: a (LM_SLOTS,
+    LM_PROMPT) prefill and MESH_DECODE_STEPS decode steps (prefill ms and
+    the peak memory above the weights, the run at its shapes timed after
+    one untimed) and LM_SLOTS requests of LM_PROMPT + LM_NEW_TOKENS through
+    ``Batcher(n_slots=LM_SLOTS)``; then bf16 activations with and without
+    ``ATTN_BF16_SCORES`` (the prefill and decode steps fed the flag-off
+    tokens; their difference printed) and :func:`bf16_scores_cut`."""
+    cfg = lm_dense_config(configs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg)
+    prompts = np.random.default_rng(LM_SEED + 19).integers(
+        0, cfg.vocab_size, (LM_SLOTS, LM_PROMPT)).astype(np.int32)
+    runs = {}
+    for chunk in (0, FLAGS_DENSE_CHUNK):
+        with flags_set(attn_mod, specs_mod, ATTN_KV_CHUNK=chunk):
+            greedy_steps(torch, np, M, params, cfg, prompts, 1)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_lm_counts(ssd_k, gather_k)
+            got = greedy_steps(torch, np, M, params, cfg, prompts,
+                               LM_NEW_TOKENS, keep_prefill=True)
+            got["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            b = timed_batcher(torch, serve)(
+                cfg, params, n_slots=LM_SLOTS,
+                gcfg=serve.GenerationConfig(cache_len=LM_PROMPT + LM_NEW_TOKENS))
+            for rid in range(LM_SLOTS):
+                b.submit(serve.Request(rid=rid, prompt=prompts[rid],
+                                       max_new_tokens=LM_NEW_TOKENS))
+            got["batcher"] = {r.rid: r.generated for r in b.run()}
+            torch.cuda.synchronize()
+            got["batcher_prefill_ms"] = 1e3 * statistics.median(b.prefill_s)
+            got["launches"] = all_lm_counts(ssd_k, gather_k)
+            add_counts(launches, got["launches"])
+            runs[chunk] = got
+    off, on = runs[0], runs[FLAGS_DENSE_CHUNK]
+    scale = max(1.0, float(off["prefill"].abs().max()))
+    tol = FLAGS_CHUNK_RTOL * scale
+    pre_err = max_err(on["prefill"], off["prefill"])
+    step_err = steps_err(np, on, off)
+    if not (pre_err <= tol and step_err <= tol):
+        raise AssertionError(f"flags (a): ATTN_KV_CHUNK logits differ by "
+                             f"{pre_err:.3e} / {step_err:.3e} > {tol:.3e}")
+    margin_rule(on["tokens"], off["tokens"], off["margins"], tol,
+                label="flags (a) greedy")
+    for rid in range(LM_SLOTS):
+        for run, what in ((on, "flag on"), (off, "flag off")):
+            margin_rule(np.asarray([run["batcher"][rid]]),
+                        off["tokens"][rid:rid + 1], off["margins"][rid:rid + 1],
+                        tol, label=f"flags (a) batcher {what} {rid}")
+    if on["launches"]["embedding_gather"] == 0:
+        raise AssertionError(f"flags (a): launches {on['launches']}")
+    phase("flags", f"(a) {cfg.name} ({cfg.n_layers} layers) ATTN_KV_CHUNK="
+          f"{FLAGS_DENSE_CHUNK}: ({LM_SLOTS}, {LM_PROMPT}) prefill "
+          f"{on['prefill_ms']:.2f} ms, peak {on['peak_gb']:.3f} GB above the "
+          f"weights (flag off {off['prefill_ms']:.2f} ms, {off['peak_gb']:.3f} "
+          f"GB); b = 1 batcher prefill {on['batcher_prefill_ms']:.2f} ms "
+          f"(off {off['batcher_prefill_ms']:.2f}); decode {on['decode_ms']:.2f} "
+          f"ms a step (off {off['decode_ms']:.2f}); logits within "
+          f"{pre_err:.3e} / {step_err:.3e} (limit {tol:.3e}); batcher tokens "
+          f"equal past the margin ({LM_SLOTS} x {LM_NEW_TOKENS}, both ways); launches {on['launches']} | "
+          f"{smi_line()}")
+    bf = {}
+    for flag in (False, True):
+        with flags_set(attn_mod, specs_mod, ATTN_BF16_SCORES=flag), torch.no_grad():
+            zero_lm_counts(ssd_k, gather_k)
+            caches = M.init_caches(cfg, LM_SLOTS, LM_PROMPT + LM_NEW_TOKENS,
+                                   dtype=torch.bfloat16, device=DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = M.prefill(params, cfg, {"tokens": prompts}, caches,
+                                       dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            outs = [logits.float().cpu()]
+            feed = (torch.argmax(logits[:, -1], -1) if not flag
+                    else bf[False]["fed"][0])
+            fed = [feed]
+            for i in range(MESH_DECODE_STEPS):
+                last, caches = M.decode_step(params, cfg, feed[:, None], caches,
+                                             dtype=torch.bfloat16)
+                outs.append(last.float().cpu())
+                feed = (torch.argmax(last, -1) if not flag
+                        else bf[False]["fed"][i + 1])
+                fed.append(feed)
+            bf[flag] = {"logits": outs, "fed": fed, "ms": ms,
+                        "launches": all_lm_counts(ssd_k, gather_k)}
+            add_counts(launches, bf[flag]["launches"])
+            del logits, caches
+    scale = max(1.0, float(bf[False]["logits"][0].abs().max()))
+    errs = [max_err(a, b) for a, b in zip(bf[True]["logits"], bf[False]["logits"])]
+    if max(errs) > FLAGS_BF16_RTOL * scale:
+        raise AssertionError(f"flags (b): ATTN_BF16_SCORES moves the logits "
+                             f"{max(errs) / scale:.3e} x max|logit| > "
+                             f"{FLAGS_BF16_RTOL}")
+    cut = bf16_scores_cut(torch, np, M, attn_mod, specs_mod, params, cfg,
+                          prompts[:1])
+    phase("flags", f"(b) {cfg.name} bf16 activations, ATTN_BF16_SCORES: "
+          f"({LM_SLOTS}, {LM_PROMPT}) prefill {bf[True]['ms']:.2f} ms (off "
+          f"{bf[False]['ms']:.2f}); at {cfg.n_layers} layers the logits move "
+          f"{errs[0] / scale:.3e} (prefill) / {max(errs[1:]) / scale:.3e} "
+          f"(decode) x max|logit| from the bf16 run without it; the "
+          f"{LM_CHECK_LAYERS}-layer full-width cut: flag on against off "
+          f"{cut['on_off']:.3e}, card against the CPU under the flag "
+          f"{cut['card_cpu']:.3e} (without it {cut['floor']:.3e}) x "
+          f"max|logit| (limit {FLAGS_BF16_RTOL}); "
+          f"launches {bf[True]['launches']} | {smi_line()}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"chunk": {k: {x: v[x] for x in ("prefill_ms", "peak_gb", "decode_ms",
+                                            "batcher_prefill_ms")}
+                      for k, v in runs.items()},
+            "chunk_err": max(pre_err, step_err) / scale,
+            "bf16_err": max(errs) / scale, "bf16_cut": cut}
+
+
+def bf16_scores_cut(torch, np, M, attn_mod, specs_mod, params, cfg,
+                    prompt) -> dict:
+    """Phase 19 (b)'s cut: the first LM_CHECK_LAYERS layers of ``params`` at
+    full width (:func:`check_model`), ``prompt``'s bf16 prefill logits with
+    and without ``ATTN_BF16_SCORES`` on the card and on the CPU (a copy
+    made tensor by tensor): the flag's effect on the card (``on_off``),
+    the card against the CPU under it (``card_cpu``) and without it
+    (``floor``: bf16 activations' own spread), x max|logit|; the first two
+    within FLAGS_BF16_RTOL."""
+    import copy
+
+    from torch import nn
+
+    card, cfg2 = check_model(M, nn, params, cfg)
+    host = copy.deepcopy(card, memo={
+        id(t): nn.Parameter(t.detach().cpu(), requires_grad=False)
+        for t in card.parameters()})
+    got = {}
+    with torch.no_grad():
+        for (dev, flag), p in (((DEVICE, True), card), ((DEVICE, False), card),
+                               (("cpu", True), host), (("cpu", False), host)):
+            with flags_set(attn_mod, specs_mod, ATTN_BF16_SCORES=flag):
+                caches = M.init_caches(cfg2, 1, prompt.shape[1],
+                                       dtype=torch.bfloat16, device=dev)
+                logits, _ = M.prefill(p, cfg2, {"tokens": prompt}, caches,
+                                      dtype=torch.bfloat16)
+                got[dev, flag] = logits.float().cpu()
+    scale = max(1.0, float(got["cpu", False].abs().max()))
+    out = {"on_off": max_err(got[DEVICE, True], got[DEVICE, False]) / scale,
+           "card_cpu": max_err(got[DEVICE, True], got["cpu", True]) / scale,
+           "floor": max_err(got[DEVICE, False], got["cpu", False]) / scale}
+    if max(out["on_off"], out["card_cpu"]) > FLAGS_BF16_RTOL:
+        raise AssertionError(f"flags (b): the {cfg2.n_layers}-layer cut's bf16 "
+                             f"logits {out} x max|logit| > {FLAGS_BF16_RTOL}")
+    return out
+
+
+def flags_hymba_long(torch, np, configs, M, attn_mod, specs_mod, ssd_k,
+                     gather_k, launches: dict) -> dict:
+    """Phase 19 (c): hymba-1.5b at full width and depth from LM_SEED, one
+    LM_HYMBA_LONG-token prompt (past its 2048-slot ring) prefilled under
+    ``ATTN_KV_CHUNK`` = FLAGS_HYMBA_CHUNK and FLAGS_HYMBA_STEPS - 1 greedy
+    decode steps; their logits against the flag-off forward without a
+    cache over the prompt and the tokens fed (padded to a chunk multiple:
+    B8's path; causal, so the padding changes no position checked), at
+    LM_LOGIT_RTOL x max|logit|.  The flag-off prefill beside it: its
+    queries before the last lose part of their window to the ring
+    (reference behaviour), the difference printed."""
+    cfg = lm_family_config(configs, "hymba-1.5b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg)
+    s = LM_HYMBA_LONG
+    prompt = np.random.default_rng(LM_SEED + 20).integers(
+        0, cfg.vocab_size, (1, s)).astype(np.int32)
+    run = {}
+    with torch.no_grad():
+        for chunk in (FLAGS_HYMBA_CHUNK, 0):
+            with flags_set(attn_mod, specs_mod, ATTN_KV_CHUNK=chunk):
+                zero_lm_counts(ssd_k, gather_k)
+                caches = M.init_caches(cfg, 1, s + FLAGS_HYMBA_STEPS,
+                                       dtype=torch.float32, device=DEVICE)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                logits, caches = M.prefill(params, cfg, {"tokens": prompt}, caches)
+                torch.cuda.synchronize()
+                r = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                     "prefill": logits.cpu()}
+                last, toks, steps = logits[:, -1], [], []
+                for i in range(FLAGS_HYMBA_STEPS):
+                    toks.append(int(torch.argmax(last[0])))
+                    if i + 1 < FLAGS_HYMBA_STEPS:
+                        last, caches = M.decode_step(
+                            params, cfg, torch.tensor([[toks[-1]]], device=DEVICE),
+                            caches)
+                        steps.append(last[0].cpu())
+                r.update(tokens=toks, steps=steps,
+                         launches=all_lm_counts(ssd_k, gather_k))
+                add_counts(launches, r["launches"])
+                run[chunk] = r
+                del logits, caches, last
+        on, off = run[FLAGS_HYMBA_CHUNK], run[0]
+        zero_lm_counts(ssd_k, gather_k)
+        n = s + FLAGS_HYMBA_STEPS - 1
+        n = -(-n // FLAGS_HYMBA_CHUNK) * FLAGS_HYMBA_CHUNK
+        seq = np.zeros((1, n), np.int32)
+        seq[0, :s] = prompt[0]
+        seq[0, s:s + FLAGS_HYMBA_STEPS - 1] = on["tokens"][:-1]
+        whole, _ = M.forward(params, cfg, {"tokens": seq})
+        add_counts(launches, all_lm_counts(ssd_k, gather_k))
+        oracle = whole[0, :s + FLAGS_HYMBA_STEPS - 1].cpu()
+        del whole
+    scale = max(1.0, float(oracle.abs().max()))
+    tol = LM_LOGIT_RTOL * scale
+    pre_err = max_err(on["prefill"][0], oracle[:s])
+    step_err = max((max_err(g, oracle[s - 1 + j + 1])
+                    for j, g in enumerate(on["steps"])), default=0.0)
+    if not (pre_err <= tol and step_err <= tol):
+        raise AssertionError(f"flags (c): hymba's chunked prefill differs from "
+                             f"the forward by {pre_err:.3e} / {step_err:.3e} > "
+                             f"{tol:.3e}")
+    top2 = np.sort(oracle[s - 1:].numpy(), axis=-1)[:, -2:]
+    margin_rule(np.asarray([on["tokens"]]), oracle[s - 1:].numpy().argmax(-1)[None],
+                (top2[:, 1] - top2[:, 0])[None], tol, label="flags (c) tokens")
+    off_err = max_err(off["prefill"][0, :s - 1], oracle[:s - 1])
+    if on["launches"]["ssd_fused"] == 0 or on["launches"]["embedding_gather"] == 0:
+        raise AssertionError(f"flags (c): launches {on['launches']}")
+    phase("flags", f"(c) {cfg.name} ({cfg.n_layers} layers) {s}-token prefill, "
+          f"ATTN_KV_CHUNK={FLAGS_HYMBA_CHUNK}: {on['ms']:.2f} ms, peak "
+          f"{on['peak_gb']:.3f} GB above the weights (flag off {off['ms']:.2f} "
+          f"ms, {off['peak_gb']:.3f} GB); against the flag-off forward over "
+          f"{n} tokens: prefill {pre_err:.3e}, {FLAGS_HYMBA_STEPS - 1} decode "
+          f"steps {step_err:.3e} (limit {tol:.3e}), tokens {on['tokens']} "
+          f"(flag off {off['tokens']}); the flag-off prefill's earlier "
+          f"positions differ from the forward by {off_err:.3e} (its ring's "
+          f"evicted keys); launches {on['launches']} | {smi_line()}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"on": {k: on[k] for k in ("ms", "peak_gb")},
+            "off": {k: off[k] for k in ("ms", "peak_gb")},
+            "err": max(pre_err, step_err) / scale, "off_err": off_err / scale}
+
+
+def kv_bytes(placed_caches, coord) -> int:
+    """The bytes of the k / v pieces the device at ``coord`` holds."""
+    kv = placed_caches["layers"].kv
+    return sum(leaf.pieces[coord].numel() * leaf.pieces[coord].element_size()
+               for leaf in (kv.k, kv.v))
+
+
+def flags_mesh(torch, np, configs, M, make_mesh, attn_mod, specs_mod, ssd_k,
+               gather_k, launches: dict) -> list[dict]:
+    """Phase 19 (d): each of FLAGS_MESH_RUNS at full width and depth from
+    LM_SEED: unsharded, then born sharded on FLAGS_MESH naming the card
+    four times under its flags (a (LM_SLOTS, LM_PROMPT) prefill and
+    MESH_DECODE_STEPS steps, timed after an untimed run at its shapes),
+    logits within MESH_LOGIT_RTOL x max|logit| of the unsharded run,
+    tokens equal past that margin; the k / v bytes a device at the run's
+    cache length and at hymba's ring of 2048."""
+    out = []
+    n_dev = FLAGS_MESH[0] * FLAGS_MESH[1]
+    mesh = make_mesh(FLAGS_MESH, ("data", "model"), (MESH_DEVICE,) * n_dev)
+    for arch, flags in FLAGS_MESH_RUNS:
+        cfg = configs.get_config(arch)
+        prompts = np.random.default_rng(LM_SEED + 21).integers(
+            0, cfg.vocab_size, (LM_SLOTS, LM_PROMPT)).astype(np.int32)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg)
+        greedy_steps(torch, np, M, params, cfg, prompts, 2)
+        want = greedy_steps(torch, np, M, params, cfg, prompts,
+                            MESH_DECODE_STEPS + 1, keep_prefill=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        with flags_set(attn_mod, specs_mod, **flags):
+            placed = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg,
+                                   mesh=mesh)
+            zero_lm_counts(ssd_k, gather_k)
+            greedy_steps(torch, np, M, placed, cfg, prompts, 2, mesh=mesh)
+            got = greedy_steps(torch, np, M, placed, cfg, prompts,
+                               MESH_DECODE_STEPS + 1, mesh=mesh, keep_prefill=True)
+            torch.cuda.synchronize()
+            ran = all_lm_counts(ssd_k, gather_k)
+            add_counts(launches, ran)
+            sizes = {}
+            for cache_len in (LM_PROMPT + LM_NEW_TOKENS, 2048):
+                c = M.init_caches(cfg, LM_SLOTS, cache_len, dtype=torch.float32,
+                                  device=DEVICE, mesh=mesh)
+                sizes[cache_len] = kv_bytes(c, (0, 0))
+                whole = M.init_caches(cfg, LM_SLOTS, cache_len,
+                                      dtype=torch.float32, device=DEVICE)
+                sizes[f"whole{cache_len}"] = sum(
+                    t.numel() * t.element_size()
+                    for t in (whole["layers"].kv.k, whole["layers"].kv.v))
+                del c, whole
+        scale = max(1.0, float(want["prefill"].abs().max()),
+                    float(np.abs(want["steps"]).max()))
+        tol = MESH_LOGIT_RTOL * scale
+        pre_err = max_err(got["prefill"], want["prefill"])
+        step_err = steps_err(np, got, want)
+        if not (pre_err <= tol and step_err <= tol):
+            raise AssertionError(f"flags (d) {arch}: logits differ by "
+                                 f"{pre_err:.3e} / {step_err:.3e} > {tol:.3e}")
+        checked, close = margin_rule(got["tokens"], want["tokens"],
+                                     want["margins"], tol,
+                                     label=f"flags (d) {arch}")
+        b9 = ran["embedding_gather"] + ran["embedding_gather_shard"]
+        if b9 == 0 or (cfg.ssm is not None and ran["ssd_fused"] == 0):
+            raise AssertionError(f"flags (d) {arch}: launches {ran}")
+        cl = LM_PROMPT + LM_NEW_TOKENS
+        rec = {"arch": arch, "flags": sorted(flags), "mesh": list(FLAGS_MESH),
+               "prefill_ms": got["prefill_ms"], "decode_ms": got["decode_ms"],
+               "unsharded": {"prefill_ms": want["prefill_ms"],
+                             "decode_ms": want["decode_ms"]},
+               "kv_bytes_a_device": sizes[cl], "kv_bytes_whole": sizes[f"whole{cl}"],
+               "kv_bytes_a_device_2048": sizes[2048],
+               "kv_bytes_whole_2048": sizes["whole2048"],
+               "err": max(pre_err, step_err) / scale, "launches": ran}
+        out.append(rec)
+        phase("flags", f"(d) {cfg.name} ({cfg.n_layers} layers, {cfg.n_heads} q "
+              f"/ {cfg.n_kv_heads} kv heads) on {FLAGS_MESH} over {MESH_DEVICE} "
+              f"x {n_dev}, {' + '.join(sorted(flags))}: prefill ({LM_SLOTS}, "
+              f"{LM_PROMPT}) {got['prefill_ms']:.2f} ms, decode "
+              f"{got['decode_ms']:.2f} ms a step (unsharded "
+              f"{want['prefill_ms']:.2f} / {want['decode_ms']:.2f}); k / v "
+              f"{sizes[cl] / 1e9:.4f} GB a device of {sizes[f'whole{cl}'] / 1e9:.4f} "
+              f"GB at cache length {cl}, {sizes[2048] / 1e9:.4f} of "
+              f"{sizes['whole2048'] / 1e9:.4f} GB at 2048; logits within "
+              f"{pre_err:.3e} / {step_err:.3e} (limit {tol:.3e}); "
+              f"{len(checked)} greedy tokens equal, {len(close)} within the "
+              f"margin; launches {ran} | {smi_line()}")
+        del placed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def placed_bytes(placed) -> int:
+    return sum(t.numel() * t.element_size() for _, leaf in placed.items()
+               for t in leaf.pieces.flat)
+
+
+def flags_fsdp(torch, np, configs, M, make_mesh, attn_mod, specs_mod, ssd_k,
+               gather_k, launches: dict) -> dict:
+    """Phase 19 (e): llama-3.2-3b at full width and depth born sharded from
+    LM_SEED on FLAGS_FSDP_MESH (naming the card four times) with and
+    without ``FSDP_PARAMS``: a (LM_SLOTS, LM_PROMPT) prefill and
+    MESH_DECODE_STEPS steps, logits ``torch.equal``, the resident
+    parameter bytes both ways; then FLAGS_TRAIN_STEPS steps of its 2-layer
+    cut (remat TRAIN_REMAT) on the same mesh both ways, losses and updated
+    parameters ``torch.equal``."""
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = lm_dense_config(configs)
+    n_dev = FLAGS_FSDP_MESH[0] * FLAGS_FSDP_MESH[1]
+    mesh = make_mesh(FLAGS_FSDP_MESH, ("data", "model"), (MESH_DEVICE,) * n_dev)
+    prompts = np.random.default_rng(LM_SEED + 22).integers(
+        0, cfg.vocab_size, (LM_SLOTS, LM_PROMPT)).astype(np.int32)
+    serve_runs, train_runs = {}, {}
+    cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    rng = np.random.default_rng(LM_SEED + 23)
+    batches = [{k: rng.integers(0, cut.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)
+                                ).astype(np.int32) for k in ("tokens", "labels")}
+               for _ in range(FLAGS_TRAIN_STEPS)]
+    for flag in (False, True):
+        with flags_set(attn_mod, specs_mod, FSDP_PARAMS=flag):
+            gc.collect()
+            torch.cuda.empty_cache()
+            placed = M.init_params(M.make_generator(LM_SEED, DEVICE), cfg, mesh=mesh)
+            nbytes = placed_bytes(placed)
+            zero_lm_counts(ssd_k, gather_k)
+            greedy_steps(torch, np, M, placed, cfg, prompts, 2, mesh=mesh)
+            got = greedy_steps(torch, np, M, placed, cfg, prompts,
+                               MESH_DECODE_STEPS + 1, mesh=mesh, keep_prefill=True)
+            torch.cuda.synchronize()
+            got["launches"] = all_lm_counts(ssd_k, gather_k)
+            add_counts(launches, got["launches"])
+            got["bytes"] = nbytes
+            serve_runs[flag] = got
+            del placed
+            gc.collect()
+            torch.cuda.empty_cache()
+            tcfg = TrainConfig(remat=TRAIN_REMAT)
+            state = init_train_state(M.make_generator(LM_SEED, DEVICE), cut, tcfg,
+                                     mesh=mesh)
+            step = make_train_step(cut, tcfg)
+            zero_lm_counts(ssd_k, gather_k)
+            losses, ms = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, b)
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            ran = all_lm_counts(ssd_k, gather_k)
+            add_counts(launches, ran)
+            with torch.no_grad():
+                kept = {k: leaf.full("cpu") for k, leaf in state.params.items()}
+            train_runs[flag] = {"losses": losses, "ms": ms, "launches": ran,
+                                "bytes": placed_bytes(state.params),
+                                "params": kept}
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    off, on = serve_runs[False], serve_runs[True]
+    if not (torch.equal(on["prefill"], off["prefill"])
+            and np.array_equal(on["steps"], off["steps"])):
+        raise AssertionError(f"flags (e): FSDP_PARAMS logits differ by "
+                             f"{max_err(on['prefill'], off['prefill']):.3e}")
+    t_off, t_on = train_runs[False], train_runs[True]
+    unequal = [k for k, p in t_on["params"].items()
+               if not torch.equal(p, t_off["params"][k])]
+    if t_on["losses"] != t_off["losses"] or unequal:
+        raise AssertionError(f"flags (e): FSDP_PARAMS train losses "
+                             f"{t_on['losses']} against {t_off['losses']}; "
+                             f"parameters unequal: {unequal[:8]}")
+    if on["launches"]["embedding_gather_shard"] == 0 or \
+            t_on["launches"]["embedding_gather_shard_bwd"] == 0:
+        raise AssertionError(f"flags (e): launches {on['launches']} / "
+                             f"{t_on['launches']}")
+    phase("flags", f"(e) {cfg.name} ({cfg.n_layers} layers) on {FLAGS_FSDP_MESH} "
+          f"over {MESH_DEVICE} x {n_dev}: resident parameters "
+          f"{on['bytes'] / 1e9:.3f} GB summed over the devices with FSDP_PARAMS, "
+          f"{off['bytes'] / 1e9:.3f} GB without; prefill {on['prefill_ms']:.2f} "
+          f"ms, decode {on['decode_ms']:.2f} ms a step (without "
+          f"{off['prefill_ms']:.2f} / {off['decode_ms']:.2f}); logits "
+          f"torch.equal; {cut.n_layers}-layer cut, {FLAGS_TRAIN_STEPS} steps of "
+          f"({TRAIN_BATCH}, {TRAIN_SEQ}): losses {t_on['losses']} both ways, "
+          f"every updated parameter torch.equal, "
+          f"{t_on['bytes'] / 1e9:.3f} / {t_off['bytes'] / 1e9:.3f} GB of "
+          f"parameters, step ms {[round(x, 1) for x in t_on['ms']]} (without "
+          f"{[round(x, 1) for x in t_off['ms']]}); launches {on['launches']} "
+          f"/ {t_on['launches']} | {smi_line()}")
+    return {"bytes": {"fsdp": on["bytes"], "plain": off["bytes"]},
+            "prefill_ms": {"fsdp": on["prefill_ms"], "plain": off["prefill_ms"]},
+            "decode_ms": {"fsdp": on["decode_ms"], "plain": off["decode_ms"]},
+            "train_ms": {"fsdp": t_on["ms"], "plain": t_off["ms"]},
+            "losses": t_on["losses"]}
+
+
+def run_flags(torch, np, configs, M, serve, make_mesh, attn_mod, specs_mod,
+              ssd_k, gather_k) -> dict:
+    """Phase 19: checks (a)-(e) of the flags; returns their readings and
+    the phase's launches of B8 and B9 (every form) by kernel name."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    out = {"dense": flags_dense(torch, np, configs, M, serve, attn_mod,
+                                specs_mod, ssd_k, gather_k, launches)}
+    out["hymba"] = flags_hymba_long(torch, np, configs, M, attn_mod, specs_mod,
+                                    ssd_k, gather_k, launches)
+    out["mesh"] = flags_mesh(torch, np, configs, M, make_mesh, attn_mod,
+                             specs_mod, ssd_k, gather_k, launches)
+    out["fsdp"] = flags_fsdp(torch, np, configs, M, make_mesh, attn_mod,
+                             specs_mod, ssd_k, gather_k, launches)
+    out["launches"] = {k: n for k, n in launches.items() if n}
+    phase("flags", f"launches {out['launches']}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def add_flags(kernels: list[dict], fl: dict) -> None:
+    """Phase 19 on the kernels line: its launches of B8 and B9 (each form)
+    under ``launches_by_path["flags"]``."""
+    for name, n in fl["launches"].items():
+        rec = next(r for r in kernels if r["name"] == name)
+        rec.setdefault("launches_by_path", {"earlier phases": rec["launches"]})
+        rec["launches_by_path"]["flags"] = n
+        rec["launches"] += n
+
+
 def add_mesh_families(kernels: list[dict], mf: dict) -> None:
     """Phase 17 on the kernels line: its launches of B8, B9 (whole table
     and shard form) and their backward kernels under
@@ -6877,6 +7453,8 @@ def main() -> int:
     from repro_torch.kernels import spmv as spmv_k
     from repro_torch.kernels import ssd as ssd_k
     from repro_torch.kernels.execspec import ExecSpec
+    from repro_torch.launch import specs as specs_mod
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import model as M
     from repro_torch.models import moe, sharding
     from repro_torch.models import ssm as ssm_mod
@@ -7076,7 +7654,13 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += run_bf16(torch, np, configs, M, serve, ssm_mod, sharding,
                         make_mesh, ssd_k, gather_k, flush)
-    phase("bf16", f"done in {time.perf_counter() - t0:.1f} s; whole run "
+    phase("bf16", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 19. the reference's attention and placement flags ----------------
+    t0 = time.perf_counter()
+    add_flags(kernels, run_flags(torch, np, configs, M, serve, make_mesh,
+                                 attn_mod, specs_mod, ssd_k, gather_k))
+    phase("flags", f"done in {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

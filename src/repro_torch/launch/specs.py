@@ -5,9 +5,18 @@ Each function returns the tree of its input with a spec at every leaf (a
 tuple of axis names or ``None``, one entry a dim: see
 :mod:`repro_torch.models.sharding`); the leaves may be tensors or anything
 with a ``shape``.  ``input_specs*`` and ``abstract_*`` (the dry run's
-shape-only stand-ins) wait for ROADMAP A12.5.  The reference's opt-in
-flags ``KV_SEQ_SHARD`` and ``FSDP_PARAMS`` (both off by default there)
-are not ported.
+shape-only stand-ins) wait for ROADMAP A12.5.
+
+The reference's two opt-in flags, off by default as there:
+:data:`KV_SEQ_SHARD` puts a KV cache's context axis over ``model`` where
+the kv heads do not divide it (each device then holds C / model of the
+ring's slots, :func:`repro_torch.models.attention.attention_tp`);
+:data:`FSDP_PARAMS` adds ZeRO-1's split over ``data`` to the parameters'
+specs (each device then holds 1 / data of its model block, gathered
+before each use, :meth:`repro_torch.models.sharding.Sharded.local`).
+Placement reads them too: :func:`param_shardings` is what
+:func:`repro_torch.models.sharding.place_params` and
+:func:`repro_torch.models.model.init_params` place by.
 
 :func:`state_shardings` is the reference's rule on the port's leaves:
 parameters tensor-parallel, the moments (and any master copy and
@@ -22,8 +31,16 @@ from repro_torch.compat import MeshContext
 from repro_torch.models import sharding as shrd
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["batch_shardings", "cache_shardings", "moment_shardings",
-           "param_shardings", "state_shardings"]
+__all__ = ["FSDP_PARAMS", "KV_SEQ_SHARD", "batch_shardings", "cache_shardings",
+           "moment_shardings", "param_shardings", "state_shardings"]
+
+#: Shard the KV cache's context axis over the model axis where the kv heads
+#: do not divide it (flash-decode style).  Off by default.
+KV_SEQ_SHARD: bool = False
+
+#: Shard the parameters over the data axis too, by ZeRO-1's rule
+#: (:func:`~repro_torch.models.sharding.zero1_specs`).  Off by default.
+FSDP_PARAMS: bool = False
 
 
 def _dp_axes(mesh) -> tuple[str, ...]:
@@ -46,8 +63,14 @@ def batch_shardings(mesh, batch: dict, batch_size: int) -> dict:
 
 
 def param_shardings(mesh, cfg: ModelConfig, params) -> dict[str, tuple]:
-    """Parameter name -> spec: the TP / EP partition rules."""
-    return shrd.model_param_specs(cfg, params, mesh)
+    """Parameter name -> spec: the TP / EP partition rules, plus ZeRO-1's
+    split over ``data`` under :data:`FSDP_PARAMS` where the mesh has that
+    axis."""
+    ctx = MeshContext.of(mesh)
+    specs = shrd.model_param_specs(cfg, params, mesh)
+    if FSDP_PARAMS and ctx.has_axis("data"):
+        specs = shrd.zero1_specs(params, specs, ctx.axis_size("data"))
+    return specs
 
 
 def moment_shardings(mesh, cfg: ModelConfig, params,
@@ -81,7 +104,9 @@ def state_shardings(mesh, cfg: ModelConfig, state, zero1: bool = True):
 
 def cache_shardings(mesh, cfg: ModelConfig, caches, batch_size: int):
     """Decode caches: batch over (pod, data) when divisible; kv heads / ssm
-    channels over model; ring ``pos`` / scalars replicated."""
+    channels over model (under :data:`KV_SEQ_SHARD`, where the kv heads do
+    not divide it, the context axis instead); ring ``pos`` / scalars
+    replicated."""
     ctx = MeshContext.of(mesh)
     dp = _dp_axes(mesh)
     dp = dp if batch_size % max(_dp_size(mesh), 1) == 0 else ()
@@ -97,6 +122,8 @@ def cache_shardings(mesh, cfg: ModelConfig, caches, batch_size: int):
             lead = nd - 4
             if shape[-2] == cfg.n_kv_heads and cfg.n_kv_heads:
                 heads_ok = cfg.n_kv_heads % max(ctx.axis_size("model"), 1) == 0
+                if KV_SEQ_SHARD and not heads_ok:
+                    return (None,) * lead + (dp_or_none, model, None, None)
                 head_ax = model if heads_ok else None
                 return (None,) * lead + (dp_or_none, None, head_ax, None)
             if cfg.ssm and shape[-1] == cfg.ssm.d_state and shape[-2] == cfg.ssm.head_dim:

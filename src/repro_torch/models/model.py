@@ -44,9 +44,13 @@ expert- and data-parallel, one process driving every device
 placed by the reference's partition rules (:func:`init_params` with
 ``mesh=`` draws them born sharded;
 :func:`~repro_torch.models.sharding.place_params` places an existing
-model) and the caches by
+model; under ``launch.specs.FSDP_PARAMS`` each piece is also split over
+``data``, and each read of a device's block gathers it there,
+:meth:`~repro_torch.models.sharding.Sharded.local`) and the caches by
 :func:`repro_torch.launch.specs.cache_shardings` (:func:`init_caches` with
-``mesh=``).  The batch splits over the data replicas where their count
+``mesh=``; under ``launch.specs.KV_SEQ_SHARD`` a KV cache whose kv heads
+the model axis does not divide splits its ring's slots over it, ``pos``
+and ``length`` whole on each device).  The batch splits over the data replicas where their count
 divides it; a batch it does not divide (a b = 1 admission) runs on one
 replica (``replica=``), whose new caches the other replicas copy.  In each
 replica the token embedding is kernel B9's vocab-shard form on each
@@ -178,8 +182,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     parameter requires grad when ``trainable``.
 
     With ``mesh`` the parameters are born sharded: drawn from ``gen`` in
-    the same order, block after block, each placed on the mesh
-    (:func:`~repro_torch.models.sharding.place`) before the next is drawn,
+    the same order, block after block, each placed on the mesh by
+    :func:`repro_torch.launch.specs.param_shardings` (which reads
+    ``FSDP_PARAMS``) before the next is drawn,
     so no device holds more than its share and one whole block.  The
     pieces are ``torch.equal`` to those of ``place_params(init_params(gen,
     cfg), cfg, mesh)``; with ``trainable`` every piece is a leaf that
@@ -191,7 +196,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
 
     def put(named) -> None:
         named = dict(named)
-        specs = shrd.model_param_specs(cfg, named, mesh)
+        specs = S.param_shardings(mesh, cfg, named)
         for name, t in named.items():
             leaves[name] = shrd.place(t, specs[name], mesh)
 

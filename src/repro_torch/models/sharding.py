@@ -35,6 +35,13 @@ replica sums only its own rows of the block (the reduce-scatter).
 :func:`write_blocks` copies the blocks of a reduced value into every
 piece that holds them (the all-gather of the updated parameters), and
 :func:`global_norm` sums the squares of each block once.
+
+Parameters split over ``data`` too (``launch.specs.FSDP_PARAMS``: the
+ZeRO-1 specs for the parameters themselves) are read through
+:meth:`Sharded.local` (:meth:`Row.pieces`): each device joins the data
+blocks of its model block before the use, and the backward hands each
+block the gradients of every replica's use, so :func:`reduce_grads` sums
+one piece a block and the update writes only the pieces that hold it.
 """
 from __future__ import annotations
 
@@ -185,8 +192,46 @@ class Sharded:
         """The slices of the whole value the piece at ``coord`` holds."""
         return _slices(self.shape, self.spec, self.mesh, coord)
 
+    def local(self, coord: tuple[int, ...]) -> torch.Tensor:
+        """The block the device at ``coord`` computes with: its piece, or,
+        where the spec splits a dim over a data axis (a parameter placed
+        under ``FSDP_PARAMS``), the pieces of its data blocks that share the
+        device's other coordinates joined along that dim on the device (the
+        all-gather GSPMD inserts before the use).  Differentiable, as
+        :meth:`full` is."""
+        dim = _data_dim(self.spec)
+        if dim is None:
+            return self.pieces[coord]
+        dev = self.mesh.devices[coord]
+        names, sizes = self.mesh.axis_names, self.mesh.devices.shape
+        axes = [names.index(a) for a in _names(self.spec[dim])]
+        peers = []
+        for vals in np.ndindex(*(sizes[i] for i in axes)):
+            c = list(coord)
+            for i, v in zip(axes, vals):
+                c[i] = v
+            peers.append(tuple(c))
+        peers.sort(key=lambda c: self.block(c, dim)[0])
+        if len(peers) == 1:
+            return self.pieces[coord]
+        return torch.cat([self.pieces[c].to(dev) for c in peers], dim=dim)
+
     def __repr__(self) -> str:
         return f"Sharded({self.shape}, spec={self.spec}, {self.mesh!r})"
+
+
+@functools.lru_cache(maxsize=1024)
+def _data_dim(spec: tuple) -> int | None:
+    """The dim a spec splits over data axes (:data:`DATA`), or None; a dim
+    that names a data axis beside a model one, or two such dims, is not
+    a layout the port places parameters in."""
+    dims = [i for i, a in enumerate(spec) if set(_names(a)) & set(DATA)]
+    if not dims:
+        return None
+    if len(dims) > 1 or set(_names(spec[dims[0]])) - set(DATA):
+        raise ValueError(f"spec {spec}: a parameter splits one dim over data "
+                         "axes alone")
+    return dims[0]
 
 
 def _pieces(mesh: Mesh, make) -> np.ndarray:
@@ -557,9 +602,12 @@ class PlacedParams:
 
 def place_params(params, cfg, mesh: Mesh) -> PlacedParams:
     """``params`` (an ``LM``) placed on ``mesh`` by
-    :func:`model_param_specs`, leaf by leaf; the pieces require grad where
-    the parameters do."""
-    specs = model_param_specs(cfg, params, mesh)
+    :func:`repro_torch.launch.specs.param_shardings` (the partition rules,
+    and ZeRO-1's split over ``data`` under its ``FSDP_PARAMS``), leaf by
+    leaf; the pieces require grad where the parameters do."""
+    from repro_torch.launch.specs import param_shardings  # specs imports this module
+
+    specs = param_shardings(mesh, cfg, params)
     placed = PlacedParams(mesh, {n: place(p, specs[n], mesh)
                                  for n, p in params.named_parameters()})
     return placed.requires_grad_(any(p.requires_grad for p in params.parameters()))
@@ -589,7 +637,10 @@ class Row:
         return len(self.devices)
 
     def pieces(self, leaf: Sharded) -> list[torch.Tensor]:
-        return [leaf.pieces[c] for c in self.coords]
+        """Each model device's block of a placed parameter
+        (:meth:`Sharded.local`: gathered over ``data`` where its spec
+        splits it so)."""
+        return [leaf.local(c) for c in self.coords]
 
 
 def sum_on(parts: list[torch.Tensor], device) -> torch.Tensor:

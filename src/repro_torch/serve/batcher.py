@@ -32,7 +32,9 @@ the slots split over the data replicas where their count divides them.  An
 admission's b = 1 prefill runs on the one data replica that owns the slot
 (``replica=`` of :func:`repro_torch.models.model.prefill`), and
 :func:`_write_slot` writes each piece of its caches into the shared piece
-on the same device; each decode step runs every replica on its slots.
+on the same device (a KV piece that holds a share of the ring's slots,
+``KV_SEQ_SHARD``, takes the same rows of that share); each decode step
+runs every replica on its slots.
 """
 from __future__ import annotations
 

@@ -44,7 +44,12 @@ gives every piece its gradient; :func:`~repro_torch.models.sharding
 microbatches), each data replica its ZeRO-1 rows (the moments' specs),
 and the update runs block by block (:mod:`repro_torch.optim.adamw`).
 With one data replica the loss is that replica's mean, the unsharded
-step's expression.
+step's expression.  Under ``launch.specs.FSDP_PARAMS`` the parameters'
+blocks are the moments' ZeRO-1 blocks: each replica's forward gathers
+them (:meth:`~repro_torch.models.sharding.Sharded.local`), the backward
+sums every replica's gradient into each block's one piece, and the update
+writes each block in place; ``SEQ_SHARD_FALLBACK`` and ``ATTN_KV_CHUNK``
+apply to the training forward (no cache) as to a prefill.
 """
 from __future__ import annotations
 
