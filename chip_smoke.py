@@ -375,6 +375,22 @@ result line is printed:
               parameter bytes both ways, and two train steps of its 2-layer
               cut, losses and updated parameters equal; B8's and B9's
               launches counted from 0 around each drive.
+20. dryrun  — the dry run (``repro_torch.launch.dryrun``): (a)
+              mamba2-2.7b's train step at (2, 512) (B8, B9 and their
+              backwards, remat "full") and llama-3.2-3b's (4, 512) prefill
+              run on fake tensors on one placeholder host device, then on
+              the card: argument bytes equal to the caching allocator's
+              requested bytes of the built arguments (plus the host
+              batch), aten FLOPs equal to ``FlopCounterMode`` of the
+              card's step, the predicted peak within 1% of
+              ``max_memory_allocated`` over the step; (b) qwen3-14b's
+              decode_32k cell on the single-pod mesh's 256 placeholders,
+              run in a subprocess started after the build at the lowest
+              CPU priority (nice 19; host work beside phases 3-19:
+              ``scripts/cell_overlap.py`` compares their readings with
+              the subprocess started at phase 20),
+              its record printed with the card's memory beside its
+              per-device peak.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with a record per kernel.
@@ -387,6 +403,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3236,8 +3253,7 @@ def time_ssd(torch, np, ssd_k, b, l, h, p, g, n, q, flush, goal=None) -> dict:
     err = ssd_violation(torch, got[0], want[0], "float32")
     ms = time_ms(torch, run, flush)
     plain_ms = time_ms(torch, plain, flush)
-    nbytes = 4 * (2 * b * l * h * p + b * l * h + 2 * b * l * g * n
-                  + b * h * p * n)
+    nbytes = autotune.ssd_bytes(b, l, h, p, g, n, 4, 4)
     flops = autotune.ssd_flops(b, l, h, p, n, q)
     executed = autotune.ssd_flops_executed(b, l, h, p, n, q)
     # the built form: launch 1 on the CUDA cores, launch 3's products
@@ -3346,7 +3362,7 @@ def time_gather(torch, np, gather_k, table, launches: int, flush) -> dict:
     argmax) and int32 ids on the host (the batcher's), beside
     ``F.embedding`` on the same ids (uploaded first where they are on the
     host)."""
-    from repro_torch.core.autotune import gather_grid
+    from repro_torch.core.autotune import gather_bytes, gather_grid
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -3399,7 +3415,7 @@ def time_gather(torch, np, gather_k, table, launches: int, flush) -> dict:
                 torch, lambda: embed(torch.from_numpy(host[0]).to(DEVICE), table), flush),
             "library_host_ids_host_us": lib_host,
             # each gathered row read and written once, each int64 id read once
-            "bound_ms": (2 * t * d * table.element_size() + 8 * t)
+            "bound_ms": gather_bytes(t, d, table.element_size())
             / HBM_BYTES_PER_S * 1e3,
             "grid": [t, chunks], "threads": threads}
         rows[t] = rec
@@ -4996,8 +5012,7 @@ def time_train_kernels(torch, np, ssd_k, gather_k, tm: dict, errs: dict,
                  for name in autotune.SSD_BWD_LAUNCHES}
     del buf, calls
     nc = l // q
-    nbytes = 4 * (3 * b * l * h * p + 2 * b * l * h + 4 * b * l * g * n
-                  + b * h * l + b * h * nc * p * n + b * h * p * n)
+    nbytes = autotune.ssd_bwd_bytes(b, l, h, p, g, n, q, 4, 4)
     flops = autotune.ssd_bwd_flops(b, l, h, p, n, q)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_OPS * 1e3
@@ -5040,7 +5055,7 @@ def time_train_kernels(torch, np, ssd_k, gather_k, tm: dict, errs: dict,
     dtable = torch.empty((v, d), dtype=torch.float32, device=DEVICE)
     glaunch = time_ms(torch, lambda: gather_k._launch_bwd(
         ids, dout, dtable, vec, stripe, chunks, threads), flush)
-    gbound = ((v * d + t * d) * 4 + 8 * t) / HBM_BYTES_PER_S * 1e3
+    gbound = autotune.gather_bwd_bytes(v, t, d, 4, 4) / HBM_BYTES_PER_S * 1e3
     blk = plan.blocks[0]
     phase("timing", f"B9 backward T={t} into ({v}, {d}) fp32 (the train step's "
           f"ids, no sort: one launch), grid {blk.grid} x {blk.block[0]} "
@@ -5150,6 +5165,8 @@ def time_gather_shard(torch, np, gather_k, flush, launches: int,
     and the plain version.  Bound: bytes this run's ids need (the T output
     rows written, the rows this shard owns read once each, the ids read)
     over HBM_BYTES_PER_S."""
+    from repro_torch.core import autotune
+
     out = {}
     for name, (v, d) in MESH_GATHER_TABLES.items():
         table = torch.randn((v, d), dtype=torch.float32, device=DEVICE)
@@ -5165,7 +5182,7 @@ def time_gather_shard(torch, np, gather_k, flush, launches: int,
                 table, ids), flush)
             plain_ms = time_ms(torch, lambda: gather_k.embedding_gather_shard_ref(
                 shard, ids, rows, v), flush)
-            nbytes = (t + owned) * d * 4 + t * 8
+            nbytes = autotune.gather_bytes(t, d, 4, owned)
             rec = {"ms": ms, "whole_table_ms": whole_ms, "plain_ms": plain_ms,
                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                    "owned_rows": owned}
@@ -6665,8 +6682,7 @@ def time_bf16(torch, np, ssd_k, gather_k, cfg, flush) -> dict:
             plain_ms = time_ms(torch, lambda: ssd_k.ssd_fused_ref(xd, ad, B, C,
                                                                    chunk=q), flush)
             flops = autotune.ssd_flops(b, l, h, p, n, q)
-            nbytes = 2 * (2 * b * l * h * p + 2 * b * l * g * n) \
-                + 4 * (b * l * h + b * h * p * n)
+            nbytes = autotune.ssd_bytes(b, l, h, p, g, n, 2, 4)
         else:
             dy = torch.randn_like(xd)
             _, fs, cum, ent = ssd_k._forward(xd, ad, B, C, q, None, keep=True)
@@ -6678,9 +6694,7 @@ def time_bf16(torch, np, ssd_k, gather_k, cfg, flush) -> dict:
             plain_ms = time_ms(torch, lambda: ssd_k.ssd_fused_bwd_ref(
                 xd, ad, B, C, dy, chunk=q), flush)
             flops = autotune.ssd_bwd_flops(b, l, h, p, n, q)
-            nc = l // q
-            nbytes = 2 * (3 * b * l * h * p + 4 * b * l * g * n) \
-                + 4 * (2 * b * l * h + b * h * l + b * h * nc * p * n + b * h * p * n)
+            nbytes = autotune.ssd_bwd_bytes(b, l, h, p, g, n, q, 2, 4)
         ops_ms = flops / FP32_OPS * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         out[name] = {"ms": ms, "fp32_ms": fp32_ms, "plain_ms": plain_ms,
@@ -6710,7 +6724,7 @@ def time_bf16(torch, np, ssd_k, gather_k, cfg, flush) -> dict:
            "plain_ms": time_ms(torch, lambda: gather_k.embedding_gather_ref(table, ids),
                                flush),
            "library_ms": time_ms(torch, lambda: embed(ids, table), flush),
-           "bound_ms": (2 * t * d * 2 + 8 * t) / HBM_BYTES_PER_S * 1e3,
+           "bound_ms": autotune.gather_bytes(t, d, 2) / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes",
            "shape": f"T={t} int64 ids on the card from ({v}, {d}) bf16"}
     out["embedding_gather_bf16"] = rec
@@ -6725,7 +6739,7 @@ def time_bf16(torch, np, ssd_k, gather_k, cfg, flush) -> dict:
             "plain_ms": time_ms(torch, lambda: gather_k.embedding_gather_shard_ref(
                 shard, sids, 0, v), flush),
             "library_ms": None,
-            "bound_ms": ((t + owned) * d * 2 + 8 * t) / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": autotune.gather_bytes(t, d, 2, owned) / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "shape": f"T={t} card ids on shard 0 ({rows}, {d}) bf16 of ({v}, {d}), "
                      f"{owned} owned"}
@@ -6759,8 +6773,8 @@ def time_bf16(torch, np, ssd_k, gather_k, cfg, flush) -> dict:
             "library_ms": time_ms(torch, lambda: torch.zeros(
                 (v, d), dtype=torch.float32, device=DEVICE).index_add_(
                 0, ids, dout).to(bf16), flush),
-            "bound_ms": (v * d * 2 + t * d * 4 + 8 * t) / HBM_BYTES_PER_S * 1e3,
-            "bf16_dout_bound_ms": ((v * d + t * d) * 2 + 8 * t)
+            "bound_ms": autotune.gather_bwd_bytes(v, t, d, 2, 4) / HBM_BYTES_PER_S * 1e3,
+            "bf16_dout_bound_ms": autotune.gather_bwd_bytes(v, t, d, 2, 2)
             / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "shape": f"T={t} train-step ids into ({v}, {d}) bf16 from float32 dout"}
@@ -6778,9 +6792,9 @@ def time_bf16(torch, np, ssd_k, gather_k, cfg, flush) -> dict:
              "library_ms": time_ms(torch, lambda: torch.zeros(
                  (rows, d), dtype=torch.float32, device=DEVICE).index_add_(
                  0, ids[mask], dout[mask]).to(bf16), flush),
-             "bound_ms": (rows * d * 2 + owned * d * 4 + 8 * t)
+             "bound_ms": autotune.gather_bwd_bytes(rows, t, d, 2, 4, owned)
              / HBM_BYTES_PER_S * 1e3,
-             "bf16_dout_bound_ms": ((rows + owned) * d * 2 + 8 * t)
+             "bf16_dout_bound_ms": autotune.gather_bwd_bytes(rows, t, d, 2, 2, owned)
              / HBM_BYTES_PER_S * 1e3,
              "bound_by": "bytes",
              "shape": f"T={t} train-step ids into shard 0 ({rows}, {d}) bf16 of "
@@ -7429,6 +7443,230 @@ def add_mesh_families(kernels: list[dict], mf: dict) -> None:
         rec["launches"] += n
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the dry run
+# ---------------------------------------------------------------------------
+
+#: The production cell phase 20 runs on 256 placeholder host devices, in a
+#: subprocess started after the build at the lowest CPU priority: it
+#: takes minutes of one core, more than the run's limit leaves after the
+#: other phases on a slow host, so it runs beside them
+#: (``scripts/cell_overlap.py`` measures what that moves).
+DRYRUN_CELL = ("qwen3-14b", "decode_32k", "single")
+#: Seconds phase 20 waits for it at most once the card's checks are done.
+DRYRUN_CELL_WAIT = 360
+#: The dry run's peak against the card's max_memory_allocated (relative):
+#: above the misses of sound dry runs (0.47% at most on an H100) and below
+#: the smallest block the dry run must see, B8's saved cum and entering
+#: states of mamba2's train step (0.67 GB, 1.4% of its peak).
+DRYRUN_PEAK_RTOL = 0.01
+#: llama-3.2-3b's prefill held to its dry run: (batch, prompt), fp32 with
+#: fp32 caches of prompt + LM_NEW_TOKENS slots, as phase 10b serves it.
+DRYRUN_PREFILL = (LM_SLOTS, LM_PROMPT)
+
+
+def start_dryrun_cell():
+    """DRYRUN_CELL's dry run (``python -m repro_torch.launch.dryrun``, its
+    record written under ``results/dryrun_torch/``) in a subprocess of this
+    checkout at the lowest CPU priority (nice 19: the idle scheduling class
+    is refused on some hosts, and a scheduler may ignore niceness), and
+    its start time; killed at exit if still running."""
+    import atexit
+
+    root = Path(__file__).resolve().parent
+    arch, shape, mesh = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    low = ("import os, runpy; os.nice(19); "
+           "runpy.run_module('repro_torch.launch.dryrun', run_name='__main__')")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", low, "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--force"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter()
+
+
+def dryrun_vs_card(torch, dryrun, label: str, build, ssd_k, gather_k,
+                   launches: dict) -> dict:
+    """``build(fake)`` -> (step, args, batch): its dry run on one
+    placeholder host device (fake tensors), then the same step on the
+    card: argument bytes equal to what the caching allocator was asked for
+    while the arguments were built (its ``requested_bytes``, unrounded) plus
+    the host batch, aten FLOPs equal to ``FlopCounterMode`` of the card's
+    step, the predicted peak within DRYRUN_PEAK_RTOL of
+    ``max_memory_allocated`` over the step (the memory allocated before
+    the arguments left out); B8's and B9's launches of the card's step
+    counted from 0."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    t0 = time.perf_counter()
+    with dryrun.recording() as acct:
+        fn, args, batch = build(True)
+        pred, _ = dryrun.run_step(fn, args, batch, None, acct)
+    del fn, args, batch
+    dry_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    asked = torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+    fn, args, batch = build(False)
+    gc.collect()
+    on_card = torch.cuda.memory_stats()["requested_bytes.all.current"] - asked
+    arg = on_card + sum(t.numel() * t.element_size() for t in batch.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_lm_counts(ssd_k, gather_k)
+    counter = FlopCounterMode(display=False)
+    t1 = time.perf_counter()
+    with counter:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    ran = all_lm_counts(ssd_k, gather_k)
+    add_counts(launches, ran)
+    aten = int(counter.get_total_flops())
+    miss = abs(pred["peak_bytes_per_device"] - peak) / peak
+    got = {"label": label, "argument_bytes": arg,
+           "predicted_argument_bytes": pred["argument_size_in_bytes"],
+           "aten_flops": aten, "predicted_aten_flops": pred["flops_split"]["aten"],
+           "kernel_flops": pred["flops_split"]["kernels"],
+           "peak_bytes": peak, "predicted_peak_bytes": pred["peak_bytes_per_device"],
+           "peak_miss": miss, "kernels": pred["kernels"], "launches": ran,
+           "dry_s": dry_s, "step_s": step_s}
+    phase("dryrun", f"{label}: arguments {arg} B ({on_card} B the allocator was asked "
+          f"for, the rest the host batch), {pred['argument_size_in_bytes']} "
+          f"predicted; aten FLOPs {aten} (FlopCounterMode of the card's step), "
+          f"{pred['flops_split']['aten']} predicted, + {pred['flops_split']['kernels']} "
+          f"charged by B8 / B9's abstract forms; peak {peak / 1e9:.3f} GB "
+          f"(max_memory_allocated over the step, the {base / 1e9:.3f} GB "
+          f"allocated before left out), {pred['peak_bytes_per_device'] / 1e9:.3f} GB "
+          f"predicted ({100 * miss:.2f}% off); kernels charged {pred['kernels']}; "
+          f"card launches {ran}; dry run {dry_s:.1f} s, card step {step_s:.2f} s")
+    if arg != pred["argument_size_in_bytes"]:
+        raise AssertionError(f"dryrun {label}: argument bytes {arg} on the card, "
+                             f"{pred['argument_size_in_bytes']} predicted")
+    if aten != pred["flops_split"]["aten"]:
+        raise AssertionError(f"dryrun {label}: aten FLOPs {aten} on the card, "
+                             f"{pred['flops_split']['aten']} predicted")
+    if miss > DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"dryrun {label}: peak {peak} B on the card, "
+                             f"{pred['peak_bytes_per_device']} predicted "
+                             f"({100 * miss:.2f}% > {100 * DRYRUN_PEAK_RTOL:.0f}%)")
+    del out, fn, args, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def dryrun_path(torch, np, configs, M, specs, dryrun, ssd_k, gather_k,
+                cell) -> dict:
+    """Phase 20: (a) mamba2-2.7b's train step at (TRAIN_BATCH, TRAIN_SEQ)
+    (the train phase's, remat TRAIN_REMAT, B8, B9 and their backwards) and
+    llama-3.2-3b's prefill at DRYRUN_PREFILL held to their dry runs on one
+    placeholder; (b) DRYRUN_CELL on 256 placeholders (``cell``: the
+    subprocess and its start) read back, its record printed beside the
+    card's memory."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    launches: dict = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = train_config(configs)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR), remat=TRAIN_REMAT)
+    host = {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in train_batch(np, cfg, TRAIN_BATCH).items()}
+
+    def train(fake):
+        step = make_train_step(cfg, tcfg)
+        if fake:
+            with specs.fake_mode():
+                batch = {k: torch.empty(v.shape, dtype=v.dtype) for k, v in host.items()}
+            return step, (specs.abstract_train_state(cfg, tcfg), batch), batch
+        state = init_train_state(M.make_generator(LM_SEED, DEVICE), cfg, tcfg)
+        return step, (state, host), host
+
+    out = {"train": dryrun_vs_card(torch, dryrun, f"{cfg.name} train step "
+                                   f"({TRAIN_BATCH}, {TRAIN_SEQ}) fp32 remat "
+                                   f"{TRAIN_REMAT}", train, ssd_k, gather_k,
+                                   launches)}
+    dense = lm_dense_config(configs)
+    b, s = DRYRUN_PREFILL
+    toks = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, dense.vocab_size, (b, s)).astype(np.int32))
+
+    def prefill(fake):
+        def step(params, batch, caches):
+            return M.prefill(params, dense, batch, caches, dtype=torch.float32)
+        if fake:
+            with specs.fake_mode():
+                batch = {"tokens": torch.empty((b, s), dtype=torch.int32)}
+            return step, (specs.abstract_params(dense), batch, specs.abstract_caches(
+                dense, b, s + LM_NEW_TOKENS, torch.float32)), batch
+        batch = {"tokens": toks}
+        return step, (M.init_params(M.make_generator(LM_SEED, DEVICE), dense), batch,
+                      M.init_caches(dense, b, s + LM_NEW_TOKENS, torch.float32,
+                                    device=DEVICE)), batch
+
+    out["prefill"] = dryrun_vs_card(torch, dryrun, f"{dense.name} prefill ({b}, {s}) "
+                                    "fp32", prefill, ssd_k, gather_k, launches)
+    # (b) the production cell, started after the build
+    proc, started = cell
+    try:
+        text, _ = proc.communicate(timeout=DRYRUN_CELL_WAIT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"dryrun {' '.join(DRYRUN_CELL)}: not done "
+                             f"{time.perf_counter() - started:.0f} s after its start")
+    for ln in text.strip().splitlines():
+        phase("dryrun", f"  {ln}")
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun {' '.join(DRYRUN_CELL)} exited {proc.returncode}")
+    arch, shape, mesh = DRYRUN_CELL
+    rec = json.loads(Path(dryrun.result_path(arch, shape, mesh, {})).read_text())
+    total = torch.cuda.get_device_properties(0).total_memory
+    fits = rec["peak_bytes_per_device"] <= total
+    phase("dryrun", f"{arch} {shape} on {rec['devices']} placeholders "
+          f"{rec['mesh_shape']} ({rec['placeholders_reported']} reported): "
+          f"{rec['seconds']} s in its process (build {rec['build_s']} s, run "
+          f"{rec['run_s']} s), {time.perf_counter() - started:.1f} s since its "
+          f"start after the build; per device (max / lead): arguments "
+          f"{rec['argument_size_in_bytes'] / 1e9:.3f} / "
+          f"{rec['lead']['argument_size_in_bytes'] / 1e9:.3f} GB, peak "
+          f"{rec['peak_bytes_per_device'] / 1e9:.3f} / "
+          f"{rec['lead']['peak_bytes_per_device'] / 1e9:.3f} GB, temp "
+          f"{rec['temp_size_in_bytes'] / 1e9:.3f} GB, output "
+          f"{rec['output_size_in_bytes'] / 1e9:.3f} GB, FLOPs {rec['flops']:.4e}, "
+          f"bytes accessed {rec['bytes_accessed']:.4e}, collective wire bytes "
+          f"{rec['collectives']['wire_bytes']:.4e} "
+          f"({', '.join(f'{k} {v['wire_bytes']:.3e}' for k, v in rec['collectives']['kinds'].items())}); "
+          f"the card holds {total / 1e9:.2f} GB: the peak "
+          f"{'fits' if fits else 'does not fit'} a card of a mesh of that shape")
+    out["cell"] = {k: rec[k] for k in ("arch", "shape", "mesh", "devices", "seconds",
+                                        "argument_size_in_bytes",
+                                        "peak_bytes_per_device", "temp_size_in_bytes",
+                                        "flops", "bytes_accessed")}
+    out["cell"]["fits"] = fits
+    out["launches"] = {k: n for k, n in launches.items() if n}
+    phase("dryrun", f"launches {out['launches']}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def add_dryrun(kernels: list[dict], dr: dict) -> None:
+    """Phase 20 on the kernels line: the card steps' launches of B8 and B9
+    (each form) under ``launches_by_path["dryrun"]``."""
+    for name, n in dr["launches"].items():
+        rec = next(r for r in kernels if r["name"] == name)
+        rec.setdefault("launches_by_path", {"earlier phases": rec["launches"]})
+        rec["launches_by_path"]["dryrun"] = n
+        rec["launches"] += n
+
+
 def main() -> int:
     import torch
 
@@ -7453,6 +7691,7 @@ def main() -> int:
     from repro_torch.kernels import spmv as spmv_k
     from repro_torch.kernels import ssd as ssd_k
     from repro_torch.kernels.execspec import ExecSpec
+    from repro_torch.launch import dryrun
     from repro_torch.launch import specs as specs_mod
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import model as M
@@ -7478,6 +7717,8 @@ def main() -> int:
         for ln in regs:
             phase("build", f"  {ln}")
     phase("build", f"all kernels built in {time.perf_counter() - t0:.1f} s")
+    # phase 20's production cell: host work at nice 19, beside 3-19
+    dry_cell = start_dryrun_cell()
 
     # -- 3. kernels vs plain ---------------------------------------------------
     t0 = time.perf_counter()
@@ -7660,7 +7901,13 @@ def main() -> int:
     t0 = time.perf_counter()
     add_flags(kernels, run_flags(torch, np, configs, M, serve, make_mesh,
                                  attn_mod, specs_mod, ssd_k, gather_k))
-    phase("flags", f"done in {time.perf_counter() - t0:.1f} s; whole run "
+    phase("flags", f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 20. the dry run: predicted against the card; a production cell --
+    t0 = time.perf_counter()
+    add_dryrun(kernels, dryrun_path(torch, np, configs, M, specs_mod, dryrun,
+                                    ssd_k, gather_k, dry_cell))
+    phase("dryrun", f"done in {time.perf_counter() - t0:.1f} s; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

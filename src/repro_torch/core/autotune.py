@@ -641,6 +641,52 @@ def ssd_flops_executed(b: int, l: int, h: int, p: int, n: int, chunk: int,
     }
 
 
+def ssd_bytes(b: int, l: int, h: int, p: int, g: int, n: int, itemsize: int,
+              acc_itemsize: int, init: bool = False) -> int:
+    """Least bytes of the scan as a function: xd, B and C read and y
+    written once in their dtype, ad read and the final state (and any
+    initial state) in the accumulation dtype.  mamba2's prefill at b 1
+    fp32: 21.0 MB."""
+    b, l, h, p, g, n = (int(v) for v in (b, l, h, p, g, n))
+    states = b * h * p * n * (2 if init else 1)
+    return int(itemsize) * (2 * b * l * h * p + 2 * b * l * g * n) \
+        + int(acc_itemsize) * (b * l * h + states)
+
+
+def ssd_bwd_bytes(b: int, l: int, h: int, p: int, g: int, n: int,
+                  chunk: int, itemsize: int, acc_itemsize: int) -> int:
+    """Least bytes of the backward: xd, dy and dX (and B, C, dB, dC) once
+    in their dtype; ad, dad, the forward's cum, its entering states and
+    its final state in the accumulation dtype."""
+    b, l, h, p, g, n = (int(v) for v in (b, l, h, p, g, n))
+    nc = l // int(chunk)
+    return int(itemsize) * (3 * b * l * h * p + 4 * b * l * g * n) \
+        + int(acc_itemsize) * (2 * b * l * h + b * h * l + b * h * nc * p * n
+                               + b * h * p * n)
+
+
+def gather_bytes(t: int, d: int, itemsize: int, owned: int | None = None) -> int:
+    """Least bytes of kernel B9: each gathered row read and each output row
+    written once, each (int64) id read once: 2·T·d·itemsize + 8·T.  The
+    vocab-shard form (``owned``: the ids whose row the shard holds) writes
+    every row and reads only its own: (T + owned)·d·itemsize + 8·T."""
+    t, d = int(t), int(d)
+    reads = t if owned is None else int(owned)
+    return (t + reads) * d * int(itemsize) + 8 * t
+
+
+def gather_bwd_bytes(rows: int, t: int, d: int, table_itemsize: int,
+                     dout_itemsize: int, owned: int | None = None) -> int:
+    """Least bytes of B9's backward: the (rows, d) gradient written once,
+    each summed row of dout read once (the shard form: its ``owned`` ones;
+    the whole table: all T), each id read once: rows·d·table_itemsize +
+    owned·d·dout_itemsize + 8·T."""
+    t, d = int(t), int(d)
+    reads = t if owned is None else int(owned)
+    return int(rows) * d * int(table_itemsize) + reads * d * int(dout_itemsize) \
+        + 8 * t
+
+
 #: Most columns one pass-A block of the two-pass FFT holds (the tile T):
 #: its T adjacent columns make each row segment it reads and writes T
 #: elements long (T >= 4 in fp64: a 32 B sector).

@@ -79,8 +79,11 @@ from repro_torch.analysis.preflight import (
 from repro_torch.core.autotune import (
     DTYPE_BYTES,
     GATHER_BWD_SLICE,
+    gather_bwd_bytes,
     gather_bwd_grid,
+    gather_bytes,
 )
+from repro_torch.kernels import abstract
 
 __all__ = ["BWD_LAUNCHES", "KERNEL_LAUNCHES", "SHARD_BWD_LAUNCHES",
            "SHARD_LAUNCHES", "clamp_ids", "embedding_gather",
@@ -150,13 +153,15 @@ def _shape_plan(vocab: int, d: int, shape: tuple, id_dtype: str, dtype: str,
 
 def _plan(vocab: int, d: int, ids, dtype: str, vl: int,
           shard: tuple[int, int] | None = None):
-    """The launch plan of one call.  Ids on a device: the cached plan of
-    their shape and dtype (their values are never read back).  Ids on the
-    host: the same cached plan once their values pass the range scan, which
-    runs on every call; else the full plan, naming the violation."""
+    """The launch plan of one call.  Ids on a device, or fake ids (no
+    values): the cached plan of their shape and dtype (their values are
+    never read back).  Ids on the host: the same cached plan once their
+    values pass the range scan, which runs on every call; else the full
+    plan, naming the violation."""
     plan = _shape_plan(vocab, d, tuple(ids.shape), str(ids.dtype), dtype, vl,
                        shard)
-    if plan.ok and ids_on_host(ids) and gather_ids_violation(ids, vocab):
+    if plan.ok and ids_on_host(ids) and not abstract.is_fake(ids) \
+            and gather_ids_violation(ids, vocab):
         return _full_plan(vocab, d, ids, dtype, vl, shard)
     return plan
 
@@ -177,8 +182,16 @@ def _launch(table, ids, out, chunks: int, threads: int,
     PyTorch's current stream of the table's device, with that device
     current.  ``ids`` are int32 or int64 on the table's device.
     ``window``: ``(lo, vocab)`` where ``table`` holds rows ``[lo, lo +
-    len(table))`` of a vocab-row table (the vocab-shard form's entry)."""
+    len(table))`` of a vocab-row table (the vocab-shard form's entry).
+    Fake tensors (the dry run: :mod:`repro_torch.kernels.abstract`) are
+    charged and not launched."""
     global KERNEL_LAUNCHES, SHARD_LAUNCHES
+    if abstract.is_fake(table, ids, out):
+        abstract.charge(
+            "embedding_gather" if window is None else "embedding_gather_shard",
+            table.device, 0, gather_bytes(ids.shape[0], table.shape[1],
+                                          table.element_size()))
+        return
     whole, shard, error_string = _kernel()
     index = table.device.index
     tail = (ids.data_ptr(), out.data_ptr(), ids.shape[0],
@@ -244,7 +257,8 @@ def _checked(table: torch.Tensor, ids, vl: int,
              window: tuple[int, int] | None = None):
     """The checks of both wrappers: the table's shape and dtype, the plan
     (raised if invalid, before any upload), then the ids as a tensor (on
-    the table's card as int32 / int64 for a CUDA table).  ``window``:
+    the table's card as int32 / int64 for a CUDA table, on its placeholder
+    for a fake one).  ``window``:
     ``(lo, vocab)`` of a table shard.  Returns (table, ids, plan)."""
     if table.ndim != 2:
         raise ValueError(f"table must be (V, d), got shape {tuple(table.shape)}")
@@ -260,7 +274,7 @@ def _checked(table: torch.Tensor, ids, vl: int,
     plan.raise_if_invalid()
     if isinstance(ids, np.ndarray):
         ids = torch.from_numpy(ids)
-    if table.device.type == "cuda":
+    if table.device.type == "cuda" or abstract.is_fake(table, ids):
         if ids.device.type == "cuda" and ids.device != table.device:
             raise ValueError(f"ids on {ids.device}, table on {table.device}")
         if ids.dtype not in _ID_BYTES:
@@ -277,8 +291,9 @@ def _gather(table: torch.Tensor, ids: torch.Tensor, plan,
             window: tuple[int, int] | None = None) -> torch.Tensor:
     """The gather of planned ids (the shard ``window = (lo, vocab)`` of a
     table where given): the plain version on a CPU table, else one launch
-    of kernel B9 (ids already on the table's card)."""
-    if table.device.type == "cpu":
+    of kernel B9 (ids already on the table's card); fake tensors take the
+    card's path."""
+    if table.device.type == "cpu" and not abstract.is_fake(table, ids):
         if window is None:
             return embedding_gather_ref(table, ids)
         return embedding_gather_shard_ref(table, ids, *window)
@@ -443,7 +458,8 @@ def _bwd(dout: torch.Tensor, ids, vocab: int,
          shard: tuple[int, int] | None = None, *,
          dtype: torch.dtype | None = None) -> torch.Tensor:
     """Both backward wrappers: the checks, then the plain version on the
-    CPU or one launch of the kernel (``shard``: ``(lo, rows)`` of the
+    CPU or one launch of the kernel (fake tensors on any device: the
+    card's path, charged and not launched; ``shard``: ``(lo, rows)`` of the
     table's rows; ``dtype``: the gradient's, None for ``dout``'s)."""
     if dout.ndim != 2:
         raise ValueError(f"dout must be (T, d), got {tuple(dout.shape)}")
@@ -461,12 +477,13 @@ def _bwd(dout: torch.Tensor, ids, vocab: int,
         raise ValueError(f"ids {tuple(ids.shape)} do not match dout "
                          f"{tuple(dout.shape)}")
     dev = dout.device
-    if dev.type == "cpu":
+    fake = abstract.is_fake(dout, ids)
+    if dev.type == "cpu" and not fake:
         if shard is None:
             return embedding_gather_bwd_ref(dout, ids.cpu(), vocab, dtype=dtype)
         return embedding_gather_shard_bwd_ref(dout, ids.cpu(), *shard, vocab,
                                               dtype=dtype)
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not fake:
         raise RuntimeError(f"embedding_gather_bwd has a CUDA kernel and a CPU "
                            f"reference; got {dev}")
     if ids.dtype not in _ID_BYTES:
@@ -483,7 +500,7 @@ def _bwd(dout: torch.Tensor, ids, vocab: int,
     plan, (stripe, chunks, threads, vec) = _bwd_plan(
         vocab, d, ids.shape[0], dout.dtype, ids.dtype, shard, dtype)
     plan.raise_if_invalid()
-    if dout.data_ptr() % vec:
+    if not fake and dout.data_ptr() % vec:
         dout = dout.clone()                   # a fresh allocation is aligned
     n_rows = vocab if shard is None else shard[1]
     dtable = torch.empty((n_rows, d), dtype=dtype, device=dev)
@@ -523,15 +540,23 @@ def _launch_bwd(ids, dout, dtable, vec: int, stripe: int, chunks: int,
     current.  ``window``: ``(lo, vocab)`` where ``dtable`` is the gradient
     of rows ``[lo, lo + len(dtable))`` of a vocab-row table (the shard
     entry).  A bf16 ``dtable`` from more than one slice of ids gets its
-    float32 carry (T, d) here."""
+    float32 carry (T, d) here.  Fake tensors are charged, every id counted
+    as the shard's (the dry run reads no id), and not launched."""
     global BWD_LAUNCHES, SHARD_BWD_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
-    lib = cuda_lib.library("embedding_gather")
-    index = dout.get_device()
     t, d = dout.shape
     carry = (torch.empty((t, d), dtype=torch.float32, device=dout.device)
              if dtable.element_size() < 4 and t > GATHER_BWD_SLICE else None)
+    if abstract.is_fake(ids, dout, dtable):
+        abstract.charge(
+            "embedding_gather_bwd" if window is None
+            else "embedding_gather_shard_bwd", dout.device, 0,
+            gather_bwd_bytes(dtable.shape[0], t, d, dtable.element_size(),
+                             dout.element_size()))
+        return
+    lib = cuda_lib.library("embedding_gather")
+    index = dout.get_device()
     tail = (t, d, _DTYPE_CODE[dout.dtype], _DTYPE_CODE[dtable.dtype], vec,
             stripe, chunks, threads, torch.cuda.current_stream(index).cuda_stream)
     head = (ids.data_ptr(), _ID_BYTES[ids.dtype], dout.data_ptr(),

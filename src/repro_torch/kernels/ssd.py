@@ -61,8 +61,13 @@ from repro_torch.core.autotune import (
     SSD_LAUNCHES,
     SSD_SCAN_ROWS,
     SSD_TILE,
+    ssd_bwd_bytes,
+    ssd_bwd_flops,
     ssd_bwd_pairs,
+    ssd_bytes,
+    ssd_flops,
 )
+from repro_torch.kernels import abstract
 
 __all__ = ["BWD_LAUNCHES", "KERNEL_LAUNCHES", "LAUNCHES_PER_BWD",
            "LAUNCHES_PER_CALL", "segsum", "ssd_chunk_parallel_model",
@@ -270,29 +275,43 @@ def _launch(xd, ad, B, C, init, y, fstate, chunk: int, keep: bool = False
     call; without it (serving) the three share one block, passed to the
     launches as raw pointers, and nothing is returned (None, None).  The
     bf16 form's y partial sums (``yacc``, float32) are allocated here
-    where p takes more than one 64-column slice."""
+    where p takes more than one 64-column slice.  Fake tensors (the dry
+    run: :mod:`repro_torch.kernels.abstract`) stop after the allocations:
+    the work is charged and nothing is launched."""
     global KERNEL_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
-    lib = cuda_lib.library("ssd_fused")
     b, l, h, p = xd.shape
     g, n = B.shape[2], B.shape[3]
-    code = _DTYPE_CODE[xd.dtype]
     nc = l // chunk
     n_cum = -(-b * h * l // 4) * 4            # the states start 16 B aligned
     n_st = b * h * nc * p * n
     kept = torch.empty(n_cum + (1 if keep else 2) * n_st, dtype=fstate.dtype,
                        device=xd.device)
-    base, item = kept.data_ptr(), kept.element_size()
-    cum, entering = base, base + n_cum * item
     states = (torch.empty(n_st, dtype=fstate.dtype, device=xd.device)
               if keep else None)
+    yacc = (torch.empty((b, l, h, p), dtype=fstate.dtype, device=xd.device)
+            if xd.dtype == torch.bfloat16 and p > SSD_TILE else None)
+
+    def kept_views():
+        if not keep:
+            return None, None
+        return (kept[:b * h * l].view(b, h, l),
+                kept[n_cum:n_cum + n_st].view(b, h, nc, p, n))
+
+    if abstract.is_fake(xd, ad, B, C, init):
+        abstract.charge("ssd_fused", xd.device, ssd_flops(b, l, h, p, n, chunk),
+                        ssd_bytes(b, l, h, p, g, n, xd.element_size(),
+                                  fstate.element_size(), init is not None))
+        return kept_views()
+    lib = cuda_lib.library("ssd_fused")
+    code = _DTYPE_CODE[xd.dtype]
+    base, item = kept.data_ptr(), kept.element_size()
+    cum, entering = base, base + n_cum * item
     st = states.data_ptr() if keep else base + (n_cum + n_st) * item
     x_, b_ = xd.data_ptr(), B.data_ptr()
     y_, f_ = y.data_ptr(), fstate.data_ptr()
     init_ = None if init is None else init.data_ptr()
-    yacc = (torch.empty((b, l, h, p), dtype=fstate.dtype, device=xd.device)
-            if xd.dtype == torch.bfloat16 and p > SSD_TILE else None)
     yacc_ = None if yacc is None else yacc.data_ptr()
     index = xd.device.index
     stream = torch.cuda.current_stream(index).cuda_stream
@@ -317,23 +336,22 @@ def _launch(xd, ad, B, C, init, y, fstate, chunk: int, keep: bool = False
                     f"{msg}) for (b, l, h, p, g, n) = {(b, l, h, p, g, n)}, "
                     f"chunk {chunk}")
             KERNEL_LAUNCHES += 1
-    if not keep:
-        return None, None
-    return (kept[:b * h * l].view(b, h, l),
-            kept[n_cum:n_cum + n_st].view(b, h, nc, p, n))
+    return kept_views()
 
 
 def _forward(xd, ad, B, C, chunk: int, init_state, keep: bool, dims=None):
     """The scan of checked arguments: (y, final state) and, on the card,
     the forward's cum and entering states (for the backward when ``keep``;
-    None on the CPU).  ``dims``: :func:`_check_args`' result, when the
+    None on the CPU).  Fake tensors on any device take the card's path up
+    to :func:`_launch`.  ``dims``: :func:`_check_args`' result, when the
     caller has it."""
     b, l, h, p, g, n = dims or _check_args(xd, ad, B, C, init_state)
-    if xd.device.type == "cpu":
+    fake = abstract.is_fake(xd, ad, B, C, init_state)
+    if xd.device.type == "cpu" and not fake:
         y, fstate = ssd_fused_ref(xd, ad, B, C, chunk=chunk,
                                   init_state=init_state)
         return y, fstate, None, None
-    if xd.device.type != "cuda":
+    if xd.device.type != "cuda" and not fake:
         raise RuntimeError(
             f"ssd_fused has a CUDA kernel and a CPU reference; got {xd.device}")
     _plan(b, l, h, p, g, n, chunk, xd.dtype).raise_if_invalid()
@@ -511,6 +529,8 @@ class _BwdBuffers:
                         else xd.new_empty((b, h, p, n), dtype=acc))
         self._at, total = _bwd_scratch_layout(b, l, h, p, g, n, chunk)
         self._block = xd.new_empty((total,), dtype=acc)
+        if abstract.is_fake(self._block):
+            return                            # no storage: no pointers
         base, item = self._block.data_ptr(), self._block.element_size()
         self.ptr = {k: base + at * item for k, (at, _) in self._at.items()}
         for k, t in zip(("dx", "dad", "dB", "dC", "dinit"), self.outputs):
@@ -582,12 +602,22 @@ def _launch_bwd(xd, B, C, dy, dfinal, init, fstate, cum, entering,
     :data:`SSD_BWD_LAUNCHES` order through :func:`_bwd_calls`; each is
     counted once it is made, and a refused one raises, naming it, before
     the next is tried.  Returns (dxd, dad, dB, dC, dinit or None); outputs
-    and scratch are allocated here (:class:`_BwdBuffers`)."""
+    and scratch are allocated here (:class:`_BwdBuffers`).  Fake tensors
+    stop after the allocations: the work is charged, nothing launched."""
     global BWD_LAUNCHES
     from repro_torch.kernels import cuda_lib
 
-    lib = cuda_lib.library("ssd_bwd")
     buf = _BwdBuffers(xd, B, init, chunk)
+    if abstract.is_fake(xd, B, C, dy, dfinal, init, fstate, cum, entering):
+        b, l, h, p = xd.shape
+        g, n = B.shape[2], B.shape[3]
+        abstract.charge("ssd_fused_bwd", xd.device,
+                        ssd_bwd_flops(b, l, h, p, n, chunk),
+                        ssd_bwd_bytes(b, l, h, p, g, n, chunk,
+                                      xd.element_size(),
+                                      buf._block.element_size()))
+        return buf.outputs
+    lib = cuda_lib.library("ssd_bwd")
     index = xd.device.index
     calls = _bwd_calls(lib, xd, B, C, dy, dfinal, init, fstate, cum,
                        entering, chunk, buf,
@@ -615,7 +645,8 @@ def ssd_fused_bwd(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
     (xd, ad, B, C, init_state), given dy (b, l, h, p) and ``dfinal``
     (b, h, p, n; None: zero).  On CUDA tensors the
     :data:`LAUNCHES_PER_BWD` launches of ``csrc/ssd_bwd.cu``, or raises; on
-    CPU tensors :func:`ssd_fused_bwd_ref`.  ``saved`` is the forward's
+    CPU tensors :func:`ssd_fused_bwd_ref`; fake tensors on any device take
+    the card's path up to :func:`_launch_bwd`.  ``saved`` is the forward's
     (final state, cum, entering states) from its launches; without it the
     forward's launches run first to make them.  Returns (dxd, dad, dB, dC,
     d init_state or None) in the inputs' dtype."""
@@ -623,11 +654,12 @@ def ssd_fused_bwd(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
     if dy.shape != xd.shape or dy.device != xd.device:
         raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} is not xd's "
                          f"{tuple(xd.shape)} on {xd.device}")
-    if xd.device.type == "cpu":
+    fake = abstract.is_fake(xd, ad, B, C, dy, dfinal, init_state)
+    if xd.device.type == "cpu" and not fake:
         dxd, dad, dB, dC, dinit = ssd_fused_bwd_ref(
             xd, ad, B, C, dy, dfinal, chunk=chunk, init_state=init_state)
         return dxd, dad, dB, dC, None if init_state is None else dinit
-    if xd.device.type != "cuda":
+    if xd.device.type != "cuda" and not fake:
         raise RuntimeError(f"ssd_fused_bwd has a CUDA kernel and a CPU "
                            f"reference; got {xd.device}")
     _bwd_plan(b, l, h, p, g, n, chunk, xd.dtype).raise_if_invalid()
@@ -644,3 +676,4 @@ def ssd_fused_bwd(xd: torch.Tensor, ad: torch.Tensor, B: torch.Tensor,
     dfinal = None if dfinal is None else dfinal.to(acc).contiguous()
     return _launch_bwd(xd, B, C, dy, dfinal, init, fstate, cum, entering,
                        chunk)
+

@@ -25,9 +25,9 @@ Two execution paths share the routing math, as in the reference:
 ``ExecSpec.dispatch`` selects the path (``"dense"`` / ``"sell"`` /
 ``"auto"``).  The host pack needs concrete activations: the reference
 keeps ``"auto"`` dense under a JAX tracer.  PyTorch runs eagerly, so its
-counterpart of a tracer is CUDA-graph capture or ``torch.compile``
-(:func:`_under_capture`): there ``"auto"`` runs dense and ``"sell"``
-raises; everywhere else ``"auto"`` runs SELL.  A forward that records a
+counterpart of a tracer is CUDA-graph capture, ``torch.compile`` or the
+dry run's fake tensors (:func:`_under_capture`): there ``"auto"`` runs
+dense and ``"sell"`` raises; everywhere else ``"auto"`` runs SELL.  A forward that records a
 graph (a train step) is treated as capture too, as the reference's jitted
 train step is: kernel B1 has no backward in either package, so ``"auto"``
 runs dense and ``"sell"`` raises.  ``spec=None`` outside a
@@ -61,7 +61,7 @@ from torch import nn
 from torch.nn import functional as Fn
 
 from repro_torch.compat import MeshContext, current_mesh_context
-from repro_torch.kernels import ops
+from repro_torch.kernels import abstract, ops
 from repro_torch.kernels.execspec import ExecSpec
 from repro_torch.models import sharding as shrd
 from repro_torch.models.config import ModelConfig
@@ -114,9 +114,11 @@ def sell_dispatch(spec: ExecSpec | None = None, submit=None):
 
 
 def _under_capture() -> bool:
-    """PyTorch's counterpart of a JAX tracer: a CUDA-graph capture or a
-    ``torch.compile`` trace, where no value may be read back to the host."""
-    if torch.compiler.is_compiling():
+    """PyTorch's counterpart of a JAX tracer: a CUDA-graph capture, a
+    ``torch.compile`` trace or fake tensors (the dry run,
+    :func:`repro_torch.kernels.abstract.tracing`), where no value may be
+    read back to the host."""
+    if torch.compiler.is_compiling() or abstract.tracing():
         return True
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 

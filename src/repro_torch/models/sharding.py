@@ -69,6 +69,29 @@ DATA = ("pod", "data")
 #: tensor-parallel axis
 TP = "model"
 
+#: The dry run's hook (:mod:`repro_torch.launch.dryrun`): None, or a
+#: callable that takes a collective's kind and returns a context manager
+#: under which the helper's copies between devices are counted as that
+#: kind.  Each helper that moves blocks between a mesh's devices names the
+#: collective GSPMD would insert for it: :func:`sum_on` an all-reduce,
+#: :func:`cat_on`, :meth:`Sharded.full` and :meth:`Sharded.local` an
+#: all-gather, :func:`reduce_grads` a reduce-scatter, :func:`write_blocks`
+#: a collective-permute.  While it is None a helper is its plain call.
+COLLECTIVE_TAG = None
+
+
+def _collective(kind: str):
+    """The helper's copies counted as ``kind`` while a dry run records."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def tagged(*args, **kwargs):
+            if COLLECTIVE_TAG is None:
+                return fn(*args, **kwargs)
+            with COLLECTIVE_TAG(kind):
+                return fn(*args, **kwargs)
+        return tagged
+    return wrap
+
 
 def current_axis_names(ctx: MeshContext | None = None) -> tuple[str, ...]:
     ctx = current_mesh_context() if ctx is None else MeshContext.of(ctx)
@@ -172,6 +195,7 @@ class Sharded:
     def dtype(self) -> torch.dtype:
         return next(t for t in self.pieces.flat if t is not None).dtype
 
+    @_collective("all-gather")
     def full(self, device=None) -> torch.Tensor:
         """The whole value gathered on ``device`` (default: the mesh's first
         device); each block read from its first coordinate, so a reduced
@@ -192,6 +216,7 @@ class Sharded:
         """The slices of the whole value the piece at ``coord`` holds."""
         return _slices(self.shape, self.spec, self.mesh, coord)
 
+    @_collective("all-gather")
     def local(self, coord: tuple[int, ...]) -> torch.Tensor:
         """The block the device at ``coord`` computes with: its piece, or,
         where the spec splits a dim over a data axis (a parameter placed
@@ -317,6 +342,7 @@ def leads(x: Sharded):
     return ((grp[0], x.pieces[grp[0]]) for grp in groups(x))
 
 
+@_collective("reduce-scatter")
 def reduce_grads(leaf: Sharded, grads: dict, spec=None) -> Sharded:
     """The gradient of ``leaf`` given each piece's (``grads[coord]``, None
     for a piece the loss did not reach): the pieces of a block summed in
@@ -375,6 +401,7 @@ def _copy_plan(names, shape, dst_spec, src_spec, value_shape):
     return tuple(plan)
 
 
+@_collective("collective-permute")
 @torch.no_grad()
 def write_blocks(dst: Sharded, src: Sharded) -> None:
     """Copy each block of the reduced ``src`` (its spec ``dst``'s or a
@@ -643,6 +670,7 @@ class Row:
         return [leaf.local(c) for c in self.coords]
 
 
+@_collective("all-reduce")
 def sum_on(parts: list[torch.Tensor], device) -> torch.Tensor:
     """The partial results of a row's devices summed on ``device``, in
     model order (the all-reduce of a row-parallel product)."""
@@ -652,6 +680,7 @@ def sum_on(parts: list[torch.Tensor], device) -> torch.Tensor:
     return out
 
 
+@_collective("all-gather")
 def cat_on(parts: list[torch.Tensor], device, dim: int) -> torch.Tensor:
     """The blocks of a row's devices joined on ``device`` along ``dim``
     (the all-gather of a column-parallel product)."""

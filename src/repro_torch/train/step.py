@@ -100,19 +100,20 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig,
-                     tcfg: TrainConfig, params=None, *, mesh=None
-                     ) -> TrainState:
+                     tcfg: TrainConfig, params=None, *, mesh=None,
+                     zero1: bool = True) -> TrainState:
     """A fresh state: trainable parameters drawn from ``gen`` on its device
     (or ``params``, made trainable), AdamW's state, the compression
     residuals where the config compresses.  With ``mesh`` (or placed
     ``params``) the parameters are born sharded on it and the rest of the
-    state is placed by :func:`repro_torch.launch.specs.state_shardings`."""
+    state is placed by :func:`repro_torch.launch.specs.state_shardings`
+    (its ZeRO-1 split over ``data`` unless ``zero1`` is False)."""
     if params is None:
         params = M.init_params(gen, cfg, trainable=True, mesh=mesh)
     params.requires_grad_(True)
     keep = tcfg.param_dtype is not None
     if isinstance(params, shrd.PlacedParams):
-        specs = S.moment_shardings(params.mesh, cfg, params)
+        specs = S.moment_shardings(params.mesh, cfg, params, zero1)
         opt = adamw_init(params, keep_master=keep, specs=specs)
         comp = compression_init(params, specs) if tcfg.compress_grads else None
     else:
@@ -120,7 +121,7 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig,
         comp = (compression_init(dict(params.named_parameters()))
                 if tcfg.compress_grads else None)
     if keep:
-        params.to(tcfg.param_dtype)
+        S.convert_params(params, dtype=tcfg.param_dtype)
     return TrainState(params=params, opt=opt, comp=comp, step=0)
 
 
